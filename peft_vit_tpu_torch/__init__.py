@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of ``peft_vit_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package beside this one is the reference.  This package mirrors
+its layout (``peft/``, ``ops/``, ``models/``, ``engine/``) so that each
+module has a counterpart of the same name, and imports only ``torch`` and
+``numpy``: nothing of JAX and nothing of ``peft_vit_tpu``.
+
+Every Pallas kernel that the JAX package runs on a slice's path has a
+hand-written CUDA C++ counterpart in ``csrc/``, built with ``nvcc`` for
+``sm_90a`` at first use (``ops/_build.py``).  A kernel wrapper launches its
+kernel for CUDA tensors and runs its plain PyTorch version for CPU tensors;
+there is no other fallback.
+
+Ported so far: the deterministic serving path of the CLIP-style ViT LoRA
+classifier (``models.factory.flagship``, ``engine.serving.ServingSession``)
+with the flash-attention forward kernel.
+"""

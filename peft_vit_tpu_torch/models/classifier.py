@@ -1,0 +1,80 @@
+"""Classification head over a backbone (counterpart of
+``peft_vit_tpu/models/classifier.py``).
+
+Forward order as in the reference: channel BN (optional) -> optional L2
+normalize -> Linear.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import Dense
+
+
+class FeatureBatchNorm(nn.Module):
+    """BatchNorm1d(affine=False) over (B, D) features with torch-exact
+    running statistics: training normalizes with the biased batch variance
+    and blends the unbiased one into ``bn_var`` at momentum 0.1; eval uses
+    the running statistics.  Computes in fp32 and returns ``dtype``; the
+    statistics stay fp32."""
+
+    momentum = 0.1  # torch convention: weight of the new batch
+    epsilon = 1e-5
+
+    def __init__(self, num_features: int, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("bn_mean", torch.zeros(num_features, device=device))
+        self.register_buffer("bn_var", torch.ones(num_features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.batch_norm(
+            x.float(), self.bn_mean, self.bn_var, training=self.training,
+            momentum=self.momentum, eps=self.epsilon,
+        )
+        return y.to(self.dtype)
+
+
+class ClassifierHead(nn.Module):
+    """channel_bn (optional) -> optional L2 normalize -> Linear head."""
+
+    def __init__(self, in_features: int, num_classes: int, use_bn: bool = False,
+                 normalize_input: bool = False, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.normalize_input = normalize_input
+        self.channel_bn = (
+            FeatureBatchNorm(in_features, dtype=dtype, device=device) if use_bn else None
+        )
+        self.head = Dense(in_features, num_classes, dtype=dtype, device=device)
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        x = feats.to(self.dtype)
+        if self.channel_bn is not None:
+            x = self.channel_bn(x)
+        if self.normalize_input:
+            x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
+        return self.head(x)
+
+
+class ImageClassifier(nn.Module):
+    """backbone -> head; the flagship PEFT fine-tuning model.
+
+    ``backbone`` returns pooled (B, backbone.num_features) features."""
+
+    def __init__(self, backbone: nn.Module, num_classes: int = 10, use_bn: bool = False,
+                 normalize_visual: bool = False, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.backbone = backbone
+        self.classifier = ClassifierHead(
+            backbone.num_features, num_classes, use_bn=use_bn,
+            normalize_input=normalize_visual, dtype=dtype, device=device,
+        )
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return self.classifier(self.backbone(images))

@@ -1,0 +1,198 @@
+"""Transformer building blocks (counterpart of ``peft_vit_tpu/models/layers.py``).
+
+Ported: the activations, ``LayerNorm``, ``Mlp``, ``MultiHeadAttention``
+with a packed ``in_proj`` and the LoRA q/k/v deltas (with the CLIP
+``lora_post_scale_q`` quirk), and ``Block`` in its deterministic path.
+Every other PEFT hook raises ``NotImplementedError`` (``require_ported``).
+
+Numerics follow the JAX modules: matmul weights compute in the module's
+``dtype`` (flax ``nn.Dense(dtype=...)``), LayerNorm statistics in fp32 with
+the result cast back to the input dtype, residual adds in the compute
+dtype.  Weights are stored in the compute dtype, so a state dict loaded
+into a bf16 model is cast once, at load; LayerNorm parameters stay fp32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import multi_head_attention
+from ..peft.spec import PEFTSpec
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def gelu_new(x: torch.Tensor) -> torch.Tensor:
+    # HF "gelu_new": tanh approximation.
+    return 0.5 * x * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x.pow(3.0))))
+
+
+ACT2FN: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "relu": F.relu,
+    "gelu": F.gelu,
+    "gelu_new": gelu_new,
+    "quick_gelu": quick_gelu,
+    "swish": F.silu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+}
+
+
+def require_ported(spec: PEFTSpec) -> None:
+    """Raise ``NotImplementedError`` for every hook of ``spec`` the port lacks."""
+    unported = {
+        "attn_delta=kron (KAdaptation)": spec.attn_delta == "kron",
+        "adapter (Houlsby / Compacter)": spec.adapter != "none",
+        "attn_bias=rpb": spec.attn_bias != "none",
+        "lepe": spec.lepe,
+        "lepe_ref_qkv": spec.lepe_ref_qkv,
+        "attn_adapter=shared_qkv": spec.attn_adapter != "none",
+        "prompt_tokens (VPT)": spec.prompt_tokens > 0,
+        "lora_moe": spec.lora_moe,
+        "lora_ref_reshape": spec.lora_ref_reshape,
+        "extra_block": spec.extra_block,
+    }
+    if spec.attn_delta not in ("none", "lora", "kron"):
+        raise ValueError(f"unknown attn_delta {spec.attn_delta!r}")
+    missing = [name for name, on in unported.items() if on]
+    if missing:
+        raise NotImplementedError(
+            f"PEFT hooks not ported to peft_vit_tpu_torch yet: {', '.join(missing)}"
+        )
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``dtype``, as flax ``nn.Dense(dtype=...)``:
+    the weights are stored in ``dtype`` and the input is cast to it."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with fp32 statistics (eps 1e-5), output cast back to the
+    input dtype.  ``compute_fp32=False`` normalizes in the input dtype (the
+    JAX throughput mode for bf16 training; ``F.layer_norm`` still
+    accumulates its statistics in fp32)."""
+
+    eps = 1e-5
+
+    def __init__(self, width: int, compute_fp32: bool = True, device=None):
+        super().__init__()
+        self.compute_fp32 = compute_fp32
+        self.weight = nn.Parameter(torch.ones(width, device=device))
+        self.bias = nn.Parameter(torch.zeros(width, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ct = torch.float32 if self.compute_fp32 else x.dtype
+        y = F.layer_norm(
+            x.to(ct), (x.shape[-1],), self.weight.to(ct), self.bias.to(ct), self.eps
+        )
+        return y.to(x.dtype)
+
+
+class Mlp(nn.Module):
+    """c_fc -> act -> c_proj."""
+
+    def __init__(self, width: int, hidden: int, act: str = "gelu",
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.act = ACT2FN[act]
+        self.c_fc = Dense(width, hidden, dtype=dtype, device=device)
+        self.c_proj = Dense(hidden, width, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.c_proj(self.act(self.c_fc(x)))
+
+
+class MultiHeadAttention(nn.Module):
+    """Packed-qkv attention with the LoRA q/k/v deltas.
+
+    * lora: dq = (x @ A_q) @ B_q * alpha/r, no biases.
+    * post_scale_q (CLIP LoRA parity): q is scaled by 1/sqrt(head_dim)
+      before the delta is added, and attention then runs at scale 1,
+      i.e. softmax((q/sqrt(d) + dq) k^T).
+    """
+
+    def __init__(self, width: int, heads: int, spec: PEFTSpec = PEFTSpec(),
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        require_ported(spec)
+        self.heads = heads
+        self.spec = spec
+        self.in_proj = Dense(width, 3 * width, dtype=dtype, device=device)
+        self.lora_targets = tuple(spec.lora_targets) if spec.attn_delta == "lora" else ()
+        for t in self.lora_targets:
+            if t not in ("q", "k", "v"):
+                raise ValueError(f"unknown LoRA target {t!r}")
+            a1 = Dense(width, spec.lora_rank, bias=False, dtype=dtype, device=device)
+            a2 = Dense(spec.lora_rank, width, bias=False, dtype=dtype, device=device)
+            nn.init.normal_(a1.weight, std=0.02)  # the JAX init: a fresh delta is 0
+            nn.init.zeros_(a2.weight)
+            self.add_module(f"{t}_adapter1", a1)
+            self.add_module(f"{t}_adapter2", a2)
+        self.out_proj = Dense(width, width, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, d = x.shape
+        h = self.heads
+        hd = d // h
+        spec = self.spec
+        scale = hd**-0.5
+        q, k, v = self.in_proj(x).chunk(3, dim=-1)
+
+        deltas = {}
+        if self.lora_targets:
+            lora_scale = spec.lora_alpha / spec.lora_rank
+            for t in self.lora_targets:
+                a = getattr(self, f"{t}_adapter1")(x)
+                deltas[t] = getattr(self, f"{t}_adapter2")(a) * lora_scale
+
+        if spec.attn_delta != "none" and spec.lora_post_scale_q:
+            q = q * scale
+            attn_scale = 1.0
+        else:
+            attn_scale = scale
+        if "q" in deltas:
+            q = q + deltas["q"]
+        if "k" in deltas:
+            k = k + deltas["k"]
+        if "v" in deltas:
+            v = v + deltas["v"]
+
+        def split_heads(t: torch.Tensor) -> torch.Tensor:
+            return t.reshape(b, n, h, hd).transpose(1, 2).contiguous()
+
+        out = multi_head_attention(
+            split_heads(q), split_heads(k), split_heads(v), scale=attn_scale
+        )
+        return self.out_proj(out.transpose(1, 2).reshape(b, n, d))
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block, deterministic path:
+    x = x + attn(ln_1(x)); x = x + mlp(ln_2(x))."""
+
+    def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0, act: str = "gelu",
+                 spec: PEFTSpec = PEFTSpec(), dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.ln_1 = LayerNorm(width, device=device)
+        self.attn = MultiHeadAttention(width, heads, spec=spec, dtype=dtype, device=device)
+        self.ln_2 = LayerNorm(width, device=device)
+        self.mlp = Mlp(width, int(width * mlp_ratio), act=act, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))

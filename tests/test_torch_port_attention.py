@@ -1,0 +1,110 @@
+"""The port's attention (peft_vit_tpu_torch.ops.attention) against the JAX
+package: the plain reference, the CPU dispatch, and the Pallas flash
+forward kernel run in interpret mode.  All fp32 on the CPU, same inputs
+from a numpy seed; tolerance atol = rtol = 1e-5 (fp32 accumulation order
+differs between XLA, the Pallas interpreter and torch)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from peft_vit_tpu.ops.attention import _flash_attention_fwd
+from peft_vit_tpu.ops.attention import attention_reference as jax_reference
+from peft_vit_tpu_torch.ops import _build
+from peft_vit_tpu_torch.ops import attention as port
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+SHAPES = [(2, 3, 64, 32), (2, 3, 197, 64)]
+
+
+def _inputs(shape, seed, with_bias):
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    b, h, n, _ = shape
+    bias = rng.standard_normal((h, n, n)).astype(np.float32) if with_bias else None
+    return q, k, v, bias
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+@pytest.mark.parametrize("fn", ["attention_reference", "multi_head_attention"])
+@pytest.mark.parametrize("scale", [None, 1.0])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_matches_jax_reference(fn, scale, with_bias, shape):
+    q, k, v, bias = _inputs(shape, seed=shape[2] + 7 * with_bias, with_bias=with_bias)
+    want = jax_reference(_j(q), _j(k), _j(v), _j(bias), scale)
+    got = getattr(port, fn)(_t(q), _t(k), _t(v), _t(bias), scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_batch_chunk_matches_jax_reference():
+    q, k, v, _ = _inputs((4, 3, 197, 64), seed=3, with_bias=False)
+    want = jax_reference(_j(q), _j(k), _j(v))
+    got = port.multi_head_attention(_t(q), _t(k), _t(v), batch_chunk=2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_out_and_lse_match_pallas_kernel(with_bias, shape):
+    """The kernel's plain version (what a CPU tensor runs) against the Pallas
+    flash forward itself, out and lse."""
+    q, k, v, bias = _inputs(shape, seed=11 + with_bias, with_bias=with_bias)
+    scale = shape[-1] ** -0.5
+    want_o, want_lse = _flash_attention_fwd(
+        _j(q), _j(k), _j(v), _j(bias), scale, block_q=128, block_k=128,
+        interpret=True, return_lse=True,
+    )
+    before = port.flash_attention_fwd.launches
+    got_o, got_lse = port.flash_attention_fwd(
+        _t(q), _t(k), _t(v), _t(bias), scale, return_lse=True
+    )
+    assert port.flash_attention_fwd.launches == before  # CPU: no kernel
+    assert got_lse.shape == (shape[0], shape[1], 1, shape[2])
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), **TOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), **TOL)
+
+
+def test_cpu_tensors_never_count_a_launch():
+    q, k, v, bias = _inputs((1, 2, 33, 64), seed=5, with_bias=True)
+    before = port.flash_attention_fwd.launches
+    port.flash_attention_fwd(_t(q), _t(k), _t(v), _t(bias))
+    port.multi_head_attention(_t(q), _t(k), _t(v), _t(bias))
+    assert port.flash_attention_fwd.launches == before == 0
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["k_shape", "v_dtype", "bias_shape", "bias_dtype", "meta_device"],
+)
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q = torch.zeros(1, 2, 8, 64)
+    k, v, bias = q.clone(), q.clone(), None
+    if bad == "k_shape":
+        k = torch.zeros(1, 2, 9, 64)
+    elif bad == "v_dtype":
+        v = v.double()
+    elif bad == "bias_shape":
+        bias = torch.zeros(2, 8, 9)
+    elif bad == "bias_dtype":
+        bias = torch.zeros(2, 8, 8, dtype=torch.float64)
+    elif bad == "meta_device":
+        q, k, v = (t.to("meta") for t in (q, k, v))
+    with pytest.raises((ValueError, TypeError)):
+        port.flash_attention_fwd(q, k, v, bias)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build._nvcc()
