@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Benchmark: ViT-B/16 + LoRA fine-tuning throughput of the PyTorch/CUDA port
+on one NVIDIA GPU (the counterpart of ``bench.py``).
+
+    python3 bench_torch.py                      # on the card: bf16, B=16, k=8
+    python3 bench_torch.py --device cpu --tiny  # a rehearsal at a tiny size
+
+Prints ONE JSON line:
+  {"metric": ..., "value": N, "unit": "img/s/chip", "vs_baseline": null}
+``vs_baseline`` is null: the JAX benchmark's baseline is a TPU figure and
+does not carry over.  The per-window rates and the card's name and power
+limit go to standard error.
+
+What is timed, as in ``bench.py``: the flagship classifier
+(``models.factory.flagship``: CLIP ViT-B/16, LoRA rank 4 on q and v, linear
+head) in bf16 compute with fp32 master weights, fp32 gradients and fp32
+momentum, masked with ``build_mask(..., "lora")``.  A timing window is
+``k`` chained SGD steps (lr 1e-3, wd 1e-4, momentum 0.9, nesterov) with one
+synchronisation at its end.  Each step takes its own uint8 batch, already
+on the device, and normalizes it there in fp32 before the cast to bf16.
+Host-to-device transfer is outside the window.
+
+``ln_fp32=False`` as in ``bench.py``: LayerNorm runs in bf16.  ``bench.py``
+also asks for ``softmax_fp32=False``; on the card attention is the flash
+kernels (forward, dq, dk/dv), which keep the softmax in fp32 for every
+setting.  The int8 cases of ``bench.py`` are not ported yet and raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from peft_vit_tpu_torch.engine import (
+    TrainCellState,
+    ce_per_example,
+    init_cell_state,
+    make_apply_fn,
+    make_train_step,
+)
+from peft_vit_tpu_torch.models import cast_frozen_, flagship
+from peft_vit_tpu_torch.peft import build_mask, split_params
+from peft_vit_tpu_torch.utils import resolve_device
+
+# production normalize constants, pre-scaled to the raw-uint8 range
+NORM_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32) * 255.0
+NORM_STD = np.asarray([0.229, 0.224, 0.225], np.float32) * 255.0
+LR, WD = 1e-3, 1e-4
+TINY = dict(width=64, layers=2, heads=4, image=32, patch=16, num_classes=10)
+
+
+def make_step(apply_fn, compute_dtype: torch.dtype = torch.bfloat16, has_bn: bool = False,
+              lr: float = LR, wd: float = WD):
+    """``step_fn(state, frozen, xs, ys) -> (state, last loss)``: one SGD step
+    per leading row of the (K, B, H, W, 3) uint8 chunk ``xs``, each
+    normalizing its own batch on the device.  ``lr`` and ``wd`` default to
+    the benchmark's."""
+    train_step = make_train_step(apply_fn, ce_per_example, has_bn=has_bn)
+
+    def step_fn(state: TrainCellState, frozen, xs: torch.Tensor, ys: torch.Tensor):
+        mean = torch.as_tensor(NORM_MEAN, device=xs.device)
+        std = torch.as_tensor(NORM_STD, device=xs.device)
+        loss = None
+        for x, y in zip(xs, ys):
+            # normalize in fp32, hand the model its compute dtype directly
+            x = ((x.to(torch.float32) - mean) / std).to(compute_dtype)
+            state, loss = train_step(state, frozen, x, y, None, lr, wd)
+        return state, loss
+
+    return step_fn
+
+
+def measure(step_fn, state, frozen, batch: int, k_chain: int, n_windows: int, warmup: int,
+            image: int = 224, num_classes: int = 100, device=None
+            ) -> Tuple[List[float], TrainCellState]:
+    """Images/s of each of ``n_windows`` timing windows of ``k_chain`` chained
+    steps at batch ``batch``, after ``warmup`` untimed windows.  The chunk of
+    K distinct uint8 batches is made from a seed and put on the device once,
+    outside the windows."""
+    device = resolve_device(device)
+    rng = np.random.RandomState(0)
+    xs = torch.as_tensor(
+        rng.randint(0, 256, (k_chain, batch, image, image, 3), dtype=np.uint8), device=device)
+    ys = torch.as_tensor(rng.randint(0, num_classes, (k_chain, batch)), device=device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for _ in range(warmup):
+        state, loss = step_fn(state, frozen, xs, ys)
+    sync()
+    rates = []
+    for _ in range(n_windows):
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, frozen, xs, ys)
+        sync()
+        rates.append(batch * k_chain / (time.perf_counter() - t0))
+    if not bool(torch.isfinite(loss)):
+        raise RuntimeError(f"the loss is not finite: {float(loss)}")
+    return rates, state
+
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip()
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--device", default=None, help="default: the card; 'cpu' to rehearse")
+    parser.add_argument("--batch", type=int, default=16)
+    parser.add_argument("--k-chain", type=int, default=8, help="chained steps per window")
+    parser.add_argument("--windows", type=int, default=7)
+    parser.add_argument("--warmup", type=int, default=2)
+    parser.add_argument("--tiny", action="store_true",
+                        help="a 2-layer, 64-wide model at 32 px (rehearsal only)")
+    parser.add_argument("--int8", action="store_true", help="not ported yet")
+    args = parser.parse_args(argv)
+    if args.int8:
+        raise NotImplementedError("the int8 forward (ops/int8.py) is not ported yet")
+
+    device = resolve_device(args.device)
+    shape = TINY if args.tiny else {}
+    model = flagship(**shape, dtype=torch.bfloat16, ln_fp32=False, device=device)
+    trainable, _ = split_params(model, build_mask(model, "lora", num_layers=12))
+    cast_frozen_(model)
+    step_fn = make_step(make_apply_fn(model))
+    rates, _ = measure(
+        step_fn, init_cell_state(trainable), {}, args.batch, args.k_chain, args.windows,
+        args.warmup, image=shape.get("image", 224),
+        num_classes=shape.get("num_classes", 100), device=device,
+    )
+    where = card() if device.type == "cuda" else "cpu (a rehearsal, not a device number)"
+    print(f"# case B={args.batch} k={args.k_chain} bf16: "
+          + " ".join(f"{r:.1f}" for r in rates) + f" img/s per window; {where}",
+          file=sys.stderr, flush=True)
+    # a CPU or tiny-model run is a rehearsal and never carries the device metric's name
+    real = device.type == "cuda" and not args.tiny
+    print(json.dumps({
+        "metric": "vitb16_lora_train_throughput" if real else "rehearsal_train_throughput",
+        "value": round(statistics.median(rates), 1),
+        "unit": "img/s/chip" if real else f"img/s ({device.type}, not a device number)",
+        "vs_baseline": None,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

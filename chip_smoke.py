@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA H100 and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+H100 and check them.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -8,25 +9,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. environment: Python, torch and CUDA versions; the card's name and
    power limit from nvidia-smi;
 2. build: every kernel of ``peft_vit_tpu_torch/csrc`` with nvcc for sm_90a;
-3. kernel: ``flash_attention_fwd`` (the CUDA counterpart of the Pallas
-   flash forward) against its plain PyTorch version on the card: bf16 and
-   fp32, with a bias, with lse, ragged N; then its time at B in {1, 8, 32}
-   beside its bound, the plain version and
-   ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
-   the port never calls it);
+3. kernel: each hand-written kernel against its plain PyTorch version on
+   the card.  ``flash_attention_fwd`` (the CUDA counterpart of the Pallas
+   flash forward): bf16 at every batch the serving path gives it and, with
+   lse, at the training batch; fp32, with a bias, ragged N.
+   ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` (the
+   counterparts of the two Pallas backward kernels): bf16 at the training
+   batch, fp32, ragged N, o and lse from the forward kernel; then the ``flash_attention``
+   autograd Function against autograd through the plain reference.  Then
+   each kernel's time beside its bound, its plain version and
+   ``torch.nn.functional.scaled_dot_product_attention``, forward and
+   backward (a yardstick only: the port never calls it);
 4. slice: the ViT-B/16 LoRA flagship (bf16, channel BN) built from a numpy
    weight tree in the JAX package's layout, served by ``ServingSession``
    with buckets (1, 8, 32) for requests of 1, 5, 8, 32 and 40 images.  The
    logits must be finite; the 5-image request must agree with the same
-   model run on the CPU in fp32; the kernel must have been launched once
-   per layer per forward batch.
+   model run on the CPU in fp32; the forward kernel must have been launched
+   once per layer per forward batch;
+5. train: the same flagship (bf16 compute, fp32 master weights, LoRA mask)
+   takes SGD steps at batch 16 through ``bench_torch.make_step``.  198,756
+   parameters train; every loss is finite; each of the three kernels is
+   launched once per layer per step; the frozen leaves stay bit-identical
+   and every trainable leaf moves; one step's update equals the update of
+   the same step with the plain backward in the kernels' place; 8 steps on
+   one batch lower the loss; 3 steps in fp32 on the card (at lr 1e-5, B=4)
+   match the same steps on the CPU, and the bf16 losses and LoRA updates at
+   B=16 track the CPU's fp32 ones.  Then the step rate and a profile of one
+   step.
 
-The last two lines of standard output are a JSON object with the kernel's
+The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -44,13 +61,28 @@ WIDTH, LAYERS, HEADS, IMAGE, PATCH = 768, 12, 12, 224, 16
 OUTPUT_DIM, NUM_CLASSES, LORA_RANK = 512, 100, 4
 N_TOKENS, HEAD_DIM = (IMAGE // PATCH) ** 2 + 1, WIDTH // HEADS
 BUCKETS = (1, 8, 32)
+TIMED_BATCHES = (1, 8, 16, 32)  # K1; K2 and K3 at the training batches among them
+TRAIN_TIMED_BATCHES = (8, 16, 32)
 REQUESTS = (1, 5, 8, 32, 40)
 CHECKED_REQUEST = 5
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_K, TRAIN_WINDOWS = 16, 4, 8, 7
+FIXED_BATCH_STEPS = 8
+F32_BATCH, F32_STEPS = 4, 3
+TRAINABLE = 12 * 2 * 2 * WIDTH * LORA_RANK + OUTPUT_DIM * NUM_CLASSES + NUM_CLASSES  # 198,756
 
 # Tolerances, each with its reason.
 TOL_BF16_OUT = 2e-2  # the repo's bf16 flash pin: p and o rounded to bf16 at other points
 TOL_F32_OUT = 1e-4  # fp32 throughout; sums in another order than cuBLAS
 TOL_LSE = 1e-3  # fp32 log-sum-exp of the same scores, another summation order
+# Gradients of the backward kernels, as max |diff| / max |plain| per tensor.
+# bf16: a gradient is rounded to bf16 once, so a sum that lands across a
+# rounding boundary moves it one bf16 step, 2^-8 of its value, at most 3.9e-3
+# of the tensor's max; ds and p rounded across a boundary add less.  Bound
+# 1e-2, about 2.5 steps at the max.
+TOL_BF16_GRAD_REL = 1e-2
+# fp32: the same arithmetic; sums in another order than cuBLAS and expf
+# against torch.exp (2 ulp).
+TOL_F32_GRAD_REL = 1e-4
 # Logits, as max |diff| / max |logit| against the same model in fp32 on the CPU.
 # fp32 on the card: only the summation order differs, over 12 layers.
 TOL_F32_LOGITS_REL = 1e-3
@@ -59,6 +91,40 @@ TOL_F32_LOGITS_REL = 1e-3
 # that to several percent (6.9e-2 measured on the H100); the same model in
 # bf16 on the CPU, with no kernel, is printed beside it as the yardstick.
 TOL_BF16_LOGITS_REL = 1e-1
+# Training, fp32 on the card against fp32 on the CPU, the same 3 steps: the
+# same arithmetic with sums in another order (cuBLAS and the kernels against
+# the CPU), through 12 layers forward and backward.  The comparison steps at
+# lr 1e-5: at the benchmark's 1e-3 a step moves the LoRA leaves (~0.02) by
+# more than their size (gradients of ~30 per element at alpha/rank = 32), the
+# loss jumps from step to step, and two fp32 runs part by percents within 3
+# steps (measured on the H100: losses 3.8e-2 apart, updates 0.7), which says
+# nothing about the kernels.  Loss relative; update as max |diff| / max
+# |update| over the leaves.
+COMPARE_LR = 1e-5
+TOL_F32_TRAIN_LOSS_REL = 1e-4
+TOL_F32_TRAIN_UPDATE_REL = 1e-2
+# bf16 compute on the card against fp32 on the CPU, the same steps at the
+# training batch of 16: the logits already differ by several percent (see
+# above).  At B = 4 train-mode BN divides by the spread of 4 rows and the
+# loss of a batch moved by up to 14 % (measured on the H100).
+TOL_BF16_TRAIN_LOSS_REL = 1e-1
+# The bf16 card's update of each leaf after those steps against the CPU's fp32
+# update, by cosine.  On this random-weight model bf16 rounding alone turns a
+# LoRA leaf's gradient far from the fp32 one: measured on the H100, the least
+# cosine over the 50 leaves was 0.63-0.66 and the median 0.73-0.74, and no
+# nearer with the plain dq and dk/dv in the kernels' place (printed beside
+# it).  So this bound only catches a backward that is grossly wrong; the one
+# below holds the kernels.
+TOL_BF16_TRAIN_UPDATE_COS_LEAST = 0.45
+TOL_BF16_TRAIN_UPDATE_COS_MEDIAN = 0.6
+# One bf16 step of the main path against the same step with the plain dq and
+# dk/dv in the backward kernels' place (the forward kernel stays): the
+# forward is then bit-identical, and the backward is linear in dO, so the two
+# updates differ only by the kernels' bf16 rounding of every layer's dq, dk
+# and dv, carried down 12 layers.  Per leaf: cosine (0.9999 measured) and max
+# |diff| / max |update| (1.9e-2 measured).
+TOL_KERNEL_BWD_UPDATE_COS = 0.999
+TOL_KERNEL_BWD_UPDATE_REL = 5e-2
 
 FAILURES: list[str] = []
 
@@ -148,11 +214,16 @@ def _eager_ms(fn, reps: int, trials: int = 5) -> float:
     return statistics.median(times)
 
 
-def attention_bound(b: int, h: int, n: int, d: int, itemsize: int):
-    """Least time for the function: q, k, v read once and o written once,
-    against 4*B*H*N^2*D flops at the bf16 tensor-core peak."""
-    bytes_moved = 4 * b * h * n * d * itemsize
-    flops = 4 * b * h * n * n * d
+def attention_bound(b: int, h: int, n: int, d: int, itemsize: int, kernel: str):
+    """Least time for the function: each (B, H, N, D) operand read once and
+    each result written once (the backward also reads the fp32 lse and delta),
+    against its flops at the bf16 tensor-core peak.  fwd: q, k, v -> o, two
+    products; dq: q, k, v, dO -> dq, three; dkv: q, k, v, dO -> dk, dv, four."""
+    tensors, products = {"fwd": (4, 2), "dq": (5, 3), "dkv": (6, 4)}[kernel]
+    bytes_moved = tensors * b * h * n * d * itemsize
+    if kernel != "fwd":
+        bytes_moved += 2 * b * h * n * 4
+    flops = 2 * products * b * h * n * n * d
     t_bytes, t_flops = bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
@@ -168,8 +239,13 @@ def kernel_phase(timing: bool = True) -> dict:
     # (name, B, N, dtype, scale, q std, bias, lse, tolerance of o).  The
     # serving path calls the kernel at scale 1.0 with q already multiplied
     # by 1/sqrt(D) (post-scale-q), so that case draws q at std 1/8.
+    # The first cases are the main paths' own: every serving bucket, and the
+    # training batch with lse.
     cases = [
-        ("bf16 scale=1.0 (post-scaled q)", 8, N_TOKENS, torch.bfloat16, 1.0, 0.125, False, False, TOL_BF16_OUT),
+        *((f"bf16 scale=1.0 (post-scaled q), serving bucket {b}", b, N_TOKENS, torch.bfloat16,
+           1.0, 0.125, False, False, TOL_BF16_OUT) for b in BUCKETS),
+        ("bf16 scale=1.0 (post-scaled q) lse, training batch", TRAIN_BATCH, N_TOKENS,
+         torch.bfloat16, 1.0, 0.125, False, True, TOL_BF16_OUT),
         ("bf16 scale=0.125", 8, N_TOKENS, torch.bfloat16, 0.125, 1.0, False, False, TOL_BF16_OUT),
         ("bf16 bias", 8, N_TOKENS, torch.bfloat16, 0.125, 1.0, True, False, TOL_BF16_OUT),
         ("bf16 lse", 8, N_TOKENS, torch.bfloat16, 0.125, 1.0, False, True, TOL_BF16_OUT),
@@ -178,8 +254,8 @@ def kernel_phase(timing: bool = True) -> dict:
         ("fp32 bias lse", 2, N_TOKENS, torch.float32, 0.125, 1.0, True, True, TOL_F32_OUT),
         ("fp32 ragged N=257", 2, 257, torch.float32, 0.125, 1.0, False, True, TOL_F32_OUT),
     ]
-    main_err = None
-    for name, b, n, dtype, scale, q_std, with_bias, with_lse, tol in cases:
+    main_err = {}  # by batch, of the main paths' cases
+    for i, (name, b, n, dtype, scale, q_std, with_bias, with_lse, tol) in enumerate(cases):
         shape = (b, HEADS, n, HEAD_DIM)
         q, k, v = rand(shape, dtype, q_std), rand(shape, dtype), rand(shape, dtype)
         bias = rand((HEADS, n, n), torch.float32) if with_bias else None
@@ -194,18 +270,81 @@ def kernel_phase(timing: bool = True) -> dict:
         err = (out.float() - ref.float()).abs().max().item()
         check(out.shape == shape and bool(torch.isfinite(out).all()) and err <= tol,
               f"kernel {name} {tuple(shape)}: out max abs err {err:.3e} <= {tol:g}")
-        if main_err is None:
-            main_err = err
+        if i <= len(BUCKETS):
+            main_err[b] = err
 
-    result = {"max_abs_err": main_err, "per_batch": {}}
-    if not timing:
-        return result
+    bwd_err = backward_kernel_checks(attn, rand)
+    # the kernels line gives the forward's error at the batch of its times
+    result = {"max_abs_err": {"fwd": main_err[BUCKETS[1]], **bwd_err},
+              "fwd": {}, "dq": {}, "dkv": {}}
+    if timing:
+        kernel_timing(attn, rand, result)
+    return result
+
+
+def backward_kernel_checks(attn, rand) -> dict:
+    """K2 (dq) and K3 (dk, dv) against ``_flash_attention_bwd_plain`` on the
+    card, o and lse from K1; then the whole ``flash_attention`` Function in
+    fp32 against autograd through ``attention_reference``.  Returns the max
+    abs errors of the first case, which has the training path's shape."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (name, B, N, dtype, scale, q std, relative tolerance)
+    cases = [
+        ("bf16 scale=1.0 (post-scaled q), training batch", TRAIN_BATCH, N_TOKENS, bf16, 1.0, 0.125,
+         TOL_BF16_GRAD_REL),
+        ("bf16 scale=0.125", 8, N_TOKENS, bf16, 0.125, 1.0, TOL_BF16_GRAD_REL),
+        ("bf16 ragged N=50", 2, 50, bf16, 0.125, 1.0, TOL_BF16_GRAD_REL),
+        ("bf16 ragged N=257", 2, 257, bf16, 0.125, 1.0, TOL_BF16_GRAD_REL),
+        ("fp32 N=197", 2, N_TOKENS, f32, 0.125, 1.0, TOL_F32_GRAD_REL),
+        ("fp32 ragged N=257", 2, 257, f32, 0.125, 1.0, TOL_F32_GRAD_REL),
+    ]
+    main = None
+    for name, b, n, dtype, scale, q_std, tol in cases:
+        shape = (b, HEADS, n, HEAD_DIM)
+        q, k, v, do = rand(shape, dtype, q_std), rand(shape, dtype), rand(shape, dtype), rand(shape, dtype)
+        o, lse = attn.flash_attention_fwd(q, k, v, None, scale, return_lse=True)
+        delta = attn._row_dot(do, o)
+        dq = attn.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+        dk, dv = attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+        want = attn._flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        errs = {}
+        for what, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            err = (got.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            errs[what] = err
+            check(got.shape == shape and got.dtype == dtype and bool(torch.isfinite(got).all())
+                  and rel <= tol,
+                  f"kernel bwd {name} {tuple(shape)}: {what} max abs err {err:.3e}, "
+                  f"/ max |plain| = {rel:.3e} <= {tol:g}")
+        if main is None:
+            main = {"dq": errs["dq"], "dkv": max(errs["dk"], errs["dv"])}
+
+    shape = (2, HEADS, N_TOKENS, HEAD_DIM)
+    q, k, v = (rand(shape, f32).requires_grad_() for _ in range(3))
+    w = rand(shape, f32)
+    got = torch.autograd.grad(attn.flash_attention(q, k, v, None, 0.125), (q, k, v), w)
+    want = torch.autograd.grad(attn.attention_reference(q, k, v, None, 0.125), (q, k, v), w)
+    torch.cuda.synchronize()
+    for what, g_, r_ in zip(("dq", "dk", "dv"), got, want):
+        rel = ((g_ - r_).abs().max() / r_.abs().max()).item()
+        check(rel <= TOL_F32_GRAD_REL,
+              f"flash_attention Function fp32 {tuple(shape)} vs autograd of the reference: "
+              f"{what} max |diff| / max |ref| = {rel:.3e} <= {TOL_F32_GRAD_REL:g}")
+    return main
+
+
+def kernel_timing(attn, rand, result: dict) -> None:
+    """Device time of each kernel (CUDA-graph replay, bf16, scale 1, q at std
+    1/8) beside its bound, its plain version and the library yardstick:
+    ``scaled_dot_product_attention`` forward for K1, and its backward through
+    ``torch.autograd.grad`` beside K2 + K3 + delta."""
     import torch.nn.functional as F
 
-    for b in BUCKETS:
+    for b in TIMED_BATCHES:
         shape = (b, HEADS, N_TOKENS, HEAD_DIM)
         q = rand(shape, torch.bfloat16, 0.125)
-        k, v = rand(shape, torch.bfloat16), rand(shape, torch.bfloat16)
+        k, v, do = (rand(shape, torch.bfloat16) for _ in range(3))
         reps = 200
         row = {
             "ms": _device_ms(lambda: attn.flash_attention_fwd(q, k, v, None, 1.0), reps),
@@ -213,12 +352,44 @@ def kernel_phase(timing: bool = True) -> dict:
             "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), reps),
             "eager_ms": _eager_ms(lambda: attn.flash_attention_fwd(q, k, v, None, 1.0), reps),
         }
-        row["bound_ms"], row["bound_by"] = attention_bound(b, HEADS, N_TOKENS, HEAD_DIM, 2)
-        result["per_batch"][b] = row
-        print(f"kernel timing B={b} {tuple(shape)} bf16: " + " ".join(
-            f"{key}={val:.6f}" if isinstance(val, float) else f"{key}={val}"
-            for key, val in row.items()), flush=True)
-    return result
+        row["bound_ms"], row["bound_by"] = attention_bound(b, HEADS, N_TOKENS, HEAD_DIM, 2, "fwd")
+        result["fwd"][b] = row
+        _print_timing("flash_attn_fwd", b, shape, row)
+        if b not in TRAIN_TIMED_BATCHES:
+            continue
+
+        o, lse = attn.flash_attention_fwd(q, k, v, None, 1.0, return_lse=True)
+        delta = attn._row_dot(do, o)
+        args = (q, k, v, do, lse, delta, 1.0)
+        plain = lambda fn: _device_ms(lambda: fn(*args), 50)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        # autograd runs a backward on its forward's stream, so a graph can only
+        # capture the two together: the backward is their time less the forward's
+        sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
+        sdpa_bwd = (_device_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do), reps)
+                    - _device_ms(sdpa, reps))
+        ours_bwd = _device_ms(lambda: (
+            attn.flash_attention_bwd_dq(q, k, v, do, lse, attn._row_dot(do, o), 1.0),
+            attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta, 1.0)), reps)
+        for key, fn, plain_fn in (("dq", attn.flash_attention_bwd_dq, attn._bwd_dq_plain),
+                                  ("dkv", attn.flash_attention_bwd_dkv, attn._bwd_dkv_plain)):
+            row = {"ms": _device_ms(lambda: fn(*args), reps), "plain_ms": plain(plain_fn)}
+            row["bound_ms"], row["bound_by"] = attention_bound(
+                b, HEADS, N_TOKENS, HEAD_DIM, 2, key)
+            result[key][b] = row
+            _print_timing(f"flash_attn_bwd_{key}", b, shape, row)
+        for key in ("dq", "dkv"):  # the library computes dq, dk and dv in one backward
+            result[key][b]["library_ms"] = sdpa_bwd
+            result[key][b]["backward_ms"] = ours_bwd
+        print(f"kernel timing B={b} backward: dq + dk/dv + delta {ours_bwd:.6f} ms, "
+              f"scaled_dot_product_attention backward {sdpa_bwd:.6f} ms (forward and "
+              "backward in one graph, less the forward alone)", flush=True)
+
+
+def _print_timing(name: str, b: int, shape, row: dict) -> None:
+    print(f"kernel timing {name} B={b} {tuple(shape)} bf16: " + " ".join(
+        f"{key}={val:.6f}" if isinstance(val, float) else f"{key}={val}"
+        for key, val in row.items()), flush=True)
 
 
 def jax_layout_tree(rng: np.random.RandomState) -> dict:
@@ -369,20 +540,221 @@ def slice_phase(smi: str) -> dict:
         latency[b] = ms
         print(f"slice latency bucket {b}: {ms:.3f} ms/request, {b / ms * 1e3:.1f} images/s "
               f"(median of 10, host clock, NHWC fp32 in -> fp32 logits out; {smi})")
-        device_ms, top = _device_breakdown(lambda: session.predict(x), reps=3)
+        device_ms, n_launches, top = _device_breakdown(lambda: session.predict(x), reps=3)
         if device_ms is None:
             print(f"slice profile bucket {b}: device time not measured (the profiler saw no "
                   "CUDA kernel)")
             continue
-        print(f"slice profile bucket {b}: device busy {device_ms:.3f} ms/request, idle share "
+        print(f"slice profile bucket {b}: device busy {device_ms:.3f} ms/request in "
+              f"{n_launches:.0f} launches, idle share "
               f"{max(0.0, 1.0 - device_ms / ms):.3f} of the {ms:.3f} ms request; top: "
               + "; ".join(f"{name} {t:.3f} ms" for name, t in top))
     return {"launches": launches, "batches": batches, "latency_ms": latency}
 
 
-def _device_breakdown(fn, reps: int, top: int = 6):
-    """Device time per call and the kernels that take most of it, from
-    torch.profiler's CUDA activity (None when it records no kernel)."""
+@contextlib.contextmanager
+def plain_backward(attn):
+    """Within, the ``flash_attention`` Function's backward runs the plain
+    versions of the dq and dk/dv kernels on the q, k, v, lse and dO that the
+    model gives it; its forward stays the kernel."""
+    saved = attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv
+    attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv = (
+        attn._bwd_dq_plain, attn._bwd_dkv_plain)
+    try:
+        yield
+    finally:
+        attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv = saved
+
+
+def train_phase(smi: str, device: str = "cuda") -> dict:
+    """``device`` is the card; "cpu" rehearses the phase's own code at a tiny
+    size, where no kernel is launched and the launch checks fail."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import init_cell_state, make_apply_fn
+    from peft_vit_tpu_torch.models import cast_frozen_, flagship, load_jax_variables
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.peft import build_mask, count_trainable, split_params
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rng = np.random.RandomState(SEED + 1)
+    tree = jax_layout_tree(rng)
+    shape = dict(width=WIDTH, layers=LAYERS, heads=HEADS, image=IMAGE, patch=PATCH,
+                 num_classes=NUM_CLASSES, use_bn=True)
+
+    def build(dtype, device, lr=bench_torch.LR):
+        """The flagship with the LoRA mask applied: (model, frozen leaves,
+        fresh train state, step function)."""
+        model = load_jax_variables(
+            flagship(**shape, dtype=dtype, ln_fp32=False, device=device), tree)
+        mask = build_mask(model, "lora", num_layers=LAYERS)
+        trainable, frozen = split_params(model, mask)
+        cast_frozen_(model)
+        n = count_trainable(model, mask)
+        check(n == TRAINABLE, f"train: {dtype} on {device}: {n:,} trainable parameters == "
+              f"{TRAINABLE:,}, stored in "
+              f"{sorted({str(t.dtype) for t in trainable.values()})}")
+        state = init_cell_state(trainable, dict(model.named_buffers()))
+        step_fn = bench_torch.make_step(make_apply_fn(model), compute_dtype=dtype, has_bn=True,
+                                        lr=lr)
+        return model, frozen, state, step_fn
+
+    def batches(k, b, device):
+        xs = rng.randint(0, 256, (k, b, IMAGE, IMAGE, 3), dtype=np.uint8)
+        ys = rng.randint(0, NUM_CLASSES, (k, b))
+        return torch.as_tensor(xs, device=device), torch.as_tensor(ys, device=device)
+
+    def steps(step_fn, state, xs, ys):
+        """One step per batch of the chunk; the loss of each."""
+        losses = []
+        for i in range(xs.shape[0]):
+            state, loss = step_fn(state, {}, xs[i:i + 1], ys[i:i + 1])
+            losses.append(float(loss))
+        return state, losses
+
+    def updates(end, start):
+        return {k: end.trainable[k].cpu() - v.cpu() for k, v in start.trainable.items()}
+
+    def cosines(got, want):
+        return {k: torch.nn.functional.cosine_similarity(
+            got[k].flatten(), want[k].flatten(), dim=0).item() for k in want}
+
+    def max_rel(got, want):
+        return {k: ((got[k] - want[k]).abs().max() / want[k].abs().max()).item() for k in want}
+
+    # ---- the main path: bf16 compute, fp32 masters, B = 16
+    model, frozen, state0, step_fn = build(torch.bfloat16, device)
+    frozen_start = {k: v.detach().clone() for k, v in frozen.items()}
+    xs, ys = batches(TRAIN_STEPS, TRAIN_BATCH, device)
+    steps(step_fn, state0, xs[:1], ys[:1])  # warm-up: library plans, kernels loaded
+    sync()
+    wrappers = {"flash_attn_fwd": attn.flash_attention_fwd,
+                "flash_attn_bwd_dq": attn.flash_attention_bwd_dq,
+                "flash_attn_bwd_dkv": attn.flash_attention_bwd_dkv}
+    for w in wrappers.values():  # counts from 0 just before the main path, read just after
+        w.launches = 0
+    state, losses = steps(step_fn, state0, xs, ys)
+    sync()
+    launches = {name: w.launches for name, w in wrappers.items()}
+
+    check(all(math.isfinite(x) for x in losses),
+          f"train: {TRAIN_STEPS} steps at B={TRAIN_BATCH}, losses "
+          + " ".join(f"{x:.4f}" for x in losses) + " all finite")
+    for name, n in launches.items():
+        check(n == LAYERS * TRAIN_STEPS > 0,
+              f"train: {name} launches {n} == {LAYERS} layers x {TRAIN_STEPS} steps")
+    same = [k for k, v in frozen.items() if torch.equal(v, frozen_start[k])]
+    check(len(same) == len(frozen) > 0,
+          f"train: {len(same)} of {len(frozen)} frozen leaves bit-identical after the steps")
+    moved = [k for k, v in state.trainable.items() if not torch.equal(v, state0.trainable[k])]
+    check(len(moved) == len(state.trainable) == 4 * LAYERS + 2,
+          f"train: {len(moved)} of {len(state.trainable)} trainable leaves moved")
+    check(all(t.dtype == torch.float32 for t in (*state.trainable.values(),
+                                                 *state.momentum.values(), *state.bn.values())),
+          "train: trainable leaves, momentum and BN statistics are fp32")
+
+    # the backward kernels on the main path's own q, k, v and dO: its first step
+    # again, and once more with their plain versions in their place
+    with_kernels, _ = steps(step_fn, state0, xs[:1], ys[:1])
+    with plain_backward(attn):
+        with_plain, _ = steps(step_fn, state0, xs[:1], ys[:1])
+    got, want = updates(with_kernels, state0), updates(with_plain, state0)
+    cos, rel = cosines(got, want), max_rel(got, want)
+    low, far = min(cos, key=cos.get), max(rel, key=rel.get)
+    check(cos[low] >= TOL_KERNEL_BWD_UPDATE_COS and rel[far] <= TOL_KERNEL_BWD_UPDATE_REL,
+          f"train: one bf16 step at B={TRAIN_BATCH}, dq and dk/dv kernels vs their plain "
+          f"versions in the same backward, update of each of {len(want)} leaves: least cosine "
+          f"{cos[low]:.5f} >= {TOL_KERNEL_BWD_UPDATE_COS:g} ({low}), largest max |diff| / max "
+          f"|update| {rel[far]:.3e} <= {TOL_KERNEL_BWD_UPDATE_REL:g} ({far})")
+    del with_kernels, with_plain
+
+    fixed_x, fixed_y = xs[:1].expand(FIXED_BATCH_STEPS, *xs.shape[1:]), ys[:1].expand(
+        FIXED_BATCH_STEPS, -1)
+    _, fixed = steps(step_fn, state0, fixed_x, fixed_y)
+    check(all(math.isfinite(x) for x in fixed) and fixed[-1] < fixed[0],
+          f"train: {FIXED_BATCH_STEPS} steps on one batch lower the loss: "
+          + " ".join(f"{x:.4f}" for x in fixed))
+
+    # ---- the same 3 steps on the CPU in fp32 and on the card, at lr 1e-5: fp32
+    # on the card (the kernels' fp32 instantiations) at B = 4, bf16 at B = 16
+    def cpu_reference(batch):
+        xs_, ys_ = batches(F32_STEPS, batch, "cpu")
+        t0 = time.perf_counter()
+        _, _, start, cpu_step = build(torch.float32, "cpu", COMPARE_LR)
+        end, cpu_losses = steps(cpu_step, start, xs_, ys_)
+        print(f"train: CPU fp32 reference, {F32_STEPS} steps at B={batch} in "
+              f"{time.perf_counter() - t0:.1f} s, losses "
+              + " ".join(f"{x:.5f}" for x in cpu_losses))
+        return xs_.to(device), ys_.to(device), start, end, cpu_losses
+
+    def loss_rel(got, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+    xs4, ys4, cpu_start, cpu_end, cpu_losses = cpu_reference(F32_BATCH)
+    _, _, card_start, card_step = build(torch.float32, device, COMPARE_LR)
+    card_end, card_losses = steps(card_step, card_start, xs4, ys4)
+    rel = loss_rel(card_losses, cpu_losses)
+    check(rel <= TOL_F32_TRAIN_LOSS_REL,
+          f"train: fp32 card vs fp32 CPU at B={F32_BATCH}, per-step loss max rel diff "
+          f"{rel:.3e} <= {TOL_F32_TRAIN_LOSS_REL:g} ("
+          + " ".join(f"{x:.5f}" for x in card_losses) + ")")
+    want, got = updates(cpu_end, cpu_start), updates(card_end, card_start)
+    worst = max(max_rel(got, want).values())
+    check(worst <= TOL_F32_TRAIN_UPDATE_REL,
+          f"train: fp32 card vs fp32 CPU, updated leaves after {F32_STEPS} steps: "
+          f"max |diff| / max |update| = {worst:.3e} <= {TOL_F32_TRAIN_UPDATE_REL:g}")
+    del card_step, card_end, cpu_end
+
+    xs16, ys16, cpu_start, cpu_end, cpu_losses = cpu_reference(TRAIN_BATCH)
+    _, _, bf16_start, bf16_step = build(torch.bfloat16, device, COMPARE_LR)
+    bf16_end, bf16_losses = steps(bf16_step, bf16_start, xs16, ys16)
+    rel = loss_rel(bf16_losses, cpu_losses)
+    check(rel <= TOL_BF16_TRAIN_LOSS_REL,
+          f"train: bf16 card vs fp32 CPU at B={TRAIN_BATCH}, per-step loss max rel diff "
+          f"{rel:.3e} <= {TOL_BF16_TRAIN_LOSS_REL:g} ("
+          + " ".join(f"{x:.5f}" for x in bf16_losses) + ")")
+    want, got = updates(cpu_end, cpu_start), updates(bf16_end, bf16_start)
+    cos = cosines(got, want)
+    low, median = min(cos, key=cos.get), statistics.median(cos.values())
+    with plain_backward(attn):  # the yardstick: the same steps without the backward kernels
+        plain_end, _ = steps(bf16_step, bf16_start, xs16, ys16)
+    plain_cos = cosines(updates(plain_end, bf16_start), want).values()
+    check(cos[low] >= TOL_BF16_TRAIN_UPDATE_COS_LEAST
+          and median >= TOL_BF16_TRAIN_UPDATE_COS_MEDIAN,
+          f"train: bf16 card vs fp32 CPU at B={TRAIN_BATCH}, update of each of {len(want)} "
+          f"leaves after {F32_STEPS} steps: least cosine {cos[low]:.4f} >= "
+          f"{TOL_BF16_TRAIN_UPDATE_COS_LEAST:g} ({low}), median {median:.4f} >= "
+          f"{TOL_BF16_TRAIN_UPDATE_COS_MEDIAN:g}, largest max |diff| / max |update| "
+          f"{max(max_rel(got, want).values()):.3e} (with the plain dq and dk/dv: least "
+          f"{min(plain_cos):.4f}, median {statistics.median(plain_cos):.4f})")
+    del bf16_step, bf16_end, plain_end, cpu_end
+
+    # ---- numbers
+    rates, _ = bench_torch.measure(step_fn, state0, {}, TRAIN_BATCH, TRAIN_K, TRAIN_WINDOWS,
+                                   warmup=1, image=IMAGE, num_classes=NUM_CLASSES, device=device)
+    rate = statistics.median(rates)
+    step_ms = 1e3 * TRAIN_BATCH / rate
+    print(f"train rate B={TRAIN_BATCH} k={TRAIN_K}: {rate:.1f} images/s, {step_ms:.3f} ms/step "
+          f"(median of {TRAIN_WINDOWS} windows: " + " ".join(f"{r:.1f}" for r in rates)
+          + f"; host clock, one sync per window; {smi})")
+    result = {"launches": launches, "images_per_s": rate}
+    device_ms, n_launches, top = _device_breakdown(
+        lambda: steps(step_fn, state0, xs[:2], ys[:2]), reps=1, host_top=10)
+    if device_ms is None:
+        print("train profile: device time not measured (the profiler saw no CUDA kernel)")
+        return result
+    device_ms, n_launches = device_ms / 2, n_launches / 2  # two steps per call
+    print(f"train profile: device busy {device_ms:.3f} ms/step in {n_launches:.0f} launches, "
+          f"idle share {max(0.0, 1.0 - device_ms / step_ms):.3f} of the {step_ms:.3f} ms step; "
+          "top: " + "; ".join(f"{name} {t / 2:.3f} ms" for name, t in top))
+    return result
+
+
+def _device_breakdown(fn, reps: int, top: int = 6, host_top: int = 0):
+    """Device time per call, the number of device launches (kernels and
+    copies) per call and the kernels that take most of the time, from
+    torch.profiler's CUDA activity (None when it records no kernel).
+    ``host_top`` > 0 also prints the host-side operators that take most self
+    CPU time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -390,7 +762,7 @@ def _device_breakdown(fn, reps: int, top: int = 6):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = []
+    rows, launches = [], 0
     for ev in prof.key_averages():
         # kernels and copies only: a CPU op's row repeats its kernels' time,
         # and the activity-buffer row is the profiler's own
@@ -401,10 +773,18 @@ def _device_breakdown(fn, reps: int, top: int = 6):
             t = getattr(ev, "self_cuda_time_total", 0.0)
         if t > 0:
             rows.append((ev.key[:48], t / 1e3 / reps))
+            launches += ev.count
     if not rows:
-        return None, []
+        return None, None, []
     rows.sort(key=lambda r: -r[1])
-    return sum(t for _, t in rows), rows[:top]
+    if host_top:
+        host = sorted(((ev.key[:40], ev.self_cpu_time_total / 1e3 / reps, ev.count / reps)
+                       for ev in prof.key_averages() if ev.device_type != DeviceType.CUDA),
+                      key=lambda r: -r[1])[:host_top]
+        print("host profile (self CPU ms and calls per call of the profiled function, with the "
+              "profiler's own overhead): "
+              + "; ".join(f"{name} {t:.3f} ms x{n:.0f}" for name, t, n in host))
+    return sum(t for _, t in rows), launches / reps, rows[:top]
 
 
 def main() -> int:
@@ -416,27 +796,44 @@ def main() -> int:
     build_phase(ptxas_verbose=True)
     kern = kernel_phase()
     slc = slice_phase(smi)
+    trn = train_phase(smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
             print(f"  {f}", file=sys.stderr)
         return 1
-    main_b = 8
-    row = kern["per_batch"][main_b]
+    # (name, key of its timings, line of the TPU kernel, batch of its main path: the
+    # row's launches, error and times are that path's, at that batch)
+    kernels = [
+        ("flash_attn_fwd", "fwd", 247, BUCKETS[1]),
+        ("flash_attn_bwd_dq", "dq", 454, TRAIN_BATCH),
+        ("flash_attn_bwd_dkv", "dkv", 492, TRAIN_BATCH),
+    ]
+    lines = []
+    for name, key, line, batch in kernels:
+        row = kern[key][batch]
+        lines.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"peft_vit_tpu_torch/csrc/flash_attn_{'fwd' if key == 'fwd' else 'bwd'}.cu",
+            "replaces": f"peft_vit_tpu/ops/attention.py:{line}",
+            "launches": slc["launches"] if key == "fwd" else trn["launches"][name],
+            "launches_serving": slc["launches"] if key == "fwd" else 0,
+            "launches_training": trn["launches"][name],
+            "max_abs_err": kern["max_abs_err"][key],
+            "batch": batch,
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+        if key != "fwd":
+            lines[-1]["library_computes"] = (
+                "dq, dk and dv in one scaled_dot_product_attention backward; beside it "
+                f"dq + dk/dv + delta take {row['backward_ms']:.6f} ms")
     print(f"nvidia-smi: {smi}")
-    print(json.dumps({"kernels": [{
-        "name": "flash_attn_fwd",
-        "route": "cuda",
-        "source": "peft_vit_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "peft_vit_tpu/ops/attention.py:247",
-        "launches": slc["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
-    }]}))
+    print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,9 @@ hand-written CUDA C++ counterpart in ``csrc/``, built with ``nvcc`` for
 kernel for CUDA tensors and runs its plain PyTorch version for CPU tensors;
 there is no other fallback.
 
-Ported so far: the deterministic serving path of the CLIP-style ViT LoRA
-classifier (``models.factory.flagship``, ``engine.serving.ServingSession``)
-with the flash-attention forward kernel.
+Ported so far: the CLIP-style ViT LoRA classifier
+(``models.factory.flagship``), served (``engine.serving.ServingSession``)
+and trained (``peft.masks``, ``engine.train``; fp32 master weights under a
+bf16 model), with the flash-attention forward kernel and its two backward
+kernels behind ``ops.attention.flash_attention``.
 """

@@ -30,63 +30,11 @@
 // tensor cores have no full-fp32 mode).
 // D = 64 only.  wgmma, TMA and warp specialisation are left for later.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kD = 64;        // head dim
-constexpr int kBlockQ = 64;   // q rows per block
-constexpr int kBlockK = 64;   // keys per K/V tile
-constexpr int kWarps = 4;     // bf16 kernel: 16 q rows per warp
-constexpr int kThreadsBf16 = kWarps * 32;
-constexpr int kLds = kD + 8;  // bf16 smem row stride: 144 B keeps 16 B
-                              // alignment and makes fragment loads
-                              // conflict-free
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ uint32_t ld_u32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two fp32 values to one register of two bf16 (lo in the low half).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a * b on the tensor cores: a 16x16 bf16 (row), b 16x8 bf16 (col),
-// c 16x8 fp32.  Fragment layouts (g = lane / 4, t = lane % 4):
-//   a[0] = A[g][2t..2t+1]   a[1] = A[g+8][2t..2t+1]
-//   a[2] = A[g][2t+8..+9]   a[3] = A[g+8][2t+8..+9]
-//   b0   = B[2t..2t+1][g]   b1   = B[2t+8..2t+9][g]
-//   c[0..1] = C[g][2t..2t+1]   c[2..3] = C[g+8][2t..2t+1]
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 64 rows x 64 bf16 from global (rows row0.., row stride kD) into shared
-// (row stride kLds), 16 B per load; rows >= n are zero.
-__device__ __forceinline__ void load_tile_bf16(uint16_t* dst, const uint16_t* src,
-                                               int row0, int n, int tid) {
-#pragma unroll
-  for (int i = 0; i < kBlockK * kD / 8 / kThreadsBf16; ++i) {
-    const int c = tid + i * kThreadsBf16;
-    const int r = c >> 3;
-    const int col = (c & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) {
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * kD + col);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLds + col) = val;
-  }
-}
+using namespace flash;
 
 __global__ void __launch_bounds__(kThreadsBf16)
 flash_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.layers import cast_frozen_
 from ..utils import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -30,11 +31,12 @@ def make_infer_fn(
     """Deterministic logits fn(images) of ``model`` in eval mode.
 
     ``state`` (a ``state_dict``, e.g. from ``models.params_from_jax``) is
-    loaded strictly first; loading casts each weight once to the dtype the
-    model stores it in (the compute dtype; LayerNorm and BN statistics stay
-    fp32)."""
+    loaded strictly first.  Serving trains nothing, so every weight is then
+    frozen and cast once to the model's compute dtype (LayerNorm and BN
+    statistics stay fp32)."""
     if state is not None:
         model.load_state_dict(state, strict=True)
+    cast_frozen_(model.requires_grad_(False))
     model.eval()
 
     def infer(images: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,15 @@
 from .classifier import ClassifierHead, FeatureBatchNorm, ImageClassifier
-from .convert import load_jax_variables, params_from_jax
+from .convert import jax_path, load_jax_variables, params_from_jax, params_to_jax
 from .factory import flagship
-from .layers import ACT2FN, Block, LayerNorm, Mlp, MultiHeadAttention, quick_gelu
+from .layers import (
+    ACT2FN,
+    Block,
+    LayerNorm,
+    Mlp,
+    MultiHeadAttention,
+    cast_frozen_,
+    quick_gelu,
+)
 from .vit import VisionTransformer
 
 __all__ = [
@@ -14,8 +22,11 @@ __all__ = [
     "Mlp",
     "MultiHeadAttention",
     "VisionTransformer",
+    "cast_frozen_",
     "flagship",
+    "jax_path",
     "load_jax_variables",
     "params_from_jax",
+    "params_to_jax",
     "quick_gelu",
 ]

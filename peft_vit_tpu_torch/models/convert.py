@@ -11,7 +11,12 @@ the names a flax init produces) to this package's ``state_dict``:
 * everything else (biases, ``class_embedding``, ``positional_embedding``,
   ``proj``, ``bn_mean``, ``bn_var``) keeps its name and layout.
 
-Arrays arrive as fp32; loading into a bf16 model casts them once.
+Arrays arrive as fp32.  Loading copies each into the dtype the model
+stores it in: fp32 for every trainable leaf (and for every leaf before
+``layers.cast_frozen_``), so a master weight never passes through bf16.
+
+``jax_path`` and ``params_to_jax`` are the inverse map, from this package's
+names and layouts back to the JAX package's.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from torch import nn
 
 _COLLECTIONS = ("params", "batch_stats")
 _BLOCK = re.compile(r"^blocks_(\d+)$")
+_BATCH_STATS = ("bn_mean", "bn_var")
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
@@ -76,3 +82,37 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     and shape mismatches raise."""
     model.load_state_dict(params_from_jax(variables), strict=True)
     return model
+
+
+def jax_path(name: str, ndim: int) -> str:
+    """This package's parameter name -> the JAX package's ``/``-joined path:
+    ``backbone.blocks.1.attn.q_adapter1.weight`` (2-D) ->
+    ``backbone/blocks_1/attn/q_adapter1/kernel``.  A ``weight`` of rank 1 is
+    a LayerNorm ``scale``, of rank 2 or 4 a ``kernel``."""
+    *modules, leaf = name.split(".")
+    if leaf == "weight":
+        leaf = "scale" if ndim == 1 else "kernel"
+    parts = []
+    for m in modules:
+        if m.isdigit() and parts and parts[-1] == "blocks":
+            parts[-1] = f"blocks_{m}"
+        else:
+            parts.append(m)
+    return "/".join((*parts, leaf))
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+    """A ``state_dict`` of this package -> the JAX package's variables tree
+    (nested dicts of fp32 numpy arrays): the inverse of ``params_from_jax``."""
+    variables: Dict[str, dict] = {}
+    for name, tensor in state.items():
+        arr = tensor.detach().to(torch.float32).cpu().numpy()
+        *modules, leaf = jax_path(name, arr.ndim).split("/")
+        if leaf == "kernel":
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+        collection = "batch_stats" if leaf in _BATCH_STATS else "params"
+        node = variables.setdefault(collection, {})
+        for m in modules:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return variables

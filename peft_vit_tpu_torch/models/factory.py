@@ -19,13 +19,16 @@ def flagship(
     num_classes: int = 100,
     dtype: torch.dtype = torch.bfloat16,
     use_bn: bool = False,
+    ln_fp32: bool = True,
     device=None,
 ) -> ImageClassifier:
     """The flagship classifier: CLIP-style ViT (ViT-B/16 at the defaults,
     output_dim 512) with LoRA rank 4, alpha 128 on q and v with the
     post-scale-q quirk, and a linear head (``use_bn``: channel BN first).
-    The same model as the JAX package's ``__graft_entry__._flagship``.
-    ``device=None`` builds on the card."""
+    The same model as the JAX package's ``__graft_entry__._flagship``:
+    ``dtype`` is the compute dtype, every weight is stored in fp32, and
+    ``ln_fp32=False`` normalizes in the compute dtype.  ``device=None``
+    builds on the card."""
     device = resolve_device(device)
     spec = PEFTSpec(
         method="lora",
@@ -42,6 +45,7 @@ def flagship(
         heads=heads,
         output_dim=512,
         spec=spec,
+        ln_fp32=ln_fp32,
         dtype=dtype,
         device=device,
     )

@@ -2,20 +2,23 @@
 
 Ported: the activations, ``LayerNorm``, ``Mlp``, ``MultiHeadAttention``
 with a packed ``in_proj`` and the LoRA q/k/v deltas (with the CLIP
-``lora_post_scale_q`` quirk), and ``Block`` in its deterministic path.
+``lora_post_scale_q`` quirk), and ``Block`` with training-mode drop-path.
 Every other PEFT hook raises ``NotImplementedError`` (``require_ported``).
 
-Numerics follow the JAX modules: matmul weights compute in the module's
-``dtype`` (flax ``nn.Dense(dtype=...)``), LayerNorm statistics in fp32 with
-the result cast back to the input dtype, residual adds in the compute
-dtype.  Weights are stored in the compute dtype, so a state dict loaded
-into a bf16 model is cast once, at load; LayerNorm parameters stay fp32.
+Numerics follow the JAX modules: every weight is stored in fp32 (``Dense``'s
+``param_dtype``) and cast to the module's compute ``dtype`` at use (flax
+``nn.Dense(dtype=..., param_dtype=...)``), so a bf16 model trains fp32
+master weights with fp32 gradients; LayerNorm statistics are fp32 with the
+result cast back to the input dtype, residual adds are in the compute
+dtype.  ``cast_frozen_`` stores the frozen weights in the compute dtype
+once the trainable mask is known: the same numbers, one cast fewer per use.
+LayerNorm parameters stay fp32.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -69,15 +72,36 @@ def require_ported(spec: PEFTSpec) -> None:
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` computing in ``dtype``, as flax ``nn.Dense(dtype=...)``:
-    the weights are stored in ``dtype`` and the input is cast to it."""
+    """``nn.Linear`` as flax ``nn.Dense(dtype=..., param_dtype=...)``: the
+    weights are stored in ``param_dtype`` and, like the input, cast to the
+    compute ``dtype`` at use."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
-        super().__init__(in_features, out_features, bias=bias, device=device, dtype=dtype)
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device,
+                         dtype=param_dtype)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def cast_frozen_(model: nn.Module) -> nn.Module:
+    """Store every frozen weight (``requires_grad`` False) that is cast to a
+    compute dtype at use in that dtype, in place: one cast instead of one per
+    use, the same numbers.  Trainable weights keep their ``param_dtype``.
+    Modules that cast at use name their dtype in ``compute_dtype``."""
+    for module in model.modules():
+        dt = getattr(module, "compute_dtype", None)
+        if dt is None:
+            continue
+        for p in module.parameters(recurse=False):
+            if not p.requires_grad and p.dtype != dt:
+                p.data = p.data.to(dt)
+    return model
 
 
 class LayerNorm(nn.Module):
@@ -181,18 +205,36 @@ class MultiHeadAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block, deterministic path:
-    x = x + attn(ln_1(x)); x = x + mlp(ln_2(x))."""
+    """Pre-LN transformer block:
+    x = x + drop_path(attn(ln_1(x))); x = x + drop_path(mlp(ln_2(x))).
+
+    ``drop_path`` (stochastic depth) acts in training mode only: each sample
+    keeps its branch with probability ``1 - drop_path`` and is divided by
+    it, drawn from the explicit ``generator``.  ``ln_fp32=False`` normalizes
+    in the activations' dtype (the throughput mode of bf16 training)."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0, act: str = "gelu",
-                 spec: PEFTSpec = PEFTSpec(), dtype: torch.dtype = torch.float32,
-                 device=None):
+                 spec: PEFTSpec = PEFTSpec(), drop_path: float = 0.0, ln_fp32: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        self.ln_1 = LayerNorm(width, device=device)
+        self.drop_path = float(drop_path)
+        self.generator = generator
+        self.ln_1 = LayerNorm(width, compute_fp32=ln_fp32, device=device)
         self.attn = MultiHeadAttention(width, heads, spec=spec, dtype=dtype, device=device)
-        self.ln_2 = LayerNorm(width, device=device)
+        self.ln_2 = LayerNorm(width, compute_fp32=ln_fp32, device=device)
         self.mlp = Mlp(width, int(width * mlp_ratio), act=act, dtype=dtype, device=device)
 
+    def _drop_path(self, x: torch.Tensor) -> torch.Tensor:
+        if self.drop_path == 0.0 or not self.training:
+            return x
+        if self.generator is None:
+            raise ValueError("training-mode drop_path draws from an explicit torch.Generator")
+        keep = 1.0 - self.drop_path
+        draw = torch.rand((x.shape[0], 1, 1), generator=self.generator,
+                          device=self.generator.device)
+        return x * (draw < keep).to(device=x.device, dtype=x.dtype) / keep
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+        x = x + self._drop_path(self.attn(self.ln_1(x)))
+        return x + self._drop_path(self.mlp(self.ln_2(x)))

@@ -3,18 +3,34 @@
 conv1 patch embed (VALID, stride = patch, no bias) -> class token and
 positional embedding -> ``ln_pre`` -> QuickGELU blocks -> ``ln_post`` on
 the class token -> ``@ proj``.  Images are NHWC, as in the JAX package.
-The timm style, prompts and the extra probe block are not ported yet.
+Weights are stored in fp32 and cast to the compute ``dtype`` at use.  The timm style, prompts and the extra probe block are not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..peft.spec import PEFTSpec
 from .layers import Block, LayerNorm
+
+
+class PatchEmbed(nn.Conv2d):
+    """The patch-embedding convolution (VALID, stride = patch, no bias), its
+    weight stored in fp32 and cast to the compute ``dtype`` at use."""
+
+    def __init__(self, width: int, patch_size: int, dtype: torch.dtype, device=None):
+        super().__init__(3, width, patch_size, stride=patch_size, bias=False,
+                         device=device, dtype=torch.float32)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride)
 
 
 class VisionTransformer(nn.Module):
@@ -28,29 +44,34 @@ class VisionTransformer(nn.Module):
         mlp_ratio: float = 4.0,
         output_dim: Optional[int] = None,
         spec: PEFTSpec = PEFTSpec(),
+        drop_path_rate: float = 0.0,
+        ln_fp32: bool = True,
         dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
         device=None,
     ):
+        """``drop_path_rate`` is the last block's stochastic-depth rate: block
+        i of L gets ``linspace(0, rate, L)[i]``, drawn in training mode from
+        ``generator``."""
         super().__init__()
-        self.dtype = dtype
+        self.dtype = self.compute_dtype = dtype
         self.num_features = output_dim if output_dim is not None else width
         g = image_size // patch_size
-        self.conv1 = nn.Conv2d(3, width, patch_size, stride=patch_size, bias=False,
-                               device=device, dtype=dtype)
-        self.class_embedding = nn.Parameter(
-            torch.randn(width, device=device, dtype=dtype) * width**-0.5)
-        self.positional_embedding = nn.Parameter(
-            torch.randn(g * g + 1, width, device=device, dtype=dtype) * 0.01)
-        self.ln_pre = LayerNorm(width, device=device)
+        pkw = dict(device=device, dtype=torch.float32)
+        self.conv1 = PatchEmbed(width, patch_size, dtype, device=device)
+        self.class_embedding = nn.Parameter(torch.randn(width, **pkw) * width**-0.5)
+        self.positional_embedding = nn.Parameter(torch.randn(g * g + 1, width, **pkw) * 0.01)
+        self.ln_pre = LayerNorm(width, compute_fp32=ln_fp32, device=device)
+        dpr = np.linspace(0.0, drop_path_rate, max(layers, 1))
         self.blocks = nn.ModuleList(
             Block(width, heads, mlp_ratio=mlp_ratio, act="quick_gelu", spec=spec,
-                  dtype=dtype, device=device)
-            for _ in range(layers)
+                  drop_path=float(dpr[i]), ln_fp32=ln_fp32, dtype=dtype,
+                  generator=generator, device=device)
+            for i in range(layers)
         )
-        self.ln_post = LayerNorm(width, device=device)
+        self.ln_post = LayerNorm(width, compute_fp32=ln_fp32, device=device)
         if output_dim is not None:
-            self.proj = nn.Parameter(
-                torch.randn(width, output_dim, device=device, dtype=dtype) * width**-0.5)
+            self.proj = nn.Parameter(torch.randn(width, output_dim, **pkw) * width**-0.5)
         else:
             self.proj = None
 
@@ -58,7 +79,7 @@ class VisionTransformer(nn.Module):
         """(B, H, W, 3) images -> (B, num_features) pooled features."""
         b = x.shape[0]
         dt = self.dtype
-        x = x.to(dt).permute(0, 3, 1, 2)  # NHWC -> NCHW
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
         # (B, width, gh, gw) -> (B, gh*gw, width), row-major over the grid
         x = self.conv1(x).flatten(2).transpose(1, 2)
         cls = self.class_embedding.to(dt).expand(b, 1, -1)

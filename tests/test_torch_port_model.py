@@ -172,8 +172,10 @@ def test_port_imports_nothing_of_jax():
         for name in names:
             importlib.import_module(name)
         for want in ("ops.attention", "ops._build", "models.vit", "models.convert",
-                     "models.factory", "engine.serving", "peft.spec"):
+                     "models.factory", "engine.serving", "engine.train", "peft.spec",
+                     "peft.masks"):
             assert "peft_vit_tpu_torch." + want in names, want
+        import bench_torch, chip_smoke
         bad = sorted(
             n for n in sys.modules
             if n.split(".")[0].startswith("jax") or n.split(".")[0] in ("flax", "optax")
