@@ -3,6 +3,7 @@
 on one NVIDIA GPU (the counterpart of ``bench.py``).
 
     python3 bench_torch.py                      # on the card: bf16, B=16, k=8
+    python3 bench_torch.py --int8 --bwd-dx --static-act   # the int8 frozen tower
     python3 bench_torch.py --device cpu --tiny  # a rehearsal at a tiny size
 
 Prints ONE JSON line:
@@ -23,8 +24,16 @@ Host-to-device transfer is outside the window.
 ``ln_fp32=False`` as in ``bench.py``: LayerNorm runs in bf16.  ``bench.py``
 also asks for ``softmax_fp32=False``; on the card attention is the flash
 kernels (forward, dq, dk/dv), which keep the softmax in fp32 for every
-setting.  The int8 cases of ``bench.py`` are not ported yet and raise
-``NotImplementedError``.
+setting.
+
+The int8 cases of ``bench.py`` are arguments: ``--int8`` runs the frozen
+tower's GEMMs (in_proj, out_proj, c_fc, c_proj) through the int8 kernel on
+the training forward, ``--bwd-dx`` their dx products too, ``--static-act``
+quantizes the activations with calibrated per-tensor scales.  As in
+``bench.py`` the tree is quantized once from the stored fp32 weights and the
+scales are calibrated once (a batch from seed 7, margin 1.5), both outside
+the timed windows.  ``--patch-gemm`` computes the patch embedding as one
+matrix product.
 """
 
 from __future__ import annotations
@@ -41,13 +50,16 @@ import numpy as np
 import torch
 
 from peft_vit_tpu_torch.engine import (
+    INT8_CALIB_MARGIN,
     TrainCellState,
+    calibrate,
     ce_per_example,
     init_cell_state,
     make_apply_fn,
     make_train_step,
 )
 from peft_vit_tpu_torch.models import cast_frozen_, flagship
+from peft_vit_tpu_torch.ops.int8 import quantize_frozen_tree
 from peft_vit_tpu_torch.peft import build_mask, split_params
 from peft_vit_tpu_torch.utils import resolve_device
 
@@ -56,6 +68,35 @@ NORM_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32) * 255.0
 NORM_STD = np.asarray([0.229, 0.224, 0.225], np.float32) * 255.0
 LR, WD = 1e-3, 1e-4
 TINY = dict(width=64, layers=2, heads=4, image=32, patch=16, num_classes=10)
+
+
+def normalize(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """A uint8 batch normalized in fp32 on its device, handed to the model in
+    its compute dtype."""
+    mean = torch.as_tensor(NORM_MEAN, device=x.device)
+    std = torch.as_tensor(NORM_STD, device=x.device)
+    return ((x.to(torch.float32) - mean) / std).to(compute_dtype)
+
+
+def prepare(model, num_layers: int = 12, int8: bool = False, bwd_dx: bool = False):
+    """Apply the LoRA mask to ``model`` and store its frozen tower in the
+    compute dtype: ``(trainable, frozen leaves, quantized tree)``.  With
+    ``int8`` the tree is quantized from the stored fp32 weights first; the
+    order matters, since the cast rounds them."""
+    trainable, frozen = split_params(model, build_mask(model, "lora", num_layers=num_layers))
+    qtree = quantize_frozen_tree(frozen, bwd_dx=bwd_dx) if int8 else {}
+    cast_frozen_(model)
+    return trainable, frozen, qtree
+
+
+def calibration_scales(model, apply_fn, batch: int, image: int, compute_dtype: torch.dtype,
+                       device):
+    """The static activation scales from one batch drawn from seed 7, as
+    ``bench.py`` calibrates: margin 1.5, the weights quantized per call."""
+    xc = torch.as_tensor(
+        np.random.RandomState(7).randint(0, 256, (batch, image, image, 3), dtype=np.uint8),
+        device=device)
+    return calibrate(model, apply_fn, {}, normalize(xc, compute_dtype), INT8_CALIB_MARGIN)
 
 
 def make_step(apply_fn, compute_dtype: torch.dtype = torch.bfloat16, has_bn: bool = False,
@@ -67,13 +108,9 @@ def make_step(apply_fn, compute_dtype: torch.dtype = torch.bfloat16, has_bn: boo
     train_step = make_train_step(apply_fn, ce_per_example, has_bn=has_bn)
 
     def step_fn(state: TrainCellState, frozen, xs: torch.Tensor, ys: torch.Tensor):
-        mean = torch.as_tensor(NORM_MEAN, device=xs.device)
-        std = torch.as_tensor(NORM_STD, device=xs.device)
         loss = None
         for x, y in zip(xs, ys):
-            # normalize in fp32, hand the model its compute dtype directly
-            x = ((x.to(torch.float32) - mean) / std).to(compute_dtype)
-            state, loss = train_step(state, frozen, x, y, None, lr, wd)
+            state, loss = train_step(state, frozen, normalize(x, compute_dtype), y, None, lr, wd)
         return state, loss
 
     return step_fn
@@ -127,24 +164,37 @@ def main(argv=None) -> int:
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--tiny", action="store_true",
                         help="a 2-layer, 64-wide model at 32 px (rehearsal only)")
-    parser.add_argument("--int8", action="store_true", help="not ported yet")
+    parser.add_argument("--int8", action="store_true",
+                        help="the frozen tower's GEMMs int8 on the training forward")
+    parser.add_argument("--bwd-dx", action="store_true",
+                        help="with --int8: their dx products int8 too")
+    parser.add_argument("--static-act", action="store_true",
+                        help="with --int8: calibrated per-tensor activation scales")
+    parser.add_argument("--patch-gemm", action="store_true",
+                        help="the patch embedding as one matrix product")
     args = parser.parse_args(argv)
-    if args.int8:
-        raise NotImplementedError("the int8 forward (ops/int8.py) is not ported yet")
+    if (args.bwd_dx or args.static_act) and not args.int8:
+        parser.error("--bwd-dx and --static-act need --int8")
 
     device = resolve_device(args.device)
     shape = TINY if args.tiny else {}
-    model = flagship(**shape, dtype=torch.bfloat16, ln_fp32=False, device=device)
-    trainable, _ = split_params(model, build_mask(model, "lora", num_layers=12))
-    cast_frozen_(model)
-    step_fn = make_step(make_apply_fn(model))
+    image = shape.get("image", 224)
+    model = flagship(**shape, dtype=torch.bfloat16, ln_fp32=False, int8_train=args.int8,
+                     patch_gemm=args.patch_gemm, device=device)
+    trainable, _, frozen = prepare(model, int8=args.int8, bwd_dx=args.bwd_dx)
+    apply_fn = make_apply_fn(model)
+    if args.static_act:
+        frozen.update(calibration_scales(model, apply_fn, args.batch, image, torch.bfloat16,
+                                         device))
+    step_fn = make_step(apply_fn)
     rates, _ = measure(
-        step_fn, init_cell_state(trainable), {}, args.batch, args.k_chain, args.windows,
-        args.warmup, image=shape.get("image", 224),
+        step_fn, init_cell_state(trainable), frozen, args.batch, args.k_chain, args.windows,
+        args.warmup, image=image,
         num_classes=shape.get("num_classes", 100), device=device,
     )
     where = card() if device.type == "cuda" else "cpu (a rehearsal, not a device number)"
-    print(f"# case B={args.batch} k={args.k_chain} bf16: "
+    print(f"# case B={args.batch} k={args.k_chain} bf16 int8={args.int8} dx={args.bwd_dx} "
+          f"static={args.static_act} patch_gemm={args.patch_gemm}: "
           + " ".join(f"{r:.1f}" for r in rates) + f" img/s per window; {where}",
           file=sys.stderr, flush=True)
     # a CPU or tiny-model run is a rehearsal and never carries the device metric's name

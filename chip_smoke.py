@@ -19,13 +19,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    autograd Function against autograd through the plain reference.  Then
    each kernel's time beside its bound, its plain version and
    ``torch.nn.functional.scaled_dot_product_attention``, forward and
-   backward (a yardstick only: the port never calls it);
+   backward (a yardstick only: the port never calls it).
+   ``int8_gemm_dynamic`` and ``int8_gemm_static`` (the counterpart of the
+   Pallas quantize + int8 matmul + rescale kernel) are held to EQUALITY with
+   their plain versions, bf16 and fp32, at M = 197 x {1, 8, 16, 32} for the
+   four GEMMs of a block and their transposes (the dx products), at M = 1,
+   with an all-zero row, an outlier row, values on .5 steps, a saturating
+   static scale and a non-contiguous input; shapes the kernel does not take
+   must raise.  Then their times beside the bound, the plain version, the
+   library route (``quantize_rows`` + ``torch._int_mm`` + rescale) and the
+   dense bf16 ``F.linear``;
 4. slice: the ViT-B/16 LoRA flagship (bf16, channel BN) built from a numpy
    weight tree in the JAX package's layout, served by ``ServingSession``
    with buckets (1, 8, 32) for requests of 1, 5, 8, 32 and 40 images.  The
    logits must be finite; the 5-image request must agree with the same
    model run on the CPU in fp32; the forward kernel must have been launched
-   once per layer per forward batch;
+   once per layer per forward batch.  Then the same weights and requests
+   through the flagship built with ``int8=True``: 48 launches of the int8
+   kernel and 12 of the attention kernel per forward batch, top-1 equal to
+   the bf16 session's, logits near it, the fp32 int8 forward on the card
+   equal bit for bit to the same forward with the plain version in the
+   kernel's place and near the fp32 int8 forward on the CPU;
 5. train: the same flagship (bf16 compute, fp32 master weights, LoRA mask)
    takes SGD steps at batch 16 through ``bench_torch.make_step``.  198,756
    parameters train; every loss is finite; each of the three kernels is
@@ -35,7 +49,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one batch lower the loss; 3 steps in fp32 on the card (at lr 1e-5, B=4)
    match the same steps on the CPU, and the bf16 losses and LoRA updates at
    B=16 track the CPU's fp32 ones.  Then the step rate and a profile of one
-   step.
+   step;
+6. int8 train: the flagship with ``int8_train=True`` takes 3 steps at batch
+   16 under each of three recipes (pre-quantized tree; with the int8 dx
+   backward; static activation scales at margin 1.5 with the int8 dx).  The
+   launch counts are derived from the model (48 forward launches a step, 47
+   dx launches: block 0's in_proj input needs no gradient); the frozen
+   leaves and the quantized tree stay bit-identical; every trainable leaf
+   moves; one step's update equals, bit for bit, the update of the same step
+   with the plain versions in the kernel's place; 8 steps on one batch lower
+   the loss.  Then each recipe's step rate and profile beside the bf16 step.
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -57,6 +80,7 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense tensor-core bf16
+INT8_OPS_PER_S = 1979e12  # dense tensor-core int8
 WIDTH, LAYERS, HEADS, IMAGE, PATCH = 768, 12, 12, 224, 16
 OUTPUT_DIM, NUM_CLASSES, LORA_RANK = 512, 100, 4
 N_TOKENS, HEAD_DIM = (IMAGE // PATCH) ** 2 + 1, WIDTH // HEADS
@@ -69,6 +93,14 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_K, TRAIN_WINDOWS = 16, 4, 8, 7
 FIXED_BATCH_STEPS = 8
 F32_BATCH, F32_STEPS = 4, 3
 TRAINABLE = 12 * 2 * 2 * WIDTH * LORA_RANK + OUTPUT_DIM * NUM_CLASSES + NUM_CLASSES  # 198,756
+# The int8 frozen tower: the four GEMMs of a block as (name, K, N); the dx
+# products run the same four transposed.  M = batch x tokens.
+INT8_GEMMS = (("in_proj", WIDTH, 3 * WIDTH), ("out_proj", WIDTH, WIDTH),
+              ("c_fc", WIDTH, 4 * WIDTH), ("c_proj", 4 * WIDTH, WIDTH))
+INT8_BATCHES = (1, 8, 16, 32)  # the serving buckets and the training batch
+INT8_F32_BATCHES = (F32_BATCH, 8)  # the fp32 card-vs-CPU runs: training batch, serving bucket
+INT8_TRAIN_STEPS = 3
+INT8_KERNEL_LINE = ("c_fc", TRAIN_BATCH)  # the GEMM and batch of the kernels line
 
 # Tolerances, each with its reason.
 TOL_BF16_OUT = 2e-2  # the repo's bf16 flash pin: p and o rounded to bf16 at other points
@@ -125,6 +157,24 @@ TOL_BF16_TRAIN_UPDATE_COS_MEDIAN = 0.6
 # |diff| / max |update| (1.9e-2 measured).
 TOL_KERNEL_BWD_UPDATE_COS = 0.999
 TOL_KERNEL_BWD_UPDATE_REL = 5e-2
+
+# int8: the kernel repeats its plain version's arithmetic step by step (IEEE
+# division, round half to even, an exact integer sum, two multiplies in the
+# same order), so every output is held to equality, bf16 and fp32.
+TOL_INT8_KERNEL = 0.0
+# int8 serving against the bf16 session on the same weights: per-row int8
+# activations and per-channel int8 weights add about 1/127 of each GEMM's
+# operands as noise, through 48 GEMMs of a random-weight tower.  Measured on
+# the H100: 9.9e-2 (bf16 itself stands 6.9e-2 from fp32).
+TOL_INT8_VS_BF16_LOGITS_REL = 1.5e-1
+# fp32 int8 on the card against fp32 int8 on the CPU: outside the GEMMs the
+# two differ at 1e-6, which flips a code at a .5 boundary here and there, one
+# step of 1/127 of a row's range each, in 48 GEMMs of a random-weight tower.
+# Measured on the H100: 3.4e-2; the CPU model itself moves by as much when its
+# input is scaled by 1 + 1e-6 (printed beside it).  What holds the kernel in
+# the model is the check before it: the same forward with the plain versions
+# in the kernel's place, equal bit for bit.
+TOL_INT8_F32_LOGITS_REL = 6e-2
 
 FAILURES: list[str] = []
 
@@ -392,6 +442,153 @@ def _print_timing(name: str, b: int, shape, row: dict) -> None:
         for key, val in row.items()), flush=True)
 
 
+def int8_bound(m: int, k: int, n: int, itemsize: int):
+    """Least time for the function: x (M, K) read once, w_i8 (N, K) and s_w
+    read once, out (M, N) written once, against 2 M K N operations at the
+    dense int8 tensor-core peak."""
+    bytes_moved = m * k * itemsize + n * k + 4 * n + m * n * itemsize
+    ops = 2 * m * k * n
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def int8_kernel_phase(timing: bool = True) -> dict:
+    """``int8_gemm_dynamic`` and ``int8_gemm_static`` (the CUDA counterpart of
+    the Pallas ``_prequant_kernel``) against their plain versions on the card,
+    held to equality: bf16 at M = 197 x {1, 8, 16, 32} for the four GEMMs of a
+    block and their transposes (the dx products), fp32 at the batches of the
+    fp32 runs, and the corner cases.  Then the times."""
+    from peft_vit_tpu_torch.ops import int8 as i8
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def rand(shape, dtype=torch.float32, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+
+    def weight(k, n):
+        return i8.quantize_cols(rand((n, k), std=k**-0.5))
+
+    def hold(name, got, want):
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err, bad = diff.max().item(), int((diff > 0).sum())
+        check(got.shape == want.shape and got.dtype == want.dtype
+              and bool(torch.isfinite(got).all()) and err <= TOL_INT8_KERNEL,
+              f"int8 kernel {name} {tuple(got.shape)}: max abs err {err:.3e} "
+              f"({bad} of {got.numel()} differ) == plain")
+        return err
+
+    shapes = [(name, k, n) for name, k, n in INT8_GEMMS]
+    shapes += [(name + "^T (dx)", n, k) for name, k, n in INT8_GEMMS]
+    weights = {(k, n): weight(k, n) for _, k, n in shapes}
+    errs = {"dynamic": 0.0, "static": 0.0}
+    for dtype, batches in ((torch.bfloat16, INT8_BATCHES), (torch.float32, INT8_F32_BATCHES)):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for b in batches:
+            m = b * N_TOKENS
+            for name, k, n in shapes:
+                w_i8, s_w = weights[(k, n)]
+                x = rand((m, k), dtype)
+                err = hold(f"dynamic {tag} B={b} {name} K={k} N={n}",
+                           i8.int8_gemm_dynamic(x, w_i8, s_w), i8._prequant_forward(x, w_i8, s_w))
+                errs["dynamic"] = max(errs["dynamic"], err)
+                if "dx" in name:
+                    continue  # a cotangent always takes the dynamic quantize
+                s_x = x.float().abs().max() * 1.5 / 127.0
+                err = hold(f"static {tag} B={b} {name} K={k} N={n}",
+                           i8.int8_gemm_static(x, w_i8, s_w, s_x),
+                           i8._static_forward(x, w_i8, s_w, s_x))
+                errs["static"] = max(errs["static"], err)
+
+    # corner cases, on c_fc's weight
+    k, n = INT8_GEMMS[2][1:]
+    w_i8, s_w = weights[(k, n)]
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        x = rand((1, k), dtype)
+        hold(f"dynamic {tag} M=1", i8.int8_gemm_dynamic(x, w_i8, s_w),
+             i8._prequant_forward(x, w_i8, s_w))
+        x = rand((2, 70, k), dtype)
+        x[0, 3] = 0.0  # an all-zero row: scale 1e-8, codes 0
+        x[1, 5] *= 1000.0  # an outlier row keeps its own scale
+        # rows whose values sit exactly on .5 steps of their scale (absmax 127
+        # gives scale 1): round half to even
+        x[1, 7] = (torch.arange(k, device="cuda") % 255 - 127).to(dtype) / 2
+        x[1, 7, 0] = 127.0
+        out = i8.int8_gemm_dynamic(x, w_i8, s_w)
+        hold(f"dynamic {tag} 3-D input, zero row, outlier row, .5 steps", out,
+             i8._prequant_forward(x, w_i8, s_w))
+        check(bool((out[0, 3] == 0).all()), f"int8 kernel dynamic {tag}: the zero row gives zeros")
+        x = rand((300, k), dtype)
+        s_x = x.float().abs().max() / 127.0 / 8.0  # most of the data saturates at +-127
+        sat = (i8.quantize_static(x, s_x).abs() == 127).float().mean().item()
+        hold(f"static {tag} saturating ({sat:.2f} of the codes at +-127)",
+             i8.int8_gemm_static(x, w_i8, s_w, s_x), i8._static_forward(x, w_i8, s_w, s_x))
+        g = rand((k, 300), dtype).t()  # a cotangent with the strides its producer left
+        check(not g.is_contiguous(), "int8 kernel: the test cotangent is not contiguous")
+        hold(f"dynamic {tag} non-contiguous input", i8.int8_gemm_dynamic(g, w_i8, s_w),
+             i8._prequant_forward(g, w_i8, s_w))
+    for bad_k, bad_n in ((k + 32, n), (k, n + 8), (4096, n)):
+        try:
+            i8.int8_gemm_dynamic(rand((4, bad_k), torch.bfloat16),
+                                 torch.zeros((bad_n, bad_k), dtype=torch.int8, device="cuda"),
+                                 torch.ones(bad_n, device="cuda"))
+            raised = False
+        except ValueError:
+            raised = True
+        check(raised, f"int8 kernel: K={bad_k} N={bad_n} raises, no fallback")
+
+    result = {"max_abs_err": errs, "rows": []}
+    if timing:
+        int8_kernel_timing(i8, rand, weights, shapes, result)
+    return result
+
+
+def int8_kernel_timing(i8, rand, weights, shapes, result: dict) -> None:
+    """Device time (CUDA-graph replay, bf16) of the kernel per path shape
+    beside its bound, its plain version, the library route for the same
+    function (``quantize_rows`` + ``torch._int_mm`` + rescale in PyTorch: four
+    or more launches, with ``torch._int_mm`` alone beside it) and the dense
+    bf16 ``F.linear`` of the same shape, which int8 has to beat to be worth
+    having.  None of the yardsticks is called by the port."""
+    import torch.nn.functional as F
+
+    def library(x, w_t, s_w):
+        x_i8, s_x = i8.quantize_rows(x)
+        return (torch._int_mm(x_i8, w_t).to(torch.float32) * s_x * s_w).to(x.dtype)
+
+    for b in INT8_BATCHES:
+        m = b * N_TOKENS
+        for name, k, n in shapes:
+            w_i8, s_w = weights[(k, n)]
+            w_t = w_i8.t()  # (K, N) column-major: the operand torch._int_mm takes
+            w_bf16 = rand((n, k), torch.bfloat16, k**-0.5)
+            x = rand((m, k), torch.bfloat16)
+            s_x = x.float().abs().max() * 1.5 / 127.0
+            reps = 100 if b <= 8 else 40
+            row = {"gemm": name, "batch": b, "M": m, "K": k, "N": n,
+                   "ms": _device_ms(lambda: i8.int8_gemm_dynamic(x, w_i8, s_w), reps),
+                   "static_ms": None if "dx" in name else _device_ms(
+                       lambda: i8.int8_gemm_static(x, w_i8, s_w, s_x), reps),
+                   "plain_ms": _device_ms(lambda: i8._prequant_forward(x, w_i8, s_w), 5, 3),
+                   "static_plain_ms": None if "dx" in name else _device_ms(
+                       lambda: i8._static_forward(x, w_i8, s_w, s_x), 5, 3),
+                   "linear_bf16_ms": _device_ms(lambda: F.linear(x, w_bf16), reps)}
+            x_i8, _ = i8.quantize_rows(x)
+            try:  # torch._int_mm wants M > 16; a yardstick only
+                row["library_ms"] = _device_ms(lambda: library(x, w_t, s_w), reps)
+                row["int_mm_ms"] = _device_ms(lambda: torch._int_mm(x_i8, w_t), reps)
+            except RuntimeError as e:
+                row["library_ms"] = row["int_mm_ms"] = None
+                print(f"int8 timing: torch._int_mm does not take M={m} K={k} N={n}: "
+                      f"{str(e).splitlines()[0]}")
+            row["bound_ms"], row["bound_by"] = int8_bound(m, k, n, 2)
+            result["rows"].append(row)
+            print("int8 timing " + " ".join(
+                f"{key}={val:.6f}" if isinstance(val, float) else f"{key}={val}"
+                for key, val in row.items()), flush=True)
+
+
 def jax_layout_tree(rng: np.random.RandomState) -> dict:
     """Random flagship weights in the JAX package's variable layout (the
     names a flax init produces; Dense kernels (in, out), conv HWIO)."""
@@ -527,6 +724,14 @@ def slice_phase(smi: str) -> dict:
           f"<= {TOL_F32_LOGITS_REL:g}, top-1 equal")
     del infer32
 
+    latency = _serving_latency(session, "bf16", rng, smi)
+    int8 = int8_slice_phase(shape, tree, requests, got, batches, rng, smi)
+    return {"launches": launches, "batches": batches, "latency_ms": latency, "int8": int8}
+
+
+def _serving_latency(session, label: str, rng, smi: str) -> dict:
+    """Median request time per bucket on the host clock, and the device's
+    share of it from the profiler."""
     latency = {}
     for b in BUCKETS:
         x = rng.standard_normal((b, IMAGE, IMAGE, 3)).astype(np.float32)
@@ -538,18 +743,86 @@ def slice_phase(smi: str) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         ms = statistics.median(times)
         latency[b] = ms
-        print(f"slice latency bucket {b}: {ms:.3f} ms/request, {b / ms * 1e3:.1f} images/s "
+        print(f"slice latency {label} bucket {b}: {ms:.3f} ms/request, {b / ms * 1e3:.1f} images/s "
               f"(median of 10, host clock, NHWC fp32 in -> fp32 logits out; {smi})")
         device_ms, n_launches, top = _device_breakdown(lambda: session.predict(x), reps=3)
         if device_ms is None:
-            print(f"slice profile bucket {b}: device time not measured (the profiler saw no "
-                  "CUDA kernel)")
+            print(f"slice profile {label} bucket {b}: device time not measured (the profiler "
+                  "saw no CUDA kernel)")
             continue
-        print(f"slice profile bucket {b}: device busy {device_ms:.3f} ms/request in "
+        print(f"slice profile {label} bucket {b}: device busy {device_ms:.3f} ms/request in "
               f"{n_launches:.0f} launches, idle share "
               f"{max(0.0, 1.0 - device_ms / ms):.3f} of the {ms:.3f} ms request; top: "
               + "; ".join(f"{name} {t:.3f} ms" for name, t in top))
-    return {"launches": launches, "batches": batches, "latency_ms": latency}
+    return latency
+
+
+def int8_slice_phase(shape, tree, requests, bf16_logits, batches, rng, smi: str) -> dict:
+    """The flagship with ``int8=True`` (eval forwards run the frozen tower's
+    four GEMMs per block through the int8 kernel, weight and activation
+    quantized per call) served by ``ServingSession`` on the same weights and
+    requests as the bf16 session."""
+    from peft_vit_tpu_torch.engine import ServingSession, make_infer_fn
+    from peft_vit_tpu_torch.models import flagship, load_jax_variables, params_from_jax
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.ops import int8 as i8
+
+    t0 = time.perf_counter()
+    session = ServingSession(flagship(**shape, int8=True), params_from_jax(tree), IMAGE,
+                             buckets=BUCKETS)
+    print(f"slice int8: ServingSession ready in {time.perf_counter() - t0:.1f} s")
+    wrappers = (attn.flash_attention_fwd, i8.int8_gemm_dynamic, i8.int8_gemm_static)
+    for w in wrappers:  # counts from 0 just before the main path, read just after
+        w.launches = 0
+    logits = {n: session.predict(x) for n, x in requests.items()}
+    k1, dynamic, static = (w.launches for w in wrappers)
+    for n, out in logits.items():
+        check(out.shape == (n, NUM_CLASSES) and out.dtype == np.float32
+              and bool(np.isfinite(out).all()),
+              f"slice int8: request of {n} -> finite float32 logits {out.shape}")
+    gemms = len(INT8_GEMMS) * LAYERS
+    check(dynamic == gemms * batches > 0 and static == 0,
+          f"slice int8: int8_gemm_dynamic launches {dynamic} == {gemms} GEMMs x {batches} "
+          f"batches, int8_gemm_static {static} == 0")
+    check(k1 == LAYERS * batches,
+          f"slice int8: flash_attn_fwd launches {k1} == {LAYERS} layers x {batches} batches")
+    got = logits[CHECKED_REQUEST]
+    rel = _rel(got, bf16_logits)
+    check(bool((got.argmax(axis=1) == bf16_logits.argmax(axis=1)).all()),
+          f"slice int8: top-1 int8 {got.argmax(axis=1).tolist()} == bf16 session "
+          f"{bf16_logits.argmax(axis=1).tolist()} on the prototype images")
+    check(rel <= TOL_INT8_VS_BF16_LOGITS_REL,
+          f"slice int8: int8 session vs bf16 session: max |logit diff| / max |logit| = "
+          f"{rel:.4e} <= {TOL_INT8_VS_BF16_LOGITS_REL:g}")
+
+    # the int8 arithmetic on the card against the same on the CPU, fp32 outside the GEMMs
+    checked = torch.from_numpy(requests[CHECKED_REQUEST])
+    t0 = time.perf_counter()
+    cpu_model = load_jax_variables(
+        flagship(**shape, dtype=torch.float32, int8=True, device="cpu"), tree).eval()
+    with torch.no_grad():
+        cpu_logits = cpu_model(checked).numpy()
+        nudged = _rel(cpu_model(checked * (1.0 + 1e-6)).numpy(), cpu_logits)
+    del cpu_model
+    print(f"slice int8: CPU fp32 int8 reference in {time.perf_counter() - t0:.1f} s")
+    infer32 = make_infer_fn(flagship(**shape, dtype=torch.float32, int8=True),
+                            params_from_jax(tree))
+    card32 = infer32(checked.cuda())
+    with plain_int8(i8):
+        card32_plain = infer32(checked.cuda())
+    check(torch.equal(card32, card32_plain),
+          "slice int8: fp32 int8 forward on the card with the kernel == the same forward with "
+          f"the plain version (largest diff {(card32 - card32_plain).abs().max().item():.3e})")
+    card32 = card32.cpu().numpy()
+    rel32 = _rel(card32, cpu_logits)
+    check(rel32 <= TOL_INT8_F32_LOGITS_REL
+          and bool((card32.argmax(1) == cpu_logits.argmax(1)).all()),
+          f"slice int8: fp32 int8 card vs fp32 int8 CPU: max |logit diff| / max |logit| = "
+          f"{rel32:.4e} <= {TOL_INT8_F32_LOGITS_REL:g}, top-1 equal (the CPU model on its input "
+          f"scaled by 1 + 1e-6: {nudged:.4e})")
+    del infer32
+    return {"launches": dynamic, "vs_bf16_rel": rel,
+            "latency_ms": _serving_latency(session, "int8", rng, smi)}
 
 
 @contextlib.contextmanager
@@ -749,6 +1022,149 @@ def train_phase(smi: str, device: str = "cuda") -> dict:
     return result
 
 
+@contextlib.contextmanager
+def plain_int8(i8):
+    """Within, the int8 ops run the plain versions of the kernel, forward and
+    dx backward, on the tensors the model gives them."""
+    saved = i8.int8_gemm_dynamic, i8.int8_gemm_static
+    i8.int8_gemm_dynamic, i8.int8_gemm_static = i8._prequant_forward, i8._static_forward
+    try:
+        yield
+    finally:
+        i8.int8_gemm_dynamic, i8.int8_gemm_static = saved
+
+
+def int8_train_phase(smi: str, bf16_rate: float, device: str = "cuda") -> dict:
+    """The flagship with ``int8_train=True`` (bf16 compute, fp32 masters, LoRA
+    mask) takes SGD steps at batch 16 under three recipes: the pre-quantized
+    tree (dense dx), the tree with the int8 dx backward, and static activation
+    scales (margin 1.5) with the int8 dx.  ``device`` "cpu" rehearses the
+    phase's code at a tiny size, where no kernel is launched."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import init_cell_state, make_apply_fn
+    from peft_vit_tpu_torch.models import flagship, load_jax_variables
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.ops import int8 as i8
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rng = np.random.RandomState(SEED + 3)
+    tree = jax_layout_tree(rng)
+    shape = dict(width=WIDTH, layers=LAYERS, heads=HEADS, image=IMAGE, patch=PATCH,
+                 num_classes=NUM_CLASSES, use_bn=True)
+    xs = torch.as_tensor(rng.randint(0, 256, (INT8_TRAIN_STEPS, TRAIN_BATCH, IMAGE, IMAGE, 3),
+                                     dtype=np.uint8), device=device)
+    ys = torch.as_tensor(rng.randint(0, NUM_CLASSES, (INT8_TRAIN_STEPS, TRAIN_BATCH)),
+                         device=device)
+
+    def steps(step_fn, state, frozen, xs_, ys_):
+        losses = []
+        for i in range(xs_.shape[0]):
+            state, loss = step_fn(state, frozen, xs_[i:i + 1], ys_[i:i + 1])
+            losses.append(float(loss))
+        return state, losses
+
+    wrappers = {"flash_attn_fwd": attn.flash_attention_fwd,
+                "flash_attn_bwd_dq": attn.flash_attention_bwd_dq,
+                "flash_attn_bwd_dkv": attn.flash_attention_bwd_dkv,
+                "int8_gemm_dynamic": i8.int8_gemm_dynamic,
+                "int8_gemm_static": i8.int8_gemm_static}
+    gemms = len(INT8_GEMMS) * LAYERS
+    result = {}
+    for name, bwd_dx, static in (("prequant", False, False), ("prequant+dx", True, False),
+                                 ("static+dx", True, True)):
+        model = load_jax_variables(
+            flagship(**shape, dtype=torch.bfloat16, ln_fp32=False, int8_train=True,
+                     device=device), tree)
+        trainable, frozen, qtree = bench_torch.prepare(model, LAYERS, int8=True, bwd_dx=bwd_dx)
+        apply_fn = make_apply_fn(model)
+        if static:
+            qtree.update(bench_torch.calibration_scales(
+                model, apply_fn, TRAIN_BATCH, IMAGE, torch.bfloat16, device))
+        per_gemm = (4 if bwd_dx else 2) + (1 if static else 0)
+        check(len(qtree) == gemms * per_gemm and all(
+            t.device.type == device for t in qtree.values()),
+            f"train int8 {name}: the quantized tree holds {len(qtree)} == {gemms} GEMMs x "
+            f"{per_gemm} tensors")
+        state0 = init_cell_state(trainable, dict(model.named_buffers()))
+        step_fn = bench_torch.make_step(apply_fn, compute_dtype=torch.bfloat16, has_bn=True)
+        start = {k: v.detach().clone() for k, v in {**frozen, **qtree}.items()}
+        steps(step_fn, state0, qtree, xs[:1], ys[:1])  # warm-up
+        sync()
+        for w in wrappers.values():  # counts from 0 just before the main path, read just after
+            w.launches = 0
+        state, losses = steps(step_fn, state0, qtree, xs, ys)
+        sync()
+        launches = {k: w.launches for k, w in wrappers.items()}
+
+        # Every Int8Dense runs once forward.  The dx product runs where the
+        # GEMM's input needs a gradient: everywhere but block 0's in_proj, whose
+        # input depends on no trainable leaf.
+        fwd = gemms * INT8_TRAIN_STEPS
+        dx = (gemms - 1) * INT8_TRAIN_STEPS if bwd_dx else 0
+        want = {"int8_gemm_dynamic": dx + (0 if static else fwd),
+                "int8_gemm_static": fwd if static else 0,
+                "flash_attn_fwd": LAYERS * INT8_TRAIN_STEPS,
+                "flash_attn_bwd_dq": LAYERS * INT8_TRAIN_STEPS,
+                "flash_attn_bwd_dkv": LAYERS * INT8_TRAIN_STEPS}
+        for k, n in launches.items():
+            check(n == want[k] and (device != "cuda" or n > 0 or want[k] == 0),
+                  f"train int8 {name}: {k} launches {n} == {want[k]} in {INT8_TRAIN_STEPS} steps")
+        check(all(math.isfinite(x) for x in losses),
+              f"train int8 {name}: {INT8_TRAIN_STEPS} steps at B={TRAIN_BATCH}, losses "
+              + " ".join(f"{x:.4f}" for x in losses) + " all finite")
+        same = [k for k, v in {**frozen, **qtree}.items() if torch.equal(v, start[k])]
+        check(len(same) == len(start),
+              f"train int8 {name}: {len(same)} of {len(start)} frozen leaves and tensors of the "
+              "quantized tree bit-identical after the steps")
+        moved = [k for k, v in state.trainable.items() if not torch.equal(v, state0.trainable[k])]
+        check(len(moved) == len(state.trainable) == 4 * LAYERS + 2,
+              f"train int8 {name}: {len(moved)} of {len(state.trainable)} trainable leaves moved")
+
+        # the kernel on the model's own activations and cotangents: the first
+        # step again, and once more with the plain versions in its place
+        with_kernel, _ = steps(step_fn, state0, qtree, xs[:1], ys[:1])
+        with plain_int8(i8):
+            with_plain, _ = steps(step_fn, state0, qtree, xs[:1], ys[:1])
+        differ = [k for k, v in with_kernel.trainable.items()
+                  if not torch.equal(v, with_plain.trainable[k])]
+        worst = max(((with_kernel.trainable[k] - with_plain.trainable[k]).abs().max().item()
+                     for k in differ), default=0.0)
+        check(not differ,
+              f"train int8 {name}: one step's update with the kernel == the same step with the "
+              f"plain versions, {len(with_kernel.trainable) - len(differ)} of "
+              f"{len(with_kernel.trainable)} leaves bit-identical (largest diff {worst:.3e})")
+        del with_kernel, with_plain
+
+        fixed_x = xs[:1].expand(FIXED_BATCH_STEPS, *xs.shape[1:])
+        fixed_y = ys[:1].expand(FIXED_BATCH_STEPS, -1)
+        _, fixed = steps(step_fn, state0, qtree, fixed_x, fixed_y)
+        check(all(math.isfinite(x) for x in fixed) and fixed[-1] < fixed[0],
+              f"train int8 {name}: {FIXED_BATCH_STEPS} steps on one batch lower the loss: "
+              + " ".join(f"{x:.4f}" for x in fixed))
+
+        rates, _ = bench_torch.measure(step_fn, state0, qtree, TRAIN_BATCH, TRAIN_K, 5, warmup=1,
+                                       image=IMAGE, num_classes=NUM_CLASSES, device=device)
+        rate = statistics.median(rates)
+        step_ms = 1e3 * TRAIN_BATCH / rate
+        print(f"train int8 {name} rate B={TRAIN_BATCH} k={TRAIN_K}: {rate:.1f} images/s, "
+              f"{step_ms:.3f} ms/step (median of 5 windows: " + " ".join(f"{r:.1f}" for r in rates)
+              + f"; bf16 step of the same call {bf16_rate:.1f} images/s; host clock; {smi})")
+        result[name] = {"launches": launches, "images_per_s": rate}
+        if device != "cuda":
+            continue
+        device_ms, n_launches, top = _device_breakdown(
+            lambda: steps(step_fn, state0, qtree, xs[:2], ys[:2]), reps=1)
+        if device_ms is None:
+            print(f"train int8 {name} profile: device time not measured")
+            continue
+        print(f"train int8 {name} profile: device busy {device_ms / 2:.3f} ms/step in "
+              f"{n_launches / 2:.0f} launches, idle share "
+              f"{max(0.0, 1.0 - device_ms / 2 / step_ms):.3f} of the {step_ms:.3f} ms step; top: "
+              + "; ".join(f"{k} {t / 2:.3f} ms" for k, t in top))
+        del model, step_fn, state0, state
+    return result
+
+
 def _device_breakdown(fn, reps: int, top: int = 6, host_top: int = 0):
     """Device time per call, the number of device launches (kernels and
     copies) per call and the kernels that take most of the time, from
@@ -795,8 +1211,10 @@ def main() -> int:
     smi = environment_phase()
     build_phase(ptxas_verbose=True)
     kern = kernel_phase()
+    kern8 = int8_kernel_phase()
     slc = slice_phase(smi)
     trn = train_phase(smi)
+    trn8 = int8_train_phase(smi, trn["images_per_s"])
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
@@ -832,6 +1250,33 @@ def main() -> int:
             lines[-1]["library_computes"] = (
                 "dq, dk and dv in one scaled_dot_product_attention backward; beside it "
                 f"dq + dk/dv + delta take {row['backward_ms']:.6f} ms")
+    gemm, batch = INT8_KERNEL_LINE
+    row = next(r for r in kern8["rows"] if r["gemm"] == gemm and r["batch"] == batch)
+    for variant in ("dynamic", "static"):
+        name = f"int8_gemm_{variant}"
+        training = {recipe: out["launches"][name] for recipe, out in trn8.items()}
+        serving = slc["int8"]["launches"] if variant == "dynamic" else 0
+        lines.append({
+            "name": name,
+            "route": "cuda",
+            "source": "peft_vit_tpu_torch/csrc/int8_gemm.cu",
+            "replaces": "peft_vit_tpu/ops/int8.py:110",
+            "launches": serving if variant == "dynamic" else training["static+dx"],
+            "launches_serving": serving,
+            "launches_training": training,
+            "max_abs_err": kern8["max_abs_err"][variant],
+            "batch": batch,
+            "shape": {"gemm": gemm, "M": row["M"], "K": row["K"], "N": row["N"]},
+            "ms": row["ms"] if variant == "dynamic" else row["static_ms"],
+            "plain_ms": row["plain_ms"] if variant == "dynamic" else row["static_plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_computes": "quantize_rows + torch._int_mm + rescale in PyTorch (several "
+                                "launches; the dynamic quantize for both variants)",
+            "int_mm_ms": row["int_mm_ms"],
+            "linear_bf16_ms": row["linear_bf16_ms"],
+        })
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

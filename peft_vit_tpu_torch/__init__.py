@@ -15,5 +15,10 @@ Ported so far: the CLIP-style ViT LoRA classifier
 (``models.factory.flagship``), served (``engine.serving.ServingSession``)
 and trained (``peft.masks``, ``engine.train``; fp32 master weights under a
 bf16 model), with the flash-attention forward kernel and its two backward
-kernels behind ``ops.attention.flash_attention``.
+kernels behind ``ops.attention.flash_attention``; and the int8 frozen tower
+(``ops.int8``, ``models.layers.Int8Dense``): int8 serving (``int8=True``) and
+the int8 LoRA training recipes (``int8_train=True`` with a pre-quantized tree,
+the int8 dx backward and static activation scales), with the quantize + int8
+GEMM + rescale kernel behind ``ops.int8.int8_gemm_dynamic`` and
+``int8_gemm_static``.
 """

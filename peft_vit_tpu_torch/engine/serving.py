@@ -7,6 +7,11 @@ at construction, so the kernels are built and the library plans chosen
 before the first request, as the JAX session compiles every bucket at load.
 Requests are NHWC numpy images; logits come back as float32 numpy.
 
+A model built with ``int8=True`` is served through the int8 path: the
+session freezes and casts every weight as for any model, and each request
+then quantizes weight and activation per call (``ops.int8.int8_matmul``) for
+the tower's four GEMMs per block.  Nothing else in the session changes.
+
 ``export_classifier`` and ``load_exported`` are not ported yet.
 """
 

@@ -17,6 +17,11 @@ in place of pytrees:
   cells.
 * Few-shot datasets are device-resident tensors; an epoch is a loop over a
   shuffled index matrix, not a host DataLoader.
+* The int8 frozen tower: the tree of ``ops.int8.quantize_frozen_tree`` and
+  the static activation scales travel in a step's ``frozen`` dict, named
+  after the ``Int8Dense`` buffers they substitute.  ``calibrate`` makes the
+  scales from one train-mode forward, and ``make_epoch_fn`` can renew them
+  on each epoch's first batch.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from ..models.layers import collect_activation_stats
+from ..ops.int8 import activation_scales_from_stats
 from ..peft.masks import merge_params
 from ..utils import resolve_device
 
@@ -38,6 +45,13 @@ Scalar = Union[float, torch.Tensor]
 PerExampleCriterion = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 # apply_fn(variables, x, train) -> logits
 ApplyFn = Callable[[Mapping[str, torch.Tensor], torch.Tensor, bool], torch.Tensor]
+
+#: headroom of the static activation scales over the calibration batch's
+#: absmax: the PEFT deltas feed the residual stream, so the layers' input
+#: ranges drift between recalibrations
+INT8_CALIB_MARGIN = 1.5
+# the Int8Dense buffers a quantized tree or a set of scales substitutes
+_INT8_STATE = (".w_i8", ".s_w", ".wt_i8", ".s_wt", ".s_x")
 
 
 def ce_per_example(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -127,6 +141,23 @@ def make_apply_fn(model: nn.Module) -> ApplyFn:
     return apply_fn
 
 
+def calibrate(model: nn.Module, apply_fn: ApplyFn, variables: Mapping[str, torch.Tensor],
+              x: torch.Tensor, margin: float = INT8_CALIB_MARGIN) -> Tensors:
+    """The static activation scales of ``model``'s ``Int8Dense`` layers from
+    one train-mode forward of the batch ``x`` in calibration mode:
+    ``{<module>.s_x: max(amax * margin / 127, 1e-8)}``, ready to merge into a
+    step's ``frozen``.  As in the JAX trainer, the forward runs on the
+    parameters alone, each weight quantized per call: a quantized tree or
+    earlier scales in ``variables`` are left out.  Train-mode BN runs on
+    copies of the statistics, so its update is discarded."""
+    variables = {k: v for k, v in variables.items() if not k.endswith(_INT8_STATE)}
+    for name, buf in model.named_buffers():
+        variables[name] = variables.get(name, buf).clone()
+    with torch.no_grad(), collect_activation_stats(model) as stats:
+        apply_fn(variables, x, True)
+    return activation_scales_from_stats(stats, margin)
+
+
 def make_train_step(
     apply_fn: ApplyFn,
     criterion: PerExampleCriterion,
@@ -173,6 +204,7 @@ def make_epoch_fn(
     nesterov: bool = True,
     lr_scale: Optional[Mapping[str, Scalar]] = None,
     has_bn: bool = False,
+    calibrate_model: Optional[nn.Module] = None,
 ):
     """One training epoch over device-resident tensors:
     ``epoch_fn(state, frozen, x, y, valid, perm, lr, wd) -> (state, mean loss)``.
@@ -180,12 +212,24 @@ def make_epoch_fn(
     x: (n, ...) with n a multiple of ``batch_size`` (see ``pad_dataset``);
     ``valid`` masks padded rows out of the loss; ``perm`` is the epoch's
     shuffled row order, taken ``batch_size`` rows at a time.  ``frozen``
-    names frozen tensors to substitute ({}: the module's own)."""
+    names frozen tensors to substitute ({}: the module's own).
+
+    ``calibrate_model`` (the module behind ``apply_fn``) asks for the static
+    int8 recipe: every epoch starts by calibrating the activation scales on
+    its first batch (``calibrate`` at ``INT8_CALIB_MARGIN``) and trains on them.
+    Stale scales saturate as the adapters move the residual stream, and
+    destroy convergence."""
     step = make_train_step(apply_fn, criterion, momentum, nesterov, lr_scale, has_bn)
 
     def epoch_fn(state: TrainCellState, frozen, x, y, valid, perm, lr, wd):
         nb = x.shape[0] // batch_size
         idxs = torch.as_tensor(perm, device=x.device).reshape(nb, batch_size)
+        if calibrate_model is not None:
+            variables = merge_params(state.trainable, frozen)
+            if has_bn:
+                variables.update(state.bn)
+            scales = calibrate(calibrate_model, apply_fn, variables, x[idxs[0]])
+            frozen = {**frozen, **scales}
         losses = []
         for idx in idxs:
             state, loss = step(state, frozen, x[idx], y[idx], valid[idx], lr, wd)

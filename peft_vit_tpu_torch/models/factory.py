@@ -4,6 +4,9 @@ from __future__ import annotations
 
 import torch
 
+from typing import Sequence
+
+from ..ops.int8 import INT8_TARGET_MODULES
 from ..peft.spec import PEFTSpec
 from ..utils import resolve_device
 from .classifier import ImageClassifier
@@ -20,6 +23,10 @@ def flagship(
     dtype: torch.dtype = torch.bfloat16,
     use_bn: bool = False,
     ln_fp32: bool = True,
+    int8: bool = False,
+    int8_train: bool = False,
+    int8_targets: Sequence[str] = INT8_TARGET_MODULES,
+    patch_gemm: bool = False,
     device=None,
 ) -> ImageClassifier:
     """The flagship classifier: CLIP-style ViT (ViT-B/16 at the defaults,
@@ -27,8 +34,10 @@ def flagship(
     post-scale-q quirk, and a linear head (``use_bn``: channel BN first).
     The same model as the JAX package's ``__graft_entry__._flagship``:
     ``dtype`` is the compute dtype, every weight is stored in fp32, and
-    ``ln_fp32=False`` normalizes in the compute dtype.  ``device=None``
-    builds on the card."""
+    ``ln_fp32=False`` normalizes in the compute dtype.  ``int8`` runs the
+    frozen tower's GEMMs (``int8_targets``) int8 on eval forwards,
+    ``int8_train`` on training forwards too; ``patch_gemm`` computes the patch
+    embedding as one matrix product.  ``device=None`` builds on the card."""
     device = resolve_device(device)
     spec = PEFTSpec(
         method="lora",
@@ -46,6 +55,10 @@ def flagship(
         output_dim=512,
         spec=spec,
         ln_fp32=ln_fp32,
+        int8=int8,
+        int8_train=int8_train,
+        int8_targets=int8_targets,
+        patch_gemm=patch_gemm,
         dtype=dtype,
         device=device,
     )

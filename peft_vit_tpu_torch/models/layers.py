@@ -2,8 +2,13 @@
 
 Ported: the activations, ``LayerNorm``, ``Mlp``, ``MultiHeadAttention``
 with a packed ``in_proj`` and the LoRA q/k/v deltas (with the CLIP
-``lora_post_scale_q`` quirk), and ``Block`` with training-mode drop-path.
-Every other PEFT hook raises ``NotImplementedError`` (``require_ported``).
+``lora_post_scale_q`` quirk), ``Block`` with training-mode drop-path, and
+the int8 frozen tower: ``Int8Dense`` in place of ``Dense`` for the GEMMs
+named in ``int8_targets`` (``int8``: no-grad forwards; ``int8_train``:
+training forwards with a full-precision or int8-dx backward), with
+``collect_activation_stats`` for the static activation scales.  Every other
+PEFT hook, and int8 attention (``int8_attn``, ``int8_attn_pv``), raises
+``NotImplementedError`` (``require_ported``).
 
 Numerics follow the JAX modules: every weight is stored in fp32 (``Dense``'s
 ``param_dtype``) and cast to the module's compute ``dtype`` at use (flax
@@ -17,14 +22,17 @@ LayerNorm parameters stay fp32.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import int8 as int8_ops
 from ..ops.attention import multi_head_attention
+from ..ops.int8 import INT8_TARGET_MODULES
 from ..peft.spec import PEFTSpec
 
 
@@ -48,9 +56,13 @@ ACT2FN: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
-def require_ported(spec: PEFTSpec) -> None:
-    """Raise ``NotImplementedError`` for every hook of ``spec`` the port lacks."""
+def require_ported(spec: PEFTSpec, int8_attn: bool = False,
+                   int8_attn_pv: bool = False) -> None:
+    """Raise ``NotImplementedError`` for every hook of ``spec``, and every
+    int8 attention flag, the port lacks."""
     unported = {
+        "int8_attn (int8 QK^T on calibrated q/k/v scales)": int8_attn,
+        "int8_attn_pv (int8 P@V)": int8_attn_pv,
         "attn_delta=kron (KAdaptation)": spec.attn_delta == "kron",
         "adapter (Houlsby / Compacter)": spec.adapter != "none",
         "attn_bias=rpb": spec.attn_bias != "none",
@@ -67,7 +79,7 @@ def require_ported(spec: PEFTSpec) -> None:
     missing = [name for name, on in unported.items() if on]
     if missing:
         raise NotImplementedError(
-            f"PEFT hooks not ported to peft_vit_tpu_torch yet: {', '.join(missing)}"
+            f"hooks not ported to peft_vit_tpu_torch yet: {', '.join(missing)}"
         )
 
 
@@ -87,6 +99,90 @@ class Dense(nn.Linear):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Int8Dense(Dense):
+    """``Dense`` with the int8 matmul (counterpart of the JAX ``Int8Dense``).
+
+    The same parameters (``weight``, ``bias``), so checkpoints, converters and
+    PEFT masks see no difference.  What flax reads from the ``qkernel`` and
+    ``qscale`` collections lives here in non-persistent buffers, ``None`` when
+    absent: ``w_i8`` / ``s_w`` (``ops.int8.quantize_frozen_tree``), the
+    transposed ``wt_i8`` / ``s_wt`` and the static activation scale ``s_x``
+    (``ops.int8.activation_scales_from_stats``).  ``functional_call``
+    substitutes them by name, so the quantized tree travels in a train
+    step's ``frozen`` dict.
+
+    ``forward(x, int8, train_bwd)``: ``int8=False`` is ``Dense``.  With
+    ``train_bwd`` and ``w_i8`` present: the ``_i8bwd`` ops if ``wt_i8`` is
+    present, the static ops if ``s_x`` is; without ``w_i8`` the weight is
+    quantized per call from the compute-dtype weight, differentiably if
+    ``train_bwd`` (``int8_matmul_bf16_bwd``) else not (``int8_matmul``).  The
+    bias is added after the cast to the compute dtype."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        for name in ("w_i8", "s_w", "wt_i8", "s_wt", "s_x"):
+            self.register_buffer(name, None, persistent=False)
+        self._stats = None  # (store, key) inside collect_activation_stats
+
+    def forward(self, x: torch.Tensor, int8: bool = True, train_bwd: bool = False) -> torch.Tensor:
+        if not int8:
+            return super().forward(x)
+        dt = self.compute_dtype
+        if train_bwd and self._stats is not None:
+            store, key = self._stats
+            amax = x.detach().to(torch.float32).abs().max()
+            store[key] = amax if key not in store else torch.maximum(store[key], amax)
+        xc, w = x.to(dt), self.weight.to(dt)
+        if train_bwd and self.w_i8 is not None:
+            if self.wt_i8 is not None:
+                if self.s_x is not None:
+                    y = int8_ops.int8_static_matmul_i8bwd(
+                        xc, w, self.w_i8, self.s_w, self.wt_i8, self.s_wt, self.s_x)
+                else:
+                    y = int8_ops.int8_prequant_matmul_i8bwd(
+                        xc, w, self.w_i8, self.s_w, self.wt_i8, self.s_wt)
+            elif self.s_x is not None:
+                y = int8_ops.int8_static_matmul(xc, w, self.w_i8, self.s_w, self.s_x)
+            else:
+                y = int8_ops.int8_prequant_matmul(xc, w, self.w_i8, self.s_w)
+        elif train_bwd:
+            y = int8_ops.int8_matmul_bf16_bwd(xc, w)
+        else:
+            y = int8_ops.int8_matmul(xc, w)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+def _dense_for(name: str, int8: bool, targets: Sequence[str]):
+    """The class of the GEMM ``name``: ``Int8Dense`` where the model may route
+    it through the int8 path."""
+    return Int8Dense if int8 and name in targets else Dense
+
+
+def _call(dense: Dense, x: torch.Tensor, int8: bool, int8_bwd: bool) -> torch.Tensor:
+    if isinstance(dense, Int8Dense):
+        return dense(x, int8, int8_bwd)
+    return dense(x)
+
+
+@contextlib.contextmanager
+def collect_activation_stats(model: nn.Module) -> Iterator[Dict[str, torch.Tensor]]:
+    """Calibration mode: within, every ``Int8Dense`` of ``model`` that runs
+    with ``train_bwd`` max-reduces the absmax of its input (taken in fp32)
+    into the yielded dict under ``<module name>.amax``, over however many
+    forwards are run.  Feed the dict to ``ops.int8.activation_scales_from_stats``."""
+    stats: Dict[str, torch.Tensor] = {}
+    modules = [(name, m) for name, m in model.named_modules() if isinstance(m, Int8Dense)]
+    for name, m in modules:
+        m._stats = (stats, f"{name}.amax")
+    try:
+        yield stats
+    finally:
+        for _, m in modules:
+            m._stats = None
 
 
 def cast_frozen_(model: nn.Module) -> nn.Module:
@@ -127,17 +223,25 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """c_fc -> act -> c_proj."""
+    """c_fc -> act -> c_proj.
 
-    def __init__(self, width: int, hidden: int, act: str = "gelu",
+    ``int8=True`` builds the GEMMs named in ``int8_targets`` as ``Int8Dense``;
+    a forward then routes them through the int8 path when called with
+    ``int8`` (and differentiably with ``int8_bwd``)."""
+
+    def __init__(self, width: int, hidden: int, act: str = "gelu", int8: bool = False,
+                 int8_targets: Sequence[str] = INT8_TARGET_MODULES,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.act = ACT2FN[act]
-        self.c_fc = Dense(width, hidden, dtype=dtype, device=device)
-        self.c_proj = Dense(hidden, width, dtype=dtype, device=device)
+        self.c_fc = _dense_for("c_fc", int8, int8_targets)(
+            width, hidden, dtype=dtype, device=device)
+        self.c_proj = _dense_for("c_proj", int8, int8_targets)(
+            hidden, width, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(self.act(self.c_fc(x)))
+    def forward(self, x: torch.Tensor, int8: bool = False, int8_bwd: bool = False) -> torch.Tensor:
+        x = self.act(_call(self.c_fc, x, int8, int8_bwd))
+        return _call(self.c_proj, x, int8, int8_bwd)
 
 
 class MultiHeadAttention(nn.Module):
@@ -147,15 +251,20 @@ class MultiHeadAttention(nn.Module):
     * post_scale_q (CLIP LoRA parity): q is scaled by 1/sqrt(head_dim)
       before the delta is added, and attention then runs at scale 1,
       i.e. softmax((q/sqrt(d) + dq) k^T).
+    * ``int8=True`` builds ``in_proj`` / ``out_proj`` (those named in
+      ``int8_targets``) as ``Int8Dense``; the LoRA deltas stay dense.
     """
 
-    def __init__(self, width: int, heads: int, spec: PEFTSpec = PEFTSpec(),
+    def __init__(self, width: int, heads: int, spec: PEFTSpec = PEFTSpec(), int8: bool = False,
+                 int8_attn: bool = False, int8_attn_pv: bool = False,
+                 int8_targets: Sequence[str] = INT8_TARGET_MODULES,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        require_ported(spec)
+        require_ported(spec, int8_attn, int8_attn_pv)
         self.heads = heads
         self.spec = spec
-        self.in_proj = Dense(width, 3 * width, dtype=dtype, device=device)
+        self.in_proj = _dense_for("in_proj", int8, int8_targets)(
+            width, 3 * width, dtype=dtype, device=device)
         self.lora_targets = tuple(spec.lora_targets) if spec.attn_delta == "lora" else ()
         for t in self.lora_targets:
             if t not in ("q", "k", "v"):
@@ -166,15 +275,16 @@ class MultiHeadAttention(nn.Module):
             nn.init.zeros_(a2.weight)
             self.add_module(f"{t}_adapter1", a1)
             self.add_module(f"{t}_adapter2", a2)
-        self.out_proj = Dense(width, width, dtype=dtype, device=device)
+        self.out_proj = _dense_for("out_proj", int8, int8_targets)(
+            width, width, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, int8: bool = False, int8_bwd: bool = False) -> torch.Tensor:
         b, n, d = x.shape
         h = self.heads
         hd = d // h
         spec = self.spec
         scale = hd**-0.5
-        q, k, v = self.in_proj(x).chunk(3, dim=-1)
+        q, k, v = _call(self.in_proj, x, int8, int8_bwd).chunk(3, dim=-1)
 
         deltas = {}
         if self.lora_targets:
@@ -201,7 +311,7 @@ class MultiHeadAttention(nn.Module):
         out = multi_head_attention(
             split_heads(q), split_heads(k), split_heads(v), scale=attn_scale
         )
-        return self.out_proj(out.transpose(1, 2).reshape(b, n, d))
+        return _call(self.out_proj, out.transpose(1, 2).reshape(b, n, d), int8, int8_bwd)
 
 
 class Block(nn.Module):
@@ -211,19 +321,35 @@ class Block(nn.Module):
     ``drop_path`` (stochastic depth) acts in training mode only: each sample
     keeps its branch with probability ``1 - drop_path`` and is divided by
     it, drawn from the explicit ``generator``.  ``ln_fp32=False`` normalizes
-    in the activations' dtype (the throughput mode of bf16 training)."""
+    in the activations' dtype (the throughput mode of bf16 training).
+
+    ``int8``: the frozen tower's GEMMs (``int8_targets``) run int8 on eval
+    forwards only; a training forward is then the dense path bit for bit
+    (round has a zero gradient).  ``int8_train``: they run int8 on training
+    forwards too, through the differentiable ops.  A flax module picks the
+    class per call; here the choice is made at call time from
+    ``self.training``."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0, act: str = "gelu",
                  spec: PEFTSpec = PEFTSpec(), drop_path: float = 0.0, ln_fp32: bool = True,
+                 int8: bool = False, int8_train: bool = False, int8_attn: bool = False,
+                 int8_attn_pv: bool = False,
+                 int8_targets: Sequence[str] = INT8_TARGET_MODULES,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.drop_path = float(drop_path)
         self.generator = generator
+        self.int8 = bool(int8)
+        self.int8_train = bool(int8_train)
+        any_int8 = self.int8 or self.int8_train
         self.ln_1 = LayerNorm(width, compute_fp32=ln_fp32, device=device)
-        self.attn = MultiHeadAttention(width, heads, spec=spec, dtype=dtype, device=device)
+        self.attn = MultiHeadAttention(
+            width, heads, spec=spec, int8=any_int8, int8_attn=int8_attn,
+            int8_attn_pv=int8_attn_pv, int8_targets=int8_targets, dtype=dtype, device=device)
         self.ln_2 = LayerNorm(width, compute_fp32=ln_fp32, device=device)
-        self.mlp = Mlp(width, int(width * mlp_ratio), act=act, dtype=dtype, device=device)
+        self.mlp = Mlp(width, int(width * mlp_ratio), act=act, int8=any_int8,
+                       int8_targets=int8_targets, dtype=dtype, device=device)
 
     def _drop_path(self, x: torch.Tensor) -> torch.Tensor:
         if self.drop_path == 0.0 or not self.training:
@@ -236,5 +362,8 @@ class Block(nn.Module):
         return x * (draw < keep).to(device=x.device, dtype=x.dtype) / keep
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self._drop_path(self.attn(self.ln_1(x)))
-        return x + self._drop_path(self.mlp(self.ln_2(x)))
+        deterministic = not self.training
+        int8 = (self.int8 and deterministic) or self.int8_train
+        int8_bwd = self.int8_train and not (self.int8 and deterministic)
+        x = x + self._drop_path(self.attn(self.ln_1(x), int8, int8_bwd))
+        return x + self._drop_path(self.mlp(self.ln_2(x), int8, int8_bwd))

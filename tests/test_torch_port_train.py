@@ -515,5 +515,28 @@ def test_bench_torch_needs_cuda_unless_asked_for_cpu_and_has_no_int8_yet(monkeyp
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         bench_torch.main(["--tiny"])
-    with pytest.raises(NotImplementedError, match="int8"):
-        bench_torch.main(["--device", "cpu", "--tiny", "--int8"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_torch.main(["--tiny", "--int8"])
+    # the int8 cases are ported: their flags are arguments, and --int8 gates the others
+    for flag in ("--bwd-dx", "--static-act"):
+        with pytest.raises(SystemExit):
+            bench_torch.main(["--device", "cpu", "--tiny", flag])
+
+
+@pytest.mark.parametrize("flags", [("--int8",), ("--int8", "--bwd-dx"),
+                                   ("--int8", "--bwd-dx", "--static-act", "--patch-gemm")],
+                         ids=lambda f: "".join(f))
+def test_bench_torch_int8_cases_run_on_the_cpu(flags, capsys):
+    """The int8 cases of the benchmark at the tiny size: one JSON line with the
+    benchmark's keys, named as a rehearsal."""
+    import bench_torch
+
+    rc = bench_torch.main(["--device", "cpu", "--tiny", "--batch", "2", "--k-chain", "2",
+                           "--windows", "1", "--warmup", "1", *flags])
+    captured = capsys.readouterr()
+    lines = captured.out.strip().splitlines()
+    assert rc == 0 and len(lines) == 1
+    out = json.loads(lines[0])
+    assert set(out) == {"metric", "value", "unit", "vs_baseline"} and out["value"] > 0
+    assert "vitb16" not in out["metric"] and "cpu" in out["unit"]
+    assert f"int8=True dx={'--bwd-dx' in flags} static={'--static-act' in flags}" in captured.err
