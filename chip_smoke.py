@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
-H100 and check them.
+"""Drive the PyTorch/CUDA port's serving, training and few-shot driver paths
+on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -59,6 +59,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    moves; one step's update equals, bit for bit, the update of the same step
    with the plain versions in the kernel's place; 8 steps on one batch lower
    the loss.  Then each recipe's step rate and profile beside the bf16 step.
+
+7. fused: ``fused_short_attention_fwd`` (K4) and ``fused_short_attention_bwd``
+   (K5), the counterparts of the Pallas fused short-sequence pair, against
+   their plain versions at (B, 12, N, 64) for N = 197 at B = 1, 8, 16, 32,
+   N = 50, 577 and 1024, bf16 and fp32, at scale 1 with post-scaled q and at
+   0.125, and on the flagship's own block-0 q, k, v; the autograd path of
+   ``multi_head_attention(use_fused=True)`` against the same call with the
+   plain versions; the dispatch rule (a bias or N = 1025 takes K1); then their
+   path (12 forward and backward calls at B = 16) and their times beside K1,
+   K2 + K3 + delta and ``scaled_dot_product_attention``;
+8. driver: ``commands.run.finetune_main`` at full ViT-B/16 width
+   (vitb16_CLIP.yaml, random numpy weights, synthetic 5-way 4-shot, batch
+   16): the bf16 sweep of 18 cells of 2 epochs and the final train; launch
+   counts derived from the data sizes, finite losses, frozen leaves
+   bit-identical, the choice, score and wall times; the int8 drive
+   (``TPU.INT8_FWD_TRAIN``, ``TRAIN.NO_TUNING``) with one quantized tree for
+   the run and 48 int8 launches per forward batch; the tiny fp32 drive with a
+   2-lr grid on the card and on the CPU, which must choose alike.
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -266,13 +284,15 @@ def _eager_ms(fn, reps: int, trials: int = 5) -> float:
 
 def attention_bound(b: int, h: int, n: int, d: int, itemsize: int, kernel: str):
     """Least time for the function: each (B, H, N, D) operand read once and
-    each result written once (the backward also reads the fp32 lse and delta),
-    against its flops at the bf16 tensor-core peak.  fwd: q, k, v -> o, two
-    products; dq: q, k, v, dO -> dq, three; dkv: q, k, v, dO -> dk, dv, four."""
-    tensors, products = {"fwd": (4, 2), "dq": (5, 3), "dkv": (6, 4)}[kernel]
-    bytes_moved = tensors * b * h * n * d * itemsize
-    if kernel != "fwd":
-        bytes_moved += 2 * b * h * n * 4
+    each result written once, with the fp32 rows (lse, delta) a backward
+    reads, against its flops at the bf16 tensor-core peak.  fwd (K1, and K4
+    as timed, without the lse): q, k, v -> o, two products; dq: q, k, v, dO,
+    lse, delta -> dq, three; dkv: the same -> dk, dv, four; fused_bwd (K5):
+    q, k, v, o, dO, lse -> dq, dk, dv, five (q k^T, dO v^T, p^T dO, ds k,
+    ds^T q)."""
+    tensors, products, rows = {"fwd": (4, 2, 0), "dq": (5, 3, 2), "dkv": (6, 4, 2),
+                               "fused_bwd": (8, 5, 1)}[kernel]
+    bytes_moved = tensors * b * h * n * d * itemsize + rows * b * h * n * 4
     flops = 2 * products * b * h * n * n * d
     t_bytes, t_flops = bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
@@ -442,6 +462,275 @@ def _print_timing(name: str, b: int, shape, row: dict) -> None:
         for key, val in row.items()), flush=True)
 
 
+# K4/K5, the fused short-sequence pair: (B, N) of the checks.  N = 197 is
+# ViT-B/16 at 224 px at every batch of the serving and training paths; N = 50
+# ViT-B/32 (vitb32_CLIP.yaml); N = 577 ViT-B/16 at 384 px; N = 1024 the
+# dispatcher's edge.
+FUSED_SHAPES = ((1, 197), (8, 197), (16, 197), (32, 197), (8, 50), (4, 577), (2, 1024))
+FUSED_TIMED_BATCHES = (8, 16, 32)
+FUSED_KERNEL_LINE_BATCH = TRAIN_BATCH  # the batch of the kernels line
+
+
+@contextlib.contextmanager
+def plain_fused(attn):
+    """Within, the fused pair runs its plain versions wherever the autograd
+    Function calls it."""
+    saved = attn.fused_short_attention_fwd, attn.fused_short_attention_bwd
+    attn.fused_short_attention_fwd = attn._fused_short_fwd_plain
+    attn.fused_short_attention_bwd = attn._fused_short_bwd_plain
+    try:
+        yield
+    finally:
+        attn.fused_short_attention_fwd, attn.fused_short_attention_bwd = saved
+
+
+def _attention_wrappers(attn) -> tuple:
+    return (attn.flash_attention_fwd, attn.flash_attention_bwd_dq,
+            attn.flash_attention_bwd_dkv, attn.fused_short_attention_fwd,
+            attn.fused_short_attention_bwd)
+
+
+def _attention_counts(attn) -> dict:
+    return {w.__name__: w.launches for w in _attention_wrappers(attn)}
+
+
+def _zero_attention_counts(attn) -> None:
+    for w in _attention_wrappers(attn):
+        w.launches = 0
+
+
+def fused_kernel_phase(timing: bool = True) -> dict:
+    """K4 (``fused_short_attention_fwd``) and K5 (``fused_short_attention_bwd``)
+    against their plain versions on the card at every shape of
+    ``FUSED_SHAPES``, bf16 and fp32, at scale 1.0 with post-scaled q (the
+    model's call) and at 0.125; the autograd path of
+    ``multi_head_attention(use_fused=True)`` against the same call with the
+    plain versions; the dispatch rule; the flagship's own q, k, v of block 0.
+    Then the times."""
+    from peft_vit_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def rand(shape, dtype, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+
+    errs = {"fwd": 0.0, "bwd": 0.0}
+
+    def hold(label, q, k, v, do, scale):
+        """K4's o and lse and K5's dq, dk, dv against the plain versions."""
+        bf16 = q.dtype == torch.bfloat16
+        tol_o, tol_g = (TOL_BF16_OUT, TOL_BF16_GRAD_REL) if bf16 else (TOL_F32_OUT, TOL_F32_GRAD_REL)
+        o, lse = attn.fused_short_attention_fwd(q, k, v, scale, return_lse=True)
+        ref_o, ref_lse = attn._fused_short_fwd_plain(q, k, v, scale, True)
+        grads = attn.fused_short_attention_bwd(q, k, v, o, lse, do, scale)
+        want = attn._fused_short_bwd_plain(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        err = (o.float() - ref_o.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        check(o.shape == q.shape and bool(torch.isfinite(o).all()) and err <= tol_o
+              and lse.shape == ref_lse.shape and lse_err <= TOL_LSE,
+              f"fused kernel fwd {label} {tuple(q.shape)}: o max abs err {err:.3e} <= {tol_o:g}, "
+              f"lse {lse_err:.3e} <= {TOL_LSE:g}")
+        worst = 0.0
+        for what, got, ref in zip(("dq", "dk", "dv"), grads, want):
+            e = (got.float() - ref.float()).abs().max().item()
+            rel = e / ref.float().abs().max().item()
+            worst = max(worst, e)
+            check(got.shape == q.shape and got.dtype == q.dtype
+                  and bool(torch.isfinite(got).all()) and rel <= tol_g,
+                  f"fused kernel bwd {label} {tuple(q.shape)}: {what} max abs err {e:.3e}, "
+                  f"/ max |plain| = {rel:.3e} <= {tol_g:g}")
+        return err, worst
+
+    for b, n in FUSED_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for scale, q_std in ((1.0, 0.125), (0.125, 1.0)):
+                shape = (b, HEADS, n, HEAD_DIM)
+                q = rand(shape, dtype, q_std)
+                k, v, do = (rand(shape, dtype) for _ in range(3))
+                tag = f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} scale={scale}"
+                e_o, e_g = hold(tag, q, k, v, do, scale)
+                if (b, n, dtype, scale) == (FUSED_KERNEL_LINE_BATCH, N_TOKENS, torch.bfloat16, 1.0):
+                    errs = {"fwd": e_o, "bwd": e_g}
+
+    # the autograd path through the dispatcher, against the same call with the
+    # plain versions in the kernels' place
+    for dtype, tol in ((torch.bfloat16, TOL_BF16_GRAD_REL), (torch.float32, TOL_F32_GRAD_REL)):
+        shape = (4, HEADS, N_TOKENS, HEAD_DIM)
+        base = [rand(shape, dtype, std) for std in (0.125, 1.0, 1.0)]
+        w = rand(shape, dtype)
+
+        def run():
+            q, k, v = (t.clone().requires_grad_() for t in base)
+            out = attn.multi_head_attention(q, k, v, scale=1.0, use_fused=True)
+            return (out, *torch.autograd.grad(out, (q, k, v), w))
+
+        _zero_attention_counts(attn)
+        got = run()
+        counts = _attention_counts(attn)
+        with plain_fused(attn):
+            want = run()
+        torch.cuda.synchronize()
+        check(counts == {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+                         "flash_attention_bwd_dkv": 0, "fused_short_attention_fwd": 1,
+                         "fused_short_attention_bwd": 1},
+              f"fused dispatch {dtype}: use_fused=True forward and backward launch K4 and K5 "
+              f"once each and no flash kernel: {counts}")
+        for what, g_, r_ in zip(("o", "dq", "dk", "dv"), got, want):
+            rel = ((g_.float() - r_.float()).abs().max() / r_.float().abs().max()).item()
+            check(rel <= tol, f"fused autograd {dtype} {tuple(shape)}: {what} of "
+                  f"multi_head_attention(use_fused=True) vs the plain versions: max |diff| / "
+                  f"max |plain| = {rel:.3e} <= {tol:g}")
+
+    # the rule: a bias or N > 1024 takes the flash kernels; use_fused=None is off
+    for label, n, with_bias, use_fused, want_fused in (
+            ("bias", N_TOKENS, True, True, False), ("N=1025", 1025, False, True, False),
+            ("use_fused=None", N_TOKENS, False, None, False),
+            ("N=1024", 1024, False, True, True)):
+        shape = (1, HEADS, n, HEAD_DIM)
+        q, k, v = (rand(shape, torch.bfloat16).requires_grad_(not with_bias) for _ in range(3))
+        bias = rand((HEADS, n, n), torch.float32) if with_bias else None
+        _zero_attention_counts(attn)
+        out = attn.multi_head_attention(q, k, v, bias, scale=0.125, use_fused=use_fused)
+        if not with_bias:
+            out.float().sum().backward()
+        torch.cuda.synchronize()
+        counts = _attention_counts(attn)
+        fused = counts["fused_short_attention_fwd"] + counts["fused_short_attention_bwd"]
+        flash = counts["flash_attention_fwd"]
+        ok = (fused == 2 and flash == 0) if want_fused else (fused == 0 and flash == 1)
+        check(ok, f"fused dispatch {label}: {'K4/K5' if want_fused else 'K1'} "
+              f"as the JAX rule says: {counts}")
+
+    flagship_qkv_check(attn)
+
+    # the fused pair's own path, read for the kernels line: the dispatcher
+    # forward and backward at the training shape, once per layer of the
+    # flagship, counts from 0 just before and read just after
+    shape = (FUSED_KERNEL_LINE_BATCH, HEADS, N_TOKENS, HEAD_DIM)
+    base = [rand(shape, torch.bfloat16, std) for std in (0.125, 1.0, 1.0)]
+    w = rand(shape, torch.bfloat16)
+    _zero_attention_counts(attn)
+    for _ in range(LAYERS):
+        q, k, v = (t.clone().requires_grad_() for t in base)
+        out = attn.multi_head_attention(q, k, v, scale=1.0, use_fused=True)
+        grads = torch.autograd.grad(out, (q, k, v), w)
+    torch.cuda.synchronize()
+    counts = _attention_counts(attn)
+    launches = {"fwd": counts["fused_short_attention_fwd"],
+                "bwd": counts["fused_short_attention_bwd"]}
+    check(launches == {"fwd": LAYERS, "bwd": LAYERS} and counts["flash_attention_fwd"] == 0
+          and all(bool(torch.isfinite(g).all()) for g in (out, *grads)),
+          f"fused path: {LAYERS} forward and backward calls of multi_head_attention("
+          f"use_fused=True) {tuple(shape)} launch K4 {launches['fwd']} and K5 "
+          f"{launches['bwd']} times, no flash kernel, finite results")
+    result = {"max_abs_err": errs, "fwd": {}, "bwd": {}, "launches": launches}
+    if timing:
+        fused_kernel_timing(attn, rand, result)
+    return result
+
+
+def flagship_qkv_check(attn) -> None:
+    """K4/K5 on the q, k, v that block 0 of the bf16 ViT-B/16 LoRA flagship
+    hands its attention (captured from the model's call), held against the
+    plain versions."""
+    from peft_vit_tpu_torch.models import flagship, layers, load_jax_variables
+
+    model = load_jax_variables(
+        flagship(WIDTH, LAYERS, HEADS, IMAGE, PATCH, NUM_CLASSES, use_bn=True),
+        jax_layout_tree(np.random.RandomState(SEED + 5))).eval()
+    captured = []
+    original = layers.multi_head_attention
+
+    def spy(q, k, v, *args, **kwargs):
+        if not captured:
+            captured.append((q.detach().clone(), k.detach().clone(), v.detach().clone(),
+                             kwargs.get("scale")))
+        return original(q, k, v, *args, **kwargs)
+
+    x = torch.as_tensor(np.random.RandomState(SEED + 6).standard_normal(
+        (FUSED_KERNEL_LINE_BATCH, IMAGE, IMAGE, 3)).astype(np.float32), device="cuda")
+    layers.multi_head_attention = spy
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        layers.multi_head_attention = original
+    q, k, v, scale = captured[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    o, lse = attn.fused_short_attention_fwd(q, k, v, scale, return_lse=True)
+    ref_o, ref_lse = attn._fused_short_fwd_plain(q, k, v, scale, True)
+    grads = attn.fused_short_attention_bwd(q, k, v, o, lse, do, scale)
+    want = attn._fused_short_bwd_plain(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    err = (o.float() - ref_o.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(err <= TOL_BF16_OUT and lse_err <= TOL_LSE,
+          f"fused kernel on the flagship's block-0 q, k, v {tuple(q.shape)} {q.dtype} scale={scale}:"
+          f" o max abs err {err:.3e} <= {TOL_BF16_OUT:g}, lse {lse_err:.3e} <= {TOL_LSE:g}")
+    for what, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        rel = ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+        check(rel <= TOL_BF16_GRAD_REL and bool(torch.isfinite(got).all()),
+              f"fused kernel bwd on the flagship's block-0 q, k, v: {what} max |diff| / "
+              f"max |plain| = {rel:.3e} <= {TOL_BF16_GRAD_REL:g}")
+    del model
+
+
+def fused_kernel_timing(attn, rand, result: dict) -> None:
+    """Device time of K4 and K5 (CUDA-graph replay, L2-warm, bf16, scale 1, q
+    at std 1/8) at N = 197 beside the bound, the plain versions, K1 (the
+    flash forward), K2 + K3 + delta, and ``scaled_dot_product_attention``
+    forward and backward (yardsticks only)."""
+    import torch.nn.functional as F
+
+    for b in FUSED_TIMED_BATCHES:
+        shape = (b, HEADS, N_TOKENS, HEAD_DIM)
+        q = rand(shape, torch.bfloat16, 0.125)
+        k, v, do = (rand(shape, torch.bfloat16) for _ in range(3))
+        reps = 200
+        o, lse = attn.fused_short_attention_fwd(q, k, v, 1.0, return_lse=True)
+        row = {
+            "ms": _device_ms(lambda: attn.fused_short_attention_fwd(q, k, v, 1.0), reps),
+            "plain_ms": _device_ms(lambda: attn._fused_short_fwd_plain(q, k, v, 1.0, False), 50),
+            "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0),
+                                     reps),
+            "flash_fwd_ms": _device_ms(lambda: attn.flash_attention_fwd(q, k, v, None, 1.0), reps),
+        }
+        row["bound_ms"], row["bound_by"] = attention_bound(b, HEADS, N_TOKENS, HEAD_DIM, 2, "fwd")
+        result["fwd"][b] = row
+        _print_timing("fused_short_attn_fwd", b, shape, row)
+
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
+        sdpa_bwd = (_device_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do), reps)
+                    - _device_ms(sdpa, reps))
+        fo, flse = attn.flash_attention_fwd(q, k, v, None, 1.0, return_lse=True)
+
+        def flash_bwd_call():
+            delta = attn._row_dot(do, fo)
+            attn.flash_attention_bwd_dq(q, k, v, do, flse, delta, 1.0)
+            attn.flash_attention_bwd_dkv(q, k, v, do, flse, delta, 1.0)
+
+        flash_bwd = _device_ms(flash_bwd_call, reps)
+        row = {
+            "ms": _device_ms(lambda: attn.fused_short_attention_bwd(q, k, v, o, lse, do, 1.0),
+                             reps),
+            "plain_ms": _device_ms(
+                lambda: attn._fused_short_bwd_plain(q, k, v, o, lse, do, 1.0), 50),
+            "library_ms": sdpa_bwd,
+            "flash_bwd_ms": flash_bwd,
+        }
+        row["bound_ms"], row["bound_by"] = attention_bound(b, HEADS, N_TOKENS, HEAD_DIM, 2,
+                                                           "fused_bwd")
+        result["bwd"][b] = row
+        _print_timing("fused_short_attn_bwd", b, shape, row)
+        print(f"fused timing B={b}: K5 {row['ms']:.6f} ms beside K2 + K3 + delta "
+              f"{flash_bwd:.6f} ms and the scaled_dot_product_attention backward "
+              f"{sdpa_bwd:.6f} ms (forward and backward in one graph, less the forward)",
+              flush=True)
+
+
 def int8_bound(m: int, k: int, n: int, itemsize: int):
     """Least time for the function: x (M, K) read once, w_i8 (N, K) and s_w
     read once, out (M, N) written once, against 2 M K N operations at the
@@ -589,9 +878,10 @@ def int8_kernel_timing(i8, rand, weights, shapes, result: dict) -> None:
                 for key, val in row.items()), flush=True)
 
 
-def jax_layout_tree(rng: np.random.RandomState) -> dict:
+def jax_layout_tree(rng: np.random.RandomState, num_classes: int = NUM_CLASSES) -> dict:
     """Random flagship weights in the JAX package's variable layout (the
-    names a flax init produces; Dense kernels (in, out), conv HWIO)."""
+    names a flax init produces; Dense kernels (in, out), conv HWIO), with a
+    head of ``num_classes``."""
 
     def normal(*shape, std):
         return (std * rng.standard_normal(shape)).astype(np.float32)
@@ -623,7 +913,7 @@ def jax_layout_tree(rng: np.random.RandomState) -> dict:
             "mlp": {"c_fc": dense(WIDTH, 4 * WIDTH), "c_proj": dense(4 * WIDTH, WIDTH)},
         }
     return {
-        "params": {"backbone": backbone, "classifier": {"head": dense(OUTPUT_DIM, NUM_CLASSES)}},
+        "params": {"backbone": backbone, "classifier": {"head": dense(OUTPUT_DIM, num_classes)}},
         "batch_stats": {"classifier": {"channel_bn": {
             "bn_mean": normal(OUTPUT_DIM, std=0.1),
             "bn_var": rng.uniform(0.5, 1.5, OUTPUT_DIM).astype(np.float32),
@@ -1165,6 +1455,238 @@ def int8_train_phase(smi: str, bf16_rate: float, device: str = "cuda") -> dict:
     return result
 
 
+# The driver: finetune_main through the port at the full width of ViT-B/16
+# (vitb16_CLIP.yaml), the synthetic dataset 5-way 4-shot, batch 16, 2 epochs a
+# cell, a 3-point wd grid under the default 6-point lr grid: 18 cells, then the
+# final train on train+val for 2 + EXTRA_FINAL_TRAIN_EPOCH (40, the yaml's)
+# epochs.
+MODEL_YAML = "peft_vit_tpu/resources/model/vitb16_CLIP.yaml"
+DRIVER = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": 5,
+          "DATASET.NUM_SAMPLES_PER_CLASS": 4, "TRAIN.BATCH_SIZE_PER_GPU": 16,
+          "TRAIN.END_EPOCH": 2, "TRAIN.SEARCH_WD_POINTS": 3, "TRAIN.SEARCH_WD_INIT_POINTS": 3,
+          "PEFT.METHOD": "lora"}
+DRIVER_CELLS = 6 * 3
+# The card-vs-CPU check of the driver: the SKILL.md tiny drive (clip_tiny,
+# 16 px, 2 layers) in fp32 with a 2-lr grid over a 5-point wd grid up to
+# 1e-2, at width 64 with one head: the card's attention kernels take head
+# dim 64 only.  Larger lr or wd make the tiny model chaotic from step to step,
+# and two devices' fp32 runs then part (measured on the CPU against the JAX
+# package: 2e-6 apart after one epoch at lr 0.02, 20 % after three).
+TINY_DRIVER = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": 4,
+               "DATASET.NUM_SAMPLES_PER_CLASS": 8, "TRAIN.IMAGE_SIZE": [16, 16],
+               "TRAIN.BATCH_SIZE_PER_GPU": 8, "TRAIN.END_EPOCH": 8, "TRAIN.SCHEDULE": [],
+               "TRAIN.SEARCH_WD_POINTS": 5, "TRAIN.SEARCH_WD_INIT_POINTS": 3,
+               "TRAIN.SEARCH_WD_LOG_UPPER": -2, "MODEL.NAME": "clip_tiny",
+               "MODEL.SPEC.EMBED_DIM": 32, "MODEL.SPEC.VISION.PATCH_SIZE": 8,
+               "MODEL.SPEC.VISION.WIDTH": 64, "MODEL.SPEC.VISION.LAYERS": 2,
+               "MODEL.SPEC.VISION.HEADS": 1, "PEFT.METHOD": "lora",
+               "TPU.COMPUTE_DTYPE": "float32"}
+TINY_DRIVER_LRS = (1e-4, 1e-3)
+
+
+def driver_cfg(over: dict, yaml_file=MODEL_YAML):
+    from peft_vit_tpu_torch.config import get_default_config
+
+    cfg = get_default_config()
+    if yaml_file:
+        cfg.merge_from_file(yaml_file)
+    for key, value in over.items():
+        node = cfg
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node[part]
+        node[leaf] = value
+    return cfg
+
+
+@contextlib.contextmanager
+def driver_spy(run, sync, lr_grid=None):
+    """Within, ``finetune_main`` runs as it does, observed: its SweepEngine
+    counts the cells it trains, keeps every epoch's loss and the wall time of
+    the sweep and of the final train (``lr_grid`` replaces the default lr
+    grid); the frozen leaves are copied right after the driver casts them,
+    and each ``quantize_frozen_tree`` call is counted, its tree copied."""
+    from peft_vit_tpu_torch.ops import int8 as i8
+
+    rec = {"cells": 0, "losses": [], "sweep_s": 0.0, "final_s": 0.0, "quantize": 0}
+
+    class Spy(run.SweepEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            epoch_fn = self._epoch_fn
+
+            def recorded(*a):
+                state, loss = epoch_fn(*a)
+                rec["losses"].append(float(loss))
+                return state, loss
+
+            self._epoch_fn = recorded
+
+        def train_cells(self, lrs, *args, **kwargs):
+            rec["cells"] += len(lrs)
+            return super().train_cells(lrs, *args, **kwargs)
+
+        def sweep(self, task, end_epoch, grid=None):
+            t0 = time.perf_counter()
+            out = super().sweep(task, end_epoch, lr_grid or grid)
+            sync()
+            rec["sweep_s"] = time.perf_counter() - t0
+            return out
+
+        def train_final(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = super().train_final(*args, **kwargs)
+            sync()
+            rec["final_s"] = time.perf_counter() - t0
+            return out
+
+    def cast(model):
+        real_cast(model)
+        rec["model"] = model
+        rec["frozen"] = {k: v.detach().clone() for k, v in model.named_parameters()
+                         if not v.requires_grad}
+
+    def quantize(*args, **kwargs):
+        tree = real_quantize(*args, **kwargs)
+        rec["quantize"] += 1
+        rec["qtree"] = tree
+        rec["qtree_start"] = {k: v.clone() for k, v in tree.items()}
+        return tree
+
+    saved = run.SweepEngine, run.cast_frozen_
+    real_cast, real_quantize = run.cast_frozen_, i8.quantize_frozen_tree
+    run.SweepEngine, run.cast_frozen_, i8.quantize_frozen_tree = Spy, cast, quantize
+    try:
+        yield rec
+    finally:
+        (run.SweepEngine, run.cast_frozen_), i8.quantize_frozen_tree = saved, real_quantize
+
+
+def _results_dir() -> str:
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    return tempfile.mkdtemp(dir=root)
+
+
+def driver_phase(smi: str, device: str = "cuda", tree=None) -> dict:
+    """``commands.run.finetune_main`` through the port on the card: the bf16
+    sweep of 18 cells and the final train at full ViT-B/16 width, from the
+    numpy weights of ``jax_layout_tree``; then the int8 drive
+    (``TPU.INT8_FWD_TRAIN``, ``TRAIN.NO_TUNING``) with its one shared
+    quantized tree; then the card-vs-CPU check at the tiny size.  ``device``
+    "cpu" (with ``tree`` and the constants shrunk) rehearses the phase's
+    code, where no kernel launches."""
+    from peft_vit_tpu_torch.commands import run
+    from peft_vit_tpu_torch.data import construct_splits
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.ops import int8 as i8
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    on_card = device == "cuda"
+    if tree is None:
+        tree = jax_layout_tree(np.random.RandomState(SEED + 8), DRIVER["DATASET.NUM_CLASSES"])
+    result = {}
+    for label, over in (("bf16 sweep", {}),
+                        ("int8", {"TPU.INT8_FWD_TRAIN": True, "TRAIN.NO_TUNING": True})):
+        cfg = driver_cfg({**DRIVER, **over})
+        splits = construct_splits(cfg)
+        batch = int(cfg.TRAIN.BATCH_SIZE_PER_GPU)
+        n_tr, n_va, n_te = len(splits.y_train), len(splits.y_val), len(splits.y_test)
+        out_dir = _results_dir()
+        _zero_attention_counts(attn)
+        for w in (i8.int8_gemm_dynamic, i8.int8_gemm_static):
+            w.launches = 0
+        with driver_spy(run, sync) as rec:  # counts from 0 just before the path, read just after
+            t0 = time.perf_counter()
+            score = run.finetune_main(cfg, out_dir, device=device, variables=tree)
+            sync()
+            wall = time.perf_counter() - t0
+        counts = _attention_counts(attn)
+        k6 = {"dynamic": i8.int8_gemm_dynamic.launches, "static": i8.int8_gemm_static.launches}
+        record = json.loads(open(f"{out_dir}/results.jsonl").read().splitlines()[-1])
+
+        nb = lambda n: -(-n // batch)
+        epochs = int(cfg.TRAIN.END_EPOCH)
+        final_epochs = epochs + int(cfg.TRAIN.EXTRA_FINAL_TRAIN_EPOCH)
+        steps = rec["cells"] * epochs * nb(n_tr) + final_epochs * nb(n_tr + n_va)
+        evals = rec["cells"] * epochs * nb(n_va) + (final_epochs + 1) * nb(n_te)
+        want_cells = 0 if over else DRIVER_CELLS
+        print(f"driver {label}: {n_tr} train, {n_va} val, {n_te} test images; {rec['cells']} "
+              f"cells x {epochs} epochs, final train {final_epochs} epochs; {steps} steps, "
+              f"{evals} eval batches of {batch}")
+        check(rec["cells"] == want_cells, f"driver {label}: {rec['cells']} sweep cells == "
+              f"{want_cells}")
+        # a sweep cell may diverge (lr 0.1 at wd 1e6): the protocol scores it 0
+        final_losses = rec["losses"][-final_epochs:]
+        diverged = sum(not math.isfinite(x) for x in rec["losses"][:-final_epochs])
+        check(len(rec["losses"]) == rec["cells"] * epochs + final_epochs
+              and all(math.isfinite(x) for x in final_losses),
+              f"driver {label}: {len(rec['losses'])} epoch losses; the final train's "
+              f"{final_epochs} all finite (" + " ".join(f"{x:.4f}" for x in final_losses[:4])
+              + f" ... {final_losses[-1]:.4f}); {diverged} sweep-cell epochs not finite")
+        layers = len(rec["model"].backbone.blocks)
+        want = {"flash_attention_fwd": layers * (steps + evals),
+                "flash_attention_bwd_dq": layers * steps, "flash_attention_bwd_dkv": layers * steps,
+                "fused_short_attention_fwd": 0, "fused_short_attention_bwd": 0}
+        for name, n in counts.items():
+            check(n == want[name] and (not on_card or n > 0 or want[name] == 0),
+                  f"driver {label}: {name} launches {n} == {want[name]} ({layers} layers x "
+                  f"{'steps + eval batches' if name == 'flash_attention_fwd' else 'steps'})")
+        same = [k for k, v in rec["frozen"].items()
+                if torch.equal(v, dict(rec["model"].named_parameters())[k])]
+        check(len(same) == len(rec["frozen"]) > 0,
+              f"driver {label}: {len(same)} of {len(rec['frozen'])} frozen leaves bit-identical "
+              "after the run")
+        int8_on = bool(over)
+        gemms = len(INT8_GEMMS) * layers
+        want_k6 = gemms * (steps + evals) if int8_on else 0
+        check(rec["quantize"] == (1 if int8_on else 0) and k6["dynamic"] == want_k6
+              and k6["static"] == 0,
+              f"driver {label}: quantize_frozen_tree called {rec['quantize']} time(s); "
+              f"int8_gemm_dynamic launches {k6['dynamic']} == {gemms} GEMMs x "
+              f"{steps + evals} forward batches = {want_k6}, int8_gemm_static {k6['static']}")
+        if int8_on:
+            same = [k for k, v in rec["qtree"].items() if torch.equal(v, rec["qtree_start"][k])]
+            check(len(same) == len(rec["qtree"]) > 0,
+                  f"driver {label}: the shared quantized tree ({len(same)} of "
+                  f"{len(rec['qtree'])} tensors) bit-identical after the run")
+        check(math.isfinite(score) and 0.0 <= score <= 100.0 and record["score"] == score,
+              f"driver {label}: score {score:.3f} written to results.jsonl")
+        print(f"driver {label}: chose lr {record['lr']:g}, wd {record['wd']:g}; test "
+              f"{record['metric']} {score:.3f}; sweep {rec['sweep_s']:.2f} s, final train "
+              f"{rec['final_s']:.2f} s, whole run {wall:.2f} s (host clock; {smi})", flush=True)
+        result[label] = {"launches": counts, "int8_launches": k6, "steps": steps,
+                         "evals": evals, "cells": rec["cells"], "lr": record["lr"],
+                         "wd": record["wd"], "score": score, "sweep_s": rec["sweep_s"],
+                         "final_s": rec["final_s"], "wall_s": wall}
+        del rec
+    tiny_driver_check(device)
+    return result
+
+
+def tiny_driver_check(device: str = "cuda") -> None:
+    """The tiny fp32 drive with a 2-lr grid on ``device`` and on the CPU:
+    the same weights (drawn on the CPU from the config's seed), data and
+    cell draws, so both must choose the same (lr, wd) and score."""
+    from peft_vit_tpu_torch.commands import run
+
+    picks = {}
+    for dev in ("cpu", device):
+        cfg = driver_cfg({**TINY_DRIVER, "TRAIN.NO_TUNING": False}, yaml_file=None)
+        sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+        with driver_spy(run, sync, lr_grid=TINY_DRIVER_LRS) as rec:
+            out_dir = _results_dir()
+            score = run.finetune_main(cfg, out_dir, device=dev)
+        record = json.loads(open(f"{out_dir}/results.jsonl").read().splitlines()[-1])
+        picks[dev] = (record["lr"], record["wd"], score, rec["cells"])
+    check(picks["cpu"] == picks[device],
+          f"driver tiny fp32: {device} chose (lr, wd, score, cells) {picks[device]} == cpu "
+          f"{picks['cpu']}")
+
+
 def _device_breakdown(fn, reps: int, top: int = 6, host_top: int = 0):
     """Device time per call, the number of device launches (kernels and
     copies) per call and the kernels that take most of the time, from
@@ -1212,9 +1734,11 @@ def main() -> int:
     build_phase(ptxas_verbose=True)
     kern = kernel_phase()
     kern8 = int8_kernel_phase()
+    fused = fused_kernel_phase()
     slc = slice_phase(smi)
     trn = train_phase(smi)
     trn8 = int8_train_phase(smi, trn["images_per_s"])
+    drv = driver_phase(smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
@@ -1238,6 +1762,9 @@ def main() -> int:
             "launches": slc["launches"] if key == "fwd" else trn["launches"][name],
             "launches_serving": slc["launches"] if key == "fwd" else 0,
             "launches_training": trn["launches"][name],
+            "launches_driver": drv["bf16 sweep"]["launches"][
+                {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
+                 "dkv": "flash_attention_bwd_dkv"}[key]],
             "max_abs_err": kern["max_abs_err"][key],
             "batch": batch,
             "ms": row["ms"],
@@ -1264,6 +1791,7 @@ def main() -> int:
             "launches": serving if variant == "dynamic" else training["static+dx"],
             "launches_serving": serving,
             "launches_training": training,
+            "launches_driver": drv["int8"]["int8_launches"][variant],
             "max_abs_err": kern8["max_abs_err"][variant],
             "batch": batch,
             "shape": {"gemm": gemm, "M": row["M"], "K": row["K"], "N": row["N"]},
@@ -1276,6 +1804,28 @@ def main() -> int:
                                 "launches; the dynamic quantize for both variants)",
             "int_mm_ms": row["int_mm_ms"],
             "linear_bf16_ms": row["linear_bf16_ms"],
+        })
+    for name, key, line in (("fused_short_attn_fwd", "fwd", 643),
+                            ("fused_short_attn_bwd", "bwd", 673)):
+        row = fused[key][FUSED_KERNEL_LINE_BATCH]
+        lines.append({
+            "name": name,
+            "route": "cuda",
+            "source": "peft_vit_tpu_torch/csrc/fused_short_attn.cu",
+            "replaces": f"peft_vit_tpu/ops/attention.py:{line}",
+            "launches": fused["launches"][key],
+            "max_abs_err": fused["max_abs_err"][key],
+            "batch": FUSED_KERNEL_LINE_BATCH,
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_computes": (
+                "scaled_dot_product_attention forward" if key == "fwd" else
+                "dq, dk and dv in one scaled_dot_product_attention backward"),
+            ("flash_fwd_ms" if key == "fwd" else "flash_bwd_ms"):
+                row["flash_fwd_ms" if key == "fwd" else "flash_bwd_ms"],
         })
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": lines}))

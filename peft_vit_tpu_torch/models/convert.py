@@ -17,6 +17,11 @@ stores it in: fp32 for every trainable leaf (and for every leaf before
 
 ``jax_path`` and ``params_to_jax`` are the inverse map, from this package's
 names and layouts back to the JAX package's.
+
+``load_torch_checkpoint``, ``infer_clip_shape``, ``clip_state_dict_to_tree``
+and ``visual_state_dict`` load an OpenAI CLIP checkpoint's visual tower
+(``MODEL.PRETRAINED``) through the JAX package's names, so that there is one
+mapping.
 """
 
 from __future__ import annotations
@@ -116,3 +121,133 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(arr)
     return variables
+
+
+# ---------------------------------------------------------------------------
+# OpenAI CLIP checkpoints (the visual half of peft_vit_tpu/models/convert.py)
+
+
+def _np(t) -> np.ndarray:
+    if isinstance(t, np.ndarray):
+        return t
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().float().numpy()
+    return np.asarray(t)
+
+
+def load_torch_checkpoint(path: str, allow_pickle: bool = False, model_key: str = "") -> dict:
+    """``torch.load`` a .pt/.pth checkpoint to a CPU state dict, as the JAX
+    package loads one: ``weights_only`` first, then a TorchScript archive
+    (OpenAI CLIP ships those), then, with ``allow_pickle``, a full unpickle;
+    ``model_key`` (``TEST.MODEL_KEY``) unwraps a nested checkpoint, and a
+    ``state_dict`` or ``model`` entry is unwrapped too."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception:
+        try:
+            obj = torch.jit.load(path, map_location="cpu").state_dict()
+        except Exception:
+            if not allow_pickle:
+                raise
+            obj = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    if model_key and isinstance(obj, dict) and model_key in obj:
+        obj = obj[model_key]
+        if hasattr(obj, "state_dict"):
+            obj = obj.state_dict()
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    if isinstance(obj, dict) and "model" in obj and isinstance(obj["model"], dict):
+        obj = obj["model"]
+    return obj
+
+
+def infer_clip_shape(sd: Mapping) -> Dict[str, int]:
+    """The visual tower's shape from an OpenAI CLIP state dict
+    (adapter_model.py:553-576): width from conv1, layer count from the
+    resblock keys, patch size from conv1's kernel, image size from the
+    positional embedding, embed dim from ``text_projection`` (or, in a
+    visual-only export, ``visual.proj``)."""
+    conv1 = _np(sd["visual.conv1.weight"])
+    layers = len({k.split(".")[3] for k in sd if k.startswith("visual.transformer.resblocks.")})
+    grid = int(round((_np(sd["visual.positional_embedding"]).shape[0] - 1) ** 0.5))
+    has_text = "text_projection" in sd
+    embed = _np(sd["text_projection"] if has_text else sd["visual.proj"]).shape[1]
+    return dict(
+        embed_dim=int(embed),
+        image_size=int(grid * conv1.shape[-1]),
+        patch_size=int(conv1.shape[-1]),
+        vision_width=int(conv1.shape[0]),
+        vision_layers=int(layers),
+        vision_heads=max(int(conv1.shape[0] // 64), 1),
+        has_text=has_text,
+    )
+
+
+def _convert_block(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    """One ResidualAttentionBlock -> the JAX package's Block names (the LoRA
+    q/v pairs of a reference-trained checkpoint included)."""
+    if f"{prefix}.adapter.adapter_down.1.weight" in sd:
+        raise NotImplementedError(
+            f"{prefix} carries a Houlsby adapter: adapters are not ported to "
+            "peft_vit_tpu_torch yet (ROADMAP: item 4, the remaining PEFT hooks)"
+        )
+    out = {
+        "ln_1/scale": _np(sd[f"{prefix}.ln_1.weight"]),
+        "ln_1/bias": _np(sd[f"{prefix}.ln_1.bias"]),
+        "ln_2/scale": _np(sd[f"{prefix}.ln_2.weight"]),
+        "ln_2/bias": _np(sd[f"{prefix}.ln_2.bias"]),
+        "attn/in_proj/kernel": _np(sd[f"{prefix}.attn.in_proj_weight"]).T,
+        "attn/in_proj/bias": _np(sd[f"{prefix}.attn.in_proj_bias"]),
+        "attn/out_proj/kernel": _np(sd[f"{prefix}.attn.out_proj.weight"]).T,
+        "attn/out_proj/bias": _np(sd[f"{prefix}.attn.out_proj.bias"]),
+        "mlp/c_fc/kernel": _np(sd[f"{prefix}.mlp.c_fc.weight"]).T,
+        "mlp/c_fc/bias": _np(sd[f"{prefix}.mlp.c_fc.bias"]),
+        "mlp/c_proj/kernel": _np(sd[f"{prefix}.mlp.c_proj.weight"]).T,
+        "mlp/c_proj/bias": _np(sd[f"{prefix}.mlp.c_proj.bias"]),
+    }
+    for t in ("q", "v"):
+        if f"{prefix}.attn.{t}_proj_adapter1.weight" in sd:
+            out[f"attn/{t}_adapter1/kernel"] = _np(sd[f"{prefix}.attn.{t}_proj_adapter1.weight"]).T
+            out[f"attn/{t}_adapter2/kernel"] = _np(sd[f"{prefix}.attn.{t}_proj_adapter2.weight"]).T
+    return out
+
+
+def clip_state_dict_to_tree(sd: Mapping) -> Dict[str, np.ndarray]:
+    """OpenAI CLIP state dict -> flat ``{path: array}`` in the JAX package's
+    naming, the visual tower only (``visual/...``, and ``logit_scale`` when
+    present)."""
+    info = infer_clip_shape(sd)
+    flat = {
+        "visual/conv1/kernel": _np(sd["visual.conv1.weight"]).transpose(2, 3, 1, 0),
+        "visual/class_embedding": _np(sd["visual.class_embedding"]),
+        "visual/positional_embedding": _np(sd["visual.positional_embedding"]),
+        "visual/ln_pre/scale": _np(sd["visual.ln_pre.weight"]),
+        "visual/ln_pre/bias": _np(sd["visual.ln_pre.bias"]),
+    }
+    for i in range(info["vision_layers"]):
+        for k, v in _convert_block(sd, f"visual.transformer.resblocks.{i}").items():
+            flat[f"visual/blocks_{i}/{k}"] = v
+    flat["visual/ln_post/scale"] = _np(sd["visual.ln_post.weight"])
+    flat["visual/ln_post/bias"] = _np(sd["visual.ln_post.bias"])
+    flat["visual/proj"] = _np(sd["visual.proj"])
+    if "logit_scale" in sd:
+        flat["logit_scale"] = _np(sd["logit_scale"]).reshape(())
+    return flat
+
+
+def visual_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The ``visual/...`` leaves of ``clip_state_dict_to_tree`` as this
+    package's ``state_dict`` entries of the classifier's ``backbone``,
+    through the same name map as ``params_from_jax``."""
+    tree: dict = {}
+    for path, arr in flat.items():
+        if not path.startswith("visual/"):
+            continue
+        *modules, leaf = ("backbone/" + path[len("visual/"):]).split("/")
+        node = tree
+        for m in modules:
+            node = node.setdefault(m, {})
+        node[leaf] = arr
+    return params_from_jax({"params": tree})

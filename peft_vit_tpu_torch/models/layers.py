@@ -253,16 +253,21 @@ class MultiHeadAttention(nn.Module):
       i.e. softmax((q/sqrt(d) + dq) k^T).
     * ``int8=True`` builds ``in_proj`` / ``out_proj`` (those named in
       ``int8_targets``) as ``Int8Dense``; the LoRA deltas stay dense.
+    * ``softmax_fp32`` (False: ``TPU.BF16_SOFTMAX``) and ``attn_batch_chunk``
+      (``TPU.ATTN_BATCH_CHUNK``) go to ``ops.attention.multi_head_attention``.
     """
 
     def __init__(self, width: int, heads: int, spec: PEFTSpec = PEFTSpec(), int8: bool = False,
                  int8_attn: bool = False, int8_attn_pv: bool = False,
                  int8_targets: Sequence[str] = INT8_TARGET_MODULES,
+                 softmax_fp32: bool = True, attn_batch_chunk: int = 0,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         require_ported(spec, int8_attn, int8_attn_pv)
         self.heads = heads
         self.spec = spec
+        self.softmax_fp32 = bool(softmax_fp32)
+        self.attn_batch_chunk = int(attn_batch_chunk)
         self.in_proj = _dense_for("in_proj", int8, int8_targets)(
             width, 3 * width, dtype=dtype, device=device)
         self.lora_targets = tuple(spec.lora_targets) if spec.attn_delta == "lora" else ()
@@ -309,7 +314,8 @@ class MultiHeadAttention(nn.Module):
             return t.reshape(b, n, h, hd).transpose(1, 2).contiguous()
 
         out = multi_head_attention(
-            split_heads(q), split_heads(k), split_heads(v), scale=attn_scale
+            split_heads(q), split_heads(k), split_heads(v), scale=attn_scale,
+            softmax_fp32=self.softmax_fp32, batch_chunk=self.attn_batch_chunk,
         )
         return _call(self.out_proj, out.transpose(1, 2).reshape(b, n, d), int8, int8_bwd)
 
@@ -335,6 +341,7 @@ class Block(nn.Module):
                  int8: bool = False, int8_train: bool = False, int8_attn: bool = False,
                  int8_attn_pv: bool = False,
                  int8_targets: Sequence[str] = INT8_TARGET_MODULES,
+                 softmax_fp32: bool = True, attn_batch_chunk: int = 0,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
@@ -346,7 +353,8 @@ class Block(nn.Module):
         self.ln_1 = LayerNorm(width, compute_fp32=ln_fp32, device=device)
         self.attn = MultiHeadAttention(
             width, heads, spec=spec, int8=any_int8, int8_attn=int8_attn,
-            int8_attn_pv=int8_attn_pv, int8_targets=int8_targets, dtype=dtype, device=device)
+            int8_attn_pv=int8_attn_pv, int8_targets=int8_targets, softmax_fp32=softmax_fp32,
+            attn_batch_chunk=attn_batch_chunk, dtype=dtype, device=device)
         self.ln_2 = LayerNorm(width, compute_fp32=ln_fp32, device=device)
         self.mlp = Mlp(width, int(width * mlp_ratio), act=act, int8=any_int8,
                        int8_targets=int8_targets, dtype=dtype, device=device)

@@ -76,6 +76,8 @@ class VisionTransformer(nn.Module):
         int8_attn_pv: bool = False,
         int8_targets: Sequence[str] = INT8_TARGET_MODULES,
         patch_gemm: bool = False,
+        softmax_fp32: bool = True,
+        attn_batch_chunk: int = 0,
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
         device=None,
@@ -83,7 +85,8 @@ class VisionTransformer(nn.Module):
         """``drop_path_rate`` is the last block's stochastic-depth rate: block
         i of L gets ``linspace(0, rate, L)[i]``, drawn in training mode from
         ``generator``.  ``int8``: int8 GEMMs on eval forwards; ``int8_train``:
-        on training forwards too (see ``layers.Block``)."""
+        on training forwards too (see ``layers.Block``).  ``softmax_fp32`` and
+        ``attn_batch_chunk`` go to every block's attention."""
         super().__init__()
         self.dtype = self.compute_dtype = dtype
         self.num_features = output_dim if output_dim is not None else width
@@ -98,7 +101,7 @@ class VisionTransformer(nn.Module):
             Block(width, heads, mlp_ratio=mlp_ratio, act="quick_gelu", spec=spec,
                   drop_path=float(dpr[i]), ln_fp32=ln_fp32, int8=int8, int8_train=int8_train,
                   int8_attn=int8_attn, int8_attn_pv=int8_attn_pv, int8_targets=int8_targets,
-                  dtype=dtype,
+                  softmax_fp32=softmax_fp32, attn_batch_chunk=attn_batch_chunk, dtype=dtype,
                   generator=generator, device=device)
             for i in range(layers)
         )

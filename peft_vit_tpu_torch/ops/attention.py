@@ -17,10 +17,23 @@ layout: q, k, v are (B, H, N, D), the additive bias is (H, N, N) (or
   ``torch.autograd.Function`` whose forward is the forward kernel (saving
   its lse) and whose backward is the two backward kernels, as the JAX
   ``custom_vjp`` around the flash path.  A bias is a forward-only operand.
-* ``multi_head_attention`` — what the model calls: ``attention_reference``
-  on the CPU (torch differentiates it), ``flash_attention`` on the card for
-  every shape.  The JAX dispatcher's choice of XLA below N = 2048 was
-  measured on a TPU and is not carried over.
+* ``fused_short_attention_fwd`` / ``fused_short_attention_bwd`` — the
+  wrappers of the two kernels of ``csrc/fused_short_attn.cu``, the
+  counterparts of the Pallas fused short-sequence pair ``_short_fwd_kernel``
+  and ``_short_bwd_kernel``: whole-row softmax with p normalised before it is
+  rounded, and a backward that computes delta itself and folds the scale
+  into ds before rounding it.
+* ``fused_short_attention`` — their ``torch.autograd.Function``, as the JAX
+  ``custom_vjp`` around the fused pair.
+* ``multi_head_attention`` — what the model calls.  ``use_fused=True`` with
+  no bias and N <= 1024 takes ``fused_short_attention`` on the card and on
+  the CPU (the JAX dispatcher's rule; the CPU runs the plain versions, as
+  the JAX package runs the Pallas pair in interpret mode).  Otherwise
+  ``attention_reference`` on the CPU (torch differentiates it) and
+  ``flash_attention`` on the card for every shape.  The JAX dispatcher's
+  choice of XLA below N = 2048 was measured on a TPU and is not carried
+  over; so the card refuses ``softmax_fp32=False`` (``TPU.BF16_SOFTMAX``),
+  which only that XLA path honours.
 """
 
 from __future__ import annotations
@@ -167,6 +180,10 @@ _SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "flash_attn_bwd": {
         "flash_attn_bwd_dq": [_INT, *[_PTR] * 7, *[_INT] * 4, _FLOAT, _INT, _PTR],
         "flash_attn_bwd_dkv": [_INT, *[_PTR] * 8, *[_INT] * 4, _FLOAT, _INT, _PTR],
+    },
+    "fused_short_attn": {
+        "fused_short_attn_fwd": [_INT, *[_PTR] * 5, *[_INT] * 4, _FLOAT, _INT, _PTR],
+        "fused_short_attn_bwd": [_INT, *[_PTR] * 9, *[_INT] * 4, _FLOAT, _INT, _PTR],
     },
 }
 
@@ -398,6 +415,206 @@ def flash_attention(
     return _FlashAttention.apply(q, k, v, float(scale))
 
 
+# ---------------------------------------------------------------------------
+# Fused short-sequence attention (the Pallas ``_short_fwd_kernel`` and
+# ``_short_bwd_kernel``)
+
+FUSED_MAX_SEQ = 1024  # the JAX dispatcher's bound for the fused pair
+
+
+def _fused_short_fwd_plain(q, k, v, scale: float, return_lse: bool):
+    """The forward kernel's plain version, step by step as the Pallas kernel::
+
+        s = scale q k^T (fp32)   m = max s   p = exp(s - m)   l = sum p
+        o = ((p / l) -> v's dtype) v, summed in fp32     lse = m + log l
+
+    The probabilities are normalised before they are rounded (the flash
+    forward rounds the unnormalised p and divides at the end)."""
+    acc = _acc_dtype(q)
+    s = _scores(q, k, None, scale, acc)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul((p / l).to(v.dtype).to(acc), v.to(acc)).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l)).transpose(-1, -2)
+
+
+def _fused_short_bwd_plain(q, k, v, o, lse, do, scale: float):
+    """The backward kernel's plain version: ``(dq, dk, dv)`` step by step as
+    the Pallas kernel::
+
+        p  = exp(scale q k^T - lse)     dv = (p -> dtype)^T dO
+        dp = dO v^T                     delta = rowsum(dO o O)
+        ds = (scale p (dp - delta)) -> dtype
+        dq = ds k                       dk = ds^T q
+
+    every sum fp32, every gradient in the operand dtype.  The scale is folded
+    into ds before it is rounded (the flash backward scales after the
+    product)."""
+    acc = _acc_dtype(q)
+    p = torch.exp(_scores(q, k, None, scale, acc) - lse.to(acc).transpose(-1, -2))
+    dv = torch.matmul(p.to(do.dtype).to(acc).transpose(-1, -2), do.to(acc))
+    dp = torch.matmul(do.to(acc), v.to(acc).transpose(-1, -2))
+    delta = (do.to(acc) * o.to(acc)).sum(dim=-1, keepdim=True)
+    ds = (scale * p * (dp - delta)).to(k.dtype).to(acc)
+    dq = torch.matmul(ds, k.to(acc))
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(acc))
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def fused_short_attention_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    return_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Fused short-sequence attention forward: ``softmax(scale * q k^T) v``
+    with the probabilities normalised before they are rounded.
+
+    q, k, v: (B, H, N, D) contiguous, bf16 or fp32.  Returns o (B, H, N, D)
+    in q's dtype and, with ``return_lse``, the fp32 log-sum-exp (B, H, 1, N).
+
+    CUDA tensors launch ``fused_short_attn_fwd`` of
+    ``csrc/fused_short_attn.cu`` (D = 64) on the current stream and count the
+    launch in ``fused_short_attention_fwd.launches``; any operand the kernel
+    does not take raises.  CPU tensors run the plain version and launch
+    nothing.
+    """
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _check_operands(q, k, v, None)
+    if q.device.type == "cpu":
+        return _fused_short_fwd_plain(q, k, v, float(scale), return_lse)
+    _check_kernel_operands("fused_short_attention_fwd", (("q", q), ("k", k), ("v", v)))
+    b, h, n, d = q.shape
+    lib = _kernel_library("fused_short_attn")
+    out = torch.empty_like(q)
+    lse = (
+        torch.empty((b, h, 1, n), dtype=torch.float32, device=q.device)
+        if return_lse else None
+    )
+    err = lib.fused_short_attn_fwd(
+        _device_index(q),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        b, h, n, d, float(scale), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, lib, "fused_short_attn_fwd")
+    fused_short_attention_fwd.launches += 1
+    return (out, lse) if return_lse else out
+
+
+fused_short_attention_fwd.launches = 0
+
+
+def fused_short_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of the fused short-sequence attention from the
+    forward's o and lse and the cotangent dO; delta = rowsum(dO o O) is
+    computed inside the kernel.
+
+    q, k, v, o, do: (B, H, N, D) contiguous, bf16 or fp32; lse: (B, H, 1, N)
+    fp32.  CUDA tensors launch ``fused_short_attn_bwd`` (one launch, D = 64)
+    and count it in ``fused_short_attention_bwd.launches``; any operand the
+    kernel does not take raises.  CPU tensors run the plain version.
+    """
+    _check_operands(q, k, v, None)
+    b, h, n, _ = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != q shape {tuple(q.shape)}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+    if tuple(lse.shape) != (b, h, 1, n):
+        raise ValueError(f"lse must be (B, H, 1, N) = {(b, h, 1, n)}, got {tuple(lse.shape)}")
+    for name, t in (("o", o), ("do", do), ("lse", lse)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if q.device.type == "cpu":
+        return _fused_short_bwd_plain(q, k, v, o, lse, do, float(scale))
+    if lse.dtype != torch.float32:
+        raise TypeError(f"lse must be float32 on the card, got {lse.dtype}")
+    _check_kernel_operands(
+        "fused_short_attention_bwd",
+        (("q", q), ("k", k), ("v", v), ("o", o), ("do", do), ("lse", lse)))
+    lib = _kernel_library("fused_short_attn")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    err = lib.fused_short_attn_bwd(
+        _device_index(q),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, n, q.shape[-1], float(scale), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, lib, "fused_short_attn_bwd")
+    fused_short_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+fused_short_attention_bwd.launches = 0
+
+
+class _FusedShortAttention(torch.autograd.Function):
+    """The fused forward with its o and lse saved; the backward is one launch
+    of the fused backward (the JAX ``custom_vjp`` of ``_attention_fused_short``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = fused_short_attention_fwd(q, k, v, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()  # arrives as the transposed view of the head merge
+        return (*fused_short_attention_bwd(q, k, v, out, lse, do, ctx.scale), None)
+
+
+def fused_short_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Differentiable fused short-sequence attention (no bias).
+
+    With a gradient required of q, k or v the forward saves
+    ``(q, k, v, o, lse)`` and the backward launches the fused backward once;
+    without one only the forward kernel runs.  CPU tensors run the kernels'
+    plain versions, forward and backward."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return fused_short_attention_fwd(q, k, v, scale)
+    return _FusedShortAttention.apply(q, k, v, float(scale))
+
+
+def takes_fused(use_fused: Optional[bool], bias: Optional[torch.Tensor], n: int) -> bool:
+    """The JAX dispatcher's rule for the fused pair: asked for (``None`` is
+    off), no bias, and N <= 1024."""
+    return bool(use_fused) and bias is None and n <= FUSED_MAX_SEQ
+
+
+def check_softmax_fp32(device_type: str, softmax_fp32: bool) -> None:
+    """The card's attention kernels keep the softmax in fp32; a bf16 softmax
+    (``TPU.BF16_SOFTMAX``, ``softmax_fp32=False``) exists only on the JAX
+    package's XLA path, so the card refuses it rather than compute other
+    numbers.  The CPU honours the flag."""
+    if device_type == "cuda" and not softmax_fp32:
+        raise NotImplementedError(
+            "softmax_fp32=False (TPU.BF16_SOFTMAX) is not supported on the card: the "
+            "attention kernels keep an fp32 softmax; unset TPU.BF16_SOFTMAX"
+        )
+
+
 def multi_head_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -406,17 +623,24 @@ def multi_head_attention(
     scale: Optional[float] = None,
     softmax_fp32: bool = True,
     batch_chunk: int = 0,
+    use_fused: Optional[bool] = None,
 ) -> torch.Tensor:
     """Attention over (B, H, N, D) operands with an optional (H, N, N) bias.
 
-    CUDA tensors go to ``flash_attention``, forward and backward (the
-    kernels always keep the softmax in fp32).  CPU tensors take
-    ``attention_reference``, which torch differentiates; ``batch_chunk > 0``
-    computes it in batch slices of that size, as the JAX package does when
-    there is no bias and the batch divides evenly.
+    ``use_fused`` with no bias and N <= 1024 goes to ``fused_short_attention``
+    (the kernels on the card, their plain versions on the CPU; the softmax is
+    fp32 there whatever ``softmax_fp32`` says, as in the JAX package).
+    Otherwise CUDA tensors go to ``flash_attention``, forward and backward,
+    and ``softmax_fp32=False`` raises (``check_softmax_fp32``); CPU tensors
+    take ``attention_reference``, which torch differentiates, and
+    ``batch_chunk > 0`` computes it in batch slices of that size, as the JAX
+    package does when there is no bias and the batch divides evenly.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if takes_fused(use_fused, bias, q.shape[-2]):
+        return fused_short_attention(q, k, v, scale)
+    check_softmax_fp32(q.device.type, softmax_fp32)
     if q.device.type == "cuda":
         return flash_attention(q, k, v, bias, scale)
     b = q.shape[0]

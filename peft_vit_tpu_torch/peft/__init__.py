@@ -5,13 +5,15 @@ from .masks import (
     merge_params,
     split_params,
 )
-from .spec import PEFTSpec
+from .spec import PEFTSpec, canonical_method, spec_from_config
 
 __all__ = [
     "PEFTSpec",
     "build_mask",
+    "canonical_method",
     "count_trainable",
     "describe_mask",
     "merge_params",
+    "spec_from_config",
     "split_params",
 ]

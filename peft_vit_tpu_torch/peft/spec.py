@@ -1,7 +1,8 @@
 """PEFTSpec — the static description of the PEFT deltas injected into the ViT.
 
-A field-for-field copy of ``peft_vit_tpu/peft/spec.py::PEFTSpec`` so that a
-spec means the same thing in both packages.  The port implements the LoRA
+A field-for-field copy of ``peft_vit_tpu/peft/spec.py::PEFTSpec``, with its
+``canonical_method`` and ``spec_from_config``, so that a spec means the same
+thing in both packages.  The port implements the LoRA
 q/k/v deltas (``attn_delta='lora'``, ``lora_rank``, ``lora_alpha``,
 ``lora_targets``, ``lora_post_scale_q``); the layers raise
 ``NotImplementedError`` for every other hook (``models.layers.require_ported``).
@@ -64,3 +65,122 @@ class PEFTSpec:
 
     # extra trainable transformer block appended after the backbone
     extra_block: bool = False
+
+
+_METHOD_ALIASES = {
+    "none": "none",
+    "zeroshot": "none",
+    "linear": "linear",
+    "linear_probe": "linear",
+    "logistic": "linear",
+    "full": "full",
+    "finetune": "full",
+    "bitfit": "bitfit",
+    "bias": "bitfit",
+    "layernorm": "layernorm",
+    "norm": "layernorm",
+    "attention": "attention",
+    "attn": "attention",
+    "lora": "lora",
+    "lora_clip": "lora",
+    "lora_fix_one": "lora_fix_one",
+    "lora_moe": "lora_moe",
+    "lora_adapter": "lora_adapter",
+    "lora_compacter": "lora_compacter",
+    "lora_drop_adapter": "lora_drop_adapter",
+    "adapterdrop_lora": "lora_drop_adapter",
+    "first_attention": "first_attention",
+    "1st_attention": "first_attention",
+    "first_mlp": "first_mlp",
+    "1st_mlp": "first_mlp",
+    "adapter": "adapter",
+    "adapter_clip": "adapter",
+    "adapterdrop": "adapterdrop",
+    "adapter_drop": "adapterdrop",
+    "compacter": "compacter",
+    "compacter_clip": "compacter",
+    "kadaptation": "kadaptation",
+    "kronecker_adaptation": "kadaptation",
+    "rpb": "rpb",
+    "position_bias": "rpb",
+    "lepe": "lepe",
+    "cswin": "lepe",
+    "transformer_probe": "transformer_probe",
+    "finetune_contrast": "finetune_contrast",
+    "contrast": "finetune_contrast",
+    "linear_probe_contrast": "linear_probe_contrast",
+    "vpt": "vpt",
+    "prompt": "vpt",
+    "intrinsic": "intrinsic",
+    "intrinsic_dimension": "intrinsic",
+}
+
+
+def canonical_method(name: str) -> str:
+    key = name.lower().strip()
+    if key not in _METHOD_ALIASES:
+        raise ValueError(
+            f"Unknown PEFT method {name!r}; known: "
+            f"{sorted(set(_METHOD_ALIASES.values()))}"
+        )
+    return _METHOD_ALIASES[key]
+
+
+def spec_from_config(cfg) -> PEFTSpec:
+    """Build a PEFTSpec from a ``config.PEFT`` group (config/default.py)."""
+    p = cfg.PEFT
+    method = canonical_method(p.METHOD)
+
+    kw = dict(
+        method=method,
+        lora_rank=int(p.LORA_RANK),
+        lora_alpha=float(p.LORA_ALPHA),
+        lora_targets=tuple(p.LORA_TARGETS),
+        lora_post_scale_q=bool(p.LORA_POST_SCALE_Q),
+        lora_ref_reshape=bool(p.get("LORA_REF_RESHAPE", False)),
+        phm_dim=int(p.PHM_DIM),
+        phm_rank=int(p.PHM_RANK),
+        adapter_dim=int(p.ADAPTER_DIM),
+        adapter_act=str(p.ADAPTER_ACT),
+        compacter_reduction=int(p.COMPACTER_REDUCTION),
+        compacter_phm_dim_down=int(p.COMPACTER_PHM_DIM_DOWN),
+        compacter_phm_dim_up=int(p.COMPACTER_PHM_DIM_UP),
+        compacter_act=str(p.COMPACTER_ACT),
+        rpb_ndim=int(p.RPB_NDIM),
+        prompt_tokens=int(p.PROMPT_TOKENS),
+        prompt_deep=bool(p.PROMPT_DEEP),
+    )
+
+    if method in (
+        "lora",
+        "lora_fix_one",
+        "lora_moe",
+        "lora_adapter",
+        "lora_compacter",
+        "lora_drop_adapter",
+    ):
+        kw["attn_delta"] = "lora"
+        if method == "lora_moe":
+            kw["lora_moe"] = True
+    elif method == "kadaptation":
+        kw["attn_delta"] = "kron"
+    if method in ("adapter", "adapterdrop", "lora_drop_adapter"):
+        kw["adapter"] = "houlsby"
+        if method in ("adapterdrop", "lora_drop_adapter"):
+            layers = tuple(p.ADAPTER_LAYERS) or (11,)
+            kw["adapter_layers"] = layers
+    elif method in ("compacter", "lora_compacter"):
+        kw["adapter"] = "compacter"
+    if method == "lora_adapter":
+        # reference cls_vit_lora_adapter: shared head-dim adapter on q/k/v
+        kw["attn_adapter"] = "shared_qkv"
+    if method == "rpb":
+        kw["attn_bias"] = "rpb"
+    if method == "lepe":
+        kw["lepe"] = True
+    if method == "transformer_probe" or bool(p.EXTRA_BLOCK):
+        kw["extra_block"] = True
+    if method == "vpt":
+        kw["prompt_tokens"] = int(p.PROMPT_TOKENS) or 10
+
+    return PEFTSpec(**kw)

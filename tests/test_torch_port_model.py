@@ -173,7 +173,10 @@ def test_port_imports_nothing_of_jax():
             importlib.import_module(name)
         for want in ("ops.attention", "ops.int8", "ops._build", "models.vit", "models.convert",
                      "models.factory", "engine.serving", "engine.train", "peft.spec",
-                     "peft.masks"):
+                     "peft.masks", "config.node", "config.default", "data.registry",
+                     "data.few_shot", "data.transforms", "data.pipeline", "engine.metrics",
+                     "engine.sweep", "utils.logging", "utils.results", "commands.common",
+                     "commands.run"):
             assert "peft_vit_tpu_torch." + want in names, want
         import bench_torch, chip_smoke
         bad = sorted(
