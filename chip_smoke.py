@@ -8,18 +8,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. environment: Python, torch and CUDA versions; the card's name and
    power limit from nvidia-smi;
-2. build: every kernel of ``peft_vit_tpu_torch/csrc`` with nvcc for sm_90a;
+2. build: every kernel of ``peft_vit_tpu_torch/csrc`` with nvcc for sm_90a,
+   with ptxas's registers, spills and shared memory of each instantiation
+   of the K1 and K4 forward;
 3. kernel: each hand-written kernel against its plain PyTorch version on
    the card.  ``flash_attention_fwd`` (the CUDA counterpart of the Pallas
    flash forward): bf16 at every batch the serving path gives it and, with
-   lse, at the training batch; fp32, with a bias, ragged N.
+   lse, at the training batch; fp32, with a bias, ragged N; and at the
+   edges of its two designs (one resident product up to N = 256, streamed
+   key tiles beyond): N = 8, 64, 196, 200, 255, 256, 257, 577 at B = 1 and
+   32, bf16 and fp32, both scales, with and without lse and bias.
    ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` (the
    counterparts of the two Pallas backward kernels): bf16 at the training
    batch, fp32, ragged N, o and lse from the forward kernel; then the ``flash_attention``
    autograd Function against autograd through the plain reference.  Then
    each kernel's time beside its bound, its plain version and
    ``torch.nn.functional.scaled_dot_product_attention``, forward and
-   backward (a yardstick only: the port never calls it).
+   backward (a yardstick only: the port never calls it); K1 also at N =
+   257 and 577.
    ``int8_gemm_dynamic`` and ``int8_gemm_static`` (the counterpart of the
    Pallas quantize + int8 matmul + rescale kernel) are held to EQUALITY with
    their plain versions, bf16 and fp32, at M = 197 x {1, 8, 16, 32} for the
@@ -66,9 +72,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    N = 50, 577 and 1024, bf16 and fp32, at scale 1 with post-scaled q and at
    0.125, and on the flagship's own block-0 q, k, v; the autograd path of
    ``multi_head_attention(use_fused=True)`` against the same call with the
-   plain versions; the dispatch rule (a bias or N = 1025 takes K1); then their
-   path (12 forward and backward calls at B = 16) and their times beside K1,
-   K2 + K3 + delta and ``scaled_dot_product_attention``;
+   plain versions; K4 at the edge shapes of K1's list and N = 1024; the
+   dispatch rule (a bias or N = 1025 takes K1); then their path (12 forward
+   and backward calls at B = 16) and their times beside K1, K2 + K3 + delta
+   and ``scaled_dot_product_attention``, K4 also at N = 577 and 1024;
 8. driver: ``commands.run.finetune_main`` at full ViT-B/16 width
    (vitb16_CLIP.yaml, random numpy weights, synthetic 5-way 4-shot, batch
    16): the bf16 sweep of 18 cells of 2 epochs and the final train; launch
@@ -232,8 +239,49 @@ def build_phase(ptxas_verbose: bool = False) -> float:
         print(f"built lib{name}.so")
         if ptxas_verbose and text.strip():
             print(text.strip())
+    if ptxas_verbose:
+        for name, label in (("flash_attn_fwd", "K1"), ("fused_short_attn", "K4")):
+            for line in ptxas_summary(logs.get(name, "")):
+                print(f"ptxas {label} {line}")
     print(f"build seconds {seconds:.2f}")
     return seconds
+
+
+def ptxas_summary(text: str) -> list:
+    """One line per instantiation of the sm90 attention forward in an
+    ``nvcc -Xptxas -v`` log: its key width, resident or streamed, registers,
+    spills, static shared memory, the dynamic shared memory its launcher
+    asks for (as ``attn_fwd_sm90.cuh`` sizes it), and whether ptxas
+    serialized its wgmma instructions for want of registers (C7512)."""
+    import re
+
+    serialized = set(re.findall(r"C7512.*?for the function '(\S+)'", text))
+    lines, current = [], None
+    for line in text.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            args = re.search(r"attn_fwd_sm90_kernelILi(\d+)ELb([01])ELb([01])E", found.group(1))
+            current = None if args is None else {
+                "keys": int(args.group(1)), "stream": args.group(2) == "1",
+                "serialized": found.group(1) in serialized}
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            current["spill"] = (int(spill.group(1)), int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if used:
+            stores, loads = current.get("spill", (0, 0))
+            keys, stages = current["keys"], 2 if current["stream"] else 1
+            dynamic = 128 * 128 + stages * 128 * (keys + (keys + 15) // 16 * 16) + 1024
+            lines.append(
+                f"keys={keys} {'streamed' if current['stream'] else 'resident'}: "
+                f"{used.group(1)} registers, spill stores {stores} B, spill loads {loads} B, "
+                f"static smem {used.group(2)} B, dynamic smem {dynamic} B"
+                + (", wgmma serialized (C7512)" if current["serialized"] else ""))
+            current = None
+    return sorted(lines, key=lambda x: (("streamed" in x), int(x.split()[0][5:])))
 
 
 def _device_ms(fn, reps: int, trials: int = 5) -> float:
@@ -343,6 +391,7 @@ def kernel_phase(timing: bool = True) -> dict:
         if i <= len(BUCKETS):
             main_err[b] = err
 
+    edge_checks(attn, rand, "K1")
     bwd_err = backward_kernel_checks(attn, rand)
     # the kernels line gives the forward's error at the batch of its times
     result = {"max_abs_err": {"fwd": main_err[BUCKETS[1]], **bwd_err},
@@ -350,6 +399,50 @@ def kernel_phase(timing: bool = True) -> dict:
     if timing:
         kernel_timing(attn, rand, result)
     return result
+
+
+# N at the edges of the sm90 forward's designs: one resident product of
+# width round_up(N, 8) up to N = 256, 64-key tiles streamed beyond (K4 in two
+# passes); 8 and 64 the narrowest widths, 577 ViT-B/16 at 384 px, 1024 the
+# fused pair's bound (K4 only).
+EDGE_NS = (8, 64, 196, 200, 255, 256, 257, 577)
+EDGE_BATCHES = (1, 32)
+
+
+def edge_checks(attn, rand, kernel: str) -> None:
+    """K1 (``flash_attention_fwd``) or K4 (``fused_short_attention_fwd``)
+    against its plain version at every N of ``EDGE_NS`` (K4 also 1024), B =
+    1 and 32, bf16 and fp32, at scale 1 with post-scaled q and at 0.125; the
+    lse and (K1) the bias alternate so that each N sees each with and
+    without."""
+    ns = EDGE_NS + ((1024,) if kernel == "K4" else ())
+    for n in ns:
+        for b in EDGE_BATCHES:
+            for dtype in (torch.bfloat16, torch.float32):
+                for scale, q_std in ((1.0, 0.125), (0.125, 1.0)):
+                    with_lse = (scale == 1.0) == (b == 1)
+                    with_bias = kernel == "K1" and (dtype == torch.float32) == (scale == 1.0)
+                    shape = (b, HEADS, n, HEAD_DIM)
+                    q, k, v = rand(shape, dtype, q_std), rand(shape, dtype), rand(shape, dtype)
+                    bias = rand((HEADS, n, n), torch.float32) if with_bias else None
+                    if kernel == "K1":
+                        got = attn.flash_attention_fwd(q, k, v, bias, scale, return_lse=with_lse)
+                        want = attn._flash_attention_plain(q, k, v, bias, scale, with_lse)
+                    else:
+                        got = attn.fused_short_attention_fwd(q, k, v, scale, return_lse=with_lse)
+                        want = attn._fused_short_fwd_plain(q, k, v, scale, with_lse)
+                    torch.cuda.synchronize()
+                    (got, lse), (want, ref_lse) = ((got, want) if with_lse
+                                                   else ((got, None), (want, None)))
+                    tol = TOL_BF16_OUT if dtype == torch.bfloat16 else TOL_F32_OUT
+                    err = (got.float() - want.float()).abs().max().item()
+                    lse_err = 0.0 if lse is None else (lse - ref_lse).abs().max().item()
+                    tag = (f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} scale={scale}"
+                           f"{' bias' if with_bias else ''}{' lse' if with_lse else ''}")
+                    check(got.shape == shape and bool(torch.isfinite(got).all()) and err <= tol
+                          and lse_err <= TOL_LSE,
+                          f"edge {kernel} {tag} {shape}: out max abs err {err:.3e} <= {tol:g}"
+                          + ("" if lse is None else f", lse {lse_err:.3e} <= {TOL_LSE:g}"))
 
 
 def backward_kernel_checks(attn, rand) -> dict:
@@ -454,6 +547,41 @@ def kernel_timing(attn, rand, result: dict) -> None:
         print(f"kernel timing B={b} backward: dq + dk/dv + delta {ours_bwd:.6f} ms, "
               f"scaled_dot_product_attention backward {sdpa_bwd:.6f} ms (forward and "
               "backward in one graph, less the forward alone)", flush=True)
+    result["fwd_long"] = long_timing(attn, rand, "K1")
+
+
+LONG_TIMED_BATCH = TRAIN_BATCH
+LONG_TIMED_NS = {"K1": (257, 577), "K4": (577, 1024)}
+
+
+def long_timing(attn, rand, kernel: str) -> dict:
+    """K1 or K4 past the resident design (64-key tiles streamed; K4 in two
+    passes) at B = 16, bf16, scale 1 with post-scaled q: device time beside
+    the bound, the plain version and ``scaled_dot_product_attention``.
+    Returns ``{N: row}``."""
+    import torch.nn.functional as F
+
+    rows = {}
+    for n in LONG_TIMED_NS[kernel]:
+        shape = (LONG_TIMED_BATCH, HEADS, n, HEAD_DIM)
+        q = rand(shape, torch.bfloat16, 0.125)
+        k, v = rand(shape, torch.bfloat16), rand(shape, torch.bfloat16)
+        if kernel == "K1":
+            fn = lambda: attn.flash_attention_fwd(q, k, v, None, 1.0)
+            plain = lambda: attn._flash_attention_plain(q, k, v, None, 1.0, False)
+        else:
+            fn = lambda: attn.fused_short_attention_fwd(q, k, v, 1.0)
+            plain = lambda: attn._fused_short_fwd_plain(q, k, v, 1.0, False)
+        row = {"ms": _device_ms(fn, 100), "plain_ms": _device_ms(plain, 20),
+               "library_ms": _device_ms(
+                   lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 100),
+               "eager_ms": _eager_ms(fn, 100)}
+        row["bound_ms"], row["bound_by"] = attention_bound(
+            LONG_TIMED_BATCH, HEADS, n, HEAD_DIM, 2, "fwd")
+        rows[n] = row
+        _print_timing(f"{'flash_attn_fwd' if kernel == 'K1' else 'fused_short_attn_fwd'} N={n}",
+                      LONG_TIMED_BATCH, shape, row)
+    return rows
 
 
 def _print_timing(name: str, b: int, shape, row: dict) -> None:
@@ -552,6 +680,8 @@ def fused_kernel_phase(timing: bool = True) -> dict:
                 e_o, e_g = hold(tag, q, k, v, do, scale)
                 if (b, n, dtype, scale) == (FUSED_KERNEL_LINE_BATCH, N_TOKENS, torch.bfloat16, 1.0):
                     errs = {"fwd": e_o, "bwd": e_g}
+
+    edge_checks(attn, rand, "K4")
 
     # the autograd path through the dispatcher, against the same call with the
     # plain versions in the kernels' place
@@ -696,6 +826,7 @@ def fused_kernel_timing(attn, rand, result: dict) -> None:
             "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0),
                                      reps),
             "flash_fwd_ms": _device_ms(lambda: attn.flash_attention_fwd(q, k, v, None, 1.0), reps),
+            "eager_ms": _eager_ms(lambda: attn.fused_short_attention_fwd(q, k, v, 1.0), reps),
         }
         row["bound_ms"], row["bound_by"] = attention_bound(b, HEADS, N_TOKENS, HEAD_DIM, 2, "fwd")
         result["fwd"][b] = row
@@ -729,6 +860,7 @@ def fused_kernel_timing(attn, rand, result: dict) -> None:
               f"{flash_bwd:.6f} ms and the scaled_dot_product_attention backward "
               f"{sdpa_bwd:.6f} ms (forward and backward in one graph, less the forward)",
               flush=True)
+    result["fwd_long"] = long_timing(attn, rand, "K4")
 
 
 def int8_bound(m: int, k: int, n: int, itemsize: int):
@@ -1773,7 +1905,10 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
-        if key != "fwd":
+        if key == "fwd":
+            lines[-1]["eager_ms"] = row["eager_ms"]
+            lines[-1]["long_n"] = kern["fwd_long"]
+        else:
             lines[-1]["library_computes"] = (
                 "dq, dk and dv in one scaled_dot_product_attention backward; beside it "
                 f"dq + dk/dv + delta take {row['backward_ms']:.6f} ms")
@@ -1827,6 +1962,9 @@ def main() -> int:
             ("flash_fwd_ms" if key == "fwd" else "flash_bwd_ms"):
                 row["flash_fwd_ms" if key == "fwd" else "flash_bwd_ms"],
         })
+        if key == "fwd":
+            lines[-1]["eager_ms"] = row["eager_ms"]
+            lines[-1]["long_n"] = fused["fwd_long"]
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

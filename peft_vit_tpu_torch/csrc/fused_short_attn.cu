@@ -21,35 +21,40 @@
 // The TPU kernel runs one program per batch element holding every head and
 // the whole padded sequence in VMEM.  That does not fit this card: B blocks
 // are 8-32 for 132 SMs, and K and V of 12 heads at N = 1024 are 3 MB against
-// 227 KB of shared memory a block.  So the work is cut as the flash kernels
-// cut it, and keys are streamed in 64-key tiles:
-// * forward: one block of 4 warps per (64-row q tile, head, batch), 16 rows a
-//   warp.  Pass 1 streams the K tiles and keeps, per thread, a running max
-//   and sum over its own keys; the quad of threads that shares a row merges
-//   them into m and l.  Pass 2 streams K and V again, recomputes s, forms
-//   p / l with the FIRST pass's m, rounds it and accumulates (p / l) v.  No
-//   row of scores is ever held whole, for any N.
+// 227 KB of shared memory a block.
+// * forward, bf16: the design of attn_fwd_sm90.cuh (kNormFirst = true), the
+//   same mainloop as the flash forward with p normalised before rounding.
+//   A block of two warpgroups owns 128 q rows of a head; TMA stages K and V
+//   behind mbarriers and both products are wgmma.  At N <= 256 the head's K
+//   and V are resident, a row's keys are one product of width round_up(N,
+//   8), and its max and sum are exact before p / l is rounded: one pass,
+//   q k^T computed once.  Beyond, 64-key tiles stream through a two-stage
+//   ring twice (K alone for the max and sum, then K and V): streaming keeps
+//   shared memory at 49 KB for every N, where a resident K would take 128 KB
+//   at N = 1,024 and leave one block a SM; the second pass's K comes from
+//   L2.
+// * forward, fp32: one thread per q row, two passes over 64-key tiles,
+//   fp32 FMAs (the tensor cores have no full-fp32 mode).
 // * backward: one launch with two roles chosen by block index, no atomics,
 //   a deterministic result.  Blocks x < T (T = ceil(N / 64)) own a q tile and
 //   loop over the key tiles (dq, as flash_attn_bwd_dq); blocks x >= T own a
 //   key tile and loop over the q tiles (dk and dv, as flash_attn_bwd_dkv,
 //   with the transposed products k q^T and v dO^T so that p^T and ds^T are
 //   the A fragments of p^T dO and ds^T q).  Each block computes delta for
-//   the q rows it stages from O and dO, two threads a row.
-// Tiles are staged with cp.async; a row at or beyond N is zero-filled in
-// shared memory (no padding in device memory), a key at or beyond N gives
-// p = 0 and a q row at or beyond N is not written.
+//   the q rows it stages from O and dO, two threads a row.  Tiles are staged
+//   with cp.async; a row at or beyond N is zero-filled in shared memory.
+// No padding in device memory: a key at or beyond N gives p = 0 and a q row
+// at or beyond N is not written.
 //
 // What bounds them: at N = 197, D = 64 the forward reads q, k, v and writes
-// o (4 B H N D elements) against 6 B H N^2 D flops with the recomputed
-// q k^T; the backward reads q, k, v, o, dO and writes dq, dk, dv (8 B H N D)
-// against about 12 B H N^2 D flops.  Both sit near 100 flops a byte, below
-// the H100's bf16 ridge of about 295: memory-bound.  bf16 runs mma.sync
-// m16n8k16 (fp32 accumulators); fp32 runs the same tiling with fp32 FMAs
-// (the tensor cores have no full-fp32 mode).  D = 64 only.  wgmma, TMA and
-// a multi-stage pipeline are left for later.
+// o (4 B H N D elements) against 4 B H N^2 D flops; the backward reads q, k,
+// v, o, dO and writes dq, dk, dv (8 B H N D) against about 12 B H N^2 D
+// flops.  Both sit near 100 flops a byte, below the H100's bf16 ridge of
+// about 295: memory-bound.  The backward runs mma.sync m16n8k16 (fp32
+// accumulators); wgmma and TMA for it are left for a later change.  D = 64
+// only.
 
-#include "flash_common.cuh"
+#include "attn_fwd_sm90.cuh"
 
 namespace {
 
@@ -131,135 +136,6 @@ __device__ __forceinline__ void tile_delta(float* sDelta, const T* o, const T* d
 
 // ----------------------------------------------------------------------------
 // forward
-
-__global__ void __launch_bounds__(kThreads)
-short_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                      const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
-                      float* __restrict__ lse, int H, int N, float scale) {
-  __shared__ __align__(16) uint16_t sQ[kBlockQ * kLds];
-  __shared__ __align__(16) uint16_t sK[kBlockK * kLds];
-  __shared__ __align__(16) uint16_t sV[kBlockK * kLds];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * kBlockQ;
-  const size_t bh = static_cast<size_t>(blockIdx.z) * H + blockIdx.y;
-  const size_t base = bh * static_cast<size_t>(N) * kD;
-  const int num_kt = (N + kBlockK - 1) / kBlockK;
-
-  stage_bf16(sQ, q + base, q0, N, tid);
-  cp_async_wait_all();
-  __syncthreads();
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  uint32_t qa[kD / 16][4];
-  load_a_frags(qa, sQ, r0, t);
-
-  // pass 1: this thread's running max and sum over its own keys
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  for (int kt = 0; kt < num_kt; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // every warp is done with the previous K tile
-    stage_bf16(sK, k + base, k0, N, tid);
-    cp_async_wait_all();
-    __syncthreads();
-    float s[kBlockK / 8][4];
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-      mma_rows_as_cols(s[nt], qa, sK, nt * 8, g, t);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + nt * 8 + 2 * t + (i & 1);
-        s[nt][i] = key < N ? s[nt][i] * scale : kNegInf;
-        mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], mx[r]);
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kBlockK / 8; ++nt) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float x = s[nt][2 * r + c];
-          sum += x > kNegInf ? __expf(x - m_new) : 0.f;
-        }
-      }
-      l[r] = l[r] * __expf(m[r] - m_new) + sum;
-      m[r] = m_new;
-    }
-  }
-  // merge the quad's four partial (max, sum) pairs of each row; key 0 is
-  // always valid, so the row max is finite
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float mr = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
-    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
-    float lr = l[r] * __expf(m[r] - mr);
-    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-    m[r] = mr;
-    l[r] = lr;
-  }
-
-  // pass 2: acc += ((p / l) -> bf16) v with p = exp(s - m) of pass 1's m
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.f;
-  }
-  for (int kt = 0; kt < num_kt; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();
-    stage_bf16(sK, k + base, k0, N, tid);
-    stage_bf16(sV, v + base, k0, N, tid);
-    cp_async_wait_all();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t pa[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key8 = kk * 16 + j * 8;
-        float s[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_rows_as_cols(s, qa, sK, key8, g, t);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = i >> 1;
-          const int key = k0 + key8 + 2 * t + (i & 1);
-          s[i] = key < N ? __expf(s[i] * scale - m[r]) / l[r] : 0.f;
-        }
-        pa[2 * j + 0] = pack_bf16(s[0], s[1]);
-        pa[2 * j + 1] = pack_bf16(s[2], s[3]);
-      }
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        mma_rows_as_k(acc[dt], pa, sV, kk * 16, dt * 8, g, t);
-      }
-    }
-  }
-
-  const int qrow[2] = {q0 + r0, q0 + r0 + 8};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (qrow[r] >= N) continue;
-    uint16_t* orow = o + base + static_cast<size_t>(qrow[r]) * kD;
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
-          pack_bf16(acc[dt][2 * r], acc[dt][2 * r + 1]);
-    }
-    if (lse != nullptr && t == 0) lse[bh * N + qrow[r]] = m[r] + logf(l[r]);
-  }
-}
 
 // fp32: one thread per q row (64 a block), the row in registers, fp32 FMAs.
 __global__ void __launch_bounds__(kBlockQ)
@@ -734,19 +610,17 @@ extern "C" int fused_short_attn_fwd(int device, const void* q, const void* k, co
   if (bad_shape(B, H, N, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    short_fwd_bf16_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), static_cast<float*>(lse),
-        H, N, scale);
-  } else {
-    short_fwd_f32_kernel<<<grid, kBlockQ, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse),
-        H, N, scale);
+    const sm90::FwdArgs args{nullptr, static_cast<uint16_t*>(o),
+                             static_cast<float*>(lse), H, N, scale};
+    return static_cast<int>(sm90::attn_fwd_bf16<true>(q, k, v, args, B, s));
   }
+  const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
+  short_fwd_f32_kernel<<<grid, kBlockQ, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse),
+      H, N, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,100 @@
+"""Write ``wgmma_sm90.cuh``: the Hopper warpgroup products the attention
+forward kernels issue, one inline-PTX function per shape.
+
+    python3 peft_vit_tpu_torch/csrc/gen_wgmma.py     # rewrites the header
+
+A ``wgmma`` instruction names every accumulator register, so each width n
+needs its own asm statement; this script spells them out instead of a
+preprocessor maze.  Emitted:
+
+* ``wgmma_ss<n>(d, desc_a, desc_b, scale_d)`` for n = 8, 16, ..., 256:
+  ``m64n{n}k16`` bf16 x bf16 -> fp32, A and B from shared memory, both
+  K-major (S = Q K^T);
+* ``wgmma_rs_n64_tb(d, a, desc_b, scale_d)``: ``m64n64k16`` with A from
+  registers and B MN-major (O += P V, V stored key-major).
+
+``tests/test_torch_port_attention.py`` checks that the committed header is
+this script's output.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+HEADER = Path(__file__).resolve().parent / "wgmma_sm90.cuh"
+WIDTHS = tuple(range(8, 257, 8))
+
+
+def _regs(first: int, count: int) -> str:
+    """``%first, ..., %(first + count - 1)``, eight to a string literal."""
+    names = [f"%{first + i}" for i in range(count)]
+    rows = [", ".join(names[i:i + 8]) for i in range(0, count, 8)]
+    return ', "\n      "'.join(rows)
+
+
+def _outputs(count: int) -> str:
+    outs = [f'"+f"(d[{i}])' for i in range(count)]
+    return ",\n        ".join(", ".join(outs[i:i + 8]) for i in range(0, count, 8))
+
+
+def _ss(n: int) -> str:
+    r = n // 2
+    return f"""template <>
+__device__ __forceinline__ void wgmma_ss<{n}>(float (&d)[{r}], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {{
+  asm volatile(
+      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 2}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+      "{{{_regs(0, r)}}}, %{r}, %{r + 1}, p, 1, 1, 0, 0;\\n}}\\n"
+      : {_outputs(r)}
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}}
+"""
+
+
+def _rs() -> str:
+    r = 32
+    return f"""__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[{r}], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {{
+  asm volatile(
+      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 5}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{{{_regs(0, r)}}}, {{{_regs(r, 4)}}}, %{r + 4}, p, 1, 1, 1;\\n}}\\n"
+      : {_outputs(r)}
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}}
+"""
+
+
+def render() -> str:
+    parts = [
+        "// Generated by gen_wgmma.py in this directory; edit that script, not this file.\n"
+        "//\n"
+        "// Hopper warpgroup products (sm_90a) for the attention forward kernels.\n"
+        "// Every call must be made by all 128 threads of a warpgroup, between\n"
+        "// wgmma.fence and wgmma.commit_group / wait_group (attn_fwd_sm90.cuh).\n"
+        "// scale_d = 0 overwrites d, 1 accumulates into it.\n"
+        "\n"
+        "#pragma once\n"
+        "\n"
+        "#include <stdint.h>\n"
+        "\n"
+        "namespace sm90 {\n"
+        "\n"
+        "// m64n{N}k16 bf16 x bf16 -> fp32; A and B from shared memory, K-major.\n"
+        "template <int N>\n"
+        "__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,\n"
+        "                                         int scale_d);\n"
+        "\n"
+    ]
+    parts += [_ss(n) + "\n" for n in WIDTHS]
+    parts.append("// m64n64k16 bf16 x bf16 -> fp32; A from registers (the m16n8k16 A fragment\n"
+                 "// of each warp's 16 rows), B from shared memory, MN-major.\n")
+    parts.append(_rs())
+    parts.append("\n}  // namespace sm90\n")
+    return "".join(parts)
+
+
+if __name__ == "__main__":
+    HEADER.write_text(render())
+    print(f"wrote {HEADER}")

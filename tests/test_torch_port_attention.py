@@ -16,7 +16,9 @@ from peft_vit_tpu_torch.ops import _build
 from peft_vit_tpu_torch.ops import attention as port
 
 TOL = dict(atol=1e-5, rtol=1e-5)
-SHAPES = [(2, 3, 64, 32), (2, 3, 197, 64)]
+# the last two sit at the card forward's split: one product per row up to
+# N = 256, streamed key tiles beyond
+SHAPES = [(2, 3, 64, 32), (2, 3, 197, 64), (1, 2, 256, 64), (1, 2, 257, 64)]
 
 
 def _inputs(shape, seed, with_bias):
@@ -108,3 +110,20 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
+
+
+def test_wgmma_header_is_the_generators_output():
+    """``csrc/wgmma_sm90.cuh`` (the forward kernels' wgmma instructions) is
+    what ``csrc/gen_wgmma.py`` writes: one m64nNk16 product for every width
+    N = 8 .. 256 the resident design dispatches to, and the P V product."""
+    import importlib.util
+
+    src = _build.CSRC_DIR / "gen_wgmma.py"
+    spec = importlib.util.spec_from_file_location("gen_wgmma", src)
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    text = gen.render()
+    assert (_build.CSRC_DIR / "wgmma_sm90.cuh").read_text() == text
+    for n in range(8, 257, 8):
+        assert f"m64n{n}k16.f32.bf16.bf16" in text
+    assert "m64n64k16.f32.bf16.bf16" in text and "p, 1, 1, 1;" in text

@@ -22,7 +22,9 @@ from peft_vit_tpu.ops.attention import _fused_short_bwd, _fused_short_fwd
 from peft_vit_tpu.ops.attention import multi_head_attention as jax_mha
 from peft_vit_tpu_torch.ops import attention as port
 
-SHAPES = [(2, 3, 197, 64), (1, 2, 50, 32), (2, 2, 130, 16)]
+# (1, 2, 256, 64) and (1, 2, 257, 64) sit at the card forward's split: one
+# product per row up to N = 256, a second pass over the keys beyond
+SHAPES = [(2, 3, 197, 64), (1, 2, 50, 32), (2, 2, 130, 16), (1, 2, 256, 64), (1, 2, 257, 64)]
 DTYPES = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 
 
@@ -65,7 +67,7 @@ def test_plain_pair_matches_pallas_kernels(shape, dtype):
         _close(g, w, dtype)
 
 
-@pytest.mark.parametrize("shape", SHAPES[1:] + [(2, 2, 67, 32)])
+@pytest.mark.parametrize("shape", SHAPES[1:3] + [(2, 2, 67, 32)])
 def test_gradients_match_jax_grad(shape):
     """The autograd Function through the dispatcher against ``jax.grad`` of
     the JAX dispatcher's fused path (interpret mode), fp32."""
