@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    power limit from nvidia-smi;
 2. build: every kernel of ``peft_vit_tpu_torch/csrc`` with nvcc for sm_90a,
    with ptxas's registers, spills and shared memory of each instantiation
-   of the K1 and K4 forward;
+   of the K1 and K4 forward and of the K2 and K3 backward (with the blocks a
+   SM holds);
 3. kernel: each hand-written kernel against its plain PyTorch version on
    the card.  ``flash_attention_fwd`` (the CUDA counterpart of the Pallas
    flash forward): bf16 at every batch the serving path gives it and, with
@@ -18,10 +19,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    edges of its two designs (one resident product up to N = 256, streamed
    key tiles beyond): N = 8, 64, 196, 200, 255, 256, 257, 577 at B = 1 and
    32, bf16 and fp32, both scales, with and without lse and bias.
-   ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` (the
-   counterparts of the two Pallas backward kernels): bf16 at the training
-   batch, fp32, ragged N, o and lse from the forward kernel; then the ``flash_attention``
-   autograd Function against autograd through the plain reference.  Then
+   ``flash_attention_bwd_dq`` (which also computes delta = rowsum(dO o O))
+   and ``flash_attention_bwd_dkv`` (the counterparts of the two Pallas
+   backward kernels): bf16 at the training batch and at B = 1, fp32, N = 50,
+   197, 257 and 577 (one to four 64-row chunks, ragged), o and lse from the
+   forward kernel, the kernel's delta against ``_row_dot``; then the
+   ``flash_attention`` autograd Function against autograd through the plain
+   reference.  Then
    each kernel's time beside its bound, its plain version and
    ``torch.nn.functional.scaled_dot_product_attention``, forward and
    backward (a yardstick only: the port never calls it); K1 also at N =
@@ -74,8 +78,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``multi_head_attention(use_fused=True)`` against the same call with the
    plain versions; K4 at the edge shapes of K1's list and N = 1024; the
    dispatch rule (a bias or N = 1025 takes K1); then their path (12 forward
-   and backward calls at B = 16) and their times beside K1, K2 + K3 + delta
-   and ``scaled_dot_product_attention``, K4 also at N = 577 and 1024;
+   and backward calls at B = 16) and their times beside K1, K2 (with delta)
+   + K3 and ``scaled_dot_product_attention``, K4 also at N = 577 and 1024;
 8. driver: ``commands.run.finetune_main`` at full ViT-B/16 width
    (vitb16_CLIP.yaml, random numpy weights, synthetic 5-way 4-shot, batch
    16): the bf16 sweep of 18 cells of 2 epochs and the final train; launch
@@ -115,6 +119,13 @@ TRAIN_TIMED_BATCHES = (8, 16, 32)
 REQUESTS = (1, 5, 8, 32, 40)
 CHECKED_REQUEST = 5
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_K, TRAIN_WINDOWS = 16, 4, 8, 7
+# Device launches (kernels and copies) of one bf16 training step as the
+# profiler counts them: 1,392 while delta = rowsum(dO o O) was a PyTorch
+# expression (two casts, a product and a sum in each of the 12 layers'
+# backward), 48 fewer since the dq kernel computes it.  Printed beside the
+# profile; a copy more or less between profiled steps moves the count, so
+# the check is on the Function's backward (backward_kernel_checks).
+TRAIN_STEP_LAUNCHES = 1392 - 4 * LAYERS
 FIXED_BATCH_STEPS = 8
 F32_BATCH, F32_STEPS = 4, 3
 TRAINABLE = 12 * 2 * 2 * WIDTH * LORA_RANK + OUTPUT_DIM * NUM_CLASSES + NUM_CLASSES  # 198,756
@@ -140,6 +151,10 @@ TOL_BF16_GRAD_REL = 1e-2
 # fp32: the same arithmetic; sums in another order than cuBLAS and expf
 # against torch.exp (2 ulp).
 TOL_F32_GRAD_REL = 1e-4
+# delta = rowsum(dO o O), which K2 computes: fp32 sums of the same 64
+# products in another order than torch's, so each stands within a few fp32
+# ulps of the row's sum of |products|; bound 1e-5 of the largest such sum.
+TOL_DELTA_REL = 1e-5
 # Logits, as max |diff| / max |logit| against the same model in fp32 on the CPU.
 # fp32 on the card: only the summation order differs, over 12 layers.
 TOL_F32_LOGITS_REL = 1e-3
@@ -243,6 +258,8 @@ def build_phase(ptxas_verbose: bool = False) -> float:
         for name, label in (("flash_attn_fwd", "K1"), ("fused_short_attn", "K4")):
             for line in ptxas_summary(logs.get(name, "")):
                 print(f"ptxas {label} {line}")
+        for line in ptxas_bwd_summary(logs.get("flash_attn_bwd", "")):
+            print(f"ptxas {line}")
     print(f"build seconds {seconds:.2f}")
     return seconds
 
@@ -282,6 +299,48 @@ def ptxas_summary(text: str) -> list:
                 + (", wgmma serialized (C7512)" if current["serialized"] else ""))
             current = None
     return sorted(lines, key=lambda x: (("streamed" in x), int(x.split()[0][5:])))
+
+
+SM_REGISTERS, SM_SHARED_BYTES, BLOCK_RESERVED_SHARED = 65536, 233472, 1024  # H100, a SM
+
+
+def ptxas_bwd_summary(text: str) -> list:
+    """One line for each sm90 backward mainloop (K2 and K3) in an ``nvcc
+    -Xptxas -v`` log: registers a thread, spills, shared memory (static, and
+    the dynamic size the library's launcher asks for), the blocks of 128
+    threads a SM holds at those registers and that shared memory, and
+    whether ptxas serialized its wgmma instructions (C7512)."""
+    import re
+
+    from peft_vit_tpu_torch.ops import attention as attn
+
+    dynamic = attn._kernel_library("flash_attn_bwd").flash_attn_bwd_smem_bytes()
+    serialized = set(re.findall(r"C7512.*?for the function '(\S+)'", text))
+    lines, current = [], None
+    for line in text.splitlines():
+        found = re.search(r"Compiling entry function '\S*attn_bwd_(dq|dkv)_sm90_kernel", line)
+        if found:
+            current = {"kernel": "K2" if found.group(1) == "dq" else "K3",
+                       "serialized": any(name in line for name in serialized)}
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            current["spill"] = (int(spill.group(1)), int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if used:
+            regs, static = int(used.group(1)), int(used.group(2))
+            by_regs = SM_REGISTERS // ((regs + 7) // 8 * 8 * 128)
+            by_smem = SM_SHARED_BYTES // (dynamic + static + BLOCK_RESERVED_SHARED)
+            stores, loads = current.get("spill", (0, 0))
+            lines.append(
+                f"{current['kernel']}: {regs} registers, spill stores {stores} B, "
+                f"spill loads {loads} B, static smem {static} B, dynamic smem {dynamic} B, "
+                f"blocks a SM {min(by_regs, by_smem)} (registers {by_regs}, shared memory "
+                f"{by_smem})" + (", wgmma serialized (C7512)" if current["serialized"] else ""))
+            current = None
+    return sorted(lines)
 
 
 def _device_ms(fn, reps: int, trials: int = 5) -> float:
@@ -333,12 +392,12 @@ def _eager_ms(fn, reps: int, trials: int = 5) -> float:
 def attention_bound(b: int, h: int, n: int, d: int, itemsize: int, kernel: str):
     """Least time for the function: each (B, H, N, D) operand read once and
     each result written once, with the fp32 rows (lse, delta) a backward
-    reads, against its flops at the bf16 tensor-core peak.  fwd (K1, and K4
-    as timed, without the lse): q, k, v -> o, two products; dq: q, k, v, dO,
-    lse, delta -> dq, three; dkv: the same -> dk, dv, four; fused_bwd (K5):
-    q, k, v, o, dO, lse -> dq, dk, dv, five (q k^T, dO v^T, p^T dO, ds k,
-    ds^T q)."""
-    tensors, products, rows = {"fwd": (4, 2, 0), "dq": (5, 3, 2), "dkv": (6, 4, 2),
+    reads or writes, against its flops at the bf16 tensor-core peak.  fwd
+    (K1, and K4 as timed, without the lse): q, k, v -> o, two products; dq:
+    q, k, v, o, dO, lse -> dq, delta, three (K2 computes delta from o and
+    dO); dkv: q, k, v, dO, lse, delta -> dk, dv, four; fused_bwd (K5): q, k,
+    v, o, dO, lse -> dq, dk, dv, five (q k^T, dO v^T, p^T dO, ds k, ds^T q)."""
+    tensors, products, rows = {"fwd": (4, 2, 0), "dq": (6, 3, 2), "dkv": (6, 4, 2),
                                "fused_bwd": (8, 5, 1)}[kernel]
     bytes_moved = tensors * b * h * n * d * itemsize + rows * b * h * n * 4
     flops = 2 * products * b * h * n * n * d
@@ -446,32 +505,47 @@ def edge_checks(attn, rand, kernel: str) -> None:
 
 
 def backward_kernel_checks(attn, rand) -> dict:
-    """K2 (dq) and K3 (dk, dv) against ``_flash_attention_bwd_plain`` on the
-    card, o and lse from K1; then the whole ``flash_attention`` Function in
-    fp32 against autograd through ``attention_reference``.  Returns the max
-    abs errors of the first case, which has the training path's shape."""
+    """K2 (dq, and delta) and K3 (dk, dv) against ``_flash_attention_bwd_plain``
+    on the card, o and lse from K1, K2's delta against ``_row_dot`` and fed
+    to K3; then the whole ``flash_attention`` Function in fp32 against
+    autograd through ``attention_reference``.  N = 50, 197 and 257 and 577
+    cover one to four resident 64-row chunks and the streamed ring (N >
+    256), ragged last chunks among them; B = 1 a grid of one block column.
+    Returns the max abs errors of the first case, which has the training
+    path's shape."""
     bf16, f32 = torch.bfloat16, torch.float32
     # (name, B, N, dtype, scale, q std, relative tolerance)
     cases = [
         ("bf16 scale=1.0 (post-scaled q), training batch", TRAIN_BATCH, N_TOKENS, bf16, 1.0, 0.125,
          TOL_BF16_GRAD_REL),
         ("bf16 scale=0.125", 8, N_TOKENS, bf16, 0.125, 1.0, TOL_BF16_GRAD_REL),
+        ("bf16 B=1", 1, N_TOKENS, bf16, 1.0, 0.125, TOL_BF16_GRAD_REL),
         ("bf16 ragged N=50", 2, 50, bf16, 0.125, 1.0, TOL_BF16_GRAD_REL),
-        ("bf16 ragged N=257", 2, 257, bf16, 0.125, 1.0, TOL_BF16_GRAD_REL),
+        ("bf16 ragged N=257 (streamed)", 2, 257, bf16, 0.125, 1.0, TOL_BF16_GRAD_REL),
+        ("bf16 N=577 (streamed)", 2, 577, bf16, 1.0, 0.125, TOL_BF16_GRAD_REL),
         ("fp32 N=197", 2, N_TOKENS, f32, 0.125, 1.0, TOL_F32_GRAD_REL),
+        ("fp32 B=1 ragged N=50", 1, 50, f32, 1.0, 0.125, TOL_F32_GRAD_REL),
         ("fp32 ragged N=257", 2, 257, f32, 0.125, 1.0, TOL_F32_GRAD_REL),
+        ("fp32 N=577", 2, 577, f32, 1.0, 0.125, TOL_F32_GRAD_REL),
     ]
     main = None
     for name, b, n, dtype, scale, q_std, tol in cases:
         shape = (b, HEADS, n, HEAD_DIM)
         q, k, v, do = rand(shape, dtype, q_std), rand(shape, dtype), rand(shape, dtype), rand(shape, dtype)
         o, lse = attn.flash_attention_fwd(q, k, v, None, scale, return_lse=True)
-        delta = attn._row_dot(do, o)
-        dq = attn.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+        dq, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, scale)
         dk, dv = attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
         want = attn._flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+        want_delta = attn._row_dot(do, o)
         torch.cuda.synchronize()
-        errs = {}
+        # delta: two fp32 sums of the same 64 products in other orders
+        scale_delta = (do.float() * o.float()).abs().sum(-1).max().item()
+        delta_err = (delta - want_delta).abs().max().item()
+        check(delta.shape == (b, HEADS, 1, n) and delta.dtype == f32
+              and delta_err <= TOL_DELTA_REL * scale_delta,
+              f"kernel bwd {name} {tuple(shape)}: delta max abs err {delta_err:.3e} <= "
+              f"{TOL_DELTA_REL:g} x max sum |dO o O| ({scale_delta:.3e})")
+        errs = {"delta": delta_err}
         for what, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
             err = (got.float() - ref.float()).abs().max().item()
             rel = err / ref.float().abs().max().item()
@@ -481,7 +555,19 @@ def backward_kernel_checks(attn, rand) -> dict:
                   f"kernel bwd {name} {tuple(shape)}: {what} max abs err {err:.3e}, "
                   f"/ max |plain| = {rel:.3e} <= {tol:g}")
         if main is None:
-            main = {"dq": errs["dq"], "dkv": max(errs["dk"], errs["dv"])}
+            main = {"dq": errs["dq"], "dkv": max(errs["dk"], errs["dv"]), "delta": delta_err}
+
+    # the Function's backward launches the two kernels and nothing else: the
+    # dq kernel computes delta, so no PyTorch expression runs for it
+    shape = (TRAIN_BATCH, HEADS, N_TOKENS, HEAD_DIM)
+    q, k, v = (rand(shape, bf16, std).requires_grad_() for std in (0.125, 1.0, 1.0))
+    out = attn.flash_attention(q, k, v, None, 1.0)
+    w = rand(shape, bf16)
+    _, launches, top = _device_breakdown(
+        lambda: torch.autograd.grad(out, (q, k, v), w, retain_graph=True), reps=1)
+    check(launches == 2,
+          f"flash_attention backward bf16 {tuple(shape)}: {launches} device launches == 2 "
+          "(dq with delta, dk/dv): " + "; ".join(name for name, _ in top))
 
     shape = (2, HEADS, N_TOKENS, HEAD_DIM)
     q, k, v = (rand(shape, f32).requires_grad_() for _ in range(3))
@@ -497,11 +583,18 @@ def backward_kernel_checks(attn, rand) -> dict:
     return main
 
 
+def flash_backward(attn, q, k, v, o, lse, do):
+    """The backward that ``flash_attention`` runs: K2, which computes delta,
+    then K3."""
+    dq, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, 1.0)
+    return (dq, *attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta, 1.0))
+
+
 def kernel_timing(attn, rand, result: dict) -> None:
     """Device time of each kernel (CUDA-graph replay, bf16, scale 1, q at std
     1/8) beside its bound, its plain version and the library yardstick:
     ``scaled_dot_product_attention`` forward for K1, and its backward through
-    ``torch.autograd.grad`` beside K2 + K3 + delta."""
+    ``torch.autograd.grad`` beside K2 (with delta inside) + K3."""
     import torch.nn.functional as F
 
     for b in TIMED_BATCHES:
@@ -522,21 +615,19 @@ def kernel_timing(attn, rand, result: dict) -> None:
             continue
 
         o, lse = attn.flash_attention_fwd(q, k, v, None, 1.0, return_lse=True)
-        delta = attn._row_dot(do, o)
-        args = (q, k, v, do, lse, delta, 1.0)
-        plain = lambda fn: _device_ms(lambda: fn(*args), 50)
+        _, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, 1.0)
+        args = {"dq": (q, k, v, do, lse, o, 1.0), "dkv": (q, k, v, do, lse, delta, 1.0)}
         qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
         # autograd runs a backward on its forward's stream, so a graph can only
         # capture the two together: the backward is their time less the forward's
         sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
         sdpa_bwd = (_device_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do), reps)
                     - _device_ms(sdpa, reps))
-        ours_bwd = _device_ms(lambda: (
-            attn.flash_attention_bwd_dq(q, k, v, do, lse, attn._row_dot(do, o), 1.0),
-            attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta, 1.0)), reps)
+        ours_bwd = _device_ms(lambda: flash_backward(attn, q, k, v, o, lse, do), reps)
         for key, fn, plain_fn in (("dq", attn.flash_attention_bwd_dq, attn._bwd_dq_plain),
                                   ("dkv", attn.flash_attention_bwd_dkv, attn._bwd_dkv_plain)):
-            row = {"ms": _device_ms(lambda: fn(*args), reps), "plain_ms": plain(plain_fn)}
+            row = {"ms": _device_ms(lambda: fn(*args[key]), reps),
+                   "plain_ms": _device_ms(lambda: plain_fn(*args[key]), 50)}
             row["bound_ms"], row["bound_by"] = attention_bound(
                 b, HEADS, N_TOKENS, HEAD_DIM, 2, key)
             result[key][b] = row
@@ -544,7 +635,7 @@ def kernel_timing(attn, rand, result: dict) -> None:
         for key in ("dq", "dkv"):  # the library computes dq, dk and dv in one backward
             result[key][b]["library_ms"] = sdpa_bwd
             result[key][b]["backward_ms"] = ours_bwd
-        print(f"kernel timing B={b} backward: dq + dk/dv + delta {ours_bwd:.6f} ms, "
+        print(f"kernel timing B={b} backward: dq (with delta) + dk/dv {ours_bwd:.6f} ms, "
               f"scaled_dot_product_attention backward {sdpa_bwd:.6f} ms (forward and "
               "backward in one graph, less the forward alone)", flush=True)
     result["fwd_long"] = long_timing(attn, rand, "K1")
@@ -810,7 +901,7 @@ def flagship_qkv_check(attn) -> None:
 def fused_kernel_timing(attn, rand, result: dict) -> None:
     """Device time of K4 and K5 (CUDA-graph replay, L2-warm, bf16, scale 1, q
     at std 1/8) at N = 197 beside the bound, the plain versions, K1 (the
-    flash forward), K2 + K3 + delta, and ``scaled_dot_product_attention``
+    flash forward), K2 (with delta) + K3, and ``scaled_dot_product_attention``
     forward and backward (yardsticks only)."""
     import torch.nn.functional as F
 
@@ -838,12 +929,7 @@ def fused_kernel_timing(attn, rand, result: dict) -> None:
                     - _device_ms(sdpa, reps))
         fo, flse = attn.flash_attention_fwd(q, k, v, None, 1.0, return_lse=True)
 
-        def flash_bwd_call():
-            delta = attn._row_dot(do, fo)
-            attn.flash_attention_bwd_dq(q, k, v, do, flse, delta, 1.0)
-            attn.flash_attention_bwd_dkv(q, k, v, do, flse, delta, 1.0)
-
-        flash_bwd = _device_ms(flash_bwd_call, reps)
+        flash_bwd = _device_ms(lambda: flash_backward(attn, q, k, v, fo, flse, do), reps)
         row = {
             "ms": _device_ms(lambda: attn.fused_short_attention_bwd(q, k, v, o, lse, do, 1.0),
                              reps),
@@ -856,7 +942,7 @@ def fused_kernel_timing(attn, rand, result: dict) -> None:
                                                            "fused_bwd")
         result["bwd"][b] = row
         _print_timing("fused_short_attn_bwd", b, shape, row)
-        print(f"fused timing B={b}: K5 {row['ms']:.6f} ms beside K2 + K3 + delta "
+        print(f"fused timing B={b}: K5 {row['ms']:.6f} ms beside K2 (with delta) + K3 "
               f"{flash_bwd:.6f} ms and the scaled_dot_product_attention backward "
               f"{sdpa_bwd:.6f} ms (forward and backward in one graph, less the forward)",
               flush=True)
@@ -1441,6 +1527,8 @@ def train_phase(smi: str, device: str = "cuda") -> dict:
     print(f"train profile: device busy {device_ms:.3f} ms/step in {n_launches:.0f} launches, "
           f"idle share {max(0.0, 1.0 - device_ms / step_ms):.3f} of the {step_ms:.3f} ms step; "
           "top: " + "; ".join(f"{name} {t / 2:.3f} ms" for name, t in top))
+    print(f"train profile: {n_launches:.1f} launches a step (two steps profiled), "
+          f"{TRAIN_STEP_LAUNCHES} with no delta expression")
     return result
 
 
@@ -1889,7 +1977,8 @@ def main() -> int:
         lines.append({
             "name": name,
             "route": "cuda",
-            "source": f"peft_vit_tpu_torch/csrc/flash_attn_{'fwd' if key == 'fwd' else 'bwd'}.cu",
+            "source": ("peft_vit_tpu_torch/csrc/flash_attn_fwd.cu" if key == "fwd"
+                       else "peft_vit_tpu_torch/csrc/attn_bwd_sm90.cuh"),
             "replaces": f"peft_vit_tpu/ops/attention.py:{line}",
             "launches": slc["launches"] if key == "fwd" else trn["launches"][name],
             "launches_serving": slc["launches"] if key == "fwd" else 0,
@@ -1911,7 +2000,7 @@ def main() -> int:
         else:
             lines[-1]["library_computes"] = (
                 "dq, dk and dv in one scaled_dot_product_attention backward; beside it "
-                f"dq + dk/dv + delta take {row['backward_ms']:.6f} ms")
+                f"dq (with delta) + dk/dv take {row['backward_ms']:.6f} ms")
     gemm, batch = INT8_KERNEL_LINE
     row = next(r for r in kern8["rows"] if r["gemm"] == gemm and r["batch"] == batch)
     for variant in ("dynamic", "static"):

@@ -514,7 +514,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const FwdArg
                        cudaStream_t stream) {
   using L = FwdSmem<kKeys, kStream>;
   auto kernel = attn_fwd_sm90_kernel<kKeys, kStream, kNormFirst>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // the attribute belongs to the device, so it is set on every launch
+  const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != cudaSuccess) return attr;
   const int BH = B * args.H;

@@ -2,49 +2,43 @@
 // interface loaded through ctypes (peft_vit_tpu_torch/ops/attention.py).
 //
 // Replace the Pallas TPU kernels of peft_vit_tpu/ops/attention.py:
-//   flash_attn_bwd_dq   <- _flash_bwd_dq_kernel
-//   flash_attn_bwd_dkv  <- _flash_bwd_dkv_kernel
-// (their pallas_calls are in _flash_attention_bwd).  For q, k, v, dO of shape
-// (B, H, N, D), the forward's lse (B, H, 1, N) and delta = rowsum(dO o O)
-// (B, H, 1, N), both fp32, they compute the bias-free backward
-//     p  = exp(scale * q k^T - lse)
-//     ds = p o (dO v^T - delta)
+//   flash_attn_bwd_dq   <- _flash_bwd_dq_kernel   (K2)
+//   flash_attn_bwd_dkv  <- _flash_bwd_dkv_kernel  (K3)
+// (their pallas_calls are in _flash_attention_bwd).  For q, k, v, o, dO of
+// shape (B, H, N, D) and the forward's lse (B, H, 1, N) fp32 they compute the
+// bias-free backward
+//     delta = rowsum(dO o O)            (K2 computes it, writes it, K3 reads it)
+//     p  = exp(scale * q k^T - lse)     ds = p o (dO v^T - delta)
 //     dq = scale * ds k        dk = scale * ds^T q        dv = p^T dO
 // p and ds are recomputed tile by tile from the saved lse and never reach
 // device memory.  p is rounded to the operand dtype before p^T dO and ds
 // before its two products, as in the Pallas kernels; sums are fp32.  Nothing
 // is padded in device memory (the TPU kernels pad N and D to 128): p = 0 for
-// keys >= N and for q rows >= N, staged rows >= N are zero, and rows >= N
-// are not written.
+// keys >= N and for q rows >= N, and rows >= N are not written.  The Pallas
+// wrapper computes delta in XLA before the kernels; here K2 computes it from
+// the dO tile it already holds and O, which saves the several launches and
+// the two extra reads of dO and O of a separate delta pass.
 //
 // What bounds them: at the ViT-B/16 training shapes (N = 197, D = 64, bf16)
-// dq reads four tensors and writes one against 6*B*H*N^2*D flops, dk/dv read
-// four and write two against 8*B*H*N^2*D, about 120 flops per byte, below
-// the H100's bf16 ridge of about 295: both are memory-bound.  The design
-// keeps every (N, N) intermediate in registers and writes each gradient once.
+// K2 reads q, k, v, o, dO and lse and writes dq and delta, 6 B H N D bytes
+// and 8 B H N more, against 6 B H N^2 D flops; K3 reads q, k, v, dO, lse and
+// delta and writes dk and dv, 6 B H N D bytes and 8 B H N, against 8 B H N^2 D
+// flops: 100 and 130 flops a byte, below the H100's bf16 ridge of about 295,
+// so both are bounded by bytes, each at about 8.8 us at B = 16.  Counted with
+// the padding the tiles give (64-row tiles and chunks: N = 197 computes as
+// 256 x 256), the flops are 1.69 times the useful ones and bring the two
+// bounds close; what the design spends is the latency of each chunk's
+// products and exponentials, hidden only by the other warpgroups on the SM.
 //
-// bf16 (mma.sync m16n8k16, fp32 accumulators), one block of 4 warps per
-// (64-row tile, head, batch), 16 tile rows per warp:
-// * dq: the block owns a q tile and loops over key tiles.  s = q k^T and
-//   dp = dO v^T land in the same accumulator layout, so ds is formed in
-//   registers and, two 8-key tiles at a time, is already the A fragment of
-//   ds k.
-// * dk/dv: the block owns a key tile and loops over q tiles, so it owns its
-//   dk and dv rows: no atomics, a deterministic result.  It computes the
-//   transposed products s^T = k q^T and dp^T = v dO^T with the key tile as
-//   the A operand, so p^T and ds^T come out as the A fragments of p^T dO and
-//   ds^T q without a transpose through shared memory.  lse and delta then
-//   run along the accumulator's columns and are staged in shared memory per
-//   q tile.
-// The tile a block owns is staged in the buffers of the streamed pair, read
-// into A fragments once, and the buffers are reused: 18 KB of shared memory.
-// fp32: the same tiling with two threads per owned row (each holds every
-// other dim) and fp32 FMAs; the two halves of a dot product meet in one
-// shuffle.  It exists so that fp32 training on the card can be held tightly
-// against the CPU.
-// D = 64 only.  wgmma, TMA and cp.async pipelining are left for later.
+// bf16: attn_bwd_sm90.cuh (TMA staging through 3-D tensor maps, wgmma
+// products, 64-row chunks through a two-stage ring, the last chunk cut to
+// its rows).
+// fp32: one block of 128 threads per (64-row tile, head, batch), two threads
+// per owned row (each holds every other dim) and fp32 FMAs; the two halves of
+// a dot product meet in one shuffle.  It exists so that fp32 training on the
+// card can be held tightly against the CPU.  D = 64 only.
 
-#include "flash_common.cuh"
+#include "attn_bwd_sm90.cuh"
 
 namespace {
 
@@ -52,204 +46,6 @@ using namespace flash;
 
 constexpr int kThreadsF32 = 2 * kBlockQ;  // two threads per owned row
 constexpr int kHalfD = kD / 2;
-
-__global__ void __launch_bounds__(kThreadsBf16)
-flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                         const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         uint16_t* __restrict__ dq, int H, int N, float scale) {
-  __shared__ __align__(16) uint16_t sK[kBlockK * kLds];  // first the q tile
-  __shared__ __align__(16) uint16_t sV[kBlockK * kLds];  // first the dO tile
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * kBlockQ;
-  const size_t bh = static_cast<size_t>(blockIdx.z) * H + blockIdx.y;
-  const size_t base = bh * static_cast<size_t>(N) * kD;
-
-  load_tile_bf16(sK, q + base, q0, N, tid);
-  load_tile_bf16(sV, dout + base, q0, N, tid);
-  __syncthreads();
-
-  // This thread's two rows of the tile: r0 and r0 + 8.
-  const int r0 = warp * 16 + g;
-  uint32_t qa[kD / 16][4];
-  uint32_t da[kD / 16][4];
-  load_a_frags(qa, sK, r0, t);
-  load_a_frags(da, sV, r0, t);
-
-  const int qrow[2] = {q0 + r0, q0 + r0 + 8};
-  float row_lse[2];
-  float row_delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool valid = qrow[r] < N;
-    row_lse[r] = valid ? lse[bh * N + qrow[r]] : 0.f;
-    row_delta[r] = valid ? delta[bh * N + qrow[r]] : 0.f;
-  }
-
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.f;
-  }
-
-  const int num_kt = (N + kBlockK - 1) / kBlockK;
-  for (int kt = 0; kt < num_kt; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // every warp is done with the buffers' previous tile
-    load_tile_bf16(sK, k + base, k0, N, tid);
-    load_tile_bf16(sV, v + base, k0, N, tid);
-    __syncthreads();
-
-    // 16 keys at a time: s and dp for two 8-key tiles, then ds as one
-    // k-step of ds k.
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t dsa[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key8 = kk * 16 + j * 8;
-        float s[4] = {0.f, 0.f, 0.f, 0.f};
-        float dp[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_rows_as_cols(s, qa, sK, key8, g, t);
-        mma_rows_as_cols(dp, da, sV, key8, g, t);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = i >> 1;
-          const int key = k0 + key8 + 2 * t + (i & 1);
-          const float p = key < N ? __expf(s[i] * scale - row_lse[r]) : 0.f;
-          s[i] = p * (dp[i] - row_delta[r]);
-        }
-        dsa[2 * j + 0] = pack_bf16(s[0], s[1]);
-        dsa[2 * j + 1] = pack_bf16(s[2], s[3]);
-      }
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        mma_rows_as_k(acc[dt], dsa, sK, kk * 16, dt * 8, g, t);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (qrow[r] >= N) continue;
-    uint16_t* out = dq + base + static_cast<size_t>(qrow[r]) * kD;
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(out + dt * 8 + 2 * t) =
-          pack_bf16(scale * acc[dt][2 * r], scale * acc[dt][2 * r + 1]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreadsBf16)
-flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                          const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
-                          int H, int N, float scale) {
-  __shared__ __align__(16) uint16_t sQ[kBlockQ * kLds];   // first the k tile
-  __shared__ __align__(16) uint16_t sDo[kBlockQ * kLds];  // first the v tile
-  __shared__ float sLse[kBlockQ];
-  __shared__ float sDelta[kBlockQ];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int k0 = blockIdx.x * kBlockK;
-  const size_t bh = static_cast<size_t>(blockIdx.z) * H + blockIdx.y;
-  const size_t base = bh * static_cast<size_t>(N) * kD;
-
-  load_tile_bf16(sQ, k + base, k0, N, tid);
-  load_tile_bf16(sDo, v + base, k0, N, tid);
-  __syncthreads();
-
-  // This thread's two keys of the tile: r0 and r0 + 8.
-  const int r0 = warp * 16 + g;
-  uint32_t ka[kD / 16][4];
-  uint32_t va[kD / 16][4];
-  load_a_frags(ka, sQ, r0, t);
-  load_a_frags(va, sDo, r0, t);
-  const int krow[2] = {k0 + r0, k0 + r0 + 8};
-
-  float dk_acc[kD / 8][4];
-  float dv_acc[kD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      dk_acc[dt][i] = 0.f;
-      dv_acc[dt][i] = 0.f;
-    }
-  }
-
-  const int num_qt = (N + kBlockQ - 1) / kBlockQ;
-  for (int qt = 0; qt < num_qt; ++qt) {
-    const int q0 = qt * kBlockQ;
-    __syncthreads();  // every warp is done with the buffers' previous tile
-    load_tile_bf16(sQ, q + base, q0, N, tid);
-    load_tile_bf16(sDo, dout + base, q0, N, tid);
-    if (tid < kBlockQ) {
-      const bool valid = q0 + tid < N;
-      sLse[tid] = valid ? lse[bh * N + q0 + tid] : 0.f;
-      sDelta[tid] = valid ? delta[bh * N + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // 16 q rows at a time: s^T and dp^T for two 8-row tiles, then p^T and
-    // ds^T as one k-step of p^T dO and ds^T q.
-#pragma unroll
-    for (int kk = 0; kk < kBlockQ / 16; ++kk) {
-      uint32_t pa[4];
-      uint32_t dsa[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int row8 = kk * 16 + j * 8;
-        float st[4] = {0.f, 0.f, 0.f, 0.f};
-        float dpt[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_rows_as_cols(st, ka, sQ, row8, g, t);
-        mma_rows_as_cols(dpt, va, sDo, row8, g, t);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int c = row8 + 2 * t + (i & 1);  // q row within the tile
-          const bool valid = (q0 + c < N) && (krow[i >> 1] < N);
-          const float p = valid ? __expf(st[i] * scale - sLse[c]) : 0.f;
-          st[i] = p;
-          dpt[i] = p * (dpt[i] - sDelta[c]);
-        }
-        pa[2 * j + 0] = pack_bf16(st[0], st[1]);
-        pa[2 * j + 1] = pack_bf16(st[2], st[3]);
-        dsa[2 * j + 0] = pack_bf16(dpt[0], dpt[1]);
-        dsa[2 * j + 1] = pack_bf16(dpt[2], dpt[3]);
-      }
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        mma_rows_as_k(dv_acc[dt], pa, sDo, kk * 16, dt * 8, g, t);
-        mma_rows_as_k(dk_acc[dt], dsa, sQ, kk * 16, dt * 8, g, t);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (krow[r] >= N) continue;
-    const size_t off = base + static_cast<size_t>(krow[r]) * kD;
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(dk + off + dt * 8 + 2 * t) =
-          pack_bf16(scale * dk_acc[dt][2 * r], scale * dk_acc[dt][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + dt * 8 + 2 * t) =
-          pack_bf16(dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
-    }
-  }
-}
 
 // 64 rows x 64 fp32 of a and of b from global into shared (row stride kD),
 // 16 B per load; rows >= n are zero.
@@ -280,8 +76,9 @@ __device__ __forceinline__ void load_half_row_f32(float (&dst)[kHalfD], const fl
 __global__ void __launch_bounds__(kThreadsF32)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, int H, int N, float scale) {
+                        const float* __restrict__ o, const float* __restrict__ lse,
+                        float* __restrict__ delta, float* __restrict__ dq, int H, int N,
+                        float scale) {
   __shared__ __align__(16) float sK[kBlockK * kD];
   __shared__ __align__(16) float sV[kBlockK * kD];
 
@@ -301,7 +98,16 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
   for (int i = 0; i < kHalfD; ++i) acc[i] = 0.f;
   const float row_lse = valid ? lse[bh * N + row] : 0.f;
-  const float row_delta = valid ? delta[bh * N + row] : 0.f;
+  // delta = rowsum(dO o O): this thread's half of the row, then the other's
+  float row_delta = 0.f;
+  {
+    float orow[kHalfD];
+    load_half_row_f32(orow, o + row_off, valid, half);
+#pragma unroll
+    for (int i = 0; i < kHalfD; ++i) row_delta = fmaf(dor[i], orow[i], row_delta);
+  }
+  row_delta += __shfl_xor_sync(0xffffffffu, row_delta, 1);
+  if (valid && half == 0) delta[bh * N + row] = row_delta;
 
   const int num_kt = (N + kBlockK - 1) / kBlockK;
   for (int kt = 0; kt < num_kt; ++kt) {
@@ -412,30 +218,29 @@ bool bad_shape(int B, int H, int N, int D) {
 }  // namespace
 
 // Both functions launch on `stream` of `device` and return cudaGetLastError()
-// (0 = ok).  q, k, v, dout and the gradients: (B, H, N, D) contiguous, 16-byte
-// aligned, bf16 (is_bf16 = 1) or fp32; lse, delta: (B, H, 1, N) fp32.
+// (0 = ok).  q, k, v, o, dout and the gradients: (B, H, N, D) contiguous,
+// 16-byte aligned, bf16 (is_bf16 = 1) or fp32; lse, delta: (B, H, 1, N) fp32.
+// flash_attn_bwd_dq writes dq and delta; flash_attn_bwd_dkv reads delta.
 extern "C" int flash_attn_bwd_dq(int device, const void* q, const void* k, const void* v,
-                                 const void* dout, const void* lse, const void* delta,
+                                 const void* dout, const void* o, const void* lse, void* delta,
                                  void* dq, int B, int H, int N, int D, float scale,
                                  int is_bf16, void* stream) {
   if (bad_shape(B, H, N, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    flash_bwd_dq_bf16_kernel<<<grid, kThreadsBf16, 0, s>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<uint16_t*>(dq), H, N, scale);
-  } else {
-    flash_bwd_dq_f32_kernel<<<grid, kThreadsF32, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dq), H, N, scale);
+    sm90::BwdArgs args{static_cast<const uint16_t*>(o), static_cast<const float*>(lse),
+                       static_cast<float*>(delta), static_cast<uint16_t*>(dq), nullptr,
+                       nullptr, H, N, scale};
+    return static_cast<int>(sm90::attn_bwd_bf16<true>(q, k, v, dout, args, B, s));
   }
+  const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
+  flash_bwd_dq_f32_kernel<<<grid, kThreadsF32, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(o), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<float*>(dq), H, N, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -446,23 +251,24 @@ extern "C" int flash_attn_bwd_dkv(int device, const void* q, const void* k, cons
   if (bad_shape(B, H, N, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + kBlockK - 1) / kBlockK, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    flash_bwd_dkv_bf16_kernel<<<grid, kThreadsBf16, 0, s>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), H, N, scale);
-  } else {
-    flash_bwd_dkv_f32_kernel<<<grid, kThreadsF32, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dk), static_cast<float*>(dv), H, N, scale);
+    sm90::BwdArgs args{nullptr, static_cast<const float*>(lse),
+                       const_cast<float*>(static_cast<const float*>(delta)), nullptr,
+                       static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), H, N, scale};
+    return static_cast<int>(sm90::attn_bwd_bf16<false>(q, k, v, dout, args, B, s));
   }
+  const dim3 grid((N + kBlockK - 1) / kBlockK, H, B);
+  flash_bwd_dkv_f32_kernel<<<grid, kThreadsF32, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), H, N, scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The dynamic shared memory a bf16 K2 or K3 block asks for (bytes).
+extern "C" int flash_attn_bwd_smem_bytes() { return sm90::kBwdSmemBytes; }
 
 extern "C" const char* flash_attn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

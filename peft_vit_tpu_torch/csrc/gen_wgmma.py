@@ -1,5 +1,6 @@
 """Write ``wgmma_sm90.cuh``: the Hopper warpgroup products the attention
-forward kernels issue, one inline-PTX function per shape.
+kernels issue (the forward mainloop of K1 and K4, the backward mainloops of
+K2 and K3), one inline-PTX function per shape.
 
     python3 peft_vit_tpu_torch/csrc/gen_wgmma.py     # rewrites the header
 
@@ -9,9 +10,11 @@ preprocessor maze.  Emitted:
 
 * ``wgmma_ss<n>(d, desc_a, desc_b, scale_d)`` for n = 8, 16, ..., 256:
   ``m64n{n}k16`` bf16 x bf16 -> fp32, A and B from shared memory, both
-  K-major (S = Q K^T);
+  K-major (S = Q K^T; in the backward also dP = dO V^T, S^T = K Q^T and
+  dP^T = V dO^T, n = 8 to 64 for a chunk cut to its rows);
 * ``wgmma_rs_n64_tb(d, a, desc_b, scale_d)``: ``m64n64k16`` with A from
-  registers and B MN-major (O += P V, V stored key-major).
+  registers and B MN-major (O += P V, V stored key-major; in the backward
+  dq += dS K, dv += P^T dO and dk += dS^T Q).
 
 ``tests/test_torch_port_attention.py`` checks that the committed header is
 this script's output.
@@ -70,9 +73,10 @@ def render() -> str:
     parts = [
         "// Generated by gen_wgmma.py in this directory; edit that script, not this file.\n"
         "//\n"
-        "// Hopper warpgroup products (sm_90a) for the attention forward kernels.\n"
+        "// Hopper warpgroup products (sm_90a) for the attention kernels.\n"
         "// Every call must be made by all 128 threads of a warpgroup, between\n"
-        "// wgmma.fence and wgmma.commit_group / wait_group (attn_fwd_sm90.cuh).\n"
+        "// wgmma.fence and wgmma.commit_group / wait_group (attn_fwd_sm90.cuh,\n"
+        "// attn_bwd_sm90.cuh).\n"
         "// scale_d = 0 overwrites d, 1 accumulates into it.\n"
         "\n"
         "#pragma once\n"

@@ -71,7 +71,6 @@ def require_ported(spec: PEFTSpec, int8_attn: bool = False,
         "attn_adapter=shared_qkv": spec.attn_adapter != "none",
         "prompt_tokens (VPT)": spec.prompt_tokens > 0,
         "lora_moe": spec.lora_moe,
-        "lora_ref_reshape": spec.lora_ref_reshape,
         "extra_block": spec.extra_block,
     }
     if spec.attn_delta not in ("none", "lora", "kron"):
@@ -251,6 +250,9 @@ class MultiHeadAttention(nn.Module):
     * post_scale_q (CLIP LoRA parity): q is scaled by 1/sqrt(head_dim)
       before the delta is added, and attention then runs at scale 1,
       i.e. softmax((q/sqrt(d) + dq) k^T).
+    * lora_ref_reshape (``PEFT.LORA_REF_RESHAPE``): each delta is added
+      after the head split in the executed reference's flat layout, as the
+      JAX layer does for trajectory parity.
     * ``int8=True`` builds ``in_proj`` / ``out_proj`` (those named in
       ``int8_targets``) as ``Int8Dense``; the LoRA deltas stay dense.
     * ``softmax_fp32`` (False: ``TPU.BF16_SOFTMAX``) and ``attn_batch_chunk``
@@ -303,18 +305,25 @@ class MultiHeadAttention(nn.Module):
             attn_scale = 1.0
         else:
             attn_scale = scale
-        if "q" in deltas:
-            q = q + deltas["q"]
-        if "k" in deltas:
-            k = k + deltas["k"]
-        if "v" in deltas:
-            v = v + deltas["v"]
 
         def split_heads(t: torch.Tensor) -> torch.Tensor:
             return t.reshape(b, n, h, hd).transpose(1, 2).contiguous()
 
+        qkv = {"q": q, "k": k, "v": v}
+        if spec.lora_ref_reshape:
+            # the executed reference's layout (lora_model.py:730-731): the
+            # seq-first (N, B, C) delta reshaped flat into (B*H, N, hd),
+            # which scrambles batch, sequence and head unless B = H = 1
+            qkv = {t: split_heads(x) for t, x in qkv.items()}
+            for t, dl in deltas.items():
+                qkv[t] = qkv[t] + dl.transpose(0, 1).reshape(b, h, n, hd)
+        else:
+            for t, dl in deltas.items():
+                qkv[t] = qkv[t] + dl
+            qkv = {t: split_heads(x) for t, x in qkv.items()}
+
         out = multi_head_attention(
-            split_heads(q), split_heads(k), split_heads(v), scale=attn_scale,
+            qkv["q"], qkv["k"], qkv["v"], scale=attn_scale,
             softmax_fp32=self.softmax_fp32, batch_chunk=self.attn_batch_chunk,
         )
         return _call(self.out_proj, out.transpose(1, 2).reshape(b, n, d), int8, int8_bwd)

@@ -13,6 +13,8 @@ layout: q, k, v are (B, H, N, D), the additive bias is (H, N, N) (or
 * ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv`` — the wrappers
   of the two backward kernels of ``csrc/flash_attn_bwd.cu``, the
   counterparts of ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``.
+  The dq kernel also computes delta = rowsum(dO o O), which the JAX wrapper
+  computes in XLA before the kernels, and hands it to the dk/dv kernel.
 * ``flash_attention`` — the differentiable attention: a
   ``torch.autograd.Function`` whose forward is the forward kernel (saving
   its lse) and whose backward is the two backward kernels, as the JAX
@@ -118,9 +120,18 @@ def _bwd_p_ds(q, k, v, do, lse, delta, scale) -> Tuple[torch.Tensor, torch.Tenso
     return p.to(q.dtype).to(acc), ds.to(q.dtype).to(acc)
 
 
-def _bwd_dq_plain(q, k, v, do, lse, delta, scale) -> torch.Tensor:
+def _row_dot(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO o O) in the accumulation dtype, (B, H, 1, N): the
+    plain version of the delta that the dq kernel computes."""
+    acc = _acc_dtype(o)
+    return (do.to(acc) * o.to(acc)).sum(dim=-1).unsqueeze(2)
+
+
+def _bwd_dq_plain(q, k, v, do, lse, o, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dq, delta)``: delta from dO and O, then dq from it."""
+    delta = _row_dot(do, o)
     _, ds = _bwd_p_ds(q, k, v, do, lse, delta, scale)
-    return (scale * torch.matmul(ds, k.to(ds.dtype))).to(q.dtype)
+    return (scale * torch.matmul(ds, k.to(ds.dtype))).to(q.dtype), delta
 
 
 def _bwd_dkv_plain(q, k, v, do, lse, delta, scale) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -128,12 +139,6 @@ def _bwd_dkv_plain(q, k, v, do, lse, delta, scale) -> Tuple[torch.Tensor, torch.
     dk = scale * torch.matmul(ds.transpose(-1, -2), q.to(ds.dtype))
     dv = torch.matmul(p.transpose(-1, -2), do.to(p.dtype))
     return dk.to(q.dtype), dv.to(q.dtype)
-
-
-def _row_dot(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-    """delta = rowsum(dO o O) in the accumulation dtype, (B, H, 1, N)."""
-    acc = _acc_dtype(o)
-    return (do.to(acc) * o.to(acc)).sum(dim=-1).unsqueeze(2)
 
 
 def _flash_attention_bwd_plain(q, k, v, o, lse, do, scale):
@@ -145,9 +150,9 @@ def _flash_attention_bwd_plain(q, k, v, o, lse, do, scale):
         dq = scale ds k                  dk = scale ds^T q
 
     with p cast to the operand dtype before ``dv`` and ds before ``dq`` and
-    ``dk``; every sum is fp32."""
-    delta = _row_dot(do, o)
-    dq = _bwd_dq_plain(q, k, v, do, lse, delta, scale)
+    ``dk``; every sum is fp32.  delta comes out of the dq step, as the dq
+    kernel writes it for the dk/dv kernel."""
+    dq, delta = _bwd_dq_plain(q, k, v, do, lse, o, scale)
     return (dq, *_bwd_dkv_plain(q, k, v, do, lse, delta, scale))
 
 
@@ -178,7 +183,7 @@ _SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "flash_attn_fwd": [_INT, *[_PTR] * 6, *[_INT] * 4, _FLOAT, _INT, _PTR],
     },
     "flash_attn_bwd": {
-        "flash_attn_bwd_dq": [_INT, *[_PTR] * 7, *[_INT] * 4, _FLOAT, _INT, _PTR],
+        "flash_attn_bwd_dq": [_INT, *[_PTR] * 8, *[_INT] * 4, _FLOAT, _INT, _PTR],
         "flash_attn_bwd_dkv": [_INT, *[_PTR] * 8, *[_INT] * 4, _FLOAT, _INT, _PTR],
     },
     "fused_short_attn": {
@@ -281,63 +286,72 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
-def _check_bwd_operands(q, k, v, do, lse, delta) -> None:
+def _check_bwd_operands(q, k, v, do, named_rows, named_full=()) -> None:
+    """The operands of a backward wrapper: q, k, v and do, the (B, H, N, D)
+    tensors of ``named_full`` (o) and the (B, H, 1, N) rows of
+    ``named_rows`` (lse, delta)."""
     _check_operands(q, k, v, None)
-    if do.shape != q.shape:
-        raise ValueError(f"do shape {tuple(do.shape)} != q shape {tuple(q.shape)}")
-    if do.dtype != q.dtype:
-        raise TypeError(f"do dtype {do.dtype} != q dtype {q.dtype}")
+    for name, t in (("do", do), *named_full):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != q shape {tuple(q.shape)}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
     b, h, n, _ = q.shape
-    for name, t in (("lse", lse), ("delta", delta)):
+    for name, t in named_rows:
         if tuple(t.shape) != (b, h, 1, n):
             raise ValueError(f"{name} must be (B, H, 1, N) = {(b, h, 1, n)}, got {tuple(t.shape)}")
-    for name, t in (("do", do), ("lse", lse), ("delta", delta)):
+    for name, t in (("do", do), *named_full, *named_rows):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def _launch_bwd(fn_name: str, q, k, v, do, lse, delta, scale, n_out: int):
-    """Checks shared by the two backward wrappers, then one launch writing
-    ``n_out`` gradients of q's shape and dtype."""
-    for name, t in (("lse", lse), ("delta", delta)):
+def _launch_bwd(fn_name: str, named, rows, outs, scale: float) -> None:
+    """Checks shared by the two backward wrappers, then one launch: ``named``
+    the (B, H, N, D) operands in the kernel's order, then the fp32 rows
+    ``rows`` it reads and the tensors ``outs`` it writes."""
+    for name, t in rows:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32 on the card, got {t.dtype}")
-    _check_kernel_operands(
-        fn_name, (("q", q), ("k", k), ("v", v), ("do", do), ("lse", lse), ("delta", delta)))
+    _check_kernel_operands(fn_name, (*named, *rows))
     lib = _kernel_library("flash_attn_bwd")
-    outs = tuple(torch.empty_like(q) for _ in range(n_out))
+    q = named[0][1]
     b, h, n, d = q.shape
     err = getattr(lib, fn_name)(
         _device_index(q),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), *(t.data_ptr() for t in outs),
+        *(t.data_ptr() for _, t in named), *(t.data_ptr() for _, t in rows),
+        *(t.data_ptr() for t in outs),
         b, h, n, d, float(scale), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, lib, fn_name)
-    return outs
 
 
 def flash_attention_bwd_dq(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-    lse: torch.Tensor, delta: torch.Tensor, scale: float,
-) -> torch.Tensor:
-    """``dq = scale * (p o (dO v^T - delta)) k`` with ``p = exp(scale q k^T - lse)``.
+    lse: torch.Tensor, o: torch.Tensor, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dq, delta)``: ``delta = rowsum(dO o O)`` and
+    ``dq = scale * (p o (dO v^T - delta)) k`` with ``p = exp(scale q k^T - lse)``.
 
-    q, k, v, do: (B, H, N, D) contiguous, bf16 or fp32; lse (the forward's)
-    and delta = rowsum(dO o O): (B, H, 1, N) fp32.  Returns dq in q's dtype.
+    q, k, v, do, o (the forward's output): (B, H, N, D) contiguous, bf16 or
+    fp32; lse (the forward's): (B, H, 1, N) fp32.  Returns dq in q's dtype
+    and delta (B, H, 1, N) fp32, the operand of ``flash_attention_bwd_dkv``.
 
     CUDA tensors launch ``flash_attn_bwd_dq`` of ``csrc/flash_attn_bwd.cu``
-    (D = 64) on the current stream and count the launch in
-    ``flash_attention_bwd_dq.launches``; any operand the kernel does not
-    take raises.  CPU tensors run the plain version and launch nothing.
+    (D = 64) on the current stream, which computes delta itself, and count
+    the launch in ``flash_attention_bwd_dq.launches``; any operand the
+    kernel does not take raises.  CPU tensors run the plain version and
+    launch nothing.
     """
-    _check_bwd_operands(q, k, v, do, lse, delta)
+    _check_bwd_operands(q, k, v, do, (("lse", lse),), (("o", o),))
     if q.device.type == "cpu":
-        return _bwd_dq_plain(q, k, v, do, lse, delta, float(scale))
-    (dq,) = _launch_bwd("flash_attn_bwd_dq", q, k, v, do, lse, delta, scale, 1)
+        return _bwd_dq_plain(q, k, v, do, lse, o, float(scale))
+    dq = torch.empty_like(q)
+    delta = torch.empty_like(lse, dtype=torch.float32)
+    _launch_bwd("flash_attn_bwd_dq", (("q", q), ("k", k), ("v", v), ("do", do), ("o", o)),
+                (("lse", lse),), (delta, dq), scale)
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 flash_attention_bwd_dq.launches = 0
@@ -349,15 +363,18 @@ def flash_attention_bwd_dkv(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``dk = scale * (p o (dO v^T - delta))^T q`` and ``dv = p^T dO``.
 
-    Operands as ``flash_attention_bwd_dq``; returns ``(dk, dv)`` in q's
-    dtype.  CUDA tensors launch ``flash_attn_bwd_dkv`` and count the launch
+    q, k, v, do, lse as ``flash_attention_bwd_dq``; delta (B, H, 1, N) fp32
+    as it returns it.  Returns ``(dk, dv)`` in q's dtype.  CUDA tensors launch ``flash_attn_bwd_dkv`` and count the launch
     in ``flash_attention_bwd_dkv.launches``; CPU tensors run the plain
     version and launch nothing.
     """
-    _check_bwd_operands(q, k, v, do, lse, delta)
+    rows = (("lse", lse), ("delta", delta))
+    _check_bwd_operands(q, k, v, do, rows)
     if q.device.type == "cpu":
         return _bwd_dkv_plain(q, k, v, do, lse, delta, float(scale))
-    dk, dv = _launch_bwd("flash_attn_bwd_dkv", q, k, v, do, lse, delta, scale, 2)
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    _launch_bwd("flash_attn_bwd_dkv", (("q", q), ("k", k), ("v", v), ("do", do)), rows,
+                (dk, dv), scale)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -380,8 +397,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()  # arrives as the transposed view of the head merge
-        delta = _row_dot(do, out)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.scale)
+        dq, delta = flash_attention_bwd_dq(q, k, v, do, lse, out, ctx.scale)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.scale)
         return dq, dk, dv, None
 
@@ -524,18 +540,7 @@ def fused_short_attention_bwd(
     and count it in ``fused_short_attention_bwd.launches``; any operand the
     kernel does not take raises.  CPU tensors run the plain version.
     """
-    _check_operands(q, k, v, None)
-    b, h, n, _ = q.shape
-    for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != q shape {tuple(q.shape)}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
-    if tuple(lse.shape) != (b, h, 1, n):
-        raise ValueError(f"lse must be (B, H, 1, N) = {(b, h, 1, n)}, got {tuple(lse.shape)}")
-    for name, t in (("o", o), ("do", do), ("lse", lse)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    _check_bwd_operands(q, k, v, do, (("lse", lse),), (("o", o),))
     if q.device.type == "cpu":
         return _fused_short_bwd_plain(q, k, v, o, lse, do, float(scale))
     if lse.dtype != torch.float32:
@@ -544,6 +549,7 @@ def fused_short_attention_bwd(
         "fused_short_attention_bwd",
         (("q", q), ("k", k), ("v", v), ("o", o), ("do", do), ("lse", lse)))
     lib = _kernel_library("fused_short_attn")
+    b, h, n, _ = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     err = lib.fused_short_attn_bwd(
         _device_index(q),

@@ -4,6 +4,10 @@ against the JAX package, fp32 on the CPU, same inputs from a numpy seed:
 * ``_flash_attention_bwd_plain``, the plain version of the two CUDA backward
   kernels, against the Pallas backward kernels run in interpret mode and
   against ``jax.vjp`` of ``attention_reference``;
+* the wrappers' interface, ``flash_attention_bwd_dq(q, k, v, do, lse, o,
+  scale) -> (dq, delta)`` and ``flash_attention_bwd_dkv(q, k, v, do, lse,
+  delta, scale) -> (dk, dv)``, against the Pallas kernels, and its delta
+  against the XLA rowsum the JAX wrapper computes before them;
 * the ``flash_attention`` autograd Function against ``jax.grad`` through the
   JAX flash path, and ``torch.autograd.gradcheck`` in fp64;
 * the wrappers' guards.
@@ -11,7 +15,9 @@ against the JAX package, fp32 on the CPU, same inputs from a numpy seed:
 Tolerance atol = rtol = 1e-5 against the Pallas kernels (the same arithmetic
 from the same lse; XLA, the Pallas interpreter and torch sum in other
 orders), 5e-5 against the reference's VJP (a different formula: it
-differentiates the softmax instead of recomputing p from the lse)."""
+differentiates the softmax instead of recomputing p from the lse).  Over
+the six cases of the first test the largest |diff| / (atol + rtol |ref|) is
+0.09, at 1 and at 6 torch threads."""
 
 import numpy as np
 import pytest
@@ -70,12 +76,55 @@ def test_wrappers_on_cpu_run_the_plain_version_from_the_ports_own_lse():
     q, k, v, do = _t(*_inputs(50, seed=1))
     s = 0.2
     o, lse = port.flash_attention_fwd(q, k, v, None, s, return_lse=True)
-    delta = port._row_dot(do, o)
-    dq = port.flash_attention_bwd_dq(q, k, v, do, lse, delta, s)
+    dq, delta = port.flash_attention_bwd_dq(q, k, v, do, lse, o, s)
     dk, dv = port.flash_attention_bwd_dkv(q, k, v, do, lse, delta, s)
     want = port._flash_attention_bwd_plain(q, k, v, o, lse, do, s)
     for g, w in zip((dq, dk, dv), want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+    torch.testing.assert_close(delta, port._row_dot(do, o), rtol=0, atol=0)
+    assert delta.shape == (B, H, 1, 50) and delta.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [197, 33])
+def test_plain_dq_delta_matches_the_xla_rowsum_of_the_jax_wrapper(n, dtype):
+    """The delta that the dq kernel now computes is the one the JAX wrapper
+    computes in XLA before its kernels: ``sum(g.astype(f32) * out.astype(f32),
+    -1)[:, :, None, :]``; both are fp32 sums of the same products."""
+    q, k, v, do = _inputs(n, seed=20 + n)
+    o = _inputs(n, seed=40 + n)[0]
+    jdt = getattr(jnp, dtype)
+    g, out = jnp.asarray(do).astype(jdt), jnp.asarray(o).astype(jdt)
+    want = jnp.sum(g.astype(jnp.float32) * out.astype(jnp.float32), axis=-1)[:, :, None, :]
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo, to = (t.to(tdt) for t in _t(q, k, v, do, o))
+    lse = torch.zeros(B, H, 1, n)
+    _, delta = port.flash_attention_bwd_dq(tq, tk, tv, tdo, lse, to, D**-0.5)
+    assert delta.shape == (B, H, 1, n) and delta.dtype == torch.float32
+    np.testing.assert_allclose(delta.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("scale", [None, 1.0])
+@pytest.mark.parametrize("n", [197, 50])
+def test_wrappers_match_the_pallas_kernels(n, scale):
+    """dq, dk and dv through the two wrappers, delta handed from the first
+    to the second, against the Pallas backward kernels in interpret mode fed
+    the same o and lse."""
+    q, k, v, do = _inputs(n, seed=60 + n)
+    if scale == 1.0:
+        q = q * np.float32(D**-0.5)
+    s = D**-0.5 if scale is None else scale
+    jq, jk, jv, jdo = _j(q, k, v, do)
+    o, lse = _flash_attention_fwd(jq, jk, jv, None, s, block_q=128, block_k=128,
+                                  interpret=True, return_lse=True)
+    want = _flash_attention_bwd(jq, jk, jv, o, lse, jdo, s, 128, 128, True)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    to, tlse = torch.from_numpy(np.array(o)), torch.from_numpy(np.array(lse))
+    dq, delta = port.flash_attention_bwd_dq(tq, tk, tv, tdo, tlse, to, s)
+    dk, dv = port.flash_attention_bwd_dkv(tq, tk, tv, tdo, tlse, delta, s)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert g.shape == (B, H, n, D) and g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)
 
 
 def test_plain_backward_rounds_p_and_ds_to_bf16_operands():
@@ -180,13 +229,14 @@ def test_multi_head_attention_on_the_cpu_keeps_the_reference():
 )
 def test_backward_wrappers_reject_what_the_kernels_do_not_take(wrapper, bad, match):
     """On the ``meta`` device, where a tensor reaches the kernel's checks as
-    a CUDA tensor would: each bad operand is named before the device is."""
+    a CUDA tensor would: each bad operand is named before the device is.
+    The dq wrapper takes o where the dk/dv wrapper takes delta."""
     n, d = 8, 64
     dev = "meta"
     if bad == "head_dim":
         d = 32
     dtype = torch.float16 if bad == "fp16" else torch.float32
-    q, k, v, do = (torch.zeros(1, 2, n, d, dtype=dtype, device=dev) for _ in range(4))
+    q, k, v, do, o = (torch.zeros(1, 2, n, d, dtype=dtype, device=dev) for _ in range(5))
     lse, delta = (torch.zeros(1, 2, 1, n, device=dev) for _ in range(2))
     if bad == "non_contiguous":
         k = torch.zeros(1, 2, d, n, device=dev).transpose(-1, -2)
@@ -198,11 +248,34 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(wrapper, bad, mat
         do = do.to(torch.bfloat16)
     elif bad == "lse_dtype":
         lse = lse.to(torch.bfloat16)
-    fn = port.flash_attention_bwd_dq if wrapper == "dq" else port.flash_attention_bwd_dkv
+    if wrapper == "dq":
+        fn, last = port.flash_attention_bwd_dq, o
+    else:
+        fn, last = port.flash_attention_bwd_dkv, delta
     with pytest.raises((ValueError, TypeError), match=match):
-        fn(q, k, v, do, lse, delta, 1.0)
+        fn(q, k, v, do, lse, last, 1.0)
     # good operands get as far as the device check, and no further
     good = [torch.zeros(1, 2, n, 64, device=dev) for _ in range(4)]
-    stats = [torch.zeros(1, 2, 1, n, device=dev) for _ in range(2)]
+    stats = torch.zeros(1, 2, 1, n, device=dev)
+    last = torch.zeros(1, 2, n, 64, device=dev) if wrapper == "dq" else stats
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        fn(*good, *stats, 1.0)
+        fn(*good, stats, last, 1.0)
+
+
+@pytest.mark.parametrize(
+    "bad,match",
+    [("shape", "o shape"), ("dtype", "o dtype"), ("device", "o is on"),
+     ("non_contiguous", "o must be contiguous")],
+)
+def test_dq_wrapper_rejects_an_o_the_kernel_does_not_take(bad, match):
+    """o, which the dq kernel reads for delta, is checked as q is: shape,
+    dtype, device, and (on the way to the kernel) contiguity."""
+    n, dev = 8, "meta"
+    q, k, v, do = (torch.zeros(1, 2, n, 64, device=dev) for _ in range(4))
+    lse = torch.zeros(1, 2, 1, n, device=dev)
+    o = {"shape": lambda: torch.zeros(1, 2, n, 32, device=dev),
+         "dtype": lambda: torch.zeros(1, 2, n, 64, dtype=torch.bfloat16, device=dev),
+         "device": lambda: torch.zeros(1, 2, n, 64),
+         "non_contiguous": lambda: torch.zeros(1, 2, 64, n, device=dev).transpose(-1, -2)}[bad]()
+    with pytest.raises((ValueError, TypeError), match=match):
+        port.flash_attention_bwd_dq(q, k, v, do, lse, o, 1.0)

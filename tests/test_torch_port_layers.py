@@ -86,8 +86,11 @@ def test_activations(act):
 
 @pytest.mark.parametrize(
     "spec_kw",
-    [LORA, dict(LORA, lora_post_scale_q=False, lora_targets=("q", "k", "v")), {}],
-    ids=["lora_post_scale_q", "lora_qkv_pre_scale", "no_peft"],
+    [LORA, dict(LORA, lora_post_scale_q=False, lora_targets=("q", "k", "v")), {},
+     dict(LORA, lora_ref_reshape=True),
+     dict(LORA, lora_post_scale_q=False, lora_targets=("q", "k", "v"), lora_ref_reshape=True)],
+    ids=["lora_post_scale_q", "lora_qkv_pre_scale", "no_peft", "lora_ref_reshape",
+         "lora_qkv_ref_reshape"],
 )
 def test_multi_head_attention(spec_kw):
     _compare(
@@ -123,7 +126,6 @@ def test_spec_copy_has_the_same_fields():
         dict(attn_adapter="shared_qkv"),
         dict(prompt_tokens=10),
         dict(lora_moe=True),
-        dict(lora_ref_reshape=True),
         dict(extra_block=True),
     ],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()),
