@@ -10,8 +10,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    power limit from nvidia-smi;
 2. build: every kernel of ``peft_vit_tpu_torch/csrc`` with nvcc for sm_90a,
    with ptxas's registers, spills and shared memory of each instantiation
-   of the K1 and K4 forward and of the K2 and K3 backward (with the blocks a
-   SM holds);
+   of the K1 and K4 forward and of the K2, K3 and K5 backward (with the
+   blocks a SM holds);
 3. kernel: each hand-written kernel against its plain PyTorch version on
    the card.  ``flash_attention_fwd`` (the CUDA counterpart of the Pallas
    flash forward): bf16 at every batch the serving path gives it and, with
@@ -76,10 +76,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    N = 50, 577 and 1024, bf16 and fp32, at scale 1 with post-scaled q and at
    0.125, and on the flagship's own block-0 q, k, v; the autograd path of
    ``multi_head_attention(use_fused=True)`` against the same call with the
-   plain versions; K4 at the edge shapes of K1's list and N = 1024; the
-   dispatch rule (a bias or N = 1025 takes K1); then their path (12 forward
-   and backward calls at B = 16) and their times beside K1, K2 (with delta)
-   + K3 and ``scaled_dot_product_attention``, K4 also at N = 577 and 1024;
+   plain versions; K4 at the edge shapes of K1's list and N = 1024, K5 there
+   too at scales 1, 0.125 and 0.3 (no power of two: the scale folded into ds
+   before rounding shows); the dispatch rule (a bias or N = 1025 takes K1);
+   then their path (12 forward and backward calls at B = 16) and their times
+   beside K1, K2 (with delta) + K3 and ``scaled_dot_product_attention``, K4
+   and K5 also at N = 577 and 1024;
 8. driver: ``commands.run.finetune_main`` at full ViT-B/16 width
    (vitb16_CLIP.yaml, random numpy weights, synthetic 5-way 4-shot, batch
    16): the bf16 sweep of 18 cells of 2 epochs and the final train; launch
@@ -258,7 +260,7 @@ def build_phase(ptxas_verbose: bool = False) -> float:
         for name, label in (("flash_attn_fwd", "K1"), ("fused_short_attn", "K4")):
             for line in ptxas_summary(logs.get(name, "")):
                 print(f"ptxas {label} {line}")
-        for line in ptxas_bwd_summary(logs.get("flash_attn_bwd", "")):
+        for line in ptxas_bwd_summary(logs):
             print(f"ptxas {line}")
     print(f"build seconds {seconds:.2f}")
     return seconds
@@ -304,42 +306,48 @@ def ptxas_summary(text: str) -> list:
 SM_REGISTERS, SM_SHARED_BYTES, BLOCK_RESERVED_SHARED = 65536, 233472, 1024  # H100, a SM
 
 
-def ptxas_bwd_summary(text: str) -> list:
-    """One line for each sm90 backward mainloop (K2 and K3) in an ``nvcc
-    -Xptxas -v`` log: registers a thread, spills, shared memory (static, and
-    the dynamic size the library's launcher asks for), the blocks of 128
-    threads a SM holds at those registers and that shared memory, and
-    whether ptxas serialized its wgmma instructions (C7512)."""
+def ptxas_bwd_summary(logs: dict) -> list:
+    """One line for each role of the sm90 backward kernel (K2 and K3 in the
+    ``flash_attn_bwd`` library's ``nvcc -Xptxas -v`` log, K5 in the
+    ``fused_short_attn`` library's): registers a thread, spills, shared
+    memory (static, and the dynamic size the library's launcher asks for),
+    the blocks of 128 threads a SM holds at those registers and that shared
+    memory, and whether ptxas serialized its wgmma instructions (C7512)."""
     import re
 
     from peft_vit_tpu_torch.ops import attention as attn
 
-    dynamic = attn._kernel_library("flash_attn_bwd").flash_attn_bwd_smem_bytes()
-    serialized = set(re.findall(r"C7512.*?for the function '(\S+)'", text))
-    lines, current = [], None
-    for line in text.splitlines():
-        found = re.search(r"Compiling entry function '\S*attn_bwd_(dq|dkv)_sm90_kernel", line)
-        if found:
-            current = {"kernel": "K2" if found.group(1) == "dq" else "K3",
-                       "serialized": any(name in line for name in serialized)}
-            continue
-        if current is None:
-            continue
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if spill:
-            current["spill"] = (int(spill.group(1)), int(spill.group(2)))
-        used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-        if used:
-            regs, static = int(used.group(1)), int(used.group(2))
-            by_regs = SM_REGISTERS // ((regs + 7) // 8 * 8 * 128)
-            by_smem = SM_SHARED_BYTES // (dynamic + static + BLOCK_RESERVED_SHARED)
-            stores, loads = current.get("spill", (0, 0))
-            lines.append(
-                f"{current['kernel']}: {regs} registers, spill stores {stores} B, "
-                f"spill loads {loads} B, static smem {static} B, dynamic smem {dynamic} B, "
-                f"blocks a SM {min(by_regs, by_smem)} (registers {by_regs}, shared memory "
-                f"{by_smem})" + (", wgmma serialized (C7512)" if current["serialized"] else ""))
-            current = None
+    lines = []
+    for library, smem_fn in (("flash_attn_bwd", "flash_attn_bwd_smem_bytes"),
+                             ("fused_short_attn", "fused_short_attn_bwd_smem_bytes")):
+        text = logs.get(library, "")
+        dynamic = getattr(attn._kernel_library(library), smem_fn)()
+        serialized = set(re.findall(r"C7512.*?for the function '(\S+)'", text))
+        current = None
+        for line in text.splitlines():
+            found = re.search(r"Compiling entry function '(\S*attn_bwd_sm90_kernelILi(\d)E\S*)'",
+                              line)
+            if found:
+                current = {"kernel": ("K2", "K3", "K5")[int(found.group(2))],
+                           "serialized": found.group(1) in serialized}
+                continue
+            if current is None:
+                continue
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill:
+                current["spill"] = (int(spill.group(1)), int(spill.group(2)))
+            used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            if used:
+                regs, static = int(used.group(1)), int(used.group(2))
+                by_regs = SM_REGISTERS // ((regs + 7) // 8 * 8 * 128)
+                by_smem = SM_SHARED_BYTES // (dynamic + static + BLOCK_RESERVED_SHARED)
+                stores, loads = current.get("spill", (0, 0))
+                lines.append(
+                    f"{current['kernel']}: {regs} registers, spill stores {stores} B, "
+                    f"spill loads {loads} B, static smem {static} B, dynamic smem {dynamic} B, "
+                    f"blocks a SM {min(by_regs, by_smem)} (registers {by_regs}, shared memory "
+                    f"{by_smem})" + (", wgmma serialized (C7512)" if current["serialized"] else ""))
+                current = None
     return sorted(lines)
 
 
@@ -617,12 +625,7 @@ def kernel_timing(attn, rand, result: dict) -> None:
         o, lse = attn.flash_attention_fwd(q, k, v, None, 1.0, return_lse=True)
         _, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, 1.0)
         args = {"dq": (q, k, v, do, lse, o, 1.0), "dkv": (q, k, v, do, lse, delta, 1.0)}
-        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-        # autograd runs a backward on its forward's stream, so a graph can only
-        # capture the two together: the backward is their time less the forward's
-        sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
-        sdpa_bwd = (_device_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do), reps)
-                    - _device_ms(sdpa, reps))
+        sdpa_bwd = _sdpa_bwd_ms(q, k, v, do, reps)
         ours_bwd = _device_ms(lambda: flash_backward(attn, q, k, v, o, lse, do), reps)
         for key, fn, plain_fn in (("dq", attn.flash_attention_bwd_dq, attn._bwd_dq_plain),
                                   ("dkv", attn.flash_attention_bwd_dkv, attn._bwd_dkv_plain)):
@@ -642,14 +645,27 @@ def kernel_timing(attn, rand, result: dict) -> None:
 
 
 LONG_TIMED_BATCH = TRAIN_BATCH
-LONG_TIMED_NS = {"K1": (257, 577), "K4": (577, 1024)}
+LONG_TIMED_NS = {"K1": (257, 577), "K4": (577, 1024), "K5": (577, 1024)}
+
+
+def _sdpa_bwd_ms(q, k, v, do, reps: int) -> float:
+    """The ``scaled_dot_product_attention`` backward at scale 1: autograd runs
+    a backward on its forward's stream, so a graph can only capture the two
+    together; the backward is their time less the forward's."""
+    import torch.nn.functional as F
+
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
+    return (_device_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do), reps)
+            - _device_ms(sdpa, reps))
 
 
 def long_timing(attn, rand, kernel: str) -> dict:
     """K1 or K4 past the resident design (64-key tiles streamed; K4 in two
-    passes) at B = 16, bf16, scale 1 with post-scaled q: device time beside
-    the bound, the plain version and ``scaled_dot_product_attention``.
-    Returns ``{N: row}``."""
+    passes), or K5 at long N, at B = 16, bf16, scale 1 with post-scaled q:
+    device time beside the bound, the plain version and
+    ``scaled_dot_product_attention`` (K5: its backward, and K2 (with delta) +
+    K3 as ``flash_bwd_ms``).  Returns ``{N: row}``."""
     import torch.nn.functional as F
 
     rows = {}
@@ -657,6 +673,22 @@ def long_timing(attn, rand, kernel: str) -> dict:
         shape = (LONG_TIMED_BATCH, HEADS, n, HEAD_DIM)
         q = rand(shape, torch.bfloat16, 0.125)
         k, v = rand(shape, torch.bfloat16), rand(shape, torch.bfloat16)
+        if kernel == "K5":
+            do = rand(shape, torch.bfloat16)
+            o, lse = attn.fused_short_attention_fwd(q, k, v, 1.0, return_lse=True)
+            fo, flse = attn.flash_attention_fwd(q, k, v, None, 1.0, return_lse=True)
+            row = {"ms": _device_ms(
+                       lambda: attn.fused_short_attention_bwd(q, k, v, o, lse, do, 1.0), 100),
+                   "plain_ms": _device_ms(
+                       lambda: attn._fused_short_bwd_plain(q, k, v, o, lse, do, 1.0), 20),
+                   "library_ms": _sdpa_bwd_ms(q, k, v, do, 100),
+                   "flash_bwd_ms": _device_ms(
+                       lambda: flash_backward(attn, q, k, v, fo, flse, do), 100)}
+            row["bound_ms"], row["bound_by"] = attention_bound(
+                LONG_TIMED_BATCH, HEADS, n, HEAD_DIM, 2, "fused_bwd")
+            rows[n] = row
+            _print_timing(f"fused_short_attn_bwd N={n}", LONG_TIMED_BATCH, shape, row)
+            continue
         if kernel == "K1":
             fn = lambda: attn.flash_attention_fwd(q, k, v, None, 1.0)
             plain = lambda: attn._flash_attention_plain(q, k, v, None, 1.0, False)
@@ -773,6 +805,7 @@ def fused_kernel_phase(timing: bool = True) -> dict:
                     errs = {"fwd": e_o, "bwd": e_g}
 
     edge_checks(attn, rand, "K4")
+    fused_bwd_edge_checks(attn, rand)
 
     # the autograd path through the dispatcher, against the same call with the
     # plain versions in the kernels' place
@@ -851,6 +884,41 @@ def fused_kernel_phase(timing: bool = True) -> dict:
     return result
 
 
+# K5 at the edges: the scales of fused_bwd_edge_checks as (scale, q std).
+# 0.3 is no power of two, so ds = scale p (dp - delta) rounds to bf16 other
+# than p (dp - delta) scaled after the products would.
+FUSED_BWD_EDGE_SCALES = ((1.0, 0.125), (0.125, 1.0), (0.3, 1.0))
+
+
+def fused_bwd_edge_checks(attn, rand) -> None:
+    """K5 (``fused_short_attention_bwd``) against ``_fused_short_bwd_plain``
+    at every N of ``EDGE_NS`` and 1024 (one to sixteen 64-row chunks, ragged
+    last chunks of 8 to 64 rows), B = 1 and 32, bf16 and fp32, at each scale
+    of ``FUSED_BWD_EDGE_SCALES``; o and lse from K4."""
+    for n in EDGE_NS + (1024,):
+        for b in EDGE_BATCHES:
+            for dtype in (torch.bfloat16, torch.float32):
+                tol = TOL_BF16_GRAD_REL if dtype == torch.bfloat16 else TOL_F32_GRAD_REL
+                for scale, q_std in FUSED_BWD_EDGE_SCALES:
+                    shape = (b, HEADS, n, HEAD_DIM)
+                    q = rand(shape, dtype, q_std)
+                    k, v, do = (rand(shape, dtype) for _ in range(3))
+                    o, lse = attn.fused_short_attention_fwd(q, k, v, scale, return_lse=True)
+                    got = attn.fused_short_attention_bwd(q, k, v, o, lse, do, scale)
+                    want = attn._fused_short_bwd_plain(q, k, v, o, lse, do, scale)
+                    torch.cuda.synchronize()
+                    rels = []
+                    for g_, r_ in zip(got, want):
+                        rels.append(((g_.float() - r_.float()).abs().max()
+                                     / r_.float().abs().max()).item())
+                    ok = all(g_.shape == shape and g_.dtype == dtype
+                             and bool(torch.isfinite(g_).all()) for g_ in got)
+                    tag = f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} scale={scale}"
+                    check(ok and max(rels) <= tol,
+                          f"edge K5 {tag} {shape}: dq, dk, dv max |diff| / max |plain| = "
+                          + ", ".join(f"{r:.3e}" for r in rels) + f" <= {tol:g}")
+
+
 def flagship_qkv_check(attn) -> None:
     """K4/K5 on the q, k, v that block 0 of the bf16 ViT-B/16 LoRA flagship
     hands its attention (captured from the model's call), held against the
@@ -923,10 +991,7 @@ def fused_kernel_timing(attn, rand, result: dict) -> None:
         result["fwd"][b] = row
         _print_timing("fused_short_attn_fwd", b, shape, row)
 
-        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
-        sdpa_bwd = (_device_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do), reps)
-                    - _device_ms(sdpa, reps))
+        sdpa_bwd = _sdpa_bwd_ms(q, k, v, do, reps)
         fo, flse = attn.flash_attention_fwd(q, k, v, None, 1.0, return_lse=True)
 
         flash_bwd = _device_ms(lambda: flash_backward(attn, q, k, v, fo, flse, do), reps)
@@ -947,6 +1012,7 @@ def fused_kernel_timing(attn, rand, result: dict) -> None:
               f"{sdpa_bwd:.6f} ms (forward and backward in one graph, less the forward)",
               flush=True)
     result["fwd_long"] = long_timing(attn, rand, "K4")
+    result["bwd_long"] = long_timing(attn, rand, "K5")
 
 
 def int8_bound(m: int, k: int, n: int, itemsize: int):
@@ -2035,7 +2101,8 @@ def main() -> int:
         lines.append({
             "name": name,
             "route": "cuda",
-            "source": "peft_vit_tpu_torch/csrc/fused_short_attn.cu",
+            "source": ("peft_vit_tpu_torch/csrc/fused_short_attn.cu" if key == "fwd"
+                       else "peft_vit_tpu_torch/csrc/attn_bwd_sm90.cuh"),
             "replaces": f"peft_vit_tpu/ops/attention.py:{line}",
             "launches": fused["launches"][key],
             "max_abs_err": fused["max_abs_err"][key],
@@ -2051,9 +2118,9 @@ def main() -> int:
             ("flash_fwd_ms" if key == "fwd" else "flash_bwd_ms"):
                 row["flash_fwd_ms" if key == "fwd" else "flash_bwd_ms"],
         })
+        lines[-1]["long_n"] = fused[f"{key}_long"]
         if key == "fwd":
             lines[-1]["eager_ms"] = row["eager_ms"]
-            lines[-1]["long_n"] = fused["fwd_long"]
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
-// The bf16 flash-attention backward for Hopper (sm_90a): K2 (dq, and delta)
-// and K3 (dk, dv) of flash_attn_bwd.cu.  For q, k, v, o, dO (B, H, N, 64)
-// bf16 and the forward's lse (B, H, 1, N) fp32:
+// The bf16 attention backward for Hopper (sm_90a): K2 (dq, and delta) and
+// K3 (dk, dv) of flash_attn_bwd.cu, and K5, the fused short-sequence
+// backward of fused_short_attn.cu, which runs both in one launch.  For q, k,
+// v, o, dO (B, H, N, 64) bf16 and the forward's lse (B, H, 1, N) fp32:
 //     delta = rowsum(dO o O)                     (K2 computes it and writes it)
 //     p  = exp(scale q k^T - lse)      ds = p o (dO v^T - delta)
 //     dq = scale ds k                  dk = scale ds^T q        dv = p^T dO
 // p is rounded to bf16 before p^T dO and ds before its two products; every
-// sum is fp32.  Keys and q rows at or beyond N contribute nothing, and rows
-// at or beyond N are not written.
+// sum is fp32.  K5 (kFused) folds the scale into ds before ds is rounded,
+// ds = scale p o (dO v^T - delta), and scales nothing after the products;
+// it takes no delta operand.  Keys and q rows at or beyond N contribute
+// nothing, and rows at or beyond N are not written.
 //
 // The machinery is the forward's (attn_fwd_sm90.cuh): every bf16 operand is
 // one 3-D tensor map over (64, N, B H) with the 128-byte swizzle, copied by
@@ -52,6 +55,21 @@
 // registers one chunk ahead, with one barrier a chunk.  q rows at or
 // beyond N get lse = +inf, so p = exp(-inf) = 0 there with no mask.  The
 // block owns its dk and dv rows: no atomics, a deterministic result.
+//
+// K5 is one launch of both bodies, chosen by blockIdx.z: the dk/dv blocks
+// (z = 0, the longer role) come first in the block order and the dq blocks
+// (z = 1) fill the tail; no block waits on another.  Its dq blocks are K2's
+// without the delta write.  Its dk/dv blocks have no delta to read, so each
+// computes the delta of a q chunk itself, as K2 does: from the chunk's dO
+// tile in the ring stage and the chunk's O rows, which each thread copies
+// (its own 64 bytes of them, by cp.async) into a double buffer of shared
+// memory one chunk ahead, so that neither registers nor a barrier are
+// spent on the prefetch.  O is then read once per key tile (4 times a head
+// at N = 197), mostly from L2.  Three blocks a SM (at most 168 registers,
+// 65 KB of shared memory each).  On the H100, computing this delta while
+// the chunk's first products run was no faster, so its cost is not the
+// arithmetic (O's bytes are the likely one), and the two roles interleaved
+// head by head were slower at B <= 16 (PERF.md).
 
 #pragma once
 
@@ -65,17 +83,39 @@ constexpr int kBwdStages = 2;                       // chunks in the ring
 // dynamic shared memory: the block's own two tiles (K2: Q, dO; K3: K, V),
 // the ring's two a stage (K2: K, V; K3: Q, dO), and the alignment slack
 constexpr int kBwdSmemBytes = (2 + 2 * kBwdStages) * kTileBytes + 1024;
+// K5: and the double buffer of the dk/dv role's O rows
+constexpr int kFusedBwdSmemBytes = kBwdSmemBytes + 2 * kTileBytes;
+
+// The kernel's three roles: K2, K3, and K5 (both, by blockIdx.z).
+constexpr int kRoleDq = 0;
+constexpr int kRoleDkv = 1;
+constexpr int kRoleFused = 2;
 
 struct BwdArgs {
-  const uint16_t* o;   // K2: (B, H, N, 64) bf16
+  const uint16_t* o;   // K2, K5: (B, H, N, 64) bf16
   const float* lse;    // (B, H, 1, N)
-  float* delta;        // K2 writes it, K3 reads it
-  uint16_t* dq;        // K2
-  uint16_t* dk;        // K3
-  uint16_t* dv;        // K3
+  float* delta;        // K2 writes it, K3 reads it; K5 has none
+  uint16_t* dq;        // K2, K5
+  uint16_t* dk;        // K3, K5
+  uint16_t* dv;        // K3, K5
   int H;
   int N;
   float scale;
+};
+
+// The four tensor maps of a launch.
+struct BwdMaps {
+  const CUtensorMap* q;
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  const CUtensorMap* dout;
+};
+
+// A block's barriers (static shared memory).
+struct BwdBars {
+  uint64_t* own;
+  uint64_t* full;
+  uint64_t* empty;
 };
 
 // d = A B^T over the 64 d of a 64-row tile A and the first kCols rows of a
@@ -158,6 +198,73 @@ __device__ __forceinline__ void frags_of(uint32_t (&a)[(kCols + 15) / 16][4],
   }
 }
 
+// delta of this thread's two rows r and r + 8 of a 64-row tile: the thread
+// sums dO o O over its quarter of each row (16-byte chunks 2 t and 2 t + 1;
+// dO from the swizzled tile, where row r's chunk c lies at chunk c ^ (r % 8)
+// of its 128 bytes, and r % 8 = g for both rows; orow[i][c] the same chunks
+// of O), and a quad shuffle completes the row.
+__device__ __forceinline__ void rows_delta(float (&delta)[2], const uint8_t* sDo,
+                                           const uint4 (&orow)[2][2], int r, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const uint4 dov = *reinterpret_cast<const uint4*>(
+          sDo + (r + 8 * i) * kRowBytes + (((2 * t + c) ^ g) * 16));
+      const uint32_t dw[4] = {dov.x, dov.y, dov.z, dov.w};
+      const uint32_t ow[4] = {orow[i][c].x, orow[i][c].y, orow[i][c].z, orow[i][c].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 df = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dw[e]));
+        const float2 of = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ow[e]));
+        sum = fmaf(df.x, of.x, sum);
+        sum = fmaf(df.y, of.y, sum);
+      }
+    }
+    delta[i] = quad_sum(sum);
+  }
+}
+
+// 16 bytes from global into shared, asynchronously; zero-filled when
+// !valid (a source size of 0 reads nothing).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// K5's dk/dv role: this thread's O chunks of q chunk j (those rows_delta
+// reads: rows r and r + 8, 16-byte chunks 2 t and 2 t + 1) into its own 64
+// bytes of the 8 KB buffer sO, thread-major so that a warp's copies are
+// contiguous; rows >= N are zeros.  Only this thread reads them back (after
+// cp.async.wait_group), so no barrier guards the buffer.
+__device__ __forceinline__ void prefetch_o_rows(uint8_t* sO, const uint16_t* o, size_t head,
+                                                int j, int r, int t, int tid, int N) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = j * kChunk + r + 8 * i;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const bool valid = row < N;
+      cp_async_16(sO + ((2 * i + c) * 128 + tid) * 16,
+                  o + (head + (valid ? row : 0)) * kD + (2 * t + c) * 8, valid);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void load_o_rows(uint4 (&orow)[2][2], const uint8_t* sO, int tid) {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      orow[i][c] = *reinterpret_cast<const uint4*>(sO + ((2 * i + c) * 128 + tid) * 16);
+    }
+  }
+}
+
 // What a K2 chunk reads: the warpgroup's Q and dO tiles, the chunk's K and V.
 struct DqChunk {
   const uint8_t* q;
@@ -167,14 +274,15 @@ struct DqChunk {
   int key0;
   int N;
   float scale_l2;
+  float scale;  // folded into dS (kFold)
   int t;
 };
 
 // dq += dS K over kCols keys from key0: S = Q K^T and dP = dO V^T in two
 // commit groups, P formed while dP's product still runs (keys >= N get
-// p = 0), dS = P o (dP - delta) in place, then its bf16 fragments times the
-// chunk's K rows.
-template <int kCols>
+// p = 0), dS = P o (dP - delta) in place (kFold: scale P o (dP - delta)),
+// then its bf16 fragments times the chunk's K rows.
+template <int kCols, bool kFold>
 __device__ __forceinline__ void dq_chunk(float (&acc)[32], const DqChunk& c,
                                          const float (&lse_l2)[2], const float (&delta)[2]) {
   constexpr int kSteps = (kCols + 15) / 16;
@@ -197,7 +305,13 @@ __device__ __forceinline__ void dq_chunk(float (&acc)[32], const DqChunk& c,
   wgmma_wait<0>();
   fence_regs(dp);
 #pragma unroll
-  for (int idx = 0; idx < kCols / 2; ++idx) s[idx] *= dp[idx] - delta[(idx >> 1) & 1];
+  for (int idx = 0; idx < kCols / 2; ++idx) {
+    if constexpr (kFold) {
+      s[idx] = c.scale * s[idx] * (dp[idx] - delta[(idx >> 1) & 1]);
+    } else {
+      s[idx] *= dp[idx] - delta[(idx >> 1) & 1];
+    }
+  }
   uint32_t frag[kSteps][4];
   frags_of<kCols>(frag, s);
   fence_regs(acc);
@@ -218,6 +332,7 @@ struct DkvChunk {
   const float* lse_l2;
   const float* delta;
   float scale_l2;
+  float scale;  // folded into dS^T (kFold)
   int t;
 };
 
@@ -226,7 +341,7 @@ struct DkvChunk {
 // the chunk (rows >= N have lse = +inf, so p = 0).  Letting P^T and dv's
 // product run under dP^T's, as K2 does, made ptxas serialize the wgmma for
 // want of registers and spill (C7512), and K3 slower.
-template <int kCols>
+template <int kCols, bool kFold>
 __device__ __forceinline__ void dkv_chunk(float (&dk)[32], float (&dv)[32], const DkvChunk& c) {
   constexpr int kSteps = (kCols + 15) / 16;
   float s[kCols / 2], dp[kCols / 2];
@@ -244,7 +359,11 @@ __device__ __forceinline__ void dkv_chunk(float (&dk)[32], float (&dv)[32], cons
     const int col = 8 * (idx >> 2) + 2 * c.t + (idx & 1);
     const float p = ex2(fmaf(s[idx], c.scale_l2, -c.lse_l2[col]));
     s[idx] = p;
-    dp[idx] = p * (dp[idx] - c.delta[col]);
+    if constexpr (kFold) {
+      dp[idx] = c.scale * p * (dp[idx] - c.delta[col]);
+    } else {
+      dp[idx] = p * (dp[idx] - c.delta[col]);
+    }
   }
   uint32_t pfrag[kSteps][4], dsfrag[kSteps][4];
   frags_of<kCols>(pfrag, s);
@@ -260,45 +379,41 @@ __device__ __forceinline__ void dkv_chunk(float (&dk)[32], float (&dv)[32], cons
   fence_regs(dk);
 }
 
-__global__ void __launch_bounds__(128, 4)
-attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                        const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv,
-                        const __grid_constant__ CUtensorMap tdo, const BwdArgs args) {
-  __shared__ __align__(8) uint64_t bar_own;
-  __shared__ __align__(8) uint64_t bar_full[kBwdStages];
-  __shared__ __align__(8) uint64_t bar_empty[kBwdStages];
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+// The barriers' initial state, then a block barrier.
+__device__ __forceinline__ void init_bars(const BwdBars& bars, int tid) {
+  if (tid == 0) {
+    mbar_init(bars.own, 1);
+#pragma unroll
+    for (int st = 0; st < kBwdStages; ++st) {
+      mbar_init(&bars.full[st], 1);
+      mbar_init(&bars.empty[st], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
 
+// The dq role (K2; K5's dq blocks with kFused): this block owns the 64 q
+// rows from q0 of head bh and loops over the key chunks.
+template <bool kFused>
+__device__ __forceinline__ void dq_block(const BwdMaps& maps, const BwdArgs& args,
+                                         const BwdBars& bars, uint8_t* smem, int q0, int bh) {
   const int N = args.N;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kChunk;
   const int chunks = (N + kChunk - 1) / kChunk;
   uint8_t* sQ = smem;
   uint8_t* sDo = sQ + kTileBytes;
-  const Ring ring{bar_full, bar_empty, smem + 2 * kTileBytes, &tk, &tv, bh, chunks};
+  const Ring ring{bars.full, bars.empty, smem + 2 * kTileBytes, maps.k, maps.v, bh, chunks};
 
+  init_bars(bars, tid);
   if (tid == 0) {
-    mbar_init(&bar_own, 1);
-#pragma unroll
-    for (int st = 0; st < kBwdStages; ++st) {
-      mbar_init(&bar_full[st], 1);
-      mbar_init(&bar_empty[st], 128);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(&bar_own, 2 * kTileBytes);
-    tma_load_rows(sQ, &tq, q0, bh, &bar_own);
-    tma_load_rows(sDo, &tdo, q0, bh, &bar_own);
+    mbar_expect_tx(bars.own, 2 * kTileBytes);
+    tma_load_rows(sQ, maps.q, q0, bh, bars.own);
+    tma_load_rows(sDo, maps.dout, q0, bh, bars.own);
     for (int j = 0; j < min(kBwdStages, chunks); ++j) ring.load(j);
   }
 
@@ -308,8 +423,7 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const size_t head = static_cast<size_t>(bh) * N;
 
   // delta: O from device memory while the tiles are in flight, dO from the
-  // tile.  Row r's 16-byte chunk c lies at chunk c ^ (r % 8) of its 128 bytes
-  // (the 128-byte swizzle), and r % 8 = g for both rows.
+  // tile.
   uint4 orow[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -323,27 +437,14 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   float lse_l2[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) lse_l2[i] = row[i] < N ? args.lse[head + row[i]] * kLog2e : 0.f;
-  mbar_wait(&bar_own, 0);
+  mbar_wait(bars.own, 0);
   float delta[2];
+  rows_delta(delta, sDo, orow, r, g, t);
+  if constexpr (!kFused) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const uint4 dov = *reinterpret_cast<const uint4*>(
-          sDo + (r + 8 * i) * kRowBytes + (((2 * t + c) ^ g) * 16));
-      const uint32_t dw[4] = {dov.x, dov.y, dov.z, dov.w};
-      const uint32_t ow[4] = {orow[i][c].x, orow[i][c].y, orow[i][c].z, orow[i][c].w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 df = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dw[e]));
-        const float2 of = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ow[e]));
-        sum = fmaf(df.x, of.x, sum);
-        sum = fmaf(df.y, of.y, sum);
-      }
+    for (int i = 0; i < 2; ++i) {
+      if (t == 0 && row[i] < N) args.delta[head + row[i]] = delta[i];
     }
-    delta[i] = quad_sum(sum);
-    if (t == 0 && row[i] < N) args.delta[head + row[i]] = delta[i];
   }
 
   const float scale_l2 = args.scale * kLog2e;
@@ -358,14 +459,14 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid == 0) ring.refill(j);
     ring.wait(j);
     const int st = j % kBwdStages;
-    const DqChunk c{sQ, sDo, ring.a(st), ring.b(st), j * kChunk, N, scale_l2, t};
+    const DqChunk c{sQ, sDo, ring.a(st), ring.b(st), j * kChunk, N, scale_l2, args.scale, t};
     if (j + 1 < chunks) {
-      dq_chunk<kChunk>(acc, c, lse_l2, delta);
+      dq_chunk<kChunk, kFused>(acc, c, lse_l2, delta);
     } else {
       switch ((tail + 7) / 8) {
 #define SM90_DQ_TAIL(w) \
   case w:                \
-    dq_chunk<8 * (w)>(acc, c, lse_l2, delta); \
+    dq_chunk<8 * (w), kFused>(acc, c, lse_l2, delta); \
     break;
         SM90_DQ_TAIL(1) SM90_DQ_TAIL(2) SM90_DQ_TAIL(3) SM90_DQ_TAIL(4)
         SM90_DQ_TAIL(5) SM90_DQ_TAIL(6) SM90_DQ_TAIL(7) SM90_DQ_TAIL(8)
@@ -375,6 +476,8 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     ring.release(j);
   }
 
+  // K2 scales the sums here; K5 folded the scale into dS
+  const float out_scale = kFused ? 1.f : args.scale;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row[i] >= N) continue;
@@ -382,63 +485,54 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int dt = 0; dt < kD / 8; ++dt) {
       *reinterpret_cast<uint32_t*>(out + dt * 8 + 2 * t) =
-          pack_bf16(args.scale * acc[4 * dt + 2 * i], args.scale * acc[4 * dt + 2 * i + 1]);
+          pack_bf16(out_scale * acc[4 * dt + 2 * i], out_scale * acc[4 * dt + 2 * i + 1]);
     }
   }
 }
 
-__global__ void __launch_bounds__(128, 3)
-attn_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                         const __grid_constant__ CUtensorMap tk,
-                         const __grid_constant__ CUtensorMap tv,
-                         const __grid_constant__ CUtensorMap tdo, const BwdArgs args) {
-  __shared__ __align__(8) uint64_t bar_own;
-  __shared__ __align__(8) uint64_t bar_full[kBwdStages];
-  __shared__ __align__(8) uint64_t bar_empty[kBwdStages];
-  __shared__ float s_lse[2][kChunk];  // log2e lse of the chunk's q rows
-  __shared__ float s_delta[2][kChunk];
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-
+// The dk/dv role (K3; K5's dk/dv blocks with kFused, which compute each q
+// chunk's delta themselves): this block owns the 64 keys from k0 of head bh
+// and loops over the q chunks.  s_lse and s_delta: double buffers of a
+// chunk's 64 log2e lse and delta.
+template <bool kFused>
+__device__ __forceinline__ void dkv_block(const BwdMaps& maps, const BwdArgs& args,
+                                          const BwdBars& bars, uint8_t* smem, int k0, int bh,
+                                          float (*s_lse)[kChunk], float (*s_delta)[kChunk]) {
   const int N = args.N;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kChunk;
   const int chunks = (N + kChunk - 1) / kChunk;
   uint8_t* sK = smem;
   uint8_t* sV = sK + kTileBytes;
-  const Ring ring{bar_full, bar_empty, smem + 2 * kTileBytes, &tq, &tdo, bh, chunks};
+  const Ring ring{bars.full, bars.empty, smem + 2 * kTileBytes, maps.q, maps.dout, bh, chunks};
+  // K5: the double buffer of this block's O rows, past the ring
+  uint8_t* sO = smem + (2 + 2 * kBwdStages) * kTileBytes;
 
+  init_bars(bars, tid);
   if (tid == 0) {
-    mbar_init(&bar_own, 1);
-#pragma unroll
-    for (int st = 0; st < kBwdStages; ++st) {
-      mbar_init(&bar_full[st], 1);
-      mbar_init(&bar_empty[st], 128);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(&bar_own, 2 * kTileBytes);
-    tma_load_rows(sK, &tk, k0, bh, &bar_own);
-    tma_load_rows(sV, &tv, k0, bh, &bar_own);
+    mbar_expect_tx(bars.own, 2 * kTileBytes);
+    tma_load_rows(sK, maps.k, k0, bh, bars.own);
+    tma_load_rows(sV, maps.v, k0, bh, bars.own);
     for (int j = 0; j < min(kBwdStages, chunks); ++j) ring.load(j);
   }
 
   const size_t head = static_cast<size_t>(bh) * N;
+  const int r = warp * 16 + g;  // this thread's rows r and r + 8 of a chunk (delta)
+  if constexpr (kFused) prefetch_o_rows(sO, args.o, head, 0, r, t, tid, N);
   const float kInf = __int_as_float(0x7f800000);
-  // Thread tid stages lse (tid < 64) or delta of q row tid % 64 of each
+  // Thread tid stages lse (tid < 64) or (K3) delta of q row tid % 64 of each
   // chunk; rows >= N get lse = +inf, delta = 0.
   auto fetch = [&](int j) {
     const int qrow = j * kChunk + (tid & 63);
     if (tid < 64) return qrow < N ? args.lse[head + qrow] * kLog2e : kInf;
-    return qrow < N ? args.delta[head + qrow] : 0.f;
+    if constexpr (kFused) {
+      return 0.f;
+    } else {
+      return qrow < N ? args.delta[head + qrow] : 0.f;
+    }
   };
   float next = fetch(0);
   const int tail = N - (chunks - 1) * kChunk;  // q rows of the last chunk
@@ -450,26 +544,44 @@ attn_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     dk[i] = 0.f;
     dv[i] = 0.f;
   }
-  mbar_wait(&bar_own, 0);
+  mbar_wait(bars.own, 0);
 
   for (int j = 0; j < chunks; ++j) {
     if (tid == 0) ring.refill(j);
     const int buf = j & 1;
-    (tid < 64 ? s_lse : s_delta)[buf][tid & 63] = next;
-    __syncthreads();
-    if (j + 1 < chunks) next = fetch(j + 1);
-
-    ring.wait(j);
     const int st = j % kBwdStages;
-    const DkvChunk c{sK, sV, ring.a(st), ring.b(st), s_lse[buf], s_delta[buf],
-                     scale_l2, t};
+    if constexpr (kFused) {
+      // the chunk's delta from its dO tile in the ring and its O rows
+      ring.wait(j);
+      uint4 orow[2][2];
+      load_o_rows(orow, sO + buf * kTileBytes, tid);
+      float delta[2];
+      rows_delta(delta, ring.b(st), orow, r, g, t);
+      if (t == 0) {
+        s_delta[buf][r] = delta[0];
+        s_delta[buf][r + 8] = delta[1];
+      }
+      if (tid < 64) s_lse[buf][tid] = next;
+    } else {
+      (tid < 64 ? s_lse : s_delta)[buf][tid & 63] = next;
+    }
+    __syncthreads();
     if (j + 1 < chunks) {
-      dkv_chunk<kChunk>(dk, dv, c);
+      next = fetch(j + 1);
+      if constexpr (kFused) prefetch_o_rows(sO + (buf ^ 1) * kTileBytes, args.o, head, j + 1,
+                                            r, t, tid, N);
+    }
+
+    if constexpr (!kFused) ring.wait(j);
+    const DkvChunk c{sK, sV, ring.a(st), ring.b(st), s_lse[buf], s_delta[buf],
+                     scale_l2, args.scale, t};
+    if (j + 1 < chunks) {
+      dkv_chunk<kChunk, kFused>(dk, dv, c);
     } else {
       switch ((tail + 7) / 8) {
 #define SM90_DKV_TAIL(w) \
   case w:                 \
-    dkv_chunk<8 * (w)>(dk, dv, c); \
+    dkv_chunk<8 * (w), kFused>(dk, dv, c); \
     break;
         SM90_DKV_TAIL(1) SM90_DKV_TAIL(2) SM90_DKV_TAIL(3) SM90_DKV_TAIL(4)
         SM90_DKV_TAIL(5) SM90_DKV_TAIL(6) SM90_DKV_TAIL(7) SM90_DKV_TAIL(8)
@@ -479,7 +591,8 @@ attn_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     ring.release(j);
   }
 
-  const int r = warp * 16 + g;
+  // K3 scales dk here; K5 folded the scale into dS^T
+  const float out_scale = kFused ? 1.f : args.scale;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + r + 8 * i;
@@ -488,9 +601,44 @@ attn_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int dt = 0; dt < kD / 8; ++dt) {
       *reinterpret_cast<uint32_t*>(args.dk + off + dt * 8 + 2 * t) =
-          pack_bf16(args.scale * dk[4 * dt + 2 * i], args.scale * dk[4 * dt + 2 * i + 1]);
+          pack_bf16(out_scale * dk[4 * dt + 2 * i], out_scale * dk[4 * dt + 2 * i + 1]);
       *reinterpret_cast<uint32_t*>(args.dv + off + dt * 8 + 2 * t) =
           pack_bf16(dv[4 * dt + 2 * i], dv[4 * dt + 2 * i + 1]);
+    }
+  }
+}
+
+// K2 (kRoleDq), K3 (kRoleDkv) or K5 (kRoleFused: blockIdx.z 0 the dk/dv
+// blocks, 1 the dq blocks).  One warpgroup a block, 64 rows of head
+// blockIdx.y from row 64 blockIdx.x.
+template <int kRole>
+__global__ void __launch_bounds__(128, kRole == kRoleDq ? 4 : 3)
+attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, const BwdArgs args) {
+  __shared__ __align__(8) uint64_t bar_own;
+  __shared__ __align__(8) uint64_t bar_full[kBwdStages];
+  __shared__ __align__(8) uint64_t bar_empty[kBwdStages];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const BwdMaps maps{&tq, &tk, &tv, &tdo};
+  const BwdBars bars{&bar_own, bar_full, bar_empty};
+  const int row0 = blockIdx.x * kChunk;
+  const int bh = blockIdx.y;
+  if constexpr (kRole == kRoleDq) {
+    dq_block<false>(maps, args, bars, smem, row0, bh);
+  } else if constexpr (kRole == kRoleDkv) {
+    __shared__ float s_lse[2][kChunk];  // log2e lse of the chunk's q rows
+    __shared__ float s_delta[2][kChunk];
+    dkv_block<false>(maps, args, bars, smem, row0, bh, s_lse, s_delta);
+  } else {
+    __shared__ float s_lse[2][kChunk];
+    __shared__ float s_delta[2][kChunk];
+    if (blockIdx.z == 0) {
+      dkv_block<true>(maps, args, bars, smem, row0, bh, s_lse, s_delta);
+    } else {
+      dq_block<true>(maps, args, bars, smem, row0, bh);
     }
   }
 }
@@ -498,15 +646,16 @@ attn_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 // ---------------------------------------------------------------------------
 // host side
 
-// K2 (kDq) or K3 in bf16, at every N.  The shared-memory attribute belongs
-// to the device, so it is set on every launch.
-template <bool kDq>
+// K2, K3 or K5 in bf16, at every N.  The shared-memory attribute belongs to
+// the device, so it is set on every launch.
+template <int kRole>
 cudaError_t attn_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
                           const BwdArgs& args, int B, cudaStream_t stream) {
   if (static_cast<size_t>(B) * args.H > 65535) return cudaErrorInvalidValue;  // grid.y
-  auto kernel = kDq ? attn_bwd_dq_sm90_kernel : attn_bwd_dkv_sm90_kernel;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmemBytes);
+  constexpr int smem = kRole == kRoleFused ? kFusedBwdSmemBytes : kBwdSmemBytes;
+  auto kernel = attn_bwd_sm90_kernel<kRole>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const int BH = B * args.H;
   CUtensorMap tq, tk, tv, tdo;
@@ -514,8 +663,8 @@ cudaError_t attn_bwd_bf16(const void* q, const void* k, const void* v, const voi
       !encode_rows(&tv, v, args.N, BH, kChunk) || !encode_rows(&tdo, dout, args.N, BH, kChunk)) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid((args.N + kChunk - 1) / kChunk, BH);
-  kernel<<<grid, 128, kBwdSmemBytes, stream>>>(tq, tk, tv, tdo, args);
+  const dim3 grid((args.N + kChunk - 1) / kChunk, BH, kRole == kRoleFused ? 2 : 1);
+  kernel<<<grid, 128, smem, stream>>>(tq, tk, tv, tdo, args);
   return cudaGetLastError();
 }
 

@@ -233,7 +233,7 @@ extern "C" int flash_attn_bwd_dq(int device, const void* q, const void* k, const
     sm90::BwdArgs args{static_cast<const uint16_t*>(o), static_cast<const float*>(lse),
                        static_cast<float*>(delta), static_cast<uint16_t*>(dq), nullptr,
                        nullptr, H, N, scale};
-    return static_cast<int>(sm90::attn_bwd_bf16<true>(q, k, v, dout, args, B, s));
+    return static_cast<int>(sm90::attn_bwd_bf16<sm90::kRoleDq>(q, k, v, dout, args, B, s));
   }
   const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
   flash_bwd_dq_f32_kernel<<<grid, kThreadsF32, 0, s>>>(
@@ -256,7 +256,7 @@ extern "C" int flash_attn_bwd_dkv(int device, const void* q, const void* k, cons
     sm90::BwdArgs args{nullptr, static_cast<const float*>(lse),
                        const_cast<float*>(static_cast<const float*>(delta)), nullptr,
                        static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), H, N, scale};
-    return static_cast<int>(sm90::attn_bwd_bf16<false>(q, k, v, dout, args, B, s));
+    return static_cast<int>(sm90::attn_bwd_bf16<sm90::kRoleDkv>(q, k, v, dout, args, B, s));
   }
   const dim3 grid((N + kBlockK - 1) / kBlockK, H, B);
   flash_bwd_dkv_f32_kernel<<<grid, kThreadsF32, 0, s>>>(

@@ -35,26 +35,38 @@
 //   L2.
 // * forward, fp32: one thread per q row, two passes over 64-key tiles,
 //   fp32 FMAs (the tensor cores have no full-fp32 mode).
-// * backward: one launch with two roles chosen by block index, no atomics,
-//   a deterministic result.  Blocks x < T (T = ceil(N / 64)) own a q tile and
-//   loop over the key tiles (dq, as flash_attn_bwd_dq); blocks x >= T own a
-//   key tile and loop over the q tiles (dk and dv, as flash_attn_bwd_dkv,
-//   with the transposed products k q^T and v dO^T so that p^T and ds^T are
-//   the A fragments of p^T dO and ds^T q).  Each block computes delta for
-//   the q rows it stages from O and dO, two threads a row.  Tiles are staged
-//   with cp.async; a row at or beyond N is zero-filled in shared memory.
+// * backward, bf16: one launch of the Hopper backward mainloops of
+//   attn_bwd_sm90.cuh (kRoleFused), no atomics, no block waiting on another,
+//   a deterministic result.  Blocks of one warpgroup own 64 rows of a head:
+//   the dk/dv blocks (first in the block order: the longer role) own a key
+//   tile and stream the q rows and dO through a two-stage TMA ring (K3's
+//   body, transposed products k q^T and v dO^T so that p^T and ds^T are the
+//   A fragments of p^T dO and ds^T q); the dq blocks own a q tile and stream
+//   K and V (K2's body).  Every product is wgmma; the last chunk of a head
+//   is cut to round_up(rows, 8) columns.  delta is computed inside: a dq
+//   block from its dO tile and O, as K2; a dk/dv block per q chunk from the
+//   chunk's dO tile in the ring and its O rows, copied by cp.async a chunk
+//   ahead.  The scale is folded into ds before ds is rounded, and nothing
+//   is scaled after the products.
+// * backward, fp32: the same two roles by block index (x < T: dq, else dk
+//   and dv), two threads a row and fp32 FMAs; each block computes delta for
+//   the q rows it stages from O and dO, and tiles are staged with cp.async
+//   (a row at or beyond N is zero-filled in shared memory).
 // No padding in device memory: a key at or beyond N gives p = 0 and a q row
 // at or beyond N is not written.
 //
 // What bounds them: at N = 197, D = 64 the forward reads q, k, v and writes
 // o (4 B H N D elements) against 4 B H N^2 D flops; the backward reads q, k,
-// v, o, dO and writes dq, dk, dv (8 B H N D) against about 12 B H N^2 D
-// flops.  Both sit near 100 flops a byte, below the H100's bf16 ridge of
-// about 295: memory-bound.  The backward runs mma.sync m16n8k16 (fp32
-// accumulators); wgmma and TMA for it are left for a later change.  D = 64
+// v, o, dO and writes dq, dk, dv (8 B H N D) against 10 B H N^2 D flops
+// (five products).  Both sit near 100 flops a byte, below the H100's bf16
+// ridge of about 295: memory-bound.  Counted with the 64-row padding of the
+// tiles (N = 197 computes as 256 on both sides) the backward's products are
+// 1.69 times the useful ones, and the bf16 backward's dk/dv blocks read O
+// once per key tile; what its design spends is the latency of each chunk's
+// products and exponentials, hidden by the other blocks on the SM.  D = 64
 // only.
 
-#include "attn_fwd_sm90.cuh"
+#include "attn_bwd_sm90.cuh"
 
 namespace {
 
@@ -63,35 +75,8 @@ using namespace flash;
 constexpr int kThreads = 128;  // every block of both kernels
 constexpr int kHalfD = kD / 2;
 
-__device__ __forceinline__ float bf16_to_f32(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
-}
-
-// 16 bytes from global into shared, asynchronously; zero-filled when !valid
-// (src-size 0 reads nothing).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0));
-}
-
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// 64 rows x 64 bf16 (rows row0.. of src, row stride kD) into shared (row
-// stride kLds); rows >= n are zero.
-__device__ __forceinline__ void stage_bf16(uint16_t* dst, const uint16_t* src, int row0,
-                                           int n, int tid) {
-#pragma unroll
-  for (int i = 0; i < kBlockK * kD / 8 / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int r = c >> 3;
-    const int col = (c & 7) * 8;
-    const bool valid = row0 + r < n;
-    cp_async16(dst + r * kLds + col, src + static_cast<size_t>(valid ? row0 + r : 0) * kD + col,
-               valid);
-  }
 }
 
 // 64 rows x 64 fp32 into shared (row stride kD); rows >= n are zero.
@@ -101,34 +86,23 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* src, int row0
     const int r = c / (kD / 4);
     const int col = (c % (kD / 4)) * 4;
     const bool valid = row0 + r < n;
-    cp_async16(dst + r * kD + col, src + static_cast<size_t>(valid ? row0 + r : 0) * kD + col,
-               valid);
+    sm90::cp_async_16(dst + r * kD + col,
+                      src + static_cast<size_t>(valid ? row0 + r : 0) * kD + col, valid);
   }
 }
 
 // delta = rowsum(dO o O) in fp32 for the 64 rows row0.. into sDelta (0 for
 // rows >= n), two threads a row, each over half the dims; o and dout point at
 // the head's (N, D) slab.  Needs all kThreads threads.
-template <typename T>
-__device__ __forceinline__ void tile_delta(float* sDelta, const T* o, const T* dout, int row0,
-                                           int n, int tid) {
+__device__ __forceinline__ void tile_delta(float* sDelta, const float* o, const float* dout,
+                                           int row0, int n, int tid) {
   const int r = tid >> 1;
   const int half = tid & 1;
   float acc = 0.f;
   if (row0 + r < n) {
     const size_t off = static_cast<size_t>(row0 + r) * kD + half * kHalfD;
 #pragma unroll 8
-    for (int i = 0; i < kHalfD; ++i) {
-      float a, b;
-      if constexpr (sizeof(T) == 2) {
-        a = bf16_to_f32(o[off + i]);
-        b = bf16_to_f32(dout[off + i]);
-      } else {
-        a = o[off + i];
-        b = dout[off + i];
-      }
-      acc = fmaf(a, b, acc);
-    }
+    for (int i = 0; i < kHalfD; ++i) acc = fmaf(o[off + i], dout[off + i], acc);
   }
   acc += __shfl_xor_sync(0xffffffffu, acc, 1);
   if (half == 0) sDelta[r] = acc;
@@ -227,7 +201,8 @@ short_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ----------------------------------------------------------------------------
-// backward, bf16
+// backward, fp32: two threads per owned row (each holds every other dim),
+// the two halves of a dot product meet in one shuffle.
 
 struct BwdArgs {
   const void* q;
@@ -243,209 +218,6 @@ struct BwdArgs {
   int N;
   float scale;
 };
-
-// The dq role: this block owns the q tile q0 and loops over the key tiles.
-__device__ __forceinline__ void short_bwd_dq_bf16(const BwdArgs& a, int q0, size_t bh,
-                                                  uint16_t* sA, uint16_t* sB, float* sDelta) {
-  const uint16_t* q = static_cast<const uint16_t*>(a.q);
-  const uint16_t* k = static_cast<const uint16_t*>(a.k);
-  const uint16_t* v = static_cast<const uint16_t*>(a.v);
-  const uint16_t* dout = static_cast<const uint16_t*>(a.dout);
-  const int N = a.N;
-  const float scale = a.scale;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const size_t base = bh * static_cast<size_t>(N) * kD;
-
-  stage_bf16(sA, q + base, q0, N, tid);
-  stage_bf16(sB, dout + base, q0, N, tid);
-  tile_delta(sDelta, static_cast<const uint16_t*>(a.o) + base, dout + base, q0, N, tid);
-  cp_async_wait_all();
-  __syncthreads();
-
-  const int r0 = warp * 16 + g;
-  uint32_t qa[kD / 16][4];
-  uint32_t da[kD / 16][4];
-  load_a_frags(qa, sA, r0, t);
-  load_a_frags(da, sB, r0, t);
-  const int qrow[2] = {q0 + r0, q0 + r0 + 8};
-  float row_lse[2];
-  float row_delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    row_lse[r] = qrow[r] < N ? a.lse[bh * N + qrow[r]] : 0.f;
-    row_delta[r] = sDelta[r0 + 8 * r];
-  }
-
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.f;
-  }
-  const int num_kt = (N + kBlockK - 1) / kBlockK;
-  for (int kt = 0; kt < num_kt; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // every warp is done with the buffers' previous tile
-    stage_bf16(sA, k + base, k0, N, tid);
-    stage_bf16(sB, v + base, k0, N, tid);
-    cp_async_wait_all();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t dsa[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key8 = kk * 16 + j * 8;
-        float s[4] = {0.f, 0.f, 0.f, 0.f};
-        float dp[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_rows_as_cols(s, qa, sA, key8, g, t);
-        mma_rows_as_cols(dp, da, sB, key8, g, t);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = i >> 1;
-          const int key = k0 + key8 + 2 * t + (i & 1);
-          const float p = (key < N && qrow[r] < N) ? __expf(s[i] * scale - row_lse[r]) : 0.f;
-          s[i] = scale * p * (dp[i] - row_delta[r]);
-        }
-        dsa[2 * j + 0] = pack_bf16(s[0], s[1]);
-        dsa[2 * j + 1] = pack_bf16(s[2], s[3]);
-      }
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        mma_rows_as_k(acc[dt], dsa, sA, kk * 16, dt * 8, g, t);
-      }
-    }
-  }
-
-  uint16_t* dq = static_cast<uint16_t*>(a.dq);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (qrow[r] >= N) continue;
-    uint16_t* out = dq + base + static_cast<size_t>(qrow[r]) * kD;
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(out + dt * 8 + 2 * t) =
-          pack_bf16(acc[dt][2 * r], acc[dt][2 * r + 1]);
-    }
-  }
-}
-
-// The dk/dv role: this block owns the key tile k0 and loops over the q tiles.
-__device__ __forceinline__ void short_bwd_dkv_bf16(const BwdArgs& a, int k0, size_t bh,
-                                                   uint16_t* sA, uint16_t* sB, float* sLse,
-                                                   float* sDelta) {
-  const uint16_t* q = static_cast<const uint16_t*>(a.q);
-  const uint16_t* o = static_cast<const uint16_t*>(a.o);
-  const uint16_t* dout = static_cast<const uint16_t*>(a.dout);
-  const int N = a.N;
-  const float scale = a.scale;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const size_t base = bh * static_cast<size_t>(N) * kD;
-
-  stage_bf16(sA, static_cast<const uint16_t*>(a.k) + base, k0, N, tid);
-  stage_bf16(sB, static_cast<const uint16_t*>(a.v) + base, k0, N, tid);
-  cp_async_wait_all();
-  __syncthreads();
-  const int r0 = warp * 16 + g;  // this thread's keys: r0 and r0 + 8
-  uint32_t ka[kD / 16][4];
-  uint32_t va[kD / 16][4];
-  load_a_frags(ka, sA, r0, t);
-  load_a_frags(va, sB, r0, t);
-  const int krow[2] = {k0 + r0, k0 + r0 + 8};
-
-  float dk_acc[kD / 8][4];
-  float dv_acc[kD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      dk_acc[dt][i] = 0.f;
-      dv_acc[dt][i] = 0.f;
-    }
-  }
-  const int num_qt = (N + kBlockQ - 1) / kBlockQ;
-  for (int qt = 0; qt < num_qt; ++qt) {
-    const int q0 = qt * kBlockQ;
-    __syncthreads();  // every warp is done with the buffers' previous tile
-    stage_bf16(sA, q + base, q0, N, tid);
-    stage_bf16(sB, dout + base, q0, N, tid);
-    tile_delta(sDelta, o + base, dout + base, q0, N, tid);
-    if (tid < kBlockQ) sLse[tid] = q0 + tid < N ? a.lse[bh * N + q0 + tid] : 0.f;
-    cp_async_wait_all();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBlockQ / 16; ++kk) {
-      uint32_t pa[4];
-      uint32_t dsa[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int row8 = kk * 16 + j * 8;
-        float st[4] = {0.f, 0.f, 0.f, 0.f};
-        float dpt[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_rows_as_cols(st, ka, sA, row8, g, t);
-        mma_rows_as_cols(dpt, va, sB, row8, g, t);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int c = row8 + 2 * t + (i & 1);  // q row within the tile
-          const bool valid = (q0 + c < N) && (krow[i >> 1] < N);
-          const float p = valid ? __expf(st[i] * scale - sLse[c]) : 0.f;
-          st[i] = p;
-          dpt[i] = scale * p * (dpt[i] - sDelta[c]);
-        }
-        pa[2 * j + 0] = pack_bf16(st[0], st[1]);
-        pa[2 * j + 1] = pack_bf16(st[2], st[3]);
-        dsa[2 * j + 0] = pack_bf16(dpt[0], dpt[1]);
-        dsa[2 * j + 1] = pack_bf16(dpt[2], dpt[3]);
-      }
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        mma_rows_as_k(dv_acc[dt], pa, sB, kk * 16, dt * 8, g, t);
-        mma_rows_as_k(dk_acc[dt], dsa, sA, kk * 16, dt * 8, g, t);
-      }
-    }
-  }
-
-  uint16_t* dk = static_cast<uint16_t*>(a.dk);
-  uint16_t* dv = static_cast<uint16_t*>(a.dv);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (krow[r] >= N) continue;
-    const size_t off = base + static_cast<size_t>(krow[r]) * kD;
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(dk + off + dt * 8 + 2 * t) =
-          pack_bf16(dk_acc[dt][2 * r], dk_acc[dt][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + dt * 8 + 2 * t) =
-          pack_bf16(dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) short_bwd_bf16_kernel(BwdArgs a) {
-  __shared__ __align__(16) uint16_t sA[kBlockQ * kLds];
-  __shared__ __align__(16) uint16_t sB[kBlockQ * kLds];
-  __shared__ float sLse[kBlockQ];
-  __shared__ float sDelta[kBlockQ];
-  const int tiles = (a.N + kBlockQ - 1) / kBlockQ;
-  const size_t bh = static_cast<size_t>(blockIdx.z) * a.H + blockIdx.y;
-  if (static_cast<int>(blockIdx.x) < tiles) {
-    short_bwd_dq_bf16(a, blockIdx.x * kBlockQ, bh, sA, sB, sDelta);
-  } else {
-    short_bwd_dkv_bf16(a, (blockIdx.x - tiles) * kBlockK, bh, sA, sB, sLse, sDelta);
-  }
-}
-
-// ----------------------------------------------------------------------------
-// backward, fp32: two threads per owned row (each holds every other dim),
-// the two halves of a dot product meet in one shuffle.
 
 // Thread (row, half) of an fp32 role holds dims 2 i + half of its row.
 __device__ __forceinline__ void load_half_row_f32(float (&dst)[kHalfD], const float* src,
@@ -631,17 +403,22 @@ extern "C" int fused_short_attn_bwd(int device, const void* q, const void* k, co
   if (bad_shape(B, H, N, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    const sm90::BwdArgs args{static_cast<const uint16_t*>(o), static_cast<const float*>(lse),
+                             nullptr, static_cast<uint16_t*>(dq), static_cast<uint16_t*>(dk),
+                             static_cast<uint16_t*>(dv), H, N, scale};
+    return static_cast<int>(sm90::attn_bwd_bf16<sm90::kRoleFused>(q, k, v, dout, args, B, s));
+  }
   const int tiles = (N + kBlockQ - 1) / kBlockQ;
   const dim3 grid(2 * tiles, H, B);  // q tiles (dq), then key tiles (dk, dv)
   const BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse), dq, dk, dv, H, N, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    short_bwd_bf16_kernel<<<grid, kThreads, 0, s>>>(a);
-  } else {
-    short_bwd_f32_kernel<<<grid, kThreads, 0, s>>>(a);
-  }
+  short_bwd_f32_kernel<<<grid, kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The dynamic shared memory a bf16 backward block asks for (bytes).
+extern "C" int fused_short_attn_bwd_smem_bytes() { return sm90::kFusedBwdSmemBytes; }
 
 extern "C" const char* flash_attn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

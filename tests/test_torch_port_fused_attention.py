@@ -23,8 +23,12 @@ from peft_vit_tpu.ops.attention import multi_head_attention as jax_mha
 from peft_vit_tpu_torch.ops import attention as port
 
 # (1, 2, 256, 64) and (1, 2, 257, 64) sit at the card forward's split: one
-# product per row up to N = 256, a second pass over the keys beyond
-SHAPES = [(2, 3, 197, 64), (1, 2, 50, 32), (2, 2, 130, 16), (1, 2, 256, 64), (1, 2, 257, 64)]
+# product per row up to N = 256, a second pass over the keys beyond.  At
+# D = 64 the card's backward works in 64-row chunks, the last cut to
+# round_up(rows, 8) columns: N = 8 is one chunk of one 8-column group, 65 a
+# full chunk and one row, 1,024 sixteen full chunks (the dispatcher's bound).
+SHAPES = [(2, 3, 197, 64), (1, 2, 50, 32), (2, 2, 130, 16), (1, 2, 256, 64), (1, 2, 257, 64),
+          (1, 2, 8, 64), (1, 2, 65, 64), (1, 1, 1024, 64)]
 DTYPES = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 
 
@@ -65,6 +69,37 @@ def test_plain_pair_matches_pallas_kernels(shape, dtype):
     for g, w in zip(got, want):
         assert g.dtype == tdt
         _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 8, 64), (1, 2, 65, 64), (2, 3, 197, 64)])
+def test_plain_backward_folds_the_scale_before_rounding_ds(shape):
+    """At a scale that is no power of two (0.3), ds = (scale p (dp - delta))
+    -> bf16 rounds other than (p (dp - delta)) -> bf16 scaled after the
+    products.  The plain backward (the card kernel's order) agrees with the
+    Pallas kernel element for element but for sums that land across a
+    rounding boundary (under 1 % of the elements); the other order differs
+    in about half of them, so the case tells the two orders apart."""
+    scale = 0.3
+    arrs = _inputs(shape, seed=100 + shape[2])
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16) for a in arrs)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    jo, jlse = _fused_short_fwd(jq, jk, jv, None, scale, True, return_lse=True)
+    want = _fused_short_bwd(jq, jk, jv, jo, jlse, jdo, scale, True)
+    o = torch.from_numpy(np.array(jo.astype(jnp.float32))).to(torch.bfloat16)
+    lse = torch.from_numpy(np.array(jlse))
+    got = port._fused_short_bwd_plain(tq, tk, tv, o, lse, tdo, scale)
+    # the other order: ds rounded unscaled, the scale applied after the products
+    p = torch.exp(port._scores(tq, tk, None, scale, torch.float32) - lse.transpose(-1, -2))
+    dp = torch.matmul(tdo.float(), tv.float().transpose(-1, -2))
+    delta = (tdo.float() * o.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta)).to(torch.bfloat16).float()
+    after = (scale * torch.matmul(ds, tk.float()),
+             scale * torch.matmul(ds.transpose(-1, -2), tq.float()))
+    for g, a, w in zip(got[:2], after, want[:2]):
+        _close(g, w, "bf16")
+        w = np.asarray(w.astype(jnp.float32))
+        assert np.mean(g.float().numpy() != w) < 1e-2
+        assert np.mean(a.to(torch.bfloat16).float().numpy() != w) > 0.2
 
 
 @pytest.mark.parametrize("shape", SHAPES[1:3] + [(2, 2, 67, 32)])
