@@ -10,8 +10,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    power limit from nvidia-smi;
 2. build: every kernel of ``peft_vit_tpu_torch/csrc`` with nvcc for sm_90a,
    with ptxas's registers, spills and shared memory of each instantiation
-   of the K1 and K4 forward and of the K2, K3 and K5 backward (with the
-   blocks a SM holds);
+   of the K1 and K4 forward, of the K2, K3 and K5 backward and of K6 (with
+   the blocks a SM holds; K6's at each K of the path);
 3. kernel: each hand-written kernel against its plain PyTorch version on
    the card.  ``flash_attention_fwd`` (the CUDA counterpart of the Pallas
    flash forward): bf16 at every batch the serving path gives it and, with
@@ -35,8 +35,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    their plain versions, bf16 and fp32, at M = 197 x {1, 8, 16, 32} for the
    four GEMMs of a block and their transposes (the dx products), at M = 1,
    with an all-zero row, an outlier row, values on .5 steps, a saturating
-   static scale and a non-contiguous input; shapes the kernel does not take
-   must raise.  Then their times beside the bound, the plain version, the
+   static scale and a non-contiguous input, and at the edges of its layout
+   (K = 64, 192, 704, 3008, 3072 x N = 64, 192 x M = 1, 63, 64, 65, 197,
+   both variants, bf16 and fp32); shapes the kernel does not take must
+   raise.  Then their times beside the bound, the plain version, the
    library route (``quantize_rows`` + ``torch._int_mm`` + rescale) and the
    dense bf16 ``F.linear``;
 4. slice: the ViT-B/16 LoRA flagship (bf16, channel BN) built from a numpy
@@ -262,6 +264,8 @@ def build_phase(ptxas_verbose: bool = False) -> float:
                 print(f"ptxas {label} {line}")
         for line in ptxas_bwd_summary(logs):
             print(f"ptxas {line}")
+        for line in ptxas_int8_summary(logs.get("int8_gemm", "")):
+            print(f"ptxas K6 {line}")
     print(f"build seconds {seconds:.2f}")
     return seconds
 
@@ -348,6 +352,53 @@ def ptxas_bwd_summary(logs: dict) -> list:
                     f"blocks a SM {min(by_regs, by_smem)} (registers {by_regs}, shared memory "
                     f"{by_smem})" + (", wgmma serialized (C7512)" if current["serialized"] else ""))
                 current = None
+    return sorted(lines)
+
+
+def ptxas_int8_summary(text: str) -> list:
+    """One line for each instantiation of K6 (``int8_gemm_kernel<T,
+    kStatic>`` in the ``int8_gemm`` library's ``nvcc -Xptxas -v`` log):
+    registers a thread, spills, static shared memory, and at each K of the
+    path the dynamic shared memory and weight-ring depth the launcher takes
+    (``int8_gemm_smem_bytes`` / ``int8_gemm_stages``), the blocks of 256
+    threads a SM holds, and whether ptxas serialized its wgmma (C7512)."""
+    import re
+
+    from peft_vit_tpu_torch.ops import int8 as i8
+
+    lib = i8._kernel_library()
+    ks = sorted({k for _, k, _ in INT8_GEMMS} | {n for _, _, n in INT8_GEMMS})
+    serialized = set(re.findall(r"C7512.*?for the function '(\S+)'", text))
+    lines, current = [], None
+    for line in text.splitlines():
+        found = re.search(r"Compiling entry function '(\S*int8_gemm_kernelI(13__nv_bfloat16|f)"
+                          r"Lb([01])E\S*)'", line)
+        if found:
+            current = {"name": f"{'bf16' if found.group(2) != 'f' else 'fp32'} "
+                               f"{'static' if found.group(3) == '1' else 'dynamic'}",
+                       "serialized": found.group(1) in serialized}
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            current["spill"] = (int(spill.group(1)), int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if used:  # ptxas names no smem when the kernel has no static shared memory
+            regs, static = int(used.group(1)), int(used.group(2) or 0)
+            by_regs = SM_REGISTERS // ((regs + 7) // 8 * 8 * 256)
+            dynamic = [lib.int8_gemm_smem_bytes(k) for k in ks]
+            by_smem = [SM_SHARED_BYTES // (d + static + BLOCK_RESERVED_SHARED) for d in dynamic]
+            stores, loads = current.get("spill", (0, 0))
+            per_k = " / ".join(str(k) for k in ks)
+            lines.append(
+                f"{current['name']}: {regs} registers, spill stores {stores} B, spill loads "
+                f"{loads} B, static smem {static} B; at K = {per_k}: dynamic smem "
+                f"{' / '.join(str(d) for d in dynamic)} B, ring "
+                f"{' / '.join(str(lib.int8_gemm_stages(k)) for k in ks)} stages, blocks a SM "
+                f"{' / '.join(str(min(by_regs, b)) for b in by_smem)} (registers {by_regs})"
+                + (", wgmma serialized (C7512)" if current["serialized"] else ""))
+            current = None
     return sorted(lines)
 
 
@@ -1101,6 +1152,7 @@ def int8_kernel_phase(timing: bool = True) -> dict:
         check(not g.is_contiguous(), "int8 kernel: the test cotangent is not contiguous")
         hold(f"dynamic {tag} non-contiguous input", i8.int8_gemm_dynamic(g, w_i8, s_w),
              i8._prequant_forward(g, w_i8, s_w))
+    int8_edge_checks(i8, rand, errs)
     for bad_k, bad_n in ((k + 32, n), (k, n + 8), (4096, n)):
         try:
             i8.int8_gemm_dynamic(rand((4, bad_k), torch.bfloat16),
@@ -1115,6 +1167,48 @@ def int8_kernel_phase(timing: bool = True) -> dict:
     if timing:
         int8_kernel_timing(i8, rand, weights, shapes, result)
     return result
+
+
+# The edges of K6's layout: K with a half-filled last 128-byte code slab (64,
+# 192, 704, 3008) and the largest code tile (3072); N with a half-empty
+# 128-column tile, the second warpgroup's columns beyond N (64, 192); M about
+# one 64-row tile and one image.
+INT8_EDGE_KS = (64, 192, 704, 3008, 3072)
+INT8_EDGE_NS = (64, 192)
+INT8_EDGE_MS = (1, 63, 64, 65, 197)
+
+
+def int8_edge_checks(i8, rand, errs: dict) -> None:
+    """Both variants, bf16 and fp32, at every (K, N, M) of the edge lists,
+    held to equality: one check per dtype, variant and K over its N x M
+    cases, naming the cases that differ."""
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for k in INT8_EDGE_KS:
+            cases = {"dynamic": [], "static": []}
+            for n in INT8_EDGE_NS:
+                w_i8, s_w = i8.quantize_cols(rand((n, k), std=k**-0.5))
+                for m in INT8_EDGE_MS:
+                    x = rand((m, k), dtype)
+                    s_x = x.float().abs().max() * 1.5 / 127.0
+                    for variant, got, want in (
+                            ("dynamic", i8.int8_gemm_dynamic(x, w_i8, s_w),
+                             i8._prequant_forward(x, w_i8, s_w)),
+                            ("static", i8.int8_gemm_static(x, w_i8, s_w, s_x),
+                             i8._static_forward(x, w_i8, s_w, s_x))):
+                        err = (got.float() - want.float()).abs().max().item()
+                        ok = (got.shape == want.shape and got.dtype == want.dtype
+                              and bool(torch.isfinite(got).all()) and err <= TOL_INT8_KERNEL)
+                        cases[variant].append((n, m, ok, err))
+            torch.cuda.synchronize()
+            for variant, found in cases.items():
+                worst = max(err for _, _, _, err in found)
+                errs[variant] = max(errs[variant], worst)
+                bad = [f"N={n} M={m} ({err:.3e})" for n, m, ok, err in found if not ok]
+                check(not bad, f"int8 kernel {variant} {tag} edges K={k}: {len(found)} cases "
+                               f"(N in {INT8_EDGE_NS}, M in {INT8_EDGE_MS}), max abs err "
+                               f"{worst:.3e} == plain" + (f"; differ: {', '.join(bad)}" if bad
+                                                          else ""))
 
 
 def int8_kernel_timing(i8, rand, weights, shapes, result: dict) -> None:

@@ -142,11 +142,6 @@ __device__ __forceinline__ void rs_chunk(float (&d)[32], const uint32_t (&a)[kSt
   }
 }
 
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // Thread 0's ring: chunk j into stage j % kBwdStages, both tiles behind one
 // barrier.  Refills the stage of chunk j - 1 with chunk j + kBwdStages - 1 once
 // the warpgroup has released it.

@@ -42,9 +42,8 @@
 
 #pragma once
 
-#include <cuda.h>
-
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 #include "wgmma_sm90.cuh"
 
 namespace sm90 {
@@ -62,48 +61,6 @@ constexpr int kStreamKeys = 64;            // keys a stage when N > 256
 constexpr int kMaxResidentKeys = 256;      // the widest single product
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Spins until the barrier's phase of parity `parity` has completed.  A copy
-// that never lands (a tensor map or byte count out of step with the kernel)
-// traps after about ten seconds, so the launch fails instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > 20000000000ll) {
-      __trap();
-    }
-  }
-}
-
 // rows row0 .. row0 + box - 1 of head bh into dst, completion on bar.
 __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map, int row0, int bh,
                                               uint64_t* bar) {
@@ -112,34 +69,6 @@ __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map,
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row0), "r"(bh), "r"(smem_addr(bar))
       : "memory");
-}
-
-// Shared-memory matrix descriptor of a tile of 128-byte rows written by TMA
-// with the 128-byte swizzle (1024-byte aligned, 8-row groups 1024 bytes
-// apart).  The same fields serve K-major operands (Q, K: SBO = the 8-row
-// group stride, LBO unused) and the MN-major V (the 64 d of a row are one
-// swizzle atom wide, SBO = the 8-key group stride, LBO unused).
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  return static_cast<uint64_t>((smem_addr(tile) >> 4) & 0x3FFF) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving accesses of these registers across the
-// asynchronous products.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -183,7 +112,7 @@ __device__ __forceinline__ void qk_product(float (&s)[kKeys / 2], const uint8_t*
     wgmma_ss<kKeys>(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
   }
   wgmma_commit();
-  wgmma_wait_all();
+  wgmma_wait<0>();
   fence_regs(s);
 }
 
@@ -200,7 +129,7 @@ __device__ __forceinline__ void pv_product(float (&o)[kD / 2], const uint32_t (&
     wgmma_rs_n64_tb(o, p[kk], dv + kk * (16 * kRowBytes >> 4), accumulate || kk > 0);
   }
   wgmma_commit();
-  wgmma_wait_all();
+  wgmma_wait<0>();
   fence_regs(o);
 }
 
@@ -467,31 +396,6 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 
 // ---------------------------------------------------------------------------
 // host side
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded (no libcuda
-// link); null if the driver does not give it.
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // A 3-D map over a (B, H, N, 64) bf16 tensor as (64, N, B H), boxes of
 // `rows` full rows, 128-byte swizzle, zeros outside.

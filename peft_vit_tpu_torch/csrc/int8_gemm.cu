@@ -29,16 +29,45 @@
 // 64-row bf16 tile at K = 3072 is 384 KB, more than a block's 227 KB of
 // shared memory (the TPU kernel holds that block in VMEM).  So a block owns
 // 64 rows of x: it reads them twice from device memory/L2 (absmax, then
-// quantize) and keeps them as int8 in shared memory, 64 x (K + 16) bytes
-// (193 KB at K = 3072).  It then walks over its share of the 128-column
-// tiles of the output, streaming w_i8 through a 3-stage cp.async ring of
-// 128 x 64-byte tiles, 8 warps (2 x 4) each computing a 32 x 32 piece with
-// ldmatrix + mma.sync m16n8k32 s8, and rescales from the accumulators
-// straight to device memory.  The grid is (row tiles, column shares): the
-// launcher picks the number of shares that fills the SMs at the least
-// repeated quantize work (the TPU grid requantizes for every column block).
-// Rows >= M are zero codes and are never written; columns >= N are masked,
-// and nothing is padded in device memory.  wgmma and TMA are left for later.
+// quantize) and keeps them as int8 codes in shared memory, in
+// round_up(K, 128) / 128 slabs of 64 rows x 128 bytes (8 KB, 1024-byte
+// aligned) with the 128-byte swizzle: 16-byte chunk c of row r at chunk
+// c ^ (r mod 8), byte for byte the layout TMA gives a bf16 tile of 64
+// columns, so sw128_desc (sm90_common.cuh) describes it.  When K mod 128 is
+// 64 the last slab's second half holds zero codes.  The codes are written by
+// ordinary stores (the generic proxy) and read by wgmma (the async proxy):
+// every thread fences the proxies before the barrier that ends the quantize.
+//
+// The block then walks over its share of the 128-column tiles of the output
+// with two warpgroups, warpgroup w issuing wgmma m64n64k32 s8 x s8 -> s32
+// for columns 64 w .. 64 w + 63, A (the codes) and B (the weight) both from
+// shared memory and K-major, four k32 steps per 128-byte slab.  The weight
+// streams by TMA through a 2-D tensor map over w_i8 (K bytes x N rows,
+// 128-byte swizzle), in stages of 128 rows x 128 bytes (16 KB) behind full
+// and empty mbarriers; rows >= N and bytes >= K fall outside the map and
+// arrive as zeros.  Thread 0 issues every copy: the first stages before the
+// quantize, so they land under it, then each stage again once both
+// warpgroups have released it.  The products of one stage run while the
+// warpgroup waits for the next (one commit group in flight).  The ring is
+// as deep as fits beside the codes: ring_stages() below, 3 stages at
+// K = 768 (two blocks a SM), 5 at K = 2304 and 2 at K = 3072 (one block a
+// SM).  A tile's accumulators are rescaled from registers straight to device
+// memory; the next tile's first product overwrites them.
+//
+// Where the time goes (H100, M = 3152; PERF.md, bench_int8_split.py): the
+// row quantize, which this design keeps as it was, sets the pace, most of
+// all at K = 768 where two blocks a SM overlap one's quantize with the
+// other's products; the products are held by the weight's reads from L2,
+// since every 64-row tile reads all of w_i8.  Slower on the H100, and
+// dropped: the weight multicast to a cluster of two row tiles, 64-byte
+// weight stages twice as deep, one block a SM with a deeper ring at K = 768
+// (slower at N >= 2304), and the ring's depth as a compile-time constant.
+//
+// The grid is (row tiles, column shares): the launcher picks the number of
+// shares that fills the SMs at the least repeated quantize work (the TPU
+// grid requantizes for every column block).  Rows >= M are zero codes and
+// are never written; columns >= N are never written; nothing is padded in
+// device memory.
 //
 // Shapes taken: K a multiple of 64 up to 3072, N a multiple of 64.
 
@@ -46,24 +75,52 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+#include "wgmma_sm90.cuh"
+
 namespace {
 
-constexpr int kBM = 64;        // rows of x per block
-constexpr int kBN = 128;       // output columns per tile
-constexpr int kBK = 64;        // bytes of K per weight stage
-constexpr int kStages = 3;     // cp.async ring
-constexpr int kThreads = 256;  // 8 warps: 2 over rows x 4 over columns
-constexpr int kPad = 16;       // row padding: a 16 B shift per row makes the
-                               // 8 rows of an ldmatrix hit distinct banks
-constexpr int kWStride = kBK + kPad;
-constexpr int kWStageBytes = kBN * kWStride;
+using namespace sm90;
+
+constexpr int kBM = 64;                  // rows of x per block: one wgmma M
+constexpr int kBN = 128;                 // output columns per tile: 64 a warpgroup
+constexpr int kThreads = 256;            // two warpgroups; all 8 warps quantize
+constexpr int kSlab = 128;               // bytes of K per code slab and weight stage
+constexpr int kSlabBytes = kBM * kSlab;  // 8 KB of codes
+constexpr int kStageBytes = kBN * kSlab; // 16 KB of weight
+constexpr int kMaxStages = 8;
 constexpr int kMaxK = 3072;
+constexpr int kKMultiple = 64;
+// H100: shared memory a SM, the most one block may take, and the runtime's
+// reserve per block
+constexpr int kSmPerSm = 233472;
+constexpr int kSmPerBlock = 232448;
+constexpr int kSmReserved = 1024;
+// beside the codes and the ring: 1024-byte alignment slack, the row scales
+// and the full / empty barriers
+constexpr int kSmFixed = 1024 + kBM * 4 + 2 * kMaxStages * 8;
 
-__host__ __device__ constexpr int a_stride(int K) { return K + kPad; }
+__host__ __device__ constexpr int code_slabs(int K) { return (K + kSlab - 1) / kSlab; }
 
-__host__ __device__ constexpr size_t smem_bytes(int K) {
-  return static_cast<size_t>(kBM) * a_stride(K) + kStages * kWStageBytes + kBM * sizeof(float);
+// The ring's depth: what fits beside the codes (64 x round_up(K, 128) bytes)
+// and the fixed bytes, at two blocks a SM where the codes and two stages fit
+// twice (K <= 1152), else at one; at most kMaxStages.
+//     K = 768:  49,152 + 3 x 16,384 (+ 1,408) = 99,712 B, two blocks a SM
+//     K = 2304: 147,456 + 5 x 16,384 (+ 1,408) = 230,784 B, one block
+//     K = 3072: 196,608 + 2 x 16,384 (+ 1,408) = 230,784 B, one block
+__host__ __device__ constexpr int ring_stages(int K) {
+  const int fixed = code_slabs(K) * kSlabBytes + kSmFixed;
+  const int two = kSmPerSm / 2 - kSmReserved - fixed;
+  const int room = two >= 2 * kStageBytes ? two : kSmPerBlock - fixed;
+  return room / kStageBytes < kMaxStages ? room / kStageBytes : kMaxStages;
 }
+
+__host__ __device__ constexpr int smem_bytes(int K) {
+  return code_slabs(K) * kSlabBytes + ring_stages(K) * kStageBytes + kSmFixed;
+}
+
+static_assert(ring_stages(kMaxK) >= 2, "the ring needs two stages at the largest K");
+static_assert(smem_bytes(kMaxK) <= kSmPerBlock, "a block's shared memory at the largest K");
 
 template <typename T>
 struct Io;
@@ -97,47 +154,6 @@ struct Io<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending));
-}
-
-// Four 8 x 16-byte matrices; lane l gives the address of row l % 8 of matrix
-// l / 8 and receives bytes 4 (l % 4) .. + 3 of row l / 4 of each: the int8
-// fragment layout of mma m16n8k32.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a * b: a 16 x 32 int8 (row), b 32 x 8 int8 (col), c 16 x 8 int32.
-// With g = lane / 4, t = lane % 4:
-//   a[0] = A[g][4t..4t+3]      a[1] = A[g+8][4t..4t+3]
-//   a[2] = A[g][16+4t..+3]     a[3] = A[g+8][16+4t..+3]
-//   b0   = B[4t..4t+3][g]      b1   = B[16+4t..+3][g]
-//   c[0..1] = C[g][2t..2t+1]   c[2..3] = C[g+8][2t..2t+1]
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack4(int q0, int q1, int q2, int q3) {
   return (static_cast<uint32_t>(q0) & 0xffu) | ((static_cast<uint32_t>(q1) & 0xffu) << 8) |
          ((static_cast<uint32_t>(q2) & 0xffu) << 16) | (static_cast<uint32_t>(q3) << 24);
@@ -151,16 +167,31 @@ __device__ __forceinline__ int quantize(float v, float scale) {
   return __float2int_rn(v / scale);  // |v| <= 127 * scale: no clip needed
 }
 
+// The box of weight rows n0 .. n0 + 127, bytes k0 .. k0 + 127 into dst,
+// completion on bar.
+__device__ __forceinline__ void tma_load_weight(void* dst, const CUtensorMap* map, int k0, int n0,
+                                                uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(n0), "r"(smem_addr(bar))
+      : "memory");
+}
+
 template <typename T, bool kStatic>
-__global__ void __launch_bounds__(kThreads)
-int8_gemm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+__global__ void __launch_bounds__(kThreads, 2)
+int8_gemm_kernel(const __grid_constant__ CUtensorMap tw, const T* __restrict__ x,
                  const float* __restrict__ s_w, const float* __restrict__ s_x,
                  T* __restrict__ out, int M, int K, int N) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int strideA = a_stride(K);
-  uint8_t* sA = smem;
-  uint8_t* sW = smem + static_cast<size_t>(kBM) * strideA;
-  float* sScale = reinterpret_cast<float*>(sW + kStages * kWStageBytes);
+  extern __shared__ uint8_t smem_raw[];
+  const int stages = ring_stages(K);
+  const int slabs = code_slabs(K);
+  uint8_t* sA = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sW = sA + slabs * kSlabBytes;
+  float* sScale = reinterpret_cast<float*>(sW + stages * kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sScale + kBM);
+  uint64_t* empty = full + kMaxStages;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -169,55 +200,54 @@ int8_gemm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   const int n_tiles = (N + kBN - 1) / kBN;
   // this block's column tiles: blockIdx.y, + gridDim.y, ...
   const int my_tiles = (n_tiles - static_cast<int>(blockIdx.y) + gridDim.y - 1) / gridDim.y;
-  const int total = my_tiles * (K / kBK);
+  const int total = my_tiles * slabs;  // weight stages through the ring
   const int tile_step = gridDim.y * kBN;
 
-  // The weight stages are loaded and consumed in the same order: all k chunks
-  // of a column tile, then the next tile.  Both cursors advance by adds and
-  // compares only.
-  int pf_n0 = blockIdx.y * kBN, pf_k0 = 0, pf_stage = 0, pf_left = total;
-  int ld_dst[kBN * kBK / 16 / kThreads], ld_row[kBN * kBK / 16 / kThreads];
-#pragma unroll
-  for (int i = 0; i < kBN * kBK / 16 / kThreads; ++i) {
-    const int chunk = tid + i * kThreads;
-    ld_row[i] = chunk >> 2;
-    ld_dst[i] = (chunk >> 2) * kWStride + (chunk & 3) * 16;
-  }
-  const int ld_col = (tid & 3) * 16;
-  auto load_next = [&]() {
-    if (pf_left > 0) {
-      uint8_t* stage = sW + pf_stage * kWStageBytes;
-#pragma unroll
-      for (int i = 0; i < kBN * kBK / 16 / kThreads; ++i) {
-        const bool valid = pf_n0 + ld_row[i] < N;
-        const int8_t* src =
-            w + static_cast<size_t>(valid ? pf_n0 + ld_row[i] : 0) * K + pf_k0 + ld_col;
-        cp_async16(stage + ld_dst[i], src, valid ? 16 : 0);
-      }
-      pf_k0 += kBK;
-      if (pf_k0 == K) {
-        pf_k0 = 0;
-        pf_n0 += tile_step;
-      }
-      pf_stage = pf_stage + 1 == kStages ? 0 : pf_stage + 1;
-      --pf_left;
+  // Thread 0's copies, in the order they are consumed: every slab of a
+  // column tile, then the next tile.  Stage `st` takes loads st, st +
+  // stages, ...; a load past the first round waits for the empty barrier's
+  // previous phase.
+  int pf_n0 = blockIdx.y * kBN, pf_k0 = 0, pf_stage = 0, pf_parity = 0, issued = 0;
+  auto issue = [&]() {
+    mbar_expect_tx(&full[pf_stage], kStageBytes);
+    tma_load_weight(sW + pf_stage * kStageBytes, &tw, pf_k0, pf_n0, &full[pf_stage]);
+    pf_k0 += kSlab;
+    if (pf_k0 >= K) {
+      pf_k0 = 0;
+      pf_n0 += tile_step;
     }
-    cp_async_commit();
+    if (++pf_stage == stages) {
+      pf_stage = 0;
+      pf_parity ^= 1;
+    }
+    ++issued;
   };
 
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
   // the first weight stages are in flight while the rows are quantized
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) load_next();
+  if (tid == 0) {
+    while (issued < stages && issued < total) issue();
+  }
 
-  // ---- quantize this block's rows into shared memory, 8 rows per warp
+  // ---- quantize this block's rows into the code slabs, 8 rows per warp
   float static_scale = 0.0f;
   if (kStatic) static_scale = *s_x;
   for (int r = warp; r < kBM; r += kThreads / 32) {
     const int row = m0 + r;
-    uint8_t* arow = sA + static_cast<size_t>(r) * strideA;
+    const int swz = r & 7;
+    uint8_t* arow = sA + r * kSlab;  // row r of slab 0; slab s is s * kSlabBytes further
     if (row >= M) {
-      for (int c = lane; c < K / 16; c += 32) {
-        *reinterpret_cast<uint4*>(arow + c * 16) = make_uint4(0u, 0u, 0u, 0u);
+      // zeros need no swizzle: a row's 16-byte chunks stay inside its 128 bytes
+      for (int c = lane; c < slabs * (kSlab / 16); c += 32) {
+        *reinterpret_cast<uint4*>(arow + (c >> 3) * kSlabBytes + (c & 7) * 16) =
+            make_uint4(0u, 0u, 0u, 0u);
       }
       if (lane == 0) sScale[r] = 0.0f;
       continue;
@@ -245,97 +275,102 @@ int8_gemm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
       int q[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) q[i] = quantize<kStatic>(v[i], scale);
-      *reinterpret_cast<uint2*>(arow + c * 8) =
+      // codes k = 8c .. 8c + 7: slab c / 16, half c % 2 of 16-byte chunk (c / 2) % 8
+      *reinterpret_cast<uint2*>(arow + (c >> 4) * kSlabBytes + ((((c >> 1) & 7) ^ swz) << 4) +
+                                (c & 1) * 8) =
           make_uint2(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
     }
+    if (K % kSlab != 0 && lane < 4) {  // the last slab's second half: zero codes
+      *reinterpret_cast<uint4*>(arow + (slabs - 1) * kSlabBytes + (((4 + lane) ^ swz) << 4)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
   }
+  // the codes were written by the generic proxy and wgmma reads them through
+  // the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
 
-  // ---- the product: warp (wm, wn) owns rows wm*32.. and columns wn*32.. of the tile
-  const int wm = warp >> 2;
-  const int wn = warp & 3;
+  // ---- the products: warpgroup wg owns columns 64 wg .. 64 wg + 63 of a tile
+  const int wg = tid >> 7;
   const int g = lane >> 2;
   const int t = lane & 3;
-  // ldmatrix row addresses of this lane (see ldmatrix_x4): for A the four
-  // matrices are (rows 0-7 | 8-15) x (k 0-15 | 16-31) in the order a[0..3];
-  // for W they are (n 0-7: k 0-15, k 16-31), (n 8-15: k 0-15, k 16-31), the
-  // b0, b1 of two adjacent 8-column tiles.
-  const int a_row = wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int a_col = (lane >> 4) * 16;
-  const int w_row = wn * 32 + (lane & 7) + (lane >> 4) * 8;
-  const int w_col = ((lane >> 3) & 1) * 16;
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
-
-  int n0 = blockIdx.y * kBN, k0 = 0, cur_stage = 0;
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage `it` has landed (and, at it = 0, the quantized rows);
-                      // every warp is done with the stage the next load overwrites
-    load_next();
-
-    const uint8_t* stage = sW + cur_stage * kWStageBytes;
-    cur_stage = cur_stage + 1 == kStages ? 0 : cur_stage + 1;
-#pragma unroll
-    for (int ks = 0; ks < kBK / 32; ++ks) {
-      uint32_t a[2][4];
-      uint32_t b[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        ldmatrix_x4(a[mt], sA + static_cast<size_t>(a_row + mt * 16) * strideA + k0 + ks * 32 +
-                               a_col);
+  const int row0 = ((tid >> 5) & 3) * 16 + g;  // this thread's rows row0, row0 + 8
+  const uint8_t* w_half = sW + wg * (kStageBytes / 2);
+  // thread 0 refills every stage the block has released (loads 0 .. released - 1)
+  auto refill = [&](int released) {
+    if (tid == 0) {
+      while (issued < total && issued < released + stages) {
+        mbar_wait(&empty[pf_stage], pf_parity ^ 1);
+        issue();
       }
+    }
+    __syncwarp();
+  };
+  int acc[32];
 #pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        ldmatrix_x4(b[np], stage + (w_row + np * 16) * kWStride + ks * 32 + w_col);
+  for (int i = 0; i < 32; ++i) acc[i] = 0;
+  int stage = 0, parity = 0, last = 0, j = 0;  // j: loads consumed
+  for (int n0 = blockIdx.y * kBN; n0 < N; n0 += tile_step) {
+    for (int k0 = 0; k0 < K; k0 += kSlab, ++j) {
+      mbar_wait(&full[stage], parity);
+      const uint64_t da = sw128_desc(sA + (k0 / kSlab) * kSlabBytes);
+      const uint64_t db = sw128_desc(w_half + stage * kStageBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSlab / 32; ++kk) {
+        // 32 bytes further along the (swizzled) rows of both; a tile's first
+        // step overwrites the accumulators
+        wgmma_ss_s8<64>(acc, da + 2 * kk, db + 2 * kk, (k0 > 0 || kk > 0) ? 1 : 0);
       }
+      wgmma_commit();
+      if (k0 > 0) {
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        mbar_arrive(&empty[last]);
+        refill(j);
+      }
+      last = stage;
+      if (++stage == stages) {
+        stage = 0;
+        parity ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[last]);
+    refill(j);
+
+    // ---- rescale and write this tile.  Accumulator 4 i + 2 h + e holds row
+    // row0 + 8 h, column 8 i + 2 t + e of the warpgroup's 64.
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      const int row = m0 + r;
+      if (row >= M) continue;
+      const float sx = sScale[r];
+      T* orow = out + static_cast<size_t>(row) * N;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          mma_s8(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
+      for (int i = 0; i < 8; ++i) {
+        const int col = n0 + wg * 64 + 8 * i + 2 * t;
+        if (col < N) {
+          const float v0 = (__int2float_rn(acc[4 * i + 2 * h]) * sx) * s_w[col];
+          const float v1 = (__int2float_rn(acc[4 * i + 2 * h + 1]) * sx) * s_w[col + 1];
+          Io<T>::store2(orow + col, v0, v1);
         }
       }
     }
-
-    k0 += kBK;
-    if (k0 != K) continue;
-    // ---- rescale and write this tile, then start the next from zero
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wm * 32 + mt * 16 + g + half * 8;
-        const int row = m0 + r;
-        const float sx = sScale[r];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = n0 + wn * 32 + nt * 8 + 2 * t;
-          if (row < M && col < N) {
-            const float v0 = (__int2float_rn(acc[mt][nt][half * 2]) * sx) * s_w[col];
-            const float v1 = (__int2float_rn(acc[mt][nt][half * 2 + 1]) * sx) * s_w[col + 1];
-            Io<T>::store2(out + static_cast<size_t>(row) * N + col, v0, v1);
-          }
-          acc[mt][nt][half * 2] = 0;
-          acc[mt][nt][half * 2 + 1] = 0;
-        }
-      }
-    }
-    k0 = 0;
-    n0 += tile_step;
   }
 }
 
 // Column shares per row tile: the count that minimises
 //   waves(row_tiles * shares) * (kQuantCost + tiles per share),
-// the quantize of a row tile costing about kQuantCost column tiles' products.
+// the quantize of a row tile costing about kQuantCost column tiles' products
+// and rescales.  Fitted on the H100 from the split of this kernel's time at
+// the eight GEMMs of a ViT-B/16 block at M = 3152 (bench_int8_split.py): a build
+// without the products against one without the quantize put a row tile's
+// quantize at 3.8 to 7.0 column tiles (median 5).  At the path's shapes any
+// value from 2 to 7 picks the same shares.
 int pick_shares(int row_tiles, int n_tiles, int slots) {
-  constexpr int kQuantCost = 2;
+  constexpr int kQuantCost = 5;
   int best = 1;
   long best_cost = -1;
   for (int s = 1; s <= n_tiles; ++s) {
@@ -349,13 +384,27 @@ int pick_shares(int row_tiles, int n_tiles, int slots) {
   return best;
 }
 
+// A 2-D map over w_i8 (N, K) int8 as (K bytes, N rows), boxes of 128 rows x
+// 128 bytes, 128-byte swizzle, zeros outside.
+bool encode_weight(CUtensorMap* map, const void* w, int K, int N) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kSlab), static_cast<cuuint32_t>(kBN)};
+  const cuuint32_t unit[2] = {1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename T, bool kStatic>
 int launch(int device, const void* x, const void* w, const void* s_w, const void* s_x, void* out,
            int M, int K, int N, cudaStream_t stream) {
   auto kernel = int8_gemm_kernel<T, kStatic>;
-  const size_t smem = smem_bytes(K);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const int smem = smem_bytes(K);
+  // the attribute belongs to the device, so it is set on every launch
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -364,13 +413,20 @@ int launch(int device, const void* x, const void* w, const void* s_w, const void
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  CUtensorMap tw;
+  if (!encode_weight(&tw, w, K, N)) return static_cast<int>(cudaErrorInvalidValue);
   const int row_tiles = (M + kBM - 1) / kBM;
   const int n_tiles = (N + kBN - 1) / kBN;
   const dim3 grid(row_tiles, pick_shares(row_tiles, n_tiles, sms * per_sm));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(w), static_cast<const float*>(s_w),
-      static_cast<const float*>(s_x), static_cast<T*>(out), M, K, N);
+  kernel<<<grid, kThreads, smem, stream>>>(tw, static_cast<const T*>(x),
+                                           static_cast<const float*>(s_w),
+                                           static_cast<const float*>(s_x), static_cast<T*>(out),
+                                           M, K, N);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool takes(int K, int N) {
+  return K > 0 && N > 0 && K % kKMultiple == 0 && K <= kMaxK && N % 64 == 0;
 }
 
 }  // namespace
@@ -383,9 +439,7 @@ int launch(int device, const void* x, const void* w, const void* s_w, const void
 extern "C" int int8_gemm(int device, const void* x, const void* w_i8, const void* s_w,
                          const void* s_x, void* out, int M, int K, int N, int is_bf16,
                          void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % kBK != 0 || K > kMaxK || N % 64 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (M <= 0 || !takes(K, N)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -397,6 +451,11 @@ extern "C" int int8_gemm(int device, const void* x, const void* w_i8, const void
   return s_x != nullptr ? launch<float, true>(device, x, w_i8, s_w, s_x, out, M, K, N, s)
                         : launch<float, false>(device, x, w_i8, s_w, s_x, out, M, K, N, s);
 }
+
+// The dynamic shared memory a block takes at this K, and the weight ring's
+// depth (-1 for a K the kernel does not take).
+extern "C" int int8_gemm_smem_bytes(int K) { return takes(K, 64) ? smem_bytes(K) : -1; }
+extern "C" int int8_gemm_stages(int K) { return takes(K, 64) ? ring_stages(K) : -1; }
 
 extern "C" const char* int8_gemm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -21,9 +21,10 @@ transposed pair of the int8 dx product is ``quantize_cols(weight.t())``:
   rounded to fp32 as an int32 would be.
 * ``int8_gemm_dynamic`` / ``int8_gemm_static`` are the wrappers of the
   hand-written CUDA kernel ``csrc/int8_gemm.cu``, the counterpart of the
-  Pallas ``_prequant_kernel``: quantize, s8 x s8 -> s32 product and rescale in
-  one launch.  A CUDA tensor launches the kernel or raises; a CPU tensor runs
-  the plain forward.  Each counts its launches in ``.launches``.
+  Pallas ``_prequant_kernel``: quantize, s8 x s8 -> s32 product (``wgmma``,
+  the weight streamed by TMA) and rescale in one launch.  A CUDA tensor
+  launches the kernel or raises; a CPU tensor runs the plain forward.  Each
+  counts its launches in ``.launches``.
 * ``int8_matmul`` is the no-grad op; ``int8_matmul_bf16_bwd``,
   ``int8_prequant_matmul``, ``int8_prequant_matmul_i8bwd``,
   ``int8_static_matmul`` and ``int8_static_matmul_i8bwd`` are differentiable:
@@ -47,8 +48,9 @@ from . import _build
 #: (the frozen tower's GEMMs: packed qkv, out proj and the MLP pair)
 INT8_TARGET_MODULES = ("in_proj", "out_proj", "c_fc", "c_proj")
 
-KERNEL_K_MULTIPLE = 64  # the kernel's weight stage: 64 bytes of K
-KERNEL_MAX_K = 3072  # 64 rows x (K + 16) int8 must fit a block's shared memory
+KERNEL_K_MULTIPLE = 64  # the codes' 128-byte slabs: the last one full or half
+KERNEL_MAX_K = 3072  # 64 rows of codes (64 x K bytes) and a two-stage weight ring
+                     # (2 x 16 KB) must fit a block's shared memory
 KERNEL_N_MULTIPLE = 64
 
 
@@ -120,6 +122,8 @@ def _kernel_library() -> ctypes.CDLL:
         lib.int8_gemm.restype = ctypes.c_int
         lib.int8_gemm_error_string.argtypes = [ctypes.c_int]
         lib.int8_gemm_error_string.restype = ctypes.c_char_p
+        for fn in (lib.int8_gemm_smem_bytes, lib.int8_gemm_stages):  # K -> bytes, stages
+            fn.argtypes, fn.restype = [_INT], _INT
         lib._argtypes_set = True
     return lib
 

@@ -112,18 +112,41 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build._nvcc()
 
 
-def test_wgmma_header_is_the_generators_output():
-    """``csrc/wgmma_sm90.cuh`` (the forward kernels' wgmma instructions) is
-    what ``csrc/gen_wgmma.py`` writes: one m64nNk16 product for every width
-    N = 8 .. 256 the resident design dispatches to, and the P V product."""
+def _gen_wgmma():
+    """``csrc/gen_wgmma.py`` loaded as a module (it is a script, not a package
+    module)."""
     import importlib.util
 
-    src = _build.CSRC_DIR / "gen_wgmma.py"
-    spec = importlib.util.spec_from_file_location("gen_wgmma", src)
+    spec = importlib.util.spec_from_file_location("gen_wgmma", _build.CSRC_DIR / "gen_wgmma.py")
     gen = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(gen)
-    text = gen.render()
+    return gen
+
+
+def test_wgmma_header_is_the_generators_output():
+    """``csrc/wgmma_sm90.cuh`` (the kernels' wgmma instructions) is what
+    ``csrc/gen_wgmma.py`` writes: one m64nNk16 product for every width
+    N = 8 .. 256 the resident design dispatches to, the P V product, and
+    K6's s8 products."""
+    text = _gen_wgmma().render()
     assert (_build.CSRC_DIR / "wgmma_sm90.cuh").read_text() == text
     for n in range(8, 257, 8):
         assert f"m64n{n}k16.f32.bf16.bf16" in text
     assert "m64n64k16.f32.bf16.bf16" in text and "p, 1, 1, 1;" in text
+
+
+@pytest.mark.parametrize("n", _gen_wgmma().S8_WIDTHS)
+def test_wgmma_s8_products_name_their_shape_and_accumulators(n):
+    """Each emitted s8 product (K6) is ``m64n{n}k32.s32.s8.s8`` with n / 2
+    int32 accumulators bound read-write as ``"+r"``, both operands by
+    descriptor and no scale or transpose immediates (the integer form has
+    none)."""
+    text = _gen_wgmma().render()
+    start = text.index(f"void wgmma_ss_s8<{n}>(")
+    body = text[start:text.index("\n}\n", start)]
+    assert f"int (&d)[{n // 2}]" in body
+    assert f"wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8 " in body
+    assert body.count('"+r"(d[') == n // 2 and '"+f"' not in body
+    for i in range(n // 2):
+        assert f'"+r"(d[{i}])' in body
+    assert f"%{n // 2}, %{n // 2 + 1}, p;" in body  # desc_a, desc_b, scale_d only

@@ -105,13 +105,14 @@ def test_quantize_static_codes_equal_jax_and_saturate(name, jdt, tdt):
 # ---------------------------------------------------------------- forwards
 
 
-@pytest.mark.parametrize("name,jdt,tdt", DTYPES)
-def test_int8_matmul_and_plain_forwards_equal_jax(name, jdt, tdt):
-    x, w = _activation(3), _weight(4)
+def _check_forwards_equal_jax(x, w, jdt, tdt):
+    """``int8_matmul``, ``_prequant_forward`` and ``_static_forward`` (at a
+    scale that leaves headroom and one that saturates) equal JAX's."""
     jx, tx = _both(x, jdt, tdt)
     jw, tw = jnp.asarray(w, jdt), torch.from_numpy(w.T.copy()).to(tdt)
     got = pint8.int8_matmul(tx, tw)
-    assert got.dtype == tdt and got.shape == (3, 13, 48) and not got.requires_grad
+    assert got.dtype == tdt and got.shape == (*x.shape[:-1], w.shape[1])
+    assert not got.requires_grad
     np.testing.assert_array_equal(_np(got), _np(jint8.int8_matmul(jx, jw)))
 
     jq, js = jint8.quantize_cols(jw)
@@ -124,6 +125,20 @@ def test_int8_matmul_and_plain_forwards_equal_jax(name, jdt, tdt):
             _np(pint8._static_forward(tx, tq, ts, torch.tensor(s))),
             _np(jint8._static_forward(jx, jq, js, jnp.float32(s))))
     assert (pint8._prequant_forward(tx, tq, ts)[0, 1] == 0).all()  # the zero row
+
+
+@pytest.mark.parametrize("name,jdt,tdt", DTYPES)
+def test_int8_matmul_and_plain_forwards_equal_jax(name, jdt, tdt):
+    _check_forwards_equal_jax(_activation(3), _weight(4), jdt, tdt)
+
+
+@pytest.mark.parametrize("name,jdt,tdt", DTYPES)
+@pytest.mark.parametrize("k", [192, 3072])
+def test_plain_forwards_equal_jax_at_the_kernels_k_edges(k, name, jdt, tdt):
+    """The plain forwards the card holds K6 to, against JAX at the K the
+    kernel treats specially: a half-filled last 128-byte code slab (192) and
+    the largest code tile (3072), at a small M."""
+    _check_forwards_equal_jax(_activation(11 + k, (2, 5, k)), _weight(12 + k, k, 64), jdt, tdt)
 
 
 def test_plain_forward_matches_the_pallas_kernel_in_interpret_mode():
@@ -158,6 +173,19 @@ def test_wrappers_run_the_plain_version_on_the_cpu_and_launch_nothing():
         pint8.int8_gemm_dynamic(x, q.float(), s)
     with pytest.raises(ValueError, match="one scale"):
         pint8.int8_gemm_static(x, q, s, torch.ones(2))
+
+
+@pytest.mark.parametrize("variant", ["no_products", "no_quantize"])
+def test_split_bench_patches_name_the_kernels_source(variant):
+    """``bench_int8_split.py`` times builds of ``csrc/int8_gemm.cu`` with its
+    products or its quantize cut out by text patches: each patched line is in
+    the source exactly once, so the split times the kernel as it stands."""
+    import bench_int8_split
+    from peft_vit_tpu_torch.ops import _build
+
+    source = (_build.CSRC_DIR / "int8_gemm.cu").read_text()
+    for old, new in bench_int8_split.VARIANTS[variant]:
+        assert source.count(old) == 1 and old != new
 
 
 def test_the_kernel_takes_a_cuda_tensor_or_raises():
