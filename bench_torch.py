@@ -17,9 +17,14 @@ What is timed, as in ``bench.py``: the flagship classifier
 head) in bf16 compute with fp32 master weights, fp32 gradients and fp32
 momentum, masked with ``build_mask(..., "lora")``.  A timing window is
 ``k`` chained SGD steps (lr 1e-3, wd 1e-4, momentum 0.9, nesterov) with one
-synchronisation at its end.  Each step takes its own uint8 batch, already
-on the device, and normalizes it there in fp32 before the cast to bf16.
-Host-to-device transfer is outside the window.
+synchronisation at its end, run as the engine runs a step
+(``make_epoch_step``): the window is one ``engine.train.make_epoch_fn``
+epoch over the k distinct batches in order, each step a CUDA-graph replay
+on the card.  Each step takes its own uint8 batch, already on the device,
+and normalizes it there in fp32 before the cast to bf16, inside the step.
+Host-to-device transfer is outside the window.  The same windows run
+eagerly first (``eager_on_card``) and their rate is printed on an earlier
+line.
 
 ``ln_fp32=False`` as in ``bench.py``: LayerNorm runs in bf16.  ``bench.py``
 also asks for ``softmax_fp32=False``; on the card attention is the flash
@@ -39,6 +44,7 @@ matrix product.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -56,6 +62,7 @@ from peft_vit_tpu_torch.engine import (
     ce_per_example,
     init_cell_state,
     make_apply_fn,
+    make_epoch_fn,
     make_train_step,
 )
 from peft_vit_tpu_torch.models import cast_frozen_, flagship
@@ -70,12 +77,33 @@ LR, WD = 1e-3, 1e-4
 TINY = dict(width=64, layers=2, heads=4, image=32, patch=16, num_classes=10)
 
 
-def normalize(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+def norm_constants(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``NORM_MEAN`` and ``NORM_STD`` on ``device``."""
+    return (torch.as_tensor(NORM_MEAN, device=device),
+            torch.as_tensor(NORM_STD, device=device))
+
+
+def normalize(x: torch.Tensor, compute_dtype: torch.dtype, constants=None) -> torch.Tensor:
     """A uint8 batch normalized in fp32 on its device, handed to the model in
-    its compute dtype."""
-    mean = torch.as_tensor(NORM_MEAN, device=x.device)
-    std = torch.as_tensor(NORM_STD, device=x.device)
+    its compute dtype.  ``constants``: ``norm_constants`` already on the
+    device (a CUDA graph cannot copy them there)."""
+    mean, std = constants or norm_constants(x.device)
     return ((x.to(torch.float32) - mean) / std).to(compute_dtype)
+
+
+@contextlib.contextmanager
+def eager_on_card():
+    """Inside the block the engine runs its steps, evals and serving buckets
+    eagerly on the card, as it does on the CPU, instead of as CUDA-graph
+    replays: the eager side of a comparison."""
+    from peft_vit_tpu_torch.engine import serving, train
+
+    saved = train.runs_captured, serving.runs_captured
+    train.runs_captured = serving.runs_captured = lambda t: False
+    try:
+        yield
+    finally:
+        train.runs_captured, serving.runs_captured = saved
 
 
 def prepare(model, num_layers: int = 12, int8: bool = False, bwd_dx: bool = False):
@@ -112,6 +140,32 @@ def make_step(apply_fn, compute_dtype: torch.dtype = torch.bfloat16, has_bn: boo
         for x, y in zip(xs, ys):
             state, loss = train_step(state, frozen, normalize(x, compute_dtype), y, None, lr, wd)
         return state, loss
+
+    return step_fn
+
+
+def make_epoch_step(apply_fn, compute_dtype: torch.dtype = torch.bfloat16, has_bn: bool = False,
+                    lr: float = LR, wd: float = WD):
+    """``step_fn(state, frozen, xs, ys) -> (state, mean loss)`` as the engine
+    runs steps: the (K, B, H, W, 3) uint8 chunk ``xs`` is a device-resident
+    dataset of K x B rows, and a call is one epoch of ``make_epoch_fn`` over
+    it in order, K steps, each gathering its uint8 batch and normalizing it
+    inside the step; on the card each a CUDA-graph replay, captured on the
+    first call for a chunk (``eager_on_card``: eager)."""
+    data = {}
+
+    def step_fn(state: TrainCellState, frozen, xs: torch.Tensor, ys: torch.Tensor):
+        k, b = ys.shape
+        if data.get("xs") is not xs:
+            constants = norm_constants(xs.device)
+            apply = lambda variables, bx, train: apply_fn(
+                variables, normalize(bx, compute_dtype, constants), train)
+            data.update(xs=xs, x=xs.flatten(0, 1), y=ys.flatten(),
+                        valid=torch.ones(k * b, dtype=torch.bool, device=xs.device),
+                        perm=np.arange(k * b),
+                        epoch=make_epoch_fn(apply, ce_per_example, b, has_bn=has_bn))
+        return data["epoch"](state, frozen, data["x"], data["y"], data["valid"], data["perm"],
+                             lr, wd)
 
     return step_fn
 
@@ -186,17 +240,19 @@ def main(argv=None) -> int:
     if args.static_act:
         frozen.update(calibration_scales(model, apply_fn, args.batch, image, torch.bfloat16,
                                          device))
-    step_fn = make_step(apply_fn)
-    rates, _ = measure(
-        step_fn, init_cell_state(trainable), frozen, args.batch, args.k_chain, args.windows,
-        args.warmup, image=image,
-        num_classes=shape.get("num_classes", 100), device=device,
-    )
     where = card() if device.type == "cuda" else "cpu (a rehearsal, not a device number)"
-    print(f"# case B={args.batch} k={args.k_chain} bf16 int8={args.int8} dx={args.bwd_dx} "
-          f"static={args.static_act} patch_gemm={args.patch_gemm}: "
-          + " ".join(f"{r:.1f}" for r in rates) + f" img/s per window; {where}",
-          file=sys.stderr, flush=True)
+    case = (f"B={args.batch} k={args.k_chain} bf16 int8={args.int8} dx={args.bwd_dx} "
+            f"static={args.static_act} patch_gemm={args.patch_gemm}")
+    for capture in (False, True):
+        with contextlib.nullcontext() if capture else eager_on_card():
+            rates, _ = measure(
+                make_epoch_step(apply_fn), init_cell_state(trainable), frozen,
+                args.batch, args.k_chain, args.windows, args.warmup, image=image,
+                num_classes=shape.get("num_classes", 100), device=device,
+            )
+        print(f"# {'captured' if capture else 'eager'} step, case {case}: median "
+              f"{statistics.median(rates):.1f} img/s; per window "
+              + " ".join(f"{r:.1f}" for r in rates) + f"; {where}", file=sys.stderr, flush=True)
     # a CPU or tiny-model run is a rehearsal and never carries the device metric's name
     real = device.type == "cuda" and not args.tiny
     print(json.dumps({

@@ -43,15 +43,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dense bf16 ``F.linear``;
 4. slice: the ViT-B/16 LoRA flagship (bf16, channel BN) built from a numpy
    weight tree in the JAX package's layout, served by ``ServingSession``
-   with buckets (1, 8, 32) for requests of 1, 5, 8, 32 and 40 images.  The
-   logits must be finite; the 5-image request must agree with the same
-   model run on the CPU in fp32; the forward kernel must have been launched
-   once per layer per forward batch.  Then the same weights and requests
-   through the flagship built with ``int8=True``: 48 launches of the int8
-   kernel and 12 of the attention kernel per forward batch, top-1 equal to
-   the bf16 session's, logits near it, the fp32 int8 forward on the card
-   equal bit for bit to the same forward with the plain version in the
-   kernel's place and near the fp32 int8 forward on the CPU;
+   with buckets (1, 8, 32), each captured as a CUDA graph at load, for
+   requests of 1, 5, 8, 32 and 40 images.  The logits must be finite and
+   equal bit for bit to an eager session's; the 5-image request must agree
+   with the same model run on the CPU in fp32; each bucket's graph launches
+   the forward kernel once per layer a replay, and one replay runs per
+   forward batch.  Then the same weights and requests through the flagship
+   built with ``int8=True``, its weights quantized once at load: 48 launches
+   of the int8 kernel and 12 of the attention kernel a replay, no weight
+   quantized by a request, logits equal bit for bit to the eager session's
+   and to the per-call quantize's, top-1 equal to the bf16 session's, logits
+   near it, the fp32 int8 forward on the card equal bit for bit to the same
+   forward with the plain version in the kernel's place and near the fp32
+   int8 forward on the CPU;
 5. train: the same flagship (bf16 compute, fp32 master weights, LoRA mask)
    takes SGD steps at batch 16 through ``bench_torch.make_step``.  198,756
    parameters train; every loss is finite; each of the three kernels is
@@ -84,14 +88,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    then their path (12 forward and backward calls at B = 16) and their times
    beside K1, K2 (with delta) + K3 and ``scaled_dot_product_attention``, K4
    and K5 also at N = 577 and 1024;
-8. driver: ``commands.run.finetune_main`` at full ViT-B/16 width
+8. graph: the step as the engine runs it (``make_epoch_fn``), each step a
+   CUDA-graph replay, against the same epoch run eagerly: 3 steps at B=16,
+   equal bit for bit, in bf16 and under the three int8 recipes; the
+   launches of a replay against their formulas (12 of K1, K2 and K3; 48
+   int8 forward and 47 dx); the captured and eager step rates and a profile.
+   Then a sweep round of 3 cells (``cells=True``) against the same cells
+   trained one at a time, bf16 and fp32, and the times of rounds of 3 and 7
+   against their cells, with the peak memory;
+9. driver: ``commands.run.finetune_main`` at full ViT-B/16 width
    (vitb16_CLIP.yaml, random numpy weights, synthetic 5-way 4-shot, batch
-   16): the bf16 sweep of 18 cells of 2 epochs and the final train; launch
-   counts derived from the data sizes, finite losses, frozen leaves
-   bit-identical, the choice, score and wall times; the int8 drive
-   (``TPU.INT8_FWD_TRAIN``, ``TRAIN.NO_TUNING``) with one quantized tree for
-   the run and 48 int8 launches per forward batch; the tiny fp32 drive with a
-   2-lr grid on the card and on the CPU, which must choose alike.
+   16): the bf16 sweep of 18 cells in 6 rounds of 3 of 2 epochs and the
+   final train; every step and eval batch one replay of its graph, each
+   graph's launches a replay those of one cell (a round's cells ride the
+   batch), finite losses, frozen leaves bit-identical, the choice, score,
+   wall times and peak memory, then a profiled run's device busy time and
+   idle share; the int8 drive (``TPU.INT8_FWD_TRAIN``, ``TRAIN.NO_TUNING``)
+   with one quantized tree for the run and 48 int8 launches a replay; the
+   tiny fp32 drive with a 2-lr grid on the card and on the CPU, which must
+   choose alike.
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -1323,6 +1338,7 @@ def _rel(got: np.ndarray, ref: np.ndarray) -> float:
 
 
 def slice_phase(smi: str) -> dict:
+    import bench_torch
     from peft_vit_tpu_torch.engine import ServingSession, make_infer_fn
     from peft_vit_tpu_torch.models import flagship, load_jax_variables, params_from_jax
     from peft_vit_tpu_torch.ops import attention as attn
@@ -1355,14 +1371,14 @@ def slice_phase(smi: str) -> dict:
     print(f"slice: bf16 on the CPU (no kernel) vs fp32 CPU: max |logit diff| / max |logit| = "
           f"{drift_cpu_bf16:.4e} ({time.perf_counter() - t0:.1f} s)")
 
+    # the main path, the session's load (each bucket warmed up and captured)
+    # and its requests: counts from 0 just before, read just after
+    attn.flash_attention_fwd.launches = 0
     t0 = time.perf_counter()
     session = ServingSession(flagship(**shape), params_from_jax(tree), IMAGE,
                              buckets=BUCKETS)
     print(f"slice: ServingSession ready in {time.perf_counter() - t0:.1f} s "
-          f"(buckets {BUCKETS}, warm-up included)")
-
-    # the main path: counts from 0 just before, read just after
-    attn.flash_attention_fwd.launches = 0
+          f"(buckets {BUCKETS}, warm-up and capture included)")
     logits = {n: session.predict(x) for n, x in requests.items()}
     launches = attn.flash_attention_fwd.launches
     batches = sum(math.ceil(n / BUCKETS[-1]) for n in REQUESTS)
@@ -1371,8 +1387,14 @@ def slice_phase(smi: str) -> dict:
         check(out.shape == (n, NUM_CLASSES) and out.dtype == np.float32
               and bool(np.isfinite(out).all()),
               f"slice: request of {n} -> finite float32 logits {out.shape}")
-    check(launches == LAYERS * batches and launches > 0,
-          f"slice: flash_attn_fwd launches {launches} == {LAYERS} layers x {batches} batches")
+    _serving_graphs(session, {"flash_attention_fwd": LAYERS}, launches, batches, "slice")
+    with bench_torch.eager_on_card():
+        eager = ServingSession(flagship(**shape), params_from_jax(tree), IMAGE, buckets=BUCKETS)
+    same = [n for n, x in requests.items() if np.array_equal(eager.predict(x), logits[n])]
+    check(len(same) == len(requests),
+          f"slice: captured buckets == eager buckets bit for bit on {len(same)} of "
+          f"{len(requests)} requests")
+    del eager
     got = logits[CHECKED_REQUEST]
     rel = _rel(got, cpu_logits)
     top_gpu, top_cpu = got.argmax(axis=1), cpu_logits.argmax(axis=1)
@@ -1395,6 +1417,24 @@ def slice_phase(smi: str) -> dict:
     latency = _serving_latency(session, "bf16", rng, smi)
     int8 = int8_slice_phase(shape, tree, requests, got, batches, rng, smi)
     return {"launches": launches, "batches": batches, "latency_ms": latency, "int8": int8}
+
+
+def _serving_graphs(session, per_replay: dict, counted: int, batches: int, label: str) -> None:
+    """Each bucket of ``session`` a captured graph launching ``per_replay``
+    a replay; the forward kernel's wrapper counted (warm-up + capture) x its
+    launches a replay for each bucket, and the requests' batches replayed."""
+    from peft_vit_tpu_torch.engine import StepGraph
+
+    graphs = session._graphs
+    check(sorted(graphs) == sorted(BUCKETS), f"{label}: buckets {sorted(graphs)} captured")
+    for b, graph in sorted(graphs.items()):
+        _per_replay(graph, per_replay, f"{label}: bucket {b}")
+    want = (StepGraph.WARMUP + 1) * LAYERS * len(graphs)
+    replays = sum(g.replays for g in graphs.values())
+    check(counted == want > 0 and replays == batches,
+          f"{label}: flash_attn_fwd counted {counted} == ({StepGraph.WARMUP} warm-up runs + the "
+          f"capture) x {LAYERS} layers x {len(graphs)} buckets; {replays} replays == {batches} "
+          "forward batches")
 
 
 def _serving_latency(session, label: str, rng, smi: str) -> dict:
@@ -1427,33 +1467,74 @@ def _serving_latency(session, label: str, rng, smi: str) -> dict:
 
 def int8_slice_phase(shape, tree, requests, bf16_logits, batches, rng, smi: str) -> dict:
     """The flagship with ``int8=True`` (eval forwards run the frozen tower's
-    four GEMMs per block through the int8 kernel, weight and activation
-    quantized per call) served by ``ServingSession`` on the same weights and
-    requests as the bf16 session."""
+    four GEMMs per block through the int8 kernel, the tower quantized once at
+    load) served by ``ServingSession`` on the same weights and requests as the
+    bf16 session."""
+    import bench_torch
     from peft_vit_tpu_torch.engine import ServingSession, make_infer_fn
     from peft_vit_tpu_torch.models import flagship, load_jax_variables, params_from_jax
     from peft_vit_tpu_torch.ops import attention as attn
     from peft_vit_tpu_torch.ops import int8 as i8
 
-    t0 = time.perf_counter()
-    session = ServingSession(flagship(**shape, int8=True), params_from_jax(tree), IMAGE,
-                             buckets=BUCKETS)
-    print(f"slice int8: ServingSession ready in {time.perf_counter() - t0:.1f} s")
+    from peft_vit_tpu_torch.engine import StepGraph
+    from peft_vit_tpu_torch.models import cast_frozen_
+
+    quantized = {"load": 0, "requests": 0}
+    real_quantize, phase = i8.quantize_cols, ["load"]
+
+    def counted_quantize(w):
+        quantized[phase[0]] += 1
+        return real_quantize(w)
+
     wrappers = (attn.flash_attention_fwd, i8.int8_gemm_dynamic, i8.int8_gemm_static)
     for w in wrappers:  # counts from 0 just before the main path, read just after
         w.launches = 0
-    logits = {n: session.predict(x) for n, x in requests.items()}
+    i8.quantize_cols = counted_quantize
+    try:
+        t0 = time.perf_counter()
+        session = ServingSession(flagship(**shape, int8=True), params_from_jax(tree), IMAGE,
+                                 buckets=BUCKETS)
+        print(f"slice int8: ServingSession ready in {time.perf_counter() - t0:.1f} s")
+        phase[0] = "requests"
+        logits = {n: session.predict(x) for n, x in requests.items()}
+    finally:
+        i8.quantize_cols = real_quantize
     k1, dynamic, static = (w.launches for w in wrappers)
     for n, out in logits.items():
         check(out.shape == (n, NUM_CLASSES) and out.dtype == np.float32
               and bool(np.isfinite(out).all()),
               f"slice int8: request of {n} -> finite float32 logits {out.shape}")
     gemms = len(INT8_GEMMS) * LAYERS
-    check(dynamic == gemms * batches > 0 and static == 0,
-          f"slice int8: int8_gemm_dynamic launches {dynamic} == {gemms} GEMMs x {batches} "
-          f"batches, int8_gemm_static {static} == 0")
-    check(k1 == LAYERS * batches,
-          f"slice int8: flash_attn_fwd launches {k1} == {LAYERS} layers x {batches} batches")
+    check(quantized == {"load": gemms, "requests": 0},
+          f"slice int8: quantize_cols ran {quantized['load']} times at load == {gemms} GEMMs, "
+          f"{quantized['requests']} times in the requests")
+    _serving_graphs(session, {"flash_attention_fwd": LAYERS, "int8_gemm_dynamic": gemms}, k1,
+                    batches, "slice int8")
+    want = (StepGraph.WARMUP + 1) * gemms * len(BUCKETS)
+    check(dynamic == want and static == 0,
+          f"slice int8: int8_gemm_dynamic counted {dynamic} == ({StepGraph.WARMUP} + 1) x "
+          f"{gemms} GEMMs x {len(BUCKETS)} buckets, int8_gemm_static {static} == 0")
+    with bench_torch.eager_on_card():
+        eager = ServingSession(flagship(**shape, int8=True), params_from_jax(tree), IMAGE,
+                               buckets=BUCKETS)
+    same = [n for n, x in requests.items() if np.array_equal(eager.predict(x), logits[n])]
+    check(len(same) == len(requests),
+          f"slice int8: captured buckets == eager buckets bit for bit on {len(same)} of "
+          f"{len(requests)} requests")
+    del eager
+    # the forward as it ran before the codes were cached: every weight quantized
+    # per call, on the same padded bucket
+    per_call = flagship(**shape, int8=True)
+    per_call.load_state_dict(params_from_jax(tree))
+    cast_frozen_(per_call.requires_grad_(False)).eval()
+    padded = torch.zeros((BUCKETS[1], IMAGE, IMAGE, 3))
+    padded[:CHECKED_REQUEST] = torch.from_numpy(requests[CHECKED_REQUEST])
+    with torch.inference_mode():
+        old = per_call(padded.cuda())[:CHECKED_REQUEST].float().cpu().numpy()
+    check(np.array_equal(old, logits[CHECKED_REQUEST]),
+          f"slice int8: logits of the {CHECKED_REQUEST}-image request == the per-call quantize's "
+          "bit for bit")
+    del per_call
     got = logits[CHECKED_REQUEST]
     rel = _rel(got, bf16_logits)
     check(bool((got.argmax(axis=1) == bf16_logits.argmax(axis=1)).all()),
@@ -1835,6 +1916,351 @@ def int8_train_phase(smi: str, bf16_rate: float, device: str = "cuda") -> dict:
     return result
 
 
+# The captured step and a sweep round at the full width of ViT-B/16.
+GRAPH_STEPS = 3  # steps of one epoch, captured against eager
+GRAPH_RECIPES = (("bf16", False, False, False), ("int8 prequant", True, False, False),
+                 ("int8 prequant+dx", True, True, False), ("int8 static+dx", True, True, True))
+ROUND_SIZES = (3, 7)
+ROUND_BATCHES = 2  # an epoch of a round: 2 batches of 16, as the driver's 20 training images
+ROUND_REPS = 5  # timed epochs of each
+ROUND_LRS, ROUND_WDS = (1e-5, 2e-5, 5e-5), (1e-4, 1e-2, 1.0)  # the compared round of 3
+# A round of 3 against its cells trained one at a time, each trainable leaf
+# at lr 1e-5 (the LoRA B leaves start at 0, so theirs is the update).  The
+# round's forward is a cell's bit for bit (the frozen GEMMs fold the cells
+# into their rows, the bias inside the GEMM as for one cell), but the LoRA
+# weight gradients of a round are batched GEMMs whose sums of 16 x 197
+# products cuBLAS orders otherwise than one cell's, and bf16 rounds them
+# otherwise here and there.  bf16: cosine per leaf after one step, the bound
+# that holds a kernel inside one step (TOL_KERNEL_BWD_UPDATE_COS; measured on
+# the H100: least 1.000000 of 150 pairs, printed to 6 places); a second step
+# carries the first one's rounding into its forward (0.999151), so that is
+# printed, not held.
+# fp32: the same arithmetic with sums in another order, after both steps, on
+# what the steps changed, so that a cell's lr or wd taken for another's shows:
+# the update (end - start) of each trainable leaf and BN statistic and the
+# momentum buffer (start 0), max |diff| <= TOL_ROUND_F32_REL x max |update| +
+# TOL_ROUND_F32_ULPS units in the last place of max |start| (an fp32 leaf
+# rounds its update to its own ulp: a LoRA A leaf's weight decay at lr 1e-5,
+# wd 1e-4 moves it by 1e-9 of itself, below one).
+TOL_ROUND_BF16_COS = 0.999
+TOL_ROUND_F32_REL = 1e-4
+TOL_ROUND_F32_ULPS = 4
+
+
+def _per_replay(graph, want: dict, what: str) -> None:
+    """Hold a StepGraph's launches per replay (what its capture counted)
+    against ``want`` (every other wrapper: 0)."""
+    if graph is None:
+        check(False, f"{what}: no graph was captured")
+        return
+    got = {k: n for k, n in graph.launches.items() if n or k in want}
+    full = {k: want.get(k, 0) for k in got}
+    check(got == full and any(got.values()),
+          f"{what}: launches per replay {got} == {full}")
+
+
+def _flagship_state(tree, dtype, device, int8_train=False, bwd_dx=False):
+    """The flagship (channel BN, LoRA mask) from ``tree``: (model, the
+    trainable leaves, the quantized tree or {}, a fresh state)."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import init_cell_state
+    from peft_vit_tpu_torch.models import flagship, load_jax_variables
+
+    shape = dict(width=WIDTH, layers=LAYERS, heads=HEADS, image=IMAGE, patch=PATCH,
+                 num_classes=NUM_CLASSES, use_bn=True)
+    model = load_jax_variables(flagship(**shape, dtype=dtype, ln_fp32=False,
+                                        int8_train=int8_train, device=device), tree)
+    trainable, _, qtree = bench_torch.prepare(model, LAYERS, int8=int8_train, bwd_dx=bwd_dx)
+    bn = {k: v for k, v in model.named_buffers() if k.endswith(("bn_mean", "bn_var"))}
+    return model, trainable, qtree, init_cell_state(trainable, bn)
+
+
+def graph_phase(smi: str, device: str = "cuda") -> dict:
+    """The step as the engine runs it: one epoch of ``GRAPH_STEPS`` steps at
+    B=16 through ``make_epoch_fn``, captured (a CUDA-graph replay a step)
+    against the same epoch run eagerly on the same state and batches, equal
+    bit for bit, for bf16 and the three int8 recipes; the launches of a
+    replay against their formulas; the captured and eager step rates.  Then a
+    sweep round of 3 cells against the same cells trained one at a time,
+    and the times of rounds of 3 and 7 against their cells one at a time.
+    ``device`` "cpu" rehearses the phase's code at a tiny size (no capture
+    there: the checks of the graphs fail)."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import StepGraph, ce_per_example, make_apply_fn, make_epoch_fn
+    from peft_vit_tpu_torch.ops import launch_counts
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rng = np.random.RandomState(SEED + 9)
+    tree = jax_layout_tree(rng)
+    n = GRAPH_STEPS * TRAIN_BATCH
+    images = rng.randint(0, 256, (n, IMAGE, IMAGE, 3), dtype=np.uint8)
+    x = bench_torch.normalize(torch.as_tensor(images, device=device), torch.float32)
+    y = torch.as_tensor(rng.randint(0, NUM_CLASSES, n), device=device)
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    perm = rng.permutation(n)
+    gemms = len(INT8_GEMMS) * LAYERS
+    result = {}
+    for name, int8_train, bwd_dx, static in GRAPH_RECIPES:
+        model, _, qtree, state0 = _flagship_state(tree, torch.bfloat16, device, int8_train,
+                                                  bwd_dx)
+        apply_fn = make_apply_fn(model)
+        graphs = {}
+        epoch = make_epoch_fn(apply_fn, ce_per_example, TRAIN_BATCH, has_bn=True,
+                              calibrate_model=model if static else None, graphs=graphs)
+        run = lambda: epoch(state0, qtree, x, y, valid, perm, bench_torch.LR, bench_torch.WD)
+        with bench_torch.eager_on_card():
+            eager, eager_loss = run()
+        sync()
+        before = launch_counts()  # counts from 0 just before the main path, read just after
+        captured, captured_loss = run()
+        sync()
+        counts = {k: v - before[k] for k, v in launch_counts().items()}
+        differ = [f"{part}.{k}" for part in ("trainable", "momentum", "bn")
+                  for k, v in getattr(eager, part).items()
+                  if not torch.equal(v, getattr(captured, part)[k])]
+        check(not differ and torch.equal(eager_loss, captured_loss),
+              f"graph {name}: {GRAPH_STEPS} captured steps == the same steps eager, bit for bit: "
+              f"{len(eager.trainable) * 2 + len(eager.bn) - len(differ)} of "
+              f"{len(eager.trainable) * 2 + len(eager.bn)} leaves, momentum buffers and BN "
+              f"statistics equal, mean loss {float(captured_loss):.6f} == "
+              f"{float(eager_loss):.6f}" + (f"; differ: {differ[:4]}" if differ else ""))
+        graph = graphs.get(("step", None, TRAIN_BATCH))
+        if graph is None:
+            check(False, f"graph {name}: no step graph was captured")
+            continue
+        fwd = gemms
+        dx = gemms - 1 if bwd_dx else 0  # block 0's in_proj input needs no gradient
+        want = {"flash_attention_fwd": LAYERS, "flash_attention_bwd_dq": LAYERS,
+                "flash_attention_bwd_dkv": LAYERS}
+        if int8_train:
+            want["int8_gemm_dynamic"] = dx + (0 if static else fwd)
+            want["int8_gemm_static"] = fwd if static else 0
+        _per_replay(graph, want, f"graph {name}")
+        # the calibration forward runs eagerly, outside the graph, once an epoch
+        calib = ({"flash_attention_fwd": LAYERS, "int8_gemm_dynamic": fwd} if static else {})
+        wanted = {k: (StepGraph.WARMUP + 1) * graph.launches[k] + calib.get(k, 0)
+                  for k in counts}
+        check(counts == wanted and graph.replays == GRAPH_STEPS,
+              f"graph {name}: the wrappers counted {counts} == ({StepGraph.WARMUP} warm-up "
+              f"steps + the capture) x the launches per replay + the calibration; "
+              f"{graph.replays} replays == {GRAPH_STEPS} steps")
+        before = launch_counts()
+        run()
+        sync()
+        again = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        check(again == calib and graph.replays == 2 * GRAPH_STEPS,
+              f"graph {name}: a second epoch replays the graph ({graph.replays} replays) and "
+              f"the wrappers count only the calibration {again}")
+
+        # the step rates, captured and eager, as bench_torch.py times them (the
+        # static scales calibrated once, as it does)
+        frozen = qtree if not static else {**qtree, **bench_torch.calibration_scales(
+            model, apply_fn, TRAIN_BATCH, IMAGE, torch.bfloat16, device)}
+        rates = {}
+        for capture in (False, True):
+            with contextlib.nullcontext() if capture else bench_torch.eager_on_card():
+                r, _ = bench_torch.measure(
+                    bench_torch.make_epoch_step(apply_fn, has_bn=True), state0, frozen,
+                    TRAIN_BATCH, TRAIN_K, 5, warmup=1, image=IMAGE, num_classes=NUM_CLASSES,
+                    device=device)
+            rates[capture] = statistics.median(r)
+        step_ms = 1e3 * TRAIN_BATCH / rates[True]
+        print(f"graph {name} rate B={TRAIN_BATCH} k={TRAIN_K}: captured {rates[True]:.1f} "
+              f"images/s ({step_ms:.3f} ms/step), eager {rates[False]:.1f} images/s "
+              f"({1e3 * TRAIN_BATCH / rates[False]:.3f} ms/step) (median of 5 windows; host "
+              f"clock; {smi})")
+        result[name] = {"images_per_s": rates[True], "eager_images_per_s": rates[False],
+                        "launches_per_replay": dict(graph.launches)}
+        if on_card:  # a window of the captured steps under the profiler
+            epoch = bench_torch.make_epoch_step(apply_fn, has_bn=True)
+            xs = torch.as_tensor(np.random.RandomState(SEED + 11).randint(
+                0, 256, (TRAIN_K, TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.uint8), device=device)
+            ys = torch.as_tensor(np.random.RandomState(SEED + 12).randint(
+                0, NUM_CLASSES, (TRAIN_K, TRAIN_BATCH)), device=device)
+            epoch(state0, frozen, xs, ys)  # the capture
+            device_ms, n_launches, top = _device_breakdown(lambda: epoch(state0, frozen, xs, ys),
+                                                           reps=1)
+            window_ms = TRAIN_K * step_ms
+            if device_ms is None:
+                print(f"graph {name} profile: device time not measured")
+            else:
+                print(f"graph {name} profile: a window of {TRAIN_K} captured steps, device busy "
+                      f"{device_ms / TRAIN_K:.3f} ms/step in {n_launches / TRAIN_K:.0f} launches "
+                      f"(the window's state copies included), idle share "
+                      f"{max(0.0, 1.0 - device_ms / window_ms):.3f} of the {window_ms:.3f} ms "
+                      "window at the captured rate; top: "
+                      + "; ".join(f"{k} {t / TRAIN_K:.3f} ms" for k, t in top))
+        del model, epoch, graphs, graph, eager, captured, frozen
+    result["round"] = round_phase(smi, tree, x, y, valid, device)
+    return result
+
+
+def round_phase(smi: str, tree, x, y, valid, device: str = "cuda") -> dict:
+    """A sweep round (``make_epoch_fn(cells=True)``) against its cells
+    trained one at a time (``cells=False``), both captured: the compared
+    round of 3 in bf16 and in fp32 after one and ``ROUND_BATCHES`` steps;
+    then the times of a round of 3 and of 7 against their cells, the
+    launches per replay of the round's step (those of one cell's step) and
+    the peak memory; then an int8 round's launches per replay."""
+    from peft_vit_tpu_torch.commands.run import _fresh_leaf
+    from peft_vit_tpu_torch.engine import (ce_per_example, init_cell_state, make_apply_fn,
+                                           make_epoch_fn, make_eval_fn, step_decay_lr)
+    from peft_vit_tpu_torch.engine.sweep import CellKey
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    n = ROUND_BATCHES * TRAIN_BATCH
+    perm = np.random.RandomState(SEED + 10).permutation(n)
+    data = (x[:n], y[:n], valid[:n])  # one set of tensors: a graph reads them in place
+    result = {}
+
+    def stacked(trainable, bn, k):
+        draws = [{name: _fresh_leaf(name, v.shape, CellKey(SEED, k, i).generator())
+                  for name, v in trainable.items()} for i in range(k)]
+        start = {name: torch.stack([d[name] for d in draws]).to(device) for name in draws[0]}
+        return draws, init_cell_state(start, {n_: v.expand(k, *v.shape) for n_, v in bn.items()})
+
+    for dtype in (torch.bfloat16, torch.float32):
+        model, trainable, _, state0 = _flagship_state(tree, dtype, device)
+        apply_fn = make_apply_fn(model)
+        graphs = {}
+        epoch = {cells: make_epoch_fn(apply_fn, ce_per_example, TRAIN_BATCH, has_bn=True,
+                                      cells=cells, graphs=graphs) for cells in (False, True)}
+        k = len(ROUND_LRS)
+        draws, state = stacked(trainable, state0.bn, k)
+
+        def compare(steps):
+            """Each (cell, leaf) after ``steps`` steps, the round against the
+            cell alone.  bf16: the trainable leaves' cosine.  fp32: each
+            trainable leaf's, momentum buffer's and BN statistic's change
+            over the steps, max |diff| over the bound of TOL_ROUND_F32_REL
+            and TOL_ROUND_F32_ULPS (<= 1 holds), and max |diff| / max
+            |change| at the worst pair."""
+            rows = steps * TRAIN_BATCH
+            p = np.random.RandomState(SEED + 10).permutation(rows)
+            args = (x[:rows], y[:rows], valid[:rows], p)
+            end, _ = epoch[True](state, {}, *args, step_decay_lr(ROUND_LRS, 0, ()),
+                                 torch.tensor(ROUND_WDS))
+            worst, rel = {}, {}
+            eps = torch.finfo(torch.float32).eps
+            for i in range(k):
+                alone = init_cell_state({n_: v.to(device) for n_, v in draws[i].items()},
+                                        state0.bn)
+                alone_end, _ = epoch[False](alone, {}, *args, ROUND_LRS[i], ROUND_WDS[i])
+                if dtype == torch.bfloat16:
+                    for name, v in alone_end.trainable.items():
+                        worst[(i, name)] = torch.nn.functional.cosine_similarity(
+                            end.trainable[name][i].float().flatten(), v.float().flatten(),
+                            dim=0).item()
+                    continue
+                for part in ("trainable", "momentum", "bn"):
+                    for name, v in getattr(alone_end, part).items():
+                        start = getattr(alone, part)[name].float()
+                        want = v.float() - start
+                        got = getattr(end, part)[name][i].float() - start
+                        diff = (got - want).abs().max().item()
+                        change = want.abs().max().item()
+                        bound = (TOL_ROUND_F32_REL * change
+                                 + TOL_ROUND_F32_ULPS * eps * start.abs().max().item())
+                        worst[(i, f"{part} {name}")] = diff / bound if bound else math.inf
+                        rel[(i, f"{part} {name}")] = diff / change if change else math.inf
+            key = (min if dtype == torch.bfloat16 else max)(worst, key=worst.get)
+            return worst[key], key, len(worst), rel.get(key)
+
+        (one, one_at, pairs, one_rel), (two, two_at, _, two_rel) = (compare(1),
+                                                                    compare(ROUND_BATCHES))
+        if dtype == torch.bfloat16:
+            check(one >= TOL_ROUND_BF16_COS,
+                  f"round bf16: {k} cells together vs one at a time, each of {pairs} (cell, "
+                  f"leaf) pairs after one step: least cosine {one:.6f} >= "
+                  f"{TOL_ROUND_BF16_COS:g} (cell {one_at[0]}, {one_at[1]}); after "
+                  f"{ROUND_BATCHES} steps {two:.6f} (cell {two_at[0]}, {two_at[1]}), not held")
+        else:
+            check(two <= 1.0,
+                  f"round fp32: {k} cells together vs one at a time, each of {pairs} (cell, "
+                  f"state tensor) pairs' change over {ROUND_BATCHES} steps (trainable leaves, "
+                  f"momentum, BN statistics): largest max |diff| / ({TOL_ROUND_F32_REL:g} x max "
+                  f"|change| + {TOL_ROUND_F32_ULPS} ulp of max |start|) {two:.3e} <= 1 (cell "
+                  f"{two_at[0]}, {two_at[1]}: max |diff| / max |change| {two_rel:.3e}); after "
+                  f"one step {one:.3e} ({one_at[1]}, {one_rel:.3e})")
+        if dtype == torch.float32 or not on_card:
+            del model, graphs, epoch
+            continue
+        for k in ROUND_SIZES:  # bf16 timings: a round against its cells one at a time
+            graphs.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            draws, state = stacked(trainable, state0.bn, k)
+            lrs, wds = [1e-5] * k, torch.full((k,), 1e-4)
+            times = {}
+            for cells in (True, False):
+                def one_round():
+                    if cells:
+                        epoch[True](state, {}, *data, perm, step_decay_lr(lrs, 0, ()), wds)
+                    else:
+                        for i in range(k):
+                            epoch[False](state0, {}, *data, perm, 1e-5, 1e-4)
+                one_round()
+                sync()
+                reps = []
+                for _ in range(ROUND_REPS):
+                    t0 = time.perf_counter()
+                    one_round()
+                    sync()
+                    reps.append((time.perf_counter() - t0) * 1e3)
+                times[cells] = statistics.median(reps)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            g = graphs[("step", k, TRAIN_BATCH)]
+            _per_replay(g, {"flash_attention_fwd": LAYERS, "flash_attention_bwd_dq": LAYERS,
+                            "flash_attention_bwd_dkv": LAYERS},
+                        f"round of {k}: one step of the round")
+            print(f"round of {k} bf16: an epoch of {ROUND_BATCHES} steps at B={TRAIN_BATCH} "
+                  f"takes {times[True]:.3f} ms for the round, {times[False]:.3f} ms for its "
+                  f"{k} cells one at a time ({times[False] / times[True]:.2f}x; median of "
+                  f"{ROUND_REPS}, host clock, captured); peak device memory {peak:.2f} GiB "
+                  f"above the model, both graphs held; {smi}")
+            result[k] = {"round_ms": times[True], "serial_ms": times[False], "peak_gib": peak}
+        graphs.clear()
+        del model, epoch
+        torch.cuda.empty_cache()
+
+    # an int8 round of 3: the tower's GEMMs launch once for the round, forward
+    # and dx, unless each cell calibrates its own static scale (once a cell)
+    k, gemms = len(ROUND_LRS), len(INT8_GEMMS) * LAYERS
+    for name, static in (("prequant+dx", False), ("static+dx", True)):
+        model, trainable, qtree, state0 = _flagship_state(tree, torch.bfloat16, device, True,
+                                                          True)
+        apply_fn = make_apply_fn(model)
+        graphs = {}
+        epoch = make_epoch_fn(apply_fn, ce_per_example, TRAIN_BATCH, has_bn=True, cells=True,
+                              calibrate_model=model if static else None, graphs=graphs)
+        evaluate = make_eval_fn(apply_fn, TRAIN_BATCH, has_bn=True, cells=True, graphs=graphs)
+        _, state = stacked(trainable, state0.bn, k)
+        end, losses = epoch(state, qtree, *data, perm, step_decay_lr(ROUND_LRS, 0, ()),
+                            torch.tensor(ROUND_WDS))
+        logits = evaluate(end.trainable, qtree, data[0], end.bn)
+        check(losses.shape == (k,) and bool(losses.isfinite().all())
+              and logits.shape == (k, n, NUM_CLASSES) and bool(logits.isfinite().all()),
+              f"round int8 {name}: a round of {k}, losses " + " ".join(
+                  f"{float(v):.4f}" for v in losses) + f", eval logits {tuple(logits.shape)} "
+              "finite")
+        want = {"flash_attention_fwd": LAYERS, "flash_attention_bwd_dq": LAYERS,
+                "flash_attention_bwd_dkv": LAYERS}
+        if static:
+            want.update(int8_gemm_static=k * gemms, int8_gemm_dynamic=k * (gemms - 1))
+        else:
+            want.update(int8_gemm_dynamic=gemms + gemms - 1)
+        _per_replay(graphs.get(("step", k, TRAIN_BATCH)), want,
+                    f"round int8 {name}: one step of a round of {k}")
+        _per_replay(graphs.get(("eval", k, TRAIN_BATCH)),
+                    {"flash_attention_fwd": LAYERS, "int8_gemm_dynamic": gemms},
+                    f"round int8 {name}: one eval batch of a round of {k}")
+        del model, epoch, evaluate, graphs
+    return result
+
+
 # The driver: finetune_main through the port at the full width of ViT-B/16
 # (vitb16_CLIP.yaml), the synthetic dataset 5-way 4-shot, batch 16, 2 epochs a
 # cell, a 3-point wd grid under the default 6-point lr grid: 18 cells, then the
@@ -1882,28 +2308,31 @@ def driver_cfg(over: dict, yaml_file=MODEL_YAML):
 @contextlib.contextmanager
 def driver_spy(run, sync, lr_grid=None):
     """Within, ``finetune_main`` runs as it does, observed: its SweepEngine
-    counts the cells it trains, keeps every epoch's loss and the wall time of
-    the sweep and of the final train (``lr_grid`` replaces the default lr
-    grid); the frozen leaves are copied right after the driver casts them,
-    and each ``quantize_frozen_tree`` call is counted, its tree copied."""
+    counts the rounds and cells it trains, keeps every epoch's loss (each
+    cell's), its CUDA graphs and the wall time of the sweep and of the final
+    train (``lr_grid`` replaces the default lr grid); the frozen leaves are
+    copied right after the driver casts them, and each
+    ``quantize_frozen_tree`` call is counted, its tree copied."""
     from peft_vit_tpu_torch.ops import int8 as i8
 
-    rec = {"cells": 0, "losses": [], "sweep_s": 0.0, "final_s": 0.0, "quantize": 0}
+    rec = {"cells": 0, "rounds": 0, "losses": [], "sweep_s": 0.0, "final_s": 0.0,
+           "quantize": 0}
 
     class Spy(run.SweepEngine):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
-            epoch_fn = self._epoch_fn
+            rec["graphs"] = self.graphs
+            for attr in ("_epoch_fn", "_epoch_cells"):
+                def recorded(*a, epoch_fn=getattr(self, attr)):
+                    state, loss = epoch_fn(*a)
+                    rec["losses"].extend(float(v) for v in loss.reshape(-1))
+                    return state, loss
 
-            def recorded(*a):
-                state, loss = epoch_fn(*a)
-                rec["losses"].append(float(loss))
-                return state, loss
-
-            self._epoch_fn = recorded
+                setattr(self, attr, recorded)
 
         def train_cells(self, lrs, *args, **kwargs):
             rec["cells"] += len(lrs)
+            rec["rounds"] += 1
             return super().train_cells(lrs, *args, **kwargs)
 
         def sweep(self, task, end_epoch, grid=None):
@@ -1961,6 +2390,7 @@ def driver_phase(smi: str, device: str = "cuda", tree=None) -> dict:
     code, where no kernel launches."""
     from peft_vit_tpu_torch.commands import run
     from peft_vit_tpu_torch.data import construct_splits
+    from peft_vit_tpu_torch.engine import StepGraph
     from peft_vit_tpu_torch.ops import attention as attn
     from peft_vit_tpu_torch.ops import int8 as i8
 
@@ -1979,6 +2409,8 @@ def driver_phase(smi: str, device: str = "cuda", tree=None) -> dict:
         _zero_attention_counts(attn)
         for w in (i8.int8_gemm_dynamic, i8.int8_gemm_static):
             w.launches = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         with driver_spy(run, sync) as rec:  # counts from 0 just before the path, read just after
             t0 = time.perf_counter()
             score = run.finetune_main(cfg, out_dir, device=device, variables=tree)
@@ -1987,16 +2419,19 @@ def driver_phase(smi: str, device: str = "cuda", tree=None) -> dict:
         counts = _attention_counts(attn)
         k6 = {"dynamic": i8.int8_gemm_dynamic.launches, "static": i8.int8_gemm_static.launches}
         record = json.loads(open(f"{out_dir}/results.jsonl").read().splitlines()[-1])
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
 
         nb = lambda n: -(-n // batch)
         epochs = int(cfg.TRAIN.END_EPOCH)
         final_epochs = epochs + int(cfg.TRAIN.EXTRA_FINAL_TRAIN_EPOCH)
-        steps = rec["cells"] * epochs * nb(n_tr) + final_epochs * nb(n_tr + n_va)
-        evals = rec["cells"] * epochs * nb(n_va) + (final_epochs + 1) * nb(n_te)
+        # every step and eval batch is one replay of a graph of its shape
+        steps = rec["rounds"] * epochs * nb(n_tr) + final_epochs * nb(n_tr + n_va)
+        evals = rec["rounds"] * epochs * nb(n_va) + (final_epochs + 1) * nb(n_te)
         want_cells = 0 if over else DRIVER_CELLS
         print(f"driver {label}: {n_tr} train, {n_va} val, {n_te} test images; {rec['cells']} "
-              f"cells x {epochs} epochs, final train {final_epochs} epochs; {steps} steps, "
-              f"{evals} eval batches of {batch}")
+              f"cells in {rec['rounds']} rounds x {epochs} epochs, final train {final_epochs} "
+              f"epochs; {steps} steps, {evals} eval batches of {batch}, each a replay; "
+              f"graphs {sorted(rec['graphs'], key=str)}")
         check(rec["cells"] == want_cells, f"driver {label}: {rec['cells']} sweep cells == "
               f"{want_cells}")
         # a sweep cell may diverge (lr 0.1 at wd 1e6): the protocol scores it 0
@@ -2008,26 +2443,39 @@ def driver_phase(smi: str, device: str = "cuda", tree=None) -> dict:
               f"{final_epochs} all finite (" + " ".join(f"{x:.4f}" for x in final_losses[:4])
               + f" ... {final_losses[-1]:.4f}); {diverged} sweep-cell epochs not finite")
         layers = len(rec["model"].backbone.blocks)
-        want = {"flash_attention_fwd": layers * (steps + evals),
-                "flash_attention_bwd_dq": layers * steps, "flash_attention_bwd_dkv": layers * steps,
-                "fused_short_attention_fwd": 0, "fused_short_attention_bwd": 0}
+        int8_on = bool(over)
+        gemms = len(INT8_GEMMS) * layers
+        graphs = rec["graphs"]
+        replays = {kind: sum(g.replays for key, g in graphs.items() if key[0] == kind)
+                   for kind in ("step", "eval")}
+        check(replays == {"step": steps, "eval": evals} and (not on_card or graphs),
+              f"driver {label}: {replays['step']} step replays == {steps}, {replays['eval']} "
+              f"eval replays == {evals}")
+        for key, graph in sorted(graphs.items(), key=str):
+            # a round's step launches what one cell's does: the cells ride the batch
+            want = {"flash_attention_fwd": layers}
+            if key[0] == "step":
+                want.update(flash_attention_bwd_dq=layers, flash_attention_bwd_dkv=layers)
+            if int8_on:
+                want["int8_gemm_dynamic"] = gemms
+            _per_replay(graph, want, f"driver {label}: {key[0]} graph of {key[1] or 1} cell(s)")
+        want = {name: (StepGraph.WARMUP + 1) * sum(g.launches[name] for g in graphs.values())
+                for name in counts}
         for name, n in counts.items():
             check(n == want[name] and (not on_card or n > 0 or want[name] == 0),
-                  f"driver {label}: {name} launches {n} == {want[name]} ({layers} layers x "
-                  f"{'steps + eval batches' if name == 'flash_attention_fwd' else 'steps'})")
+                  f"driver {label}: {name} counted {n} == ({StepGraph.WARMUP} warm-up runs + "
+                  f"the capture) x its launches a replay, over {len(graphs)} graphs")
         same = [k for k, v in rec["frozen"].items()
                 if torch.equal(v, dict(rec["model"].named_parameters())[k])]
         check(len(same) == len(rec["frozen"]) > 0,
               f"driver {label}: {len(same)} of {len(rec['frozen'])} frozen leaves bit-identical "
               "after the run")
-        int8_on = bool(over)
-        gemms = len(INT8_GEMMS) * layers
-        want_k6 = gemms * (steps + evals) if int8_on else 0
+        want_k6 = (StepGraph.WARMUP + 1) * gemms * len(graphs) if int8_on else 0
         check(rec["quantize"] == (1 if int8_on else 0) and k6["dynamic"] == want_k6
               and k6["static"] == 0,
               f"driver {label}: quantize_frozen_tree called {rec['quantize']} time(s); "
-              f"int8_gemm_dynamic launches {k6['dynamic']} == {gemms} GEMMs x "
-              f"{steps + evals} forward batches = {want_k6}, int8_gemm_static {k6['static']}")
+              f"int8_gemm_dynamic counted {k6['dynamic']} == ({StepGraph.WARMUP} + 1) x {gemms} "
+              f"GEMMs x {len(graphs)} graphs = {want_k6}, int8_gemm_static {k6['static']}")
         if int8_on:
             same = [k for k, v in rec["qtree"].items() if torch.equal(v, rec["qtree_start"][k])]
             check(len(same) == len(rec["qtree"]) > 0,
@@ -2037,12 +2485,31 @@ def driver_phase(smi: str, device: str = "cuda", tree=None) -> dict:
               f"driver {label}: score {score:.3f} written to results.jsonl")
         print(f"driver {label}: chose lr {record['lr']:g}, wd {record['wd']:g}; test "
               f"{record['metric']} {score:.3f}; sweep {rec['sweep_s']:.2f} s, final train "
-              f"{rec['final_s']:.2f} s, whole run {wall:.2f} s (host clock; {smi})", flush=True)
+              f"{rec['final_s']:.2f} s, whole run {wall:.2f} s; peak device memory {peak:.2f} GiB "
+              f"(host clock; {smi})", flush=True)
         result[label] = {"launches": counts, "int8_launches": k6, "steps": steps,
                          "evals": evals, "cells": rec["cells"], "lr": record["lr"],
                          "wd": record["wd"], "score": score, "sweep_s": rec["sweep_s"],
-                         "final_s": rec["final_s"], "wall_s": wall}
-        del rec
+                         "final_s": rec["final_s"], "wall_s": wall, "peak_gib": peak}
+        del rec, graphs
+        if on_card and not over:
+            # the same run again under the profiler: the device's busy time and
+            # idle share of the whole run (the profiler's cost in the wall time)
+            with driver_spy(run, sync):
+                t0 = []
+                busy, n_launches, top = _device_breakdown(
+                    lambda: t0.append(time.perf_counter()) or run.finetune_main(
+                        cfg, _results_dir(), device=device, variables=tree), reps=1)
+                profiled = time.perf_counter() - t0[0]
+            if busy is None:
+                print(f"driver {label} profile: device time not measured")
+            else:
+                print(f"driver {label} profile: device busy {busy / 1e3:.3f} s in "
+                      f"{n_launches:.0f} launches, idle share "
+                      f"{max(0.0, 1.0 - busy / 1e3 / wall):.3f} of the unprofiled run's "
+                      f"{wall:.2f} s (model build and data included; the profiled run took "
+                      f"{profiled:.2f} s); top: "
+                      + "; ".join(f"{k} {t:.1f} ms" for k, t in top))
     tiny_driver_check(device)
     return result
 
@@ -2118,6 +2585,7 @@ def main() -> int:
     slc = slice_phase(smi)
     trn = train_phase(smi)
     trn8 = int8_train_phase(smi, trn["images_per_s"])
+    graph_phase(smi)
     drv = driver_phase(smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)

@@ -2,15 +2,20 @@
 
 ``ServingSession`` keeps a classifier on the card for a fixed set of batch
 buckets and pads each request up to the smallest bucket that holds it;
-oversize requests are split into max-bucket chunks.  Each bucket runs once
-at construction, so the kernels are built and the library plans chosen
-before the first request, as the JAX session compiles every bucket at load.
-Requests are NHWC numpy images; logits come back as float32 numpy.
+oversize requests are split into max-bucket chunks.  Each bucket is captured
+at construction as a CUDA graph over a static input (``engine.train.StepGraph``,
+after a warm-up that builds the kernels and chooses the library plans), as
+the JAX session compiles every bucket at load with the weights as
+constants; a request copies its padded images into the bucket's input and
+replays the graph.  The CPU runs each bucket eagerly.  Requests are NHWC
+numpy images; logits come back as float32 numpy.
 
 A model built with ``int8=True`` is served through the int8 path: the
-session freezes and casts every weight as for any model, and each request
-then quantizes weight and activation per call (``ops.int8.int8_matmul``) for
-the tower's four GEMMs per block.  Nothing else in the session changes.
+session freezes and casts every weight as for any model, then quantizes the
+tower's ``Int8Dense`` weights once, at load (``ops.int8.quantize_frozen_tree``
+of the cast weights, into the modules' ``w_i8`` / ``s_w`` buffers: the codes
+a per-request quantize would make), so that a request quantizes only its
+activations, inside the int8 kernel.
 
 ``export_classifier`` and ``load_exported`` are not ported yet.
 """
@@ -24,8 +29,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.layers import cast_frozen_
+from ..models.layers import Int8Dense, cast_frozen_
+from ..ops.int8 import quantize_frozen_tree
 from ..utils import resolve_device
+from .train import StepGraph, runs_captured
 
 logger = logging.getLogger(__name__)
 
@@ -38,10 +45,12 @@ def make_infer_fn(
     ``state`` (a ``state_dict``, e.g. from ``models.params_from_jax``) is
     loaded strictly first.  Serving trains nothing, so every weight is then
     frozen and cast once to the model's compute dtype (LayerNorm and BN
-    statistics stay fp32)."""
+    statistics stay fp32), and every ``Int8Dense`` weight quantized once
+    (``quantize_int8_tower``)."""
     if state is not None:
         model.load_state_dict(state, strict=True)
     cast_frozen_(model.requires_grad_(False))
+    quantize_int8_tower(model)
     model.eval()
 
     def infer(images: torch.Tensor) -> torch.Tensor:
@@ -49,6 +58,22 @@ def make_infer_fn(
             return model(images)
 
     return infer
+
+
+def quantize_int8_tower(model: nn.Module) -> None:
+    """Quantize the weight of every ``Int8Dense`` of ``model`` into its
+    ``w_i8`` / ``s_w`` buffers (``ops.int8.quantize_frozen_tree`` of the
+    weights as stored, after ``cast_frozen_``: the codes that
+    ``ops.int8.int8_matmul`` would make of them per call)."""
+    modules = {name: m for name, m in model.named_modules() if isinstance(m, Int8Dense)}
+    if not modules:
+        return
+    weights = {f"{name}.weight": m.weight for name, m in modules.items()}
+    tree = quantize_frozen_tree(
+        weights, targets=tuple({name.rsplit(".", 1)[-1] for name in modules}),
+        param_dtype=next(iter(weights.values())).dtype)
+    for name, m in modules.items():
+        m.w_i8, m.s_w = tree[f"{name}.w_i8"], tree[f"{name}.s_w"]
 
 
 class ServingSession:
@@ -59,7 +84,8 @@ class ServingSession:
 
     ``dtype`` is the dtype the request images travel to the device in
     (the model casts them to its compute dtype).  ``device=None`` is the
-    card; without CUDA the session raises unless ``device='cpu'``.
+    card; without CUDA the session raises unless ``device='cpu'``.  On the
+    card each bucket is a CUDA-graph replay.
     """
 
     def __init__(
@@ -79,8 +105,14 @@ class ServingSession:
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"bad buckets: {buckets}")
         self._infer = make_infer_fn(model.to(self.device), state)
+        self._graphs = {}
         for b in self.buckets:
-            self._infer(torch.zeros(self._shape(b), dtype=dtype, device=self.device))
+            images = torch.zeros(self._shape(b), dtype=dtype, device=self.device)
+            if runs_captured(images):
+                self._graphs[b] = StepGraph(lambda inputs: self._infer(inputs["images"]),
+                                            {"images": images})
+            else:
+                self._infer(images)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         logger.info(
@@ -111,9 +143,14 @@ class ServingSession:
         max_b = self.buckets[-1]
         while start < n:
             take = min(max_b, n - start)
-            chunk = torch.zeros(self._shape(self._bucket_for(take)), dtype=self.dtype)
+            bucket = self._bucket_for(take)
+            chunk = torch.zeros(self._shape(bucket), dtype=self.dtype)
             chunk[:take] = torch.from_numpy(images[start : start + take])
-            logits = self._infer(chunk.to(self.device))
-            out.append(logits[:take].float().cpu().numpy())
+            if bucket in self._graphs:
+                logits = self._graphs[bucket](images=chunk)
+            else:
+                logits = self._infer(chunk.to(self.device))
+            # a copy: the next replay overwrites a graph's output
+            out.append(logits[:take].to("cpu", torch.float32, copy=True).numpy())
             start += take
         return np.concatenate(out, axis=0)

@@ -16,11 +16,16 @@ in the JAX package):
 ``TRAIN.VMAP_SWEEP`` keeps the JAX package's meaning: it decides which cells
 form a round (every new coarse or refinement probe of one lr together, else
 one cell a round) and so how a round's initial trainables are drawn (a
-``CellKey`` per cell: its round's size and its index in it).  The JAX engine
-vmaps a round's cells into one program; here a round's cells train one after
-another, each on the round's shared epoch permutations, so each cell's
-arithmetic is the same as under the vmap.  Training a round's cells together
-on the card is later work (ROADMAP).
+``CellKey`` per cell: its round's size and its index in it).  As the JAX
+engine vmaps a round's cells into one program, a round here trains its cells
+together (``engine.train``'s ``cells``): their states stacked on a leading
+axis, one forward and backward per batch under ``torch.func.vmap``, the
+frozen tower's GEMMs over every cell's rows at once, one SGD update with one
+lr and wd per cell, and one vmapped eval an epoch.  A diverging cell touches
+no other: every cell's rows and leaves are its own.  The final run trains
+one cell.  On the card every step and eval batch is a CUDA-graph replay; the
+engine keeps one graph per (kind, round size, batch) in ``graphs`` and
+frees them with itself.
 
 ``SWEEP.REF_COMPAT=True`` replays the reference's refine loop verbatim,
 including its left-wd bug (every refine probe trains with the LEFT
@@ -51,7 +56,6 @@ from .train import (
     init_cell_state,
     make_epoch_fn,
     make_eval_fn,
-    masked_accuracy,
     step_decay_lr,
 )
 
@@ -125,27 +129,41 @@ class SweepEngine:
             # backbone at 0.1x lr, head at lr (optim/build.py:102-117)
             names = init_trainable(CellKey(0, None))
             lr_scale = {k: 1.0 if k.startswith("classifier.") else 0.1 for k in names}
-        self._epoch_fn = make_epoch_fn(
-            apply_fn, criterion, self.batch_size,
-            momentum=float(cfg.TRAIN.MOMENTUM), nesterov=bool(cfg.TRAIN.NESTEROV),
-            lr_scale=lr_scale, has_bn=has_bn,
-        )
-        self._eval_fn = make_eval_fn(apply_fn, self.batch_size, has_bn=has_bn)
+        #: the CUDA graphs of the steps and evals, one per (kind, round size,
+        #: batch); they hold their own device memory until the engine goes
+        self.graphs: Dict[tuple, object] = {}
+        epoch = dict(momentum=float(cfg.TRAIN.MOMENTUM), nesterov=bool(cfg.TRAIN.NESTEROV),
+                     lr_scale=lr_scale, has_bn=has_bn, graphs=self.graphs)
+        self._epoch_fn = make_epoch_fn(apply_fn, criterion, self.batch_size, **epoch)
+        self._epoch_cells = make_epoch_fn(apply_fn, criterion, self.batch_size, cells=True,
+                                          **epoch)
+        self._eval_fn = make_eval_fn(apply_fn, self.batch_size, has_bn=has_bn,
+                                     graphs=self.graphs)
+        self._eval_cells = make_eval_fn(apply_fn, self.batch_size, has_bn=has_bn, cells=True,
+                                        graphs=self.graphs)
 
     # -- scoring --------------------------------------------------------------
 
-    def _score(self, logits: torch.Tensor, y: torch.Tensor, valid: torch.Tensor) -> float:
-        """Score one cell's (N, C) logits with the dataset metric: top-1 on
-        integer labels on the device, every other metric on the host over
-        the valid rows (non-finite logits score 0)."""
+    def _score_cells(self, logits: torch.Tensor, y: torch.Tensor,
+                     valid: torch.Tensor) -> np.ndarray:
+        """Score each cell's (N, C) logits of the (cells, N, C) ``logits`` with
+        the dataset metric: top-1 on integer labels on the device (one host
+        read for the round), every other metric on the host over the valid
+        rows (a cell's non-finite logits score 0)."""
         if self.metric in ("accuracy", "top1") and y.dim() == 1:
-            return float(masked_accuracy(logits, y, valid))
+            correct = (logits.argmax(dim=-1) == y) & valid
+            return (100.0 * correct.sum(dim=-1) / valid.sum().clamp_min(1)).cpu().numpy()
         v = valid.cpu().numpy()
-        scores = logits.float().cpu().numpy()[v]
+        scores = logits.float().cpu().numpy()[:, v]
         target = y.cpu().numpy()[v]
         if self.metric in ("accuracy", "top1") and target.ndim == 2:
             target = target.argmax(-1)  # one-hot multiclass scored as top-1
-        return float(self._metric_fn(scores, target)) if np.isfinite(scores).all() else 0.0
+        return np.array([float(self._metric_fn(s, target)) if np.isfinite(s).all() else 0.0
+                         for s in scores], np.float64)
+
+    def _score(self, logits: torch.Tensor, y: torch.Tensor, valid: torch.Tensor) -> float:
+        """Score one cell's (N, C) logits (``_score_cells``)."""
+        return float(self._score_cells(logits[None], y, valid)[0])
 
     def evaluate(self, state: TrainCellState, x: torch.Tensor) -> torch.Tensor:
         """Logits of ``state`` over the device-resident ``x``."""
@@ -182,20 +200,32 @@ class SweepEngine:
         end_epoch: int,
         seed: int = 0,
     ) -> np.ndarray:
-        """Train the round of ``len(lrs)`` cells; returns their val scores (%):
-        the best over the epochs, or the last (``SEARCH_RESULT_ON_LAST_EPOCH``)."""
+        """Train the round of ``len(lrs)`` cells together; returns their val
+        scores (%): the best over the epochs, or the last
+        (``SEARCH_RESULT_ON_LAST_EPOCH``)."""
         k = len(lrs)
         assert k == len(wds)
+        device = task.x_train.device
         perms = self._perms(task.x_train.shape[0], end_epoch, seed)
-        last_epoch = bool(self.cfg.TRAIN.SEARCH_RESULT_ON_LAST_EPOCH)
-        out = np.zeros((k,), np.float32)
-        for i, (lr, wd) in enumerate(zip(lrs, wds)):
-            best = last = 0.0
-            for _, last in self._train(CellKey(seed, k, i), float(lr), float(wd), task, perms):
-                best = max(best, last) if np.isfinite(last) else float("nan")
-            score = last if last_epoch else best
-            out[i] = score if np.isfinite(score) else 0.0
-        return out
+        draws = [self.init_trainable(CellKey(seed, k, i)) for i in range(k)]
+        trainable = {name: torch.stack([d[name].detach() for d in draws]).to(
+            device=device, dtype=torch.float32) for name in draws[0]}
+        bn = None if self.bn_template is None else {
+            name: v.expand(k, *v.shape) for name, v in self.bn_template.items()}
+        state = init_cell_state(trainable, bn)
+        wd = torch.tensor([float(w) for w in wds], dtype=torch.float32)
+        best = np.zeros((k,), np.float64)
+        last = np.zeros((k,), np.float64)
+        for epoch, perm in enumerate(perms):
+            state, _ = self._epoch_cells(
+                state, self.frozen, task.x_train, task.y_train, task.valid_train, perm,
+                step_decay_lr([float(lr) for lr in lrs], epoch, self.schedule), wd,
+            )
+            logits = self._eval_cells(state.trainable, self.frozen, task.x_val, state.bn)
+            last = self._score_cells(logits, task.y_val, task.valid_val)
+            best = np.where(np.isfinite(last), np.maximum(best, last), np.nan)
+        scores = last if bool(self.cfg.TRAIN.SEARCH_RESULT_ON_LAST_EPOCH) else best
+        return np.where(np.isfinite(scores), scores, 0.0).astype(np.float32)
 
     def train_final(
         self,

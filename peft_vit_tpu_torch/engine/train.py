@@ -13,15 +13,28 @@ in place of pytrees:
 * ``sgd_update`` is the reference few-shot recipe exactly: SGD + momentum
   0.9 + nesterov + coupled weight decay (``torch.optim.SGD`` semantics),
   with the step-decay schedule ``step_decay_lr``.  It is a pure function of
-  dicts, not a ``torch.optim`` object, so that a sweep can batch it over
-  cells.
+  dicts, not a ``torch.optim`` object, so that it updates a round's cells at
+  once.
+* A sweep round's cells train together (``cells=True``, the counterpart of
+  the JAX engine's ``jax.vmap`` of its epoch): every leaf of the state, and
+  each BN statistic, carries a leading cell axis, and lr and wd are one per
+  cell.  The forward runs under ``torch.func.vmap`` over that axis; the
+  frozen tower and the images are shared, so a frozen GEMM sees the rows of
+  every cell at once from the first trainable leaf on, and the kernels'
+  batching rules launch once for the round.  The gradient is that of the sum
+  of the cells' losses, taken outside the vmap: the cells' leaves are
+  disjoint, so each gets its own.
 * Few-shot datasets are device-resident tensors; an epoch is a loop over a
-  shuffled index matrix, not a host DataLoader.
+  shuffled index matrix, not a host DataLoader.  On the card every step (and
+  every eval batch) is a CUDA-graph replay (``StepGraph``, the counterpart of
+  ``jax.jit`` over the epoch's ``lax.scan``): captured once per shape, its
+  static inputs the batch's row indices, lr and wd (the gather runs inside
+  the graph).  The CPU runs the same step eagerly.
 * The int8 frozen tower: the tree of ``ops.int8.quantize_frozen_tree`` and
   the static activation scales travel in a step's ``frozen`` dict, named
   after the ``Int8Dense`` buffers they substitute.  ``calibrate`` makes the
-  scales from one train-mode forward, and ``make_epoch_fn`` can renew them
-  on each epoch's first batch.
+  scales from one train-mode forward (per cell in a round), and
+  ``make_epoch_fn`` can renew them on each epoch's first batch.
 """
 
 from __future__ import annotations
@@ -32,9 +45,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.func import functional_call
+from torch.func import functional_call, vmap
+from torch.utils._pytree import tree_map
 
 from ..models.layers import collect_activation_stats
+from ..ops import launch_counts
 from ..ops.int8 import activation_scales_from_stats
 from ..peft.masks import merge_params
 from ..utils import resolve_device
@@ -73,7 +88,8 @@ def bce_per_example(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 class TrainCellState(NamedTuple):
     """State of one sweep cell: the trainable leaves, their SGD momentum
     buffers, the step count and, with channel BN, the running statistics
-    (each cell trains its own copy)."""
+    (each cell trains its own copy).  A round's state has the same names,
+    each tensor stacked over the round's cells on a leading axis."""
 
     trainable: Tensors
     momentum: Tensors
@@ -93,6 +109,14 @@ def init_cell_state(trainable: Mapping[str, torch.Tensor],
     )
 
 
+def _per_cell(s: Scalar, p: torch.Tensor) -> Scalar:
+    """A (cells,) tensor of per-cell scalars shaped to broadcast against the
+    stacked leaf ``p``; a Python or 0-dim scalar as it is."""
+    if torch.is_tensor(s) and s.dim() == 1:
+        return s.reshape(-1, *([1] * (p.dim() - 1)))
+    return s
+
+
 @torch.no_grad()
 def sgd_update(
     grads: Mapping[str, torch.Tensor],
@@ -106,22 +130,25 @@ def sgd_update(
     """torch.optim.SGD: g += wd*p; buf = mu*buf + g;
     step uses g + mu*buf when nesterov else buf.
 
-    ``lr_scale``: optional per-leaf multiplier of ``lr``.  Returns a new
-    state; no tensor of ``state`` is written."""
+    ``lr_scale``: optional per-leaf multiplier of ``lr``.  ``lr`` and ``wd``
+    may be (cells,) tensors for a round's stacked state, one per cell.
+    Returns a new state; no tensor of ``state`` is written."""
     p_new, buf_new = {}, {}
     for name, p in state.trainable.items():
-        g = grads[name] + wd * p
+        g = grads[name] + _per_cell(wd, p) * p
         buf = momentum * state.momentum[name] + g
         step = g + momentum * buf if nesterov else buf
         rate = lr if lr_scale is None else lr * lr_scale[name]
-        p_new[name] = p - rate * step
+        p_new[name] = p - _per_cell(rate, p) * step
         buf_new[name] = buf
     return state._replace(trainable=p_new, momentum=buf_new, step=state.step + 1)
 
 
-def step_decay_lr(base_lr: float, epoch: int, schedule: Sequence[int]) -> torch.Tensor:
+def step_decay_lr(base_lr: Union[float, Sequence[float]], epoch: int,
+                  schedule: Sequence[int]) -> torch.Tensor:
     """The reference's adjust_learning_rate: x0.1 at each milestone reached,
-    in fp32 as the JAX engine computes it."""
+    in fp32 as the JAX engine computes it (a sequence of base rates, one per
+    cell, gives one rate per cell)."""
     lr = torch.tensor(base_lr, dtype=torch.float32)
     for m in schedule:
         if epoch >= m:
@@ -165,35 +192,132 @@ def make_train_step(
     nesterov: bool = True,
     lr_scale: Optional[Mapping[str, Scalar]] = None,
     has_bn: bool = False,
+    cells: bool = False,
 ):
-    """One SGD step on one batch: ``step(state, frozen, bx, by, bv, lr, wd)
-    -> (state, loss)``.
+    """One SGD step on one batch: ``step(state, frozen, bx, by, bv, lr, wd,
+    cell_frozen=None) -> (state, loss)``.
 
     The loss is the ``bv``-weighted mean of the per-example criterion over
     fp32 logits, ``sum(per * w) / max(sum(w), 1)`` (``bv=None``: every row
     counts).  With ``has_bn`` the step runs train-mode BN on a copy of
-    ``state.bn`` and returns the blended statistics in the new state."""
+    ``state.bn`` and returns the blended statistics in the new state.
+    ``cell_frozen`` names frozen tensors of the cell itself (the static
+    activation scales), merged into ``frozen``.
 
-    def step(state: TrainCellState, frozen, bx, by, bv, lr, wd):
-        trainable = {k: v.requires_grad_() for k, v in state.trainable.items()}
-        variables = merge_params(trainable, frozen)
-        new_bn = state.bn
+    ``cells``: ``state`` is a round's (see the module docstring), ``lr`` and
+    ``wd`` one per cell or shared, ``cell_frozen`` stacked over the cells;
+    the forward runs under ``torch.func.vmap`` over the cell axis with
+    ``frozen`` and the batch shared, the loss returned is one per cell, and
+    the gradient is that of their sum.  A random operation inside the
+    forward (training-mode drop path) raises under the vmap."""
+
+    def loss_of(trainable, bn, own, frozen, bx, by, bv):
+        variables = merge_params(trainable, {**frozen, **own})
         if has_bn:
-            new_bn = {k: v.clone() for k, v in state.bn.items()}
-            variables.update(new_bn)
+            variables.update(bn)
         logits = apply_fn(variables, bx, True)
         per = criterion(logits.to(torch.float32), by)
         if bv is None:
-            loss = per.mean()
+            return per.mean()
+        w = bv.to(torch.float32)
+        return (per * w).sum() / w.sum().clamp_min(1.0)
+
+    def step(state: TrainCellState, frozen, bx, by, bv, lr, wd, cell_frozen=None):
+        trainable = {k: v.requires_grad_() for k, v in state.trainable.items()}
+        new_bn = {k: v.clone() for k, v in state.bn.items()} if has_bn else None
+        own = dict(cell_frozen or {})
+        if cells:
+            loss = vmap(lambda t, b, o: loss_of(t, b, o, frozen, bx, by, bv),
+                        in_dims=(0, 0 if has_bn else None, 0))(trainable, new_bn, own)
         else:
-            w = bv.to(torch.float32)
-            loss = (per * w).sum() / w.sum().clamp_min(1.0)
-        grads = torch.autograd.grad(loss, list(trainable.values()))
+            loss = loss_of(trainable, new_bn, own, frozen, bx, by, bv)
+        grads = torch.autograd.grad(loss.sum(), list(trainable.values()))
         state = sgd_update(dict(zip(trainable, grads)), state, lr, wd, momentum, nesterov,
                            lr_scale)
         return state._replace(bn=new_bn), loss.detach()
 
     return step
+
+
+class StepGraph:
+    """A function of static tensors captured as a CUDA graph.
+
+    ``fn(inputs)`` (``inputs`` a dict of tensors or of dicts of tensors) runs
+    ``WARMUP`` times on a side stream, which builds the kernels and lets the
+    libraries choose their plans, and is then captured on the buffers of
+    ``inputs``' clones (``self.inputs``).  A call copies the tensors it is
+    given into those buffers and replays the graph; it returns the graph's
+    outputs, which the next replay overwrites.  Every other tensor ``fn``
+    reads (the frozen tower, the dataset) is read in place: ``keep`` holds
+    them, so that their memory outlives the graph.  Nothing in ``fn`` may
+    wait for the host.  A capture that fails raises: there is no eager
+    fallback.
+
+    A kernel wrapper counts a launch when ``fn`` calls it, so it counts
+    during the warm-up and the capture, never during a replay.
+    ``launches`` keeps what the capture counted (``ops.launch_counts``): the
+    kernels every replay launches; ``replays`` counts the replays."""
+
+    WARMUP = 2
+
+    def __init__(self, fn, inputs, keep: Sequence[torch.Tensor] = ()):
+        self.keep = tuple(keep)
+        self.inputs = tree_map(lambda t: t.detach().clone(), inputs)
+        self.replays = 0
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                fn(self.inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with torch.cuda.graph(self.graph):
+            self.outputs = fn(self.inputs)
+        self.launches = {k: n - before[k] for k, n in launch_counts().items()}
+
+    def holds(self, keep: Sequence[torch.Tensor]) -> bool:
+        """Whether the graph reads exactly these tensors in place."""
+        return len(keep) == len(self.keep) and all(a is b for a, b in zip(keep, self.keep))
+
+    @torch.no_grad()
+    def __call__(self, **inputs):
+        for name, value in inputs.items():
+            if isinstance(value, Mapping):
+                for k, t in value.items():
+                    self.inputs[name][k].copy_(t)
+            else:
+                self.inputs[name].copy_(value)
+        self._replay()
+        self.replays += 1
+        return self.outputs
+
+    def _replay(self) -> None:
+        self.graph.replay()
+
+
+def runs_captured(t: torch.Tensor) -> bool:
+    """Whether the engine runs work on ``t`` as CUDA-graph replays: on the
+    card."""
+    return t.device.type == "cuda"
+
+
+def _graph(graphs: dict, key, fn, inputs, keep) -> StepGraph:
+    """The graph of ``key`` in ``graphs``, captured anew when there is none
+    or when it reads other tensors in place than ``keep``."""
+    graph = graphs.get(key)
+    if graph is None or not graph.holds(keep):
+        graphs.pop(key, None)  # free the old graph's memory before the capture
+        graph = graphs[key] = StepGraph(fn, inputs, keep)
+    return graph
+
+
+def _cell(tensors: Optional[Mapping[str, torch.Tensor]], i: int):
+    return None if tensors is None else {k: v[i] for k, v in tensors.items()}
+
+
+def _cells_of(stacked: Mapping[str, torch.Tensor]) -> int:
+    return next(iter(stacked.values())).shape[0]
 
 
 def make_epoch_fn(
@@ -205,6 +329,8 @@ def make_epoch_fn(
     lr_scale: Optional[Mapping[str, Scalar]] = None,
     has_bn: bool = False,
     calibrate_model: Optional[nn.Module] = None,
+    cells: bool = False,
+    graphs: Optional[dict] = None,
 ):
     """One training epoch over device-resident tensors:
     ``epoch_fn(state, frozen, x, y, valid, perm, lr, wd) -> (state, mean loss)``.
@@ -214,45 +340,126 @@ def make_epoch_fn(
     shuffled row order, taken ``batch_size`` rows at a time.  ``frozen``
     names frozen tensors to substitute ({}: the module's own).
 
+    ``cells``: the state is a round's (``make_train_step``), ``lr`` and
+    ``wd`` one per cell, and the mean loss one per cell.
+
+    On the card each step is a replay of a ``StepGraph`` captured on the
+    epoch's first batch, kept in ``graphs`` under ``("step", cells, batch)``
+    (``cells`` the round's size; a dict the caller owns and drops with its
+    engine, which its epoch and eval functions may share; None: the epoch
+    fn's own) and captured anew only for another shape, dataset or frozen tree.
+    Its static inputs are the state, the batch's row indices, lr and wd
+    (copied in as device tensors) and the static scales.  The CPU runs the
+    same step eagerly (``runs_captured``).
+
     ``calibrate_model`` (the module behind ``apply_fn``) asks for the static
     int8 recipe: every epoch starts by calibrating the activation scales on
-    its first batch (``calibrate`` at ``INT8_CALIB_MARGIN``) and trains on them.
-    Stale scales saturate as the adapters move the residual stream, and
-    destroy convergence."""
-    step = make_train_step(apply_fn, criterion, momentum, nesterov, lr_scale, has_bn)
+    its first batch (``calibrate`` at ``INT8_CALIB_MARGIN``, per cell in a
+    round, outside the graph) and trains on them.  Stale scales saturate as
+    the adapters move the residual stream, and destroy convergence."""
+    step = make_train_step(apply_fn, criterion, momentum, nesterov, lr_scale, has_bn, cells)
+    graphs = {} if graphs is None else graphs
+
+    def scales_for(state: TrainCellState, frozen, bx) -> Tensors:
+        def one(trainable, bn):
+            variables = merge_params(trainable, frozen)
+            if has_bn:
+                variables.update(bn)
+            return calibrate(calibrate_model, apply_fn, variables, bx)
+
+        if not cells:
+            return one(state.trainable, state.bn)
+        per = [one(_cell(state.trainable, i), _cell(state.bn, i))
+               for i in range(_cells_of(state.trainable))]
+        return {k: torch.stack([p[k] for p in per]) for k in per[0]}
 
     def epoch_fn(state: TrainCellState, frozen, x, y, valid, perm, lr, wd):
         nb = x.shape[0] // batch_size
         idxs = torch.as_tensor(perm, device=x.device).reshape(nb, batch_size)
+        lr = torch.as_tensor(lr, dtype=torch.float32).to(x.device)
+        wd = torch.as_tensor(wd, dtype=torch.float32).to(x.device)
+        scales = {}
         if calibrate_model is not None:
-            variables = merge_params(state.trainable, frozen)
-            if has_bn:
-                variables.update(state.bn)
-            scales = calibrate(calibrate_model, apply_fn, variables, x[idxs[0]])
-            frozen = {**frozen, **scales}
+            scales = scales_for(state, frozen, x[idxs[0]])
+        if not runs_captured(x):
+            losses = []
+            for idx in idxs:
+                state, loss = step(state, frozen, x[idx], y[idx], valid[idx], lr, wd, scales)
+                losses.append(loss)
+            return state, torch.stack(losses).mean(0)
+
+        def body(inputs):
+            now = TrainCellState(inputs["trainable"], inputs["momentum"], 0, inputs["bn"])
+            idx = inputs["idx"]
+            new, loss = step(now, frozen, x[idx], y[idx], valid[idx], inputs["lr"],
+                             inputs["wd"], inputs["scales"])
+            with torch.no_grad():  # the new state back into the static buffers
+                for part in ("trainable", "momentum", "bn"):
+                    for k, t in (getattr(new, part) or {}).items():
+                        inputs[part][k].copy_(t)
+            return loss
+
+        inputs = {"trainable": state.trainable, "momentum": state.momentum,
+                  "bn": state.bn or {}, "scales": scales, "idx": idxs[0], "lr": lr, "wd": wd}
+        key = ("step", _cells_of(state.trainable) if cells else None, batch_size)
+        graph = _graph(graphs, key, body, inputs, (x, y, valid, *frozen.values()))
         losses = []
-        for idx in idxs:
-            state, loss = step(state, frozen, x[idx], y[idx], valid[idx], lr, wd)
-            losses.append(loss)
-        return state, torch.stack(losses).mean()
+        for i, idx in enumerate(idxs):
+            loss = graph(**inputs) if i == 0 else graph(idx=idx)
+            losses.append(loss.clone())
+        held = graph.inputs
+        state = TrainCellState(
+            trainable={k: v.detach().clone() for k, v in held["trainable"].items()},
+            momentum={k: v.clone() for k, v in held["momentum"].items()},
+            step=state.step + nb,
+            bn={k: v.clone() for k, v in held["bn"].items()} if has_bn else None,
+        )
+        return state, torch.stack(losses).mean(0)
 
     return epoch_fn
 
 
-def make_eval_fn(apply_fn: ApplyFn, batch_size: int, has_bn: bool = False):
-    """Batched inference over a device-resident tensor: returns logits.
+def make_eval_fn(apply_fn: ApplyFn, batch_size: int, has_bn: bool = False, cells: bool = False,
+                 graphs: Optional[dict] = None):
+    """Batched inference over a device-resident tensor: returns logits,
+    (cells, n, C) for a round's stacked ``trainable`` (``cells``) under
+    ``torch.func.vmap``, else (n, C).
 
-    With ``has_bn`` the eval runs on the running statistics ``bn``."""
+    With ``has_bn`` the eval runs on the running statistics ``bn``.  On the
+    card each batch is a ``StepGraph`` replay (kept in ``graphs`` under
+    ``("eval", cells, batch)``), its static inputs the trainable leaves, the
+    statistics and the batch's row indices; the CPU runs it eagerly."""
+    graphs = {} if graphs is None else graphs
 
-    @torch.no_grad()
-    def eval_fn(trainable, frozen, x, bn=None):
+    def forward(trainable, bn, frozen, bx):
         variables = merge_params(trainable, frozen)
         if has_bn:
             variables.update(bn)
+        return apply_fn(variables, bx, False)
+
+    @torch.no_grad()
+    def eval_fn(trainable, frozen, x, bn=None):
         nb = x.shape[0] // batch_size
-        logits = [apply_fn(variables, bx, False)
-                  for bx in x.reshape(nb, batch_size, *x.shape[1:])]
-        return torch.cat(logits).reshape(nb * batch_size, -1)
+        idxs = torch.arange(nb * batch_size, device=x.device).reshape(nb, batch_size)
+
+        def body(inputs):
+            with torch.no_grad():
+                bx = x[inputs["idx"]]
+                if cells:
+                    return vmap(lambda t, b: forward(t, b, frozen, bx),
+                                in_dims=(0, 0 if has_bn else None))(
+                        inputs["trainable"], inputs["bn"] if has_bn else None)
+                return forward(inputs["trainable"], inputs["bn"], frozen, bx)
+
+        inputs = {"trainable": dict(trainable), "bn": dict(bn or {}), "idx": idxs[0]}
+        if runs_captured(x):
+            key = ("eval", _cells_of(trainable) if cells else None, batch_size)
+            graph = _graph(graphs, key, body, inputs, (x, *frozen.values()))
+            logits = [(graph(**inputs) if i == 0 else graph(idx=idx)).clone()
+                      for i, idx in enumerate(idxs)]
+        else:
+            logits = [body({**inputs, "idx": idx}) for idx in idxs]
+        return torch.cat(logits, dim=1 if cells else 0)
 
     return eval_fn
 

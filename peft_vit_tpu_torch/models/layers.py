@@ -82,10 +82,55 @@ def require_ported(spec: PEFTSpec, int8_attn: bool = False,
         )
 
 
+class _Linear(torch.autograd.Function):
+    """``F.linear(x, w, b)`` with a bias, whose batching rule folds the
+    vmapped axis of ``x`` (a sweep round's cells) into its rows when ``w`` and
+    ``b`` are shared: one GEMM for the round, with the bias added inside it
+    as for one cell.  ``torch.func.vmap``'s own rule for ``F.linear`` adds
+    the bias after the product is rounded, which in bf16 is another number.
+    A batched weight runs one cell at a time."""
+
+    @staticmethod
+    def forward(x, w, b):
+        return F.linear(x, w, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, _ = inputs
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        ctx.save_for_backward(x if need_dw else None, w if need_dx else None)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need_dx, need_dw, need_db = ctx.needs_input_grad
+        g2d = g.reshape(-1, g.shape[-1])
+        dx = g.matmul(w) if need_dx else None
+        dw = g2d.t().matmul(x.reshape(-1, x.shape[-1])) if need_dw else None
+        db = g2d.sum(0) if need_db else None
+        return dx, dw, db
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, b):
+        cells = info.batch_size
+        x_dim, w_dim, b_dim = in_dims
+        if w_dim is None and b_dim is None:
+            x = x.movedim(x_dim, 0)
+            folded = x.reshape(cells * x.shape[1], *x.shape[2:]).contiguous()
+            return _Linear.apply(folded, w, b).unflatten(0, (cells, -1)), 0
+
+        def cell(t, dim, i):
+            return t if dim is None else t.select(dim, i)
+
+        return torch.stack([_Linear.apply(cell(x, x_dim, i), cell(w, w_dim, i),
+                                          cell(b, b_dim, i)) for i in range(cells)]), 0
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` as flax ``nn.Dense(dtype=..., param_dtype=...)``: the
     weights are stored in ``param_dtype`` and, like the input, cast to the
-    compute ``dtype`` at use."""
+    compute ``dtype`` at use.  With a bias the product runs through
+    ``_Linear``, so that a sweep round's cells round as each cell alone."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32,
@@ -96,8 +141,9 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        if self.bias is None:
+            return F.linear(x.to(dt), self.weight.to(dt))
+        return _Linear.apply(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class Int8Dense(Dense):
@@ -116,8 +162,10 @@ class Int8Dense(Dense):
     ``train_bwd`` and ``w_i8`` present: the ``_i8bwd`` ops if ``wt_i8`` is
     present, the static ops if ``s_x`` is; without ``w_i8`` the weight is
     quantized per call from the compute-dtype weight, differentiably if
-    ``train_bwd`` (``int8_matmul_bf16_bwd``) else not (``int8_matmul``).  The
-    bias is added after the cast to the compute dtype."""
+    ``train_bwd`` (``int8_matmul_bf16_bwd``) else not (``int8_matmul``).
+    Without ``train_bwd`` a present ``w_i8`` / ``s_w`` is used as it is (a
+    serving session quantizes the tower once, at load).  The bias is added
+    after the cast to the compute dtype."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -149,7 +197,7 @@ class Int8Dense(Dense):
         elif train_bwd:
             y = int8_ops.int8_matmul_bf16_bwd(xc, w)
         else:
-            y = int8_ops.int8_matmul(xc, w)
+            y = int8_ops.int8_matmul(xc, w, self.w_i8, self.s_w)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y

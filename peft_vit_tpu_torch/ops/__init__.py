@@ -1,3 +1,7 @@
+from typing import Dict
+
+from . import attention as _attention
+from . import int8 as _int8
 from .attention import (
     attention_reference,
     flash_attention,
@@ -26,8 +30,28 @@ from .int8 import (
     quantize_static,
 )
 
+#: the kernels' wrappers, each counting its launches in ``.launches``
+KERNEL_WRAPPERS = (
+    (_attention, "flash_attention_fwd"),
+    (_attention, "flash_attention_bwd_dq"),
+    (_attention, "flash_attention_bwd_dkv"),
+    (_attention, "fused_short_attention_fwd"),
+    (_attention, "fused_short_attention_bwd"),
+    (_int8, "int8_gemm_dynamic"),
+    (_int8, "int8_gemm_static"),
+)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's launch count so far, by the wrapper's name (0
+    for a wrapper swapped for something that does not count)."""
+    return {name: getattr(getattr(module, name), "launches", 0)
+            for module, name in KERNEL_WRAPPERS}
+
+
 __all__ = [
     "INT8_TARGET_MODULES",
+    "KERNEL_WRAPPERS",
     "activation_scales_from_stats",
     "attention_reference",
     "flash_attention",
@@ -45,6 +69,7 @@ __all__ = [
     "int8_prequant_matmul_i8bwd",
     "int8_static_matmul",
     "int8_static_matmul_i8bwd",
+    "launch_counts",
     "multi_head_attention",
     "quantize_cols",
     "quantize_frozen_tree",

@@ -382,24 +382,78 @@ def flash_attention_bwd_dkv(
 flash_attention_bwd_dkv.launches = 0
 
 
+_NO_BIAS_GRAD = ("the flash backward has no bias path: the bias-gradient kernel (K7) is not "
+                 "ported; a bias is a forward-only operand")
+
+
+def _needs_grad(*operands: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in operands)
+
+
+def _fold_cells(cells: int, in_dims, operands):
+    """The operands of a batching rule with the cell axis folded into the
+    batch: (cells, B, ...) -> (cells * B, ...), contiguous.  An operand that
+    is not batched is expanded to every cell first."""
+    out = []
+    for t, dim in zip(operands, in_dims):
+        t = t.expand(cells, *t.shape) if dim is None else t.movedim(dim, 0)
+        out.append(t.reshape(cells * t.shape[1], *t.shape[2:]).contiguous())
+    return out
+
+
+def _unfold_cells(cells: int, outputs):
+    """The outputs of a folded launch with the cell axis taken out again:
+    ``(outputs, out_dims)`` as a batching rule returns them."""
+    outs = tuple(None if t is None else t.unflatten(0, (cells, -1)) for t in outputs)
+    return outs, tuple(None if t is None else 0 for t in outs)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Forward kernel with its lse saved; backward through the dq and dk/dv
-    kernels (the bias-free path, as the JAX ``custom_vjp``)."""
+    """Forward kernel, with its lse when a gradient is asked for
+    (``with_lse``); backward through the dq and dk/dv kernels (the bias-free
+    path, as the JAX ``custom_vjp``).  Under ``torch.func.vmap`` the batching
+    rule folds the vmapped axis (a sweep round's cells) into the batch and
+    launches the same kernels once, so autograd and the backward see the
+    folded tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = flash_attention_fwd(q, k, v, None, scale, return_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(q, k, v, bias, scale, with_lse):
+        if with_lse:
+            return flash_attention_fwd(q, k, v, bias, scale, return_lse=True)
+        return flash_attention_fwd(q, k, v, bias, scale), None
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, _, scale, with_lse = inputs
+        out, lse = output
+        if with_lse:
+            ctx.mark_non_differentiable(lse)
+            ctx.save_for_backward(q, k, v, out, lse)
+        ctx.set_materialize_grads(False)  # lse's cotangent stays None: no zeros launched
         ctx.scale = scale
-        return out
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, _dlse):
+        if do is None:  # no cotangent (grads are not materialized)
+            return None, None, None, None, None, None
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()  # arrives as the transposed view of the head merge
         dq, delta = flash_attention_bwd_dq(q, k, v, do, lse, out, ctx.scale)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.scale)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, bias, scale, with_lse):
+        if in_dims[3] is not None:
+            raise NotImplementedError("a bias batched over the vmapped axis")
+        # under the vmap the caller cannot see whether its operands need a
+        # gradient; the unwrapped tensors tell
+        with_lse = with_lse or _needs_grad(q, k, v)
+        if with_lse and bias is not None:
+            raise NotImplementedError(_NO_BIAS_GRAD)
+        q, k, v = _fold_cells(info.batch_size, in_dims[:3], (q, k, v))
+        return _unfold_cells(info.batch_size,
+                             _FlashAttention.apply(q, k, v, bias, scale, with_lse))
 
 
 def flash_attention(
@@ -414,21 +468,18 @@ def flash_attention(
     With a gradient required of q, k or v the forward saves
     ``(q, k, v, o, lse)`` and the backward launches the dq and dk/dv
     kernels; without one it is ``flash_attention_fwd`` and saves nothing.
+    Under ``torch.func.vmap`` (a sweep round's cells) every kernel launches
+    once for all cells, the vmapped axis folded into the batch.
     A bias while any operand (or the bias) requires a gradient raises
     ``NotImplementedError``: there is no fallback.  CPU tensors run the
     kernels' plain versions, forward and backward.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    operands = (q, k, v) if bias is None else (q, k, v, bias)
-    if not (torch.is_grad_enabled() and any(t.requires_grad for t in operands)):
-        return flash_attention_fwd(q, k, v, bias, scale)
-    if bias is not None:
-        raise NotImplementedError(
-            "the flash backward has no bias path: the bias-gradient kernel (K7) "
-            "is not ported; a bias is a forward-only operand"
-        )
-    return _FlashAttention.apply(q, k, v, float(scale))
+    grad = _needs_grad(q, k, v) if bias is None else _needs_grad(q, k, v, bias)
+    if grad and bias is not None:
+        raise NotImplementedError(_NO_BIAS_GRAD)
+    return _FlashAttention.apply(q, k, v, bias, float(scale), grad)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -567,21 +618,41 @@ fused_short_attention_bwd.launches = 0
 
 
 class _FusedShortAttention(torch.autograd.Function):
-    """The fused forward with its o and lse saved; the backward is one launch
-    of the fused backward (the JAX ``custom_vjp`` of ``_attention_fused_short``)."""
+    """The fused forward, with its o and lse saved when a gradient is asked
+    for; the backward is one launch of the fused backward (the JAX
+    ``custom_vjp`` of ``_attention_fused_short``).  Under ``torch.func.vmap``
+    the vmapped axis is folded into the batch, as for ``_FlashAttention``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = fused_short_attention_fwd(q, k, v, scale, return_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(q, k, v, scale, with_lse):
+        if with_lse:
+            return fused_short_attention_fwd(q, k, v, scale, return_lse=True)
+        return fused_short_attention_fwd(q, k, v, scale), None
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, scale, with_lse = inputs
+        out, lse = output
+        if with_lse:
+            ctx.mark_non_differentiable(lse)
+            ctx.save_for_backward(q, k, v, out, lse)
+        ctx.set_materialize_grads(False)  # as in _FlashAttention
         ctx.scale = scale
-        return out
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, _dlse):
+        if do is None:  # as in _FlashAttention
+            return None, None, None, None, None
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()  # arrives as the transposed view of the head merge
-        return (*fused_short_attention_bwd(q, k, v, out, lse, do, ctx.scale), None)
+        return (*fused_short_attention_bwd(q, k, v, out, lse, do, ctx.scale), None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, scale, with_lse):
+        with_lse = with_lse or _needs_grad(q, k, v)  # as in _FlashAttention.vmap
+        q, k, v = _fold_cells(info.batch_size, in_dims[:3], (q, k, v))
+        return _unfold_cells(info.batch_size,
+                             _FusedShortAttention.apply(q, k, v, scale, with_lse))
 
 
 def fused_short_attention(
@@ -595,12 +666,11 @@ def fused_short_attention(
     With a gradient required of q, k or v the forward saves
     ``(q, k, v, o, lse)`` and the backward launches the fused backward once;
     without one only the forward kernel runs.  CPU tensors run the kernels'
-    plain versions, forward and backward."""
+    plain versions, forward and backward.  Under ``torch.func.vmap`` each
+    kernel launches once for all cells, as ``flash_attention``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
-        return fused_short_attention_fwd(q, k, v, scale)
-    return _FusedShortAttention.apply(q, k, v, float(scale))
+    return _FusedShortAttention.apply(q, k, v, float(scale), _needs_grad(q, k, v))[0]
 
 
 def takes_fused(use_fused: Optional[bool], bias: Optional[torch.Tensor], n: int) -> bool:

@@ -38,7 +38,7 @@ transposed pair of the int8 dx product is ``quantize_cols(weight.t())``:
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -222,13 +222,15 @@ int8_gemm_static.launches = 0
 # ---------------------------------------------------------------- the ops
 
 
-def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, w: torch.Tensor, w_i8: Optional[torch.Tensor] = None,
+                s_w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ w^T`` through the int8 path, for no-grad forwards: x (..., K) of
     any float dtype, w (N, K).  The weight is quantized per call in plain
-    PyTorch; returns x's dtype (..., N)."""
+    PyTorch unless its codes are given (``w_i8``, ``s_w`` from
+    ``quantize_cols``: a serving session quantizes once, at load); returns
+    x's dtype (..., N)."""
     with torch.no_grad():
-        w_i8, s_w = quantize_cols(w)
-        return int8_gemm_dynamic(x, w_i8, s_w)
+        return _Int8Matmul.apply(x, w, w_i8, s_w, None, None, None)
 
 
 class _Int8Matmul(torch.autograd.Function):
@@ -237,12 +239,25 @@ class _Int8Matmul(torch.autograd.Function):
     from ``w`` when absent).  Backward: ``dx`` through the dynamic kernel
     against ``wt_i8`` / ``s_wt`` when given, else the dense ``g @ w``; ``dw``
     the dense ``g^T x``.  Each is computed only where a gradient is asked for,
-    and ``x`` is saved only for ``dw``."""
+    and ``x`` is saved only for ``dw``.
+
+    Under ``torch.func.vmap`` (a sweep round's cells) the batching rule folds
+    the vmapped axis into the rows, so one launch serves every cell, forward
+    and dx.  The weights are frozen and shared: a batched weight raises.  A
+    batched static scale ``s_x`` (each cell calibrates its own) launches the
+    kernel once per cell, since the kernel reads one scale a launch."""
 
     @staticmethod
-    def forward(ctx, x, w, w_i8, s_w, wt_i8, s_wt, s_x):
+    def forward(x, w, w_i8, s_w, wt_i8, s_wt, s_x):
         if w_i8 is None:
             w_i8, s_w = quantize_cols(w)
+        if s_x is not None:
+            return int8_gemm_static(x, w_i8, s_w, s_x)
+        return int8_gemm_dynamic(x, w_i8, s_w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, _, _, wt_i8, s_wt, _ = inputs
         need_dx, need_dw = ctx.needs_input_grad[:2]
         ctx.i8_dx = wt_i8 is not None
         ctx.x_dtype, ctx.w_dtype = x.dtype, w.dtype
@@ -252,9 +267,6 @@ class _Int8Matmul(torch.autograd.Function):
             wt_i8 if need_dx else None,
             s_wt if need_dx else None,
         )
-        if s_x is not None:
-            return int8_gemm_static(x, w_i8, s_w, s_x)
-        return int8_gemm_dynamic(x, w_i8, s_w)
 
     @staticmethod
     def backward(ctx, g):
@@ -270,6 +282,20 @@ class _Int8Matmul(torch.autograd.Function):
             g2d = g.reshape(-1, g.shape[-1])
             dw = torch.matmul(g2d.t(), x.reshape(-1, x.shape[-1])).to(ctx.w_dtype)
         return dx, dw, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, w_i8, s_w, wt_i8, s_wt, s_x):
+        if any(d is not None for d in in_dims[1:6]):
+            raise NotImplementedError("the int8 matmul's weights are shared by the vmapped "
+                                      "axis: a batched weight or weight scale")
+        cells, x_dim, s_dim = info.batch_size, in_dims[0], in_dims[6]
+        if s_dim is None:  # then x is the batched operand
+            # (cells, ..., K): the wrapper takes any leading shape as rows
+            return _Int8Matmul.apply(x.movedim(x_dim, 0), w, w_i8, s_w, wt_i8, s_wt, s_x), 0
+        s_x = s_x.movedim(s_dim, 0)
+        outs = [_Int8Matmul.apply(x if x_dim is None else x.select(x_dim, i), w, w_i8, s_w,
+                                  wt_i8, s_wt, s_x[i]) for i in range(cells)]
+        return torch.stack(outs), 0
 
 
 def int8_matmul_bf16_bwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -29,3 +29,6 @@ def test_sweep_visits_and_chooses_as_jax(monkeypatch, tmp_path, ref_compat, vmap
     assert got["score"] == pytest.approx(want["score"], abs=1e-4)
     if vmap and not ref_compat:
         assert len(want["cells"][0][0]) == 2  # the coarse round trains together
+        # the port's too: one train_cells call for the coarse round, and no
+        # one-cell epoch but the final train's (its rounds take the batched epoch)
+        assert len(got["cells"][0][0]) == 2 and len(got["losses"]) == len(want["losses"])
