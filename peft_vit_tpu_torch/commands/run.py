@@ -6,11 +6,17 @@
   epochs) -> test metric -> reference-shaped logs + results.jsonl
 
 on the card unless the caller asks for the CPU (``device="cpu"``).  The
-port runs LoRA and the linear probe (``PEFT.METHOD`` lora, linear, or none,
-which the JAX driver trains as linear); other methods, and the cached-prefix
-sweep the JAX driver takes when every trainable leaf sits past block 0
-(``engine/cached.py``; LoRA on every block never takes it), raise
-``NotImplementedError``.
+port runs the linear probe (``PEFT.METHOD`` linear, or none, which the JAX
+driver trains as linear) and every method whose trainable leaves are
+injected PEFT leaves: LoRA and its variants (lora_fix_one, lora_moe,
+lora_adapter, lora_compacter, lora_drop_adapter), KAdaptation, the Houlsby
+adapter and AdapterDrop, Compacter, LePE, VPT and the transformer probe.
+RPB, the methods that train a subset of the pretrained tower, the
+contrastive methods and intrinsic dimension raise ``NotImplementedError``,
+and so does the cached-prefix sweep the JAX driver takes when every
+trainable leaf sits past block 0 (``engine/cached.py``: AdapterDrop on its
+last blocks and the transformer probe take it unless
+``TRAIN.CACHE_FROZEN_PREFIX`` is False).
 
     python -m peft_vit_tpu_torch.commands.run --ds DS.yaml --model MODEL.yaml [KEY VALUE ...]
 """
@@ -39,9 +45,21 @@ from .common import add_finetuning_args, fix_seeds, load_config, setup_run_logge
 
 logger = logging.getLogger(__name__)
 
-PORTED_METHODS = ("lora", "linear", "none")
-# where ROADMAP queues the rest: the contrastive methods need the text tower
-_CONTRASTIVE = ("finetune_contrast", "linear_probe_contrast")
+PORTED_METHODS = (
+    "linear", "none", "lora", "lora_fix_one", "lora_moe", "lora_adapter", "lora_compacter",
+    "lora_drop_adapter", "kadaptation", "adapter", "adapterdrop", "compacter", "lepe", "vpt",
+    "transformer_probe",
+)
+# the ROADMAP §1 item that queues each method still refused
+_QUEUED = {
+    "rpb": "RPB and the attention-bias gradient",
+    **{m: "the mask-only methods" for m in (
+        "full", "bitfit", "layernorm", "attention", "first_attention", "first_mlp")},
+    # the contrastive methods need the text tower
+    "finetune_contrast": "probes and zero-shot",
+    "linear_probe_contrast": "probes and zero-shot",
+    "intrinsic": "intrinsic dimension",
+}
 
 
 def _first_trainable_layer(mask: Mapping[str, bool], num_layers: int) -> int:
@@ -60,18 +78,53 @@ def _first_trainable_layer(mask: Mapping[str, bool], num_layers: int) -> int:
 
 
 def _fresh_leaf(name: str, shape, generator: torch.Generator) -> torch.Tensor:
-    """A freshly initialised trainable leaf, drawn as the JAX package's
-    flax init draws it: LoRA ``*_adapter1`` N(0, 0.02^2) and ``*_adapter2``
-    zeros, a Dense kernel lecun-normal (truncated at 2 std), a bias zeros."""
-    module, leaf = name.rsplit(".", 1)
+    """A freshly initialised trainable leaf, drawn as the JAX package's flax
+    init draws it:
+
+    * biases, Compacter's ``b``, KAdaptation's ``phmb`` and LoRA's
+      ``*_adapter2``: zeros; a LayerNorm scale (a rank-1 ``weight``): ones;
+    * LoRA's ``*_adapter1`` and the MoE gates ``*_moe_adapter1``, the
+      adapters' ``down`` and ``up``, the prompts: N(0, 0.02^2);
+    * KAdaptation's ``phm_rule``, ``W_left*`` and ``W_right*``, Compacter's
+      ``phm_rule``: N(0, 0.01^2);
+    * Compacter's ``W`` (n, in/n, out/n): ``variance_scaling(2, fan_avg,
+      uniform)`` with flax's fans (fan in = in, fan out = out);
+    * LePE's depthwise ``get_v`` (d, 1, 3, 3): lecun normal, fan in 9;
+    * ``in_proj``: xavier uniform; any other Dense kernel (the head, the
+      probe block's ``out_proj``, ``c_fc``, ``c_proj``): lecun normal.
+
+    Lecun normal is flax's: a normal truncated at 2 std, scaled to variance
+    1 / fan_in."""
+    module, _, leaf = name.rpartition(".")
+    last = module.rpartition(".")[2]
     t = torch.zeros(shape, dtype=torch.float32)
-    if leaf == "bias" or module.endswith("_adapter2"):
+
+    def lecun_normal(fan_in: int) -> torch.Tensor:
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        return torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                           generator=generator)
+
+    def uniform(limit: float) -> torch.Tensor:
+        return torch.nn.init.uniform_(t, -limit, limit, generator=generator)
+
+    if leaf in ("bias", "b", "phmb") or last.endswith("_adapter2"):
         return t
-    if module.endswith("_adapter1"):
+    if leaf in ("prompt_embeddings", "deep_prompt_embeddings") or last.endswith("_adapter1") or (
+            leaf == "weight" and last in ("down", "up")):
         return torch.nn.init.normal_(t, std=0.02, generator=generator)
+    if leaf == "phm_rule" or leaf.startswith(("W_left", "W_right")):
+        return torch.nn.init.normal_(t, std=0.01, generator=generator)
+    if leaf == "W":
+        fan_in, fan_out = shape[1] * shape[0], shape[2] * shape[0]
+        return uniform(math.sqrt(3.0 * 2.0 / ((fan_in + fan_out) / 2.0)))
+    if leaf == "weight" and len(shape) == 1:
+        return t.fill_(1.0)
+    if leaf == "weight" and last == "get_v":
+        return lecun_normal(shape[1] * shape[2] * shape[3])
+    if leaf == "weight" and last == "in_proj":
+        return uniform(math.sqrt(6.0 / (shape[0] + shape[1])))
     if leaf == "weight" and len(shape) == 2:
-        std = math.sqrt(1.0 / shape[1]) / 0.87962566103423978
-        return torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+        return lecun_normal(shape[1])
     raise NotImplementedError(f"no fresh initialiser for {name}")
 
 
@@ -95,11 +148,9 @@ def finetune_main(
     spec = spec_from_config(cfg)
     logger.info("=> PEFT method: %s (%s)", cfg.PEFT.METHOD, spec)
     if spec.method not in PORTED_METHODS:
-        item = ("item 5, probes and zero-shot" if spec.method in _CONTRASTIVE
-                else "item 4, the remaining PEFT hooks")
         raise NotImplementedError(
             f"PEFT method {spec.method!r} is not ported to peft_vit_tpu_torch yet "
-            f"(ported: {', '.join(PORTED_METHODS)}; ROADMAP: {item})"
+            f"(ported: {', '.join(PORTED_METHODS)}; ROADMAP §1, {_QUEUED[spec.method]})"
         )
 
     splits = construct_splits(cfg)
@@ -110,7 +161,9 @@ def finetune_main(
     if variables is not None:
         load_jax_variables(model, variables)
 
-    num_layers = len(model.backbone.blocks)
+    # the tower's depth, the probe's extra block not counted (the JAX driver's
+    # model.backbone.layers): transformer_probe's mask is blocks_<num_layers>
+    num_layers = model.backbone.layers
     mask = build_mask(
         model,
         spec.method if spec.method != "none" else "linear",
@@ -126,7 +179,7 @@ def finetune_main(
             mask, num_layers) > 0:
         raise NotImplementedError(
             "the cached-prefix sweep (every trainable leaf past block 0) is not ported to "
-            "peft_vit_tpu_torch yet (ROADMAP: item 5, probes and zero-shot); set "
+            "peft_vit_tpu_torch yet (ROADMAP §1, probes and zero-shot); set "
             "TRAIN.CACHE_FROZEN_PREFIX False to train through the whole tower"
         )
     trainable0, frozen = split_params(model, mask)
@@ -145,8 +198,8 @@ def finetune_main(
         base = {k: v.detach().cpu().clone() for k, v in trainable0.items()}
 
         def init_trainables(key: CellKey) -> Dict[str, torch.Tensor]:
-            # every trainable leaf of LoRA and the linear probe is an injected
-            # PEFT leaf or the head: all of them are drawn fresh per cell
+            # every trainable leaf of a ported method is an injected PEFT leaf
+            # or the head: all of them are drawn fresh per cell
             gen = key.generator()
             return {k: _fresh_leaf(k, v.shape, gen) for k, v in base.items()}
 

@@ -3,7 +3,7 @@
 The port keeps the registry's names and protocol metadata and the sources
 that need no decoding: ``synthetic`` and ``npz``.  TSV lists, ImageFolder
 trees, the hub download and ELEVATER manifests raise
-``NotImplementedError`` (ROADMAP item 7, streaming data).  What follows is the JAX
+``NotImplementedError`` (ROADMAP §1, streaming data).  What follows is the JAX
 module's own account.
 
 The reference resolves datasets by name through the `vision-datasets`
@@ -162,7 +162,7 @@ def synthetic_dataset(
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported to peft_vit_tpu_torch yet (ROADMAP: item 7, streaming data); "
+        f"{what} is not ported to peft_vit_tpu_torch yet (ROADMAP §1, streaming data); "
         "use the synthetic dataset or an npz cache"
     )
 

@@ -231,9 +231,13 @@ def make_train_step(
                         in_dims=(0, 0 if has_bn else None, 0))(trainable, new_bn, own)
         else:
             loss = loss_of(trainable, new_bn, own, frozen, bx, by, bv)
-        grads = torch.autograd.grad(loss.sum(), list(trainable.values()))
-        state = sgd_update(dict(zip(trainable, grads)), state, lr, wd, momentum, nesterov,
-                           lr_scale)
+        # a leaf the forward does not read (KAdaptation's phmb, the adapters
+        # of the blocks AdapterDrop skips) gets a zero gradient, as in JAX:
+        # weight decay still moves it
+        grads = torch.autograd.grad(loss.sum(), list(trainable.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(v) if g is None else g
+                 for (k, v), g in zip(trainable.items(), grads)}
+        state = sgd_update(grads, state, lr, wd, momentum, nesterov, lr_scale)
         return state._replace(bn=new_bn), loss.detach()
 
     return step

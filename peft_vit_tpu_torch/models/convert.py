@@ -6,10 +6,14 @@ the names a flax init produces) to this package's ``state_dict``:
 
 * module path ``a/b/c`` -> ``a.b.c``; ``blocks_<i>`` -> ``blocks.<i>``;
 * Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in);
-* Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW;
+* Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW (LePE's depthwise
+  ``get_v`` (3, 3, 1, d) -> (d, 1, 3, 3), ``groups=d``);
 * LayerNorm ``scale`` -> ``weight``;
-* everything else (biases, ``class_embedding``, ``positional_embedding``,
-  ``proj``, ``bn_mean``, ``bn_var``) keeps its name and layout.
+* everything else keeps its name and layout: biases, ``class_embedding``,
+  ``positional_embedding``, ``proj``, ``bn_mean``, ``bn_var`` and the raw
+  PEFT parameters (Compacter's ``W``, ``phm_rule`` and ``b``, KAdaptation's
+  ``phm_rule``, ``phmb``, ``W_left{1,2}`` and ``W_right{1,2}``, VPT's
+  ``prompt_embeddings`` and ``deep_prompt_embeddings``).
 
 Arrays arrive as fp32.  Loading copies each into the dtype the model
 stores it in: fp32 for every trainable leaf (and for every leaf before
@@ -93,9 +97,13 @@ def jax_path(name: str, ndim: int) -> str:
     """This package's parameter name -> the JAX package's ``/``-joined path:
     ``backbone.blocks.1.attn.q_adapter1.weight`` (2-D) ->
     ``backbone/blocks_1/attn/q_adapter1/kernel``.  A ``weight`` of rank 1 is
-    a LayerNorm ``scale``, of rank 2 or 4 a ``kernel``."""
+    a LayerNorm ``scale``, of rank 2 (Dense) or 4 (Conv) a ``kernel``; every
+    other leaf is a raw flax parameter and keeps its name (``W``,
+    ``phm_rule``, ``b``, ``phmb``, ``W_left1``, ``prompt_embeddings``, ...)."""
     *modules, leaf = name.split(".")
     if leaf == "weight":
+        if ndim not in (1, 2, 4):
+            raise ValueError(f"{name}: a weight of rank {ndim}")
         leaf = "scale" if ndim == 1 else "kernel"
     parts = []
     for m in modules:
@@ -186,13 +194,9 @@ def infer_clip_shape(sd: Mapping) -> Dict[str, int]:
 
 
 def _convert_block(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
-    """One ResidualAttentionBlock -> the JAX package's Block names (the LoRA
-    q/v pairs of a reference-trained checkpoint included)."""
-    if f"{prefix}.adapter.adapter_down.1.weight" in sd:
-        raise NotImplementedError(
-            f"{prefix} carries a Houlsby adapter: adapters are not ported to "
-            "peft_vit_tpu_torch yet (ROADMAP: item 4, the remaining PEFT hooks)"
-        )
+    """One ResidualAttentionBlock -> the JAX package's Block names (the
+    Houlsby adapter and the LoRA q/v pairs of a reference-trained checkpoint
+    included)."""
     out = {
         "ln_1/scale": _np(sd[f"{prefix}.ln_1.weight"]),
         "ln_1/bias": _np(sd[f"{prefix}.ln_1.bias"]),
@@ -207,6 +211,18 @@ def _convert_block(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
         "mlp/c_proj/kernel": _np(sd[f"{prefix}.mlp.c_proj.weight"]).T,
         "mlp/c_proj/bias": _np(sd[f"{prefix}.mlp.c_proj.bias"]),
     }
+    if f"{prefix}.adapter.adapter_down.1.weight" in sd:
+        # a reference-trained Houlsby adapter (adapter_model.py:204-342):
+        # adapter_norm_before, adapter_down = Sequential(LN, Linear, act), adapter_up
+        a = f"{prefix}.adapter"
+        out.update({
+            "adapter/adapter_norm_before/scale": _np(sd[f"{a}.adapter_norm_before.weight"]),
+            "adapter/adapter_norm_before/bias": _np(sd[f"{a}.adapter_norm_before.bias"]),
+            "adapter/down/kernel": _np(sd[f"{a}.adapter_down.1.weight"]).T,
+            "adapter/down/bias": _np(sd[f"{a}.adapter_down.1.bias"]),
+            "adapter/up/kernel": _np(sd[f"{a}.adapter_up.weight"]).T,
+            "adapter/up/bias": _np(sd[f"{a}.adapter_up.bias"]),
+        })
     for t in ("q", "v"):
         if f"{prefix}.attn.{t}_proj_adapter1.weight" in sd:
             out[f"attn/{t}_adapter1/kernel"] = _np(sd[f"{prefix}.attn.{t}_proj_adapter1.weight"]).T

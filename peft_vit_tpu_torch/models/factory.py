@@ -90,7 +90,8 @@ def _vision_model(cfg) -> str:
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to peft_vit_tpu_torch yet (ROADMAP: {item})")
+    return NotImplementedError(
+        f"{what} is not ported to peft_vit_tpu_torch yet (ROADMAP §1, {item})")
 
 
 def compute_dtype(cfg, device: torch.device) -> torch.dtype:
@@ -134,16 +135,16 @@ def build_image_classifier(
     if not is_clip_model(cfg) or _vision_model(cfg) != "vit" or re.match(
             r"^rn\d+", str(cfg.MODEL.NAME).lower()):
         raise _not_ported(f"MODEL.NAME {cfg.MODEL.NAME!r} (only CLIP ViT towers)",
-                          "item 8, the backbone zoo")
+                          "the backbone zoo")
     if bool(cfg.TRAIN.INIT_HEAD_WITH_TEXT_ENCODER):
         raise _not_ported("TRAIN.INIT_HEAD_WITH_TEXT_ENCODER (the CLIP text tower)",
-                          "item 5, probes and zero-shot")
+                          "probes and zero-shot")
     if bool(tpu.get("SCAN_LAYERS", False)):
-        raise _not_ported("TPU.SCAN_LAYERS", "item 11, the rest")
+        raise _not_ported("TPU.SCAN_LAYERS", "the rest")
     if bool(tpu.get("SEQUENCE_PARALLEL", False)):
-        raise _not_ported("TPU.SEQUENCE_PARALLEL", "item 10, parallelism")
+        raise _not_ported("TPU.SEQUENCE_PARALLEL", "parallelism")
     if bool(tpu.get("INT8_ATTN", False)) or bool(tpu.get("INT8_ATTN_PV", False)):
-        raise _not_ported("TPU.INT8_ATTN / INT8_ATTN_PV", "item 2, int8_attention")
+        raise _not_ported("TPU.INT8_ATTN / INT8_ATTN_PV", "int8_attention")
     softmax_fp32 = not bool(tpu.get("BF16_SOFTMAX", False))
     check_softmax_fp32(device.type, softmax_fp32)
 
@@ -154,7 +155,7 @@ def build_image_classifier(
         logger.info("=> loaded checkpoint %s", cfg.MODEL.PRETRAINED)
         if "visual.conv1.weight" not in sd or "visual.attnpool.c_proj.weight" in sd:
             raise _not_ported("a checkpoint without a CLIP ViT visual tower",
-                              "item 8, the backbone zoo")
+                              "the backbone zoo")
         info = infer_clip_shape(sd)
         heads = int(cfg.MODEL.SPEC.VISION.get("HEADS", 0))
         if heads:  # not recoverable from a state dict

@@ -1,14 +1,29 @@
 """Transformer building blocks (counterpart of ``peft_vit_tpu/models/layers.py``).
 
-Ported: the activations, ``LayerNorm``, ``Mlp``, ``MultiHeadAttention``
-with a packed ``in_proj`` and the LoRA q/k/v deltas (with the CLIP
-``lora_post_scale_q`` quirk), ``Block`` with training-mode drop-path, and
-the int8 frozen tower: ``Int8Dense`` in place of ``Dense`` for the GEMMs
-named in ``int8_targets`` (``int8``: no-grad forwards; ``int8_train``:
-training forwards with a full-precision or int8-dx backward), with
-``collect_activation_stats`` for the static activation scales.  Every other
-PEFT hook, and int8 attention (``int8_attn``, ``int8_attn_pv``), raises
-``NotImplementedError`` (``require_ported``).
+The activations, ``LayerNorm``, ``Mlp``, ``MultiHeadAttention`` with a
+packed ``in_proj`` and ``Block`` with training-mode drop-path, and every
+PEFT hook of the JAX package but one:
+
+* the LoRA q/k/v deltas (with the CLIP ``lora_post_scale_q`` quirk, the
+  executed reference's ``lora_ref_reshape`` layout and the LoRA-MoE gate);
+* the KAdaptation Kronecker q/v deltas (``attn_delta='kron'``, with the
+  unused ``phmb`` leaf kept for parameter-count parity);
+* the shared head-dim adapter on q, k and v (``attn_adapter='shared_qkv'``);
+* LePE's depthwise 3x3 convolution of v over the patch grid, with the
+  reference's ``lepe_ref_qkv`` q/k/v scramble;
+* the post-MLP Houlsby ``Adapter`` and ``CompacterAdapter`` (``PHMDense``),
+  each run only in the blocks of ``adapter_layers`` (AdapterDrop) while its
+  leaves exist in every block;
+* the int8 frozen tower: ``Int8Dense`` in place of ``Dense`` for the GEMMs
+  named in ``int8_targets`` (``int8``: no-grad forwards; ``int8_train``:
+  training forwards with a full-precision or int8-dx backward), with
+  ``collect_activation_stats`` for the static activation scales.
+
+The relative position bias (``attn_bias='rpb'``), whose trainable table
+needs the attention-bias gradient, and int8 attention (``int8_attn``,
+``int8_attn_pv``) raise ``NotImplementedError`` (``require_ported``).  The
+hooks' own arithmetic is plain PyTorch, as it is XLA outside any Pallas
+kernel in the JAX package.
 
 Numerics follow the JAX modules: every weight is stored in fp32 (``Dense``'s
 ``param_dtype``) and cast to the module's compute ``dtype`` at use (flax
@@ -33,6 +48,7 @@ from torch import nn
 from ..ops import int8 as int8_ops
 from ..ops.attention import multi_head_attention
 from ..ops.int8 import INT8_TARGET_MODULES
+from ..ops.phm import factorized_phm_weight, phm_linear
 from ..peft.spec import PEFTSpec
 
 
@@ -58,20 +74,14 @@ ACT2FN: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 def require_ported(spec: PEFTSpec, int8_attn: bool = False,
                    int8_attn_pv: bool = False) -> None:
-    """Raise ``NotImplementedError`` for every hook of ``spec``, and every
-    int8 attention flag, the port lacks."""
+    """Raise ``NotImplementedError`` for a hook of ``spec``, or an int8
+    attention flag, that the port lacks, naming its ROADMAP item."""
     unported = {
-        "int8_attn (int8 QK^T on calibrated q/k/v scales)": int8_attn,
-        "int8_attn_pv (int8 P@V)": int8_attn_pv,
-        "attn_delta=kron (KAdaptation)": spec.attn_delta == "kron",
-        "adapter (Houlsby / Compacter)": spec.adapter != "none",
-        "attn_bias=rpb": spec.attn_bias != "none",
-        "lepe": spec.lepe,
-        "lepe_ref_qkv": spec.lepe_ref_qkv,
-        "attn_adapter=shared_qkv": spec.attn_adapter != "none",
-        "prompt_tokens (VPT)": spec.prompt_tokens > 0,
-        "lora_moe": spec.lora_moe,
-        "extra_block": spec.extra_block,
+        "int8_attn (int8 QK^T on calibrated q/k/v scales) (ROADMAP §1, int8_attention)":
+            int8_attn,
+        "int8_attn_pv (int8 P@V) (ROADMAP §1, int8_attention)": int8_attn_pv,
+        "attn_bias=rpb (ROADMAP §1, RPB and the attention-bias gradient)":
+            spec.attn_bias != "none",
     }
     if spec.attn_delta not in ("none", "lora", "kron"):
         raise ValueError(f"unknown attn_delta {spec.attn_delta!r}")
@@ -80,6 +90,12 @@ def require_ported(spec: PEFTSpec, int8_attn: bool = False,
         raise NotImplementedError(
             f"hooks not ported to peft_vit_tpu_torch yet: {', '.join(missing)}"
         )
+
+
+def _cell(t: Optional[torch.Tensor], dim: Optional[int], i: int) -> Optional[torch.Tensor]:
+    """Cell ``i`` of an operand a batching rule was given batched along
+    ``dim``, or the operand itself when it is shared (``dim`` None)."""
+    return t if dim is None else t.select(dim, i)
 
 
 class _Linear(torch.autograd.Function):
@@ -119,11 +135,8 @@ class _Linear(torch.autograd.Function):
             folded = x.reshape(cells * x.shape[1], *x.shape[2:]).contiguous()
             return _Linear.apply(folded, w, b).unflatten(0, (cells, -1)), 0
 
-        def cell(t, dim, i):
-            return t if dim is None else t.select(dim, i)
-
-        return torch.stack([_Linear.apply(cell(x, x_dim, i), cell(w, w_dim, i),
-                                          cell(b, b_dim, i)) for i in range(cells)]), 0
+        return torch.stack([_Linear.apply(_cell(x, x_dim, i), _cell(w, w_dim, i),
+                                          _cell(b, b_dim, i)) for i in range(cells)]), 0
 
 
 class Dense(nn.Linear):
@@ -247,11 +260,51 @@ def cast_frozen_(model: nn.Module) -> nn.Module:
     return model
 
 
+class _LayerNorm(torch.autograd.Function):
+    """``F.layer_norm(x, (D,), w, b, eps)`` over the last axis, through the
+    same ATen forward and backward, whose batching rule keeps a round's
+    cells' arithmetic that of one cell: shared ``w`` and ``b`` (the frozen
+    tower's) take every cell's rows at once, as for one cell; a batched ``w``
+    or ``b`` (a trainable LayerNorm: the adapters', the probe block's) runs
+    one cell at a time.  ``torch.func.vmap``'s own rule for ``F.layer_norm``
+    with a batched weight applies the affine after the normalization, which
+    rounds otherwise."""
+
+    @staticmethod
+    def forward(x, w, b, eps):
+        return torch.ops.aten.native_layer_norm(x, (x.shape[-1],), w, b, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, b, _ = inputs
+        _, mean, rstd = output
+        ctx.mark_non_differentiable(mean, rstd)
+        ctx.save_for_backward(x, w, b, mean, rstd)
+
+    @staticmethod
+    def backward(ctx, g, _dmean, _drstd):
+        x, w, b, mean, rstd = ctx.saved_tensors
+        dx, dw, db = torch.ops.aten.native_layer_norm_backward(
+            g, x, (x.shape[-1],), mean, rstd, w, b, list(ctx.needs_input_grad[:3]))
+        return dx, dw, db, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, b, eps):
+        x_dim, w_dim, b_dim = in_dims[:3]
+        if w_dim is None and b_dim is None:
+            return _LayerNorm.apply(x.movedim(x_dim, 0), w, b, eps), (0, 0, 0)
+
+        outs = [_LayerNorm.apply(_cell(x, x_dim, i), _cell(w, w_dim, i), _cell(b, b_dim, i), eps)
+                for i in range(info.batch_size)]
+        return tuple(torch.stack(t) for t in zip(*outs)), (0, 0, 0)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm with fp32 statistics (eps 1e-5), output cast back to the
     input dtype.  ``compute_fp32=False`` normalizes in the input dtype (the
-    JAX throughput mode for bf16 training; ``F.layer_norm`` still
-    accumulates its statistics in fp32)."""
+    JAX throughput mode for bf16 training; the statistics still accumulate
+    in fp32).  ``F.layer_norm``'s arithmetic, through ``_LayerNorm`` so that
+    a sweep round's cells round as each cell alone."""
 
     eps = 1e-5
 
@@ -263,9 +316,7 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ct = torch.float32 if self.compute_fp32 else x.dtype
-        y = F.layer_norm(
-            x.to(ct), (x.shape[-1],), self.weight.to(ct), self.bias.to(ct), self.eps
-        )
+        y = _LayerNorm.apply(x.to(ct), self.weight.to(ct), self.bias.to(ct), self.eps)[0]
         return y.to(x.dtype)
 
 
@@ -291,23 +342,140 @@ class Mlp(nn.Module):
         return _call(self.c_proj, x, int8, int8_bwd)
 
 
-class MultiHeadAttention(nn.Module):
-    """Packed-qkv attention with the LoRA q/k/v deltas.
+class Adapter(nn.Module):
+    """Houlsby bottleneck adapter: LN -> down -> act -> up, + residual:
+    ``up(act(down(ln(m)))) + m``.  ``down`` and ``up`` are biased ``Dense``
+    layers (through ``_Linear``, so a round's cells round as one cell), the
+    LayerNorm is fp32 whatever the block's ``ln_fp32``, as in the JAX
+    ``Adapter``."""
 
-    * lora: dq = (x @ A_q) @ B_q * alpha/r, no biases.
-    * post_scale_q (CLIP LoRA parity): q is scaled by 1/sqrt(head_dim)
-      before the delta is added, and attention then runs at scale 1,
-      i.e. softmax((q/sqrt(d) + dq) k^T).
-    * lora_ref_reshape (``PEFT.LORA_REF_RESHAPE``): each delta is added
-      after the head split in the executed reference's flat layout, as the
-      JAX layer does for trajectory parity.
+    def __init__(self, width: int, adapter_dim: int = 64, act: str = "relu",
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.act = ACT2FN[act]
+        self.adapter_norm_before = LayerNorm(width, device=device)
+        self.down = Dense(width, adapter_dim, dtype=dtype, device=device)
+        self.up = Dense(adapter_dim, width, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.up(self.act(self.down(self.adapter_norm_before(x)))) + x
+
+
+def _fit_phm_dim(requested: int, *features: int) -> int:
+    """Largest n <= requested dividing every feature dim."""
+    n = max(min([requested, *features]), 1)
+    while any(f % n for f in features):
+        n -= 1
+    return n
+
+
+class PHMDense(nn.Module):
+    """PHM linear layer (Compacter building block): ``W`` (phm_dim, in/n,
+    out/n), ``phm_rule`` (n, n, n) and the bias ``b``, stored in fp32 and cast
+    to the compute ``dtype`` at use; ``y = x @ (sum_i rule_i (x) W_i) + b``.
+    The bias is added after the product is rounded to the compute dtype
+    (``ops.phm.phm_linear``), unlike ``Dense``, which adds it inside the
+    GEMM."""
+
+    def __init__(self, in_features: int, out_features: int, phm_dim: int,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        n = phm_dim
+        if in_features % n or out_features % n:
+            raise ValueError(f"phm_dim {n} must divide {in_features} and {out_features}")
+        self.compute_dtype = dtype
+        self.W = nn.Parameter(torch.empty(n, in_features // n, out_features // n,
+                                          device=device))
+        self.phm_rule = nn.Parameter(torch.empty(n, n, n, device=device))
+        self.b = nn.Parameter(torch.zeros(out_features, device=device))
+        limit = math.sqrt(3.0 * 2.0 / (0.5 * n * (in_features // n + out_features // n)))
+        nn.init.uniform_(self.W, -limit, limit)  # flax variance_scaling(2, fan_avg, uniform)
+        nn.init.normal_(self.phm_rule, std=0.01)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return phm_linear(x, self.phm_rule.to(dt), self.W.to(dt), self.b.to(dt))
+
+
+class CompacterAdapter(nn.Module):
+    """Hypercomplex adapter: LN -> PHM down (phm_dim 32) -> gelu_new -> PHM
+    up (phm_dim 4), + residual.  Each phm_dim shrinks to the largest divisor
+    of both features when the tower is narrower than 768 (``_fit_phm_dim``)."""
+
+    def __init__(self, width: int, reduction: int = 12, phm_dim_down: int = 32,
+                 phm_dim_up: int = 4, act: str = "gelu_new",
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        down_size = width // reduction
+        self.act = ACT2FN[act]
+        self.adapter_norm_before = LayerNorm(width, device=device)
+        self.down_phm = PHMDense(width, down_size, _fit_phm_dim(phm_dim_down, width, down_size),
+                                 dtype=dtype, device=device)
+        self.up_phm = PHMDense(down_size, width, _fit_phm_dim(phm_dim_up, down_size, width),
+                               dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.up_phm(self.act(self.down_phm(self.adapter_norm_before(x)))) + x
+
+
+class DepthwiseConv(nn.Conv2d):
+    """LePE's ``get_v``: a 3x3 depthwise convolution (SAME padding, bias) of
+    (B, g, g, width) NHWC tokens, its weight stored in fp32 and cast to the
+    compute ``dtype`` at use (flax ``nn.Conv(feature_group_count=width)``)."""
+
+    def __init__(self, width: int, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(width, width, 3, padding=1, groups=width, device=device,
+                         dtype=torch.float32)
+        self.compute_dtype = dtype
+        # flax's default lecun-normal kernel (fan in 3 x 3 x 1), zero bias
+        std = math.sqrt(1.0 / 9.0) / 0.87962566103423978
+        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt),
+                     padding=1, groups=self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
+# the LoRA-MoE gate's activation (``PEFTSpec.lora_moe_act``)
+_MOE_ACT: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "linear": lambda g: g,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "relu": F.relu,
+}
+
+
+class MultiHeadAttention(nn.Module):
+    """Packed-qkv attention with every attention-level PEFT hook but RPB.
+
+    * lora: dq = (x @ A_q) @ B_q * alpha/r, no biases; with ``lora_moe`` the
+      rank axis is viewed as (experts, group) and scaled per expert by the
+      gate ``act(x @ G) * lambda`` (optionally softmaxed).
+    * kron (KAdaptation): dq = x @ (sum_i rule_i (x) (W_left1_i W_right1_i)),
+      dv likewise with ``W_left2`` / ``W_right2``; ``phmb`` is created and
+      never read, as in the reference.
+    * post_scale_q (CLIP LoRA parity, any delta): q is scaled by
+      1/sqrt(head_dim) before the delta is added, and attention then runs at
+      scale 1, i.e. softmax((q/sqrt(d) + dq) k^T).
+    * lora_ref_reshape (``PEFT.LORA_REF_RESHAPE``, LoRA only): each delta is
+      added after the head split in the executed reference's flat layout.
+    * lepe_ref_qkv (with ``lepe``): q, k and v are replaced by the
+      reference's flat scramble of the raw projection.
+    * shared_qkv: one ``Adapter(head_dim, head_dim // 2)`` on the per-head
+      q, k and v.
+    * lepe: the depthwise 3x3 ``get_v`` of v over the ``grid_size`` patch
+      grid, added to the attention output after the ``n_prefix`` tokens.
     * ``int8=True`` builds ``in_proj`` / ``out_proj`` (those named in
-      ``int8_targets``) as ``Int8Dense``; the LoRA deltas stay dense.
+      ``int8_targets``) as ``Int8Dense``; the PEFT deltas stay dense.
     * ``softmax_fp32`` (False: ``TPU.BF16_SOFTMAX``) and ``attn_batch_chunk``
       (``TPU.ATTN_BATCH_CHUNK``) go to ``ops.attention.multi_head_attention``.
     """
 
-    def __init__(self, width: int, heads: int, spec: PEFTSpec = PEFTSpec(), int8: bool = False,
+    def __init__(self, width: int, heads: int, spec: PEFTSpec = PEFTSpec(), grid_size: int = 0,
+                 n_prefix: int = 1, int8: bool = False,
                  int8_attn: bool = False, int8_attn_pv: bool = False,
                  int8_targets: Sequence[str] = INT8_TARGET_MODULES,
                  softmax_fp32: bool = True, attn_batch_chunk: int = 0,
@@ -316,6 +484,9 @@ class MultiHeadAttention(nn.Module):
         require_ported(spec, int8_attn, int8_attn_pv)
         self.heads = heads
         self.spec = spec
+        self.grid_size = int(grid_size)
+        self.n_prefix = int(n_prefix)
+        self.compute_dtype = dtype
         self.softmax_fp32 = bool(softmax_fp32)
         self.attn_batch_chunk = int(attn_batch_chunk)
         self.in_proj = _dense_for("in_proj", int8, int8_targets)(
@@ -325,13 +496,61 @@ class MultiHeadAttention(nn.Module):
             if t not in ("q", "k", "v"):
                 raise ValueError(f"unknown LoRA target {t!r}")
             a1 = Dense(width, spec.lora_rank, bias=False, dtype=dtype, device=device)
-            a2 = Dense(spec.lora_rank, width, bias=False, dtype=dtype, device=device)
             nn.init.normal_(a1.weight, std=0.02)  # the JAX init: a fresh delta is 0
-            nn.init.zeros_(a2.weight)
             self.add_module(f"{t}_adapter1", a1)
+            if spec.lora_moe:
+                experts = max(spec.lora_rank // spec.lora_moe_group, 1)
+                gate = Dense(width, experts, bias=False, dtype=dtype, device=device)
+                nn.init.normal_(gate.weight, std=0.02)
+                self.add_module(f"{t}_moe_adapter1", gate)
+            a2 = Dense(spec.lora_rank, width, bias=False, dtype=dtype, device=device)
+            nn.init.zeros_(a2.weight)
             self.add_module(f"{t}_adapter2", a2)
+        if spec.attn_delta == "kron":
+            pn = spec.phm_dim
+            if width % pn:
+                raise ValueError(f"phm_dim {pn} must divide width {width}")
+
+            def normal(*shape):
+                return nn.Parameter(torch.randn(*shape, device=device) * 0.01)
+
+            self.phm_rule = normal(pn, pn, pn)
+            self.phmb = nn.Parameter(torch.zeros(width, device=device))
+            for idx in (1, 2):
+                setattr(self, f"W_left{idx}", normal(pn, width // pn, spec.phm_rank))
+                setattr(self, f"W_right{idx}", normal(pn, spec.phm_rank, width // pn))
+        if spec.attn_adapter == "shared_qkv":
+            hd = width // heads
+            self.qkv_adapter = Adapter(hd, hd // 2, act="relu", dtype=dtype, device=device)
+        elif spec.attn_adapter != "none":
+            raise ValueError(f"unknown attn_adapter {spec.attn_adapter!r}")
+        if spec.lepe:
+            if self.grid_size <= 0:
+                raise ValueError("LePE needs a patch grid (grid_size > 0)")
+            self.get_v = DepthwiseConv(width, dtype=dtype, device=device)
         self.out_proj = _dense_for("out_proj", int8, int8_targets)(
             width, width, dtype=dtype, device=device)
+
+    def _lora_delta(self, x: torch.Tensor, t: str) -> torch.Tensor:
+        spec = self.spec
+        a = getattr(self, f"{t}_adapter1")(x)
+        if spec.lora_moe:
+            g = getattr(self, f"{t}_moe_adapter1")(x)
+            g = _MOE_ACT[spec.lora_moe_act](g) * spec.lora_moe_lambda
+            if spec.lora_moe_softmax:
+                g = torch.softmax(g, dim=-1)
+            a = (a.unflatten(-1, (g.shape[-1], spec.lora_moe_group)) * g[..., None]).flatten(-2)
+        return getattr(self, f"{t}_adapter2")(a) * (spec.lora_alpha / spec.lora_rank)
+
+    def _kron_deltas(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        dt = self.compute_dtype
+        rule = self.phm_rule.to(dt)
+        deltas = {}
+        for idx, t in enumerate(("q", "v"), start=1):
+            h = factorized_phm_weight(rule, getattr(self, f"W_left{idx}").to(dt),
+                                      getattr(self, f"W_right{idx}").to(dt))
+            deltas[t] = torch.matmul(x, h.to(x.dtype))
+        return deltas
 
     def forward(self, x: torch.Tensor, int8: bool = False, int8_bwd: bool = False) -> torch.Tensor:
         b, n, d = x.shape
@@ -339,14 +558,13 @@ class MultiHeadAttention(nn.Module):
         hd = d // h
         spec = self.spec
         scale = hd**-0.5
-        q, k, v = _call(self.in_proj, x, int8, int8_bwd).chunk(3, dim=-1)
+        qkv = _call(self.in_proj, x, int8, int8_bwd)
+        q, k, v = qkv.chunk(3, dim=-1)
 
-        deltas = {}
-        if self.lora_targets:
-            lora_scale = spec.lora_alpha / spec.lora_rank
-            for t in self.lora_targets:
-                a = getattr(self, f"{t}_adapter1")(x)
-                deltas[t] = getattr(self, f"{t}_adapter2")(a) * lora_scale
+        if spec.attn_delta == "kron":
+            deltas = self._kron_deltas(x)
+        else:
+            deltas = {t: self._lora_delta(x, t) for t in self.lora_targets}
 
         if spec.attn_delta != "none" and spec.lora_post_scale_q:
             q = q * scale
@@ -355,36 +573,56 @@ class MultiHeadAttention(nn.Module):
             attn_scale = scale
 
         def split_heads(t: torch.Tensor) -> torch.Tensor:
-            return t.reshape(b, n, h, hd).transpose(1, 2).contiguous()
+            return t.reshape(b, n, h, hd).transpose(1, 2)
 
-        qkv = {"q": q, "k": k, "v": v}
-        if spec.lora_ref_reshape:
+        ref_reshape = spec.attn_delta == "lora" and spec.lora_ref_reshape
+        qkv_of = {"q": q, "k": k, "v": v}
+        if not ref_reshape:
+            for t, dl in deltas.items():
+                qkv_of[t] = qkv_of[t] + dl
+        heads_of = {t: split_heads(y) for t, y in qkv_of.items()}
+        if ref_reshape:
             # the executed reference's layout (lora_model.py:730-731): the
             # seq-first (N, B, C) delta reshaped flat into (B*H, N, hd),
             # which scrambles batch, sequence and head unless B = H = 1
-            qkv = {t: split_heads(x) for t, x in qkv.items()}
             for t, dl in deltas.items():
-                qkv[t] = qkv[t] + dl.transpose(0, 1).reshape(b, h, n, hd)
-        else:
-            for t, dl in deltas.items():
-                qkv[t] = qkv[t] + dl
-            qkv = {t: split_heads(x) for t, x in qkv.items()}
+                heads_of[t] = heads_of[t] + dl.transpose(0, 1).reshape(b, h, n, hd)
+        if spec.lepe and spec.lepe_ref_qkv:
+            # the executed reference's LePE layout (LePE.py:120-123): the
+            # (3, B, N, C) permutation of the raw projection reshaped flat to
+            # (B, N, 3, H, hd), which scrambles q, k and v across the batch;
+            # get_v below still reads the clean v
+            scr = qkv.reshape(b, n, 3, d).permute(2, 0, 1, 3).reshape(b, n, 3, h, hd)
+            heads_of = dict(zip("qkv", scr.permute(2, 0, 3, 1, 4).unbind(0)))
+        if spec.attn_adapter == "shared_qkv":
+            heads_of = {t: self.qkv_adapter(y) for t, y in heads_of.items()}
 
         out = multi_head_attention(
-            qkv["q"], qkv["k"], qkv["v"], scale=attn_scale,
+            *(heads_of[t].contiguous() for t in "qkv"), scale=attn_scale,
             softmax_fp32=self.softmax_fp32, batch_chunk=self.attn_batch_chunk,
         )
-        return _call(self.out_proj, out.transpose(1, 2).reshape(b, n, d), int8, int8_bwd)
+        out = out.transpose(1, 2).reshape(b, n, d)
+        if spec.lepe:
+            g, p = self.grid_size, self.n_prefix
+            lepe = self.get_v(qkv_of["v"][:, p:, :].reshape(b, g, g, d)).reshape(b, g * g, d)
+            out = torch.cat([out[:, :p], out[:, p:] + lepe.to(out.dtype)], dim=1)
+        return _call(self.out_proj, out, int8, int8_bwd)
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block:
-    x = x + drop_path(attn(ln_1(x))); x = x + drop_path(mlp(ln_2(x))).
+    """Pre-LN transformer block with the post-MLP adapter hook:
+    x = x + drop_path(attn(ln_1(x))); m = mlp(ln_2(x));
+    x = x + drop_path(adapter(m)) (the adapter adds its own + m), or
+    x + drop_path(m) without an adapter or in a block outside
+    ``spec.adapter_layers`` (AdapterDrop).  The adapter's leaves exist in
+    every block either way; a block that does not use it does not run it.
 
     ``drop_path`` (stochastic depth) acts in training mode only: each sample
     keeps its branch with probability ``1 - drop_path`` and is divided by
     it, drawn from the explicit ``generator``.  ``ln_fp32=False`` normalizes
     in the activations' dtype (the throughput mode of bf16 training).
+    ``grid_size`` and ``n_prefix`` (the class token and the prompts) place
+    LePE's patch grid among the tokens.
 
     ``int8``: the frozen tower's GEMMs (``int8_targets``) run int8 on eval
     forwards only; a training forward is then the dense path bit for bit
@@ -394,7 +632,8 @@ class Block(nn.Module):
     ``self.training``."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0, act: str = "gelu",
-                 spec: PEFTSpec = PEFTSpec(), drop_path: float = 0.0, ln_fp32: bool = True,
+                 spec: PEFTSpec = PEFTSpec(), layer_idx: int = 0, grid_size: int = 0,
+                 n_prefix: int = 1, drop_path: float = 0.0, ln_fp32: bool = True,
                  int8: bool = False, int8_train: bool = False, int8_attn: bool = False,
                  int8_attn_pv: bool = False,
                  int8_targets: Sequence[str] = INT8_TARGET_MODULES,
@@ -409,12 +648,27 @@ class Block(nn.Module):
         any_int8 = self.int8 or self.int8_train
         self.ln_1 = LayerNorm(width, compute_fp32=ln_fp32, device=device)
         self.attn = MultiHeadAttention(
-            width, heads, spec=spec, int8=any_int8, int8_attn=int8_attn,
-            int8_attn_pv=int8_attn_pv, int8_targets=int8_targets, softmax_fp32=softmax_fp32,
-            attn_batch_chunk=attn_batch_chunk, dtype=dtype, device=device)
+            width, heads, spec=spec, grid_size=grid_size, n_prefix=n_prefix, int8=any_int8,
+            int8_attn=int8_attn, int8_attn_pv=int8_attn_pv, int8_targets=int8_targets,
+            softmax_fp32=softmax_fp32, attn_batch_chunk=attn_batch_chunk, dtype=dtype,
+            device=device)
         self.ln_2 = LayerNorm(width, compute_fp32=ln_fp32, device=device)
         self.mlp = Mlp(width, int(width * mlp_ratio), act=act, int8=any_int8,
                        int8_targets=int8_targets, dtype=dtype, device=device)
+        if spec.adapter == "houlsby":
+            self.adapter = Adapter(width, spec.adapter_dim, act=spec.adapter_act, dtype=dtype,
+                                   device=device)
+        elif spec.adapter == "compacter":
+            self.compacter = CompacterAdapter(
+                width, reduction=spec.compacter_reduction,
+                phm_dim_down=spec.compacter_phm_dim_down, phm_dim_up=spec.compacter_phm_dim_up,
+                act=spec.compacter_act, dtype=dtype, device=device)
+        elif spec.adapter != "none":
+            raise ValueError(f"unknown adapter {spec.adapter!r}")
+        # the adapter module this block runs after its MLP (None: none runs)
+        self.adapter_name = {"houlsby": "adapter", "compacter": "compacter"}.get(spec.adapter)
+        if spec.adapter_layers is not None and layer_idx not in spec.adapter_layers:
+            self.adapter_name = None
 
     def _drop_path(self, x: torch.Tensor) -> torch.Tensor:
         if self.drop_path == 0.0 or not self.training:
@@ -431,4 +685,7 @@ class Block(nn.Module):
         int8 = (self.int8 and deterministic) or self.int8_train
         int8_bwd = self.int8_train and not (self.int8 and deterministic)
         x = x + self._drop_path(self.attn(self.ln_1(x), int8, int8_bwd))
-        return x + self._drop_path(self.mlp(self.ln_2(x), int8, int8_bwd))
+        m = self.mlp(self.ln_2(x), int8, int8_bwd)
+        if self.adapter_name is not None:
+            m = getattr(self, self.adapter_name)(m)
+        return x + self._drop_path(m)

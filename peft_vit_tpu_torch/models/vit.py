@@ -6,8 +6,19 @@ the class token -> ``@ proj``.  Images are NHWC, as in the JAX package.
 Weights are stored in fp32 and cast to the compute ``dtype`` at use.
 ``int8`` / ``int8_train`` route the blocks' frozen GEMMs (``int8_targets``)
 through the int8 path (``layers.Block``); ``patch_gemm`` computes the patch
-embedding as one matrix product.  The timm style, prompts, the extra probe
-block and int8 attention are not ported yet.
+embedding as one matrix product.
+
+Beyond the blocks' own hooks (``layers``):
+
+* VPT prompt tokens (``spec.prompt_tokens``): ``prompt_embeddings`` sit
+  between the class token and the patches and carry no positional
+  embedding; with ``spec.prompt_deep`` the ``deep_prompt_embeddings`` of
+  block i - 1 overwrite the prompt rows before each block i of 1 ... L - 1;
+* ``spec.extra_block`` (the transformer probe): an (L + 1)-th ``Block``,
+  ``blocks.<L>`` (``blocks_<L>`` in the JAX tree), after the L blocks of
+  ``layers``.
+
+The timm style and int8 attention are not ported yet.
 """
 
 from __future__ import annotations
@@ -83,33 +94,49 @@ class VisionTransformer(nn.Module):
         device=None,
     ):
         """``drop_path_rate`` is the last block's stochastic-depth rate: block
-        i of L gets ``linspace(0, rate, L)[i]``, drawn in training mode from
+        i of L (L + 1 with the extra block) gets ``linspace(0, rate, L)[i]``, drawn in training mode from
         ``generator``.  ``int8``: int8 GEMMs on eval forwards; ``int8_train``:
         on training forwards too (see ``layers.Block``).  ``softmax_fp32`` and
         ``attn_batch_chunk`` go to every block's attention."""
         super().__init__()
         self.dtype = self.compute_dtype = dtype
+        self.layers = layers
+        self.num_prompts = spec.prompt_tokens
         self.num_features = output_dim if output_dim is not None else width
         g = image_size // patch_size
         pkw = dict(device=device, dtype=torch.float32)
         self.conv1 = PatchEmbed(width, patch_size, dtype, gemm=patch_gemm, device=device)
         self.class_embedding = nn.Parameter(torch.randn(width, **pkw) * width**-0.5)
         self.positional_embedding = nn.Parameter(torch.randn(g * g + 1, width, **pkw) * 0.01)
+        if self.num_prompts > 0:
+            self.prompt_embeddings = nn.Parameter(torch.randn(self.num_prompts, width, **pkw)
+                                                  * 0.02)
+            if spec.prompt_deep and layers > 1:
+                self.deep_prompt_embeddings = nn.Parameter(
+                    torch.randn(layers - 1, self.num_prompts, width, **pkw) * 0.02)
         self.ln_pre = LayerNorm(width, compute_fp32=ln_fp32, device=device)
-        dpr = np.linspace(0.0, drop_path_rate, max(layers, 1))
+        total = layers + (1 if spec.extra_block else 0)
+        dpr = np.linspace(0.0, drop_path_rate, max(total, 1))
         self.blocks = nn.ModuleList(
-            Block(width, heads, mlp_ratio=mlp_ratio, act="quick_gelu", spec=spec,
-                  drop_path=float(dpr[i]), ln_fp32=ln_fp32, int8=int8, int8_train=int8_train,
-                  int8_attn=int8_attn, int8_attn_pv=int8_attn_pv, int8_targets=int8_targets,
+            Block(width, heads, mlp_ratio=mlp_ratio, act="quick_gelu", spec=spec, layer_idx=i,
+                  grid_size=g, n_prefix=1 + self.num_prompts, drop_path=float(dpr[i]),
+                  ln_fp32=ln_fp32, int8=int8, int8_train=int8_train, int8_attn=int8_attn,
+                  int8_attn_pv=int8_attn_pv, int8_targets=int8_targets,
                   softmax_fp32=softmax_fp32, attn_batch_chunk=attn_batch_chunk, dtype=dtype,
                   generator=generator, device=device)
-            for i in range(layers)
+            for i in range(total)
         )
         self.ln_post = LayerNorm(width, compute_fp32=ln_fp32, device=device)
         if output_dim is not None:
             self.proj = nn.Parameter(torch.randn(width, output_dim, **pkw) * width**-0.5)
         else:
             self.proj = None
+
+    def _prompts(self, x: torch.Tensor, prompts: torch.Tensor, replace: bool) -> torch.Tensor:
+        """``prompts`` (P, width) after the class token of every row of ``x``:
+        inserted, or in place of the rows there (``replace``)."""
+        p = prompts.to(self.dtype).expand(x.shape[0], -1, -1)
+        return torch.cat([x[:, :1], p, x[:, 1 + (self.num_prompts if replace else 0):]], dim=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) images -> (B, num_features) pooled features."""
@@ -118,8 +145,13 @@ class VisionTransformer(nn.Module):
         x = self.conv1(x)
         cls = self.class_embedding.to(dt).expand(b, 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
+        if self.num_prompts > 0:
+            x = self._prompts(x, self.prompt_embeddings, replace=False)
         x = self.ln_pre(x)
-        for block in self.blocks:
+        deep = getattr(self, "deep_prompt_embeddings", None)
+        for i, block in enumerate(self.blocks):
+            if deep is not None and 0 < i < self.layers:
+                x = self._prompts(x, deep[i - 1], replace=True)
             x = block(x)
         pooled = self.ln_post(x[:, 0, :])
         if self.proj is not None:

@@ -243,9 +243,12 @@ class _Int8Matmul(torch.autograd.Function):
 
     Under ``torch.func.vmap`` (a sweep round's cells) the batching rule folds
     the vmapped axis into the rows, so one launch serves every cell, forward
-    and dx.  The weights are frozen and shared: a batched weight raises.  A
-    batched static scale ``s_x`` (each cell calibrates its own) launches the
-    kernel once per cell, since the kernel reads one scale a launch."""
+    and dx, when the weights are shared (the frozen tower).  A batched static
+    scale ``s_x`` (each cell calibrates its own) launches the kernel once per
+    cell, since the kernel reads one scale a launch, and so does a batched
+    weight ``w`` (a trainable weight, each cell's own: the transformer
+    probe's extra block, quantized per call); batched codes or weight scales
+    raise."""
 
     @staticmethod
     def forward(x, w, w_i8, s_w, wt_i8, s_wt, s_x):
@@ -285,16 +288,19 @@ class _Int8Matmul(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, x, w, w_i8, s_w, wt_i8, s_wt, s_x):
-        if any(d is not None for d in in_dims[1:6]):
-            raise NotImplementedError("the int8 matmul's weights are shared by the vmapped "
-                                      "axis: a batched weight or weight scale")
-        cells, x_dim, s_dim = info.batch_size, in_dims[0], in_dims[6]
-        if s_dim is None:  # then x is the batched operand
+        if any(d is not None for d in in_dims[2:6]):
+            raise NotImplementedError("the int8 matmul's codes and weight scales are shared by "
+                                      "the vmapped axis: batched codes or weight scales")
+        cells, (x_dim, w_dim), s_dim = info.batch_size, in_dims[:2], in_dims[6]
+        if s_dim is None and w_dim is None:  # then x is the batched operand
             # (cells, ..., K): the wrapper takes any leading shape as rows
             return _Int8Matmul.apply(x.movedim(x_dim, 0), w, w_i8, s_w, wt_i8, s_wt, s_x), 0
-        s_x = s_x.movedim(s_dim, 0)
-        outs = [_Int8Matmul.apply(x if x_dim is None else x.select(x_dim, i), w, w_i8, s_w,
-                                  wt_i8, s_wt, s_x[i]) for i in range(cells)]
+
+        def cell(t, dim, i):
+            return t if dim is None else t.select(dim, i)
+
+        outs = [_Int8Matmul.apply(cell(x, x_dim, i), cell(w, w_dim, i), w_i8, s_w, wt_i8, s_wt,
+                                  cell(s_x, s_dim, i)) for i in range(cells)]
         return torch.stack(outs), 0
 
 

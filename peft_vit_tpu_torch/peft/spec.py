@@ -2,10 +2,9 @@
 
 A field-for-field copy of ``peft_vit_tpu/peft/spec.py::PEFTSpec``, with its
 ``canonical_method`` and ``spec_from_config``, so that a spec means the same
-thing in both packages.  The port implements the LoRA
-q/k/v deltas (``attn_delta='lora'``, ``lora_rank``, ``lora_alpha``,
-``lora_targets``, ``lora_post_scale_q``); the layers raise
-``NotImplementedError`` for every other hook (``models.layers.require_ported``).
+thing in both packages.  The port implements every hook but the relative
+position bias (``attn_bias='rpb'``), for which the layers raise
+``NotImplementedError`` (``models.layers.require_ported``).
 """
 
 from __future__ import annotations

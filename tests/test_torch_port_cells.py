@@ -177,10 +177,29 @@ def test_int8_rule_shared_activation_with_per_cell_scales():
     assert torch.equal(got, want)
 
 
-def test_int8_rule_refuses_a_batched_weight():
-    x, w = _int8_operands(14)[:2]
-    with pytest.raises(NotImplementedError, match="batched weight"):
-        vmap(lambda w_: i8.int8_matmul(x[0], w_))(torch.stack([w] * CELLS))
+@pytest.mark.parametrize("x_batched", [True, False])
+def test_int8_rule_launches_a_batched_weight_once_per_cell(monkeypatch, x_batched):
+    """The transformer probe's extra block under the int8 training recipe: its
+    weights are trainable, each cell's own, and quantized per call
+    (``int8_matmul_bf16_bwd``).  The rule launches the dynamic kernel once
+    per cell on that cell's rows (or on the shared rows) and its weight:
+    outputs and the gradients of the weights and the activation EQUAL to the
+    loop's.  Batched codes or weight scales still raise."""
+    x, w, w_i8, s_w = _int8_operands(14)[:4]
+    ws = torch.stack([w, 2 * w, -w])
+    g = _rand(15, CELLS, B, 5, 64)
+    dyn = _Spy(monkeypatch, i8, "int8_gemm_dynamic")
+    if x_batched:
+        (got, got_g), (want, want_g) = _loop_and_vmap(i8.int8_matmul_bf16_bwd, (x, ws), (), g)
+    else:
+        f = lambda w_, x_: i8.int8_matmul_bf16_bwd(x_, w_)
+        (got, got_g), (want, want_g) = _loop_and_vmap(f, (ws,), (x[0],), g)
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, c) for a, c in zip(got_g, want_g))
+    rows = (B, 5, 64)
+    assert dyn.shapes == [rows] * (2 * CELLS)  # the round's calls, then the loop's
+    with pytest.raises(NotImplementedError, match="batched codes or weight scales"):
+        vmap(lambda c: i8.int8_matmul(x[0], w, c, s_w))(torch.stack([w_i8] * CELLS))
 
 
 def test_linear_rule_adds_the_bias_inside_the_gemm_as_for_one_cell():

@@ -204,7 +204,7 @@ def test_npz_source_equals_jax_and_other_sources_raise(tmp_path):
     np.testing.assert_array_equal(got.y_val, want.y_val)
     cases = [{"DATASET.TRAIN_TSV_LIST": ["a.tsv"]}, {"DATASET.DOWNLOAD": True}]
     for extra in cases:
-        with pytest.raises(NotImplementedError, match="item 7, streaming data"):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1, streaming data"):
             port_registry.load_split(tiny_cfg(port_config, **over, **extra), "train")
     (tmp_path / "other" / "train" / "cat").mkdir(parents=True)
     folder = {**over, "DATASET.DATASET": "other", "DATASET.ROOT": str(tmp_path / "other")}
@@ -314,9 +314,11 @@ def test_build_image_classifier_loads_a_clip_checkpoint_as_jax_does(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("TPU.SCAN_LAYERS", True, "item 11"), ("TPU.SEQUENCE_PARALLEL", True, "parallelism"),
-    ("TPU.INT8_ATTN", True, "int8_attention"), ("MODEL.NAME", "swin_tiny", "backbone zoo"),
-    ("TRAIN.INIT_HEAD_WITH_TEXT_ENCODER", True, "zero-shot"),
+    ("TPU.SCAN_LAYERS", True, "ROADMAP §1, the rest"),
+    ("TPU.SEQUENCE_PARALLEL", True, "ROADMAP §1, parallelism"),
+    ("TPU.INT8_ATTN", True, "ROADMAP §1, int8_attention"),
+    ("MODEL.NAME", "swin_tiny", "ROADMAP §1, the backbone zoo"),
+    ("TRAIN.INIT_HEAD_WITH_TEXT_ENCODER", True, "ROADMAP §1, probes and zero-shot"),
 ])
 def test_build_image_classifier_refuses_what_is_not_ported(key, value, match):
     cfg = tiny_cfg(port_config, **{key: value})
@@ -448,13 +450,17 @@ def test_fresh_leaves_follow_the_jax_init():
 
 
 def test_driver_default_method_and_cache_rules(monkeypatch, tmp_path):
-    for method, item in (("adapter", "item 4"), ("bitfit", "item 4"),
-                         ("finetune_contrast", "item 5")):
-        with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
+    for method, item in (("rpb", "RPB and the attention-bias gradient"),
+                         ("bitfit", "the mask-only methods"),
+                         ("finetune_contrast", "probes and zero-shot"),
+                         ("intrinsic", "intrinsic dimension")):
+        with pytest.raises(NotImplementedError, match=f"not ported.*ROADMAP §1, {item}"):
             port_run.finetune_main(tiny_cfg(port_config, **{"PEFT.METHOD": method}),
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="cached-prefix"):
-        port_run.finetune_main(tiny_cfg(port_config, **{"PEFT.METHOD": "linear"}), device="cpu")
+    for method in ("linear", "adapterdrop", "transformer_probe"):
+        with pytest.raises(NotImplementedError, match="cached-prefix.*probes and zero-shot"):
+            port_run.finetune_main(tiny_cfg(port_config, **{"PEFT.METHOD": method}),
+                                   device="cpu")
     score = port_run.finetune_main(
         tiny_cfg(port_config, **{"PEFT.METHOD": "linear", "TRAIN.CACHE_FROZEN_PREFIX": False,
                                  "TRAIN.END_EPOCH": 2}), device="cpu")

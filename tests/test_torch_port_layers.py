@@ -114,25 +114,45 @@ def test_spec_copy_has_the_same_fields():
     assert dataclasses.asdict(PEFTSpec(**LORA)) == dataclasses.asdict(JaxSpec(**LORA))
 
 
-@pytest.mark.parametrize(
-    "hook",
-    [
-        dict(attn_delta="kron"),
-        dict(adapter="houlsby"),
-        dict(adapter="compacter"),
-        dict(attn_bias="rpb"),
-        dict(lepe=True),
-        dict(lepe_ref_qkv=True),
-        dict(attn_adapter="shared_qkv"),
-        dict(prompt_tokens=10),
-        dict(lora_moe=True),
-        dict(extra_block=True),
-    ],
-    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()),
-)
+# The hooks the port once refused, each now held against the JAX package on a
+# tiny ViT (2 blocks, a 4 x 4 patch grid) under the LoRA spec; the id names
+# the hook as the refusal test named it.  lepe_ref_qkv acts only with lepe.
+PORTED_HOOKS = {
+    "attn_delta=kron": dict(attn_delta="kron", phm_dim=4),
+    "adapter=houlsby": dict(adapter="houlsby", adapter_dim=16),
+    "adapter=compacter": dict(adapter="compacter", compacter_reduction=4),
+    "lepe=True": dict(lepe=True),
+    "lepe_ref_qkv=True": dict(lepe=True, lepe_ref_qkv=True),
+    "attn_adapter=shared_qkv": dict(attn_adapter="shared_qkv"),
+    "prompt_tokens=10": dict(prompt_tokens=10, prompt_deep=True),
+    "lora_moe=True": dict(lora_moe=True),
+    "extra_block=True": dict(extra_block=True),
+}
+
+
+@pytest.mark.parametrize("hook", sorted(PORTED_HOOKS))
+def test_ported_hook_matches_jax(hook):
+    from peft_vit_tpu.models.vit import VisionTransformer as JaxViT
+    from peft_vit_tpu_torch.models.vit import VisionTransformer
+
+    kw = {**LORA, **PORTED_HOOKS[hook]}
+    shape = dict(image_size=32, patch_size=8, width=WIDTH, layers=2, heads=HEADS, output_dim=32)
+    x = np.random.RandomState(8).standard_normal((2, 32, 32, 3)).astype(np.float32)
+    _compare(JaxViT(**shape, style="clip", spec=JaxSpec(**kw), use_flash=False),
+             VisionTransformer(**shape, spec=PEFTSpec(**kw), device="cpu"), x, seed=9)
+
+
+@pytest.mark.parametrize("hook", [dict(attn_bias="rpb")],
+                         ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_hooks_raise(hook):
     spec = PEFTSpec(**{**LORA, **hook})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="RPB and the attention-bias gradient"):
         port_layers.Block(WIDTH, HEADS, spec=spec)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="RPB and the attention-bias gradient"):
         port_layers.MultiHeadAttention(WIDTH, HEADS, spec=spec)
+
+
+@pytest.mark.parametrize("flag", ["int8_attn", "int8_attn_pv"])
+def test_int8_attention_flags_raise(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1, int8_attention"):
+        port_layers.MultiHeadAttention(WIDTH, HEADS, spec=PEFTSpec(**LORA), **{flag: True})

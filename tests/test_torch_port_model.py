@@ -171,7 +171,7 @@ def test_port_imports_nothing_of_jax():
             peft_vit_tpu_torch.__path__, "peft_vit_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        for want in ("ops.attention", "ops.int8", "ops._build", "models.vit", "models.convert",
+        for want in ("ops.attention", "ops.int8", "ops.phm", "ops._build", "models.vit", "models.convert",
                      "models.factory", "engine.serving", "engine.train", "peft.spec",
                      "peft.masks", "config.node", "config.default", "data.registry",
                      "data.few_shot", "data.transforms", "data.pipeline", "engine.metrics",

@@ -19,8 +19,10 @@ of the same fixtures:
   eval-mode BN after epoch 0 and its LoRA delta reshape
   (``PEFT.LORA_REF_RESHAPE``), as ``tests/test_refexec_trajectory.py``
   replays it through the JAX engine: losses rtol 2e-3, atol 2e-4; val
-  accuracies and the best score exact.  The adapter leg waits for the
-  port's Houlsby adapter.
+  accuracies and the best score exact;
+* ``refexec_trajectory_adapter.npz``: the same for the reference's Houlsby
+  adapter run (adapter_tuning_clip.py), its adapters loaded through the
+  checkpoint converter.
 """
 
 import os
@@ -114,11 +116,10 @@ def test_lora_clip_image_features_match_the_executed_reference():
     np.testing.assert_allclose(feats.numpy(), g["feats_img"], rtol=1e-4, atol=1e-5)
 
 
-def test_lora_training_trajectory_matches_the_executed_reference():
-    g = _load("refexec_trajectory_lora.npz")
+def _replay_trajectory(fname, spec, method):
+    g = _load(fname)
     sd = _sd(g)
     num_classes = int(g["y_train"].max()) + 1
-    spec = PEFTSpec(**{**LORA, "lora_ref_reshape": True})
     backbone = _visual(_sd(g, "backbone."), spec)
     model = ImageClassifier(backbone, num_classes=num_classes, use_bn=True, device="cpu")
     head = {"classifier.head.weight": sd["layers.0.weight"],
@@ -132,7 +133,7 @@ def test_lora_training_trajectory_matches_the_executed_reference():
     batch, epochs = int(g["batch"]), int(g["epochs"])
     schedule = [int(s) for s in g["schedule"]]
     base_lr, wd = float(g["lr"]), float(g["wd"])
-    trainable, frozen = split_params(model, build_mask(model, "lora",
+    trainable, frozen = split_params(model, build_mask(model, method,
                                                        num_layers=len(backbone.blocks)))
     bn = dict(model.named_buffers())
     apply_fn = make_apply_fn(model)
@@ -161,3 +162,17 @@ def test_lora_training_trajectory_matches_the_executed_reference():
     np.testing.assert_allclose(losses, g["train_losses"], rtol=2e-3, atol=2e-4)
     np.testing.assert_allclose(vals, g["val_metrics"], atol=1e-6)
     np.testing.assert_allclose(100.0 * max(vals), float(g["best"]), atol=1e-4)
+
+
+def test_lora_training_trajectory_matches_the_executed_reference():
+    _replay_trajectory("refexec_trajectory_lora.npz",
+                       PEFTSpec(**{**LORA, "lora_ref_reshape": True}), "lora")
+
+
+def test_adapter_training_trajectory_matches_the_executed_reference():
+    """adapter_tuning_clip.py's run: the Houlsby adapter (dim 64, ReLU) after
+    every block's MLP, the adapters and the head trained, loaded from the
+    reference's state dict through the checkpoint converter."""
+    _replay_trajectory("refexec_trajectory_adapter.npz",
+                       PEFTSpec(method="adapter", adapter="houlsby", adapter_dim=64,
+                                adapter_act="relu"), "adapter")
