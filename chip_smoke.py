@@ -30,6 +30,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``torch.nn.functional.scaled_dot_product_attention``, forward and
    backward (a yardstick only: the port never calls it); K1 also at N =
    257 and 577.
+   RPB's path: K1, K2 and K3 with a bias and ``attention_bias_grad`` (K7,
+   the bias's gradient, with delta from K2 and with delta computed from o)
+   against their plain versions, bf16 and fp32, at (16, 12, 197, 64) with one
+   bias and (48, 12, 197, 64) with a bias per cell of a round of 3, and at
+   N = 50, 257 and 8 (ragged keys, the streamed forward, the narrowest
+   product), the bias zero on its first row and column in every other case;
+   the ``flash_attention`` Function with per-cell biases under the vmap
+   equal to each cell alone bit for bit, one launch each of K1, K2, K3 and
+   K7, and K7 alone when only the bias needs a gradient; in fp32 against
+   autograd of the reference.  Then K1, K2 and K3 with and without the bias
+   and K7 beside its bound, its plain version and SDPA's backward with a
+   float mask that requires a gradient;
    ``int8_gemm_dynamic`` and ``int8_gemm_static`` (the counterpart of the
    Pallas quantize + int8 matmul + rescale kernel) are held to EQUALITY with
    their plain versions, bf16 and fp32, at M = 197 x {1, 8, 16, 32} for the
@@ -119,7 +131,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one-cell step's rate, busy time and launches; KAdaptation and the adapter
    under the int8 recipe with int8 dx (K6 launches a replay, the update with
    K6 equal to the plain version's); KAdaptation through the whole driver
-   and AdapterDrop's int8 ``NO_TUNING`` drive.
+   and AdapterDrop's int8 ``NO_TUNING`` drive;
+11. tower: RPB and the six methods that train a subset of the pretrained
+   tower (``TOWER_METHODS``: full, bitfit, layernorm, attention,
+   first_attention and first_mlp, the last two with
+   ``TRAIN.CACHE_FROZEN_PREFIX`` False) at ViT-B/16, each served and trained
+   as a captured round of 3 as in the methods phase, with K7 in the launch
+   rule; the frozen remainder bit-identical; a one-cell round's first step
+   against the one-cell step (cosine of each leaf's momentum); RPB's update
+   with K2, K3 and K7 against the float64 backward; attention and full also
+   under the int8 recipe with int8 dx; RPB and bitfit through the whole
+   driver.
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -294,6 +316,8 @@ def build_phase(ptxas_verbose: bool = False) -> float:
             print(f"ptxas {line}")
         for line in ptxas_int8_summary(logs.get("int8_gemm", "")):
             print(f"ptxas K6 {line}")
+        for line in ptxas_bias_grad_summary(logs.get("attn_bias_grad", "")):
+            print(f"ptxas K7 {line}")
     print(f"build seconds {seconds:.2f}")
     return seconds
 
@@ -311,10 +335,11 @@ def ptxas_summary(text: str) -> list:
     for line in text.splitlines():
         found = re.search(r"Compiling entry function '(\S+)'", line)
         if found:
-            args = re.search(r"attn_fwd_sm90_kernelILi(\d+)ELb([01])ELb([01])E", found.group(1))
+            args = re.search(r"attn_fwd_sm90_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E",
+                             found.group(1))
             current = None if args is None else {
                 "keys": int(args.group(1)), "stream": args.group(2) == "1",
-                "serialized": found.group(1) in serialized}
+                "bias": args.group(4) == "1", "serialized": found.group(1) in serialized}
             continue
         if current is None:
             continue
@@ -327,12 +352,13 @@ def ptxas_summary(text: str) -> list:
             keys, stages = current["keys"], 2 if current["stream"] else 1
             dynamic = 128 * 128 + stages * 128 * (keys + (keys + 15) // 16 * 16) + 1024
             lines.append(
-                f"keys={keys} {'streamed' if current['stream'] else 'resident'}: "
+                f"keys={keys} {'streamed' if current['stream'] else 'resident'}"
+                f"{' bias' if current['bias'] else ''}: "
                 f"{used.group(1)} registers, spill stores {stores} B, spill loads {loads} B, "
                 f"static smem {used.group(2)} B, dynamic smem {dynamic} B"
                 + (", wgmma serialized (C7512)" if current["serialized"] else ""))
             current = None
-    return sorted(lines, key=lambda x: (("streamed" in x), int(x.split()[0][5:])))
+    return sorted(lines, key=lambda x: (("bias" in x), ("streamed" in x), int(x.split()[0][5:])))
 
 
 SM_REGISTERS, SM_SHARED_BYTES, BLOCK_RESERVED_SHARED = 65536, 233472, 1024  # H100, a SM
@@ -357,10 +383,11 @@ def ptxas_bwd_summary(logs: dict) -> list:
         serialized = set(re.findall(r"C7512.*?for the function '(\S+)'", text))
         current = None
         for line in text.splitlines():
-            found = re.search(r"Compiling entry function '(\S*attn_bwd_sm90_kernelILi(\d)E\S*)'",
-                              line)
+            found = re.search(r"Compiling entry function "
+                              r"'(\S*attn_bwd_sm90_kernelILi(\d)ELb([01])E\S*)'", line)
             if found:
-                current = {"kernel": ("K2", "K3", "K5")[int(found.group(2))],
+                current = {"kernel": ("K2", "K3", "K5")[int(found.group(2))]
+                           + (" bias" if found.group(3) == "1" else ""),
                            "serialized": found.group(1) in serialized}
                 continue
             if current is None:
@@ -380,6 +407,33 @@ def ptxas_bwd_summary(logs: dict) -> list:
                     f"blocks a SM {min(by_regs, by_smem)} (registers {by_regs}, shared memory "
                     f"{by_smem})" + (", wgmma serialized (C7512)" if current["serialized"] else ""))
                 current = None
+    return sorted(lines)
+
+
+def ptxas_bias_grad_summary(text: str) -> list:
+    """One line for each kernel of K7 (``bias_grad_bf16_kernel``,
+    ``bias_grad_f32_kernel`` in the ``attn_bias_grad`` library's ``nvcc
+    -Xptxas -v`` log): registers a thread, spills and static shared memory
+    (it has no dynamic shared memory)."""
+    import re
+
+    lines, current = [], None
+    for line in text.splitlines():
+        found = re.search(r"Compiling entry function '\S*(bias_grad_(bf16|f32)_kernel)\S*'", line)
+        if found:
+            current = {"name": found.group(2)}
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            current["spill"] = (int(spill.group(1)), int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if used:
+            stores, loads = current.get("spill", (0, 0))
+            lines.append(f"{current['name']}: {used.group(1)} registers, spill stores {stores} B, "
+                         f"spill loads {loads} B, static smem {used.group(2)} B")
+            current = None
     return sorted(lines)
 
 
@@ -723,6 +777,234 @@ def kernel_timing(attn, rand, result: dict) -> None:
     result["fwd_long"] = long_timing(attn, rand, "K1")
 
 
+# K1, K2 and K3 with a bias, and K7 (the bias's gradient), the kernels of
+# RPB's path: (B, C) at the training batch with one bias (C = 1) and a sweep
+# round of 3 cells folded into the batch, each cell with its own bias; then
+# (B, C, N) at the edges: ragged keys (N = 50), the streamed forward and two
+# key tiles of K7 (N = 257), the narrowest product (N = 8).
+BIAS_SHAPES = ((TRAIN_BATCH, 1), (3 * TRAIN_BATCH, 3))
+BIAS_EDGES = ((1, 1, 50), (4, 2, 257), (6, 3, 8))
+# K7 against its plain version: dbias[c] sums the B / C fp32 values of
+# ds = p o (dp - delta) in another order than torch's sum, each from S and dP
+# summed in another order (mma.sync or fp32 FMAs against cuBLAS) and expf
+# against torch.exp: each term within a few fp32 ulps of |ds|, so a sum
+# within about 1e-6 of sum |ds|.  Bound: 1e-4 of the cell's largest sum over
+# its batch of |ds| (as K2's delta is held against sum |dO o O|).
+TOL_DBIAS_REL = 1e-4
+
+
+def _bias(rand, c: int, n: int, zero_prefix: bool) -> torch.Tensor:
+    """A (C, H, N, N) fp32 bias (C = 1: (H, N, N)) at about the scores'
+    size; ``zero_prefix``: zero on row and column 0, as RPB's class token."""
+    shape = (c, HEADS, n, n)
+    bias = rand(shape, torch.float32, 0.5)
+    if zero_prefix:
+        bias[:, :, 0, :] = 0.0
+        bias[:, :, :, 0] = 0.0
+    return bias[0] if c == 1 else bias
+
+
+def _dbias_scale(attn, q, k, v, do, lse, delta, bias) -> torch.Tensor:
+    """Per cell, the largest sum over its batch of |ds| (fp32 plain), (C,)."""
+    _, ds = attn._bwd_p_ds_acc(q, k, v, do, lse, delta, 1.0, bias)
+    c = attn._bias_cells(bias)
+    return ds.abs().unflatten(0, (c, -1)).sum(1).flatten(1).amax(1)
+
+
+def bias_kernel_checks(attn, rand) -> dict:
+    """K1 (out, lse), K2 (dq, delta), K3 (dk, dv) with a bias, and K7 with
+    delta from K2 and with delta computed from o, against their plain
+    versions on the card, bf16 and fp32, at ``BIAS_SHAPES`` and
+    ``BIAS_EDGES``, the bias zero on its first row and column (RPB's class
+    token) in every other case; the bounds the file states for K1 to K3 and
+    ``TOL_DBIAS_REL`` for K7.  Returns the max abs errors of the first case,
+    which has the training path's shape."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(f"{'bf16' if dt == bf16 else 'fp32'} B={b} C={c}", b, c, N_TOKENS, dt)
+             for dt in (bf16, f32) for b, c in BIAS_SHAPES]
+    cases += [(f"{'bf16' if dt == bf16 else 'fp32'} edge B={b} C={c} N={n}", b, c, n, dt)
+              for dt in (bf16, f32) for b, c, n in BIAS_EDGES]
+    main = None
+    for i, (name, b, c, n, dtype) in enumerate(cases):
+        shape = (b, HEADS, n, HEAD_DIM)
+        q, k, v, do = (rand(shape, dtype, std) for std in (0.125, 1.0, 1.0, 1.0))
+        bias = _bias(rand, c, n, zero_prefix=i % 2 == 0)
+        bf = dtype == bf16
+        tol_out, tol_grad = (TOL_BF16_OUT, TOL_BF16_GRAD_REL) if bf else (TOL_F32_OUT,
+                                                                            TOL_F32_GRAD_REL)
+        o, lse = attn.flash_attention_fwd(q, k, v, bias, 1.0, return_lse=True)
+        want_o, want_lse = attn._flash_attention_plain(q, k, v, bias, 1.0, True)
+        dq, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, 1.0, bias)
+        dk, dv = attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta, 1.0, bias)
+        want = attn._flash_attention_bwd_plain(q, k, v, o, lse, do, 1.0, bias)
+        dbias = attn.attention_bias_grad(q, k, v, do, lse, 1.0, bias, delta=delta)
+        dbias_o = attn.attention_bias_grad(q, k, v, do, lse, 1.0, bias, o=o)
+        want_dbias = attn._bias_grad_plain(q, k, v, do, lse, 1.0, bias, delta=delta)
+        want_dbias_o = attn._bias_grad_plain(q, k, v, do, lse, 1.0, bias, o=o)
+        torch.cuda.synchronize()
+        errs = {"fwd": (o.float() - want_o.float()).abs().max().item()}
+        lse_err = (lse - want_lse).abs().max().item()
+        check(bool(torch.isfinite(o).all()) and errs["fwd"] <= tol_out and lse_err <= TOL_LSE,
+              f"bias kernel K1 {name} {shape}: out max abs err {errs['fwd']:.3e} <= {tol_out:g}, "
+              f"lse {lse_err:.3e} <= {TOL_LSE:g}")
+        scale_delta = (do.float() * o.float()).abs().sum(-1).max().item()
+        errs["delta"] = (delta - attn._row_dot(do, o)).abs().max().item()
+        check(errs["delta"] <= TOL_DELTA_REL * scale_delta,
+              f"bias kernel K2 {name}: delta max abs err {errs['delta']:.3e} <= "
+              f"{TOL_DELTA_REL:g} x max sum |dO o O| ({scale_delta:.3e})")
+        for what, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            err = (got.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            errs[what] = err
+            check(got.dtype == dtype and bool(torch.isfinite(got).all()) and rel <= tol_grad,
+                  f"bias kernel {'K2' if what == 'dq' else 'K3'} {name}: {what} max abs err "
+                  f"{err:.3e}, / max |plain| = {rel:.3e} <= {tol_grad:g}")
+        cell_scale = _dbias_scale(attn, q, k, v, do, lse, delta, bias)
+        for label, got, ref in (("delta from K2", dbias, want_dbias),
+                                ("delta from o", dbias_o, want_dbias_o)):
+            per_cell = (got - ref).abs().reshape(c, -1).amax(1)
+            worst = (per_cell / cell_scale).max().item()
+            errs.setdefault("dbias", (got - ref).abs().max().item())
+            check(got.shape == bias.shape and got.dtype == f32 and bool(torch.isfinite(got).all())
+                  and worst <= TOL_DBIAS_REL,
+                  f"bias kernel K7 {name} ({label}): max abs err a cell / that cell's max "
+                  f"sum_b |ds| = {worst:.3e} <= {TOL_DBIAS_REL:g} (max abs err "
+                  f"{(got - ref).abs().max().item():.3e})")
+        if main is None:
+            main = {"fwd_bias": errs["fwd"], "dq_bias": errs["dq"],
+                    "dkv_bias": max(errs["dk"], errs["dv"]), "dbias": errs["dbias"]}
+
+    # the Function: a round of 3 cells, each with its own bf16 bias, under the
+    # vmap equals each cell alone bit for bit (every kernel's arithmetic is a
+    # batch element's or a cell's own); its backward launches K2, K3 and K7
+    # once each, and K7 alone when only the bias needs a gradient
+    from torch.func import vmap
+
+    shape = (3, TRAIN_BATCH, HEADS, N_TOKENS, HEAD_DIM)
+    q, k, v, do = (rand(shape, bf16, std) for std in (0.125, 1.0, 1.0, 1.0))
+    bias = _bias(rand, 3, N_TOKENS, True).to(bf16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    _zero_attention_counts(attn)
+    out = vmap(lambda a, b_, c_, d: attn.flash_attention(a, b_, c_, d, 1.0))(*leaves)
+    got = torch.autograd.grad(out, leaves, do)
+    counts = _attention_counts(attn)
+    alone = []
+    for i in range(3):
+        cell = [t[i].clone().requires_grad_() for t in (q, k, v, bias)]
+        o_i = attn.flash_attention(*cell, 1.0)
+        alone.append((o_i, *torch.autograd.grad(o_i, cell, do[i])))
+    torch.cuda.synchronize()
+    same = all(torch.equal(t[i], a[j]) for i, a in enumerate(alone)
+               for j, t in enumerate((out, *got)))
+    check(same and counts["flash_attention_fwd"] == 1 and counts["flash_attention_bwd_dq"] == 1
+          and counts["flash_attention_bwd_dkv"] == 1 and counts["attention_bias_grad"] == 1,
+          f"bias Function bf16: a round of 3 cells x {tuple(shape[1:])} with per-cell biases "
+          f"under the vmap == each cell alone bit for bit (o, dq, dk, dv, dbias in bf16); one "
+          f"launch each of K1, K2, K3, K7: {counts}")
+    b32 = bias[0].float().requires_grad_()
+    _zero_attention_counts(attn)
+    (g,) = torch.autograd.grad(attn.flash_attention(q[0], k[0], v[0], b32, 1.0), (b32,), do[0])
+    counts = _attention_counts(attn)
+    check(counts["attention_bias_grad"] == 1 and counts["flash_attention_bwd_dq"] == 0
+          and counts["flash_attention_bwd_dkv"] == 0 and g.dtype == f32,
+          f"bias Function: only the bias needs a gradient: K7 alone (delta from o): {counts}")
+
+    shape = (4, HEADS, N_TOKENS, HEAD_DIM)
+    leaves = [rand(shape, f32).requires_grad_() for _ in range(3)]
+    leaves.append(_bias(rand, 2, N_TOKENS, True).requires_grad_())
+    w = rand(shape, f32)
+    got = torch.autograd.grad(attn.flash_attention(*leaves, 0.125), leaves, w)
+    want = torch.autograd.grad(attn.attention_reference(
+        *leaves[:3], attn._batch_bias(leaves[3], 4), 0.125), leaves, w)
+    torch.cuda.synchronize()
+    for what, g_, r_ in zip(("dq", "dk", "dv", "dbias"), got, want):
+        rel = ((g_ - r_).abs().max() / r_.abs().max()).item()
+        check(rel <= TOL_F32_GRAD_REL,
+              f"bias Function fp32 {tuple(shape)} C=2 vs autograd of the reference: {what} "
+              f"max |diff| / max |ref| = {rel:.3e} <= {TOL_F32_GRAD_REL:g}")
+    return main
+
+
+def bias_bound(b: int, h: int, n: int, d: int, c: int, itemsize: int):
+    """K7's least time: q, k, v and dO read once (itemsize each), lse and
+    delta (fp32) read, the (C, H, N, N) fp32 bias read and dbias written,
+    against its two products (S = q k^T and dP = dO v^T, 2 B H N^2 D flops
+    each) at the bf16 tensor-core peak."""
+    bytes_moved = 4 * b * h * n * d * itemsize + 2 * b * h * n * 4 + 2 * c * h * n * n * 4
+    flops = 2 * 2 * b * h * n * n * d
+    t_bytes, t_flops = bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
+
+
+def _sdpa_bias_bwd_ms(q, k, v, bias, do, reps: int) -> float:
+    """The ``scaled_dot_product_attention`` backward with a float
+    ``attn_mask`` (the bias, (H, N, N) broadcast over the batch) that
+    requires a gradient: dq, dk, dv and the mask's gradient, timed as
+    ``_sdpa_bwd_ms`` times the bias-free one."""
+    import torch.nn.functional as F
+
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    bg = bias.to(q.dtype).clone().requires_grad_()
+    sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bg, scale=1.0)
+    return (_device_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg, bg), do), reps)
+            - _device_ms(sdpa, reps))
+
+
+def bias_kernel_timing(attn, rand, result: dict) -> None:
+    """At B = 16, bf16, scale 1 with post-scaled q, one bias: K1, K2 and K3
+    with and without the bias (the same inputs, in turns); K7 beside its
+    bound, its plain version and the SDPA backward with a float mask that
+    requires a gradient (dq, dk, dv and the mask's gradient in one call)."""
+    b = TRAIN_BATCH
+    shape = (b, HEADS, N_TOKENS, HEAD_DIM)
+    q = rand(shape, torch.bfloat16, 0.125)
+    k, v, do = (rand(shape, torch.bfloat16) for _ in range(3))
+    bias = _bias(rand, 1, N_TOKENS, True)
+    reps = 200
+    o, lse = attn.flash_attention_fwd(q, k, v, bias, 1.0, return_lse=True)
+    _, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, 1.0, bias)
+    pair = {}
+    for with_bias in (False, True, True, False):
+        bb = bias if with_bias else None
+        for key, fn in (("fwd", lambda: attn.flash_attention_fwd(q, k, v, bb, 1.0)),
+                        ("dq", lambda: attn.flash_attention_bwd_dq(q, k, v, do, lse, o, 1.0, bb)),
+                        ("dkv", lambda: attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                                     1.0, bb))):
+            pair.setdefault((key, with_bias), []).append(_device_ms(fn, reps))
+    for (key, with_bias), times in sorted(pair.items()):
+        result.setdefault(f"{key}_bias_ms" if with_bias else f"{key}_ms", min(times))
+    row = {"ms": _device_ms(lambda: attn.attention_bias_grad(q, k, v, do, lse, 1.0, bias,
+                                                             delta=delta), reps),
+           "ms_from_o": _device_ms(lambda: attn.attention_bias_grad(q, k, v, do, lse, 1.0, bias,
+                                                                    o=o), reps),
+           "plain_ms": _device_ms(lambda: attn._bias_grad_plain(q, k, v, do, lse, 1.0, bias,
+                                                                delta=delta), 20),
+           "library_ms": _sdpa_bias_bwd_ms(q, k, v, bias, do, 100)}
+    row["bound_ms"], row["bound_by"] = bias_bound(b, HEADS, N_TOKENS, HEAD_DIM, 1, 2)
+    result["k7"] = row
+    _print_timing("attn_bias_grad", b, shape, row)
+    print(f"bias timing B={b}: K1 {result['fwd_ms']:.6f} / with the bias "
+          f"{result['fwd_bias_ms']:.6f} ms; K2 {result['dq_ms']:.6f} / {result['dq_bias_ms']:.6f}"
+          f" ms; K3 {result['dkv_ms']:.6f} / {result['dkv_bias_ms']:.6f} ms (the less of two "
+          "turns each)", flush=True)
+
+
+def bias_kernel_phase(timing: bool = True) -> dict:
+    """The kernels of RPB's path: ``bias_kernel_checks`` and, with
+    ``timing``, ``bias_kernel_timing``."""
+    from peft_vit_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+
+    def rand(shape, dtype, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+
+    result = {"max_abs_err": bias_kernel_checks(attn, rand)}
+    if timing:
+        bias_kernel_timing(attn, rand, result)
+    return result
+
+
 LONG_TIMED_BATCH = TRAIN_BATCH
 LONG_TIMED_NS = {"K1": (257, 577), "K4": (577, 1024), "K5": (577, 1024)}
 
@@ -816,8 +1098,8 @@ def plain_fused(attn):
 
 def _attention_wrappers(attn) -> tuple:
     return (attn.flash_attention_fwd, attn.flash_attention_bwd_dq,
-            attn.flash_attention_bwd_dkv, attn.fused_short_attention_fwd,
-            attn.fused_short_attention_bwd)
+            attn.flash_attention_bwd_dkv, attn.attention_bias_grad,
+            attn.fused_short_attention_fwd, attn.fused_short_attention_bwd)
 
 
 def _attention_counts(attn) -> dict:
@@ -905,8 +1187,8 @@ def fused_kernel_phase(timing: bool = True) -> dict:
             want = run()
         torch.cuda.synchronize()
         check(counts == {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-                         "flash_attention_bwd_dkv": 0, "fused_short_attention_fwd": 1,
-                         "fused_short_attention_bwd": 1},
+                         "flash_attention_bwd_dkv": 0, "attention_bias_grad": 0,
+                         "fused_short_attention_fwd": 1, "fused_short_attention_bwd": 1},
               f"fused dispatch {dtype}: use_fused=True forward and backward launch K4 and K5 "
               f"once each and no flash kernel: {counts}")
         for what, g_, r_ in zip(("o", "dq", "dk", "dv"), got, want):
@@ -1590,15 +1872,16 @@ def int8_slice_phase(shape, tree, requests, bf16_logits, batches, rng, smi: str)
 @contextlib.contextmanager
 def plain_backward(attn):
     """Within, the ``flash_attention`` Function's backward runs the plain
-    versions of the dq and dk/dv kernels on the q, k, v, lse and dO that the
-    model gives it; its forward stays the kernel."""
-    saved = attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv
-    attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv = (
-        attn._bwd_dq_plain, attn._bwd_dkv_plain)
+    versions of the dq and dk/dv kernels and of the bias-gradient kernel on
+    the q, k, v, lse, bias and dO that the model gives it; its forward stays
+    the kernel."""
+    saved = attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv, attn.attention_bias_grad
+    attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv, attn.attention_bias_grad = (
+        attn._bwd_dq_plain, attn._bwd_dkv_plain, attn._bias_grad_plain)
     try:
         yield
     finally:
-        attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv = saved
+        attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv, attn.attention_bias_grad = saved
 
 
 @contextlib.contextmanager
@@ -1607,23 +1890,33 @@ def exact_backward(attn):
     dv in float64 from the operands the model gives it (the plain versions'
     steps, with p and ds unrounded) and rounds each to its operand's dtype
     once: the reference the kernels' and the plain versions' bf16 rounding
-    are both measured against."""
-    saved = attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv
+    are both measured against.  The bias's gradient likewise (fp32, as the
+    kernel returns it)."""
+    saved = attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv, attn.attention_bias_grad
 
-    def dq(q, k, v, do, lse, o, scale):
-        g, delta = saved_plain[0](*(t.double() for t in (q, k, v, do, lse, o)), scale)
+    def f64(t):
+        return None if t is None else t.double()
+
+    def dq(q, k, v, do, lse, o, scale, bias=None):
+        g, delta = saved_plain[0](*(t.double() for t in (q, k, v, do, lse, o)), scale, f64(bias))
         return g.to(q.dtype), delta
 
-    def dkv(q, k, v, do, lse, delta, scale):
-        gk, gv = saved_plain[1](*(t.double() for t in (q, k, v, do, lse, delta)), scale)
+    def dkv(q, k, v, do, lse, delta, scale, bias=None):
+        gk, gv = saved_plain[1](*(t.double() for t in (q, k, v, do, lse, delta)), scale,
+                                f64(bias))
         return gk.to(k.dtype), gv.to(v.dtype)
 
-    saved_plain = attn._bwd_dq_plain, attn._bwd_dkv_plain
-    attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv = dq, dkv
+    def dbias(q, k, v, do, lse, scale, bias, delta=None, o=None):
+        return saved_plain[2](*(t.double() for t in (q, k, v, do, lse)), scale, bias.double(),
+                              f64(delta), f64(o)).float()
+
+    saved_plain = attn._bwd_dq_plain, attn._bwd_dkv_plain, attn._bias_grad_plain
+    attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv, attn.attention_bias_grad = (
+        dq, dkv, dbias)
     try:
         yield
     finally:
-        attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv = saved
+        attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv, attn.attention_bias_grad = saved
 
 
 def train_phase(smi: str, device: str = "cuda") -> dict:
@@ -2423,14 +2716,18 @@ def launch_rule(model, trainable, cells: int = 1, int8: bool = False,
     """The kernels one training step launches a replay, derived from where
     the trainable leaves (the names in ``trainable``) sit in ``model``
     (PERF.md §2): K1 once a block (a round's cells ride the batch); K2 and K3
-    once in each block whose attention operands need a gradient, that is
-    where a trainable leaf sits in or before the block's attention (the
-    prompts, an attention delta, the shared qkv adapter, the probe block's own
-    weights) or anywhere in an earlier block; under ``int8`` K6 once a
-    frozen GEMM forward (once a cell for a trainable weight, quantized per
-    call) and, with ``bwd_dx``, once a frozen GEMM whose input needs a
-    gradient.  KAdaptation's ``phmb`` is never read and an adapter that
-    AdapterDrop skips never runs: neither makes anything need a gradient."""
+    once in each block whose attention operands q, k, v need a gradient,
+    that is where a trainable leaf sits in or before the block's attention
+    products (the prompts, the tower's own leaves up to ``in_proj``, an
+    attention delta, the shared qkv adapter, the probe block's own weights)
+    or anywhere in an earlier block; K7 once in each block whose relative
+    position table trains (the bias's gradient, which needs no q, k or v
+    gradient: RPB's block 0 launches K7 and neither K2 nor K3); under
+    ``int8`` K6 once a frozen GEMM forward (once a cell for a trainable
+    weight, quantized per call) and, with ``bwd_dx``, once a frozen GEMM
+    whose input needs a gradient.  KAdaptation's ``phmb`` is never read and
+    an adapter that AdapterDrop skips never runs: neither makes anything
+    need a gradient."""
     backbone, names = model.backbone, set(trainable)
 
     def trains(prefix: str, *skip: str) -> bool:
@@ -2439,20 +2736,22 @@ def launch_rule(model, trainable, cells: int = 1, int8: bool = False,
     carry = any(n.startswith("backbone.") and not n.startswith((
         "backbone.blocks.", "backbone.ln_post.", "backbone.proj",
         "backbone.deep_prompt_embeddings")) for n in names)
-    k23 = fwd = dx = 0
+    k23 = k7 = fwd = dx = 0
     for i, block in enumerate(backbone.blocks):
         p = f"backbone.blocks.{i}."
         if 0 < i < backbone.layers and "backbone.deep_prompt_embeddings" in names:
             carry = True
         ln1 = trains(p + "ln_1.")
+        table = trains(p + "attn.relative_position_bias_table")
         attn = carry or ln1 or trains(p + "attn.", p + "attn.get_v.", p + "attn.out_proj.",
-                                      p + "attn.phmb")
+                                      p + "attn.phmb", p + "attn.relative_position_bias_table")
         k23 += attn
-        x1 = carry or attn or trains(p + "attn.get_v.") or trains(p + "attn.out_proj.")
+        k7 += table
+        x1 = carry or attn or table or trains(p + "attn.get_v.") or trains(p + "attn.out_proj.")
         fc_in = x1 or trains(p + "ln_2.")
         proj_in = fc_in or trains(p + "mlp.c_fc.")
         for gemm, needs in (("attn.in_proj", carry or ln1),
-                            ("attn.out_proj", attn or trains(p + "attn.get_v.")),
+                            ("attn.out_proj", attn or table or trains(p + "attn.get_v.")),
                             ("mlp.c_fc", fc_in), ("mlp.c_proj", proj_in)):
             frozen = f"{p}{gemm}.weight" not in names
             fwd += 1 if frozen else cells
@@ -2460,7 +2759,7 @@ def launch_rule(model, trainable, cells: int = 1, int8: bool = False,
         carry = proj_in or trains(p + "mlp.c_proj.") or (
             block.adapter_name is not None and trains(f"{p}{block.adapter_name}."))
     out = {"flash_attention_fwd": len(backbone.blocks), "flash_attention_bwd_dq": k23,
-           "flash_attention_bwd_dkv": k23}
+           "flash_attention_bwd_dkv": k23, "attention_bias_grad": k7}
     if int8:
         out["int8_gemm_dynamic"] = fwd + (dx if bwd_dx else 0)
     return out
@@ -2536,7 +2835,9 @@ def drive(label: str, cfg, tree, smi: str, device: str = "cuda", want_cells: int
         # an eval batch launches the forward's kernels: K1 and K6 without dx
         want = launch_rule(model, trainable, key[1] or 1, int8_on, bwd_dx and key[0] == "step")
         if key[0] == "eval":
-            want.pop("flash_attention_bwd_dq"), want.pop("flash_attention_bwd_dkv")
+            for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                         "attention_bias_grad"):
+                want.pop(name)
         _per_replay(graph, {k: v for k, v in want.items() if v},
                     f"driver {label}: {key[0]} graph of {key[1] or 1} cell(s)")
     want = {name: (StepGraph.WARMUP + 1) * sum(g.launches[name] for g in graphs.values())
@@ -2702,6 +3003,8 @@ def method_tree(model, rng: np.random.RandomState) -> dict:
             x = 0.1 * normal
         elif leaf in ("prompt_embeddings", "deep_prompt_embeddings"):
             x = 0.5 * normal
+        elif leaf == "relative_position_bias_table":  # a bias of about the scores' size
+            x = 0.5 * normal
         elif leaf == "class_embedding":
             x = normal / np.sqrt(shape[0])
         elif leaf == "positional_embedding":
@@ -2713,6 +3016,64 @@ def method_tree(model, rng: np.random.RandomState) -> dict:
             node = node[key]
         node[leaf] = x.astype(np.float32)
     return tree
+
+
+def serve_method(label: str, over: dict, rng: np.random.RandomState, images: np.ndarray,
+                 device: str = "cuda"):
+    """The method of the config overrides ``over`` at ViT-B/16, its weights
+    drawn by ``method_tree`` from ``rng``, a prototype head over ``images``:
+    the request through ``ServingSession`` (bucket ``METHOD_BUCKET``,
+    captured) against the fp32 CPU forward (top-1 and the bf16 bound) and
+    against the same bucket run eagerly (bit for bit), the bucket's launches
+    a replay.  Returns (the tree, the drift)."""
+    from peft_vit_tpu_torch.engine import ServingSession
+    from peft_vit_tpu_torch.models import build_image_classifier, load_jax_variables
+    from peft_vit_tpu_torch.models import params_from_jax
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.peft import spec_from_config
+
+    cfg = driver_cfg({**METHOD_MODEL, **over})
+    spec = spec_from_config(cfg)
+
+    def build(dev):
+        return build_image_classifier(cfg, spec, NUM_CLASSES, use_bn=True, device=dev)[0]
+
+    t0 = time.perf_counter()
+    cpu = build("cpu").eval()
+    tree = method_tree(cpu, rng)
+    load_jax_variables(cpu, tree)
+    with torch.no_grad():
+        feats = cpu.backbone(torch.from_numpy(images))
+    prototype_head(tree, feats.numpy())
+    load_jax_variables(cpu, tree)
+    with torch.no_grad():
+        cpu_logits = cpu.classifier(feats).numpy()
+    del cpu
+    cpu_s = time.perf_counter() - t0
+
+    served = build(device)
+    blocks = len(served.backbone.blocks)
+    _zero_attention_counts(attn)  # counts from 0 just before the main path, read just after
+    session = ServingSession(served, params_from_jax(tree), IMAGE, buckets=(METHOD_BUCKET,),
+                             device=device)
+    got = session.predict(images)
+    counted = attn.flash_attention_fwd.launches
+    graph = session._graphs.get(METHOD_BUCKET)
+    _per_replay(graph, {"flash_attention_fwd": blocks}, f"methods {label}: serving bucket")
+    padded = torch.zeros((METHOD_BUCKET, IMAGE, IMAGE, 3))
+    padded[:CHECKED_REQUEST] = torch.from_numpy(images)
+    eager = session._infer(padded.to(device))[:CHECKED_REQUEST].float().cpu().numpy()
+    rel = _rel(got, cpu_logits)
+    check(got.shape == (CHECKED_REQUEST, NUM_CLASSES) and bool(np.isfinite(got).all())
+          and np.array_equal(got, eager),
+          f"methods {label}: serving, {CHECKED_REQUEST} images through the captured bucket "
+          f"of {METHOD_BUCKET}: finite, equal bit for bit to the bucket run eagerly; "
+          f"flash_attn_fwd counted {counted} (warm-up and capture of {blocks} blocks)")
+    check(bool((got.argmax(1) == cpu_logits.argmax(1)).all()) and rel <= TOL_BF16_LOGITS_REL,
+          f"methods {label}: serving top-1 {got.argmax(1).tolist()} == fp32 CPU "
+          f"{cpu_logits.argmax(1).tolist()}; max |logit diff| / max |logit| = {rel:.4e} <= "
+          f"{TOL_BF16_LOGITS_REL:g} (CPU reference {cpu_s:.1f} s)")
+    return tree, rel
 
 
 def methods_phase(smi: str, device: str = "cuda") -> dict:
@@ -2727,10 +3088,8 @@ def methods_phase(smi: str, device: str = "cuda") -> dict:
     and ``IMAGE`` shrunk, ``StepGraph`` rehearsed) runs the phase's code,
     where the launch checks fail."""
     import bench_torch
-    from peft_vit_tpu_torch.engine import ServingSession, step_decay_lr
-    from peft_vit_tpu_torch.models import build_image_classifier, load_jax_variables
-    from peft_vit_tpu_torch.models import params_from_jax
-    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.engine import step_decay_lr
+    from peft_vit_tpu_torch.models import build_image_classifier
     from peft_vit_tpu_torch.peft import spec_from_config
 
     rng = np.random.RandomState(SEED + 20)
@@ -2742,48 +3101,7 @@ def methods_phase(smi: str, device: str = "cuda") -> dict:
             step_decay_lr(ROUND_LRS, 0, ()), torch.tensor(ROUND_WDS))
     result = {}
     for label, over in METHODS:
-        cfg = driver_cfg({**METHOD_MODEL, **over})
-        spec = spec_from_config(cfg)
-
-        def build(dev):
-            return build_image_classifier(cfg, spec, NUM_CLASSES, use_bn=True, device=dev)[0]
-
-        t0 = time.perf_counter()
-        cpu = build("cpu").eval()
-        tree = method_tree(cpu, rng)
-        load_jax_variables(cpu, tree)
-        with torch.no_grad():
-            feats = cpu.backbone(torch.from_numpy(images))
-        prototype_head(tree, feats.numpy())
-        load_jax_variables(cpu, tree)
-        with torch.no_grad():
-            cpu_logits = cpu.classifier(feats).numpy()
-        del cpu
-        cpu_s = time.perf_counter() - t0
-
-        served = build(device)
-        blocks = len(served.backbone.blocks)
-        _zero_attention_counts(attn)  # counts from 0 just before the main path, read just after
-        session = ServingSession(served, params_from_jax(tree), IMAGE, buckets=(METHOD_BUCKET,),
-                                 device=device)
-        got = session.predict(images)
-        counted = attn.flash_attention_fwd.launches
-        graph = session._graphs.get(METHOD_BUCKET)
-        _per_replay(graph, {"flash_attention_fwd": blocks}, f"methods {label}: serving bucket")
-        padded = torch.zeros((METHOD_BUCKET, IMAGE, IMAGE, 3))
-        padded[:CHECKED_REQUEST] = torch.from_numpy(images)
-        eager = session._infer(padded.to(device))[:CHECKED_REQUEST].float().cpu().numpy()
-        rel = _rel(got, cpu_logits)
-        check(got.shape == (CHECKED_REQUEST, NUM_CLASSES) and bool(np.isfinite(got).all())
-              and np.array_equal(got, eager),
-              f"methods {label}: serving, {CHECKED_REQUEST} images through the captured bucket "
-              f"of {METHOD_BUCKET}: finite, equal bit for bit to the bucket run eagerly; "
-              f"flash_attn_fwd counted {counted} (warm-up and capture of {blocks} blocks)")
-        check(bool((got.argmax(1) == cpu_logits.argmax(1)).all()) and rel <= TOL_BF16_LOGITS_REL,
-              f"methods {label}: serving top-1 {got.argmax(1).tolist()} == fp32 CPU "
-              f"{cpu_logits.argmax(1).tolist()}; max |logit diff| / max |logit| = {rel:.4e} <= "
-              f"{TOL_BF16_LOGITS_REL:g} (CPU reference {cpu_s:.1f} s)")
-        del session, served
+        tree, rel = serve_method(label, over, rng, images, device)
         row = {"serving_rel": rel, "round": method_round(label, over, tree, data, smi, device)}
         if label in METHODS_INT8:
             row["int8"] = method_round(label, over, tree, data, smi, device, int8=True)
@@ -2808,15 +3126,19 @@ def methods_phase(smi: str, device: str = "cuda") -> dict:
 
 
 def method_round(label: str, over: dict, tree: dict, data, smi: str, device: str = "cuda",
-                 int8: bool = False) -> dict:
+                 int8: bool = False, tower: bool = False, exact: bool = True) -> dict:
     """A round of 3 cells of ``label`` (the config overrides ``over``, the
     weights ``tree``), one captured step at B=16 through
     ``make_epoch_fn(cells=True)``: the launches a replay against the
     mask-derived ``launch_rule``; the captured step equal bit for bit to the
-    same step run eagerly; the update with K2/K3 against the float64 backward,
-    no farther than the plain dq and dk/dv's (``TOL_METHOD_EXACT_RATIO``) or,
-    under ``int8`` (``INT8_FWD_TRAIN`` + ``INT8_BWD_DX``), with the plain
-    int8 GEMM in K6's place, equal bit for bit; the round's peak memory; then, in bf16, the captured one-cell step's
+    same step run eagerly; the update with K2/K3 (and K7) against the float64
+    backward, no farther than the plain versions' (``TOL_METHOD_EXACT_RATIO``;
+    ``exact`` False: not run) or, under ``int8`` (``INT8_FWD_TRAIN`` +
+    ``INT8_BWD_DX``), with the plain int8 GEMM in K6's place, equal bit for
+    bit; the round's peak memory; with ``tower`` (a method whose trainable
+    leaves are the pretrained tower's), the frozen remainder bit-identical
+    after the runs and a one-cell round's first step against the one-cell
+    step (``tower_one_cell``); then, in bf16, the captured one-cell step's
     rate, device busy time and launches."""
     import bench_torch
     from peft_vit_tpu_torch.engine import (ce_per_example, init_cell_state, make_apply_fn,
@@ -2858,6 +3180,8 @@ def method_round(label: str, over: dict, tree: dict, data, smi: str, device: str
     epoch = make_epoch_fn(apply_fn, ce_per_example, TRAIN_BATCH, has_bn=True, cells=True,
                           graphs=graphs)
     run = lambda: epoch(state, qtree, x, y, valid, perm, lrs, wds)
+    frozen_start = {n: p.detach().clone() for n, p in model.named_parameters()
+                    if not p.requires_grad} if tower else {}
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2884,6 +3208,7 @@ def method_round(label: str, over: dict, tree: dict, data, smi: str, device: str
         wanted = {n: (StepGraph.WARMUP + 1) * graph.launches[n] for n in counts}
         check(counts == wanted, f"{name}: the wrappers counted {counts} == ({StepGraph.WARMUP} "
               "warm-up steps + the capture) x the launches a replay")
+    plain = None
     if int8:
         with bench_torch.eager_on_card(), plain_int8(i8):
             plain, _ = run()
@@ -2892,16 +3217,16 @@ def method_round(label: str, over: dict, tree: dict, data, smi: str, device: str
         total = sum(len(getattr(plain, part)) for part in parts)
         check(len(same) == total, f"{name}: the step with K6 == the same step with its plain "
               f"version bit for bit ({len(same)} of {total} state tensors)")
-    else:
+    elif exact:
         with bench_torch.eager_on_card(), plain_backward(attn):
             plain, _ = run()
         with bench_torch.eager_on_card(), exact_backward(attn):
-            exact, _ = run()
+            exact_run, _ = run()
         cos = {}  # (cell, leaf) -> cosines kernel~plain, kernel~exact, plain~exact
         for n, s0 in start.items():
             for c in range(k):
                 u = [(r.trainable[n][c] - s0[c]).double().flatten()
-                     for r in (captured, plain, exact)]
+                     for r in (captured, plain, exact_run)]
                 cos[(c, n)] = tuple(
                     1.0 if torch.equal(a, b) else torch.nn.functional.cosine_similarity(
                         a, b, dim=0).item() for a, b in ((u[0], u[1]), (u[0], u[2]), (u[1], u[2])))
@@ -2915,11 +3240,19 @@ def method_round(label: str, over: dict, tree: dict, data, smi: str, device: str
               f"{TOL_METHOD_EXACT_FLOOR:g}; against the plain versions least cosine "
               f"{cos[least][0]:.6f} (cell {least[0]}, {least[1]}: kernel~float64 "
               f"{cos[least][1]:.6f}, plain~float64 {cos[least][2]:.6f}), printed, not held")
-        del exact
+        del exact_run
+    del plain
     row = {"launches_per_replay": dict(graph.launches) if graph is not None else {},
            "want": want, "peak_round_gib": peak, "trainable": sum(
                v.numel() for v in trainable.values())}
-    del graphs, graph, epoch, captured, eager, plain
+    del graphs, graph, epoch, captured, eager
+    if tower:
+        tower_one_cell(name, apply_fn, draws[0], bn, qtree, data)
+        same = [n for n, v in frozen_start.items()
+                if torch.equal(v, dict(model.named_parameters())[n])]
+        check(len(same) == len(frozen_start),
+              f"{name}: {len(same)} of {len(frozen_start)} frozen leaves bit-identical after "
+              "the round's runs")
     if int8 or not on_card:
         return row
     # the captured one-cell step, as bench_torch.py times it
@@ -2947,6 +3280,107 @@ def method_round(label: str, over: dict, tree: dict, data, smi: str, device: str
           + "; ".join(f"{n} {t / TRAIN_K:.3f} ms" for n, t in top) + f"; {smi}", flush=True)
     row.update(images_per_s=rate, step_ms=step_ms, busy_ms=busy_ms, launches_per_step=per_step)
     return row
+
+
+# RPB and the six methods that train a subset of the pretrained tower (phase
+# 11), each at ViT-B/16 from vitb16_CLIP.yaml as the methods phase builds
+# them; first_attention and first_mlp train block 1, so they run with
+# TRAIN.CACHE_FROZEN_PREFIX False, as in the CPU tests.  attention and full
+# also under INT8_FWD_TRAIN + INT8_BWD_DX; RPB and bitfit through the whole
+# driver.
+TOWER_METHODS = (
+    ("rpb", {"PEFT.METHOD": "rpb"}),
+    ("full", {"PEFT.METHOD": "full"}),
+    ("bitfit", {"PEFT.METHOD": "bitfit"}),
+    ("layernorm", {"PEFT.METHOD": "layernorm"}),
+    ("attention", {"PEFT.METHOD": "attention"}),
+    ("first_attention", {"PEFT.METHOD": "first_attention", "TRAIN.CACHE_FROZEN_PREFIX": False}),
+    ("first_mlp", {"PEFT.METHOD": "first_mlp", "TRAIN.CACHE_FROZEN_PREFIX": False}),
+)
+TOWER_INT8 = ("attention", "full")
+TOWER_DRIVES = ("rpb", "bitfit")
+# Leaves whose gradient is zero in exact arithmetic: ln_post's bias only
+# shifts every row's features (through proj) by one vector, which train-mode
+# channel BN subtracts with the batch mean.  Their gradient is rounding
+# alone, so no cosine holds them (tests/test_torch_port_tower_methods.py).
+ZERO_GRAD = ("backbone.ln_post.bias",)
+
+
+def tower_one_cell(name: str, apply_fn, draw: dict, bn: dict, qtree: dict, data) -> None:
+    """A one-cell round's first step (``make_epoch_fn(cells=True)`` on a
+    state stacked over one cell) against the one-cell step (``cells``
+    False), eagerly on the card, bf16: per trainable leaf, the cosine of the
+    two momentum buffers after the step (the gradient plus weight decay,
+    which the fp32 masters do not round as they round an update of 1e-5 of
+    themselves) at least ``TOL_ROUND_BF16_COS``, the round bound of the
+    graph phase.  The leaves of ``ZERO_GRAD`` are printed, not held."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import ce_per_example, init_cell_state, make_epoch_fn
+
+    x, y, valid, perm, lrs, wds = data
+    one = make_epoch_fn(apply_fn, ce_per_example, TRAIN_BATCH, has_bn=True)
+    round_fn = make_epoch_fn(apply_fn, ce_per_example, TRAIN_BATCH, has_bn=True, cells=True)
+    with bench_torch.eager_on_card():
+        alone, _ = one(init_cell_state(draw, bn), qtree, x, y, valid, perm, lrs[0], wds[0])
+        stacked = init_cell_state({n: v[None] for n, v in draw.items()},
+                                  {n: v[None] for n, v in bn.items()})
+        cell, _ = round_fn(stacked, qtree, x, y, valid, perm, lrs[:1], wds[:1])
+    cos = {n: torch.nn.functional.cosine_similarity(
+        v.double().flatten(), cell.momentum[n][0].double().flatten(), dim=0).item()
+        for n, v in alone.momentum.items()}
+    held = {n: c for n, c in cos.items() if n not in ZERO_GRAD}
+    least = min(held, key=held.get)
+    check(held[least] >= TOL_ROUND_BF16_COS,
+          f"{name}: a one-cell round's first step against the one-cell step, {len(held)} "
+          f"leaves: least cosine of the momentum (gradient + wd p) {held[least]:.6f} "
+          f"({least}) >= {TOL_ROUND_BF16_COS:g}; printed, not held: " + ", ".join(
+              f"{n} {c:.4f}" for n, c in cos.items() if n in ZERO_GRAD))
+
+
+def tower_phase(smi: str, device: str = "cuda") -> dict:
+    """RPB and the six methods of ``TOWER_METHODS`` through the port's entry
+    points at ViT-B/16: each served (``serve_method``) and trained as a
+    captured round of 3 (``method_round`` with ``tower``: captured == eager,
+    launches a replay from ``launch_rule`` with K7, the frozen remainder
+    bit-identical, a one-cell round against the one-cell step; RPB's update
+    also against the float64 backward, with K7 in it); ``TOWER_INT8`` under
+    the int8 recipe with int8 dx; ``TOWER_DRIVES`` through the whole driver.
+    ``device`` "cpu" rehearses the phase as ``methods_phase`` does."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import step_decay_lr
+    from peft_vit_tpu_torch.models import build_image_classifier
+    from peft_vit_tpu_torch.peft import spec_from_config
+
+    rng = np.random.RandomState(SEED + 40)
+    images = rng.standard_normal((CHECKED_REQUEST, IMAGE, IMAGE, 3)).astype(np.float32)
+    raw = rng.randint(0, 256, (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.uint8)
+    data = (bench_torch.normalize(torch.as_tensor(raw, device=device), torch.float32),
+            torch.as_tensor(rng.randint(0, NUM_CLASSES, TRAIN_BATCH), device=device),
+            torch.ones(TRAIN_BATCH, dtype=torch.bool, device=device), np.arange(TRAIN_BATCH),
+            step_decay_lr(ROUND_LRS, 0, ()), torch.tensor(ROUND_WDS))
+    result = {}
+    t0 = time.perf_counter()
+    for label, over in TOWER_METHODS:
+        tree, rel = serve_method(label, over, rng, images, device)
+        row = {"serving_rel": rel, "round": method_round(label, over, tree, data, smi, device,
+                                                         tower=True, exact=label == "rpb")}
+        if label in TOWER_INT8:
+            row["int8"] = method_round(label, over, tree, data, smi, device, int8=True,
+                                       tower=True)
+        result[label] = row
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    for label in TOWER_DRIVES:
+        over = dict(TOWER_METHODS)[label]
+        cfg = driver_cfg({**DRIVER, **METHOD_MODEL, **over})
+        model = build_image_classifier(cfg, spec_from_config(cfg),
+                                       int(cfg.DATASET.NUM_CLASSES), use_bn=True,
+                                       device="cpu")[0]
+        tree = method_tree(model, np.random.RandomState(SEED + 42))
+        del model
+        result[f"{label} sweep"] = drive(f"{label} sweep", cfg, tree, smi, device, DRIVER_CELLS)
+    print(f"tower phase: {time.perf_counter() - t0:.1f} s (host clock; {smi})", flush=True)
+    return result
 
 
 def tiny_driver_check(device: str = "cuda") -> None:
@@ -3015,6 +3449,7 @@ def main() -> int:
     smi = environment_phase()
     build_phase(ptxas_verbose=True)
     kern = kernel_phase()
+    kbias = bias_kernel_phase()
     kern8 = int8_kernel_phase()
     fused = fused_kernel_phase()
     slc = slice_phase(smi)
@@ -3023,6 +3458,7 @@ def main() -> int:
     graph_phase(smi)
     drv = driver_phase(smi)
     methods_phase(smi)
+    tower = tower_phase(smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
@@ -3058,6 +3494,14 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+        # the same kernel with RPB's bias (B = 16, one bias; K2 and K3 its bias
+        # instantiations), timed in turns with the bias-free one
+        lines[-1]["bias"] = {"ms": kbias[f"{key}_bias_ms"], "ms_without": kbias[f"{key}_ms"],
+                             "max_abs_err": kbias["max_abs_err"][f"{key}_bias"],
+                             "launches_rpb_round": tower["rpb"]["round"][
+                                 "launches_per_replay"].get(
+                                 {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
+                                  "dkv": "flash_attention_bwd_dkv"}[key], 0)}
         if key == "fwd":
             lines[-1]["eager_ms"] = row["eager_ms"]
             lines[-1]["long_n"] = kern["fwd_long"]
@@ -3065,6 +3509,31 @@ def main() -> int:
             lines[-1]["library_computes"] = (
                 "dq, dk and dv in one scaled_dot_product_attention backward; beside it "
                 f"dq (with delta) + dk/dv take {row['backward_ms']:.6f} ms")
+    row = kbias["k7"]
+    rpb = tower["rpb sweep"]
+    lines.append({
+        "name": "attn_bias_grad",
+        "route": "cuda",
+        "source": "peft_vit_tpu_torch/csrc/attn_bias_grad.cu",
+        "replaces": "peft_vit_tpu/ops/attention.py:928",
+        "replaces_note": "not a Pallas kernel: the bias cotangent of the XLA VJP "
+                         "_attention_bias_vjp_bwd (attention.py:928-941) that the JAX package "
+                         "takes with a bias",
+        "launches": rpb["launches"]["attention_bias_grad"],
+        "launches_driver": rpb["launches"]["attention_bias_grad"],
+        "launches_per_replay": tower["rpb"]["round"]["launches_per_replay"].get(
+            "attention_bias_grad", 0),
+        "max_abs_err": kbias["max_abs_err"]["dbias"],
+        "batch": TRAIN_BATCH,
+        "ms": row["ms"],
+        "ms_from_o": row["ms_from_o"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "library_computes": "dq, dk, dv and the mask's gradient in one "
+                            "scaled_dot_product_attention backward with a float attn_mask",
+    })
     gemm, batch = INT8_KERNEL_LINE
     row = next(r for r in kern8["rows"] if r["gemm"] == gemm and r["batch"] == batch)
     for variant in ("dynamic", "static"):

@@ -7,16 +7,19 @@
 
 on the card unless the caller asks for the CPU (``device="cpu"``).  The
 port runs the linear probe (``PEFT.METHOD`` linear, or none, which the JAX
-driver trains as linear) and every method whose trainable leaves are
-injected PEFT leaves: LoRA and its variants (lora_fix_one, lora_moe,
-lora_adapter, lora_compacter, lora_drop_adapter), KAdaptation, the Houlsby
-adapter and AdapterDrop, Compacter, LePE, VPT and the transformer probe.
-RPB, the methods that train a subset of the pretrained tower, the
-contrastive methods and intrinsic dimension raise ``NotImplementedError``,
-and so does the cached-prefix sweep the JAX driver takes when every
-trainable leaf sits past block 0 (``engine/cached.py``: AdapterDrop on its
-last blocks and the transformer probe take it unless
-``TRAIN.CACHE_FROZEN_PREFIX`` is False).
+driver trains as linear), every method whose trainable leaves are injected
+PEFT leaves (LoRA and its variants lora_fix_one, lora_moe, lora_adapter,
+lora_compacter and lora_drop_adapter, KAdaptation, the Houlsby adapter and
+AdapterDrop, Compacter, RPB, LePE, VPT and the transformer probe), whose
+cells draw every trainable leaf fresh, and the methods that train a subset
+of the pretrained tower (full, bitfit, layernorm, attention,
+first_attention, first_mlp), whose cells draw only the head fresh and start
+every other trainable leaf from its grafted fp32 value (the JAX driver's
+``fresh_mask``).  The contrastive methods and intrinsic dimension raise
+``NotImplementedError``, and so does the cached-prefix sweep the JAX driver
+takes when every trainable leaf sits past block 0 (``engine/cached.py``:
+AdapterDrop on its last blocks, the transformer probe, first_attention and
+first_mlp take it unless ``TRAIN.CACHE_FROZEN_PREFIX`` is False).
 
     python -m peft_vit_tpu_torch.commands.run --ds DS.yaml --model MODEL.yaml [KEY VALUE ...]
 """
@@ -45,16 +48,19 @@ from .common import add_finetuning_args, fix_seeds, load_config, setup_run_logge
 
 logger = logging.getLogger(__name__)
 
-PORTED_METHODS = (
-    "linear", "none", "lora", "lora_fix_one", "lora_moe", "lora_adapter", "lora_compacter",
-    "lora_drop_adapter", "kadaptation", "adapter", "adapterdrop", "compacter", "lepe", "vpt",
+#: the methods whose trainable leaves (beside the head) are injected PEFT
+#: leaves, drawn fresh for every cell (the JAX driver's ``injected``)
+INJECTED_METHODS = (
+    "lora", "lora_fix_one", "lora_moe", "lora_adapter", "lora_compacter", "lora_drop_adapter",
+    "kadaptation", "adapter", "adapterdrop", "compacter", "rpb", "lepe", "vpt",
     "transformer_probe",
 )
+#: the methods that train a subset of the pretrained tower: a cell resets it
+#: to the grafted values and draws only the head fresh
+TOWER_METHODS = ("full", "bitfit", "layernorm", "attention", "first_attention", "first_mlp")
+PORTED_METHODS = ("linear", "none", *INJECTED_METHODS, *TOWER_METHODS)
 # the ROADMAP §1 item that queues each method still refused
 _QUEUED = {
-    "rpb": "RPB and the attention-bias gradient",
-    **{m: "the mask-only methods" for m in (
-        "full", "bitfit", "layernorm", "attention", "first_attention", "first_mlp")},
     # the contrastive methods need the text tower
     "finetune_contrast": "probes and zero-shot",
     "linear_probe_contrast": "probes and zero-shot",
@@ -81,8 +87,9 @@ def _fresh_leaf(name: str, shape, generator: torch.Generator) -> torch.Tensor:
     """A freshly initialised trainable leaf, drawn as the JAX package's flax
     init draws it:
 
-    * biases, Compacter's ``b``, KAdaptation's ``phmb`` and LoRA's
-      ``*_adapter2``: zeros; a LayerNorm scale (a rank-1 ``weight``): ones;
+    * biases, Compacter's ``b``, KAdaptation's ``phmb``, RPB's
+      ``relative_position_bias_table`` and LoRA's ``*_adapter2``: zeros; a
+      LayerNorm scale (a rank-1 ``weight``): ones;
     * LoRA's ``*_adapter1`` and the MoE gates ``*_moe_adapter1``, the
       adapters' ``down`` and ``up``, the prompts: N(0, 0.02^2);
     * KAdaptation's ``phm_rule``, ``W_left*`` and ``W_right*``, Compacter's
@@ -107,7 +114,8 @@ def _fresh_leaf(name: str, shape, generator: torch.Generator) -> torch.Tensor:
     def uniform(limit: float) -> torch.Tensor:
         return torch.nn.init.uniform_(t, -limit, limit, generator=generator)
 
-    if leaf in ("bias", "b", "phmb") or last.endswith("_adapter2"):
+    if leaf in ("bias", "b", "phmb", "relative_position_bias_table") or last.endswith(
+            "_adapter2"):
         return t
     if leaf in ("prompt_embeddings", "deep_prompt_embeddings") or last.endswith("_adapter1") or (
             leaf == "weight" and last in ("down", "up")):
@@ -173,6 +181,13 @@ def finetune_main(
         adapter_layers=spec.adapter_layers,
     )
     logger.info("trainable:\n%s", describe_mask(model, mask))
+    # the leaves a cell draws fresh: every trainable one of an injected
+    # method; only the head (train_head) of the others, whose tower leaves
+    # start from the grafted values (adapter_tuning_clip.py:231 re-loads the
+    # pretrained backbone per cell)
+    fresh_mask = mask if spec.method not in TOWER_METHODS else build_mask(
+        model, "linear", num_layers=num_layers, train_head=bool(cfg.PEFT.TRAIN_HEAD),
+        extra_regex="logit_scale")
     n_trainable = count_trainable(model, mask)
     log_trainable_params(n_trainable)
     if bool(cfg.TRAIN.get("CACHE_FROZEN_PREFIX", True)) and _first_trainable_layer(
@@ -183,6 +198,9 @@ def finetune_main(
             "TRAIN.CACHE_FROZEN_PREFIX False to train through the whole tower"
         )
     trainable0, frozen = split_params(model, mask)
+    # the grafted values of the trainable leaves, fp32, taken before anything
+    # casts the tower (the JAX driver resets from its fp32 params)
+    grafted = {k: v.detach().cpu().clone() for k, v in trainable0.items()}
     # TPU.INT8_FWD_TRAIN: quantize the frozen tower ONCE for the whole sweep
     # (every cell shares it), from the stored fp32 weights, before the cast
     qkernel = None
@@ -195,13 +213,10 @@ def finetune_main(
     cast_frozen_(model)
 
     if init_trainables is None:
-        base = {k: v.detach().cpu().clone() for k, v in trainable0.items()}
-
         def init_trainables(key: CellKey) -> Dict[str, torch.Tensor]:
-            # every trainable leaf of a ported method is an injected PEFT leaf
-            # or the head: all of them are drawn fresh per cell
             gen = key.generator()
-            return {k: _fresh_leaf(k, v.shape, gen) for k, v in base.items()}
+            return {k: _fresh_leaf(k, v.shape, gen) if fresh_mask[k] else v.clone()
+                    for k, v in grafted.items()}
 
     bn_template = {k: v for k, v in model.named_buffers()
                    if k.rsplit(".", 1)[-1] in ("bn_mean", "bn_var")} or None

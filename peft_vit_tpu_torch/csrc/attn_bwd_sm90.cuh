@@ -3,13 +3,23 @@
 // backward of fused_short_attn.cu, which runs both in one launch.  For q, k,
 // v, o, dO (B, H, N, 64) bf16 and the forward's lse (B, H, 1, N) fp32:
 //     delta = rowsum(dO o O)                     (K2 computes it and writes it)
-//     p  = exp(scale q k^T - lse)      ds = p o (dO v^T - delta)
+//     p  = exp(scale q k^T (+ bias) - lse)   ds = p o (dO v^T - delta)
 //     dq = scale ds k                  dk = scale ds^T q        dv = p^T dO
 // p is rounded to bf16 before p^T dO and ds before its two products; every
 // sum is fp32.  K5 (kFused) folds the scale into ds before ds is rounded,
 // ds = scale p o (dO v^T - delta), and scales nothing after the products;
 // it takes no delta operand.  Keys and q rows at or beyond N contribute
 // nothing, and rows at or beyond N are not written.
+//
+// The bias (K2 and K3 with kBias; K5 has none, as the Pallas pair has none):
+// the forward's (C, H, N, N) fp32 bias, batch element b reading cell
+// b / (B / C), added where p is recomputed.  Each thread reads the elements
+// of its accumulator fragments from device memory (the bias of a head is
+// 155 KB at N = 197 and stays in L2), issued before the wait on the
+// products so that the loads run under them; K2 reads its rows' keys
+// contiguously, K3 its keys' q rows at a stride of N.  The bias-free
+// instantiations are the kernels of before, unchanged; the bias ones take a
+// block fewer a SM (K2 three, K3 two) for the registers of the loaded tile.
 //
 // The machinery is the forward's (attn_fwd_sm90.cuh): every bf16 operand is
 // one 3-D tensor map over (64, N, B H) with the 128-byte swizzle, copied by
@@ -101,7 +111,15 @@ struct BwdArgs {
   int H;
   int N;
   float scale;
+  const float* bias;   // K2, K3 with kBias: (C, H, N, N) fp32
+  int bias_batch;      // B / C
 };
+
+// The bias of head bh's (batch b, head h) cell: its (N, N) matrix.
+__device__ __forceinline__ const float* head_bias(const BwdArgs& args, int bh) {
+  const size_t cell = (bh / args.H) / args.bias_batch;
+  return args.bias + (cell * args.H + bh % args.H) * args.N * static_cast<size_t>(args.N);
+}
 
 // The four tensor maps of a launch.
 struct BwdMaps {
@@ -271,13 +289,15 @@ struct DqChunk {
   float scale_l2;
   float scale;  // folded into dS (kFold)
   int t;
+  const float* brow[2];  // kBias: the bias rows of this thread's two q rows (null >= N)
 };
 
 // dq += dS K over kCols keys from key0: S = Q K^T and dP = dO V^T in two
 // commit groups, P formed while dP's product still runs (keys >= N get
-// p = 0), dS = P o (dP - delta) in place (kFold: scale P o (dP - delta)),
+// p = 0; kBias: the bias, loaded while S's product runs, added to the
+// exponent), dS = P o (dP - delta) in place (kFold: scale P o (dP - delta)),
 // then its bf16 fragments times the chunk's K rows.
-template <int kCols, bool kFold>
+template <int kCols, bool kFold, bool kBias>
 __device__ __forceinline__ void dq_chunk(float (&acc)[32], const DqChunk& c,
                                          const float (&lse_l2)[2], const float (&delta)[2]) {
   constexpr int kSteps = (kCols + 15) / 16;
@@ -289,12 +309,23 @@ __device__ __forceinline__ void dq_chunk(float (&acc)[32], const DqChunk& c,
   wgmma_commit();
   ss_chunk<kCols>(dp, c.dout, c.v);
   wgmma_commit();
+  // log2e (bias - lse) of each element, or - log2e lse
+  float off[kBias ? kCols / 2 : 1];
+  if constexpr (kBias) {
+#pragma unroll
+    for (int idx = 0; idx < kCols / 2; ++idx) {
+      const int r = (idx >> 1) & 1;
+      const int key = c.key0 + 8 * (idx >> 2) + 2 * c.t + (idx & 1);
+      const float b = (c.brow[r] != nullptr && key < c.N) ? c.brow[r][key] : 0.f;
+      off[idx] = fmaf(b, kLog2e, -lse_l2[r]);
+    }
+  }
   wgmma_wait<1>();  // S has landed; the exponentials run under dP's product
   fence_regs(s);
 #pragma unroll
   for (int idx = 0; idx < kCols / 2; ++idx) {
     const int r = (idx >> 1) & 1;  // element idx % 4 of 8-column group idx / 4
-    const float p = ex2(fmaf(s[idx], c.scale_l2, -lse_l2[r]));
+    const float p = ex2(fmaf(s[idx], c.scale_l2, kBias ? off[kBias ? idx : 0] : -lse_l2[r]));
     s[idx] = c.key0 + 8 * (idx >> 2) + 2 * c.t + (idx & 1) < c.N ? p : 0.f;
   }
   wgmma_wait<0>();
@@ -329,6 +360,10 @@ struct DkvChunk {
   float scale_l2;
   float scale;  // folded into dS^T (kFold)
   int t;
+  const float* bias;  // kBias: the head's (N, N) bias
+  int q0;             // kBias: the chunk's first q row
+  int key;            // kBias: this thread's first key (its second is key + 8)
+  int N;
 };
 
 // dv += P^T dO and dk += dS^T Q over kCols q rows: S^T = K Q^T and dP^T =
@@ -336,7 +371,7 @@ struct DkvChunk {
 // the chunk (rows >= N have lse = +inf, so p = 0).  Letting P^T and dv's
 // product run under dP^T's, as K2 does, made ptxas serialize the wgmma for
 // want of registers and spill (C7512), and K3 slower.
-template <int kCols, bool kFold>
+template <int kCols, bool kFold, bool kBias>
 __device__ __forceinline__ void dkv_chunk(float (&dk)[32], float (&dv)[32], const DkvChunk& c) {
   constexpr int kSteps = (kCols + 15) / 16;
   float s[kCols / 2], dp[kCols / 2];
@@ -346,13 +381,26 @@ __device__ __forceinline__ void dkv_chunk(float (&dk)[32], float (&dv)[32], cons
   ss_chunk<kCols>(s, c.k, c.q);
   ss_chunk<kCols>(dp, c.v, c.dout);
   wgmma_commit();
+  // kBias: log2e bias[q row][key] of each element (rows: keys, columns: q
+  // rows), loaded while the products run
+  float lb[kBias ? kCols / 2 : 1];
+  if constexpr (kBias) {
+#pragma unroll
+    for (int idx = 0; idx < kCols / 2; ++idx) {
+      const int qrow = c.q0 + 8 * (idx >> 2) + 2 * c.t + (idx & 1);
+      const int key = c.key + 8 * ((idx >> 1) & 1);
+      lb[idx] = (qrow < c.N && key < c.N)
+                    ? c.bias[static_cast<size_t>(qrow) * c.N + key] * kLog2e : 0.f;
+    }
+  }
   wgmma_wait<0>();
   fence_regs(s);
   fence_regs(dp);
 #pragma unroll
   for (int idx = 0; idx < kCols / 2; ++idx) {
     const int col = 8 * (idx >> 2) + 2 * c.t + (idx & 1);
-    const float p = ex2(fmaf(s[idx], c.scale_l2, -c.lse_l2[col]));
+    const float p = ex2(fmaf(s[idx], c.scale_l2,
+                             kBias ? lb[kBias ? idx : 0] - c.lse_l2[col] : -c.lse_l2[col]));
     s[idx] = p;
     if constexpr (kFold) {
       dp[idx] = c.scale * p * (dp[idx] - c.delta[col]);
@@ -390,7 +438,7 @@ __device__ __forceinline__ void init_bars(const BwdBars& bars, int tid) {
 
 // The dq role (K2; K5's dq blocks with kFused): this block owns the 64 q
 // rows from q0 of head bh and loops over the key chunks.
-template <bool kFused>
+template <bool kFused, bool kBias>
 __device__ __forceinline__ void dq_block(const BwdMaps& maps, const BwdArgs& args,
                                          const BwdBars& bars, uint8_t* smem, int q0, int bh) {
   const int N = args.N;
@@ -432,6 +480,14 @@ __device__ __forceinline__ void dq_block(const BwdMaps& maps, const BwdArgs& arg
   float lse_l2[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) lse_l2[i] = row[i] < N ? args.lse[head + row[i]] * kLog2e : 0.f;
+  const float* brow[2] = {nullptr, nullptr};
+  if constexpr (kBias) {
+    const float* hb = head_bias(args, bh);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (row[i] < N) brow[i] = hb + static_cast<size_t>(row[i]) * N;
+    }
+  }
   mbar_wait(bars.own, 0);
   float delta[2];
   rows_delta(delta, sDo, orow, r, g, t);
@@ -454,14 +510,15 @@ __device__ __forceinline__ void dq_block(const BwdMaps& maps, const BwdArgs& arg
     if (tid == 0) ring.refill(j);
     ring.wait(j);
     const int st = j % kBwdStages;
-    const DqChunk c{sQ, sDo, ring.a(st), ring.b(st), j * kChunk, N, scale_l2, args.scale, t};
+    const DqChunk c{sQ,         sDo,        ring.a(st), ring.b(st),          j * kChunk, N,
+                    scale_l2,   args.scale, t,          {brow[0], brow[1]}};
     if (j + 1 < chunks) {
-      dq_chunk<kChunk, kFused>(acc, c, lse_l2, delta);
+      dq_chunk<kChunk, kFused, kBias>(acc, c, lse_l2, delta);
     } else {
       switch ((tail + 7) / 8) {
 #define SM90_DQ_TAIL(w) \
   case w:                \
-    dq_chunk<8 * (w), kFused>(acc, c, lse_l2, delta); \
+    dq_chunk<8 * (w), kFused, kBias>(acc, c, lse_l2, delta); \
     break;
         SM90_DQ_TAIL(1) SM90_DQ_TAIL(2) SM90_DQ_TAIL(3) SM90_DQ_TAIL(4)
         SM90_DQ_TAIL(5) SM90_DQ_TAIL(6) SM90_DQ_TAIL(7) SM90_DQ_TAIL(8)
@@ -489,7 +546,7 @@ __device__ __forceinline__ void dq_block(const BwdMaps& maps, const BwdArgs& arg
 // chunk's delta themselves): this block owns the 64 keys from k0 of head bh
 // and loops over the q chunks.  s_lse and s_delta: double buffers of a
 // chunk's 64 log2e lse and delta.
-template <bool kFused>
+template <bool kFused, bool kBias>
 __device__ __forceinline__ void dkv_block(const BwdMaps& maps, const BwdArgs& args,
                                           const BwdBars& bars, uint8_t* smem, int k0, int bh,
                                           float (*s_lse)[kChunk], float (*s_delta)[kChunk]) {
@@ -531,6 +588,7 @@ __device__ __forceinline__ void dkv_block(const BwdMaps& maps, const BwdArgs& ar
   };
   float next = fetch(0);
   const int tail = N - (chunks - 1) * kChunk;  // q rows of the last chunk
+  const float* bias_head = kBias ? head_bias(args, bh) : nullptr;
 
   const float scale_l2 = args.scale * kLog2e;
   float dk[kD / 2], dv[kD / 2];
@@ -568,15 +626,15 @@ __device__ __forceinline__ void dkv_block(const BwdMaps& maps, const BwdArgs& ar
     }
 
     if constexpr (!kFused) ring.wait(j);
-    const DkvChunk c{sK, sV, ring.a(st), ring.b(st), s_lse[buf], s_delta[buf],
-                     scale_l2, args.scale, t};
+    const DkvChunk c{sK,         sV,   ring.a(st), ring.b(st), s_lse[buf], s_delta[buf],
+                     scale_l2,   args.scale, t,  bias_head,  j * kChunk, k0 + r,      N};
     if (j + 1 < chunks) {
-      dkv_chunk<kChunk, kFused>(dk, dv, c);
+      dkv_chunk<kChunk, kFused, kBias>(dk, dv, c);
     } else {
       switch ((tail + 7) / 8) {
 #define SM90_DKV_TAIL(w) \
   case w:                 \
-    dkv_chunk<8 * (w), kFused>(dk, dv, c); \
+    dkv_chunk<8 * (w), kFused, kBias>(dk, dv, c); \
     break;
         SM90_DKV_TAIL(1) SM90_DKV_TAIL(2) SM90_DKV_TAIL(3) SM90_DKV_TAIL(4)
         SM90_DKV_TAIL(5) SM90_DKV_TAIL(6) SM90_DKV_TAIL(7) SM90_DKV_TAIL(8)
@@ -604,13 +662,14 @@ __device__ __forceinline__ void dkv_block(const BwdMaps& maps, const BwdArgs& ar
 }
 
 // K2 (kRoleDq), K3 (kRoleDkv) or K5 (kRoleFused: blockIdx.z 0 the dk/dv
-// blocks, 1 the dq blocks).  One warpgroup a block, 64 rows of head
-// blockIdx.y from row 64 blockIdx.x.
-template <int kRole>
-__global__ void __launch_bounds__(128, kRole == kRoleDq ? 4 : 3)
+// blocks, 1 the dq blocks), with the bias for K2 and K3 (kBias).  One
+// warpgroup a block, 64 rows of head blockIdx.y from row 64 blockIdx.x.
+template <int kRole, bool kBias>
+__global__ void __launch_bounds__(128, kRole == kRoleDq ? (kBias ? 3 : 4) : (kBias ? 2 : 3))
 attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap tdo, const BwdArgs args) {
+  static_assert(!(kBias && kRole == kRoleFused), "K5 takes no bias");
   __shared__ __align__(8) uint64_t bar_own;
   __shared__ __align__(8) uint64_t bar_full[kBwdStages];
   __shared__ __align__(8) uint64_t bar_empty[kBwdStages];
@@ -622,18 +681,18 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   const int row0 = blockIdx.x * kChunk;
   const int bh = blockIdx.y;
   if constexpr (kRole == kRoleDq) {
-    dq_block<false>(maps, args, bars, smem, row0, bh);
+    dq_block<false, kBias>(maps, args, bars, smem, row0, bh);
   } else if constexpr (kRole == kRoleDkv) {
     __shared__ float s_lse[2][kChunk];  // log2e lse of the chunk's q rows
     __shared__ float s_delta[2][kChunk];
-    dkv_block<false>(maps, args, bars, smem, row0, bh, s_lse, s_delta);
+    dkv_block<false, kBias>(maps, args, bars, smem, row0, bh, s_lse, s_delta);
   } else {
     __shared__ float s_lse[2][kChunk];
     __shared__ float s_delta[2][kChunk];
     if (blockIdx.z == 0) {
-      dkv_block<true>(maps, args, bars, smem, row0, bh, s_lse, s_delta);
+      dkv_block<true, false>(maps, args, bars, smem, row0, bh, s_lse, s_delta);
     } else {
-      dq_block<true>(maps, args, bars, smem, row0, bh);
+      dq_block<true, false>(maps, args, bars, smem, row0, bh);
     }
   }
 }
@@ -641,14 +700,15 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 // ---------------------------------------------------------------------------
 // host side
 
-// K2, K3 or K5 in bf16, at every N.  The shared-memory attribute belongs to
-// the device, so it is set on every launch.
-template <int kRole>
+// K2, K3 or K5 in bf16, at every N, K2 and K3 with or without the bias.
+// The shared-memory attribute belongs to the device, so it is set on every
+// launch.
+template <int kRole, bool kBias = false>
 cudaError_t attn_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
                           const BwdArgs& args, int B, cudaStream_t stream) {
   if (static_cast<size_t>(B) * args.H > 65535) return cudaErrorInvalidValue;  // grid.y
   constexpr int smem = kRole == kRoleFused ? kFusedBwdSmemBytes : kBwdSmemBytes;
-  auto kernel = attn_bwd_sm90_kernel<kRole>;
+  auto kernel = attn_bwd_sm90_kernel<kRole, kBias>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;

@@ -1,12 +1,17 @@
 // The bf16 attention forward for Hopper (sm_90a) shared by K1
 // (flash_attn_fwd.cu) and K4 (fused_short_attn.cu): TMA staging behind
 // mbarriers, wgmma products, fp32 softmax.  For q, k, v (B, H, N, 64) bf16
-// and, in K1, an optional (H, N, N) fp32 bias shared by the batch:
+// and, in K1, an optional (C, H, N, N) fp32 bias, batch element b reading
+// cell b / (B / C) (C = 1: one bias shared by the batch):
 //     x = scale * q k^T (+ bias)     m = max x     p = exp(x - m)    l = sum p
 //     K1 (kNormFirst = false): o = ((p -> bf16) v) / l
 //     K4 (kNormFirst = true):  o = ((p / l) -> bf16) v
 //     lse = m + log l                                     (B, H, 1, N) fp32
 // Keys >= N give p = 0; q rows >= N are computed on zeros and not written.
+// The bias is a template flag (kBias, K1 only): the bias-free
+// instantiations hold no bias code, and a bias instantiation reads each
+// thread's elements of its two rows from device memory (L2) as it scales
+// the scores.
 //
 // Work split: a block of two consumer warpgroups (256 threads) owns 128 q
 // rows of one (batch, head); warpgroup w owns the 64-row q tile 2 x + w and
@@ -78,12 +83,13 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 struct FwdArgs {
-  const float* bias;  // (H, N, N) fp32 or null; K1 only
+  const float* bias;  // (C, H, N, N) fp32 or null; K1 only
   uint16_t* o;        // (B, H, N, 64) bf16
   float* lse;         // (B, H, 1, N) fp32 or null
   int H;
   int N;
   float scale;
+  int bias_batch;     // B / C: the batch elements that read one bias cell
 };
 
 // Key width of one stage: round_up(N, 8) keys resident, or kStreamKeys.
@@ -135,7 +141,7 @@ __device__ __forceinline__ void pv_product(float (&o)[kD / 2], const uint32_t (&
 
 // x = scale * s (+ bias) with keys >= N at kNegInf, in place, and the row
 // maxima of this thread's two rows over the quad that shares them.
-template <int kKeys>
+template <int kKeys, bool kBias>
 __device__ __forceinline__ void scores(float (&s)[kKeys / 2], float (&mx)[2], int key0, int N,
                                        float scale, const float* const* brow, int t) {
   mx[0] = kNegInf;
@@ -148,7 +154,9 @@ __device__ __forceinline__ void scores(float (&s)[kKeys / 2], float (&mx)[2], in
       const int r = i >> 1;
       const int key = key0 + 8 * j + 2 * t + (i & 1);
       float x = s[4 * j + i] * scale;
-      if (brow[r] != nullptr && key < N) x += brow[r][key];
+      if constexpr (kBias) {
+        if (brow[r] != nullptr && key < N) x += brow[r][key];
+      }
       if (edge && key >= N) x = kNegInf;
       s[4 * j + i] = x;
       mx[r] = fmaxf(mx[r], x);
@@ -205,7 +213,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int kKeys, bool kStream, bool kNormFirst>
+template <int kKeys, bool kStream, bool kNormFirst, bool kBias>
 __global__ void __launch_bounds__(kThreads, (kKeys <= 200 ? 2 : 1))
 attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const FwdArgs args) {
@@ -275,10 +283,11 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 
   const int row[2] = {q0 + wg * kTileRows + warp * 16 + g, q0 + wg * kTileRows + warp * 16 + g + 8};
   const float* brow[2] = {nullptr, nullptr};
-  if (args.bias != nullptr) {
+  if constexpr (kBias) {
+    const size_t cell = (bh / args.H) / args.bias_batch;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (row[r] < N) brow[r] = args.bias + (static_cast<size_t>(h) * N + row[r]) * N;
+      if (row[r] < N) brow[r] = args.bias + ((cell * args.H + h) * N + row[r]) * N;
     }
   }
   const uint8_t* q_tile = sQ + wg * kTileRows * kRowBytes;
@@ -307,7 +316,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     mbar_wait(&bar_k[st], parity);
     qk_product<kKeys>(s, q_tile, sK(st));
     float mx[2];
-    scores<kKeys>(s, mx, key0, N, args.scale, brow, t);
+    scores<kKeys, kBias>(s, mx, key0, N, args.scale, brow, t);
 
     if (kNormFirst && kStream && j < tiles) {
       // K4, first pass: the running row max and this thread's running sum
@@ -413,11 +422,11 @@ inline bool encode_rows(CUtensorMap* map, const void* base, int N, int BH, int r
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kKeys, bool kStream, bool kNormFirst>
+template <int kKeys, bool kStream, bool kNormFirst, bool kBias>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const FwdArgs& args, int B,
                        cudaStream_t stream) {
   using L = FwdSmem<kKeys, kStream>;
-  auto kernel = attn_fwd_sm90_kernel<kKeys, kStream, kNormFirst>;
+  auto kernel = attn_fwd_sm90_kernel<kKeys, kStream, kNormFirst, kBias>;
   // the attribute belongs to the device, so it is set on every launch
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
@@ -435,17 +444,16 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const FwdArg
 
 // The bf16 forward: the resident design at N <= 256 with a product of
 // width round_up(N, 8), the streamed one beyond.
-template <bool kNormFirst>
-cudaError_t attn_fwd_bf16(const void* q, const void* k, const void* v, const FwdArgs& args, int B,
-                          cudaStream_t stream) {
-  if (static_cast<size_t>(B) * args.H > 65535) return cudaErrorInvalidValue;  // grid.y
+template <bool kNormFirst, bool kBias>
+cudaError_t attn_fwd_bf16_keys(const void* q, const void* k, const void* v, const FwdArgs& args,
+                               int B, cudaStream_t stream) {
   if (args.N > kMaxResidentKeys) {
-    return launch_fwd<kStreamKeys, true, kNormFirst>(q, k, v, args, B, stream);
+    return launch_fwd<kStreamKeys, true, kNormFirst, kBias>(q, k, v, args, B, stream);
   }
   switch ((args.N + 7) / 8) {
 #define SM90_FWD_CASE(c) \
   case c:                \
-    return launch_fwd<8 * (c), false, kNormFirst>(q, k, v, args, B, stream);
+    return launch_fwd<8 * (c), false, kNormFirst, kBias>(q, k, v, args, B, stream);
     SM90_FWD_CASE(1) SM90_FWD_CASE(2) SM90_FWD_CASE(3) SM90_FWD_CASE(4)
     SM90_FWD_CASE(5) SM90_FWD_CASE(6) SM90_FWD_CASE(7) SM90_FWD_CASE(8)
     SM90_FWD_CASE(9) SM90_FWD_CASE(10) SM90_FWD_CASE(11) SM90_FWD_CASE(12)
@@ -458,6 +466,17 @@ cudaError_t attn_fwd_bf16(const void* q, const void* k, const void* v, const Fwd
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// K1 with or without its bias; K4 (kNormFirst) has none.
+template <bool kNormFirst>
+cudaError_t attn_fwd_bf16(const void* q, const void* k, const void* v, const FwdArgs& args, int B,
+                          cudaStream_t stream) {
+  if (static_cast<size_t>(B) * args.H > 65535) return cudaErrorInvalidValue;  // grid.y
+  if constexpr (!kNormFirst) {
+    if (args.bias != nullptr) return attn_fwd_bf16_keys<false, true>(q, k, v, args, B, stream);
+  }
+  return attn_fwd_bf16_keys<kNormFirst, false>(q, k, v, args, B, stream);
 }
 
 }  // namespace sm90

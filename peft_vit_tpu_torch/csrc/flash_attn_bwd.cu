@@ -5,11 +5,16 @@
 //   flash_attn_bwd_dq   <- _flash_bwd_dq_kernel   (K2)
 //   flash_attn_bwd_dkv  <- _flash_bwd_dkv_kernel  (K3)
 // (their pallas_calls are in _flash_attention_bwd).  For q, k, v, o, dO of
-// shape (B, H, N, D) and the forward's lse (B, H, 1, N) fp32 they compute the
-// bias-free backward
+// shape (B, H, N, D), the forward's lse (B, H, 1, N) fp32 and its optional
+// (C, H, N, N) fp32 bias (batch element b reads cell b / (B / C)) they
+// compute
 //     delta = rowsum(dO o O)            (K2 computes it, writes it, K3 reads it)
-//     p  = exp(scale * q k^T - lse)     ds = p o (dO v^T - delta)
+//     p  = exp(scale * q k^T + bias - lse)     ds = p o (dO v^T - delta)
 //     dq = scale * ds k        dk = scale * ds^T q        dv = p^T dO
+// The Pallas kernels have no bias: with one the JAX package leaves them for
+// the XLA VJP of its reference (_attention_bias_vjp_bwd), which this bias
+// path and attn_bias_grad.cu (the bias's own gradient, K7) replace on the
+// card.
 // p and ds are recomputed tile by tile from the saved lse and never reach
 // device memory.  p is rounded to the operand dtype before p^T dO and ds
 // before its two products, as in the Pallas kernels; sums are fp32.  Nothing
@@ -35,8 +40,9 @@
 // its rows).
 // fp32: one block of 128 threads per (64-row tile, head, batch), two threads
 // per owned row (each holds every other dim) and fp32 FMAs; the two halves of
-// a dot product meet in one shuffle.  It exists so that fp32 training on the
-// card can be held tightly against the CPU.  D = 64 only.
+// a dot product meet in one shuffle; the bias (kBias) read from device
+// memory per element.  It exists so that fp32 training on the card can be
+// held tightly against the CPU.  D = 64 only.
 
 #include "attn_bwd_sm90.cuh"
 
@@ -73,12 +79,19 @@ __device__ __forceinline__ void load_half_row_f32(float (&dst)[kHalfD], const fl
   for (int i = 0; i < kHalfD; ++i) dst[i] = valid ? src[2 * i + half] : 0.f;
 }
 
+// The bias of batch element b's cell, head h: its (N, N) matrix.
+__device__ __forceinline__ const float* cell_bias(const float* bias, int b, int h, int H, int N,
+                                                  int bias_batch) {
+  return bias + (static_cast<size_t>(b / bias_batch) * H + h) * N * static_cast<size_t>(N);
+}
+
+template <bool kBias>
 __global__ void __launch_bounds__(kThreadsF32)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ o, const float* __restrict__ lse,
                         float* __restrict__ delta, float* __restrict__ dq, int H, int N,
-                        float scale) {
+                        float scale, const float* __restrict__ bias, int bias_batch) {
   __shared__ __align__(16) float sK[kBlockK * kD];
   __shared__ __align__(16) float sV[kBlockK * kD];
 
@@ -108,6 +121,9 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
   row_delta += __shfl_xor_sync(0xffffffffu, row_delta, 1);
   if (valid && half == 0) delta[bh * N + row] = row_delta;
+  const float* brow = kBias ? cell_bias(bias, blockIdx.z, blockIdx.y, H, N, bias_batch) +
+                                  static_cast<size_t>(valid ? row : 0) * N
+                            : nullptr;
 
   const int num_kt = (N + kBlockK - 1) / kBlockK;
   for (int kt = 0; kt < num_kt; ++kt) {
@@ -127,7 +143,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
       }
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      const float p = (k0 + j < N) ? expf(s * scale - row_lse) : 0.f;
+      float p = 0.f;
+      if (k0 + j < N) p = kBias ? expf(s * scale + brow[k0 + j] - row_lse) : expf(s * scale - row_lse);
       const float ds = p * (dp - row_delta);
 #pragma unroll
       for (int i = 0; i < kHalfD; ++i) acc[i] = fmaf(ds, kr[2 * i], acc[i]);
@@ -139,12 +156,14 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int i = 0; i < kHalfD; ++i) dq[row_off + 2 * i + half] = scale * acc[i];
 }
 
+template <bool kBias>
 __global__ void __launch_bounds__(kThreadsF32)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv,
-                         int H, int N, float scale) {
+                         int H, int N, float scale, const float* __restrict__ bias,
+                         int bias_batch) {
   __shared__ __align__(16) float sQ[kBlockQ * kD];
   __shared__ __align__(16) float sDo[kBlockQ * kD];
   __shared__ float sLse[kBlockQ];
@@ -170,6 +189,10 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     dv_acc[i] = 0.f;
   }
 
+  // this thread's key column of its cell's bias
+  const float* bcol = kBias ? cell_bias(bias, blockIdx.z, blockIdx.y, H, N, bias_batch) +
+                                  (valid ? row : 0)
+                            : nullptr;
   const int num_qt = (N + kBlockQ - 1) / kBlockQ;
   for (int qt = 0; qt < num_qt; ++qt) {
     const int q0 = qt * kBlockQ;
@@ -193,7 +216,11 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       }
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      const float p = (valid && q0 + j < N) ? expf(s * scale - sLse[j]) : 0.f;
+      float p = 0.f;
+      if (valid && q0 + j < N) {
+        p = kBias ? expf(s * scale + bcol[static_cast<size_t>(q0 + j) * N] - sLse[j])
+                  : expf(s * scale - sLse[j]);
+      }
       const float ds = p * (dp - sDelta[j]);
 #pragma unroll
       for (int i = 0; i < kHalfD; ++i) {
@@ -211,59 +238,71 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
 }
 
-bool bad_shape(int B, int H, int N, int D) {
-  return D != kD || B <= 0 || H <= 0 || N <= 0 || B > 65535 || H > 65535;
+bool bad_shape(int B, int H, int N, int D, int bias_cells) {
+  return D != kD || B <= 0 || H <= 0 || N <= 0 || B > 65535 || H > 65535 || bias_cells <= 0 ||
+         B % bias_cells != 0;
 }
 
 }  // namespace
 
 // Both functions launch on `stream` of `device` and return cudaGetLastError()
 // (0 = ok).  q, k, v, o, dout and the gradients: (B, H, N, D) contiguous,
-// 16-byte aligned, bf16 (is_bf16 = 1) or fp32; lse, delta: (B, H, 1, N) fp32.
-// flash_attn_bwd_dq writes dq and delta; flash_attn_bwd_dkv reads delta.
+// 16-byte aligned, bf16 (is_bf16 = 1) or fp32; lse, delta: (B, H, 1, N) fp32;
+// bias: the forward's (C, H, N, N) fp32 with C = bias_cells dividing B, or
+// NULL.  flash_attn_bwd_dq writes dq and delta; flash_attn_bwd_dkv reads
+// delta.
 extern "C" int flash_attn_bwd_dq(int device, const void* q, const void* k, const void* v,
-                                 const void* dout, const void* o, const void* lse, void* delta,
-                                 void* dq, int B, int H, int N, int D, float scale,
-                                 int is_bf16, void* stream) {
-  if (bad_shape(B, H, N, D)) return static_cast<int>(cudaErrorInvalidValue);
+                                 const void* dout, const void* o, const void* lse,
+                                 const void* bias, void* delta, void* dq, int B, int H, int N,
+                                 int D, int bias_cells, float scale, int is_bf16, void* stream) {
+  if (bad_shape(B, H, N, D, bias_cells)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* b32 = static_cast<const float*>(bias);
   if (is_bf16) {
     sm90::BwdArgs args{static_cast<const uint16_t*>(o), static_cast<const float*>(lse),
                        static_cast<float*>(delta), static_cast<uint16_t*>(dq), nullptr,
-                       nullptr, H, N, scale};
-    return static_cast<int>(sm90::attn_bwd_bf16<sm90::kRoleDq>(q, k, v, dout, args, B, s));
+                       nullptr, H, N, scale, b32, B / bias_cells};
+    return static_cast<int>(
+        b32 ? sm90::attn_bwd_bf16<sm90::kRoleDq, true>(q, k, v, dout, args, B, s)
+            : sm90::attn_bwd_bf16<sm90::kRoleDq>(q, k, v, dout, args, B, s));
   }
   const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
-  flash_bwd_dq_f32_kernel<<<grid, kThreadsF32, 0, s>>>(
+  auto kernel = b32 ? flash_bwd_dq_f32_kernel<true> : flash_bwd_dq_f32_kernel<false>;
+  kernel<<<grid, kThreadsF32, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(o), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<float*>(dq), H, N, scale);
+      static_cast<float*>(delta), static_cast<float*>(dq), H, N, scale, b32, B / bias_cells);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int flash_attn_bwd_dkv(int device, const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
-                                  void* dk, void* dv, int B, int H, int N, int D, float scale,
-                                  int is_bf16, void* stream) {
-  if (bad_shape(B, H, N, D)) return static_cast<int>(cudaErrorInvalidValue);
+                                  const void* bias, void* dk, void* dv, int B, int H, int N,
+                                  int D, int bias_cells, float scale, int is_bf16, void* stream) {
+  if (bad_shape(B, H, N, D, bias_cells)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* b32 = static_cast<const float*>(bias);
   if (is_bf16) {
     sm90::BwdArgs args{nullptr, static_cast<const float*>(lse),
                        const_cast<float*>(static_cast<const float*>(delta)), nullptr,
-                       static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), H, N, scale};
-    return static_cast<int>(sm90::attn_bwd_bf16<sm90::kRoleDkv>(q, k, v, dout, args, B, s));
+                       static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), H, N, scale,
+                       b32, B / bias_cells};
+    return static_cast<int>(
+        b32 ? sm90::attn_bwd_bf16<sm90::kRoleDkv, true>(q, k, v, dout, args, B, s)
+            : sm90::attn_bwd_bf16<sm90::kRoleDkv>(q, k, v, dout, args, B, s));
   }
   const dim3 grid((N + kBlockK - 1) / kBlockK, H, B);
-  flash_bwd_dkv_f32_kernel<<<grid, kThreadsF32, 0, s>>>(
+  auto kernel = b32 ? flash_bwd_dkv_f32_kernel<true> : flash_bwd_dkv_f32_kernel<false>;
+  kernel<<<grid, kThreadsF32, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), H, N, scale);
+      static_cast<float*>(dk), static_cast<float*>(dv), H, N, scale, b32, B / bias_cells);
   return static_cast<int>(cudaGetLastError());
 }
 

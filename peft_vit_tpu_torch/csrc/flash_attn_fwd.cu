@@ -3,8 +3,9 @@
 //
 // Replaces the Pallas TPU kernel peft_vit_tpu/ops/attention.py::_flash_fwd_kernel
 // (its pallas_call is in _flash_attention_fwd).  Computes, for q, k, v of
-// shape (B, H, N, D) and an optional (H, N, N) fp32 additive bias shared by
-// the batch,
+// shape (B, H, N, D) and an optional (C, H, N, N) fp32 additive bias, batch
+// element b reading cell b / (B / C) (C = 1: shared by the batch; C > 1: a
+// sweep round's cells, each with its own relative position table),
 //     o   = softmax(scale * q k^T + bias) v        (B, H, N, D), q's dtype
 //     lse = m + log(l)                              (B, H, 1, N), fp32
 // with p = exp(x - m) rounded to bf16 unnormalised for the second product
@@ -37,7 +38,7 @@ __global__ void __launch_bounds__(kBlockQ)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
                      float* __restrict__ o, float* __restrict__ lse,
-                     int H, int N, float scale) {
+                     int H, int N, float scale, int bias_batch) {
   constexpr int kChunk = 16;  // keys per online-softmax update
   __shared__ __align__(16) float sK[kBlockK * kD];
   __shared__ __align__(16) float sV[kBlockK * kD];
@@ -59,8 +60,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     qr[d + 2] = x.z;
     qr[d + 3] = x.w;
   }
-  const float* brow =
-      (bias != nullptr && row < N) ? bias + (static_cast<size_t>(h) * N + row) * N : nullptr;
+  const size_t cell = static_cast<size_t>(b / bias_batch);
+  const float* brow = (bias != nullptr && row < N)
+                          ? bias + ((cell * H + h) * static_cast<size_t>(N) + row) * N
+                          : nullptr;
 
   float acc[kD];
 #pragma unroll
@@ -137,11 +140,13 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // Launches on `stream` of `device` and returns cudaGetLastError() (0 = ok).
 // q, k, v, o: (B, H, N, D) contiguous, 16-byte aligned, bf16 (is_bf16 = 1) or
-// fp32; bias: (H, N, N) fp32 or NULL; lse: (B, H, 1, N) fp32 or NULL.
+// fp32; bias: (C, H, N, N) fp32 with C = bias_cells dividing B, or NULL;
+// lse: (B, H, 1, N) fp32 or NULL.
 extern "C" int flash_attn_fwd(int device, const void* q, const void* k, const void* v,
                               const void* bias, void* o, void* lse, int B, int H, int N,
-                              int D, float scale, int is_bf16, void* stream) {
-  if (D != kD || B <= 0 || H <= 0 || N <= 0 || B > 65535 || H > 65535) {
+                              int D, int bias_cells, float scale, int is_bf16, void* stream) {
+  if (D != kD || B <= 0 || H <= 0 || N <= 0 || B > 65535 || H > 65535 || bias_cells <= 0 ||
+      B % bias_cells != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -149,14 +154,14 @@ extern "C" int flash_attn_fwd(int device, const void* q, const void* k, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     const sm90::FwdArgs args{static_cast<const float*>(bias), static_cast<uint16_t*>(o),
-                             static_cast<float*>(lse), H, N, scale};
+                             static_cast<float*>(lse), H, N, scale, B / bias_cells};
     return static_cast<int>(sm90::attn_fwd_bf16<false>(q, k, v, args, B, s));
   }
   const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
   flash_fwd_f32_kernel<<<grid, kBlockQ, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
-      static_cast<float*>(o), static_cast<float*>(lse), H, N, scale);
+      static_cast<float*>(o), static_cast<float*>(lse), H, N, scale, B / bias_cells);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,6 +39,7 @@ in place of pytrees:
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -255,7 +256,7 @@ class StepGraph:
     reads (the frozen tower, the dataset) is read in place: ``keep`` holds
     them, so that their memory outlives the graph.  Nothing in ``fn`` may
     wait for the host.  A capture that fails raises: there is no eager
-    fallback.
+    fallback.  The cyclic garbage collector is off during the capture.
 
     A kernel wrapper counts a launch when ``fn`` calls it, so it counts
     during the warm-up and the capture, never during a replay.
@@ -276,8 +277,18 @@ class StepGraph:
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         before = launch_counts()
-        with torch.cuda.graph(self.graph):
-            self.outputs = fn(self.inputs)
+        # No cyclic garbage collection during the capture: a dead graph it
+        # freed there (an earlier StepGraph in a reference cycle) would be
+        # destroyed while the stream captures, which CUDA forbids, and this
+        # capture would fail.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.outputs = fn(self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = {k: n - before[k] for k, n in launch_counts().items()}
 
     def holds(self, keep: Sequence[torch.Tensor]) -> bool:

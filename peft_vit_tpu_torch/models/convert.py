@@ -13,7 +13,8 @@ the names a flax init produces) to this package's ``state_dict``:
   ``positional_embedding``, ``proj``, ``bn_mean``, ``bn_var`` and the raw
   PEFT parameters (Compacter's ``W``, ``phm_rule`` and ``b``, KAdaptation's
   ``phm_rule``, ``phmb``, ``W_left{1,2}`` and ``W_right{1,2}``, VPT's
-  ``prompt_embeddings`` and ``deep_prompt_embeddings``).
+  ``prompt_embeddings`` and ``deep_prompt_embeddings``, RPB's
+  ``relative_position_bias_table``).
 
 Arrays arrive as fp32.  Loading copies each into the dtype the model
 stores it in: fp32 for every trainable leaf (and for every leaf before

@@ -2,7 +2,7 @@
 
 The activations, ``LayerNorm``, ``Mlp``, ``MultiHeadAttention`` with a
 packed ``in_proj`` and ``Block`` with training-mode drop-path, and every
-PEFT hook of the JAX package but one:
+PEFT hook of the JAX package:
 
 * the LoRA q/k/v deltas (with the CLIP ``lora_post_scale_q`` quirk, the
   executed reference's ``lora_ref_reshape`` layout and the LoRA-MoE gate);
@@ -14,16 +14,20 @@ PEFT hook of the JAX package but one:
 * the post-MLP Houlsby ``Adapter`` and ``CompacterAdapter`` (``PHMDense``),
   each run only in the blocks of ``adapter_layers`` (AdapterDrop) while its
   leaves exist in every block;
+* the Swin-style relative position bias (``attn_bias='rpb'``): a trainable
+  ((2g - 1)^2, H) table gathered over the g x g patch grid into an (H, N, N)
+  attention bias in the compute dtype, zero on the class token's and the
+  prompts' rows and columns (``n_prefix``); its gradient is the attention
+  kernels' bias path and the bias-gradient kernel (``ops.attention``), and
+  the table's the gather's (``_TableGather``, deterministic);
 * the int8 frozen tower: ``Int8Dense`` in place of ``Dense`` for the GEMMs
   named in ``int8_targets`` (``int8``: no-grad forwards; ``int8_train``:
   training forwards with a full-precision or int8-dx backward), with
   ``collect_activation_stats`` for the static activation scales.
 
-The relative position bias (``attn_bias='rpb'``), whose trainable table
-needs the attention-bias gradient, and int8 attention (``int8_attn``,
-``int8_attn_pv``) raise ``NotImplementedError`` (``require_ported``).  The
-hooks' own arithmetic is plain PyTorch, as it is XLA outside any Pallas
-kernel in the JAX package.
+Int8 attention (``int8_attn``, ``int8_attn_pv``) raises
+``NotImplementedError`` (``require_ported``).  The hooks' own arithmetic is
+plain PyTorch, as it is XLA outside any Pallas kernel in the JAX package.
 
 Numerics follow the JAX modules: every weight is stored in fp32 (``Dense``'s
 ``param_dtype``) and cast to the module's compute ``dtype`` at use (flax
@@ -41,6 +45,7 @@ import contextlib
 import math
 from typing import Callable, Dict, Iterator, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -80,11 +85,11 @@ def require_ported(spec: PEFTSpec, int8_attn: bool = False,
         "int8_attn (int8 QK^T on calibrated q/k/v scales) (ROADMAP §1, int8_attention)":
             int8_attn,
         "int8_attn_pv (int8 P@V) (ROADMAP §1, int8_attention)": int8_attn_pv,
-        "attn_bias=rpb (ROADMAP §1, RPB and the attention-bias gradient)":
-            spec.attn_bias != "none",
     }
     if spec.attn_delta not in ("none", "lora", "kron"):
         raise ValueError(f"unknown attn_delta {spec.attn_delta!r}")
+    if spec.attn_bias not in ("none", "rpb"):
+        raise ValueError(f"unknown attn_bias {spec.attn_bias!r}")
     missing = [name for name, on in unported.items() if on]
     if missing:
         raise NotImplementedError(
@@ -439,6 +444,57 @@ class DepthwiseConv(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+def _rpb_index(ndim: int) -> np.ndarray:
+    """Swin-style relative position index for an ndim x ndim grid: entry
+    (i, j) of the (g^2, g^2) result is the table row of patch j's position
+    relative to patch i (the JAX package's ``_rpb_index``)."""
+    coords = np.stack(np.meshgrid(np.arange(ndim), np.arange(ndim), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0)
+    rel[:, :, 0] += ndim - 1
+    rel[:, :, 1] += ndim - 1
+    rel[:, :, 0] *= 2 * ndim - 1
+    return rel.sum(-1)
+
+
+def _gather_slots(index: np.ndarray, rows: int) -> np.ndarray:
+    """For each of ``rows`` table rows, the positions of ``index`` that read
+    it, in order, padded with ``len(index)`` (a zero row past the end) to
+    the most any row has: (rows, most)."""
+    order = np.argsort(index, kind="stable")
+    counts = np.bincount(index, minlength=rows)
+    slots = np.full((rows, counts.max()), len(index), dtype=np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    for row in range(rows):
+        slots[row, :counts[row]] = order[starts[row]:starts[row] + counts[row]]
+    return slots
+
+
+class _TableGather(torch.autograd.Function):
+    """``table[index]`` for a (T, H) table, whose backward sums the rows'
+    cotangents through ``slots`` (``_gather_slots``) with a sum over a
+    fixed axis: the same bits every run.  Autograd's own backward of the
+    gather is an accumulating ``index_put_``, whose additions on the card
+    land in an order that may change from run to run, and a captured step
+    must equal its eager run bit for bit."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(table, index, slots):
+        return table[index]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[2])
+
+    @staticmethod
+    def backward(ctx, g):
+        (slots,) = ctx.saved_tensors
+        padded = torch.cat([g, g.new_zeros(1, g.shape[-1])])
+        return padded[slots].sum(1), None, None
+
+
 # the LoRA-MoE gate's activation (``PEFTSpec.lora_moe_act``)
 _MOE_ACT: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "linear": lambda g: g,
@@ -449,7 +505,7 @@ _MOE_ACT: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 
 class MultiHeadAttention(nn.Module):
-    """Packed-qkv attention with every attention-level PEFT hook but RPB.
+    """Packed-qkv attention with every attention-level PEFT hook.
 
     * lora: dq = (x @ A_q) @ B_q * alpha/r, no biases; with ``lora_moe`` the
       rank axis is viewed as (experts, group) and scaled per expert by the
@@ -468,6 +524,11 @@ class MultiHeadAttention(nn.Module):
       q, k and v.
     * lepe: the depthwise 3x3 ``get_v`` of v over the ``grid_size`` patch
       grid, added to the attention output after the ``n_prefix`` tokens.
+    * rpb: ``relative_position_bias_table`` ((2g - 1)^2, H), zeros, fp32;
+      gathered by ``_rpb_index(g)`` and cast to the compute dtype, it is the
+      (H, N, N) attention bias of the patch tokens, zero on the ``n_prefix``
+      rows and columns.  g is ``spec.rpb_ndim``, or ``grid_size`` when that
+      is -1; another g than the grid raises, as in the JAX package.
     * ``int8=True`` builds ``in_proj`` / ``out_proj`` (those named in
       ``int8_targets``) as ``Int8Dense``; the PEFT deltas stay dense.
     * ``softmax_fp32`` (False: ``TPU.BF16_SOFTMAX``) and ``attn_batch_chunk``
@@ -528,6 +589,23 @@ class MultiHeadAttention(nn.Module):
             if self.grid_size <= 0:
                 raise ValueError("LePE needs a patch grid (grid_size > 0)")
             self.get_v = DepthwiseConv(width, dtype=dtype, device=device)
+        if spec.attn_bias == "rpb":
+            g = spec.rpb_ndim if spec.rpb_ndim > 0 else self.grid_size
+            if g <= 0:
+                raise ValueError("RPB needs a patch grid (grid_size > 0)")
+            if g != self.grid_size:
+                raise ValueError(
+                    f"RPB_NDIM={g} does not match the {self.grid_size}x{self.grid_size} patch "
+                    "grid (the reference's fixed ndim=7 has the same constraint); use "
+                    "RPB_NDIM=-1 for auto")
+            rows = (2 * g - 1) ** 2
+            self.relative_position_bias_table = nn.Parameter(
+                torch.zeros(rows, heads, device=device))
+            index = _rpb_index(g).reshape(-1)
+            self.register_buffer("rpb_index", torch.as_tensor(index, device=device),
+                                 persistent=False)
+            self.register_buffer("rpb_slots", torch.as_tensor(_gather_slots(index, rows),
+                                                              device=device), persistent=False)
         self.out_proj = _dense_for("out_proj", int8, int8_targets)(
             width, width, dtype=dtype, device=device)
 
@@ -551,6 +629,15 @@ class MultiHeadAttention(nn.Module):
                                       getattr(self, f"W_right{idx}").to(dt))
             deltas[t] = torch.matmul(x, h.to(x.dtype))
         return deltas
+
+    def _rpb_bias(self) -> torch.Tensor:
+        """The (H, N, N) relative position bias in the compute dtype, zero on
+        the ``n_prefix`` rows and columns."""
+        h, p, g2 = self.heads, self.n_prefix, self.grid_size**2
+        patch = _TableGather.apply(self.relative_position_bias_table, self.rpb_index,
+                                   self.rpb_slots)
+        patch = patch.reshape(g2, g2, h).permute(2, 0, 1).to(self.compute_dtype)
+        return F.pad(patch, (p, 0, p, 0))
 
     def forward(self, x: torch.Tensor, int8: bool = False, int8_bwd: bool = False) -> torch.Tensor:
         b, n, d = x.shape
@@ -597,8 +684,9 @@ class MultiHeadAttention(nn.Module):
         if spec.attn_adapter == "shared_qkv":
             heads_of = {t: self.qkv_adapter(y) for t, y in heads_of.items()}
 
+        bias = self._rpb_bias() if spec.attn_bias == "rpb" else None
         out = multi_head_attention(
-            *(heads_of[t].contiguous() for t in "qkv"), scale=attn_scale,
+            *(heads_of[t].contiguous() for t in "qkv"), bias=bias, scale=attn_scale,
             softmax_fp32=self.softmax_fp32, batch_chunk=self.attn_batch_chunk,
         )
         out = out.transpose(1, 2).reshape(b, n, d)

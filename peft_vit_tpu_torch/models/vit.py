@@ -32,7 +32,53 @@ from torch import nn
 
 from ..peft.spec import PEFTSpec
 from ..ops.int8 import INT8_TARGET_MODULES
-from .layers import Block, LayerNorm
+from .layers import Block, LayerNorm, _cell
+
+
+class _PatchConv(torch.autograd.Function):
+    """``F.conv2d(x, w, stride=p)`` over non-overlapping p x p patches (NCHW
+    x, OIHW w), whose weight gradient is one matrix product of the
+    cotangent with the patches: the same sums as the convolution's, in a
+    fixed order.  cuDNN's weight-gradient algorithms may add with atomics,
+    and a captured step that trains the patch embedding (the full
+    fine-tune) must equal its eager run bit for bit.  The batching rule
+    folds a sweep round's cells into the batch for a shared weight and runs
+    a batched (trainable) weight one cell at a time."""
+
+    @staticmethod
+    def forward(x, w, p):
+        return F.conv2d(x, w, None, p)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, p = inputs
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        ctx.p, ctx.x_shape = p, x.shape
+        ctx.save_for_backward(x if need_dw else None, w if need_dx else None)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        p = ctx.p
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv2d_input(ctx.x_shape, w, g, p)
+        if ctx.needs_input_grad[1]:
+            b, c, hh, ww = x.shape
+            patches = x.reshape(b, c, hh // p, p, ww // p, p).permute(0, 2, 4, 1, 3, 5)
+            g2d = g.permute(0, 2, 3, 1).reshape(-1, g.shape[1])
+            dw = g2d.t().matmul(patches.reshape(g2d.shape[0], -1)).reshape(-1, c, p, p)
+        return dx, dw, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, p):
+        x_dim, w_dim = in_dims[:2]
+        if w_dim is None:
+            x = x.movedim(x_dim, 0)
+            out = _PatchConv.apply(x.reshape(-1, *x.shape[2:]), w, p)
+            return out.unflatten(0, (info.batch_size, -1)), 0
+        return torch.stack([_PatchConv.apply(_cell(x, x_dim, i), _cell(w, w_dim, i), p)
+                            for i in range(info.batch_size)]), 0
 
 
 class PatchEmbed(nn.Conv2d):
@@ -57,7 +103,7 @@ class PatchEmbed(nn.Conv2d):
         if not self.gemm:
             x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
             # (B, width, gh, gw) -> (B, gh*gw, width)
-            y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride)
+            y = _PatchConv.apply(x.to(dt), self.weight.to(dt), self.kernel_size[0])
             return y.flatten(2).transpose(1, 2)
         b, hh, ww, c = x.shape
         p = self.kernel_size[0]

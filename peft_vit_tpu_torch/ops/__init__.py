@@ -3,6 +3,7 @@ from typing import Dict
 from . import attention as _attention
 from . import int8 as _int8
 from .attention import (
+    attention_bias_grad,
     attention_reference,
     flash_attention,
     flash_attention_bwd_dkv,
@@ -35,6 +36,7 @@ KERNEL_WRAPPERS = (
     (_attention, "flash_attention_fwd"),
     (_attention, "flash_attention_bwd_dq"),
     (_attention, "flash_attention_bwd_dkv"),
+    (_attention, "attention_bias_grad"),
     (_attention, "fused_short_attention_fwd"),
     (_attention, "fused_short_attention_bwd"),
     (_int8, "int8_gemm_dynamic"),
@@ -53,6 +55,7 @@ __all__ = [
     "INT8_TARGET_MODULES",
     "KERNEL_WRAPPERS",
     "activation_scales_from_stats",
+    "attention_bias_grad",
     "attention_reference",
     "flash_attention",
     "flash_attention_bwd_dkv",

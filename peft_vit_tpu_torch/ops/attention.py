@@ -1,8 +1,11 @@
 """Multi-head attention for the H100.
 
 Counterpart of ``peft_vit_tpu/ops/attention.py``.  Operands keep the JAX
-layout: q, k, v are (B, H, N, D), the additive bias is (H, N, N) (or
-(B, H, N, N) for the plain reference), lse is (B, H, 1, N).
+layout: q, k, v are (B, H, N, D), lse is (B, H, 1, N).  The additive bias is
+(H, N, N), shared by the batch, or (C, H, N, N) with C dividing B: batch
+element b reads cell ``b // (B // C)`` (a sweep round's cells, each with its
+own relative position table, folded into the batch); the plain reference
+also takes (B, H, N, N).
 
 * ``attention_reference`` — plain PyTorch ``softmax(q k^T * scale + bias) v``
   (the JAX reference, ``attention_reference``).
@@ -12,13 +15,20 @@ layout: q, k, v are (B, H, N, D), the additive bias is (H, N, N) (or
   CPU tensor runs the kernel's plain version.
 * ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv`` — the wrappers
   of the two backward kernels of ``csrc/flash_attn_bwd.cu``, the
-  counterparts of ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``.
-  The dq kernel also computes delta = rowsum(dO o O), which the JAX wrapper
-  computes in XLA before the kernels, and hands it to the dk/dv kernel.
+  counterparts of ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``,
+  with the bias added where they recompute p.  The dq kernel also computes
+  delta = rowsum(dO o O), which the JAX wrapper computes in XLA before the
+  kernels, and hands it to the dk/dv kernel.
+* ``attention_bias_grad`` — the wrapper of ``csrc/attn_bias_grad.cu``, the
+  bias gradient dbias = sum over each cell's batch of p o (dO v^T - delta).
+  It has no Pallas counterpart: with a bias the JAX package leaves the
+  kernels for the XLA VJP of ``attention_reference``
+  (``_attention_bias_vjp_bwd``).
 * ``flash_attention`` — the differentiable attention: a
   ``torch.autograd.Function`` whose forward is the forward kernel (saving
-  its lse) and whose backward is the two backward kernels, as the JAX
-  ``custom_vjp`` around the flash path.  A bias is a forward-only operand.
+  its lse) and whose backward is the two backward kernels for q, k and v and
+  the bias-gradient kernel for the bias, as the JAX ``custom_vjp``s around
+  the flash path and the bias path.
 * ``fused_short_attention_fwd`` / ``fused_short_attention_bwd`` — the
   wrappers of the two kernels of ``csrc/fused_short_attn.cu``, the
   counterparts of the Pallas fused short-sequence pair ``_short_fwd_kernel``
@@ -32,10 +42,10 @@ layout: q, k, v are (B, H, N, D), the additive bias is (H, N, N) (or
   the CPU (the JAX dispatcher's rule; the CPU runs the plain versions, as
   the JAX package runs the Pallas pair in interpret mode).  Otherwise
   ``attention_reference`` on the CPU (torch differentiates it) and
-  ``flash_attention`` on the card for every shape.  The JAX dispatcher's
-  choice of XLA below N = 2048 was measured on a TPU and is not carried
-  over; so the card refuses ``softmax_fp32=False`` (``TPU.BF16_SOFTMAX``),
-  which only that XLA path honours.
+  ``flash_attention`` on the card for every shape, with or without a bias.
+  The JAX dispatcher's choice of XLA below N = 2048 was measured on a TPU
+  and is not carried over; so the card refuses ``softmax_fp32=False``
+  (``TPU.BF16_SOFTMAX``), which only that XLA path honours.
 """
 
 from __future__ import annotations
@@ -56,6 +66,20 @@ def _acc_dtype(q: torch.Tensor) -> torch.dtype:
     return torch.promote_types(q.dtype, torch.float32)
 
 
+def _bias_cells(bias: torch.Tensor) -> int:
+    """C of a (C, H, N, N) bias; 1 for an (H, N, N) one."""
+    return 1 if bias.dim() == 3 else bias.shape[0]
+
+
+def _batch_bias(bias: torch.Tensor, b: int) -> torch.Tensor:
+    """The bias as the batch of ``b`` reads it: an (H, N, N) bias broadcasts
+    over the batch, cell c of a (C, H, N, N) bias serves batch elements
+    c B / C .. (c + 1) B / C - 1."""
+    if bias.dim() == 3:
+        return bias
+    return bias.repeat_interleave(b // bias.shape[0], dim=0)
+
+
 def _scores(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -65,7 +89,7 @@ def _scores(
 ) -> torch.Tensor:
     s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     if bias is not None:
-        s = s + bias.to(acc)  # (H, N, N) broadcasts over the batch
+        s = s + _batch_bias(bias, q.shape[0]).to(acc)
     return s
 
 
@@ -79,7 +103,8 @@ def attention_reference(
 ) -> torch.Tensor:
     """softmax(q k^T * scale + bias) v.
 
-    q, k, v: (B, H, N, D).  bias: (H, Nq, Nk), (B, H, Nq, Nk) or None.
+    q, k, v: (B, H, N, D).  bias: (H, Nq, Nk), (C, H, Nq, Nk) with C dividing
+    B (cell c for batch elements c B / C ..), or None.
     ``softmax_fp32=False`` keeps the scores in the compute dtype.  The
     scores of bf16 operands are exact fp32 products summed in fp32, as
     ``preferred_element_type=float32`` gives in JAX; the probabilities are
@@ -109,14 +134,20 @@ def _flash_attention_plain(
     return out, lse.unsqueeze(2)
 
 
-def _bwd_p_ds(q, k, v, do, lse, delta, scale) -> Tuple[torch.Tensor, torch.Tensor]:
-    """p = exp(scale q k^T - lse) and ds = p o (dO v^T - delta), each rounded
-    to the operand dtype as the kernels round them, returned in the
-    accumulation dtype."""
+def _bwd_p_ds_acc(q, k, v, do, lse, delta, scale, bias=None):
+    """p = exp(scale q k^T + bias - lse) and ds = p o (dO v^T - delta) in the
+    accumulation dtype, unrounded."""
     acc = _acc_dtype(q)
-    p = torch.exp(_scores(q, k, None, scale, acc) - lse.to(acc).transpose(-1, -2))
+    p = torch.exp(_scores(q, k, bias, scale, acc) - lse.to(acc).transpose(-1, -2))
     dp = torch.matmul(do.to(acc), v.to(acc).transpose(-1, -2))
-    ds = p * (dp - delta.to(acc).transpose(-1, -2))
+    return p, p * (dp - delta.to(acc).transpose(-1, -2))
+
+
+def _bwd_p_ds(q, k, v, do, lse, delta, scale, bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """p and ds of ``_bwd_p_ds_acc``, each rounded to the operand dtype as
+    the kernels round them, returned in the accumulation dtype."""
+    acc = _acc_dtype(q)
+    p, ds = _bwd_p_ds_acc(q, k, v, do, lse, delta, scale, bias)
     return p.to(q.dtype).to(acc), ds.to(q.dtype).to(acc)
 
 
@@ -127,33 +158,44 @@ def _row_dot(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     return (do.to(acc) * o.to(acc)).sum(dim=-1).unsqueeze(2)
 
 
-def _bwd_dq_plain(q, k, v, do, lse, o, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+def _bwd_dq_plain(q, k, v, do, lse, o, scale, bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dq, delta)``: delta from dO and O, then dq from it."""
     delta = _row_dot(do, o)
-    _, ds = _bwd_p_ds(q, k, v, do, lse, delta, scale)
+    _, ds = _bwd_p_ds(q, k, v, do, lse, delta, scale, bias)
     return (scale * torch.matmul(ds, k.to(ds.dtype))).to(q.dtype), delta
 
 
-def _bwd_dkv_plain(q, k, v, do, lse, delta, scale) -> Tuple[torch.Tensor, torch.Tensor]:
-    p, ds = _bwd_p_ds(q, k, v, do, lse, delta, scale)
+def _bwd_dkv_plain(q, k, v, do, lse, delta, scale, bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    p, ds = _bwd_p_ds(q, k, v, do, lse, delta, scale, bias)
     dk = scale * torch.matmul(ds.transpose(-1, -2), q.to(ds.dtype))
     dv = torch.matmul(p.transpose(-1, -2), do.to(p.dtype))
     return dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _flash_attention_bwd_plain(q, k, v, o, lse, do, scale):
+def _bias_grad_plain(q, k, v, do, lse, scale, bias, delta=None, o=None) -> torch.Tensor:
+    """The bias-gradient kernel's plain version: ds = p o (dO v^T - delta)
+    unrounded in the accumulation dtype (delta = rowsum(dO o O) from ``o``
+    when ``delta`` is None), summed over the batch elements of each bias
+    cell; the bias's shape, in the accumulation dtype."""
+    if delta is None:
+        delta = _row_dot(do, o)
+    _, ds = _bwd_p_ds_acc(q, k, v, do, lse, delta, scale, bias)
+    return ds.unflatten(0, (_bias_cells(bias), -1)).sum(1).reshape(bias.shape)
+
+
+def _flash_attention_bwd_plain(q, k, v, o, lse, do, scale, bias=None):
     """The backward kernels' plain version: ``(dq, dk, dv)`` from the saved
     lse, step by step as the kernels compute them::
 
-        p  = exp(scale q k^T - lse)      delta = rowsum(dO o O)
-        dv = p^T dO                      ds = p o (dO v^T - delta)
-        dq = scale ds k                  dk = scale ds^T q
+        p  = exp(scale q k^T + bias - lse)      delta = rowsum(dO o O)
+        dv = p^T dO                             ds = p o (dO v^T - delta)
+        dq = scale ds k                         dk = scale ds^T q
 
     with p cast to the operand dtype before ``dv`` and ds before ``dq`` and
     ``dk``; every sum is fp32.  delta comes out of the dq step, as the dq
     kernel writes it for the dk/dv kernel."""
-    dq, delta = _bwd_dq_plain(q, k, v, do, lse, o, scale)
-    return (dq, *_bwd_dkv_plain(q, k, v, do, lse, delta, scale))
+    dq, delta = _bwd_dq_plain(q, k, v, do, lse, o, scale, bias)
+    return (dq, *_bwd_dkv_plain(q, k, v, do, lse, delta, scale, bias))
 
 
 def _check_operands(q, k, v, bias) -> None:
@@ -167,9 +209,13 @@ def _check_operands(q, k, v, bias) -> None:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     if bias is not None:
-        _, h, n, _ = q.shape
-        if tuple(bias.shape) != (h, n, n):
-            raise ValueError(f"bias must be (H, N, N) = {(h, n, n)}, got {tuple(bias.shape)}")
+        b, h, n, _ = q.shape
+        if tuple(bias.shape[-3:]) != (h, n, n) or bias.dim() not in (3, 4):
+            raise ValueError(f"bias must be (H, N, N) = {(h, n, n)} or (C, H, N, N), got "
+                             f"{tuple(bias.shape)}")
+        if bias.dim() == 4 and (bias.shape[0] == 0 or b % bias.shape[0]):
+            raise ValueError(f"a (C, H, N, N) bias needs C dividing the batch {b}, got C = "
+                             f"{bias.shape[0]}")
         if bias.device != q.device:
             raise ValueError(f"bias is on {bias.device}, q on {q.device}")
         if bias.dtype not in (torch.float32, q.dtype):
@@ -177,14 +223,17 @@ def _check_operands(q, k, v, bias) -> None:
 
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# device, operands ..., B, H, N, D, scale, is_bf16, stream
+# device, operands ..., B, H, N, D, [bias cells C,] scale, is_bf16, stream
 _SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "flash_attn_fwd": {
-        "flash_attn_fwd": [_INT, *[_PTR] * 6, *[_INT] * 4, _FLOAT, _INT, _PTR],
+        "flash_attn_fwd": [_INT, *[_PTR] * 6, *[_INT] * 5, _FLOAT, _INT, _PTR],
     },
     "flash_attn_bwd": {
-        "flash_attn_bwd_dq": [_INT, *[_PTR] * 8, *[_INT] * 4, _FLOAT, _INT, _PTR],
-        "flash_attn_bwd_dkv": [_INT, *[_PTR] * 8, *[_INT] * 4, _FLOAT, _INT, _PTR],
+        "flash_attn_bwd_dq": [_INT, *[_PTR] * 9, *[_INT] * 5, _FLOAT, _INT, _PTR],
+        "flash_attn_bwd_dkv": [_INT, *[_PTR] * 9, *[_INT] * 5, _FLOAT, _INT, _PTR],
+    },
+    "attn_bias_grad": {
+        "attn_bias_grad": [_INT, *[_PTR] * 9, *[_INT] * 5, _FLOAT, _INT, _PTR],
     },
     "fused_short_attn": {
         "fused_short_attn_fwd": [_INT, *[_PTR] * 5, *[_INT] * 4, _FLOAT, _INT, _PTR],
@@ -242,7 +291,8 @@ def flash_attention_fwd(
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Flash-attention forward: ``softmax(scale * q k^T + bias) v``.
 
-    q, k, v: (B, H, N, D) contiguous, bf16 or fp32; bias: (H, N, N) or None.
+    q, k, v: (B, H, N, D) contiguous, bf16 or fp32; bias: (H, N, N), (C, H,
+    N, N) with C dividing B (the kernel reads it in fp32), or None.
     Returns o (B, H, N, D) in q's dtype and, with ``return_lse``, the fp32
     log-sum-exp (B, H, 1, N).
 
@@ -258,10 +308,7 @@ def flash_attention_fwd(
         return _flash_attention_plain(q, k, v, bias, float(scale), return_lse)
     _check_kernel_operands("flash_attention_fwd", (("q", q), ("k", k), ("v", v)))
     b, h, n, d = q.shape
-    if bias is not None:
-        bias = bias.to(torch.float32)
-        if not bias.is_contiguous():
-            raise ValueError("bias must be contiguous")
+    bias = _kernel_bias(bias)
 
     lib = _kernel_library("flash_attn_fwd")
     out = torch.empty_like(q)
@@ -275,8 +322,8 @@ def flash_attention_fwd(
         None if bias is None else bias.data_ptr(),
         out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        b, h, n, d, float(scale), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, h, n, d, 1 if bias is None else _bias_cells(bias), float(scale),
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, lib, "flash_attn_fwd")
     flash_attention_fwd.launches += 1
@@ -286,11 +333,21 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
-def _check_bwd_operands(q, k, v, do, named_rows, named_full=()) -> None:
+def _kernel_bias(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The bias as the kernels read it: fp32, contiguous."""
+    if bias is None:
+        return None
+    bias = bias.to(torch.float32)
+    if not bias.is_contiguous():
+        raise ValueError("bias must be contiguous")
+    return bias
+
+
+def _check_bwd_operands(q, k, v, do, named_rows, named_full=(), bias=None) -> None:
     """The operands of a backward wrapper: q, k, v and do, the (B, H, N, D)
-    tensors of ``named_full`` (o) and the (B, H, 1, N) rows of
-    ``named_rows`` (lse, delta)."""
-    _check_operands(q, k, v, None)
+    tensors of ``named_full`` (o), the (B, H, 1, N) rows of ``named_rows``
+    (lse, delta) and the bias as the forward took it."""
+    _check_operands(q, k, v, bias)
     for name, t in (("do", do), *named_full):
         if t.shape != q.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != q shape {tuple(q.shape)}")
@@ -305,37 +362,42 @@ def _check_bwd_operands(q, k, v, do, named_rows, named_full=()) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def _launch_bwd(fn_name: str, named, rows, outs, scale: float) -> None:
-    """Checks shared by the two backward wrappers, then one launch: ``named``
-    the (B, H, N, D) operands in the kernel's order, then the fp32 rows
-    ``rows`` it reads and the tensors ``outs`` it writes."""
+def _launch_bwd(fn_name: str, named, rows, outs, scale: float, bias=None,
+                library: str = "flash_attn_bwd") -> None:
+    """Checks shared by the backward wrappers, then one launch: ``named``
+    the (B, H, N, D) operands in the kernel's order (None: an absent one),
+    then the fp32 rows ``rows`` it reads (None: an absent one), the bias and
+    the tensors ``outs`` it writes."""
     for name, t in rows:
-        if t.dtype != torch.float32:
+        if t is not None and t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32 on the card, got {t.dtype}")
-    _check_kernel_operands(fn_name, (*named, *rows))
-    lib = _kernel_library("flash_attn_bwd")
+    _check_kernel_operands(fn_name, [(n, t) for n, t in (*named, *rows) if t is not None])
+    bias = _kernel_bias(bias)
+    lib = _kernel_library(library)
     q = named[0][1]
     b, h, n, d = q.shape
     err = getattr(lib, fn_name)(
         _device_index(q),
-        *(t.data_ptr() for _, t in named), *(t.data_ptr() for _, t in rows),
-        *(t.data_ptr() for t in outs),
-        b, h, n, d, float(scale), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        *(None if t is None else t.data_ptr() for _, t in (*named, *rows)),
+        None if bias is None else bias.data_ptr(), *(t.data_ptr() for t in outs),
+        b, h, n, d, 1 if bias is None else _bias_cells(bias), float(scale),
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, lib, fn_name)
 
 
 def flash_attention_bwd_dq(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-    lse: torch.Tensor, o: torch.Tensor, scale: float,
+    lse: torch.Tensor, o: torch.Tensor, scale: float, bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dq, delta)``: ``delta = rowsum(dO o O)`` and
-    ``dq = scale * (p o (dO v^T - delta)) k`` with ``p = exp(scale q k^T - lse)``.
+    ``dq = scale * (p o (dO v^T - delta)) k`` with
+    ``p = exp(scale q k^T + bias - lse)``.
 
     q, k, v, do, o (the forward's output): (B, H, N, D) contiguous, bf16 or
-    fp32; lse (the forward's): (B, H, 1, N) fp32.  Returns dq in q's dtype
-    and delta (B, H, 1, N) fp32, the operand of ``flash_attention_bwd_dkv``.
+    fp32; lse (the forward's): (B, H, 1, N) fp32; bias: the forward's, or
+    None.  Returns dq in q's dtype and delta (B, H, 1, N) fp32, the operand
+    of ``flash_attention_bwd_dkv``.
 
     CUDA tensors launch ``flash_attn_bwd_dq`` of ``csrc/flash_attn_bwd.cu``
     (D = 64) on the current stream, which computes delta itself, and count
@@ -343,13 +405,13 @@ def flash_attention_bwd_dq(
     kernel does not take raises.  CPU tensors run the plain version and
     launch nothing.
     """
-    _check_bwd_operands(q, k, v, do, (("lse", lse),), (("o", o),))
+    _check_bwd_operands(q, k, v, do, (("lse", lse),), (("o", o),), bias)
     if q.device.type == "cpu":
-        return _bwd_dq_plain(q, k, v, do, lse, o, float(scale))
+        return _bwd_dq_plain(q, k, v, do, lse, o, float(scale), bias)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse, dtype=torch.float32)
     _launch_bwd("flash_attn_bwd_dq", (("q", q), ("k", k), ("v", v), ("do", do), ("o", o)),
-                (("lse", lse),), (delta, dq), scale)
+                (("lse", lse),), (delta, dq), scale, bias)
     flash_attention_bwd_dq.launches += 1
     return dq, delta
 
@@ -359,22 +421,23 @@ flash_attention_bwd_dq.launches = 0
 
 def flash_attention_bwd_dkv(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-    lse: torch.Tensor, delta: torch.Tensor, scale: float,
+    lse: torch.Tensor, delta: torch.Tensor, scale: float, bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``dk = scale * (p o (dO v^T - delta))^T q`` and ``dv = p^T dO``.
 
-    q, k, v, do, lse as ``flash_attention_bwd_dq``; delta (B, H, 1, N) fp32
-    as it returns it.  Returns ``(dk, dv)`` in q's dtype.  CUDA tensors launch ``flash_attn_bwd_dkv`` and count the launch
-    in ``flash_attention_bwd_dkv.launches``; CPU tensors run the plain
-    version and launch nothing.
+    q, k, v, do, lse, bias as ``flash_attention_bwd_dq``; delta (B, H, 1, N)
+    fp32 as it returns it.  Returns ``(dk, dv)`` in q's dtype.  CUDA tensors
+    launch ``flash_attn_bwd_dkv`` and count the launch in
+    ``flash_attention_bwd_dkv.launches``; CPU tensors run the plain version
+    and launch nothing.
     """
     rows = (("lse", lse), ("delta", delta))
-    _check_bwd_operands(q, k, v, do, rows)
+    _check_bwd_operands(q, k, v, do, rows, (), bias)
     if q.device.type == "cpu":
-        return _bwd_dkv_plain(q, k, v, do, lse, delta, float(scale))
+        return _bwd_dkv_plain(q, k, v, do, lse, delta, float(scale), bias)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     _launch_bwd("flash_attn_bwd_dkv", (("q", q), ("k", k), ("v", v), ("do", do)), rows,
-                (dk, dv), scale)
+                (dk, dv), scale, bias)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -382,12 +445,48 @@ def flash_attention_bwd_dkv(
 flash_attention_bwd_dkv.launches = 0
 
 
-_NO_BIAS_GRAD = ("the flash backward has no bias path: the bias-gradient kernel (K7) is not "
-                 "ported; a bias is a forward-only operand")
+def attention_bias_grad(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, scale: float, bias: torch.Tensor,
+    delta: Optional[torch.Tensor] = None, o: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The attention bias's gradient: ``dbias[c] = sum over the batch
+    elements b of cell c of p_b o (dO_b v_b^T - delta_b)`` with
+    ``p = exp(scale q k^T + bias - lse)``, ds unrounded and summed in fp32
+    (the XLA VJP of the JAX package's bias path sums the fp32 ds over the
+    batch likewise).
+
+    q, k, v, do: (B, H, N, D) contiguous, bf16 or fp32; lse: (B, H, 1, N)
+    fp32; bias: the forward's, (H, N, N) or (C, H, N, N); delta: (B, H, 1, N)
+    fp32 as ``flash_attention_bwd_dq`` returns it, or None, and then ``o``
+    (the forward's output), from which the kernel computes delta itself.
+    Returns dbias in the bias's shape, fp32 (the plain version: the
+    accumulation dtype of q).
+
+    CUDA tensors launch ``attn_bias_grad`` of ``csrc/attn_bias_grad.cu``
+    (D = 64) on the current stream and count the launch in
+    ``attention_bias_grad.launches``; any operand the kernel does not take
+    raises.  CPU tensors run the plain version and launch nothing."""
+    if (delta is None) == (o is None):
+        raise ValueError("give the bias gradient delta or o, one of the two")
+    rows = (("lse", lse),) + ((("delta", delta),) if delta is not None else ())
+    _check_bwd_operands(q, k, v, do, rows, (("o", o),) if o is not None else (), bias)
+    if q.device.type == "cpu":
+        return _bias_grad_plain(q, k, v, do, lse, float(scale), bias, delta, o)
+    dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+    # the kernel's order: q, k, v, dO, o, lse, delta, bias, dbias
+    _launch_bwd("attn_bias_grad", (("q", q), ("k", k), ("v", v), ("do", do), ("o", o)),
+                (("lse", lse), ("delta", delta)), (dbias,), scale, bias,
+                library="attn_bias_grad")
+    attention_bias_grad.launches += 1
+    return dbias
 
 
-def _needs_grad(*operands: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in operands)
+attention_bias_grad.launches = 0
+
+
+def _needs_grad(*operands: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands)
 
 
 def _fold_cells(cells: int, in_dims, operands):
@@ -410,11 +509,14 @@ def _unfold_cells(cells: int, outputs):
 
 class _FlashAttention(torch.autograd.Function):
     """Forward kernel, with its lse when a gradient is asked for
-    (``with_lse``); backward through the dq and dk/dv kernels (the bias-free
-    path, as the JAX ``custom_vjp``).  Under ``torch.func.vmap`` the batching
-    rule folds the vmapped axis (a sweep round's cells) into the batch and
-    launches the same kernels once, so autograd and the backward see the
-    folded tensors."""
+    (``with_lse``); backward through the dq and dk/dv kernels where q, k or v
+    needs a gradient and through the bias-gradient kernel where the bias
+    does (``ctx.needs_input_grad``: nothing launches for the other), as the
+    JAX ``custom_vjp``s of the flash path and, with a bias, of the XLA path.
+    Under ``torch.func.vmap`` the batching rule folds the vmapped axis (a
+    sweep round's cells) into the batch, and a batched bias into the bias's
+    cells, and launches the same kernels once, so autograd and the backward
+    see the folded tensors."""
 
     @staticmethod
     def forward(q, k, v, bias, scale, with_lse):
@@ -424,11 +526,11 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, _, scale, with_lse = inputs
+        q, k, v, bias, scale, with_lse = inputs
         out, lse = output
         if with_lse:
             ctx.mark_non_differentiable(lse)
-            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.save_for_backward(q, k, v, out, lse, bias)
         ctx.set_materialize_grads(False)  # lse's cotangent stays None: no zeros launched
         ctx.scale = scale
 
@@ -436,24 +538,33 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         if do is None:  # no cotangent (grads are not materialized)
             return None, None, None, None, None, None
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, bias = ctx.saved_tensors
         do = do.contiguous()  # arrives as the transposed view of the head merge
-        dq, delta = flash_attention_bwd_dq(q, k, v, do, lse, out, ctx.scale)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.scale)
-        return dq, dk, dv, None, None, None
+        b32 = None if bias is None else bias.to(torch.float32).contiguous()
+        dq = dk = dv = dbias = delta = None
+        if any(ctx.needs_input_grad[:3]):
+            dq, delta = flash_attention_bwd_dq(q, k, v, do, lse, out, ctx.scale, b32)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.scale, b32)
+        if ctx.needs_input_grad[3]:
+            # delta from the dq kernel where it ran, else the kernel computes it from o;
+            # the cotangent in the bias's dtype, as the JAX VJP returns it
+            dbias = attention_bias_grad(q, k, v, do, lse, ctx.scale, b32, delta,
+                                        None if delta is not None else out).to(bias.dtype)
+        return dq, dk, dv, dbias, None, None
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, bias, scale, with_lse):
-        if in_dims[3] is not None:
-            raise NotImplementedError("a bias batched over the vmapped axis")
+        cells = info.batch_size
         # under the vmap the caller cannot see whether its operands need a
         # gradient; the unwrapped tensors tell
-        with_lse = with_lse or _needs_grad(q, k, v)
-        if with_lse and bias is not None:
-            raise NotImplementedError(_NO_BIAS_GRAD)
-        q, k, v = _fold_cells(info.batch_size, in_dims[:3], (q, k, v))
-        return _unfold_cells(info.batch_size,
-                             _FlashAttention.apply(q, k, v, bias, scale, with_lse))
+        with_lse = with_lse or _needs_grad(q, k, v, bias)
+        q, k, v = _fold_cells(cells, in_dims[:3], (q, k, v))
+        if bias is not None and in_dims[3] is not None:
+            # (cells, [C,] H, N, N) -> (cells C, H, N, N): cell i's rows of the
+            # folded batch read its own bias
+            bias = bias.movedim(in_dims[3], 0)
+            bias = bias.reshape(-1, *bias.shape[-3:]).contiguous()
+        return _unfold_cells(cells, _FlashAttention.apply(q, k, v, bias, scale, with_lse))
 
 
 def flash_attention(
@@ -465,21 +576,19 @@ def flash_attention(
 ) -> torch.Tensor:
     """Differentiable flash attention, ``softmax(scale * q k^T + bias) v``.
 
-    With a gradient required of q, k or v the forward saves
-    ``(q, k, v, o, lse)`` and the backward launches the dq and dk/dv
-    kernels; without one it is ``flash_attention_fwd`` and saves nothing.
-    Under ``torch.func.vmap`` (a sweep round's cells) every kernel launches
-    once for all cells, the vmapped axis folded into the batch.
-    A bias while any operand (or the bias) requires a gradient raises
-    ``NotImplementedError``: there is no fallback.  CPU tensors run the
-    kernels' plain versions, forward and backward.
+    bias: (H, N, N) or (C, H, N, N) with C dividing B, in fp32 or q's dtype,
+    or None.  With a gradient required of q, k, v or the bias the forward
+    saves ``(q, k, v, o, lse, bias)``; the backward launches the dq and
+    dk/dv kernels when q, k or v requires one and the bias-gradient kernel
+    when the bias does, its result in the bias's dtype.  Without one it is
+    ``flash_attention_fwd`` and saves nothing.  Under ``torch.func.vmap`` (a
+    sweep round's cells) every kernel launches once for all cells, the
+    vmapped axis folded into the batch and a batched bias into its cells.
+    CPU tensors run the kernels' plain versions, forward and backward.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    grad = _needs_grad(q, k, v) if bias is None else _needs_grad(q, k, v, bias)
-    if grad and bias is not None:
-        raise NotImplementedError(_NO_BIAS_GRAD)
-    return _FlashAttention.apply(q, k, v, bias, float(scale), grad)[0]
+    return _FlashAttention.apply(q, k, v, bias, float(scale), _needs_grad(q, k, v, bias))[0]
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,7 @@
 
 A field-for-field copy of ``peft_vit_tpu/peft/spec.py::PEFTSpec``, with its
 ``canonical_method`` and ``spec_from_config``, so that a spec means the same
-thing in both packages.  The port implements every hook but the relative
-position bias (``attn_bias='rpb'``), for which the layers raise
-``NotImplementedError`` (``models.layers.require_ported``).
+thing in both packages.  The port implements every hook (``models.layers``).
 """
 
 from __future__ import annotations

@@ -202,13 +202,23 @@ def test_function_without_a_gradient_saves_nothing():
 
 @pytest.mark.parametrize("who", ["q", "bias"])
 def test_bias_with_a_gradient_raises(who):
+    """A bias with a gradient runs the bias path (dq, dk, dv with the bias and
+    the bias's own gradient: ``test_torch_port_rpb.py`` holds them against
+    the JAX package); what raises is a bias the kernels do not take, a
+    (C, H, N, N) one whose C does not divide the batch, whichever operand
+    needs the gradient."""
     q, k, v, _ = _t(*_inputs(33, seed=11))
-    bias = torch.zeros(H, 33, 33)
+    bias = torch.zeros(3, H, 33, 33)  # B = 2
     (q if who == "q" else bias).requires_grad_()
-    with pytest.raises(NotImplementedError, match="K7"):
+    with pytest.raises(ValueError, match="C dividing the batch"):
         port.flash_attention(q, k, v, bias)
+    # an (H, N, N) bias with a gradient runs, forward and backward
+    shared = torch.zeros(H, 33, 33, requires_grad=who == "bias")
+    out = port.flash_attention(q, k, v, shared)
+    wrt = [t for t in (q, shared) if t.requires_grad]
+    assert all(bool(torch.isfinite(g).all()) for g in torch.autograd.grad(out.sum(), wrt))
     # forward-only: fine without a gradient
-    assert port.flash_attention(q.detach(), k, v, bias.detach()).shape == q.shape
+    assert port.flash_attention(q.detach(), k, v, shared.detach()).shape == q.shape
 
 
 def test_multi_head_attention_on_the_cpu_keeps_the_reference():

@@ -478,6 +478,49 @@ def rerun(monkeypatch):
     _captured(monkeypatch, True)
 
 
+def test_step_graph_captures_with_the_cyclic_collector_off(monkeypatch):
+    """``StepGraph`` keeps Python's cyclic garbage collector off for the
+    capture and only there: a dead graph in a reference cycle collected
+    during a capture is destroyed while the stream captures, which CUDA
+    refuses, and the capture fails (seen on the card).  The CUDA graph API
+    is faked here, so the CPU runs the class's capture path."""
+    import contextlib
+    import gc
+
+    class Fake:
+        def __init__(self, *a, **k):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+        def replay(self):
+            pass
+
+    seen = []
+    capturing = {"on": False}
+
+    @contextlib.contextmanager
+    def fake_graph(graph):
+        capturing["on"] = True
+        yield
+        capturing["on"] = False
+
+    for name, value in (("Stream", Fake), ("CUDAGraph", Fake), ("graph", fake_graph),
+                        ("stream", lambda s: contextlib.nullcontext()),
+                        ("current_stream", lambda *a: Fake())):
+        monkeypatch.setattr(torch.cuda, name, value)
+
+    def fn(inputs):
+        seen.append((capturing["on"], gc.isenabled()))
+        return inputs["x"] * 2
+
+    assert gc.isenabled()
+    graph = train_engine.StepGraph(fn, {"x": torch.ones(2)})
+    assert seen == [(False, True)] * train_engine.StepGraph.WARMUP + [(True, False)]
+    assert gc.isenabled() and torch.equal(graph.outputs, torch.full((2,), 2.0))
+
+
 def test_captured_epochs_and_evals_equal_the_eager_ones(rerun, monkeypatch):
     """The captured path against the eager one, a round and one cell, 2
     epochs of 2 steps: EQUAL states, losses and eval logits; the caller's

@@ -450,14 +450,15 @@ def test_fresh_leaves_follow_the_jax_init():
 
 
 def test_driver_default_method_and_cache_rules(monkeypatch, tmp_path):
-    for method, item in (("rpb", "RPB and the attention-bias gradient"),
-                         ("bitfit", "the mask-only methods"),
-                         ("finetune_contrast", "probes and zero-shot"),
+    for method, item in (("finetune_contrast", "probes and zero-shot"),
+                         ("linear_probe_contrast", "probes and zero-shot"),
                          ("intrinsic", "intrinsic dimension")):
         with pytest.raises(NotImplementedError, match=f"not ported.*ROADMAP §1, {item}"):
             port_run.finetune_main(tiny_cfg(port_config, **{"PEFT.METHOD": method}),
                                    device="cpu")
-    for method in ("linear", "adapterdrop", "transformer_probe"):
+    # every trainable leaf past block 0: first_attention and first_mlp train block 1
+    for method in ("linear", "adapterdrop", "transformer_probe", "first_attention",
+                   "first_mlp"):
         with pytest.raises(NotImplementedError, match="cached-prefix.*probes and zero-shot"):
             port_run.finetune_main(tiny_cfg(port_config, **{"PEFT.METHOD": method}),
                                    device="cpu")
