@@ -141,7 +141,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against the one-cell step (cosine of each leaf's momentum); RPB's update
    with K2, K3 and K7 against the float64 backward; attention and full also
    under the int8 recipe with int8 dx; RPB and bitfit through the whole
-   driver.
+   driver;
+12. zeroshot: the CLIP text tower of vitb16_CLIP.yaml (width 512, 12 blocks
+   of 8 heads, context 77, vocabulary 49,408) from a numpy tree in the JAX
+   layout.  K1 with the tower's causal bias (-1e30 above the diagonal, in
+   the compute dtype) against its plain version at (T, 8, 77, 64), T the 18
+   templates of cifar-100, and at B = 1, bf16 and fp32, K7 launched 0 times;
+   its time with and without the bias beside its bound, the plain version
+   and SDPA with the same float mask.  The zero-shot classifier of
+   cifar-100's 100 classes in bf16 on the card (K1 12 times a text forward)
+   against fp32 on the CPU (``TOL_TEXT_COS``); ``zeroshot_main`` end to end
+   (bf16; fp32 against the CPU on a 5-image request, top-1 equal);
+   ``finetune_contrast`` and ``linear_probe_contrast`` through
+   ``finetune_main`` (a round of 3 cells, each step a replay, launches from
+   ``launch_rule``, the class-text bank bit-identical); the linear probe and
+   AdapterDrop on block 11 through the cached-prefix sweep (K1 once a block
+   before the cut a prefix batch, the same choice and score as the drive
+   through the whole tower); ``linear_probe --classifier logistic`` in fp32,
+   the card choosing C as the CPU does; int8 attention (the static recipe
+   with int8 dx, and with P V): the int32 scores equal to their exact sum,
+   the calibrated scales, captured steps equal to eager, the launches a
+   replay (K1 only in the backward), one step's update against the bf16
+   recipe's.
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -2286,13 +2307,15 @@ def _per_replay(graph, want: dict, what: str) -> None:
         return
     got = {k: n for k, n in graph.launches.items() if n or k in want}
     full = {k: want.get(k, 0) for k in got}
-    check(got == full and any(got.values()),
+    check(got == full and (any(got.values()) or not any(want.values())),
           f"{what}: launches per replay {got} == {full}")
 
 
-def _flagship_state(tree, dtype, device, int8_train=False, bwd_dx=False):
-    """The flagship (channel BN, LoRA mask) from ``tree``: (model, the
-    trainable leaves, the quantized tree or {}, a fresh state)."""
+def _flagship_state(tree, dtype, device, int8_train=False, bwd_dx=False, int8_attn=False,
+                    int8_attn_pv=False):
+    """The flagship (channel BN, LoRA mask; ``int8_attn``: int8 attention
+    scores, ``int8_attn_pv`` with P V) from ``tree``: (model, the trainable
+    leaves, the quantized tree or {}, a fresh state)."""
     import bench_torch
     from peft_vit_tpu_torch.engine import init_cell_state
     from peft_vit_tpu_torch.models import flagship, load_jax_variables
@@ -2300,7 +2323,8 @@ def _flagship_state(tree, dtype, device, int8_train=False, bwd_dx=False):
     shape = dict(width=WIDTH, layers=LAYERS, heads=HEADS, image=IMAGE, patch=PATCH,
                  num_classes=NUM_CLASSES, use_bn=True)
     model = load_jax_variables(flagship(**shape, dtype=dtype, ln_fp32=False,
-                                        int8_train=int8_train, device=device), tree)
+                                        int8_train=int8_train, int8_attn=int8_attn,
+                                        int8_attn_pv=int8_attn_pv, device=device), tree)
     trainable, _, qtree = bench_torch.prepare(model, LAYERS, int8=int8_train, bwd_dx=bwd_dx)
     bn = {k: v for k, v in model.named_buffers() if k.endswith(("bn_mean", "bn_var"))}
     return model, trainable, qtree, init_cell_state(trainable, bn)
@@ -2641,13 +2665,17 @@ def driver_spy(run, sync, lr_grid=None):
     """Within, ``finetune_main`` runs as it does, observed: its SweepEngine
     counts the rounds and cells it trains, keeps every epoch's loss (each
     cell's), its CUDA graphs and the wall time of the sweep and of the final
-    train (``lr_grid`` replaces the default lr grid); the frozen leaves are
-    copied right after the driver casts them, and each
-    ``quantize_frozen_tree`` call is counted, its tree copied."""
+    train (``lr_grid`` replaces the default lr grid); the frozen leaves (and
+    a contrastive model's class-text bank) are copied right after the driver
+    casts them, each ``quantize_frozen_tree`` call is counted, its tree
+    copied; each cached prefix keeps its cut, its graph and its batches; the
+    text features' encoding keeps the kernels it launched and its classes."""
+    from peft_vit_tpu_torch.engine import cached
     from peft_vit_tpu_torch.ops import int8 as i8
+    from peft_vit_tpu_torch.ops import launch_counts
 
     rec = {"cells": 0, "rounds": 0, "losses": [], "sweep_s": 0.0, "final_s": 0.0,
-           "quantize": 0}
+           "quantize": 0, "prefix": [], "text": {}, "classes": 0}
 
     class Spy(run.SweepEngine):
         def __init__(self, *args, **kwargs):
@@ -2685,6 +2713,23 @@ def driver_spy(run, sync, lr_grid=None):
         rec["model"] = model
         rec["frozen"] = {k: v.detach().clone() for k, v in model.named_parameters()
                          if not v.requires_grad}
+        if hasattr(model, "text_features"):
+            rec["text_bank"] = model.text_features.clone()
+
+    def prefix(model, x, cut, batch, frozen=None, graphs=None):
+        graphs = {}
+        out = real_prefix(model, x, cut, batch, frozen, graphs)
+        rec["prefix"].append((cut, graphs.get(("prefix", None, batch)), -(-len(x) // batch)))
+        return out
+
+    def text(encode_text, cfg, *args, **kwargs):
+        before = launch_counts()
+        feats = real_text(encode_text, cfg, *args, **kwargs)
+        sync()
+        for k, n in launch_counts().items():
+            rec["text"][k] = rec["text"].get(k, 0) + n - before[k]
+        rec["classes"] += len(feats)
+        return feats
 
     def quantize(*args, **kwargs):
         tree = real_quantize(*args, **kwargs)
@@ -2693,13 +2738,16 @@ def driver_spy(run, sync, lr_grid=None):
         rec["qtree_start"] = {k: v.clone() for k, v in tree.items()}
         return tree
 
-    saved = run.SweepEngine, run.cast_frozen_
-    real_cast, real_quantize = run.cast_frozen_, i8.quantize_frozen_tree
-    run.SweepEngine, run.cast_frozen_, i8.quantize_frozen_tree = Spy, cast, quantize
+    saved = run.SweepEngine, run.cast_frozen_, run.extract_text_features
+    real_cast, real_quantize, real_text = run.cast_frozen_, i8.quantize_frozen_tree, saved[2]
+    real_prefix = cached.precompute_prefix_tokens
+    run.SweepEngine, run.cast_frozen_, run.extract_text_features = Spy, cast, text
+    i8.quantize_frozen_tree, cached.precompute_prefix_tokens = quantize, prefix
     try:
         yield rec
     finally:
-        (run.SweepEngine, run.cast_frozen_), i8.quantize_frozen_tree = saved, real_quantize
+        run.SweepEngine, run.cast_frozen_, run.extract_text_features = saved
+        i8.quantize_frozen_tree, cached.precompute_prefix_tokens = real_quantize, real_prefix
 
 
 def _results_dir() -> str:
@@ -2711,11 +2759,33 @@ def _results_dir() -> str:
     return tempfile.mkdtemp(dir=root)
 
 
+def _replay_ms(graph, reps: int, trials: int = 5) -> float:
+    """Median over trials of ``reps`` back-to-back replays of a
+    ``StepGraph``'s CUDA graph, per replay (CUDA events)."""
+    graph.graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 def launch_rule(model, trainable, cells: int = 1, int8: bool = False,
-                bwd_dx: bool = False) -> dict:
+                bwd_dx: bool = False, start_layer: int = 0, int8_attn: bool = False) -> dict:
     """The kernels one training step launches a replay, derived from where
     the trainable leaves (the names in ``trainable``) sit in ``model``
-    (PERF.md §2): K1 once a block (a round's cells ride the batch); K2 and K3
+    (PERF.md §2), over the blocks from ``start_layer`` on (the cached-prefix
+    sweep's suffix): K1 once a block (a round's cells ride the batch; with
+    ``int8_attn`` and its scales the forward's attention is plain PyTorch,
+    and K1 runs once in each block whose backward recomputes o and lse for
+    K2 and K3); K2 and K3
     once in each block whose attention operands q, k, v need a gradient,
     that is where a trainable leaf sits in or before the block's attention
     products (the prompts, the tower's own leaves up to ``in_proj``, an
@@ -2738,6 +2808,8 @@ def launch_rule(model, trainable, cells: int = 1, int8: bool = False,
         "backbone.deep_prompt_embeddings")) for n in names)
     k23 = k7 = fwd = dx = 0
     for i, block in enumerate(backbone.blocks):
+        if i < start_layer:
+            continue
         p = f"backbone.blocks.{i}."
         if 0 < i < backbone.layers and "backbone.deep_prompt_embeddings" in names:
             carry = True
@@ -2758,7 +2830,8 @@ def launch_rule(model, trainable, cells: int = 1, int8: bool = False,
             dx += bool(needs and frozen)
         carry = proj_in or trains(p + "mlp.c_proj.") or (
             block.adapter_name is not None and trains(f"{p}{block.adapter_name}."))
-    out = {"flash_attention_fwd": len(backbone.blocks), "flash_attention_bwd_dq": k23,
+    blocks = len(backbone.blocks) - start_layer
+    out = {"flash_attention_fwd": k23 if int8_attn else blocks, "flash_attention_bwd_dq": k23,
            "flash_attention_bwd_dkv": k23, "attention_bias_grad": k7}
     if int8:
         out["int8_gemm_dynamic"] = fwd + (dx if bwd_dx else 0)
@@ -2766,14 +2839,17 @@ def launch_rule(model, trainable, cells: int = 1, int8: bool = False,
 
 
 def drive(label: str, cfg, tree, smi: str, device: str = "cuda", want_cells: int = 0,
-          profile: bool = False) -> dict:
+          profile: bool = False, lr_grid=None) -> dict:
     """``commands.run.finetune_main(cfg)`` through the port on ``device`` from
-    the numpy weights ``tree``, observed by ``driver_spy``: the sweep's cells
-    (``want_cells``), every step and eval batch one replay of a graph of its
-    shape, each graph's launches a replay the mask-derived ones
-    (``launch_rule``), finite losses, frozen leaves and the quantized tree
-    bit-identical, the score in results.jsonl; then, with ``profile``, the
-    same run under the profiler."""
+    the numpy weights ``tree`` (``lr_grid``: the sweep's lrs), observed by
+    ``driver_spy``: the sweep's cells (``want_cells``), every step and eval
+    batch one replay of a graph of its shape, each graph's launches a replay
+    the mask-derived ones (``launch_rule``, from the cut of a cached prefix,
+    whose batches are replays of a graph of K1 once a block before the cut),
+    the text features' K1 once a text block and class and no K7, finite
+    losses, frozen leaves, a contrastive model's class-text bank and the
+    quantized tree bit-identical, the score in results.jsonl; then, with
+    ``profile``, the same run under the profiler."""
     from peft_vit_tpu_torch.commands import run
     from peft_vit_tpu_torch.data import construct_splits
     from peft_vit_tpu_torch.engine import StepGraph
@@ -2791,7 +2867,7 @@ def drive(label: str, cfg, tree, smi: str, device: str = "cuda", want_cells: int
         w.launches = 0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    with driver_spy(run, sync) as rec:  # counts from 0 just before the path, read just after
+    with driver_spy(run, sync, lr_grid) as rec:  # counts from 0 just before the path, read just after
         t0 = time.perf_counter()
         score = run.finetune_main(cfg, out_dir, device=device, variables=tree)
         sync()
@@ -2831,24 +2907,53 @@ def drive(label: str, cfg, tree, smi: str, device: str = "cuda", want_cells: int
     check(replays == {"step": steps, "eval": evals} and (not on_card or graphs),
           f"driver {label}: {replays['step']} step replays == {steps}, {replays['eval']} "
           f"eval replays == {evals}")
+    cut = rec["prefix"][0][0] if rec["prefix"] else 0
     for key, graph in sorted(graphs.items(), key=str):
         # an eval batch launches the forward's kernels: K1 and K6 without dx
-        want = launch_rule(model, trainable, key[1] or 1, int8_on, bwd_dx and key[0] == "step")
+        want = launch_rule(model, trainable, key[1] or 1, int8_on, bwd_dx and key[0] == "step",
+                           start_layer=cut)
         if key[0] == "eval":
             for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                          "attention_bias_grad"):
                 want.pop(name)
         _per_replay(graph, {k: v for k, v in want.items() if v},
-                    f"driver {label}: {key[0]} graph of {key[1] or 1} cell(s)")
+                    f"driver {label}: {key[0]} graph of {key[1] or 1} cell(s)"
+                    + (f" from block {cut}" if cut else ""))
+    prefix_graphs = [g for _, g, _ in rec["prefix"]]
+    for pcut, graph, batches in rec["prefix"]:
+        _per_replay(graph, {"flash_attention_fwd": pcut},
+                    f"driver {label}: a cached-prefix batch (blocks 0-{pcut - 1})")
+        check(graph is None or graph.replays == batches,
+              f"driver {label}: the prefix through block {pcut - 1} once: "
+              f"{None if graph is None else graph.replays} replays == {batches} batches")
+    if rec["prefix"]:
+        print(f"driver {label}: cached prefix at block {cut}, "
+              f"{sum(b for _, _, b in rec['prefix'])} prefix batches over "
+              f"{len(rec['prefix'])} splits")
+    text_layers = int(cfg.MODEL.SPEC.TEXT.LAYERS)
+    if rec["classes"]:
+        got = {k: n for k, n in rec["text"].items() if n}
+        check(got == ({"flash_attention_fwd": text_layers * rec["classes"]} if on_card else {}),
+              f"driver {label}: the text features of {rec['classes']} classes launched {got} "
+              f"(K1 once a text block and class, no K7)")
     want = {name: (StepGraph.WARMUP + 1) * sum(g.launches[name] for g in graphs.values())
-            for name in counts}
+            + (StepGraph.WARMUP + 1) * sum(g.launches[name] for g in prefix_graphs if g)
+            + rec["text"].get(name, 0) for name in counts}
     for name, n in counts.items():
         check(n == want[name] and (not on_card or n > 0 or want[name] == 0),
               f"driver {label}: {name} counted {n} == ({StepGraph.WARMUP} warm-up runs + "
-              f"the capture) x its launches a replay, over {len(graphs)} graphs")
+              f"the capture) x its launches a replay, over {len(graphs)} graphs"
+              + (f" and {len(prefix_graphs)} prefix graphs" if prefix_graphs else "")
+              + (" + the text features'" if rec["classes"] else ""))
+    if "text_bank" in rec:
+        check(torch.equal(rec["text_bank"], model.text_features),
+              f"driver {label}: the frozen class-text bank {tuple(model.text_features.shape)} "
+              "bit-identical after the run")
     same = [k for k, v in rec["frozen"].items()
             if torch.equal(v, dict(model.named_parameters())[k])]
-    check(len(same) == len(rec["frozen"]) > 0,
+    # finetune_contrast trains every leaf of the tower: its frozen part is the
+    # class-text bank, held below
+    check(len(same) == len(rec["frozen"]) and (len(same) > 0 or "text_bank" in rec),
           f"driver {label}: {len(same)} of {len(rec['frozen'])} frozen leaves bit-identical "
           "after the run")
     want_k6 = (StepGraph.WARMUP + 1) * sum(g.launches.get("int8_gemm_dynamic", 0)
@@ -2870,7 +2975,18 @@ def drive(label: str, cfg, tree, smi: str, device: str = "cuda", want_cells: int
           f"{record['metric']} {score:.3f}; sweep {rec['sweep_s']:.2f} s, final train "
           f"{rec['final_s']:.2f} s, whole run {wall:.2f} s; peak device memory {peak:.2f} GiB "
           f"(host clock; {smi})", flush=True)
-    result = {"launches": counts, "int8_launches": k6, "steps": steps,
+    step_ms = None
+    final = graphs.get(("step", None, batch))
+    if on_card and final is not None:
+        # the final train's captured one-cell step, replayed on its last
+        # batch: the device's time for a step of this run (the run is done)
+        step_ms = _replay_ms(final, 20)
+        print(f"driver {label}: the captured one-cell step replays in {step_ms:.3f} ms "
+              f"(CUDA events, 20 replays; {smi})", flush=True)
+    result = {"launches": counts, "int8_launches": k6, "steps": steps, "cut": cut,
+              "step_ms": step_ms,
+              "text_launches": dict(rec["text"]), "graphs": {
+                  f"{k[0]} {k[1] or 1}": dict(g.launches) for k, g in graphs.items()},
               "evals": evals, "cells": rec["cells"], "lr": record["lr"],
               "wd": record["wd"], "score": score, "sweep_s": rec["sweep_s"],
               "final_s": rec["final_s"], "wall_s": wall, "peak_gib": peak}
@@ -3403,6 +3519,534 @@ def tiny_driver_check(device: str = "cuda") -> None:
           f"{picks['cpu']}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: zero-shot, the contrastive methods, the cached prefix, the
+# logistic probe and int8 attention.  The CLIP text tower of vitb16_CLIP.yaml:
+# width 512, 12 blocks of 8 heads (head dim 64), context 77, vocabulary 49,408
+# (a CPU rehearsal shrinks them here).
+TEXT_WIDTH, TEXT_LAYERS, TEXT_HEADS, CONTEXT, VOCAB = 512, 12, 8, 77, 49408
+ZS_DATASET = "cifar-100"  # the class names and templates of the text-feature check
+ZS_CPU_CLASSES = 20  # of them also on the CPU in fp32 (all 100 take ~45 s there)
+ZS_CLASSES = 5  # the synthetic task of the zero-shot, contrastive and probe drives
+ZS_TEST_BATCH = 16  # TEST.BATCH_SIZE_PER_GPU of those drives: the training batch
+ZS = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": ZS_CLASSES,
+      "DATASET.NUM_SAMPLES_PER_CLASS": 4, "TRAIN.BATCH_SIZE_PER_GPU": 16,
+      "TEST.BATCH_SIZE_PER_GPU": ZS_TEST_BATCH, "TRAIN.END_EPOCH": 2,
+      "TRAIN.SEARCH_WD_POINTS": 3, "TRAIN.SEARCH_WD_INIT_POINTS": 3}
+LOGISTIC_CLASSES = 2  # the logistic drive's task: its CPU run extracts 48 images' features
+ZS_LRS = (1e-3,)  # the contrastive drives' sweep: one round of 3 (lr, wd) cells
+# The cached-prefix drives, each against the same drive through the whole
+# tower: two lrs, the wd grid up to 1e-2 (lr x wd near 1 makes a cell chaotic
+# from step to step, and two fp32 paths whose sums differ in the last bit
+# then part).
+ZS_CACHED = {"TRAIN.SEARCH_WD_LOG_UPPER": -2}
+ZS_CACHED_LRS = (1e-3, 1e-2)
+ZS_MODEL: dict = {}  # config overrides of the model (a CPU rehearsal shrinks it here)
+# The text features in bf16 on the card against fp32 on the CPU, per class:
+# cosine of the two L2-normalized features.  bf16 rounds every GEMM output
+# and residual add of 12 random-weight blocks at ~4e-3 (the image tower's
+# logits stand 6.9e-2 from fp32, TOL_BF16_LOGITS_REL); a class's feature is
+# the mean of 18 templates' normalized features, which averages part of it.
+TOL_TEXT_COS = 0.99
+# int8 attention (static recipe with int8 dx) against the bf16 recipe after
+# one step from the same state and batch, per LoRA leaf: cosine of the two
+# updates.  The int8 forward (every GEMM and the scores on codes) moves the
+# logits by ~1e-1 of their size on this random-weight tower
+# (TOL_INT8_VS_BF16_LOGITS_REL), and bf16 alone turns a leaf's gradient to
+# cosine 0.63 of the fp32 one (TOL_BF16_TRAIN_UPDATE_COS_LEAST).  Measured on
+# the H100 (NVIDIA H100 80GB HBM3, 700.00 W): median over the 50 leaves 0.235
+# (+ P V: 0.260) against bf16, 0.240 (0.209) against the static recipe
+# without int8 attention, whose own against bf16 is printed beside them.  A
+# leaf's update is a vector of ~3,000 entries, so two unrelated ones stand at
+# cosine ~0.02: the bound 0.1 holds the gradient's direction, no more.
+TOL_INT8_ATTN_UPDATE_COS_MEDIAN = 0.1
+INT8_ATTN_RECIPES = (("int8 static+dx+attn", False), ("int8 static+dx+attn+pv", True))
+
+
+def text_tree(rng: np.random.RandomState) -> dict:
+    """Random text-tower weights in the JAX package's layout (the names of a
+    flax ``TextTransformer`` init), as ``{"params": ...}``."""
+
+    def normal(*shape, std):
+        return (std * rng.standard_normal(shape)).astype(np.float32)
+
+    def dense(i, o):
+        return {"kernel": normal(i, o, std=i**-0.5), "bias": normal(o, std=0.02)}
+
+    def layer_norm():
+        return {"scale": 1.0 + normal(TEXT_WIDTH, std=0.1),
+                "bias": normal(TEXT_WIDTH, std=0.02)}
+
+    w = TEXT_WIDTH
+    params = {"token_embedding": {"embedding": normal(VOCAB, w, std=0.02)},
+              "positional_embedding": normal(CONTEXT, w, std=0.01),
+              "ln_final": layer_norm(), "text_projection": normal(w, OUTPUT_DIM, std=w**-0.5)}
+    for i in range(TEXT_LAYERS):
+        params[f"blocks_{i}"] = {
+            "ln_1": layer_norm(), "ln_2": layer_norm(),
+            "attn": {"in_proj": dense(w, 3 * w), "out_proj": dense(w, w)},
+            "mlp": {"c_fc": dense(w, 4 * w), "c_proj": dense(4 * w, w)}}
+    return {"params": params}
+
+
+def _causal(n: int, dtype) -> torch.Tensor:
+    """The text tower's (H, N, N) causal bias as its attention builds it: -1e30
+    above the diagonal in fp32, cast to the compute dtype."""
+    c = torch.full((n, n), -1e30, device="cuda").triu(1).to(dtype)
+    return c.expand(TEXT_HEADS, n, n).contiguous()
+
+
+def causal_kernel_phase(templates: int, timing: bool = True) -> dict:
+    """K1 with the text tower's causal bias against its plain version on the
+    card: bf16 (the bias rounded to -1.0014e30) and fp32, at the text path's
+    (T, 8, 77, 64), T the templates of a class, and at B = 1 (the first row
+    sees one key; the last key tile is ragged, its padding masked by the
+    kernel besides the bias), o and lse at the bounds of the kernel phase;
+    K7 launched 0 times (nothing asks the bias's gradient).  With
+    ``timing``: K1 with and without the bias (in turns), its bound with the
+    fp32 bias read, the plain version and SDPA with the same float mask."""
+    import torch.nn.functional as F
+    from peft_vit_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    d = TEXT_WIDTH // TEXT_HEADS
+    scale = d**-0.5
+    errs = {}
+    attn.attention_bias_grad.launches = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL_BF16_OUT if dtype == torch.bfloat16 else TOL_F32_OUT
+        for b in (templates, 1):
+            shape = (b, TEXT_HEADS, CONTEXT, d)
+            q, k, v = (rand(shape, dtype) for _ in range(3))
+            bias = _causal(CONTEXT, dtype)
+            o, lse = attn.flash_attention_fwd(q, k, v, bias, scale, return_lse=True)
+            po, plse = attn._flash_attention_plain(q, k, v, bias, scale, True)
+            err = (o.float() - po.float()).abs().max().item()
+            lerr = (lse - plse).abs().max().item()
+            name = f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} B={b}"
+            check(bool(torch.isfinite(o).all()) and err <= tol and lerr <= TOL_LSE,
+                  f"causal K1 {name} (B, {TEXT_HEADS}, {CONTEXT}, {d}): max |o - plain| "
+                  f"{err:.3e} <= {tol:g}, max |lse - plain| {lerr:.3e} <= {TOL_LSE:g}; row 0 "
+                  f"== v[0] within the same bound: {(o[:, :, 0].float() - v[:, :, 0].float()).abs().max().item():.3e}")
+            if b == templates:
+                errs["bf16" if dtype == torch.bfloat16 else "fp32"] = err
+    check(attn.attention_bias_grad.launches == 0,
+          f"causal K1: attention_bias_grad (K7) launched {attn.attention_bias_grad.launches} times")
+    result = {"max_abs_err": errs["bf16"], "max_abs_err_fp32": errs["fp32"],
+              "shape": [templates, TEXT_HEADS, CONTEXT, d]}
+    if not timing:
+        return result
+    shape = (templates, TEXT_HEADS, CONTEXT, d)
+    q, k, v = (rand(shape, torch.bfloat16) for _ in range(3))
+    bias = _causal(CONTEXT, torch.bfloat16)
+    reps = 200
+    turns = {}
+    for with_bias in (False, True, True, False):
+        bb = bias if with_bias else None
+        turns.setdefault(with_bias, []).append(
+            _device_ms(lambda: attn.flash_attention_fwd(q, k, v, bb, scale), reps))
+    bound, by = attention_bound(templates, TEXT_HEADS, CONTEXT, d, 2, "fwd")
+    # the kernel reads the bias once, in fp32
+    bias_ms = TEXT_HEADS * CONTEXT * CONTEXT * 4 / HBM_BYTES_PER_S * 1e3
+    if by == "bytes":
+        bound += bias_ms
+    else:
+        bound = max(bound, (4 * templates * TEXT_HEADS * CONTEXT * d * 2
+                            + TEXT_HEADS * CONTEXT * CONTEXT * 4) / HBM_BYTES_PER_S * 1e3)
+    mask = bias[0]  # SDPA broadcasts an (N, N) float mask over batch and heads
+    result.update({
+        "ms": min(turns[True]), "ms_without": min(turns[False]), "bound_ms": bound,
+        "bound_by": by,
+        "plain_ms": _device_ms(lambda: attn._flash_attention_plain(q, k, v, bias, scale, False),
+                               20),
+        "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale), reps)})
+    _print_timing("flash_attn_fwd causal", templates, shape, result)
+    print(f"causal K1 B={templates}: {result['ms']:.6f} ms with the bias, "
+          f"{result['ms_without']:.6f} without (the less of two turns each)", flush=True)
+    return result
+
+
+def zs_cfg(over: dict, dtype: str = "bfloat16"):
+    return driver_cfg({**ZS, **ZS_MODEL, "TPU.COMPUTE_DTYPE": dtype, **over})
+
+
+def _text_encoder(tree: dict, device: str, dtype: torch.dtype):
+    """The text tower of ``tree`` on ``device`` in ``dtype`` as
+    ``encode_text``, its frozen weights stored in the compute dtype."""
+    from peft_vit_tpu_torch.models import TextEncoder, TextTransformer, cast_frozen_
+    from peft_vit_tpu_torch.models import load_jax_variables
+
+    def build():
+        module = TextTransformer(VOCAB, CONTEXT, TEXT_WIDTH, TEXT_LAYERS, TEXT_HEADS,
+                                 OUTPUT_DIM, dtype=dtype, device=device)
+        load_jax_variables(module, tree)
+        return cast_frozen_(module.requires_grad_(False))
+
+    return TextEncoder(build, CONTEXT)
+
+
+def text_features_check(tree: dict, smi: str, device: str = "cuda") -> dict:
+    """The zero-shot classifier of ``ZS_DATASET`` (its class names and
+    templates from the prompt resources) through ``extract_text_features``:
+    bf16 on ``device``, one text forward of the class's templates a class, 12
+    K1 launches each, no K7, against the same in fp32 on the CPU, per class
+    cosine at least ``TOL_TEXT_COS``."""
+    from peft_vit_tpu_torch.data.prompts import class_map
+    from peft_vit_tpu_torch.engine.zeroshot import extract_text_features
+    from peft_vit_tpu_torch.ops import attention as attn
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cfg = zs_cfg({"DATASET.DATASET": ZS_DATASET})
+    card = _text_encoder(tree, device, torch.bfloat16)
+    card.module  # build it before the counts
+    extract_text_features(card, cfg, classnames=["warm-up"])  # the kernels' first build
+    sync()
+    _zero_attention_counts(attn)  # counts from 0 just before the main path, read just after
+    t0 = time.perf_counter()
+    got = extract_text_features(card, cfg)
+    sync()
+    card_s = time.perf_counter() - t0
+    counts = {k: n for k, n in _attention_counts(attn).items() if n}
+    classes = got.shape[0]
+    t0 = time.perf_counter()
+    names = class_map(ZS_DATASET)[:ZS_CPU_CLASSES]
+    want = extract_text_features(_text_encoder(tree, "cpu", torch.float32), cfg,
+                                 classnames=names)
+    cpu_s = time.perf_counter() - t0
+    cos = torch.nn.functional.cosine_similarity(got[:len(names)].cpu().double(),
+                                                want.double(), dim=1)
+    least = int(cos.argmin())
+    check(bool(torch.isfinite(got).all()) and float(cos[least]) >= TOL_TEXT_COS,
+          f"zeroshot text features: {classes} classes of {ZS_DATASET} in bf16 on the card, "
+          f"finite; the first {len(names)} against fp32 on the CPU: least cosine "
+          f"{float(cos[least]):.6f} (class {least}) >= {TOL_TEXT_COS:g}, median "
+          f"{float(cos.median()):.6f}")
+    on_card = device == "cuda"
+    check(counts == ({"flash_attention_fwd": TEXT_LAYERS * classes} if on_card else {}),
+          f"zeroshot text features: launched {counts} (K1 once a text block and class: "
+          f"{TEXT_LAYERS} x {classes}; no K7)")
+    print(f"zeroshot text features: {classes} classes in {card_s:.3f} s on the card, "
+          f"{len(names)} in {cpu_s:.1f} s on the CPU (host clock; {smi})", flush=True)
+    return {"launches": counts.get("flash_attention_fwd", 0), "card_s": card_s,
+            "least_cos": float(cos[least]), "classes": classes}
+
+
+def zeroshot_main_check(tree: dict, text: dict, smi: str, device: str = "cuda") -> dict:
+    """``zeroshot_main`` end to end on the synthetic test split, the classes
+    registered with the cifar-100 names and templates: in bf16 on the card
+    (finite score; K1 once a text block and class and once a visual block and
+    test batch, no K7), then in fp32 on the card against the same request of
+    ``CHECKED_REQUEST`` images in fp32 on the CPU, top-1 equal (bf16 moves
+    random-weight cosines by more than their gaps)."""
+    from peft_vit_tpu_torch.commands import zeroshot_eval
+    from peft_vit_tpu_torch.data import construct_splits
+    from peft_vit_tpu_torch.data.prompts import class_map, register_prompts, template_map
+    from peft_vit_tpu_torch.engine.zeroshot import extract_text_features
+    from peft_vit_tpu_torch.models import build_image_classifier, load_jax_variables
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.peft import PEFTSpec
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    register_prompts("synthetic", class_map(ZS_DATASET)[:ZS_CLASSES], template_map(ZS_DATASET))
+    cfg = zs_cfg({})
+    n_test = len(construct_splits(cfg, test_split_only=True).y_test)
+    seen = {}
+    real = zeroshot_eval.clip_zeroshot_evaluator
+
+    def evaluator(img, txt, labels, metric):
+        seen["logits"] = real(img, txt, labels, metric)[1]
+        return real(img, txt, labels, metric)
+
+    zeroshot_eval.clip_zeroshot_evaluator = evaluator
+    try:
+        _zero_attention_counts(attn)  # counts from 0 just before the main path, read just after
+        t0 = time.perf_counter()
+        score = zeroshot_eval.zeroshot_main(cfg, device=device, variables=tree,
+                                            text_variables=text)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = {k: n for k, n in _attention_counts(attn).items() if n}
+        bf16_logits = seen["logits"]
+        f32 = zeroshot_eval.zeroshot_main(zs_cfg({}, "float32"), device=device, variables=tree,
+                                          text_variables=text)
+        card = seen["logits"][:CHECKED_REQUEST]
+    finally:
+        zeroshot_eval.clip_zeroshot_evaluator = real
+    want_k1 = TEXT_LAYERS * ZS_CLASSES + LAYERS * -(-n_test // ZS_TEST_BATCH)
+    on_card = device == "cuda"
+    check(math.isfinite(score) and 0.0 <= score <= 100.0 and bool(torch.isfinite(
+        bf16_logits).all()) and counts == ({"flash_attention_fwd": want_k1} if on_card else {}),
+          f"zeroshot_main bf16: score {score:.3f} on {n_test} test images, {ZS_CLASSES} "
+          f"classes; launched {counts} == K1 {TEXT_LAYERS} x {ZS_CLASSES} text forwards + "
+          f"{LAYERS} x {-(-n_test // ZS_TEST_BATCH)} image batches, no K7; {wall:.2f} s "
+          f"(host clock; {smi})")
+    # the same request on the CPU in fp32
+    ccfg = zs_cfg({}, "float32")
+    x = construct_splits(ccfg, test_split_only=True).x_test[:CHECKED_REQUEST]
+    model = build_image_classifier(ccfg, PEFTSpec(), ZS_CLASSES, device="cpu")[0]
+    load_jax_variables(model, tree).eval()
+    with torch.no_grad():
+        img = model.backbone(torch.from_numpy(x))
+    img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
+    txt = extract_text_features(_text_encoder(text, "cpu", torch.float32), ccfg)
+    cpu = 100.0 * img @ txt.t()
+    rel = _rel(card.numpy(), cpu.numpy())
+    check(torch.equal(card.argmax(1), cpu.argmax(1)) and rel <= TOL_F32_LOGITS_REL,
+          f"zeroshot_main fp32: a {CHECKED_REQUEST}-image request's top-1 "
+          f"{card.argmax(1).tolist()} == the CPU's {cpu.argmax(1).tolist()}; max |logit diff| / "
+          f"max |logit| {rel:.3e} <= {TOL_F32_LOGITS_REL:g} (score {f32:.3f}; bf16 top-1 "
+          f"{bf16_logits[:CHECKED_REQUEST].argmax(1).tolist()})")
+    return {"score": score, "launches": counts.get("flash_attention_fwd", 0), "wall_s": wall}
+
+
+def logistic_check(rng: np.random.RandomState, smi: str, device: str = "cuda") -> dict:
+    """``linear_probe --classifier logistic`` (``logistic_main``) on the
+    ``LOGISTIC_CLASSES``-way synthetic task in fp32 on the card and on the
+    CPU from the same weights (drawn from ``rng``): the same chosen C and
+    test accuracy (bf16 features stand ~1e-2 from fp32, enough to move a
+    few-shot validation accuracy at some C and with it the choice)."""
+    from peft_vit_tpu_torch.commands import linear_probe
+    from peft_vit_tpu_torch.models import build_image_classifier
+    from peft_vit_tpu_torch.peft import PEFTSpec
+
+    cfg = zs_cfg({"DATASET.NUM_CLASSES": LOGISTIC_CLASSES}, "float32")
+    tree = method_tree(build_image_classifier(cfg, PEFTSpec(), LOGISTIC_CLASSES,
+                                              device="cpu")[0], rng)
+    picks = {}
+    real = linear_probe.logistic_probe_sweep
+    for dev in ("cpu", device):
+        def sweep(*a, _dev=dev, **kw):
+            picks[_dev] = real(*a, **kw)
+            return picks[_dev]
+
+        linear_probe.logistic_probe_sweep = sweep
+        try:
+            t0 = time.perf_counter()
+            linear_probe.logistic_main(cfg, _results_dir(), device=dev, variables=tree)
+            print(f"logistic probe on {dev}: {time.perf_counter() - t0:.2f} s (test acc, C) "
+                  f"= {picks[dev]}", flush=True)
+        finally:
+            linear_probe.logistic_probe_sweep = real
+    check(picks[device] == picks["cpu"],
+          f"logistic probe: the card chose C = {picks[device][1]:g} (test accuracy "
+          f"{picks[device][0]:.3f}) == the CPU's C = {picks['cpu'][1]:g} "
+          f"({picks['cpu'][0]:.3f})")
+    return {"card": picks[device], "cpu": picks["cpu"]}
+
+
+def int8_attention_check(smi: str, device: str = "cuda") -> dict:
+    """The flagship under ``INT8_FWD_TRAIN``, ``INT8_BWD_DX``,
+    ``INT8_STATIC_ACT`` and ``INT8_ATTN`` (and ``+ INT8_ATTN_PV``): the int32
+    scores of the card EQUAL to their exact integer sum; per recipe, the
+    calibrated s_q, s_k, s_v of every block finite and positive, an epoch of
+    ``GRAPH_STEPS`` captured steps equal bit for bit to the same steps run
+    eagerly, the launches a replay those ``launch_rule`` derives (K1 only in
+    the backward: the forward's attention is plain PyTorch on the codes) and
+    the static int8 GEMMs', the calibration's launches outside the graph; one
+    step's update against the bf16 recipe's (``TOL_INT8_ATTN_UPDATE_COS_MEDIAN``)
+    and the static recipe's without int8 attention."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import (StepGraph, ce_per_example, make_apply_fn,
+                                           make_epoch_fn)
+    from peft_vit_tpu_torch.engine.train import calibrate
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.ops import int8 as i8
+    from peft_vit_tpu_torch.ops import launch_counts
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    # the scores: the card's fp32 sum of the codes against the exact sum
+    gen = np.random.RandomState(SEED + 51)
+    shape = (TRAIN_BATCH, HEADS, N_TOKENS, HEAD_DIM)
+    q, k = (torch.from_numpy(gen.standard_normal(shape).astype(np.float32)).to(
+        device=device, dtype=torch.bfloat16) for _ in range(2))
+    s_q, s_k = (t.float().abs().amax() / torch.tensor(127.0, device=device) for t in (q, k))
+    got = attn.int8_attention_scores(q, k, s_q, s_k)
+    exact = torch.matmul(i8.quantize_static(q, s_q).cpu().long(),
+                         i8.quantize_static(k, s_k).cpu().long().transpose(-1, -2))
+    check(torch.equal(got.cpu().long(), exact) and torch.equal(got, got.round()),
+          f"int8 attention: the int32 scores at {shape} bf16 on the card == their exact integer "
+          f"sum, bit for bit (largest |score| {int(exact.abs().max())} < 2^24)")
+
+    rng = np.random.RandomState(SEED + 52)
+    tree = jax_layout_tree(rng)
+    n = GRAPH_STEPS * TRAIN_BATCH
+    images = rng.randint(0, 256, (n, IMAGE, IMAGE, 3), dtype=np.uint8)
+    x = bench_torch.normalize(torch.as_tensor(images, device=device), torch.float32)
+    y = torch.as_tensor(rng.randint(0, NUM_CLASSES, n), device=device)
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    perm = rng.permutation(n)
+    gemms = len(INT8_GEMMS) * LAYERS
+    result = {}
+    updates = {}
+
+    def one_step(name, int8_train, static, int8_attn, pv):
+        model, trainable, qtree, state0 = _flagship_state(
+            tree, torch.bfloat16, device, int8_train, int8_train, int8_attn, pv)
+        apply_fn = make_apply_fn(model)
+        epoch = make_epoch_fn(apply_fn, ce_per_example, TRAIN_BATCH, has_bn=True,
+                              calibrate_model=model if static else None)
+        with bench_torch.eager_on_card():
+            one, _ = epoch(state0, qtree, x[:TRAIN_BATCH], y[:TRAIN_BATCH],
+                           valid[:TRAIN_BATCH], np.arange(TRAIN_BATCH), bench_torch.LR,
+                           bench_torch.WD)
+        updates[name] = {k: (one.trainable[k] - v).double().flatten()
+                         for k, v in state0.trainable.items()}
+
+    one_step("bf16", False, False, False, False)
+    one_step("int8 static+dx", True, True, False, False)
+    for name, pv in INT8_ATTN_RECIPES:
+        model, trainable, qtree, state0 = _flagship_state(tree, torch.bfloat16, device, True,
+                                                          True, True, pv)
+        apply_fn = make_apply_fn(model)
+        scales = calibrate(model, apply_fn, {**qtree}, x[:TRAIN_BATCH])
+        attn_scales = {k: v for k, v in scales.items() if k.endswith((".s_q", ".s_k", ".s_v"))}
+        check(len(attn_scales) == 3 * LAYERS and all(
+            bool(torch.isfinite(v)) and float(v) > 0 for v in attn_scales.values()),
+              f"{name}: {len(attn_scales)} calibrated attention scales (s_q, s_k, s_v of "
+              f"{LAYERS} blocks) finite and positive, s_q of block 0 "
+              f"{float(attn_scales['backbone.blocks.0.attn.s_q']):.4e}")
+        graphs = {}
+        epoch = make_epoch_fn(apply_fn, ce_per_example, TRAIN_BATCH, has_bn=True,
+                              calibrate_model=model, graphs=graphs)
+        run = lambda: epoch(state0, qtree, x, y, valid, perm, bench_torch.LR, bench_torch.WD)
+        with bench_torch.eager_on_card():
+            eager, eager_loss = run()
+        sync()
+        before = launch_counts()  # counts from 0 just before the main path, read just after
+        captured, captured_loss = run()
+        sync()
+        counts = {k: v - before[k] for k, v in launch_counts().items()}
+        differ = [f"{part}.{k}" for part in ("trainable", "momentum", "bn")
+                  for k, v in getattr(eager, part).items()
+                  if not torch.equal(v, getattr(captured, part)[k])]
+        check(not differ and torch.equal(eager_loss, captured_loss)
+              and bool(torch.isfinite(captured_loss)),
+              f"{name}: {GRAPH_STEPS} captured steps == the same steps eager, bit for bit "
+              f"(mean loss {float(captured_loss):.6f})" + (f"; differ: {differ[:4]}"
+                                                            if differ else ""))
+        graph = graphs.get(("step", None, TRAIN_BATCH))
+        want = launch_rule(model, list(trainable), 1, int8_attn=True)
+        want.update(int8_gemm_static=gemms, int8_gemm_dynamic=gemms - 1)
+        _per_replay(graph, {k: v for k, v in want.items() if v},
+                    f"{name}: a step (mask-derived {want})")
+        calib = {"flash_attention_fwd": LAYERS, "int8_gemm_dynamic": gemms}
+        if graph is not None:
+            wanted = {k: (StepGraph.WARMUP + 1) * graph.launches[k] + calib.get(k, 0)
+                      for k in counts}
+            check(counts == wanted, f"{name}: the wrappers counted {counts} == "
+                  f"({StepGraph.WARMUP} warm-up steps + the capture) x the launches a replay "
+                  "+ the calibration's (plain attention, dynamic K6)")
+        one_step(name, True, True, True, pv)
+        result[name] = {"launches_per_replay": dict(graph.launches) if graph else {},
+                        "loss": float(captured_loss)}
+        del model, epoch, graphs, graph, eager, captured
+    if on_card:
+        # the captured step's rate at B=16, as bench_torch.py times it (the
+        # static scales calibrated once), each int8 attention recipe between
+        # the static recipe's turns
+        rates = {}
+        for name, attn_on, pv in (("int8 static+dx", False, False),
+                                  *((n, True, p) for n, p in INT8_ATTN_RECIPES),
+                                  ("int8 static+dx", False, False)):
+            model, _, qtree, state0 = _flagship_state(tree, torch.bfloat16, device, True, True,
+                                                      attn_on, pv)
+            apply_fn = make_apply_fn(model)
+            frozen = {**qtree, **bench_torch.calibration_scales(
+                model, apply_fn, TRAIN_BATCH, IMAGE, torch.bfloat16, device)}
+            r, _ = bench_torch.measure(bench_torch.make_epoch_step(apply_fn, has_bn=True),
+                                       state0, frozen, TRAIN_BATCH, TRAIN_K, 5, warmup=1,
+                                       image=IMAGE, num_classes=NUM_CLASSES, device=device)
+            rates.setdefault(name, []).append(statistics.median(r))
+            del model, frozen
+        for name, r in rates.items():
+            rate = max(r)
+            print(f"{name} step B={TRAIN_BATCH}: captured {rate:.1f} images/s "
+                  f"({1e3 * TRAIN_BATCH / rate:.3f} ms/step; the better of {len(r)} turns, "
+                  f"median of 5 windows of {TRAIN_K}; host clock; {smi})", flush=True)
+            result.setdefault(name, {})["step_ms"] = 1e3 * TRAIN_BATCH / rate
+    for name in ("int8 static+dx", *(n for n, _ in INT8_ATTN_RECIPES)):
+        for ref in ("bf16", "int8 static+dx")[:1 if name == "int8 static+dx" else 2]:
+            cos = {k: torch.nn.functional.cosine_similarity(u, updates[ref][k], dim=0).item()
+                   for k, u in updates[name].items()}
+            least = min(cos, key=cos.get)
+            median = statistics.median(cos.values())
+            held = ref == "bf16" and name != "int8 static+dx"
+            check(not held or median >= TOL_INT8_ATTN_UPDATE_COS_MEDIAN,
+                  f"{name}: one step's update against the {ref} recipe's, {len(cos)} leaves: "
+                  f"median cosine {median:.4f}" + (f" >= {TOL_INT8_ATTN_UPDATE_COS_MEDIAN:g}"
+                                                   if held else " (printed, not held)")
+                  + f", least {cos[least]:.4f} ({least})")
+            result.setdefault(name, {})[f"update_cos_median_vs_{ref}"] = median
+    return result
+
+
+def zeroshot_phase(smi: str, device: str = "cuda") -> dict:
+    """The CLIP text tower's path and what rides it, at full width (the text
+    tower of vitb16_CLIP.yaml, the ViT-B/16 visual tower), the weights drawn
+    from numpy in the JAX layout: K1 with the causal bias against its plain
+    version and timed; the zero-shot classifier of cifar-100's 100 classes,
+    bf16 on the card against fp32 on the CPU; ``zeroshot_main``; the
+    contrastive methods through ``finetune_main`` (a round of 3 cells, the
+    text bank frozen); the linear probe and AdapterDrop on block 11 through
+    the cached-prefix sweep, which must choose and score as the same drive
+    with ``TRAIN.CACHE_FROZEN_PREFIX`` False; the logistic probe, card
+    against CPU; int8 attention.  ``device`` "cpu" rehearses the phase's code
+    with the constants shrunk (no kernel there: the launch checks fail)."""
+    from peft_vit_tpu_torch.data.prompts import template_map
+    from peft_vit_tpu_torch.models import build_image_classifier
+    from peft_vit_tpu_torch.peft import PEFTSpec, spec_from_config
+
+    t0 = time.perf_counter()
+    result = {}
+    if device == "cuda":
+        result["causal"] = causal_kernel_phase(len(template_map(ZS_DATASET)))
+    rng = np.random.RandomState(SEED + 53)
+    text = text_tree(rng)
+    result["text"] = text_features_check(text, smi, device)
+    cfg = zs_cfg({})
+    tree = method_tree(build_image_classifier(cfg, PEFTSpec(), ZS_CLASSES, device="cpu")[0], rng)
+    result["zeroshot"] = zeroshot_main_check(tree, text, smi, device)
+    for method in ("finetune_contrast", "linear_probe_contrast"):
+        cfg = zs_cfg({"PEFT.METHOD": method})
+        # the driver's own model (no channel BN, no head), its weights redrawn
+        model = build_image_classifier(cfg, spec_from_config(cfg), ZS_CLASSES, device="cpu")[0]
+        drawn = method_tree(model, rng)
+        del model
+        result[method] = drive(method, cfg, drawn, smi, device, len(ZS_LRS) * 3,
+                               lr_grid=ZS_LRS)
+    for method, over in (("linear", ZS_CACHED), ("adapterdrop", ZS_CACHED)):
+        cfg = zs_cfg({"PEFT.METHOD": method, **over})
+        model = build_image_classifier(cfg, spec_from_config(cfg), ZS_CLASSES,
+                                       use_bn=bool(cfg.TRAIN.CHANNEL_BN), device="cpu")[0]
+        drawn = method_tree(model, rng)
+        del model
+        cells = len(ZS_CACHED_LRS) * 3
+        cached = drive(f"{method} cached", cfg, drawn, smi, device, cells, lr_grid=ZS_CACHED_LRS)
+        whole = drive(f"{method} whole", zs_cfg({"PEFT.METHOD": method,
+                                                 "TRAIN.CACHE_FROZEN_PREFIX": False, **over}),
+                      drawn, smi, device, cells, lr_grid=ZS_CACHED_LRS)
+        check(cached["cut"] == (LAYERS if method == "linear" else LAYERS - 1)
+              and (cached["lr"], cached["wd"], cached["score"]) == (
+                  whole["lr"], whole["wd"], whole["score"]),
+              f"{method}: the cached-prefix sweep (prefix through block {cached['cut'] - 1}) "
+              f"chose lr {cached['lr']:g}, wd {cached['wd']:g}, score {cached['score']:.3f} == "
+              f"the whole-tower drive's lr {whole['lr']:g}, wd {whole['wd']:g}, score "
+              f"{whole['score']:.3f}; sweep {cached['sweep_s']:.2f} s against "
+              f"{whole['sweep_s']:.2f} s (host clock; {smi})")
+        result[f"{method} cached"], result[f"{method} whole"] = cached, whole
+    result["logistic"] = logistic_check(rng, smi, device)
+    result["int8_attention"] = int8_attention_check(smi, device)
+    print(f"zeroshot phase: {time.perf_counter() - t0:.1f} s (host clock; {smi})", flush=True)
+    return result
+
+
+
 def _device_breakdown(fn, reps: int, top: int = 6, host_top: int = 0):
     """Device time per call, the number of device launches (kernels and
     copies) per call and the kernels that take most of the time, from
@@ -3459,6 +4103,7 @@ def main() -> int:
     drv = driver_phase(smi)
     methods_phase(smi)
     tower = tower_phase(smi)
+    zs = zeroshot_phase(smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
@@ -3505,6 +4150,14 @@ def main() -> int:
         if key == "fwd":
             lines[-1]["eager_ms"] = row["eager_ms"]
             lines[-1]["long_n"] = kern["fwd_long"]
+            # the text tower's path: the zero-shot classifier of 100 classes, K1 once a
+            # text block and class, with the causal bias at (T, 8, 77, 64)
+            lines[-1]["launches_zeroshot"] = zs["text"]["launches"]
+            lines[-1]["causal"] = {k: zs["causal"][k] for k in (
+                "shape", "ms", "ms_without", "bound_ms", "bound_by", "plain_ms", "library_ms",
+                "max_abs_err", "max_abs_err_fp32")}
+            lines[-1]["causal"]["library_computes"] = (
+                "scaled_dot_product_attention forward with the (N, N) float mask")
         else:
             lines[-1]["library_computes"] = (
                 "dq, dk and dv in one scaled_dot_product_attention backward; beside it "

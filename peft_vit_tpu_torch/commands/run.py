@@ -11,15 +11,19 @@ driver trains as linear), every method whose trainable leaves are injected
 PEFT leaves (LoRA and its variants lora_fix_one, lora_moe, lora_adapter,
 lora_compacter and lora_drop_adapter, KAdaptation, the Houlsby adapter and
 AdapterDrop, Compacter, RPB, LePE, VPT and the transformer probe), whose
-cells draw every trainable leaf fresh, and the methods that train a subset
-of the pretrained tower (full, bitfit, layernorm, attention,
-first_attention, first_mlp), whose cells draw only the head fresh and start
-every other trainable leaf from its grafted fp32 value (the JAX driver's
-``fresh_mask``).  The contrastive methods and intrinsic dimension raise
-``NotImplementedError``, and so does the cached-prefix sweep the JAX driver
-takes when every trainable leaf sits past block 0 (``engine/cached.py``:
-AdapterDrop on its last blocks, the transformer probe, first_attention and
-first_mlp take it unless ``TRAIN.CACHE_FROZEN_PREFIX`` is False).
+cells draw every trainable leaf fresh, the methods that train a subset of
+the pretrained tower (full, bitfit, layernorm, attention, first_attention,
+first_mlp), whose cells draw only the head fresh and start every other
+trainable leaf from its grafted fp32 value (the JAX driver's
+``fresh_mask``), and the contrastive methods (finetune_contrast,
+linear_probe_contrast: the image tower against the frozen class-text bank
+of the CLIP text tower, a fresh ``logit_scale`` per cell, the
+HybridContrastive criterion).  ``TRAIN.INIT_HEAD_WITH_TEXT_ENCODER`` starts
+the head from the zero-shot text classifier.  When every trainable leaf
+sits past block 0 (the linear probe, AdapterDrop on its last blocks, the
+transformer probe, first_attention, first_mlp) the sweep takes the cached
+prefix (``engine.cached``) unless ``TRAIN.CACHE_FROZEN_PREFIX`` is False.
+Intrinsic dimension raises ``NotImplementedError``.
 
     python -m peft_vit_tpu_torch.commands.run --ds DS.yaml --model MODEL.yaml [KEY VALUE ...]
 """
@@ -32,13 +36,20 @@ import math
 import time
 from typing import Callable, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from ..data import construct_splits, merge_trainval
+from ..data.prompts import class_map
 from ..engine import SweepEngine, bce_per_example, ce_per_example, make_apply_fn, make_array_task
+from ..engine import cached as cached_prefix
+from ..engine.contrastive import hybrid_contrastive_per_example
 from ..engine.metrics import metric_for_dataset
 from ..engine.sweep import CellKey
+from ..engine.zeroshot import extract_text_features
 from ..models import build_image_classifier, cast_frozen_, load_jax_variables
+from ..models.classifier import ContrastiveClassifier
+from ..models.factory import init_head_from_text
 from ..ops import int8 as int8_ops
 from ..peft import build_mask, count_trainable, describe_mask, spec_from_config, split_params
 from ..utils import resolve_device
@@ -58,29 +69,10 @@ INJECTED_METHODS = (
 #: the methods that train a subset of the pretrained tower: a cell resets it
 #: to the grafted values and draws only the head fresh
 TOWER_METHODS = ("full", "bitfit", "layernorm", "attention", "first_attention", "first_mlp")
-PORTED_METHODS = ("linear", "none", *INJECTED_METHODS, *TOWER_METHODS)
+CONTRASTIVE_METHODS = ("finetune_contrast", "linear_probe_contrast")
+PORTED_METHODS = ("linear", "none", *INJECTED_METHODS, *TOWER_METHODS, *CONTRASTIVE_METHODS)
 # the ROADMAP §1 item that queues each method still refused
-_QUEUED = {
-    # the contrastive methods need the text tower
-    "finetune_contrast": "probes and zero-shot",
-    "linear_probe_contrast": "probes and zero-shot",
-    "intrinsic": "intrinsic dimension",
-}
-
-
-def _first_trainable_layer(mask: Mapping[str, bool], num_layers: int) -> int:
-    """Depth of the first backbone block with a trainable leaf: 0 when
-    anything at or before block 0 trains, ``num_layers`` when only the head
-    does (``engine/cached.py::first_trainable_layer``)."""
-    cut = num_layers
-    for name, trainable in mask.items():
-        if not trainable or name.startswith("classifier."):
-            continue
-        parts = name.split(".")
-        if parts[:2] != ["backbone", "blocks"]:
-            return 0
-        cut = min(cut, int(parts[2]))
-    return cut
+_QUEUED = {"intrinsic": "intrinsic dimension"}
 
 
 def _fresh_leaf(name: str, shape, generator: torch.Generator) -> torch.Tensor:
@@ -114,6 +106,8 @@ def _fresh_leaf(name: str, shape, generator: torch.Generator) -> torch.Tensor:
     def uniform(limit: float) -> torch.Tensor:
         return torch.nn.init.uniform_(t, -limit, limit, generator=generator)
 
+    if leaf == "logit_scale":  # the contrastive classifier's fresh scale
+        return t.fill_(1.0)
     if leaf in ("bias", "b", "phmb", "relative_position_bias_table") or last.endswith(
             "_adapter2"):
         return t
@@ -142,12 +136,14 @@ def finetune_main(
     *,
     device=None,
     variables: Optional[Mapping] = None,
+    text_variables: Optional[Mapping] = None,
     init_trainables: Optional[Callable[[CellKey], Mapping[str, torch.Tensor]]] = None,
 ) -> float:
     """Run the few-shot protocol of ``cfg``; returns the test score.
 
     ``device``: None is the card.  ``variables`` (a JAX-layout variables
-    tree, ``models.load_jax_variables``) replaces the built weights, and
+    tree of the classifier, ``models.load_jax_variables``) and
+    ``text_variables`` (of the text tower) replace the built weights, and
     ``init_trainables`` (``CellKey -> {name: tensor}``) replaces the cells'
     draws: the seam through which a test hands the driver the JAX package's
     weights and initial trainables.  Nothing on the normal path sets them."""
@@ -164,10 +160,40 @@ def finetune_main(
     splits = construct_splits(cfg)
     num_classes = splits.num_classes
     criterion = bce_per_example if splits.multilabel else ce_per_example
-    model, _, _ = build_image_classifier(
-        cfg, spec, num_classes, use_bn=bool(cfg.TRAIN.CHANNEL_BN), device=device)
+    contrastive = spec.method in CONTRASTIVE_METHODS
+    # channel BN in every few-shot classifier but the contrastive one
+    # (linear_classifier_contrast.py:62-98 has none)
+    model, _, encode_text = build_image_classifier(
+        cfg, spec, num_classes, use_bn=bool(cfg.TRAIN.CHANNEL_BN) and not contrastive,
+        device=device)
     if variables is not None:
         load_jax_variables(model, variables)
+    if text_variables is not None and encode_text is not None:
+        load_jax_variables(encode_text.module, text_variables)
+    aux = model.aux
+
+    if contrastive:
+        # the linear head gives way to the frozen class-text bank and a fresh
+        # logit_scale (linear_classifier_contrast.py Classifier)
+        if encode_text is None:
+            raise ValueError(f"--method {spec.method} needs a CLIP model (text tower)")
+        classnames = class_map(cfg.DATASET.DATASET, cfg.DATASET.ROOT) or [
+            f"class {i}" for i in range(num_classes)]
+        text_feats = extract_text_features(encode_text, cfg, classnames=classnames)
+        model = ContrastiveClassifier(model.backbone, text_feats, device=device)
+        criterion = hybrid_contrastive_per_example
+    elif bool(cfg.TRAIN.INIT_HEAD_WITH_TEXT_ENCODER) and encode_text is not None:
+        text_feats = extract_text_features(encode_text, cfg).cpu().numpy()
+        if "visual_proj" in aux:
+            # MERGE_ENCODER_AND_HEAD_PROJ: the head absorbs proj (x) the text classifier
+            text_feats = text_feats @ aux["visual_proj"].T
+        scale = 1.0
+        if bool(cfg.TRAIN.INIT_HEAD_WITH_LOGIT_SCALE):
+            # the checkpoint's trained logit scale (full_model_finetune.py:133-134);
+            # 2.659 = ln(100), CLIP's converged value, when the checkpoint has none
+            scale = float(np.exp(aux.get("logit_scale", 2.659)))
+        init_head_from_text(model, text_feats, scale)
+        logger.info("=> head initialized from text encoder")
 
     # the tower's depth, the probe's extra block not counted (the JAX driver's
     # model.backbone.layers): transformer_probe's mask is blocks_<num_layers>
@@ -182,21 +208,14 @@ def finetune_main(
     )
     logger.info("trainable:\n%s", describe_mask(model, mask))
     # the leaves a cell draws fresh: every trainable one of an injected
-    # method; only the head (train_head) of the others, whose tower leaves
-    # start from the grafted values (adapter_tuning_clip.py:231 re-loads the
-    # pretrained backbone per cell)
-    fresh_mask = mask if spec.method not in TOWER_METHODS else build_mask(
+    # method; only the head (train_head) and the logit scale of the others,
+    # whose tower leaves start from the grafted values
+    # (adapter_tuning_clip.py:231 re-loads the pretrained backbone per cell)
+    fresh_mask = mask if spec.method in INJECTED_METHODS else build_mask(
         model, "linear", num_layers=num_layers, train_head=bool(cfg.PEFT.TRAIN_HEAD),
         extra_regex="logit_scale")
     n_trainable = count_trainable(model, mask)
     log_trainable_params(n_trainable)
-    if bool(cfg.TRAIN.get("CACHE_FROZEN_PREFIX", True)) and _first_trainable_layer(
-            mask, num_layers) > 0:
-        raise NotImplementedError(
-            "the cached-prefix sweep (every trainable leaf past block 0) is not ported to "
-            "peft_vit_tpu_torch yet (ROADMAP §1, probes and zero-shot); set "
-            "TRAIN.CACHE_FROZEN_PREFIX False to train through the whole tower"
-        )
     trainable0, frozen = split_params(model, mask)
     # the grafted values of the trainable leaves, fp32, taken before anything
     # casts the tower (the JAX driver resets from its fp32 params)
@@ -212,6 +231,13 @@ def finetune_main(
         )
     cast_frozen_(model)
 
+    # the cached-prefix sweep: the frozen blocks before the first trainable
+    # one run once per image, and the cells train the rest
+    apply_fn = make_apply_fn(model)
+    cached = cached_prefix.maybe_cache_prefix(cfg, model, mask, num_layers, splits, qkernel)
+    if cached is not None:
+        apply_fn, splits, _ = cached
+
     if init_trainables is None:
         def init_trainables(key: CellKey) -> Dict[str, torch.Tensor]:
             gen = key.generator()
@@ -222,7 +248,7 @@ def finetune_main(
                    if k.rsplit(".", 1)[-1] in ("bn_mean", "bn_var")} or None
     metric_name = cfg.TEST.METRIC or metric_for_dataset(cfg.DATASET.DATASET)
     engine = SweepEngine(
-        cfg, make_apply_fn(model), init_trainables, {}, criterion,
+        cfg, apply_fn, init_trainables, {}, criterion,
         metric=metric_name, bn_template=bn_template, qkernel=qkernel,
     )
 

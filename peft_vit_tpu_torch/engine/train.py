@@ -66,8 +66,9 @@ ApplyFn = Callable[[Mapping[str, torch.Tensor], torch.Tensor, bool], torch.Tenso
 #: absmax: the PEFT deltas feed the residual stream, so the layers' input
 #: ranges drift between recalibrations
 INT8_CALIB_MARGIN = 1.5
-# the Int8Dense buffers a quantized tree or a set of scales substitutes
-_INT8_STATE = (".w_i8", ".s_w", ".wt_i8", ".s_wt", ".s_x")
+# the Int8Dense buffers a quantized tree or a set of scales substitutes, and
+# the attention's static scales (int8 attention scores)
+_INT8_STATE = (".w_i8", ".s_w", ".wt_i8", ".s_wt", ".s_x", ".s_q", ".s_k", ".s_v")
 
 
 def ce_per_example(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -173,8 +174,9 @@ def calibrate(model: nn.Module, apply_fn: ApplyFn, variables: Mapping[str, torch
               x: torch.Tensor, margin: float = INT8_CALIB_MARGIN) -> Tensors:
     """The static activation scales of ``model``'s ``Int8Dense`` layers from
     one train-mode forward of the batch ``x`` in calibration mode:
-    ``{<module>.s_x: max(amax * margin / 127, 1e-8)}``, ready to merge into a
-    step's ``frozen``.  As in the JAX trainer, the forward runs on the
+    ``{<module>.s_x: max(amax * margin / 127, 1e-8)}``, and with int8
+    attention each attention's ``<module>.s_q`` / ``s_k`` / ``s_v`` likewise,
+    ready to merge into a step's ``frozen``.  As in the JAX trainer, the forward runs on the
     parameters alone, each weight quantized per call: a quantized tree or
     earlier scales in ``variables`` are left out.  Train-mode BN runs on
     copies of the statistics, so its update is discarded."""

@@ -76,5 +76,29 @@ class ImageClassifier(nn.Module):
             normalize_input=normalize_visual, dtype=dtype, device=device,
         )
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        return self.classifier(self.backbone(images))
+    def forward(self, images: torch.Tensor, start_layer: int = 0) -> torch.Tensor:
+        """``start_layer`` > 0: ``images`` are the tokens after block
+        ``start_layer - 1`` (the cached-prefix sweep, ``engine.cached``)."""
+        return self.classifier(self.backbone(images, start_layer=start_layer))
+
+
+class ContrastiveClassifier(nn.Module):
+    """Image tower and a trainable logit scale against a frozen bank of
+    class-text features (counterpart of the JAX ``ContrastiveClassifier``;
+    the reference's linear_classifier_contrast.py Classifier): the text
+    tower is frozen, so the (C, D) L2-normalized class features are computed
+    once (``engine.zeroshot.extract_text_features``) and held here as a
+    buffer; the forward gives the (B, C) pair logits
+    ``exp(logit_scale) * feats @ text^T`` in fp32, ``logit_scale`` a fresh
+    scalar 1.0 in fp32."""
+
+    def __init__(self, backbone: nn.Module, text_features: torch.Tensor, device=None):
+        super().__init__()
+        self.backbone = backbone
+        self.register_buffer("text_features",
+                             torch.as_tensor(text_features, dtype=torch.float32, device=device))
+        self.logit_scale = nn.Parameter(torch.ones((), device=device))
+
+    def forward(self, images: torch.Tensor, start_layer: int = 0) -> torch.Tensor:
+        feats = self.backbone(images, start_layer=start_layer).to(torch.float32)
+        return torch.exp(self.logit_scale) * feats @ self.text_features.t()

@@ -23,10 +23,13 @@ stores it in: fp32 for every trainable leaf (and for every leaf before
 ``jax_path`` and ``params_to_jax`` are the inverse map, from this package's
 names and layouts back to the JAX package's.
 
-``load_torch_checkpoint``, ``infer_clip_shape``, ``clip_state_dict_to_tree``
-and ``visual_state_dict`` load an OpenAI CLIP checkpoint's visual tower
-(``MODEL.PRETRAINED``) through the JAX package's names, so that there is one
-mapping.
+``load_torch_checkpoint``, ``infer_clip_shape``, ``clip_state_dict_to_tree``,
+``visual_state_dict`` and ``text_state_dict`` load an OpenAI CLIP
+checkpoint's visual and text towers (``MODEL.PRETRAINED``) through the JAX
+package's names, so that there is one mapping.  The text tower's leaves keep
+their JAX names: ``token_embedding/embedding`` (the port's ``text.Embed``
+names its table ``embedding`` too), ``positional_embedding``, ``blocks_<i>``,
+``ln_final``, ``text_projection``.
 """
 
 from __future__ import annotations
@@ -173,16 +176,26 @@ def load_torch_checkpoint(path: str, allow_pickle: bool = False, model_key: str 
 
 
 def infer_clip_shape(sd: Mapping) -> Dict[str, int]:
-    """The visual tower's shape from an OpenAI CLIP state dict
+    """The towers' shapes from an OpenAI CLIP state dict
     (adapter_model.py:553-576): width from conv1, layer count from the
     resblock keys, patch size from conv1's kernel, image size from the
     positional embedding, embed dim from ``text_projection`` (or, in a
-    visual-only export, ``visual.proj``)."""
+    visual-only export, ``visual.proj``); the text tower's width from
+    ``ln_final``, its depth from the resblock keys, vocabulary and context
+    from its embeddings, heads width / 64 (all 0 without a text tower)."""
     conv1 = _np(sd["visual.conv1.weight"])
     layers = len({k.split(".")[3] for k in sd if k.startswith("visual.transformer.resblocks.")})
     grid = int(round((_np(sd["visual.positional_embedding"]).shape[0] - 1) ** 0.5))
     has_text = "text_projection" in sd
     embed = _np(sd["text_projection"] if has_text else sd["visual.proj"]).shape[1]
+    text = dict(vocab_size=0, context_length=0, text_width=0, text_layers=0)
+    if has_text:
+        text = dict(
+            vocab_size=int(_np(sd["token_embedding.weight"]).shape[0]),
+            context_length=int(_np(sd["positional_embedding"]).shape[0]),
+            text_width=int(_np(sd["ln_final.weight"]).shape[0]),
+            text_layers=len({k.split(".")[2] for k in sd if k.startswith("transformer.resblocks.")}),
+        )
     return dict(
         embed_dim=int(embed),
         image_size=int(grid * conv1.shape[-1]),
@@ -190,6 +203,8 @@ def infer_clip_shape(sd: Mapping) -> Dict[str, int]:
         vision_width=int(conv1.shape[0]),
         vision_layers=int(layers),
         vision_heads=max(int(conv1.shape[0] // 64), 1),
+        **text,
+        text_heads=max(text["text_width"] // 64, 1),
         has_text=has_text,
     )
 
@@ -233,8 +248,8 @@ def _convert_block(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
 
 def clip_state_dict_to_tree(sd: Mapping) -> Dict[str, np.ndarray]:
     """OpenAI CLIP state dict -> flat ``{path: array}`` in the JAX package's
-    naming, the visual tower only (``visual/...``, and ``logit_scale`` when
-    present)."""
+    naming: ``visual/...``, ``text/...`` when the checkpoint has a text
+    tower, and ``logit_scale`` when present."""
     info = infer_clip_shape(sd)
     flat = {
         "visual/conv1/kernel": _np(sd["visual.conv1.weight"]).transpose(2, 3, 1, 0),
@@ -249,22 +264,53 @@ def clip_state_dict_to_tree(sd: Mapping) -> Dict[str, np.ndarray]:
     flat["visual/ln_post/scale"] = _np(sd["visual.ln_post.weight"])
     flat["visual/ln_post/bias"] = _np(sd["visual.ln_post.bias"])
     flat["visual/proj"] = _np(sd["visual.proj"])
+    if info["has_text"]:
+        flat["text/token_embedding/embedding"] = _np(sd["token_embedding.weight"])
+        flat["text/positional_embedding"] = _np(sd["positional_embedding"])
+        for i in range(info["text_layers"]):
+            for k, v in _convert_block(sd, f"transformer.resblocks.{i}").items():
+                flat[f"text/blocks_{i}/{k}"] = v
+        flat["text/ln_final/scale"] = _np(sd["ln_final.weight"])
+        flat["text/ln_final/bias"] = _np(sd["ln_final.bias"])
+        flat["text/text_projection"] = _np(sd["text_projection"])
     if "logit_scale" in sd:
         flat["logit_scale"] = _np(sd["logit_scale"]).reshape(())
     return flat
+
+
+def _subtree_state_dict(flat: Mapping[str, np.ndarray], source: str,
+                        target: str) -> Dict[str, torch.Tensor]:
+    """The ``<source>/...`` leaves of a flat JAX-named dict ('': every leaf)
+    under the module path ``target`` ('' for the root), through
+    ``params_from_jax``'s map."""
+    tree: dict = {}
+    for path, arr in flat.items():
+        if source and not path.startswith(source + "/"):
+            continue
+        rest = path[len(source):].lstrip("/")
+        *modules, leaf = "/".join(p for p in (target, rest) if p).split("/")
+        node = tree
+        for m in modules:
+            node = node.setdefault(m, {})
+        node[leaf] = arr
+    return params_from_jax({"params": tree})
 
 
 def visual_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """The ``visual/...`` leaves of ``clip_state_dict_to_tree`` as this
     package's ``state_dict`` entries of the classifier's ``backbone``,
     through the same name map as ``params_from_jax``."""
-    tree: dict = {}
-    for path, arr in flat.items():
-        if not path.startswith("visual/"):
-            continue
-        *modules, leaf = ("backbone/" + path[len("visual/"):]).split("/")
-        node = tree
-        for m in modules:
-            node = node.setdefault(m, {})
-        node[leaf] = arr
-    return params_from_jax({"params": tree})
+    return _subtree_state_dict(flat, "visual", "backbone")
+
+
+def text_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The ``text/...`` leaves of ``clip_state_dict_to_tree`` as the
+    ``state_dict`` of a ``models.text.TextTransformer`` (the JAX builder's
+    graft of the text tower)."""
+    return _subtree_state_dict(flat, "text", "")
+
+
+def clip_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Every leaf of ``clip_state_dict_to_tree`` as the ``state_dict`` of a
+    ``models.clip.CLIP`` (``visual``, ``text``, ``logit_scale``)."""
+    return _subtree_state_dict(flat, "", "")

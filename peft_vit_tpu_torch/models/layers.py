@@ -23,11 +23,15 @@ PEFT hook of the JAX package:
 * the int8 frozen tower: ``Int8Dense`` in place of ``Dense`` for the GEMMs
   named in ``int8_targets`` (``int8``: no-grad forwards; ``int8_train``:
   training forwards with a full-precision or int8-dx backward), with
-  ``collect_activation_stats`` for the static activation scales.
+  ``collect_activation_stats`` for the static activation scales;
+* int8 attention scores (``int8_attn``, ``int8_attn_pv``:
+  ``ops.attention.int8_attention``) on the calibrated scales ``s_q``,
+  ``s_k``, ``s_v`` of each attention, whose absmax the calibration records;
+* the causal mask of the CLIP text tower (``causal``): an (H, N, N) bias of
+  -1e30 above the diagonal in the compute dtype, added to any other bias.
 
-Int8 attention (``int8_attn``, ``int8_attn_pv``) raises
-``NotImplementedError`` (``require_ported``).  The hooks' own arithmetic is
-plain PyTorch, as it is XLA outside any Pallas kernel in the JAX package.
+The hooks' own arithmetic is plain PyTorch, as it is XLA outside any Pallas
+kernel in the JAX package.
 
 Numerics follow the JAX modules: every weight is stored in fp32 (``Dense``'s
 ``param_dtype``) and cast to the module's compute ``dtype`` at use (flax
@@ -51,7 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import int8 as int8_ops
-from ..ops.attention import multi_head_attention
+from ..ops.attention import int8_attention, multi_head_attention
 from ..ops.int8 import INT8_TARGET_MODULES
 from ..ops.phm import factorized_phm_weight, phm_linear
 from ..peft.spec import PEFTSpec
@@ -77,24 +81,13 @@ ACT2FN: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
-def require_ported(spec: PEFTSpec, int8_attn: bool = False,
-                   int8_attn_pv: bool = False) -> None:
-    """Raise ``NotImplementedError`` for a hook of ``spec``, or an int8
-    attention flag, that the port lacks, naming its ROADMAP item."""
-    unported = {
-        "int8_attn (int8 QK^T on calibrated q/k/v scales) (ROADMAP §1, int8_attention)":
-            int8_attn,
-        "int8_attn_pv (int8 P@V) (ROADMAP §1, int8_attention)": int8_attn_pv,
-    }
+def check_spec(spec: PEFTSpec) -> None:
+    """Raise ``ValueError`` for an attention hook of ``spec`` that neither
+    package knows."""
     if spec.attn_delta not in ("none", "lora", "kron"):
         raise ValueError(f"unknown attn_delta {spec.attn_delta!r}")
     if spec.attn_bias not in ("none", "rpb"):
         raise ValueError(f"unknown attn_bias {spec.attn_bias!r}")
-    missing = [name for name, on in unported.items() if on]
-    if missing:
-        raise NotImplementedError(
-            f"hooks not ported to peft_vit_tpu_torch yet: {', '.join(missing)}"
-        )
 
 
 def _cell(t: Optional[torch.Tensor], dim: Optional[int], i: int) -> Optional[torch.Tensor]:
@@ -237,12 +230,16 @@ def _call(dense: Dense, x: torch.Tensor, int8: bool, int8_bwd: bool) -> torch.Te
 def collect_activation_stats(model: nn.Module) -> Iterator[Dict[str, torch.Tensor]]:
     """Calibration mode: within, every ``Int8Dense`` of ``model`` that runs
     with ``train_bwd`` max-reduces the absmax of its input (taken in fp32)
-    into the yielded dict under ``<module name>.amax``, over however many
-    forwards are run.  Feed the dict to ``ops.int8.activation_scales_from_stats``."""
+    into the yielded dict under ``<module name>.amax``, and every
+    ``MultiHeadAttention`` with ``int8_attn`` the absmax of its per-head q,
+    k and v under ``<module name>.amax_q`` / ``amax_k`` / ``amax_v`` (the JAX
+    ``qstats`` sow), over however many forwards are run.  Feed the dict to
+    ``ops.int8.activation_scales_from_stats``."""
     stats: Dict[str, torch.Tensor] = {}
-    modules = [(name, m) for name, m in model.named_modules() if isinstance(m, Int8Dense)]
+    modules = [(name, m) for name, m in model.named_modules()
+               if isinstance(m, Int8Dense) or getattr(m, "int8_attn", False)]
     for name, m in modules:
-        m._stats = (stats, f"{name}.amax")
+        m._stats = (stats, f"{name}.amax" if isinstance(m, Int8Dense) else name)
     try:
         yield stats
     finally:
@@ -529,24 +526,40 @@ class MultiHeadAttention(nn.Module):
       (H, N, N) attention bias of the patch tokens, zero on the ``n_prefix``
       rows and columns.  g is ``spec.rpb_ndim``, or ``grid_size`` when that
       is -1; another g than the grid raises, as in the JAX package.
+    * ``causal`` (the CLIP text tower): the (H, N, N) bias of -1e30 above
+      the diagonal, built in fp32 and cast to the compute dtype, added to
+      any other bias.
     * ``int8=True`` builds ``in_proj`` / ``out_proj`` (those named in
       ``int8_targets``) as ``Int8Dense``; the PEFT deltas stay dense.
+    * ``int8_attn`` (``TPU.INT8_ATTN``): with no bias and the calibrated
+      scales present (the non-persistent buffers ``s_q``, ``s_k``, ``s_v``,
+      None until a step substitutes them by name), the attention is
+      ``ops.attention.int8_attention``, with ``int8_attn_pv`` its int8 P V
+      too; otherwise the attention below.  Inside
+      ``collect_activation_stats`` the forward records the absmax of the
+      per-head q, k and v.
     * ``softmax_fp32`` (False: ``TPU.BF16_SOFTMAX``) and ``attn_batch_chunk``
       (``TPU.ATTN_BATCH_CHUNK``) go to ``ops.attention.multi_head_attention``.
     """
 
     def __init__(self, width: int, heads: int, spec: PEFTSpec = PEFTSpec(), grid_size: int = 0,
-                 n_prefix: int = 1, int8: bool = False,
+                 n_prefix: int = 1, causal: bool = False, int8: bool = False,
                  int8_attn: bool = False, int8_attn_pv: bool = False,
                  int8_targets: Sequence[str] = INT8_TARGET_MODULES,
                  softmax_fp32: bool = True, attn_batch_chunk: int = 0,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        require_ported(spec, int8_attn, int8_attn_pv)
+        check_spec(spec)
         self.heads = heads
         self.spec = spec
         self.grid_size = int(grid_size)
         self.n_prefix = int(n_prefix)
+        self.causal = bool(causal)
+        self.int8_attn = bool(int8_attn)
+        self.int8_attn_pv = bool(int8_attn_pv)
+        for name in ("s_q", "s_k", "s_v"):
+            self.register_buffer(name, None, persistent=False)
+        self._stats = None  # (store, module name) inside collect_activation_stats
         self.compute_dtype = dtype
         self.softmax_fp32 = bool(softmax_fp32)
         self.attn_batch_chunk = int(attn_batch_chunk)
@@ -685,10 +698,24 @@ class MultiHeadAttention(nn.Module):
             heads_of = {t: self.qkv_adapter(y) for t, y in heads_of.items()}
 
         bias = self._rpb_bias() if spec.attn_bias == "rpb" else None
-        out = multi_head_attention(
-            *(heads_of[t].contiguous() for t in "qkv"), bias=bias, scale=attn_scale,
-            softmax_fp32=self.softmax_fp32, batch_chunk=self.attn_batch_chunk,
-        )
+        if self.causal:
+            causal = torch.full((n, n), -1e30, device=x.device).triu(1).to(self.compute_dtype)
+            bias = causal.expand(h, n, n).contiguous() if bias is None else bias + causal
+        qh, kh, vh = (heads_of[t].contiguous() for t in "qkv")
+        if self.int8_attn and self._stats is not None:
+            store, name = self._stats
+            for t, y in (("q", qh), ("k", kh), ("v", vh)):
+                amax = y.detach().to(torch.float32).abs().max()
+                key = f"{name}.amax_{t}"
+                store[key] = amax if key not in store else torch.maximum(store[key], amax)
+        if self.int8_attn and bias is None and self.s_q is not None:
+            out = int8_attention(qh, kh, vh, self.s_q, self.s_k, self.s_v, attn_scale,
+                                 self.softmax_fp32, self.int8_attn_pv)
+        else:
+            out = multi_head_attention(
+                qh, kh, vh, bias=bias, scale=attn_scale, softmax_fp32=self.softmax_fp32,
+                batch_chunk=self.attn_batch_chunk,
+            )
         out = out.transpose(1, 2).reshape(b, n, d)
         if spec.lepe:
             g, p = self.grid_size, self.n_prefix
@@ -721,7 +748,8 @@ class Block(nn.Module):
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0, act: str = "gelu",
                  spec: PEFTSpec = PEFTSpec(), layer_idx: int = 0, grid_size: int = 0,
-                 n_prefix: int = 1, drop_path: float = 0.0, ln_fp32: bool = True,
+                 n_prefix: int = 1, causal: bool = False, drop_path: float = 0.0,
+                 ln_fp32: bool = True,
                  int8: bool = False, int8_train: bool = False, int8_attn: bool = False,
                  int8_attn_pv: bool = False,
                  int8_targets: Sequence[str] = INT8_TARGET_MODULES,
@@ -736,7 +764,8 @@ class Block(nn.Module):
         any_int8 = self.int8 or self.int8_train
         self.ln_1 = LayerNorm(width, compute_fp32=ln_fp32, device=device)
         self.attn = MultiHeadAttention(
-            width, heads, spec=spec, grid_size=grid_size, n_prefix=n_prefix, int8=any_int8,
+            width, heads, spec=spec, grid_size=grid_size, n_prefix=n_prefix, causal=causal,
+            int8=any_int8,
             int8_attn=int8_attn, int8_attn_pv=int8_attn_pv, int8_targets=int8_targets,
             softmax_fp32=softmax_fp32, attn_batch_chunk=attn_batch_chunk, dtype=dtype,
             device=device)

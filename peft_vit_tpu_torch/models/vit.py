@@ -16,9 +16,12 @@ Beyond the blocks' own hooks (``layers``):
   block i - 1 overwrite the prompt rows before each block i of 1 ... L - 1;
 * ``spec.extra_block`` (the transformer probe): an (L + 1)-th ``Block``,
   ``blocks.<L>`` (``blocks_<L>`` in the JAX tree), after the L blocks of
-  ``layers``.
+  ``layers``;
+* ``int8_attn`` / ``int8_attn_pv``: every block's int8 attention scores;
+* ``start_layer`` / ``stop_layer``: the tower cut at a block, for the
+  cached-prefix sweep (``engine.cached``).
 
-The timm style and int8 attention are not ported yet.
+The timm style is not ported yet.
 """
 
 from __future__ import annotations
@@ -184,21 +187,34 @@ class VisionTransformer(nn.Module):
         p = prompts.to(self.dtype).expand(x.shape[0], -1, -1)
         return torch.cat([x[:, :1], p, x[:, 1 + (self.num_prompts if replace else 0):]], dim=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) images -> (B, num_features) pooled features."""
-        b = x.shape[0]
+    def forward(self, x: torch.Tensor, start_layer: int = 0,
+                stop_layer: Optional[int] = None) -> torch.Tensor:
+        """(B, H, W, 3) images -> (B, num_features) pooled features.
+
+        ``start_layer`` > 0: ``x`` is the (B, N, width) token sequence after
+        block ``start_layer - 1`` (the cached-prefix sweep: the frozen
+        prefix computed once, cast to the compute dtype here), and the
+        forward resumes at that block.  ``stop_layer``: the tokens after block
+        ``stop_layer - 1``, without the head."""
         dt = self.dtype
-        x = self.conv1(x)
-        cls = self.class_embedding.to(dt).expand(b, 1, -1)
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
-        if self.num_prompts > 0:
-            x = self._prompts(x, self.prompt_embeddings, replace=False)
-        x = self.ln_pre(x)
+        if start_layer > 0:
+            x = x.to(dt)
+        else:
+            b = x.shape[0]
+            x = self.conv1(x)
+            cls = self.class_embedding.to(dt).expand(b, 1, -1)
+            x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
+            if self.num_prompts > 0:
+                x = self._prompts(x, self.prompt_embeddings, replace=False)
+            x = self.ln_pre(x)
         deep = getattr(self, "deep_prompt_embeddings", None)
-        for i, block in enumerate(self.blocks):
+        end = len(self.blocks) if stop_layer is None else stop_layer
+        for i in range(start_layer, end):
             if deep is not None and 0 < i < self.layers:
                 x = self._prompts(x, deep[i - 1], replace=True)
-            x = block(x)
+            x = self.blocks[i](x)
+        if stop_layer is not None:
+            return x
         pooled = self.ln_post(x[:, 0, :])
         if self.proj is not None:
             pooled = pooled @ self.proj.to(dt)

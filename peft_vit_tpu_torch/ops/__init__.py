@@ -12,6 +12,8 @@ from .attention import (
     fused_short_attention,
     fused_short_attention_bwd,
     fused_short_attention_fwd,
+    int8_attention,
+    int8_attention_scores,
     multi_head_attention,
 )
 from .int8 import (
@@ -64,6 +66,8 @@ __all__ = [
     "fused_short_attention",
     "fused_short_attention_bwd",
     "fused_short_attention_fwd",
+    "int8_attention",
+    "int8_attention_scores",
     "int8_gemm_dynamic",
     "int8_gemm_static",
     "int8_matmul",

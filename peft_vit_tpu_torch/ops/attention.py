@@ -37,6 +37,12 @@ also takes (B, H, N, N).
   into ds before rounding it.
 * ``fused_short_attention`` — their ``torch.autograd.Function``, as the JAX
   ``custom_vjp`` around the fused pair.
+* ``int8_attention`` — the score product on int8 codes (``TPU.INT8_ATTN``,
+  with ``pv`` also P V: ``TPU.INT8_ATTN_PV``), the counterpart of the JAX
+  ``int8_attention``: XLA math there, plain PyTorch here (the exact int32
+  scores as an fp32 product of the codes, ``int8_attention_scores``), with
+  the flash backward behind it on the card (the forward kernel recomputes o
+  and lse, then the dq and dk/dv kernels).
 * ``multi_head_attention`` — what the model calls.  ``use_fused=True`` with
   no bias and N <= 1024 takes ``fused_short_attention`` on the card and on
   the CPU (the JAX dispatcher's rule; the CPU runs the plain versions, as
@@ -780,6 +786,129 @@ def fused_short_attention(
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _FusedShortAttention.apply(q, k, v, float(scale), _needs_grad(q, k, v))[0]
+
+
+# ---------------------------------------------------------------------------
+# int8 attention scores (TPU.INT8_ATTN): XLA math in the JAX package, plain
+# PyTorch here; its backward is the flash backward
+
+
+def _codes_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of int8 codes, exact: an fp32 product of the codes as fp32.
+    Every code fits TF32's mantissa, every product (<= 127^2) and partial sum
+    of the attention's contractions (D = 64: 64 x 127^2 = 1,032,256; N = 197
+    for P V: 3,177,413) is an integer below 2^24, so cuBLAS, with TF32 on or
+    off, and the CPU give the int32 sum of JAX's ``dot_general(...,
+    preferred_element_type=int32)`` exactly.  (A bf16 product would round
+    its output.)  Returned as that sum in fp32."""
+    if a.shape[-1] * 127 * 127 >= 2**24:
+        raise ValueError(f"a contraction of {a.shape[-1]} int8 codes may not be exact in fp32")
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+def int8_attention_scores(q: torch.Tensor, k: torch.Tensor, s_q: torch.Tensor,
+                          s_k: torch.Tensor) -> torch.Tensor:
+    """The int32 scores ``quantize_static(q, s_q) . quantize_static(k, s_k)^T``
+    (B, H, N, M), exact, as fp32 integers."""
+    from .int8 import quantize_static
+
+    return _codes_dot(quantize_static(q, s_q), quantize_static(k, s_k).transpose(-1, -2))
+
+
+def _int8_attention_fwd_impl(q, k, v, s_q, s_k, s_v, scale: float, pv: bool) -> torch.Tensor:
+    """The JAX ``_int8_attention_fwd_impl`` step by step: the exact int32
+    scores rescaled by ``(s_q * s_k) * scale`` in fp32, an fp32 softmax, and
+    P V in the compute dtype or, with ``pv``, in int8 (P at the exact scale
+    1/127, v at ``s_v``).  The scales are fp32 scalars, or tensors that
+    broadcast against (B, 1, 1, 1) (a round's per-cell scales, folded)."""
+    from .int8 import _div, quantize_static
+
+    s = int8_attention_scores(q, k, s_q, s_k)
+    p = torch.softmax(s * (s_q * s_k * scale), dim=-1)
+    if not pv:
+        return torch.matmul(p.to(v.dtype), v).to(q.dtype)
+    pi = torch.round(p * 127.0).to(torch.int8)
+    o = _codes_dot(pi, quantize_static(v, s_v))
+    return (o * _div(s_v, 127.0)).to(q.dtype)
+
+
+def _fold_scale(s: torch.Tensor, dim: Optional[int], cells: int, b: int) -> torch.Tensor:
+    """A scale as a batching rule's folded batch of ``cells`` x ``b`` reads
+    it: shared, or one per cell repeated over its batch elements and shaped
+    to broadcast against (cells b, H, N, D)."""
+    if dim is None:
+        return s
+    return s.movedim(dim, 0).reshape(cells).repeat_interleave(b).reshape(-1, 1, 1, 1)
+
+
+class _Int8Attention(torch.autograd.Function):
+    """The int8 forward (``_int8_attention_fwd_impl``) with the VJP of the
+    plain attention on the saved q, k, v behind it, as the JAX
+    ``custom_vjp``: on the card the flash backward (the forward kernel
+    recomputes o and lse, then the dq kernel with delta and the dk/dv
+    kernel), on the CPU the kernels' plain versions, or autograd of the
+    bf16-softmax reference for ``softmax_fp32=False``.  The scales get no
+    gradient (JAX's zero cotangents).  Under ``torch.func.vmap`` the cell
+    axis folds into the batch and per-cell scales into per-row ones, so a
+    round launches each backward kernel once."""
+
+    @staticmethod
+    def forward(q, k, v, s_q, s_k, s_v, scale, softmax_fp32, pv):
+        return _int8_attention_fwd_impl(q, k, v, s_q, s_k, s_v, scale, pv)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, _, _, _, scale, softmax_fp32, _ = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.softmax_fp32 = scale, softmax_fp32
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        g = g.contiguous()
+        if not ctx.softmax_fp32:  # the CPU only: the card refused it at the forward
+            with torch.enable_grad():
+                qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+                out = attention_reference(*qkv, None, ctx.scale, False)
+                dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        else:
+            o, lse = flash_attention_fwd(q, k, v, None, ctx.scale, return_lse=True)
+            dq, delta = flash_attention_bwd_dq(q, k, v, g, lse, o, ctx.scale)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, ctx.scale)
+        return dq, dk, dv, None, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, s_q, s_k, s_v, scale, softmax_fp32, pv):
+        cells = info.batch_size
+        q, k, v = _fold_cells(cells, in_dims[:3], (q, k, v))
+        s_q, s_k, s_v = (_fold_scale(s, d, cells, q.shape[0] // cells)
+                         for s, d in zip((s_q, s_k, s_v), in_dims[3:6]))
+        out = _Int8Attention.apply(q, k, v, s_q, s_k, s_v, scale, softmax_fp32, pv)
+        return out.unflatten(0, (cells, -1)), 0
+
+
+def int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, s_q: torch.Tensor,
+                   s_k: torch.Tensor, s_v: torch.Tensor, scale: float,
+                   softmax_fp32: bool = True, pv: bool = False) -> torch.Tensor:
+    """Attention with the score product on int8 codes (``TPU.INT8_ATTN``),
+    the counterpart of the JAX ``int8_attention``.
+
+    q, k, v: (B, H, N, D); s_q, s_k, s_v: the calibrated fp32 scales
+    (``ops.int8.activation_scales_from_stats``); scale: the score scale.
+    The forward quantizes q and k at their static scales and takes the
+    exact int32 scores (``int8_attention_scores``), softmaxes them in fp32
+    whatever ``softmax_fp32`` says, and takes P V in the compute dtype or,
+    with ``pv`` (``TPU.INT8_ATTN_PV``), on int8 codes.  It is plain PyTorch
+    on every device, as XLA math in the JAX package.  The backward is that
+    of the plain attention on the saved q, k, v, honouring ``softmax_fp32``;
+    on the card it launches the flash backward (``flash_attention_fwd`` for
+    o and lse, then ``flash_attention_bwd_dq`` and ``_dkv``), which keeps
+    an fp32 softmax, so ``softmax_fp32=False`` raises there
+    (``check_softmax_fp32``)."""
+    check_softmax_fp32(q.device.type, softmax_fp32)
+    _check_operands(q, k, v, None)
+    return _Int8Attention.apply(q, k, v, s_q, s_k, s_v, float(scale), bool(softmax_fp32),
+                                bool(pv))
 
 
 def takes_fused(use_fused: Optional[bool], bias: Optional[torch.Tensor], n: int) -> bool:

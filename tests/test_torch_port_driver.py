@@ -9,6 +9,7 @@ trainables (the JAX ones, handed to the port through ``finetune_main``'s
 are used."""
 
 import dataclasses
+import inspect
 import json
 import math
 from pathlib import Path
@@ -316,15 +317,38 @@ def test_build_image_classifier_loads_a_clip_checkpoint_as_jax_does(tmp_path):
 @pytest.mark.parametrize("key,value,match", [
     ("TPU.SCAN_LAYERS", True, "ROADMAP §1, the rest"),
     ("TPU.SEQUENCE_PARALLEL", True, "ROADMAP §1, parallelism"),
-    ("TPU.INT8_ATTN", True, "ROADMAP §1, int8_attention"),
     ("MODEL.NAME", "swin_tiny", "ROADMAP §1, the backbone zoo"),
-    ("TRAIN.INIT_HEAD_WITH_TEXT_ENCODER", True, "ROADMAP §1, probes and zero-shot"),
 ])
 def test_build_image_classifier_refuses_what_is_not_ported(key, value, match):
     cfg = tiny_cfg(port_config, **{key: value})
     with pytest.raises(NotImplementedError, match=match):
         port_factory.build_image_classifier(cfg, port_spec.spec_from_config(cfg), 4,
                                             device="cpu")
+
+
+def test_build_image_classifier_builds_int8_attention_and_the_text_tower():
+    """What the builder refused before: ``TPU.INT8_ATTN`` (with the JAX
+    builder's ValueError when the static recipe is not set) and
+    ``TRAIN.INIT_HEAD_WITH_TEXT_ENCODER``, and the text tower, returned as
+    ``encode_text`` with the config's context length and built on first use."""
+    with pytest.raises(ValueError, match="INT8_STATIC_ACT"):
+        port_factory.build_image_classifier(
+            tiny_cfg(port_config, **{"TPU.INT8_ATTN": True}),
+            port_spec.spec_from_config(tiny_cfg(port_config)), 4, device="cpu")
+    cfg = tiny_cfg(port_config, **{"TPU.INT8_ATTN": True, "TPU.INT8_ATTN_PV": True,
+                                   "TPU.INT8_FWD_TRAIN": True, "TPU.INT8_STATIC_ACT": True,
+                                   "TRAIN.INIT_HEAD_WITH_TEXT_ENCODER": True,
+                                   "MODEL.SPEC.TEXT.WIDTH": 32, "MODEL.SPEC.TEXT.LAYERS": 1,
+                                   "MODEL.SPEC.TEXT.HEADS": 2,
+                                   "MODEL.SPEC.TEXT.CONTEXT_LENGTH": 16})
+    model, _, encode_text = port_factory.build_image_classifier(
+        cfg, port_spec.spec_from_config(cfg), 4, device="cpu")
+    attn = model.backbone.blocks[0].attn
+    assert attn.int8_attn and attn.int8_attn_pv
+    assert encode_text.context_length == 16 and encode_text._module is None
+    feats = encode_text(np.ones((3, 16), np.int64))
+    assert feats.shape == (3, 32) and torch.isfinite(feats).all()
+    assert not any(p.requires_grad for p in encode_text.module.parameters())
 
 
 def test_bf16_softmax_is_refused_on_the_card_and_honoured_on_the_cpu(monkeypatch):
@@ -346,6 +370,19 @@ def _jax_key(key):
     if key.round_size is None:
         return jax.random.PRNGKey(key.seed)
     return jax.random.split(jax.random.PRNGKey(key.seed), key.round_size)[key.index]
+
+
+def jax_text_variables(encode_text, over):
+    """The JAX builder's text-tower weights (``{"params": ...}``, the
+    ``tparams`` its ``encode_text`` closes over) when the run of ``over``
+    encodes text (the contrastive methods, the head's init from text), else
+    None: the port then never builds its text tower."""
+    uses_text = over.get("PEFT.METHOD") in ("finetune_contrast", "linear_probe_contrast") or \
+        over.get("TRAIN.INIT_HEAD_WITH_TEXT_ENCODER")
+    if encode_text is None or not uses_text:
+        return None
+    tparams = inspect.getclosurevars(encode_text).nonlocals["tparams"]
+    return {"params": jax.tree_util.tree_map(np.asarray, tparams)}
 
 
 def _run_both(monkeypatch, tmp_path, lr_grid=None, **over):
@@ -406,7 +443,8 @@ def _run_both(monkeypatch, tmp_path, lr_grid=None, **over):
 
     rec["port"]["score"] = port_run.finetune_main(
         tiny_cfg(port_config, **over), str(tmp_path / "port"), device="cpu",
-        variables=variables, init_trainables=init_trainables)
+        variables=variables, text_variables=jax_text_variables(built["out"][2], over),
+        init_trainables=init_trainables)
     for name in ("jax", "port"):
         lines = (tmp_path / name / "results.jsonl").read_text().splitlines()
         rec[name]["record"] = json.loads(lines[-1])
@@ -450,18 +488,34 @@ def test_fresh_leaves_follow_the_jax_init():
 
 
 def test_driver_default_method_and_cache_rules(monkeypatch, tmp_path):
-    for method, item in (("finetune_contrast", "probes and zero-shot"),
-                         ("linear_probe_contrast", "probes and zero-shot"),
-                         ("intrinsic", "intrinsic dimension")):
-        with pytest.raises(NotImplementedError, match=f"not ported.*ROADMAP §1, {item}"):
-            port_run.finetune_main(tiny_cfg(port_config, **{"PEFT.METHOD": method}),
-                                   device="cpu")
-    # every trainable leaf past block 0: first_attention and first_mlp train block 1
+    """Intrinsic dimension is still refused; the contrastive methods and the
+    cached-prefix sweep, refused before, run (every trainable leaf past block
+    0: the prefix is computed once, ``test_torch_port_cached_probes.py``
+    holds it against the JAX driver)."""
+    with pytest.raises(NotImplementedError, match="not ported.*ROADMAP §1, intrinsic dimension"):
+        port_run.finetune_main(tiny_cfg(port_config, **{"PEFT.METHOD": "intrinsic"}),
+                               device="cpu")
+    text = {"MODEL.SPEC.TEXT.WIDTH": 32, "MODEL.SPEC.TEXT.LAYERS": 1,
+            "MODEL.SPEC.TEXT.HEADS": 2, "MODEL.SPEC.TEXT.CONTEXT_LENGTH": 16}
+    for method in ("finetune_contrast", "linear_probe_contrast"):
+        score = port_run.finetune_main(tiny_cfg(port_config, **{"PEFT.METHOD": method,
+                                                                "TRAIN.END_EPOCH": 1, **text}),
+                                       device="cpu")
+        assert 0.0 <= score <= 100.0
+    # first_attention and first_mlp train block 1
+    prefixes = []
+    real = port_run.cached_prefix.precompute_prefix_tokens
+    monkeypatch.setattr(port_run.cached_prefix, "precompute_prefix_tokens",
+                        lambda model, x, cut, *a: prefixes.append(cut) or real(model, x, cut, *a))
     for method in ("linear", "adapterdrop", "transformer_probe", "first_attention",
                    "first_mlp"):
-        with pytest.raises(NotImplementedError, match="cached-prefix.*probes and zero-shot"):
-            port_run.finetune_main(tiny_cfg(port_config, **{"PEFT.METHOD": method}),
-                                   device="cpu")
+        score = port_run.finetune_main(tiny_cfg(port_config, **{"PEFT.METHOD": method,
+                                                                "TRAIN.END_EPOCH": 1}),
+                                       device="cpu")
+        assert 0.0 <= score <= 100.0
+    # the tiny tower has 2 blocks: AdapterDrop's default block 11 is not one
+    # of them, so only its head trains, as the linear probe's and the probe's
+    assert prefixes == [2] * 3 * 3 + [1] * 3 * 2
     score = port_run.finetune_main(
         tiny_cfg(port_config, **{"PEFT.METHOD": "linear", "TRAIN.CACHE_FROZEN_PREFIX": False,
                                  "TRAIN.END_EPOCH": 2}), device="cpu")

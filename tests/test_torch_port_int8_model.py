@@ -32,6 +32,7 @@ from peft_vit_tpu_torch.engine import ServingSession
 from peft_vit_tpu_torch.engine import train as port_train
 from peft_vit_tpu_torch.models import (
     Dense,
+    ImageClassifier,
     Int8Dense,
     cast_frozen_,
     collect_activation_stats,
@@ -272,11 +273,23 @@ def test_model_builds_int8_dense_only_for_the_targets_and_only_when_asked():
 
 @pytest.mark.parametrize("flag", ["int8_attn", "int8_attn_pv"])
 def test_int8_attention_is_not_ported_and_raises(flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        VisionTransformer(image_size=32, patch_size=16, width=64, layers=1, heads=4,
-                          int8_train=True, **{flag: True})
-    with pytest.raises(NotImplementedError, match=flag):
-        port_layers.MultiHeadAttention(64, 4, spec=PEFTSpec(**LORA), **{flag: True})
+    """Int8 attention, once refused, is ported: the tower builds with the
+    flag, its calibration gives every attention its three scales beside the
+    GEMMs' ``s_x``, and a training forward on them runs and differentiates."""
+    vit = VisionTransformer(image_size=32, patch_size=16, width=64, layers=1, heads=4,
+                            spec=PEFTSpec(**LORA), int8_train=True, int8_attn=True,
+                            **({flag: True} if flag != "int8_attn" else {}))
+    model = ImageClassifier(vit, num_classes=3, device="cpu")
+    apply_fn = port_train.make_apply_fn(model)
+    x = torch.from_numpy(_images(2, 5))
+    scales = port_train.calibrate(model, apply_fn, {}, x)
+    assert {k for k in scales if not k.endswith(".s_x")} == {
+        f"backbone.blocks.0.attn.s_{t}" for t in "qkv"}
+    assert all(torch.isfinite(v) and v > 0 for v in scales.values())
+    out = apply_fn(scales, x, True)
+    out.sum().backward()
+    assert torch.isfinite(out).all()
+    assert model.backbone.blocks[0].attn.q_adapter2.weight.grad is not None
 
 
 # ---------------------------------------------------------------- serving

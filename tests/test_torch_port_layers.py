@@ -146,20 +146,30 @@ def test_ported_hook_matches_jax(hook):
 @pytest.mark.parametrize("hook", [dict(int8_attn=True), dict(int8_attn_pv=True)],
                          ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_hooks_raise(hook):
-    """What the port still lacks raises from every module that builds it,
-    naming its ROADMAP item: int8 attention, on a block and on the tower
-    (``test_int8_attention_flags_raise`` holds the attention itself)."""
+    """Int8 attention, once refused, now builds on a block and on the tower
+    (``test_torch_port_int8_attention.py`` holds its numbers against JAX):
+    the flags reach every block's attention, which holds no scales until a
+    calibration gives them."""
     from peft_vit_tpu_torch.models.vit import VisionTransformer
 
     spec = PEFTSpec(**LORA)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1, int8_attention"):
-        port_layers.Block(WIDTH, HEADS, spec=spec, **hook)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1, int8_attention"):
-        VisionTransformer(image_size=32, patch_size=8, width=WIDTH, layers=1, heads=HEADS,
-                          spec=spec, **hook)
+    block = port_layers.Block(WIDTH, HEADS, spec=spec, **hook)
+    vit = VisionTransformer(image_size=32, patch_size=8, width=WIDTH, layers=1, heads=HEADS,
+                            spec=spec, **hook)
+    for attn in (block.attn, vit.blocks[0].attn):
+        assert (attn.int8_attn, attn.int8_attn_pv) == (hook.get("int8_attn", False),
+                                                       hook.get("int8_attn_pv", False))
+        assert attn.s_q is None and "s_q" not in attn.state_dict()
 
 
 @pytest.mark.parametrize("flag", ["int8_attn", "int8_attn_pv"])
 def test_int8_attention_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1, int8_attention"):
-        port_layers.MultiHeadAttention(WIDTH, HEADS, spec=PEFTSpec(**LORA), **{flag: True})
+    """The flags, once refused, build; without scales the attention is the
+    plain one (the JAX module's ``has_variable("qscale", "s_q")`` test),
+    equal to the same module without the flag."""
+    x = torch.from_numpy(_tokens(31))
+    plain = port_layers.MultiHeadAttention(WIDTH, HEADS, spec=PEFTSpec(**LORA))
+    flagged = port_layers.MultiHeadAttention(WIDTH, HEADS, spec=PEFTSpec(**LORA), **{flag: True})
+    flagged.load_state_dict(plain.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(flagged(x), plain(x), rtol=0, atol=0)

@@ -176,12 +176,16 @@ def test_port_imports_nothing_of_jax():
                      "peft.masks", "config.node", "config.default", "data.registry",
                      "data.few_shot", "data.transforms", "data.pipeline", "engine.metrics",
                      "engine.sweep", "utils.logging", "utils.results", "commands.common",
-                     "commands.run"):
+                     "commands.run", "models.text", "models.clip", "models.classifier",
+                     "data.tokenizer", "data.prompts", "engine.zeroshot", "engine.contrastive",
+                     "engine.loss", "engine.cached", "engine.probes", "commands.zeroshot_eval",
+                     "commands.linear_probe", "commands.eval_all"):
             assert "peft_vit_tpu_torch." + want in names, want
         import bench_torch, chip_smoke
         bad = sorted(
             n for n in sys.modules
-            if n.split(".")[0].startswith("jax") or n.split(".")[0] in ("flax", "optax")
+            if n.split(".")[0].startswith("jax")
+            or n.split(".")[0] in ("flax", "optax", "sklearn", "transformers")
             or n == "peft_vit_tpu" or n.startswith("peft_vit_tpu.")
         )
         assert not bad, bad

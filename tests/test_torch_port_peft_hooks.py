@@ -404,12 +404,16 @@ def test_every_leaf_of_every_method_has_a_fresh_initialiser():
     """The trainable leaves of each ported method whose cells draw them
     fresh, at a small width.  The methods that train the pretrained tower
     draw only the head and start the tower's leaves from their grafted
-    values (``tests/test_torch_port_tower_methods.py``)."""
+    values (``tests/test_torch_port_tower_methods.py``); the contrastive
+    methods likewise draw only their logit scale, 1
+    (``tests/test_torch_port_zeroshot.py``)."""
     from peft_vit_tpu_torch.config import get_default_config
     from peft_vit_tpu_torch.peft import build_mask, spec_from_config
 
+    gen = torch.Generator().manual_seed(0)
+    assert port_run._fresh_leaf("logit_scale", (), gen).item() == 1.0
     for method in port_run.PORTED_METHODS:
-        if method in port_run.TOWER_METHODS:
+        if method in port_run.TOWER_METHODS + port_run.CONTRASTIVE_METHODS:
             continue
         cfg = get_default_config()
         cfg.PEFT.METHOD = method

@@ -11,8 +11,7 @@ of the same fixtures:
 * ``refexec_lora_clip_model.npz``: the image features of the reference's
   LoRA CLIP through the port's visual tower and
   ``models.convert.clip_state_dict_to_tree`` (``tests/test_refexec_models.py``),
-  rtol 1e-4, atol 1e-5.  The text features wait for the port's
-  ``models/clip.py``;
+  rtol 1e-4, atol 1e-5 (its text features: ``test_torch_port_text.py``);
 * ``refexec_trajectory_lora.npz``: the reference's own few-shot training run
   (4 epochs of SGD at batch 4, step decay, channel BN) replayed through the
   port's ``make_epoch_fn`` / ``make_eval_fn``, with the reference's
