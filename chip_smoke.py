@@ -162,7 +162,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with int8 dx, and with P V): the int32 scores equal to their exact sum,
    the calibrated scales, captured steps equal to eager, the launches a
    replay (K1 only in the backward), one step's update against the bf16
-   recipe's.
+   recipe's;
+13. fullshot: ``commands.train.train_main`` (the full-shot trainer) at
+   ViT-B/16 from vitb16_sup.yaml (the supervised timm-style tower, random
+   weights from build_image_classifier's seed), synthetic 10-way at 224 px, batch 64, 2
+   epochs: the full fine-tune with SGD nesterov, warmupcosine, EMA 0.999,
+   mixup 0.8 with cutmix 1.0, label smoothing 0.1, the global-norm clip 1.0
+   and a checkpoint every 2 steps under AUTO_RESUME.  Every step and eval
+   batch one replay, K1, K2 and K3 12 each a step replay (K1 12 an eval
+   replay); the rate each replay used equal to ``build_lr_schedule`` at its
+   step; the first step captured equal to it eager bit for bit, and its
+   update with K1-K3 against the float64 backward, no farther than the plain
+   dq/dk/dv's; a fresh ``Trainer`` stopped after its first mid-epoch
+   checkpoint and one resumed from it equal to the uninterrupted run bit for
+   bit (trainable, momentum, EMA).  The step's time, busy time, idle share,
+   launches and the optimizer chain's time, the epochs' and evals' wall
+   times, the peak memory.  Then LoRA on the same tower under the int8 static
+   recipe with int8 dx (K6 48 static + 47 dx a replay, the scales
+   recalibrated each epoch, captured == eager and K6 == its plain version
+   bit for bit on the first step, the step's time), and a width-64, one-head
+   tower in fp32 on the card against the CPU (the epoch losses within
+   ``TOL_FULLSHOT_LOSS_REL``, the same best top-1).
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -189,8 +209,9 @@ WIDTH, LAYERS, HEADS, IMAGE, PATCH = 768, 12, 12, 224, 16
 OUTPUT_DIM, NUM_CLASSES, LORA_RANK = 512, 100, 4
 N_TOKENS, HEAD_DIM = (IMAGE // PATCH) ** 2 + 1, WIDTH // HEADS
 BUCKETS = (1, 8, 32)
-TIMED_BATCHES = (1, 8, 16, 32)  # K1; K2 and K3 at the training batches among them
-TRAIN_TIMED_BATCHES = (8, 16, 32)
+FULLSHOT_BATCH = 64  # vitb16_sup.yaml's TRAIN.BATCH_SIZE_PER_GPU
+TIMED_BATCHES = (1, 8, 16, 32, FULLSHOT_BATCH)  # K1; K2 and K3 at the training batches among them
+TRAIN_TIMED_BATCHES = (8, 16, 32, FULLSHOT_BATCH)
 REQUESTS = (1, 5, 8, 32, 40)
 CHECKED_REQUEST = 5
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_K, TRAIN_WINDOWS = 16, 4, 8, 7
@@ -578,13 +599,16 @@ def kernel_phase(timing: bool = True) -> dict:
     # (name, B, N, dtype, scale, q std, bias, lse, tolerance of o).  The
     # serving path calls the kernel at scale 1.0 with q already multiplied
     # by 1/sqrt(D) (post-scale-q), so that case draws q at std 1/8.
-    # The first cases are the main paths' own: every serving bucket, and the
-    # training batch with lse.
+    # The first cases are the main paths' own: every serving bucket, the
+    # training batch with lse, and the full-shot batch with lse at the timm
+    # tower's scale (no PEFT delta: q unscaled, 1/sqrt(64) in the kernel).
     cases = [
         *((f"bf16 scale=1.0 (post-scaled q), serving bucket {b}", b, N_TOKENS, torch.bfloat16,
            1.0, 0.125, False, False, TOL_BF16_OUT) for b in BUCKETS),
         ("bf16 scale=1.0 (post-scaled q) lse, training batch", TRAIN_BATCH, N_TOKENS,
          torch.bfloat16, 1.0, 0.125, False, True, TOL_BF16_OUT),
+        ("bf16 scale=0.125 lse, full-shot batch", FULLSHOT_BATCH, N_TOKENS, torch.bfloat16,
+         0.125, 1.0, False, True, TOL_BF16_OUT),
         ("bf16 scale=0.125", 8, N_TOKENS, torch.bfloat16, 0.125, 1.0, False, False, TOL_BF16_OUT),
         ("bf16 bias", 8, N_TOKENS, torch.bfloat16, 0.125, 1.0, True, False, TOL_BF16_OUT),
         ("bf16 lse", 8, N_TOKENS, torch.bfloat16, 0.125, 1.0, False, True, TOL_BF16_OUT),
@@ -609,13 +633,14 @@ def kernel_phase(timing: bool = True) -> dict:
         err = (out.float() - ref.float()).abs().max().item()
         check(out.shape == shape and bool(torch.isfinite(out).all()) and err <= tol,
               f"kernel {name} {tuple(shape)}: out max abs err {err:.3e} <= {tol:g}")
-        if i <= len(BUCKETS):
+        if i <= len(BUCKETS) + 1:
             main_err[b] = err
 
     edge_checks(attn, rand, "K1")
     bwd_err = backward_kernel_checks(attn, rand)
     # the kernels line gives the forward's error at the batch of its times
-    result = {"max_abs_err": {"fwd": main_err[BUCKETS[1]], **bwd_err},
+    result = {"max_abs_err": {"fwd": main_err[BUCKETS[1]], **bwd_err["main"]},
+              "max_abs_err_fullshot": {"fwd": main_err[FULLSHOT_BATCH], **bwd_err["fullshot"]},
               "fwd": {}, "dq": {}, "dkv": {}}
     if timing:
         kernel_timing(attn, rand, result)
@@ -673,12 +698,15 @@ def backward_kernel_checks(attn, rand) -> dict:
     autograd through ``attention_reference``.  N = 50, 197 and 257 and 577
     cover one to four resident 64-row chunks and the streamed ring (N >
     256), ragged last chunks among them; B = 1 a grid of one block column.
-    Returns the max abs errors of the first case, which has the training
-    path's shape."""
+    Returns the max abs errors of the first two cases, which have the
+    training path's shape (``main``) and the full-shot path's
+    (``fullshot``)."""
     bf16, f32 = torch.bfloat16, torch.float32
     # (name, B, N, dtype, scale, q std, relative tolerance)
     cases = [
         ("bf16 scale=1.0 (post-scaled q), training batch", TRAIN_BATCH, N_TOKENS, bf16, 1.0, 0.125,
+         TOL_BF16_GRAD_REL),
+        ("bf16 scale=0.125, full-shot batch", FULLSHOT_BATCH, N_TOKENS, bf16, 0.125, 1.0,
          TOL_BF16_GRAD_REL),
         ("bf16 scale=0.125", 8, N_TOKENS, bf16, 0.125, 1.0, TOL_BF16_GRAD_REL),
         ("bf16 B=1", 1, N_TOKENS, bf16, 1.0, 0.125, TOL_BF16_GRAD_REL),
@@ -690,7 +718,7 @@ def backward_kernel_checks(attn, rand) -> dict:
         ("fp32 ragged N=257", 2, 257, f32, 0.125, 1.0, TOL_F32_GRAD_REL),
         ("fp32 N=577", 2, 577, f32, 1.0, 0.125, TOL_F32_GRAD_REL),
     ]
-    main = None
+    main = []
     for name, b, n, dtype, scale, q_std, tol in cases:
         shape = (b, HEADS, n, HEAD_DIM)
         q, k, v, do = rand(shape, dtype, q_std), rand(shape, dtype), rand(shape, dtype), rand(shape, dtype)
@@ -716,8 +744,9 @@ def backward_kernel_checks(attn, rand) -> dict:
                   and rel <= tol,
                   f"kernel bwd {name} {tuple(shape)}: {what} max abs err {err:.3e}, "
                   f"/ max |plain| = {rel:.3e} <= {tol:g}")
-        if main is None:
-            main = {"dq": errs["dq"], "dkv": max(errs["dk"], errs["dv"]), "delta": delta_err}
+        if len(main) < 2:
+            main.append({"dq": errs["dq"], "dkv": max(errs["dk"], errs["dv"]),
+                         "delta": delta_err})
 
     # the Function's backward launches the two kernels and nothing else: the
     # dq kernel computes delta, so no PyTorch expression runs for it
@@ -742,7 +771,7 @@ def backward_kernel_checks(attn, rand) -> dict:
         check(rel <= TOL_F32_GRAD_REL,
               f"flash_attention Function fp32 {tuple(shape)} vs autograd of the reference: "
               f"{what} max |diff| / max |ref| = {rel:.3e} <= {TOL_F32_GRAD_REL:g}")
-    return main
+    return dict(zip(("main", "fullshot"), main))
 
 
 def flash_backward(attn, q, k, v, o, lse, do):
@@ -4047,6 +4076,503 @@ def zeroshot_phase(smi: str, device: str = "cuda") -> dict:
 
 
 
+
+# Full-shot training (phase 13): commands.train.train_main at ViT-B/16 from
+# vitb16_sup.yaml (the supervised timm-style tower), random weights from the
+# model builder's seed, the synthetic 10-way task at 224 px (160 training images:
+# two steps of 64 an epoch, 200 test images).  The full fine-tune runs the
+# recipe of the full-shot trainer: SGD with nesterov momentum, warmupcosine,
+# EMA, mixup with cutmix and label smoothing, the global-norm clip, a
+# checkpoint every 2 steps under AUTO_RESUME.  Then LoRA on the same tower
+# under the int8 static recipe with int8 dx, and a tiny fp32 run on the card
+# against the CPU (width 64, one head: the kernels take head dim 64 only).
+FULLSHOT_YAML = "peft_vit_tpu/resources/model/vitb16_sup.yaml"
+# MODEL.NUM_CLASSES: the class count of mixup's targets (the JAX trainer's
+# quirk: its default is 1000, whatever the dataset's)
+FULLSHOT = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": 10, "MODEL.NUM_CLASSES": 10,
+            "TRAIN.IMAGE_SIZE": [IMAGE, IMAGE], "PEFT.METHOD": "none",
+            "TRAIN.BATCH_SIZE_PER_GPU": 64, "TEST.BATCH_SIZE_PER_GPU": 64, "TRAIN.END_EPOCH": 2,
+            "TRAIN.OPTIMIZER": "sgd", "TRAIN.MOMENTUM": 0.9, "TRAIN.NESTEROV": True,
+            "TRAIN.LR": 1e-3, "TRAIN.WD": 1e-4, "TRAIN.LR_SCHEDULER.METHOD": "warmupcosine",
+            "TRAIN.LR_SCHEDULER.WARMUP_EPOCH": 1, "TRAIN.EMA_DECAY": 0.999, "AUG.MIXUP": 0.8,
+            "AUG.MIXCUT": 1.0, "LOSS.LABEL_SMOOTHING": 0.1, "TRAIN.CLIP_GRAD_NORM": 1.0,
+            "TRAIN.CHECKPOINT_EVERY_STEPS": 2, "TRAIN.AUTO_RESUME": True,
+            "TPU.COMPUTE_DTYPE": "bfloat16", "PRINT_FREQ": 1, "NAME": "fullshot"}
+# the tower's shape (the yaml's); a rehearsal on the CPU shrinks it
+FULLSHOT_MODEL = {}
+FULLSHOT_LORA = {"PEFT.METHOD": "lora", "TPU.INT8_FWD_TRAIN": True, "TPU.INT8_BWD_DX": True,
+                 "TPU.INT8_STATIC_ACT": True, "AUG.MIXUP": 0.0, "AUG.MIXCUT": 0.0,
+                 "TRAIN.EMA_DECAY": 0.0, "TRAIN.CHECKPOINT_EVERY_STEPS": 0,
+                 "NAME": "fullshot_lora_int8"}
+FULLSHOT_TINY = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": 4,
+                 "TRAIN.IMAGE_SIZE": [32, 32], "MODEL.NAME": "cls_vit_tiny",
+                 "MODEL.SPEC.VISION.PATCH_SIZE": 8, "MODEL.SPEC.VISION.WIDTH": 64,
+                 "MODEL.SPEC.VISION.LAYERS": 2, "MODEL.SPEC.VISION.HEADS": 1,
+                 "PEFT.METHOD": "none", "TRAIN.BATCH_SIZE_PER_GPU": 8,
+                 "TEST.BATCH_SIZE_PER_GPU": 16, "TRAIN.END_EPOCH": 2, "TRAIN.LR": 1e-3,
+                 "TRAIN.MOMENTUM": 0.9, "TRAIN.LR_SCHEDULER.METHOD": "cosine",
+                 "TPU.COMPUTE_DTYPE": "float32", "PRINT_FREQ": 1, "NAME": "fullshot_tiny"}
+FULLSHOT_DIR = "build/fullshot"  # checkpoints and logs, removed after the phase
+TOL_FULLSHOT_LOSS_REL = 1e-4  # the tiny fp32 run's epoch losses, card against CPU
+FULLSHOT_STEP_FLOPS_PER_IMAGE = 3 * 2 * 86.6e6 * N_TOKENS  # fwd + bwd GEMMs, attention aside
+
+
+@contextlib.contextmanager
+def trainer_spy(sync):
+    """Within, ``commands.train`` builds its splits and ``Trainer`` as it
+    does, observed: the yielded dict gets ``splits``, ``trainer`` and, per
+    step, the step count before it, the rate it used (cloned before the next
+    replay overwrites it) and the first step's batch, generator state and
+    state before and after (clones); per epoch the wall time, its stats and
+    the static scales it trained on; per evaluation the wall time."""
+    from peft_vit_tpu_torch.commands import train as train_cmd
+
+    seen = {"steps": [], "epochs": [], "evals": []}
+    saved = train_cmd.Trainer, train_cmd.construct_splits
+
+    def snapshot(t):
+        s = t.state
+        return {"trainable": {k: v.detach().clone() for k, v in s.trainable.items()},
+                "opt": {k: v.clone() for k, v in s.opt_state.items()},
+                "ema": {k: v.clone() for k, v in s.ema.shadow.items()} if s.ema else {}}
+
+    class Spy(train_cmd.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen["trainer"] = self
+
+        def train_step(self, x, y, epoch):
+            step = int(self.state.step)
+            if step == 0:
+                seen["first"] = {"x": np.array(x), "y": np.array(y), "rng":
+                                 self.generator.get_state(), "before": snapshot(self)}
+            loss, lr = super().train_step(x, y, epoch)
+            seen["steps"].append((step, lr.clone()))
+            if step == 0:
+                seen["first"]["after"] = snapshot(self)
+            return loss, lr
+
+        def train_one_epoch(self, batches, epoch, *args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            stats = super().train_one_epoch(batches, epoch, *args, **kwargs)
+            sync()
+            seen["epochs"].append({"epoch": epoch, "s": time.perf_counter() - t0, **stats,
+                                   "scales": {k: v.clone() for k, v in (self._qscale or {}).items()}})
+            return stats
+
+        def evaluate(self, batches, use_ema=False, use_swa=False, metric=None):
+            sync()
+            t0 = time.perf_counter()
+            acc = super().evaluate(batches, use_ema, use_swa, metric)
+            sync()
+            seen["evals"].append({"ema": use_ema, "s": time.perf_counter() - t0, "acc": acc})
+            return acc
+
+    def splits_spy(*args, **kwargs):
+        seen["splits"] = saved[1](*args, **kwargs)
+        return seen["splits"]
+
+    train_cmd.Trainer, train_cmd.construct_splits = Spy, splits_spy
+    try:
+        yield seen
+    finally:
+        train_cmd.Trainer, train_cmd.construct_splits = saved
+
+
+def _state_differ(trainer, want: dict) -> list:
+    """The state tensors of ``trainer`` that differ from the snapshot
+    ``want`` (``trainer_spy``'s layout)."""
+    s = trainer.state
+    got = {"trainable": s.trainable, "opt": s.opt_state,
+           "ema": s.ema.shadow if s.ema is not None else {}}
+    return [f"{part}.{k}" for part, leaves in want.items() for k, v in leaves.items()
+            if not torch.equal(v, got[part][k])]
+
+
+def _rerun_first_step(trainer, first: dict) -> None:
+    """Put the first step's state and generator back into ``trainer`` and run
+    the step again (eagerly under ``bench_torch.eager_on_card``)."""
+    from peft_vit_tpu_torch.engine.trainer import FullTrainState
+
+    s, b = trainer.state, first["before"]
+    trainer.state = FullTrainState(
+        {k: v.clone() for k, v in b["trainable"].items()},
+        {k: v.clone() for k, v in b["opt"].items()},
+        torch.zeros_like(s.step),
+        s.ema._replace(shadow={k: v.clone() for k, v in b["ema"].items()}) if s.ema else None,
+        s.swa, s.batch_stats, torch.ones_like(s.finite))
+    trainer.generator.set_state(first["rng"])
+    trainer.train_step(first["x"], first["y"], 0)
+
+
+@contextlib.contextmanager
+def attention_spy():
+    """Within, every attention call of the tower records its q, k, v and
+    scale (clones), and the gradient that flows back into its output: the
+    operands K1, K2 and K3 were given."""
+    from peft_vit_tpu_torch.models import layers
+
+    calls = []
+    original = layers.multi_head_attention
+
+    def spy(q, k, v, *args, **kwargs):
+        rec = {"q": q.detach().clone(), "k": k.detach().clone(), "v": v.detach().clone(),
+               "scale": kwargs.get("scale"), "bias": kwargs.get("bias")}
+        calls.append(rec)
+        out = original(q, k, v, *args, **kwargs)
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.__setitem__(
+                "do", g.detach().clone(memory_format=torch.contiguous_format)))
+        return out
+
+    layers.multi_head_attention = spy
+    try:
+        yield calls
+    finally:
+        layers.multi_head_attention = original
+
+
+def hold_step_attention(attn, label: str, calls: list) -> dict:
+    """K1 (with lse), K2 and K3 on the operands each block's attention got
+    in one training step (``attention_spy``), against their plain versions
+    on the same operands, to the kernel checks' tolerances: o by max abs
+    error, lse likewise, dq, dk and dv by max abs error over the plain
+    version's largest magnitude.  Returns the largest errors over the
+    blocks."""
+    worst = {"fwd": 0.0, "lse": 0.0, "dq": 0.0, "dkv": 0.0}
+    rels = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    finite = True
+    for c in calls:
+        q, k, v, scale, do = c["q"], c["k"], c["v"], c["scale"], c["do"]
+        o, lse = attn.flash_attention_fwd(q, k, v, c["bias"], scale, return_lse=True)
+        ref_o, ref_lse = attn._flash_attention_plain(q, k, v, c["bias"], scale, True)
+        dq, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, scale)
+        dk, dv = attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+        want = attn._flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        worst["fwd"] = max(worst["fwd"], (o.float() - ref_o.float()).abs().max().item())
+        worst["lse"] = max(worst["lse"], (lse - ref_lse).abs().max().item())
+        for what, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            err = (got.float() - ref.float()).abs().max().item()
+            rels[what] = max(rels[what], err / ref.float().abs().max().item())
+            key = "dq" if what == "dq" else "dkv"
+            worst[key] = max(worst[key], err)
+            finite = finite and bool(torch.isfinite(got).all())
+    shape = tuple(calls[0]["q"].shape)
+    check(worst["fwd"] <= TOL_BF16_OUT and worst["lse"] <= TOL_LSE,
+          f"{label}: K1 on the operands of the {len(calls)} blocks' attention {shape} "
+          f"{calls[0]['q'].dtype} scale={calls[0]['scale']}: o max abs err {worst['fwd']:.3e} <= "
+          f"{TOL_BF16_OUT:g}, lse {worst['lse']:.3e} <= {TOL_LSE:g}")
+    check(finite and max(rels.values()) <= TOL_BF16_GRAD_REL,
+          f"{label}: K2 and K3 on the same operands and the step's own dO: finite, dq, dk, dv "
+          "max |diff| / max |plain| over the blocks = "
+          + ", ".join(f"{r:.3e}" for r in rels.values()) + f" <= {TOL_BF16_GRAD_REL:g}")
+    return worst
+
+
+def _graphs_of(trainer, kind: str) -> list:
+    return [g for key, g in trainer.graphs.items() if key[0] == kind]
+
+
+def fullshot_drive(label: str, cfg, smi: str, device: str, sync) -> dict:
+    """``train_main(cfg)`` observed (``trainer_spy``): the wrappers' counts
+    from 0 just before and read just after, the wall time and peak memory."""
+    import shutil
+
+    from peft_vit_tpu_torch.commands import train as train_cmd
+    from peft_vit_tpu_torch.ops import launch_counts
+
+    shutil.rmtree(FULLSHOT_DIR, ignore_errors=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if device == "cuda" else 0
+    with trainer_spy(sync) as seen:
+        before = launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        best = train_cmd.train_main(cfg, device=device)
+        sync()
+        seen["wall_s"] = time.perf_counter() - t0
+        seen["counts"] = {n: c - before[n] for n, c in launch_counts().items()}
+    seen["best"] = best
+    seen["peak_gib"] = ((torch.cuda.max_memory_allocated() - base) / 2**30
+                        if device == "cuda" else float("nan"))
+    return seen
+
+
+def _hold_graphs(label: str, trainer, counts: dict, train_want: dict, eval_want: dict,
+                 steps: int, eval_batches: int, eager: dict = None) -> None:
+    """Every step and eval batch one replay; the launches a replay of each
+    graph against ``train_want`` / ``eval_want``; the wrappers' counts
+    against (warm-up + capture) x those of each graph, plus ``eager``: what
+    runs outside the graphs (the static recipe's calibration forwards)."""
+    from peft_vit_tpu_torch.engine import StepGraph
+
+    trains, evals = _graphs_of(trainer, "train"), _graphs_of(trainer, "eval")
+    replays = sum(g.replays for g in trains), sum(g.replays for g in evals)
+    check(replays == (steps, eval_batches) and len(trains) == 1,
+          f"{label}: {replays[0]} train replays of {len(trains)} graph(s) for {steps} steps, "
+          f"{replays[1]} eval replays of {len(evals)} graph(s) for {eval_batches} eval batches")
+    for g in trains:
+        _per_replay(g, train_want, f"{label}: a train step")
+    for g in evals:
+        _per_replay(g, eval_want, f"{label}: an eval batch {tuple(g.inputs['x'].shape)}")
+    eager = eager or {}
+    wanted = {n: (StepGraph.WARMUP + 1) * sum(g.launches.get(n, 0) for g in trains + evals)
+              + eager.get(n, 0) for n in counts}
+    check(counts == wanted, f"{label}: the wrappers counted {counts} == ({StepGraph.WARMUP} "
+          "warm-up runs + the capture) x the launches a replay of each graph"
+          + (f" + {eager} outside them" if eager else ""))
+
+
+def fullshot_phase(smi: str, device: str = "cuda") -> dict:
+    """Phase 13 (see the module docstring); ``device`` "cpu" rehearses the
+    phase's own code at a tiny size (with the StepGraph stand-in patched in,
+    only the launch checks fail there)."""
+    import itertools
+    import shutil
+
+    import bench_torch
+    from peft_vit_tpu_torch.commands import train as train_cmd
+    from peft_vit_tpu_torch.engine import StepGraph
+    from peft_vit_tpu_torch.engine.trainer import Trainer, _skip_batches, batch_iterator
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.ops import int8 as i8
+    from peft_vit_tpu_torch.peft import build_mask
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {}
+
+    # 1. the full fine-tune through train_main
+    cfg = driver_cfg({**FULLSHOT, **FULLSHOT_MODEL, "OUTPUT_DIR": FULLSHOT_DIR}, FULLSHOT_YAML)
+    run = fullshot_drive("full", cfg, smi, device, sync)
+    tr, splits = run["trainer"], run["splits"]
+    # the uninterrupted run's final state, which the resumed run must equal
+    final = {"trainable": {k: v.detach().clone() for k, v in tr.state.trainable.items()},
+             "opt": {k: v.clone() for k, v in tr.state.opt_state.items()},
+             "ema": {k: v.clone() for k, v in tr.state.ema.shadow.items()}}
+    spe = tr.steps_per_epoch
+    steps = spe * int(cfg.TRAIN.END_EPOCH)
+    n_eval = -(-len(splits.y_test) // int(cfg.TEST.BATCH_SIZE_PER_GPU))
+    layers = tr.model.backbone.layers
+    check(bool(tr.state.finite) and math.isfinite(run["best"]) and all(
+        math.isfinite(e["loss"]) for e in run["epochs"]),
+        f"fullshot full: {steps} steps at B={cfg.TRAIN.BATCH_SIZE_PER_GPU}, finite losses "
+        + " ".join(f"{e['loss']:.4f}" for e in run["epochs"]) + f", best top-1 {run['best']:.2f}")
+    trainable = sum(v.numel() for v in tr.state.trainable.values())
+    check(trainable == sum(p.numel() for p in tr.model.parameters()),
+          f"fullshot full: every one of {trainable} parameters trains")
+    _hold_graphs("fullshot full", tr, run["counts"],
+                 {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+                  "flash_attention_bwd_dkv": layers}, {"flash_attention_fwd": layers},
+                 steps, 2 * int(cfg.TRAIN.END_EPOCH) * n_eval)
+    # the rate each replay used, against the schedule at its step (on the
+    # card: the same kernels; on the CPU: within fp32 rounding)
+    bad = [(s, float(lr)) for s, lr in run["steps"]
+           if not torch.equal(lr, tr.schedule(torch.tensor(s, dtype=torch.int32,
+                                                           device=device)))]
+    cpu_rel = max(abs(float(lr) - float(tr.schedule(s))) / abs(float(tr.schedule(s)))
+                  for s, lr in run["steps"])
+    check(not bad and cpu_rel <= 1e-6 and len({float(lr) for _, lr in run["steps"]}) == steps,
+          f"fullshot full: the rate of each of {steps} replays == build_lr_schedule at its step "
+          f"({', '.join(f'{float(lr):.6g}' for _, lr in run['steps'])}; the CPU's within "
+          f"{cpu_rel:.1e} relative)" + (f"; differ: {bad}" if bad else ""))
+
+    # 2. the first step captured against it eager, and with the plain dq and
+    # dk/dv (and the float64 backward) in the kernels' place
+    first = run["first"]
+    after = first["after"]
+    captured = {part: dict(leaves) for part, leaves in after.items()}
+    with bench_torch.eager_on_card(), attention_spy() as calls:
+        _rerun_first_step(tr, first)
+    differ = _state_differ(tr, captured)
+    n_state = sum(len(v) for v in captured.values())
+    check(not differ, f"fullshot full: the first step captured == eager bit for bit ({n_state} "
+          "state tensors: trainable, momentum, EMA)" + (f"; differ: {differ[:4]}" if differ else ""))
+    check(len(calls) == layers and all("do" in c for c in calls),
+          f"fullshot full: the eager step's {len(calls)} attention calls (== {layers}) each "
+          "received a gradient")
+    kernel_err = (hold_step_attention(attn, "fullshot full first step", calls) if on_card
+                  else None)
+    del calls
+    if on_card:
+        updates = {}
+        for name, ctx in (("plain", plain_backward), ("exact", exact_backward)):
+            with bench_torch.eager_on_card(), ctx(attn):
+                _rerun_first_step(tr, first)
+            updates[name] = {k: (v - first["before"]["trainable"][k]).double().flatten()
+                             for k, v in tr.state.trainable.items()}
+        kernel = {k: (v - first["before"]["trainable"][k]).double().flatten()
+                  for k, v in captured["trainable"].items()}
+        cos = {}
+        for k, u in kernel.items():
+            cos[k] = tuple(1.0 if torch.equal(a, b) else torch.nn.functional.cosine_similarity(
+                a, b, dim=0).item() for a, b in ((u, updates["plain"][k]),
+                                                 (u, updates["exact"][k]),
+                                                 (updates["plain"][k], updates["exact"][k])))
+        miss = {who: statistics.fmean(1.0 - v[i] for v in cos.values())
+                for i, who in ((1, "kernel"), (2, "plain"))}
+        least = min(cos, key=lambda k: cos[k][0])
+        check(miss["kernel"] <= TOL_METHOD_EXACT_RATIO * miss["plain"] + TOL_METHOD_EXACT_FLOOR,
+              f"fullshot full: the first step's update with K1-K3 against the float64 backward, "
+              f"{len(cos)} leaves: mean 1 - cosine {miss['kernel']:.3e} <= "
+              f"{TOL_METHOD_EXACT_RATIO:g} x the plain dq/dk/dv's {miss['plain']:.3e} + "
+              f"{TOL_METHOD_EXACT_FLOOR:g}; against the plain versions least cosine "
+              f"{cos[least][0]:.6f} ({least}), printed, not held")
+        del updates, kernel
+
+    # 3. a fresh Trainer stopped after its first mid-epoch checkpoint (one
+    # step: CHECKPOINT_EVERY_STEPS 1, since 160 images at B=64 make an epoch
+    # of two steps) and a fresh one resumed from it, against the run above
+    mask = build_mask(tr.model, "full", num_layers=layers)
+    resume_dir = f"{FULLSHOT_DIR}/resume"
+    rcfg = driver_cfg({**FULLSHOT, **FULLSHOT_MODEL, "OUTPUT_DIR": FULLSHOT_DIR,
+                       "TRAIN.CHECKPOINT_EVERY_STEPS": 1}, FULLSHOT_YAML)
+    batch = int(cfg.TRAIN.BATCH_SIZE_PER_GPU)
+
+    def epoch_batches(e):
+        return batch_iterator(splits.x_train, splits.y_train, batch,
+                              shuffle=bool(cfg.TRAIN.SHUFFLE), seed=e)
+
+    stopped = Trainer(rcfg, tr.model, mask, spe)
+    stopped.train_one_epoch(itertools.islice(epoch_batches(0), 1), 0, checkpoint_dir=resume_dir)
+    del stopped
+    resumed = Trainer(rcfg, tr.model, mask, spe)
+    epoch0 = resumed.maybe_resume(resume_dir)
+    at = resumed.resume_batch_in_epoch
+    for e in range(epoch0, int(cfg.TRAIN.END_EPOCH)):
+        sb = at if e == epoch0 else 0
+        resumed.train_one_epoch(_skip_batches(epoch_batches(e), sb), e, start_batch=sb)
+    differ = _state_differ(resumed, final)
+    check((epoch0, at) == (0, 1) and not differ,
+          f"fullshot full: a fresh Trainer resumed at epoch {epoch0} batch {at} from the first "
+          f"mid-epoch checkpoint == the uninterrupted run bit for bit after {steps} steps "
+          f"({sum(len(v) for v in final.values())} state tensors)"
+          + (f"; differ: {differ[:4]}" if differ else ""))
+    del resumed
+    shutil.rmtree(FULLSHOT_DIR, ignore_errors=True)
+
+    # 4. the timings of the full fine-tune
+    row = {"steps": steps, "epochs": [e["s"] for e in run["epochs"]],
+           "ema_eval_s": [e["s"] for e in run["evals"] if e["ema"]],
+           "eval_s": [e["s"] for e in run["evals"] if not e["ema"]],
+           "wall_s": run["wall_s"], "peak_gib": run["peak_gib"], "best": run["best"],
+           "launches": run["counts"], "kernel_err": kernel_err,
+           "per_replay": dict(_graphs_of(tr, "train")[0].launches)}
+    if on_card:
+        graph = _graphs_of(tr, "train")[0]
+        step_ms = _replay_ms(graph, 10)
+        busy, n_launches, top = _device_breakdown(graph.graph.replay, reps=5)
+        # the optimizer chain alone, captured on copies of the state
+        opt_in = {"p": {k: v.detach().clone() for k, v in tr.state.trainable.items()},
+                  "g": {k: torch.randn_like(v) * 1e-3 for k, v in tr.state.trainable.items()},
+                  "s": {k: v.clone() for k, v in tr.state.opt_state.items()},
+                  "c": tr.state.step.clone()}
+        opt_graph = StepGraph(lambda b: tr.tx.step(b["p"], b["g"], b["s"], b["c"]), opt_in)
+        opt_ms = _replay_ms(opt_graph, 10)
+        del opt_graph, opt_in
+        row.update(step_ms=step_ms, images_per_s=1e3 * batch / step_ms, busy_ms=busy,
+                   device_launches=n_launches, opt_ms=opt_ms,
+                   idle_share=None if busy is None else max(0.0, 1.0 - busy / step_ms),
+                   bound_ms=batch * FULLSHOT_STEP_FLOPS_PER_IMAGE / BF16_FLOPS_PER_S * 1e3)
+        print(f"fullshot full step B={batch} (ViT-B/16 timm, bf16, SGD nesterov + clip + EMA + "
+              f"mixup/cutmix): captured {step_ms:.3f} ms ({row['images_per_s']:.1f} images/s, "
+              f"median of 5 windows of 10 replays), device busy "
+              + ("not measured" if busy is None else
+                 f"{busy:.3f} ms in {n_launches:.0f} launches (idle share "
+                 f"{row['idle_share']:.3f})")
+              + f"; the optimizer chain alone {opt_ms:.3f} ms"
+              + ("" if busy is None else f" ({opt_ms / busy:.3f} of the busy time)")
+              + f"; GEMM bound {row['bound_ms']:.3f} ms at the bf16 peak; top: "
+              + "; ".join(f"{n} {t:.3f} ms" for n, t in top) + f"; {smi}", flush=True)
+    print(f"fullshot full: train_main {row['wall_s']:.3f} s (2 epochs of {spe} steps, evals, "
+          f"checkpoints), epochs " + ", ".join(f"{s:.3f}" for s in row["epochs"])
+          + " s, evals raw " + ", ".join(f"{s:.3f}" for s in row["eval_s"])
+          + " s, with EMA " + ", ".join(f"{s:.3f}" for s in row["ema_eval_s"])
+          + f" s ({n_eval} batches of up to 64); peak {row['peak_gib']:.2f} GiB; "
+          f"launches a step {row['per_replay']}; {smi}", flush=True)
+    out["full"] = row
+    del run, tr, first, after, captured, final
+    gc_collect(on_card)
+
+    # 5. LoRA under the int8 static recipe with int8 dx
+    cfg8 = driver_cfg({**FULLSHOT, **FULLSHOT_MODEL, **FULLSHOT_LORA,
+                       "OUTPUT_DIR": FULLSHOT_DIR}, FULLSHOT_YAML)
+    run8 = fullshot_drive("lora int8", cfg8, smi, device, sync)
+    tr8 = run8["trainer"]
+    gemms = 4 * layers
+    _hold_graphs("fullshot lora int8", tr8, run8["counts"],
+                 {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+                  "flash_attention_bwd_dkv": layers, "int8_gemm_static": gemms,
+                  "int8_gemm_dynamic": gemms - 1},
+                 {"flash_attention_fwd": layers, "int8_gemm_dynamic": gemms},
+                 steps, int(cfg8.TRAIN.END_EPOCH) * n_eval,
+                 # each epoch's calibration: one eager forward, its weights
+                 # quantized per call
+                 eager={"flash_attention_fwd": int(cfg8.TRAIN.END_EPOCH) * layers,
+                        "int8_gemm_dynamic": int(cfg8.TRAIN.END_EPOCH) * gemms})
+    s0, s1 = (run8["epochs"][i]["scales"] for i in (0, 1))
+    moved = [k for k in s0 if not torch.equal(s0[k], s1[k])]
+    check(len(s0) == gemms and bool(moved),
+          f"fullshot lora int8: {len(s0)} static scales recalibrated at each epoch start, "
+          f"{len(moved)} of them moved between the epochs")
+    first8 = run8["first"]
+    captured8 = {part: dict(leaves) for part, leaves in first8["after"].items()}
+    tr8._qscale = s0
+    with bench_torch.eager_on_card():
+        _rerun_first_step(tr8, first8)
+    differ = _state_differ(tr8, captured8)
+    check(not differ, "fullshot lora int8: the first step captured == eager bit for bit"
+          + (f"; differ: {differ[:4]}" if differ else ""))
+    tr8._qscale = s0
+    with bench_torch.eager_on_card(), plain_int8(i8):
+        _rerun_first_step(tr8, first8)
+    differ = _state_differ(tr8, captured8)
+    check(not differ, "fullshot lora int8: the first step with K6 == the same step with its "
+          "plain version bit for bit" + (f"; differ: {differ[:4]}" if differ else ""))
+    row8 = {"launches": run8["counts"], "per_replay": dict(_graphs_of(tr8, "train")[0].launches),
+            "best": run8["best"], "trainable": sum(v.numel() for v in tr8.state.trainable.values())}
+    if on_card:
+        row8["step_ms"] = _replay_ms(_graphs_of(tr8, "train")[0], 10)
+        print(f"fullshot lora int8 step B={batch} (static scales, int8 dx): captured "
+              f"{row8['step_ms']:.3f} ms ({1e3 * batch / row8['step_ms']:.1f} images/s); "
+              f"{row8['trainable']} trainable; launches a step {row8['per_replay']}; {smi}",
+              flush=True)
+    out["lora_int8"] = row8
+    del run8, tr8, first8, captured8
+    shutil.rmtree(FULLSHOT_DIR, ignore_errors=True)
+    gc_collect(on_card)
+
+    # 6. the tiny fp32 run on the card against the CPU
+    runs = {}
+    for dev in (device, "cpu"):
+        tcfg = driver_cfg({**FULLSHOT_TINY, "OUTPUT_DIR": FULLSHOT_DIR}, None)
+        r = fullshot_drive(f"tiny {dev}", tcfg, smi, dev,
+                           sync if dev == device else (lambda: None))
+        runs[dev] = ([e["loss"] for e in r["epochs"]], r["best"])
+        shutil.rmtree(FULLSHOT_DIR, ignore_errors=True)
+    (card_l, card_b), (cpu_l, cpu_b) = runs[device], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    check(rel <= TOL_FULLSHOT_LOSS_REL and card_b == cpu_b,
+          f"fullshot tiny fp32 (width 64, one head): epoch losses on the card "
+          + " ".join(f"{v:.6f}" for v in card_l) + " against the CPU's "
+          + " ".join(f"{v:.6f}" for v in cpu_l) + f" (max {rel:.2e} relative <= "
+          f"{TOL_FULLSHOT_LOSS_REL:g}), best top-1 {card_b:.2f} == {cpu_b:.2f}")
+    out["tiny_rel"] = rel
+    return out
+
+
+def gc_collect(on_card: bool) -> None:
+    import gc
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
 def _device_breakdown(fn, reps: int, top: int = 6, host_top: int = 0):
     """Device time per call, the number of device launches (kernels and
     copies) per call and the kernels that take most of the time, from
@@ -4104,6 +4630,7 @@ def main() -> int:
     methods_phase(smi)
     tower = tower_phase(smi)
     zs = zeroshot_phase(smi)
+    fs = fullshot_phase(smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
@@ -4131,6 +4658,14 @@ def main() -> int:
             "launches_driver": drv["bf16 sweep"]["launches"][
                 {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
                  "dkv": "flash_attention_bwd_dkv"}[key]],
+            # the full-shot trainer's full fine-tune through train_main (phase 13)
+            "launches_fullshot": fs["full"]["launches"][
+                {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
+                 "dkv": "flash_attention_bwd_dkv"}[key]],
+            "b64": {**{k: kern[key][FULLSHOT_BATCH][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "max_abs_err": kern["max_abs_err_fullshot"][key],
+                "max_abs_err_fullshot_step": fs["full"]["kernel_err"][key]},
             "max_abs_err": kern["max_abs_err"][key],
             "batch": batch,
             "ms": row["ms"],
@@ -4202,6 +4737,7 @@ def main() -> int:
             "launches_serving": serving,
             "launches_training": training,
             "launches_driver": drv["int8"]["int8_launches"][variant],
+            "launches_fullshot": fs["lora_int8"]["launches"][name],
             "max_abs_err": kern8["max_abs_err"][variant],
             "batch": batch,
             "shape": {"gemm": gemm, "M": row["M"], "K": row["K"], "N": row["N"]},

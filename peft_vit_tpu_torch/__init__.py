@@ -20,5 +20,8 @@ kernels behind ``ops.attention.flash_attention``; and the int8 frozen tower
 the int8 LoRA training recipes (``int8_train=True`` with a pre-quantized tree,
 the int8 dx backward and static activation scales), with the quantize + int8
 GEMM + rescale kernel behind ``ops.int8.int8_gemm_dynamic`` and
-``int8_gemm_static``.
+``int8_gemm_static``.  Since then: the few-shot driver and its sweep, the
+PEFT methods, the text tower and zero-shot, and full-shot training of the
+supervised timm-style ViT (``engine.trainer``, ``commands.train``); the
+``ROADMAP.md`` of the repository keeps the list.
 """

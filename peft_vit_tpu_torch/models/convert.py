@@ -26,7 +26,9 @@ names and layouts back to the JAX package's.
 ``load_torch_checkpoint``, ``infer_clip_shape``, ``clip_state_dict_to_tree``,
 ``visual_state_dict`` and ``text_state_dict`` load an OpenAI CLIP
 checkpoint's visual and text towers (``MODEL.PRETRAINED``) through the JAX
-package's names, so that there is one mapping.  The text tower's leaves keep
+package's names, so that there is one mapping; ``timm_vit_state_dict_to_tree``
+and ``timm_vit_state_dict`` do the same for a timm ViT (the supervised tower
+of the full-shot trainer) with the full-shot PEFT variants' injections.  The text tower's leaves keep
 their JAX names: ``token_embedding/embedding`` (the port's ``text.Embed``
 names its table ``embedding`` too), ``positional_embedding``, ``blocks_<i>``,
 ``ln_final``, ``text_projection``.
@@ -278,6 +280,74 @@ def clip_state_dict_to_tree(sd: Mapping) -> Dict[str, np.ndarray]:
     return flat
 
 
+def _timm_adapter(sd: Mapping, owner: str, target: str, flat: Dict[str, np.ndarray]) -> None:
+    """A reference Houlsby adapter (``adapter_norm_before``, ``adapter_down``
+    = Sequential(LN, Linear, act), ``adapter_up``) under ``owner`` -> the
+    JAX package's ``Adapter`` names under ``target``; the LayerNorm inside
+    ``adapter_down`` has no counterpart and is not read, as in the JAX
+    converter."""
+    if f"{owner}.adapter_down.1.weight" not in sd:
+        return
+    flat[f"{target}/adapter_norm_before/scale"] = _np(sd[f"{owner}.adapter_norm_before.weight"])
+    flat[f"{target}/adapter_norm_before/bias"] = _np(sd[f"{owner}.adapter_norm_before.bias"])
+    flat[f"{target}/down/kernel"] = _np(sd[f"{owner}.adapter_down.1.weight"]).T
+    flat[f"{target}/down/bias"] = _np(sd[f"{owner}.adapter_down.1.bias"])
+    flat[f"{target}/up/kernel"] = _np(sd[f"{owner}.adapter_up.weight"]).T
+    flat[f"{target}/up/bias"] = _np(sd[f"{owner}.adapter_up.bias"])
+
+
+def timm_vit_state_dict_to_tree(sd: Mapping) -> Dict[str, np.ndarray]:
+    """A timm ``vit_base_patch16_224``-style state dict -> flat ``{path:
+    array}`` in the JAX package's naming (JAX ``convert.py:357``), the
+    full-shot PEFT variants' injections included: the q/v LoRA pairs, the
+    post-MLP Houlsby adapter, the shared head-dim qkv adapter, the RPB table
+    and LePE's ``get_v``.  ``cls_token`` is optional (a
+    ``use_cls_token=False`` checkpoint has a (1, g*g, w) ``pos_embed``).
+    Keys the JAX converter does not read (the head, a ``loraattn`` the
+    reference never runs) are not read here either."""
+    flat: Dict[str, np.ndarray] = {
+        "conv1/kernel": _np(sd["patch_embed.proj.weight"]).transpose(2, 3, 1, 0),
+        "conv1/bias": _np(sd["patch_embed.proj.bias"]),
+    }
+    if "cls_token" in sd:
+        flat["class_embedding"] = _np(sd["cls_token"]).reshape(-1)
+    flat["positional_embedding"] = _np(sd["pos_embed"])[0]
+    layers = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    for i in range(layers):
+        p, o = f"blocks.{i}", f"blocks_{i}"
+        flat[f"{o}/ln_1/scale"] = _np(sd[f"{p}.norm1.weight"])
+        flat[f"{o}/ln_1/bias"] = _np(sd[f"{p}.norm1.bias"])
+        flat[f"{o}/ln_2/scale"] = _np(sd[f"{p}.norm2.weight"])
+        flat[f"{o}/ln_2/bias"] = _np(sd[f"{p}.norm2.bias"])
+        flat[f"{o}/attn/in_proj/kernel"] = _np(sd[f"{p}.attn.qkv.weight"]).T
+        if f"{p}.attn.qkv.bias" in sd:
+            flat[f"{o}/attn/in_proj/bias"] = _np(sd[f"{p}.attn.qkv.bias"])
+        flat[f"{o}/attn/out_proj/kernel"] = _np(sd[f"{p}.attn.proj.weight"]).T
+        flat[f"{o}/attn/out_proj/bias"] = _np(sd[f"{p}.attn.proj.bias"])
+        flat[f"{o}/mlp/c_fc/kernel"] = _np(sd[f"{p}.mlp.fc1.weight"]).T
+        flat[f"{o}/mlp/c_fc/bias"] = _np(sd[f"{p}.mlp.fc1.bias"])
+        flat[f"{o}/mlp/c_proj/kernel"] = _np(sd[f"{p}.mlp.fc2.weight"]).T
+        flat[f"{o}/mlp/c_proj/bias"] = _np(sd[f"{p}.mlp.fc2.bias"])
+        for t in ("q", "v"):
+            if f"{p}.attn.{t}_proj_adapter1.weight" in sd:
+                flat[f"{o}/attn/{t}_adapter1/kernel"] = _np(
+                    sd[f"{p}.attn.{t}_proj_adapter1.weight"]).T
+                flat[f"{o}/attn/{t}_adapter2/kernel"] = _np(
+                    sd[f"{p}.attn.{t}_proj_adapter2.weight"]).T
+        _timm_adapter(sd, f"{p}.adapter", f"{o}/adapter", flat)
+        _timm_adapter(sd, f"{p}.attn.adapter", f"{o}/attn/qkv_adapter", flat)
+        if f"{p}.attn.relative_position_bias_table" in sd:
+            flat[f"{o}/attn/relative_position_bias_table"] = _np(
+                sd[f"{p}.attn.relative_position_bias_table"])
+        if f"{p}.attn.get_v.weight" in sd:
+            flat[f"{o}/attn/get_v/kernel"] = _np(sd[f"{p}.attn.get_v.weight"]).transpose(
+                2, 3, 1, 0)
+            flat[f"{o}/attn/get_v/bias"] = _np(sd[f"{p}.attn.get_v.bias"])
+    flat["ln_post/scale"] = _np(sd["norm.weight"])
+    flat["ln_post/bias"] = _np(sd["norm.bias"])
+    return flat
+
+
 def _subtree_state_dict(flat: Mapping[str, np.ndarray], source: str,
                         target: str) -> Dict[str, torch.Tensor]:
     """The ``<source>/...`` leaves of a flat JAX-named dict ('': every leaf)
@@ -308,6 +378,12 @@ def text_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     ``state_dict`` of a ``models.text.TextTransformer`` (the JAX builder's
     graft of the text tower)."""
     return _subtree_state_dict(flat, "text", "")
+
+
+def timm_vit_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The leaves of ``timm_vit_state_dict_to_tree`` as this package's
+    ``state_dict`` entries of the classifier's ``backbone``."""
+    return _subtree_state_dict(flat, "", "backbone")
 
 
 def clip_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -2,10 +2,14 @@
 
 * ``flagship`` — the ViT-B/16 LoRA classifier of the benchmarks.
 * ``build_image_classifier`` — the config-driven build of the few-shot
-  driver, the CLIP-ViT branch of the JAX builder: the architecture from
-  ``MODEL.SPEC`` or from the ``MODEL.PRETRAINED`` OpenAI CLIP checkpoint,
-  whose visual and text weights it loads (the PEFT leaves and the head stay
-  fresh), and the frozen text tower as ``encode_text``.
+  driver and the full-shot trainer, the ViT branches of the JAX builder:
+  for a CLIP model the architecture from ``MODEL.SPEC`` or from the
+  ``MODEL.PRETRAINED`` OpenAI CLIP checkpoint, whose visual and text
+  weights it loads (the PEFT leaves and the head stay fresh), and the
+  frozen text tower as ``encode_text``; for any other name outside the
+  backbone zoo's families (``cls_vit*``, ``vit*``) the supervised
+  timm-style ViT from ``MODEL.SPEC.VISION``, a timm checkpoint grafted onto
+  it when ``MODEL.PRETRAINED`` names one.
 * ``init_head_from_text`` — the head from the zero-shot text classifier.
 """
 
@@ -24,7 +28,8 @@ from ..peft.spec import PEFTSpec
 from ..utils import resolve_device
 from .classifier import ImageClassifier
 from .convert import (clip_state_dict_to_tree, infer_clip_shape, load_torch_checkpoint,
-                      text_state_dict, visual_state_dict)
+                      text_state_dict, timm_vit_state_dict, timm_vit_state_dict_to_tree,
+                      visual_state_dict)
 from .layers import cast_frozen_
 from .text import TextEncoder, TextTransformer
 from .vit import VisionTransformer
@@ -101,6 +106,33 @@ def _vision_model(cfg) -> str:
     return str(cfg.MODEL.SPEC.VISION.get("MODEL", "vit")).lower()
 
 
+#: the JAX builder's other backbone families, each by the substrings of
+#: ``MODEL.NAME`` and the ``MODEL.SPEC.VISION.MODEL`` values that select it
+#: (``peft_vit_tpu/models/factory.py:38-103``); none is ported yet
+_ZOO = (
+    ("convvit", ("vit_conv", "cswin"), ("vit_conv", "cswin")),
+    ("swin", ("swin",), ("swin",)),
+    ("resnet", ("resnet", "resnext"), ("resnet",)),
+    ("rexnet", ("rexnet",), ("rexnet",)),
+    ("efficientnet", ("efficientnet",), ("efficientnet",)),
+    ("ttnet", ("ttnet",), ("ttnet",)),
+    ("hrnet", ("hrnet",), ("hrnet",)),
+)
+
+
+def zoo_family(cfg) -> Optional[str]:
+    """The backbone family of a non-CLIP config other than the timm ViT, or
+    None for the timm ViT (the JAX builder's fallback branch)."""
+    name = str(cfg.MODEL.NAME).lower()
+    vm = _vision_model(cfg)
+    for family, names, models in _ZOO:
+        if family == "swin" and "cswin" in name:
+            continue
+        if any(n in name for n in names) or vm in models:
+            return family
+    return None
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to peft_vit_tpu_torch yet (ROADMAP §1, {item})")
@@ -123,10 +155,11 @@ def build_image_classifier(
     device=None,
     seed: int = 0,
 ) -> Tuple[ImageClassifier, Dict[str, torch.Tensor], Optional[TextEncoder]]:
-    """Returns ``(model, params, encode_text)``: the CLIP-ViT classifier on
+    """Returns ``(model, params, encode_text)``: the ViT classifier on
     ``device`` (None: the card), its named parameters, and the frozen CLIP
     text tower as a function of token ids (``models.text.TextEncoder``), or
-    None for a checkpoint without one (a visual-only export).
+    None for a checkpoint without one (a visual-only export) and for the
+    timm-style ViT (``_timm_classifier``).
 
     The weights are drawn on the CPU from ``seed`` (the JAX builder's
     ``PRNGKey(0)``; the text tower's from ``seed + 1``, its ``PRNGKey(1)``),
@@ -145,16 +178,19 @@ def build_image_classifier(
     ``TPU.ATTN_BATCH_CHUNK``, ``TRAIN.MERGE_ENCODER_AND_HEAD_PROJ`` and
     ``TRAIN.NORMALIZE_VISUAL_FEATURE``.  ``TPU.FLASH_ATTENTION`` and
     ``TPU.REMAT`` do not apply: the card always runs the attention kernels,
-    and autograd keeps what the backward needs.  Other backbones,
-    ``TPU.SCAN_LAYERS`` and ``TPU.SEQUENCE_PARALLEL`` raise
+    and autograd keeps what the backward needs.  The other backbone
+    families (``zoo_family``), ``TPU.SCAN_LAYERS`` and ``TPU.SEQUENCE_PARALLEL`` raise
     ``NotImplementedError``.
     """
     device = resolve_device(device)
     tpu = cfg.TPU
-    if not is_clip_model(cfg) or _vision_model(cfg) != "vit" or re.match(
-            r"^rn\d+", str(cfg.MODEL.NAME).lower()):
-        raise _not_ported(f"MODEL.NAME {cfg.MODEL.NAME!r} (only CLIP ViT towers)",
+    clip = is_clip_model(cfg)
+    if clip and (_vision_model(cfg) != "vit" or re.match(r"^rn\d+", str(cfg.MODEL.NAME).lower())):
+        raise _not_ported(f"MODEL.NAME {cfg.MODEL.NAME!r} (a CLIP tower other than the ViT)",
                           "the backbone zoo")
+    if not clip and zoo_family(cfg) is not None:
+        raise _not_ported(f"MODEL.NAME {cfg.MODEL.NAME!r} (the {zoo_family(cfg)} family; only "
+                          "the CLIP and timm-style ViTs)", "the backbone zoo")
     if bool(tpu.get("SCAN_LAYERS", False)):
         raise _not_ported("TPU.SCAN_LAYERS", "the rest")
     if bool(tpu.get("SEQUENCE_PARALLEL", False)):
@@ -169,12 +205,29 @@ def build_image_classifier(
     softmax_fp32 = not bool(tpu.get("BF16_SOFTMAX", False))
     check_softmax_fp32(device.type, softmax_fp32)
 
+    vit_kw = dict(
+        spec=spec,
+        ln_fp32=not bool(tpu.get("BF16_LN", False)),
+        int8=bool(tpu.get("INT8_INFERENCE", False)),
+        int8_train=int8_train,
+        int8_attn=int8_attn,
+        int8_attn_pv=bool(tpu.get("INT8_ATTN_PV", False)),
+        int8_targets=tuple(tpu.get("INT8_TARGETS", INT8_TARGET_MODULES)),
+        patch_gemm=bool(tpu.get("PATCH_EMBED_GEMM", False)),
+        softmax_fp32=softmax_fp32,
+        attn_batch_chunk=int(tpu.get("ATTN_BATCH_CHUNK", 0)),
+        dtype=compute_dtype(cfg, device),
+        device="cpu",
+    )
     sd = None
     s = cfg.MODEL.SPEC
     if cfg.MODEL.PRETRAINED:
         sd = load_torch_checkpoint(cfg.MODEL.PRETRAINED,
                                    model_key=str(cfg.TEST.get("MODEL_KEY", "")))
         logger.info("=> loaded checkpoint %s", cfg.MODEL.PRETRAINED)
+    if not clip:
+        return _timm_classifier(cfg, num_classes, use_bn, sd, vit_kw, seed, device)
+    if sd is not None:
         if "visual.conv1.weight" not in sd or "visual.attnpool.c_proj.weight" in sd:
             raise _not_ported("a checkpoint without a CLIP ViT visual tower",
                               "the backbone zoo")
@@ -198,7 +251,7 @@ def build_image_classifier(
             has_text=True,
         )
     merge_proj = bool(cfg.TRAIN.MERGE_ENCODER_AND_HEAD_PROJ)
-    dtype = compute_dtype(cfg, device)
+    dtype = vit_kw["dtype"]
     with torch.random.fork_rng(devices=[]):
         torch.default_generator.manual_seed(seed)
         backbone = VisionTransformer(
@@ -208,18 +261,7 @@ def build_image_classifier(
             layers=info["vision_layers"],
             heads=info["vision_heads"],
             output_dim=None if merge_proj else info["embed_dim"],
-            spec=spec,
-            ln_fp32=not bool(tpu.get("BF16_LN", False)),
-            int8=bool(tpu.get("INT8_INFERENCE", False)),
-            int8_train=int8_train,
-            int8_attn=int8_attn,
-            int8_attn_pv=bool(tpu.get("INT8_ATTN_PV", False)),
-            int8_targets=tuple(tpu.get("INT8_TARGETS", INT8_TARGET_MODULES)),
-            patch_gemm=bool(tpu.get("PATCH_EMBED_GEMM", False)),
-            softmax_fp32=softmax_fp32,
-            attn_batch_chunk=int(tpu.get("ATTN_BATCH_CHUNK", 0)),
-            dtype=dtype,
-            device="cpu",
+            **vit_kw,
         )
         model = ImageClassifier(
             backbone, num_classes=num_classes, use_bn=use_bn,
@@ -260,6 +302,40 @@ def build_image_classifier(
         return cast_frozen_(text.requires_grad_(False).to(device))
 
     return model, dict(model.named_parameters()), TextEncoder(build_text, info["context_length"])
+
+
+def _timm_classifier(cfg, num_classes: int, use_bn: bool, sd, vit_kw: dict, seed: int,
+                     device: torch.device):
+    """The JAX builder's fallback branch (``factory.py:605-682``): the
+    timm-style ViT of ``MODEL.SPEC.VISION`` at ``TRAIN.IMAGE_SIZE`` under the
+    classifier head, with a timm state dict ``sd`` grafted onto it (the PEFT
+    leaves and the head stay fresh).  No text tower."""
+    v = cfg.MODEL.SPEC.VISION
+    with torch.random.fork_rng(devices=[]):
+        torch.default_generator.manual_seed(seed)
+        backbone = VisionTransformer(
+            image_size=int(cfg.TRAIN.IMAGE_SIZE[0]),
+            patch_size=int(v.PATCH_SIZE),
+            width=int(v.WIDTH),
+            layers=int(v.LAYERS),
+            heads=int(v.HEADS),
+            style="timm",
+            **vit_kw,
+        )
+        model = ImageClassifier(
+            backbone, num_classes=num_classes, use_bn=use_bn,
+            normalize_visual=bool(cfg.TRAIN.NORMALIZE_VISUAL_FEATURE), dtype=vit_kw["dtype"],
+            device="cpu",
+        )
+    model.aux = {}
+    if sd is not None:
+        state = timm_vit_state_dict(timm_vit_state_dict_to_tree(sd))
+        missing, unexpected = model.load_state_dict(state, strict=False)
+        if unexpected:
+            raise ValueError(f"checkpoint leaves the model does not have: {sorted(unexpected)}")
+        logger.info("=> grafted timm ViT weights (%d fresh leaves)", len(missing))
+    model = model.to(device)
+    return model, dict(model.named_parameters()), None
 
 
 def init_head_from_text(model: ImageClassifier, text_features, logit_scale: float = 1.0) -> None:

@@ -179,13 +179,16 @@ def test_port_imports_nothing_of_jax():
                      "commands.run", "models.text", "models.clip", "models.classifier",
                      "data.tokenizer", "data.prompts", "engine.zeroshot", "engine.contrastive",
                      "engine.loss", "engine.cached", "engine.probes", "commands.zeroshot_eval",
-                     "commands.linear_probe", "commands.eval_all"):
+                     "commands.linear_probe", "commands.eval_all", "engine.optim",
+                     "engine.ema", "engine.mixup", "engine.checkpoint", "engine.trainer",
+                     "utils.tb", "commands.train", "commands.swa_finetune",
+                     "commands.bit_finetune"):
             assert "peft_vit_tpu_torch." + want in names, want
         import bench_torch, chip_smoke
         bad = sorted(
             n for n in sys.modules
             if n.split(".")[0].startswith("jax")
-            or n.split(".")[0] in ("flax", "optax", "sklearn", "transformers")
+            or n.split(".")[0] in ("flax", "optax", "orbax", "sklearn", "transformers")
             or n == "peft_vit_tpu" or n.startswith("peft_vit_tpu.")
         )
         assert not bad, bad
