@@ -182,7 +182,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    recalibrated each epoch, captured == eager and K6 == its plain version
    bit for bit on the first step, the step's time), and a width-64, one-head
    tower in fp32 on the card against the CPU (the epoch losses within
-   ``TOL_FULLSHOT_LOSS_REL``, the same best top-1).
+   ``TOL_FULLSHOT_LOSS_REL``, the same best top-1);
+14. streaming: the native runtime built from ``runtime/pvtio.cpp`` into
+   ``build/`` (its path and build time, or what is missing); 640 train and
+   128 test PNGs of 256x320 and 320x256 (written with zlib and struct), 10
+   classes, as 4 TSV shards, an ImageFolder tree and an ELEVATER manifest.
+   With the runtime: the TSV source's epochs equal ``decode_resize`` of each
+   image in the sampler's order with RandomState(seed + 7919 (epoch + 1))'s
+   flips, ``batches(e, skip_batches=3)`` the uninterrupted tail (K = 1 and
+   2), K = 2 chunks the single batches, the three layouts the same images,
+   and the decode rate.  Without it, the narrowed path: the same source
+   checks over an in-memory uint8 loader (no decode).  Then
+   ``train_main`` at ViT-B/16 (vitb16_sup.yaml, B = 64, every leaf trained)
+   through the streaming branch with ``AUG.TIMM_AUG`` (rand-m9-mstd0.5-inc1,
+   erasing 0.25 pixel, hflip 0.5) inside the captured step, K = 2 chunks
+   through the pinned prefetch, 2 epochs of 10 steps: the batches from the
+   source, every step and eval batch one replay, K1-K3 12 each a replay,
+   the first step captured == eager and its update with K1-K3 against the
+   float64 backward, a run stopped in epoch 1 and resumed == the
+   uninterrupted one (state, both generators), the augmentation on the card
+   against the CPU with the same draws; the step's time, the augmentation's
+   share of its busy time, a streaming epoch's idle share, the pinned copy's
+   time.  Then ``finetune_main`` (LoRA, vitb16_CLIP.yaml) on the 5-way
+   manifest: its train split equal to ``decode_resize`` of each PNG, one
+   round of 3 cells and the final train, K1-K3 counted by ``launch_rule``.
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -193,10 +216,12 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -4144,8 +4169,12 @@ def trainer_spy(sync):
         def train_step(self, x, y, epoch):
             step = int(self.state.step)
             if step == 0:
-                seen["first"] = {"x": np.array(x), "y": np.array(y), "rng":
-                                 self.generator.get_state(), "before": snapshot(self)}
+                seen["first"] = {
+                    "x": x.clone() if torch.is_tensor(x) else np.array(x),
+                    "y": y.clone() if torch.is_tensor(y) else np.array(y),
+                    "rng": self.generator.get_state(), "before": snapshot(self),
+                    "noise_rng": (self.noise_generator.get_state()
+                                  if self.noise_generator is not None else None)}
             loss, lr = super().train_step(x, y, epoch)
             seen["steps"].append((step, lr.clone()))
             if step == 0:
@@ -4203,6 +4232,8 @@ def _rerun_first_step(trainer, first: dict) -> None:
         s.ema._replace(shadow={k: v.clone() for k, v in b["ema"].items()}) if s.ema else None,
         s.swa, s.batch_stats, torch.ones_like(s.finite))
     trainer.generator.set_state(first["rng"])
+    if first.get("noise_rng") is not None:
+        trainer.noise_generator.set_state(first["noise_rng"])
     trainer.train_step(first["x"], first["y"], 0)
 
 
@@ -4275,15 +4306,17 @@ def _graphs_of(trainer, kind: str) -> list:
     return [g for key, g in trainer.graphs.items() if key[0] == kind]
 
 
-def fullshot_drive(label: str, cfg, smi: str, device: str, sync) -> dict:
+def fullshot_drive(label: str, cfg, smi: str, device: str, sync, sources=None,
+                   out_dir: str = FULLSHOT_DIR) -> dict:
     """``train_main(cfg)`` observed (``trainer_spy``): the wrappers' counts
-    from 0 just before and read just after, the wall time and peak memory."""
+    from 0 just before and read just after, the wall time and peak memory.
+    ``sources``: ``train_main``'s streaming sources in place of the config's."""
     import shutil
 
     from peft_vit_tpu_torch.commands import train as train_cmd
     from peft_vit_tpu_torch.ops import launch_counts
 
-    shutil.rmtree(FULLSHOT_DIR, ignore_errors=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
     if device == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4292,7 +4325,7 @@ def fullshot_drive(label: str, cfg, smi: str, device: str, sync) -> dict:
         before = launch_counts()
         sync()
         t0 = time.perf_counter()
-        best = train_cmd.train_main(cfg, device=device)
+        best = train_cmd.train_main(cfg, device=device, sources=sources)
         sync()
         seen["wall_s"] = time.perf_counter() - t0
         seen["counts"] = {n: c - before[n] for n, c in launch_counts().items()}
@@ -4325,6 +4358,55 @@ def _hold_graphs(label: str, trainer, counts: dict, train_want: dict, eval_want:
     check(counts == wanted, f"{label}: the wrappers counted {counts} == ({StepGraph.WARMUP} "
           "warm-up runs + the capture) x the launches a replay of each graph"
           + (f" + {eager} outside them" if eager else ""))
+
+
+def hold_first_step(label: str, tr, first: dict, on_card: bool):
+    """The first train step (``trainer_spy``'s record) run again eagerly:
+    equal to its capture bit for bit; its attention operands held against
+    K1-K3's plain versions; its update with K1-K3 against the float64
+    backward, no farther than the plain dq/dk/dv's.  Returns the kernels'
+    largest errors (None on the CPU)."""
+    import bench_torch
+    from peft_vit_tpu_torch.ops import attention as attn
+
+    captured = {part: dict(leaves) for part, leaves in first["after"].items()}
+    layers = tr.model.backbone.layers
+    with bench_torch.eager_on_card(), attention_spy() as calls:
+        _rerun_first_step(tr, first)
+    differ = _state_differ(tr, captured)
+    n_state = sum(len(v) for v in captured.values())
+    check(not differ, f"{label}: the first step captured == eager bit for bit ({n_state} "
+          "state tensors: trainable, momentum, EMA)" + (f"; differ: {differ[:4]}" if differ else ""))
+    check(len(calls) == layers and all("do" in c for c in calls),
+          f"{label}: the eager step's {len(calls)} attention calls (== {layers}) each "
+          "received a gradient")
+    kernel_err = hold_step_attention(attn, f"{label} first step", calls) if on_card else None
+    del calls
+    if on_card:
+        updates = {}
+        for name, ctx in (("plain", plain_backward), ("exact", exact_backward)):
+            with bench_torch.eager_on_card(), ctx(attn):
+                _rerun_first_step(tr, first)
+            updates[name] = {k: (v - first["before"]["trainable"][k]).double().flatten()
+                             for k, v in tr.state.trainable.items()}
+        kernel = {k: (v - first["before"]["trainable"][k]).double().flatten()
+                  for k, v in captured["trainable"].items()}
+        cos = {}
+        for k, u in kernel.items():
+            cos[k] = tuple(1.0 if torch.equal(a, b) else torch.nn.functional.cosine_similarity(
+                a, b, dim=0).item() for a, b in ((u, updates["plain"][k]),
+                                                 (u, updates["exact"][k]),
+                                                 (updates["plain"][k], updates["exact"][k])))
+        miss = {who: statistics.fmean(1.0 - v[i] for v in cos.values())
+                for i, who in ((1, "kernel"), (2, "plain"))}
+        least = min(cos, key=lambda k: cos[k][0])
+        check(miss["kernel"] <= TOL_METHOD_EXACT_RATIO * miss["plain"] + TOL_METHOD_EXACT_FLOOR,
+              f"{label}: the first step's update with K1-K3 against the float64 backward, "
+              f"{len(cos)} leaves: mean 1 - cosine {miss['kernel']:.3e} <= "
+              f"{TOL_METHOD_EXACT_RATIO:g} x the plain dq/dk/dv's {miss['plain']:.3e} + "
+              f"{TOL_METHOD_EXACT_FLOOR:g}; against the plain versions least cosine "
+              f"{cos[least][0]:.6f} ({least}), printed, not held")
+    return kernel_err
 
 
 def fullshot_phase(smi: str, device: str = "cuda") -> dict:
@@ -4386,43 +4468,7 @@ def fullshot_phase(smi: str, device: str = "cuda") -> dict:
     first = run["first"]
     after = first["after"]
     captured = {part: dict(leaves) for part, leaves in after.items()}
-    with bench_torch.eager_on_card(), attention_spy() as calls:
-        _rerun_first_step(tr, first)
-    differ = _state_differ(tr, captured)
-    n_state = sum(len(v) for v in captured.values())
-    check(not differ, f"fullshot full: the first step captured == eager bit for bit ({n_state} "
-          "state tensors: trainable, momentum, EMA)" + (f"; differ: {differ[:4]}" if differ else ""))
-    check(len(calls) == layers and all("do" in c for c in calls),
-          f"fullshot full: the eager step's {len(calls)} attention calls (== {layers}) each "
-          "received a gradient")
-    kernel_err = (hold_step_attention(attn, "fullshot full first step", calls) if on_card
-                  else None)
-    del calls
-    if on_card:
-        updates = {}
-        for name, ctx in (("plain", plain_backward), ("exact", exact_backward)):
-            with bench_torch.eager_on_card(), ctx(attn):
-                _rerun_first_step(tr, first)
-            updates[name] = {k: (v - first["before"]["trainable"][k]).double().flatten()
-                             for k, v in tr.state.trainable.items()}
-        kernel = {k: (v - first["before"]["trainable"][k]).double().flatten()
-                  for k, v in captured["trainable"].items()}
-        cos = {}
-        for k, u in kernel.items():
-            cos[k] = tuple(1.0 if torch.equal(a, b) else torch.nn.functional.cosine_similarity(
-                a, b, dim=0).item() for a, b in ((u, updates["plain"][k]),
-                                                 (u, updates["exact"][k]),
-                                                 (updates["plain"][k], updates["exact"][k])))
-        miss = {who: statistics.fmean(1.0 - v[i] for v in cos.values())
-                for i, who in ((1, "kernel"), (2, "plain"))}
-        least = min(cos, key=lambda k: cos[k][0])
-        check(miss["kernel"] <= TOL_METHOD_EXACT_RATIO * miss["plain"] + TOL_METHOD_EXACT_FLOOR,
-              f"fullshot full: the first step's update with K1-K3 against the float64 backward, "
-              f"{len(cos)} leaves: mean 1 - cosine {miss['kernel']:.3e} <= "
-              f"{TOL_METHOD_EXACT_RATIO:g} x the plain dq/dk/dv's {miss['plain']:.3e} + "
-              f"{TOL_METHOD_EXACT_FLOOR:g}; against the plain versions least cosine "
-              f"{cos[least][0]:.6f} ({least}), printed, not held")
-        del updates, kernel
+    kernel_err = hold_first_step("fullshot full", tr, first, on_card)
 
     # 3. a fresh Trainer stopped after its first mid-epoch checkpoint (one
     # step: CHECKPOINT_EVERY_STEPS 1, since 160 images at B=64 make an epoch
@@ -4565,6 +4611,548 @@ def fullshot_phase(smi: str, device: str = "cuda") -> dict:
     return out
 
 
+# Streaming data (phase 14): the native decode ring and the streaming source
+# feeding train_main at ViT-B/16 with the timm augmentation inside the
+# captured step, and finetune_main on an ELEVATER manifest.
+STREAM_CLASSES = 10
+STREAM_TRAIN, STREAM_TEST = 640, 128  # ImageNet's 1.28 M train images cut to 640
+STREAM_SIZES = ((256, 320), (320, 256))  # PNG heights x widths, in turn: the resize-and-crop runs
+STREAM_SHARDS = 4
+STREAM_K = 2  # TPU.STEPS_PER_DISPATCH of the source checks
+STREAM_SKIP = 3  # skip_batches of the source checks: aligned at K = 1, misaligned at K = 2
+STREAM_RESUME_AT = 4  # the trainer's mid-epoch checkpoint: 2 chunks of K = 2 into epoch 1
+STREAM_DIR = "build/streaming"  # the data, checkpoints and logs, removed after the phase
+STREAM = {"DATASET.NUM_CLASSES": STREAM_CLASSES, "MODEL.NUM_CLASSES": STREAM_CLASSES,
+          "TRAIN.IMAGE_SIZE": [IMAGE, IMAGE], "PEFT.METHOD": "none",
+          "TRAIN.BATCH_SIZE_PER_GPU": FULLSHOT_BATCH, "TEST.BATCH_SIZE_PER_GPU": FULLSHOT_BATCH,
+          "TRAIN.END_EPOCH": 2, "TRAIN.OPTIMIZER": "sgd", "TRAIN.MOMENTUM": 0.9,
+          "TRAIN.NESTEROV": True, "TRAIN.LR": 1e-3, "TRAIN.WD": 1e-4,
+          "TRAIN.LR_SCHEDULER.METHOD": "warmupcosine", "TRAIN.LR_SCHEDULER.WARMUP_EPOCH": 1,
+          "TRAIN.EMA_DECAY": 0.999, "AUG.TIMM_AUG.USE_TRANSFORM": True,
+          "AUG.TIMM_AUG.AUTO_AUGMENT": "rand-m9-mstd0.5-inc1", "AUG.TIMM_AUG.RE_PROB": 0.25,
+          "AUG.TIMM_AUG.RE_MODE": "pixel", "AUG.TIMM_AUG.HFLIP": 0.5,
+          "DATASET.RANDOM_SEED_SAMPLING": 3, "TPU.PREFETCH_DEPTH": 2, "WORKERS": 8,
+          "TPU.STEPS_PER_DISPATCH": STREAM_K,
+          "TPU.COMPUTE_DTYPE": "bfloat16", "PRINT_FREQ": 5, "NAME": "streaming"}
+STREAM_FEWSHOT = {"DATASET.NUM_CLASSES": 5, "DATASET.NUM_SAMPLES_PER_CLASS": 4,
+                  "TRAIN.BATCH_SIZE_PER_GPU": 16, "TRAIN.END_EPOCH": 2,
+                  "TRAIN.SEARCH_WD_POINTS": 3, "TRAIN.SEARCH_WD_INIT_POINTS": 3,
+                  "TRAIN.SEARCH_WD_LOG_UPPER": -2, "PEFT.METHOD": "lora"}
+STREAM_FEWSHOT_LRS = (1e-3,)  # one round of 3 (lr, wd) cells
+STREAM_AUG_TOL = 1e-4  # an op, card against CPU, on the [0, 255] scale (the CPU tests' bound)
+STREAM_STEP_CONSUMPTION = 2085.0  # images/s of the in-memory full-shot step (PERF.md §5, PR 14)
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """An (H, W, 3) uint8 image as an 8-bit RGB PNG, from the standard
+    library's zlib and struct (no PIL)."""
+    import struct
+    import zlib
+
+    h, w, _ = img.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], 1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def stream_image(i: int, rng: np.random.RandomState, h: int, w: int) -> Tuple[np.ndarray, int]:
+    """Image ``i``: noise with a bright band at its class's rows (the
+    synthetic dataset's learnable pattern)."""
+    c = i % STREAM_CLASSES
+    x = rng.randint(0, 120, (h, w, 3)).astype(np.uint8)
+    band = h // STREAM_CLASSES
+    x[c * band:(c + 1) * band] += 120
+    return x, c
+
+
+def write_stream_dataset(root: str, on_disk: bool = True) -> dict:
+    """The train and test images as PNGs laid out three ways under
+    ``root``: ``STREAM_SHARDS`` base64 TSV shards (and one test shard), an
+    ImageFolder tree, and an ELEVATER manifest (``vision_datasets.json``, a
+    coco index, ``images.zip@member``) of all the classes and one of the
+    first five (the few-shot drive's).  Returns the PNG bytes and labels in
+    TSV order, and the in-memory uint8 images at ``IMAGE`` (the same pattern
+    drawn at the decoded size: what needs no decode), which alone are made
+    when not ``on_disk``."""
+    import base64
+    import zipfile
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(SEED + 14)
+    out = {}
+    for split, n in (("train", STREAM_TRAIN), ("test", STREAM_TEST)):
+        labels = np.arange(n) % STREAM_CLASSES
+        mem = np.stack([stream_image(i, np.random.RandomState(SEED + 15 + i), IMAGE, IMAGE)[0]
+                        for i in range(n)])
+        out[split] = {"labels": labels.astype(np.int64), "mem": mem}
+        if not on_disk:
+            continue
+        pngs = []
+        for i in range(n):
+            h, w = STREAM_SIZES[i % len(STREAM_SIZES)]
+            pngs.append(png_bytes(stream_image(i, rng, h, w)[0]))
+        shards = STREAM_SHARDS if split == "train" else 1
+        per = -(-n // shards)
+        names = []
+        for s in range(shards):
+            names.append(f"{split}{s}.tsv")
+            with open(os.path.join(root, names[-1]), "w") as f:
+                for i in range(s * per, min(n, (s + 1) * per)):
+                    f.write(f"{split}{i}\t{base64.b64encode(pngs[i]).decode()}\t{labels[i]}\n")
+        for i, (b, c) in enumerate(zip(pngs, labels)):
+            d = os.path.join(root, "folder", split, f"class{c:02d}")
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, f"{i:05d}.png"), "wb") as f:
+                f.write(b)
+        out[split].update(png=pngs, tsv=names)
+    if not on_disk:
+        return out
+    for name, classes in (("stream-10way", STREAM_CLASSES), ("stream-5way", 5)):
+        folder = os.path.join(root, "elevater", name)
+        os.makedirs(folder, exist_ok=True)
+        entry = {"name": name, "type": "classification_multiclass", "root_folder": name,
+                 "format": "coco"}
+        for split in ("train", "test"):
+            keep = [i for i, c in enumerate(out[split]["labels"]) if c < classes]
+            with zipfile.ZipFile(os.path.join(folder, "images.zip"), "a") as z:
+                for i in keep:
+                    z.writestr(f"{split}/{i:05d}.png", out[split]["png"][i])
+            index = {"images": [{"id": j + 1, "file_name": f"images.zip@{split}/{i:05d}.png"}
+                                for j, i in enumerate(keep)],
+                     "annotations": [{"id": j + 1, "image_id": j + 1,
+                                      "category_id": int(out[split]["labels"][i]) + 1}
+                                     for j, i in enumerate(keep)],
+                     "categories": [{"id": c + 1, "name": f"pattern {c}"}
+                                    for c in range(classes)]}
+            with open(os.path.join(folder, f"{split}.json"), "w") as f:
+                json.dump(index, f)
+            entry[split] = {"index_path": f"{split}.json", "files_for_local_usage": ["images.zip"]}
+        out[name] = entry
+    with open(os.path.join(root, "elevater", "vision_datasets.json"), "w") as f:
+        json.dump([out["stream-10way"], out["stream-5way"]], f)
+    return out
+
+
+def stream_cfg(root: str, source: str, **over):
+    """``STREAM`` over the TSV shards, the ImageFolder tree or the zip
+    manifest under ``root``."""
+    src = {"tsv": {"DATASET.DATASET": "stream", "DATASET.ROOT": root,
+                   "DATASET.TRAIN_TSV_LIST": [f"train{s}.tsv" for s in range(STREAM_SHARDS)],
+                   "DATASET.TEST_TSV_LIST": ["test0.tsv"]},
+           "folder": {"DATASET.DATASET": "stream", "DATASET.ROOT": f"{root}/folder",
+                      "DATASET.TRAIN_SET": "train", "DATASET.TEST_SET": "test"},
+           "zip": {"DATASET.DATASET": "stream-10way", "DATASET.ROOT": f"{root}/elevater",
+                   "DATASET.TRAIN_SET": "", "DATASET.TEST_SET": ""}}[source]
+    return driver_cfg({**STREAM, **FULLSHOT_MODEL, **src, "OUTPUT_DIR": f"{STREAM_DIR}/out",
+                       **over}, FULLSHOT_YAML)
+
+
+def _flat_batches(items) -> list:
+    out = []
+    for item in items:
+        if len(item) == 3:
+            out += [(item[0][j], item[1][j]) for j in range(item[0].shape[0])]
+        else:
+            out.append((item[0], item[1]))
+    return out
+
+
+def stream_source_checks(label: str, make_source, image_of, labels: np.ndarray) -> None:
+    """A source's train epochs against their construction by hand, in the
+    sampler's order with the flips of RandomState(seed + 7919 (epoch + 1)),
+    each image ``image_of(i)`` normalised; ``batches(e, skip)`` against the
+    uninterrupted epoch's tail, chunk-aligned (K = 1) and misaligned (K = 2);
+    K = 2 chunks against the single batches."""
+    from peft_vit_tpu_torch.data.samplers import build_order
+
+    src = make_source(1, True)
+    b, seed = src.batch, src.seed
+    mean, std = src.mean, src.std
+    bad = []
+    for epoch in (0, 1):
+        order = build_order(src.sampler, len(labels), epoch, seed, labels_fn=lambda: labels)
+        rng = np.random.RandomState(seed + 7919 * (epoch + 1))
+        got = _flat_batches(src.batches(epoch))
+        for j, (x, y) in enumerate(got):
+            idx = order[j * b:(j + 1) * b]
+            want = np.stack([image_of(i) for i in idx]).astype(np.float32)
+            flip = rng.rand(b) < 0.5
+            want[flip] = want[flip, :, ::-1]
+            want = (want - mean) / std
+            if not (np.array_equal(x, want) and np.array_equal(y, labels[idx])):
+                bad.append((epoch, j))
+    check(not bad and len(got) == len(labels) // b,
+          f"{label}: 2 epochs of {len(got)} normalised batches == the images in the sampler's "
+          "order with RandomState(seed + 7919 (epoch + 1))'s flips, bit for bit"
+          + (f"; differ: {bad[:4]}" if bad else ""))
+    single = _flat_batches(src.batches(1))
+    chunked = make_source(STREAM_K, True)
+    pairs = _flat_batches(chunked.batches(1))
+    same = len(pairs) == len(single) and all(
+        np.array_equal(a, c) and np.array_equal(bb, d) for (a, bb), (c, d) in zip(pairs, single))
+    check(same, f"{label}: K = {STREAM_K} chunks of epoch 1 == its single batches bit for bit "
+          f"({len(pairs)} batches)")
+    for k, src_k in ((1, src), (STREAM_K, chunked)):
+        tail = _flat_batches(src_k.batches(1, skip_batches=STREAM_SKIP))
+        same = len(tail) == len(single) - STREAM_SKIP and all(
+            np.array_equal(a, c) and np.array_equal(bb, d)
+            for (a, bb), (c, d) in zip(tail, single[STREAM_SKIP:]))
+        check(same, f"{label}: batches(1, skip_batches={STREAM_SKIP}) at K = {k} "
+              f"({'aligned' if STREAM_SKIP % k == 0 else 'misaligned'}) == the uninterrupted "
+              f"epoch's last {len(single) - STREAM_SKIP} batches bit for bit")
+
+
+@contextlib.contextmanager
+def source_spy():
+    """Within, every ``StreamingSource.batches`` item is counted per split."""
+    from peft_vit_tpu_torch.data import streaming
+
+    seen = {"train": 0, "test": 0, "dtypes": set()}
+    original = streaming.StreamingSource.batches
+
+    def spy(self, *args, **kwargs):
+        for item in original(self, *args, **kwargs):
+            seen[self.split] += item[0].shape[0] if len(item) == 3 else 1
+            seen["dtypes"].add(str(item[0].dtype))
+            yield item
+
+    streaming.StreamingSource.batches = spy
+    try:
+        yield seen
+    finally:
+        streaming.StreamingSource.batches = original
+
+
+def augment_card_check(tr, x: torch.Tensor, smi: str) -> dict:
+    """The augmentation's arithmetic on the card against the same arithmetic
+    on the CPU with the same draws and noise: each of the 16 ops (every image
+    drawing it), then the whole transform; and the transform's time alone,
+    captured."""
+    from peft_vit_tpu_torch.data import augment as aug
+    from peft_vit_tpu_torch.engine import StepGraph
+
+    t = tr.transform
+    g = torch.Generator().manual_seed(SEED + 16)
+    xf = x.to(torch.float32)
+    m = torch.clamp(9.0 + 0.5 * torch.randn(x.shape[0], generator=g), 0, 10)
+    m = torch.where(torch.rand(x.shape[0], generator=g) < 0.5, -m, m)
+    worst = {}
+    for k, name in enumerate(aug.OPS):
+        mk = m if aug.SIGNED[k] else m.abs()
+        op = torch.full((x.shape[0],), k)
+        mat = aug.affine_matrices(op, mk, x.shape[1], x.shape[2])  # on the host, as draw() does
+        card = aug.apply_op(xf, op.to(x.device), mk.to(x.device), mat.to(x.device))
+        cpu = aug.apply_op(xf.cpu(), op, mk, mat)
+        worst[name] = (card.cpu() - cpu).abs().max().item()
+    check(max(worst.values()) <= STREAM_AUG_TOL,
+          f"streaming augment: each of the 16 RandAugment ops on the card against the CPU on the "
+          f"first batch {tuple(x.shape)}, the geometric matrices from the host: max abs err "
+          + (", ".join(f"{n} {e:.1e}" for n, e in worst.items() if e) + " (the others 0)"
+             if any(worst.values()) else "0 for every op")
+          + f" <= {STREAM_AUG_TOL:g} on the [0, 255] scale")
+    draws = t.draw(g, x.shape)
+    noise = torch.randn(x.shape, generator=g)
+    card = t(x, {k: v.to(x.device) for k, v in draws.items()}, noise.to(x.device))
+    cpu = t(x.cpu(), draws, noise)
+    diff = (card.cpu() - cpu).abs() * 255.0 * min(t.std)
+    share = (diff > STREAM_AUG_TOL).float().mean().item()
+    check(diff.max().item() <= STREAM_AUG_TOL,
+          f"streaming augment: the whole transform (flip, rand-m{t.magnitude:g}-mstd"
+          f"{t.mag_std:g} x{t.num_ops}, erasing p={t.re_prob:g} {t.re_mode}, normalise) on the "
+          f"card against the CPU, same draws and noise: max abs err {diff.max().item():.3e} on "
+          f"the [0, 255] scale (share beyond {STREAM_AUG_TOL:g}: {share:.2e}) <= "
+          f"{STREAM_AUG_TOL:g}")
+    row = {"op_err": worst, "transform_err": diff.max().item()}
+    if x.is_cuda:
+        inputs = {"x": x, "d": {k: v.to(x.device) for k, v in draws.items()},
+                  "n": noise.to(x.device)}
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        graph = StepGraph(lambda b: t(b["x"], b["d"], b["n"]), inputs)
+        row["peak_gib"] = (torch.cuda.max_memory_allocated() - before) / 2**30
+        row["ms"] = _replay_ms(graph, 10)
+        print(f"streaming augment alone on {tuple(x.shape)}: {row['ms']:.3f} ms a replay, "
+              f"{row['peak_gib']:.2f} GiB of memory at its capture; {smi}", flush=True)
+        del graph
+    return row
+
+
+def pinned_copy_ms(shape, reps: int = 20) -> float:
+    """One (B, S, S, 3) uint8 batch's host -> card copy from a pinned buffer
+    (the prefetch's copy), per batch, CUDA events."""
+    host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(shape, dtype=torch.uint8, device="cuda")
+    side = torch.cuda.Stream()
+    dev.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(side):
+        start.record(side)
+        for _ in range(reps):
+            dev.copy_(host, non_blocking=True)
+        end.record(side)
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def streaming_phase(smi: str, device: str = "cuda") -> dict:
+    """Phase 14 (see the module docstring); ``device`` "cpu" rehearses the
+    phase's own code at a tiny size (with the StepGraph stand-in patched in,
+    only the launch checks fail there)."""
+    import itertools
+    import shutil
+
+    from peft_vit_tpu_torch.commands import train as train_cmd
+    from peft_vit_tpu_torch.data import native, registry
+    from peft_vit_tpu_torch.data.streaming import ArrayLoader, StreamingSource, host_prefetch
+    from peft_vit_tpu_torch.engine.trainer import Trainer
+    from peft_vit_tpu_torch.peft import build_mask
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {}
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+
+    # 1. the native runtime: built from runtime/pvtio.cpp into build/
+    t0 = time.perf_counter()
+    try:
+        lib = native.build()
+        native_ok, why = native.native_available(), native.native_error()
+    except RuntimeError as e:
+        native_ok, why, lib = False, str(e), None
+    built_s = time.perf_counter() - t0
+    out["native"] = native_ok
+    print(f"streaming native runtime: "
+          + (f"{lib} built and loaded in {built_s:.2f} s" if native_ok else
+             f"UNAVAILABLE after {built_s:.2f} s, the phase runs the narrowed path (the "
+             f"augmentation in the captured step, the pinned prefetch and chunking over an "
+             f"in-memory uint8 source, the samplers; no decode): {why}"), flush=True)
+
+    # 2. the dataset, three layouts of the same PNGs (no PIL)
+    root = f"{STREAM_DIR}/data"
+    t0 = time.perf_counter()
+    data = write_stream_dataset(root, on_disk=native_ok)
+    print(f"streaming data: {STREAM_TRAIN} train and {STREAM_TEST} test images, "
+          f"{STREAM_CLASSES} classes, "
+          + (f"PNGs of {' / '.join(f'{h}x{w}' for h, w in STREAM_SIZES)} as {STREAM_SHARDS} TSV "
+             "shards, an ImageFolder tree and an ELEVATER manifest" if native_ok else
+             f"in memory at {IMAGE} px only (nothing to decode without the runtime)")
+          + f", made in {time.perf_counter() - t0:.2f} s", flush=True)
+    train, test = data["train"], data["test"]
+
+    # 3. the source: its epochs by hand, resume, chunks; the three layouts alike
+    if native_ok:
+        cache = {}
+
+        def decoded(i):
+            if i not in cache:
+                cache[i] = native.decode_resize(train["png"][i], IMAGE)
+            return cache[i]
+
+        def tsv_source(k, normalize):
+            return StreamingSource(stream_cfg(root, "tsv"), "train", normalize=normalize,
+                                   batch_multiplier=k)
+
+        stream_source_checks("streaming source (TSV shards, native decode)", tsv_source, decoded,
+                             train["labels"])
+        n = STREAM_TRAIN
+        seen = []
+        for source in ("tsv", "folder", "zip"):
+            src = StreamingSource(stream_cfg(root, source), "train", normalize=False)
+            seen.append(sorted((int(y), x.tobytes()) for xs, ys, c in
+                               src.loader.epoch(0, order=np.arange(n))
+                               for x, y in zip(xs[:c], ys[:c])))
+            src.close()
+        check(len(seen[0]) == n and seen[0] == seen[1] == seen[2],
+              f"streaming source: the ImageFolder tree and the zip manifest decode the {n} "
+              "(image, label) pairs of the TSV shards, bit for bit")
+        cache.clear()
+        from peft_vit_tpu_torch.commands import test_io
+
+        rate = test_io.measure([f"{root}/{s}" for s in train["tsv"]], IMAGE, FULLSHOT_BATCH,
+                               int(STREAM["WORKERS"]))
+        out["decode_images_per_s"] = rate["images_per_s"]
+        print(f"streaming decode: NativeTsvLoader {rate['images_per_s']:.1f} images/s at "
+              f"{IMAGE} px with {STREAM['WORKERS']} threads (PNG {STREAM_SIZES}), against the "
+              f"full-shot step's consumption of ~{STREAM_STEP_CONSUMPTION:g} images/s at B = "
+              f"{FULLSHOT_BATCH}; {smi}", flush=True)
+        sources = None
+        cfg = stream_cfg(root, "tsv")
+    else:
+        mem, labels = train["mem"], train["labels"]
+
+        def mem_source(k, normalize, split="train"):
+            d = data[split]
+            return StreamingSource(
+                stream_cfg(root, "tsv"), split, normalize=normalize, batch_multiplier=k,
+                loader=ArrayLoader(d["mem"], d["labels"],
+                                   (k if split == "train" else 1) * FULLSHOT_BATCH))
+
+        stream_source_checks("streaming source (in-memory uint8, no decode)", mem_source,
+                             lambda i: mem[i], labels)
+        out["decode_images_per_s"] = None
+        print(f"streaming decode: not measured (the native runtime is unavailable on this "
+              f"machine); {smi}", flush=True)
+        sources = (mem_source(STREAM_K, False), mem_source(1, False, "test"))
+        cfg = stream_cfg(root, "tsv")
+
+    # 4. train_main through the streaming branch with the timm augmentation
+    shutil.rmtree(f"{STREAM_DIR}/out", ignore_errors=True)
+    with source_spy() as fed:
+        run = fullshot_drive("streaming", cfg, smi, device, sync,
+                             sources=sources, out_dir=f"{STREAM_DIR}/out")
+    tr = run["trainer"]
+    spe = tr.steps_per_epoch
+    steps = spe * int(cfg.TRAIN.END_EPOCH)
+    n_eval = -(-STREAM_TEST // int(cfg.TEST.BATCH_SIZE_PER_GPU))
+    layers = tr.model.backbone.layers
+    check(fed["train"] == steps and fed["test"] == 2 * 2 * n_eval
+          and fed["dtypes"] == {"uint8"} and tr.transform is not None,
+          f"streaming full: train_main's batches came from StreamingSource "
+          f"({'TSV shards through the native ring' if native_ok else 'an in-memory uint8 loader'}"
+          f"): {fed['train']} train batches == {steps} steps, {fed['test']} eval batches == "
+          f"2 epochs x (raw + EMA) x {n_eval}, raw {sorted(fed['dtypes'])}; the timm "
+          "augmentation in the step")
+    check(bool(tr.state.finite) and math.isfinite(run["best"]) and all(
+        math.isfinite(e["loss"]) for e in run["epochs"]),
+        f"streaming full: {steps} steps at B={cfg.TRAIN.BATCH_SIZE_PER_GPU} with RandAugment + "
+        "random erasing in the step, finite losses "
+        + " ".join(f"{e['loss']:.4f}" for e in run["epochs"]) + f", best top-1 {run['best']:.2f}")
+    _hold_graphs("streaming full", tr, run["counts"],
+                 {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+                  "flash_attention_bwd_dkv": layers}, {"flash_attention_fwd": layers},
+                 steps, 2 * int(cfg.TRAIN.END_EPOCH) * n_eval)
+    final = {"trainable": {k: v.detach().clone() for k, v in tr.state.trainable.items()},
+             "opt": {k: v.clone() for k, v in tr.state.opt_state.items()},
+             "ema": {k: v.clone() for k, v in tr.state.ema.shadow.items()}}
+    final_rng = (tr.generator.get_state(), tr.noise_generator.get_state())
+    first = run["first"]
+    x0 = first["x"] if torch.is_tensor(first["x"]) else torch.as_tensor(first["x"])
+    kernel_err = hold_first_step("streaming full", tr, first, on_card)
+
+    # 5. stopped in epoch 1 at its mid-epoch checkpoint, resumed by a fresh
+    # Trainer that seeks in the source, against the uninterrupted run
+    mask = build_mask(tr.model, "full", num_layers=layers)
+    resume_dir = f"{STREAM_DIR}/resume"
+    rcfg = stream_cfg(root, "tsv", **{"TRAIN.CHECKPOINT_EVERY_STEPS": STREAM_RESUME_AT})
+    train_src = (sources[0] if sources is not None else
+                 StreamingSource(rcfg, "train", normalize=False, batch_multiplier=STREAM_K))
+    stopped = Trainer(rcfg, tr.model, mask, spe)
+    stopped.train_one_epoch(host_prefetch(train_src.batches(0), depth=2), 0)
+    stopped.train_one_epoch(itertools.islice(train_src.batches(1), STREAM_RESUME_AT // STREAM_K),
+                            1, checkpoint_dir=resume_dir)
+    del stopped
+    resumed = Trainer(rcfg, tr.model, mask, spe)
+    epoch0 = resumed.maybe_resume(resume_dir)
+    at = resumed.resume_batch_in_epoch
+    resumed.train_one_epoch(host_prefetch(train_src.batches(1, skip_batches=at), depth=2), 1,
+                            start_batch=at)
+    differ = _state_differ(resumed, final)
+    same_rng = (torch.equal(resumed.generator.get_state(), final_rng[0])
+                and torch.equal(resumed.noise_generator.get_state(), final_rng[1]))
+    check((epoch0, at) == (1, STREAM_RESUME_AT) and not differ and same_rng,
+          f"streaming full: stopped at epoch 1 batch {STREAM_RESUME_AT}, a fresh Trainer resumed at "
+          f"epoch {epoch0} batch {at} (the source seeking past the trained prefix) == the "
+          f"uninterrupted run bit for bit ({sum(len(v) for v in final.values())} state tensors, "
+          "the host generator and the card's noise generator)"
+          + (f"; differ: {differ[:4]}" if differ else ""))
+    del resumed
+
+    # 6. the augmentation on the card against the CPU; the step, the epoch,
+    # the pinned copy
+    row = {"steps": steps, "launches": run["counts"], "best": run["best"],
+           "kernel_err": kernel_err, "epochs": [e["s"] for e in run["epochs"]],
+           "per_replay": dict(_graphs_of(tr, "train")[0].launches)}
+    row["augment"] = augment_card_check(tr, x0.to(device), smi)
+    if on_card:
+        graph = _graphs_of(tr, "train")[0]
+        step_ms = _replay_ms(graph, 10)
+        busy, n_launches, top = _device_breakdown(graph.graph.replay, reps=5)
+        wall = []
+        for e in (2, 3):  # steady epochs: every graph captured
+            sync()
+            t0 = time.perf_counter()
+            tr.train_one_epoch(host_prefetch(train_src.batches(e), depth=2), e)
+            sync()
+            wall.append(time.perf_counter() - t0)
+        epoch_busy, epoch_launches, _ = _device_breakdown(
+            lambda: tr.train_one_epoch(host_prefetch(train_src.batches(4), depth=2), 4), reps=1)
+        copy_ms = pinned_copy_ms((FULLSHOT_BATCH, IMAGE, IMAGE, 3))
+        aug_ms = row["augment"]["ms"]
+        epoch_s = statistics.median(wall)
+        row.update(step_ms=step_ms, images_per_s=1e3 * FULLSHOT_BATCH / step_ms, busy_ms=busy,
+                   device_launches=n_launches, aug_ms=aug_ms,
+                   aug_share=None if busy is None else aug_ms / busy,
+                   idle_share=None if busy is None else max(0.0, 1.0 - busy / step_ms),
+                   epoch_s=epoch_s, epoch_busy_ms=epoch_busy,
+                   epoch_idle_share=(None if epoch_busy is None
+                                     else max(0.0, 1.0 - epoch_busy / (1e3 * epoch_s))),
+                   copy_ms=copy_ms)
+        print(f"streaming full step B={FULLSHOT_BATCH} (ViT-B/16 timm, bf16, SGD nesterov + EMA, "
+              f"RandAugment x{tr.transform.num_ops} + erasing in the graph): captured "
+              f"{step_ms:.3f} ms ({row['images_per_s']:.1f} images/s), device busy "
+              + ("not measured" if busy is None else
+                 f"{busy:.3f} ms in {n_launches:.0f} launches (idle share "
+                 f"{row['idle_share']:.3f}); the augmentation alone {aug_ms:.3f} ms captured ("
+                 f"{row['aug_share']:.3f} of the busy time)")
+              + "; top: " + "; ".join(f"{n} {t:.3f} ms" for n, t in top) + f"; {smi}",
+              flush=True)
+        print(f"streaming epoch ({spe} steps from the source through host_prefetch and the "
+              f"pinned prefetch): wall {epoch_s:.3f} s (median of {len(wall)}: "
+              + ", ".join(f"{w:.3f}" for w in wall) + "), device busy "
+              + ("not measured" if epoch_busy is None else
+                 f"{epoch_busy / 1e3:.3f} s in {epoch_launches:.0f} launches (profiled epoch), "
+                 f"idle share {row['epoch_idle_share']:.3f}")
+              + f"; the pinned copy of a ({FULLSHOT_BATCH}, {IMAGE}, {IMAGE}, 3) uint8 batch "
+              f"{copy_ms:.3f} ms ({FULLSHOT_BATCH * IMAGE * IMAGE * 3 / copy_ms / 1e6:.2f} GB/s); "
+              f"{smi}", flush=True)
+    out["full"] = row
+    del run, tr, first, final
+    if sources is None:
+        train_src.close()
+    gc_collect(on_card)
+
+    # 7. finetune_main, the flagship LoRA config, on the 5-way ELEVATER manifest
+    # (its images decode: it waits for the native runtime where that is missing)
+    if not native_ok:
+        print("streaming few-shot: finetune_main on the ELEVATER manifest not run on this "
+              "machine: its images need the native decode, which is unavailable here "
+              "(tests/test_torch_port_data_sources.py holds the drive against JAX on the CPU)",
+              flush=True)
+        shutil.rmtree(STREAM_DIR, ignore_errors=True)
+        return out
+    fcfg = driver_cfg({**DRIVER, **STREAM_FEWSHOT, "DATASET.DATASET": "stream-5way",
+                       "DATASET.ROOT": f"{root}/elevater", "TRAIN.IMAGE_SIZE": [IMAGE, IMAGE]})
+    from peft_vit_tpu_torch.data import prompts
+
+    saved = dict(registry._INFO), dict(prompts._builtin_cache)
+    try:
+        loaded = registry.load_split(fcfg, "train")
+        keep = [i for i, c in enumerate(train["labels"]) if c < 5]
+        want = np.stack([native.decode_resize(train["png"][i], IMAGE) for i in keep])
+        check(np.array_equal(loaded[0], want) and np.array_equal(loaded[1],
+                                                                 train["labels"][keep]),
+              f"streaming few-shot: the manifest's train split ({len(keep)} images of "
+              f"images.zip@member) == decode_resize of each PNG in the index's order, bit for "
+              "bit (the native decode)")
+        del loaded, want
+        tree = jax_layout_tree(np.random.RandomState(SEED + 17), 5)
+        out["fewshot"] = drive("streaming few-shot (ELEVATER manifest)", fcfg, tree, smi,
+                               device, want_cells=3, lr_grid=STREAM_FEWSHOT_LRS)
+    finally:
+        for live, copy in zip((registry._INFO, prompts._builtin_cache), saved):
+            live.clear()
+            live.update(copy)
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+    return out
+
+
 def gc_collect(on_card: bool) -> None:
     import gc
 
@@ -4631,6 +5219,7 @@ def main() -> int:
     tower = tower_phase(smi)
     zs = zeroshot_phase(smi)
     fs = fullshot_phase(smi)
+    ss = streaming_phase(smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
@@ -4660,6 +5249,11 @@ def main() -> int:
                  "dkv": "flash_attention_bwd_dkv"}[key]],
             # the full-shot trainer's full fine-tune through train_main (phase 13)
             "launches_fullshot": fs["full"]["launches"][
+                {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
+                 "dkv": "flash_attention_bwd_dkv"}[key]],
+            # train_main over the streaming source with the timm augmentation
+            # in the step (phase 14)
+            "launches_streaming": ss["full"]["launches"][
                 {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
                  "dkv": "flash_attention_bwd_dkv"}[key]],
             "b64": {**{k: kern[key][FULLSHOT_BATCH][k] for k in (

@@ -1,9 +1,10 @@
 """Dataset registry and loaders (counterpart of ``peft_vit_tpu/data/registry.py``).
 
-The port keeps the registry's names and protocol metadata and the sources
-that need no decoding: ``synthetic`` and ``npz``.  TSV lists, ImageFolder
-trees, the hub download and ELEVATER manifests raise
-``NotImplementedError`` (ROADMAP §1, streaming data).  What follows is the JAX
+The port keeps the registry's names and protocol metadata and resolves every
+local source the JAX package does, in its order: synthetic, TSV shards, the
+hub (files already provisioned; it never downloads), an ELEVATER manifest,
+an npz cache, an ImageFolder tree.  ``load_tsv`` and ``load_imagefolder``
+decode with PIL, bicubic, as the JAX loaders do.  What follows is the JAX
 module's own account.
 
 The reference resolves datasets by name through the `vision-datasets`
@@ -29,9 +30,11 @@ as numpy arrays; few-shot subsetting and splitting live in
 
 from __future__ import annotations
 
+import base64
 import dataclasses
+import io
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -85,6 +88,10 @@ _DATASETS = [
 _INFO: Dict[str, DatasetInfo] = {d.name: d for d in _DATASETS}
 
 
+def register_dataset(info: DatasetInfo) -> None:
+    _INFO[info.name] = info
+
+
 def dataset_info(name: str) -> DatasetInfo:
     if name not in _INFO:
         # unknown names default to multiclass/accuracy; class count must
@@ -100,6 +107,62 @@ def list_datasets():
 # ---------------------------------------------------------------------------
 # loaders
 # ---------------------------------------------------------------------------
+
+
+def load_imagefolder(root: str, image_size: int = 224) -> Tuple[np.ndarray, np.ndarray]:
+    """Class-per-subdirectory tree -> (images_u8, labels)."""
+    from PIL import Image
+
+    from .transforms import resize_center_crop
+
+    classes = sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))
+    xs, ys = [], []
+    for ci, c in enumerate(classes):
+        cdir = os.path.join(root, c)
+        for f in sorted(os.listdir(cdir)):
+            try:
+                img = Image.open(os.path.join(cdir, f))
+            except Exception:
+                continue
+            xs.append(resize_center_crop(img, image_size))
+            ys.append(ci)
+    return np.stack(xs), np.asarray(ys, np.int64)
+
+
+def load_tsv(paths, image_size: int = 224,
+             num_classes: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """TSV shards: ``key<TAB>base64(image-bytes)<TAB>label``; the label an
+    int, or ';'-separated ints for multilabel (one-hot when any row holds
+    several; then ``num_classes`` is needed)."""
+    from PIL import Image
+
+    from .transforms import resize_center_crop
+
+    if isinstance(paths, (str, os.PathLike)):
+        paths = [paths]
+    xs, raw_labels = [], []
+    multilabel = False
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                parts = line.rstrip("\n").split("\t")
+                if len(parts) < 3:
+                    continue
+                img = Image.open(io.BytesIO(base64.b64decode(parts[1])))
+                xs.append(resize_center_crop(img, image_size))
+                ids = [int(v) for v in str(parts[2]).split(";") if v != ""]
+                multilabel = multilabel or len(ids) > 1
+                raw_labels.append(ids)
+    x = np.stack(xs)
+    if multilabel:
+        if not num_classes:
+            raise ValueError("multilabel TSV needs num_classes")
+        y = np.zeros((len(raw_labels), num_classes), np.int64)
+        for i, ids in enumerate(raw_labels):
+            y[i, ids] = 1
+    else:
+        y = np.asarray([ids[0] for ids in raw_labels], np.int64)
+    return x, y
 
 
 def load_npz(path: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -160,18 +223,11 @@ def synthetic_dataset(
     return x, y
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to peft_vit_tpu_torch yet (ROADMAP §1, streaming data); "
-        "use the synthetic dataset or an npz cache"
-    )
-
-
 def load_split(cfg, split: str) -> Tuple[np.ndarray, np.ndarray]:
     """Resolve a (train|val|test) split from config, in the JAX package's
-    order: synthetic -> TSV lists -> hub download -> ELEVATER manifest -> npz
-    cache -> ImageFolder under DATASET.ROOT/<split dir>.  The port reads the
-    synthetic data and npz caches; the other sources raise."""
+    order: synthetic -> TSV lists -> the hub (``DATASET.DOWNLOAD``) ->
+    ELEVATER manifest -> npz cache -> ImageFolder under
+    DATASET.ROOT/<split dir>."""
     name = cfg.DATASET.DATASET
     size = int(cfg.TRAIN.IMAGE_SIZE[0])
     root = cfg.DATASET.ROOT
@@ -180,31 +236,37 @@ def load_split(cfg, split: str) -> Tuple[np.ndarray, np.ndarray]:
 
     if name.startswith("synthetic"):
         seed = {"train": 0, "val": 1, "test": 2}[split]
-        gen = (
-            synthetic_multilabel_dataset
-            if "multilabel" in name
-            else synthetic_dataset
-        )
-        return gen(
-            num_classes=num_classes or 10,
-            n_per_class=20,
-            image_size=size,
-            seed=seed,
-        )
+        gen = synthetic_multilabel_dataset if "multilabel" in name else synthetic_dataset
+        return gen(num_classes=num_classes or 10, n_per_class=20, image_size=size, seed=seed)
 
-    tsv_list = (
-        cfg.DATASET.TRAIN_TSV_LIST
-        if split == "train"
-        else cfg.DATASET.TEST_TSV_LIST
-    )
+    tsv_list = cfg.DATASET.TRAIN_TSV_LIST if split == "train" else cfg.DATASET.TEST_TSV_LIST
     if tsv_list:
-        raise _not_ported("DATASET.TRAIN_TSV_LIST / TEST_TSV_LIST (TSV shards)")
+        return load_tsv([os.path.join(root, p) for p in tsv_list], size, num_classes)
+
+    # the vision-datasets hub (DATASET.DOWNLOAD): resolve the dataset in the
+    # shipped vision_datasets.json; its files must already be under
+    # DATASET.ROOT (data/hub.py raises the provisioning message otherwise)
     if bool(cfg.DATASET.get("DOWNLOAD", False)):
-        raise _not_ported("DATASET.DOWNLOAD (the vision-datasets hub)")
-    if str(cfg.DATASET.get("REGISTRY_JSON", "")) or os.path.exists(
-        os.path.join(root, "vision_datasets.json")
-    ):
-        raise _not_ported("an ELEVATER manifest (vision_datasets.json)")
+        import shutil
+
+        from .hub import ensure_dataset, packaged_registry_path
+
+        base = root or "."
+        reg_local = os.path.join(base, "vision_datasets.json")
+        if not os.path.exists(reg_local):
+            os.makedirs(base, exist_ok=True)
+            shutil.copy(packaged_registry_path(), reg_local)
+        try:
+            ensure_dataset(name, base, splits=(split,), download=True)
+        except KeyError:
+            pass  # not a hub dataset: fall through to the local sources
+
+    # an ELEVATER / vision-datasets manifest under DATASET.ROOT
+    from .elevater import load_elevater_split
+
+    manifest = load_elevater_split(cfg, split)
+    if manifest is not None:
+        return manifest
 
     npz = os.path.join(root, name, f"{split}.npz")
     if os.path.exists(npz):
@@ -215,9 +277,10 @@ def load_split(cfg, split: str) -> Tuple[np.ndarray, np.ndarray]:
         "val": cfg.DATASET.VAL_SET or cfg.DATASET.TEST_SET,
         "test": cfg.DATASET.TEST_SET,
     }[split]
-    if os.path.isdir(os.path.join(root, split_dir)):
-        raise _not_ported("an ImageFolder tree")
+    folder = os.path.join(root, split_dir)
+    if os.path.isdir(folder):
+        return load_imagefolder(folder, size)
+
     raise FileNotFoundError(
-        f"No local source for dataset {name!r} split {split!r} under {root!r} "
-        f"(the port reads the synthetic dataset and {name}/<split>.npz caches)"
-    )
+        f"No local source for dataset {name!r} split {split!r} under {root!r} (zero-egress: "
+        "the hub download is unavailable; provide ImageFolder/TSV/npz data)")

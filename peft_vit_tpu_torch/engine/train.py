@@ -40,6 +40,7 @@ in place of pytrees:
 from __future__ import annotations
 
 import gc
+import threading
 from typing import Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -246,6 +247,12 @@ def make_train_step(
     return step
 
 
+# Held by a graph's warm-up and capture, and by every CUDA call of the input
+# prefetch thread (``data.streaming.prefetch_to_device``): no other thread's
+# CUDA work may fall inside a capture.
+capture_lock = threading.RLock()
+
+
 class StepGraph:
     """A function of static tensors captured as a CUDA graph.
 
@@ -258,7 +265,15 @@ class StepGraph:
     reads (the frozen tower, the dataset) is read in place: ``keep`` holds
     them, so that their memory outlives the graph.  Nothing in ``fn`` may
     wait for the host.  A capture that fails raises: there is no eager
-    fallback.  The cyclic garbage collector is off during the capture.
+    fallback.  The cyclic garbage collector is off during the capture, and
+    ``capture_lock`` is held through the warm-up and the capture, so that no
+    other thread of the process (the input prefetch) issues CUDA work then.
+
+    ``generators``: the CUDA generators ``fn`` draws from (the random
+    erasing's noise).  Each is registered with the graph, so that a replay
+    draws from its current state and advances it, and each is put back after
+    the capture to the state it had before the warm-up: the first replay
+    draws what an eager first call would.
 
     A kernel wrapper counts a launch when ``fn`` calls it, so it counts
     during the warm-up and the capture, never during a replay.
@@ -267,30 +282,37 @@ class StepGraph:
 
     WARMUP = 2
 
-    def __init__(self, fn, inputs, keep: Sequence[torch.Tensor] = ()):
+    def __init__(self, fn, inputs, keep: Sequence[torch.Tensor] = (),
+                 generators: Sequence[torch.Generator] = ()):
         self.keep = tuple(keep)
         self.inputs = tree_map(lambda t: t.detach().clone(), inputs)
         self.replays = 0
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(self.WARMUP):
-                fn(self.inputs)
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        # No cyclic garbage collection during the capture: a dead graph it
-        # freed there (an earlier StepGraph in a reference cycle) would be
-        # destroyed while the stream captures, which CUDA forbids, and this
-        # capture would fail.
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph):
-                self.outputs = fn(self.inputs)
-        finally:
-            if collecting:
-                gc.enable()
+        with capture_lock:
+            states = [g.get_state() for g in generators]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):
+                    fn(self.inputs)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            for g in generators:
+                self.graph.register_generator_state(g)
+            before = launch_counts()
+            # No cyclic garbage collection during the capture: a dead graph it
+            # freed there (an earlier StepGraph in a reference cycle) would be
+            # destroyed while the stream captures, which CUDA forbids, and this
+            # capture would fail.
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph):
+                    self.outputs = fn(self.inputs)
+            finally:
+                if collecting:
+                    gc.enable()
+            for g, state in zip(generators, states):
+                g.set_state(state)
         self.launches = {k: n - before[k] for k, n in launch_counts().items()}
 
     def holds(self, keep: Sequence[torch.Tensor]) -> bool:

@@ -22,16 +22,24 @@ mixup's switch, lam and box) come from the trainer's explicit
 generator's state is checkpointed, so a resumed run draws what the
 uninterrupted run drew.  The CPU runs the same function eagerly.
 ``TPU.STEPS_PER_DISPATCH`` = K runs K replays of the one-step graph per
-chunk (one program for the K steps waits for the epoch as one program,
-ROADMAP §1).  Eval batches are replays of an eval graph too.
+chunk, the chunk copied to the card once (one program for the K steps waits
+for the epoch as one program, ROADMAP §1).  Eval batches are replays of an
+eval graph too.
+
+``AUG.TIMM_AUG`` (``data.augment``) runs inside the step on the raw batch:
+the flip, RandAugment and random erasing, then the normalisation; eval
+normalises raw batches on the card.  Its host draws come from the trainer's
+generator with the others; the erase's pixel noise is drawn in the step from
+``noise_generator``, a generator on the trainer's device (registered with the
+train graph), whose state is checkpointed too.  ``TPU.PREFETCH_DEPTH`` items
+are staged ahead through pinned buffers and a side stream
+(``data.streaming.prefetch_to_device``).
 
 ``TPU.INT8_FWD_TRAIN`` quantizes the frozen tree once per run (before
 ``models.cast_frozen_``); ``TPU.INT8_STATIC_ACT`` recalibrates the static
 activation scales on the first batch of every epoch (``engine.train.calibrate``).
 A mesh, ``TPU.ZERO1``, ``TPU.MESH.PIPE`` and several processes raise
-(ROADMAP §1, parallelism), as does the device-side timm augmentation (ROADMAP
-§1, streaming data); ``TPU.PREFETCH_DEPTH`` has no counterpart (a batch is
-copied to the card when its step runs).
+(ROADMAP §1, parallelism).
 """
 
 from __future__ import annotations
@@ -43,6 +51,8 @@ from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..data.augment import make_train_transform
+from ..data.streaming import prefetch_to_device
 from ..models.layers import cast_frozen_
 from ..ops.int8 import INT8_TARGET_MODULES, quantize_frozen_tree
 from ..peft.masks import merge_params, split_params
@@ -90,9 +100,6 @@ def _refuse_unported(cfg) -> None:
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
         raise _not_ported("a full-shot run over several processes", "parallelism")
-    timm_aug = cfg.AUG.TIMM_AUG  # when the JAX make_train_transform returns a transform
-    if bool(timm_aug.get("USE_TRANSFORM", False)) or bool(timm_aug.get("USE_LOADER", False)):
-        raise _not_ported("AUG.TIMM_AUG (the device-side timm augmentation)", "streaming data")
     if float(cfg.AUG.get("DROPBLOCK_KEEP_PROB", 1.0)) < 1.0:
         # the JAX trainer's build-time guard: only a ResNet takes DropBlock
         raise ValueError(
@@ -177,6 +184,10 @@ class Trainer:
         self.norm_std = torch.tensor(list(cfg.INPUT.STD), dtype=torch.float32,
                                      device=self.device) * 255.0
         self.swa_begin = int(cfg.SWA.BEGIN_EPOCH)
+        self.transform = make_train_transform(cfg)
+        self.noise_generator: Optional[torch.Generator] = None
+        if self.transform is not None and self.transform.needs_noise:
+            self.noise_generator = torch.Generator(device=self.device).manual_seed(int(seed) + 1)
         self.apply_fn = _train.make_apply_fn(model)
         self.graphs: Dict[Any, Any] = {}
         # set by the SIGTERM handler fit() installs: train_one_epoch
@@ -186,9 +197,10 @@ class Trainer:
     # -- the steps -----------------------------------------------------------
 
     def _normalize(self, x: torch.Tensor, flip: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """A raw uint8 batch: flipped where ``flip`` says (NHWC, along W) and
-        normalised on the device; a float batch as it is."""
-        if x.dtype != torch.uint8:
+        """A raw uint8 batch, or any batch under the timm augmentation (whose
+        batches arrive raw): flipped where ``flip`` says (NHWC, along W) and
+        normalised on the device; another float batch as it is."""
+        if x.dtype != torch.uint8 and self.transform is None:
             return x
         if flip is not None:
             x = torch.where(flip[:, None, None, None], x.flip(2), x)
@@ -203,7 +215,12 @@ class Trainer:
     def _train_body(self, buf: Dict[str, Any]):
         """One step on the state buffers of ``buf``, in place; returns the
         loss and the learning rate it used."""
-        x = self._normalize(buf["x"], buf.get("flip"))
+        if self.transform is not None:
+            noise = (self.transform.noise(buf["x"].shape, self.noise_generator)
+                     if self.noise_generator is not None else None)
+            x = self.transform(buf["x"], buf["aug"], noise)
+        else:
+            x = self._normalize(buf["x"], buf.get("flip"))
         y = buf["y"]
         if self.use_mixup:
             x, y = mixup_cutmix(x, y, self.num_classes, buf["mix"], self.smoothing)
@@ -247,10 +264,14 @@ class Trainer:
             buf["bn"] if self.has_bn else None, buf["finite"])
 
     def _draws(self, x: torch.Tensor) -> Dict[str, Any]:
-        """The step's random inputs from the generator: the flip of a uint8
-        batch and the mixup/cutmix draws."""
+        """The step's random inputs from the generator: the timm
+        augmentation's host draws, or the flip of a uint8 batch; then the
+        mixup/cutmix draws."""
         out: Dict[str, Any] = {}
-        if x.dtype == torch.uint8 and self.do_flip:
+        if self.transform is not None:
+            out["aug"] = {k: v.to(x.device)
+                          for k, v in self.transform.draw(self.generator, x.shape).items()}
+        elif x.dtype == torch.uint8 and self.do_flip:
             out["flip"] = (torch.rand(x.shape[0], generator=self.generator) < 0.5).to(x.device)
         if self.use_mixup:
             d = draw_mixup_cutmix(self.generator, self.mixup_alpha, self.cutmix_alpha,
@@ -282,8 +303,7 @@ class Trainer:
         """One optimizer step on the host batch ``(x, y)``; returns the loss
         and the learning rate (device tensors; a replay's are overwritten by
         the next replay)."""
-        x = torch.as_tensor(np.asarray(x)).to(self.device)
-        y = torch.as_tensor(np.asarray(y)).to(self.device)
+        x, y = self._on_device(x), self._on_device(y)
         inputs = {"x": x, "y": y, **self._draws(x), "scales": self._scales(x),
                   "swa_on": torch.tensor(self.swa_begin >= 0 and epoch >= self.swa_begin,
                                          device=self.device)}
@@ -294,11 +314,15 @@ class Trainer:
         if graph is None or not graph.holds(tuple(self._keep())):
             self.graphs.pop(key, None)
             graph = self.graphs[key] = _train.StepGraph(
-                self._train_body, {**self._state_buffers(), **inputs}, keep=self._keep())
+                self._train_body, {**self._state_buffers(), **inputs}, keep=self._keep(),
+                generators=(self.noise_generator,) if self.noise_generator is not None else ())
             self._sync(graph, force=True)
         else:
             self._sync(graph)
         return graph(**inputs)
+
+    def _on_device(self, a) -> torch.Tensor:
+        return (a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))).to(self.device)
 
     def _keep(self):
         return [*self.frozen.values(), *self.qtree.values()]
@@ -324,7 +348,7 @@ class Trainer:
         ``loaded`` (the graphs an eval pass has loaded them into; the key is
         added).  The int8 tree rides along; the static scales do not (the
         JAX eval step passes the parameters only)."""
-        x = torch.as_tensor(np.asarray(x)).to(self.device)
+        x = self._on_device(x)
         bn = self.state.batch_stats or {}
 
         def body(inputs):
@@ -373,11 +397,16 @@ class Trainer:
         k_disp = int(cfg.TPU.get("STEPS_PER_DISPATCH", 1))
         if k_disp > 1:
             batches = _chunk_batches(batches, k_disp)
+        depth = int(cfg.TPU.get("PREFETCH_DEPTH", 2))
+        if depth > 0:
+            # the card: pinned staging and a side-stream copy, depth items
+            # ahead; the CPU: the items as they are
+            batches = prefetch_to_device(batches, self.device, depth)
         x = y = loss = None
         i = -1
         for i, item in enumerate(batches):
-            if len(item) == 3:  # a stacked (K, B, ...) chunk: K replays
-                x, y, _ = item
+            if len(item) == 3:  # a stacked (K, B, ...) chunk: one copy, K replays
+                x, y = self._on_device(item[0]), self._on_device(item[1])
                 for j in range(x.shape[0]):
                     loss, _ = self.train_step(x[j], y[j], epoch)
                 seen += x.shape[0] * x.shape[1]
@@ -431,7 +460,7 @@ class Trainer:
         for x, y in batches:
             all_logits.append(
                 self.eval_logits(trainable, x, loaded).to(torch.float32).cpu().numpy())
-            all_y.append(np.asarray(y))
+            all_y.append(y.cpu().numpy() if torch.is_tensor(y) else np.asarray(y))
         if not all_logits:
             return 0.0
         scores, target = np.concatenate(all_logits), np.concatenate(all_y)
@@ -463,7 +492,7 @@ class Trainer:
 
         def batch_pass(stats: Tensors, x) -> Tensors:
             stats = {k: v.clone() for k, v in stats.items()}
-            x = self._normalize(torch.as_tensor(np.asarray(x)).to(self.device))
+            x = self._normalize(self._on_device(x))
             self.apply_fn(self._variables(trainable, stats, {}), x, True)
             return stats
 
@@ -500,6 +529,8 @@ class Trainer:
             "batch_in_epoch": torch.tensor(batch_in_epoch, dtype=torch.int32),
             "rng": self.generator.get_state(),
         }
+        if self.noise_generator is not None:
+            out["noise_rng"] = self.noise_generator.get_state()
         if s.ema is not None:
             out["ema_shadow"] = s.ema.shadow
         if s.swa is not None:
@@ -562,6 +593,8 @@ class Trainer:
                                     torch.ones((), dtype=torch.bool, device=self.device))
         if "rng" in restored:
             self.generator.set_state(restored["rng"])
+        if self.noise_generator is not None and "noise_rng" in restored:
+            self.noise_generator.set_state(restored["noise_rng"])
         self.resume_batch_in_epoch = int(restored.get("batch_in_epoch", 0))
         return int(restored["epoch"])
 

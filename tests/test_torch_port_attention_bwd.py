@@ -30,6 +30,7 @@ from peft_vit_tpu.ops.attention import _flash_attention_bwd, _flash_attention_fw
 from peft_vit_tpu.ops.attention import attention_reference as jax_reference
 from peft_vit_tpu.ops.attention import multi_head_attention as jax_mha
 from peft_vit_tpu_torch.ops import attention as port
+from test_torch_port_peft_hooks import _one_thread  # noqa: F401 (an autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 TOL_VJP = dict(atol=5e-5, rtol=5e-5)

@@ -35,6 +35,7 @@ from peft_vit_tpu_torch.ops import attention as attn
 from peft_vit_tpu_torch.ops import int8 as i8
 from peft_vit_tpu_torch.ops import launch_counts
 from peft_vit_tpu_torch.peft import build_mask, split_params
+from test_torch_port_peft_hooks import _one_thread  # noqa: F401 (an autouse fixture)
 
 CELLS, B, H, N, D = 3, 2, 2, 9, 8
 TINY = dict(width=64, layers=2, heads=4, image=32, patch=16, num_classes=10)
@@ -450,12 +451,15 @@ class _Rerun(train_engine.StepGraph):
     runs the engine's captured path (static buffers, copies in, state
     written back, clones out, graphs kept by shape) where no card is."""
 
-    def __init__(self, fn, inputs, keep=()):
+    def __init__(self, fn, inputs, keep=(), generators=()):
         self.keep, self.fn, self.replays = tuple(keep), fn, 0
         self.inputs = tree_map(lambda t: t.detach().clone(), inputs)
+        states = [g.get_state() for g in generators]
         before = launch_counts()
         self.outputs = fn(self.inputs)
         self.launches = {k: n - before[k] for k, n in launch_counts().items()}
+        for g, state in zip(generators, states):  # as the capture puts them back
+            g.set_state(state)
 
     def _replay(self):
         with torch.enable_grad():

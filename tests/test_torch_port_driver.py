@@ -43,6 +43,7 @@ from peft_vit_tpu_torch.engine import metrics as port_metrics
 from peft_vit_tpu_torch.models import factory as port_factory
 from peft_vit_tpu_torch.models import params_from_jax, params_to_jax
 from peft_vit_tpu_torch.peft import spec as port_spec
+from test_torch_port_peft_hooks import _one_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parents[1]
 MODEL_YAMLS = sorted((REPO / "peft_vit_tpu" / "resources" / "model").glob("*.yaml"))
@@ -203,17 +204,26 @@ def test_npz_source_equals_jax_and_other_sources_raise(tmp_path):
     want = jax_pipeline.construct_splits(tiny_cfg(jax_config, **over))
     np.testing.assert_array_equal(got.x_train, want.x_train)
     np.testing.assert_array_equal(got.y_val, want.y_val)
-    cases = [{"DATASET.TRAIN_TSV_LIST": ["a.tsv"]}, {"DATASET.DOWNLOAD": True}]
-    for extra in cases:
-        with pytest.raises(NotImplementedError, match="ROADMAP §1, streaming data"):
-            port_registry.load_split(tiny_cfg(port_config, **over, **extra), "train")
-    (tmp_path / "other" / "train" / "cat").mkdir(parents=True)
+    # the sources the port once refused now load as JAX's do (exactly: both
+    # decode with PIL, bicubic): TSV shards; DATASET.DOWNLOAD on a name the
+    # hub does not know, which falls through to the npz; an ImageFolder tree;
+    # an ELEVATER registry without the dataset, which falls through to it
+    from _port_data import images, write_folder, write_tsv
+
+    items = images(3, 3)
+    write_tsv(tmp_path / "a.tsv", items)
+    (tmp_path / "other" / "train").mkdir(parents=True)
+    write_folder(tmp_path / "other" / "train", items, ["cat", "dog", "emu"])
     folder = {**over, "DATASET.DATASET": "other", "DATASET.ROOT": str(tmp_path / "other")}
-    with pytest.raises(NotImplementedError, match="ImageFolder"):
-        port_registry.load_split(tiny_cfg(port_config, **folder), "train")
-    (tmp_path / "other" / "vision_datasets.json").write_text("[]")
-    with pytest.raises(NotImplementedError, match="ELEVATER"):
-        port_registry.load_split(tiny_cfg(port_config, **folder), "train")
+    cases = [{"DATASET.TRAIN_TSV_LIST": ["a.tsv"]}, {"DATASET.DOWNLOAD": True}, folder]
+    for extra in cases + ["manifest"]:
+        if extra == "manifest":
+            (tmp_path / "other" / "vision_datasets.json").write_text("[]")
+            extra = folder
+        got = port_registry.load_split(tiny_cfg(port_config, **{**over, **extra}), "train")
+        want = jax_registry.load_split(tiny_cfg(jax_config, **{**over, **extra}), "train")
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
     assert port_registry.list_datasets() == jax_registry.list_datasets()
     for name in port_registry.list_datasets() + ["unknown"]:
         assert (dataclasses.asdict(port_registry.dataset_info(name))

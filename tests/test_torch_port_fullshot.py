@@ -237,15 +237,42 @@ def test_bit_finetune_matches_the_jax_command(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("over", [{"DATASET.TRAIN_TSV_LIST": ["train.tsv"]},
                                   {"DATASET.TRAIN_SET": "train"}])
-def test_train_main_refuses_streaming_sources(over, tmp_path):
-    """The JAX command streams TSV shards and ImageFolder trees; the port's
-    data registry refuses them, naming the item."""
-    (tmp_path / "train").mkdir()
-    (tmp_path / "test").mkdir()
+def test_train_main_refuses_streaming_sources(over, tmp_path, monkeypatch):
+    """The JAX command streams TSV shards and ImageFolder trees, and so does
+    the port's now (it once refused them): the batches come from
+    ``StreamingSource`` through the native decode ring, raw uint8 at
+    B granularity, and evaluation streams the test split
+    (``tests/test_torch_port_data_sources.py`` holds the run against JAX)."""
+    from _port_data import images, write_folder, write_tsv
+    from peft_vit_tpu_torch.data import streaming
+
+    train, test = images(4, 6, seed=1), images(4, 2, seed=2)
+    if "DATASET.TRAIN_TSV_LIST" in over:
+        write_tsv(tmp_path / "train.tsv", train)
+        write_tsv(tmp_path / "test.tsv", test)
+    else:
+        write_folder(tmp_path / "train", train, ["a", "b", "c", "d"])
+        write_folder(tmp_path / "test", test, ["a", "b", "c", "d"])
+    seen = []
+    original = streaming.StreamingSource.batches
+
+    def spy(self, *args, **kwargs):
+        for item in original(self, *args, **kwargs):
+            seen.append((self.split, item[0].dtype, item[0].shape))
+            yield item
+
+    monkeypatch.setattr(streaming.StreamingSource, "batches", spy)
     cfg = _set(get_default_config(), {**TINY, "DATASET.DATASET": "folder_task",
                                       "DATASET.ROOT": str(tmp_path),
                                       "DATASET.TEST_SET": "test",
-                                      "DATASET.TEST_TSV_LIST": over.get(
-                                          "DATASET.TRAIN_TSV_LIST", []), **over})
-    with pytest.raises(NotImplementedError, match="ROADMAP §1, streaming data"):
-        port_train.train_main(cfg, device="cpu")
+                                      "TRAIN.BATCH_SIZE_PER_GPU": BATCH,
+                                      "OUTPUT_DIR": str(tmp_path / "out"),
+                                      "DATASET.TEST_TSV_LIST": (
+                                          ["test.tsv"] if "DATASET.TRAIN_TSV_LIST" in over
+                                          else []), **over})
+    best = port_train.train_main(cfg, device="cpu")
+    assert 0.0 <= best <= 100.0
+    trains = [s for s in seen if s[0] == "train"]
+    assert len(trains) == 2 * (24 // BATCH)  # 2 epochs, drop_last at B
+    assert all(d == np.uint8 and shape == (BATCH, 16, 16, 3) for _, d, shape in trains)
+    assert sum(s[2][0] for s in seen if s[0] == "test") == 2 * 8  # an eval an epoch

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from peft_vit_tpu.ops.attention import _fused_short_bwd, _fused_short_fwd
 from peft_vit_tpu.ops.attention import multi_head_attention as jax_mha
 from peft_vit_tpu_torch.ops import attention as port
+from test_torch_port_peft_hooks import _one_thread  # noqa: F401 (an autouse fixture)
 
 # (1, 2, 256, 64) and (1, 2, 257, 64) sit at the card forward's split: one
 # product per row up to N = 256, a second pass over the keys beyond.  At

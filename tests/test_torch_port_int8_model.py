@@ -46,6 +46,7 @@ from peft_vit_tpu_torch.models.vit import VisionTransformer
 from peft_vit_tpu_torch.ops import int8 as pint8
 from peft_vit_tpu_torch.peft import PEFTSpec, build_mask, split_params
 from test_torch_port_model import TINY, _images, randomize
+from test_torch_port_peft_hooks import _one_thread  # noqa: F401 (an autouse fixture)
 
 LORA = dict(method="lora", attn_delta="lora", lora_rank=4, lora_alpha=128.0,
             lora_post_scale_q=True)
@@ -576,18 +577,25 @@ def _train_40_steps(variables, recipe):
     return np.asarray(losses), logits.argmax(-1).numpy(), y
 
 
-@pytest.mark.parametrize("recipe", ["prequant", "prequant+dx", "static+dx"])
-def test_int8_training_learns_and_tracks_the_dense_run(recipe):
-    """The port's analog of the JAX convergence gate, with its bounds: the
-    int8 run's loss trajectory within rtol 0.25 / atol 0.02 of the dense
-    run's, accuracy within one sample in 20, predictions agreeing on 85 %,
-    and both runs halve their loss."""
+@pytest.fixture(scope="module")
+def dense_run():
+    """The gate's weights and the dense run the three recipes are held to,
+    trained once for the module (the same seed, steps and data)."""
     variables = _variables(seed=19)
     # the gate starts from a fresh LoRA delta (adapter2 = 0), as flax initialises it
     for i in range(TINY["layers"]):
         for t in ("q", "v"):
             variables["params"]["backbone"][f"blocks_{i}"]["attn"][f"{t}_adapter2"]["kernel"][:] = 0
-    losses_fp, pred_fp, y = _train_40_steps(variables, "dense")
+    return (variables, *_train_40_steps(variables, "dense"))
+
+
+@pytest.mark.parametrize("recipe", ["prequant", "prequant+dx", "static+dx"])
+def test_int8_training_learns_and_tracks_the_dense_run(recipe, dense_run):
+    """The port's analog of the JAX convergence gate, with its bounds: the
+    int8 run's loss trajectory within rtol 0.25 / atol 0.02 of the dense
+    run's, accuracy within one sample in 20, predictions agreeing on 85 %,
+    and both runs halve their loss."""
+    variables, losses_fp, pred_fp, y = dense_run
     losses_q, pred_q, _ = _train_40_steps(variables, recipe)
     assert np.isfinite(losses_q).all()
     np.testing.assert_allclose(losses_q, losses_fp, rtol=0.25, atol=0.02)

@@ -18,6 +18,7 @@ from peft_vit_tpu.peft import PEFTSpec as JaxSpec
 from peft_vit_tpu_torch.models import layers as port_layers
 from peft_vit_tpu_torch.models.convert import load_jax_variables
 from peft_vit_tpu_torch.peft import PEFTSpec
+from test_torch_port_peft_hooks import _one_thread  # noqa: F401 (an autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 WIDTH, HEADS = 64, 4

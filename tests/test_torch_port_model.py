@@ -182,7 +182,9 @@ def test_port_imports_nothing_of_jax():
                      "commands.linear_probe", "commands.eval_all", "engine.optim",
                      "engine.ema", "engine.mixup", "engine.checkpoint", "engine.trainer",
                      "utils.tb", "commands.train", "commands.swa_finetune",
-                     "commands.bit_finetune"):
+                     "commands.bit_finetune", "data.native", "data.samplers",
+                     "data.streaming", "data.elevater", "data.custom", "data.hub",
+                     "data.augment", "commands.test_io"):
             assert "peft_vit_tpu_torch." + want in names, want
         import bench_torch, chip_smoke
         bad = sorted(

@@ -42,6 +42,7 @@ from peft_vit_tpu_torch.models import layers as port_layers
 from peft_vit_tpu_torch.models.convert import load_jax_variables, params_from_jax, params_to_jax
 from peft_vit_tpu_torch.ops import attention as port
 from peft_vit_tpu_torch.peft import PEFTSpec
+from test_torch_port_peft_hooks import _one_thread  # noqa: F401 (an autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 TOL_VJP = dict(atol=5e-5, rtol=5e-5)

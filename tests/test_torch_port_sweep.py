@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from test_torch_port_driver import _run_both
+from test_torch_port_peft_hooks import _one_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.mark.parametrize("ref_compat,vmap", [(False, True), (True, True), (False, False)])

@@ -34,6 +34,7 @@ from peft_vit_tpu_torch.models.vit import VisionTransformer
 from peft_vit_tpu_torch.peft import PEFTSpec, build_mask, split_params
 from test_torch_port_layers import LORA, _tokens
 from test_torch_port_model import REPO, TINY, _images, _jax_flagship, randomize
+from test_torch_port_peft_hooks import _one_thread  # noqa: F401 (an autouse fixture)
 
 F32 = dict(atol=1e-6, rtol=1e-5)  # the same fp32 formula in both frameworks
 

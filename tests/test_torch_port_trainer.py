@@ -472,12 +472,20 @@ def test_int8_static_recipe_recalibrates_every_epoch():
 
 def test_refusals_name_their_roadmap_items():
     for over, match in (({"TPU.ZERO1": True}, "parallelism"),
-                        ({"TPU.MESH.PIPE": 2}, "parallelism"),
-                        ({"AUG.TIMM_AUG.USE_TRANSFORM": True}, "streaming data")):
+                        ({"TPU.MESH.PIPE": 2}, "parallelism")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP §1, {match}"):
             make_trainer(make_cfg(**over))
     with pytest.raises(ValueError, match="requires a ResNet"):
         make_trainer(make_cfg(**{"AUG.DROPBLOCK_KEEP_PROB": 0.9}))
+    # AUG.TIMM_AUG is no longer refused: the device-side augmentation runs
+    # inside the step on the raw batch (tests/test_torch_port_augment.py
+    # holds it against JAX)
+    timm = make_trainer(make_cfg(**{"AUG.TIMM_AUG.USE_TRANSFORM": True,
+                                    "AUG.TIMM_AUG.RE_PROB": 0.25}))
+    assert (timm.transform.num_ops, timm.transform.magnitude) == (2, 9.0)
+    x, y = _data(n_per_class=2, uint8=True)
+    loss, _ = timm.train_step(x, y, 0)
+    assert np.isfinite(float(loss)) and timm.noise_generator is not None
 
 
 def test_captured_path_equals_eager(monkeypatch):
