@@ -207,6 +207,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    manifest: its train split equal to ``decode_resize`` of each PNG, one
    round of 3 cells and the final train, K1-K3 counted by ``launch_rule``.
 
+15. resnet: the ResNet family.  The determinism probe: every convolution of
+   the ResNet-50 v1 step (B = 64, 224 px, bf16, channels-last) and of the
+   CLIP RN50 tower (a round's folded batch, and the grouped convolutions of
+   per-cell weights), each gradient computed three times with cuDNN's
+   default algorithms (the form ``models.resnet._Conv2d`` runs; each must
+   repeat) and with its deterministic ones, bit for bit or not.  RN50 CLIP
+   (rn50_CLIP.yaml) at 224 px, weights from a numpy seed, bf16: served
+   through ``ServingSession`` (buckets 1, 8 and 32; captured == eager, no
+   kernel launched, top-1 and logits against fp32 on the CPU, fp32 on the
+   card against the CPU, latency); ``zeroshot_main`` (K1 12 times a text
+   forward, with the causal bias; none in the RN tower); a captured round of
+   3 bitfit cells at B = 16 against it eager (bit for bit, BN statistics
+   included) and against each cell trained alone; ``finetune_main`` (bitfit)
+   on the tiny RN tower in fp32, card against CPU.  DropBlock on the card
+   against the CPU on the same noise at the step's two shapes.  Then
+   ``train_main`` on r50_s3.yaml's ResNet-50 v1 (B = 64, 224 px, SGD,
+   warmup-cosine, mixup 0.2 / cutmix 1.0, label smoothing 0.1, DropBlock on
+   stages 3 and 4 at keep 0.9, block 7): no kernel launched, the first step
+   captured == eager and a resumed run == the uninterrupted one bit for bit
+   (BN statistics and the drop generator included), ``update_bn``, the
+   step's time, busy time and idle share.
+
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
 """
@@ -2851,8 +2873,16 @@ def launch_rule(model, trainable, cells: int = 1, int8: bool = False,
     weight, quantized per call) and, with ``bwd_dx``, once a frozen GEMM
     whose input needs a gradient.  KAdaptation's ``phmb`` is never read and
     an adapter that AdapterDrop skips never runs: neither makes anything
-    need a gradient."""
+    need a gradient.  A CNN tower launches none of them."""
     backbone, names = model.backbone, set(trainable)
+    if not hasattr(backbone, "blocks"):
+        # a CNN tower (the ResNet family): convolutions, pools and BN are
+        # library calls, and its attention pool is plain PyTorch; K1-K7 never run
+        out = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+               "flash_attention_bwd_dkv": 0, "attention_bias_grad": 0}
+        if int8:
+            out["int8_gemm_dynamic"] = 0
+        return out
 
     def trains(prefix: str, *skip: str) -> bool:
         return any(n.startswith(prefix) and not n.startswith(skip) for n in names)
@@ -3553,24 +3583,28 @@ def tower_phase(smi: str, device: str = "cuda") -> dict:
     return result
 
 
-def tiny_driver_check(device: str = "cuda") -> None:
-    """The tiny fp32 drive with a 2-lr grid on ``device`` and on the CPU:
-    the same weights (drawn on the CPU from the config's seed), data and
-    cell draws, so both must choose the same (lr, wd) and score."""
+def tiny_driver_check(device: str = "cuda", over: dict = None, lrs=TINY_DRIVER_LRS,
+                      label: str = "driver tiny fp32") -> tuple:
+    """The tiny fp32 drive (``over``: the config, ``TINY_DRIVER``'s by
+    default) with the lr grid ``lrs`` on ``device`` and on the CPU: the same
+    weights (drawn on the CPU from the config's seed), data and cell draws,
+    so both must choose the same (lr, wd) and score."""
     from peft_vit_tpu_torch.commands import run
 
     picks = {}
     for dev in ("cpu", device):
-        cfg = driver_cfg({**TINY_DRIVER, "TRAIN.NO_TUNING": False}, yaml_file=None)
+        cfg = driver_cfg({**(TINY_DRIVER if over is None else over), "TRAIN.NO_TUNING": False},
+                         yaml_file=None)
         sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
-        with driver_spy(run, sync, lr_grid=TINY_DRIVER_LRS) as rec:
+        with driver_spy(run, sync, lr_grid=lrs) as rec:
             out_dir = _results_dir()
             score = run.finetune_main(cfg, out_dir, device=dev)
         record = json.loads(open(f"{out_dir}/results.jsonl").read().splitlines()[-1])
         picks[dev] = (record["lr"], record["wd"], score, rec["cells"])
     check(picks["cpu"] == picks[device],
-          f"driver tiny fp32: {device} chose (lr, wd, score, cells) {picks[device]} == cpu "
+          f"{label}: {device} chose (lr, wd, score, cells) {picks[device]} == cpu "
           f"{picks['cpu']}")
+    return picks[device]
 
 
 # ---------------------------------------------------------------------------
@@ -4159,7 +4193,8 @@ def trainer_spy(sync):
         s = t.state
         return {"trainable": {k: v.detach().clone() for k, v in s.trainable.items()},
                 "opt": {k: v.clone() for k, v in s.opt_state.items()},
-                "ema": {k: v.clone() for k, v in s.ema.shadow.items()} if s.ema else {}}
+                "ema": {k: v.clone() for k, v in s.ema.shadow.items()} if s.ema else {},
+                "bn": {k: v.clone() for k, v in (s.batch_stats or {}).items()}}
 
     class Spy(train_cmd.Trainer):
         def __init__(self, *args, **kwargs):
@@ -4174,7 +4209,9 @@ def trainer_spy(sync):
                     "y": y.clone() if torch.is_tensor(y) else np.array(y),
                     "rng": self.generator.get_state(), "before": snapshot(self),
                     "noise_rng": (self.noise_generator.get_state()
-                                  if self.noise_generator is not None else None)}
+                                  if self.noise_generator is not None else None),
+                    "drop_rng": (self.drop_generator.get_state()
+                                 if self.drop_generator is not None else None)}
             loss, lr = super().train_step(x, y, epoch)
             seen["steps"].append((step, lr.clone()))
             if step == 0:
@@ -4214,7 +4251,7 @@ def _state_differ(trainer, want: dict) -> list:
     ``want`` (``trainer_spy``'s layout)."""
     s = trainer.state
     got = {"trainable": s.trainable, "opt": s.opt_state,
-           "ema": s.ema.shadow if s.ema is not None else {}}
+           "ema": s.ema.shadow if s.ema is not None else {}, "bn": s.batch_stats or {}}
     return [f"{part}.{k}" for part, leaves in want.items() for k, v in leaves.items()
             if not torch.equal(v, got[part][k])]
 
@@ -4230,10 +4267,13 @@ def _rerun_first_step(trainer, first: dict) -> None:
         {k: v.clone() for k, v in b["opt"].items()},
         torch.zeros_like(s.step),
         s.ema._replace(shadow={k: v.clone() for k, v in b["ema"].items()}) if s.ema else None,
-        s.swa, s.batch_stats, torch.ones_like(s.finite))
+        s.swa, {k: v.clone() for k, v in b["bn"].items()} if s.batch_stats else None,
+        torch.ones_like(s.finite))
     trainer.generator.set_state(first["rng"])
     if first.get("noise_rng") is not None:
         trainer.noise_generator.set_state(first["noise_rng"])
+    if first.get("drop_rng") is not None:
+        trainer.drop_generator.set_state(first["drop_rng"])
     trainer.train_step(first["x"], first["y"], 0)
 
 
@@ -5153,6 +5193,740 @@ def streaming_phase(smi: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------- the ResNet family
+
+RN_BATCH = 64  # r50_s3.yaml's TRAIN.BATCH_SIZE_PER_GPU
+RN_PROBE_CELLS, RN_PROBE_CELL_BATCH = 3, 16  # a bitfit / full round of the RN50 tower
+RN_PROBE_REPEATS = 3
+
+
+def conv_signatures(model, x) -> list:
+    """The distinct convolutions of one train-mode forward of ``model`` on
+    ``x``: (x shape, w shape, stride, padding, groups, dtype), in order."""
+    from peft_vit_tpu_torch.models import resnet as rn
+
+    seen, real = [], rn._Conv2d.apply
+
+    def spy(xx, w, stride, padding, groups):
+        sig = (tuple(xx.shape), tuple(w.shape), stride, padding, groups, xx.dtype)
+        if sig not in seen:
+            seen.append(sig)
+        return real(xx, w, stride, padding, groups)
+
+    rn._Conv2d.apply = spy
+    try:
+        with torch.no_grad():
+            model.train()(x)
+    finally:
+        rn._Conv2d.apply = real
+    return seen
+
+
+def conv_kind(w_shape, stride: int, groups: int) -> str:
+    """A convolution's class in the determinism table: ``<k>x<k>/<stride>``,
+    ``g`` appended for a grouped one."""
+    k = int(w_shape[-1])
+    return f"{k}x{k}/{int(stride)}" + ("g" if groups > 1 else "")
+
+
+def conv_determinism_probe(signatures, label: str) -> list:
+    """Each convolution's input and weight gradients (cuDNN's default
+    algorithms, as ``_Conv2d`` runs them) computed ``RN_PROBE_REPEATS``
+    times on the same operands, channels-last as the towers give them; then
+    the same with cuDNN's deterministic algorithms.  Rows: the conv's kind,
+    shapes and whether each gradient repeated bit for bit; each fails the
+    run if the default algorithm did not (``_Conv2d`` would then have to
+    take the deterministic one)."""
+    from peft_vit_tpu_torch.models import resnet as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for xs, ws, stride, padding, groups, dtype in signatures:
+        x = torch.randn(xs, generator=gen, device="cuda").to(dtype)
+        x = x.contiguous(memory_format=torch.channels_last)
+        w = (torch.randn(ws, generator=gen, device="cuda") / math.sqrt(
+            ws[1] * ws[2] * ws[3])).to(dtype)
+        out = torch.nn.functional.conv2d(x, w, None, stride, padding, 1, groups)
+        g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        row = {"kind": conv_kind(ws, stride, groups), "x": list(xs), "w": list(ws),
+               "dtype": str(dtype).split(".")[-1]}
+        for det in (False, True):
+            for which in ("dx", "dw"):
+                outs = []
+                for _ in range(RN_PROBE_REPEATS):
+                    with rn._cudnn(dtype, det):
+                        if which == "dx":
+                            outs.append(torch.nn.grad.conv2d_input(
+                                x.shape, w, g, stride, padding, 1, groups))
+                        else:
+                            outs.append(torch.nn.grad.conv2d_weight(
+                                x, w.shape, g, stride, padding, 1, groups))
+                same = all(torch.equal(outs[0], o) for o in outs[1:])
+                row[f"{which}_{'deterministic' if det else 'default'}_repeats"] = same
+        rows.append(row)
+        print(f"determinism {label} {row['kind']} x {xs} w {ws} {row['dtype']}: dx repeats "
+              f"{row['dx_default_repeats']} (deterministic {row['dx_deterministic_repeats']}), "
+              f"dw repeats {row['dw_default_repeats']} (deterministic "
+              f"{row['dw_deterministic_repeats']}); form: cuDNN's default", flush=True)
+    bad = [f"{r['kind']} w {r['w']}" for r in rows
+           if not (r["dx_default_repeats"] and r["dw_default_repeats"])]
+    check(not bad, f"determinism {label}: {len(rows)} convolutions' dx and dw repeat bit for "
+          "bit under cuDNN's default algorithms (the form `_Conv2d` runs)"
+          + (f"; not: {bad[:4]}" if bad else ""))
+    return rows
+
+
+def _grouped(signatures, cells: int) -> list:
+    """The grouped convolutions a round of ``cells`` makes of per-cell
+    weights (``_Conv2d``'s batching rule): the cells' channels side by side."""
+    out = []
+    for xs, ws, stride, padding, groups, dtype in signatures:
+        out.append(((xs[0], xs[1] * cells, *xs[2:]), (ws[0] * cells, *ws[1:]), stride,
+                    padding, groups * cells, dtype))
+    return out
+
+
+def determinism_phase() -> dict:
+    """The determinism probe over every convolution of the ResNet-50 v1
+    full-shot step (B = 64, 224 px, bf16) and of the CLIP RN50 tower (a
+    round's folded batch, and the grouped convs of per-cell weights)."""
+    from peft_vit_tpu_torch.models.clip_resnet import ModifiedResNet
+    from peft_vit_tpu_torch.models.resnet import resnet50
+
+    torch.manual_seed(SEED)
+    x = torch.randn(RN_BATCH, IMAGE, IMAGE, 3, device="cuda")
+    r50 = resnet50(dtype=torch.bfloat16, device="cuda")
+    sig50 = conv_signatures(r50, x)
+    del r50
+    clip = ModifiedResNet(dtype=torch.bfloat16, device="cuda")
+    xc = torch.randn(RN_PROBE_CELLS * RN_PROBE_CELL_BATCH, IMAGE, IMAGE, 3, device="cuda")
+    sigc = conv_signatures(clip, xc)
+    sigg = _grouped(conv_signatures(clip, xc[:RN_PROBE_CELL_BATCH]), RN_PROBE_CELLS)
+    del clip
+    rows = {"resnet50": conv_determinism_probe(sig50, "resnet50"),
+            "rn50_round": conv_determinism_probe(sigc, "rn50_round"),
+            "rn50_grouped": conv_determinism_probe(sigg, "rn50_grouped")}
+    gc_collect(True)
+    return rows
+
+
+RN_CLIP_YAML = "peft_vit_tpu/resources/model/rn50_CLIP.yaml"
+R50_YAML = "peft_vit_tpu/resources/model/r50_s3.yaml"
+RN_EMBED = 1024  # rn50_CLIP.yaml's EMBED_DIM: the pool's output and the text projection's
+RN_CLIP = {"TPU.COMPUTE_DTYPE": "bfloat16"}
+RN_MODEL: dict = {}  # overrides of the RN50 tower (a CPU rehearsal shrinks it here)
+# r50_s3.yaml's recipe (SGD nesterov, warmup-cosine, mixup 0.2 / cutmix 1.0,
+# label smoothing 0.1) on synthetic 10-way at 224 px, B = 64, 2 epochs of 2
+# steps, with DropBlock on stages 3 and 4 at keep 0.9, block 7: stage 3's
+# 14 x 14 maps take the min-pool branch, stage 4's 7 x 7 the whole-map one.
+# The warm-up is cut from 5 epochs to 1, the lr from 0.4 to 0.02 (random
+# weights: at 0.1 the second epoch's loss rose to 32 on the H100).
+R50_FULLSHOT = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": 10,
+                "MODEL.NUM_CLASSES": 10, "TRAIN.IMAGE_SIZE": [IMAGE, IMAGE],
+                "PEFT.METHOD": "none", "TEST.BATCH_SIZE_PER_GPU": RN_BATCH,
+                "TRAIN.BATCH_SIZE_PER_GPU": RN_BATCH, "TRAIN.END_EPOCH": 2, "TRAIN.LR": 0.02,
+                "TRAIN.MOMENTUM": 0.9, "TRAIN.NESTEROV": True,
+                "TRAIN.LR_SCHEDULER.WARMUP_EPOCH": 1, "AUG.DROPBLOCK_KEEP_PROB": 0.9,
+                "AUG.DROPBLOCK_LAYERS": [3, 4], "AUG.DROPBLOCK_BLOCK_SIZE": 7,
+                "TRAIN.CHECKPOINT_EVERY_STEPS": 0, "TRAIN.AUTO_RESUME": False,
+                "TPU.COMPUTE_DTYPE": "bfloat16", "PRINT_FREQ": 1, "NAME": "resnet50"}
+R50_MODEL: dict = {}  # overrides of the ResNet-50 (a CPU rehearsal shrinks it here)
+RN_CONFIG_OVER: dict = {}  # overrides of every config of rn_configs_check (likewise)
+R50_DIR = "build/resnet"  # checkpoints and logs, removed after the phase
+R50_FLOPS_PER_IMAGE = 3 * 4.1e9  # a ResNet-50 forward at 224 px is 4.1 GFLOP; fwd + bwd ~3x
+RN_UPDATE_BN_BATCHES = 2
+# The RN50 CLIP tower in bf16 on the card against fp32 on the CPU, max |logit
+# diff| / max |logit| of a 5-image request through the prototype head: bf16
+# rounds each conv output and BN input at ~4e-3 relative through 16
+# random-weight bottlenecks (eval BN on random statistics normalizes nothing,
+# so the activations grow block by block) and the pool's softmax.  The first
+# measurement on the H100 (NVIDIA H100 80GB HBM3, 700.00 W): 0.399, top-1
+# equal; the same model in bf16 on the CPU, with no card, is printed beside
+# it as the yardstick.  Bound 0.6.
+TOL_RN_BF16_LOGITS_REL = 0.6
+# fp32 on the card against the CPU: the same arithmetic summed in other orders
+# (cuDNN's convolutions against the CPU's), TF32 off for fp32 operands.
+TOL_RN_F32_LOGITS_REL = 1e-3
+# The tiny fp32 few-shot drive on the RN tower, card against CPU: the choice
+# and the score equal, as the ViT's tiny drive.
+RN_TINY_DRIVER = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": 4,
+                  "DATASET.NUM_SAMPLES_PER_CLASS": 8, "TRAIN.IMAGE_SIZE": [32, 32],
+                  "TRAIN.BATCH_SIZE_PER_GPU": 8, "TRAIN.END_EPOCH": 2, "TRAIN.SCHEDULE": [],
+                  "MODEL.NAME": "RN50", "MODEL.SPEC.EMBED_DIM": 16,
+                  "MODEL.SPEC.VISION.MODEL": "resnet", "MODEL.SPEC.VISION.WIDTH": 8,
+                  "MODEL.SPEC.VISION.LAYERS": [1, 1, 1, 1], "MODEL.SPEC.VISION.HEADS": 4,
+                  "MODEL.SPEC.TEXT.WIDTH": 16, "MODEL.SPEC.TEXT.HEADS": 2,
+                  "MODEL.SPEC.TEXT.LAYERS": 1, "PEFT.METHOD": "bitfit",
+                  "TPU.COMPUTE_DTYPE": "float32", "TRAIN.SEARCH_WD_LOG_UPPER": -2}
+RN_TINY_LRS = (1e-3, 3e-2)
+# Leaves of the RN50 classifier whose gradient is zero in exact arithmetic
+# under the train-mode channel BN: the pool's value and output biases shift
+# every image's feature by one vector, which the BN subtracts with the batch
+# mean, and the key bias adds one number to every score of a query row, which
+# the softmax ignores.  Their bf16 gradient is rounding alone, so no cosine
+# holds them: printed, not held (as the ViT's ln_post bias, ZERO_GRAD).
+RN_ZERO_GRAD = ("backbone.attnpool.k_proj.bias", "backbone.attnpool.v_proj.bias",
+                "backbone.attnpool.c_proj.bias")
+
+
+def rn_numpy_state(model, rng: np.random.RandomState) -> dict:
+    """Every parameter and statistic of ``model`` drawn from ``rng`` (its
+    state_dict's names and shapes): conv and dense weights at 1 / sqrt(fan
+    in), norm scales near 1, biases and means near 0, variances in [0.5,
+    1.5], the pool's positional embedding at 1 / sqrt(C)."""
+    out = {}
+    for name, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "weight" and len(shape) >= 2:
+            a = rng.standard_normal(shape) / math.sqrt(int(np.prod(shape[1:])))
+        elif leaf == "weight":
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif leaf == "bn_var":
+            a = rng.uniform(0.5, 1.5, shape)
+        elif leaf == "positional_embedding":
+            a = rng.standard_normal(shape) / math.sqrt(shape[-1])
+        else:
+            a = 0.02 * rng.standard_normal(shape)
+        out[name] = torch.from_numpy(a.astype(np.float32))
+    return out
+
+
+def _rn_clip(num_classes: int, dtype: str, device: str):
+    from peft_vit_tpu_torch.models import build_image_classifier
+    from peft_vit_tpu_torch.peft import PEFTSpec
+
+    cfg = driver_cfg({**RN_CLIP, **RN_MODEL, "TPU.COMPUTE_DTYPE": dtype}, RN_CLIP_YAML)
+    return cfg, build_image_classifier(cfg, PEFTSpec(), num_classes, device=device)
+
+
+def rn_serving_check(smi: str, device: str) -> dict:
+    """The RN50 CLIP classifier (rn50_CLIP.yaml: width 64, layers 3/4/6/3, the
+    pool over 7 x 7 + 1 tokens in 32 heads of 64, embed 1024) at 224 px,
+    weights from a numpy seed and a prototype head, through ``ServingSession``
+    (bf16, buckets 1, 8 and 32): captured == eager bit for bit, no kernel
+    launched, top-1 and the logits against fp32 on the CPU, fp32 on the card
+    against the CPU, each bucket's latency."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import ServingSession, make_infer_fn
+    from peft_vit_tpu_torch.ops import launch_counts
+
+    from peft_vit_tpu_torch.models import ImageClassifier, ModifiedResNet
+
+    rng = np.random.RandomState(SEED + 60)
+    cfg, (cpu_model, _, _) = _rn_clip(NUM_CLASSES, "float32", "cpu")
+    state = rn_numpy_state(cpu_model, rng)
+    size = cpu_model.backbone.attnpool.positional_embedding.shape[0]
+    image = int(round((size - 1) ** 0.5)) * 32
+    requests = {n: rng.standard_normal((n, image, image, 3)).astype(np.float32)
+                for n in REQUESTS}
+    checked = requests[CHECKED_REQUEST]
+    cpu_model.load_state_dict(state)
+    cpu_model.eval()
+    with torch.no_grad():
+        feats = cpu_model.backbone(torch.from_numpy(checked)).numpy()
+    # the prototype head: class c's row image c's centred feature, scaled so
+    # that the CPU's logit of image c for class c is 10
+    d = feats - feats.mean(axis=0)
+    rows = 10.0 * d / (d * d).sum(axis=1, keepdims=True)
+    head_w = state["classifier.head.weight"].numpy().copy()
+    head_b = state["classifier.head.bias"].numpy().copy()
+    head_w[:len(feats)] = rows
+    head_b[:len(feats)] = -(rows @ feats.mean(axis=0))
+    state["classifier.head.weight"] = torch.from_numpy(head_w)
+    state["classifier.head.bias"] = torch.from_numpy(head_b)
+    cpu_model.load_state_dict(state)
+    with torch.no_grad():
+        cpu_logits = cpu_model(torch.from_numpy(checked)).numpy()
+    del cpu_model
+    # the yardstick: the same weights in bf16 on the CPU
+    t0 = time.perf_counter()
+    tower = cfg.MODEL.SPEC
+    cpu_bf16 = ImageClassifier(ModifiedResNet(
+        layers=tuple(tower.VISION.LAYERS), output_dim=int(tower.EMBED_DIM),
+        heads=int(tower.VISION.HEADS), image_size=image, width=int(tower.VISION.WIDTH),
+        dtype=torch.bfloat16, device="cpu"), NUM_CLASSES, dtype=torch.bfloat16, device="cpu")
+    cpu_bf16.load_state_dict(state)
+    with torch.no_grad():
+        drift_cpu = _rel(cpu_bf16.eval()(torch.from_numpy(checked)).float().numpy(), cpu_logits)
+    del cpu_bf16
+    print(f"rn50 serving: bf16 on the CPU (no card) vs fp32 CPU: max |logit diff| / max |logit| "
+          f"= {drift_cpu:.4e} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    _, (model, _, _) = _rn_clip(NUM_CLASSES, "bfloat16", device)
+    model.load_state_dict(state)
+    before = launch_counts()  # counts from 0 just before the main path, read just after
+    session = ServingSession(model, None, image, buckets=BUCKETS, device=device)
+    logits = {n: session.predict(x) for n, x in requests.items()}
+    counts = {n: c - before[n] for n, c in launch_counts().items() if c - before[n]}
+    check(counts == {} and all(bool(np.isfinite(v).all()) for v in logits.values()),
+          f"rn50 serving: {len(requests)} requests, finite logits; kernels launched {counts} "
+          "(none: convolutions, pools and BN are library calls, the pool plain PyTorch)")
+    with bench_torch.eager_on_card():
+        _, (model_e, _, _) = _rn_clip(NUM_CLASSES, "bfloat16", device)
+        model_e.load_state_dict(state)
+        eager = ServingSession(model_e, None, image, buckets=BUCKETS, device=device)
+        same = [n for n, x in requests.items() if np.array_equal(eager.predict(x), logits[n])]
+    check(len(same) == len(requests),
+          f"rn50 serving: captured buckets == eager bit for bit on {len(same)} of "
+          f"{len(requests)} requests")
+    del eager, model_e
+    got = logits[CHECKED_REQUEST]
+    rel = _rel(got, cpu_logits)
+    top, top_cpu = got.argmax(1), cpu_logits.argmax(1)
+    check(bool((top == top_cpu).all()) and rel <= TOL_RN_BF16_LOGITS_REL,
+          f"rn50 serving: bf16 card top-1 {top.tolist()} == fp32 CPU {top_cpu.tolist()}; max "
+          f"|logit diff| / max |logit| {rel:.4e} <= {TOL_RN_BF16_LOGITS_REL:g} (bf16 CPU: "
+          f"{drift_cpu:.4e})")
+    _, (m32, _, _) = _rn_clip(NUM_CLASSES, "float32", device)
+    m32.load_state_dict(state)
+    card32 = make_infer_fn(m32, None)(torch.from_numpy(checked).to(device)).cpu().numpy()
+    rel32 = _rel(card32, cpu_logits)
+    check(rel32 <= TOL_RN_F32_LOGITS_REL and bool((card32.argmax(1) == top_cpu).all()),
+          f"rn50 serving: fp32 card vs fp32 CPU max |logit diff| / max |logit| {rel32:.4e} <= "
+          f"{TOL_RN_F32_LOGITS_REL:g}, top-1 equal")
+    del m32
+    latency = _serving_latency(session, "rn50 bf16", rng, smi) if device == "cuda" else {}
+    return {"bf16_rel": rel, "bf16_cpu_rel": drift_cpu, "f32_rel": rel32, "latency_ms": latency,
+            "launches": counts}
+
+
+def rn_zeroshot_check(smi: str, device: str) -> dict:
+    """``zeroshot_main`` on rn50_CLIP.yaml at 224 px in bf16, the towers from
+    numpy seeds (the text tower of width 512, 12 blocks of 8 heads, context 77,
+    projecting to 1024): finite score; the wrappers count K1 12 times a text
+    forward (the causal bias) and nothing for the RN tower."""
+    from peft_vit_tpu_torch.commands import zeroshot_eval
+    from peft_vit_tpu_torch.data.prompts import class_map, register_prompts, template_map
+    from peft_vit_tpu_torch.models import params_to_jax
+    from peft_vit_tpu_torch.ops import attention as attn
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rng = np.random.RandomState(SEED + 61)
+    register_prompts("synthetic", class_map(ZS_DATASET)[:ZS_CLASSES], template_map(ZS_DATASET))
+    text = text_tree(rng)
+    w = text["params"]["text_projection"].shape[0]
+    text["params"]["text_projection"] = (rng.standard_normal((w, RN_EMBED)) / math.sqrt(w)
+                                         ).astype(np.float32)
+    cfg = driver_cfg({**RN_CLIP, **RN_MODEL, **ZS}, RN_CLIP_YAML)
+    # the RN tower's weights from the numpy seed, in the JAX layout of the seam
+    _, (cpu_model, _, _) = _rn_clip(ZS_CLASSES, "float32", "cpu")
+    variables = params_to_jax(rn_numpy_state(cpu_model, np.random.RandomState(SEED + 62)))
+    del cpu_model
+    _zero_attention_counts(attn)  # counts from 0 just before the main path, read just after
+    t0 = time.perf_counter()
+    score = zeroshot_eval.zeroshot_main(cfg, device=device, variables=variables,
+                                        text_variables=text)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = {k: n for k, n in _attention_counts(attn).items() if n}
+    want = {"flash_attention_fwd": TEXT_LAYERS * ZS_CLASSES} if device == "cuda" else {}
+    check(math.isfinite(score) and counts == want,
+          f"rn50 zeroshot_main bf16: score {score:.3f}, {ZS_CLASSES} classes; launched {counts} "
+          f"== K1 {TEXT_LAYERS} a text forward (causal bias) x {ZS_CLASSES} classes, none in "
+          f"the RN tower; {wall:.2f} s (host clock; {smi})")
+    return {"launches": counts.get("flash_attention_fwd", 0), "wall_s": wall, "score": score}
+
+
+def rn_round_check(smi: str, device: str) -> dict:
+    """A captured round of 3 bitfit cells on the RN50 CLIP tower (bf16, B=16,
+    224 px, the channel-BN head, every BN statistic per cell, the tower's BN in
+    train mode as the few-shot step runs it): one step equal to it eager bit
+    for bit, statistics included; no kernel launched; the round's time; each
+    cell against the same cell trained alone, through float64
+    (``_rn_round_exact``)."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import (ce_per_example, init_cell_state, make_apply_fn,
+                                           make_epoch_fn, step_decay_lr)
+    from peft_vit_tpu_torch.models import build_image_classifier, cast_frozen_
+    from peft_vit_tpu_torch.ops import launch_counts
+    from peft_vit_tpu_torch.peft import build_mask, spec_from_config, split_params
+
+    cfg = driver_cfg({**RN_CLIP, **RN_MODEL, "PEFT.METHOD": "bitfit"}, RN_CLIP_YAML)
+    model = build_image_classifier(cfg, spec_from_config(cfg), NUM_CLASSES, use_bn=True,
+                                   device=device)[0]
+    model.load_state_dict(rn_numpy_state(model, np.random.RandomState(SEED + 63)))
+    mask = build_mask(model, "bitfit", num_layers=4)
+    trainable, _ = split_params(model, mask)
+    cast_frozen_(model)
+    apply_fn = make_apply_fn(model)
+    bn = {k: v for k, v in model.named_buffers() if k.endswith(("bn_mean", "bn_var"))}
+    k = len(ROUND_LRS)
+    rng = np.random.RandomState(SEED + 64)
+    image = int(cfg.TRAIN.IMAGE_SIZE[0])
+    x = torch.as_tensor(rng.standard_normal((TRAIN_BATCH, image, image, 3)).astype(np.float32),
+                        device=device)
+    y = torch.as_tensor(rng.randint(0, NUM_CLASSES, TRAIN_BATCH), device=device)
+    valid = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=device)
+    perm, lrs, wds = np.arange(TRAIN_BATCH), step_decay_lr(ROUND_LRS, 0, ()), torch.tensor(
+        ROUND_WDS)
+    draws = [{n: v.detach() * (1.0 + 0.1 * torch.from_numpy(rng.standard_normal(
+        tuple(v.shape)).astype(np.float32)).to(v.device)) for n, v in trainable.items()}
+        for _ in range(k)]
+    start = {n: torch.stack([d[n] for d in draws]) for n in draws[0]}
+    state = init_cell_state(start, {n: v.expand(k, *v.shape) for n, v in bn.items()})
+    graphs = {}
+    epoch = make_epoch_fn(apply_fn, ce_per_example, TRAIN_BATCH, has_bn=True, cells=True,
+                          graphs=graphs)
+    before = launch_counts()
+    captured, loss = epoch(state, {}, x, y, valid, perm, lrs, wds)
+    counts = {n: c - before[n] for n, c in launch_counts().items() if c - before[n]}
+    with bench_torch.eager_on_card():
+        eager, eager_loss = epoch(state, {}, x, y, valid, perm, lrs, wds)
+    parts = ("trainable", "momentum", "bn")
+    differ = [f"{part}.{n}" for part in parts for n, v in getattr(eager, part).items()
+              if not torch.equal(v, getattr(captured, part)[n])]
+    n_state = sum(len(getattr(eager, part)) for part in parts)
+    check(not differ and torch.equal(loss, eager_loss) and bool(loss.isfinite().all()),
+          f"rn50 bitfit: a round of {k} cells, one step at B={TRAIN_BATCH}, captured == eager "
+          f"bit for bit ({n_state} state tensors: {len(start)} trainable leaves, their momentum, "
+          f"{len(bn)} BN statistics; losses " + " ".join(f"{float(v):.4f}" for v in loss) + ")"
+          + (f"; differ: {differ[:4]}" if differ else ""))
+    graph = graphs.get(("step", k, TRAIN_BATCH))
+    want = launch_rule(model, trainable, k)
+    if device == "cuda":
+        _per_replay(graph, want, f"rn50 bitfit: one step of a round of {k}")
+    check(counts == {}, f"rn50 bitfit round: kernels launched {counts} (none)")
+    one = make_epoch_fn(apply_fn, ce_per_example, TRAIN_BATCH, has_bn=True)
+    cos, alone = {}, []
+    with bench_torch.eager_on_card():
+        for c in range(k):
+            alone.append(one(init_cell_state(draws[c], bn), {}, x, y, valid, perm, lrs[c],
+                             wds[c])[0])
+            for n, v in alone[c].momentum.items():
+                cos[(c, n)] = torch.nn.functional.cosine_similarity(
+                    v.double().flatten(), captured.momentum[n][c].double().flatten(), dim=0).item()
+    least = min(cos, key=cos.get)
+    print(f"rn50 bitfit bf16: each of {k} cells against the cell trained alone, momentum "
+          f"cosine per leaf: least {cos[least]:.6f} (cell {least[0]}, {least[1]}), median "
+          f"{statistics.median(cos.values()):.6f}; printed, not held: the round's convs see a "
+          "batch of 48 against 16 and round their bf16 outputs otherwise, and on this "
+          "random-weight tower the BN biases' gradients are rounding-dominated (the float64 "
+          "comparison below is held)", flush=True)
+    row = {"round_ms": None, "launches": counts, "bf16_least_cos": cos[least]}
+    if device == "cuda" and graph is not None:
+        row["round_ms"] = _replay_ms(graph, 5)
+        print(f"rn50 bitfit round of {k} at B={TRAIN_BATCH}: captured {row['round_ms']:.3f} ms a "
+              f"step ({k * TRAIN_BATCH / row['round_ms'] * 1e3:.1f} cell-images/s); {smi}",
+              flush=True)
+    del graphs, graph, epoch
+    gc_collect(device == "cuda")
+    row["exact"] = _rn_round_exact(model, draws, bn, x, y, valid, perm, lrs, wds,
+                                   {"round": captured, "alone": alone}, device)
+    del captured, eager, model
+    return row
+
+
+def _as_float64(model):
+    """``model`` computing in float64: every module's compute dtype, its
+    parameters and its statistics (the norms compute in at least fp32, so in
+    float64 here)."""
+    for m in model.modules():
+        for attr in ("compute_dtype", "dtype"):
+            if isinstance(getattr(m, attr, None), torch.dtype):
+                setattr(m, attr, torch.float64)
+    return model.double()
+
+
+def _rn_round_exact(model, draws, bn, x, y, valid, perm, lrs, wds, bf16_round, device: str):
+    """The bitfit round of ``rn_round_check`` against float64 on the card:
+    the float64 round equal to its cells trained alone in float64 (max |diff|
+    <= 1e-9 of each state tensor's largest change over the step: a cell's lr,
+    wd, state or batch taken for another's shows); the bf16 round's update
+    (its momentum after the step, the gradient plus wd p) against the
+    float64 one no farther than the bf16 cells trained alone
+    (``TOL_METHOD_EXACT_RATIO`` x their mean 1 - cosine +
+    ``TOL_METHOD_EXACT_FLOOR``), the leaves of ``RN_ZERO_GRAD`` left out."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import (ce_per_example, init_cell_state, make_apply_fn,
+                                           make_epoch_fn)
+
+    k = len(draws)
+    m64 = _as_float64(model)
+    apply64 = make_apply_fn(m64)
+    d64 = [{n: v.double() for n, v in d.items()} for d in draws]
+    bn64 = {n: v.double() for n, v in bn.items()}
+    x64 = x.double()
+    with bench_torch.eager_on_card():
+        one = make_epoch_fn(apply64, ce_per_example, TRAIN_BATCH, has_bn=True)
+        alone = [one(init_cell_state(d64[c], bn64), {}, x64, y, valid, perm, lrs[c], wds[c])[0]
+                 for c in range(k)]
+        state = init_cell_state({n: torch.stack([d[n] for d in d64]) for n in d64[0]},
+                                {n: v.expand(k, *v.shape) for n, v in bn64.items()})
+        end = make_epoch_fn(apply64, ce_per_example, TRAIN_BATCH, has_bn=True, cells=True)(
+            state, {}, x64, y, valid, perm, lrs, wds)[0]
+    worst = (0.0, None)
+    for c in range(k):
+        for part in ("trainable", "momentum", "bn"):
+            for name, v in getattr(alone[c], part).items():
+                s0 = (d64[c] if part == "trainable" else bn64 if part == "bn" else {}).get(
+                    name, torch.zeros_like(v))
+                change = (v - s0).abs().max().item()
+                diff = (getattr(end, part)[name][c] - v).abs().max().item()
+                ratio = diff / change if change else (0.0 if diff == 0 else math.inf)
+                if ratio > worst[0]:
+                    worst = (ratio, f"cell {c} {part} {name}")
+    check(worst[0] <= 1e-9,
+          f"rn50 bitfit float64: a round of {k} against its cells trained alone, every state "
+          f"tensor's change over one step: max |diff| / max |change| {worst[0]:.3e} <= 1e-9 "
+          f"({worst[1]})")
+    miss = {"round": [], "alone": []}
+    for c in range(k):
+        for name, exact in alone[c].momentum.items():
+            if name in RN_ZERO_GRAD:
+                continue
+            e = exact.double().flatten()
+            miss["round"].append(1.0 - torch.nn.functional.cosine_similarity(
+                bf16_round["round"].momentum[name][c].double().flatten(), e, dim=0).item())
+            miss["alone"].append(1.0 - torch.nn.functional.cosine_similarity(
+                bf16_round["alone"][c].momentum[name].double().flatten(), e, dim=0).item())
+    got, base = statistics.fmean(miss["round"]), statistics.fmean(miss["alone"])
+    check(got <= TOL_METHOD_EXACT_RATIO * base + TOL_METHOD_EXACT_FLOOR,
+          f"rn50 bitfit bf16: the round's update against float64, {len(miss['round'])} (cell, "
+          f"leaf) pairs: mean 1 - cosine {got:.3e} <= {TOL_METHOD_EXACT_RATIO:g} x the cells "
+          f"trained alone's {base:.3e} + {TOL_METHOD_EXACT_FLOOR:g}")
+    del m64
+    return {"float64_worst": worst[0], "bf16_round_miss": got, "bf16_alone_miss": base}
+
+
+def dropblock_card_check(smi: str, device: str) -> dict:
+    """DropBlock on the card against its plain version on the CPU with the
+    same noise, at the ResNet-50 step's two DropBlock shapes (stage 3: (64,
+    1024, 14, 14), the min-pool branch; stage 4: (64, 2048, 7, 7), the
+    whole-map one), bf16, keep 0.9 at block 7: equal bit for bit; the op's
+    time on the card."""
+    from peft_vit_tpu_torch.ops.dropblock import drop_block
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows = {}
+    for shape in ((RN_BATCH, 1024, 14, 14), (RN_BATCH, 2048, 7, 7)):
+        x = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        u = torch.rand(shape, generator=gen, device=device)
+        got = drop_block(x, block_size=7, keep_prob=0.9, noise=u)
+        want = drop_block(x.cpu(), block_size=7, keep_prob=0.9, noise=u.cpu())
+        same = torch.equal(got.cpu(), want)
+        dropped = float((want == 0).float().mean())
+        ms = None
+        if device == "cuda":
+            ms = _device_ms(lambda: drop_block(x, block_size=7, keep_prob=0.9, noise=u), 20)
+        check(same, f"dropblock {shape} bf16 keep 0.9 block 7: card == CPU bit for bit "
+              f"({dropped:.4f} of the elements dropped)"
+              + ("" if ms is None else f"; {ms:.4f} ms on the card ({smi})"))
+        rows[str(shape)] = {"ms": ms, "dropped": dropped}
+    return rows
+
+
+def r50_fullshot_check(smi: str, device: str) -> dict:
+    """``train_main`` on r50_s3.yaml's ResNet-50 v1 with DropBlock (see
+    ``R50_FULLSHOT``): every step and eval batch one replay, no kernel
+    launched (``launch_rule``), finite losses; the first step captured == eager
+    bit for bit, BN statistics included; a run stopped after its first
+    mid-epoch checkpoint and resumed == the uninterrupted run bit for bit
+    (trainable, momentum, BN statistics, the drop generator's state);
+    ``update_bn`` against the stem BN's batch means; the step's time."""
+    import itertools
+    import shutil
+
+    import bench_torch
+    from peft_vit_tpu_torch.engine.trainer import Trainer, _skip_batches, batch_iterator
+    from peft_vit_tpu_torch.peft import build_mask
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = driver_cfg({**R50_FULLSHOT, **R50_MODEL, "OUTPUT_DIR": R50_DIR}, R50_YAML)
+    run = fullshot_drive("resnet50", cfg, smi, device, sync, out_dir=R50_DIR)
+    tr, splits = run["trainer"], run["splits"]
+    spe = tr.steps_per_epoch
+    steps = spe * int(cfg.TRAIN.END_EPOCH)
+    n_eval = -(-len(splits.y_test) // int(cfg.TEST.BATCH_SIZE_PER_GPU))
+    final = {"trainable": {k: v.detach().clone() for k, v in tr.state.trainable.items()},
+             "opt": {k: v.clone() for k, v in tr.state.opt_state.items()},
+             "bn": {k: v.clone() for k, v in tr.state.batch_stats.items()}}
+    drop_final = tr.drop_generator.get_state()
+    check(bool(tr.state.finite) and all(math.isfinite(e["loss"]) for e in run["epochs"])
+          and tr.use_dropblock and len(tr.state.batch_stats) > 0,
+          f"resnet50 full-shot: {steps} steps at B={RN_BATCH} with DropBlock, finite losses "
+          + " ".join(f"{e['loss']:.4f}" for e in run["epochs"])
+          + f", {len(tr.state.batch_stats)} BN statistics, best top-1 {run['best']:.2f}")
+    rule = launch_rule(tr.model, tr.state.trainable)
+    _hold_graphs("resnet50 full-shot", tr, run["counts"], rule, rule, steps,
+                 int(cfg.TRAIN.END_EPOCH) * n_eval)
+    check(not any(run["counts"].values()),
+          f"resnet50 full-shot: K1-K7 launched 0 times on the vision path ({run['counts']})")
+    first = run["first"]
+    captured = {part: dict(leaves) for part, leaves in first["after"].items()}
+    with bench_torch.eager_on_card():
+        _rerun_first_step(tr, first)
+    differ = _state_differ(tr, captured)
+    n_state = sum(len(v) for v in captured.values())
+    check(not differ, f"resnet50 full-shot: the first step captured == eager bit for bit "
+          f"({n_state} state tensors: trainable, momentum, BN statistics; DropBlock drawn from "
+          "the registered generator)" + (f"; differ: {differ[:4]}" if differ else ""))
+    # a run stopped after its first mid-epoch checkpoint, and one resumed from it
+    mask = build_mask(tr.model, "full", num_layers=0)
+    resume_dir = f"{R50_DIR}/resume"
+    rcfg = driver_cfg({**R50_FULLSHOT, **R50_MODEL, "OUTPUT_DIR": R50_DIR,
+                       "TRAIN.CHECKPOINT_EVERY_STEPS": 1, "TRAIN.AUTO_RESUME": True}, R50_YAML)
+
+    def epoch_batches(e):
+        return batch_iterator(splits.x_train, splits.y_train, RN_BATCH,
+                              shuffle=bool(cfg.TRAIN.SHUFFLE), seed=e)
+
+    bn0 = first["before"]["bn"]
+
+    def fresh():
+        t = Trainer(rcfg, tr.model, mask, spe)
+        for k, v in t.state.batch_stats.items():  # the run's initial statistics
+            v.copy_(bn0[k])
+        return t
+
+    stopped = fresh()
+    stopped.train_one_epoch(itertools.islice(epoch_batches(0), 1), 0, checkpoint_dir=resume_dir)
+    del stopped
+    resumed = fresh()
+    epoch0 = resumed.maybe_resume(resume_dir)
+    at = resumed.resume_batch_in_epoch
+    for e in range(epoch0, int(cfg.TRAIN.END_EPOCH)):
+        sb = at if e == epoch0 else 0
+        resumed.train_one_epoch(_skip_batches(epoch_batches(e), sb), e, start_batch=sb)
+    differ = _state_differ(resumed, final)
+    same_rng = torch.equal(resumed.drop_generator.get_state(), drop_final)
+    check((epoch0, at) == (0, 1) and not differ and same_rng,
+          f"resnet50 full-shot: resumed at epoch {epoch0} batch {at} from the first mid-epoch "
+          f"checkpoint == the uninterrupted run bit for bit after {steps} steps "
+          f"({sum(len(v) for v in final.values())} state tensors; the drop generator's state "
+          f"{'equal' if same_rng else 'differs'})" + (f"; differ: {differ[:4]}" if differ else ""))
+    # update_bn: the stem BN's new mean against the batch means of its input
+    batches = list(itertools.islice(epoch_batches(0), RN_UPDATE_BN_BATCHES))
+    seen = []
+    hook = tr.model.backbone.bn1.register_forward_hook(
+        lambda m, args, out: seen.append(args[0].float().mean(dim=(0, 2, 3))))
+    try:
+        stats = resumed.update_bn(iter(batches))
+    finally:
+        hook.remove()
+    # update_bn runs each batch from zeros and (the first) from ones: keep
+    # the passes from zeros
+    means = torch.stack([seen[0]] + seen[2:]).mean(0)
+    got = stats["backbone.bn1.bn_mean"]
+    rel = float((got - means).abs().max() / means.abs().max())
+    check(all(bool(torch.isfinite(v).all()) for v in stats.values()) and rel <= 1e-3,
+          f"resnet50 full-shot: update_bn over {len(batches)} batches (DropBlock live): the stem "
+          f"BN's mean {rel:.3e} of its largest from the average of the batch means (<= 1e-3: "
+          "recovered as new / (1 - momentum) through the fp32 statistics)")
+    del resumed
+    shutil.rmtree(R50_DIR, ignore_errors=True)
+    row = {"steps": steps, "launches": run["counts"], "best": run["best"],
+           "per_replay": dict(_graphs_of(tr, "train")[0].launches), "wall_s": run["wall_s"],
+           "peak_gib": run["peak_gib"]}
+    if on_card:
+        graph = _graphs_of(tr, "train")[0]
+        step_ms = _replay_ms(graph, 5)
+        busy, n_launches, top = _device_breakdown(graph.graph.replay, reps=3)
+        row.update(step_ms=step_ms, images_per_s=1e3 * RN_BATCH / step_ms, busy_ms=busy,
+                   device_launches=n_launches,
+                   idle_share=None if busy is None else max(0.0, 1.0 - busy / step_ms),
+                   bound_ms=RN_BATCH * R50_FLOPS_PER_IMAGE / BF16_FLOPS_PER_S * 1e3)
+        print(f"resnet50 full-shot step B={RN_BATCH} (bf16, SGD nesterov, mixup/cutmix, "
+              f"DropBlock): captured {step_ms:.3f} ms ({row['images_per_s']:.1f} images/s), "
+              "device busy " + ("not measured" if busy is None else
+                                f"{busy:.3f} ms in {n_launches:.0f} launches a replay (idle share "
+                                f"{row['idle_share']:.3f})")
+              + f"; conv FLOP bound {row['bound_ms']:.3f} ms at the bf16 peak; train_main "
+              f"{run['wall_s']:.2f} s, peak {run['peak_gib']:.2f} GiB; top: "
+              + "; ".join(f"{n} {t:.3f} ms" for n, t in top) + f"; {smi}", flush=True)
+    del run, tr, first, captured, final
+    gc_collect(on_card)
+    return row
+
+
+RN_CONFIGS = ("resnet50", "resnet101", "r50_s3", "rn50_CLIP", "rn101_CLIP", "rn50x4_CLIP",
+              "rn50x16_CLIP")
+# configs no yaml ships: a resnetD with DYReLU and the BiT name
+RN_EXTRA_CONFIGS = {
+    "cls_resnetd_dyrelu": {"MODEL.NAME": "cls_resnetd50", "MODEL.SPEC.VISION.MODEL": "resnet",
+                           "MODEL.SPEC.VISION.DEEP_STEM": True,
+                           "MODEL.SPEC.VISION.AVG_DOWN": True,
+                           "MODEL.SPEC.VISION.DY_RELU": {"ENABLE": True}},
+    "bit_resnet50": {"MODEL.NAME": "bit_resnet50", "MODEL.SPEC.VISION.MODEL": "resnet"},
+}
+
+
+def rn_configs_check(smi: str, device: str) -> None:
+    """Every ResNet-family config through ``build_image_classifier`` at its
+    own width, depth and image size, bf16 (the shipped yamls, a resnetD with
+    DYReLU, the BiT name, and a builder registered under a name): finite
+    logits of a train-mode and an eval forward of 2 images, the BN
+    statistics moved by the train-mode one."""
+    from peft_vit_tpu_torch.models import build_image_classifier, register_model
+    from peft_vit_tpu_torch.models.registry import _BUILDERS
+    from peft_vit_tpu_torch.peft import spec_from_config
+
+    @register_model("chip_smoke_custom_resnet")
+    def custom(cfg, spec, num_classes, device, seed):
+        cfg.defrost()
+        cfg.MODEL.NAME = "resnet50"
+        return build_image_classifier(cfg, spec, num_classes, device=device, seed=seed)
+
+    t0 = time.perf_counter()
+    names = {**{n: ({}, f"peft_vit_tpu/resources/model/{n}.yaml") for n in RN_CONFIGS},
+             **{n: (over, None) for n, over in RN_EXTRA_CONFIGS.items()},
+             "custom": ({"MODEL.NAME": "chip_smoke_custom_resnet"}, R50_YAML)}
+    try:
+        for name, (over, yaml_file) in names.items():
+            cfg = driver_cfg({"TPU.COMPUTE_DTYPE": "bfloat16", **RN_CONFIG_OVER, **over},
+                             yaml_file)
+            model = build_image_classifier(cfg, spec_from_config(cfg), NUM_CLASSES,
+                                           device=device)[0]
+            size = int(cfg.TRAIN.IMAGE_SIZE[0])
+            x = torch.randn(2, size, size, 3, device=device)
+            before = {k: v.clone() for k, v in model.named_buffers()}
+            with torch.no_grad():
+                train = model.train()(x)
+                moved = any(not torch.equal(v, before[k]) for k, v in model.named_buffers())
+                out = model.eval()(x)
+            check(bool(torch.isfinite(train).all() and torch.isfinite(out).all()) and moved,
+                  f"rn config {name}: {type(model.backbone).__name__} at {size} px, "
+                  f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters, "
+                  "finite train and eval logits, BN statistics moved")
+            del model
+            gc_collect(device == "cuda")
+    finally:
+        _BUILDERS.pop("chip_smoke_custom_resnet", None)
+    print(f"rn configs: {len(names)} built and run in {time.perf_counter() - t0:.1f} s "
+          f"(host clock; {smi})", flush=True)
+
+
+def resnet_phase(smi: str, device: str = "cuda") -> dict:
+    """Phase 15 (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {}
+    if device == "cuda":
+        out["determinism"] = determinism_phase()
+    rn_configs_check(smi, device)
+    out["serving"] = rn_serving_check(smi, device)
+    gc_collect(device == "cuda")
+    out["zeroshot"] = rn_zeroshot_check(smi, device)
+    gc_collect(device == "cuda")
+    out["round"] = rn_round_check(smi, device)
+    gc_collect(device == "cuda")
+    out["tiny"] = tiny_driver_check(device, RN_TINY_DRIVER, RN_TINY_LRS,
+                                    "rn tiny fp32 finetune_main (bitfit)")
+    out["dropblock"] = dropblock_card_check(smi, device)
+    out["fullshot"] = r50_fullshot_check(smi, device)
+    # the phase's launches per wrapper: its main paths' counts (the zero-shot
+    # text tower's K1; the RN towers' none)
+    launches = {n: out["fullshot"]["launches"].get(n, 0) for n in out["fullshot"]["launches"]}
+    launches["flash_attention_fwd"] += out["zeroshot"]["launches"]
+    for part in ("serving", "round"):
+        for n, c in out[part].get("launches", {}).items():
+            launches[n] = launches.get(n, 0) + c
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"resnet phase: {out['seconds']:.1f} s (host clock; {smi})", flush=True)
+    return out
+
+
 def gc_collect(on_card: bool) -> None:
     import gc
 
@@ -5220,6 +5994,7 @@ def main() -> int:
     zs = zeroshot_phase(smi)
     fs = fullshot_phase(smi)
     ss = streaming_phase(smi)
+    rn = resnet_phase(smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
@@ -5371,6 +6146,15 @@ def main() -> int:
         lines[-1]["long_n"] = fused[f"{key}_long"]
         if key == "fwd":
             lines[-1]["eager_ms"] = row["eager_ms"]
+    # the ResNet family's paths (phase 15): K1 in the RN50 zero-shot text
+    # tower only; the RN towers launch none of the kernels
+    wrapper = {"flash_attn_fwd": "flash_attention_fwd", "flash_attn_bwd_dq": "flash_attention_bwd_dq",
+               "flash_attn_bwd_dkv": "flash_attention_bwd_dkv",
+               "attn_bias_grad": "attention_bias_grad",
+               "fused_short_attn_fwd": "fused_short_attention_fwd",
+               "fused_short_attn_bwd": "fused_short_attention_bwd"}
+    for line in lines:
+        line["launches_resnet"] = rn["launches"].get(wrapper.get(line["name"], line["name"]), 0)
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

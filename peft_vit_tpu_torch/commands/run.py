@@ -23,7 +23,11 @@ the head from the zero-shot text classifier.  When every trainable leaf
 sits past block 0 (the linear probe, AdapterDrop on its last blocks, the
 transformer probe, first_attention, first_mlp) the sweep takes the cached
 prefix (``engine.cached``) unless ``TRAIN.CACHE_FROZEN_PREFIX`` is False.
-Intrinsic dimension raises ``NotImplementedError``.
+Intrinsic dimension raises ``NotImplementedError``.  On a CNN tower (the
+CLIP ModifiedResNet, a cls_resnet) every step runs the tower's BatchNorm in
+train mode, as the JAX step does, and its statistics are state per cell
+beside the channel-BN head's; a DropBlock tower is refused at its first step,
+as flax refuses the JAX step's forward without a ``dropblock`` stream.
 
     python -m peft_vit_tpu_torch.commands.run --ds DS.yaml --model MODEL.yaml [KEY VALUE ...]
 """

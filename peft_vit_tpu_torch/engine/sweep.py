@@ -95,8 +95,10 @@ class SweepEngine:
       frozen: the tensors a step substitutes for frozen ones ({}: the
         module's own).
       criterion: per-example loss.
-      bn_template: the channel-BN statistics every cell starts from (None:
-        no BN).
+      bn_template: the BN statistics every cell starts from, by buffer name
+        (``bn_mean`` / ``bn_var``: the channel-BN head's and a CNN tower's,
+        which the few-shot step runs in train mode as the JAX step does);
+        each cell trains its own copy.  None: no BN.
       qkernel: the int8 tree of ``ops.int8.quantize_frozen_tree``, merged
         into ``frozen`` for every cell.
     """

@@ -90,8 +90,8 @@ def bce_per_example(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 class TrainCellState(NamedTuple):
     """State of one sweep cell: the trainable leaves, their SGD momentum
-    buffers, the step count and, with channel BN, the running statistics
-    (each cell trains its own copy).  A round's state has the same names,
+    buffers, the step count and, with BN (the channel-BN head, a CNN tower's
+    BatchNorms), the running statistics (each cell trains its own copy).  A round's state has the same names,
     each tensor stacked over the round's cells on a leading axis."""
 
     trainable: Tensors
@@ -160,13 +160,14 @@ def step_decay_lr(base_lr: Union[float, Sequence[float]], epoch: int,
 
 
 def make_apply_fn(model: nn.Module) -> ApplyFn:
-    """``apply_fn(variables, x, train)``: ``model(x)`` in train or eval mode
-    with the parameters and buffers named in ``variables`` substituted.
-    Train-mode BN updates the statistics tensors it is given in place."""
+    """``apply_fn(variables, x, train, **kw)``: ``model(x, **kw)`` in train or
+    eval mode with the parameters and buffers named in ``variables``
+    substituted.  Train-mode BN updates the statistics tensors it is given
+    in place."""
 
-    def apply_fn(variables, x, train):
+    def apply_fn(variables, x, train, **kw):
         model.train(train)
-        return functional_call(model, dict(variables), (x,))
+        return functional_call(model, dict(variables), (x,), kw)
 
     return apply_fn
 
@@ -204,7 +205,10 @@ def make_train_step(
     The loss is the ``bv``-weighted mean of the per-example criterion over
     fp32 logits, ``sum(per * w) / max(sum(w), 1)`` (``bv=None``: every row
     counts).  With ``has_bn`` the step runs train-mode BN on a copy of
-    ``state.bn`` and returns the blended statistics in the new state.
+    ``state.bn`` and returns the blended statistics in the new state: every
+    ``bn_mean`` / ``bn_var`` it names, the channel-BN head's and a CNN
+    tower's (whose forward writes them into the tensors it is given; in a
+    round each cell's, batched along the cell axis).
     ``cell_frozen`` names frozen tensors of the cell itself (the static
     activation scales), merged into ``frozen``.
 

@@ -35,6 +35,13 @@ train graph), whose state is checkpointed too.  ``TPU.PREFETCH_DEPTH`` items
 are staged ahead through pinned buffers and a side stream
 (``data.streaming.prefetch_to_device``).
 
+``AUG.DROPBLOCK_KEEP_PROB`` < 1 (a ResNet backbone only) runs DropBlock in
+the step: its anneal's position, step / total steps, is computed on the
+device from the step count, and its masks are drawn from ``drop_generator``,
+a generator on the trainer's device registered with the train graph and
+checkpointed (``drop_rng``).  ``update_bn`` refreshes the BN statistics of a
+CNN backbone as of the channel-BN head.
+
 ``TPU.INT8_FWD_TRAIN`` quantizes the frozen tree once per run (before
 ``models.cast_frozen_``); ``TPU.INT8_STATIC_ACT`` recalibrates the static
 activation scales on the first batch of every epoch (``engine.train.calibrate``).
@@ -54,6 +61,7 @@ import torch
 from ..data.augment import make_train_transform
 from ..data.streaming import prefetch_to_device
 from ..models.layers import cast_frozen_
+from ..models.resnet import ResNet
 from ..ops.int8 import INT8_TARGET_MODULES, quantize_frozen_tree
 from ..peft.masks import merge_params, split_params
 from . import train as _train
@@ -100,11 +108,6 @@ def _refuse_unported(cfg) -> None:
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
         raise _not_ported("a full-shot run over several processes", "parallelism")
-    if float(cfg.AUG.get("DROPBLOCK_KEEP_PROB", 1.0)) < 1.0:
-        # the JAX trainer's build-time guard: only a ResNet takes DropBlock
-        raise ValueError(
-            "AUG.DROPBLOCK_KEEP_PROB < 1 requires a ResNet backbone; DropBlock is a CNN "
-            "regularizer (reference cls_resnet.py:409-419)")
 
 
 class Trainer:
@@ -132,6 +135,14 @@ class Trainer:
         batch_stats = {k: v for k, v in model.named_buffers()
                        if k.rsplit(".", 1)[-1] in _BN_STATS}
         self.has_bn = bool(batch_stats)
+        self.use_dropblock = float(cfg.AUG.get("DROPBLOCK_KEEP_PROB", 1.0)) < 1.0
+        if self.use_dropblock and not isinstance(getattr(model, "backbone", None), ResNet):
+            # the JAX trainer's build-time guard: only a ResNet takes DropBlock
+            raise ValueError(
+                "AUG.DROPBLOCK_KEEP_PROB < 1 requires a ResNet backbone (got "
+                f"{type(getattr(model, 'backbone', None)).__name__}); DropBlock is a CNN "
+                "regularizer (reference cls_resnet.py:409-419)")
+        self.total_steps = max(1, int(cfg.TRAIN.END_EPOCH) * int(steps_per_epoch))
 
         trainable, frozen = split_params(model, mask)
         trainable = {k: v.detach().clone() for k, v in trainable.items()}
@@ -188,6 +199,11 @@ class Trainer:
         self.noise_generator: Optional[torch.Generator] = None
         if self.transform is not None and self.transform.needs_noise:
             self.noise_generator = torch.Generator(device=self.device).manual_seed(int(seed) + 1)
+        # DropBlock's masks are drawn in the step from a generator on the
+        # device (registered with the train graph, checkpointed as drop_rng)
+        self.drop_generator: Optional[torch.Generator] = None
+        if self.use_dropblock:
+            self.drop_generator = torch.Generator(device=self.device).manual_seed(int(seed) + 2)
         self.apply_fn = _train.make_apply_fn(model)
         self.graphs: Dict[Any, Any] = {}
         # set by the SIGTERM handler fit() installs: train_one_epoch
@@ -227,7 +243,15 @@ class Trainer:
         trainable = buf["trainable"]
         for v in trainable.values():
             v.requires_grad_()
-        logits = self.apply_fn(self._variables(trainable, buf["bn"], buf["scales"]), x, True)
+        kw = {}
+        if self.use_dropblock:
+            # the anneal's position, step / total steps, computed on the device
+            total = torch.full((), float(self.total_steps), dtype=torch.float32,
+                               device=self.device)
+            kw = {"progress": buf["step"].to(torch.float32) / total,
+                  "generator": self.drop_generator}
+        logits = self.apply_fn(self._variables(trainable, buf["bn"], buf["scales"]), x, True,
+                               **kw)
         loss = self.criterion(logits.to(torch.float32), y)
         grads = torch.autograd.grad(loss, list(trainable.values()), allow_unused=True)
         grads = {k: torch.zeros_like(v) if g is None else g
@@ -315,7 +339,8 @@ class Trainer:
             self.graphs.pop(key, None)
             graph = self.graphs[key] = _train.StepGraph(
                 self._train_body, {**self._state_buffers(), **inputs}, keep=self._keep(),
-                generators=(self.noise_generator,) if self.noise_generator is not None else ())
+                generators=tuple(g for g in (self.noise_generator, self.drop_generator)
+                                 if g is not None))
             self._sync(graph, force=True)
         else:
             self._sync(graph)
@@ -483,7 +508,10 @@ class Trainer:
         average, else the trained leaves).  As in the JAX trainer, one batch's
         train-mode forward from all-zero and all-one statistics measures each
         statistic's momentum m (new = m old + (1 - m) batch), and each batch
-        statistic is new0 / (1 - m).  Installs and returns the statistics."""
+        statistic is new0 / (1 - m).  A DropBlock backbone runs its masks live,
+        as torch's update_bn runs train-mode regularizers, each pass drawing
+        from a generator seeded 0 (the JAX trainer's ``PRNGKey(0)``) at the
+        target keep probability.  Installs and returns the statistics."""
         if not self.has_bn:
             return None
         if trainable is None:
@@ -493,7 +521,9 @@ class Trainer:
         def batch_pass(stats: Tensors, x) -> Tensors:
             stats = {k: v.clone() for k, v in stats.items()}
             x = self._normalize(self._on_device(x))
-            self.apply_fn(self._variables(trainable, stats, {}), x, True)
+            kw = ({"generator": torch.Generator(device=self.device).manual_seed(0)}
+                  if self.use_dropblock else {})
+            self.apply_fn(self._variables(trainable, stats, {}), x, True, **kw)
             return stats
 
         zeros = {k: torch.zeros_like(v) for k, v in self.state.batch_stats.items()}
@@ -531,6 +561,8 @@ class Trainer:
         }
         if self.noise_generator is not None:
             out["noise_rng"] = self.noise_generator.get_state()
+        if self.drop_generator is not None:
+            out["drop_rng"] = self.drop_generator.get_state()
         if s.ema is not None:
             out["ema_shadow"] = s.ema.shadow
         if s.swa is not None:
@@ -595,6 +627,8 @@ class Trainer:
             self.generator.set_state(restored["rng"])
         if self.noise_generator is not None and "noise_rng" in restored:
             self.noise_generator.set_state(restored["noise_rng"])
+        if self.drop_generator is not None and "drop_rng" in restored:
+            self.drop_generator.set_state(restored["drop_rng"])
         self.resume_batch_in_epoch = int(restored.get("batch_in_epoch", 0))
         return int(restored["epoch"])
 

@@ -32,7 +32,8 @@ class FeatureBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.batch_norm(
-            x.float(), self.bn_mean, self.bn_var, training=self.training,
+            x.to(torch.promote_types(x.dtype, torch.float32)), self.bn_mean, self.bn_var,
+            training=self.training,
             momentum=self.momentum, eps=self.epsilon,
         )
         return y.to(self.dtype)
@@ -76,10 +77,18 @@ class ImageClassifier(nn.Module):
             normalize_input=normalize_visual, dtype=dtype, device=device,
         )
 
-    def forward(self, images: torch.Tensor, start_layer: int = 0) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, start_layer: int = 0, progress=None,
+                generator=None) -> torch.Tensor:
         """``start_layer`` > 0: ``images`` are the tokens after block
-        ``start_layer - 1`` (the cached-prefix sweep, ``engine.cached``)."""
-        return self.classifier(self.backbone(images, start_layer=start_layer))
+        ``start_layer - 1`` (the cached-prefix sweep, ``engine.cached``).
+        ``progress`` (the DropBlock anneal's position) and ``generator`` (its
+        draws) go to the backbone when given: only a ResNet takes them (the
+        full-shot trainer passes them under ``AUG.DROPBLOCK_KEEP_PROB`` < 1)."""
+        if progress is None and generator is None:
+            return self.classifier(self.backbone(images, start_layer=start_layer))
+        return self.classifier(self.backbone(images, start_layer=start_layer,
+                                             progress=1.0 if progress is None else progress,
+                                             generator=generator))
 
 
 class ContrastiveClassifier(nn.Module):

@@ -26,7 +26,10 @@ names and layouts back to the JAX package's.
 ``load_torch_checkpoint``, ``infer_clip_shape``, ``clip_state_dict_to_tree``,
 ``visual_state_dict`` and ``text_state_dict`` load an OpenAI CLIP
 checkpoint's visual and text towers (``MODEL.PRETRAINED``) through the JAX
-package's names, so that there is one mapping; ``timm_vit_state_dict_to_tree``
+package's names, so that there is one mapping (``is_clip_rn_state_dict``,
+``infer_clip_rn_shape``, ``clip_rn_state_dict_to_tree`` and
+``clip_rn_visual_state_dict`` the same for the ModifiedResNet towers, their
+BatchNorms' running statistics included); ``timm_vit_state_dict_to_tree``
 and ``timm_vit_state_dict`` do the same for a timm ViT (the supervised tower
 of the full-shot trainer) with the full-shot PEFT variants' injections.  The text tower's leaves keep
 their JAX names: ``token_embedding/embedding`` (the port's ``text.Embed``
@@ -47,6 +50,8 @@ from torch import nn
 _COLLECTIONS = ("params", "batch_stats")
 _BLOCK = re.compile(r"^blocks_(\d+)$")
 _BATCH_STATS = ("bn_mean", "bn_var")
+# a flax nn.BatchNorm's statistics; the channel-BN head names its own bn_mean / bn_var
+_FLAX_BN_STATS = ("mean", "var")
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
@@ -78,13 +83,18 @@ def _torch_name_and_array(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, 
 
 
 def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX package's variables tree -> this package's ``state_dict``."""
+    """The JAX package's variables tree -> this package's ``state_dict``.
+    A flax ``nn.BatchNorm``'s ``batch_stats`` ``mean`` / ``var`` become the
+    port's ``bn_mean`` / ``bn_var`` buffers; ``FrozenBatchNorm``'s ``mean``
+    and ``var`` are parameters in both packages and keep their names."""
     unknown = set(variables) - set(_COLLECTIONS)
     if unknown:
         raise ValueError(f"unexpected variable collections {sorted(unknown)}")
     state = {}
     for collection in _COLLECTIONS:
         for path, leaf in _leaves(variables.get(collection, {})):
+            if collection == "batch_stats" and path[-1] in _FLAX_BN_STATS:
+                path = (*path[:-1], "bn_" + path[-1])
             name, arr = _torch_name_and_array(path, np.asarray(leaf, dtype=np.float32))
             if name in state:
                 raise ValueError(f"two JAX leaves map to {name}")
@@ -130,6 +140,8 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
         if leaf == "kernel":
             arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
         collection = "batch_stats" if leaf in _BATCH_STATS else "params"
+        if collection == "batch_stats" and modules[-1] != "channel_bn":
+            leaf = leaf[len("bn_"):]  # a flax nn.BatchNorm's mean / var
         node = variables.setdefault(collection, {})
         for m in modules:
             node = node.setdefault(m, {})
@@ -280,6 +292,106 @@ def clip_state_dict_to_tree(sd: Mapping) -> Dict[str, np.ndarray]:
     return flat
 
 
+def is_clip_rn_state_dict(sd: Mapping) -> bool:
+    """True for an OpenAI CLIP ModifiedResNet checkpoint (RN50 etc.): the
+    ViT and RN towers both ship ``visual.conv1.weight``; only the RN tower
+    has an attention pool."""
+    return "visual.attnpool.positional_embedding" in sd
+
+
+def infer_clip_rn_shape(sd: Mapping) -> Dict[str, object]:
+    """The towers' shapes from a ModifiedResNet CLIP state dict (clip.py's
+    ``build_model`` counting for the RN variants): the stem width is twice
+    conv1's, the blocks a stage from the layer keys, the embed dim from the
+    pool's ``c_proj``, the image size 32 x the pool's grid, heads width *
+    32 // 64; the text tower's as in ``infer_clip_shape``."""
+    width = _np(sd["visual.conv1.weight"]).shape[0] * 2
+    layers = tuple(len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{s}.")})
+                   for s in (1, 2, 3, 4))
+    grid = int(round((_np(sd["visual.attnpool.positional_embedding"]).shape[0] - 1) ** 0.5))
+    info = dict(
+        embed_dim=int(_np(sd["visual.attnpool.c_proj.weight"]).shape[0]),
+        image_size=int(grid * 32),
+        vision_width=int(width),
+        vision_layers=layers,
+        vision_heads=int(width * 32 // 64),
+        has_text="text_projection" in sd,
+        text_width=0, text_layers=0, vocab_size=0, context_length=0, text_heads=1,
+    )
+    if info["has_text"]:
+        info.update(
+            text_width=int(_np(sd["ln_final.weight"]).shape[0]),
+            text_layers=len({k.split(".")[2] for k in sd
+                             if k.startswith("transformer.resblocks.")}),
+            vocab_size=int(_np(sd["token_embedding.weight"]).shape[0]),
+            context_length=int(_np(sd["positional_embedding"]).shape[0]),
+        )
+        info["text_heads"] = max(info["text_width"] // 64, 1)
+    return info
+
+
+def clip_rn_state_dict_to_tree(sd: Mapping) -> Tuple[Dict[str, np.ndarray],
+                                                     Dict[str, np.ndarray]]:
+    """An OpenAI CLIP RN state dict -> (flat params, flat batch_stats) in
+    the JAX package's naming (JAX ``convert.py:254-304``): ``visual/conv<i>``,
+    ``visual/bn<i>``, ``visual/layer<s>_<i>/{conv,bn}<c>``,
+    ``downsample_conv`` / ``downsample_bn`` (the downsample Sequential's
+    ``-1`` entry is its parameterless pool),
+    ``visual/attnpool/...``, the text tower and ``logit_scale``.  Conv
+    kernels OIHW -> HWIO, Linear weights transposed, as flax stores them."""
+    info = infer_clip_rn_shape(sd)
+    flat: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
+
+    def conv(src: str, dst: str) -> None:
+        flat[dst + "/kernel"] = _np(sd[src]).transpose(2, 3, 1, 0)
+
+    def bn(src: str, dst: str) -> None:
+        flat[f"{dst}/scale"] = _np(sd[f"{src}.weight"])
+        flat[f"{dst}/bias"] = _np(sd[f"{src}.bias"])
+        stats[f"{dst}/mean"] = _np(sd[f"{src}.running_mean"])
+        stats[f"{dst}/var"] = _np(sd[f"{src}.running_var"])
+
+    for i in (1, 2, 3):
+        conv(f"visual.conv{i}.weight", f"visual/conv{i}")
+        bn(f"visual.bn{i}", f"visual/bn{i}")
+    for s, blocks in enumerate(info["vision_layers"], start=1):
+        for i in range(blocks):
+            src, dst = f"visual.layer{s}.{i}", f"visual/layer{s}_{i}"
+            for c in (1, 2, 3):
+                conv(f"{src}.conv{c}.weight", f"{dst}/conv{c}")
+                bn(f"{src}.bn{c}", f"{dst}/bn{c}")
+            if f"{src}.downsample.0.weight" in sd:
+                conv(f"{src}.downsample.0.weight", f"{dst}/downsample_conv")
+                bn(f"{src}.downsample.1", f"{dst}/downsample_bn")
+    flat["visual/attnpool/positional_embedding"] = _np(
+        sd["visual.attnpool.positional_embedding"])
+    for p in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        flat[f"visual/attnpool/{p}/kernel"] = _np(sd[f"visual.attnpool.{p}.weight"]).T
+        flat[f"visual/attnpool/{p}/bias"] = _np(sd[f"visual.attnpool.{p}.bias"])
+    if info["has_text"]:
+        flat["text/token_embedding/embedding"] = _np(sd["token_embedding.weight"])
+        flat["text/positional_embedding"] = _np(sd["positional_embedding"])
+        for i in range(info["text_layers"]):
+            for k, v in _convert_block(sd, f"transformer.resblocks.{i}").items():
+                flat[f"text/blocks_{i}/{k}"] = v
+        flat["text/ln_final/scale"] = _np(sd["ln_final.weight"])
+        flat["text/ln_final/bias"] = _np(sd["ln_final.bias"])
+        flat["text/text_projection"] = _np(sd["text_projection"])
+    if "logit_scale" in sd:
+        flat["logit_scale"] = _np(sd["logit_scale"]).reshape(())
+    return flat, stats
+
+
+def clip_rn_visual_state_dict(flat: Mapping[str, np.ndarray],
+                              stats: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The ``visual/...`` leaves and statistics of
+    ``clip_rn_state_dict_to_tree`` as this package's ``state_dict`` entries
+    of the classifier's ``backbone`` (a ``clip_resnet.ModifiedResNet``): the
+    BatchNorms' running statistics become ``bn_mean`` / ``bn_var``."""
+    return _subtree_state_dict(flat, "visual", "backbone", stats)
+
+
 def _timm_adapter(sd: Mapping, owner: str, target: str, flat: Dict[str, np.ndarray]) -> None:
     """A reference Houlsby adapter (``adapter_norm_before``, ``adapter_down``
     = Sequential(LN, Linear, act), ``adapter_up``) under ``owner`` -> the
@@ -348,11 +460,7 @@ def timm_vit_state_dict_to_tree(sd: Mapping) -> Dict[str, np.ndarray]:
     return flat
 
 
-def _subtree_state_dict(flat: Mapping[str, np.ndarray], source: str,
-                        target: str) -> Dict[str, torch.Tensor]:
-    """The ``<source>/...`` leaves of a flat JAX-named dict ('': every leaf)
-    under the module path ``target`` ('' for the root), through
-    ``params_from_jax``'s map."""
+def _subtree(flat: Mapping[str, np.ndarray], source: str, target: str) -> dict:
     tree: dict = {}
     for path, arr in flat.items():
         if source and not path.startswith(source + "/"):
@@ -363,7 +471,19 @@ def _subtree_state_dict(flat: Mapping[str, np.ndarray], source: str,
         for m in modules:
             node = node.setdefault(m, {})
         node[leaf] = arr
-    return params_from_jax({"params": tree})
+    return tree
+
+
+def _subtree_state_dict(flat: Mapping[str, np.ndarray], source: str, target: str,
+                        stats: Mapping[str, np.ndarray] = None) -> Dict[str, torch.Tensor]:
+    """The ``<source>/...`` leaves of a flat JAX-named dict ('': every leaf)
+    under the module path ``target`` ('' for the root), and those of the
+    flat ``batch_stats`` dict ``stats``, through ``params_from_jax``'s
+    map."""
+    variables = {"params": _subtree(flat, source, target)}
+    if stats:
+        variables["batch_stats"] = _subtree(stats, source, target)
+    return params_from_jax(variables)
 
 
 def visual_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

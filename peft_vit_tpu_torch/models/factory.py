@@ -2,14 +2,18 @@
 
 * ``flagship`` — the ViT-B/16 LoRA classifier of the benchmarks.
 * ``build_image_classifier`` — the config-driven build of the few-shot
-  driver and the full-shot trainer, the ViT branches of the JAX builder:
-  for a CLIP model the architecture from ``MODEL.SPEC`` or from the
-  ``MODEL.PRETRAINED`` OpenAI CLIP checkpoint, whose visual and text
-  weights it loads (the PEFT leaves and the head stay fresh), and the
-  frozen text tower as ``encode_text``; for any other name outside the
-  backbone zoo's families (``cls_vit*``, ``vit*``) the supervised
-  timm-style ViT from ``MODEL.SPEC.VISION``, a timm checkpoint grafted onto
-  it when ``MODEL.PRETRAINED`` names one.
+  driver and the full-shot trainer, the ViT and ResNet branches of the JAX
+  builder: a custom builder (``models.registry``) when ``MODEL.NAME`` names
+  one; for a CLIP model the ViT or ModifiedResNet tower from ``MODEL.SPEC``
+  or from the ``MODEL.PRETRAINED`` OpenAI CLIP checkpoint (an attention pool
+  makes it an RN tower), whose visual and text weights it loads (the PEFT
+  leaves and the head stay fresh), and the frozen text tower as
+  ``encode_text``; the cls_resnet family (``_build_resnet_backbone``) for a
+  ResNet name; for any other name outside the backbone zoo's families
+  (``cls_vit*``, ``vit*``) the supervised timm-style ViT from
+  ``MODEL.SPEC.VISION``, a timm checkpoint grafted onto it when
+  ``MODEL.PRETRAINED`` names one.
+* ``backbone_eval_variables`` — the backbone's tensors for an eval forward.
 * ``init_head_from_text`` — the head from the zero-shot text classifier.
 """
 
@@ -27,10 +31,14 @@ from ..ops.int8 import INT8_TARGET_MODULES
 from ..peft.spec import PEFTSpec
 from ..utils import resolve_device
 from .classifier import ImageClassifier
-from .convert import (clip_state_dict_to_tree, infer_clip_shape, load_torch_checkpoint,
-                      text_state_dict, timm_vit_state_dict, timm_vit_state_dict_to_tree,
-                      visual_state_dict)
+from .clip_resnet import ModifiedResNet
+from .convert import (clip_rn_state_dict_to_tree, clip_rn_visual_state_dict,
+                      clip_state_dict_to_tree, infer_clip_rn_shape, infer_clip_shape,
+                      is_clip_rn_state_dict, load_torch_checkpoint, text_state_dict,
+                      timm_vit_state_dict, timm_vit_state_dict_to_tree, visual_state_dict)
 from .layers import cast_frozen_
+from .registry import get_custom_builder
+from .resnet import DyReLUSpec, ResNet
 from .text import TextEncoder, TextTransformer
 from .vit import VisionTransformer
 
@@ -106,18 +114,28 @@ def _vision_model(cfg) -> str:
     return str(cfg.MODEL.SPEC.VISION.get("MODEL", "vit")).lower()
 
 
+def is_clip_rn_cfg(cfg) -> bool:
+    """A CLIP ModifiedResNet tower asked for by the config (no checkpoint):
+    an RN* model name, or a CLIP name with ``MODEL.SPEC.VISION.MODEL``
+    resnet."""
+    name = str(cfg.MODEL.NAME).lower()
+    return bool(re.match(r"^rn\d+", name)) or ("clip" in name and _vision_model(cfg) == "resnet")
+
+
 #: the JAX builder's other backbone families, each by the substrings of
 #: ``MODEL.NAME`` and the ``MODEL.SPEC.VISION.MODEL`` values that select it
-#: (``peft_vit_tpu/models/factory.py:38-103``); none is ported yet
+#: (``peft_vit_tpu/models/factory.py:38-103``), in the order its non-CLIP
+#: branch tries them; of these only the ResNet family is ported
 _ZOO = (
-    ("convvit", ("vit_conv", "cswin"), ("vit_conv", "cswin")),
-    ("swin", ("swin",), ("swin",)),
-    ("resnet", ("resnet", "resnext"), ("resnet",)),
     ("rexnet", ("rexnet",), ("rexnet",)),
     ("efficientnet", ("efficientnet",), ("efficientnet",)),
     ("ttnet", ("ttnet",), ("ttnet",)),
     ("hrnet", ("hrnet",), ("hrnet",)),
+    ("resnet", ("resnet", "resnext"), ("resnet",)),
+    ("convvit", ("vit_conv", "cswin"), ("vit_conv", "cswin")),
+    ("swin", ("swin",), ("swin",)),
 )
+PORTED_FAMILIES = ("resnet",)
 
 
 def zoo_family(cfg) -> Optional[str]:
@@ -131,6 +149,53 @@ def zoo_family(cfg) -> Optional[str]:
         if any(n in name for n in names) or vm in models:
             return family
     return None
+
+
+def _build_resnet_backbone(cfg, dtype: torch.dtype, device) -> ResNet:
+    """The cls_resnet family from ``MODEL.SPEC.VISION`` and ``AUG.DROPBLOCK_*``
+    (JAX ``factory.py:150-206``): ``VERSION`` (``'d'`` for a ``resnetd``
+    name, else v1), ``DY_RELU``, ``LAYERS_PER_STAGE``, ``STEM_WIDTH``,
+    ``CARDINALITY``, ``BASE_WIDTH``, ``SE_RATIO``, ``DEEP_STEM``,
+    ``KERNEL_SIZE_STEM``, ``AVG_DOWN``, ``FROZEN_BN``, ``WITH_RELU``,
+    ``DIMS_PROJ``, ``DROPOUT``; DropBlock on ``AUG.DROPBLOCK_LAYERS`` when
+    ``AUG.DROPBLOCK_KEEP_PROB`` < 1."""
+    s = cfg.MODEL.SPEC.VISION
+    name = str(cfg.MODEL.NAME).lower()
+    dy = s.get("DY_RELU", None)
+    dy_spec = None
+    if dy is not None and bool(dy.get("ENABLE", False)):
+        dy_spec = DyReLUSpec(
+            reduction=int(dy.get("REDUCTION", 4)),
+            lambda_a=float(dy.get("LAMBDA_A", 1.0)),
+            k2=bool(dy.get("K2", True)),
+            use_bias=bool(dy.get("USE_BIAS", True)),
+            init_a=tuple(float(v) for v in dy.get("INIT_A", (1.0, 0.0))),
+            init_b=tuple(float(v) for v in dy.get("INIT_B", (0.0, 0.0))),
+        )
+    db_keep = float(cfg.AUG.get("DROPBLOCK_KEEP_PROB", 1.0))
+    db_stages = (tuple(int(i) for i in cfg.AUG.get("DROPBLOCK_LAYERS", (3, 4)))
+                 if db_keep < 1.0 else ())
+    return ResNet(
+        layers=tuple(s.get("LAYERS_PER_STAGE", (3, 4, 6, 3))),
+        width=int(s.get("STEM_WIDTH", 64)),
+        version=str(s.get("VERSION", "d" if "resnetd" in name else "v1")),
+        cardinality=int(s.get("CARDINALITY", 1)),
+        base_width=int(s.get("BASE_WIDTH", 64)),
+        se_ratio=float(s.get("SE_RATIO", 0.0)),
+        deep_stem=bool(s.get("DEEP_STEM", False)),
+        stem_kernel=int(s.get("KERNEL_SIZE_STEM", 7)),
+        avg_down=bool(s.get("AVG_DOWN", False)),
+        frozen_bn=bool(s.get("FROZEN_BN", False)),
+        with_relu=bool(s.get("WITH_RELU", True)),
+        proj_dims=tuple(int(d) for d in s.get("DIMS_PROJ", ())),
+        proj_dropout=float(s.get("DROPOUT", 0.0)),
+        dy_relu=dy_spec,
+        dropblock_stages=db_stages,
+        dropblock_keep_prob=db_keep,
+        dropblock_block_size=int(cfg.AUG.get("DROPBLOCK_BLOCK_SIZE", 7)),
+        dtype=dtype,
+        device=device,
+    )
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -155,11 +220,14 @@ def build_image_classifier(
     device=None,
     seed: int = 0,
 ) -> Tuple[ImageClassifier, Dict[str, torch.Tensor], Optional[TextEncoder]]:
-    """Returns ``(model, params, encode_text)``: the ViT classifier on
-    ``device`` (None: the card), its named parameters, and the frozen CLIP
-    text tower as a function of token ids (``models.text.TextEncoder``), or
-    None for a checkpoint without one (a visual-only export) and for the
-    timm-style ViT (``_timm_classifier``).
+    """Returns ``(model, params, encode_text)``: the classifier on ``device``
+    (None: the card), its named parameters, and the frozen CLIP text tower
+    as a function of token ids (``models.text.TextEncoder``), or None for a
+    checkpoint without one (a visual-only export), for the timm-style ViT
+    (``_timm_classifier``) and for the ResNet family (``_resnet_classifier``).
+    A custom builder registered under ``MODEL.NAME`` (or a
+    ``module:function`` name) is called with ``(cfg, spec, num_classes,
+    device, seed)`` and returns the same triple.
 
     The weights are drawn on the CPU from ``seed`` (the JAX builder's
     ``PRNGKey(0)``; the text tower's from ``seed + 1``, its ``PRNGKey(1)``),
@@ -178,19 +246,25 @@ def build_image_classifier(
     ``TPU.ATTN_BATCH_CHUNK``, ``TRAIN.MERGE_ENCODER_AND_HEAD_PROJ`` and
     ``TRAIN.NORMALIZE_VISUAL_FEATURE``.  ``TPU.FLASH_ATTENTION`` and
     ``TPU.REMAT`` do not apply: the card always runs the attention kernels,
-    and autograd keeps what the backward needs.  The other backbone
-    families (``zoo_family``), ``TPU.SCAN_LAYERS`` and ``TPU.SEQUENCE_PARALLEL`` raise
-    ``NotImplementedError``.
+    and autograd keeps what the backward needs.  A CLIP RN tower takes no
+    ViT flag and merges no projection (its pool's ``c_proj`` is structural).
+    The backbone families other than the ResNets (``zoo_family``), a CLIP
+    tower other than the ViT and the ModifiedResNet, ``TPU.SCAN_LAYERS`` and
+    ``TPU.SEQUENCE_PARALLEL`` raise ``NotImplementedError``.
     """
     device = resolve_device(device)
+    custom = get_custom_builder(str(cfg.MODEL.NAME))
+    if custom is not None:
+        # the reference's get_cls_model / get_zeroshot_model extension contract
+        logger.info("=> custom model builder for %s", cfg.MODEL.NAME)
+        return custom(cfg, spec, num_classes, device, seed)
     tpu = cfg.TPU
     clip = is_clip_model(cfg)
-    if clip and (_vision_model(cfg) != "vit" or re.match(r"^rn\d+", str(cfg.MODEL.NAME).lower())):
-        raise _not_ported(f"MODEL.NAME {cfg.MODEL.NAME!r} (a CLIP tower other than the ViT)",
+    family = None if clip else zoo_family(cfg)
+    if family is not None and family not in PORTED_FAMILIES:
+        raise _not_ported(f"MODEL.NAME {cfg.MODEL.NAME!r} (the {family} family; only the CLIP "
+                          "ViT and ResNets, the timm-style ViT and the ResNet family)",
                           "the backbone zoo")
-    if not clip and zoo_family(cfg) is not None:
-        raise _not_ported(f"MODEL.NAME {cfg.MODEL.NAME!r} (the {zoo_family(cfg)} family; only "
-                          "the CLIP and timm-style ViTs)", "the backbone zoo")
     if bool(tpu.get("SCAN_LAYERS", False)):
         raise _not_ported("TPU.SCAN_LAYERS", "the rest")
     if bool(tpu.get("SEQUENCE_PARALLEL", False)):
@@ -225,12 +299,20 @@ def build_image_classifier(
         sd = load_torch_checkpoint(cfg.MODEL.PRETRAINED,
                                    model_key=str(cfg.TEST.get("MODEL_KEY", "")))
         logger.info("=> loaded checkpoint %s", cfg.MODEL.PRETRAINED)
+    if family == "resnet":
+        return _resnet_classifier(cfg, num_classes, use_bn, vit_kw["dtype"], seed, device)
     if not clip:
         return _timm_classifier(cfg, num_classes, use_bn, sd, vit_kw, seed, device)
-    if sd is not None:
-        if "visual.conv1.weight" not in sd or "visual.attnpool.c_proj.weight" in sd:
-            raise _not_ported("a checkpoint without a CLIP ViT visual tower",
-                              "the backbone zoo")
+    # the ModifiedResNet tower from a checkpoint's attention pool, else from the config
+    rn_tower = is_clip_rn_state_dict(sd) if sd is not None else is_clip_rn_cfg(cfg)
+    if not rn_tower and (_vision_model(cfg) != "vit" or zoo_family(cfg) == "swin"):
+        raise _not_ported(f"MODEL.NAME {cfg.MODEL.NAME!r} (a CLIP tower other than the ViT "
+                          "and the ModifiedResNet)", "the backbone zoo")
+    if sd is not None and rn_tower:
+        info = infer_clip_rn_shape(sd)
+    elif sd is not None:
+        if "visual.conv1.weight" not in sd:
+            raise _not_ported("a checkpoint without a CLIP visual tower", "the backbone zoo")
         info = infer_clip_shape(sd)
         heads = int(s.VISION.get("HEADS", 0))
         if heads:  # not recoverable from a state dict
@@ -241,7 +323,8 @@ def build_image_classifier(
             image_size=int(cfg.TRAIN.IMAGE_SIZE[0]),
             patch_size=int(s.VISION.get("PATCH_SIZE", 32)),
             vision_width=int(s.VISION.WIDTH),
-            vision_layers=int(s.VISION.LAYERS),
+            vision_layers=(tuple(int(n) for n in s.VISION.LAYERS) if rn_tower
+                           else int(s.VISION.LAYERS)),
             vision_heads=int(s.VISION.HEADS),
             vocab_size=int(s.TEXT.VOCAB_SIZE),
             context_length=int(s.TEXT.CONTEXT_LENGTH),
@@ -250,19 +333,26 @@ def build_image_classifier(
             text_heads=int(s.TEXT.HEADS),
             has_text=True,
         )
-    merge_proj = bool(cfg.TRAIN.MERGE_ENCODER_AND_HEAD_PROJ)
+    # the RN tower's projection (the pool's c_proj) is structural: no merge there
+    merge_proj = bool(cfg.TRAIN.MERGE_ENCODER_AND_HEAD_PROJ) and not rn_tower
     dtype = vit_kw["dtype"]
     with torch.random.fork_rng(devices=[]):
         torch.default_generator.manual_seed(seed)
-        backbone = VisionTransformer(
-            image_size=info["image_size"],
-            patch_size=info["patch_size"],
-            width=info["vision_width"],
-            layers=info["vision_layers"],
-            heads=info["vision_heads"],
-            output_dim=None if merge_proj else info["embed_dim"],
-            **vit_kw,
-        )
+        if rn_tower:
+            backbone = ModifiedResNet(
+                layers=info["vision_layers"], output_dim=info["embed_dim"],
+                heads=info["vision_heads"], image_size=info["image_size"],
+                width=info["vision_width"], dtype=dtype, device="cpu")
+        else:
+            backbone = VisionTransformer(
+                image_size=info["image_size"],
+                patch_size=info["patch_size"],
+                width=info["vision_width"],
+                layers=info["vision_layers"],
+                heads=info["vision_heads"],
+                output_dim=None if merge_proj else info["embed_dim"],
+                **vit_kw,
+            )
         model = ImageClassifier(
             backbone, num_classes=num_classes, use_bn=use_bn,
             normalize_visual=bool(cfg.TRAIN.NORMALIZE_VISUAL_FEATURE), dtype=dtype,
@@ -271,8 +361,12 @@ def build_image_classifier(
     model.aux = {}
     flat = None
     if sd is not None:
-        flat = clip_state_dict_to_tree(sd)
-        state = visual_state_dict(flat)
+        if rn_tower:
+            flat, stats = clip_rn_state_dict_to_tree(sd)
+            state = clip_rn_visual_state_dict(flat, stats)
+        else:
+            flat = clip_state_dict_to_tree(sd)
+            state = visual_state_dict(flat)
         if "logit_scale" in flat:
             # the checkpoint's trained logit scale, for INIT_HEAD_WITH_LOGIT_SCALE
             model.aux["logit_scale"] = float(np.asarray(flat["logit_scale"]))
@@ -336,6 +430,34 @@ def _timm_classifier(cfg, num_classes: int, use_bn: bool, sd, vit_kw: dict, seed
         logger.info("=> grafted timm ViT weights (%d fresh leaves)", len(missing))
     model = model.to(device)
     return model, dict(model.named_parameters()), None
+
+
+def _resnet_classifier(cfg, num_classes: int, use_bn: bool, dtype: torch.dtype, seed: int,
+                       device: torch.device):
+    """The JAX builder's ResNet branch: ``_build_resnet_backbone`` at
+    ``TRAIN.IMAGE_SIZE`` under the classifier head, weights drawn from
+    ``seed``.  As in the JAX builder, a ``MODEL.PRETRAINED`` checkpoint is
+    not grafted onto a ResNet, and there is no text tower."""
+    with torch.random.fork_rng(devices=[]):
+        torch.default_generator.manual_seed(seed)
+        backbone = _build_resnet_backbone(cfg, dtype, "cpu")
+        model = ImageClassifier(
+            backbone, num_classes=num_classes, use_bn=use_bn,
+            normalize_visual=bool(cfg.TRAIN.NORMALIZE_VISUAL_FEATURE), dtype=dtype,
+            device="cpu",
+        )
+    model.aux = {}
+    model = model.to(device)
+    return model, dict(model.named_parameters()), None
+
+
+def backbone_eval_variables(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The backbone's tensors for a deterministic forward
+    (``functional_call(model.backbone, ..., (x,))`` in eval mode): its
+    parameters and, for a BatchNorm tower (the ModifiedResNet, the ResNet),
+    its running statistics ``bn_mean`` / ``bn_var``, named relative to the
+    backbone; a LayerNorm tower has none."""
+    return {**dict(model.backbone.named_parameters()), **dict(model.backbone.named_buffers())}
 
 
 def init_head_from_text(model: ImageClassifier, text_features, logit_scale: float = 1.0) -> None:

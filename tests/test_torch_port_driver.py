@@ -328,6 +328,9 @@ def test_build_image_classifier_loads_a_clip_checkpoint_as_jax_does(tmp_path):
     ("TPU.SCAN_LAYERS", True, "ROADMAP §1, the rest"),
     ("TPU.SEQUENCE_PARALLEL", True, "ROADMAP §1, parallelism"),
     ("MODEL.NAME", "swin_tiny", "ROADMAP §1, the backbone zoo"),
+    ("MODEL.NAME", "clip_swin_tiny", "ROADMAP §1, the backbone zoo"),
+    ("MODEL.NAME", "efficientnet_b0", "ROADMAP §1, the backbone zoo"),
+    ("MODEL.NAME", "cls_hrnet_v2", "ROADMAP §1, the backbone zoo"),
 ])
 def test_build_image_classifier_refuses_what_is_not_ported(key, value, match):
     cfg = tiny_cfg(port_config, **{key: value})

@@ -184,7 +184,8 @@ def test_port_imports_nothing_of_jax():
                      "utils.tb", "commands.train", "commands.swa_finetune",
                      "commands.bit_finetune", "data.native", "data.samplers",
                      "data.streaming", "data.elevater", "data.custom", "data.hub",
-                     "data.augment", "commands.test_io"):
+                     "data.augment", "commands.test_io", "ops.dropblock", "models.resnet",
+                     "models.clip_resnet", "models.registry"):
             assert "peft_vit_tpu_torch." + want in names, want
         import bench_torch, chip_smoke
         bad = sorted(

@@ -228,7 +228,7 @@ def test_factory_builds_the_timm_tower_with_the_jax_builders_leaves(name, method
             np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
 
 
-@pytest.mark.parametrize("name,family", [("swin_tiny", "swin"), ("cls_resnet50", "resnet"),
+@pytest.mark.parametrize("name,family", [("swin_tiny", "swin"), ("clip_swin_tiny", "swin"),
                                          ("cls_vit_conv", "convvit"), ("cls_cswin", "convvit"),
                                          ("efficientnet_b0", "efficientnet"),
                                          ("rexnet", "rexnet"), ("cls_hrnet", "hrnet"),

@@ -475,8 +475,11 @@ def test_refusals_name_their_roadmap_items():
                         ({"TPU.MESH.PIPE": 2}, "parallelism")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP §1, {match}"):
             make_trainer(make_cfg(**over))
+    # DropBlock stays refused on a ViT and builds on a ResNet (the JAX guard)
     with pytest.raises(ValueError, match="requires a ResNet"):
         make_trainer(make_cfg(**{"AUG.DROPBLOCK_KEEP_PROB": 0.9}))
+    rn = _rn_trainer(make_cfg(**DROPBLOCK))
+    assert rn.use_dropblock and rn.drop_generator is not None
     # AUG.TIMM_AUG is no longer refused: the device-side augmentation runs
     # inside the step on the raw batch (tests/test_torch_port_augment.py
     # holds it against JAX)
@@ -519,3 +522,217 @@ def test_captured_path_equals_eager(monkeypatch):
         eager.evaluate(batch_iterator(x, y, 8, **kw), use_ema=True)
     assert captured.evaluate(batch_iterator(x, y, 8, **kw)) == \
         eager.evaluate(batch_iterator(x, y, 8, **kw))
+
+
+# -- the ResNet family: the executed reference's epoch, DropBlock, update_bn ----------
+
+RN_IMAGE = 64
+# DropBlock on stages 3 and 4 at block 3: stage 3's 4 x 4 maps take the
+# min-pool branch, stage 4's 2 x 2 the whole-map one
+DROPBLOCK = {"AUG.DROPBLOCK_KEEP_PROB": 0.8, "AUG.DROPBLOCK_LAYERS": [3, 4],
+             "AUG.DROPBLOCK_BLOCK_SIZE": 3, "TRAIN.IMAGE_SIZE": [RN_IMAGE, RN_IMAGE],
+             "TRAIN.WD": 1e-4, "TRAIN.MOMENTUM": 0.9, "TRAIN.LR": 1e-5}
+RN_KW = dict(layers=(1, 1, 1, 1), width=8, dropblock_stages=(3, 4), dropblock_keep_prob=0.8,
+             dropblock_block_size=3)
+_RN = {}
+
+
+def _rn_jax():
+    """The tiny DropBlock ResNet's JAX classifier and its variables (the
+    flax init, PRNGKey(0))."""
+    from peft_vit_tpu.models.resnet import ResNet as JaxResNet
+
+    if not _RN:
+        model = JaxClassifier(backbone=JaxResNet(**RN_KW), num_classes=4)
+        _RN["model"] = model
+        _RN["variables"] = jax.device_get(dict(jax.jit(model.init)(
+            jax.random.PRNGKey(0), jnp.zeros((1, RN_IMAGE, RN_IMAGE, 3)))))
+    return _RN["model"], _RN["variables"]
+
+
+def _rn_trainer(cfg, seed=0):
+    from peft_vit_tpu_torch.models.resnet import ResNet
+
+    _, variables = _rn_jax()
+    model = ImageClassifier(ResNet(**RN_KW, device="cpu"), num_classes=4, device="cpu")
+    load_jax_variables(model, variables)
+    return Trainer(cfg, model, build_mask(model, "full", num_layers=0), 4, seed)
+
+
+def _rn_data():
+    x, y = synthetic_dataset(4, 8, RN_IMAGE)
+    return x.astype(np.float32) / 255.0, y
+
+
+def _noise(kp, shape):
+    """The DropBlock noise both packages are fed: uniform [0, 1) from a
+    RandomState keyed by the keep probability's fp32 bits and the NHWC
+    shape (sites of one shape in one step share a draw, in both)."""
+    import zlib
+
+    key = zlib.crc32(np.float32(kp).tobytes() + np.asarray(shape, np.int64).tobytes())
+    return np.random.RandomState(key).random_sample(tuple(shape)).astype(np.float32)
+
+
+@pytest.fixture
+def shared_dropblock_noise(monkeypatch):
+    """DropBlock's uniform draw from ``_noise`` in both packages: the port's
+    ``drop_block`` given it as ``noise`` (NCHW), the JAX op's
+    ``jax.random.uniform`` answered by a ``pure_callback`` of it (NHWC), so
+    that the JAX op's own mask arithmetic runs on it."""
+    import peft_vit_tpu.models.resnet as jax_resnet_module
+    import peft_vit_tpu.ops.dropblock as jax_dropblock
+    import peft_vit_tpu_torch.models.resnet as port_resnet_module
+    from peft_vit_tpu_torch.ops.dropblock import drop_block as port_drop_block
+
+    real_jax_db = jax_dropblock.drop_block
+    current = {}
+
+    class _Random:
+        @staticmethod
+        def uniform(rng, shape, dtype):
+            return jax.pure_callback(lambda kp: _noise(float(kp), shape),
+                                     jax.ShapeDtypeStruct(tuple(shape), jnp.float32),
+                                     current["kp"])
+
+    class _Jax:
+        random = _Random
+
+        def __getattr__(self, name):
+            return getattr(jax, name)
+
+    def jax_db(x, rng, *, block_size, keep_prob):
+        current["kp"] = jnp.asarray(keep_prob, jnp.float32)
+        return real_jax_db(x, rng, block_size=block_size, keep_prob=keep_prob)
+
+    def port_db(x, *, block_size, keep_prob, generator=None, noise=None):
+        n, c, h, w = x.shape
+        u = _noise(float(keep_prob), (n, h, w, c)).transpose(0, 3, 1, 2)
+        return port_drop_block(x, block_size=block_size, keep_prob=keep_prob,
+                               noise=torch.from_numpy(np.ascontiguousarray(u)))
+
+    monkeypatch.setattr(jax_dropblock, "jax", _Jax())
+    monkeypatch.setattr(jax_resnet_module, "drop_block", jax_db)
+    monkeypatch.setattr(port_resnet_module, "drop_block", port_db)
+
+
+def test_dropblock_epochs_and_update_bn_match_the_jax_trainer(shared_dropblock_noise):
+    """A tiny v1 ResNet with DropBlock on stages 3 and 4 (both branches), its
+    BatchNorm live, the full fine-tune: two epochs against the JAX Trainer
+    fed the same draws (the anneal's position step / total steps), then
+    ``update_bn`` (DropBlock live, at the target keep probability).  At lr
+    1e-5: train-mode BN at batch 8 makes the run chaotic, and the two
+    packages' variances round otherwise (flax's one pass, the port's two), so
+    at 1e-4 two runs part by 3e-4 within two epochs.  Per-epoch losses within
+    1e-4 relative, the final leaves within 1e-4 relative + 1e-5, every BN
+    statistic within 1e-4 of its tensor's largest value (``update_bn``
+    divides the batch statistic by 1 - momentum = 0.1, which scales the
+    rounding by 10), eval top-1 equal."""
+    over = dict(DROPBLOCK)
+    x, y = _rn_data()
+    jmodel, variables = _rn_jax()
+    jt = JaxTrainer(make_cfg(jax_config, **over), jmodel, variables["params"],
+                    jax_mask(variables["params"], "full", num_layers=0), steps_per_epoch=4,
+                    batch_stats=variables["batch_stats"])
+    pt = _rn_trainer(make_cfg(**over))
+    for e in range(2):
+        want = jt.train_one_epoch(jax_batches(x, y, 8, seed=e), epoch=e)["loss"]
+        got = pt.train_one_epoch(batch_iterator(x, y, 8, seed=e), epoch=e)["loss"]
+        assert got == pytest.approx(want, rel=1e-4)
+    want = _flat(jt.state.trainable)
+    for k, v in _port_flat(pt.state.trainable).items():
+        np.testing.assert_allclose(v, want[k], rtol=1e-4, atol=1e-5, err_msg=k)
+    want = _flat(jt.state.batch_stats)
+    for k, v in _port_flat(pt.state.batch_stats, "batch_stats").items():
+        np.testing.assert_allclose(v, want[k], rtol=0, atol=1e-4 * np.abs(want[k]).max(),
+                                   err_msg=k)
+    kw = dict(shuffle=False, drop_last=False)
+    assert pt.evaluate(batch_iterator(x, y, 8, **kw)) == jt.evaluate(jax_batches(x, y, 8, **kw))
+    batches = list(batch_iterator(x, y, 8, shuffle=False))
+    got = _port_flat(pt.update_bn(iter(batches)), "batch_stats")
+    want = _flat(jt.update_bn(iter(batches)))
+    assert set(got) == set(want)
+    for k, v in got.items():
+        np.testing.assert_allclose(v, want[k], rtol=0, atol=1e-4 * np.abs(want[k]).max(),
+                                   err_msg=k)
+
+
+def test_refexec_resnet_epoch():
+    """The ResNet leg of the executed reference's epoch loop
+    (``refexec_trainer_epoch_resnet.npz``): cls_resnet bottlenecks with live
+    BatchNorm, hard CE, WD 1e-4 with ``WITHOUT_WD_LIST = ['bn']``, the clip
+    and MultiStep[2] at 0.1, through the port's Trainer: the per-epoch mean
+    losses and the running-statistics val top-1 at the JAX test's bounds
+    (rtol 2e-3, atol 2e-4; top-1 exact)."""
+    from peft_vit_tpu_torch.models.resnet import ResNet
+    from test_torch_port_resnet import _reference_to_port
+
+    g = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                             "refexec_trainer_epoch_resnet.npz"))
+    sd = {k[len("sd."):]: np.asarray(v) for k, v in g.items() if k.startswith("sd.")}
+    classes = sd["fc.weight"].shape[0]
+    model = ImageClassifier(ResNet(layers=(1, 1), width=16, se_ratio=1.0 / 16.0,
+                                   se_stages=(False, True), avg_down=True, device="cpu"),
+                            num_classes=classes, device="cpu")
+    state = {"backbone." + k: v for k, v in _reference_to_port(sd).items()}
+    state["classifier.head.weight"] = torch.from_numpy(sd["fc.weight"])
+    state["classifier.head.bias"] = torch.from_numpy(sd["fc.bias"])
+    model.load_state_dict(state, strict=True)
+    epochs, batch = int(g["epochs"]), int(g["batch"])
+    cfg = make_cfg(**{"DATASET.NUM_CLASSES": classes, "MODEL.NUM_CLASSES": classes,
+                      "TRAIN.BATCH_SIZE_PER_GPU": batch, "TRAIN.END_EPOCH": epochs,
+                      "TRAIN.LR": float(g["lr"]), "TRAIN.WD": float(g["wd"]),
+                      "TRAIN.OPTIMIZER": "sgd", "TRAIN.MOMENTUM": 0.9, "TRAIN.NESTEROV": True,
+                      "TRAIN.CLIP_GRAD_NORM": float(g["clip_norm"]),
+                      "TRAIN.LR_SCHEDULER.METHOD": "multistep",
+                      "TRAIN.SCHEDULE": [int(m) for m in g["milestones"]],
+                      "TRAIN.WITHOUT_WD_LIST": ["bn"], "AUG.RANDOM_FLIP": False,
+                      "LOSS.LOSS": "softmax", "TPU.PREFETCH_DEPTH": 0})
+    per = len(g["y_train"]) // batch
+    trainer = Trainer(cfg, model, build_mask(model, "full", num_layers=0), per)
+
+    def batches(xs, ys):
+        for i in range(0, len(ys), batch):
+            yield np.ascontiguousarray(xs[i:i + batch].transpose(0, 2, 3, 1)), ys[i:i + batch]
+
+    losses, top1 = [], []
+    for e in range(epochs):
+        losses.append(trainer.train_one_epoch(batches(g["x_train"], g["y_train"]), e)["loss"])
+        top1.append(trainer.evaluate(batches(g["x_val"], g["y_val"])))
+    np.testing.assert_allclose(losses, g["epoch_losses"], rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(top1, g["val_top1"], atol=1e-6)
+
+
+def test_dropblock_resume_and_captured_path_equal_uninterrupted(monkeypatch, tmp_path):
+    """DropBlock's draws from the trainer's generator (no noise pinned): a
+    run stopped after 2 of 4 batches and resumed from its checkpoint (the
+    drop generator's state in it) equals the uninterrupted run bit for bit,
+    trainable leaves and BN statistics; so does the captured path's Python
+    (the StepGraph stand-in, the generator registered with the graph)."""
+    from test_torch_port_cells import _Rerun
+
+    over = {**DROPBLOCK, "TRAIN.CHECKPOINT_EVERY_STEPS": 2, "TRAIN.END_EPOCH": 1,
+            "TRAIN.LR_SCHEDULER.METHOD": "constant"}
+    x, y = _rn_data()
+    d = str(tmp_path / "ckpt")
+    ref = _rn_trainer(make_cfg(**over))
+    ref.train_one_epoch(batch_iterator(x, y, 8, seed=0), epoch=0)
+    pre = _rn_trainer(make_cfg(**over))
+    pre.train_one_epoch(itertools.islice(batch_iterator(x, y, 8, seed=0), 2), epoch=0,
+                        checkpoint_dir=d)
+    res = _rn_trainer(make_cfg(**over))
+    assert res.maybe_resume(d) == 0 and res.resume_batch_in_epoch == 2
+    res.train_one_epoch(_skip_batches(batch_iterator(x, y, 8, seed=0), 2), epoch=0,
+                        start_batch=2)
+    _equal(ref, res)
+    for k, v in ref.state.batch_stats.items():
+        assert torch.equal(v, res.state.batch_stats[k]), k
+    assert torch.equal(ref.drop_generator.get_state(), res.drop_generator.get_state())
+    monkeypatch.setattr(port_trainer._train, "StepGraph", _Rerun)
+    monkeypatch.setattr(port_trainer._train, "runs_captured", lambda t: True)
+    cap = _rn_trainer(make_cfg(**over))
+    cap.train_one_epoch(batch_iterator(x, y, 8, seed=0), epoch=0)
+    assert sum(g.replays for key, g in cap.graphs.items() if key[0] == "train") == 4
+    _equal(ref, cap)
+    for k, v in ref.state.batch_stats.items():
+        assert torch.equal(v, cap.state.batch_stats[k]), k
