@@ -227,7 +227,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    stages 3 and 4 at keep 0.9, block 7): no kernel launched, the first step
    captured == eager and a resumed run == the uninterrupted one bit for bit
    (BN statistics and the drop generator included), ``update_bn``, the
-   step's time, busy time and idle share.
+   step's time, busy time and idle share;
+16. swin: the Swin family.  K1, K2 (delta too), K3 and K7 at head dim 32
+   against their plain versions at Swin-T's four stage folds (B = 16, N =
+   49, nW h heads, the gathered table plus the shift mask), a per-cell bias
+   (C = 3), an odd N (25), bf16 and fp32, and a D = 48 call refused; their
+   times at the stage-0 and stage-2 folds, B = 64, beside the bound, the
+   plain version and SDPA.  Swin-T (swin_tiny.yaml) at 224 px, weights from a
+   numpy seed: ``ServingSession`` buckets 1, 8, 32 (K1 12 a replay, captured
+   == eager, top-1 and logits against fp32 on the CPU, fp32 card against
+   CPU, latency); ``train_main`` at B = 64 (K1, K2, K3 and K7 12 each a step
+   replay, the first step captured == eager and its update against the
+   float64 backward, a resumed run == the uninterrupted one, the step's
+   time, busy time and idle share).  CLIP Swin-T (clip_swin_tiny.yaml):
+   ``zeroshot_main`` (K1 through the text tower's causal bias and the Swin
+   tower), captured rounds of 3 LoRA and 3 RPB cells (== eager, each cell
+   against it alone, the launches a replay from ``launch_rule``), the tiny
+   fp32 ``finetune_main`` card against CPU.  ConvViT and CSwin at a tiny
+   size: fp32 card against CPU, a captured step == eager, K1-K7 launched 0
+   times; their convolutions in the determinism probe.
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -413,9 +431,9 @@ def build_phase(ptxas_verbose: bool = False) -> float:
 
 def ptxas_summary(text: str) -> list:
     """One line per instantiation of the sm90 attention forward in an
-    ``nvcc -Xptxas -v`` log: its key width, resident or streamed, registers,
-    spills, static shared memory, the dynamic shared memory its launcher
-    asks for (as ``attn_fwd_sm90.cuh`` sizes it), and whether ptxas
+    ``nvcc -Xptxas -v`` log: its head dim, key width, resident or streamed,
+    registers, spills, static shared memory, the dynamic shared memory its
+    launcher asks for (as ``attn_fwd_sm90.cuh`` sizes it), and whether ptxas
     serialized its wgmma instructions for want of registers (C7512)."""
     import re
 
@@ -424,11 +442,12 @@ def ptxas_summary(text: str) -> list:
     for line in text.splitlines():
         found = re.search(r"Compiling entry function '(\S+)'", line)
         if found:
-            args = re.search(r"attn_fwd_sm90_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E",
+            args = re.search(r"attn_fwd_sm90_kernelILi(\d+)ELb([01])ELb([01])ELb([01])ELi(\d+)E",
                              found.group(1))
             current = None if args is None else {
                 "keys": int(args.group(1)), "stream": args.group(2) == "1",
-                "bias": args.group(4) == "1", "serialized": found.group(1) in serialized}
+                "bias": args.group(4) == "1", "d": int(args.group(5)),
+                "serialized": found.group(1) in serialized}
             continue
         if current is None:
             continue
@@ -438,16 +457,18 @@ def ptxas_summary(text: str) -> list:
         used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
         if used:
             stores, loads = current.get("spill", (0, 0))
-            keys, stages = current["keys"], 2 if current["stream"] else 1
-            dynamic = 128 * 128 + stages * 128 * (keys + (keys + 15) // 16 * 16) + 1024
+            keys, stages, row = current["keys"], 2 if current["stream"] else 1, 2 * current["d"]
+            k_span = (keys * row + 1023) // 1024 * 1024
+            dynamic = 128 * row + stages * (k_span + (keys + 15) // 16 * 16 * row) + 1024
             lines.append(
-                f"keys={keys} {'streamed' if current['stream'] else 'resident'}"
+                f"D={current['d']} keys={keys} {'streamed' if current['stream'] else 'resident'}"
                 f"{' bias' if current['bias'] else ''}: "
                 f"{used.group(1)} registers, spill stores {stores} B, spill loads {loads} B, "
                 f"static smem {used.group(2)} B, dynamic smem {dynamic} B"
                 + (", wgmma serialized (C7512)" if current["serialized"] else ""))
             current = None
-    return sorted(lines, key=lambda x: (("bias" in x), ("streamed" in x), int(x.split()[0][5:])))
+    return sorted(lines, key=lambda x: (x.split()[0], ("bias" in x), ("streamed" in x),
+                                        int(x.split()[1][5:])))
 
 
 SM_REGISTERS, SM_SHARED_BYTES, BLOCK_RESERVED_SHARED = 65536, 233472, 1024  # H100, a SM
@@ -468,16 +489,18 @@ def ptxas_bwd_summary(logs: dict) -> list:
     for library, smem_fn in (("flash_attn_bwd", "flash_attn_bwd_smem_bytes"),
                              ("fused_short_attn", "fused_short_attn_bwd_smem_bytes")):
         text = logs.get(library, "")
-        dynamic = getattr(attn._kernel_library(library), smem_fn)()
+        smem_of = getattr(attn._kernel_library(library), smem_fn)
         serialized = set(re.findall(r"C7512.*?for the function '(\S+)'", text))
         current = None
         for line in text.splitlines():
             found = re.search(r"Compiling entry function "
-                              r"'(\S*attn_bwd_sm90_kernelILi(\d)ELb([01])E\S*)'", line)
+                              r"'(\S*attn_bwd_sm90_kernelILi(\d)ELb([01])ELi(\d+)E\S*)'", line)
             if found:
+                d = int(found.group(4))
                 current = {"kernel": ("K2", "K3", "K5")[int(found.group(2))]
-                           + (" bias" if found.group(3) == "1" else ""),
-                           "serialized": found.group(1) in serialized}
+                           + (" bias" if found.group(3) == "1" else "") + f" D={d}",
+                           "serialized": found.group(1) in serialized,
+                           "dynamic": smem_of(d) if library == "flash_attn_bwd" else smem_of()}
                 continue
             if current is None:
                 continue
@@ -487,6 +510,7 @@ def ptxas_bwd_summary(logs: dict) -> list:
             used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
             if used:
                 regs, static = int(used.group(1)), int(used.group(2))
+                dynamic = current["dynamic"]
                 by_regs = SM_REGISTERS // ((regs + 7) // 8 * 8 * 128)
                 by_smem = SM_SHARED_BYTES // (dynamic + static + BLOCK_RESERVED_SHARED)
                 stores, loads = current.get("spill", (0, 0))
@@ -508,9 +532,10 @@ def ptxas_bias_grad_summary(text: str) -> list:
 
     lines, current = [], None
     for line in text.splitlines():
-        found = re.search(r"Compiling entry function '\S*(bias_grad_(bf16|f32)_kernel)\S*'", line)
+        found = re.search(r"Compiling entry function "
+                          r"'\S*(bias_grad_(bf16|f32)_kernel)ILi(\d+)E\S*'", line)
         if found:
-            current = {"name": found.group(2)}
+            current = {"name": f"{found.group(2)} D={found.group(3)}"}
             continue
         if current is None:
             continue
@@ -901,9 +926,9 @@ def _bias(rand, c: int, n: int, zero_prefix: bool) -> torch.Tensor:
     return bias[0] if c == 1 else bias
 
 
-def _dbias_scale(attn, q, k, v, do, lse, delta, bias) -> torch.Tensor:
+def _dbias_scale(attn, q, k, v, do, lse, delta, bias, scale: float = 1.0) -> torch.Tensor:
     """Per cell, the largest sum over its batch of |ds| (fp32 plain), (C,)."""
-    _, ds = attn._bwd_p_ds_acc(q, k, v, do, lse, delta, 1.0, bias)
+    _, ds = attn._bwd_p_ds_acc(q, k, v, do, lse, delta, scale, bias)
     c = attn._bias_cells(bias)
     return ds.abs().unflatten(0, (c, -1)).sum(1).flatten(1).amax(1)
 
@@ -926,51 +951,71 @@ def bias_kernel_checks(attn, rand) -> dict:
         shape = (b, HEADS, n, HEAD_DIM)
         q, k, v, do = (rand(shape, dtype, std) for std in (0.125, 1.0, 1.0, 1.0))
         bias = _bias(rand, c, n, zero_prefix=i % 2 == 0)
-        bf = dtype == bf16
-        tol_out, tol_grad = (TOL_BF16_OUT, TOL_BF16_GRAD_REL) if bf else (TOL_F32_OUT,
-                                                                            TOL_F32_GRAD_REL)
-        o, lse = attn.flash_attention_fwd(q, k, v, bias, 1.0, return_lse=True)
-        want_o, want_lse = attn._flash_attention_plain(q, k, v, bias, 1.0, True)
-        dq, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, 1.0, bias)
-        dk, dv = attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta, 1.0, bias)
-        want = attn._flash_attention_bwd_plain(q, k, v, o, lse, do, 1.0, bias)
-        dbias = attn.attention_bias_grad(q, k, v, do, lse, 1.0, bias, delta=delta)
-        dbias_o = attn.attention_bias_grad(q, k, v, do, lse, 1.0, bias, o=o)
-        want_dbias = attn._bias_grad_plain(q, k, v, do, lse, 1.0, bias, delta=delta)
-        want_dbias_o = attn._bias_grad_plain(q, k, v, do, lse, 1.0, bias, o=o)
-        torch.cuda.synchronize()
-        errs = {"fwd": (o.float() - want_o.float()).abs().max().item()}
-        lse_err = (lse - want_lse).abs().max().item()
-        check(bool(torch.isfinite(o).all()) and errs["fwd"] <= tol_out and lse_err <= TOL_LSE,
-              f"bias kernel K1 {name} {shape}: out max abs err {errs['fwd']:.3e} <= {tol_out:g}, "
-              f"lse {lse_err:.3e} <= {TOL_LSE:g}")
-        scale_delta = (do.float() * o.float()).abs().sum(-1).max().item()
-        errs["delta"] = (delta - attn._row_dot(do, o)).abs().max().item()
-        check(errs["delta"] <= TOL_DELTA_REL * scale_delta,
-              f"bias kernel K2 {name}: delta max abs err {errs['delta']:.3e} <= "
-              f"{TOL_DELTA_REL:g} x max sum |dO o O| ({scale_delta:.3e})")
-        for what, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-            err = (got.float() - ref.float()).abs().max().item()
-            rel = err / ref.float().abs().max().item()
-            errs[what] = err
-            check(got.dtype == dtype and bool(torch.isfinite(got).all()) and rel <= tol_grad,
-                  f"bias kernel {'K2' if what == 'dq' else 'K3'} {name}: {what} max abs err "
-                  f"{err:.3e}, / max |plain| = {rel:.3e} <= {tol_grad:g}")
-        cell_scale = _dbias_scale(attn, q, k, v, do, lse, delta, bias)
-        for label, got, ref in (("delta from K2", dbias, want_dbias),
-                                ("delta from o", dbias_o, want_dbias_o)):
-            per_cell = (got - ref).abs().reshape(c, -1).amax(1)
-            worst = (per_cell / cell_scale).max().item()
-            errs.setdefault("dbias", (got - ref).abs().max().item())
-            check(got.shape == bias.shape and got.dtype == f32 and bool(torch.isfinite(got).all())
-                  and worst <= TOL_DBIAS_REL,
-                  f"bias kernel K7 {name} ({label}): max abs err a cell / that cell's max "
-                  f"sum_b |ds| = {worst:.3e} <= {TOL_DBIAS_REL:g} (max abs err "
-                  f"{(got - ref).abs().max().item():.3e})")
+        errs = bias_case_checks(attn, name, q, k, v, do, bias, 1.0)
         if main is None:
             main = {"fwd_bias": errs["fwd"], "dq_bias": errs["dq"],
                     "dkv_bias": max(errs["dk"], errs["dv"]), "dbias": errs["dbias"]}
+    bias_function_checks(attn, rand)
+    return main
 
+
+def bias_case_checks(attn, name: str, q, k, v, do, bias, scale: float) -> dict:
+    """K1 (out, lse), K2 (dq, delta), K3 (dk, dv) and K7 (delta from K2 and
+    from o) on one case with a bias, against their plain versions, under the
+    bounds the file states (``TOL_DBIAS_REL`` for K7).  Returns the max abs
+    errors."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    dtype, shape = q.dtype, tuple(q.shape)
+    c = attn._bias_cells(bias)
+    bf = dtype == bf16
+    tol_out, tol_grad = (TOL_BF16_OUT, TOL_BF16_GRAD_REL) if bf else (TOL_F32_OUT,
+                                                                        TOL_F32_GRAD_REL)
+    o, lse = attn.flash_attention_fwd(q, k, v, bias, scale, return_lse=True)
+    want_o, want_lse = attn._flash_attention_plain(q, k, v, bias, scale, True)
+    dq, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, scale, bias)
+    dk, dv = attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, bias)
+    want = attn._flash_attention_bwd_plain(q, k, v, o, lse, do, scale, bias)
+    dbias = attn.attention_bias_grad(q, k, v, do, lse, scale, bias, delta=delta)
+    dbias_o = attn.attention_bias_grad(q, k, v, do, lse, scale, bias, o=o)
+    want_dbias = attn._bias_grad_plain(q, k, v, do, lse, scale, bias, delta=delta)
+    want_dbias_o = attn._bias_grad_plain(q, k, v, do, lse, scale, bias, o=o)
+    torch.cuda.synchronize()
+    errs = {"fwd": (o.float() - want_o.float()).abs().max().item()}
+    lse_err = (lse - want_lse).abs().max().item()
+    check(bool(torch.isfinite(o).all()) and errs["fwd"] <= tol_out and lse_err <= TOL_LSE,
+          f"bias kernel K1 {name} {shape}: out max abs err {errs['fwd']:.3e} <= {tol_out:g}, "
+          f"lse {lse_err:.3e} <= {TOL_LSE:g}")
+    scale_delta = (do.float() * o.float()).abs().sum(-1).max().item()
+    errs["delta"] = (delta - attn._row_dot(do, o)).abs().max().item()
+    check(errs["delta"] <= TOL_DELTA_REL * scale_delta,
+          f"bias kernel K2 {name}: delta max abs err {errs['delta']:.3e} <= "
+          f"{TOL_DELTA_REL:g} x max sum |dO o O| ({scale_delta:.3e})")
+    for what, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        err = (got.float() - ref.float()).abs().max().item()
+        rel = err / ref.float().abs().max().item()
+        errs[what] = err
+        check(got.dtype == dtype and bool(torch.isfinite(got).all()) and rel <= tol_grad,
+              f"bias kernel {'K2' if what == 'dq' else 'K3'} {name}: {what} max abs err "
+              f"{err:.3e}, / max |plain| = {rel:.3e} <= {tol_grad:g}")
+    cell_scale = _dbias_scale(attn, q, k, v, do, lse, delta, bias, scale)
+    for label, got, ref in (("delta from K2", dbias, want_dbias),
+                            ("delta from o", dbias_o, want_dbias_o)):
+        per_cell = (got - ref).abs().reshape(c, -1).amax(1)
+        worst = (per_cell / cell_scale).max().item()
+        errs.setdefault("dbias", (got - ref).abs().max().item())
+        check(got.shape == bias.shape and got.dtype == f32 and bool(torch.isfinite(got).all())
+              and worst <= TOL_DBIAS_REL,
+              f"bias kernel K7 {name} ({label}): max abs err a cell / that cell's max "
+              f"sum_b |ds| = {worst:.3e} <= {TOL_DBIAS_REL:g} (max abs err "
+              f"{(got - ref).abs().max().item():.3e})")
+    return errs
+
+
+def bias_function_checks(attn, rand) -> None:
+    """The bias path's autograd Function on the card: a bf16 round of 3
+    cells under the vmap against each cell alone, K7 alone when only the
+    bias needs a gradient, fp32 against autograd of the reference."""
+    bf16, f32 = torch.bfloat16, torch.float32
     # the Function: a round of 3 cells, each with its own bf16 bias, under the
     # vmap equals each cell alone bit for bit (every kernel's arithmetic is a
     # batch element's or a cell's own); its backward launches K2, K3 and K7
@@ -1019,7 +1064,6 @@ def bias_kernel_checks(attn, rand) -> dict:
         check(rel <= TOL_F32_GRAD_REL,
               f"bias Function fp32 {tuple(shape)} C=2 vs autograd of the reference: {what} "
               f"max |diff| / max |ref| = {rel:.3e} <= {TOL_F32_GRAD_REL:g}")
-    return main
 
 
 def bias_bound(b: int, h: int, n: int, d: int, c: int, itemsize: int):
@@ -1033,7 +1077,7 @@ def bias_bound(b: int, h: int, n: int, d: int, c: int, itemsize: int):
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
 
-def _sdpa_bias_bwd_ms(q, k, v, bias, do, reps: int) -> float:
+def _sdpa_bias_bwd_ms(q, k, v, bias, do, reps: int, scale: float = 1.0) -> float:
     """The ``scaled_dot_product_attention`` backward with a float
     ``attn_mask`` (the bias, (H, N, N) broadcast over the batch) that
     requires a gradient: dq, dk, dv and the mask's gradient, timed as
@@ -1042,7 +1086,7 @@ def _sdpa_bias_bwd_ms(q, k, v, bias, do, reps: int) -> float:
 
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     bg = bias.to(q.dtype).clone().requires_grad_()
-    sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bg, scale=1.0)
+    sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bg, scale=scale)
     return (_device_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg, bg), do), reps)
             - _device_ms(sdpa, reps))
 
@@ -1099,6 +1143,150 @@ def bias_kernel_phase(timing: bool = True) -> dict:
     result = {"max_abs_err": bias_kernel_checks(attn, rand)}
     if timing:
         bias_kernel_timing(attn, rand, result)
+    return result
+
+
+# Swin-T's window attention on K1, K2, K3 and K7 at head dim 32 (swin_tiny.yaml
+# at 224 px, window 7: N = 49).  A block runs batch B with nW h heads (the
+# uniform fold of models/swin.py): (resolution, heads) of the four stages give
+# nW = 64, 16, 4, 1 windows and 192, 96, 48, 24 folded heads.  The shifted
+# blocks of stages 0-2 add the shift mask (-1e9) to the gathered table.
+SWIN_HEAD_DIM = 32
+SWIN_WINDOW = 7
+SWIN_STAGES = ((56, 3), (28, 6), (14, 12), (7, 24))
+SWIN_CHECK_BATCH = 16
+SWIN_TIMED_BATCH = 64  # swin_tiny.yaml's TRAIN.BATCH_SIZE_PER_GPU
+SWIN_TIMED_STAGES = (0, 2)
+# (B, C, resolution, window, heads): a per-cell bias (a round of 3 rpb cells at
+# stage 2's fold) and an odd N (window 5: N = 25, four windows of two heads)
+SWIN_EDGES = ((3 * 4, 3, 14, 7, 12), (3, 1, 10, 5, 2))
+
+
+def swin_bias(rand, c: int, res: int, ws: int, heads: int, shifted: bool, dtype) -> torch.Tensor:
+    """A Swin block's folded bias as the model hands it to the kernels: a
+    random ((2 ws - 1)^2, heads) table gathered into (heads, N, N), tiled over
+    the nW windows, plus the shift mask when ``shifted``; rounded to the
+    compute dtype ``dtype`` and given in fp32, (C, nW heads, N, N) (C = 1:
+    (nW heads, N, N))."""
+    from peft_vit_tpu_torch.models.layers import _rpb_index
+    from peft_vit_tpu_torch.models.swin import _shift_attn_mask
+
+    n, nw = ws * ws, (res // ws) ** 2
+    index = torch.as_tensor(_rpb_index(ws).reshape(-1), device="cuda")
+    table = rand((c, (2 * ws - 1) ** 2, heads), torch.float32, 0.5)
+    gathered = table[:, index].reshape(c, n, n, heads).permute(0, 3, 1, 2)  # (C, h, N, N)
+    bias = gathered[:, None].expand(c, nw, heads, n, n)
+    if shifted:
+        mask = torch.as_tensor(_shift_attn_mask(res, res, ws, ws // 2), device="cuda")
+        bias = bias + mask[None, :, None]
+    bias = bias.reshape(c, nw * heads, n, n).to(dtype).float().contiguous()
+    return bias[0] if c == 1 else bias
+
+
+def swin_kernel_checks(attn, rand) -> dict:
+    """K1, K2 (delta too), K3 and K7 at head dim 32 against their plain
+    versions (``bias_case_checks``, the D = 64 bounds), bf16 and fp32, at
+    Swin-T's four stage shapes (B = 16, the shift mask in stages 0-2), a
+    per-cell bias (C = 3) and an odd N; a D = 48 call refused.  Returns the
+    max abs errors of the bf16 stage-0 case."""
+    main = None
+    for dtype in (torch.bfloat16, torch.float32):
+        label = "bf16" if dtype == torch.bfloat16 else "fp32"
+        cases = [(f"stage {i}", SWIN_CHECK_BATCH, 1, res, SWIN_WINDOW, heads)
+                 for i, (res, heads) in enumerate(SWIN_STAGES)]
+        cases += [(f"edge C={c} N={ws * ws}", b, c, res, ws, heads)
+                  for b, c, res, ws, heads in SWIN_EDGES]
+        for name, b, c, res, ws, heads in cases:
+            ws = min(ws, res)
+            shifted = ws < res
+            bias = swin_bias(rand, c, res, ws, heads, shifted, dtype)
+            shape = (b, (res // ws) ** 2 * heads, ws * ws, SWIN_HEAD_DIM)
+            q, k, v, do = (rand(shape, dtype) for _ in range(4))
+            errs = bias_case_checks(attn, f"D=32 {label} {name}{' shifted' if shifted else ''}",
+                                    q, k, v, do, bias, SWIN_HEAD_DIM ** -0.5)
+            if main is None:
+                main = errs
+    q = rand((2, 4, 49, 48), torch.bfloat16)
+    try:
+        attn.flash_attention_fwd(q, q, q)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "D=48: the kernel wrapper refuses a head dim it is not built at")
+    return main
+
+
+def swin_kernel_timing(attn, rand, result: dict) -> None:
+    """At Swin-T's stage-0 and stage-2 folds, B = 64, bf16, the shifted
+    block's bias: K1 against SDPA's forward with the float bias, K2 + K3
+    against SDPA's backward, K7 against SDPA's backward with a bias that
+    requires a gradient, each beside its bound and its plain version."""
+    import torch.nn.functional as F
+
+    b = SWIN_TIMED_BATCH
+    for stage in SWIN_TIMED_STAGES:
+        res, heads = SWIN_STAGES[stage]
+        bias = swin_bias(rand, 1, res, SWIN_WINDOW, heads, True, torch.bfloat16)
+        h = bias.shape[0]
+        n, d = SWIN_WINDOW ** 2, SWIN_HEAD_DIM
+        shape = (b, h, n, d)
+        scale = d ** -0.5
+        q, k, v, do = (rand(shape, torch.bfloat16) for _ in range(4))
+        reps = 100
+        o, lse = attn.flash_attention_fwd(q, k, v, bias, scale, return_lse=True)
+        _, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, scale, bias)
+        bias_bf = bias.to(torch.bfloat16)
+        rows = {}
+        fwd = {"ms": _device_ms(lambda: attn.flash_attention_fwd(q, k, v, bias, scale), reps),
+               "plain_ms": _device_ms(lambda: attn._flash_attention_plain(
+                   q, k, v, bias, scale, False), 10),
+               "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=bias_bf, scale=scale), reps)}
+        fwd["bound_ms"], fwd["bound_by"] = attention_bound(b, h, n, d, 2, "fwd")
+        rows["fwd"] = fwd
+        for key, fn in (("dq", lambda: attn.flash_attention_bwd_dq(q, k, v, do, lse, o, scale,
+                                                                    bias)),
+                        ("dkv", lambda: attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                                      scale, bias))):
+            row = {"ms": _device_ms(fn, reps)}
+            row["bound_ms"], row["bound_by"] = attention_bound(b, h, n, d, 2, key)
+            rows[key] = row
+        rows["dq"]["plain_ms"] = _device_ms(lambda: attn._bwd_dq_plain(
+            q, k, v, do, lse, o, scale, bias), 10)
+        rows["dkv"]["plain_ms"] = _device_ms(lambda: attn._bwd_dkv_plain(
+            q, k, v, do, lse, delta, scale, bias), 10)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias_bf, scale=scale)
+        sdpa_bwd = (_device_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do), reps)
+                    - _device_ms(sdpa, reps))
+        for key in ("dq", "dkv"):
+            rows[key]["library_ms"] = sdpa_bwd
+            rows[key]["library_computes"] = "dq, dk and dv in one SDPA backward"
+        k7 = {"ms": _device_ms(lambda: attn.attention_bias_grad(q, k, v, do, lse, scale, bias,
+                                                                delta=delta), reps),
+              "plain_ms": _device_ms(lambda: attn._bias_grad_plain(q, k, v, do, lse, scale, bias,
+                                                                   delta=delta), 10),
+              "library_ms": _sdpa_bias_bwd_ms(q, k, v, bias, do, reps, scale)}
+        k7["bound_ms"], k7["bound_by"] = bias_bound(b, h, n, d, 1, 2)
+        rows["k7"] = k7
+        for key, row in rows.items():
+            _print_timing(f"D=32 swin stage {stage} {key}", b, shape, row)
+        result[stage] = rows
+
+
+def swin_kernel_phase(timing: bool = True) -> dict:
+    """The kernels of Swin's path at head dim 32: ``swin_kernel_checks`` and,
+    with ``timing``, ``swin_kernel_timing``."""
+    from peft_vit_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 170)
+
+    def rand(shape, dtype, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+
+    result = {"max_abs_err": swin_kernel_checks(attn, rand)}
+    if timing:
+        swin_kernel_timing(attn, rand, result)
     return result
 
 
@@ -1811,21 +1999,23 @@ def slice_phase(smi: str) -> dict:
     return {"launches": launches, "batches": batches, "latency_ms": latency, "int8": int8}
 
 
-def _serving_graphs(session, per_replay: dict, counted: int, batches: int, label: str) -> None:
+def _serving_graphs(session, per_replay: dict, counted: int, batches: int, label: str,
+                    blocks: int = LAYERS) -> None:
     """Each bucket of ``session`` a captured graph launching ``per_replay``
     a replay; the forward kernel's wrapper counted (warm-up + capture) x its
-    launches a replay for each bucket, and the requests' batches replayed."""
+    launches a replay (``blocks``) for each bucket, and the requests' batches
+    replayed."""
     from peft_vit_tpu_torch.engine import StepGraph
 
     graphs = session._graphs
     check(sorted(graphs) == sorted(BUCKETS), f"{label}: buckets {sorted(graphs)} captured")
     for b, graph in sorted(graphs.items()):
         _per_replay(graph, per_replay, f"{label}: bucket {b}")
-    want = (StepGraph.WARMUP + 1) * LAYERS * len(graphs)
+    want = (StepGraph.WARMUP + 1) * blocks * len(graphs)
     replays = sum(g.replays for g in graphs.values())
     check(counted == want > 0 and replays == batches,
           f"{label}: flash_attn_fwd counted {counted} == ({StepGraph.WARMUP} warm-up runs + the "
-          f"capture) x {LAYERS} layers x {len(graphs)} buckets; {replays} replays == {batches} "
+          f"capture) x {blocks} blocks x {len(graphs)} buckets; {replays} replays == {batches} "
           "forward batches")
 
 
@@ -2873,11 +3063,36 @@ def launch_rule(model, trainable, cells: int = 1, int8: bool = False,
     weight, quantized per call) and, with ``bwd_dx``, once a frozen GEMM
     whose input needs a gradient.  KAdaptation's ``phmb`` is never read and
     an adapter that AdapterDrop skips never runs: neither makes anything
-    need a gradient.  A CNN tower launches none of them."""
+    need a gradient.  A CNN tower launches none of them, nor does ConvViT
+    (its attention is plain PyTorch).  A Swin tower: K1 once a block; K2 and
+    K3 once in each block whose q, k, v need a gradient (a trainable leaf in
+    or before the block's ``in_proj``: the patch embedding, an earlier block
+    or patch merging, the block's ``ln_1``, ``in_proj`` or LoRA deltas); K7
+    once in each block whose table trains."""
     backbone, names = model.backbone, set(trainable)
-    if not hasattr(backbone, "blocks"):
+    if hasattr(backbone, "stages"):  # Swin
+        def trains_any(prefix: str, *skip: str) -> bool:
+            return any(n.startswith(prefix) and not n.startswith(skip) for n in names)
+
+        carry = trains_any("backbone.patch_embed.") or trains_any("backbone.pos_norm.") or (
+            "backbone.absolute_pos_embed" in names)
+        k1 = k23 = k7 = 0
+        for block_names, merge in backbone.stages:
+            for name in block_names:
+                p = f"backbone.{name}."
+                table = trains_any(p + "attn.relative_position_bias_table")
+                attn = carry or trains_any(p + "ln_1.") or trains_any(
+                    p + "attn.", p + "attn.out_proj.", p + "attn.relative_position_bias_table")
+                k1, k23, k7 = k1 + 1, k23 + attn, k7 + table
+                carry = carry or trains_any(p)
+            if merge is not None:
+                carry = carry or trains_any(f"backbone.{merge}.")
+        return {"flash_attention_fwd": k1, "flash_attention_bwd_dq": k23,
+                "flash_attention_bwd_dkv": k23, "attention_bias_grad": k7}
+    if getattr(backbone, "style", None) is None:
         # a CNN tower (the ResNet family): convolutions, pools and BN are
-        # library calls, and its attention pool is plain PyTorch; K1-K7 never run
+        # library calls, and its attention pool is plain PyTorch; ConvViT's
+        # attention is plain PyTorch too; K1-K7 never run
         out = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
                "flash_attention_bwd_dkv": 0, "attention_bias_grad": 0}
         if int8:
@@ -4282,14 +4497,16 @@ def attention_spy():
     """Within, every attention call of the tower records its q, k, v and
     scale (clones), and the gradient that flows back into its output: the
     operands K1, K2 and K3 were given."""
-    from peft_vit_tpu_torch.models import layers
+    from peft_vit_tpu_torch.models import layers, swin
 
     calls = []
     original = layers.multi_head_attention
 
     def spy(q, k, v, *args, **kwargs):
+        bias = kwargs.get("bias")
         rec = {"q": q.detach().clone(), "k": k.detach().clone(), "v": v.detach().clone(),
-               "scale": kwargs.get("scale"), "bias": kwargs.get("bias")}
+               "scale": kwargs.get("scale"),
+               "bias": None if bias is None else bias.detach().float().contiguous()}
         calls.append(rec)
         out = original(q, k, v, *args, **kwargs)
         if out.requires_grad:
@@ -4297,11 +4514,11 @@ def attention_spy():
                 "do", g.detach().clone(memory_format=torch.contiguous_format)))
         return out
 
-    layers.multi_head_attention = spy
+    layers.multi_head_attention = swin.multi_head_attention = spy
     try:
         yield calls
     finally:
-        layers.multi_head_attention = original
+        layers.multi_head_attention = swin.multi_head_attention = original
 
 
 def hold_step_attention(attn, label: str, calls: list) -> dict:
@@ -4316,11 +4533,13 @@ def hold_step_attention(attn, label: str, calls: list) -> dict:
     finite = True
     for c in calls:
         q, k, v, scale, do = c["q"], c["k"], c["v"], c["scale"], c["do"]
+        if scale is None:  # multi_head_attention's default (Swin passes none)
+            scale = 1.0 / math.sqrt(q.shape[-1])
         o, lse = attn.flash_attention_fwd(q, k, v, c["bias"], scale, return_lse=True)
         ref_o, ref_lse = attn._flash_attention_plain(q, k, v, c["bias"], scale, True)
-        dq, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, scale)
-        dk, dv = attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
-        want = attn._flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+        dq, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, scale, c["bias"])
+        dk, dv = attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, c["bias"])
+        want = attn._flash_attention_bwd_plain(q, k, v, o, lse, do, scale, c["bias"])
         torch.cuda.synchronize()
         worst["fwd"] = max(worst["fwd"], (o.float() - ref_o.float()).abs().max().item())
         worst["lse"] = max(worst["lse"], (lse - ref_lse).abs().max().item())
@@ -4410,7 +4629,8 @@ def hold_first_step(label: str, tr, first: dict, on_card: bool):
     from peft_vit_tpu_torch.ops import attention as attn
 
     captured = {part: dict(leaves) for part, leaves in first["after"].items()}
-    layers = tr.model.backbone.layers
+    backbone = tr.model.backbone
+    layers = getattr(backbone, "layers", None) or sum(getattr(backbone, "depths", ()))
     with bench_torch.eager_on_card(), attention_spy() as calls:
         _rerun_first_step(tr, first)
     differ = _state_differ(tr, captured)
@@ -5289,8 +5509,10 @@ def _grouped(signatures, cells: int) -> list:
 
 def determinism_phase() -> dict:
     """The determinism probe over every convolution of the ResNet-50 v1
-    full-shot step (B = 64, 224 px, bf16) and of the CLIP RN50 tower (a
-    round's folded batch, and the grouped convs of per-cell weights)."""
+    full-shot step (B = 64, 224 px, bf16), of the CLIP RN50 tower (a round's
+    folded batch, and the grouped convs of per-cell weights) and of ConvViT
+    and CSwin (``convvit_signatures``; Swin's patch embedding is
+    ``vit._PatchConv``, a fixed-order weight gradient)."""
     from peft_vit_tpu_torch.models.clip_resnet import ModifiedResNet
     from peft_vit_tpu_torch.models.resnet import resnet50
 
@@ -5306,7 +5528,8 @@ def determinism_phase() -> dict:
     del clip
     rows = {"resnet50": conv_determinism_probe(sig50, "resnet50"),
             "rn50_round": conv_determinism_probe(sigc, "rn50_round"),
-            "rn50_grouped": conv_determinism_probe(sigg, "rn50_grouped")}
+            "rn50_grouped": conv_determinism_probe(sigg, "rn50_grouped"),
+            "convvit": conv_determinism_probe(convvit_signatures(), "convvit")}
     gc_collect(True)
     return rows
 
@@ -5927,6 +6150,525 @@ def resnet_phase(smi: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the Swin family and ConvViT.  Swin-T of swin_tiny.yaml (embed 96,
+# depths 2/2/6/2, heads 3/6/12/24, window 7, patch 4) at 224 px; CLIP Swin-T
+# of clip_swin_tiny.yaml (the same tower, projection 512, the CLIP text tower);
+# ConvViT and CSwin at a tiny size.  A CPU rehearsal shrinks SWIN_MODEL.
+SWIN_YAML = "peft_vit_tpu/resources/model/swin_tiny.yaml"
+CLIP_SWIN_YAML = "peft_vit_tpu/resources/model/clip_swin_tiny.yaml"
+SWIN_MODEL: dict = {}  # overrides of the Swin-T tower (a CPU rehearsal shrinks it here)
+SWIN_BATCH = 64  # swin_tiny.yaml's TRAIN.BATCH_SIZE_PER_GPU
+# swin_tiny.yaml's recipe (the defaults under its model and batch) on
+# synthetic 10-way at 224 px, the full fine-tune, 2 epochs of 2 steps.
+SWIN_FULLSHOT = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": 10,
+                 "MODEL.NUM_CLASSES": 10, "TRAIN.IMAGE_SIZE": [IMAGE, IMAGE],
+                 "PEFT.METHOD": "none", "TEST.BATCH_SIZE_PER_GPU": SWIN_BATCH,
+                 "TRAIN.BATCH_SIZE_PER_GPU": SWIN_BATCH, "TRAIN.END_EPOCH": 2, "TRAIN.LR": 1e-3,
+                 "TRAIN.MOMENTUM": 0.9, "TRAIN.LR_SCHEDULER.WARMUP_EPOCH": 1,
+                 "TRAIN.CHECKPOINT_EVERY_STEPS": 0, "TRAIN.AUTO_RESUME": False,
+                 "TPU.COMPUTE_DTYPE": "bfloat16", "PRINT_FREQ": 1, "NAME": "swin"}
+SWIN_DIR = "build/swin"  # checkpoints and logs, removed after the phase
+SWIN_FLOPS_PER_IMAGE = 3 * 4.5e9  # a Swin-T forward at 224 px is 4.5 GFLOP; fwd + bwd ~3x
+# Swin-T in bf16 on the card against fp32 on the CPU, max |logit diff| / max
+# |logit| of a 5-image request through the prototype head: bf16 rounds every
+# GEMM and LayerNorm output through 12 random-weight blocks and 3 patch
+# mergings (no BN: each LayerNorm renormalises).  The first measurement on
+# the H100 (NVIDIA H100 80GB HBM3, 700.00 W): 1.25e-2, top-1 equal.  Bound
+# 5e-2.
+TOL_SWIN_BF16_LOGITS_REL = 5e-2
+# fp32 on the card against the CPU: the same arithmetic summed in other orders.
+TOL_SWIN_F32_LOGITS_REL = 1e-3
+# The tiny fp32 few-shot drive on CLIP Swin (LoRA), card against CPU.
+SWIN_TINY_DRIVER = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": 4,
+                    "DATASET.NUM_SAMPLES_PER_CLASS": 4, "TRAIN.IMAGE_SIZE": [32, 32],
+                    "TRAIN.BATCH_SIZE_PER_GPU": 8, "TRAIN.END_EPOCH": 1, "TRAIN.SCHEDULE": [],
+                    "MODEL.NAME": "clip_swin_tiny", "MODEL.SPEC.EMBED_DIM": 16,
+                    "MODEL.SPEC.VISION.MODEL": "swin", "MODEL.SPEC.VISION.PATCH_SIZE": 4,
+                    "MODEL.SPEC.VISION.EMBED_DIM": 32, "MODEL.SPEC.VISION.DEPTHS": [2, 2],
+                    "MODEL.SPEC.VISION.NUM_HEADS": [1, 2], "MODEL.SPEC.VISION.WINDOW_SIZE": 4,
+                    "MODEL.SPEC.TEXT.WIDTH": 16, "MODEL.SPEC.TEXT.HEADS": 2,
+                    "MODEL.SPEC.TEXT.LAYERS": 1, "PEFT.METHOD": "lora", "PEFT.LORA_RANK": 2,
+                    "TPU.COMPUTE_DTYPE": "float32", "TRAIN.SEARCH_WD_LOG_UPPER": -2}
+SWIN_TINY_LRS = (1e-3,)
+# ConvViT and CSwin at a tiny size (32 px, patch 8, width 64, 2 blocks of 2 heads)
+CONVVIT_TINY = {
+    "cls_vit_conv": {"MODEL.NAME": "cls_vit_conv", "MODEL.SPEC.VISION.HAS_CONV": True,
+                     "MODEL.SPEC.VISION.RES_SCORE": True, "MODEL.SPEC.VISION.ADD_CLS": True},
+    "cls_vit_cswin": {"MODEL.NAME": "cls_vit_cswin", "MODEL.SPEC.VISION.RES_SCORE": True},
+}
+CONVVIT_SIZE = {"TRAIN.IMAGE_SIZE": [32, 32], "MODEL.SPEC.VISION.PATCH_SIZE": 8,
+                "MODEL.SPEC.VISION.WIDTH": 64, "MODEL.SPEC.VISION.LAYERS": 2,
+                "MODEL.SPEC.VISION.HEADS": 2, "TPU.COMPUTE_DTYPE": "float32"}
+# ConvViT's convolutions at a ViT-S/16 width for the determinism probe: 384
+# channels, a 14 x 14 grid, B = 64: the mixer's depthwise 3x3 dw and LePE's
+# depthwise get_v (the mixer's 1x1 pw1 / pw2 are GEMMs: cuDNN's fp32 weight
+# gradient of them did not repeat in a captured step on the H100)
+CONVVIT_PROBE = dict(image_size=224, patch_size=16, width=384, layers=1, heads=6)
+
+
+def _swin(yaml_file: str, num_classes: int, dtype: str, device: str, use_bn: bool = False,
+          **over):
+    from peft_vit_tpu_torch.models import build_image_classifier
+    from peft_vit_tpu_torch.peft import spec_from_config
+
+    cfg = driver_cfg({"TRAIN.IMAGE_SIZE": [IMAGE, IMAGE], **SWIN_MODEL,
+                      "TPU.COMPUTE_DTYPE": dtype, **over}, yaml_file)
+    return cfg, build_image_classifier(cfg, spec_from_config(cfg), num_classes, use_bn=use_bn,
+                                       device=device)
+
+
+def swin_serving_check(smi: str, device: str) -> dict:
+    """Swin-T (swin_tiny.yaml) at 224 px, weights from a numpy seed and a
+    prototype head, through ``ServingSession`` (bf16, buckets 1, 8 and 32):
+    K1 once a block a replay, captured == eager bit for bit, top-1 and the
+    logits against fp32 on the CPU, fp32 on the card against the CPU (the
+    D = 32 fp32 kernels), each bucket's latency."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import ServingSession, make_infer_fn
+    from peft_vit_tpu_torch.ops import launch_counts
+
+    rng = np.random.RandomState(SEED + 70)
+    _, (cpu_model, _, _) = _swin(SWIN_YAML, NUM_CLASSES, "float32", "cpu")
+    blocks = sum(cpu_model.backbone.depths)
+    state = rn_numpy_state(cpu_model, rng)
+    requests = {n: rng.standard_normal((n, IMAGE, IMAGE, 3)).astype(np.float32)
+                for n in REQUESTS}
+    checked = requests[CHECKED_REQUEST]
+    cpu_model.load_state_dict(state)
+    cpu_model.eval()
+    with torch.no_grad():
+        feats = cpu_model.backbone(torch.from_numpy(checked)).numpy()
+    d = feats - feats.mean(axis=0)
+    rows = 10.0 * d / (d * d).sum(axis=1, keepdims=True)
+    head_w = state["classifier.head.weight"].numpy().copy()
+    head_b = state["classifier.head.bias"].numpy().copy()
+    head_w[:len(feats)] = rows
+    head_b[:len(feats)] = -(rows @ feats.mean(axis=0))
+    state["classifier.head.weight"] = torch.from_numpy(head_w)
+    state["classifier.head.bias"] = torch.from_numpy(head_b)
+    cpu_model.load_state_dict(state)
+    with torch.no_grad():
+        cpu_logits = cpu_model(torch.from_numpy(checked)).numpy()
+    del cpu_model
+    _, (model, _, _) = _swin(SWIN_YAML, NUM_CLASSES, "bfloat16", device)
+    model.load_state_dict(state)
+    before = launch_counts()  # counts from 0 just before the main path, read just after
+    session = ServingSession(model, None, IMAGE, buckets=BUCKETS, device=device)
+    logits = {n: session.predict(x) for n, x in requests.items()}
+    counts = {n: c - before[n] for n, c in launch_counts().items() if c - before[n]}
+    batches = sum(math.ceil(n / BUCKETS[-1]) for n in REQUESTS)
+    check(all(bool(np.isfinite(v).all()) for v in logits.values()),
+          f"swin serving: {len(requests)} requests, finite logits")
+    if device == "cuda":
+        _serving_graphs(session, {"flash_attention_fwd": blocks},
+                        counts.get("flash_attention_fwd", 0), batches, "swin serving", blocks)
+    with bench_torch.eager_on_card():
+        _, (model_e, _, _) = _swin(SWIN_YAML, NUM_CLASSES, "bfloat16", device)
+        model_e.load_state_dict(state)
+        eager = ServingSession(model_e, None, IMAGE, buckets=BUCKETS, device=device)
+        same = [n for n, x in requests.items() if np.array_equal(eager.predict(x), logits[n])]
+    check(len(same) == len(requests),
+          f"swin serving: captured buckets == eager bit for bit on {len(same)} of "
+          f"{len(requests)} requests")
+    del eager, model_e
+    got = logits[CHECKED_REQUEST]
+    rel = _rel(got, cpu_logits)
+    top, top_cpu = got.argmax(1), cpu_logits.argmax(1)
+    check(bool((top == top_cpu).all()) and rel <= TOL_SWIN_BF16_LOGITS_REL,
+          f"swin serving: bf16 card top-1 {top.tolist()} == fp32 CPU {top_cpu.tolist()}; max "
+          f"|logit diff| / max |logit| {rel:.4e} <= {TOL_SWIN_BF16_LOGITS_REL:g}")
+    _, (m32, _, _) = _swin(SWIN_YAML, NUM_CLASSES, "float32", device)
+    m32.load_state_dict(state)
+    card32 = make_infer_fn(m32, None)(torch.from_numpy(checked).to(device)).cpu().numpy()
+    rel32 = _rel(card32, cpu_logits)
+    check(rel32 <= TOL_SWIN_F32_LOGITS_REL and bool((card32.argmax(1) == top_cpu).all()),
+          f"swin serving: fp32 card vs fp32 CPU max |logit diff| / max |logit| {rel32:.4e} <= "
+          f"{TOL_SWIN_F32_LOGITS_REL:g}, top-1 equal")
+    del m32
+    latency = _serving_latency(session, "swin-t bf16", rng, smi) if device == "cuda" else {}
+    return {"bf16_rel": rel, "f32_rel": rel32, "latency_ms": latency, "launches": counts}
+
+
+def swin_fullshot_check(smi: str, device: str) -> dict:
+    """``train_main`` on swin_tiny.yaml's Swin-T (the full fine-tune, B =
+    64, 224 px, bf16; see ``SWIN_FULLSHOT``): every step and eval batch one
+    replay, K1, K2, K3 and K7 each once a block a step replay (``launch_rule``:
+    12), K1 12 an eval replay; finite losses; the first step captured ==
+    eager bit for bit, its attention operands against K1-K3's plain versions
+    and its update with K1-K3 and K7 against the float64 backward
+    (``hold_first_step``); a run stopped after its first mid-epoch
+    checkpoint and resumed == the uninterrupted run bit for bit; the step's
+    time, busy time and idle share."""
+    import itertools
+    import shutil
+
+    from peft_vit_tpu_torch.engine.trainer import Trainer, _skip_batches, batch_iterator
+    from peft_vit_tpu_torch.peft import build_mask
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    over = {**SWIN_FULLSHOT, **SWIN_MODEL, "OUTPUT_DIR": SWIN_DIR}
+    cfg = driver_cfg(over, SWIN_YAML)
+    run = fullshot_drive("swin", cfg, smi, device, sync, out_dir=SWIN_DIR)
+    tr, splits = run["trainer"], run["splits"]
+    spe = tr.steps_per_epoch
+    steps = spe * int(cfg.TRAIN.END_EPOCH)
+    n_eval = -(-len(splits.y_test) // int(cfg.TEST.BATCH_SIZE_PER_GPU))
+    final = {"trainable": {k: v.detach().clone() for k, v in tr.state.trainable.items()},
+             "opt": {k: v.clone() for k, v in tr.state.opt_state.items()}}
+    check(bool(tr.state.finite) and all(math.isfinite(e["loss"]) for e in run["epochs"]),
+          f"swin full-shot: {steps} steps at B={SWIN_BATCH}, finite losses "
+          + " ".join(f"{e['loss']:.4f}" for e in run["epochs"]) + f", best top-1 {run['best']:.2f}")
+    blocks = sum(tr.model.backbone.depths)
+    rule = launch_rule(tr.model, tr.state.trainable)
+    check(rule == dict.fromkeys(rule, blocks),
+          f"swin full-shot: launch_rule gives K1, K2, K3 and K7 {blocks} each a step: {rule}")
+    _hold_graphs("swin full-shot", tr, run["counts"], rule,
+                 {"flash_attention_fwd": blocks}, steps, int(cfg.TRAIN.END_EPOCH) * n_eval)
+    kernel_err = hold_first_step("swin full-shot", tr, run["first"], on_card)
+    # a run stopped after its first mid-epoch checkpoint, and one resumed from it
+    mask = build_mask(tr.model, "full", num_layers=12)
+    resume_dir = f"{SWIN_DIR}/resume"
+    rcfg = driver_cfg({**over, "TRAIN.CHECKPOINT_EVERY_STEPS": 1, "TRAIN.AUTO_RESUME": True},
+                      SWIN_YAML)
+
+    def epoch_batches(e):
+        return batch_iterator(splits.x_train, splits.y_train, SWIN_BATCH,
+                              shuffle=bool(cfg.TRAIN.SHUFFLE), seed=e)
+
+    first = run["first"]["before"]
+
+    def fresh():
+        t = Trainer(rcfg, tr.model, mask, spe)
+        for k, v in t.state.trainable.items():  # the run's initial weights
+            v.copy_(first["trainable"][k])
+        return t
+
+    stopped = fresh()
+    stopped.train_one_epoch(itertools.islice(epoch_batches(0), 1), 0, checkpoint_dir=resume_dir)
+    del stopped
+    resumed = fresh()
+    epoch0 = resumed.maybe_resume(resume_dir)
+    at = resumed.resume_batch_in_epoch
+    for e in range(epoch0, int(cfg.TRAIN.END_EPOCH)):
+        sb = at if e == epoch0 else 0
+        resumed.train_one_epoch(_skip_batches(epoch_batches(e), sb), e, start_batch=sb)
+    differ = _state_differ(resumed, final)
+    check((epoch0, at) == (0, 1) and not differ,
+          f"swin full-shot: resumed at epoch {epoch0} batch {at} from the first mid-epoch "
+          f"checkpoint == the uninterrupted run bit for bit after {steps} steps "
+          f"({sum(len(v) for v in final.values())} state tensors)"
+          + (f"; differ: {differ[:4]}" if differ else ""))
+    del resumed
+    shutil.rmtree(SWIN_DIR, ignore_errors=True)
+    row = {"steps": steps, "launches": run["counts"], "best": run["best"],
+           "per_replay": dict(_graphs_of(tr, "train")[0].launches), "wall_s": run["wall_s"],
+           "peak_gib": run["peak_gib"], "kernel_err": kernel_err}
+    if on_card:
+        graph = _graphs_of(tr, "train")[0]
+        step_ms = _replay_ms(graph, 5)
+        busy, n_launches, top = _device_breakdown(graph.graph.replay, reps=3)
+        row.update(step_ms=step_ms, images_per_s=1e3 * SWIN_BATCH / step_ms, busy_ms=busy,
+                   device_launches=n_launches,
+                   idle_share=None if busy is None else max(0.0, 1.0 - busy / step_ms),
+                   bound_ms=SWIN_BATCH * SWIN_FLOPS_PER_IMAGE / BF16_FLOPS_PER_S * 1e3)
+        print(f"swin full-shot step B={SWIN_BATCH} (bf16, the full fine-tune, K1-K3 and K7 at "
+              f"D = 32): captured {step_ms:.3f} ms ({row['images_per_s']:.1f} images/s), "
+              "device busy " + ("not measured" if busy is None else
+                                f"{busy:.3f} ms in {n_launches:.0f} launches a replay (idle share "
+                                f"{row['idle_share']:.3f})")
+              + f"; FLOP bound {row['bound_ms']:.3f} ms at the bf16 peak; train_main "
+              f"{run['wall_s']:.2f} s, peak {run['peak_gib']:.2f} GiB; top: "
+              + "; ".join(f"{n} {t:.3f} ms" for n, t in top) + f"; {smi}", flush=True)
+    del run, tr, final
+    gc_collect(on_card)
+    return row
+
+
+def swin_zeroshot_check(smi: str, device: str) -> dict:
+    """``zeroshot_main`` on clip_swin_tiny.yaml at 224 px in bf16, the towers
+    from numpy seeds: finite score; K1 12 times a text forward (the causal
+    bias, D = 64) and 12 times a Swin image batch (D = 32), nothing else."""
+    from peft_vit_tpu_torch.commands import zeroshot_eval
+    from peft_vit_tpu_torch.data.prompts import class_map, register_prompts, template_map
+    from peft_vit_tpu_torch.models import params_to_jax
+    from peft_vit_tpu_torch.ops import attention as attn
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rng = np.random.RandomState(SEED + 71)
+    register_prompts("synthetic", class_map(ZS_DATASET)[:ZS_CLASSES], template_map(ZS_DATASET))
+    text = text_tree(rng)
+    cfg = driver_cfg({"TRAIN.IMAGE_SIZE": [IMAGE, IMAGE], **SWIN_MODEL, **ZS,
+                      "TPU.COMPUTE_DTYPE": "bfloat16"}, CLIP_SWIN_YAML)
+    w = text["params"]["text_projection"].shape[0]
+    text["params"]["text_projection"] = (rng.standard_normal(
+        (w, int(cfg.MODEL.SPEC.EMBED_DIM))) / math.sqrt(w)).astype(np.float32)
+    _, (cpu_model, _, _) = _swin(CLIP_SWIN_YAML, ZS_CLASSES, "float32", "cpu",
+                                 **{"MODEL.SPEC.EMBED_DIM": int(cfg.MODEL.SPEC.EMBED_DIM)})
+    blocks = sum(cpu_model.backbone.depths)
+    variables = params_to_jax(rn_numpy_state(cpu_model, np.random.RandomState(SEED + 72)))
+    del cpu_model
+    _zero_attention_counts(attn)  # counts from 0 just before the main path, read just after
+    t0 = time.perf_counter()
+    score = zeroshot_eval.zeroshot_main(cfg, device=device, variables=variables,
+                                        text_variables=text)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = {k: n for k, n in _attention_counts(attn).items() if n}
+    k1 = counts.get("flash_attention_fwd", 0)
+    image_k1 = k1 - TEXT_LAYERS * ZS_CLASSES
+    ok = (list(counts) == ["flash_attention_fwd"] and image_k1 > 0 and image_k1 % blocks == 0
+          if device == "cuda" else counts == {})
+    check(math.isfinite(score) and ok,
+          f"swin zeroshot_main bf16: score {score:.3f}, {ZS_CLASSES} classes; launched {counts}: "
+          f"K1 {TEXT_LAYERS} a text forward (causal bias) x {ZS_CLASSES} classes + {blocks} a "
+          f"Swin image batch x {image_k1 // blocks}; {wall:.2f} s (host clock; {smi})")
+    return {"launches": k1, "wall_s": wall, "score": score}
+
+
+def swin_round_check(smi: str, device: str, method: str) -> dict:
+    """A captured round of 3 cells of ``method`` (lora or rpb) on CLIP Swin-T
+    (clip_swin_tiny.yaml, bf16, B = 16, 224 px, the channel-BN head; rpb's
+    tables per cell, so each block's bias is (3, nW h, 49, 49)): one step
+    equal to it eager bit for bit; K1-K3 and K7 a replay from
+    ``launch_rule``; each cell against the same cell trained alone (momentum
+    cosine per leaf >= TOL_ROUND_BF16_COS)."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import (ce_per_example, init_cell_state, make_apply_fn,
+                                           make_epoch_fn, step_decay_lr)
+    from peft_vit_tpu_torch.models import cast_frozen_
+    from peft_vit_tpu_torch.ops import launch_counts
+    from peft_vit_tpu_torch.peft import build_mask, split_params
+
+    _, (model, _, _) = _swin(CLIP_SWIN_YAML, NUM_CLASSES, "bfloat16", device, use_bn=True,
+                             **{"PEFT.METHOD": method})
+    model.load_state_dict(rn_numpy_state(model, np.random.RandomState(SEED + 73)))
+    mask = build_mask(model, method)
+    trainable, _ = split_params(model, mask)
+    cast_frozen_(model)
+    apply_fn = make_apply_fn(model)
+    bn = {k: v for k, v in model.named_buffers() if k.endswith(("bn_mean", "bn_var"))}
+    k = len(ROUND_LRS)
+    rng = np.random.RandomState(SEED + 74)
+    x = torch.as_tensor(rng.standard_normal((TRAIN_BATCH, IMAGE, IMAGE, 3)).astype(np.float32),
+                        device=device)
+    y = torch.as_tensor(rng.randint(0, NUM_CLASSES, TRAIN_BATCH), device=device)
+    valid = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=device)
+    perm, lrs, wds = np.arange(TRAIN_BATCH), step_decay_lr(ROUND_LRS, 0, ()), torch.tensor(
+        ROUND_WDS)
+    # each cell's leaves: the built ones plus N(0, 0.02^2), so that no LoRA B is zero
+    draws = [{n: v.detach() + 0.02 * torch.from_numpy(rng.standard_normal(
+        tuple(v.shape)).astype(np.float32)).to(v.device) for n, v in trainable.items()}
+        for _ in range(k)]
+    state = init_cell_state({n: torch.stack([d[n] for d in draws]) for n in draws[0]},
+                            {n: v.expand(k, *v.shape) for n, v in bn.items()})
+    graphs = {}
+    epoch = make_epoch_fn(apply_fn, ce_per_example, TRAIN_BATCH, has_bn=True, cells=True,
+                          graphs=graphs)
+    before = launch_counts()
+    captured, loss = epoch(state, {}, x, y, valid, perm, lrs, wds)
+    counts = {n: c - before[n] for n, c in launch_counts().items() if c - before[n]}
+    with bench_torch.eager_on_card():
+        eager, eager_loss = epoch(state, {}, x, y, valid, perm, lrs, wds)
+    parts = ("trainable", "momentum", "bn")
+    differ = [f"{part}.{n}" for part in parts for n, v in getattr(eager, part).items()
+              if not torch.equal(v, getattr(captured, part)[n])]
+    check(not differ and torch.equal(loss, eager_loss) and bool(loss.isfinite().all()),
+          f"clip swin {method}: a round of {k} cells, one step at B={TRAIN_BATCH}, captured == "
+          f"eager bit for bit ({len(draws[0])} trainable leaves, their momentum, the head's BN; "
+          "losses " + " ".join(f"{float(v):.4f}" for v in loss) + ")"
+          + (f"; differ: {differ[:4]}" if differ else ""))
+    graph = graphs.get(("step", k, TRAIN_BATCH))
+    want = launch_rule(model, trainable, k)
+    if device == "cuda":
+        _per_replay(graph, want, f"clip swin {method}: one step of a round of {k}")
+    one = make_epoch_fn(apply_fn, ce_per_example, TRAIN_BATCH, has_bn=True)
+    cos = {}
+    with bench_torch.eager_on_card():
+        for c in range(k):
+            alone = one(init_cell_state(draws[c], bn), {}, x, y, valid, perm, lrs[c], wds[c])[0]
+            for n, v in alone.momentum.items():
+                if n.startswith("classifier."):
+                    continue  # the head's gradient is the channel BN's, held by the tower's
+                cos[(c, n)] = torch.nn.functional.cosine_similarity(
+                    v.double().flatten(), captured.momentum[n][c].double().flatten(), dim=0).item()
+    least = min(cos, key=cos.get)
+    check(cos[least] >= TOL_ROUND_BF16_COS,
+          f"clip swin {method} bf16: each of {k} cells against the cell trained alone, "
+          f"momentum cosine per tower leaf: least {cos[least]:.6f} (cell {least[0]}, "
+          f"{least[1]}) >= {TOL_ROUND_BF16_COS:g}, median {statistics.median(cos.values()):.6f}")
+    row = {"round_ms": None, "launches": counts, "per_replay": want, "least_cos": cos[least]}
+    if device == "cuda" and graph is not None:
+        row["round_ms"] = _replay_ms(graph, 5)
+        print(f"clip swin {method} round of {k} at B={TRAIN_BATCH}: captured "
+              f"{row['round_ms']:.3f} ms a step ({k * TRAIN_BATCH / row['round_ms'] * 1e3:.1f} "
+              f"cell-images/s); launches a replay {want}; {smi}", flush=True)
+    del graphs, graph, epoch, model, captured, eager
+    gc_collect(device == "cuda")
+    return row
+
+
+def ssl_swin_check(smi: str, device: str) -> dict:
+    """An SSL-Swin built by ``build_ssl_swin`` from swin_tiny.yaml's tower
+    with ``USE_APE`` and ``DROP_PATH_RATE`` 0.2, in fp32 at 224 px, weights
+    from a numpy seed: the linear-eval features of the last 4 blocks
+    (``extract_n_last_blocks``) on the card against the CPU
+    (``TOL_SWIN_F32_LOGITS_REL``), K1 12 times; ``multi_crop_forward`` over
+    three crops equal to one forward of them; the student's train-mode
+    forward drawing its drop path from a generator on the card (finite, and
+    not the eval forward); the teacher without drop path."""
+    from peft_vit_tpu_torch.models.ssl_swin import (build_ssl_swin, extract_n_last_blocks,
+                                                    multi_crop_forward)
+    from peft_vit_tpu_torch.ops import launch_counts
+
+    cfg = driver_cfg({"TRAIN.IMAGE_SIZE": [IMAGE, IMAGE], **SWIN_MODEL,
+                      "MODEL.SPEC.VISION.USE_APE": True,
+                      "MODEL.SPEC.VISION.DROP_PATH_RATE": 0.2,
+                      "TPU.COMPUTE_DTYPE": "float32"}, SWIN_YAML)
+    rng = np.random.RandomState(SEED + 76)
+    x = rng.standard_normal((3, IMAGE, IMAGE, 3)).astype(np.float32)
+    feats, state = {}, None
+    for dev in ("cpu", device):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            student = build_ssl_swin(cfg, device=dev)
+        if state is None:
+            state = rn_numpy_state(student, rng)
+        student.load_state_dict(state)
+        before = launch_counts()
+        feats[dev] = extract_n_last_blocks(student, torch.from_numpy(x).to(dev), 4)
+        counts = {n: c - before[n] for n, c in launch_counts().items() if c - before[n]}
+    blocks = sum(student.depths)
+    rel = _rel(feats[device].cpu().numpy(), feats["cpu"].numpy())
+    want = {"flash_attention_fwd": blocks} if device == "cuda" else {}
+    check(rel <= TOL_SWIN_F32_LOGITS_REL and counts == want
+          and bool(torch.isfinite(feats[device]).all()),
+          f"ssl swin fp32: the last 4 blocks' features {tuple(feats[device].shape)}, card vs "
+          f"CPU max |diff| / max |ref| {rel:.4e} <= {TOL_SWIN_F32_LOGITS_REL:g}; launched "
+          f"{counts} == {want}")
+    xt = torch.from_numpy(x).to(device)
+    student.eval()
+    with torch.no_grad():
+        whole = student(xt)
+        crops = multi_crop_forward(student, [xt[:1], xt[1:2], xt[2:]])
+        gen = torch.Generator(device=xt.device).manual_seed(SEED)
+        dropped = student.train()(xt, generator=gen)
+    teacher = build_ssl_swin(cfg, is_teacher=True, device=device)
+    check(torch.equal(crops, whole) and bool(torch.isfinite(dropped).all())
+          and not torch.equal(dropped, whole) and student.drop_path_rate == 0.2
+          and teacher.drop_path_rate == 0.0,
+          "ssl swin: multi_crop_forward over 3 crops == one forward of them; the student's "
+          "train-mode forward with drop path 0.2 from a generator on the device: finite, not "
+          "the eval forward; the teacher without drop path")
+    del student, teacher
+    return {"f32_rel": rel, "launches": counts}
+
+
+def convvit_check(smi: str, device: str) -> dict:
+    """ConvViT (``HAS_CONV``, ``RES_SCORE``, ``ADD_CLS``) and CSwin (LePE,
+    ``RES_SCORE``) at a tiny size in fp32: the card's logits against the
+    CPU's (``TOL_SWIN_F32_LOGITS_REL``); one captured few-shot step (the
+    mixer's BN in train mode, its statistics carried) equal to it eager bit
+    for bit; K1-K7 launched 0 times."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import (ce_per_example, init_cell_state, make_apply_fn,
+                                           make_epoch_fn, make_infer_fn)
+    from peft_vit_tpu_torch.models import build_image_classifier, cast_frozen_
+    from peft_vit_tpu_torch.ops import launch_counts
+    from peft_vit_tpu_torch.peft import build_mask, spec_from_config, split_params
+
+    out = {}
+    for name, over in CONVVIT_TINY.items():
+        rng = np.random.RandomState(SEED + 75)
+        cfg = driver_cfg({**CONVVIT_SIZE, **over}, None)
+        x = rng.standard_normal((8, 32, 32, 3)).astype(np.float32)
+        y = rng.randint(0, 4, 8)
+        state = None
+        logits = {}
+        for dev in ("cpu", device):
+            model = build_image_classifier(cfg, spec_from_config(cfg), 4, use_bn=True,
+                                           device=dev)[0]
+            if state is None:
+                state = rn_numpy_state(model, rng)
+            model.load_state_dict(state)
+            logits[dev] = make_infer_fn(model, None)(torch.from_numpy(x).to(dev)).cpu().numpy()
+        rel = _rel(logits[device], logits["cpu"])
+        mask = build_mask(model, "full", num_layers=2)
+        trainable, _ = split_params(model, mask)
+        cast_frozen_(model)
+        bn = {k: v for k, v in model.named_buffers() if k.endswith(("bn_mean", "bn_var"))}
+        start = init_cell_state({k: v.detach().clone() for k, v in trainable.items()}, bn)
+        graphs = {}
+        epoch = make_epoch_fn(make_apply_fn(model), ce_per_example, 8, has_bn=True,
+                              graphs=graphs)
+        xt, yt = torch.from_numpy(x).to(device), torch.as_tensor(y, device=device)
+        valid = torch.ones(8, dtype=torch.bool, device=device)
+        before = launch_counts()
+        captured, loss = epoch(start, {}, xt, yt, valid, np.arange(8), 1e-3, 1e-4)
+        counts = {n: c - before[n] for n, c in launch_counts().items() if c - before[n]}
+        with bench_torch.eager_on_card():
+            eager, eager_loss = epoch(start, {}, xt, yt, valid, np.arange(8), 1e-3, 1e-4)
+        differ = [f"{part}.{n}" for part in ("trainable", "momentum", "bn")
+                  for n, v in getattr(eager, part).items()
+                  if not torch.equal(v, getattr(captured, part)[n])]
+        n_stats = sum(1 for k in bn if "conv.bn" in k)
+        check(rel <= TOL_SWIN_F32_LOGITS_REL and not differ and torch.equal(loss, eager_loss)
+              and counts == {} and bool(torch.isfinite(loss).all()),
+              f"{name} fp32: card vs CPU max |logit diff| / max |logit| {rel:.4e} <= "
+              f"{TOL_SWIN_F32_LOGITS_REL:g}; a captured step == eager bit for bit ({len(trainable)} "
+              f"leaves, {n_stats} mixer BN statistics); K1-K7 launched {counts} (none: its "
+              "attention is plain PyTorch)" + (f"; differ: {differ[:4]}" if differ else ""))
+        out[name] = {"f32_rel": rel, "launches": counts}
+        del model, graphs, epoch
+    return out
+
+
+def convvit_signatures() -> list:
+    """ConvViT's and CSwin's convolutions at ``CONVVIT_PROBE`` (B = 64, bf16):
+    the mixer's depthwise 3x3 dw, LePE's depthwise get_v."""
+    from peft_vit_tpu_torch.models.vit_conv import ConvViT
+
+    x = torch.randn(RN_BATCH, CONVVIT_PROBE["image_size"], CONVVIT_PROBE["image_size"], 3,
+                    device="cuda")
+    sigs = []
+    for kw in (dict(has_conv=True), dict(lepe=True)):
+        tower = ConvViT(**CONVVIT_PROBE, **kw, dtype=torch.bfloat16, device="cuda")
+        sigs += [s for s in conv_signatures(tower, x) if s not in sigs]
+        del tower
+    return sigs
+
+
+def swin_phase(smi: str, device: str = "cuda") -> dict:
+    """Phase 16 (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {}
+    if device == "cuda":
+        out["kernels"] = swin_kernel_phase()
+    out["serving"] = swin_serving_check(smi, device)
+    gc_collect(device == "cuda")
+    out["fullshot"] = swin_fullshot_check(smi, device)
+    out["zeroshot"] = swin_zeroshot_check(smi, device)
+    gc_collect(device == "cuda")
+    for method in ("lora", "rpb"):
+        out[method] = swin_round_check(smi, device, method)
+    out["tiny"] = tiny_driver_check(device, SWIN_TINY_DRIVER, SWIN_TINY_LRS,
+                                    "swin tiny fp32 finetune_main (lora)")
+    out["ssl"] = ssl_swin_check(smi, device)
+    out["convvit"] = convvit_check(smi, device)
+    # the phase's launches per wrapper: its main paths' counts
+    launches = dict(out["fullshot"]["launches"])
+    for part in ("serving", "lora", "rpb"):
+        for n, c in out[part].get("launches", {}).items():
+            launches[n] = launches.get(n, 0) + c
+    launches["flash_attention_fwd"] = launches.get("flash_attention_fwd", 0) + out[
+        "zeroshot"]["launches"]
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"swin phase: {out['seconds']:.1f} s (host clock; {smi})", flush=True)
+    return out
+
+
 def gc_collect(on_card: bool) -> None:
     import gc
 
@@ -5995,6 +6737,7 @@ def main() -> int:
     fs = fullshot_phase(smi)
     ss = streaming_phase(smi)
     rn = resnet_phase(smi)
+    sw = swin_phase(smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
@@ -6155,6 +6898,27 @@ def main() -> int:
                "fused_short_attn_bwd": "fused_short_attention_bwd"}
     for line in lines:
         line["launches_resnet"] = rn["launches"].get(wrapper.get(line["name"], line["name"]), 0)
+        # the Swin family's paths (phase 16): K1-K3 and K7 at head dim 32 in
+        # the Swin tower (serving, the full-shot step, the rounds), K1 at 64
+        # in the CLIP Swin text tower
+        line["launches_swin"] = sw["launches"].get(wrapper.get(line["name"], line["name"]), 0)
+    # the D = 32 instantiations at Swin-T's stage-0 and stage-2 folds, B = 64
+    # (swin_kernel_timing), and the full-shot step's launches a replay
+    d32 = {"flash_attn_fwd": "fwd", "flash_attn_bwd_dq": "dq", "flash_attn_bwd_dkv": "dkv",
+           "attn_bias_grad": "k7"}
+    kswin = sw["kernels"]
+    for line in lines:
+        key = d32.get(line["name"])
+        if key is None:
+            continue
+        line["d32"] = {
+            "max_abs_err": kswin["max_abs_err"][{"fwd": "fwd", "dq": "dq", "dkv": "dk",
+                                                 "k7": "dbias"}[key]],
+            "launches_per_swin_step": sw["fullshot"]["per_replay"].get(
+                wrapper[line["name"]], 0),
+            **{f"stage{st}": {k: v for k, v in kswin[st][key].items()
+                              if k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+               for st in SWIN_TIMED_STAGES}}
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

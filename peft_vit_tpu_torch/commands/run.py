@@ -85,7 +85,8 @@ def _fresh_leaf(name: str, shape, generator: torch.Generator) -> torch.Tensor:
 
     * biases, Compacter's ``b``, KAdaptation's ``phmb``, RPB's
       ``relative_position_bias_table`` and LoRA's ``*_adapter2``: zeros; a
-      LayerNorm scale (a rank-1 ``weight``): ones;
+      LayerNorm scale (a rank-1 ``weight``): ones; a Swin block's
+      ``relative_position_bias_table``: N(0, 0.02^2);
     * LoRA's ``*_adapter1`` and the MoE gates ``*_moe_adapter1``, the
       adapters' ``down`` and ``up``, the prompts: N(0, 0.02^2);
     * KAdaptation's ``phm_rule``, ``W_left*`` and ``W_right*``, Compacter's
@@ -112,6 +113,8 @@ def _fresh_leaf(name: str, shape, generator: torch.Generator) -> torch.Tensor:
 
     if leaf == "logit_scale":  # the contrastive classifier's fresh scale
         return t.fill_(1.0)
+    if leaf == "relative_position_bias_table" and ".stage" in name:
+        return torch.nn.init.normal_(t, std=0.02, generator=generator)  # a Swin window table
     if leaf in ("bias", "b", "phmb", "relative_position_bias_table") or last.endswith(
             "_adapter2"):
         return t
@@ -200,8 +203,9 @@ def finetune_main(
         logger.info("=> head initialized from text encoder")
 
     # the tower's depth, the probe's extra block not counted (the JAX driver's
-    # model.backbone.layers): transformer_probe's mask is blocks_<num_layers>
-    num_layers = model.backbone.layers
+    # model.backbone.layers, 12 for a tower without one, as Swin):
+    # transformer_probe's mask is blocks_<num_layers>
+    num_layers = getattr(model.backbone, "layers", 12)
     mask = build_mask(
         model,
         spec.method if spec.method != "none" else "linear",

@@ -34,7 +34,10 @@
 //
 // fp32: 32 x 32 tiles, eight threads a q row, fp32 FMAs from shared memory;
 // not on the main path (fp32 training on the card, held against the CPU).
-// D = 64 only.
+// D = 64 and D = 32 (Swin's heads), each a template instantiation of both
+// kernels; any other D is refused.  At Swin's N = 49 a block owns the whole
+// (49, 49) plane of its (cell, head) and walks the cell's batch elements (a
+// Swin block folds its windows into the heads, so the batch is the images).
 
 #include "flash_common.cuh"
 
@@ -46,16 +49,18 @@ constexpr float kInf = __builtin_huge_valf();
 
 // bf16: 4 warps; warp w owns tile rows 16 w + g and 16 w + g + 8 (g = lane
 // / 4) over all 64 keys, as eight m16n8 accumulators.
+template <int kD>
 __global__ void __launch_bounds__(kThreadsBf16)
 bias_grad_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                       const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
                       const uint16_t* __restrict__ o, const float* __restrict__ lse,
                       const float* __restrict__ delta, const float* __restrict__ bias,
                       float* __restrict__ dbias, int H, int N, int bias_batch, float scale) {
-  __shared__ __align__(16) uint16_t sQ[kBlockQ * kLds];
-  __shared__ __align__(16) uint16_t sDo[kBlockQ * kLds];
-  __shared__ __align__(16) uint16_t sK[kBlockK * kLds];
-  __shared__ __align__(16) uint16_t sV[kBlockK * kLds];
+  constexpr int kS = kLds<kD>;
+  __shared__ __align__(16) uint16_t sQ[kBlockQ * kS];
+  __shared__ __align__(16) uint16_t sDo[kBlockQ * kS];
+  __shared__ __align__(16) uint16_t sK[kBlockK * kS];
+  __shared__ __align__(16) uint16_t sV[kBlockK * kS];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -90,10 +95,10 @@ bias_grad_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict
     const size_t bh = static_cast<size_t>(cell * bias_batch + i) * H + h;
     const size_t base = bh * static_cast<size_t>(N) * kD;
     __syncthreads();  // the previous element's tiles are consumed
-    load_tile_bf16(sQ, q + base, q0, N, tid);
-    load_tile_bf16(sDo, dout + base, q0, N, tid);
-    load_tile_bf16(sK, k + base, k0, N, tid);
-    load_tile_bf16(sV, v + base, k0, N, tid);
+    load_tile_bf16<kD>(sQ, q + base, q0, N, tid);
+    load_tile_bf16<kD>(sDo, dout + base, q0, N, tid);
+    load_tile_bf16<kD>(sK, k + base, k0, N, tid);
+    load_tile_bf16<kD>(sV, v + base, k0, N, tid);
     __syncthreads();
 
     // rows >= N: lse = +inf, so p = 0 there
@@ -105,13 +110,13 @@ bias_grad_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict
       if (delta != nullptr) {
         row_delta[r] = in ? delta[bh * N + row[r]] : 0.f;
       } else {
-        // rowsum(dO o O): this thread's 16 dims of the row, then its quad's
+        // rowsum(dO o O): this thread's kD / 4 dims of the row, then its quad's
         float sum = 0.f;
         if (in) {
-          const uint16_t* drow = sDo + (r0 + 8 * r) * kLds + 16 * t;
-          const uint16_t* orow = o + base + static_cast<size_t>(row[r]) * kD + 16 * t;
+          const uint16_t* drow = sDo + (r0 + 8 * r) * kS + (kD / 4) * t;
+          const uint16_t* orow = o + base + static_cast<size_t>(row[r]) * kD + (kD / 4) * t;
 #pragma unroll
-          for (int d = 0; d < 16; d += 2) {
+          for (int d = 0; d < kD / 4; d += 2) {
             const float2 df = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + d));
             const float2 of = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + d));
             sum = fmaf(df.x, of.x, sum);
@@ -124,14 +129,14 @@ bias_grad_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict
     }
 
     uint32_t aq[kD / 16][4], ado[kD / 16][4];
-    load_a_frags(aq, sQ, r0, t);
-    load_a_frags(ado, sDo, r0, t);
+    load_a_frags<kD>(aq, sQ, r0, t);
+    load_a_frags<kD>(ado, sDo, r0, t);
 #pragma unroll
     for (int n = 0; n < kBlockK / 8; ++n) {
       float s[4] = {0.f, 0.f, 0.f, 0.f};
       float dp[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_rows_as_cols(s, aq, sK, 8 * n, g, t);
-      mma_rows_as_cols(dp, ado, sV, 8 * n, g, t);
+      mma_rows_as_cols<kD>(s, aq, sK, 8 * n, g, t);
+      mma_rows_as_cols<kD>(dp, ado, sV, 8 * n, g, t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
@@ -156,14 +161,15 @@ bias_grad_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict
 
 constexpr int kTileF32 = 32;
 constexpr int kThreadsF32 = 256;  // eight threads a q row
-constexpr int kLdsF32 = kD + 1;   // padded: a warp's key rows fall in distinct banks
 
+template <int kD>
 __global__ void __launch_bounds__(kThreadsF32)
 bias_grad_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ o, const float* __restrict__ lse,
                      const float* __restrict__ delta, const float* __restrict__ bias,
                      float* __restrict__ dbias, int H, int N, int bias_batch, float scale) {
+  constexpr int kLdsF32 = kD + 1;  // padded: a warp's key rows fall in distinct banks
   __shared__ float sQ[kTileF32 * kLdsF32];
   __shared__ float sDo[kTileF32 * kLdsF32];
   __shared__ float sK[kTileF32 * kLdsF32];
@@ -211,12 +217,15 @@ bias_grad_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
     if (delta == nullptr) {
-      // rowsum(dO o O): eight threads a row, eight dims each, then a shuffle
+      // rowsum(dO o O): eight threads a row, kD / 8 dims each, then a shuffle
       float sum = 0.f;
       if (q0 + i < N) {
         const float* orow = o + base + static_cast<size_t>(q0 + i) * kD;
+        constexpr int kPart = kD / 8;
 #pragma unroll
-        for (int d = 8 * part; d < 8 * part + 8; ++d) sum = fmaf(sDo[i * kLdsF32 + d], orow[d], sum);
+        for (int d = kPart * part; d < kPart * part + kPart; ++d) {
+          sum = fmaf(sDo[i * kLdsF32 + d], orow[d], sum);
+        }
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -247,29 +256,14 @@ bias_grad_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-}  // namespace
-
-// Launches on `stream` of `device` and returns cudaGetLastError() (0 = ok).
-// q, k, v, dout, o: (B, H, N, D) contiguous, 16-byte aligned, bf16 (is_bf16 =
-// 1) or fp32; o may be NULL when delta is given; lse, delta: (B, H, 1, N)
-// fp32, delta NULL to compute it from o; bias, dbias: (C, H, N, N) fp32 with
-// C = bias_cells dividing B.
-extern "C" int attn_bias_grad(int device, const void* q, const void* k, const void* v,
-                              const void* dout, const void* o, const void* lse, const void* delta,
-                              const void* bias, void* dbias, int B, int H, int N, int D,
-                              int bias_cells, float scale, int is_bf16, void* stream) {
-  if (D != kD || B <= 0 || H <= 0 || N <= 0 || bias_cells <= 0 || B % bias_cells != 0 ||
-      static_cast<size_t>(bias_cells) * H > 65535 || bias == nullptr ||
-      (delta == nullptr && o == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <int kD>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const void* o,
+                   const void* lse, const void* delta, const void* bias, void* dbias, int B,
+                   int H, int N, int bias_cells, float scale, int is_bf16, cudaStream_t s) {
   const int bias_batch = B / bias_cells;
   if (is_bf16) {
     const dim3 grid((N + kBlockK - 1) / kBlockK, (N + kBlockQ - 1) / kBlockQ, bias_cells * H);
-    bias_grad_bf16_kernel<<<grid, kThreadsBf16, 0, s>>>(
+    bias_grad_bf16_kernel<kD><<<grid, kThreadsBf16, 0, s>>>(
         static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
         static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
         static_cast<const uint16_t*>(o), static_cast<const float*>(lse),
@@ -278,14 +272,40 @@ extern "C" int attn_bias_grad(int device, const void* q, const void* k, const vo
   } else {
     const dim3 grid((N + kTileF32 - 1) / kTileF32, (N + kTileF32 - 1) / kTileF32,
                     bias_cells * H);
-    bias_grad_f32_kernel<<<grid, kThreadsF32, 0, s>>>(
+    bias_grad_f32_kernel<kD><<<grid, kThreadsF32, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout),
         static_cast<const float*>(o), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<const float*>(bias),
         static_cast<float*>(dbias), H, N, bias_batch, scale);
   }
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches on `stream` of `device` and returns cudaGetLastError() (0 = ok).
+// q, k, v, dout, o: (B, H, N, D) contiguous, 16-byte aligned, D 32 or 64,
+// bf16 (is_bf16 = 1) or fp32; o may be NULL when delta is given; lse, delta: (B, H, 1, N)
+// fp32, delta NULL to compute it from o; bias, dbias: (C, H, N, N) fp32 with
+// C = bias_cells dividing B.
+extern "C" int attn_bias_grad(int device, const void* q, const void* k, const void* v,
+                              const void* dout, const void* o, const void* lse, const void* delta,
+                              const void* bias, void* dbias, int B, int H, int N, int D,
+                              int bias_cells, float scale, int is_bf16, void* stream) {
+  if (!head_dim_ok(D) || B <= 0 || H <= 0 || N <= 0 || bias_cells <= 0 || B % bias_cells != 0 ||
+      static_cast<size_t>(bias_cells) * H > 65535 || bias == nullptr ||
+      (delta == nullptr && o == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      D == 32 ? launch<32>(q, k, v, dout, o, lse, delta, bias, dbias, B, H, N, bias_cells, scale,
+                           is_bf16, s)
+              : launch<64>(q, k, v, dout, o, lse, delta, bias, dbias, B, H, N, bias_cells, scale,
+                           is_bf16, s));
 }
 
 extern "C" const char* flash_attn_error_string(int err) {

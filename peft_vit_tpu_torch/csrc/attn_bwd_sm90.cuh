@@ -1,7 +1,7 @@
 // The bf16 attention backward for Hopper (sm_90a): K2 (dq, and delta) and
 // K3 (dk, dv) of flash_attn_bwd.cu, and K5, the fused short-sequence
 // backward of fused_short_attn.cu, which runs both in one launch.  For q, k,
-// v, o, dO (B, H, N, 64) bf16 and the forward's lse (B, H, 1, N) fp32:
+// v, o, dO (B, H, N, D) bf16 and the forward's lse (B, H, 1, N) fp32:
 //     delta = rowsum(dO o O)                     (K2 computes it and writes it)
 //     p  = exp(scale q k^T (+ bias) - lse)   ds = p o (dO v^T - delta)
 //     dq = scale ds k                  dk = scale ds^T q        dv = p^T dO
@@ -22,9 +22,12 @@
 // block fewer a SM (K2 three, K3 two) for the registers of the loaded tile.
 //
 // The machinery is the forward's (attn_fwd_sm90.cuh): every bf16 operand is
-// one 3-D tensor map over (64, N, B H) with the 128-byte swizzle, copied by
-// TMA in boxes of 64 rows behind mbarriers (rows at or beyond N fall outside
-// the map and arrive as zeros); products are wgmma with fp32 accumulators.
+// one 3-D tensor map over (D, N, B H) with the 128-byte swizzle at D = 64 and
+// the 64-byte one at D = 32, copied by TMA in boxes of 64 rows behind
+// mbarriers (rows at or beyond N fall outside the map and arrive as zeros);
+// products are wgmma with fp32 accumulators.  The head dim is the template
+// parameter kD (the last of each template): K2 and K3 are built at 32 and
+// 64, K5 at 64 only.
 // A block is one warpgroup and owns 64 rows (K2: q rows; K3: keys) of one
 // (batch, head); thread 0 issues every copy.  The loop runs over 64-row
 // chunks of the other side (K2: keys; K3: q rows) through a ring of two
@@ -88,13 +91,20 @@
 namespace sm90 {
 
 constexpr int kChunk = 64;                       // rows of a tile or a chunk
-constexpr int kTileBytes = kChunk * kRowBytes;   // 8 KB, a multiple of 1024
+// 8 KB at D = 64, 4 KB at 32: multiples of 1024
+template <int kD>
+constexpr int kTileBytes = kChunk * kRowBytes<kD>;
 constexpr int kBwdStages = 2;                       // chunks in the ring
 // dynamic shared memory: the block's own two tiles (K2: Q, dO; K3: K, V),
 // the ring's two a stage (K2: K, V; K3: Q, dO), and the alignment slack
-constexpr int kBwdSmemBytes = (2 + 2 * kBwdStages) * kTileBytes + 1024;
+template <int kD>
+constexpr int kBwdSmemBytes = (2 + 2 * kBwdStages) * kTileBytes<kD> + 1024;
 // K5: and the double buffer of the dk/dv role's O rows
-constexpr int kFusedBwdSmemBytes = kBwdSmemBytes + 2 * kTileBytes;
+template <int kD>
+constexpr int kFusedBwdSmemBytes = kBwdSmemBytes<kD> + 2 * kTileBytes<kD>;
+// 16-byte chunks of a row that one thread of a quad covers (delta, O rows)
+template <int kD>
+constexpr int kQuadChunks = kD / 32;
 
 // The kernel's three roles: K2, K3, and K5 (both, by blockIdx.z).
 constexpr int kRoleDq = 0;
@@ -102,7 +112,7 @@ constexpr int kRoleDkv = 1;
 constexpr int kRoleFused = 2;
 
 struct BwdArgs {
-  const uint16_t* o;   // K2, K5: (B, H, N, 64) bf16
+  const uint16_t* o;   // K2, K5: (B, H, N, D) bf16
   const float* lse;    // (B, H, 1, N)
   float* delta;        // K2 writes it, K3 reads it; K5 has none
   uint16_t* dq;        // K2, K5
@@ -136,13 +146,13 @@ struct BwdBars {
   uint64_t* empty;
 };
 
-// d = A B^T over the 64 d of a 64-row tile A and the first kCols rows of a
+// d = A B^T over the kD d of a 64-row tile A and the first kCols rows of a
 // tile B (both K-major), issued into the current commit group.
-template <int kCols>
+template <int kCols, int kD>
 __device__ __forceinline__ void ss_chunk(float (&d)[kCols / 2], const uint8_t* a_tile,
                                          const uint8_t* b_tile) {
-  const uint64_t da = sw128_desc(a_tile);
-  const uint64_t db = sw128_desc(b_tile);
+  const uint64_t da = swizzled_desc<kRowBytes<kD>>(a_tile);
+  const uint64_t db = swizzled_desc<kRowBytes<kD>>(b_tile);
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) wgmma_ss<kCols>(d, da + 2 * kk, db + 2 * kk, kk > 0);
 }
@@ -150,20 +160,22 @@ __device__ __forceinline__ void ss_chunk(float (&d)[kCols / 2], const uint8_t* a
 // d += A B over the first 16 kSteps rows of a tile: A the bf16 fragments of
 // kSteps k16 steps, B stored row-major (MN-major for this product), issued
 // into the current commit group.
-template <int kSteps>
-__device__ __forceinline__ void rs_chunk(float (&d)[32], const uint32_t (&a)[kSteps][4],
+template <int kSteps, int kD>
+__device__ __forceinline__ void rs_chunk(float (&d)[kD / 2], const uint32_t (&a)[kSteps][4],
                                          const uint8_t* b_tile) {
-  const uint64_t db = sw128_desc(b_tile);
+  const uint64_t db = swizzled_desc<kRowBytes<kD>>(b_tile);
 #pragma unroll
   for (int kk = 0; kk < kSteps; ++kk) {
-    wgmma_rs_n64_tb(d, a[kk], db + kk * (16 * kRowBytes >> 4), 1);
+    wgmma_rs_tb<kD>(d, a[kk], db + kk * (16 * kRowBytes<kD> >> 4), 1);
   }
 }
 
 // Thread 0's ring: chunk j into stage j % kBwdStages, both tiles behind one
 // barrier.  Refills the stage of chunk j - 1 with chunk j + kBwdStages - 1 once
 // the warpgroup has released it.
+template <int kD>
 struct Ring {
+  static constexpr int kTile = kTileBytes<kD>;
   uint64_t* full;
   uint64_t* empty;
   uint8_t* base;
@@ -172,12 +184,12 @@ struct Ring {
   int bh;
   int chunks;
 
-  __device__ uint8_t* a(int st) const { return base + st * 2 * kTileBytes; }
-  __device__ uint8_t* b(int st) const { return a(st) + kTileBytes; }
+  __device__ uint8_t* a(int st) const { return base + st * 2 * kTile; }
+  __device__ uint8_t* b(int st) const { return a(st) + kTile; }
 
   __device__ void load(int j) const {
     const int st = j % kBwdStages;
-    mbar_expect_tx(&full[st], 2 * kTileBytes);
+    mbar_expect_tx(&full[st], 2 * kTile);
     tma_load_rows(a(st), map_a, j * kChunk, bh, &full[st]);
     tma_load_rows(b(st), map_b, j * kChunk, bh, &full[st]);
   }
@@ -212,19 +224,22 @@ __device__ __forceinline__ void frags_of(uint32_t (&a)[(kCols + 15) / 16][4],
 }
 
 // delta of this thread's two rows r and r + 8 of a 64-row tile: the thread
-// sums dO o O over its quarter of each row (16-byte chunks 2 t and 2 t + 1;
-// dO from the swizzled tile, where row r's chunk c lies at chunk c ^ (r % 8)
-// of its 128 bytes, and r % 8 = g for both rows; orow[i][c] the same chunks
+// sums dO o O over its quarter of each row (the kQuadChunks 16-byte chunks
+// from kQuadChunks t: 2 t and 2 t + 1 at D = 64, t at 32; dO from the
+// swizzled tile, sm90_common.cuh::swizzled_chunk; orow[i][c] the same chunks
 // of O), and a quad shuffle completes the row.
+template <int kD>
 __device__ __forceinline__ void rows_delta(float (&delta)[2], const uint8_t* sDo,
-                                           const uint4 (&orow)[2][2], int r, int g, int t) {
+                                           const uint4 (&orow)[2][kQuadChunks<kD>], int r, int t) {
+  constexpr int kRow = kRowBytes<kD>;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < kQuadChunks<kD>; ++c) {
+      const int row = r + 8 * i;
       const uint4 dov = *reinterpret_cast<const uint4*>(
-          sDo + (r + 8 * i) * kRowBytes + (((2 * t + c) ^ g) * 16));
+          sDo + row * kRow + swizzled_chunk<kRow>(row, kQuadChunks<kD> * t + c) * 16);
       const uint32_t dw[4] = {dov.x, dov.y, dov.z, dov.w};
       const uint32_t ow[4] = {orow[i][c].x, orow[i][c].y, orow[i][c].z, orow[i][c].w};
 #pragma unroll
@@ -248,32 +263,37 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool val
 }
 
 // K5's dk/dv role: this thread's O chunks of q chunk j (those rows_delta
-// reads: rows r and r + 8, 16-byte chunks 2 t and 2 t + 1) into its own 64
-// bytes of the 8 KB buffer sO, thread-major so that a warp's copies are
-// contiguous; rows >= N are zeros.  Only this thread reads them back (after
-// cp.async.wait_group), so no barrier guards the buffer.
+// reads: rows r and r + 8, its kQuadChunks 16-byte chunks of each) into its
+// own bytes of the tile-sized buffer sO, thread-major so that a warp's copies
+// are contiguous; rows >= N are zeros.  Only this thread reads them back
+// (after cp.async.wait_group), so no barrier guards the buffer.
+template <int kD>
 __device__ __forceinline__ void prefetch_o_rows(uint8_t* sO, const uint16_t* o, size_t head,
                                                 int j, int r, int t, int tid, int N) {
+  constexpr int kQc = kQuadChunks<kD>;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = j * kChunk + r + 8 * i;
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < kQc; ++c) {
       const bool valid = row < N;
-      cp_async_16(sO + ((2 * i + c) * 128 + tid) * 16,
-                  o + (head + (valid ? row : 0)) * kD + (2 * t + c) * 8, valid);
+      cp_async_16(sO + ((kQc * i + c) * 128 + tid) * 16,
+                  o + (head + (valid ? row : 0)) * kD + (kQc * t + c) * 8, valid);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void load_o_rows(uint4 (&orow)[2][2], const uint8_t* sO, int tid) {
+template <int kD>
+__device__ __forceinline__ void load_o_rows(uint4 (&orow)[2][kQuadChunks<kD>], const uint8_t* sO,
+                                            int tid) {
+  constexpr int kQc = kQuadChunks<kD>;
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      orow[i][c] = *reinterpret_cast<const uint4*>(sO + ((2 * i + c) * 128 + tid) * 16);
+    for (int c = 0; c < kQc; ++c) {
+      orow[i][c] = *reinterpret_cast<const uint4*>(sO + ((kQc * i + c) * 128 + tid) * 16);
     }
   }
 }
@@ -297,17 +317,17 @@ struct DqChunk {
 // p = 0; kBias: the bias, loaded while S's product runs, added to the
 // exponent), dS = P o (dP - delta) in place (kFold: scale P o (dP - delta)),
 // then its bf16 fragments times the chunk's K rows.
-template <int kCols, bool kFold, bool kBias>
-__device__ __forceinline__ void dq_chunk(float (&acc)[32], const DqChunk& c,
+template <int kCols, bool kFold, bool kBias, int kD>
+__device__ __forceinline__ void dq_chunk(float (&acc)[kD / 2], const DqChunk& c,
                                          const float (&lse_l2)[2], const float (&delta)[2]) {
   constexpr int kSteps = (kCols + 15) / 16;
   float s[kCols / 2], dp[kCols / 2];
   fence_regs(s);
   fence_regs(dp);
   wgmma_fence();
-  ss_chunk<kCols>(s, c.q, c.k);
+  ss_chunk<kCols, kD>(s, c.q, c.k);
   wgmma_commit();
-  ss_chunk<kCols>(dp, c.dout, c.v);
+  ss_chunk<kCols, kD>(dp, c.dout, c.v);
   wgmma_commit();
   // log2e (bias - lse) of each element, or - log2e lse
   float off[kBias ? kCols / 2 : 1];
@@ -342,7 +362,7 @@ __device__ __forceinline__ void dq_chunk(float (&acc)[32], const DqChunk& c,
   frags_of<kCols>(frag, s);
   fence_regs(acc);
   wgmma_fence();
-  rs_chunk<kSteps>(acc, frag, c.k);
+  rs_chunk<kSteps, kD>(acc, frag, c.k);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc);
@@ -371,15 +391,16 @@ struct DkvChunk {
 // the chunk (rows >= N have lse = +inf, so p = 0).  Letting P^T and dv's
 // product run under dP^T's, as K2 does, made ptxas serialize the wgmma for
 // want of registers and spill (C7512), and K3 slower.
-template <int kCols, bool kFold, bool kBias>
-__device__ __forceinline__ void dkv_chunk(float (&dk)[32], float (&dv)[32], const DkvChunk& c) {
+template <int kCols, bool kFold, bool kBias, int kD>
+__device__ __forceinline__ void dkv_chunk(float (&dk)[kD / 2], float (&dv)[kD / 2],
+                                          const DkvChunk& c) {
   constexpr int kSteps = (kCols + 15) / 16;
   float s[kCols / 2], dp[kCols / 2];
   fence_regs(s);
   fence_regs(dp);
   wgmma_fence();
-  ss_chunk<kCols>(s, c.k, c.q);
-  ss_chunk<kCols>(dp, c.v, c.dout);
+  ss_chunk<kCols, kD>(s, c.k, c.q);
+  ss_chunk<kCols, kD>(dp, c.v, c.dout);
   wgmma_commit();
   // kBias: log2e bias[q row][key] of each element (rows: keys, columns: q
   // rows), loaded while the products run
@@ -414,8 +435,8 @@ __device__ __forceinline__ void dkv_chunk(float (&dk)[32], float (&dv)[32], cons
   fence_regs(dv);
   fence_regs(dk);
   wgmma_fence();
-  rs_chunk<kSteps>(dv, pfrag, c.dout);
-  rs_chunk<kSteps>(dk, dsfrag, c.q);
+  rs_chunk<kSteps, kD>(dv, pfrag, c.dout);
+  rs_chunk<kSteps, kD>(dk, dsfrag, c.q);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(dv);
@@ -438,9 +459,11 @@ __device__ __forceinline__ void init_bars(const BwdBars& bars, int tid) {
 
 // The dq role (K2; K5's dq blocks with kFused): this block owns the 64 q
 // rows from q0 of head bh and loops over the key chunks.
-template <bool kFused, bool kBias>
+template <bool kFused, bool kBias, int kD>
 __device__ __forceinline__ void dq_block(const BwdMaps& maps, const BwdArgs& args,
                                          const BwdBars& bars, uint8_t* smem, int q0, int bh) {
+  constexpr int kTile = kTileBytes<kD>;
+  constexpr int kQc = kQuadChunks<kD>;
   const int N = args.N;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -449,12 +472,12 @@ __device__ __forceinline__ void dq_block(const BwdMaps& maps, const BwdArgs& arg
   const int t = lane & 3;
   const int chunks = (N + kChunk - 1) / kChunk;
   uint8_t* sQ = smem;
-  uint8_t* sDo = sQ + kTileBytes;
-  const Ring ring{bars.full, bars.empty, smem + 2 * kTileBytes, maps.k, maps.v, bh, chunks};
+  uint8_t* sDo = sQ + kTile;
+  const Ring<kD> ring{bars.full, bars.empty, smem + 2 * kTile, maps.k, maps.v, bh, chunks};
 
   init_bars(bars, tid);
   if (tid == 0) {
-    mbar_expect_tx(bars.own, 2 * kTileBytes);
+    mbar_expect_tx(bars.own, 2 * kTile);
     tma_load_rows(sQ, maps.q, q0, bh, bars.own);
     tma_load_rows(sDo, maps.dout, q0, bh, bars.own);
     for (int j = 0; j < min(kBwdStages, chunks); ++j) ring.load(j);
@@ -467,13 +490,13 @@ __device__ __forceinline__ void dq_block(const BwdMaps& maps, const BwdArgs& arg
 
   // delta: O from device memory while the tiles are in flight, dO from the
   // tile.
-  uint4 orow[2][2];
+  uint4 orow[2][kQc];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < kQc; ++c) {
       orow[i][c] = row[i] < N ? *reinterpret_cast<const uint4*>(args.o + (head + row[i]) * kD +
-                                                                (2 * t + c) * 8)
+                                                                (kQc * t + c) * 8)
                               : make_uint4(0u, 0u, 0u, 0u);
     }
   }
@@ -490,7 +513,7 @@ __device__ __forceinline__ void dq_block(const BwdMaps& maps, const BwdArgs& arg
   }
   mbar_wait(bars.own, 0);
   float delta[2];
-  rows_delta(delta, sDo, orow, r, g, t);
+  rows_delta<kD>(delta, sDo, orow, r, t);
   if constexpr (!kFused) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -513,12 +536,12 @@ __device__ __forceinline__ void dq_block(const BwdMaps& maps, const BwdArgs& arg
     const DqChunk c{sQ,         sDo,        ring.a(st), ring.b(st),          j * kChunk, N,
                     scale_l2,   args.scale, t,          {brow[0], brow[1]}};
     if (j + 1 < chunks) {
-      dq_chunk<kChunk, kFused, kBias>(acc, c, lse_l2, delta);
+      dq_chunk<kChunk, kFused, kBias, kD>(acc, c, lse_l2, delta);
     } else {
       switch ((tail + 7) / 8) {
 #define SM90_DQ_TAIL(w) \
   case w:                \
-    dq_chunk<8 * (w), kFused, kBias>(acc, c, lse_l2, delta); \
+    dq_chunk<8 * (w), kFused, kBias, kD>(acc, c, lse_l2, delta); \
     break;
         SM90_DQ_TAIL(1) SM90_DQ_TAIL(2) SM90_DQ_TAIL(3) SM90_DQ_TAIL(4)
         SM90_DQ_TAIL(5) SM90_DQ_TAIL(6) SM90_DQ_TAIL(7) SM90_DQ_TAIL(8)
@@ -546,10 +569,11 @@ __device__ __forceinline__ void dq_block(const BwdMaps& maps, const BwdArgs& arg
 // chunk's delta themselves): this block owns the 64 keys from k0 of head bh
 // and loops over the q chunks.  s_lse and s_delta: double buffers of a
 // chunk's 64 log2e lse and delta.
-template <bool kFused, bool kBias>
+template <bool kFused, bool kBias, int kD>
 __device__ __forceinline__ void dkv_block(const BwdMaps& maps, const BwdArgs& args,
                                           const BwdBars& bars, uint8_t* smem, int k0, int bh,
                                           float (*s_lse)[kChunk], float (*s_delta)[kChunk]) {
+  constexpr int kTile = kTileBytes<kD>;
   const int N = args.N;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -558,14 +582,14 @@ __device__ __forceinline__ void dkv_block(const BwdMaps& maps, const BwdArgs& ar
   const int t = lane & 3;
   const int chunks = (N + kChunk - 1) / kChunk;
   uint8_t* sK = smem;
-  uint8_t* sV = sK + kTileBytes;
-  const Ring ring{bars.full, bars.empty, smem + 2 * kTileBytes, maps.q, maps.dout, bh, chunks};
+  uint8_t* sV = sK + kTile;
+  const Ring<kD> ring{bars.full, bars.empty, smem + 2 * kTile, maps.q, maps.dout, bh, chunks};
   // K5: the double buffer of this block's O rows, past the ring
-  uint8_t* sO = smem + (2 + 2 * kBwdStages) * kTileBytes;
+  uint8_t* sO = smem + (2 + 2 * kBwdStages) * kTile;
 
   init_bars(bars, tid);
   if (tid == 0) {
-    mbar_expect_tx(bars.own, 2 * kTileBytes);
+    mbar_expect_tx(bars.own, 2 * kTile);
     tma_load_rows(sK, maps.k, k0, bh, bars.own);
     tma_load_rows(sV, maps.v, k0, bh, bars.own);
     for (int j = 0; j < min(kBwdStages, chunks); ++j) ring.load(j);
@@ -573,7 +597,7 @@ __device__ __forceinline__ void dkv_block(const BwdMaps& maps, const BwdArgs& ar
 
   const size_t head = static_cast<size_t>(bh) * N;
   const int r = warp * 16 + g;  // this thread's rows r and r + 8 of a chunk (delta)
-  if constexpr (kFused) prefetch_o_rows(sO, args.o, head, 0, r, t, tid, N);
+  if constexpr (kFused) prefetch_o_rows<kD>(sO, args.o, head, 0, r, t, tid, N);
   const float kInf = __int_as_float(0x7f800000);
   // Thread tid stages lse (tid < 64) or (K3) delta of q row tid % 64 of each
   // chunk; rows >= N get lse = +inf, delta = 0.
@@ -606,10 +630,10 @@ __device__ __forceinline__ void dkv_block(const BwdMaps& maps, const BwdArgs& ar
     if constexpr (kFused) {
       // the chunk's delta from its dO tile in the ring and its O rows
       ring.wait(j);
-      uint4 orow[2][2];
-      load_o_rows(orow, sO + buf * kTileBytes, tid);
+      uint4 orow[2][kQuadChunks<kD>];
+      load_o_rows<kD>(orow, sO + buf * kTile, tid);
       float delta[2];
-      rows_delta(delta, ring.b(st), orow, r, g, t);
+      rows_delta<kD>(delta, ring.b(st), orow, r, t);
       if (t == 0) {
         s_delta[buf][r] = delta[0];
         s_delta[buf][r + 8] = delta[1];
@@ -621,20 +645,20 @@ __device__ __forceinline__ void dkv_block(const BwdMaps& maps, const BwdArgs& ar
     __syncthreads();
     if (j + 1 < chunks) {
       next = fetch(j + 1);
-      if constexpr (kFused) prefetch_o_rows(sO + (buf ^ 1) * kTileBytes, args.o, head, j + 1,
-                                            r, t, tid, N);
+      if constexpr (kFused) prefetch_o_rows<kD>(sO + (buf ^ 1) * kTile, args.o, head, j + 1,
+                                                r, t, tid, N);
     }
 
     if constexpr (!kFused) ring.wait(j);
     const DkvChunk c{sK,         sV,   ring.a(st), ring.b(st), s_lse[buf], s_delta[buf],
                      scale_l2,   args.scale, t,  bias_head,  j * kChunk, k0 + r,      N};
     if (j + 1 < chunks) {
-      dkv_chunk<kChunk, kFused, kBias>(dk, dv, c);
+      dkv_chunk<kChunk, kFused, kBias, kD>(dk, dv, c);
     } else {
       switch ((tail + 7) / 8) {
 #define SM90_DKV_TAIL(w) \
   case w:                 \
-    dkv_chunk<8 * (w), kFused, kBias>(dk, dv, c); \
+    dkv_chunk<8 * (w), kFused, kBias, kD>(dk, dv, c); \
     break;
         SM90_DKV_TAIL(1) SM90_DKV_TAIL(2) SM90_DKV_TAIL(3) SM90_DKV_TAIL(4)
         SM90_DKV_TAIL(5) SM90_DKV_TAIL(6) SM90_DKV_TAIL(7) SM90_DKV_TAIL(8)
@@ -664,12 +688,13 @@ __device__ __forceinline__ void dkv_block(const BwdMaps& maps, const BwdArgs& ar
 // K2 (kRoleDq), K3 (kRoleDkv) or K5 (kRoleFused: blockIdx.z 0 the dk/dv
 // blocks, 1 the dq blocks), with the bias for K2 and K3 (kBias).  One
 // warpgroup a block, 64 rows of head blockIdx.y from row 64 blockIdx.x.
-template <int kRole, bool kBias>
+template <int kRole, bool kBias, int kD>
 __global__ void __launch_bounds__(128, kRole == kRoleDq ? (kBias ? 3 : 4) : (kBias ? 2 : 3))
 attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap tdo, const BwdArgs args) {
   static_assert(!(kBias && kRole == kRoleFused), "K5 takes no bias");
+  static_assert(kRole != kRoleFused || kD == 64, "K5 is built at head dim 64");
   __shared__ __align__(8) uint64_t bar_own;
   __shared__ __align__(8) uint64_t bar_full[kBwdStages];
   __shared__ __align__(8) uint64_t bar_empty[kBwdStages];
@@ -681,18 +706,18 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   const int row0 = blockIdx.x * kChunk;
   const int bh = blockIdx.y;
   if constexpr (kRole == kRoleDq) {
-    dq_block<false, kBias>(maps, args, bars, smem, row0, bh);
+    dq_block<false, kBias, kD>(maps, args, bars, smem, row0, bh);
   } else if constexpr (kRole == kRoleDkv) {
     __shared__ float s_lse[2][kChunk];  // log2e lse of the chunk's q rows
     __shared__ float s_delta[2][kChunk];
-    dkv_block<false, kBias>(maps, args, bars, smem, row0, bh, s_lse, s_delta);
+    dkv_block<false, kBias, kD>(maps, args, bars, smem, row0, bh, s_lse, s_delta);
   } else {
     __shared__ float s_lse[2][kChunk];
     __shared__ float s_delta[2][kChunk];
     if (blockIdx.z == 0) {
-      dkv_block<true, false>(maps, args, bars, smem, row0, bh, s_lse, s_delta);
+      dkv_block<true, false, kD>(maps, args, bars, smem, row0, bh, s_lse, s_delta);
     } else {
-      dq_block<true, false>(maps, args, bars, smem, row0, bh);
+      dq_block<true, false, kD>(maps, args, bars, smem, row0, bh);
     }
   }
 }
@@ -703,19 +728,21 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 // K2, K3 or K5 in bf16, at every N, K2 and K3 with or without the bias.
 // The shared-memory attribute belongs to the device, so it is set on every
 // launch.
-template <int kRole, bool kBias = false>
+template <int kRole, bool kBias, int kD>
 cudaError_t attn_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
                           const BwdArgs& args, int B, cudaStream_t stream) {
   if (static_cast<size_t>(B) * args.H > 65535) return cudaErrorInvalidValue;  // grid.y
-  constexpr int smem = kRole == kRoleFused ? kFusedBwdSmemBytes : kBwdSmemBytes;
-  auto kernel = attn_bwd_sm90_kernel<kRole, kBias>;
+  constexpr int smem = kRole == kRoleFused ? kFusedBwdSmemBytes<kD> : kBwdSmemBytes<kD>;
+  auto kernel = attn_bwd_sm90_kernel<kRole, kBias, kD>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const int BH = B * args.H;
   CUtensorMap tq, tk, tv, tdo;
-  if (!encode_rows(&tq, q, args.N, BH, kChunk) || !encode_rows(&tk, k, args.N, BH, kChunk) ||
-      !encode_rows(&tv, v, args.N, BH, kChunk) || !encode_rows(&tdo, dout, args.N, BH, kChunk)) {
+  if (!encode_rows<kD>(&tq, q, args.N, BH, kChunk) ||
+      !encode_rows<kD>(&tk, k, args.N, BH, kChunk) ||
+      !encode_rows<kD>(&tv, v, args.N, BH, kChunk) ||
+      !encode_rows<kD>(&tdo, dout, args.N, BH, kChunk)) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid((args.N + kChunk - 1) / kChunk, BH, kRole == kRoleFused ? 2 : 1);

@@ -1,6 +1,6 @@
 // The bf16 attention forward for Hopper (sm_90a) shared by K1
 // (flash_attn_fwd.cu) and K4 (fused_short_attn.cu): TMA staging behind
-// mbarriers, wgmma products, fp32 softmax.  For q, k, v (B, H, N, 64) bf16
+// mbarriers, wgmma products, fp32 softmax.  For q, k, v (B, H, N, D) bf16
 // and, in K1, an optional (C, H, N, N) fp32 bias, batch element b reading
 // cell b / (B / C) (C = 1: one bias shared by the batch):
 //     x = scale * q k^T (+ bias)     m = max x     p = exp(x - m)    l = sum p
@@ -17,10 +17,16 @@
 // rows of one (batch, head); warpgroup w owns the 64-row q tile 2 x + w and
 // issues both products for it with wgmma (m64nNk16, fp32 accumulators).
 // Thread 0 issues every TMA copy.  Each tensor is one 3-D tensor map over
-// (D = 64, N, B * H), so rows at or beyond N fall outside the map and arrive
-// as zeros: a 2-D map over (B H N, D) would read the next head's rows.  A
-// bf16 row of 64 is 128 bytes, and the maps use the 128-byte swizzle that
-// the wgmma shared-memory descriptors below name.
+// (D, N, B * H), so rows at or beyond N fall outside the map and arrive as
+// zeros: a 2-D map over (B H N, D) would read the next head's rows.
+//
+// The head dim D is the template parameter kD (the last of each template),
+// 64 for the ViTs and the text tower, 32 for Swin's heads; K4 is built at 64
+// only.  A bf16 row of 64 is 128 bytes and the maps use the 128-byte
+// swizzle; a row of 32 is 64 bytes and they use the 64-byte swizzle; the
+// wgmma shared-memory descriptors name the same (sm90_common.cuh).  Either
+// way a k16 step is 32 bytes along the rows (4 steps at D = 64, 2 at 32),
+// and P V is an m64n{D}k16 product.
 //
 // N <= 256 (kStream = false): the head's K (round_up(N, 8) rows) and V
 // (round_up(N, 16) rows) are staged whole, once per block, K and V behind
@@ -53,7 +59,6 @@
 
 namespace sm90 {
 
-using flash::kD;
 using flash::kNegInf;
 using flash::pack_bf16;
 
@@ -61,7 +66,8 @@ constexpr int kWarpgroups = 2;             // consumer warpgroups a block
 constexpr int kThreads = 128 * kWarpgroups;
 constexpr int kTileRows = 64;              // q rows a warpgroup
 constexpr int kBlockRows = kTileRows * kWarpgroups;
-constexpr int kRowBytes = kD * 2;          // one bf16 row: 128 bytes
+template <int kD>
+constexpr int kRowBytes = kD * 2;          // one bf16 row: 128 or 64 bytes
 constexpr int kStreamKeys = 64;            // keys a stage when N > 256
 constexpr int kMaxResidentKeys = 256;      // the widest single product
 constexpr float kLog2e = 1.4426950408889634f;
@@ -84,7 +90,7 @@ __device__ __forceinline__ float ex2(float x) {
 
 struct FwdArgs {
   const float* bias;  // (C, H, N, N) fp32 or null; K1 only
-  uint16_t* o;        // (B, H, N, 64) bf16
+  uint16_t* o;        // (B, H, N, D) bf16
   float* lse;         // (B, H, 1, N) fp32 or null
   int H;
   int N;
@@ -93,23 +99,39 @@ struct FwdArgs {
 };
 
 // Key width of one stage: round_up(N, 8) keys resident, or kStreamKeys.
-template <int kKeys, bool kStream>
+// Every tile starts on 1024 bytes: at D = 32 K's bytes (64 a key) are
+// rounded up to the next 1024 (kKSpan); at D = 64 they are a multiple.
+template <int kKeys, bool kStream, int kD>
 struct FwdSmem {
   static constexpr int kStages = kStream ? 2 : 1;
   static constexpr int kVRows = (kKeys + 15) / 16 * 16;  // P V runs k16 steps
-  static constexpr int kQBytes = kBlockRows * kRowBytes;
-  static constexpr int kKBytes = kKeys * kRowBytes;
-  static constexpr int kVBytes = kVRows * kRowBytes;
-  static constexpr int kStageBytes = kKBytes + kVBytes;  // multiples of 1024
+  static constexpr int kQBytes = kBlockRows * kRowBytes<kD>;
+  static constexpr int kKBytes = kKeys * kRowBytes<kD>;  // what TMA brings
+  static constexpr int kKSpan = (kKBytes + 1023) / 1024 * 1024;
+  static constexpr int kVBytes = kVRows * kRowBytes<kD>;
+  static constexpr int kStageBytes = kKSpan + kVBytes;  // multiples of 1024
   static constexpr int kBytes = kQBytes + kStages * kStageBytes + 1024;  // + alignment slack
 };
 
+// o (+)= a b for the register-A product of width kD (P V; in the backward
+// dq += dS K, dv += P^T dO, dk += dS^T Q), B MN-major.
+template <int kD>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[kD / 2], const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+  if constexpr (kD == 64) {
+    wgmma_rs_n64_tb(d, a, desc_b, scale_d);
+  } else {
+    static_assert(kD == 32, "head dim 32 or 64");
+    wgmma_rs_n32_tb(d, a, desc_b, scale_d);
+  }
+}
+
 // S = Q K^T of this warpgroup's tile over one stage's kKeys keys, into s.
-template <int kKeys>
+template <int kKeys, int kD>
 __device__ __forceinline__ void qk_product(float (&s)[kKeys / 2], const uint8_t* q_tile,
                                            const uint8_t* k_tile) {
-  const uint64_t dq = sw128_desc(q_tile);
-  const uint64_t dk = sw128_desc(k_tile);
+  const uint64_t dq = swizzled_desc<kRowBytes<kD>>(q_tile);
+  const uint64_t dk = swizzled_desc<kRowBytes<kD>>(k_tile);
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
@@ -123,16 +145,16 @@ __device__ __forceinline__ void qk_product(float (&s)[kKeys / 2], const uint8_t*
 }
 
 // O (+)= P V for one stage: p holds the bf16 A fragments of every k16 step,
-// V the stage's rows, 16 keys (2,048 bytes) a step.
-template <int kSteps>
+// V the stage's rows, 16 keys (2,048 bytes at D = 64, 1,024 at 32) a step.
+template <int kSteps, int kD>
 __device__ __forceinline__ void pv_product(float (&o)[kD / 2], const uint32_t (&p)[kSteps][4],
                                            const uint8_t* v_tile, bool accumulate) {
-  const uint64_t dv = sw128_desc(v_tile);
+  const uint64_t dv = swizzled_desc<kRowBytes<kD>>(v_tile);
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kSteps; ++kk) {
-    wgmma_rs_n64_tb(o, p[kk], dv + kk * (16 * kRowBytes >> 4), accumulate || kk > 0);
+    wgmma_rs_tb<kD>(o, p[kk], dv + kk * (16 * kRowBytes<kD> >> 4), accumulate || kk > 0);
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -213,11 +235,12 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int kKeys, bool kStream, bool kNormFirst, bool kBias>
+template <int kKeys, bool kStream, bool kNormFirst, bool kBias, int kD>
 __global__ void __launch_bounds__(kThreads, (kKeys <= 200 ? 2 : 1))
 attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const FwdArgs args) {
-  using L = FwdSmem<kKeys, kStream>;
+  using L = FwdSmem<kKeys, kStream, kD>;
+  constexpr int kRow = kRowBytes<kD>;
   constexpr int kSteps = L::kVRows / 16;
   __shared__ __align__(8) uint64_t bar_q;
   __shared__ __align__(8) uint64_t bar_k[L::kStages];
@@ -228,7 +251,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint8_t* sQ = smem;
   auto sK = [&](int st) { return smem + L::kQBytes + st * L::kStageBytes; };
-  auto sV = [&](int st) { return sK(st) + L::kKBytes; };
+  auto sV = [&](int st) { return sK(st) + L::kKSpan; };
 
   const int N = args.N;
   const int tid = threadIdx.x;
@@ -273,9 +296,9 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(&bar_q, active * kTileRows * kRowBytes);
+    mbar_expect_tx(&bar_q, active * kTileRows * kRow);
     for (int w = 0; w < active; ++w) {
-      tma_load_rows(sQ + w * kTileRows * kRowBytes, &tq, q0 + w * kTileRows, bh, &bar_q);
+      tma_load_rows(sQ + w * kTileRows * kRow, &tq, q0 + w * kTileRows, bh, &bar_q);
     }
     for (int j = 0; j < min(L::kStages, loads); ++j) load_tile(j);
   }
@@ -290,7 +313,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
       if (row[r] < N) brow[r] = args.bias + ((cell * args.H + h) * N + row[r]) * N;
     }
   }
-  const uint8_t* q_tile = sQ + wg * kTileRows * kRowBytes;
+  const uint8_t* q_tile = sQ + wg * kTileRows * kRow;
 
   float s[kKeys / 2];
   float o[kD / 2];
@@ -314,7 +337,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     }
     const int key0 = (j % tiles) * kKeys;
     mbar_wait(&bar_k[st], parity);
-    qk_product<kKeys>(s, q_tile, sK(st));
+    qk_product<kKeys, kD>(s, q_tile, sK(st));
     float mx[2];
     scores<kKeys, kBias>(s, mx, key0, N, args.scale, brow, t);
 
@@ -349,7 +372,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
       for (int r = 0; r < 2; ++r) mul[r] = 1.f / l[r];
       to_a_frags<kKeys>(pa, s, mul);
       mbar_wait(&bar_v[st], parity);
-      pv_product<kSteps>(o, pa, sV(st), kStream);
+      pv_product<kSteps, kD>(o, pa, sV(st), kStream);
     } else {
       // K1: exp(x - m) rounded to bf16 unnormalised, online across tiles
       float sum[2];
@@ -376,7 +399,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
       l[1] += sum[1];
       to_a_frags<kKeys>(pa, s, one);
       mbar_wait(&bar_v[st], parity);
-      pv_product<kSteps>(o, pa, sV(st), kStream);
+      pv_product<kSteps, kD>(o, pa, sV(st), kStream);
     }
     if (kStream) mbar_arrive(&bar_empty[st]);
   }
@@ -406,35 +429,40 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 // ---------------------------------------------------------------------------
 // host side
 
-// A 3-D map over a (B, H, N, 64) bf16 tensor as (64, N, B H), boxes of
-// `rows` full rows, 128-byte swizzle, zeros outside.
+// A 3-D map over a (B, H, N, kD) bf16 tensor as (kD, N, B H), boxes of
+// `rows` full rows, zeros outside; the 128-byte swizzle for 128-byte rows
+// (D = 64), the 64-byte one for 64-byte rows (D = 32).
+template <int kD>
 inline bool encode_rows(CUtensorMap* map, const void* base, int N, int BH, int rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(kRowBytes),
-                                 static_cast<cuuint64_t>(N) * kRowBytes};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(kRowBytes<kD>),
+                                 static_cast<cuuint64_t>(N) * kRowBytes<kD>};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(kD), static_cast<cuuint32_t>(rows), 1u};
   const cuuint32_t unit[3] = {1u, 1u, 1u};
+  const CUtensorMapSwizzle swizzle =
+      kD == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kKeys, bool kStream, bool kNormFirst, bool kBias>
+template <int kKeys, bool kStream, bool kNormFirst, bool kBias, int kD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const FwdArgs& args, int B,
                        cudaStream_t stream) {
-  using L = FwdSmem<kKeys, kStream>;
-  auto kernel = attn_fwd_sm90_kernel<kKeys, kStream, kNormFirst, kBias>;
+  using L = FwdSmem<kKeys, kStream, kD>;
+  auto kernel = attn_fwd_sm90_kernel<kKeys, kStream, kNormFirst, kBias, kD>;
   // the attribute belongs to the device, so it is set on every launch
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != cudaSuccess) return attr;
   const int BH = B * args.H;
   CUtensorMap tq, tk, tv;
-  if (!encode_rows(&tq, q, args.N, BH, kTileRows) || !encode_rows(&tk, k, args.N, BH, kKeys) ||
-      !encode_rows(&tv, v, args.N, BH, L::kVRows)) {
+  if (!encode_rows<kD>(&tq, q, args.N, BH, kTileRows) ||
+      !encode_rows<kD>(&tk, k, args.N, BH, kKeys) ||
+      !encode_rows<kD>(&tv, v, args.N, BH, L::kVRows)) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid((args.N + kBlockRows - 1) / kBlockRows, BH);
@@ -444,16 +472,16 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const FwdArg
 
 // The bf16 forward: the resident design at N <= 256 with a product of
 // width round_up(N, 8), the streamed one beyond.
-template <bool kNormFirst, bool kBias>
+template <bool kNormFirst, bool kBias, int kD>
 cudaError_t attn_fwd_bf16_keys(const void* q, const void* k, const void* v, const FwdArgs& args,
                                int B, cudaStream_t stream) {
   if (args.N > kMaxResidentKeys) {
-    return launch_fwd<kStreamKeys, true, kNormFirst, kBias>(q, k, v, args, B, stream);
+    return launch_fwd<kStreamKeys, true, kNormFirst, kBias, kD>(q, k, v, args, B, stream);
   }
   switch ((args.N + 7) / 8) {
 #define SM90_FWD_CASE(c) \
   case c:                \
-    return launch_fwd<8 * (c), false, kNormFirst, kBias>(q, k, v, args, B, stream);
+    return launch_fwd<8 * (c), false, kNormFirst, kBias, kD>(q, k, v, args, B, stream);
     SM90_FWD_CASE(1) SM90_FWD_CASE(2) SM90_FWD_CASE(3) SM90_FWD_CASE(4)
     SM90_FWD_CASE(5) SM90_FWD_CASE(6) SM90_FWD_CASE(7) SM90_FWD_CASE(8)
     SM90_FWD_CASE(9) SM90_FWD_CASE(10) SM90_FWD_CASE(11) SM90_FWD_CASE(12)
@@ -469,14 +497,14 @@ cudaError_t attn_fwd_bf16_keys(const void* q, const void* k, const void* v, cons
 }
 
 // K1 with or without its bias; K4 (kNormFirst) has none.
-template <bool kNormFirst>
+template <bool kNormFirst, int kD>
 cudaError_t attn_fwd_bf16(const void* q, const void* k, const void* v, const FwdArgs& args, int B,
                           cudaStream_t stream) {
   if (static_cast<size_t>(B) * args.H > 65535) return cudaErrorInvalidValue;  // grid.y
   if constexpr (!kNormFirst) {
-    if (args.bias != nullptr) return attn_fwd_bf16_keys<false, true>(q, k, v, args, B, stream);
+    if (args.bias != nullptr) return attn_fwd_bf16_keys<false, true, kD>(q, k, v, args, B, stream);
   }
-  return attn_fwd_bf16_keys<kNormFirst, false>(q, k, v, args, B, stream);
+  return attn_fwd_bf16_keys<kNormFirst, false, kD>(q, k, v, args, B, stream);
 }
 
 }  // namespace sm90

@@ -42,7 +42,9 @@
 // per owned row (each holds every other dim) and fp32 FMAs; the two halves of
 // a dot product meet in one shuffle; the bias (kBias) read from device
 // memory per element.  It exists so that fp32 training on the card can be
-// held tightly against the CPU.  D = 64 only.
+// held tightly against the CPU.
+// D = 64 and D = 32 (Swin's heads), each a template instantiation of the
+// same kernels; any other D is refused.
 
 #include "attn_bwd_sm90.cuh"
 
@@ -51,10 +53,10 @@ namespace {
 using namespace flash;
 
 constexpr int kThreadsF32 = 2 * kBlockQ;  // two threads per owned row
-constexpr int kHalfD = kD / 2;
 
-// 64 rows x 64 fp32 of a and of b from global into shared (row stride kD),
+// 64 rows x kD fp32 of a and of b from global into shared (row stride kD),
 // 16 B per load; rows >= n are zero.
+template <int kD>
 __device__ __forceinline__ void load_tiles_f32(float* dst_a, float* dst_b, const float* a,
                                                const float* b, int row0, int n, int tid) {
   for (int c = tid; c < kBlockK * kD / 4; c += kThreadsF32) {
@@ -73,6 +75,7 @@ __device__ __forceinline__ void load_tiles_f32(float* dst_a, float* dst_b, const
 }
 
 // Thread (row, half) of an fp32 kernel holds dims 2 i + half of its row.
+template <int kHalfD>
 __device__ __forceinline__ void load_half_row_f32(float (&dst)[kHalfD], const float* src,
                                                   bool valid, int half) {
 #pragma unroll
@@ -85,13 +88,14 @@ __device__ __forceinline__ const float* cell_bias(const float* bias, int b, int 
   return bias + (static_cast<size_t>(b / bias_batch) * H + h) * N * static_cast<size_t>(N);
 }
 
-template <bool kBias>
+template <bool kBias, int kD>
 __global__ void __launch_bounds__(kThreadsF32)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ o, const float* __restrict__ lse,
                         float* __restrict__ delta, float* __restrict__ dq, int H, int N,
                         float scale, const float* __restrict__ bias, int bias_batch) {
+  constexpr int kHalfD = kD / 2;
   __shared__ __align__(16) float sK[kBlockK * kD];
   __shared__ __align__(16) float sV[kBlockK * kD];
 
@@ -129,7 +133,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int kt = 0; kt < num_kt; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();
-    load_tiles_f32(sK, sV, k + base, v + base, k0, N, tid);
+    load_tiles_f32<kD>(sK, sV, k + base, v + base, k0, N, tid);
     __syncthreads();
     for (int j = 0; j < kBlockK; ++j) {
       const float* kr = sK + j * kD + half;
@@ -156,7 +160,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int i = 0; i < kHalfD; ++i) dq[row_off + 2 * i + half] = scale * acc[i];
 }
 
-template <bool kBias>
+template <bool kBias, int kD>
 __global__ void __launch_bounds__(kThreadsF32)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
@@ -164,6 +168,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          float* __restrict__ dk, float* __restrict__ dv,
                          int H, int N, float scale, const float* __restrict__ bias,
                          int bias_batch) {
+  constexpr int kHalfD = kD / 2;
   __shared__ __align__(16) float sQ[kBlockQ * kD];
   __shared__ __align__(16) float sDo[kBlockQ * kD];
   __shared__ float sLse[kBlockQ];
@@ -197,7 +202,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   for (int qt = 0; qt < num_qt; ++qt) {
     const int q0 = qt * kBlockQ;
     __syncthreads();
-    load_tiles_f32(sQ, sDo, q + base, dout + base, q0, N, tid);
+    load_tiles_f32<kD>(sQ, sDo, q + base, dout + base, q0, N, tid);
     if (tid < kBlockQ) {
       const bool in = q0 + tid < N;
       sLse[tid] = in ? lse[bh * N + q0 + tid] : 0.f;
@@ -239,15 +244,60 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 }
 
 bool bad_shape(int B, int H, int N, int D, int bias_cells) {
-  return D != kD || B <= 0 || H <= 0 || N <= 0 || B > 65535 || H > 65535 || bias_cells <= 0 ||
+  return !head_dim_ok(D) || B <= 0 || H <= 0 || N <= 0 || B > 65535 || H > 65535 || bias_cells <= 0 ||
          B % bias_cells != 0;
+}
+
+template <int kD>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                      const void* o, const void* lse, const float* b32, void* delta, void* dq,
+                      int B, int H, int N, int bias_cells, float scale, int is_bf16,
+                      cudaStream_t s) {
+  if (is_bf16) {
+    sm90::BwdArgs args{static_cast<const uint16_t*>(o), static_cast<const float*>(lse),
+                       static_cast<float*>(delta), static_cast<uint16_t*>(dq), nullptr,
+                       nullptr, H, N, scale, b32, B / bias_cells};
+    return b32 ? sm90::attn_bwd_bf16<sm90::kRoleDq, true, kD>(q, k, v, dout, args, B, s)
+               : sm90::attn_bwd_bf16<sm90::kRoleDq, false, kD>(q, k, v, dout, args, B, s);
+  }
+  const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
+  auto kernel = b32 ? flash_bwd_dq_f32_kernel<true, kD> : flash_bwd_dq_f32_kernel<false, kD>;
+  kernel<<<grid, kThreadsF32, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(o), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<float*>(dq), H, N, scale, b32, B / bias_cells);
+  return cudaGetLastError();
+}
+
+template <int kD>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, const float* b32, void* dk, void* dv,
+                       int B, int H, int N, int bias_cells, float scale, int is_bf16,
+                       cudaStream_t s) {
+  if (is_bf16) {
+    sm90::BwdArgs args{nullptr, static_cast<const float*>(lse),
+                       const_cast<float*>(static_cast<const float*>(delta)), nullptr,
+                       static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), H, N, scale,
+                       b32, B / bias_cells};
+    return b32 ? sm90::attn_bwd_bf16<sm90::kRoleDkv, true, kD>(q, k, v, dout, args, B, s)
+               : sm90::attn_bwd_bf16<sm90::kRoleDkv, false, kD>(q, k, v, dout, args, B, s);
+  }
+  const dim3 grid((N + kBlockK - 1) / kBlockK, H, B);
+  auto kernel = b32 ? flash_bwd_dkv_f32_kernel<true, kD> : flash_bwd_dkv_f32_kernel<false, kD>;
+  kernel<<<grid, kThreadsF32, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), H, N, scale, b32, B / bias_cells);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Both functions launch on `stream` of `device` and return cudaGetLastError()
 // (0 = ok).  q, k, v, o, dout and the gradients: (B, H, N, D) contiguous,
-// 16-byte aligned, bf16 (is_bf16 = 1) or fp32; lse, delta: (B, H, 1, N) fp32;
+// 16-byte aligned, D 32 or 64, bf16 (is_bf16 = 1) or fp32; lse, delta: (B, H, 1, N) fp32;
 // bias: the forward's (C, H, N, N) fp32 with C = bias_cells dividing B, or
 // NULL.  flash_attn_bwd_dq writes dq and delta; flash_attn_bwd_dkv reads
 // delta.
@@ -260,22 +310,11 @@ extern "C" int flash_attn_bwd_dq(int device, const void* q, const void* k, const
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b32 = static_cast<const float*>(bias);
-  if (is_bf16) {
-    sm90::BwdArgs args{static_cast<const uint16_t*>(o), static_cast<const float*>(lse),
-                       static_cast<float*>(delta), static_cast<uint16_t*>(dq), nullptr,
-                       nullptr, H, N, scale, b32, B / bias_cells};
-    return static_cast<int>(
-        b32 ? sm90::attn_bwd_bf16<sm90::kRoleDq, true>(q, k, v, dout, args, B, s)
-            : sm90::attn_bwd_bf16<sm90::kRoleDq>(q, k, v, dout, args, B, s));
-  }
-  const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
-  auto kernel = b32 ? flash_bwd_dq_f32_kernel<true> : flash_bwd_dq_f32_kernel<false>;
-  kernel<<<grid, kThreadsF32, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(o), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<float*>(dq), H, N, scale, b32, B / bias_cells);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      D == 32 ? launch_dq<32>(q, k, v, dout, o, lse, b32, delta, dq, B, H, N, bias_cells, scale,
+                              is_bf16, s)
+              : launch_dq<64>(q, k, v, dout, o, lse, b32, delta, dq, B, H, N, bias_cells, scale,
+                              is_bf16, s));
 }
 
 extern "C" int flash_attn_bwd_dkv(int device, const void* q, const void* k, const void* v,
@@ -287,27 +326,17 @@ extern "C" int flash_attn_bwd_dkv(int device, const void* q, const void* k, cons
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b32 = static_cast<const float*>(bias);
-  if (is_bf16) {
-    sm90::BwdArgs args{nullptr, static_cast<const float*>(lse),
-                       const_cast<float*>(static_cast<const float*>(delta)), nullptr,
-                       static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), H, N, scale,
-                       b32, B / bias_cells};
-    return static_cast<int>(
-        b32 ? sm90::attn_bwd_bf16<sm90::kRoleDkv, true>(q, k, v, dout, args, B, s)
-            : sm90::attn_bwd_bf16<sm90::kRoleDkv>(q, k, v, dout, args, B, s));
-  }
-  const dim3 grid((N + kBlockK - 1) / kBlockK, H, B);
-  auto kernel = b32 ? flash_bwd_dkv_f32_kernel<true> : flash_bwd_dkv_f32_kernel<false>;
-  kernel<<<grid, kThreadsF32, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), H, N, scale, b32, B / bias_cells);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      D == 32 ? launch_dkv<32>(q, k, v, dout, lse, delta, b32, dk, dv, B, H, N, bias_cells,
+                               scale, is_bf16, s)
+              : launch_dkv<64>(q, k, v, dout, lse, delta, b32, dk, dv, B, H, N, bias_cells,
+                               scale, is_bf16, s));
 }
 
-// The dynamic shared memory a bf16 K2 or K3 block asks for (bytes).
-extern "C" int flash_attn_bwd_smem_bytes() { return sm90::kBwdSmemBytes; }
+// The dynamic shared memory a bf16 K2 or K3 block asks for at head dim D (bytes).
+extern "C" int flash_attn_bwd_smem_bytes(int D) {
+  return D == 32 ? sm90::kBwdSmemBytes<32> : sm90::kBwdSmemBytes<64>;
+}
 
 extern "C" const char* flash_attn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -26,7 +26,10 @@
 // sequences stream 64-key tiles through a two-stage ring with the online
 // softmax.
 // fp32: one thread per q row and fp32 FMAs over 64-key tiles (the tensor
-// cores have no full-fp32 mode); not on the main path.  D = 64 only.
+// cores have no full-fp32 mode); not on the main path.
+// D = 64 (the ViTs, the text tower) and D = 32 (Swin's heads: at N = 49 one
+// of a block's two warpgroups has no q rows, 79 of 128 rows are padding):
+// each a template instantiation of the same kernels; any other D is refused.
 
 #include "attn_fwd_sm90.cuh"
 
@@ -34,6 +37,7 @@ namespace {
 
 using namespace flash;
 
+template <int kD>
 __global__ void __launch_bounds__(kBlockQ)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
@@ -136,33 +140,42 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (lse != nullptr) lse[bh * N + row] = m + logf(l);
 }
 
+template <int kD>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* o,
+                   void* lse, int B, int H, int N, int bias_cells, float scale, int is_bf16,
+                   cudaStream_t s) {
+  if (is_bf16) {
+    const sm90::FwdArgs args{static_cast<const float*>(bias), static_cast<uint16_t*>(o),
+                             static_cast<float*>(lse), H, N, scale, B / bias_cells};
+    return sm90::attn_fwd_bf16<false, kD>(q, k, v, args, B, s);
+  }
+  const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
+  flash_fwd_f32_kernel<kD><<<grid, kBlockQ, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<float*>(o), static_cast<float*>(lse), H, N, scale, B / bias_cells);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream` of `device` and returns cudaGetLastError() (0 = ok).
-// q, k, v, o: (B, H, N, D) contiguous, 16-byte aligned, bf16 (is_bf16 = 1) or
-// fp32; bias: (C, H, N, N) fp32 with C = bias_cells dividing B, or NULL;
+// q, k, v, o: (B, H, N, D) contiguous, 16-byte aligned, D 32 or 64, bf16
+// (is_bf16 = 1) or fp32; bias: (C, H, N, N) fp32 with C = bias_cells dividing B, or NULL;
 // lse: (B, H, 1, N) fp32 or NULL.
 extern "C" int flash_attn_fwd(int device, const void* q, const void* k, const void* v,
                               const void* bias, void* o, void* lse, int B, int H, int N,
                               int D, int bias_cells, float scale, int is_bf16, void* stream) {
-  if (D != kD || B <= 0 || H <= 0 || N <= 0 || B > 65535 || H > 65535 || bias_cells <= 0 ||
+  if (!head_dim_ok(D) || B <= 0 || H <= 0 || N <= 0 || B > 65535 || H > 65535 || bias_cells <= 0 ||
       B % bias_cells != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    const sm90::FwdArgs args{static_cast<const float*>(bias), static_cast<uint16_t*>(o),
-                             static_cast<float*>(lse), H, N, scale, B / bias_cells};
-    return static_cast<int>(sm90::attn_fwd_bf16<false>(q, k, v, args, B, s));
-  }
-  const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd_f32_kernel<<<grid, kBlockQ, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(bias),
-      static_cast<float*>(o), static_cast<float*>(lse), H, N, scale, B / bias_cells);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      D == 32 ? launch<32>(q, k, v, bias, o, lse, B, H, N, bias_cells, scale, is_bf16, s)
+              : launch<64>(q, k, v, bias, o, lse, B, H, N, bias_cells, scale, is_bf16, s));
 }
 
 extern "C" const char* flash_attn_error_string(int err) {

@@ -64,7 +64,7 @@
 // 1.69 times the useful ones, and the bf16 backward's dk/dv blocks read O
 // once per key tile; what its design spends is the latency of each chunk's
 // products and exponentials, hidden by the other blocks on the SM.  D = 64
-// only.
+// only (kD below; the shared mainloops are built at this head dim).
 
 #include "attn_bwd_sm90.cuh"
 
@@ -72,6 +72,7 @@ namespace {
 
 using namespace flash;
 
+constexpr int kD = 64;         // the pair's only head dim
 constexpr int kThreads = 128;  // every block of both kernels
 constexpr int kHalfD = kD / 2;
 
@@ -386,7 +387,7 @@ extern "C" int fused_short_attn_fwd(int device, const void* q, const void* k, co
   if (is_bf16) {
     const sm90::FwdArgs args{nullptr, static_cast<uint16_t*>(o),
                              static_cast<float*>(lse), H, N, scale};
-    return static_cast<int>(sm90::attn_fwd_bf16<true>(q, k, v, args, B, s));
+    return static_cast<int>(sm90::attn_fwd_bf16<true, kD>(q, k, v, args, B, s));
   }
   const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
   short_fwd_f32_kernel<<<grid, kBlockQ, 0, s>>>(
@@ -408,7 +409,8 @@ extern "C" int fused_short_attn_bwd(int device, const void* q, const void* k, co
     const sm90::BwdArgs args{static_cast<const uint16_t*>(o), static_cast<const float*>(lse),
                              nullptr, static_cast<uint16_t*>(dq), static_cast<uint16_t*>(dk),
                              static_cast<uint16_t*>(dv), H, N, scale};
-    return static_cast<int>(sm90::attn_bwd_bf16<sm90::kRoleFused>(q, k, v, dout, args, B, s));
+    return static_cast<int>(
+        sm90::attn_bwd_bf16<sm90::kRoleFused, false, kD>(q, k, v, dout, args, B, s));
   }
   const int tiles = (N + kBlockQ - 1) / kBlockQ;
   const dim3 grid(2 * tiles, H, B);  // q tiles (dq), then key tiles (dk, dv)
@@ -418,7 +420,7 @@ extern "C" int fused_short_attn_bwd(int device, const void* q, const void* k, co
 }
 
 // The dynamic shared memory a bf16 backward block asks for (bytes).
-extern "C" int fused_short_attn_bwd_smem_bytes() { return sm90::kFusedBwdSmemBytes; }
+extern "C" int fused_short_attn_bwd_smem_bytes() { return sm90::kFusedBwdSmemBytes<kD>; }
 
 extern "C" const char* flash_attn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -12,9 +12,10 @@ preprocessor maze.  Emitted:
   ``m64n{n}k16`` bf16 x bf16 -> fp32, A and B from shared memory, both
   K-major (S = Q K^T; in the backward also dP = dO V^T, S^T = K Q^T and
   dP^T = V dO^T, n = 8 to 64 for a chunk cut to its rows);
-* ``wgmma_rs_n64_tb(d, a, desc_b, scale_d)``: ``m64n64k16`` with A from
-  registers and B MN-major (O += P V, V stored key-major; in the backward
-  dq += dS K, dv += P^T dO and dk += dS^T Q);
+* ``wgmma_rs_n{n}_tb(d, a, desc_b, scale_d)`` for n in ``RS_WIDTHS`` (the
+  head dims 32 and 64): ``m64n{n}k16`` with A from registers and B MN-major
+  (O += P V, V stored key-major; in the backward dq += dS K, dv += P^T dO
+  and dk += dS^T Q);
 * ``wgmma_ss_s8<n>(d, desc_a, desc_b, scale_d)`` for the widths in
   ``S8_WIDTHS``: ``m64n{n}k32`` s8 x s8 -> s32, A and B from shared memory,
   both K-major (K6: the quantized rows times the int8 weight).  The integer
@@ -31,6 +32,7 @@ from pathlib import Path
 
 HEADER = Path(__file__).resolve().parent / "wgmma_sm90.cuh"
 WIDTHS = tuple(range(8, 257, 8))
+RS_WIDTHS = (32, 64)  # the head dims of the attention kernels
 S8_WIDTHS = (64,)  # K6: one warpgroup's 64 columns of a 128-column tile
 
 
@@ -61,13 +63,13 @@ __device__ __forceinline__ void wgmma_ss<{n}>(float (&d)[{r}], uint64_t desc_a, 
 """
 
 
-def _rs() -> str:
-    r = 32
-    return f"""__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[{r}], const uint32_t (&a)[4],
+def _rs(n: int) -> str:
+    r = n // 2
+    return f"""__device__ __forceinline__ void wgmma_rs_n{n}_tb(float (&d)[{r}], const uint32_t (&a)[4],
                                                 uint64_t desc_b, int scale_d) {{
   asm volatile(
       "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 5}, 0;\\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
       "{{{_regs(0, r)}}}, {{{_regs(r, 4)}}}, %{r + 4}, p, 1, 1, 1;\\n}}\\n"
       : {_outputs(r)}
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
@@ -114,9 +116,9 @@ def render() -> str:
         "\n"
     ]
     parts += [_ss(n) + "\n" for n in WIDTHS]
-    parts.append("// m64n64k16 bf16 x bf16 -> fp32; A from registers (the m16n8k16 A fragment\n"
+    parts.append("// m64n{N}k16 bf16 x bf16 -> fp32; A from registers (the m16n8k16 A fragment\n"
                  "// of each warp's 16 rows), B from shared memory, MN-major.\n")
-    parts.append(_rs())
+    parts.append("\n".join(_rs(n) for n in RS_WIDTHS))
     parts.append("\n// m64n{N}k32 s8 x s8 -> s32; A and B from shared memory, K-major.\n"
                  "template <int N>\n"
                  "__device__ __forceinline__ void wgmma_ss_s8(int (&d)[N / 2], uint64_t desc_a,\n"

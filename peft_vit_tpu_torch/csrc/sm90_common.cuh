@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels: the
 // attention mainloops (attn_fwd_sm90.cuh, attn_bwd_sm90.cuh: K1 to K5) and
 // the int8 GEMM (int8_gemm.cu: K6).  Shared-memory addresses, mbarriers
-// (with a trap timer on waits), the wgmma shared-memory descriptor of a
-// 128-byte-swizzled tile, the wgmma fence / commit / wait, and
+// (with a trap timer on waits), the wgmma shared-memory descriptors of
+// 128-byte- and 64-byte-swizzled tiles, the wgmma fence / commit / wait, and
 // cuTensorMapEncodeTiled taken from the driver without linking libcuda.
 
 #pragma once
@@ -65,6 +65,37 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
   return static_cast<uint64_t>((smem_addr(tile) >> 4) & 0x3FFF) | (1ull << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same for a tile of 64-byte rows (32 bf16: the attention at head dim
+// 32) written by TMA with the 64-byte swizzle: layout type 2, 8-row groups
+// 512 bytes apart (SBO), 16-byte chunk c of row r at chunk c ^ ((r / 2) % 4).
+// K-major: a k16 step advances the start address by 32 bytes inside the
+// 64-byte rows.  MN-major (V, K, Q or dO as B of a register-A product): the
+// 32 d of a row are one swizzle atom wide, and 16 rows further is the next
+// k16 step.
+__device__ __forceinline__ uint64_t sw64_desc(const void* tile) {
+  return static_cast<uint64_t>((smem_addr(tile) >> 4) & 0x3FFF) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// The descriptor of a tile of kRowBytes-wide rows (128: sw128_desc, 64: sw64_desc).
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t swizzled_desc(const void* tile) {
+  static_assert(kRowBytes == 128 || kRowBytes == 64, "rows of 64 or 128 bytes");
+  if constexpr (kRowBytes == 128) {
+    return sw128_desc(tile);
+  } else {
+    return sw64_desc(tile);
+  }
+}
+
+// Where the 16-byte chunk c of row r of such a tile lies in the row: the
+// swizzle XORs the chunk index with bits 7.. of the row's byte offset
+// (c ^ (r % 8) at 128-byte rows, c ^ ((r / 2) % 4) at 64-byte rows).
+template <int kRowBytes>
+__device__ __forceinline__ int swizzled_chunk(int r, int c) {
+  return c ^ (((r * kRowBytes) >> 7) & (kRowBytes / 16 - 1));
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -100,7 +100,8 @@ def maybe_cache_prefix(cfg, model: nn.Module, mask: Mapping[str, bool], num_laye
     images."""
     if not bool(cfg.TRAIN.get("CACHE_FROZEN_PREFIX", True)):
         return None
-    if not hasattr(getattr(model, "backbone", None), "blocks"):
+    # only the layer-addressable ViT is cut (the JAX package's style check)
+    if getattr(getattr(model, "backbone", None), "style", None) not in ("clip", "timm"):
         return None
     cut = first_trainable_layer(mask, num_layers)
     if cut <= 0:

@@ -39,7 +39,9 @@ are staged ahead through pinned buffers and a side stream
 the step: its anneal's position, step / total steps, is computed on the
 device from the step count, and its masks are drawn from ``drop_generator``,
 a generator on the trainer's device registered with the train graph and
-checkpointed (``drop_rng``).  ``update_bn`` refreshes the BN statistics of a
+checkpointed (``drop_rng``).  A backbone with stochastic depth
+(``drop_path_rate`` > 0: ConvViT's ``DROP_PATH_RATE``, an SSL-Swin) draws
+its drop-path masks from the same generator.  ``update_bn`` refreshes the BN statistics of a
 CNN backbone as of the channel-BN head.
 
 ``TPU.INT8_FWD_TRAIN`` quantizes the frozen tree once per run (before
@@ -143,6 +145,9 @@ class Trainer:
                 f"{type(getattr(model, 'backbone', None)).__name__}); DropBlock is a CNN "
                 "regularizer (reference cls_resnet.py:409-419)")
         self.total_steps = max(1, int(cfg.TRAIN.END_EPOCH) * int(steps_per_epoch))
+        # stochastic depth (ConvViT, SSL-Swin): masks drawn in the step
+        self.drop_path = float(getattr(getattr(model, "backbone", None), "drop_path_rate",
+                                       0.0)) > 0.0
 
         trainable, frozen = split_params(model, mask)
         trainable = {k: v.detach().clone() for k, v in trainable.items()}
@@ -202,7 +207,7 @@ class Trainer:
         # DropBlock's masks are drawn in the step from a generator on the
         # device (registered with the train graph, checkpointed as drop_rng)
         self.drop_generator: Optional[torch.Generator] = None
-        if self.use_dropblock:
+        if self.use_dropblock or self.drop_path:
             self.drop_generator = torch.Generator(device=self.device).manual_seed(int(seed) + 2)
         self.apply_fn = _train.make_apply_fn(model)
         self.graphs: Dict[Any, Any] = {}
@@ -250,6 +255,8 @@ class Trainer:
                                device=self.device)
             kw = {"progress": buf["step"].to(torch.float32) / total,
                   "generator": self.drop_generator}
+        elif self.drop_path:
+            kw = {"generator": self.drop_generator}
         logits = self.apply_fn(self._variables(trainable, buf["bn"], buf["scales"]), x, True,
                                **kw)
         loss = self.criterion(logits.to(torch.float32), y)
@@ -508,9 +515,9 @@ class Trainer:
         average, else the trained leaves).  As in the JAX trainer, one batch's
         train-mode forward from all-zero and all-one statistics measures each
         statistic's momentum m (new = m old + (1 - m) batch), and each batch
-        statistic is new0 / (1 - m).  A DropBlock backbone runs its masks live,
-        as torch's update_bn runs train-mode regularizers, each pass drawing
-        from a generator seeded 0 (the JAX trainer's ``PRNGKey(0)``) at the
+        statistic is new0 / (1 - m).  A DropBlock or drop-path backbone runs
+        its masks live, as torch's update_bn runs train-mode regularizers, each
+        pass drawing from a generator seeded 0 (the JAX trainer's ``PRNGKey(0)``) at the
         target keep probability.  Installs and returns the statistics."""
         if not self.has_bn:
             return None
@@ -522,7 +529,7 @@ class Trainer:
             stats = {k: v.clone() for k, v in stats.items()}
             x = self._normalize(self._on_device(x))
             kw = ({"generator": torch.Generator(device=self.device).manual_seed(0)}
-                  if self.use_dropblock else {})
+                  if self.use_dropblock or self.drop_path else {})
             self.apply_fn(self._variables(trainable, stats, {}), x, True, **kw)
             return stats
 

@@ -31,8 +31,11 @@ from .layers import (
 )
 from .registry import get_custom_builder, register_model
 from .resnet import ResNet
+from .ssl_swin import build_ssl_swin, extract_n_last_blocks, multi_crop_forward
+from .swin import SwinTransformer
 from .text import TextEncoder, TextTransformer
 from .vit import VisionTransformer
+from .vit_conv import ConvViT
 
 __all__ = [
     "ACT2FN",
@@ -43,6 +46,7 @@ __all__ = [
     "ClassifierHead",
     "CompacterAdapter",
     "ContrastiveClassifier",
+    "ConvViT",
     "Dense",
     "FeatureBatchNorm",
     "ImageClassifier",
@@ -53,16 +57,19 @@ __all__ = [
     "MultiHeadAttention",
     "PHMDense",
     "ResNet",
+    "SwinTransformer",
     "TextEncoder",
     "TextTransformer",
     "VisionTransformer",
     "backbone_eval_variables",
     "build_image_classifier",
+    "build_ssl_swin",
     "cast_frozen_",
     "clip_from_config",
     "clip_state_dict_to_tree",
     "collect_activation_stats",
     "compute_dtype",
+    "extract_n_last_blocks",
     "flagship",
     "get_custom_builder",
     "infer_clip_shape",
@@ -71,6 +78,7 @@ __all__ = [
     "jax_path",
     "load_jax_variables",
     "load_torch_checkpoint",
+    "multi_crop_forward",
     "params_from_jax",
     "params_to_jax",
     "quick_gelu",

@@ -510,3 +510,119 @@ def clip_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Every leaf of ``clip_state_dict_to_tree`` as the ``state_dict`` of a
     ``models.clip.CLIP`` (``visual``, ``text``, ``logit_scale``)."""
     return _subtree_state_dict(flat, "", "")
+
+
+# ---------------------------------------------------------------------------
+# Swin and ConvViT checkpoints (JAX convert.py:445 and :621)
+
+
+def swin_state_dict_to_tree(sd: Mapping) -> Dict[str, np.ndarray]:
+    """An official Swin state dict (cls_swin.py / microsoft Swin naming, and
+    ssl_swin.py's) -> flat ``{path: array}`` in the JAX package's
+    ``SwinTransformer`` naming: the patch embedding and its norm, the
+    absolute position embedding, each block's norms, qkv, proj, relative
+    position table, q/v LoRA pairs and MLP, the patch mergings, the final
+    norm.  The buffers ``relative_position_index`` and ``attn_mask`` are
+    built by the model and not read; nor is the head."""
+    flat: Dict[str, np.ndarray] = {
+        "patch_embed/kernel": _np(sd["patch_embed.proj.weight"]).transpose(2, 3, 1, 0),
+        "patch_embed/bias": _np(sd["patch_embed.proj.bias"]),
+    }
+    if "patch_embed.norm.weight" in sd:
+        flat["pos_norm/scale"] = _np(sd["patch_embed.norm.weight"])
+        flat["pos_norm/bias"] = _np(sd["patch_embed.norm.bias"])
+    if "absolute_pos_embed" in sd:
+        flat["absolute_pos_embed"] = _np(sd["absolute_pos_embed"])[0]
+    stages = sorted({int(k.split(".")[1]) for k in sd if k.startswith("layers.")})
+    for s in stages:
+        blocks = sorted({int(k.split(".")[3]) for k in sd if k.startswith(f"layers.{s}.blocks.")})
+        for bi in blocks:
+            p, o = f"layers.{s}.blocks.{bi}", f"stage{s}_block{bi}"
+            flat[f"{o}/ln_1/scale"] = _np(sd[f"{p}.norm1.weight"])
+            flat[f"{o}/ln_1/bias"] = _np(sd[f"{p}.norm1.bias"])
+            flat[f"{o}/ln_2/scale"] = _np(sd[f"{p}.norm2.weight"])
+            flat[f"{o}/ln_2/bias"] = _np(sd[f"{p}.norm2.bias"])
+            flat[f"{o}/attn/in_proj/kernel"] = _np(sd[f"{p}.attn.qkv.weight"]).T
+            flat[f"{o}/attn/in_proj/bias"] = _np(sd[f"{p}.attn.qkv.bias"])
+            flat[f"{o}/attn/out_proj/kernel"] = _np(sd[f"{p}.attn.proj.weight"]).T
+            flat[f"{o}/attn/out_proj/bias"] = _np(sd[f"{p}.attn.proj.bias"])
+            flat[f"{o}/attn/relative_position_bias_table"] = _np(
+                sd[f"{p}.attn.relative_position_bias_table"])
+            for t in ("q", "v"):
+                if f"{p}.attn.{t}_proj_adapter1.weight" in sd:
+                    flat[f"{o}/attn/{t}_adapter1/kernel"] = _np(
+                        sd[f"{p}.attn.{t}_proj_adapter1.weight"]).T
+                    flat[f"{o}/attn/{t}_adapter2/kernel"] = _np(
+                        sd[f"{p}.attn.{t}_proj_adapter2.weight"]).T
+            flat[f"{o}/mlp_fc1/kernel"] = _np(sd[f"{p}.mlp.fc1.weight"]).T
+            flat[f"{o}/mlp_fc1/bias"] = _np(sd[f"{p}.mlp.fc1.bias"])
+            flat[f"{o}/mlp_fc2/kernel"] = _np(sd[f"{p}.mlp.fc2.weight"]).T
+            flat[f"{o}/mlp_fc2/bias"] = _np(sd[f"{p}.mlp.fc2.bias"])
+        if f"layers.{s}.downsample.reduction.weight" in sd:
+            flat[f"downsample{s}/reduction/kernel"] = _np(
+                sd[f"layers.{s}.downsample.reduction.weight"]).T
+            flat[f"downsample{s}/norm/scale"] = _np(sd[f"layers.{s}.downsample.norm.weight"])
+            flat[f"downsample{s}/norm/bias"] = _np(sd[f"layers.{s}.downsample.norm.bias"])
+    flat["norm/scale"] = _np(sd["norm.weight"])
+    flat["norm/bias"] = _np(sd["norm.bias"])
+    return flat
+
+
+def convvit_state_dict_to_tree(sd: Mapping) -> Tuple[Dict[str, np.ndarray],
+                                                     Dict[str, np.ndarray]]:
+    """A cls_vit_cswin.py / cls_vit_conv.py state dict -> ``(params,
+    batch_stats)``, flat, in the JAX package's ``ConvViT`` naming
+    (``blocks_<i>/{ln_1, attn/{qkv, out_proj, get_v}, ln_2, mlp/{c_fc,
+    c_proj}, ln_3, conv/{pw1, dw, bn, pw2}}``, ``ln_post``): the conv
+    mixer's BatchNorm brings its running statistics (``bn`` ``mean`` /
+    ``var``)."""
+    flat: Dict[str, np.ndarray] = {
+        "patch_embed/kernel": _np(sd["patch_embed.proj.weight"]).transpose(2, 3, 1, 0),
+        "patch_embed/bias": _np(sd["patch_embed.proj.bias"]),
+    }
+    stats: Dict[str, np.ndarray] = {}
+    if "cls_token" in sd:
+        flat["cls_token"] = _np(sd["cls_token"]).reshape(-1)
+    flat["pos_embed"] = _np(sd["pos_embed"])[0]
+    conv = lambda key: _np(sd[key]).transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    layers = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    for i in range(layers):
+        p, o = f"blocks.{i}", f"blocks_{i}"
+        flat[f"{o}/ln_1/scale"] = _np(sd[f"{p}.norm1.weight"])
+        flat[f"{o}/ln_1/bias"] = _np(sd[f"{p}.norm1.bias"])
+        flat[f"{o}/ln_2/scale"] = _np(sd[f"{p}.norm2.weight"])
+        flat[f"{o}/ln_2/bias"] = _np(sd[f"{p}.norm2.bias"])
+        flat[f"{o}/attn/qkv/kernel"] = _np(sd[f"{p}.attn.qkv.weight"]).T
+        if f"{p}.attn.qkv.bias" in sd:
+            flat[f"{o}/attn/qkv/bias"] = _np(sd[f"{p}.attn.qkv.bias"])
+        flat[f"{o}/attn/out_proj/kernel"] = _np(sd[f"{p}.attn.proj.weight"]).T
+        flat[f"{o}/attn/out_proj/bias"] = _np(sd[f"{p}.attn.proj.bias"])
+        if f"{p}.attn.get_v.weight" in sd:
+            flat[f"{o}/attn/get_v/kernel"] = conv(f"{p}.attn.get_v.weight")
+            flat[f"{o}/attn/get_v/bias"] = _np(sd[f"{p}.attn.get_v.bias"])
+        if f"{p}.mlp.fc1.weight" in sd:
+            flat[f"{o}/mlp/c_fc/kernel"] = _np(sd[f"{p}.mlp.fc1.weight"]).T
+            flat[f"{o}/mlp/c_fc/bias"] = _np(sd[f"{p}.mlp.fc1.bias"])
+            flat[f"{o}/mlp/c_proj/kernel"] = _np(sd[f"{p}.mlp.fc2.weight"]).T
+            flat[f"{o}/mlp/c_proj/bias"] = _np(sd[f"{p}.mlp.fc2.bias"])
+        if f"{p}.conv.0.weight" in sd:  # pw-glu-dw-bn-swish-pw (cls_vit_conv.py:199-216)
+            flat[f"{o}/ln_3/scale"] = _np(sd[f"{p}.norm3.weight"])
+            flat[f"{o}/ln_3/bias"] = _np(sd[f"{p}.norm3.bias"])
+            flat[f"{o}/conv/pw1/kernel"] = conv(f"{p}.conv.0.weight")
+            flat[f"{o}/conv/dw/kernel"] = conv(f"{p}.conv.2.weight")
+            flat[f"{o}/conv/bn/scale"] = _np(sd[f"{p}.conv.3.weight"])
+            flat[f"{o}/conv/bn/bias"] = _np(sd[f"{p}.conv.3.bias"])
+            stats[f"{o}/conv/bn/mean"] = _np(sd[f"{p}.conv.3.running_mean"])
+            stats[f"{o}/conv/bn/var"] = _np(sd[f"{p}.conv.3.running_var"])
+            flat[f"{o}/conv/pw2/kernel"] = conv(f"{p}.conv.5.weight")
+    flat["ln_post/scale"] = _np(sd["norm.weight"])
+    flat["ln_post/bias"] = _np(sd["norm.bias"])
+    return flat, stats
+
+
+def tower_state_dict(flat: Mapping[str, np.ndarray],
+                     stats: Mapping[str, np.ndarray] = None) -> Dict[str, torch.Tensor]:
+    """The leaves (and BatchNorm statistics) of ``swin_state_dict_to_tree``
+    or ``convvit_state_dict_to_tree`` as the ``state_dict`` of a
+    ``swin.SwinTransformer`` or ``vit_conv.ConvViT``."""
+    return _subtree_state_dict(flat, "", "", stats)

@@ -6,10 +6,12 @@
   builder: a custom builder (``models.registry``) when ``MODEL.NAME`` names
   one; for a CLIP model the ViT or ModifiedResNet tower from ``MODEL.SPEC``
   or from the ``MODEL.PRETRAINED`` OpenAI CLIP checkpoint (an attention pool
-  makes it an RN tower), whose visual and text weights it loads (the PEFT
-  leaves and the head stay fresh), and the frozen text tower as
-  ``encode_text``; the cls_resnet family (``_build_resnet_backbone``) for a
-  ResNet name; for any other name outside the backbone zoo's families
+  makes it an RN tower; ``MODEL.SPEC.VISION.MODEL`` swin a Swin tower),
+  whose visual and text weights it loads (the PEFT leaves and the head stay
+  fresh), and the frozen text tower as ``encode_text``; the cls_resnet
+  family (``_build_resnet_backbone``) for a ResNet name; the Swin family
+  (``_build_swin_backbone``) and ConvViT / CSwin (``_build_convvit_backbone``)
+  for theirs; for any other name outside the backbone zoo's families
   (``cls_vit*``, ``vit*``) the supervised timm-style ViT from
   ``MODEL.SPEC.VISION``, a timm checkpoint grafted onto it when
   ``MODEL.PRETRAINED`` names one.
@@ -39,8 +41,10 @@ from .convert import (clip_rn_state_dict_to_tree, clip_rn_visual_state_dict,
 from .layers import cast_frozen_
 from .registry import get_custom_builder
 from .resnet import DyReLUSpec, ResNet
+from .swin import SwinTransformer
 from .text import TextEncoder, TextTransformer
 from .vit import VisionTransformer
+from .vit_conv import ConvViT
 
 logger = logging.getLogger(__name__)
 
@@ -125,7 +129,7 @@ def is_clip_rn_cfg(cfg) -> bool:
 #: the JAX builder's other backbone families, each by the substrings of
 #: ``MODEL.NAME`` and the ``MODEL.SPEC.VISION.MODEL`` values that select it
 #: (``peft_vit_tpu/models/factory.py:38-103``), in the order its non-CLIP
-#: branch tries them; of these only the ResNet family is ported
+#: branch tries them; of these the ResNet family, ConvViT and Swin are ported
 _ZOO = (
     ("rexnet", ("rexnet",), ("rexnet",)),
     ("efficientnet", ("efficientnet",), ("efficientnet",)),
@@ -135,7 +139,7 @@ _ZOO = (
     ("convvit", ("vit_conv", "cswin"), ("vit_conv", "cswin")),
     ("swin", ("swin",), ("swin",)),
 )
-PORTED_FAMILIES = ("resnet",)
+PORTED_FAMILIES = ("resnet", "convvit", "swin")
 
 
 def zoo_family(cfg) -> Optional[str]:
@@ -198,6 +202,64 @@ def _build_resnet_backbone(cfg, dtype: torch.dtype, device) -> ResNet:
     )
 
 
+def is_swin_cfg(cfg) -> bool:
+    """A Swin tower (the JAX ``is_swin_model``): a name with swin but not
+    cswin, or ``MODEL.SPEC.VISION.MODEL`` swin."""
+    name = str(cfg.MODEL.NAME).lower()
+    return ("swin" in name and "cswin" not in name) or _vision_model(cfg) == "swin"
+
+
+def _build_swin_backbone(cfg, spec: PEFTSpec, output_dim: Optional[int], dtype: torch.dtype,
+                         device) -> SwinTransformer:
+    """The cls_swin / clip_swin visual tower (JAX ``factory.py:208-225``):
+    ``PATCH_SIZE``, ``EMBED_DIM`` (else ``WIDTH``), ``DEPTHS``,
+    ``NUM_HEADS``, ``WINDOW_SIZE`` of ``MODEL.SPEC.VISION`` at
+    ``TRAIN.IMAGE_SIZE``; nothing else (``DROP_PATH_RATE``, ``USE_APE`` and
+    ``PATCH_NORM`` are read by ``ssl_swin.build_ssl_swin`` only, as in the
+    JAX package)."""
+    s = cfg.MODEL.SPEC.VISION
+    return SwinTransformer(
+        image_size=int(cfg.TRAIN.IMAGE_SIZE[0]),
+        patch_size=int(s.get("PATCH_SIZE", 4)),
+        embed_dim=int(s.get("EMBED_DIM", s.get("WIDTH", 96))),
+        depths=tuple(s.get("DEPTHS", (2, 2, 6, 2))),
+        num_heads=tuple(s.get("NUM_HEADS", (3, 6, 12, 24))),
+        window_size=int(s.get("WINDOW_SIZE", 7)),
+        output_dim=output_dim,
+        spec=spec,
+        dtype=dtype,
+        device=device,
+    )
+
+
+def _build_convvit_backbone(cfg, dtype: torch.dtype, device) -> ConvViT:
+    """cls_vit_conv / cls_vit_cswin (JAX ``factory.py:575-600``): a cswin
+    name or ``MODEL.SPEC.VISION.MODEL`` cswin turns LePE on and the conv
+    mixer off by default."""
+    v = cfg.MODEL.SPEC.VISION
+    is_cswin = "cswin" in str(cfg.MODEL.NAME).lower() or _vision_model(cfg) == "cswin"
+    return ConvViT(
+        image_size=int(cfg.TRAIN.IMAGE_SIZE[0]),
+        patch_size=int(v.PATCH_SIZE),
+        width=int(v.WIDTH),
+        layers=int(v.LAYERS),
+        heads=int(v.HEADS),
+        mlp_ratio=float(v.get("MLP_RATIO", 4.0)),
+        use_cls_token=bool(v.get("USE_CLS_TOKEN", True)),
+        norm_embed=bool(v.get("NORM_EMBED", False)),
+        has_attn=bool(v.get("HAS_ATTN", True)),
+        has_mlp=bool(v.get("HAS_MLP", True)),
+        has_conv=bool(v.get("HAS_CONV", not is_cswin)),
+        add_cls=bool(v.get("ADD_CLS", False)),
+        conv_ratio=float(v.get("CONV_RATIO", 1.0)),
+        lepe=is_cswin or bool(v.get("LEPE", False)),
+        res_score=bool(v.get("RES_SCORE", False)),
+        drop_path_rate=float(v.get("DROP_PATH_RATE", 0.0)),
+        dtype=dtype,
+        device=device,
+    )
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to peft_vit_tpu_torch yet (ROADMAP §1, {item})")
@@ -224,7 +286,7 @@ def build_image_classifier(
     (None: the card), its named parameters, and the frozen CLIP text tower
     as a function of token ids (``models.text.TextEncoder``), or None for a
     checkpoint without one (a visual-only export), for the timm-style ViT
-    (``_timm_classifier``) and for the ResNet family (``_resnet_classifier``).
+    (``_timm_classifier``) and for the zoo's families (``_zoo_classifier``).
     A custom builder registered under ``MODEL.NAME`` (or a
     ``module:function`` name) is called with ``(cfg, spec, num_classes,
     device, seed)`` and returns the same triple.
@@ -248,9 +310,13 @@ def build_image_classifier(
     ``TPU.REMAT`` do not apply: the card always runs the attention kernels,
     and autograd keeps what the backward needs.  A CLIP RN tower takes no
     ViT flag and merges no projection (its pool's ``c_proj`` is structural).
-    The backbone families other than the ResNets (``zoo_family``), a CLIP
-    tower other than the ViT and the ModifiedResNet, ``TPU.SCAN_LAYERS`` and
-    ``TPU.SEQUENCE_PARALLEL`` raise ``NotImplementedError``.
+    A Swin or ConvViT tower takes none of the ViT flags either (the JAX
+    modules have none); a CLIP Swin tower is built from ``MODEL.SPEC`` and,
+    as in the JAX builder, no checkpoint is grafted onto it.  The backbone
+    families other than the ResNets, ConvViT and Swin (``zoo_family``), a
+    CLIP tower other than the ViT, the ModifiedResNet and Swin,
+    ``TPU.SCAN_LAYERS`` and ``TPU.SEQUENCE_PARALLEL`` raise
+    ``NotImplementedError``.
     """
     device = resolve_device(device)
     custom = get_custom_builder(str(cfg.MODEL.NAME))
@@ -263,8 +329,8 @@ def build_image_classifier(
     family = None if clip else zoo_family(cfg)
     if family is not None and family not in PORTED_FAMILIES:
         raise _not_ported(f"MODEL.NAME {cfg.MODEL.NAME!r} (the {family} family; only the CLIP "
-                          "ViT and ResNets, the timm-style ViT and the ResNet family)",
-                          "the backbone zoo")
+                          "ViT, ResNets and Swin, the timm-style ViT, the ResNet family, "
+                          "ConvViT and Swin)", "the backbone zoo")
     if bool(tpu.get("SCAN_LAYERS", False)):
         raise _not_ported("TPU.SCAN_LAYERS", "the rest")
     if bool(tpu.get("SEQUENCE_PARALLEL", False)):
@@ -299,25 +365,28 @@ def build_image_classifier(
         sd = load_torch_checkpoint(cfg.MODEL.PRETRAINED,
                                    model_key=str(cfg.TEST.get("MODEL_KEY", "")))
         logger.info("=> loaded checkpoint %s", cfg.MODEL.PRETRAINED)
-    if family == "resnet":
-        return _resnet_classifier(cfg, num_classes, use_bn, vit_kw["dtype"], seed, device)
+    if family is not None:
+        return _zoo_classifier(cfg, family, spec, num_classes, use_bn, vit_kw["dtype"], seed,
+                               device)
     if not clip:
         return _timm_classifier(cfg, num_classes, use_bn, sd, vit_kw, seed, device)
     # the ModifiedResNet tower from a checkpoint's attention pool, else from the config
     rn_tower = is_clip_rn_state_dict(sd) if sd is not None else is_clip_rn_cfg(cfg)
-    if not rn_tower and (_vision_model(cfg) != "vit" or zoo_family(cfg) == "swin"):
-        raise _not_ported(f"MODEL.NAME {cfg.MODEL.NAME!r} (a CLIP tower other than the ViT "
-                          "and the ModifiedResNet)", "the backbone zoo")
+    swin_tower = not rn_tower and is_swin_cfg(cfg)
+    if not (rn_tower or swin_tower) and _vision_model(cfg) != "vit":
+        raise _not_ported(f"MODEL.NAME {cfg.MODEL.NAME!r} (a CLIP tower other than the ViT, "
+                          "the ModifiedResNet and Swin)", "the backbone zoo")
     if sd is not None and rn_tower:
         info = infer_clip_rn_shape(sd)
-    elif sd is not None:
-        if "visual.conv1.weight" not in sd:
-            raise _not_ported("a checkpoint without a CLIP visual tower", "the backbone zoo")
+    elif sd is not None and "visual.conv1.weight" in sd:
         info = infer_clip_shape(sd)
         heads = int(s.VISION.get("HEADS", 0))
         if heads:  # not recoverable from a state dict
             info["vision_heads"] = heads
     else:
+        # the config's shape: no checkpoint, or one the JAX builder does not
+        # graft (a Swin tower's, or one without a CLIP visual tower)
+        sd = None
         info = dict(
             embed_dim=int(s.EMBED_DIM),
             image_size=int(cfg.TRAIN.IMAGE_SIZE[0]),
@@ -343,6 +412,9 @@ def build_image_classifier(
                 layers=info["vision_layers"], output_dim=info["embed_dim"],
                 heads=info["vision_heads"], image_size=info["image_size"],
                 width=info["vision_width"], dtype=dtype, device="cpu")
+        elif swin_tower:
+            backbone = _build_swin_backbone(
+                cfg, spec, None if merge_proj else info["embed_dim"], dtype, "cpu")
         else:
             backbone = VisionTransformer(
                 image_size=info["image_size"],
@@ -432,15 +504,21 @@ def _timm_classifier(cfg, num_classes: int, use_bn: bool, sd, vit_kw: dict, seed
     return model, dict(model.named_parameters()), None
 
 
-def _resnet_classifier(cfg, num_classes: int, use_bn: bool, dtype: torch.dtype, seed: int,
-                       device: torch.device):
-    """The JAX builder's ResNet branch: ``_build_resnet_backbone`` at
-    ``TRAIN.IMAGE_SIZE`` under the classifier head, weights drawn from
-    ``seed``.  As in the JAX builder, a ``MODEL.PRETRAINED`` checkpoint is
-    not grafted onto a ResNet, and there is no text tower."""
+def _zoo_classifier(cfg, family: str, spec: PEFTSpec, num_classes: int, use_bn: bool,
+                    dtype: torch.dtype, seed: int, device: torch.device):
+    """The JAX builder's non-CLIP ResNet, ConvViT and Swin branches
+    (``factory.py:575-604``): the tower at ``TRAIN.IMAGE_SIZE`` under the
+    classifier head, weights drawn from ``seed``.  As in the JAX builder no
+    ``MODEL.PRETRAINED`` checkpoint is grafted onto them, and there is no
+    text tower."""
     with torch.random.fork_rng(devices=[]):
         torch.default_generator.manual_seed(seed)
-        backbone = _build_resnet_backbone(cfg, dtype, "cpu")
+        if family == "resnet":
+            backbone = _build_resnet_backbone(cfg, dtype, "cpu")
+        elif family == "swin":
+            backbone = _build_swin_backbone(cfg, spec, None, dtype, "cpu")
+        else:
+            backbone = _build_convvit_backbone(cfg, dtype, "cpu")
         model = ImageClassifier(
             backbone, num_classes=num_classes, use_bn=use_bn,
             normalize_visual=bool(cfg.TRAIN.NORMALIZE_VISUAL_FEATURE), dtype=dtype,

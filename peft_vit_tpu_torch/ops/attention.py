@@ -64,7 +64,11 @@ import torch
 
 from . import _build
 
-KERNEL_HEAD_DIM = 64  # the CUDA kernel's only head dim
+# the head dims the flash kernels (K1, K2, K3) and the bias-gradient kernel
+# (K7) are built at: 64 (the ViTs, the text tower) and 32 (Swin's heads),
+# template instantiations of the same kernels
+KERNEL_HEAD_DIMS = (32, 64)
+FUSED_HEAD_DIMS = (64,)  # the fused short-sequence pair (K4, K5)
 
 
 def _acc_dtype(q: torch.Tensor) -> torch.dtype:
@@ -261,13 +265,16 @@ def _kernel_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _check_kernel_operands(what: str, named: Sequence[Tuple[str, torch.Tensor]]) -> None:
-    """What every kernel asks of its operands (the first is (B, H, N, D))."""
+def _check_kernel_operands(what: str, named: Sequence[Tuple[str, torch.Tensor]],
+                           head_dims: Sequence[int] = KERNEL_HEAD_DIMS) -> None:
+    """What every kernel asks of its operands (the first is (B, H, N, D)):
+    a head dim it is built at, and nothing padded to one."""
     q = named[0][1]
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the kernel takes bfloat16 or float32, got {q.dtype}")
-    if q.shape[-1] != KERNEL_HEAD_DIM:
-        raise ValueError(f"the kernel takes head dim {KERNEL_HEAD_DIM}, got {q.shape[-1]}")
+    if q.shape[-1] not in head_dims:
+        raise ValueError(f"the kernel takes head dim {' or '.join(map(str, head_dims))}, got "
+                         f"{q.shape[-1]}")
     for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -302,7 +309,7 @@ def flash_attention_fwd(
     Returns o (B, H, N, D) in q's dtype and, with ``return_lse``, the fp32
     log-sum-exp (B, H, 1, N).
 
-    CUDA tensors launch ``csrc/flash_attn_fwd.cu`` (D = 64) on the current
+    CUDA tensors launch ``csrc/flash_attn_fwd.cu`` (D = 32 or 64) on the current
     stream and count the launch in ``flash_attention_fwd.launches``; any
     operand the kernel does not take raises.  CPU tensors run the plain
     version and launch nothing.
@@ -406,7 +413,7 @@ def flash_attention_bwd_dq(
     of ``flash_attention_bwd_dkv``.
 
     CUDA tensors launch ``flash_attn_bwd_dq`` of ``csrc/flash_attn_bwd.cu``
-    (D = 64) on the current stream, which computes delta itself, and count
+    (D = 32 or 64) on the current stream, which computes delta itself, and count
     the launch in ``flash_attention_bwd_dq.launches``; any operand the
     kernel does not take raises.  CPU tensors run the plain version and
     launch nothing.
@@ -470,7 +477,7 @@ def attention_bias_grad(
     accumulation dtype of q).
 
     CUDA tensors launch ``attn_bias_grad`` of ``csrc/attn_bias_grad.cu``
-    (D = 64) on the current stream and count the launch in
+    (D = 32 or 64) on the current stream and count the launch in
     ``attention_bias_grad.launches``; any operand the kernel does not take
     raises.  CPU tensors run the plain version and launch nothing."""
     if (delta is None) == (o is None):
@@ -670,7 +677,8 @@ def fused_short_attention_fwd(
     _check_operands(q, k, v, None)
     if q.device.type == "cpu":
         return _fused_short_fwd_plain(q, k, v, float(scale), return_lse)
-    _check_kernel_operands("fused_short_attention_fwd", (("q", q), ("k", k), ("v", v)))
+    _check_kernel_operands("fused_short_attention_fwd", (("q", q), ("k", k), ("v", v)),
+                           FUSED_HEAD_DIMS)
     b, h, n, d = q.shape
     lib = _kernel_library("fused_short_attn")
     out = torch.empty_like(q)
@@ -713,7 +721,7 @@ def fused_short_attention_bwd(
         raise TypeError(f"lse must be float32 on the card, got {lse.dtype}")
     _check_kernel_operands(
         "fused_short_attention_bwd",
-        (("q", q), ("k", k), ("v", v), ("o", o), ("do", do), ("lse", lse)))
+        (("q", q), ("k", k), ("v", v), ("o", o), ("do", do), ("lse", lse)), FUSED_HEAD_DIMS)
     lib = _kernel_library("fused_short_attn")
     b, h, n, _ = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))

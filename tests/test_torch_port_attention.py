@@ -1,13 +1,16 @@
 """The port's attention (peft_vit_tpu_torch.ops.attention) against the JAX
 package: the plain reference, the CPU dispatch, and the Pallas flash
-forward kernel run in interpret mode.  All fp32 on the CPU, same inputs
-from a numpy seed; tolerance atol = rtol = 1e-5 (fp32 accumulation order
-differs between XLA, the Pallas interpreter and torch)."""
+forward kernel run in interpret mode, at head dims 32 (Swin's windows, N =
+49) and 64; the backward (dq, dk, dv, dbias) against ``jax.vjp``.  All fp32
+on the CPU, same inputs from a numpy seed; tolerance atol = rtol = 1e-5
+(fp32 accumulation order differs between XLA, the Pallas interpreter and
+torch)."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from peft_vit_tpu.ops.attention import _flash_attention_fwd
@@ -16,9 +19,11 @@ from peft_vit_tpu_torch.ops import _build
 from peft_vit_tpu_torch.ops import attention as port
 
 TOL = dict(atol=1e-5, rtol=1e-5)
-# the last two sit at the card forward's split: one product per row up to
-# N = 256, streamed key tiles beyond
-SHAPES = [(2, 3, 64, 32), (2, 3, 197, 64), (1, 2, 256, 64), (1, 2, 257, 64)]
+# the last two of each head dim sit at the card forward's split: one product
+# per row up to N = 256, streamed key tiles beyond; (2, 6, 49, 32) is a Swin
+# block's window fold (N = 49, head dim 32)
+SHAPES = [(2, 3, 64, 32), (2, 3, 197, 64), (1, 2, 256, 64), (1, 2, 257, 64),
+          (2, 6, 49, 32), (1, 2, 257, 32)]
 
 
 def _inputs(shape, seed, with_bias):
@@ -74,6 +79,73 @@ def test_out_and_lse_match_pallas_kernel(with_bias, shape):
     assert got_lse.shape == (shape[0], shape[1], 1, shape[2])
     np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), **TOL)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), **TOL)
+
+
+def test_cell_biases_match_pallas_kernel_per_cell():
+    """A (C, H, N, N) bias at head dim 32 (a round of 3 Swin cells, each
+    with its own table): batch element b reads cell b // (B / C); each cell's
+    slice against the Pallas flash forward with that cell's bias."""
+    rng = np.random.RandomState(21)
+    c, per, h, n, d = 3, 2, 4, 49, 32
+    q, k, v = (rng.standard_normal((c * per, h, n, d)).astype(np.float32) for _ in range(3))
+    bias = rng.standard_normal((c, h, n, n)).astype(np.float32)
+    got_o, got_lse = port.flash_attention_fwd(_t(q), _t(k), _t(v), _t(bias), d**-0.5,
+                                              return_lse=True)
+    for i in range(c):
+        sl = slice(i * per, (i + 1) * per)
+        want_o, want_lse = _flash_attention_fwd(
+            _j(q[sl]), _j(k[sl]), _j(v[sl]), _j(bias[i]), d**-0.5, block_q=128, block_k=128,
+            interpret=True, return_lse=True)
+        np.testing.assert_allclose(got_o[sl].numpy(), np.asarray(want_o), **TOL)
+        np.testing.assert_allclose(got_lse[sl].numpy(), np.asarray(want_lse), **TOL)
+
+
+@pytest.mark.parametrize("cells", [0, 1, 3])
+@pytest.mark.parametrize("d", [32, 64])
+def test_backward_matches_jax_vjp(d, cells):
+    """dq, dk, dv and dbias of ``flash_attention`` (the kernels' plain
+    versions) against ``jax.vjp`` of the JAX reference, each cell's slice
+    with its own bias (cells 0: no bias; 1: one (H, N, N) bias), at head
+    dims 32 and 64 and a ragged N; tolerance atol = rtol = 1e-4 (a backward
+    sums twice as many products)."""
+    rng = np.random.RandomState(31 + d + cells)
+    per, h, n = 2, 3, 49
+    b = per * max(cells, 1)
+    q, k, v, do = (rng.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(4))
+    bias = (rng.standard_normal((cells, h, n, n)).astype(np.float32) if cells else None)
+    port_bias = None if bias is None else (bias[0] if cells == 1 else bias)
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    if port_bias is not None:
+        leaves.append(_t(np.ascontiguousarray(port_bias)).requires_grad_())
+    got = torch.autograd.grad(
+        port.flash_attention(*leaves[:3], leaves[3] if len(leaves) > 3 else None, 0.2),
+        leaves, torch.from_numpy(do))
+    tol = dict(atol=1e-4, rtol=1e-4)
+    for i in range(max(cells, 1)):
+        sl = slice(i * per, (i + 1) * per)
+        args = [_j(q[sl]), _j(k[sl]), _j(v[sl])] + ([_j(bias[i])] if cells else [])
+        f = (lambda a, b_, c_, bb: jax_reference(a, b_, c_, bb, 0.2)) if cells else (
+            lambda a, b_, c_: jax_reference(a, b_, c_, None, 0.2))
+        _, vjp = jax.vjp(f, *args)
+        want = vjp(jnp.asarray(do[sl]))
+        for name, g, w in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+            np.testing.assert_allclose(g[sl].numpy(), np.asarray(w), err_msg=name, **tol)
+        if cells:
+            g = got[3] if cells == 1 else got[3][i]
+            np.testing.assert_allclose(g.numpy(), np.asarray(want[3]), err_msg="dbias", **tol)
+
+
+def test_kernel_wrapper_refuses_a_head_dim_it_is_not_built_at():
+    """The kernels are built at head dims 32 and 64, the fused pair at 64:
+    a D = 48 operand is refused before any launch (no padding to 64)."""
+    for what, dims in (("flash_attention_fwd", port.KERNEL_HEAD_DIMS),
+                       ("fused_short_attention_fwd", port.FUSED_HEAD_DIMS)):
+        with pytest.raises(ValueError, match="head dim"):
+            port._check_kernel_operands(what, (("q", torch.zeros(1, 2, 8, 48)),), dims)
+    with pytest.raises(ValueError, match="head dim 64"):
+        port._check_kernel_operands("fused_short_attention_fwd",
+                                    (("q", torch.zeros(1, 2, 8, 32)),), port.FUSED_HEAD_DIMS)
+    assert port.KERNEL_HEAD_DIMS == (32, 64)
 
 
 def test_cpu_tensors_never_count_a_launch():
@@ -133,6 +205,11 @@ def test_wgmma_header_is_the_generators_output():
     for n in range(8, 257, 8):
         assert f"m64n{n}k16.f32.bf16.bf16" in text
     assert "m64n64k16.f32.bf16.bf16" in text and "p, 1, 1, 1;" in text
+    # the register-A product at the two head dims (P V and the backward's)
+    for n in (32, 64):
+        start = text.index(f"void wgmma_rs_n{n}_tb(float (&d)[{n // 2}]")
+        body = text[start:text.index("\n}\n", start)]
+        assert f"m64n{n}k16.f32.bf16.bf16" in body and "p, 1, 1, 1;" in body
 
 
 @pytest.mark.parametrize("n", _gen_wgmma().S8_WIDTHS)

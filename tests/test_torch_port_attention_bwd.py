@@ -245,7 +245,7 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(wrapper, bad, mat
     n, d = 8, 64
     dev = "meta"
     if bad == "head_dim":
-        d = 32
+        d = 48  # the kernels take head dims 32 and 64
     dtype = torch.float16 if bad == "fp16" else torch.float32
     q, k, v, do, o = (torch.zeros(1, 2, n, d, dtype=dtype, device=dev) for _ in range(5))
     lse, delta = (torch.zeros(1, 2, 1, n, device=dev) for _ in range(2))

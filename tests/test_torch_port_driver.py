@@ -327,8 +327,8 @@ def test_build_image_classifier_loads_a_clip_checkpoint_as_jax_does(tmp_path):
 @pytest.mark.parametrize("key,value,match", [
     ("TPU.SCAN_LAYERS", True, "ROADMAP §1, the rest"),
     ("TPU.SEQUENCE_PARALLEL", True, "ROADMAP §1, parallelism"),
-    ("MODEL.NAME", "swin_tiny", "ROADMAP §1, the backbone zoo"),
-    ("MODEL.NAME", "clip_swin_tiny", "ROADMAP §1, the backbone zoo"),
+    ("MODEL.NAME", "rexnet", "ROADMAP §1, the backbone zoo"),
+    ("MODEL.NAME", "cls_ttnet_v2", "ROADMAP §1, the backbone zoo"),
     ("MODEL.NAME", "efficientnet_b0", "ROADMAP §1, the backbone zoo"),
     ("MODEL.NAME", "cls_hrnet_v2", "ROADMAP §1, the backbone zoo"),
 ])

@@ -185,7 +185,8 @@ def test_port_imports_nothing_of_jax():
                      "commands.bit_finetune", "data.native", "data.samplers",
                      "data.streaming", "data.elevater", "data.custom", "data.hub",
                      "data.augment", "commands.test_io", "ops.dropblock", "models.resnet",
-                     "models.clip_resnet", "models.registry"):
+                     "models.clip_resnet", "models.registry", "models.swin",
+                     "models.ssl_swin", "models.vit_conv"):
             assert "peft_vit_tpu_torch." + want in names, want
         import bench_torch, chip_smoke
         bad = sorted(

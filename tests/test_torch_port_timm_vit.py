@@ -228,8 +228,9 @@ def test_factory_builds_the_timm_tower_with_the_jax_builders_leaves(name, method
             np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
 
 
-@pytest.mark.parametrize("name,family", [("swin_tiny", "swin"), ("clip_swin_tiny", "swin"),
-                                         ("cls_vit_conv", "convvit"), ("cls_cswin", "convvit"),
+@pytest.mark.parametrize("name,family", [("efficientnet_b3", "efficientnet"),
+                                         ("rexnet_x1.5", "rexnet"), ("cls_hrnet_w18", "hrnet"),
+                                         ("cls_ttnet_v3", "ttnet"),
                                          ("efficientnet_b0", "efficientnet"),
                                          ("rexnet", "rexnet"), ("cls_hrnet", "hrnet"),
                                          ("cls_ttnet_v2", "ttnet")])
@@ -238,6 +239,24 @@ def test_factory_refuses_the_other_families(name, family):
     assert port_factory.zoo_family(cfg) == family
     with pytest.raises(NotImplementedError, match="ROADMAP §1, the backbone zoo"):
         port_factory.build_image_classifier(cfg, port_spec_from_config(cfg), 5, device="cpu")
+
+
+@pytest.mark.parametrize("name,family,backbone", [
+    ("swin_tiny", "swin", "SwinTransformer"), ("clip_swin_tiny", "swin", "SwinTransformer"),
+    ("cls_vit_conv", "convvit", "ConvViT"), ("cls_cswin", "convvit", "ConvViT")])
+def test_factory_builds_swin_and_convvit(name, family, backbone):
+    """The families ported since: Swin (cls and CLIP) and ConvViT / CSwin
+    build and run a forward."""
+    swin = {"MODEL.SPEC.VISION.DEPTHS": [2, 2], "MODEL.SPEC.VISION.NUM_HEADS": [2, 4],
+            "MODEL.SPEC.VISION.WINDOW_SIZE": 2, "MODEL.SPEC.EMBED_DIM": 16}
+    cfg = _cfg(port_config, **{"MODEL.NAME": name, **(swin if family == "swin" else {})})
+    assert port_factory.zoo_family(cfg) == family
+    model, _, encode_text = port_factory.build_image_classifier(
+        cfg, port_spec_from_config(cfg), 5, device="cpu")
+    assert type(model.backbone).__name__ == backbone
+    assert (encode_text is not None) == name.startswith("clip")
+    with torch.no_grad():
+        assert model(torch.zeros(2, 32, 32, 3)).shape == (2, 5)
 
 
 # -- the executed reference ---------------------------------------------------------
