@@ -39,9 +39,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the ``flash_attention`` Function with per-cell biases under the vmap
    equal to each cell alone bit for bit, one launch each of K1, K2, K3 and
    K7, and K7 alone when only the bias needs a gradient; in fp32 against
-   autograd of the reference.  Then K1, K2 and K3 with and without the bias
-   and K7 beside its bound, its plain version and SDPA's backward with a
-   float mask that requires a gradient;
+   autograd of the reference (the vmap at 16 and 32 elements a cell).  K7
+   where its split of the batch matters (B = 21, 13 and 1 at C = 1, 15 and
+   96 at C = 3, and Swin-T's stage-2 fold at B = 192, C = 3) against its
+   plain version, each round equal to its cells alone bit for bit, and on
+   ViT-B/16 at B = 16 and Swin-T's stage-2 fold at B = 64 three calls and
+   two graph replays equal to the first call bit for bit.  Then K1, K2 and
+   K3 with and without the bias and K7 beside its bound, its plain version
+   and SDPA's backward with a float mask that requires a gradient;
    ``int8_gemm_dynamic`` and ``int8_gemm_static`` (the counterpart of the
    Pallas quantize + int8 matmul + rescale kernel) are held to EQUALITY with
    their plain versions, bf16 and fp32, at M = 197 x {1, 8, 16, 32} for the
@@ -229,11 +234,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (BN statistics and the drop generator included), ``update_bn``, the
    step's time, busy time and idle share;
 16. swin: the Swin family.  K1, K2 (delta too), K3 and K7 at head dim 32
-   against their plain versions at Swin-T's four stage folds (B = 16, N =
-   49, nW h heads, the gathered table plus the shift mask), a per-cell bias
-   (C = 3), an odd N (25), bf16 and fp32, and a D = 48 call refused; their
-   times at the stage-0 and stage-2 folds, B = 64, beside the bound, the
-   plain version and SDPA.  Swin-T (swin_tiny.yaml) at 224 px, weights from a
+   against their plain versions at Swin-T's four stage folds (B = 16, and
+   B = 64 in bf16; N = 49, nW h heads, the gathered table plus the shift
+   mask), a per-cell bias (C = 3), an odd N (25), bf16 and fp32, and a D =
+   48 call refused; their
+   times at the stage-0 and stage-2 folds (K7 at all four), B = 64, beside
+   the bound, the plain version and SDPA.  Swin-T (swin_tiny.yaml) at 224 px, weights from a
    numpy seed: ``ServingSession`` buckets 1, 8, 32 (K1 12 a replay, captured
    == eager, top-1 and logits against fp32 on the CPU, fp32 card against
    CPU, latency); ``train_main`` at B = 64 (K1, K2, K3 and K7 12 each a step
@@ -524,29 +530,50 @@ def ptxas_bwd_summary(logs: dict) -> list:
 
 
 def ptxas_bias_grad_summary(text: str) -> list:
-    """One line for each kernel of K7 (``bias_grad_bf16_kernel``,
-    ``bias_grad_f32_kernel`` in the ``attn_bias_grad`` library's ``nvcc
-    -Xptxas -v`` log): registers a thread, spills and static shared memory
-    (it has no dynamic shared memory)."""
+    """One line for each kernel of K7 in the ``attn_bias_grad`` library's
+    ``nvcc -Xptxas -v`` log (``bias_grad_bf16_kernel<from o, D>``,
+    ``bias_grad_f32_kernel<D>``, ``bias_grad_sum_kernel``): registers a
+    thread, spills and static shared memory; for the bf16 kernel also the
+    dynamic shared memory its launcher asks for at ``BIAS_GRAD_CHUNK``
+    elements a chunk (``attn_bias_grad_smem_bytes``), the blocks of 128 threads a SM holds
+    and whether ptxas serialized its wgmma (C7512)."""
     import re
 
+    from peft_vit_tpu_torch.ops import attention as attn
+
+    smem_of = attn._kernel_library("attn_bias_grad").attn_bias_grad_smem_bytes
+    serialized = set(re.findall(r"C7512.*?for the function '(\S+)'", text))
     lines, current = [], None
     for line in text.splitlines():
-        found = re.search(r"Compiling entry function "
-                          r"'\S*(bias_grad_(bf16|f32)_kernel)ILi(\d+)E\S*'", line)
+        found = re.search(r"Compiling entry function '(\S*bias_grad_(bf16|f32|sum)_kernel"
+                          r"(?:I(?:Lb([01])E)?Li(\d+)E)?\S*)'", line)
         if found:
-            current = {"name": f"{found.group(2)} D={found.group(3)}"}
+            kind, from_o, d = found.group(2), found.group(3), found.group(4)
+            current = {"name": kind + (f" D={d}" if d else "")
+                       + {"1": " from o", "0": " delta given"}.get(from_o, ""),
+                       "dynamic": (smem_of(int(d), int(from_o), attn.BIAS_GRAD_CHUNK)
+                                   if kind == "bf16" else 0),
+                       "bf16": kind == "bf16", "serialized": found.group(1) in serialized}
             continue
         if current is None:
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
             current["spill"] = (int(spill.group(1)), int(spill.group(2)))
-        used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-        if used:
+        used = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if used:  # ptxas names no smem when the kernel has no static shared memory
+            regs, static = int(used.group(1)), int(used.group(2) or 0)
             stores, loads = current.get("spill", (0, 0))
-            lines.append(f"{current['name']}: {used.group(1)} registers, spill stores {stores} B, "
-                         f"spill loads {loads} B, static smem {used.group(2)} B")
+            out = (f"{current['name']}: {regs} registers, spill stores {stores} B, spill loads "
+                   f"{loads} B, static smem {static} B")
+            if current["bf16"]:
+                dynamic = current["dynamic"]
+                by_regs = SM_REGISTERS // ((regs + 7) // 8 * 8 * 128)
+                by_smem = SM_SHARED_BYTES // (dynamic + static + BLOCK_RESERVED_SHARED)
+                out += (f", dynamic smem {dynamic} B, blocks a SM {min(by_regs, by_smem)} "
+                        f"(registers {by_regs}, shared memory {by_smem})"
+                        + (", wgmma serialized (C7512)" if current["serialized"] else ""))
+            lines.append(out)
             current = None
     return sorted(lines)
 
@@ -907,12 +934,20 @@ def kernel_timing(attn, rand, result: dict) -> None:
 BIAS_SHAPES = ((TRAIN_BATCH, 1), (3 * TRAIN_BATCH, 3))
 BIAS_EDGES = ((1, 1, 50), (4, 2, 257), (6, 3, 8))
 # K7 against its plain version: dbias[c] sums the B / C fp32 values of
-# ds = p o (dp - delta) in another order than torch's sum, each from S and dP
-# summed in another order (mma.sync or fp32 FMAs against cuBLAS) and expf
-# against torch.exp: each term within a few fp32 ulps of |ds|, so a sum
-# within about 1e-6 of sum |ds|.  Bound: 1e-4 of the cell's largest sum over
-# its batch of |ds| (as K2's delta is held against sum |dO o O|).
+# ds = p o (dp - delta) in another order than torch's sum (in chunks of the
+# batch, the chunks' partials then added in chunk order), each from S and dP
+# summed in another order (wgmma or fp32 FMAs against cuBLAS) and ex2.approx
+# or expf against torch.exp: each term within a few fp32 ulps of |ds|, so a
+# sum within about 1e-6 of sum |ds|.  Bound: 1e-4 of the cell's largest sum
+# over its batch of |ds| (as K2's delta is held against sum |dO o O|).
 TOL_DBIAS_REL = 1e-4
+# (B, C) at N = 197 where K7's split of a cell's batch matters: a short last
+# chunk (21 = 16 + 5), a batch of 13 (one short chunk), one element, cells of
+# 5 (one chunk each) and cells of 32 (two chunks each)
+BIAS_SPLIT_EDGES = ((21, 1), (13, 1), (1, 1), (15, 3), (96, 3))
+# (B, C) on Swin-T's stage-2 fold (48 heads, N = 49, D = 32): a round of 3 rpb
+# cells at the training batch, four chunks a cell
+SWIN_SPLIT_EDGES = ((3 * 64, 3),)
 
 
 def _bias(rand, c: int, n: int, zero_prefix: bool) -> torch.Tensor:
@@ -956,7 +991,76 @@ def bias_kernel_checks(attn, rand) -> dict:
             main = {"fwd_bias": errs["fwd"], "dq_bias": errs["dq"],
                     "dkv_bias": max(errs["dk"], errs["dv"]), "dbias": errs["dbias"]}
     bias_function_checks(attn, rand)
+    bias_split_checks(attn, rand)
     return main
+
+
+def bias_split_checks(attn, rand) -> None:
+    """K7 (bf16) where its split of the batch matters: ``BIAS_SPLIT_EDGES``
+    and ``SWIN_SPLIT_EDGES`` against the plain version
+    (``bias_case_checks``), and each round of cells equal bit for bit to
+    each of its cells alone; then, at ViT-B/16's B = 16 and on Swin-T's
+    stage-2 fold at B = 64 (a split batch), the same operands three times
+    and a CUDA graph of the call replayed twice, all equal to the first
+    eager call bit for bit."""
+    bf16 = torch.bfloat16
+    vit = (HEADS, N_TOKENS, HEAD_DIM)
+    cases = [(f"N={N_TOKENS} B={b} C={c}", (b, *vit), _bias(rand, c, N_TOKENS, i % 2 == 0),
+              0.125, 1.0) for i, (b, c) in enumerate(BIAS_SPLIT_EDGES)]
+    res, heads = SWIN_STAGES[2]
+    for b, c in SWIN_SPLIT_EDGES:
+        bias = swin_bias(rand, c, res, SWIN_WINDOW, heads, True, bf16)
+        cases.append((f"Swin-T stage 2 B={b} C={c}",
+                      (b, bias.shape[-3], SWIN_WINDOW ** 2, SWIN_HEAD_DIM), bias, 1.0,
+                      SWIN_HEAD_DIM ** -0.5))
+    for name, shape, bias, q_std, scale in cases:
+        c = attn._bias_cells(bias)
+        per = shape[0] // c
+        q, k, v, do = (rand(shape, bf16, std) for std in (q_std, 1.0, 1.0, 1.0))
+        name = f"bf16 split {name} ({attn.bias_grad_split(per)} chunk(s) a cell)"
+        bias_case_checks(attn, name, q, k, v, do, bias, scale)
+        if c == 1:
+            continue
+        o, lse = attn.flash_attention_fwd(q, k, v, bias, scale, return_lse=True)
+        _, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, scale, bias)
+        for label, key, rows in (("delta from K2", "delta", delta), ("delta from o", "o", o)):
+            whole = attn.attention_bias_grad(q, k, v, do, lse, scale, bias, **{key: rows})
+            cell = lambda t, i: t[i * per:(i + 1) * per]
+            alone = [attn.attention_bias_grad(*(cell(t, i) for t in (q, k, v, do, lse)), scale,
+                                              bias[i], **{key: cell(rows, i)})
+                     for i in range(c)]
+            torch.cuda.synchronize()
+            check(all(torch.equal(whole[i], a) for i, a in enumerate(alone)),
+                  f"K7 {name} ({label}): the round == each of its {c} cells alone bit for bit")
+    res, heads = SWIN_STAGES[2]
+    swin = swin_bias(rand, 1, res, SWIN_WINDOW, heads, True, bf16)
+    for name, shape, bias, scale in (
+            ("ViT-B/16 B=16", (TRAIN_BATCH, *vit), _bias(rand, 1, N_TOKENS, True), 1.0),
+            ("Swin-T stage 2 B=64", (SWIN_TIMED_BATCH, swin.shape[0], SWIN_WINDOW ** 2,
+                                     SWIN_HEAD_DIM), swin, SWIN_HEAD_DIM ** -0.5)):
+        q, k, v, do = (rand(shape, bf16) for _ in range(4))
+        o, lse = attn.flash_attention_fwd(q, k, v, bias, scale, return_lse=True)
+        _, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, scale, bias)
+        for label, kw in (("delta from K2", {"delta": delta}), ("delta from o", {"o": o})):
+            call = lambda: attn.attention_bias_grad(q, k, v, do, lse, scale, bias, **kw)
+            first = call()
+            again = [call() for _ in range(2)]
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                call()
+            torch.cuda.current_stream().wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = call()
+            replays = []
+            for _ in range(2):
+                graph.replay()
+                replays.append(captured.clone())
+            torch.cuda.synchronize()
+            check(all(torch.equal(first, t) for t in (*again, *replays)),
+                  f"K7 bf16 {name} ({label}, {attn.bias_grad_split(shape[0])} chunk(s)): "
+                  "three calls and two graph replays == the first call bit for bit")
 
 
 def bias_case_checks(attn, name: str, q, k, v, do, bias, scale: float) -> dict:
@@ -1012,9 +1116,10 @@ def bias_case_checks(attn, name: str, q, k, v, do, bias, scale: float) -> dict:
 
 
 def bias_function_checks(attn, rand) -> None:
-    """The bias path's autograd Function on the card: a bf16 round of 3
-    cells under the vmap against each cell alone, K7 alone when only the
-    bias needs a gradient, fp32 against autograd of the reference."""
+    """The bias path's autograd Function on the card: bf16 rounds of 3
+    cells under the vmap against each cell alone (16 and 32 elements a cell:
+    K7's batch one chunk and two), K7 alone when only the bias needs a
+    gradient, fp32 against autograd of the reference."""
     bf16, f32 = torch.bfloat16, torch.float32
     # the Function: a round of 3 cells, each with its own bf16 bias, under the
     # vmap equals each cell alone bit for bit (every kernel's arithmetic is a
@@ -1022,27 +1127,30 @@ def bias_function_checks(attn, rand) -> None:
     # once each, and K7 alone when only the bias needs a gradient
     from torch.func import vmap
 
-    shape = (3, TRAIN_BATCH, HEADS, N_TOKENS, HEAD_DIM)
-    q, k, v, do = (rand(shape, bf16, std) for std in (0.125, 1.0, 1.0, 1.0))
-    bias = _bias(rand, 3, N_TOKENS, True).to(bf16)
-    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
-    _zero_attention_counts(attn)
-    out = vmap(lambda a, b_, c_, d: attn.flash_attention(a, b_, c_, d, 1.0))(*leaves)
-    got = torch.autograd.grad(out, leaves, do)
-    counts = _attention_counts(attn)
-    alone = []
-    for i in range(3):
-        cell = [t[i].clone().requires_grad_() for t in (q, k, v, bias)]
-        o_i = attn.flash_attention(*cell, 1.0)
-        alone.append((o_i, *torch.autograd.grad(o_i, cell, do[i])))
-    torch.cuda.synchronize()
-    same = all(torch.equal(t[i], a[j]) for i, a in enumerate(alone)
-               for j, t in enumerate((out, *got)))
-    check(same and counts["flash_attention_fwd"] == 1 and counts["flash_attention_bwd_dq"] == 1
-          and counts["flash_attention_bwd_dkv"] == 1 and counts["attention_bias_grad"] == 1,
-          f"bias Function bf16: a round of 3 cells x {tuple(shape[1:])} with per-cell biases "
-          f"under the vmap == each cell alone bit for bit (o, dq, dk, dv, dbias in bf16); one "
-          f"launch each of K1, K2, K3, K7: {counts}")
+    for per_cell in (2 * TRAIN_BATCH, TRAIN_BATCH):
+        shape = (3, per_cell, HEADS, N_TOKENS, HEAD_DIM)
+        q, k, v, do = (rand(shape, bf16, std) for std in (0.125, 1.0, 1.0, 1.0))
+        bias = _bias(rand, 3, N_TOKENS, True).to(bf16)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        _zero_attention_counts(attn)
+        out = vmap(lambda a, b_, c_, d: attn.flash_attention(a, b_, c_, d, 1.0))(*leaves)
+        got = torch.autograd.grad(out, leaves, do)
+        counts = _attention_counts(attn)
+        alone = []
+        for i in range(3):
+            cell = [t[i].clone().requires_grad_() for t in (q, k, v, bias)]
+            o_i = attn.flash_attention(*cell, 1.0)
+            alone.append((o_i, *torch.autograd.grad(o_i, cell, do[i])))
+        torch.cuda.synchronize()
+        same = all(torch.equal(t[i], a[j]) for i, a in enumerate(alone)
+                   for j, t in enumerate((out, *got)))
+        check(same and counts["flash_attention_fwd"] == 1
+              and counts["flash_attention_bwd_dq"] == 1
+              and counts["flash_attention_bwd_dkv"] == 1 and counts["attention_bias_grad"] == 1,
+              f"bias Function bf16: a round of 3 cells x {tuple(shape[1:])} with per-cell "
+              f"biases under the vmap == each cell alone bit for bit (o, dq, dk, dv, dbias in "
+              f"bf16; K7 {attn.bias_grad_split(per_cell)} chunk(s) a cell); one launch each of "
+              f"K1, K2, K3, K7: {counts}")
     b32 = bias[0].float().requires_grad_()
     _zero_attention_counts(attn)
     (g,) = torch.autograd.grad(attn.flash_attention(q[0], k[0], v[0], b32, 1.0), (b32,), do[0])
@@ -1066,15 +1174,33 @@ def bias_function_checks(attn, rand) -> None:
               f"max |diff| / max |ref| = {rel:.3e} <= {TOL_F32_GRAD_REL:g}")
 
 
-def bias_bound(b: int, h: int, n: int, d: int, c: int, itemsize: int):
+def bias_bound(b: int, h: int, n: int, d: int, c: int, itemsize: int, from_o: bool = False):
     """K7's least time: q, k, v and dO read once (itemsize each), lse and
     delta (fp32) read, the (C, H, N, N) fp32 bias read and dbias written,
     against its two products (S = q k^T and dP = dO v^T, 2 B H N^2 D flops
-    each) at the bf16 tensor-core peak."""
-    bytes_moved = 4 * b * h * n * d * itemsize + 2 * b * h * n * 4 + 2 * c * h * n * n * 4
-    flops = 2 * 2 * b * h * n * n * d
+    each) at the bf16 tensor-core peak.  ``from_o``: delta computed from O
+    instead, O read in its place (and rowsum(dO o O)'s 2 B H N D flops)."""
+    bytes_moved = ((5 if from_o else 4) * b * h * n * d * itemsize
+                   + (1 if from_o else 2) * b * h * n * 4 + 2 * c * h * n * n * 4)
+    flops = 2 * 2 * b * h * n * n * d + (2 * b * h * n * d if from_o else 0)
     t_bytes, t_flops = bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
+
+
+def bias_grad_times(attn, q, k, v, do, o, lse, delta, bias, scale: float, reps: int) -> dict:
+    """K7's device times on one case (delta given, and from o), its plain
+    version's and SDPA's backward with a float mask that requires a
+    gradient."""
+    chunks = attn.bias_grad_split(q.shape[0] // attn._bias_cells(bias))
+    return {"ms": _device_ms(lambda: attn.attention_bias_grad(q, k, v, do, lse, scale, bias,
+                                                              delta=delta), reps),
+            "ms_from_o": _device_ms(lambda: attn.attention_bias_grad(q, k, v, do, lse, scale,
+                                                                     bias, o=o), reps),
+            "plain_ms": _device_ms(lambda: attn._bias_grad_plain(q, k, v, do, lse, scale, bias,
+                                                                 delta=delta), 10),
+            "library_ms": _sdpa_bias_bwd_ms(q, k, v, bias, do, reps, scale),
+            "split": f"{attn.BIAS_GRAD_CHUNK} a chunk, {chunks} chunk(s)"
+                     + (", sum kernel" if chunks > 1 else "")}
 
 
 def _sdpa_bias_bwd_ms(q, k, v, bias, do, reps: int, scale: float = 1.0) -> float:
@@ -1114,14 +1240,9 @@ def bias_kernel_timing(attn, rand, result: dict) -> None:
             pair.setdefault((key, with_bias), []).append(_device_ms(fn, reps))
     for (key, with_bias), times in sorted(pair.items()):
         result.setdefault(f"{key}_bias_ms" if with_bias else f"{key}_ms", min(times))
-    row = {"ms": _device_ms(lambda: attn.attention_bias_grad(q, k, v, do, lse, 1.0, bias,
-                                                             delta=delta), reps),
-           "ms_from_o": _device_ms(lambda: attn.attention_bias_grad(q, k, v, do, lse, 1.0, bias,
-                                                                    o=o), reps),
-           "plain_ms": _device_ms(lambda: attn._bias_grad_plain(q, k, v, do, lse, 1.0, bias,
-                                                                delta=delta), 20),
-           "library_ms": _sdpa_bias_bwd_ms(q, k, v, bias, do, 100)}
+    row = bias_grad_times(attn, q, k, v, do, o, lse, delta, bias, 1.0, reps)
     row["bound_ms"], row["bound_by"] = bias_bound(b, HEADS, N_TOKENS, HEAD_DIM, 1, 2)
+    row["bound_from_o_ms"], _ = bias_bound(b, HEADS, N_TOKENS, HEAD_DIM, 1, 2, from_o=True)
     result["k7"] = row
     _print_timing("attn_bias_grad", b, shape, row)
     print(f"bias timing B={b}: K1 {result['fwd_ms']:.6f} / with the bias "
@@ -1156,7 +1277,8 @@ SWIN_WINDOW = 7
 SWIN_STAGES = ((56, 3), (28, 6), (14, 12), (7, 24))
 SWIN_CHECK_BATCH = 16
 SWIN_TIMED_BATCH = 64  # swin_tiny.yaml's TRAIN.BATCH_SIZE_PER_GPU
-SWIN_TIMED_STAGES = (0, 2)
+SWIN_TIMED_STAGES = (0, 2)  # K1, K2 and K3
+SWIN_K7_TIMED_STAGES = (0, 1, 2, 3)
 # (B, C, resolution, window, heads): a per-cell bias (a round of 3 rpb cells at
 # stage 2's fold) and an odd N (window 5: N = 25, four windows of two heads)
 SWIN_EDGES = ((3 * 4, 3, 14, 7, 12), (3, 1, 10, 5, 2))
@@ -1187,13 +1309,16 @@ def swin_kernel_checks(attn, rand) -> dict:
     """K1, K2 (delta too), K3 and K7 at head dim 32 against their plain
     versions (``bias_case_checks``, the D = 64 bounds), bf16 and fp32, at
     Swin-T's four stage shapes (B = 16, the shift mask in stages 0-2), a
-    per-cell bias (C = 3) and an odd N; a D = 48 call refused.  Returns the
-    max abs errors of the bf16 stage-0 case."""
+    per-cell bias (C = 3) and an odd N; in bf16 also at the four stage folds
+    at the training batch (B = 64: K7's batch in four chunks); a D = 48 call
+    refused.  Returns the max abs errors of the bf16 stage-0 case."""
     main = None
     for dtype in (torch.bfloat16, torch.float32):
         label = "bf16" if dtype == torch.bfloat16 else "fp32"
-        cases = [(f"stage {i}", SWIN_CHECK_BATCH, 1, res, SWIN_WINDOW, heads)
-                 for i, (res, heads) in enumerate(SWIN_STAGES)]
+        batches = (SWIN_CHECK_BATCH, SWIN_TIMED_BATCH) if dtype == torch.bfloat16 else (
+            SWIN_CHECK_BATCH,)
+        cases = [(f"stage {i} B={b}", b, 1, res, SWIN_WINDOW, heads)
+                 for b in batches for i, (res, heads) in enumerate(SWIN_STAGES)]
         cases += [(f"edge C={c} N={ws * ws}", b, c, res, ws, heads)
                   for b, c, res, ws, heads in SWIN_EDGES]
         for name, b, c, res, ws, heads in cases:
@@ -1262,16 +1387,24 @@ def swin_kernel_timing(attn, rand, result: dict) -> None:
         for key in ("dq", "dkv"):
             rows[key]["library_ms"] = sdpa_bwd
             rows[key]["library_computes"] = "dq, dk and dv in one SDPA backward"
-        k7 = {"ms": _device_ms(lambda: attn.attention_bias_grad(q, k, v, do, lse, scale, bias,
-                                                                delta=delta), reps),
-              "plain_ms": _device_ms(lambda: attn._bias_grad_plain(q, k, v, do, lse, scale, bias,
-                                                                   delta=delta), 10),
-              "library_ms": _sdpa_bias_bwd_ms(q, k, v, bias, do, reps, scale)}
-        k7["bound_ms"], k7["bound_by"] = bias_bound(b, h, n, d, 1, 2)
-        rows["k7"] = k7
         for key, row in rows.items():
             _print_timing(f"D=32 swin stage {stage} {key}", b, shape, row)
         result[stage] = rows
+    result["k7"] = {}
+    for stage in SWIN_K7_TIMED_STAGES:
+        res, heads = SWIN_STAGES[stage]
+        ws = min(SWIN_WINDOW, res)
+        bias = swin_bias(rand, 1, res, ws, heads, ws < res, torch.bfloat16)
+        shape = (b, bias.shape[0], ws * ws, SWIN_HEAD_DIM)
+        scale = SWIN_HEAD_DIM ** -0.5
+        q, k, v, do = (rand(shape, torch.bfloat16) for _ in range(4))
+        o, lse = attn.flash_attention_fwd(q, k, v, bias, scale, return_lse=True)
+        _, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, scale, bias)
+        k7 = bias_grad_times(attn, q, k, v, do, o, lse, delta, bias, scale, 100)
+        k7["bound_ms"], k7["bound_by"] = bias_bound(*shape, 1, 2)
+        k7["bound_from_o_ms"], _ = bias_bound(*shape, 1, 2, from_o=True)
+        result["k7"][stage] = k7
+        _print_timing(f"D=32 swin stage {stage} k7", b, shape, k7)
 
 
 def swin_kernel_phase(timing: bool = True) -> dict:
@@ -6715,29 +6848,37 @@ def _device_breakdown(fn, reps: int, top: int = 6, host_top: int = 0):
     return sum(t for _, t in rows), launches / reps, rows[:top]
 
 
+def _timed(phase, *args):
+    """``phase(*args)``, its wall seconds printed: the whole script has 1,200."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"phase {phase.__name__} seconds {time.perf_counter() - t0:.1f}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
     smi = environment_phase()
-    build_phase(ptxas_verbose=True)
-    kern = kernel_phase()
-    kbias = bias_kernel_phase()
-    kern8 = int8_kernel_phase()
-    fused = fused_kernel_phase()
-    slc = slice_phase(smi)
-    trn = train_phase(smi)
-    trn8 = int8_train_phase(smi, trn["images_per_s"])
-    graph_phase(smi)
-    drv = driver_phase(smi)
-    methods_phase(smi)
-    tower = tower_phase(smi)
-    zs = zeroshot_phase(smi)
-    fs = fullshot_phase(smi)
-    ss = streaming_phase(smi)
-    rn = resnet_phase(smi)
-    sw = swin_phase(smi)
+    _timed(build_phase, True)
+    kern = _timed(kernel_phase)
+    kbias = _timed(bias_kernel_phase)
+    kern8 = _timed(int8_kernel_phase)
+    fused = _timed(fused_kernel_phase)
+    slc = _timed(slice_phase, smi)
+    trn = _timed(train_phase, smi)
+    trn8 = _timed(int8_train_phase, smi, trn["images_per_s"])
+    _timed(graph_phase, smi)
+    drv = _timed(driver_phase, smi)
+    _timed(methods_phase, smi)
+    tower = _timed(tower_phase, smi)
+    zs = _timed(zeroshot_phase, smi)
+    fs = _timed(fullshot_phase, smi)
+    ss = _timed(streaming_phase, smi)
+    rn = _timed(resnet_phase, smi)
+    sw = _timed(swin_phase, smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
@@ -6830,6 +6971,8 @@ def main() -> int:
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
+        "bound_from_o_ms": row["bound_from_o_ms"],
+        "split": row["split"],
         "library_ms": row["library_ms"],
         "library_computes": "dq, dk, dv and the mask's gradient in one "
                             "scaled_dot_product_attention backward with a float attn_mask",
@@ -6916,9 +7059,11 @@ def main() -> int:
                                                  "k7": "dbias"}[key]],
             "launches_per_swin_step": sw["fullshot"]["per_replay"].get(
                 wrapper[line["name"]], 0),
-            **{f"stage{st}": {k: v for k, v in kswin[st][key].items()
-                              if k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-               for st in SWIN_TIMED_STAGES}}
+            **{f"stage{st}": {k: v for k, v in (kswin["k7"][st] if key == "k7"
+                                                else kswin[st][key]).items()
+                              if k in ("ms", "ms_from_o", "plain_ms", "bound_ms", "bound_by",
+                                       "bound_from_o_ms", "library_ms", "split")}
+               for st in (SWIN_K7_TIMED_STAGES if key == "k7" else SWIN_TIMED_STAGES)}}
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -241,15 +241,21 @@ _SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "flash_attn_bwd": {
         "flash_attn_bwd_dq": [_INT, *[_PTR] * 9, *[_INT] * 5, _FLOAT, _INT, _PTR],
         "flash_attn_bwd_dkv": [_INT, *[_PTR] * 9, *[_INT] * 5, _FLOAT, _INT, _PTR],
+        "flash_attn_bwd_smem_bytes": [_INT],  # D -> bytes
     },
     "attn_bias_grad": {
-        "attn_bias_grad": [_INT, *[_PTR] * 9, *[_INT] * 5, _FLOAT, _INT, _PTR],
+        # ..., dbias, partial, B, H, N, D, C, chunk elements, scale, is_bf16, stream
+        "attn_bias_grad": [_INT, *[_PTR] * 10, *[_INT] * 6, _FLOAT, _INT, _PTR],
+        "attn_bias_grad_smem_bytes": [_INT, _INT, _INT],  # D, from o, chunk elements -> bytes
     },
     "fused_short_attn": {
         "fused_short_attn_fwd": [_INT, *[_PTR] * 5, *[_INT] * 4, _FLOAT, _INT, _PTR],
         "fused_short_attn_bwd": [_INT, *[_PTR] * 9, *[_INT] * 4, _FLOAT, _INT, _PTR],
+        "fused_short_attn_bwd_smem_bytes": [],  # -> bytes
     },
 }
+# every library's error string: a cudaError_t -> its name
+_ERROR_STRING = ("flash_attn_error_string", [_INT], ctypes.c_char_p)
 
 
 def _kernel_library(name: str) -> ctypes.CDLL:
@@ -259,8 +265,8 @@ def _kernel_library(name: str) -> ctypes.CDLL:
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
-        lib.flash_attn_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attn_error_string.restype = ctypes.c_char_p
+        fn, argtypes, restype = _ERROR_STRING
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = list(argtypes), restype
         lib._argtypes_set = True
     return lib
 
@@ -375,8 +381,7 @@ def _check_bwd_operands(q, k, v, do, named_rows, named_full=(), bias=None) -> No
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def _launch_bwd(fn_name: str, named, rows, outs, scale: float, bias=None,
-                library: str = "flash_attn_bwd") -> None:
+def _launch_bwd(fn_name: str, named, rows, outs, scale: float, bias=None) -> None:
     """Checks shared by the backward wrappers, then one launch: ``named``
     the (B, H, N, D) operands in the kernel's order (None: an absent one),
     then the fp32 rows ``rows`` it reads (None: an absent one), the bias and
@@ -386,7 +391,7 @@ def _launch_bwd(fn_name: str, named, rows, outs, scale: float, bias=None,
             raise TypeError(f"{name} must be float32 on the card, got {t.dtype}")
     _check_kernel_operands(fn_name, [(n, t) for n, t in (*named, *rows) if t is not None])
     bias = _kernel_bias(bias)
-    lib = _kernel_library(library)
+    lib = _kernel_library("flash_attn_bwd")
     q = named[0][1]
     b, h, n, d = q.shape
     err = getattr(lib, fn_name)(
@@ -458,6 +463,24 @@ def flash_attention_bwd_dkv(
 flash_attention_bwd_dkv.launches = 0
 
 
+# K7 (bf16) splits each cell's batch into chunks of this many elements (the
+# last may be short; the kernel takes at most 16), each chunk a block of its
+# own a tile.  On the H100, 16 was faster than 4 or 8 at ViT-B/16's B = 16
+# and at three of Swin-T's four stage folds at B = 64 (PERF.md, section 6).
+BIAS_GRAD_CHUNK = 16
+
+
+def bias_grad_split(bias_batch: int) -> int:
+    """The chunks of ``BIAS_GRAD_CHUNK`` elements K7 (bf16) splits the batch
+    of one bias cell into: a function of the per-cell batch alone, never of
+    the number of cells, the heads or the card, so that a sweep round of
+    cells sums each cell in the order that cell alone does, bit for bit.
+    Chunk i holds elements ``16 i .. min(16 (i + 1), bias_batch) - 1``."""
+    if bias_batch <= 0:
+        raise ValueError(f"no split for a per-cell batch of {bias_batch}")
+    return -(-bias_batch // BIAS_GRAD_CHUNK)
+
+
 def attention_bias_grad(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, scale: float, bias: torch.Tensor,
@@ -478,20 +501,47 @@ def attention_bias_grad(
 
     CUDA tensors launch ``attn_bias_grad`` of ``csrc/attn_bias_grad.cu``
     (D = 32 or 64) on the current stream and count the launch in
-    ``attention_bias_grad.launches``; any operand the kernel does not take
-    raises.  CPU tensors run the plain version and launch nothing."""
+    ``attention_bias_grad.launches``; in bf16 each cell's batch is split by
+    ``bias_grad_split`` and the partials, in an fp32 workspace of (chunks,
+    C, H, N, N), are summed in chunk order.  Any operand the kernel does not
+    take raises.  CPU tensors run the plain version and launch nothing."""
     if (delta is None) == (o is None):
         raise ValueError("give the bias gradient delta or o, one of the two")
     rows = (("lse", lse),) + ((("delta", delta),) if delta is not None else ())
     _check_bwd_operands(q, k, v, do, rows, (("o", o),) if o is not None else (), bias)
     if q.device.type == "cpu":
         return _bias_grad_plain(q, k, v, do, lse, float(scale), bias, delta, o)
-    dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
-    # the kernel's order: q, k, v, dO, o, lse, delta, bias, dbias
-    _launch_bwd("attn_bias_grad", (("q", q), ("k", k), ("v", v), ("do", do), ("o", o)),
-                (("lse", lse), ("delta", delta)), (dbias,), scale, bias,
-                library="attn_bias_grad")
+    dbias = _bias_grad_launch(q, k, v, do, lse, float(scale), bias, delta, o)
     attention_bias_grad.launches += 1
+    return dbias
+
+
+def _bias_grad_launch(q, k, v, do, lse, scale: float, bias, delta=None,
+                      o=None) -> torch.Tensor:
+    """One call of ``attn_bias_grad`` on checked CUDA operands, its
+    workspace from torch's allocator on the current stream, so that the call
+    can be captured in a CUDA graph."""
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 on the card, got {t.dtype}")
+    named = [("q", q), ("k", k), ("v", v), ("do", do), ("o", o), ("lse", lse), ("delta", delta)]
+    _check_kernel_operands("attn_bias_grad", [(n, t) for n, t in named if t is not None])
+    bias = _kernel_bias(bias)
+    b, h, n, d = q.shape
+    cells = _bias_cells(bias)
+    chunks = bias_grad_split(b // cells)
+    dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+    partial = None
+    if q.dtype == torch.bfloat16 and chunks > 1:
+        partial = torch.empty((chunks, cells, h, n, n), dtype=torch.float32, device=q.device)
+    lib = _kernel_library("attn_bias_grad")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = lib.attn_bias_grad(
+        _device_index(q), *(ptr(t) for _, t in named), bias.data_ptr(), dbias.data_ptr(),
+        ptr(partial), b, h, n, d, cells, BIAS_GRAD_CHUNK, scale,
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, lib, "attn_bias_grad")
     return dbias
 
 

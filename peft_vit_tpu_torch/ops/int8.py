@@ -111,19 +111,22 @@ def _static_forward(x: torch.Tensor, w_i8: torch.Tensor, s_w: torch.Tensor,
 # ---------------------------------------------------------------- the kernel's wrappers
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# the library's functions: (argtypes, restype)
+_SIGNATURES = {
+    # device, x, w_i8, s_w, s_x, out, M, K, N, is_bf16, stream
+    "int8_gemm": ([_INT, *[_PTR] * 5, *[_INT] * 4, _PTR], _INT),
+    "int8_gemm_error_string": ([_INT], ctypes.c_char_p),
+    "int8_gemm_smem_bytes": ([_INT], _INT),  # K -> bytes
+    "int8_gemm_stages": ([_INT], _INT),  # K -> stages
+}
 
 
 def _kernel_library() -> ctypes.CDLL:
     """``csrc/int8_gemm.cu`` built and loaded, its functions' signatures set."""
     lib = _build.load("int8_gemm")
     if not getattr(lib, "_argtypes_set", False):
-        # device, x, w_i8, s_w, s_x, out, M, K, N, is_bf16, stream
-        lib.int8_gemm.argtypes = [_INT, *[_PTR] * 5, *[_INT] * 4, _PTR]
-        lib.int8_gemm.restype = ctypes.c_int
-        lib.int8_gemm_error_string.argtypes = [ctypes.c_int]
-        lib.int8_gemm_error_string.restype = ctypes.c_char_p
-        for fn in (lib.int8_gemm_smem_bytes, lib.int8_gemm_stages):  # K -> bytes, stages
-            fn.argtypes, fn.restype = [_INT], _INT
+        for fn, (argtypes, restype) in _SIGNATURES.items():
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = list(argtypes), restype
         lib._argtypes_set = True
     return lib
 
