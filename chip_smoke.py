@@ -126,8 +126,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    choose alike;
 10. methods: each PEFT method beside LoRA (``METHODS``: KAdaptation, the
    Houlsby adapter, AdapterDrop, Compacter, the LoRA variants, LePE, VPT
-   shallow and deep, the transformer probe) at ViT-B/16 from
-   ``vitb16_CLIP.yaml`` through ``build_image_classifier``, every leaf drawn
+   shallow and deep, the transformer probe) at ViT-B/16's width from
+   ``vitb16_CLIP.yaml``, 6 of its 12 blocks (``METHOD_DEPTH``, for the
+   script's time), through ``build_image_classifier``, every leaf drawn
    nonzero: a 5-image request through ``ServingSession`` (top-1 and the bf16
    bound against the fp32 CPU forward, the captured bucket equal to eager);
    a captured round of 3 cells, one step at B=16, equal to eager, its
@@ -140,7 +141,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 11. tower: RPB and the six methods that train a subset of the pretrained
    tower (``TOWER_METHODS``: full, bitfit, layernorm, attention,
    first_attention and first_mlp, the last two with
-   ``TRAIN.CACHE_FROZEN_PREFIX`` False) at ViT-B/16, each served and trained
+   ``TRAIN.CACHE_FROZEN_PREFIX`` False) at the methods phase's ViT-B/16
+   (6 blocks), each served and trained
    as a captured round of 3 as in the methods phase, with K7 in the launch
    rule; the frozen remainder bit-identical; a one-cell round's first step
    against the one-cell step (cosine of each leaf's momentum); RPB's update
@@ -215,9 +217,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 15. resnet: the ResNet family.  The determinism probe: every convolution of
    the ResNet-50 v1 step (B = 64, 224 px, bf16, channels-last) and of the
    CLIP RN50 tower (a round's folded batch, and the grouped convolutions of
-   per-cell weights), each gradient computed three times with cuDNN's
-   default algorithms (the form ``models.resnet._Conv2d`` runs; each must
-   repeat) and with its deterministic ones, bit for bit or not.  RN50 CLIP
+   per-cell weights), each gradient computed three times under the cuDNN
+   algorithms ``models.resnet._Conv2d`` runs for its dtype (the default ones
+   for bf16); each must repeat bit for bit.  RN50 CLIP
    (rn50_CLIP.yaml) at 224 px, weights from a numpy seed, bf16: served
    through ``ServingSession`` (buckets 1, 8 and 32; captured == eager, no
    kernel launched, top-1 and logits against fp32 on the CPU, fp32 on the
@@ -252,6 +254,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    fp32 ``finetune_main`` card against CPU.  ConvViT and CSwin at a tiny
    size: fp32 card against CPU, a captured step == eager, K1-K7 launched 0
    times; their convolutions in the determinism probe.
+17. zoo: the zoo's other CNNs.  The determinism probe over every
+   convolution of the EfficientNet-B0, ReXNet 1.0x, TTNet v2 and HRNet-W18
+   full-shot steps (B = 64, 224 px, bf16; the depthwise convs at kernel 3
+   and 5, strides 1 and 2), of B0's linear-probe round (the folded batch)
+   and of a per-cell round (the grouped form), and of HRNet v2 with grouped
+   blocks.  Every tower built at its width and run (the four at 224 px,
+   HRNet v2 / v2_share / v3 / v4 and TTNet v3 at the JAX tests' configs, 64
+   px).  B0 (efficientnet_b0.yaml) served in bf16 (buckets 1, 8, 32;
+   captured == eager, top-1 and logits against fp32 on the CPU, fp32 card
+   against CPU, latency); a captured linear-probe round of 3 at B = 16
+   against it eager and each cell against it alone through float64; the
+   logistic probe and ``finetune_main`` linear (a round of 3 cells, the
+   final train).  ``train_main`` at B = 64 on B0 (2 epochs of 2 steps) and
+   HRNet-W18 (1 epoch of 2): the first step captured == eager, a resumed run
+   == the uninterrupted one, ``update_bn``, the step's time (B0's busy time
+   and idle share; HRNet's is not profiled); on ReXNet and TTNet v2 (1
+   epoch): the first step captured == eager, the step's time, busy time and
+   idle share; the five small towers served in fp32 (captured == eager,
+   card against CPU).  K1-K7 launched 0 times on every path.
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -260,6 +281,7 @@ numbers and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -2152,9 +2174,9 @@ def _serving_graphs(session, per_replay: dict, counted: int, batches: int, label
           "forward batches")
 
 
-def _serving_latency(session, label: str, rng, smi: str) -> dict:
+def _serving_latency(session, label: str, rng, smi: str, profiled=BUCKETS) -> dict:
     """Median request time per bucket on the host clock, and the device's
-    share of it from the profiler."""
+    share of it from the profiler (for the buckets in ``profiled``)."""
     latency = {}
     for b in BUCKETS:
         x = rng.standard_normal((b, IMAGE, IMAGE, 3)).astype(np.float32)
@@ -2168,6 +2190,8 @@ def _serving_latency(session, label: str, rng, smi: str) -> dict:
         latency[b] = ms
         print(f"slice latency {label} bucket {b}: {ms:.3f} ms/request, {b / ms * 1e3:.1f} images/s "
               f"(median of 10, host clock, NHWC fp32 in -> fp32 logits out; {smi})")
+        if b not in profiled:
+            continue
         device_ms, n_launches, top = _device_breakdown(lambda: session.predict(x), reps=3)
         if device_ms is None:
             print(f"slice profile {label} bucket {b}: device time not measured (the profiler "
@@ -3018,13 +3042,15 @@ def round_phase(smi: str, tree, x, y, valid, device: str = "cuda") -> dict:
 # The driver: finetune_main through the port at the full width of ViT-B/16
 # (vitb16_CLIP.yaml), the synthetic dataset 5-way 4-shot, batch 16, 2 epochs a
 # cell, a 3-point wd grid under the default 6-point lr grid: 18 cells, then the
-# final train on train+val for 2 + EXTRA_FINAL_TRAIN_EPOCH (40, the yaml's)
-# epochs.
+# final train on train+val for 2 + EXTRA_FINAL_TRAIN_EPOCH epochs, cut from the
+# yaml's 40 to 2 for the script's time (every drive of the script that takes
+# DRIVER or ZS: 4 final epochs, not 42).
 MODEL_YAML = "peft_vit_tpu/resources/model/vitb16_CLIP.yaml"
+DRIVE_EXTRA_FINAL_EPOCHS = 2
 DRIVER = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": 5,
           "DATASET.NUM_SAMPLES_PER_CLASS": 4, "TRAIN.BATCH_SIZE_PER_GPU": 16,
           "TRAIN.END_EPOCH": 2, "TRAIN.SEARCH_WD_POINTS": 3, "TRAIN.SEARCH_WD_INIT_POINTS": 3,
-          "PEFT.METHOD": "lora"}
+          "TRAIN.EXTRA_FINAL_TRAIN_EPOCH": DRIVE_EXTRA_FINAL_EPOCHS, "PEFT.METHOD": "lora"}
 DRIVER_CELLS = 6 * 3
 # The card-vs-CPU check of the driver: the SKILL.md tiny drive (clip_tiny,
 # 16 px, 2 layers) in fp32 with a 2-lr grid over a 5-point wd grid up to
@@ -3503,7 +3529,12 @@ TOL_METHOD_EXACT_RATIO = 2.0
 TOL_METHOD_EXACT_FLOOR = 1e-4
 METHODS_INT8 = ("kadaptation", "adapter")  # also under INT8_FWD_TRAIN + INT8_BWD_DX
 METHOD_BUCKET = 8  # the serving bucket of the 5-image request
-METHOD_MODEL: dict = {}  # config overrides of the model (a CPU rehearsal shrinks it here)
+# config overrides of the methods' and tower methods' model: ViT-B/16 cut to 6
+# of its 12 blocks for the script's time, AdapterDrop on the last (a CPU
+# rehearsal shrinks it here)
+METHOD_DEPTH = 6
+METHOD_MODEL: dict = {"MODEL.SPEC.VISION.LAYERS": METHOD_DEPTH,
+                      "PEFT.ADAPTER_LAYERS": [METHOD_DEPTH - 1]}
 
 
 def _leaves_of(tree: dict, prefix=()):
@@ -3831,8 +3862,8 @@ def method_round(label: str, over: dict, tree: dict, data, smi: str, device: str
 
 
 # RPB and the six methods that train a subset of the pretrained tower (phase
-# 11), each at ViT-B/16 from vitb16_CLIP.yaml as the methods phase builds
-# them; first_attention and first_mlp train block 1, so they run with
+# 11), each at ViT-B/16's width from vitb16_CLIP.yaml as the methods phase
+# builds them (``METHOD_MODEL``); first_attention and first_mlp train block 1, so they run with
 # TRAIN.CACHE_FROZEN_PREFIX False, as in the CPU tests.  attention and full
 # also under INT8_FWD_TRAIN + INT8_BWD_DX; RPB and bitfit through the whole
 # driver.
@@ -3968,7 +3999,8 @@ ZS_TEST_BATCH = 16  # TEST.BATCH_SIZE_PER_GPU of those drives: the training batc
 ZS = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": ZS_CLASSES,
       "DATASET.NUM_SAMPLES_PER_CLASS": 4, "TRAIN.BATCH_SIZE_PER_GPU": 16,
       "TEST.BATCH_SIZE_PER_GPU": ZS_TEST_BATCH, "TRAIN.END_EPOCH": 2,
-      "TRAIN.SEARCH_WD_POINTS": 3, "TRAIN.SEARCH_WD_INIT_POINTS": 3}
+      "TRAIN.SEARCH_WD_POINTS": 3, "TRAIN.SEARCH_WD_INIT_POINTS": 3,
+      "TRAIN.EXTRA_FINAL_TRAIN_EPOCH": DRIVE_EXTRA_FINAL_EPOCHS}
 LOGISTIC_CLASSES = 2  # the logistic drive's task: its CPU run extracts 48 images' features
 ZS_LRS = (1e-3,)  # the contrastive drives' sweep: one round of 3 (lr, wd) cells
 # The cached-prefix drives, each against the same drive through the whole
@@ -5583,13 +5615,13 @@ def conv_kind(w_shape, stride: int, groups: int) -> str:
 
 
 def conv_determinism_probe(signatures, label: str) -> list:
-    """Each convolution's input and weight gradients (cuDNN's default
-    algorithms, as ``_Conv2d`` runs them) computed ``RN_PROBE_REPEATS``
-    times on the same operands, channels-last as the towers give them; then
-    the same with cuDNN's deterministic algorithms.  Rows: the conv's kind,
-    shapes and whether each gradient repeated bit for bit; each fails the
-    run if the default algorithm did not (``_Conv2d`` would then have to
-    take the deterministic one)."""
+    """Each convolution's input and weight gradients computed
+    ``RN_PROBE_REPEATS`` times on the same operands, channels-last as the
+    towers give them, under the cuDNN algorithms ``_Conv2d`` runs for their
+    dtype (``resnet.deterministic_backward``: the default ones for bf16, the
+    deterministic ones for fp32).  Rows: the conv's kind, shapes, the
+    algorithms and whether each gradient repeated bit for bit; each fails
+    the run if one did not."""
     from peft_vit_tpu_torch.models import resnet as rn
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -5602,31 +5634,30 @@ def conv_determinism_probe(signatures, label: str) -> list:
         out = torch.nn.functional.conv2d(x, w, None, stride, padding, 1, groups)
         g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype).contiguous(
             memory_format=torch.channels_last)
+        det = rn.deterministic_backward(dtype)
         row = {"kind": conv_kind(ws, stride, groups), "x": list(xs), "w": list(ws),
-               "dtype": str(dtype).split(".")[-1]}
-        for det in (False, True):
-            for which in ("dx", "dw"):
-                outs = []
-                for _ in range(RN_PROBE_REPEATS):
-                    with rn._cudnn(dtype, det):
-                        if which == "dx":
-                            outs.append(torch.nn.grad.conv2d_input(
-                                x.shape, w, g, stride, padding, 1, groups))
-                        else:
-                            outs.append(torch.nn.grad.conv2d_weight(
-                                x, w.shape, g, stride, padding, 1, groups))
-                same = all(torch.equal(outs[0], o) for o in outs[1:])
-                row[f"{which}_{'deterministic' if det else 'default'}_repeats"] = same
+               "dtype": str(dtype).split(".")[-1],
+               "form": "deterministic" if det else "default"}
+        for which in ("dx", "dw"):
+            outs = []
+            for _ in range(RN_PROBE_REPEATS):
+                with rn._cudnn(dtype, det):
+                    if which == "dx":
+                        outs.append(torch.nn.grad.conv2d_input(
+                            x.shape, w, g, stride, padding, 1, groups))
+                    else:
+                        outs.append(torch.nn.grad.conv2d_weight(
+                            x, w.shape, g, stride, padding, 1, groups))
+            row[f"{which}_repeats"] = all(torch.equal(outs[0], o) for o in outs[1:])
         rows.append(row)
         print(f"determinism {label} {row['kind']} x {xs} w {ws} {row['dtype']}: dx repeats "
-              f"{row['dx_default_repeats']} (deterministic {row['dx_deterministic_repeats']}), "
-              f"dw repeats {row['dw_default_repeats']} (deterministic "
-              f"{row['dw_deterministic_repeats']}); form: cuDNN's default", flush=True)
-    bad = [f"{r['kind']} w {r['w']}" for r in rows
-           if not (r["dx_default_repeats"] and r["dw_default_repeats"])]
+              f"{row['dx_repeats']}, dw repeats {row['dw_repeats']}; form: cuDNN's "
+              f"{row['form']}", flush=True)
+    bad = [f"{r['kind']} w {r['w']}" for r in rows if not (r["dx_repeats"] and r["dw_repeats"])]
+    forms = sorted({r["form"] for r in rows})
     check(not bad, f"determinism {label}: {len(rows)} convolutions' dx and dw repeat bit for "
-          "bit under cuDNN's default algorithms (the form `_Conv2d` runs)"
-          + (f"; not: {bad[:4]}" if bad else ""))
+          f"bit under cuDNN's {' and '.join(forms)} algorithms (the form `_Conv2d` runs for "
+          "their dtype)" + (f"; not: {bad[:4]}" if bad else ""))
     return rows
 
 
@@ -5885,12 +5916,23 @@ def rn_zeroshot_check(smi: str, device: str) -> dict:
 
 
 def rn_round_check(smi: str, device: str) -> dict:
-    """A captured round of 3 bitfit cells on the RN50 CLIP tower (bf16, B=16,
-    224 px, the channel-BN head, every BN statistic per cell, the tower's BN in
-    train mode as the few-shot step runs it): one step equal to it eager bit
-    for bit, statistics included; no kernel launched; the round's time; each
+    """A captured round of 3 bitfit cells on the RN50 CLIP tower
+    (``cnn_round_check``)."""
+    cfg = driver_cfg({**RN_CLIP, **RN_MODEL, "PEFT.METHOD": "bitfit"}, RN_CLIP_YAML)
+    return cnn_round_check("rn50 bitfit", cfg, "bitfit", 4, SEED + 63, SEED + 64, RN_ZERO_GRAD,
+                           smi, device)
+
+
+def cnn_round_check(label: str, cfg, method: str, num_layers: int, state_seed: int,
+                    data_seed: int, zero_grad, smi: str, device: str) -> dict:
+    """A captured round of 3 ``method`` cells on the BatchNorm tower of
+    ``cfg`` (bf16, B=16, the channel-BN head, every BN statistic per cell,
+    the tower's BN in train mode as the few-shot step runs it; the weights
+    from ``RandomState(state_seed)``): one step equal to it eager bit for
+    bit, statistics included; no kernel launched; the round's time; each
     cell against the same cell trained alone, through float64
-    (``_rn_round_exact``)."""
+    (``_round_exact``; ``zero_grad``: the leaves whose gradient is zero in
+    exact arithmetic, left out of the bf16 comparison)."""
     import bench_torch
     from peft_vit_tpu_torch.engine import (ce_per_example, init_cell_state, make_apply_fn,
                                            make_epoch_fn, step_decay_lr)
@@ -5898,17 +5940,16 @@ def rn_round_check(smi: str, device: str) -> dict:
     from peft_vit_tpu_torch.ops import launch_counts
     from peft_vit_tpu_torch.peft import build_mask, spec_from_config, split_params
 
-    cfg = driver_cfg({**RN_CLIP, **RN_MODEL, "PEFT.METHOD": "bitfit"}, RN_CLIP_YAML)
     model = build_image_classifier(cfg, spec_from_config(cfg), NUM_CLASSES, use_bn=True,
                                    device=device)[0]
-    model.load_state_dict(rn_numpy_state(model, np.random.RandomState(SEED + 63)))
-    mask = build_mask(model, "bitfit", num_layers=4)
+    model.load_state_dict(rn_numpy_state(model, np.random.RandomState(state_seed)))
+    mask = build_mask(model, method, num_layers=num_layers)
     trainable, _ = split_params(model, mask)
     cast_frozen_(model)
     apply_fn = make_apply_fn(model)
     bn = {k: v for k, v in model.named_buffers() if k.endswith(("bn_mean", "bn_var"))}
     k = len(ROUND_LRS)
-    rng = np.random.RandomState(SEED + 64)
+    rng = np.random.RandomState(data_seed)
     image = int(cfg.TRAIN.IMAGE_SIZE[0])
     x = torch.as_tensor(rng.standard_normal((TRAIN_BATCH, image, image, 3)).astype(np.float32),
                         device=device)
@@ -5934,15 +5975,15 @@ def rn_round_check(smi: str, device: str) -> dict:
               if not torch.equal(v, getattr(captured, part)[n])]
     n_state = sum(len(getattr(eager, part)) for part in parts)
     check(not differ and torch.equal(loss, eager_loss) and bool(loss.isfinite().all()),
-          f"rn50 bitfit: a round of {k} cells, one step at B={TRAIN_BATCH}, captured == eager "
+          f"{label}: a round of {k} cells, one step at B={TRAIN_BATCH}, captured == eager "
           f"bit for bit ({n_state} state tensors: {len(start)} trainable leaves, their momentum, "
           f"{len(bn)} BN statistics; losses " + " ".join(f"{float(v):.4f}" for v in loss) + ")"
           + (f"; differ: {differ[:4]}" if differ else ""))
     graph = graphs.get(("step", k, TRAIN_BATCH))
     want = launch_rule(model, trainable, k)
     if device == "cuda":
-        _per_replay(graph, want, f"rn50 bitfit: one step of a round of {k}")
-    check(counts == {}, f"rn50 bitfit round: kernels launched {counts} (none)")
+        _per_replay(graph, want, f"{label}: one step of a round of {k}")
+    check(counts == {}, f"{label} round: kernels launched {counts} (none)")
     one = make_epoch_fn(apply_fn, ce_per_example, TRAIN_BATCH, has_bn=True)
     cos, alone = {}, []
     with bench_torch.eager_on_card():
@@ -5953,7 +5994,7 @@ def rn_round_check(smi: str, device: str) -> dict:
                 cos[(c, n)] = torch.nn.functional.cosine_similarity(
                     v.double().flatten(), captured.momentum[n][c].double().flatten(), dim=0).item()
     least = min(cos, key=cos.get)
-    print(f"rn50 bitfit bf16: each of {k} cells against the cell trained alone, momentum "
+    print(f"{label} bf16: each of {k} cells against the cell trained alone, momentum "
           f"cosine per leaf: least {cos[least]:.6f} (cell {least[0]}, {least[1]}), median "
           f"{statistics.median(cos.values()):.6f}; printed, not held: the round's convs see a "
           "batch of 48 against 16 and round their bf16 outputs otherwise, and on this "
@@ -5962,13 +6003,13 @@ def rn_round_check(smi: str, device: str) -> dict:
     row = {"round_ms": None, "launches": counts, "bf16_least_cos": cos[least]}
     if device == "cuda" and graph is not None:
         row["round_ms"] = _replay_ms(graph, 5)
-        print(f"rn50 bitfit round of {k} at B={TRAIN_BATCH}: captured {row['round_ms']:.3f} ms a "
+        print(f"{label} round of {k} at B={TRAIN_BATCH}: captured {row['round_ms']:.3f} ms a "
               f"step ({k * TRAIN_BATCH / row['round_ms'] * 1e3:.1f} cell-images/s); {smi}",
               flush=True)
     del graphs, graph, epoch
     gc_collect(device == "cuda")
-    row["exact"] = _rn_round_exact(model, draws, bn, x, y, valid, perm, lrs, wds,
-                                   {"round": captured, "alone": alone}, device)
+    row["exact"] = _round_exact(label, model, draws, bn, x, y, valid, perm, lrs, wds,
+                                {"round": captured, "alone": alone}, zero_grad, device)
     del captured, eager, model
     return row
 
@@ -5984,15 +6025,16 @@ def _as_float64(model):
     return model.double()
 
 
-def _rn_round_exact(model, draws, bn, x, y, valid, perm, lrs, wds, bf16_round, device: str):
-    """The bitfit round of ``rn_round_check`` against float64 on the card:
+def _round_exact(label: str, model, draws, bn, x, y, valid, perm, lrs, wds, bf16_round,
+                 zero_grad, device: str):
+    """The round of ``cnn_round_check`` against float64 on the card:
     the float64 round equal to its cells trained alone in float64 (max |diff|
     <= 1e-9 of each state tensor's largest change over the step: a cell's lr,
     wd, state or batch taken for another's shows); the bf16 round's update
     (its momentum after the step, the gradient plus wd p) against the
     float64 one no farther than the bf16 cells trained alone
     (``TOL_METHOD_EXACT_RATIO`` x their mean 1 - cosine +
-    ``TOL_METHOD_EXACT_FLOOR``), the leaves of ``RN_ZERO_GRAD`` left out."""
+    ``TOL_METHOD_EXACT_FLOOR``), the leaves of ``zero_grad`` left out."""
     import bench_torch
     from peft_vit_tpu_torch.engine import (ce_per_example, init_cell_state, make_apply_fn,
                                            make_epoch_fn)
@@ -6023,13 +6065,13 @@ def _rn_round_exact(model, draws, bn, x, y, valid, perm, lrs, wds, bf16_round, d
                 if ratio > worst[0]:
                     worst = (ratio, f"cell {c} {part} {name}")
     check(worst[0] <= 1e-9,
-          f"rn50 bitfit float64: a round of {k} against its cells trained alone, every state "
+          f"{label} float64: a round of {k} against its cells trained alone, every state "
           f"tensor's change over one step: max |diff| / max |change| {worst[0]:.3e} <= 1e-9 "
           f"({worst[1]})")
     miss = {"round": [], "alone": []}
     for c in range(k):
         for name, exact in alone[c].momentum.items():
-            if name in RN_ZERO_GRAD:
+            if name in zero_grad:
                 continue
             e = exact.double().flatten()
             miss["round"].append(1.0 - torch.nn.functional.cosine_similarity(
@@ -6038,7 +6080,7 @@ def _rn_round_exact(model, draws, bn, x, y, valid, perm, lrs, wds, bf16_round, d
                 bf16_round["alone"][c].momentum[name].double().flatten(), e, dim=0).item())
     got, base = statistics.fmean(miss["round"]), statistics.fmean(miss["alone"])
     check(got <= TOL_METHOD_EXACT_RATIO * base + TOL_METHOD_EXACT_FLOOR,
-          f"rn50 bitfit bf16: the round's update against float64, {len(miss['round'])} (cell, "
+          f"{label} bf16: the round's update against float64, {len(miss['round'])} (cell, "
           f"leaf) pairs: mean 1 - cosine {got:.3e} <= {TOL_METHOD_EXACT_RATIO:g} x the cells "
           f"trained alone's {base:.3e} + {TOL_METHOD_EXACT_FLOOR:g}")
     del m64
@@ -6074,23 +6116,34 @@ def dropblock_card_check(smi: str, device: str) -> dict:
 
 def r50_fullshot_check(smi: str, device: str) -> dict:
     """``train_main`` on r50_s3.yaml's ResNet-50 v1 with DropBlock (see
-    ``R50_FULLSHOT``): every step and eval batch one replay, no kernel
-    launched (``launch_rule``), finite losses; the first step captured == eager
-    bit for bit, BN statistics included; a run stopped after its first
-    mid-epoch checkpoint and resumed == the uninterrupted run bit for bit
-    (trainable, momentum, BN statistics, the drop generator's state);
-    ``update_bn`` against the stem BN's batch means; the step's time."""
-    import itertools
+    ``R50_FULLSHOT``), through ``cnn_fullshot_check``."""
+    cfg = driver_cfg({**R50_FULLSHOT, **R50_MODEL, "OUTPUT_DIR": R50_DIR}, R50_YAML)
+    return cnn_fullshot_check("resnet50", cfg, R50_DIR, R50_FLOPS_PER_IMAGE, "bn1",
+                              "SGD nesterov, mixup/cutmix, DropBlock", smi, device)
+
+
+def cnn_fullshot_check(label: str, cfg, out_dir: str, flops_per_image, stem_bn: str,
+                       recipe: str, smi: str, device: str, resume: bool = True,
+                       profile_reps: int = 3) -> dict:
+    """``train_main`` on the BatchNorm tower of ``cfg`` (DropBlock when it
+    asks): every step and eval batch one replay, no kernel launched
+    (``launch_rule``), finite losses; the first step captured == eager bit
+    for bit, BN statistics included; with ``resume``, a run stopped after
+    its first mid-epoch checkpoint and resumed == the uninterrupted run bit
+    for bit (trainable, momentum, BN statistics, a drop generator's state),
+    and ``update_bn`` against the batch means of the BN at ``stem_bn`` (a
+    module path under the backbone); the step's time and, profiled over
+    ``profile_reps`` replays (0: not profiled), its busy time and idle
+    share, beside the bound of ``flops_per_image`` (None: 3 x the
+    convolutions' FLOPs of one forward, ``conv_macs``)."""
     import shutil
 
     import bench_torch
-    from peft_vit_tpu_torch.engine.trainer import Trainer, _skip_batches, batch_iterator
-    from peft_vit_tpu_torch.peft import build_mask
 
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    cfg = driver_cfg({**R50_FULLSHOT, **R50_MODEL, "OUTPUT_DIR": R50_DIR}, R50_YAML)
-    run = fullshot_drive("resnet50", cfg, smi, device, sync, out_dir=R50_DIR)
+    batch = int(cfg.TRAIN.BATCH_SIZE_PER_GPU)
+    run = fullshot_drive(label, cfg, smi, device, sync, out_dir=out_dir)
     tr, splits = run["trainer"], run["splits"]
     spe = tr.steps_per_epoch
     steps = spe * int(cfg.TRAIN.END_EPOCH)
@@ -6098,37 +6151,86 @@ def r50_fullshot_check(smi: str, device: str) -> dict:
     final = {"trainable": {k: v.detach().clone() for k, v in tr.state.trainable.items()},
              "opt": {k: v.clone() for k, v in tr.state.opt_state.items()},
              "bn": {k: v.clone() for k, v in tr.state.batch_stats.items()}}
-    drop_final = tr.drop_generator.get_state()
+    dropblock = float(cfg.AUG.get("DROPBLOCK_KEEP_PROB", 1.0)) < 1.0
+    drop_final = tr.drop_generator.get_state() if dropblock else None
     check(bool(tr.state.finite) and all(math.isfinite(e["loss"]) for e in run["epochs"])
-          and tr.use_dropblock and len(tr.state.batch_stats) > 0,
-          f"resnet50 full-shot: {steps} steps at B={RN_BATCH} with DropBlock, finite losses "
+          and tr.use_dropblock == dropblock and len(tr.state.batch_stats) > 0,
+          f"{label} full-shot: {steps} steps at B={batch}"
+          + (" with DropBlock" if dropblock else "") + ", finite losses "
           + " ".join(f"{e['loss']:.4f}" for e in run["epochs"])
           + f", {len(tr.state.batch_stats)} BN statistics, best top-1 {run['best']:.2f}")
     rule = launch_rule(tr.model, tr.state.trainable)
-    _hold_graphs("resnet50 full-shot", tr, run["counts"], rule, rule, steps,
+    _hold_graphs(f"{label} full-shot", tr, run["counts"], rule, rule, steps,
                  int(cfg.TRAIN.END_EPOCH) * n_eval)
     check(not any(run["counts"].values()),
-          f"resnet50 full-shot: K1-K7 launched 0 times on the vision path ({run['counts']})")
+          f"{label} full-shot: K1-K7 launched 0 times on the vision path ({run['counts']})")
     first = run["first"]
     captured = {part: dict(leaves) for part, leaves in first["after"].items()}
     with bench_torch.eager_on_card():
         _rerun_first_step(tr, first)
     differ = _state_differ(tr, captured)
     n_state = sum(len(v) for v in captured.values())
-    check(not differ, f"resnet50 full-shot: the first step captured == eager bit for bit "
-          f"({n_state} state tensors: trainable, momentum, BN statistics; DropBlock drawn from "
-          "the registered generator)" + (f"; differ: {differ[:4]}" if differ else ""))
-    # a run stopped after its first mid-epoch checkpoint, and one resumed from it
+    check(not differ, f"{label} full-shot: the first step captured == eager bit for bit "
+          f"({n_state} state tensors: trainable, momentum, BN statistics"
+          + ("; DropBlock drawn from the registered generator" if dropblock else "") + ")"
+          + (f"; differ: {differ[:4]}" if differ else ""))
+    row = {"steps": steps, "launches": run["counts"], "best": run["best"],
+           "per_replay": dict(_graphs_of(tr, "train")[0].launches), "wall_s": run["wall_s"],
+           "peak_gib": run["peak_gib"]}
+    if resume:
+        _resume_and_update_bn(label, cfg, tr, run["first"]["before"], splits, final, drop_final,
+                              stem_bn, steps)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if flops_per_image is None:
+        image = int(cfg.TRAIN.IMAGE_SIZE[0])
+        flops_per_image = 3 * 2 * conv_macs(tr.model.backbone, torch.zeros(
+            1, image, image, 3, device=device))
+    if on_card:
+        graph = _graphs_of(tr, "train")[0]
+        step_ms = _replay_ms(graph, 5)
+        busy, n_launches, top = (_device_breakdown(graph.graph.replay, reps=profile_reps)
+                                 if profile_reps else (None, None, []))
+        row.update(step_ms=step_ms, images_per_s=1e3 * batch / step_ms, busy_ms=busy,
+                   device_launches=n_launches,
+                   idle_share=None if busy is None else max(0.0, 1.0 - busy / step_ms),
+                   bound_ms=batch * flops_per_image / BF16_FLOPS_PER_S * 1e3)
+        print(f"{label} full-shot step B={batch} (bf16, {recipe}): captured {step_ms:.3f} ms "
+              f"({row['images_per_s']:.1f} images/s), device busy "
+              + ("not measured" if busy is None else
+                 f"{busy:.3f} ms in {n_launches:.0f} launches a replay (idle share "
+                 f"{row['idle_share']:.3f})")
+              + f"; conv FLOP bound {row['bound_ms']:.3f} ms at the bf16 peak; train_main "
+              f"{run['wall_s']:.2f} s, peak {run['peak_gib']:.2f} GiB; top: "
+              + "; ".join(f"{n} {t:.3f} ms" for n, t in top) + f"; {smi}", flush=True)
+    del run, tr, first, captured, final
+    gc_collect(on_card)
+    return row
+
+
+def _resume_and_update_bn(label: str, cfg, tr, bn0_state: dict, splits, final: dict,
+                          drop_final, stem_bn: str, steps: int) -> None:
+    """``cnn_fullshot_check``'s resume and ``update_bn`` checks on the trainer
+    ``tr`` of its run (``final``: its state at the end; ``bn0_state``: the
+    first step's state before it)."""
+    import itertools
+
+    from peft_vit_tpu_torch.engine.trainer import Trainer, _skip_batches, batch_iterator
+    from peft_vit_tpu_torch.peft import build_mask
+
+    batch = int(cfg.TRAIN.BATCH_SIZE_PER_GPU)
+    spe = tr.steps_per_epoch
     mask = build_mask(tr.model, "full", num_layers=0)
-    resume_dir = f"{R50_DIR}/resume"
-    rcfg = driver_cfg({**R50_FULLSHOT, **R50_MODEL, "OUTPUT_DIR": R50_DIR,
-                       "TRAIN.CHECKPOINT_EVERY_STEPS": 1, "TRAIN.AUTO_RESUME": True}, R50_YAML)
+    resume_dir = f"{cfg.OUTPUT_DIR}/resume"
+    rcfg = copy.deepcopy(cfg)
+    rcfg.defrost()
+    rcfg.TRAIN.CHECKPOINT_EVERY_STEPS = 1
+    rcfg.TRAIN.AUTO_RESUME = True
 
     def epoch_batches(e):
-        return batch_iterator(splits.x_train, splits.y_train, RN_BATCH,
+        return batch_iterator(splits.x_train, splits.y_train, batch,
                               shuffle=bool(cfg.TRAIN.SHUFFLE), seed=e)
 
-    bn0 = first["before"]["bn"]
+    bn0 = bn0_state["bn"]
 
     def fresh():
         t = Trainer(rcfg, tr.model, mask, spe)
@@ -6146,16 +6248,18 @@ def r50_fullshot_check(smi: str, device: str) -> dict:
         sb = at if e == epoch0 else 0
         resumed.train_one_epoch(_skip_batches(epoch_batches(e), sb), e, start_batch=sb)
     differ = _state_differ(resumed, final)
-    same_rng = torch.equal(resumed.drop_generator.get_state(), drop_final)
+    same_rng = drop_final is None or torch.equal(resumed.drop_generator.get_state(), drop_final)
     check((epoch0, at) == (0, 1) and not differ and same_rng,
-          f"resnet50 full-shot: resumed at epoch {epoch0} batch {at} from the first mid-epoch "
+          f"{label} full-shot: resumed at epoch {epoch0} batch {at} from the first mid-epoch "
           f"checkpoint == the uninterrupted run bit for bit after {steps} steps "
-          f"({sum(len(v) for v in final.values())} state tensors; the drop generator's state "
-          f"{'equal' if same_rng else 'differs'})" + (f"; differ: {differ[:4]}" if differ else ""))
+          f"({sum(len(v) for v in final.values())} state tensors"
+          + ("" if drop_final is None else
+             f"; the drop generator's state {'equal' if same_rng else 'differs'}") + ")"
+          + (f"; differ: {differ[:4]}" if differ else ""))
     # update_bn: the stem BN's new mean against the batch means of its input
     batches = list(itertools.islice(epoch_batches(0), RN_UPDATE_BN_BATCHES))
     seen = []
-    hook = tr.model.backbone.bn1.register_forward_hook(
+    hook = tr.model.backbone.get_submodule(stem_bn).register_forward_hook(
         lambda m, args, out: seen.append(args[0].float().mean(dim=(0, 2, 3))))
     try:
         stats = resumed.update_bn(iter(batches))
@@ -6164,36 +6268,14 @@ def r50_fullshot_check(smi: str, device: str) -> dict:
     # update_bn runs each batch from zeros and (the first) from ones: keep
     # the passes from zeros
     means = torch.stack([seen[0]] + seen[2:]).mean(0)
-    got = stats["backbone.bn1.bn_mean"]
+    got = stats[f"backbone.{stem_bn}.bn_mean"]
     rel = float((got - means).abs().max() / means.abs().max())
     check(all(bool(torch.isfinite(v).all()) for v in stats.values()) and rel <= 1e-3,
-          f"resnet50 full-shot: update_bn over {len(batches)} batches (DropBlock live): the stem "
+          f"{label} full-shot: update_bn over {len(batches)} batches"
+          + (" (DropBlock live)" if drop_final is not None else "") + ": the stem "
           f"BN's mean {rel:.3e} of its largest from the average of the batch means (<= 1e-3: "
           "recovered as new / (1 - momentum) through the fp32 statistics)")
     del resumed
-    shutil.rmtree(R50_DIR, ignore_errors=True)
-    row = {"steps": steps, "launches": run["counts"], "best": run["best"],
-           "per_replay": dict(_graphs_of(tr, "train")[0].launches), "wall_s": run["wall_s"],
-           "peak_gib": run["peak_gib"]}
-    if on_card:
-        graph = _graphs_of(tr, "train")[0]
-        step_ms = _replay_ms(graph, 5)
-        busy, n_launches, top = _device_breakdown(graph.graph.replay, reps=3)
-        row.update(step_ms=step_ms, images_per_s=1e3 * RN_BATCH / step_ms, busy_ms=busy,
-                   device_launches=n_launches,
-                   idle_share=None if busy is None else max(0.0, 1.0 - busy / step_ms),
-                   bound_ms=RN_BATCH * R50_FLOPS_PER_IMAGE / BF16_FLOPS_PER_S * 1e3)
-        print(f"resnet50 full-shot step B={RN_BATCH} (bf16, SGD nesterov, mixup/cutmix, "
-              f"DropBlock): captured {step_ms:.3f} ms ({row['images_per_s']:.1f} images/s), "
-              "device busy " + ("not measured" if busy is None else
-                                f"{busy:.3f} ms in {n_launches:.0f} launches a replay (idle share "
-                                f"{row['idle_share']:.3f})")
-              + f"; conv FLOP bound {row['bound_ms']:.3f} ms at the bf16 peak; train_main "
-              f"{run['wall_s']:.2f} s, peak {run['peak_gib']:.2f} GiB; top: "
-              + "; ".join(f"{n} {t:.3f} ms" for n, t in top) + f"; {smi}", flush=True)
-    del run, tr, first, captured, final
-    gc_collect(on_card)
-    return row
 
 
 RN_CONFIGS = ("resnet50", "resnet101", "r50_s3", "rn50_CLIP", "rn101_CLIP", "rn50x4_CLIP",
@@ -6802,6 +6884,356 @@ def swin_phase(smi: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the zoo's other CNNs.  EfficientNet-B0 (efficientnet_b0.yaml),
+# ReXNet 1.0x, TTNet v2 (its fixed topology) and HRNet-W18 (cls_hrnet's
+# defaults: width 18, stage modules 1 / 4 / 3), all at 224 px and full
+# width; HRNet v2 / v2_share / v3 / v4 and TTNet v3, which no yaml ships, at
+# the JAX tests' configs (64 px).  A CPU rehearsal shrinks them through
+# ZOO_MODEL / ZOO_FULLSHOT_OVER.
+EFFNET_YAML = "peft_vit_tpu/resources/model/efficientnet_b0.yaml"
+ZOO_BATCH = 64  # efficientnet_b0.yaml's TRAIN.BATCH_SIZE_PER_GPU, and the other towers'
+ZOO_TOWERS = {  # label -> (config overrides, yaml)
+    "efficientnet_b0": ({}, EFFNET_YAML),
+    "rexnet": ({"MODEL.NAME": "rexnet"}, None),
+    "cls_ttnet_v2": ({"MODEL.NAME": "cls_ttnet_v2"}, None),
+    "cls_hrnet": ({"MODEL.NAME": "cls_hrnet"}, None),
+}
+ZOO_MODEL: dict = {}  # overrides of every zoo tower (a CPU rehearsal shrinks them here)
+# the JAX tests' configs (tests/test_refexec_models.py, tests/test_ttnet.py):
+# three stages of 2 / 3 / 4 branches, two blocks a branch, SE on
+_HRNET_V_STAGES = {"NUM_MODULES": [1, 1, 1], "NUM_BRANCHES": [2, 3, 4],
+                   "NUM_BLOCKS": [[2, 2], [2, 2, 2], [2, 2, 2, 2]]}
+_INVERTED = {"NUM_CHANNELS": [[8, 16], [8, 16, 32], [8, 16, 32, 64]], "BLOCK": ["INVERTED"] * 3}
+_INVERTED_HEAD = {"BLOCK": ["INVERTED"] * 4, "NUM_CHANNELS": [16, 32, 64, 128],
+                  "NUM_CHANNELS_PROJ": 256}
+ZOO_SMALL = {
+    "cls_hrnet_v2": {"MODEL.SPEC.WITH_SE": True, "MODEL.SPEC.STAGES": {
+        **_HRNET_V_STAGES, "NUM_CHANNELS": [[8, 16], [9, 18, 36], [10, 20, 40, 80]],
+        "BLOCK": ["BASIC"] * 3}, "MODEL.SPEC.HEAD": {
+        "BLOCK": ["BOTTLENECK"] * 4, "NUM_CHANNELS": [8, 16, 32, 64], "NUM_CHANNELS_PROJ": 128}},
+    "cls_hrnet_v2_share": {"MODEL.SPEC.WITH_SE": True, "MODEL.SPEC.STAGES": {
+        **_HRNET_V_STAGES, "NUM_CHANNELS": [[8, 16], [8, 16, 32], [8, 16, 32, 64]],
+        "BLOCK": ["BASIC"] * 3}, "MODEL.SPEC.HEAD": {
+        "BLOCK": ["BOTTLENECK"] * 4, "NUM_CHANNELS": [8, 16, 32, 64], "NUM_CHANNELS_PROJ": 128}},
+    "cls_hrnet_v3": {"MODEL.EXTRA": {"WITH_SE": True, "STAGES_SPEC": {
+        **_HRNET_V_STAGES, **_INVERTED}, "HEAD_SPEC": _INVERTED_HEAD}},
+    "cls_hrnet_v4": {"MODEL.EXTRA": {
+        "WITH_SE": True, "STEM_SPEC": "conv32s2maxpools2inv32e6x1",
+        "STAGES_SPEC": {**_HRNET_V_STAGES, **_INVERTED}, "HEAD_SPEC": _INVERTED_HEAD}},
+    "cls_ttnet_v3": {"MODEL.EXTRA": {
+        "STEM": {"NUM_CHANNEL_KICKOFF": 8, "NUM_CHANNEL_STEM_START": 16,
+                 "EXPAND_STEM_START": 2, "KERNEL_SIZE": 3},
+        "STAGES": {"NUM_CHANNEL_OUTPUT": [32, 64], "NUM_BLOCK_REPEATS": [2, 3],
+                   "KERNEL_SIZE": [3, 5]}, "NUM_CHANNEL_FINAL": 128}},
+}
+ZOO_SMALL_IMAGE = 64
+# v2 with grouped basic blocks (GROUPS, which the shipped configs leave at 1):
+# its convolutions join the determinism probe
+ZOO_GROUPED = {"MODEL.SPEC.WITH_SE": True, "MODEL.SPEC.STAGES": {
+    **_HRNET_V_STAGES, "NUM_CHANNELS": [[8, 16], [8, 16, 32], [8, 16, 32, 64]],
+    "BLOCK": ["BASIC"] * 3, "GROUPS": [[1, 2], [1, 2, 4], [1, 2, 4, 8]]},
+    "MODEL.SPEC.HEAD": {"BLOCK": ["BOTTLENECK"] * 4, "NUM_CHANNELS": [8, 16, 32, 64],
+                        "NUM_CHANNELS_PROJ": 128}}
+# The full-shot recipe of the zoo's steps: the port's defaults under each
+# tower at B = 64, synthetic 10-way at 224 px, the full fine-tune with SGD
+# nesterov at lr 0.02 (random weights; r50_s3's cut lr), 1 warm-up epoch,
+# epochs of 2 steps (2 epochs for B0, 1 for the others: ``zoo_phase``).
+ZOO_FULLSHOT = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": 10,
+                "MODEL.NUM_CLASSES": 10, "TRAIN.IMAGE_SIZE": [IMAGE, IMAGE],
+                "PEFT.METHOD": "none", "TEST.BATCH_SIZE_PER_GPU": ZOO_BATCH,
+                "TRAIN.BATCH_SIZE_PER_GPU": ZOO_BATCH, "TRAIN.END_EPOCH": 2, "TRAIN.LR": 0.02,
+                "TRAIN.MOMENTUM": 0.9, "TRAIN.NESTEROV": True,
+                "TRAIN.LR_SCHEDULER.WARMUP_EPOCH": 1, "TRAIN.CHECKPOINT_EVERY_STEPS": 0,
+                "TRAIN.AUTO_RESUME": False, "TPU.COMPUTE_DTYPE": "bfloat16", "PRINT_FREQ": 1}
+ZOO_FULLSHOT_OVER: dict = {}  # a CPU rehearsal cuts the batch here
+ZOO_DIR = "build/zoo"  # checkpoints and logs, removed after each run
+ZOO_CALIBRATION = 16  # images of the BN statistics' calibration (``calibrated_bn``)
+# EfficientNet-B0 in bf16 on the card against fp32 on the CPU, max |logit
+# diff| / max |logit| of a 5-image request through the prototype head (the
+# other classes' rows zero), the BN statistics calibrated (``calibrated_bn``):
+# bf16 rounds every conv output and SE gate through 16 blocks.  The first
+# measurement on the H100 (NVIDIA H100 80GB HBM3, 700.00 W): 0.1152, top-1
+# equal (with random statistics 35, top-1 wrong).  Bound 0.25.
+TOL_ZOO_BF16_LOGITS_REL = 0.25
+# fp32 on the card against the CPU: the same arithmetic summed in other
+# orders, TF32 off for fp32 operands.
+TOL_ZOO_F32_LOGITS_REL = 1e-3
+
+
+def zoo_cfg(label: str, over: dict = None, dtype: str = "bfloat16"):
+    """The config of zoo tower ``label`` (``ZOO_TOWERS`` or ``ZOO_SMALL``)
+    at its own width and 224 px (``ZOO_SMALL_IMAGE`` for the small ones)."""
+    if label in ZOO_SMALL:
+        base, yaml_file, image = {"MODEL.NAME": label, **ZOO_SMALL[label]}, None, ZOO_SMALL_IMAGE
+    else:
+        (base, yaml_file), image = ZOO_TOWERS[label], IMAGE
+    return driver_cfg({"TRAIN.IMAGE_SIZE": [image, image], **base, **ZOO_MODEL,
+                       "TPU.COMPUTE_DTYPE": dtype, **(over or {})}, yaml_file)
+
+
+def _zoo_model(label: str, dtype: str, device: str, over: dict = None, num_classes=NUM_CLASSES,
+               use_bn: bool = False):
+    from peft_vit_tpu_torch.models import build_image_classifier
+    from peft_vit_tpu_torch.peft import spec_from_config
+
+    cfg = zoo_cfg(label, over, dtype)
+    return build_image_classifier(cfg, spec_from_config(cfg), num_classes, use_bn=use_bn,
+                                  device=device)[0]
+
+
+def conv_macs(model, x) -> int:
+    """The multiply-adds of every convolution of one forward of ``model`` on
+    ``x`` (k x k x in/groups a channel and output element)."""
+    from peft_vit_tpu_torch.models import resnet as rn
+
+    total, real = [0], rn._Conv2d.apply
+
+    def spy(xx, w, stride, padding, groups):
+        out = real(xx, w, stride, padding, groups)
+        total[0] += out.numel() * int(w.shape[1] * w.shape[2] * w.shape[3])
+        return out
+
+    rn._Conv2d.apply = spy
+    try:
+        with torch.no_grad():
+            model.eval()(x)
+    finally:
+        rn._Conv2d.apply = real
+    return total[0]
+
+
+def zoo_determinism() -> dict:
+    """The determinism probe (``conv_determinism_probe``) over every
+    convolution of the zoo's full-shot steps (B = 64, 224 px, bf16:
+    EfficientNet-B0's and ReXNet's depthwise 3x3 and 5x5 at strides 1 and 2,
+    TTNet v2's 5x5 depthwise, HRNet-W18's), of EfficientNet-B0's linear-probe
+    round (the frozen tower on the folded batch of 3 cells x 16) and of a
+    full fine-tune round's per-cell weights (the grouped form, cells x
+    channels groups), and of HRNet v2 with grouped basic blocks in fp32."""
+    torch.manual_seed(SEED)
+    x = torch.randn(ZOO_BATCH, IMAGE, IMAGE, 3, device="cuda")
+    sigs = {}
+    for label in ZOO_TOWERS:
+        model = _zoo_model(label, "bfloat16", "cuda")
+        sigs[label] = conv_signatures(model.backbone, x)
+        if label == "efficientnet_b0":
+            xr = x[:RN_PROBE_CELLS * RN_PROBE_CELL_BATCH]
+            sigs["efficientnet_b0_round"] = conv_signatures(model.backbone, xr)
+            sigs["efficientnet_b0_grouped"] = _grouped(
+                conv_signatures(model.backbone, xr[:RN_PROBE_CELL_BATCH]), RN_PROBE_CELLS)
+        del model
+        gc_collect(True)
+    model = _zoo_model("cls_hrnet_v2", "float32", "cuda", ZOO_GROUPED)
+    xs = torch.randn(ZOO_BATCH, ZOO_SMALL_IMAGE, ZOO_SMALL_IMAGE, 3, device="cuda")
+    sigs["cls_hrnet_v2_groups"] = conv_signatures(model.backbone, xs)
+    del model
+    return {label: conv_determinism_probe(s, label) for label, s in sigs.items()}
+
+
+def zoo_configs_check(smi: str, device: str) -> None:
+    """Every zoo tower (``ZOO_TOWERS`` at 224 px, ``ZOO_SMALL`` at 64) through
+    ``build_image_classifier`` at its own width, bf16: finite logits of a
+    train-mode and an eval forward of 2 images, the BN statistics moved by
+    the train-mode one, no family refused."""
+    t0 = time.perf_counter()
+    for label in (*ZOO_TOWERS, *ZOO_SMALL):
+        model = _zoo_model(label, "bfloat16", device)
+        size = int(zoo_cfg(label).TRAIN.IMAGE_SIZE[0])
+        x = torch.randn(2, size, size, 3, device=device)
+        before = {k: v.clone() for k, v in model.named_buffers()}
+        with torch.no_grad():
+            train = model.train()(x)
+            moved = any(not torch.equal(v, before[k]) for k, v in model.named_buffers())
+            out = model.eval()(x)
+        check(bool(torch.isfinite(train).all() and torch.isfinite(out).all()) and moved,
+              f"zoo config {label}: {type(model.backbone).__name__} at {size} px, "
+              f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters, "
+              "finite train and eval logits, BN statistics moved")
+        del model
+        gc_collect(device == "cuda")
+    print(f"zoo configs: {len(ZOO_TOWERS) + len(ZOO_SMALL)} built and run in "
+          f"{time.perf_counter() - t0:.1f} s (host clock; {smi})", flush=True)
+
+
+def _prototype_state(cpu_model, state: dict, images: np.ndarray) -> np.ndarray:
+    """``state`` with the prototype head (class c's row image c's centred
+    feature, scaled so that the CPU's logit of image c for class c is 10;
+    the other classes' rows zero), loaded into ``cpu_model``; returns the
+    CPU's logits of ``images``."""
+    cpu_model.load_state_dict(state)
+    cpu_model.eval()
+    with torch.no_grad():
+        feats = cpu_model.backbone(torch.from_numpy(images)).numpy()
+    d = feats - feats.mean(axis=0)
+    rows = 10.0 * d / (d * d).sum(axis=1, keepdims=True)
+    head_w = np.zeros_like(state["classifier.head.weight"].numpy())
+    head_b = np.zeros_like(state["classifier.head.bias"].numpy())
+    head_w[:len(feats)] = rows
+    head_b[:len(feats)] = -(rows @ feats.mean(axis=0))
+    state["classifier.head.weight"] = torch.from_numpy(head_w)
+    state["classifier.head.bias"] = torch.from_numpy(head_b)
+    cpu_model.load_state_dict(state)
+    with torch.no_grad():
+        return cpu_model(torch.from_numpy(images)).numpy()
+
+
+def calibrated_bn(cpu_model, state: dict, images: np.ndarray) -> dict:
+    """``state`` with every BatchNorm's running statistics the batch
+    statistics of ``images`` (one train-mode fp32 forward on the CPU from
+    zeroed statistics, recovered as new / (1 - momentum), as ``update_bn``
+    does): random statistics normalise nothing, and through EfficientNet's
+    16 blocks the activations then outgrow what a bf16 forward can compare
+    (the first card run: 35x the largest logit apart)."""
+    cpu_model.load_state_dict(state)
+    stats = {k: torch.zeros_like(v) for k, v in cpu_model.named_buffers()
+             if k.endswith(("bn_mean", "bn_var"))}
+    with torch.no_grad():
+        torch.func.functional_call(cpu_model.train(), stats, (torch.from_numpy(images),))
+    return {**state, **{k: v / (1.0 - 0.9) for k, v in stats.items()}}
+
+
+def zoo_serving_check(label: str, smi: str, device: str, buckets=BUCKETS,
+                      bf16: bool = True) -> dict:
+    """Zoo tower ``label`` at its size, weights from a numpy seed (the BN
+    statistics calibrated, ``calibrated_bn``) and a prototype head, through
+    ``ServingSession`` (``buckets``; bf16, or fp32
+    with ``bf16`` False): captured == eager bit for bit, no kernel launched,
+    top-1 and the logits against fp32 on the CPU, fp32 on the card against
+    the CPU; with bf16, each bucket's latency."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import ServingSession, make_infer_fn
+    from peft_vit_tpu_torch.ops import launch_counts
+
+    rng = np.random.RandomState(SEED + 90)
+    image = int(zoo_cfg(label).TRAIN.IMAGE_SIZE[0])
+    cpu_model = _zoo_model(label, "float32", "cpu")
+    state = calibrated_bn(cpu_model, rn_numpy_state(cpu_model, rng), rng.standard_normal(
+        (ZOO_CALIBRATION, image, image, 3)).astype(np.float32))
+    requests = {n: rng.standard_normal((n, image, image, 3)).astype(np.float32)
+                for n in REQUESTS}
+    checked = requests[CHECKED_REQUEST]
+    cpu_logits = _prototype_state(cpu_model, state, checked)
+    del cpu_model
+    dtype = "bfloat16" if bf16 else "float32"
+    model = _zoo_model(label, dtype, device)
+    model.load_state_dict(state)
+    before = launch_counts()  # counts from 0 just before the main path, read just after
+    session = ServingSession(model, None, image, buckets=buckets, device=device)
+    logits = {n: session.predict(x) for n, x in requests.items()}
+    counts = {n: c - before[n] for n, c in launch_counts().items() if c - before[n]}
+    check(counts == {} and all(bool(np.isfinite(v).all()) for v in logits.values()),
+          f"{label} serving ({dtype}): {len(requests)} requests, finite logits; kernels "
+          f"launched {counts} (none: convolutions, pools and BN are library calls)")
+    with bench_torch.eager_on_card():
+        model_e = _zoo_model(label, dtype, device)
+        model_e.load_state_dict(state)
+        eager = ServingSession(model_e, None, image, buckets=buckets, device=device)
+        same = [n for n, x in requests.items() if np.array_equal(eager.predict(x), logits[n])]
+    check(len(same) == len(requests),
+          f"{label} serving ({dtype}): captured buckets {list(buckets)} == eager bit for bit on "
+          f"{len(same)} of {len(requests)} requests")
+    del eager, model_e
+    got = logits[CHECKED_REQUEST]
+    rel, top, top_cpu = _rel(got, cpu_logits), got.argmax(1), cpu_logits.argmax(1)
+    row = {"rel": rel, "launches": counts}
+    if bf16:
+        check(bool((top == top_cpu).all()) and rel <= TOL_ZOO_BF16_LOGITS_REL,
+              f"{label} serving: bf16 card top-1 {top.tolist()} == fp32 CPU {top_cpu.tolist()}; "
+              f"max |logit diff| / max |logit| {rel:.4e} <= {TOL_ZOO_BF16_LOGITS_REL:g}")
+        m32 = _zoo_model(label, "float32", device)
+        m32.load_state_dict(state)
+        got = make_infer_fn(m32, None)(torch.from_numpy(checked).to(device)).cpu().numpy()
+        del m32
+        row["f32_rel"] = _rel(got, cpu_logits)
+    else:
+        row["f32_rel"] = rel
+    check(row["f32_rel"] <= TOL_ZOO_F32_LOGITS_REL and bool((got.argmax(1) == top_cpu).all()),
+          f"{label} serving: fp32 card vs fp32 CPU max |logit diff| / max |logit| "
+          f"{row['f32_rel']:.4e} <= {TOL_ZOO_F32_LOGITS_REL:g}, top-1 equal")
+    if bf16 and device == "cuda":
+        row["latency_ms"] = _serving_latency(session, f"{label} bf16", rng, smi,
+                                             profiled=(buckets[-1],))
+    del session, model
+    gc_collect(device == "cuda")
+    return row
+
+
+def zoo_probe_check(smi: str, device: str) -> dict:
+    """EfficientNet-B0 as the ELEVATER probe backbone through its entry
+    points, bf16: ``linear_probe --classifier logistic`` (the frozen tower's
+    features and the C sweep, on the ``LOGISTIC_CLASSES``-way task) and
+    ``finetune_main`` linear (``drive``: a
+    round of 3 (lr, wd) cells and the final train, the tower's BN in train
+    mode with its statistics per cell, every step and eval batch a replay,
+    no kernel launched)."""
+    from peft_vit_tpu_torch.commands import linear_probe
+    from peft_vit_tpu_torch.models import params_to_jax
+
+    over = {**DRIVER, "PEFT.METHOD": "linear", "TRAIN.SEARCH_WD_LOG_UPPER": -2}
+    cfg = zoo_cfg("efficientnet_b0", over)
+    classes = int(cfg.DATASET.NUM_CLASSES)
+    model = _zoo_model("efficientnet_b0", "float32", "cpu", over, classes, use_bn=True)
+    tree = params_to_jax(rn_numpy_state(model, np.random.RandomState(SEED + 91)))
+    del model
+    t0 = time.perf_counter()
+    lcfg = zoo_cfg("efficientnet_b0", {**over, "DATASET.NUM_CLASSES": LOGISTIC_CLASSES})
+    lmodel = _zoo_model("efficientnet_b0", "float32", "cpu", over, LOGISTIC_CLASSES)
+    ltree = params_to_jax(rn_numpy_state(lmodel, np.random.RandomState(SEED + 91)))
+    del lmodel
+    acc = linear_probe.logistic_main(lcfg, _results_dir(), device=device, variables=ltree)
+    check(math.isfinite(acc), f"efficientnet_b0 logistic probe: test accuracy {acc:.3f} on the "
+          f"{LOGISTIC_CLASSES}-way task ({time.perf_counter() - t0:.2f} s)")
+    return {"logistic": acc, "linear": drive("efficientnet_b0 linear", cfg, tree, smi, device,
+                                             want_cells=3, lr_grid=(1e-3,))}
+
+
+def zoo_phase(smi: str, device: str = "cuda") -> dict:
+    """Phase 17 (see the module docstring)."""
+    t0 = time.perf_counter()
+    on_card = device == "cuda"
+    out = {}
+    if on_card:
+        out["determinism"] = zoo_determinism()
+    zoo_configs_check(smi, device)
+    out["serving"] = zoo_serving_check("efficientnet_b0", smi, device)
+    out["round"] = cnn_round_check(
+        "efficientnet_b0 linear", zoo_cfg("efficientnet_b0", {"PEFT.METHOD": "linear"}),
+        "linear", 12, SEED + 92, SEED + 93, (), smi, device)
+    gc_collect(on_card)
+    out["probe"] = zoo_probe_check(smi, device)
+    gc_collect(on_card)
+    out["fullshot"] = {}
+    # (label, the stem BN, epochs, resume, profiled replays): HRNet-W18's step
+    # is not profiled (torch.profiler's trace of its replay ends the process
+    # with a segmentation fault on the H100) and runs 1 epoch for the time
+    for label, stem_bn, epochs, resume, reps in (("efficientnet_b0", "bn1", 2, True, 1),
+                                                 ("cls_hrnet", "stem_bn1.bn", 1, True, 0),
+                                                 ("rexnet", "stem_bn", 1, False, 1),
+                                                 ("cls_ttnet_v2", "conv1_bn", 1, False, 1)):
+        over = {**ZOO_FULLSHOT, "OUTPUT_DIR": ZOO_DIR, "NAME": label, "TRAIN.END_EPOCH": epochs,
+                **ZOO_FULLSHOT_OVER}
+        out["fullshot"][label] = cnn_fullshot_check(
+            label, zoo_cfg(label, over), ZOO_DIR, None, stem_bn,
+            "SGD nesterov, the defaults' augmentation", smi, device, resume=resume,
+            profile_reps=reps)
+    for label in ZOO_SMALL:
+        out[label] = zoo_serving_check(label, smi, device, buckets=(8,), bf16=False)
+    # the phase's launches per wrapper: none of K1-K7 on any of its paths
+    launches = {}
+    parts = [out["serving"], out["round"], out["probe"]["linear"], *out["fullshot"].values(),
+             *(out[label] for label in ZOO_SMALL)]
+    for part in parts:
+        for n, c in part.get("launches", {}).items():
+            launches[n] = launches.get(n, 0) + c
+    check(not any(launches.values()),
+          f"zoo phase: K1-K7 launched 0 times on every path of the phase ({launches})")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"zoo phase: {out['seconds']:.1f} s (host clock; {smi})", flush=True)
+    return out
+
+
 def gc_collect(on_card: bool) -> None:
     import gc
 
@@ -6879,6 +7311,7 @@ def main() -> int:
     ss = _timed(streaming_phase, smi)
     rn = _timed(resnet_phase, smi)
     sw = _timed(swin_phase, smi)
+    zoo = _timed(zoo_phase, smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
@@ -7045,6 +7478,8 @@ def main() -> int:
         # the Swin tower (serving, the full-shot step, the rounds), K1 at 64
         # in the CLIP Swin text tower
         line["launches_swin"] = sw["launches"].get(wrapper.get(line["name"], line["name"]), 0)
+        # the zoo's other CNNs (phase 17): none of the kernels on any path
+        line["launches_zoo"] = zoo["launches"].get(wrapper.get(line["name"], line["name"]), 0)
     # the D = 32 instantiations at Swin-T's stage-0 and stage-2 folds, B = 64
     # (swin_kernel_timing), and the full-shot step's launches a replay
     d32 = {"flash_attn_fwd": "fwd", "flash_attn_bwd_dq": "dq", "flash_attn_bwd_dkv": "dkv",

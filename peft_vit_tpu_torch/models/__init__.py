@@ -14,6 +14,8 @@ from .convert import (
 )
 from .factory import (backbone_eval_variables, build_image_classifier, compute_dtype, flagship,
                       init_head_from_text, is_clip_model)
+from .efficientnet import EfficientNet
+from .hrnet import HRNet, HRNetV
 from .layers import (
     ACT2FN,
     Adapter,
@@ -31,9 +33,11 @@ from .layers import (
 )
 from .registry import get_custom_builder, register_model
 from .resnet import ResNet
+from .rexnet import ReXNet
 from .ssl_swin import build_ssl_swin, extract_n_last_blocks, multi_crop_forward
 from .swin import SwinTransformer
 from .text import TextEncoder, TextTransformer
+from .ttnet import TTNetV2, TTNetV3
 from .vit import VisionTransformer
 from .vit_conv import ConvViT
 
@@ -48,7 +52,10 @@ __all__ = [
     "ContrastiveClassifier",
     "ConvViT",
     "Dense",
+    "EfficientNet",
     "FeatureBatchNorm",
+    "HRNet",
+    "HRNetV",
     "ImageClassifier",
     "Int8Dense",
     "LayerNorm",
@@ -56,8 +63,11 @@ __all__ = [
     "ModifiedResNet",
     "MultiHeadAttention",
     "PHMDense",
+    "ReXNet",
     "ResNet",
     "SwinTransformer",
+    "TTNetV2",
+    "TTNetV3",
     "TextEncoder",
     "TextTransformer",
     "VisionTransformer",

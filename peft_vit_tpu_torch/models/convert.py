@@ -626,3 +626,307 @@ def tower_state_dict(flat: Mapping[str, np.ndarray],
     or ``convvit_state_dict_to_tree`` as the ``state_dict`` of a
     ``swin.SwinTransformer`` or ``vit_conv.ConvViT``."""
     return _subtree_state_dict(flat, "", "", stats)
+
+
+# ---------------------------------------------------------------------------
+# The other CNNs of the backbone zoo: timm EfficientNet, cls_hrnet, the
+# cls_hrnet_v2-v4 family and TTNet (JAX convert.py:305, :693, :814, :990).
+# Each returns (flat params, flat batch_stats) in the JAX package's naming;
+# ``tower_state_dict`` makes them a tower's state_dict.
+
+
+def _conv_to(flat: Dict[str, np.ndarray], sd: Mapping, src: str, dst: str,
+             bias: bool = False) -> None:
+    """A conv's OIHW weight (dense or depthwise) -> flax's HWIO ``kernel``,
+    and its ``bias`` when asked."""
+    flat[dst + "/kernel"] = _np(sd[src + ".weight"]).transpose(2, 3, 1, 0)
+    if bias:
+        flat[dst + "/bias"] = _np(sd[src + ".bias"])
+
+
+def _bn_to(flat: Dict[str, np.ndarray], stats: Dict[str, np.ndarray], sd: Mapping, src: str,
+           dst: str) -> None:
+    """A torch BatchNorm -> flax's ``scale`` / ``bias`` and its running
+    statistics ``mean`` / ``var``."""
+    flat[dst + "/scale"] = _np(sd[src + ".weight"])
+    flat[dst + "/bias"] = _np(sd[src + ".bias"])
+    stats[dst + "/mean"] = _np(sd[src + ".running_mean"])
+    stats[dst + "/var"] = _np(sd[src + ".running_var"])
+
+
+def timm_effnet_state_dict_to_tree(sd: Mapping) -> Tuple[Dict[str, np.ndarray],
+                                                        Dict[str, np.ndarray]]:
+    """A timm ``efficientnet_b0``-style state dict -> ``(params,
+    batch_stats)`` in ``models/efficientnet.py``'s naming (``conv_stem``,
+    ``bn1``, ``blocks_<s>_<i>/...``, ``conv_head``, ``bn2``); the classifier
+    is dropped (the reference's EvalModel pools features only)."""
+    flat: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
+    conv = lambda src, dst, bias=False: _conv_to(flat, sd, src, dst, bias)  # noqa: E731
+    bn = lambda src, dst: _bn_to(flat, stats, sd, src, dst)  # noqa: E731
+    conv("conv_stem", "conv_stem")
+    bn("bn1", "bn1")
+    s = 0
+    while f"blocks.{s}.0.conv_dw.weight" in sd or f"blocks.{s}.0.conv_pw.weight" in sd:
+        i = 0
+        while f"blocks.{s}.{i}.conv_dw.weight" in sd:
+            src, dst = f"blocks.{s}.{i}", f"blocks_{s}_{i}"
+            if f"{src}.conv_pwl.weight" in sd:  # the inverted residual
+                order = (("conv_pw", "bn1"), ("conv_dw", "bn2"), ("conv_pwl", "bn3"))
+            else:  # the stage-0 depthwise-separable block
+                order = (("conv_dw", "bn1"), ("conv_pw", "bn2"))
+            for c, b in order:
+                conv(f"{src}.{c}", f"{dst}/{c}")
+                bn(f"{src}.{b}", f"{dst}/{b}")
+            conv(f"{src}.se.conv_reduce", f"{dst}/se/conv_reduce", bias=True)
+            conv(f"{src}.se.conv_expand", f"{dst}/se/conv_expand", bias=True)
+            i += 1
+        s += 1
+    conv("conv_head", "conv_head")
+    bn("bn2", "bn2")
+    return flat, stats
+
+
+def hrnet_state_dict_to_tree(sd: Mapping) -> Tuple[Dict[str, np.ndarray],
+                                                  Dict[str, np.ndarray]]:
+    """A cls_hrnet.py HighResolutionNet state dict -> ``(params,
+    batch_stats)`` in ``models/hrnet.py``'s ``HRNet`` naming (its BatchNorms
+    under ``<name>/bn``); the classifier Linear stays out."""
+    flat: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
+    conv = lambda path, key, bias=False: _conv_to(flat, sd, key, path, bias)  # noqa: E731
+    bn = lambda path, key: _bn_to(flat, stats, sd, key, path + "/bn")  # noqa: E731
+
+    def bottleneck(path: str, key: str) -> None:
+        for c in ("conv1", "conv2", "conv3"):
+            conv(f"{path}/{c}", f"{key}.{c}")
+        for b in ("bn1", "bn2", "bn3"):
+            bn(f"{path}/{b}", f"{key}.{b}")
+        if f"{key}.downsample.0.weight" in sd:
+            conv(f"{path}/downsample", f"{key}.downsample.0")
+            bn(f"{path}/bn_down", f"{key}.downsample.1")
+
+    conv("stem_conv1", "conv1")
+    bn("stem_bn1", "bn1")
+    conv("stem_conv2", "conv2")
+    bn("stem_bn2", "bn2")
+    k = 0
+    while f"layer1.{k}.conv1.weight" in sd:
+        bottleneck(f"layer1_block{k}", f"layer1.{k}")
+        k += 1
+    # transition<si+1>.<bi> is Sequential(conv, bn, relu) for an existing
+    # branch whose width changes, Sequential(Sequential(conv, bn, relu)) for
+    # the new lowest branch
+    si = 0
+    while any(key.startswith(f"transition{si + 1}.") for key in sd):
+        for bi in range(9):
+            for key in (f"transition{si + 1}.{bi}", f"transition{si + 1}.{bi}.0"):
+                if f"{key}.0.weight" in sd and f"{key}.1.running_mean" in sd:
+                    conv(f"transition{si}_{bi}", f"{key}.0")
+                    bn(f"transition{si}_bn{bi}", f"{key}.1")
+                    break
+        si += 1
+    for s in (2, 3, 4):
+        m = 0
+        while any(key.startswith(f"stage{s}.{m}.") for key in sd):
+            base, o = f"stage{s}.{m}", f"stage{s}_module{m}"
+            b = 0
+            while f"{base}.branches.{b}.0.conv1.weight" in sd:
+                blk = 0
+                while f"{base}.branches.{b}.{blk}.conv1.weight" in sd:
+                    for c in ("conv1", "conv2"):
+                        conv(f"{o}/branch{b}_block{blk}/{c}", f"{base}.branches.{b}.{blk}.{c}")
+                    for c in ("bn1", "bn2"):
+                        bn(f"{o}/branch{b}_block{blk}/{c}", f"{base}.branches.{b}.{blk}.{c}")
+                    blk += 1
+                b += 1
+            for i in range(b):
+                for j in range(b):
+                    fl = f"{base}.fuse_layers.{i}.{j}"
+                    if j > i:
+                        conv(f"{o}/fuse/up_{j}_{i}", f"{fl}.0")
+                        bn(f"{o}/fuse/up_bn_{j}_{i}", f"{fl}.1")
+                    elif j < i:
+                        for kk in range(i - j):
+                            conv(f"{o}/fuse/down_{j}_{i}_{kk}", f"{fl}.{kk}.0")
+                            bn(f"{o}/fuse/down_bn_{j}_{i}_{kk}", f"{fl}.{kk}.1")
+            m += 1
+    i = 0
+    while f"incre_modules.{i}.0.conv1.weight" in sd:
+        bottleneck(f"incre{i}", f"incre_modules.{i}.0")
+        i += 1
+    i = 0
+    while f"downsamp_modules.{i}.0.weight" in sd:
+        conv(f"down{i + 1}", f"downsamp_modules.{i}.0", bias=True)
+        bn(f"down_bn{i + 1}", f"downsamp_modules.{i}.1")
+        i += 1
+    conv("final_conv", "proj_modules.0", bias=True)
+    bn("final_bn", "proj_modules.1")
+    return flat, stats
+
+
+def hrnet_v_state_dict_to_tree(sd: Mapping, version: str, stem_spec: str = "", num_modules=(),
+                               num_branches=(), num_blocks=(), num_channels=(), block=(),
+                               head_block=(), head_proj: int = 2048
+                               ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """A cls_hrnet_v2 / v2_share / v3 / v4 state dict -> ``(params,
+    batch_stats)`` in ``HRNetV``'s naming, walked from the same arch spec
+    the model is built from (``hrnet.hrnet_v_spec``'s fields); the
+    classifier Linear stays out.  A conv whose bias is in the state dict
+    brings it."""
+    flat: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
+
+    def conv(path: str, key: str, bias: bool = False) -> None:
+        _conv_to(flat, sd, key, path, bias or key + ".bias" in sd)
+
+    def bn(path: str, key: str) -> None:
+        _bn_to(flat, stats, sd, key, path + "/bn")
+
+    def se(path: str, key: str) -> None:
+        if key + ".fc.0.weight" in sd:
+            flat[path + "/fc0/kernel"] = _np(sd[key + ".fc.0.weight"]).T
+            flat[path + "/fc2/kernel"] = _np(sd[key + ".fc.2.weight"]).T
+
+    def downsample(path: str, key: str) -> None:
+        if key + ".0.weight" in sd and key + ".1.running_mean" in sd:  # Sequential(conv, BN)
+            conv(path + "/downsample", key + ".0")
+            bn(path + "/bn_down", key + ".1")
+        elif key + ".1.weight" in sd:  # Sequential(AvgPool2d, Conv2d(norm=BN))
+            conv(path + "/downsample", key + ".1")
+            bn(path + "/bn_down", key + ".1.norm")
+
+    def basic(path: str, key: str) -> None:
+        for c in ("1", "2"):
+            conv(f"{path}/conv{c}", f"{key}.conv{c}")
+            bn(f"{path}/bn{c}", f"{key}.bn{c}")
+        se(path + "/se", key + ".se")
+        downsample(path, key + ".downsample")
+
+    def bottleneck(path: str, key: str) -> None:
+        for c in ("1", "2", "3"):
+            conv(f"{path}/conv{c}", f"{key}.conv{c}")
+            bn(f"{path}/bn{c}", f"{key}.bn{c}")
+        se(path + "/se", key + ".se")
+        downsample(path, key + ".downsample")
+
+    def inverted(path: str, key: str) -> None:
+        for c, b in (("conv_pw", "bn1"), ("conv_dw", "bn2")):
+            conv(f"{path}/{c}", f"{key}.{c}", bias=True)
+            bn(f"{path}/{b}", f"{key}.{b}")
+        se(path + "/se", key + ".se")
+        conv(path + "/conv_pwl", key + ".conv_pwl", bias=True)
+        bn(path + "/bn3", key + ".bn3")
+        downsample(path, key + ".downsample")
+
+    blockmap = {"BASIC": basic, "BOTTLENECK": bottleneck, "INVERTED": inverted}
+
+    def wrapper_conv_bn(path_conv: str, path_bn: str, key: str) -> None:
+        # lib/layers/wrappers.py Conv2d(norm=get_norm('BN', ...))
+        conv(path_conv, key)
+        bn(path_bn, key + ".norm")
+
+    if version in ("v2", "v2_share", "v3"):
+        for c in ("1", "2"):
+            conv(f"stem_conv{c}", f"conv{c}")
+            bn(f"stem_bn{c}", f"bn{c}")
+        stem_block = bottleneck if version != "v3" else inverted
+        for k in range(4 if version != "v3" else 2):
+            stem_block(f"layer1_block{k}", f"layer1.{k}")
+    elif version == "v4":
+        wrapper_conv_bn("stem_conv1", "stem_bn1", "stem.0")
+        if stem_spec == "conv16s2conv24s2inv24e6x2":
+            wrapper_conv_bn("stem_conv2", "stem_bn2", "stem.1")
+            inverted("layer1_block0", "stem.2.0")
+            inverted("layer1_block1", "stem.2.1")
+        elif stem_spec == "conv32s2maxpools2inv32e6x1":
+            inverted("layer1_block0", "stem.2.0")
+        elif stem_spec == "conv32s2maxpools2inv32e2wosex1":
+            # a raw InvertedResidual, not a _build_layer Sequential (cls_hrnet_v4.py:482)
+            inverted("layer1_block0", "stem.2")
+        elif stem_spec in ("conv32s2inv32e6s2x1", "conv24s2inv24e6s2x1"):
+            inverted("layer1_block0", "stem.1.0")
+        elif stem_spec != "conv32s2maxpools2":
+            raise ValueError(f"unknown STEM_SPEC {stem_spec!r}")
+    for i in range(len(num_modules)):
+        nb = num_branches[i]
+        for j in range(nb):
+            t = f"transition{i + 1}.{j}"
+            if f"{t}.0.weight" in sd:
+                conv(f"transition{i + 1}_{j}", f"{t}.0")
+                bn(f"transition{i + 1}_bn{j}", f"{t}.1")
+            elif f"{t}.0.0.weight" in sd:
+                k = 0
+                while f"{t}.{k}.0.weight" in sd:
+                    conv(f"transition{i + 1}_{j}_{k}", f"{t}.{k}.0")
+                    bn(f"transition{i + 1}_bn{j}_{k}", f"{t}.{k}.1")
+                    k += 1
+        cvt = blockmap[block[i]]
+        for m in range(num_modules[i]):
+            base, o = f"stage{i + 2}.{m}", f"stage{i + 2}_m{m}"
+            for b in range(nb):
+                for blk in range(num_blocks[i][b]):
+                    cvt(f"{o}/branch{b}_block{blk}", f"{base}.branches.{b}.{blk}")
+            for f in range(nb - 1):
+                wrapper_conv_bn(f"{o}/fuse_down{f}", f"{o}/fuse_down_bn{f}",
+                                f"{base}.fuse_downsample_layers.{f}")
+                wrapper_conv_bn(f"{o}/fuse_up{f}", f"{o}/fuse_up_bn{f}",
+                                f"{base}.fuse_upsample_layers.{f}")
+    for i, hb in enumerate(head_block):
+        if (f"incre_modules.{i}.0.conv1.weight" in sd
+                or f"incre_modules.{i}.0.conv_pw.weight" in sd):
+            blockmap[hb](f"incre{i}", f"incre_modules.{i}.0")
+    i = 0
+    while f"downsample_modules.{i}.0.weight" in sd:
+        conv(f"down{i + 1}", f"downsample_modules.{i}.0", bias=True)
+        bn(f"down_bn{i + 1}", f"downsample_modules.{i}.1")
+        i += 1
+    if head_proj > 0 and "proj_modules.0.weight" in sd:
+        conv("final_conv", "proj_modules.0", bias=True)
+        bn("final_bn", "proj_modules.1")
+    return flat, stats
+
+
+def ttnet_state_dict_to_tree(sd: Mapping) -> Tuple[Dict[str, np.ndarray],
+                                                  Dict[str, np.ndarray]]:
+    """A cls_ttnet_v2.py MobileShuffleV2Net or cls_ttnet_v3.py TTNetV3 state
+    dict -> ``(params, batch_stats)`` in ``models/ttnet.py``'s naming, the
+    version told by the key prefix (``backbone.``: v2, ``stem.``: v3); the
+    ``fc`` head comes along."""
+    flat: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
+    conv = lambda path, key: _conv_to(flat, sd, key, path)  # noqa: E731
+    bn = lambda path, key: _bn_to(flat, stats, sd, key, path)  # noqa: E731
+
+    def block(path: str, key: str) -> None:
+        # each branch a Sequential: 0 conv, 1 bn, 2 relu, 3 conv, 4 bn, 5 relu, 6 conv, 7 bn
+        for br in ("branch1", "branch2"):
+            if f"{key}.{br}.0.weight" not in sd:
+                continue
+            for n, (c, b) in enumerate((("0", "1"), ("3", "4"), ("6", "7")), start=1):
+                conv(f"{path}/{br}/conv{n}", f"{key}.{br}.{c}")
+                bn(f"{path}/{br}/bn{n}", f"{key}.{br}.{b}")
+
+    if any(k.startswith("backbone.conv1.") for k in sd):  # v2
+        conv("conv1_conv", "backbone.conv1.0")
+        bn("conv1_bn", "backbone.conv1.1")
+        block("block1", "backbone.block1")
+        stage = lambda s: f"backbone.stage_{s}"  # noqa: E731
+    else:  # v3
+        conv("stem_conv", "stem.0.0")
+        bn("stem_bn", "stem.0.1")
+        block("stem_block", "stem.1")
+        stage = lambda s: f"stages.{s - 1}"  # noqa: E731
+    s = 1
+    while f"{stage(s)}.0.branch1.0.weight" in sd:
+        i = 0
+        while f"{stage(s)}.{i}.branch1.0.weight" in sd:
+            block(f"stage_{s}/block_{i}", f"{stage(s)}.{i}")
+            i += 1
+        s += 1
+    if "conv1x1.0.weight" in sd:
+        conv("final_conv", "conv1x1.0")
+        bn("final_bn", "conv1x1.1")
+    flat["fc/kernel"] = _np(sd["fc.weight"]).T
+    flat["fc/bias"] = _np(sd["fc.bias"])
+    return flat, stats

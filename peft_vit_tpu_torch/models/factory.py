@@ -11,7 +11,9 @@
   fresh), and the frozen text tower as ``encode_text``; the cls_resnet
   family (``_build_resnet_backbone``) for a ResNet name; the Swin family
   (``_build_swin_backbone``) and ConvViT / CSwin (``_build_convvit_backbone``)
-  for theirs; for any other name outside the backbone zoo's families
+  for theirs; EfficientNet, ReXNet, TTNet v2 / v3 and HRNet v1 / v2-v4
+  (``_build_hrnet_backbone``) for theirs, a timm EfficientNet checkpoint
+  grafted onto EfficientNet; for any other name outside the backbone zoo's families
   (``cls_vit*``, ``vit*``) the supervised timm-style ViT from
   ``MODEL.SPEC.VISION``, a timm checkpoint grafted onto it when
   ``MODEL.PRETRAINED`` names one.
@@ -37,12 +39,17 @@ from .clip_resnet import ModifiedResNet
 from .convert import (clip_rn_state_dict_to_tree, clip_rn_visual_state_dict,
                       clip_state_dict_to_tree, infer_clip_rn_shape, infer_clip_shape,
                       is_clip_rn_state_dict, load_torch_checkpoint, text_state_dict,
-                      timm_vit_state_dict, timm_vit_state_dict_to_tree, visual_state_dict)
+                      timm_effnet_state_dict_to_tree, timm_vit_state_dict,
+                      timm_vit_state_dict_to_tree, tower_state_dict, visual_state_dict)
+from .efficientnet import EfficientNet
+from .hrnet import HRNet, HRNetV, hrnet_v_spec
 from .layers import cast_frozen_
 from .registry import get_custom_builder
 from .resnet import DyReLUSpec, ResNet
+from .rexnet import ReXNet
 from .swin import SwinTransformer
 from .text import TextEncoder, TextTransformer
+from .ttnet import TTNetV2, ttnet_v3_from_config
 from .vit import VisionTransformer
 from .vit_conv import ConvViT
 
@@ -129,7 +136,7 @@ def is_clip_rn_cfg(cfg) -> bool:
 #: the JAX builder's other backbone families, each by the substrings of
 #: ``MODEL.NAME`` and the ``MODEL.SPEC.VISION.MODEL`` values that select it
 #: (``peft_vit_tpu/models/factory.py:38-103``), in the order its non-CLIP
-#: branch tries them; of these the ResNet family, ConvViT and Swin are ported
+#: branch tries them
 _ZOO = (
     ("rexnet", ("rexnet",), ("rexnet",)),
     ("efficientnet", ("efficientnet",), ("efficientnet",)),
@@ -139,7 +146,6 @@ _ZOO = (
     ("convvit", ("vit_conv", "cswin"), ("vit_conv", "cswin")),
     ("swin", ("swin",), ("swin",)),
 )
-PORTED_FAMILIES = ("resnet", "convvit", "swin")
 
 
 def zoo_family(cfg) -> Optional[str]:
@@ -200,6 +206,42 @@ def _build_resnet_backbone(cfg, dtype: torch.dtype, device) -> ResNet:
         dtype=dtype,
         device=device,
     )
+
+
+def _build_hrnet_backbone(cfg, dtype: torch.dtype, device):
+    """The cls_hrnet family (JAX ``factory.py:106-143``): ``cls_hrnet_v2`` /
+    ``v2_share`` / ``v3`` / ``v4`` build ``HRNetV`` from the reference
+    experiment yaml's surface (``hrnet.hrnet_v_spec``), any other hrnet name
+    ``HRNet`` from ``MODEL.SPEC.VISION.HRNET_WIDTH`` (18) and
+    ``STAGE_MODULES`` ((1, 4, 3))."""
+    name = str(cfg.MODEL.NAME).lower()
+    if "hrnet_v" in name:
+        version = name.split("hrnet_")[-1]  # v2 | v2_share | v3 | v4
+        node = cfg.MODEL.SPEC if version in ("v2", "v2_share") else cfg.MODEL.EXTRA
+        return HRNetV(**hrnet_v_spec(version, node), dtype=dtype, device=device)
+    s = cfg.MODEL.SPEC.VISION
+    return HRNet(width=int(s.get("HRNET_WIDTH", 18)),
+                 stage_modules=tuple(s.get("STAGE_MODULES", (1, 4, 3))), dtype=dtype,
+                 device=device)
+
+
+def _build_cnn_backbone(cfg, family: str, num_classes: int, dtype: torch.dtype, device):
+    """EfficientNet, ReXNet and TTNet (JAX ``factory.py:541-565``): the
+    width and depth multipliers (and EfficientNet's ``STEM_CH`` /
+    ``HEAD_CH``) of ``MODEL.SPEC.VISION``; TTNet v3 (a v3 name) from
+    ``MODEL.EXTRA``, v2 its fixed topology, both as pooled features."""
+    v = cfg.MODEL.SPEC.VISION
+    if family == "efficientnet":
+        return EfficientNet(width_mult=float(v.get("WIDTH_MULT", 1.0)),
+                            depth_mult=float(v.get("DEPTH_MULT", 1.0)),
+                            stem_ch=int(v.get("STEM_CH", 32)), head_ch=int(v.get("HEAD_CH", 1280)),
+                            dtype=dtype, device=device)
+    if family == "rexnet":
+        return ReXNet(width_mult=float(v.get("WIDTH_MULT", 1.0)),
+                      depth_mult=float(v.get("DEPTH_MULT", 1.0)), dtype=dtype, device=device)
+    if "v3" in str(cfg.MODEL.NAME).lower():
+        return ttnet_v3_from_config(cfg, num_classes, dtype, features_only=True, device=device)
+    return TTNetV2(features_only=True, dtype=dtype, device=device)
 
 
 def is_swin_cfg(cfg) -> bool:
@@ -312,11 +354,11 @@ def build_image_classifier(
     ViT flag and merges no projection (its pool's ``c_proj`` is structural).
     A Swin or ConvViT tower takes none of the ViT flags either (the JAX
     modules have none); a CLIP Swin tower is built from ``MODEL.SPEC`` and,
-    as in the JAX builder, no checkpoint is grafted onto it.  The backbone
-    families other than the ResNets, ConvViT and Swin (``zoo_family``), a
-    CLIP tower other than the ViT, the ModifiedResNet and Swin,
-    ``TPU.SCAN_LAYERS`` and ``TPU.SEQUENCE_PARALLEL`` raise
-    ``NotImplementedError``.
+    as in the JAX builder, no checkpoint is grafted onto it.  The other CNNs
+    (EfficientNet, ReXNet, TTNet, HRNet) take no ViT flag either, the
+    ``TPU.INT8_*`` ones included, as in the JAX builder.  A CLIP tower other
+    than the ViT, the ModifiedResNet and Swin, ``TPU.SCAN_LAYERS`` and
+    ``TPU.SEQUENCE_PARALLEL`` raise ``NotImplementedError``.
     """
     device = resolve_device(device)
     custom = get_custom_builder(str(cfg.MODEL.NAME))
@@ -327,10 +369,6 @@ def build_image_classifier(
     tpu = cfg.TPU
     clip = is_clip_model(cfg)
     family = None if clip else zoo_family(cfg)
-    if family is not None and family not in PORTED_FAMILIES:
-        raise _not_ported(f"MODEL.NAME {cfg.MODEL.NAME!r} (the {family} family; only the CLIP "
-                          "ViT, ResNets and Swin, the timm-style ViT, the ResNet family, "
-                          "ConvViT and Swin)", "the backbone zoo")
     if bool(tpu.get("SCAN_LAYERS", False)):
         raise _not_ported("TPU.SCAN_LAYERS", "the rest")
     if bool(tpu.get("SEQUENCE_PARALLEL", False)):
@@ -367,7 +405,7 @@ def build_image_classifier(
         logger.info("=> loaded checkpoint %s", cfg.MODEL.PRETRAINED)
     if family is not None:
         return _zoo_classifier(cfg, family, spec, num_classes, use_bn, vit_kw["dtype"], seed,
-                               device)
+                               device, sd)
     if not clip:
         return _timm_classifier(cfg, num_classes, use_bn, sd, vit_kw, seed, device)
     # the ModifiedResNet tower from a checkpoint's attention pool, else from the config
@@ -505,26 +543,38 @@ def _timm_classifier(cfg, num_classes: int, use_bn: bool, sd, vit_kw: dict, seed
 
 
 def _zoo_classifier(cfg, family: str, spec: PEFTSpec, num_classes: int, use_bn: bool,
-                    dtype: torch.dtype, seed: int, device: torch.device):
-    """The JAX builder's non-CLIP ResNet, ConvViT and Swin branches
-    (``factory.py:575-604``): the tower at ``TRAIN.IMAGE_SIZE`` under the
-    classifier head, weights drawn from ``seed``.  As in the JAX builder no
-    ``MODEL.PRETRAINED`` checkpoint is grafted onto them, and there is no
-    text tower."""
+                    dtype: torch.dtype, seed: int, device: torch.device, sd=None):
+    """The JAX builder's non-CLIP zoo branches (``factory.py:541-604``): the
+    tower at ``TRAIN.IMAGE_SIZE`` under the classifier head, weights drawn
+    from ``seed``.  As in the JAX builder a ``MODEL.PRETRAINED`` checkpoint
+    ``sd`` is grafted onto EfficientNet only (a timm state dict, its
+    BatchNorms' statistics included; leaves it lacks stay fresh, leaves the
+    tower lacks are ignored) and onto no other family; there is no text
+    tower."""
     with torch.random.fork_rng(devices=[]):
         torch.default_generator.manual_seed(seed)
         if family == "resnet":
             backbone = _build_resnet_backbone(cfg, dtype, "cpu")
         elif family == "swin":
             backbone = _build_swin_backbone(cfg, spec, None, dtype, "cpu")
-        else:
+        elif family == "convvit":
             backbone = _build_convvit_backbone(cfg, dtype, "cpu")
+        elif family == "hrnet":
+            backbone = _build_hrnet_backbone(cfg, dtype, "cpu")
+        else:
+            backbone = _build_cnn_backbone(cfg, family, num_classes, dtype, "cpu")
         model = ImageClassifier(
             backbone, num_classes=num_classes, use_bn=use_bn,
             normalize_visual=bool(cfg.TRAIN.NORMALIZE_VISUAL_FEATURE), dtype=dtype,
             device="cpu",
         )
     model.aux = {}
+    if sd is not None and family == "efficientnet":
+        state = {"backbone." + k: v for k, v in tower_state_dict(
+            *timm_effnet_state_dict_to_tree(sd)).items()}
+        missing, _ = model.load_state_dict(state, strict=False)
+        fresh = [k for k in missing if k.rsplit(".", 1)[-1] not in ("bn_mean", "bn_var")]
+        logger.info("=> grafted timm EfficientNet weights (%d fresh leaves)", len(fresh))
     model = model.to(device)
     return model, dict(model.named_parameters()), None
 

@@ -62,17 +62,26 @@ def _cudnn(dtype: torch.dtype, deterministic: bool = False):
                                       allow_tf32=dtype != torch.float32)
 
 
+def deterministic_backward(dtype: torch.dtype) -> bool:
+    """Whether ``_Conv2d``'s gradients of ``dtype`` operands take cuDNN's
+    deterministic algorithms: fp32 and float64 do (their default algorithms
+    did not repeat the input or weight gradient of 21 of HRNet v2's 33
+    convolutions on the H100, ``chip_smoke.py::zoo_determinism``); bf16 keeps
+    the default ones, which repeated every gradient of the ResNet, RN50,
+    EfficientNet-B0, ReXNet, TTNet v2 and HRNet-W18 steps and rounds."""
+    return dtype != torch.bfloat16
+
+
 class _Conv2d(torch.autograd.Function):
     """``F.conv2d(x, w, None, stride, padding, 1, groups)`` (NCHW, OIHW, no
     bias) and its input and weight gradients (``torch.nn.grad.conv2d_input``
-    / ``conv2d_weight``), each under ``_cudnn``.  cuDNN's default algorithms
-    (benchmark off) repeat every gradient of the ResNet-50 step and the RN50
-    rounds bit for bit on the card (``chip_smoke.py::determinism_phase``,
-    PERF.md §6), so none takes its deterministic ones; a conv shape that does
-    not repeat would take them here, scoped to its call.  The batching rule
-    folds a sweep round's cells into the batch for a shared weight; a batched
-    (trainable) weight makes the round one grouped convolution, the cells'
-    channels side by side."""
+    / ``conv2d_weight``), each under ``_cudnn``, the gradients with the
+    algorithms ``deterministic_backward`` picks for the operands' dtype,
+    scoped to the call (``chip_smoke.py``'s determinism probes hold each
+    convolution of the paths to repeating bit for bit under them; PERF.md
+    §6).  The batching rule folds a sweep round's cells into the batch for a
+    shared weight; a batched (trainable) weight makes the round one grouped
+    convolution, the cells' channels side by side."""
 
     @staticmethod
     def forward(x, w, stride, padding, groups):
@@ -93,7 +102,7 @@ class _Conv2d(torch.autograd.Function):
         stride, padding, groups = ctx.conv
         x_shape, w_shape = ctx.shapes
         dx = dw = None
-        with _cudnn(g.dtype):
+        with _cudnn(g.dtype, deterministic_backward(g.dtype)):
             if ctx.needs_input_grad[0]:
                 dx = torch.nn.grad.conv2d_input(x_shape, w, g, stride, padding, 1, groups)
             if ctx.needs_input_grad[1]:
@@ -136,18 +145,20 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int) -> torch.Tensor:
 
 
 class Conv2d(nn.Module):
-    """A bias-free k x k convolution, padding k // 2 (flax ``nn.Conv`` with
-    explicit symmetric padding), its OIHW ``weight`` stored in fp32 and cast
-    to the compute dtype at use; ``standardize`` (BiT's StdConv) first
-    standardizes the weight over (in, kh, kw) with the biased variance and
-    eps 1e-10, in fp32."""
+    """A k x k convolution, padding k // 2 (flax ``nn.Conv`` with explicit
+    symmetric padding), its OIHW ``weight`` stored in fp32 and cast to the
+    compute dtype at use; ``standardize`` (BiT's StdConv) first standardizes
+    the weight over (in, kh, kw) with the biased variance and eps 1e-10, in
+    fp32.  ``bias``: a zero-initialised fp32 ``bias``, added in the compute
+    dtype after the convolution, as flax adds it."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
                  standardize: bool = False, dtype: torch.dtype = torch.float32, device=None,
-                 padding: Optional[int] = None):
+                 padding: Optional[int] = None, bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(_lecun_normal_(
             torch.empty(cout, cin // groups, k, k, device=device), cin // groups * k * k))
+        self.bias = nn.Parameter(torch.zeros(cout, device=device)) if bias else None
         self.stride, self.groups, self.standardize = stride, groups, standardize
         self.padding = k // 2 if padding is None else padding
         self.compute_dtype = dtype
@@ -160,7 +171,8 @@ class Conv2d(nn.Module):
             v = w.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
             w = (w - m) * torch.rsqrt(v + 1e-10)
         dt = self.compute_dtype
-        return conv2d(x.to(dt), w.to(dt), self.stride, self.padding, self.groups)
+        y = conv2d(x.to(dt), w.to(dt), self.stride, self.padding, self.groups)
+        return y if self.bias is None else y + self.bias.to(dt).reshape(1, -1, 1, 1)
 
 
 def _affine(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, weight: torch.Tensor,
@@ -199,17 +211,20 @@ class BatchNorm2d(nn.Module):
     """``batch_norm`` with fp32 ``weight`` / ``bias`` (flax ``scale`` /
     ``bias``) and the statistics in the buffers ``bn_mean`` / ``bn_var``; a
     train-mode forward writes the new statistics into them (into the
-    tensors ``functional_call`` substitutes for them)."""
+    tensors ``functional_call`` substitutes for them).  ``eps``: flax's
+    ``epsilon`` (1e-5; EfficientNet's 1e-3)."""
 
-    def __init__(self, c: int, device=None):
+    def __init__(self, c: int, device=None, eps: float = 1e-5):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(c, device=device))
         self.bias = nn.Parameter(torch.zeros(c, device=device))
         self.register_buffer("bn_mean", torch.zeros(c, device=device))
         self.register_buffer("bn_var", torch.ones(c, device=device))
+        self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y, m, v = batch_norm(x, self.weight, self.bias, self.bn_mean, self.bn_var, self.training)
+        y, m, v = batch_norm(x, self.weight, self.bias, self.bn_mean, self.bn_var, self.training,
+                             eps=self.eps)
         if self.training:
             with torch.no_grad():
                 self.bn_mean.copy_(m)

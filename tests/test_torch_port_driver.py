@@ -327,10 +327,11 @@ def test_build_image_classifier_loads_a_clip_checkpoint_as_jax_does(tmp_path):
 @pytest.mark.parametrize("key,value,match", [
     ("TPU.SCAN_LAYERS", True, "ROADMAP §1, the rest"),
     ("TPU.SEQUENCE_PARALLEL", True, "ROADMAP §1, parallelism"),
-    ("MODEL.NAME", "rexnet", "ROADMAP §1, the backbone zoo"),
-    ("MODEL.NAME", "cls_ttnet_v2", "ROADMAP §1, the backbone zoo"),
-    ("MODEL.NAME", "efficientnet_b0", "ROADMAP §1, the backbone zoo"),
-    ("MODEL.NAME", "cls_hrnet_v2", "ROADMAP §1, the backbone zoo"),
+    # a CLIP tower other than the ViT, the ModifiedResNet and Swin
+    ("MODEL.SPEC.VISION.MODEL", "rexnet", "ROADMAP §1, the backbone zoo"),
+    ("MODEL.SPEC.VISION.MODEL", "ttnet", "ROADMAP §1, the backbone zoo"),
+    ("MODEL.SPEC.VISION.MODEL", "efficientnet", "ROADMAP §1, the backbone zoo"),
+    ("MODEL.SPEC.VISION.MODEL", "hrnet", "ROADMAP §1, the backbone zoo"),
 ])
 def test_build_image_classifier_refuses_what_is_not_ported(key, value, match):
     cfg = tiny_cfg(port_config, **{key: value})

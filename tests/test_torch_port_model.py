@@ -186,7 +186,8 @@ def test_port_imports_nothing_of_jax():
                      "data.streaming", "data.elevater", "data.custom", "data.hub",
                      "data.augment", "commands.test_io", "ops.dropblock", "models.resnet",
                      "models.clip_resnet", "models.registry", "models.swin",
-                     "models.ssl_swin", "models.vit_conv"):
+                     "models.ssl_swin", "models.vit_conv", "models.efficientnet",
+                     "models.rexnet", "models.ttnet", "models.hrnet"):
             assert "peft_vit_tpu_torch." + want in names, want
         import bench_torch, chip_smoke
         bad = sorted(

@@ -228,6 +228,10 @@ def test_factory_builds_the_timm_tower_with_the_jax_builders_leaves(name, method
             np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
 
 
+_ZOO_BACKBONES = {"efficientnet": "EfficientNet", "rexnet": "ReXNet", "hrnet": "HRNet",
+                  "cls_ttnet_v3": "TTNetV3", "cls_ttnet_v2": "TTNetV2"}
+
+
 @pytest.mark.parametrize("name,family", [("efficientnet_b3", "efficientnet"),
                                          ("rexnet_x1.5", "rexnet"), ("cls_hrnet_w18", "hrnet"),
                                          ("cls_ttnet_v3", "ttnet"),
@@ -235,10 +239,29 @@ def test_factory_builds_the_timm_tower_with_the_jax_builders_leaves(name, method
                                          ("rexnet", "rexnet"), ("cls_hrnet", "hrnet"),
                                          ("cls_ttnet_v2", "ttnet")])
 def test_factory_refuses_the_other_families(name, family):
-    cfg = _cfg(port_config, **{"MODEL.NAME": name})
+    """The zoo's other CNNs, refused until they were ported (the name is
+    kept): each name selects its family and now builds and runs a forward
+    (their own widths; a cut depth where the name leaves it to the config:
+    cls_hrnet's STAGE_MODULES, cls_ttnet_v3's MODEL.EXTRA); none raises
+    "the backbone zoo"."""
+    backbone = _ZOO_BACKBONES.get(name, _ZOO_BACKBONES.get(family))
+    over = {"MODEL.NAME": name}
+    if family == "hrnet":
+        over["MODEL.SPEC.VISION.STAGE_MODULES"] = [1, 1, 1]
+    if name == "cls_ttnet_v3":
+        over["MODEL.EXTRA"] = {
+            "STEM": {"NUM_CHANNEL_KICKOFF": 8, "NUM_CHANNEL_STEM_START": 16,
+                     "EXPAND_STEM_START": 2, "KERNEL_SIZE": 3},
+            "STAGES": {"NUM_CHANNEL_OUTPUT": [32, 64], "NUM_BLOCK_REPEATS": [2, 2],
+                       "KERNEL_SIZE": [3, 5]},
+            "NUM_CHANNEL_FINAL": 128}
+    cfg = _cfg(port_config, **over)
     assert port_factory.zoo_family(cfg) == family
-    with pytest.raises(NotImplementedError, match="ROADMAP §1, the backbone zoo"):
-        port_factory.build_image_classifier(cfg, port_spec_from_config(cfg), 5, device="cpu")
+    model, _, encode_text = port_factory.build_image_classifier(
+        cfg, port_spec_from_config(cfg), 5, device="cpu")
+    assert type(model.backbone).__name__ == backbone and encode_text is None
+    with torch.no_grad():
+        assert model.eval()(torch.zeros(2, 32, 32, 3)).shape == (2, 5)
 
 
 @pytest.mark.parametrize("name,family,backbone", [
