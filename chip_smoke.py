@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and few-shot driver paths
-on one NVIDIA H100 and check them.
+"""Drive the PyTorch/CUDA port's serving, training, few-shot driver,
+intrinsic-dimension and CLIP pre-training paths on one NVIDIA H100 and
+check them.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -273,6 +274,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    epoch): the first step captured == eager, the step's time, busy time and
    idle share; the five small towers served in fp32 (captured == eager,
    card against CPU).  K1-K7 launched 0 times on every path.
+18. intrinsic: the two WHT forms on one vector at d = 256 ... 16,384 (the
+   measure of ``ops.wht.DENSE_MAX``).  ViT-B/16 (vitb16_CLIP.yaml, 12
+   blocks, bf16, seeded random weights) with Fastfood over every block's
+   mlp at d = 1,000 (48 leaves, 24 at LL = 2^22): theta on the card against
+   the CPU in fp32 per leaf, v = 0 and SAID's lambda = 0 giving theta0 bit for
+   bit; an epoch of 2 steps at B = 16 through ``make_epoch_fn`` captured ==
+   eager bit for bit, its launches a replay (K1 12, K2 and K3 11: block 0's
+   attention precedes the first wrapped leaf); the step's time, the
+   transform's time and share of it, one WHT at 2^22, the profile; the dense
+   projection over block 11's mlp (19 GB of P): its rays against the CPU's,
+   v = 0 exact, one step.
+19. clip: ``commands.train_clip.train_clip_main`` at CLIP ViT-B/16 width
+   (vitb16_CLIP.yaml, 149.6 M parameters, seeded random weights) on the
+   synthetic pairs, 32 a step, adamW, 2 epochs of 2 steps, GATHER_TENSORS on:
+   without a group (the model's own logits), then in a one-rank NCCL group
+   (a file rendezvous): captured, the same run eager, and eager with the
+   gather and the mean all-reduce as identities (what they are over one
+   rank); the captured run equal to both bit for bit (losses and every
+   parameter), near the no-group run; one graph, K1-K3 24 a replay and K7
+   0; K1-K3 on the text tower's causal operands of the step against their
+   plain versions, bf16 (the eager run's first step) and fp32 (a step of the
+   fp32 model); the step's time, images/s and profile.  Then the sharded
+   LoRA step of ``parallel`` over the group, replicated and ZeRO-1: 2
+   captured steps == eager == the engine's one-process step, bit for bit.
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -4715,14 +4740,20 @@ def hold_step_attention(attn, label: str, calls: list) -> dict:
             worst[key] = max(worst[key], err)
             finite = finite and bool(torch.isfinite(got).all())
     shape = tuple(calls[0]["q"].shape)
-    check(worst["fwd"] <= TOL_BF16_OUT and worst["lse"] <= TOL_LSE,
+    # the kernel phase's bounds for the operands' dtype
+    tol_out, tol_grad = ((TOL_F32_OUT, TOL_F32_GRAD_REL) if calls[0]["q"].dtype == torch.float32
+                         else (TOL_BF16_OUT, TOL_BF16_GRAD_REL))
+    check(worst["fwd"] <= tol_out and worst["lse"] <= TOL_LSE,
           f"{label}: K1 on the operands of the {len(calls)} blocks' attention {shape} "
-          f"{calls[0]['q'].dtype} scale={calls[0]['scale']}: o max abs err {worst['fwd']:.3e} <= "
-          f"{TOL_BF16_OUT:g}, lse {worst['lse']:.3e} <= {TOL_LSE:g}")
-    check(finite and max(rels.values()) <= TOL_BF16_GRAD_REL,
+          f"{calls[0]['q'].dtype} scale={calls[0]['scale']}"
+          + (" with the bias" if calls[0]["bias"] is not None else "")
+          + f": o max abs err {worst['fwd']:.3e} <= {tol_out:g}, lse {worst['lse']:.3e} <= "
+          f"{TOL_LSE:g}")
+    check(finite and max(rels.values()) <= tol_grad,
           f"{label}: K2 and K3 on the same operands and the step's own dO: finite, dq, dk, dv "
           "max |diff| / max |plain| over the blocks = "
-          + ", ".join(f"{r:.3e}" for r in rels.values()) + f" <= {TOL_BF16_GRAD_REL:g}")
+          + ", ".join(f"{r:.3e}" for r in rels.values()) + f" <= {tol_grad:g}")
+    worst.update({f"{k}_rel": r for k, r in rels.items()})
     return worst
 
 
@@ -7234,6 +7265,457 @@ def zoo_phase(smi: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---- phase 18: intrinsic dimension (the Fastfood and dense reparameterization)
+
+INTRINSIC = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": 10, "PEFT.METHOD": "intrinsic",
+             "TPU.COMPUTE_DTYPE": "bfloat16"}
+INTRINSIC_MODEL = {}  # overrides of vitb16_CLIP.yaml (a CPU rehearsal's tiny widths)
+INTRINSIC_DIM = 1000  # d: the reference's intrinsic_dimension.py runs d in the thousands
+INTRINSIC_BATCH = 16
+INTRINSIC_STEPS = 2  # the captured epoch held against it eager
+INTRINSIC_DENSE_ROWS = 4096  # rows of each dense P whose ray is held against the CPU
+WHT_SPLIT_NS = tuple(2 ** i for i in range(8, 15))  # 256 ... 16,384: ops.wht.DENSE_MAX's measure
+# theta on the card against the CPU in fp32: the same two WHTs (2^22 long at
+# the kernels) in another summation order (the dense forms through cuBLAS
+# against the CPU's BLAS), so a ray stands a few fp32 ulps of its largest
+# element apart
+TOL_RAY_REL = 1e-5
+
+
+def wht_split_timing() -> dict:
+    """Each WHT form on one vector (unnormalized, forward) at each length of
+    ``WHT_SPLIT_NS``: the measure behind ``ops.wht.DENSE_MAX``."""
+    from peft_vit_tpu_torch.ops import wht
+
+    rows = {}
+    for n in WHT_SPLIT_NS:
+        x = torch.randn(n, device="cuda")
+        rows[n] = {"dense_ms": _device_ms(lambda: wht.wht_matmul(x, False), 20),
+                   "butterfly_ms": _device_ms(lambda: wht.wht_butterfly(x, False), 20)}
+        print(f"intrinsic: WHT of one vector at d = {n}: dense product "
+              f"{rows[n]['dense_ms'] * 1e3:.3f} us, butterfly {rows[n]['butterfly_ms'] * 1e3:.3f} "
+              f"us (DENSE_MAX {wht.DENSE_MAX})")
+    wht._MATRICES.clear()  # up to 1 GiB of H
+    return rows
+
+
+def intrinsic_phase(smi: str, device: str = "cuda") -> dict:
+    """Phase 18 (see the module docstring)."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import ce_per_example, init_cell_state, make_apply_fn
+    from peft_vit_tpu_torch.engine.train import make_epoch_fn, make_train_step
+    from peft_vit_tpu_torch.models import build_image_classifier, cast_frozen_
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.ops import wht
+    from peft_vit_tpu_torch.peft import build_mask, spec_from_config, split_params
+    from peft_vit_tpu_torch.peft import intrinsic
+
+    t0 = time.perf_counter()
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {"split": wht_split_timing() if on_card else {}}
+    cfg = driver_cfg({**INTRINSIC, **INTRINSIC_MODEL})
+    torch.manual_seed(SEED)
+    model, _, _ = build_image_classifier(cfg, spec_from_config(cfg), NUM_CLASSES, device=device)
+    named = dict(model.named_parameters())
+    split_params(model, build_mask(model, "intrinsic", num_layers=LAYERS, train_head=False))
+    sel = intrinsic.select_intrinsic_targets(named, "mlp")
+    targets = {k: v for k, v in named.items() if sel[k]}  # fp32, before the cast
+    gen = torch.Generator(device=device).manual_seed(SEED + 200)
+    proj = intrinsic.build_projection(gen, targets, INTRINSIC_DIM)
+    ll = max(leaf.ll for leaf in proj.leaves.values())  # 2^22 at ViT-B/16
+    big = [k for k, leaf in proj.leaves.items() if leaf.ll == ll]
+    cast_frozen_(model)
+    rng = np.random.RandomState(SEED + 201)
+    v = torch.from_numpy((rng.standard_normal(INTRINSIC_DIM) * 0.1).astype(np.float32))
+
+    # theta: the card against the CPU in fp32, v = 0 and SAID's lambda = 0 exact
+    theta = intrinsic.materialize(proj, v.to(device))
+    zero = intrinsic.materialize(proj, torch.zeros(INTRINSIC_DIM, device=device))
+    off = intrinsic.materialize(proj, v.to(device), {k: torch.zeros((), device=device)
+                                                     for k in proj.theta0})
+    cpu = intrinsic.materialize(proj.to("cpu"), v)
+    errs = {}
+    for k, theta0 in proj.theta0.items():
+        ray = cpu[k] - theta0.cpu()
+        errs[k] = ((theta[k].cpu() - cpu[k]).abs().max() / ray.abs().max()).item()
+    worst = max(errs, key=errs.get)
+    layers = model.backbone.layers
+    check(len(proj.theta0) == 4 * layers and len(big) == 2 * layers
+          and max(errs.values()) <= TOL_RAY_REL,
+          f"intrinsic: Fastfood over mlp, {len(proj.theta0)} leaves ({len(big)} at LL = {ll}, "
+          f"d = {INTRINSIC_DIM}): theta on the card vs the CPU in fp32, max |diff| / max |ray| "
+          f"{errs[worst]:.3e} ({worst}) <= {TOL_RAY_REL:g}")
+    check(all(torch.equal(zero[k], t) and torch.equal(off[k], t) for k, t in proj.theta0.items()),
+          "intrinsic: v = 0 gives theta0 bit for bit on every leaf; so does SAID with lambda = 0")
+    del theta, zero, off, cpu
+
+    # the step: an epoch of INTRINSIC_STEPS batches captured, against it eager
+    apply_fn, trainable = intrinsic.make_intrinsic_apply(make_apply_fn(model), proj)
+    n = INTRINSIC_BATCH * INTRINSIC_STEPS
+    x = torch.from_numpy(rng.standard_normal((n, IMAGE, IMAGE, 3)).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.randint(0, NUM_CLASSES, n)).to(device)
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    perm = np.arange(n)
+    graphs = {}
+    epoch = make_epoch_fn(apply_fn, ce_per_example, INTRINSIC_BATCH, graphs=graphs)
+    lr, wd = 1e-2, 1e-4
+    _zero_attention_counts(attn)
+    state_c, loss_c = epoch(init_cell_state(trainable), {}, x, y, valid, perm, lr, wd)
+    sync()
+    counts = _attention_counts(attn)
+    with bench_torch.eager_on_card():
+        state_e, loss_e = epoch(init_cell_state(trainable), {}, x, y, valid, perm, lr, wd)
+    same = (torch.equal(state_c.trainable["v"], state_e.trainable["v"])
+            and torch.equal(state_c.momentum["v"], state_e.momentum["v"])
+            and torch.equal(loss_c, loss_e))
+    check(same and bool(torch.isfinite(loss_c)) and bool(state_c.trainable["v"].abs().max() > 0),
+          f"intrinsic: {INTRINSIC_STEPS} captured steps at B={INTRINSIC_BATCH} == eager bit for "
+          f"bit (v, its momentum, the loss {float(loss_c):.6f}); v moved")
+    graph = graphs.get(("step", None, INTRINSIC_BATCH))
+    per_replay = graph.launches if graph is not None else {}
+    # K1 in every block; K2 and K3 from block 1 on: block 0's attention runs
+    # before its mlp, the first leaf theta reaches, so its q, k, v need no gradient
+    want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers - 1,
+            "flash_attention_bwd_dkv": layers - 1, "attention_bias_grad": 0}
+    check(all(per_replay.get(k, 0) == n_ for k, n_ in want.items()),
+          f"intrinsic: launches a step replay {per_replay} == {want}; the wrappers counted "
+          f"{counts} over the warm-up and the capture")
+    out["launches"] = per_replay
+
+    # the step's time, the transform's share of it, its profile
+    if on_card:
+        step_ms = _replay_ms(graph, reps=5)
+        vg = torch.zeros(INTRINSIC_DIM, device=device, requires_grad=True)
+        weights = {k: torch.randn_like(t) for k, t in proj.theta0.items()}
+
+        def transform():  # theta and dL/dv through it, as the step takes them
+            th = intrinsic.materialize(proj, vg)
+            torch.autograd.grad(sum((th[k] * w).sum() for k, w in weights.items()), vg)
+
+        transform_ms = _device_ms(transform, reps=2)
+        x22 = torch.randn(ll, device=device)
+        one_ms = _device_ms(lambda: wht.wht(x22, False), reps=5)
+        busy, n_launch, top = _device_breakdown(lambda: graph.graph.replay(), reps=2)
+        # the profiler's view: the transform's kernels run alone, against the step's
+        t_busy, t_launch, _ = _device_breakdown(transform, reps=1)
+        out.update(step_ms=step_ms, transform_ms=transform_ms, wht_big_ms=one_ms,
+                   share=transform_ms / step_ms, busy_ms=busy, step_launches=n_launch,
+                   transform_busy_ms=t_busy)
+        if busy is not None and t_busy is not None:
+            print(f"intrinsic profile: the transform alone busy {t_busy:.3f} ms in "
+                  f"{t_launch:.0f} launches, {t_busy / busy:.3f} of the step's busy time")
+        print(f"intrinsic: the step at B={INTRINSIC_BATCH} {step_ms:.3f} ms "
+              f"({1e3 * INTRINSIC_BATCH / step_ms:.1f} images/s, graph replay, CUDA events); "
+              f"theta and dL/dv alone {transform_ms:.3f} ms, share {transform_ms / step_ms:.3f} of "
+              f"the step; one WHT at LL = {ll} {one_ms:.3f} ms (4 a big leaf a step, "
+              f"{len(big)} big leaves); {smi}")
+        if busy is not None:  # _device_breakdown's numbers are per replay
+            print(f"intrinsic profile: busy {busy:.3f} ms a step in {n_launch:.0f} launches, "
+                  f"idle share {max(0.0, 1.0 - busy / step_ms):.3f}; top: "
+                  + "; ".join(f"{name} {t:.3f} ms" for name, t in top))
+    del graphs, graph, state_c, state_e
+    gc_collect(on_card)
+
+    # the dense projection over one block's mlp (P is DD x d fp32: 9.4 GB for c_fc)
+    # theta0 in fp32 (the model's own tensors are bf16 since the cast)
+    last = layers - 1  # TRAIN.INTRINSIC_LAYER of the dense run: the last block's mlp
+    dense_targets = {k: t for k, t in proj.theta0.items()
+                     if intrinsic.select_intrinsic_targets({k: t}, "mlp", last)[k]}
+    dproj = intrinsic.build_projection(gen, dense_targets, INTRINSIC_DIM, kind="dense")
+    theta = intrinsic.materialize(dproj, v.to(device))
+    zero = intrinsic.materialize(dproj, torch.zeros(INTRINSIC_DIM, device=device))
+    derr = 0.0
+    for k, p in dproj.leaves.items():
+        ray = theta[k] - dproj.theta0[k]
+        flat = (ray.t() if ray.dim() == 2 else ray).reshape(-1)[:INTRINSIC_DENSE_ROWS].cpu()
+        want_ray = p[:INTRINSIC_DENSE_ROWS].cpu() @ v
+        derr = max(derr, ((flat - want_ray).abs().max() / want_ray.abs().max()).item())
+    check(len(dproj.leaves) == 4 and derr <= TOL_RAY_REL
+          and all(torch.equal(zero[k], t) for k, t in dproj.theta0.items()),
+          f"intrinsic dense: block {last}'s mlp ({len(dproj.leaves)} leaves, "
+          f"{sum(p.numel() for p in dproj.leaves.values()) * 4 / 2 ** 30:.1f} GiB of P): the "
+          f"first {INTRINSIC_DENSE_ROWS} rows of each ray (the JAX layout) vs the CPU's P v, max "
+          f"|diff| / max |ray| {derr:.3e} <= {TOL_RAY_REL:g}; v = 0 gives theta0 bit for bit")
+    del theta, zero
+    dapply, dtrainable = intrinsic.make_intrinsic_apply(make_apply_fn(model), dproj)
+    step = make_train_step(dapply, ce_per_example)
+    _zero_attention_counts(attn)
+    st, dloss = step(init_cell_state(dtrainable), {}, x[:INTRINSIC_BATCH], y[:INTRINSIC_BATCH],
+                     None, torch.tensor(lr, device=device), torch.tensor(wd, device=device))
+    sync()
+    dcounts = _attention_counts(attn)
+    # K1 in every block; K2 and K3 in none: the last block's attention runs
+    # before its mlp, so no q, k, v needs a gradient
+    dwant = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": 0,
+             "flash_attention_bwd_dkv": 0, "attention_bias_grad": 0}
+    check(bool(torch.isfinite(dloss)) and bool(st.trainable["v"].abs().max() > 0)
+          and all(dcounts[k] == n_ for k, n_ in dwant.items()),
+          f"intrinsic dense: one eager step on block {last}'s mlp, loss "
+          f"{float(dloss):.6f} finite, v moved; launches {dcounts}, K1-K3 and K7 == {dwant}")
+    out["dense_launches"] = dcounts
+    del dproj, dapply, step, st, proj, model
+    gc_collect(on_card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"intrinsic phase: {out['seconds']:.1f} s (host clock; {smi})", flush=True)
+    return out
+
+
+# ---- phase 19: CLIP pre-training (train_clip) and the data-parallel steps
+
+CLIP_BATCH = 32  # pairs a step
+CLIP = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": 4, "PEFT.METHOD": "full",
+        "TRAIN.BATCH_SIZE_PER_GPU": CLIP_BATCH, "TRAIN.BEGIN_EPOCH": 0, "TRAIN.END_EPOCH": 2,
+        "TRAIN.OPTIMIZER": "adamW", "TRAIN.LR": 1e-5, "TRAIN.WD": 0.05,
+        "TRAIN.LR_SCHEDULER.METHOD": "constant", "PRINT_FREQ": 1, "OUTPUT_DIR": "",
+        "MODEL.SPEC.GATHER_TENSORS": True, "TPU.COMPUTE_DTYPE": "bfloat16"}
+CLIP_MODEL = {}  # overrides of vitb16_CLIP.yaml (a CPU rehearsal's tiny widths)
+DP_MODEL = {}  # the sharded step's flagship: ViT-B/16 unless a rehearsal shrinks it
+CLIP_REPS = 5  # timed replays of the step
+DP_BATCH = 16  # the sharded LoRA step's batch
+DP_STEPS = 2
+# the no-group step (the model's own logits) against the gathered step over a
+# one-rank group: the same products in fp32 after the bf16 towers; a bound of
+# one bf16 step (2^-8) of the loss, 5 per cent above it
+TOL_CLIP_NO_GROUP_LOSS_REL = 4.1e-3
+
+
+@contextlib.contextmanager
+def _identity_collectives():
+    """The collectives of the CLIP step as what they are over one rank:
+    copies (the gather and the mean all-reduce)."""
+    from peft_vit_tpu_torch.parallel import collectives
+
+    saved = collectives.gather_features, collectives.psum_mean
+    collectives.gather_features = lambda x: x
+    collectives.psum_mean = lambda x: x.detach().clone()
+    try:
+        yield
+    finally:
+        collectives.gather_features, collectives.psum_mean = saved
+
+
+def clip_drive(label: str, cfg, device: str, sync, spy_attention: bool = False) -> dict:
+    """``train_clip_main(cfg)`` observed: the StepGraphs it captures, each
+    step's loss and the parameters after the last, the wrappers' counts from
+    0 just before and read just after, the wall time (and with
+    ``spy_attention`` the first step's attention operands)."""
+    from peft_vit_tpu_torch.commands import train_clip
+    from peft_vit_tpu_torch.engine import train as train_engine
+    from peft_vit_tpu_torch.ops import attention as attn
+
+    rec = {"graphs": [], "losses": []}
+    real_graph, real_step = train_engine.StepGraph, train_clip.make_clip_train_step
+
+    class Recorded(real_graph):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rec["graphs"].append(self)
+
+    def spy(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def observed(params, opt, images, tokens):
+            out = step(params, opt, images, tokens)
+            rec["losses"].append(out[2].clone())
+            rec["params"] = out[0]
+            return out
+
+        return observed
+
+    train_engine.StepGraph, train_clip.make_clip_train_step = Recorded, spy
+    _zero_attention_counts(attn)
+    spied = attention_spy() if spy_attention else contextlib.nullcontext([])
+    try:
+        with spied as calls:
+            t0 = time.perf_counter()
+            loss = train_clip.train_clip_main(cfg, device=device)
+            sync()
+            rec["wall_s"] = time.perf_counter() - t0
+    finally:
+        train_engine.StepGraph, train_clip.make_clip_train_step = real_graph, real_step
+    rec["counts"] = _attention_counts(attn)
+    rec["calls"] = calls[:int(cfg.MODEL.SPEC.VISION.LAYERS) + int(cfg.MODEL.SPEC.TEXT.LAYERS)]
+    # ^ the first step's
+    rec["loss"] = loss
+    rec["losses"] = torch.stack(rec["losses"]).cpu()
+    rec["params"] = {k: t.detach().clone() for k, t in rec["params"].items()}
+    print(f"{label}: train_clip_main {len(rec['losses'])} steps at {CLIP_BATCH} pairs, losses "
+          + " ".join(f"{float(x):.6f}" for x in rec["losses"])
+          + f", {rec['wall_s']:.2f} s wall", flush=True)
+    return rec
+
+
+def clip_fp32_attention(device: str) -> dict:
+    """One eager fp32 CLIP step at full width (no group) with K1-K3 held on
+    every attention call's operands: the text tower's (B, 8, 77, 64) with the
+    causal bias, the image tower's (B, 12, 197, 64)."""
+    from peft_vit_tpu_torch.commands.train_clip import load_pairs
+    from peft_vit_tpu_torch.data.tokenizer import tokenize
+    from peft_vit_tpu_torch.engine.contrastive import clip_opt_state, make_clip_train_step
+    from peft_vit_tpu_torch.engine.optim import build_optimizer
+    from peft_vit_tpu_torch.models.clip import clip_from_config
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.peft import spec_from_config
+
+    cfg = driver_cfg({**CLIP, **CLIP_MODEL, "TPU.COMPUTE_DTYPE": "float32"})
+    torch.manual_seed(SEED + 210)
+    model = clip_from_config(cfg, spec_from_config(cfg), device=device)
+    x_u8, caps = load_pairs(cfg)
+    mean = np.asarray(cfg.INPUT.MEAN, np.float32) * 255.0
+    std = np.asarray(cfg.INPUT.STD, np.float32) * 255.0
+    x = torch.from_numpy((x_u8[:CLIP_BATCH].astype(np.float32) - mean) / std).to(device)
+    tok = torch.from_numpy(tokenize(caps[:CLIP_BATCH], 77).astype(np.int64)).to(device)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    tx = build_optimizer(cfg, params, 2)
+    step = make_clip_train_step(model, tx)
+    import bench_torch
+
+    with bench_torch.eager_on_card(), attention_spy() as calls:
+        step(params, clip_opt_state(tx, params), x, tok)
+    text = [c for c in calls if c["bias"] is not None]
+    image = [c for c in calls if c["bias"] is None]
+    check(len(text) == int(cfg.MODEL.SPEC.TEXT.LAYERS)
+          and len(image) == int(cfg.MODEL.SPEC.VISION.LAYERS),
+          f"clip fp32: the step's attention calls, {len(text)} with the causal bias (text) and "
+          f"{len(image)} without (image)")
+    return {"text": hold_step_attention(attn, "clip fp32 text tower (causal)", text),
+            "image": hold_step_attention(attn, "clip fp32 image tower", image)}
+
+
+def sharded_step_check(smi: str, device: str) -> dict:
+    """The sharded LoRA step of ``parallel`` over the one-rank NCCL group,
+    replicated and ZeRO-1 (their collectives over one rank are copies):
+    ``DP_STEPS`` captured steps == the same steps eager == the engine's
+    one-process ``make_train_step``, bit for bit, at ViT-B/16, B = 16."""
+    import bench_torch
+    from peft_vit_tpu_torch.engine import ce_per_example, init_cell_state, make_apply_fn
+    from peft_vit_tpu_torch.engine.train import make_train_step
+    from peft_vit_tpu_torch.models import flagship
+    from peft_vit_tpu_torch.parallel import make_mesh, make_sharded_train_step
+
+    torch.manual_seed(SEED + 220)
+    model = flagship(**DP_MODEL, device=device)
+    trainable, _, _ = bench_torch.prepare(model)
+    apply_fn = make_apply_fn(model)
+    rng = np.random.RandomState(SEED + 221)
+    x = torch.from_numpy(rng.standard_normal((DP_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+                         ).to(device, torch.bfloat16)
+    y = torch.from_numpy(rng.randint(0, NUM_CLASSES, DP_BATCH)).to(device)
+    lr, wd = torch.tensor(1e-4, device=device), torch.tensor(1e-4, device=device)
+    one = make_train_step(apply_fn, ce_per_example)
+    with bench_torch.eager_on_card():
+        st = init_cell_state(trainable)
+        for _ in range(DP_STEPS):
+            st, _ = one(st, {}, x, y, None, lr, wd)
+    want = st.trainable
+    out = {}
+    mesh = make_mesh()
+    for zero1 in (False, True):
+        runs = {}
+        for mode in ("captured", "eager"):
+            step, place = make_sharded_train_step(apply_fn, ce_per_example, mesh, zero1=zero1)
+            ctx = bench_torch.eager_on_card() if mode == "eager" else contextlib.nullcontext()
+            with ctx:
+                state, frozen = place(init_cell_state(trainable), {})
+                for _ in range(DP_STEPS):
+                    state, loss = step(state, frozen, x, y, lr, wd)
+            runs[mode] = state.trainable
+        differ = [k for k in want if not (torch.equal(runs["captured"][k], runs["eager"][k])
+                                          and torch.equal(runs["eager"][k], want[k]))]
+        check(not differ, f"sharded step (zero1={zero1}) over the one-rank NCCL group: "
+              f"{DP_STEPS} captured steps == eager == make_train_step bit for bit over "
+              f"{len(want)} LoRA leaves at B={DP_BATCH}" + (f"; differ: {differ[:3]}" if differ
+                                                              else ""))
+        out[zero1] = not differ
+    return out
+
+
+def clip_phase(smi: str, device: str = "cuda") -> dict:
+    """Phase 19 (see the module docstring)."""
+    import bench_torch
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.utils import dist
+
+    t0 = time.perf_counter()
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = driver_cfg({**CLIP, **CLIP_MODEL})
+    blocks = int(cfg.MODEL.SPEC.VISION.LAYERS) + int(cfg.MODEL.SPEC.TEXT.LAYERS)
+    out = {}
+    # no group: the model's own logits
+    solo = clip_drive("clip no group", cfg, device, sync)
+    if on_card and solo["graphs"]:  # the step without collectives, beside the group's
+        out["no_group_step_ms"] = _replay_ms(solo["graphs"][0], reps=CLIP_REPS)
+        print(f"clip: the captured step without a group {out['no_group_step_ms']:.3f} ms "
+              f"(graph replay, CUDA events; {smi})")
+    del solo["params"], solo["graphs"]
+    gc_collect(on_card)
+    rendezvous = os.path.join(_results_dir(), "rendezvous")
+    dist.init_distributed(init_method=f"file://{rendezvous}", num_processes=1, process_id=0,
+                          device=device)
+    try:
+        group = clip_drive("clip one-rank group (captured)", cfg, device, sync)
+        graph = group["graphs"][0] if group["graphs"] else None
+        gc_collect(on_card)
+        with bench_torch.eager_on_card():
+            eager = clip_drive("clip one-rank group (eager)", cfg, device, sync,
+                               spy_attention=on_card)
+        gc_collect(on_card)
+        with bench_torch.eager_on_card(), _identity_collectives():
+            ident = clip_drive("clip, the collectives as identities (eager)", cfg, device, sync)
+        n_params = len(group["params"])
+        for other, what in ((eager, "the same steps eager"),
+                            (ident, "the gathered loss and update computed eagerly with the "
+                                    "gather and the mean all-reduce as identities")):
+            differ = [k for k, t in group["params"].items()
+                      if not torch.equal(t, other["params"][k])]
+            check(torch.equal(group["losses"], other["losses"]) and not differ,
+                  f"clip: the one-rank group's {len(group['losses'])} captured gathered steps == "
+                  f"{what}, bit for bit (each loss, {n_params} parameters)"
+                  + (f"; differ: {differ[:3]}" if differ else ""))
+        rel = ((group["losses"] - solo["losses"]).abs() / solo["losses"].abs()).max().item()
+        check(bool(torch.isfinite(group["losses"]).all()) and rel <= TOL_CLIP_NO_GROUP_LOSS_REL,
+              f"clip: the gathered steps' losses finite and within {TOL_CLIP_NO_GROUP_LOSS_REL:g} "
+              f"relative of the no-group steps' (the model's own logits): {rel:.3e}")
+        per_replay = graph.launches if graph is not None else {}
+        want = {"flash_attention_fwd": blocks, "flash_attention_bwd_dq": blocks,
+                "flash_attention_bwd_dkv": blocks, "attention_bias_grad": 0}
+        check(len(group["graphs"]) == 1
+              and all(per_replay.get(k, 0) == n for k, n in want.items()),
+              f"clip: one StepGraph for the run, launches a replay {per_replay} == {want} (12 "
+              f"image and 12 text blocks; the causal bias needs no gradient: K7 0); the wrappers "
+              f"counted {group['counts']} over the warm-up and the capture")
+        out.update(launches=per_replay, counts=group["counts"], losses=group["losses"].tolist())
+        if on_card:
+            text = [c for c in eager["calls"] if c["bias"] is not None]
+            out["causal_bf16"] = hold_step_attention(
+                attn, "clip bf16 text tower (causal), train_clip's own step", text)
+            del eager["calls"]
+            gc_collect(on_card)
+            out["causal_fp32"] = clip_fp32_attention(device)["text"]
+            step_ms = _replay_ms(graph, reps=CLIP_REPS)
+            busy, n_launch, top = _device_breakdown(lambda: graph.graph.replay(), reps=2)
+            out.update(step_ms=step_ms, images_per_s=1e3 * CLIP_BATCH / step_ms,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            print(f"clip: the captured step at {CLIP_BATCH} pairs {step_ms:.3f} ms, "
+                  f"{out['images_per_s']:.1f} images/s (graph replay, CUDA events, adamW over "
+                  f"{n_params} leaves); {smi}")
+            if busy is not None:  # _device_breakdown's numbers are per replay
+                print(f"clip profile: busy {busy:.3f} ms a step in {n_launch:.0f} launches, "
+                      f"idle share {max(0.0, 1.0 - busy / step_ms):.3f}; top: "
+                      + "; ".join(f"{name} {t:.3f} ms" for name, t in top))
+        del group, eager, ident, graph
+        gc_collect(on_card)
+        out["sharded"] = sharded_step_check(smi, device)
+    finally:
+        torch.distributed.destroy_process_group()
+    gc_collect(on_card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"clip phase: {out['seconds']:.1f} s (host clock; {smi})", flush=True)
+    return out
+
+
 def gc_collect(on_card: bool) -> None:
     import gc
 
@@ -7312,6 +7794,8 @@ def main() -> int:
     rn = _timed(resnet_phase, smi)
     sw = _timed(swin_phase, smi)
     zoo = _timed(zoo_phase, smi)
+    intr = _timed(intrinsic_phase, smi)
+    clip = _timed(clip_phase, smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
@@ -7480,6 +7964,19 @@ def main() -> int:
         line["launches_swin"] = sw["launches"].get(wrapper.get(line["name"], line["name"]), 0)
         # the zoo's other CNNs (phase 17): none of the kernels on any path
         line["launches_zoo"] = zoo["launches"].get(wrapper.get(line["name"], line["name"]), 0)
+        # a replay of the intrinsic step (phase 18; Fastfood over every mlp of
+        # ViT-B/16) and of the CLIP pre-training step (phase 19; 12 image and
+        # 12 text blocks, the text tower's causal bias in K1-K3)
+        name = wrapper.get(line["name"], line["name"])
+        line["launches_intrinsic"] = intr["launches"].get(name, 0)
+        line["launches_clip"] = clip["launches"].get(name, 0)
+        key = {"flash_attn_bwd_dq": "dq", "flash_attn_bwd_dkv": "dkv",
+               "flash_attn_fwd": "fwd"}.get(line["name"])
+        if key is not None:
+            # K1-K3 on the text tower's causal operands (32, 8, 77, 64) of
+            # train_clip's own step, bf16 (the captured run's eager twin) and fp32
+            line["causal_train_clip"] = {
+                dtype: clip[f"causal_{dtype}"][key] for dtype in ("bf16", "fp32")}
     # the D = 32 instantiations at Swin-T's stage-0 and stage-2 folds, B = 64
     # (swin_kernel_timing), and the full-shot step's launches a replay
     d32 = {"flash_attn_fwd": "fwd", "flash_attn_bwd_dq": "dq", "flash_attn_bwd_dkv": "dkv",

@@ -23,11 +23,14 @@ the head from the zero-shot text classifier.  When every trainable leaf
 sits past block 0 (the linear probe, AdapterDrop on its last blocks, the
 transformer probe, first_attention, first_mlp) the sweep takes the cached
 prefix (``engine.cached``) unless ``TRAIN.CACHE_FROZEN_PREFIX`` is False.
-Intrinsic dimension raises ``NotImplementedError``.  On a CNN tower (the
-CLIP ModifiedResNet, a cls_resnet) every step runs the tower's BatchNorm in
-train mode, as the JAX step does, and its statistics are state per cell
-beside the channel-BN head's; a DropBlock tower is refused at its first step,
-as flax refuses the JAX step's forward without a ``dropblock`` stream.
+Intrinsic dimension trains the head alone, as the JAX driver runs it: its
+mask selects no tower leaf and no module reads ``TRAIN.INTRINSIC_*`` (the
+method's math is the library's, ``peft.intrinsic.make_intrinsic_apply``).
+On a CNN tower (the CLIP ModifiedResNet, a cls_resnet) every step runs the
+tower's BatchNorm in train mode, as the JAX step does, and its statistics
+are state per cell beside the channel-BN head's; a DropBlock tower is
+refused at its first step, as flax refuses the JAX step's forward without a
+``dropblock`` stream.
 
     python -m peft_vit_tpu_torch.commands.run --ds DS.yaml --model MODEL.yaml [KEY VALUE ...]
 """
@@ -74,9 +77,8 @@ INJECTED_METHODS = (
 #: to the grafted values and draws only the head fresh
 TOWER_METHODS = ("full", "bitfit", "layernorm", "attention", "first_attention", "first_mlp")
 CONTRASTIVE_METHODS = ("finetune_contrast", "linear_probe_contrast")
-PORTED_METHODS = ("linear", "none", *INJECTED_METHODS, *TOWER_METHODS, *CONTRASTIVE_METHODS)
-# the ROADMAP §1 item that queues each method still refused
-_QUEUED = {"intrinsic": "intrinsic dimension"}
+PORTED_METHODS = ("linear", "none", *INJECTED_METHODS, *TOWER_METHODS, *CONTRASTIVE_METHODS,
+                  "intrinsic")
 
 
 def _fresh_leaf(name: str, shape, generator: torch.Generator) -> torch.Tensor:
@@ -158,11 +160,6 @@ def finetune_main(
     fix_seeds(int(cfg.DATASET.RANDOM_SEED_SAMPLING))
     spec = spec_from_config(cfg)
     logger.info("=> PEFT method: %s (%s)", cfg.PEFT.METHOD, spec)
-    if spec.method not in PORTED_METHODS:
-        raise NotImplementedError(
-            f"PEFT method {spec.method!r} is not ported to peft_vit_tpu_torch yet "
-            f"(ported: {', '.join(PORTED_METHODS)}; ROADMAP §1, {_QUEUED[spec.method]})"
-        )
 
     splits = construct_splits(cfg)
     num_classes = splits.num_classes

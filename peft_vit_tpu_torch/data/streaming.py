@@ -14,7 +14,8 @@
   short epoch must not look like a normal epoch end.
 
 The batch is ``BATCH_SIZE_PER_GPU`` (the JAX source multiplies it by the
-local device count); several processes raise (ROADMAP §1, parallelism).
+local device count); several processes raise (ROADMAP §1, parallelism (the
+multi-process Trainer)).
 ``ArrayLoader`` gives an in-memory uint8 dataset ``NativeTsvLoader``'s
 interface, so that the source's orders, flips, chunks and resume run
 without decoding.
@@ -31,6 +32,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from ..utils.dist import world_size
 from .native import NativeTsvLoader, native_available, native_error
 from .samplers import build_order, shard_order
 
@@ -199,10 +201,10 @@ class ArrayLoader:
 
 
 def _one_process() -> None:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+    if world_size() > 1:
         raise NotImplementedError("a streaming source over several processes is not ported to "
-                                  "peft_vit_tpu_torch yet (ROADMAP §1, parallelism)")
+                                  "peft_vit_tpu_torch yet (ROADMAP §1, parallelism (the "
+                                  "multi-process Trainer))")
 
 
 class StreamingSource:

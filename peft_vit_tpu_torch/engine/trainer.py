@@ -47,8 +47,9 @@ CNN backbone as of the channel-BN head.
 ``TPU.INT8_FWD_TRAIN`` quantizes the frozen tree once per run (before
 ``models.cast_frozen_``); ``TPU.INT8_STATIC_ACT`` recalibrates the static
 activation scales on the first batch of every epoch (``engine.train.calibrate``).
-A mesh, ``TPU.ZERO1``, ``TPU.MESH.PIPE`` and several processes raise
-(ROADMAP §1, parallelism).
+``TPU.ZERO1``, ``TPU.MESH.PIPE`` and several processes raise (ROADMAP §1,
+parallelism (the multi-process Trainer)); the data-parallel steps of
+``parallel`` run outside the Trainer.
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ from ..models.layers import cast_frozen_
 from ..models.resnet import ResNet
 from ..ops.int8 import INT8_TARGET_MODULES, quantize_frozen_tree
 from ..peft.masks import merge_params, split_params
+from ..utils.dist import world_size
 from . import train as _train
 from .checkpoint import dump_nan_state, restore_checkpoint, save_checkpoint
 from .ema import EmaState, SwaState, ema_init, ema_update_, swa_init, swa_update_
@@ -96,6 +98,10 @@ class FullTrainState(NamedTuple):
     finite: Optional[torch.Tensor] = None
 
 
+# what is left of ROADMAP §1's parallelism for the Trainer
+_TRAINER_ITEM = "parallelism (the multi-process Trainer)"
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to peft_vit_tpu_torch yet (ROADMAP §1, {item})")
@@ -104,12 +110,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 def _refuse_unported(cfg) -> None:
     tpu = cfg.TPU
     if bool(tpu.get("ZERO1", False)):
-        raise _not_ported("TPU.ZERO1", "parallelism")
+        raise _not_ported("TPU.ZERO1 in the Trainer", _TRAINER_ITEM)
     if int(tpu.MESH.get("PIPE", 1)) > 1:
-        raise _not_ported("TPU.MESH.PIPE > 1", "parallelism")
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise _not_ported("a full-shot run over several processes", "parallelism")
+        raise _not_ported("TPU.MESH.PIPE > 1", _TRAINER_ITEM)
+    if world_size() > 1:
+        raise _not_ported("a full-shot run over several processes", _TRAINER_ITEM)
 
 
 class Trainer:

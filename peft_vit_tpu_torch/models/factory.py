@@ -372,7 +372,7 @@ def build_image_classifier(
     if bool(tpu.get("SCAN_LAYERS", False)):
         raise _not_ported("TPU.SCAN_LAYERS", "the rest")
     if bool(tpu.get("SEQUENCE_PARALLEL", False)):
-        raise _not_ported("TPU.SEQUENCE_PARALLEL", "parallelism")
+        raise _not_ported("TPU.SEQUENCE_PARALLEL", "parallelism (tensor, sequence and pipeline)")
     int8_train = bool(tpu.get("INT8_FWD_TRAIN", False))
     int8_attn = bool(tpu.get("INT8_ATTN", False))
     if int8_attn and not (int8_train and bool(tpu.get("INT8_STATIC_ACT", False))):

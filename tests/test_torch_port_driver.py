@@ -502,13 +502,26 @@ def test_fresh_leaves_follow_the_jax_init():
 
 
 def test_driver_default_method_and_cache_rules(monkeypatch, tmp_path):
-    """Intrinsic dimension is still refused; the contrastive methods and the
-    cached-prefix sweep, refused before, run (every trainable leaf past block
-    0: the prefix is computed once, ``test_torch_port_cached_probes.py``
-    holds it against the JAX driver)."""
-    with pytest.raises(NotImplementedError, match="not ported.*ROADMAP §1, intrinsic dimension"):
-        port_run.finetune_main(tiny_cfg(port_config, **{"PEFT.METHOD": "intrinsic"}),
-                               device="cpu")
+    """Intrinsic dimension runs as the JAX driver runs it: the head alone
+    (``test_torch_port_intrinsic.py`` holds the run against the JAX driver);
+    the contrastive methods and the cached-prefix sweep, refused before, run
+    (every trainable leaf past block 0: the prefix is computed once,
+    ``test_torch_port_cached_probes.py`` holds it against the JAX driver)."""
+    masks = []
+    real_split = port_run.split_params
+
+    def split(model, mask):
+        masks.append(dict(mask))
+        return real_split(model, mask)
+
+    monkeypatch.setattr(port_run, "split_params", split)
+    score = port_run.finetune_main(tiny_cfg(port_config, **{"PEFT.METHOD": "intrinsic",
+                                                            "TRAIN.END_EPOCH": 1}),
+                                   device="cpu")
+    monkeypatch.setattr(port_run, "split_params", real_split)
+    assert 0.0 <= score <= 100.0
+    assert sorted(k for k, on in masks[0].items() if on) == ["classifier.head.bias",
+                                                             "classifier.head.weight"]
     text = {"MODEL.SPEC.TEXT.WIDTH": 32, "MODEL.SPEC.TEXT.LAYERS": 1,
             "MODEL.SPEC.TEXT.HEADS": 2, "MODEL.SPEC.TEXT.CONTEXT_LENGTH": 16}
     for method in ("finetune_contrast", "linear_probe_contrast"):

@@ -187,7 +187,9 @@ def test_port_imports_nothing_of_jax():
                      "data.augment", "commands.test_io", "ops.dropblock", "models.resnet",
                      "models.clip_resnet", "models.registry", "models.swin",
                      "models.ssl_swin", "models.vit_conv", "models.efficientnet",
-                     "models.rexnet", "models.ttnet", "models.hrnet"):
+                     "models.rexnet", "models.ttnet", "models.hrnet", "ops.wht",
+                     "peft.intrinsic", "utils.dist", "parallel", "parallel.mesh",
+                     "parallel.collectives", "parallel.train_step", "commands.train_clip"):
             assert "peft_vit_tpu_torch." + want in names, want
         import bench_torch, chip_smoke
         bad = sorted(

@@ -140,7 +140,7 @@ def test_linear_probe_both_ways_match_jax(monkeypatch, tmp_path):
 def test_eval_all_scores_each_run_and_zero_for_a_failed_one(tmp_path):
     """``eval_all`` through the port: one finite score per (dataset, shot,
     seed) from the driver, its summary read back from the logs; a run that
-    raises (intrinsic dimension is not ported) scores 0, the reference's
+    raises (``TPU.SCAN_LAYERS`` is not ported) scores 0, the reference's
     sweep-cell semantics, so a 0 is no proof that a run worked."""
     from peft_vit_tpu_torch.commands import eval_all
 
@@ -150,11 +150,11 @@ def test_eval_all_scores_each_run_and_zero_for_a_failed_one(tmp_path):
             "MODEL.SPEC.VISION.PATCH_SIZE", "8", "MODEL.SPEC.VISION.WIDTH", "32",
             "MODEL.SPEC.VISION.LAYERS", "1", "MODEL.SPEC.VISION.HEADS", "2",
             "DATASET.NUM_CLASSES", "4"]
-    for method in ("lora", "intrinsic"):
-        out = tmp_path / method
+    for name, refused in (("lora", []), ("scan_layers", ["TPU.SCAN_LAYERS", "True"])):
+        out = tmp_path / name
         results = eval_all.main(["--datasets", "synthetic", "--shots", "4", "--seeds", "0",
-                                 "--method", method, "--output", str(out), *opts],
+                                 "--method", "lora", "--output", str(out), *opts, *refused],
                                 device="cpu")
         assert list(results) == [("synthetic", 4, 0)]
         score = results["synthetic", 4, 0]
-        assert (0.0 < score <= 100.0) if method == "lora" else score == 0.0
+        assert (0.0 < score <= 100.0) if not refused else score == 0.0

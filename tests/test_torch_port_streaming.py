@@ -262,5 +262,6 @@ def test_several_processes_are_refused(root, monkeypatch):
 
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1, parallelism"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP §1, parallelism \(the multi-process Trainer\)"):
         streaming.StreamingSource(_cfg(port_config, root, "tsv"), "train")

@@ -470,11 +470,16 @@ def test_int8_static_recipe_recalibrates_every_epoch():
     assert trainer.evaluate(batch_iterator(x, y, 8, shuffle=False)) >= 0.0
 
 
-def test_refusals_name_their_roadmap_items():
-    for over, match in (({"TPU.ZERO1": True}, "parallelism"),
-                        ({"TPU.MESH.PIPE": 2}, "parallelism")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP §1, {match}"):
+def test_refusals_name_their_roadmap_items(monkeypatch):
+    item = r"ROADMAP §1, parallelism \(the multi-process Trainer\)"
+    for over in ({"TPU.ZERO1": True}, {"TPU.MESH.PIPE": 2}):
+        with pytest.raises(NotImplementedError, match=item):
             make_trainer(make_cfg(**over))
+    with monkeypatch.context() as m:  # a group of two processes
+        m.setattr(torch.distributed, "is_initialized", lambda: True)
+        m.setattr(torch.distributed, "get_world_size", lambda: 2)
+        with pytest.raises(NotImplementedError, match="several processes.*" + item):
+            make_trainer(make_cfg())
     # DropBlock stays refused on a ViT and builds on a ResNet (the JAX guard)
     with pytest.raises(ValueError, match="requires a ResNet"):
         make_trainer(make_cfg(**{"AUG.DROPBLOCK_KEEP_PROB": 0.9}))

@@ -169,8 +169,11 @@ def test_contrastive_losses_match_jax():
     np.testing.assert_allclose(float(fn(None, b, c, torch.tensor(scale))), float(
         jax_contrastive.clip_contrastive_step_fn(lambda p, x: x, lambda p, x: x)(
             None, jnp.asarray(img), jnp.asarray(txt), scale)), **TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1, parallelism"):
-        contrastive.make_clip_train_step(None, None)
+    # the global-batch gather needs a process group (test_torch_port_parallel.py
+    # holds it on two processes against JAX)
+    gathered = contrastive.clip_contrastive_step_fn(lambda p, x: x, lambda p, x: x, gather=True)
+    with pytest.raises((RuntimeError, ValueError), match="process group"):
+        gathered(None, b, c, torch.tensor(scale))
     with pytest.raises(ValueError, match="integer class targets"):
         contrastive.hybrid_contrastive_per_example(a, torch.ones(8, 5))
 
