@@ -18,6 +18,15 @@ K batches arrive as (K, B, ...) chunks, and a resumed epoch seeks past its
 trained prefix without decoding it.  Without the runtime the splits are
 loaded into memory (``construct_splits``).  ``main`` exits 75 (EX_TEMPFAIL)
 when a SIGTERM stopped the run at a checkpoint.
+
+Over several processes, one a card (``torchrun --nproc_per_node=N -m
+peft_vit_tpu_torch.commands.train --cfg ...``), ``main`` joins the group
+from torchrun's environment and the trainer runs over ``TPU.MESH``'s data
+axis: in memory the global batch is ``BATCH_SIZE_PER_GPU`` times the data
+degree (the JAX command's times the device count) and each rank takes its
+rows (``parallel.batch_rows``); streaming, each rank reads its stripe of
+``BATCH_SIZE_PER_GPU``.  Eval gives each rank its stripe of the test set.
+Only rank 0 writes TensorBoard and the final result line.
 """
 
 from __future__ import annotations
@@ -33,9 +42,12 @@ import numpy as np
 from ..config import get_default_config
 from ..data import construct_splits
 from ..data.augment import make_train_transform
+from ..data.samplers import shard_order
 from ..engine.trainer import PreemptedError, Trainer, batch_iterator
 from ..models import build_image_classifier, load_jax_variables
+from ..parallel.mesh import batch_rows, mesh_from_config
 from ..peft import build_mask, count_trainable, spec_from_config
+from ..utils import dist as _dist
 from ..utils import resolve_device
 from ..utils.logging import create_logger, final_result_line, log_trainable_params
 
@@ -48,10 +60,17 @@ def build_trainer(cfg, device=None, variables: Optional[Mapping] = None, *,
     streams), the model and its ``Trainer`` of ``cfg``: what ``train_main``
     fits.  Under the timm augmentation the splits stay raw.  ``variables`` (a
     JAX-layout variables tree of the classifier) replaces the built weights:
-    the seam through which a test hands the port the JAX package's weights."""
+    the seam through which a test hands the port the JAX package's weights.
+    In a process group the trainer runs over ``TPU.MESH``'s mesh, and
+    ``steps_per_epoch`` counts global batches."""
     device = resolve_device(device)
     spec = spec_from_config(cfg)
-    batch = int(cfg.TRAIN.BATCH_SIZE_PER_GPU)
+    data = 1
+    if _dist.group_initialized():
+        mesh = mesh_from_config(cfg)
+        logger.info("=> mesh %s over %d processes", mesh.shape, _dist.world_size())
+        data = mesh.data
+    batch = int(cfg.TRAIN.BATCH_SIZE_PER_GPU) * data
     splits = None
     if num_classes is None:
         splits = construct_splits(cfg, normalize=make_train_transform(cfg) is None)
@@ -136,7 +155,6 @@ def train_main(cfg, *, device=None, variables: Optional[Mapping] = None,
 
     if sources is None:
         sources = streaming_sources(cfg)
-    batch = int(cfg.TRAIN.BATCH_SIZE_PER_GPU)
     test_batch = int(cfg.TEST.BATCH_SIZE_PER_GPU)
     if sources is not None:
         train_src, eval_src = sources
@@ -158,23 +176,35 @@ def train_main(cfg, *, device=None, variables: Optional[Mapping] = None,
                                            normalize=trainer.transform is None)
 
             def eval_batches():
-                return batch_iterator(eval_splits.x_test, eval_splits.y_test, test_batch,
-                                      shuffle=False, drop_last=False)
+                return _eval_stripe(eval_splits.x_test, eval_splits.y_test, test_batch)
     else:
         splits, trainer = build_trainer(cfg, device=device, variables=variables)
+        batch = int(cfg.TRAIN.BATCH_SIZE_PER_GPU) * trainer.world
 
         def train_batches(epoch):
-            return batch_iterator(splits.x_train, splits.y_train, batch,
-                                  shuffle=bool(cfg.TRAIN.SHUFFLE), seed=epoch)
+            rows = batch_rows(trainer.mesh, batch) if trainer.mesh is not None else slice(None)
+            for x, y in batch_iterator(splits.x_train, splits.y_train, batch,
+                                       shuffle=bool(cfg.TRAIN.SHUFFLE), seed=epoch):
+                yield x[rows], y[rows]
 
         def eval_batches():
-            return batch_iterator(splits.x_test, splits.y_test, test_batch,
-                                  shuffle=False, drop_last=False)
+            return _eval_stripe(splits.x_test, splits.y_test, test_batch)
 
     ckpt_dir, tb_dir = run_dirs(cfg)
-    best = trainer.fit(train_batches, eval_batches, ckpt_dir, tb_dir)
-    final_result_line("accuracy", best)
+    main_rank = _dist.is_main_process()
+    best = trainer.fit(train_batches, eval_batches, ckpt_dir, tb_dir if main_rank else None)
+    if main_rank:
+        final_result_line("accuracy", best)
     return best
+
+
+def _eval_stripe(x, y, batch: int):
+    """The test set's batches, over several processes this rank's stripe of
+    it (``shard_order``; the trainer gathers the ranks' scores)."""
+    idx = shard_order(np.arange(len(y)), _dist.rank(), _dist.world_size())
+    if len(idx) < len(y):
+        x, y = x[idx], y[idx]
+    return batch_iterator(x, y, batch, shuffle=False, drop_last=False)
 
 
 def load_cfg(argv, name: str, parser_description: str):
@@ -196,6 +226,8 @@ def load_cfg(argv, name: str, parser_description: str):
 
 def main(argv=None, *, device=None):
     cfg = load_cfg(argv, "train", "full-shot training (PyTorch port)")
+    # torchrun's environment, if any: one process a card
+    cfg.RANK = _dist.init_distributed(device=device)[0]
     create_logger(cfg, "train")
     cfg.freeze()
     try:

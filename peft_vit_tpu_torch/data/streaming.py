@@ -1,5 +1,5 @@
 """The streaming full-shot input pipeline (counterpart of
-``peft_vit_tpu/data/streaming.py``), for one process on one card.
+``peft_vit_tpu/data/streaming.py``), one process a card.
 
 * decode and prefetch run in the C++ runtime's threads (``NativeTsvLoader``
   over ``runtime/pvtio.cpp``): a bounded ring, so the host holds O(ring),
@@ -14,8 +14,8 @@
   short epoch must not look like a normal epoch end.
 
 The batch is ``BATCH_SIZE_PER_GPU`` (the JAX source multiplies it by the
-local device count); several processes raise (ROADMAP §1, parallelism (the
-multi-process Trainer)).
+local device count, one here); over several processes each reads its
+stripe, in lockstep for training (``StreamingSource``).
 ``ArrayLoader`` gives an in-memory uint8 dataset ``NativeTsvLoader``'s
 interface, so that the source's orders, flips, chunks and resume run
 without decoding.
@@ -32,7 +32,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from ..utils.dist import world_size
+from ..utils.dist import rank, world_size
 from .native import NativeTsvLoader, native_available, native_error
 from .samplers import build_order, shard_order
 
@@ -200,13 +200,6 @@ class ArrayLoader:
         pass
 
 
-def _one_process() -> None:
-    if world_size() > 1:
-        raise NotImplementedError("a streaming source over several processes is not ported to "
-                                  "peft_vit_tpu_torch yet (ROADMAP §1, parallelism (the "
-                                  "multi-process Trainer))")
-
-
 class StreamingSource:
     """Config -> per-epoch batch iterators over TSV shards, an ImageFolder
     tree or an ELEVATER zip manifest (native decode threads each way).
@@ -216,11 +209,17 @@ class StreamingSource:
     (``TPU.STEPS_PER_DISPATCH``) makes the loader emit K*B-sample batches,
     reshaped (a view) into (K, B, ...) chunks.  ``loader``: a loader of
     ``NativeTsvLoader``'s interface with batch size K*B (``ArrayLoader``) in
-    place of the one the config names."""
+    place of the one the config names.
+
+    Over several processes (``utils.dist``) each rank reads its stripe of
+    the data (``shard_order``), a batch of ``BATCH_SIZE_PER_GPU`` its part of
+    the global batch.  A training epoch truncates every stripe to
+    ``n_global // world`` samples, so that the ranks yield the same number
+    of batches in lockstep; eval gives each rank its stripe of every sample,
+    the partial last batch kept (the trainer gathers the scores)."""
 
     def __init__(self, cfg, split: str = "train", normalize: bool = True,
                  batch_multiplier: int = 1, loader=None):
-        _one_process()
         self.normalize = normalize
         self.chunk = max(int(batch_multiplier), 1)
         self.split = split
@@ -240,8 +239,15 @@ class StreamingSource:
         self.mean = np.asarray(cfg.INPUT.MEAN, np.float32) * 255.0
         self.std = np.asarray(cfg.INPUT.STD, np.float32) * 255.0
         self._labels: Optional[np.ndarray] = None
+        self.process_index, self.process_count = rank(), world_size()
         self.n_global = len(self.loader)
-        self.samples_this_process = self.n_global
+        self.samples_this_process = len(shard_order(np.arange(self.n_global),
+                                                    self.process_index, self.process_count))
+        if self.train and self.process_count > 1:
+            # every step is a collective: the ranks' stripes differ by up to
+            # one sample, so each is cut to the shortest (DistributedSampler's
+            # drop to equal)
+            self.samples_this_process = self.n_global // self.process_count
         # drop_last at B granularity: full K*B chunks, then the epoch's tail
         # (< K full batches) as single batches
         self.steps_per_epoch = max(self.samples_this_process // self.batch, 1)
@@ -249,8 +255,8 @@ class StreamingSource:
             logger.warning("=> streaming %s: only %d samples for batch size %d -- every epoch "
                            "will yield ZERO batches (drop_last)", split,
                            self.samples_this_process, self.batch)
-        logger.info("=> streaming %s: %d samples, batch %d, sampler %s", split, self.n_global,
-                    self.batch, self.sampler)
+        logger.info("=> streaming %s: %d samples (%d this process), batch %d, sampler %s",
+                    split, self.n_global, self.samples_this_process, self.batch, self.sampler)
 
     def _native_loader(self, cfg):
         tsv_list = cfg.DATASET.TRAIN_TSV_LIST if self.train else cfg.DATASET.TEST_TSV_LIST
@@ -297,13 +303,16 @@ class StreamingSource:
         re-decodes one emission and drops its leading batches after the flip,
         so the rest sees the uninterrupted epoch's flips."""
         if not self.train:
-            order = np.arange(self.n_global, dtype=np.int64)
+            order = shard_order(np.arange(self.n_global, dtype=np.int64), self.process_index,
+                                self.process_count)
             for x, y, count in self.loader.epoch(0, order=order):
                 yield self._normalize(x[:count]), y[:count]
             return
         order = build_order(self.sampler, len(self.loader), epoch, self.seed,
                             labels_fn=self._labels_fn)
-        order = shard_order(order, 0, 1)
+        order = shard_order(order, self.process_index, self.process_count)
+        if self.process_count > 1:
+            order = order[:self.samples_this_process]  # lockstep
         rng = np.random.RandomState(self.seed + 7919 * (epoch + 1))
         big = self.batch * self.chunk
         lead = 0  # batches to drop from the first decoded emission

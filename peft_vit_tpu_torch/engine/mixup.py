@@ -16,7 +16,7 @@ either way, and both mixes run, the switch choosing one.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -74,18 +74,24 @@ def _scalar(v: Number, like: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return torch.full((), v, dtype=dtype, device=like.device)
 
 
+def _roll(t: torch.Tensor) -> torch.Tensor:
+    return torch.roll(t, 1, 0)
+
+
 def mixup(images: torch.Tensor, target: torch.Tensor, num_classes: int, lam: Number,
-          smoothing: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batch mixup: x = lam x + (1 - lam) roll(x, 1), the targets alike."""
+          smoothing: float = 0.0, roll: Callable = _roll) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch mixup: x = lam x + (1 - lam) roll(x, 1), the targets alike
+    (``roll``: of the global batch, where a rank holds some of its rows)."""
     lam = _scalar(lam, images)
-    mixed = lam * images + (1.0 - lam) * torch.roll(images, 1, 0)
+    mixed = lam * images + (1.0 - lam) * roll(images)
     y1 = one_hot_smooth(target, num_classes, smoothing)
-    y2 = torch.roll(y1, 1, 0)
+    y2 = roll(y1)
     return mixed.to(images.dtype), lam * y1 + (1.0 - lam) * y2
 
 
 def cutmix(images: torch.Tensor, target: torch.Tensor, num_classes: int, lam: Number,
-           cy: Number, cx: Number, smoothing: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+           cy: Number, cx: Number, smoothing: float = 0.0,
+           roll: Callable = _roll) -> Tuple[torch.Tensor, torch.Tensor]:
     """CutMix: the box of side sqrt(1 - lam) times the image's (truncated),
     centred at (cy, cx) and clipped to the image, pasted from the rolled
     batch; the targets mix by the box's true area."""
@@ -102,21 +108,23 @@ def cutmix(images: torch.Tensor, target: torch.Tensor, num_classes: int, lam: Nu
     rows = torch.arange(h, device=images.device)[None, :, None, None]
     cols = torch.arange(w, device=images.device)[None, None, :, None]
     box = (rows >= y1) & (rows < y2) & (cols >= x1) & (cols < x2)
-    mixed = torch.where(box, torch.roll(images, 1, 0), images)
+    mixed = torch.where(box, roll(images), images)
     area = ((y2 - y1) * (x2 - x1)).to(torch.float32)
     lam_adj = 1.0 - area / _scalar(h * w, images)
     t1 = one_hot_smooth(target, num_classes, smoothing)
-    t2 = torch.roll(t1, 1, 0)
+    t2 = roll(t1)
     return mixed.to(images.dtype), lam_adj * t1 + (1.0 - lam_adj) * t2
 
 
 def mixup_cutmix(images: torch.Tensor, target: torch.Tensor, num_classes: int,
-                 draws: Dict[str, Number], smoothing: float = 0.0
+                 draws: Dict[str, Number], smoothing: float = 0.0, roll: Optional[Callable] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """timm's switch: cutmix where ``draws['use_cutmix']``, else mixup, on the
-    draws of ``draw_mixup_cutmix`` (Python values or 0-dim tensors)."""
-    mi, mt = mixup(images, target, num_classes, draws["lam_mix"], smoothing)
+    draws of ``draw_mixup_cutmix`` (Python values or 0-dim tensors);
+    ``roll`` as in ``mixup``."""
+    roll = roll or _roll
+    mi, mt = mixup(images, target, num_classes, draws["lam_mix"], smoothing, roll)
     ci, ct = cutmix(images, target, num_classes, draws["lam_cut"], draws["cy"], draws["cx"],
-                    smoothing)
+                    smoothing, roll)
     use = _scalar(draws["use_cutmix"], images, torch.bool)
     return torch.where(use, ci, mi), torch.where(use, ct, mt)

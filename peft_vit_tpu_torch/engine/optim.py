@@ -8,7 +8,8 @@ counterpart of XLA fusing optax's ``tree_map``).  The arithmetic is optax's,
 not ``torch.optim``'s, operation for operation:
 
 * ``clip_by_global_norm``: one norm over every trainable leaf; leaves scale
-  by max_norm / norm when the norm reaches max_norm;
+  by max_norm / norm when the norm reaches max_norm (under ZeRO-1 each
+  leaf's norm is taken over its slices, summed across the data group);
 * SGD: coupled weight decay (``g + wd * p``) on the ``no_weight_decay_mask``
   leaves, or LARC (which takes the weight decay itself and sees the raw
   ||g||), then ``trace``: t = g + mu t, the update t, or g + mu t with
@@ -214,22 +215,34 @@ def build_lr_schedule(cfg, steps_per_epoch: int) -> Schedule:
 # the chain
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
-    """optax's ``clip_by_global_norm``: one norm over every leaf."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+Norms = Callable[[List[torch.Tensor]], torch.Tensor]
+
+
+def leaf_norms(ts: List[torch.Tensor]) -> torch.Tensor:
+    """The 2-norm of each tensor of ``ts``, stacked."""
+    return torch.stack(torch._foreach_norm(ts))
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norms: Norms = leaf_norms) -> List[torch.Tensor]:
+    """optax's ``clip_by_global_norm``: one norm over every leaf (``norms``:
+    each leaf's norm, ``leaf_norms`` or that of leaves sliced over ZeRO-1's
+    data group)."""
+    norm = torch.linalg.vector_norm(norms(grads))
     coef = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     return torch._foreach_mul(grads, coef)
 
 
 def larc(grads: List[torch.Tensor], params: List[torch.Tensor], wds: Sequence[float],
          learning_rate: float, trust_coefficient: float = 0.02, clip: bool = True,
-         eps: float = 1e-8) -> List[torch.Tensor]:
+         eps: float = 1e-8, norms: Norms = leaf_norms) -> List[torch.Tensor]:
     """LARC (lib/optim/LARC.py:82-109), per leaf with its weight decay wd:
     adaptive = trust ||p|| / (||g|| + ||p|| wd + eps) on the RAW gradient;
     clip mode scales by min(adaptive / lr, 1); the update is
-    (g + wd p) * scale, or g untouched (no decay) where either norm is 0."""
-    pn = torch.stack(torch._foreach_norm(params))
-    gn = torch.stack(torch._foreach_norm(grads))
+    (g + wd p) * scale, or g untouched (no decay) where either norm is 0.
+    ``norms``: as in ``clip_by_global_norm``."""
+    pn = norms(params)
+    gn = norms(grads)
     # made on the device (a captured step may not copy a host list there)
     wd = torch.stack([torch.full((), w, dtype=torch.float32, device=pn.device) for w in wds])
     adaptive = trust_coefficient * pn / (gn + pn * wd + eps)
@@ -246,7 +259,12 @@ class Optimizer:
     Adam or RMS moments and Adam's count, keyed ``<slot>.<leaf>``; empty for
     plain SGD); ``step(params, grads, state, count)`` applies one update to
     ``params`` and ``state`` in place, the rate ``schedule(count)``, and
-    returns that rate.  Nothing waits for the host."""
+    returns that rate.  Nothing waits for the host.
+
+    Under ZeRO-1 ``params``, ``grads`` and ``state`` are this rank's slices
+    of the leaves (the leaf itself where ``zero_dim`` keeps it whole), and
+    ``norms`` gives each leaf's norm over the group: adamW, SGD and RMSprop
+    are elementwise, so the slices update as the whole leaves would."""
 
     def __init__(self, name: str, names: Sequence[str], schedule: Schedule, wd: float = 0.0,
                  momentum: float = 0.0, nesterov: bool = False, clip_norm: float = 0.0,
@@ -329,15 +347,15 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
-             state: Tensors, count: torch.Tensor) -> torch.Tensor:
+             state: Tensors, count: torch.Tensor, norms: Norms = leaf_norms) -> torch.Tensor:
         p = [params[k] for k in self.names]
         g = [grads[k] for k in self.names]
         if self.clip_norm > 0.0:
-            g = clip_by_global_norm(g, self.clip_norm)
+            g = clip_by_global_norm(g, self.clip_norm, norms)
         if self.name == "sgd":
             if self.use_larc:
                 wds = [self.wd if i in set(self.decayed) else 0.0 for i in range(len(p))]
-                g = larc(g, p, wds, self.larc_lr)
+                g = larc(g, p, wds, self.larc_lr, norms=norms)
             else:
                 g = self._decay(g, p)
             if self.momentum:

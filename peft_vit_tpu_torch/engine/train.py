@@ -173,7 +173,8 @@ def make_apply_fn(model: nn.Module) -> ApplyFn:
 
 
 def calibrate(model: nn.Module, apply_fn: ApplyFn, variables: Mapping[str, torch.Tensor],
-              x: torch.Tensor, margin: float = INT8_CALIB_MARGIN) -> Tensors:
+              x: torch.Tensor, margin: float = INT8_CALIB_MARGIN,
+              amax_over: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> Tensors:
     """The static activation scales of ``model``'s ``Int8Dense`` layers from
     one train-mode forward of the batch ``x`` in calibration mode:
     ``{<module>.s_x: max(amax * margin / 127, 1e-8)}``, and with int8
@@ -181,12 +182,17 @@ def calibrate(model: nn.Module, apply_fn: ApplyFn, variables: Mapping[str, torch
     ready to merge into a step's ``frozen``.  As in the JAX trainer, the forward runs on the
     parameters alone, each weight quantized per call: a quantized tree or
     earlier scales in ``variables`` are left out.  Train-mode BN runs on
-    copies of the statistics, so its update is discarded."""
+    copies of the statistics, so its update is discarded.  Where ``x`` is
+    this rank's rows of a global batch, ``amax_over`` is the data group's
+    max all-reduce (``parallel.max_all_reduce``) and each absmax is the
+    global batch's, as the JAX trainer calibrates."""
     variables = {k: v for k, v in variables.items() if not k.endswith(_INT8_STATE)}
     for name, buf in model.named_buffers():
         variables[name] = variables.get(name, buf).clone()
     with torch.no_grad(), collect_activation_stats(model) as stats:
         apply_fn(variables, x, True)
+    if amax_over is not None:
+        stats = {k: amax_over(v) for k, v in stats.items()}
     return activation_scales_from_stats(stats, margin)
 
 

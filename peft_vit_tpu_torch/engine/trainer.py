@@ -47,13 +47,33 @@ CNN backbone as of the channel-BN head.
 ``TPU.INT8_FWD_TRAIN`` quantizes the frozen tree once per run (before
 ``models.cast_frozen_``); ``TPU.INT8_STATIC_ACT`` recalibrates the static
 activation scales on the first batch of every epoch (``engine.train.calibrate``).
-``TPU.ZERO1``, ``TPU.MESH.PIPE`` and several processes raise (ROADMAP §1,
-parallelism (the multi-process Trainer)); the data-parallel steps of
-``parallel`` run outside the Trainer.
+
+Over a data group (``mesh``: the JAX trainer's mesh, batch sharded, state
+replicated) each rank runs its rows of the global batch, one process a card:
+the step's forward runs under ``utils.dist.data_shard``, so that BatchNorm
+takes the global batch's moments and the device draws (the erase's noise,
+DropBlock, drop path) are the global batch's, cut to the rank's rows; the
+host draws (the flip of each global row, mixup's switch, lam and box) are
+drawn whole from the one generator state every rank holds, and mixup pairs
+rows across the ranks (``parallel.roll_rows``).  The gradients are
+mean-all-reduced; under ``TPU.ZERO1`` each leaf's gradient is
+reduce-scattered along ``parallel.zero_dim`` instead, the optimizer chain
+updates the rank's slice of the leaf and of its state (the clip's and LARC's
+norms summed over the group), and the leaf is all-gathered.  So two ranks
+compute the one-process run of the global batch.  The collectives are
+captured with the step.  The loss meter is the group's mean; eval gathers
+the ranks' scores (``parallel.allgather_ragged``); the static int8 scales
+are the global batch's absmax; the ranks agree on a SIGTERM at checkpoint
+crossings and ``PRINT_FREQ`` boundaries; rank 0 writes whole leaves (the
+ZeRO-1 slices gathered) and every rank reads them back and cuts its slice.
+A ``model`` degree above 1 raises (the JAX trainer uses a model axis only
+with sequence parallelism), and so does ``TPU.MESH.PIPE`` > 1 (GPipe).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import logging
 import time
 from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
@@ -66,14 +86,16 @@ from ..data.streaming import prefetch_to_device
 from ..models.layers import cast_frozen_
 from ..models.resnet import ResNet
 from ..ops.int8 import INT8_TARGET_MODULES, quantize_frozen_tree
+from ..parallel import collectives as _coll
+from ..parallel.mesh import PIPELINE_ITEM, SEQUENCE_ITEM, Mesh, mesh_from_config, zero_dim
 from ..peft.masks import merge_params, split_params
-from ..utils.dist import world_size
+from ..utils import dist as _dist
 from . import train as _train
 from .checkpoint import dump_nan_state, restore_checkpoint, save_checkpoint
 from .ema import EmaState, SwaState, ema_init, ema_update_, swa_init, swa_update_
 from .loss import build_criterion, soft_target_cross_entropy
 from .mixup import draw_mixup_cutmix, mixup_cutmix
-from .optim import build_lr_schedule, build_optimizer
+from .optim import build_lr_schedule, build_optimizer, leaf_norms
 
 logger = logging.getLogger(__name__)
 
@@ -98,23 +120,16 @@ class FullTrainState(NamedTuple):
     finite: Optional[torch.Tensor] = None
 
 
-# what is left of ROADMAP §1's parallelism for the Trainer
-_TRAINER_ITEM = "parallelism (the multi-process Trainer)"
-
-
 def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to peft_vit_tpu_torch yet (ROADMAP §1, {item})")
+    return NotImplementedError(f"{what} is not ported to peft_vit_tpu_torch yet ({item})")
 
 
-def _refuse_unported(cfg) -> None:
-    tpu = cfg.TPU
-    if bool(tpu.get("ZERO1", False)):
-        raise _not_ported("TPU.ZERO1 in the Trainer", _TRAINER_ITEM)
-    if int(tpu.MESH.get("PIPE", 1)) > 1:
-        raise _not_ported("TPU.MESH.PIPE > 1", _TRAINER_ITEM)
-    if world_size() > 1:
-        raise _not_ported("a full-shot run over several processes", _TRAINER_ITEM)
+def _refuse_unported(cfg, mesh: Optional[Mesh]) -> None:
+    if int(cfg.TPU.MESH.get("PIPE", 1)) > 1:
+        raise _not_ported("TPU.MESH.PIPE > 1 in the Trainer", PIPELINE_ITEM)
+    if mesh is not None and mesh.model > 1:
+        raise _not_ported(f"a model degree of {mesh.model} in the Trainer (the JAX trainer "
+                          "uses a model axis only with TPU.SEQUENCE_PARALLEL)", SEQUENCE_ITEM)
 
 
 class Trainer:
@@ -126,10 +141,16 @@ class Trainer:
     model's own (stored in the compute dtype once the int8 tree, if any, is
     quantized).  The BN running statistics are the model's ``bn_mean`` /
     ``bn_var`` buffers (the JAX trainer's ``batch_stats``).  ``seed`` seeds
-    the generator of the random draws (the JAX trainer's ``PRNGKey(0)``)."""
+    the generator of the random draws (the JAX trainer's ``PRNGKey(0)``).
+    In a process group the trainer runs over ``TPU.MESH``'s mesh
+    (``self.mesh``; None without a group: one process, no collective)."""
 
     def __init__(self, cfg, model: torch.nn.Module, mask, steps_per_epoch: int, seed: int = 0):
-        _refuse_unported(cfg)
+        mesh = mesh_from_config(cfg) if _dist.group_initialized() else None
+        _refuse_unported(cfg, mesh)
+        self.mesh = mesh
+        self.group = mesh.data_group if mesh is not None else None
+        self.world = mesh.data if mesh is not None else 1
         self.cfg = cfg
         self.model = model
         self.steps_per_epoch = steps_per_epoch
@@ -173,10 +194,15 @@ class Trainer:
 
         self.schedule = build_lr_schedule(cfg, steps_per_epoch)
         self.tx = build_optimizer(cfg, trainable, steps_per_epoch, self.schedule)
+        # TPU.ZERO1: the dim of each leaf (and of its optimizer state) cut
+        # over the data group; None keeps the leaf whole
+        self.zero1 = bool(cfg.TPU.get("ZERO1", False)) and mesh is not None
+        self.zero_dims = {k: zero_dim(tuple(v.shape), self.world) if self.zero1 else None
+                          for k, v in trainable.items()}
         decay = float(cfg.TRAIN.EMA_DECAY)
         self.state = FullTrainState(
             trainable=trainable,
-            opt_state=self.tx.init(trainable),
+            opt_state=self._cut_opt(self.tx.init(trainable)),
             step=torch.zeros((), dtype=torch.int32, device=self.device),
             ema=ema_init(trainable, decay) if decay > 0 else None,
             swa=swa_init(trainable) if bool(cfg.SWA.ENABLED) else None,
@@ -215,6 +241,12 @@ class Trainer:
         if self.use_dropblock or self.drop_path:
             self.drop_generator = torch.Generator(device=self.device).manual_seed(int(seed) + 2)
         self.apply_fn = _train.make_apply_fn(model)
+        # which of the optimizer's leaves are ZeRO-1 slices (made here: a
+        # captured step may copy no host list to the card)
+        self._sliced = torch.tensor([self.zero_dims[k] is not None for k in self.tx.names],
+                                    dtype=torch.bool, device=self.device)
+        self._roll = (functools.partial(_coll.roll_rows, group=self.group)
+                      if mesh is not None else None)
         self.graphs: Dict[Any, Any] = {}
         # set by the SIGTERM handler fit() installs: train_one_epoch
         # checkpoints at the next step boundary and raises PreemptedError
@@ -238,18 +270,106 @@ class Trainer:
             variables.update(bn)
         return variables
 
+    # -- the data group ------------------------------------------------------------
+
+    def _rows(self, b: int) -> slice:
+        """This rank's rows of a global batch whose part here is ``b`` rows."""
+        if self.mesh is None:
+            return slice(None)
+        return slice(self.mesh.rank * b, (self.mesh.rank + 1) * b)
+
+    def _shard(self, b: int):
+        """The context of a forward of this rank's ``b`` rows."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return _dist.data_shard(self.mesh.rank * b, b * self.world,
+                                functools.partial(_coll.sum_over_group, group=self.group))
+
+    def _zero_slice(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        size = t.shape[dim] // self.world
+        return t.narrow(dim, self.mesh.rank * size, size)
+
+    def _opt_dim(self, key: str) -> Optional[int]:
+        """The ZeRO-1 dim of the optimizer state ``key`` (``<slot>.<leaf>``)."""
+        return self.zero_dims.get(key.partition(".")[2])
+
+    def _cut_opt(self, opt: Tensors) -> Tensors:
+        """The optimizer state with each ZeRO-1 leaf's state cut to this
+        rank's slice."""
+        if not self.zero1:
+            return opt
+        return {k: v if self._opt_dim(k) is None else self._zero_slice(v, self._opt_dim(k)).clone()
+                for k, v in opt.items()}
+
+    def _whole_opt(self, opt: Tensors) -> Tensors:
+        """The whole optimizer state: the ranks' ZeRO-1 slices gathered (a
+        collective: every rank calls it)."""
+        if not self.zero1:
+            return opt
+        return {k: v if self._opt_dim(k) is None else _coll.all_gather_dim(
+            v, self._opt_dim(k), self.group) for k, v in opt.items()}
+
+    def _norms(self, ts):
+        """Each leaf's norm over the group: a ZeRO-1 slice's squared norm
+        summed over the ranks, a whole leaf's counted once."""
+        n = leaf_norms(ts)
+        return torch.where(self._sliced, _coll.sum_all_reduce(n.square(), self.group).sqrt(), n)
+
+    def _reduce_and_update(self, trainable: Tensors, grads: Tensors, buf: Dict[str, Any]):
+        """The optimizer step over the data group: the gradients mean
+        all-reduced, or under ZeRO-1 reduce-scattered to this rank's slice,
+        the chain on the slices, the leaves all-gathered."""
+        if self.mesh is None:
+            return self.tx.step(trainable, grads, buf["opt"], buf["step"])
+        params, part = {}, {}
+        whole = [k for k in trainable if self.zero_dims[k] is None]
+        for k, g in zip(whole, _coll.mean_all_reduce([grads[k] for k in whole], self.group)):
+            params[k], part[k] = trainable[k], g
+        for k, v in trainable.items():
+            dim = self.zero_dims[k]
+            if dim is not None:
+                params[k] = self._zero_slice(v, dim)
+                part[k] = _coll.reduce_scatter_dim(grads[k], dim, self.group).div_(self.world)
+        lr = self.tx.step(params, part, buf["opt"], buf["step"],
+                          self._norms if self.zero1 else leaf_norms)
+        for k, v in trainable.items():
+            if self.zero_dims[k] is not None:
+                v.copy_(_coll.all_gather_dim(params[k], self.zero_dims[k], self.group))
+        return lr
+
+    # -- the steps -----------------------------------------------------------------
+
     def _train_body(self, buf: Dict[str, Any]):
         """One step on the state buffers of ``buf``, in place; returns the
-        loss and the learning rate it used."""
+        loss (the group's mean) and the learning rate it used."""
+        with self._shard(buf["x"].shape[0]):
+            loss, grads = self._loss_and_grads(buf)
+        trainable = buf["trainable"]
+        with torch.no_grad():
+            lr = self._reduce_and_update(trainable, grads, buf)
+            if self.mesh is not None:
+                loss = _coll.psum_mean(loss, self.group)
+            if self.state.ema is not None:
+                ema_update_(buf["ema"], trainable, self.state.ema.decay)
+            if self.state.swa is not None:
+                swa_update_(SwaState(buf["swa_average"], buf["swa_count"]), trainable,
+                            buf["swa_on"])
+            buf["finite"].logical_and_(torch.isfinite(loss))
+            buf["step"].add_(1)
+        return loss.detach(), lr
+
+    def _loss_and_grads(self, buf: Dict[str, Any]):
+        """The loss of this rank's rows and its gradients."""
         if self.transform is not None:
-            noise = (self.transform.noise(buf["x"].shape, self.noise_generator)
+            noise = (_dist.draw_rows(lambda s: self.transform.noise(s, self.noise_generator),
+                                     buf["x"].shape)
                      if self.noise_generator is not None else None)
             x = self.transform(buf["x"], buf["aug"], noise)
         else:
             x = self._normalize(buf["x"], buf.get("flip"))
         y = buf["y"]
         if self.use_mixup:
-            x, y = mixup_cutmix(x, y, self.num_classes, buf["mix"], self.smoothing)
+            x, y = mixup_cutmix(x, y, self.num_classes, buf["mix"], self.smoothing, self._roll)
         trainable = buf["trainable"]
         for v in trainable.values():
             v.requires_grad_()
@@ -266,18 +386,8 @@ class Trainer:
                                **kw)
         loss = self.criterion(logits.to(torch.float32), y)
         grads = torch.autograd.grad(loss, list(trainable.values()), allow_unused=True)
-        grads = {k: torch.zeros_like(v) if g is None else g
-                 for (k, v), g in zip(trainable.items(), grads)}
-        with torch.no_grad():
-            lr = self.tx.step(trainable, grads, buf["opt"], buf["step"])
-            if self.state.ema is not None:
-                ema_update_(buf["ema"], trainable, self.state.ema.decay)
-            if self.state.swa is not None:
-                swa_update_(SwaState(buf["swa_average"], buf["swa_count"]), trainable,
-                            buf["swa_on"])
-            buf["finite"].logical_and_(torch.isfinite(loss))
-            buf["step"].add_(1)
-        return loss.detach(), lr
+        return loss, {k: torch.zeros_like(v) if g is None else g
+                      for (k, v), g in zip(trainable.items(), grads)}
 
     def _state_buffers(self) -> Dict[str, Any]:
         s = self.state
@@ -302,13 +412,15 @@ class Trainer:
     def _draws(self, x: torch.Tensor) -> Dict[str, Any]:
         """The step's random inputs from the generator: the timm
         augmentation's host draws, or the flip of a uint8 batch; then the
-        mixup/cutmix draws."""
+        mixup/cutmix draws.  Over a data group the draws of the global
+        batch, cut to this rank's rows."""
         out: Dict[str, Any] = {}
+        rows, total = self._rows(x.shape[0]), x.shape[0] * self.world
         if self.transform is not None:
-            out["aug"] = {k: v.to(x.device)
-                          for k, v in self.transform.draw(self.generator, x.shape).items()}
+            drawn = self.transform.draw(self.generator, (total, *x.shape[1:]))
+            out["aug"] = {k: v[rows].to(x.device) for k, v in drawn.items()}
         elif x.dtype == torch.uint8 and self.do_flip:
-            out["flip"] = (torch.rand(x.shape[0], generator=self.generator) < 0.5).to(x.device)
+            out["flip"] = (torch.rand(total, generator=self.generator)[rows] < 0.5).to(x.device)
         if self.use_mixup:
             d = draw_mixup_cutmix(self.generator, self.mixup_alpha, self.cutmix_alpha,
                                   self.switch_prob, x.shape[1], x.shape[2])
@@ -331,8 +443,12 @@ class Trainer:
             variables = merge_params(s.trainable, self.frozen)
             if self.has_bn:
                 variables.update(s.batch_stats)
-            self._qscale = _train.calibrate(self.model, self.apply_fn, variables,
-                                            self._normalize(x), self.calib_margin)
+            amax_over = (functools.partial(_coll.max_all_reduce, group=self.group)
+                         if self.mesh is not None else None)  # the global batch's absmax
+            with self._shard(x.shape[0]):
+                self._qscale = _train.calibrate(self.model, self.apply_fn, variables,
+                                                self._normalize(x), self.calib_margin,
+                                                amax_over)
         return self._qscale
 
     def train_step(self, x, y, epoch: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -349,6 +465,8 @@ class Trainer:
         graph = self.graphs.get(key)
         if graph is None or not graph.holds(tuple(self._keep())):
             self.graphs.pop(key, None)
+            if self.mesh is not None:  # the communicator exists before a capture
+                _dist.barrier()
             graph = self.graphs[key] = _train.StepGraph(
                 self._train_body, {**self._state_buffers(), **inputs}, keep=self._keep(),
                 generators=tuple(g for g in (self.noise_generator, self.drop_generator)
@@ -409,12 +527,21 @@ class Trainer:
 
     # -- the host loop ---------------------------------------------------------
 
+    def _preempt_agreed(self) -> bool:
+        """Whether to stop at this boundary: the SIGTERM flag, over several
+        processes the OR of the ranks' flags (a host all-gather), so that
+        every rank saves at the same boundary or none does."""
+        if _dist.world_size() == 1:
+            return self._preempted
+        return bool(np.max(_coll.host_allgather(np.asarray(self._preempted, np.int32))))
+
     def _check_finite(self, epoch: int, i: int, x, y) -> None:
         """Abort with a forensic dump when any step since init went
         non-finite."""
         if bool(self.state.finite):
             return
-        dump_nan_state(f"{self.cfg.OUTPUT_DIR}/nan_dump_e{epoch}_i{i}.npz", x=x, y=y)
+        rank = f"_rank{_dist.rank()}" if _dist.world_size() > 1 else ""
+        dump_nan_state(f"{self.cfg.OUTPUT_DIR}/nan_dump_e{epoch}_i{i}{rank}.npz", x=x, y=y)
         raise FloatingPointError(
             f"NaN/Inf loss detected by epoch {epoch} iter {i} (see the forensic dump; with "
             "STEPS_PER_DISPATCH > 1 the dump holds the whole (K, B, ...) chunk)")
@@ -459,7 +586,12 @@ class Trainer:
             if crossed:
                 self._check_finite(epoch, i, x, y)
                 self.save(checkpoint_dir, epoch, batch_in_epoch=consumed)
-            if checkpoint_dir and self._preempted:
+            # the preemption poll: a local flag in one process; over several a
+            # host collective, so only at checkpoint crossings and PRINT_FREQ
+            # boundaries, never every step
+            if checkpoint_dir and (_dist.world_size() == 1 or crossed
+                                   or (i + 1) % int(cfg.PRINT_FREQ) == 0) and (
+                    self._preempt_agreed()):
                 # SIGTERM: flush an exact-step checkpoint and stop; the
                 # restarted run resumes this very batch
                 self._check_finite(epoch, i, x, y)
@@ -498,9 +630,18 @@ class Trainer:
             all_logits.append(
                 self.eval_logits(trainable, x, loaded).to(torch.float32).cpu().numpy())
             all_y.append(y.cpu().numpy() if torch.is_tensor(y) else np.asarray(y))
-        if not all_logits:
+        if not all_logits and self.mesh is None:
             return 0.0
-        scores, target = np.concatenate(all_logits), np.concatenate(all_y)
+        if all_logits:
+            scores, target = np.concatenate(all_logits), np.concatenate(all_y)
+        else:  # an empty stripe still takes part in the gather
+            scores = np.zeros((0, self.num_classes), np.float32)
+            target = np.zeros((0,), np.int64)
+        if self.mesh is not None:
+            # each rank scored its stripe of the test set: combine them
+            scores, target = _coll.allgather_ragged(scores), _coll.allgather_ragged(target)
+            if scores.shape[0] == 0:
+                return 0.0
         if metric is None and target.ndim == 2:
             metric = "11point_mAP"
         if metric is not None and metric not in ("accuracy", "top1"):
@@ -535,7 +676,8 @@ class Trainer:
             x = self._normalize(self._on_device(x))
             kw = ({"generator": torch.Generator(device=self.device).manual_seed(0)}
                   if self.use_dropblock or self.drop_path else {})
-            self.apply_fn(self._variables(trainable, stats, {}), x, True, **kw)
+            with self._shard(x.shape[0]):  # the global batch's moments
+                self.apply_fn(self._variables(trainable, stats, {}), x, True, **kw)
             return stats
 
         zeros = {k: torch.zeros_like(v) for k, v in self.state.batch_stats.items()}
@@ -558,11 +700,14 @@ class Trainer:
 
     # -- checkpointing -----------------------------------------------------------
 
-    def _ckpt_state(self, epoch: int = 0, batch_in_epoch: int = 0) -> Dict[str, Any]:
+    def _ckpt_state(self, epoch: int = 0, batch_in_epoch: int = 0,
+                    whole: bool = True) -> Dict[str, Any]:
+        """The checkpoint's dict; ``whole``: the optimizer state's ZeRO-1
+        slices gathered (a collective)."""
         s = self.state
         out = {
             "trainable": s.trainable,
-            "opt_state": s.opt_state,
+            "opt_state": self._whole_opt(s.opt_state) if whole else s.opt_state,
             "step": s.step,
             "epoch": torch.tensor(epoch, dtype=torch.int32),
             # raw batches already trained in `epoch` (0: the epoch is
@@ -587,7 +732,9 @@ class Trainer:
     def save(self, directory: str, epoch: int, batch_in_epoch: int = 0) -> None:
         """Checkpoint under the global step (unique and increasing for
         mid-epoch saves).  A save that repeats what is on disk for this step
-        is skipped; one that only advances the batch position overwrites."""
+        is skipped; one that only advances the batch position overwrites.
+        Over several processes rank 0 writes the whole leaves and the ranks
+        meet at a barrier."""
         index = int(self.state.step)
         prev_batch = None
         if index == getattr(self, "_last_saved_index", None):
@@ -597,8 +744,10 @@ class Trainer:
             prev_batch = self.resume_batch_in_epoch
         if prev_batch is not None and prev_batch == batch_in_epoch:
             return
-        save_checkpoint(directory, index, self._ckpt_state(epoch, batch_in_epoch),
-                        overwrite=prev_batch is not None)
+        state = self._ckpt_state(epoch, batch_in_epoch)
+        if _dist.is_main_process():
+            save_checkpoint(directory, index, state, overwrite=prev_batch is not None)
+        _dist.barrier()
         self._last_saved_index = index
         self._last_saved_batch = batch_in_epoch
 
@@ -614,7 +763,7 @@ class Trainer:
         step = latest_step(directory)
         if step is None:
             return None
-        template = self._ckpt_state()
+        template = self._ckpt_state(whole=False)  # only its devices and dtypes matter
         stored = checkpoint_keys(directory, step)
         if stored is not None:
             template = {k: v for k, v in template.items() if k in stored}
@@ -632,7 +781,7 @@ class Trainer:
         bn = s.batch_stats
         if self.has_bn and "batch_stats" in restored:
             bn = restored["batch_stats"]
-        self.state = FullTrainState(restored["trainable"], restored["opt_state"],
+        self.state = FullTrainState(restored["trainable"], self._cut_opt(restored["opt_state"]),
                                     restored["step"], ema, swa, bn,
                                     torch.ones((), dtype=torch.bool, device=self.device))
         if "rng" in restored:
@@ -716,7 +865,7 @@ class Trainer:
                         best = max(best, ema_acc)
                 if checkpoint_dir:
                     self.save(checkpoint_dir, epoch)
-                    if self._preempted:
+                    if self._preempt_agreed():
                         # SIGTERM during the epoch's tail or the eval: the
                         # end-of-epoch checkpoint is the resume point
                         raise PreemptedError(

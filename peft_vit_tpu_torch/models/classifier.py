@@ -11,7 +11,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import dist as _dist
 from .layers import Dense
+from .resnet import _group_moments
 
 
 class FeatureBatchNorm(nn.Module):
@@ -31,9 +33,19 @@ class FeatureBatchNorm(nn.Module):
         self.register_buffer("bn_var", torch.ones(num_features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training and _dist.current_shard() is not None:
+            # a step over a data group: the global batch's moments
+            # (``resnet.batch_norm``'s two passes over the group)
+            mean, var = _group_moments(x, (0,))
+            n = _dist.data_rows()
+            with torch.no_grad():
+                m = self.momentum
+                self.bn_mean.copy_((1.0 - m) * self.bn_mean + m * mean)
+                self.bn_var.copy_((1.0 - m) * self.bn_var + m * (var * (n / max(n - 1, 1))))
+            return ((x - mean) * torch.rsqrt(var + self.epsilon)).to(self.dtype)
         y = F.batch_norm(
-            x.to(torch.promote_types(x.dtype, torch.float32)), self.bn_mean, self.bn_var,
-            training=self.training,
+            x, self.bn_mean, self.bn_var, training=self.training,
             momentum=self.momentum, eps=self.epsilon,
         )
         return y.to(self.dtype)

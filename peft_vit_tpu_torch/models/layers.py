@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Dict, Iterator, Optional, Sequence
+from typing import Callable, Dict, Iterator, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,6 +59,7 @@ from ..ops.attention import int8_attention, multi_head_attention
 from ..ops.int8 import INT8_TARGET_MODULES
 from ..ops.phm import factorized_phm_weight, phm_linear
 from ..peft.spec import PEFTSpec
+from ..utils import dist as _dist
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -220,6 +221,55 @@ def _dense_for(name: str, int8: bool, targets: Sequence[str]):
     return Int8Dense if int8 and name in targets else Dense
 
 
+TP_HOOKS_ITEM = ("ROADMAP §1, parallelism (tensor parallelism under the adapters, Compacter, "
+                 "KAdaptation, LePE, RPB and VPT)")
+TP_INT8_ITEM = "ROADMAP §1, parallelism (tensor parallelism under int8)"
+
+
+def tp_refused(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} under tensor parallelism is not ported to "
+                               f"peft_vit_tpu_torch yet ({item})")
+
+
+def _refuse_int8_under_tp(module: nn.Module, names: Sequence[str]) -> None:
+    for name in names:
+        if isinstance(getattr(module, name), Int8Dense):
+            raise tp_refused(f"the int8 GEMM {name}", TP_INT8_ITEM)
+
+
+class TensorParallel(NamedTuple):
+    """A forward under tensor parallelism (``tensor_parallel``): ``f`` and
+    ``g`` are Megatron's (``parallel.copy_to_model`` /
+    ``reduce_from_model`` over the model group)."""
+
+    f: Callable
+    g: Callable
+
+    def row_parallel(self, x: torch.Tensor, dense: "Dense") -> torch.Tensor:
+        """``dense`` on its cut leaves, whose weight holds this rank's input
+        columns: the sum of the ranks' partial products (``g``), then the
+        bias, once."""
+        y = self.g(F.linear(x, dense.weight.to(x.dtype)))
+        return y if dense.bias is None else y + dense.bias.to(y.dtype)
+
+
+_TP: Optional[TensorParallel] = None
+
+
+@contextlib.contextmanager
+def tensor_parallel(f: Callable, g: Callable):
+    """Within, ``MultiHeadAttention`` and ``Mlp`` run Megatron's tensor
+    parallelism on the cut leaves they are given: ``f`` at the input of each
+    column-parallel region, this rank's heads (or hidden units), then
+    ``g`` over the row-parallel product and its bias once."""
+    global _TP
+    prev, _TP = _TP, TensorParallel(f, g)
+    try:
+        yield
+    finally:
+        _TP = prev
+
+
 def _call(dense: Dense, x: torch.Tensor, int8: bool, int8_bwd: bool) -> torch.Tensor:
     if isinstance(dense, Int8Dense):
         return dense(x, int8, int8_bwd)
@@ -340,8 +390,14 @@ class Mlp(nn.Module):
             hidden, width, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, int8: bool = False, int8_bwd: bool = False) -> torch.Tensor:
-        x = self.act(_call(self.c_fc, x, int8, int8_bwd))
-        return _call(self.c_proj, x, int8, int8_bwd)
+        """Under ``tensor_parallel`` ``c_fc`` holds this rank's rows and
+        ``c_proj`` their columns (the cut leaves)."""
+        tp = _TP
+        if tp is None:
+            x = self.act(_call(self.c_fc, x, int8, int8_bwd))
+            return _call(self.c_proj, x, int8, int8_bwd)
+        _refuse_int8_under_tp(self, ("c_fc", "c_proj"))
+        return tp.row_parallel(self.act(self.c_fc(tp.f(x))), self.c_proj)
 
 
 class Adapter(nn.Module):
@@ -622,7 +678,10 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = _dense_for("out_proj", int8, int8_targets)(
             width, width, dtype=dtype, device=device)
 
-    def _lora_delta(self, x: torch.Tensor, t: str) -> torch.Tensor:
+    def _lora_delta(self, x: torch.Tensor, t: str, f: Callable = None) -> torch.Tensor:
+        """The LoRA delta of target ``t``; ``f`` (tensor parallelism:
+        Megatron's ``f``) stands before B, whose rows are the rank's, so that
+        A's (and the gate's) gradient sums over the ranks' heads."""
         spec = self.spec
         a = getattr(self, f"{t}_adapter1")(x)
         if spec.lora_moe:
@@ -631,6 +690,8 @@ class MultiHeadAttention(nn.Module):
             if spec.lora_moe_softmax:
                 g = torch.softmax(g, dim=-1)
             a = (a.unflatten(-1, (g.shape[-1], spec.lora_moe_group)) * g[..., None]).flatten(-2)
+        if f is not None:
+            a = f(a)
         return getattr(self, f"{t}_adapter2")(a) * (spec.lora_alpha / spec.lora_rank)
 
     def _kron_deltas(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -652,19 +713,45 @@ class MultiHeadAttention(nn.Module):
         patch = patch.reshape(g2, g2, h).permute(2, 0, 1).to(self.compute_dtype)
         return F.pad(patch, (p, 0, p, 0))
 
+    def check_tensor_parallel(self) -> None:
+        """Raise where tensor parallelism does not cover this attention: the
+        hooks on the split activations and int8.  It covers the LoRA deltas
+        (with the MoE gate and ``lora_post_scale_q``) and ``full``."""
+        spec = self.spec
+        for on, what, item in (
+                (spec.attn_delta == "kron", "KAdaptation (the kron delta)", TP_HOOKS_ITEM),
+                (spec.attn_adapter != "none", "the shared qkv adapter", TP_HOOKS_ITEM),
+                (spec.lepe, "LePE", TP_HOOKS_ITEM), (spec.attn_bias == "rpb", "RPB", TP_HOOKS_ITEM),
+                (spec.attn_delta == "lora" and spec.lora_ref_reshape, "PEFT.LORA_REF_RESHAPE",
+                 TP_HOOKS_ITEM),
+                (self.int8_attn, "int8 attention", TP_INT8_ITEM)):
+            if on:
+                raise tp_refused(what, item)
+        _refuse_int8_under_tp(self, ("in_proj", "out_proj"))
+
     def forward(self, x: torch.Tensor, int8: bool = False, int8_bwd: bool = False) -> torch.Tensor:
+        """Under ``tensor_parallel`` ``in_proj`` holds this rank's heads of q,
+        of k and of v (``parallel.tp_cut``), each LoRA B the rows it adds
+        to, and ``out_proj`` those heads' columns; Megatron's ``f`` stands at
+        ``in_proj``'s input and at each LoRA B's (A's gradient sums over the
+        ranks' heads), ``g`` after ``out_proj``."""
+        tp = _TP
+        if tp is not None:
+            self.check_tensor_parallel()
         b, n, d = x.shape
-        h = self.heads
-        hd = d // h
+        hd = d // self.heads
         spec = self.spec
         scale = hd**-0.5
-        qkv = _call(self.in_proj, x, int8, int8_bwd)
+        qkv = _call(self.in_proj, x if tp is None else tp.f(x), int8, int8_bwd)
         q, k, v = qkv.chunk(3, dim=-1)
+        local = q.shape[-1]  # this rank's heads' width under tensor parallelism
+        h = local // hd
 
         if spec.attn_delta == "kron":
             deltas = self._kron_deltas(x)
         else:
-            deltas = {t: self._lora_delta(x, t) for t in self.lora_targets}
+            deltas = {t: self._lora_delta(x, t, None if tp is None else tp.f)
+                      for t in self.lora_targets}
 
         if spec.attn_delta != "none" and spec.lora_post_scale_q:
             q = q * scale
@@ -716,7 +803,9 @@ class MultiHeadAttention(nn.Module):
                 qh, kh, vh, bias=bias, scale=attn_scale, softmax_fp32=self.softmax_fp32,
                 batch_chunk=self.attn_batch_chunk,
             )
-        out = out.transpose(1, 2).reshape(b, n, d)
+        out = out.transpose(1, 2).reshape(b, n, local)
+        if tp is not None:
+            return tp.row_parallel(out, self.out_proj)
         if spec.lepe:
             g, p = self.grid_size, self.n_prefix
             lepe = self.get_v(qkv_of["v"][:, p:, :].reshape(b, g, g, d)).reshape(b, g * g, d)
@@ -793,8 +882,9 @@ class Block(nn.Module):
         if self.generator is None:
             raise ValueError("training-mode drop_path draws from an explicit torch.Generator")
         keep = 1.0 - self.drop_path
-        draw = torch.rand((x.shape[0], 1, 1), generator=self.generator,
-                          device=self.generator.device)
+        draw = _dist.draw_rows(lambda s: torch.rand(s, generator=self.generator,
+                                                    device=self.generator.device),
+                               (x.shape[0], 1, 1))
         return x * (draw < keep).to(device=x.device, dtype=x.dtype) / keep
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

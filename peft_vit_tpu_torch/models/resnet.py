@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dropblock import drop_block, scheduled_keep_prob, stage_keep_prob
+from ..utils import dist as _dist
 from .layers import Dense
 
 def _cudnn(dtype: torch.dtype, deterministic: bool = False):
@@ -185,6 +186,20 @@ def _affine(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, weight: torc
     return y.to(x.dtype)
 
 
+def _group_moments(x32: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mean and biased variance over ``dims`` of the global batch whose
+    rows this rank holds (``utils.dist.data_shard``): Σx with the count in
+    one sum over the group, then Σ(x - m)^2."""
+    count = torch.full((1,), float(x32.numel() // x32.shape[1]), dtype=x32.dtype,
+                       device=x32.device)
+    sums = _dist.sum_over_data(torch.cat([x32.sum(dim=dims), count]))
+    m = sums[:-1] / sums[-1]
+    shape = [1] * x32.dim()
+    shape[1] = -1
+    v = _dist.sum_over_data((x32 - m.reshape(shape)).square().sum(dim=dims)) / sums[-1]
+    return m, v
+
+
 def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
                var: torch.Tensor, train: bool, momentum: float = 0.9,
                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -197,12 +212,20 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, mean: 
     E[x^2] - E[x]^2, is the same quantity with more cancellation, and on
     the executed reference's epoch loop (``refexec_trainer_epoch_resnet``)
     its rounding put the third epoch's loss 7e-3 from PyTorch's, where the
-    two passes stand within 1e-6."""
+    two passes stand within 1e-6.
+
+    Under ``utils.dist.data_shard`` (a step over a data group) the moments
+    are the global batch's, as flax takes them from the sharded global
+    array: Σx and the count summed over the group, then Σ(x - m)^2, each
+    sum's gradient summed over the group too."""
     if not train:
         return _affine(x, mean, var, weight, bias, eps), mean, var
     x32 = x.to(_stat_dtype(x))
-    m = x32.mean(dim=(0, 2, 3))
-    v = (x32 - m.reshape(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+    if _dist.current_shard() is None:
+        m = x32.mean(dim=(0, 2, 3))
+        v = (x32 - m.reshape(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+    else:
+        m, v = _group_moments(x32, (0, 2, 3))
     y = _affine(x, m, v, weight, bias, eps)
     return y, momentum * mean + (1 - momentum) * m, momentum * var + (1 - momentum) * v
 
@@ -608,8 +631,9 @@ class ResNet(nn.Module):
                     raise ValueError("a train-mode forward through the projection's dropout "
                                      "needs its generator")
                 if self.training:
-                    keep = torch.rand(feats.shape, generator=generator,
-                                      device=feats.device) >= self.proj_dropout
+                    keep = _dist.draw_rows(lambda s: torch.rand(s, generator=generator,
+                                                                device=feats.device),
+                                           feats.shape) >= self.proj_dropout
                     feats = torch.where(keep, feats / (1.0 - self.proj_dropout),
                                         torch.zeros_like(feats))
             feats = getattr(self, f"proj{pi + 1}")(feats)

@@ -47,6 +47,7 @@ from torch import nn
 
 from ..ops.attention import multi_head_attention
 from ..peft.spec import PEFTSpec
+from ..utils import dist as _dist
 from .layers import ACT2FN, Dense, LayerNorm, _gather_slots, _rpb_index, _TableGather
 from .vit import PatchEmbed
 
@@ -92,7 +93,8 @@ def _drop_path(x: torch.Tensor, rate: float, training: bool,
         raise ValueError("training-mode drop_path draws from an explicit torch.Generator")
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    draw = torch.rand(shape, generator=generator, device=generator.device)
+    draw = _dist.draw_rows(lambda s: torch.rand(s, generator=generator, device=generator.device),
+                           shape)
     return x * (draw < keep).to(device=x.device, dtype=x.dtype) / keep
 
 

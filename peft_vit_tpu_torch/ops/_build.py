@@ -62,11 +62,14 @@ def _stale(src: Path) -> bool:
     return newest > lib.stat().st_mtime
 
 
-def build(names: Optional[Iterable[str]] = None, ptxas_verbose: bool = False) -> Dict[str, str]:
+def build(names: Optional[Iterable[str]] = None, ptxas_verbose: bool = False,
+          niceness: int = 0) -> Dict[str, str]:
     """Build the stale libraries among ``names`` (default: every source).
 
-    Returns ``{name: compiler output}`` for the libraries it built; raises
-    ``RuntimeError`` with the compiler output if any build fails.
+    ``niceness`` > 0 runs each ``nvcc`` at that lower CPU priority, for a
+    caller that works beside the build.  Returns ``{name: compiler output}``
+    for the libraries it built; raises ``RuntimeError`` with the compiler
+    output if any build fails.
     """
     wanted = None if names is None else set(names)
     sources = [
@@ -89,7 +92,8 @@ def build(names: Optional[Iterable[str]] = None, ptxas_verbose: bool = False) ->
         cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_verbose else ()),
                "-o", str(tmp), str(src)]
         with open(log, "w") as log_f:
-            proc = subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT)
+            proc = subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT,
+                                    preexec_fn=(lambda: os.nice(niceness)) if niceness else None)
         jobs.append((src, lib, tmp, log, proc))
     outputs, errors = {}, []
     for src, lib, tmp, log, proc in jobs:

@@ -29,6 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import dist as _dist
+
 
 def stage_keep_prob(keep_prob: float, stage: int) -> float:
     """The DropBlock target of the 1-indexed ``stage``
@@ -71,7 +73,9 @@ def drop_block(x: torch.Tensor, *, block_size: int, keep_prob: Union[float, torc
           else const(keep_prob))
     gamma = (1.0 - kp) * w**2 / const(bs**2) / const((w - bs + 1) ** 2)
     if noise is None:
-        noise = torch.rand(x.shape, generator=generator, dtype=torch.float32, device=x.device)
+        # under a data shard, the global batch's draw cut to this rank's rows
+        noise = _dist.draw_rows(lambda s: torch.rand(s, generator=generator, dtype=torch.float32,
+                                                     device=x.device), x.shape)
     i = torch.arange(w, device=x.device)
     valid_1d = (i >= bs // 2) & (i < w - (bs - 1) // 2)
     valid = valid_1d[:, None] & valid_1d[None, :]
@@ -83,5 +87,9 @@ def drop_block(x: torch.Tensor, *, block_size: int, keep_prob: Union[float, torc
         lo, hi = bs // 2, (bs - 1) // 2
         padded = F.pad(kept, (lo, hi, lo, hi), value=1.0)
         mask = -F.max_pool2d(-padded, bs, stride=1)
-    scale = const(mask.numel()) / mask.sum().clamp_min(1.0)
+    numel, kept_sum = mask.numel(), mask.sum()
+    if _dist.current_shard() is not None:  # the global batch's mask
+        numel = numel // n * _dist.data_rows()
+        kept_sum = _dist.sum_over_data(kept_sum)
+    scale = const(numel) / kept_sum.clamp_min(1.0)
     return (x * mask.to(x.dtype)) * scale.to(x.dtype)

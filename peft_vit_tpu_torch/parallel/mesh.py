@@ -9,10 +9,15 @@ axes over the process group (``utils.dist``), one process a device, and its
 steps call the collectives themselves (``parallel.collectives``,
 ``parallel.train_step``).
 
-Data parallelism runs here.  The tensor-parallel rules
-(``param_partition_spec``: Megatron's column-parallel first and row-parallel
-second GEMM) are kept as data for the next slice; a ``model`` or ``pipe``
-degree above 1 and ``TPU.SEQUENCE_PARALLEL`` raise.
+Data and tensor parallelism run here.  Rank r sits at (r // model,
+r % model) of the JAX device order, ``reshape(data, model)`` with the model
+axis fastest; each axis has its subgroups (``Mesh.data_group``,
+``Mesh.model_group``: the ranks of this rank's row and column).  The
+tensor-parallel rules are Megatron's column-parallel first and row-parallel
+second GEMM: ``param_partition_spec`` mirrors the JAX specs as data, and
+``tp_cut`` is the port's cut of a leaf (whole heads: see
+``parallel.train_step``).  A ``pipe`` degree above 1 (GPipe) and
+``TPU.SEQUENCE_PARALLEL`` raise, each naming its item.
 
 A partition spec is a tuple with one entry a dim, the axis name that splits
 it or None; ``()`` replicates.  The rules read the port's names and layouts
@@ -33,11 +38,12 @@ PIPE_AXIS = "pipe"
 
 PartitionSpec = Tuple[Optional[str], ...]
 
-_LATER = "ROADMAP §1, parallelism (tensor, sequence and pipeline)"
+SEQUENCE_ITEM = "ROADMAP §1, parallelism (sequence parallelism)"
+PIPELINE_ITEM = "ROADMAP §1, parallelism (GPipe)"
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to peft_vit_tpu_torch yet ({_LATER})")
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to peft_vit_tpu_torch yet ({item})")
 
 
 class Mesh(NamedTuple):
@@ -56,26 +62,45 @@ class Mesh(NamedTuple):
             out[PIPE_AXIS] = self.pipe
         return out
 
+    @property
+    def model_rank(self) -> int:
+        """This process's index on the model axis."""
+        return _dist.rank() % self.model if self.model > 1 else 0
+
+    @property
+    def data_group(self):
+        """The subgroup of this process's data axis (None: the default
+        group)."""
+        return _dist.axis_groups(self.data, self.model)[0] if self.model > 1 else None
+
+    @property
+    def model_group(self):
+        """The subgroup of this process's model axis (None without one)."""
+        return _dist.axis_groups(self.data, self.model)[1] if self.model > 1 else None
+
 
 def make_mesh(data: int = -1, model: int = 1, pipe: int = 1) -> Mesh:
     """``data`` = -1 takes every process of the group the other axes leave.
-    A ``model`` or ``pipe`` degree above 1 raises."""
-    if int(model) > 1:
-        raise _not_ported(f"a model (tensor-parallel) degree of {model}")
+    A ``pipe`` degree above 1 raises.  A ``model`` degree above 1 makes the
+    axes' subgroups (a collective call: every rank makes the mesh)."""
     if int(pipe) > 1:
-        raise _not_ported(f"a pipe (pipeline) degree of {pipe}")
+        raise _not_ported(f"a pipe (pipeline) degree of {pipe}", PIPELINE_ITEM)
     n = _dist.world_size()
-    data = n if int(data) == -1 else int(data)
-    if data * int(model) * int(pipe) != n:
+    model = int(model)
+    data = n // model if int(data) == -1 else int(data)
+    if model < 1 or data * model * int(pipe) != n:
         raise ValueError(f"a mesh of {data} x {model} x {pipe} over {n} processes")
-    return Mesh(data, int(model), int(pipe), _dist.rank())
+    mesh = Mesh(data, model, int(pipe), _dist.rank() // model)
+    if model > 1:
+        _dist.axis_groups(data, model)
+    return mesh
 
 
 def mesh_from_config(cfg) -> Mesh:
     """The mesh of ``TPU.MESH`` (``DATA``, ``MODEL``, ``PIPE``);
     ``TPU.SEQUENCE_PARALLEL`` raises."""
     if bool(cfg.TPU.get("SEQUENCE_PARALLEL", False)):
-        raise _not_ported("TPU.SEQUENCE_PARALLEL")
+        raise _not_ported("TPU.SEQUENCE_PARALLEL", SEQUENCE_ITEM)
     return make_mesh(data=int(cfg.TPU.MESH.DATA), model=int(cfg.TPU.MESH.MODEL),
                      pipe=int(cfg.TPU.MESH.get("PIPE", 1)))
 
@@ -106,6 +131,55 @@ def param_partition_spec(name: str, shape: Sequence[int]) -> PartitionSpec:
     if "mlp.c_proj.weight" in name or "attn.out_proj.weight" in name:
         return (None, MODEL_AXIS)
     return ()
+
+
+def tp_cut(name: str, shape: Sequence[int]) -> Optional[str]:
+    """How tensor parallelism cuts the port's leaf ``name`` over the model
+    axis: ``"qkv"`` (``in_proj``'s weight and bias: the rank's heads of q,
+    of k and of v, a block of rows from each third), ``"rows"`` (the output
+    rows of a column-parallel leaf: ``c_fc``'s weight and bias, and the LoRA
+    B matrices of the q or v rows they add to), ``"cols"`` (the input
+    columns of a row-parallel weight: ``out_proj``, ``c_proj``), or None
+    (replicated: every other leaf, the biases of the row-parallel GEMMs
+    included, which are added once after the sum)."""
+    if "attn.in_proj." in name and name.endswith(("weight", "bias")):
+        return "qkv"
+    if "mlp.c_fc." in name and name.endswith(("weight", "bias")):
+        return "rows"
+    if "_adapter2.weight" in name and ".attn." in name:
+        return "rows"
+    if name.endswith(("attn.out_proj.weight", "mlp.c_proj.weight")):
+        return "cols"
+    return None
+
+
+def tp_slice(t: torch.Tensor, cut: Optional[str], index: int, size: int) -> torch.Tensor:
+    """The model rank ``index``'s part of ``t`` under ``cut`` (of
+    ``tp_cut``), of ``size`` ranks; a contiguous copy."""
+    if cut is None or size == 1:
+        return t
+    if cut == "cols":
+        n = t.shape[1] // size
+        return t[:, index * n:(index + 1) * n].contiguous()
+    if cut == "rows":
+        n = t.shape[0] // size
+        return t[index * n:(index + 1) * n].contiguous()
+    third = t.shape[0] // 3
+    n = third // size
+    return torch.cat([t[j * third + index * n:j * third + (index + 1) * n]
+                      for j in range(3)]).contiguous()
+
+
+def tp_unslice(parts: Sequence[torch.Tensor], cut: Optional[str]) -> torch.Tensor:
+    """The whole leaf from the model ranks' ``parts`` (``tp_slice``'s
+    inverse)."""
+    if cut is None or len(parts) == 1:
+        return parts[0]
+    if cut == "cols":
+        return torch.cat(list(parts), 1)
+    if cut == "rows":
+        return torch.cat(list(parts), 0)
+    return torch.cat([p.chunk(3, 0)[j] for j in range(3) for p in parts], 0)
 
 
 def zero_dim(shape: Sequence[int], data: int) -> Optional[int]:

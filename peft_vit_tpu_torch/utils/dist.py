@@ -10,13 +10,23 @@ between CPU processes.  ``init_distributed`` joins the group from
 coordinator ``host:port``, the process count and index) mapped onto an init
 method, or from an explicit ``init_method`` (``file://...`` needs no
 network).  With no group the world is one process.
+
+A step over a data group runs each rank on its rows of the global batch.
+``data_shard(start, total, sum_fn)`` says so to the code under it: a random
+draw of the batch's rows (``draw_rows``: the drop-path and DropBlock masks,
+the erase's noise) is drawn for the whole global batch and cut to this
+rank's rows, so that every rank draws what one process would; BatchNorm
+takes its moments over the group (``sum_over_data``: ``sum_fn``, the
+group's sum, whose gradient is the sum over the group too).  The collective
+itself is ``parallel.collectives.sum_over_group``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
-from typing import Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -68,14 +78,58 @@ def init_distributed(coordinator_address: Optional[str] = None,
     device = resolve_device(device)
     if device.type == "cuda":
         local = _env_int("LOCAL_RANK")
-        torch.cuda.set_device(local if local is not None else rank % torch.cuda.device_count())
+        # without torchrun's LOCAL_RANK the group is one host's
+        ranks_here = _env_int("LOCAL_WORLD_SIZE") or (int(world) if local is None else 1)
+        cards = torch.cuda.device_count()
+        if max(ranks_here, (local or 0) + 1) > cards:
+            raise ValueError(
+                f"{max(ranks_here, (local or 0) + 1)} ranks on a host with {cards} card(s): "
+                "NCCL needs one card a rank (run at most one process a card)")
+        torch.cuda.set_device(local if local is not None else int(rank))
         backend = "nccl"
     else:
         backend = "gloo"
+    _AXIS_GROUPS.clear()  # a new group: no subgroup of an earlier one
     dist.init_process_group(backend, init_method=init_method, world_size=int(world),
                             rank=int(rank))
     logger.info("=> process group (%s) joined: rank %d of %d", backend, rank, world)
     return dist.get_rank(), dist.get_world_size()
+
+
+# (data, model) -> (data group, model group) of this rank, made once a mesh
+# shape by every rank in the same order (dist.new_group's rule); emptied by
+# destroy_distributed, so that no subgroup outlives its default group
+_AXIS_GROUPS: Dict[Tuple[int, int], Tuple[Any, Any]] = {}
+
+
+def axis_groups(data: int, model: int) -> Tuple[Any, Any]:
+    """This rank's subgroups of a ``data`` x ``model`` mesh (rank r at
+    (r // model, r % model)): the data group (the ranks of its model index)
+    and the model group (the ranks of its data index).  A collective call:
+    every rank makes them."""
+    key = (int(data), int(model))
+    if key not in _AXIS_GROUPS:
+        me, mine = rank(), [None, None]
+        for m in range(model):
+            ranks = [d * model + m for d in range(data)]
+            g = dist.new_group(ranks)
+            if me in ranks:
+                mine[0] = g
+        for d in range(data):
+            ranks = [d * model + m for m in range(model)]
+            g = dist.new_group(ranks)
+            if me in ranks:
+                mine[1] = g
+        _AXIS_GROUPS[key] = tuple(mine)
+    return _AXIS_GROUPS[key]
+
+
+def destroy_distributed() -> None:
+    """Leave the process group: the mesh subgroups first, then every group
+    (a gloo subgroup still referenced when the process exits can abort it)."""
+    _AXIS_GROUPS.clear()
+    if group_initialized():
+        dist.destroy_process_group()
 
 
 def rank() -> int:
@@ -98,3 +152,57 @@ def barrier(name: str = "barrier") -> None:
     del name
     if group_initialized():
         dist.barrier()
+
+
+# -- a step over the data group ------------------------------------------------
+
+
+class DataShard(NamedTuple):
+    """This rank's rows [start, start + b) of a global batch of ``total``
+    rows, and ``sum``: the sum over the data group, with its gradient
+    (``parallel.collectives.sum_over_group`` of that group)."""
+
+    start: int
+    total: int
+    sum: Callable[[torch.Tensor], torch.Tensor]
+
+
+_SHARD: Optional[DataShard] = None
+
+
+@contextlib.contextmanager
+def data_shard(start: int, total: int, sum_fn: Callable[[torch.Tensor], torch.Tensor]):
+    """Run the code under it as this rank's rows of a global batch (see the
+    module docstring); ``sum_fn`` is the data group's sum."""
+    global _SHARD
+    prev, _SHARD = _SHARD, DataShard(int(start), int(total), sum_fn)
+    try:
+        yield
+    finally:
+        _SHARD = prev
+
+
+def current_shard() -> Optional[DataShard]:
+    return _SHARD
+
+
+def draw_rows(draw: Callable[[Tuple[int, ...]], torch.Tensor],
+              shape: Sequence[int]) -> torch.Tensor:
+    """``draw(shape)`` for a batch of ``shape[0]`` rows; under ``data_shard``
+    the draw of the global batch's shape, cut to this rank's rows."""
+    shape = tuple(shape)
+    if _SHARD is None:
+        return draw(shape)
+    full = draw((_SHARD.total, *shape[1:]))
+    return full[_SHARD.start:_SHARD.start + shape[0]]
+
+
+def sum_over_data(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the data group under ``data_shard`` (with its
+    gradient), else ``x``."""
+    return x if _SHARD is None else _SHARD.sum(x)
+
+
+def data_rows() -> Optional[int]:
+    """The global batch's rows under ``data_shard``, else None."""
+    return None if _SHARD is None else _SHARD.total

@@ -189,7 +189,8 @@ def test_port_imports_nothing_of_jax():
                      "models.ssl_swin", "models.vit_conv", "models.efficientnet",
                      "models.rexnet", "models.ttnet", "models.hrnet", "ops.wht",
                      "peft.intrinsic", "utils.dist", "parallel", "parallel.mesh",
-                     "parallel.collectives", "parallel.train_step", "commands.train_clip"):
+                     "parallel.collectives", "parallel.train_step", "commands.train_clip",
+                     "parallel.dryrun"):
             assert "peft_vit_tpu_torch." + want in names, want
         import bench_torch, chip_smoke
         bad = sorted(

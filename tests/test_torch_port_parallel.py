@@ -109,13 +109,16 @@ def test_mesh_over_one_process_and_refusals():
     mesh = parallel.make_mesh()
     assert tuple(mesh) == (1, 1, 1, 0) and mesh.shape == {"data": 1, "model": 1}
     assert parallel.batch_rows(mesh, 8) == slice(0, 8)
-    for kw in ({"model": 2}, {"pipe": 2}):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP §1, parallelism \(tensor, sequence and pipeline\)"):
-            parallel.make_mesh(**kw)
+    # a model degree builds where the group has the ranks for it
+    # (tests/test_torch_port_tensor_parallel.py); GPipe and sequence
+    # parallelism stay refused, each naming its item
+    with pytest.raises(ValueError, match="mesh of 0 x 2 x 1 over 1"):
+        parallel.make_mesh(model=2)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §1, parallelism \(GPipe\)"):
+        parallel.make_mesh(pipe=2)
     cfg = port_config.get_default_config()
     cfg.TPU.SEQUENCE_PARALLEL = True
-    with pytest.raises(NotImplementedError, match="tensor, sequence and pipeline"):
+    with pytest.raises(NotImplementedError, match=r"parallelism \(sequence parallelism\)"):
         parallel.mesh_from_config(cfg)
     with pytest.raises(ValueError, match="mesh of 2"):
         parallel.make_mesh(data=2)
@@ -265,3 +268,22 @@ def test_gathered_clip_loss_is_the_global_batch_loss(spawned_collectives):
         for got, full in zip(out["clip_grads"], (gi, gt)):
             np.testing.assert_allclose(got, WORLD * np.asarray(full)[rank * rows:(rank + 1) * rows],
                                        rtol=1e-5, atol=1e-7)
+
+
+def test_two_ranks_on_one_card_are_refused(monkeypatch, tmp_path):
+    """NCCL needs one card a rank: a group of 2 on a host with 1 card (no
+    torchrun environment), or a LOCAL_RANK past the host's cards, raises at
+    ``init_distributed``, before any group forms."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for var in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    rendezvous = f"file://{tmp_path}/rendezvous"
+    with pytest.raises(ValueError, match="2 ranks on a host with 1 card.*one card a rank"):
+        port_dist.init_distributed(init_method=rendezvous, num_processes=2, process_id=0,
+                                   device="cuda")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with pytest.raises(ValueError, match="NCCL needs one card a rank"):
+        port_dist.init_distributed(init_method=rendezvous, num_processes=2, process_id=1,
+                                   device="cuda")
+    assert not port_dist.group_initialized()

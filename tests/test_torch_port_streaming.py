@@ -257,11 +257,48 @@ def test_device_prefetch_passes_cpu_items_through():
     assert all(a is b for got, want in zip(out, items) for a, b in zip(got, want))
 
 
-def test_several_processes_are_refused(root, monkeypatch):
-    import torch
+def _as_rank(monkeypatch, r: int, world: int = 2) -> None:
+    """Both packages' sources see process ``r`` of ``world``."""
+    monkeypatch.setattr(jax, "process_index", lambda: r)
+    monkeypatch.setattr(jax, "process_count", lambda: world)
+    monkeypatch.setattr(streaming, "rank", lambda: r)
+    monkeypatch.setattr(streaming, "world_size", lambda: world)
 
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP §1, parallelism \(the multi-process Trainer\)"):
-        streaming.StreamingSource(_cfg(port_config, root, "tsv"), "train")
+
+def test_several_processes_are_refused(root, monkeypatch):
+    """No longer refused: rank 1 of 2 reads its stripe of the 27 samples, cut
+    to 27 // 2 for training (lockstep) and whole for eval (4 of 7)."""
+    _as_rank(monkeypatch, 1)
+    src = streaming.StreamingSource(_cfg(port_config, root, "tsv"), "train")
+    assert (src.process_index, src.process_count) == (1, 2)
+    assert (src.samples_this_process, src.steps_per_epoch) == (13, 13 // B)
+    ev = streaming.StreamingSource(_cfg(port_config, root, "tsv"), "test")
+    assert ev.samples_this_process == 3
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("source", ["tsv", "folder"])
+def test_stripes_over_two_processes_equal_jax(root, monkeypatch, source, k):
+    """Each of 2 ranks' train epochs (flips, K-chunks, a resumed tail) and
+    eval stripe against the JAX source as that process: the ranks yield the
+    same number of batches, and the eval stripes cover the 7 test images
+    once."""
+    counts, eval_items = [], []
+    for r in range(2):
+        _as_rank(monkeypatch, r)
+        port, want = _sources(root, source, k=k)
+        assert port.samples_this_process == want.samples_this_process == 13
+        assert port.steps_per_epoch == want.steps_per_epoch == 13 // B
+        got = _same(port.batches(1), want.batches(1))
+        counts.append(sum(item[0].shape[0] if len(item) == 3 else 1 for item in got))
+        _same(port.batches(1, skip_batches=1), want.batches(1, skip_batches=1))
+        ev, ev_want = _sources(root, source, split="test", normalize=False)
+        eval_items += _same(ev.batches(), ev_want.batches())
+    assert counts[0] == counts[1] == 13 // B
+    monkeypatch.setattr(streaming, "world_size", lambda: 1)
+    monkeypatch.setattr(streaming, "rank", lambda: 0)
+    whole = streaming.StreamingSource(_cfg(port_config, root, source), "test", normalize=False)
+    seen = sorted((int(y), x.tobytes()) for xs, ys in eval_items for x, y in zip(xs, ys))
+    want_all = sorted((int(y), x.tobytes()) for xs, ys in whole.batches()
+                      for x, y in zip(xs, ys))
+    assert len(seen) == 7 and seen == want_all

@@ -470,16 +470,20 @@ def test_int8_static_recipe_recalibrates_every_epoch():
     assert trainer.evaluate(batch_iterator(x, y, 8, shuffle=False)) >= 0.0
 
 
-def test_refusals_name_their_roadmap_items(monkeypatch):
-    item = r"ROADMAP §1, parallelism \(the multi-process Trainer\)"
-    for over in ({"TPU.ZERO1": True}, {"TPU.MESH.PIPE": 2}):
-        with pytest.raises(NotImplementedError, match=item):
-            make_trainer(make_cfg(**over))
-    with monkeypatch.context() as m:  # a group of two processes
-        m.setattr(torch.distributed, "is_initialized", lambda: True)
-        m.setattr(torch.distributed, "get_world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match="several processes.*" + item):
-            make_trainer(make_cfg())
+def test_refusals_name_their_roadmap_items():
+    from peft_vit_tpu_torch.parallel.mesh import Mesh
+
+    # TPU.ZERO1 and a mesh of several processes build (the multi-process
+    # Trainer: tests/test_torch_port_trainer_dist.py); ZERO1 without a mesh
+    # is inert, as in the JAX trainer
+    assert not make_trainer(make_cfg(**{"TPU.ZERO1": True})).zero1
+    port_trainer._refuse_unported(make_cfg(), Mesh(2, rank=1))
+    # GPipe and a model degree (sequence parallelism in the JAX trainer) stay
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §1, parallelism \(GPipe\)"):
+        make_trainer(make_cfg(**{"TPU.MESH.PIPE": 2}))
+    with pytest.raises(NotImplementedError,
+                       match=r"model degree of 2.*ROADMAP §1, parallelism \(sequence paral"):
+        port_trainer._refuse_unported(make_cfg(), Mesh(1, model=2))
     # DropBlock stays refused on a ViT and builds on a ResNet (the JAX guard)
     with pytest.raises(ValueError, match="requires a ResNet"):
         make_trainer(make_cfg(**{"AUG.DROPBLOCK_KEEP_PROB": 0.9}))
