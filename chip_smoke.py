@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, few-shot driver,
-intrinsic-dimension, CLIP pre-training and multi-process paths on one NVIDIA
-H100 and check them.
+intrinsic-dimension, CLIP pre-training, multi-process, sequence-parallel,
+stacked-layout and pipelined paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -311,11 +311,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    captured steps == eager == the engine's one-process step, bit for bit.
 20. multichip: the multi-process half of parallelism, on the one card.
    ``train_main`` on vitb16_sup.yaml (B = 64, 2 epochs of 2 steps, the
-   full-shot phase's recipe) without a group, then in a one-rank NCCL group
+   full-shot phase's recipe and depth) without a group, then in a one-rank NCCL group
    (a file rendezvous) replicated and under ZeRO-1: each equal to the
    no-group run bit for bit (every step's loss, the trainable leaves, the
    optimizer state, EMA, each eval's top-1), one replay a step with K1-K3
-   12 each, the first step eager == its capture with the collectives of a
+   once a block each, the first step eager == its capture with the collectives of a
    step counted, the step's time beside the no-group step's; a ZeRO-1 run
    stopped at its first mid-epoch checkpoint and resumed == the
    uninterrupted one.  LoRA under the int8 static recipe in the group: the
@@ -328,9 +328,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shards in turn (K1-K3 on 6 heads each, 24 launches a forward): the
    logits against the whole model (bf16 0.1, fp32 1e-4 of the largest
    logit), the fp32 LoRA gradients within 1e-4.  ``dryrun_multichip(4)`` on
-   gloo CPU processes (dp x tp = 2 x 2), then ``dryrun_multichip`` on the
-   host's cards by its default (one card a rank, NCCL): the first loss
-   within 1e-5 of the one-process loss.
+   gloo CPU processes (dp x tp = 2 x 2; run at nice 19 in a child process
+   started beside the zoo phase's, as it touches no card), then ``dryrun_multichip`` on the
+   host's cards by its default (one card a rank, NCCL): the first loss, the
+   sequence-parallel one and the pipelined one (before and after its SGD
+   step) within 1e-5 of the same losses in one process.
+21. seqpipe: sequence parallelism, the stacked block layout and GPipe.
+   ViT-B/32 (vit_base_patch32_224.yaml: 7 x 7 + 1 = 50 tokens, which split
+   over a model degree of 2 where ViT-B/16's 197 do not) full fine-tune at
+   B = 16 as two sequence-parallel shards in turn (25 tokens a shard between
+   the regions, 6 heads inside): K1-K3 24 each a step and on the shards'
+   operands against their plain versions, the logits against the whole
+   model (bf16 0.1, fp32 1e-4 of the largest logit), every fp32 gradient
+   (LayerNorms and biases included) within 1e-4.  ``train_main`` on
+   vitb16_sup.yaml at its 12 blocks (B = 64, 2 steps, the clip off) with
+   ``TPU.SCAN_LAYERS`` against the unrolled run: bit for bit, one replay a
+   step, K1-K3 12 each.  GPipe: ViT-B/16 stacked as 4 stages of 3 blocks
+   over the local ring, 4 microbatches of B = 64: K1-K3 48 each a step and
+   on the microbatches' operands against their plain versions, the logits
+   (bf16, fp32) and every fp32 gradient against the unpipelined model, one
+   microbatch bit for bit, the step's time pipelined and not.
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -338,6 +355,7 @@ numbers and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import functools
@@ -4606,8 +4624,8 @@ FULLSHOT = {"DATASET.DATASET": "synthetic", "DATASET.NUM_CLASSES": 10, "MODEL.NU
             "TPU.COMPUTE_DTYPE": "bfloat16", "PRINT_FREQ": 1, "NAME": "fullshot"}
 # the tower's shape (the yaml's); a rehearsal on the CPU shrinks it
 FULLSHOT_MODEL = {}
-# the full-shot and streaming phases' depth: the flagship's (the multichip
-# phase keeps the yaml's 12 blocks)
+# the full-shot, streaming and multichip phases' depth: the flagship's (the
+# seqpipe phase's stacked and GPipe checks keep the yaml's 12 blocks)
 FULLSHOT_DEPTH = {"MODEL.SPEC.VISION.LAYERS": LAYERS}
 FULLSHOT_LORA = {"PEFT.METHOD": "lora", "TPU.INT8_FWD_TRAIN": True, "TPU.INT8_BWD_DX": True,
                  "TPU.INT8_STATIC_ACT": True, "AUG.MIXUP": 0.0, "AUG.MIXCUT": 0.0,
@@ -7779,8 +7797,8 @@ def clip_phase(smi: str, device: str = "cuda") -> dict:
 # The multi-process Trainer, tensor parallelism and the dryrun (phase 20).
 # train_main on vitb16_sup.yaml as the full-shot phase runs it, checkpoints only
 # where the resume check asks for them (a ViT-B/16 checkpoint is ~1 GB)
-MC = {**FULLSHOT, "TRAIN.CHECKPOINT_EVERY_STEPS": 0, "TRAIN.AUTO_RESUME": False,
-      "NAME": "multichip"}
+MC = {**FULLSHOT, **FULLSHOT_DEPTH, "TRAIN.CHECKPOINT_EVERY_STEPS": 0,
+      "TRAIN.AUTO_RESUME": False, "NAME": "multichip"}
 MC_INT8 = {**FULLSHOT_LORA, "TRAIN.END_EPOCH": 1, "NAME": "multichip_int8"}
 MC_DIR = "build/multichip"  # checkpoints and logs, removed after the phase
 # the stem BN's moments through the group's sums against the local mean and
@@ -8090,14 +8108,24 @@ class _Shard(torch.nn.Module):
 
 
 @contextlib.contextmanager
-def two_shards(model, degree: int = TP_DEGREE):
+def two_shards(model, degree: int = TP_DEGREE, sequence: bool = False):
     """Within, every attention and MLP of ``model`` runs its own tensor-
-    parallel forward (``layers.tensor_parallel`` with ``f`` and ``g`` the
-    identity: one process) once a shard, each on its rank's cut of the
-    leaves (``parallel.tp_slice``, differentiable: the gradients reach the
-    whole leaves), and the shards' outputs are summed: the sum the model
-    group's ``g`` would take.  The row-parallel bias stands in shard 0 only,
-    so that it is added once."""
+    parallel forward (``layers.tensor_parallel``, one process) once a shard,
+    each on its rank's cut of the leaves (``parallel.tp_slice``,
+    differentiable: the gradients reach the whole leaves), and the shards'
+    outputs are summed: the sum the model group's ``g`` would take.  The
+    row-parallel bias stands in shard 0 only, so that it is added once.
+
+    ``sequence``: sequence parallelism (``tensor_parallel`` with the token
+    split and gather).  The ranks' token slices are held in rank order in
+    one (B, N, C) tensor: the split after the embedding cuts it into the
+    ranks' slices and joins them again, ``f`` (the all-gather at each
+    region's entry) and the gather before the head are the concatenation of
+    the slices, and ``g`` (the reduce-scatter) is the shards' sum, taken
+    where each shard's output is added, cut into the ranks' slices and
+    joined; so LoRA A runs on the gathered tokens, the row-parallel bias is
+    added after ``g``, and the model's sequence-parallel branches run.
+    Otherwise ``f`` and ``g`` are the identity."""
     from torch.func import functional_call
 
     from peft_vit_tpu_torch.models import layers
@@ -8119,10 +8147,14 @@ def two_shards(model, degree: int = TP_DEGREE):
             return total
         return run
 
+    def joined(t):  # the ranks' token slices, in rank order, joined
+        return torch.cat(t.chunk(degree, 1), 1)
+
+    fns = (joined, joined, joined, joined) if sequence else (lambda t: t, lambda t: t)
     layers.MultiHeadAttention.forward = sharded(saved[0], "out_proj.bias")
     layers.Mlp.forward = sharded(saved[1], "c_proj.bias")
     try:
-        with layers.tensor_parallel(lambda t: t, lambda t: t):
+        with layers.tensor_parallel(*fns):
             yield
     finally:
         layers.MultiHeadAttention.forward, layers.Mlp.forward = saved
@@ -8206,12 +8238,17 @@ def tp_shard_check(smi: str, device: str) -> dict:
 def dryrun_check(n: int, device) -> dict:
     """``parallel.dryrun.dryrun_multichip(n, device)``: on gloo CPU processes
     (``device='cpu'``) or one card a rank (None), the mesh of n / 2 x 2 (n
-    even) or n x 1, both losses finite, the first within 1e-5 relative of
-    the one-process loss over the global batch."""
-    from peft_vit_tpu_torch.parallel.dryrun import TOL_LOSS_REL, dryrun_multichip
+    even) or n x 1 for the data x tensor-parallel, ZeRO-1 and
+    sequence-parallel steps and of n / pipe x pipe (pipe = min(4, n)) for
+    GPipe, every loss finite, the first, the sequence-parallel one and the
+    pipelined one (before and after its step) within 1e-5 relative of the
+    same losses over the global batch in one process."""
+    from peft_vit_tpu_torch.parallel.dryrun import CHECKED, TOL_LOSS_REL, dryrun_multichip
 
     where = "gloo CPU processes" if device == "cpu" else "NCCL, one card a rank"
     want = {"data": n // 2, "model": 2} if n % 2 == 0 else {"data": n, "model": 1}
+    pipe = min(4, n)
+    want_pp = {"data": n // pipe, "pipe": pipe}
     t0 = time.perf_counter()
     try:
         out = dryrun_multichip(n, device=device)
@@ -8219,12 +8256,17 @@ def dryrun_check(n: int, device) -> dict:
     except Exception as e:  # the dryrun's own checks raise
         out, ok, what = {}, False, f"; raised {type(e).__name__}: {str(e)[-300:]}"
     seconds = time.perf_counter() - t0
-    check(ok and out.get("mesh") == want and out.get("loss_rel", 1.0) <= TOL_LOSS_REL,
-          f"dryrun_multichip({n}) on {where}: mesh {out.get('mesh')}, "
-          f"loss {out.get('loss')}, ZeRO-1 + LoRA-MoE loss {out.get('zero1_moe_loss')}, "
-          f"{out.get('loss_rel', float('nan')):.3e} relative of the one-process loss "
-          f"{out.get('one_process_loss')} (<= {TOL_LOSS_REL:g}); {seconds:.1f} s" + what)
-    return {k: out.get(k) for k in ("mesh", "loss", "zero1_moe_loss", "one_process_loss",
+    rel = out.get("rel", {})
+    check(ok and out.get("mesh") == want and out.get("pp_mesh") == want_pp
+          and set(rel) == set(CHECKED) and max(rel.values()) <= TOL_LOSS_REL,
+          f"dryrun_multichip({n}) on {where}: mesh {out.get('mesh')}, GPipe mesh "
+          f"{out.get('pp_mesh')}; loss {out.get('loss')}, ZeRO-1 + LoRA-MoE loss "
+          f"{out.get('zero1_moe_loss')}, sequence-parallel loss {out.get('seqpar_loss')}, "
+          f"pipelined loss {out.get('pp_loss')} (after its step {out.get('pp_loss_after')}); "
+          f"relative distances from one process {rel} (<= {TOL_LOSS_REL:g}); "
+          f"{seconds:.1f} s" + what)
+    return {k: out.get(k) for k in ("mesh", "pp_mesh", "loss", "zero1_moe_loss", "seqpar_loss",
+                                    "pp_loss", "pp_loss_after", "one_process", "rel",
                                     "loss_rel")} | {"seconds": seconds}
 
 
@@ -8285,11 +8327,320 @@ def multichip_phase(smi: str, device: str = "cuda") -> dict:
         shutil.rmtree(MC_DIR, ignore_errors=True)
         shutil.rmtree(R50_DIR, ignore_errors=True)
     gc_collect(on_card)
-    out["dryrun"] = dryrun_check(DRYRUN_PROCESSES, "cpu")
+    # on gloo CPU processes: in main()'s child, run beside the zoo phase
+    child = _DRYRUN_CHILD.pop("child", None)
+    out["dryrun"] = (finish_dryrun_cpu(child) if child is not None
+                     else dryrun_check(DRYRUN_PROCESSES, "cpu"))
     if on_card:  # the dryrun's default: every card of the host, one a rank
         out["dryrun_card"] = dryrun_check(torch.cuda.device_count(), None)
     out["seconds"] = time.perf_counter() - t0
     print(f"multichip phase: {out['seconds']:.1f} s (host clock; {smi})", flush=True)
+    return out
+
+
+# Sequence parallelism, the stacked block layout and GPipe (phase 21).
+SP_YAML = "peft_vit_tpu/resources/model/vit_base_patch32_224.yaml"  # 7 x 7 + 1 = 50 tokens
+SP_BATCH = 16
+SP_MODEL = {}  # the yaml's tower; a rehearsal on the CPU shrinks it
+# train_main on vitb16_sup.yaml at all 12 blocks, stacked and unrolled, one
+# epoch of 2 steps at B = 64.  The global-norm clip is off: it sums each
+# leaf's squares, over a stacked leaf's 12 layers at once where the unrolled
+# run sums 12 leaves' norms, so the coefficient would differ in its last bits
+STACKED = {**FULLSHOT, "TRAIN.CHECKPOINT_EVERY_STEPS": 0, "TRAIN.AUTO_RESUME": False,
+           "TRAIN.END_EPOCH": 1, "TRAIN.CLIP_GRAD_NORM": 0.0, "NAME": "stacked"}
+STACKED_DIR = "build/stacked"
+PP_STAGES, PP_MICROBATCHES, PP_BATCH = 4, 4, FULLSHOT_BATCH
+PP_MODEL = {}  # vitb16_sup.yaml's 12 blocks; a rehearsal shrinks it
+# GPipe against the unpipelined stacked model: the stages run the same
+# layers, but each GEMM over B / M rows, so the sums may take another order
+# (cuBLAS picks by shape): the tensor-parallel check's bounds (bf16 drift over
+# 12 blocks; fp32 summation order), every fp32 gradient within 1e-4 of its
+# largest magnitude
+TOL_PP_LOGITS_REL = TOL_TP_LOGITS_REL
+TOL_PP_GRAD_REL = 1e-4
+PP_TIMED_REPS = 5
+
+
+def _full_tower(yaml_file: str, over: dict, dtype, device):
+    """The timm tower of ``yaml_file`` (10 classes, 224 px) from
+    ``build_image_classifier``'s seed, every zero leaf (the head, the biases,
+    the class token) redrawn at 0.02 from ``SEED`` so that each acts, and all
+    its parameters (a full fine-tune)."""
+    from peft_vit_tpu_torch.models import build_image_classifier
+    from peft_vit_tpu_torch.peft import spec_from_config
+
+    cfg = driver_cfg({"DATASET.NUM_CLASSES": 10, "MODEL.NUM_CLASSES": 10,
+                      "TRAIN.IMAGE_SIZE": [IMAGE, IMAGE], "PEFT.METHOD": "none",
+                      "TPU.COMPUTE_DTYPE": "bfloat16" if dtype == torch.bfloat16 else "float32",
+                      **over}, yaml_file)
+    model, _, _ = build_image_classifier(cfg, spec_from_config(cfg), 10, device=device)
+    gen = torch.Generator().manual_seed(SEED + 260)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.abs().sum():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    return model, dict(model.named_parameters())
+
+
+def _grad_rel(got, want) -> float:
+    """The largest over the leaves of max |diff| / max |want|."""
+    return max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+               for a, b in zip(got, want))
+
+
+def sp_shard_check(smi: str, device: str) -> dict:
+    """ViT-B/32 (vit_base_patch32_224.yaml: 50 tokens) full fine-tune at B =
+    ``SP_BATCH`` under sequence parallelism of degree 2, computed as the two
+    shards in turn (``two_shards(sequence=True)``: 25 tokens a shard between
+    the regions, 6 heads inside, K1-K3 on the gathered 50 tokens): K1-K3 on
+    the shards' operands against their plain versions, the logits against the
+    whole model (bf16, fp32), every fp32 gradient (the LayerNorms', biases',
+    embeddings' and head's included) within ``TOL_TP_GRAD_REL``, K1 24 a
+    forward and K2, K3 24 a backward."""
+    from peft_vit_tpu_torch.engine import ce_per_example
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.ops import launch_counts
+
+    out = {}
+    rng = np.random.RandomState(SEED + 261)
+    x = torch.from_numpy(rng.standard_normal((SP_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+                         ).to(device)
+    y = torch.from_numpy(rng.randint(0, 10, SP_BATCH)).to(device)
+    on_card = device == "cuda"
+    for dtype in (torch.bfloat16, torch.float32):
+        model, params = _full_tower(SP_YAML, SP_MODEL, dtype, device)
+        layers, tokens = model.backbone.layers, model.backbone.positional_embedding.shape[0]
+        model.train(False)
+        got = {}
+        for mode in ("whole", "shards"):
+            ctx = two_shards(model, sequence=True) if mode == "shards" else contextlib.nullcontext()
+            spied = (attention_spy() if mode == "shards" and dtype == torch.bfloat16
+                     else contextlib.nullcontext([]))
+            before = launch_counts()
+            with ctx, spied as calls:
+                logits = model(x)
+                fwd = {n: c - before[n] for n, c in launch_counts().items()}
+                grads = torch.autograd.grad(ce_per_example(logits.float(), y).mean(),
+                                            list(params.values()))
+            counts = {n: c - before[n] for n, c in launch_counts().items()}
+            got[mode] = (logits.detach().float(), grads, fwd, counts)
+            if calls and on_card:  # K1-K3 on the shards' (B, 6, 50, 64) operands
+                got["kernel_err"] = hold_step_attention(
+                    attn, f"sequence parallel {dtype}: the two shards' attention", calls)
+            del calls
+        whole, shards = got["whole"], got["shards"]
+        rel = ((shards[0] - whole[0]).abs().max() / whole[0].abs().max()).item()
+        want = {"flash_attention_fwd": TP_DEGREE * layers, "flash_attention_bwd_dq": TP_DEGREE
+                * layers, "flash_attention_bwd_dkv": TP_DEGREE * layers}
+        counted = {k: shards[3].get(k, 0) for k in want}
+        check(rel <= TOL_TP_LOGITS_REL[dtype] and bool(torch.isfinite(shards[0]).all())
+              and (not on_card or (shards[2].get("flash_attention_fwd", 0) == TP_DEGREE * layers
+                                   and counted == want)),
+              f"sequence parallel {dtype}: ViT-B/32 full fine-tune at B={SP_BATCH} as "
+              f"{TP_DEGREE} shards in turn ({tokens // TP_DEGREE} of {tokens} tokens a shard "
+              f"between the regions, {model.backbone.blocks[0].attn.heads // TP_DEGREE} heads "
+              f"inside; K1 {shards[2].get('flash_attention_fwd', 0)} a forward, K1-K3 "
+              f"{counted} a step == {TP_DEGREE * layers} each) against the whole model: max "
+              f"|logit diff| / max |logit| {rel:.3e} <= {TOL_TP_LOGITS_REL[dtype]:g}")
+        row = {"logits_rel": rel, "launches_forward": shards[2], "launches_step": shards[3],
+               "kernel_err": got.get("kernel_err")}
+        if dtype == torch.float32:
+            worst = _grad_rel(shards[1], whole[1])
+            check(worst <= TOL_TP_GRAD_REL,
+                  f"sequence parallel fp32: every one of the {len(params)} leaves' gradients "
+                  f"through the shards (the LayerNorms', biases', embeddings' and head's "
+                  f"included) against the whole model's: max |diff| / max |whole| "
+                  f"{worst:.3e} <= {TOL_TP_GRAD_REL:g}")
+            row["grad_rel"] = worst
+        out["bf16" if dtype == torch.bfloat16 else "fp32"] = row
+        print(f"sequence parallel {dtype}: launches a two-shard forward {shards[2]}, forward "
+              f"and backward {shards[3]}; {smi}", flush=True)
+        del model, params, got, whole, shards
+        gc_collect(on_card)
+    return out
+
+
+def _stack_like(unrolled: dict) -> dict:
+    """An unrolled state dict's ``blocks.<i>.`` leaves stacked as the stacked
+    layout names them (``blocks.block.``), the others as they are."""
+    import re
+
+    out, grouped = {}, {}
+    for k, v in unrolled.items():
+        m = re.match(r"(.*)blocks\.(\d+)\.(.*)", k)
+        if m:
+            grouped.setdefault(f"{m.group(1)}blocks.block.{m.group(3)}", {})[int(m.group(2))] = v
+        else:
+            out[k] = v
+    for k, d in grouped.items():
+        out[k] = torch.stack([d[i] for i in range(len(d))])
+    return out
+
+
+def stacked_check(smi: str, device: str) -> dict:
+    """``train_main`` on vitb16_sup.yaml at its 12 blocks, B = 64, one epoch
+    of 2 steps, with ``TPU.SCAN_LAYERS`` against the unrolled run (``STACKED``:
+    the clip off): every step's loss, the trainable leaves, the optimizer
+    state and EMA (stacked from the unrolled run's) bit for bit, the eval
+    top-1s equal; each run one replay a step with K1-K3 12 each, K1 12 an
+    eval batch; each step's time."""
+    import shutil
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    runs, out = {}, {}
+    for scan in (False, True):
+        label = f"stacked layout ({'TPU.SCAN_LAYERS' if scan else 'unrolled'})"
+        cfg = driver_cfg({**STACKED, **PP_MODEL, "TPU.SCAN_LAYERS": scan,
+                          "OUTPUT_DIR": STACKED_DIR}, FULLSHOT_YAML)
+        run = fullshot_drive(label, cfg, smi, device, sync, out_dir=STACKED_DIR)
+        tr, splits = run["trainer"], run["splits"]
+        layers = tr.model.backbone.layers
+        steps = tr.steps_per_epoch * int(cfg.TRAIN.END_EPOCH)
+        n_eval = -(-len(splits.y_test) // int(cfg.TEST.BATCH_SIZE_PER_GPU))
+        check(tr.model.backbone.scan_layers == scan
+              and any(".blocks.block." in k for k in tr.state.trainable) == scan,
+              f"{label}: the tower holds its blocks {'stacked' if scan else 'unrolled'}")
+        _hold_graphs(label, tr, run["counts"],
+                     {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+                      "flash_attention_bwd_dkv": layers}, {"flash_attention_fwd": layers},
+                     steps, 2 * int(cfg.TRAIN.END_EPOCH) * n_eval)
+        snap = _snapshot(tr)
+        runs[scan] = {"state": {part: _stack_like(v) for part, v in snap.items()},
+                      "losses": torch.stack(run["losses"]).cpu(),
+                      "top1": [e["acc"] for e in run["evals"]]}
+        row = {"launches": run["counts"], "per_replay": dict(_graphs_of(tr, "train")[0].launches)}
+        if on_card:
+            row["step_ms"] = _replay_ms(_graphs_of(tr, "train")[0], 10)
+            print(f"{label}: the captured step at B={cfg.TRAIN.BATCH_SIZE_PER_GPU}, {layers} "
+                  f"blocks {row['step_ms']:.3f} ms (graph replay, CUDA events; {smi})",
+                  flush=True)
+        out["stacked" if scan else "unrolled"] = row
+        del run, tr, splits
+        shutil.rmtree(STACKED_DIR, ignore_errors=True)
+        gc_collect(on_card)
+    a, b = runs[False], runs[True]
+    differ = [f"{part}.{k}" for part, leaves in a["state"].items() for k, v in leaves.items()
+              if k not in b["state"][part] or not torch.equal(v, b["state"][part][k])]
+    n_state = sum(len(v) for v in b["state"].values())
+    check(not differ and torch.equal(a["losses"], b["losses"]) and a["top1"] == b["top1"],
+          f"stacked layout: train_main with TPU.SCAN_LAYERS == the unrolled run bit for bit: "
+          f"{len(b['losses'])} losses, {n_state} stacked state tensors (trainable, momentum, "
+          f"EMA), eval top-1s {b['top1']}" + (f"; differ: {differ[:4]}" if differ else ""))
+    return out
+
+
+def pp_check(smi: str, device: str) -> dict:
+    """GPipe at full width: vitb16_sup.yaml's ViT-B/16 (12 blocks, stacked)
+    staged as ``PP_STAGES`` stages of 3 blocks over the local ring
+    (``parallel.LocalRing``: the stages in turn, the arithmetic of a pipe
+    group stage by stage), ``PP_MICROBATCHES`` microbatches at B =
+    ``PP_BATCH``, full fine-tune, against the unpipelined stacked model: the
+    logits (bf16, fp32), every fp32 gradient, K1 48 a forward and K2, K3 48 a
+    backward (12 blocks x 4 microbatches), K1-K3 on the microbatches'
+    operands against their plain versions; at one microbatch the logits and
+    every gradient bit for bit (bf16); the forward and backward's time
+    pipelined and not."""
+    from peft_vit_tpu_torch.engine import ce_per_example
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.ops import launch_counts
+    from peft_vit_tpu_torch.parallel import LocalRing, vit_pipeline_forward
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rng = np.random.RandomState(SEED + 262)
+    x = torch.from_numpy(rng.standard_normal((PP_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+                         ).to(device)
+    y = torch.from_numpy(rng.randint(0, 10, PP_BATCH)).to(device)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model, params = _full_tower(FULLSHOT_YAML, {"TPU.SCAN_LAYERS": True, **PP_MODEL}, dtype,
+                                    device)
+        layers = model.backbone.layers
+        model.train(True)
+
+        def step(m):
+            """Logits and every gradient, pipelined over m microbatches (0:
+            the unpipelined model)."""
+            if m:
+                logits = vit_pipeline_forward(model, {}, x, microbatches=m,
+                                              transport=LocalRing(PP_STAGES))
+            else:
+                logits = model(x)
+            return logits, torch.autograd.grad(ce_per_example(logits.float(), y).mean(),
+                                               list(params.values()))
+
+        got = {}
+        for m in (0, PP_MICROBATCHES, 1):
+            spied = (attention_spy() if m == PP_MICROBATCHES and dtype == torch.bfloat16
+                     else contextlib.nullcontext([]))
+            before = launch_counts()
+            with spied as calls:
+                logits, grads = step(m)
+            counts = {n: c - before[n] for n, c in launch_counts().items()}
+            got[m] = (logits.detach().float(), grads, counts)
+            if calls and on_card:  # K1-K3 on the microbatches' (16, 12, 197, 64) operands
+                got["kernel_err"] = hold_step_attention(
+                    attn, f"GPipe {dtype}: the microbatches' attention", calls)
+            del calls
+        plain, piped, one = got[0], got[PP_MICROBATCHES], got[1]
+        rel = ((piped[0] - plain[0]).abs().max() / plain[0].abs().max()).item()
+        want = {k: layers * PP_MICROBATCHES for k in (
+            "flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+        counted = {k: piped[2].get(k, 0) for k in want}
+        check(rel <= TOL_PP_LOGITS_REL[dtype] and bool(torch.isfinite(piped[0]).all())
+              and (not on_card or counted == want),
+              f"GPipe {dtype}: ViT-B/16 full fine-tune at B={PP_BATCH} as {PP_STAGES} stages of "
+              f"{layers // PP_STAGES} blocks over the local ring, {PP_MICROBATCHES} microbatches "
+              f"(K1-K3 {counted} a step == {layers} blocks x {PP_MICROBATCHES}) against the "
+              f"unpipelined stacked model: max |logit diff| / max |logit| {rel:.3e} <= "
+              f"{TOL_PP_LOGITS_REL[dtype]:g}")
+        row = {"logits_rel": rel, "launches_step": piped[2], "kernel_err": got.get("kernel_err")}
+        if dtype == torch.float32:
+            worst = _grad_rel(piped[1], plain[1])
+            check(worst <= TOL_PP_GRAD_REL,
+                  f"GPipe fp32: every one of the {len(params)} leaves' gradients through "
+                  f"{PP_MICROBATCHES} microbatches against the unpipelined model's: max |diff| / "
+                  f"max |plain| {worst:.3e} <= {TOL_PP_GRAD_REL:g}")
+            row["grad_rel"] = worst
+        else:
+            same = torch.equal(one[0], plain[0]) and all(
+                torch.equal(a, b) for a, b in zip(one[1], plain[1]))
+            check(same, f"GPipe {dtype}: {PP_STAGES} stages at one microbatch == the "
+                        f"unpipelined model bit for bit (the logits and {len(params)} gradients)")
+            if on_card:
+                times = {}
+                for name, m in (("unpipelined", 0), ("pipelined", PP_MICROBATCHES)):
+                    step(m)
+                    sync()
+                    ms = []
+                    for _ in range(PP_TIMED_REPS):
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        step(m)
+                        end.record()
+                        end.synchronize()
+                        ms.append(start.elapsed_time(end))
+                    times[name] = statistics.median(ms)
+                row["ms"] = times
+                print(f"GPipe {dtype}: forward and backward at B={PP_BATCH}, eager, median of "
+                      f"{PP_TIMED_REPS}: unpipelined {times['unpipelined']:.3f} ms, "
+                      f"{PP_STAGES} stages x {PP_MICROBATCHES} microbatches in turn on one card "
+                      f"{times['pipelined']:.3f} ms (CUDA events; {smi})", flush=True)
+        out["bf16" if dtype == torch.bfloat16 else "fp32"] = row
+        del model, params, got, plain, piped, one
+        gc_collect(on_card)
+    return out
+
+
+def seqpipe_phase(smi: str, device: str = "cuda") -> dict:
+    """Phase 21 (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {"sp": sp_shard_check(smi, device), "stacked": stacked_check(smi, device),
+           "pp": pp_check(smi, device)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"seqpipe phase: {out['seconds']:.1f} s (host clock; {smi})", flush=True)
     return out
 
 
@@ -8396,6 +8747,58 @@ def zoo_child(out: str) -> int:
     return 0
 
 
+DRYRUN_CHILD_FLAG = "--dryrun-cpu"  # chip_smoke.py --dryrun-cpu OUT.json: dryrun_check(4, "cpu")
+_DRYRUN_CHILD: dict = {}  # the child started by main() (``start_dryrun_cpu``), if any
+
+
+def start_dryrun_cpu() -> tuple:
+    """``dryrun_check(DRYRUN_PROCESSES, "cpu")`` in a child process at nice 19,
+    started beside the zoo phase's child: its gloo CPU processes touch no
+    card and take only the host's idle cores while the parent builds the
+    kernels and waits for the zoo phase.  ``multichip_phase`` takes its
+    result over (``finish_dryrun_cpu``).  Returns (process, result file, log
+    file)."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    out, log = root / "dryrun_cpu.json", root / "dryrun_cpu.log"
+    out.unlink(missing_ok=True)
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), DRYRUN_CHILD_FLAG,
+                                 str(out)], stdout=f, stderr=subprocess.STDOUT,
+                                preexec_fn=lambda: os.nice(19))
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    return proc, out, log
+
+
+def finish_dryrun_cpu(child: tuple, timeout: float = 600.0) -> dict:
+    """Wait for the CPU dryrun's child, print its output and take over its
+    failed checks; the check fails if the child did not write its result."""
+    proc, out, log = child
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    print(open(log).read(), end="", flush=True)
+    result = json.loads(open(out).read()) if out.exists() else None
+    check(rc == 0 and result is not None,
+          f"dryrun_multichip({DRYRUN_PROCESSES}) on gloo CPU processes: the child process "
+          f"exited {rc} and wrote its result: {result is not None}")
+    FAILURES.extend(f"dryrun (child): {f}" for f in (result or {}).get("failures", []))
+    return (result or {}).get("result", {})
+
+
+def dryrun_child(out: str) -> int:
+    """``chip_smoke.py --dryrun-cpu OUT``: ``dryrun_check(DRYRUN_PROCESSES,
+    "cpu")`` alone, its result and failed checks written to OUT as JSON."""
+    result = dryrun_check(DRYRUN_PROCESSES, "cpu")
+    with open(out, "w") as f:
+        json.dump({"result": result, "failures": FAILURES}, f)
+    return 0
+
+
 def _timed(phase, *args):
     """``phase(*args)``, its wall seconds printed: the whole script has 1,200."""
     t0 = time.perf_counter()
@@ -8411,13 +8814,15 @@ def main() -> int:
         return 1
     smi = environment_phase()
     zoo_child_proc = start_zoo_phase()
+    _DRYRUN_CHILD["child"] = dryrun_proc = start_dryrun_cpu()
     try:
         # nvcc at a lower priority: the zoo phase beside it takes longer
         # than the build, so its host work goes first
         _timed(build_phase, True, 10)
     except BaseException:
-        zoo_child_proc[0].kill()
-        zoo_child_proc[0].wait()
+        for proc in (zoo_child_proc[0], dryrun_proc[0]):
+            proc.kill()
+            proc.wait()
         raise
     zoo = finish_zoo_phase(zoo_child_proc)
     kern = _timed(kernel_phase)
@@ -8439,6 +8844,7 @@ def main() -> int:
     intr = _timed(intrinsic_phase, smi)
     clip = _timed(clip_phase, smi)
     mc = _timed(multichip_phase, smi)
+    sp = _timed(seqpipe_phase, smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
@@ -8618,6 +9024,13 @@ def main() -> int:
         # tensor-parallel shards in turn (6 heads each)
         line["launches_multichip"] = mc["replicated"]["per_replay"].get(name, 0)
         line["launches_tp_two_shards"] = mc["tp"]["bf16"]["launches_step"].get(name, 0)
+        # phase 21: ViT-B/32's forward and backward as two sequence-parallel
+        # shards in turn; a replay of train_main's step with the stacked
+        # blocks; ViT-B/16's forward and backward as 4 GPipe stages of 4
+        # microbatches over the local ring
+        line["launches_sp_two_shards"] = sp["sp"]["bf16"]["launches_step"].get(name, 0)
+        line["launches_stacked"] = sp["stacked"]["stacked"]["per_replay"].get(name, 0)
+        line["launches_gpipe"] = sp["pp"]["bf16"]["launches_step"].get(name, 0)
         key = {"flash_attn_bwd_dq": "dq", "flash_attn_bwd_dkv": "dkv",
                "flash_attn_fwd": "fwd"}.get(line["name"])
         if key is not None:
@@ -8657,4 +9070,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == ZOO_CHILD_FLAG:
         sys.exit(zoo_child(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == DRYRUN_CHILD_FLAG:
+        sys.exit(dryrun_child(sys.argv[2]))
     sys.exit(main())

@@ -26,7 +26,11 @@ axis: in memory the global batch is ``BATCH_SIZE_PER_GPU`` times the data
 degree (the JAX command's times the device count) and each rank takes its
 rows (``parallel.batch_rows``); streaming, each rank reads its stripe of
 ``BATCH_SIZE_PER_GPU``.  Eval gives each rank its stripe of the test set.
-Only rank 0 writes TensorBoard and the final result line.
+Only rank 0 writes TensorBoard and the final result line.  A model degree
+(``TPU.MESH.MODEL`` with ``TPU.SEQUENCE_PARALLEL``) or a pipe degree
+(``TPU.MESH.PIPE`` with ``TPU.SCAN_LAYERS``) divides the processes as the
+JAX mesh does; the ranks of one data index share its rows
+(``engine.trainer``).
 """
 
 from __future__ import annotations

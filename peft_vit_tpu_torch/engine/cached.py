@@ -103,6 +103,9 @@ def maybe_cache_prefix(cfg, model: nn.Module, mask: Mapping[str, bool], num_laye
     # only the layer-addressable ViT is cut (the JAX package's style check)
     if getattr(getattr(model, "backbone", None), "style", None) not in ("clip", "timm"):
         return None
+    if getattr(model.backbone, "scan_layers", False):
+        # the stacked layout runs all its blocks or none: no prefix / suffix cut
+        return None
     cut = first_trainable_layer(mask, num_layers)
     if cut <= 0:
         return None

@@ -66,8 +66,25 @@ the ranks' scores (``parallel.allgather_ragged``); the static int8 scales
 are the global batch's absmax; the ranks agree on a SIGTERM at checkpoint
 crossings and ``PRINT_FREQ`` boundaries; rank 0 writes whole leaves (the
 ZeRO-1 slices gathered) and every rank reads them back and cuts its slice.
-A ``model`` degree above 1 raises (the JAX trainer uses a model axis only
-with sequence parallelism), and so does ``TPU.MESH.PIPE`` > 1 (GPipe).
+
+A ``model`` degree runs with ``TPU.SEQUENCE_PARALLEL`` only (the JAX trainer
+uses a model axis for nothing else; without it the degree raises):
+Megatron-SP over the model group (``parallel.train_step``'s, with the same
+coverage).  Every rank keeps the whole leaves and cuts them at use
+(``parallel.tp_place``, differentiable), so that the gradient of a block
+leaf on a rank is its part (its heads' rows and columns, its tokens' share
+of a LayerNorm, a row-parallel bias, LoRA A) and the model group's sum is
+the whole gradient; the embedding's and the head's are whole on every model
+rank.  ``TPU.MESH.PIPE`` > 1 pipelines the stacked block stack over the pipe
+group (GPipe, ``parallel.pipeline``; the JAX trainer's ``ValueError`` without
+``TPU.SCAN_LAYERS`` or with BatchNorm), ``TPU.PP_MICROBATCHES`` microbatches
+(default the pipe degree).  Again every rank keeps the whole leaves; the last
+stage's loss drives the backward, so that the head's gradient stands on the
+last stage, the embedding's on stage 0 and each stage's block rows on their
+stage, and the pipe group's sum of every gradient is the whole one, as JAX's
+psum broadcast makes it.  The summed gradients then take the data group's
+mean (or ZeRO-1's reduce-scatter).  Eval runs the whole, unpipelined model
+on each rank's stripe.
 """
 
 from __future__ import annotations
@@ -87,7 +104,9 @@ from ..models.layers import cast_frozen_
 from ..models.resnet import ResNet
 from ..ops.int8 import INT8_TARGET_MODULES, quantize_frozen_tree
 from ..parallel import collectives as _coll
-from ..parallel.mesh import PIPELINE_ITEM, SEQUENCE_ITEM, Mesh, mesh_from_config, zero_dim
+from ..parallel.mesh import Mesh, mesh_from_config, zero_dim
+from ..parallel.pipeline import GroupRing, vit_pipeline_forward
+from ..parallel.train_step import check_tensor_parallel, tp_context, tp_place
 from ..peft.masks import merge_params, split_params
 from ..utils import dist as _dist
 from . import train as _train
@@ -120,16 +139,26 @@ class FullTrainState(NamedTuple):
     finite: Optional[torch.Tensor] = None
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to peft_vit_tpu_torch yet ({item})")
-
-
-def _refuse_unported(cfg, mesh: Optional[Mesh]) -> None:
-    if int(cfg.TPU.MESH.get("PIPE", 1)) > 1:
-        raise _not_ported("TPU.MESH.PIPE > 1 in the Trainer", PIPELINE_ITEM)
-    if mesh is not None and mesh.model > 1:
-        raise _not_ported(f"a model degree of {mesh.model} in the Trainer (the JAX trainer "
-                          "uses a model axis only with TPU.SEQUENCE_PARALLEL)", SEQUENCE_ITEM)
+def check_mesh(cfg, model: torch.nn.Module, mesh: Optional[Mesh], has_bn: bool) -> None:
+    """Raise where the trainer cannot run over ``mesh``: a model degree
+    without ``TPU.SEQUENCE_PARALLEL`` (no JAX trainer runs one), a pipe degree
+    without a stacked backbone or with BatchNorm (the JAX trainer's
+    ``ValueError``s), or with a model degree."""
+    if mesh is None:
+        return
+    if mesh.model > 1 and not bool(cfg.TPU.get("SEQUENCE_PARALLEL", False)):
+        raise NotImplementedError(
+            f"a model degree of {mesh.model} in the Trainer without TPU.SEQUENCE_PARALLEL "
+            "(the JAX trainer uses a model axis only with sequence parallelism)")
+    if mesh.pipe > 1:
+        if not getattr(getattr(model, "backbone", None), "scan_layers", False):
+            raise ValueError("TPU.MESH.PIPE > 1 needs TPU.SCAN_LAYERS=True "
+                             "(the pipeline stages the stacked block params)")
+        if has_bn:
+            raise ValueError("pipeline parallelism supports LN towers only "
+                             "(no batch_stats)")
+        if mesh.model > 1:
+            raise ValueError("TPU.MESH.PIPE > 1 runs over data x pipe: set TPU.MESH.MODEL 1")
 
 
 class Trainer:
@@ -147,7 +176,6 @@ class Trainer:
 
     def __init__(self, cfg, model: torch.nn.Module, mask, steps_per_epoch: int, seed: int = 0):
         mesh = mesh_from_config(cfg) if _dist.group_initialized() else None
-        _refuse_unported(cfg, mesh)
         self.mesh = mesh
         self.group = mesh.data_group if mesh is not None else None
         self.world = mesh.data if mesh is not None else 1
@@ -163,6 +191,14 @@ class Trainer:
         batch_stats = {k: v for k, v in model.named_buffers()
                        if k.rsplit(".", 1)[-1] in _BN_STATS}
         self.has_bn = bool(batch_stats)
+        check_mesh(cfg, model, mesh, self.has_bn)
+        # sequence parallelism over the model group; GPipe over the pipe group
+        self.seq = mesh is not None and mesh.model > 1
+        if self.seq:
+            check_tensor_parallel(model, mesh.model)
+        self.pipe = mesh.pipe if mesh is not None else 1
+        self.pp_microbatches = int(cfg.TPU.get("PP_MICROBATCHES", 0)) or self.pipe
+        self.transport = GroupRing(mesh.pipe_group, self.pipe) if self.pipe > 1 else None
         self.use_dropblock = float(cfg.AUG.get("DROPBLOCK_KEEP_PROB", 1.0)) < 1.0
         if self.use_dropblock and not isinstance(getattr(model, "backbone", None), ResNet):
             # the JAX trainer's build-time guard: only a ResNet takes DropBlock
@@ -339,6 +375,17 @@ class Trainer:
 
     # -- the steps -----------------------------------------------------------------
 
+    def _axis_sums(self, grads: Tensors) -> Tensors:
+        """Each rank's part of a gradient summed over the model group (a
+        block leaf under sequence parallelism) and over the pipe group (every
+        leaf under GPipe): the whole gradient on every rank."""
+        if self.seq:
+            grads = {k: _coll.sum_all_reduce(g, self.mesh.model_group)
+                     if ".blocks." in f".{k}" else g for k, g in grads.items()}
+        if self.pipe > 1:
+            grads = {k: _coll.sum_all_reduce(g, self.mesh.pipe_group) for k, g in grads.items()}
+        return grads
+
     def _train_body(self, buf: Dict[str, Any]):
         """One step on the state buffers of ``buf``, in place; returns the
         loss (the group's mean) and the learning rate it used."""
@@ -346,6 +393,7 @@ class Trainer:
             loss, grads = self._loss_and_grads(buf)
         trainable = buf["trainable"]
         with torch.no_grad():
+            grads = self._axis_sums(grads)
             lr = self._reduce_and_update(trainable, grads, buf)
             if self.mesh is not None:
                 loss = _coll.psum_mean(loss, self.group)
@@ -382,10 +430,22 @@ class Trainer:
                   "generator": self.drop_generator}
         elif self.drop_path:
             kw = {"generator": self.drop_generator}
-        logits = self.apply_fn(self._variables(trainable, buf["bn"], buf["scales"]), x, True,
-                               **kw)
+        variables = self._variables(trainable, buf["bn"], buf["scales"])
+        drive = 1.0
+        if self.seq:  # the whole leaves cut at use
+            with tp_context(self.mesh, sequence_parallel=True):
+                logits = self.apply_fn(tp_place(self.mesh, variables), x, True, **kw)
+        elif self.pipe > 1:
+            logits = vit_pipeline_forward(self.model, variables, x,
+                                          microbatches=self.pp_microbatches,
+                                          transport=self.transport)
+            # the last stage's loss drives the backward (see the module docstring)
+            drive = float(self.mesh.pipe_rank == self.pipe - 1)
+        else:
+            logits = self.apply_fn(variables, x, True, **kw)
         loss = self.criterion(logits.to(torch.float32), y)
-        grads = torch.autograd.grad(loss, list(trainable.values()), allow_unused=True)
+        grads = torch.autograd.grad(loss * drive if drive != 1.0 else loss,
+                                    list(trainable.values()), allow_unused=True)
         return loss, {k: torch.zeros_like(v) if g is None else g
                       for (k, v), g in zip(trainable.items(), grads)}
 

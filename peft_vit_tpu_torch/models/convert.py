@@ -23,6 +23,14 @@ stores it in: fp32 for every trainable leaf (and for every leaf before
 ``jax_path`` and ``params_to_jax`` are the inverse map, from this package's
 names and layouts back to the JAX package's.
 
+The stacked block layout (``TPU.SCAN_LAYERS``: the JAX ``nn.scan`` over the
+blocks) keeps its JAX names: ``backbone/blocks/block/<rest>`` is the port's
+``backbone.blocks.block.<rest>``, an (L, ...) leaf whose every layer is
+mapped as the unrolled leaf is (a Dense kernel (L, in, out) -> (L, out, in),
+a Conv kernel (L, H, W, I, O) -> (L, O, I, H, W)).  ``stack_flat_blocks``
+and ``unstack_flat_blocks`` turn a flat JAX-named dict from one layout into
+the other.
+
 ``load_torch_checkpoint``, ``infer_clip_shape``, ``clip_state_dict_to_tree``,
 ``visual_state_dict`` and ``text_state_dict`` load an OpenAI CLIP
 checkpoint's visual and text towers (``MODEL.PRETRAINED``) through the JAX
@@ -63,13 +71,22 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
             yield path, value
 
 
+def _stacked(modules) -> bool:
+    """Whether a module path lies in the stacked block layout
+    (``.../blocks/block/...``: an (L, ...) leaf a layer)."""
+    modules = list(modules)
+    return any(a == "blocks" and b == "block" for a, b in zip(modules, modules[1:]))
+
+
 def _torch_name_and_array(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
     *modules, name = path
     if name == "kernel":
-        if arr.ndim == 2:
-            arr = arr.T
-        elif arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)
+        lead = 1 if _stacked(modules) else 0  # a stacked kernel maps layer by layer
+        axes = tuple(range(lead))
+        if arr.ndim - lead == 2:
+            arr = arr.transpose(*axes, lead + 1, lead)
+        elif arr.ndim - lead == 4:
+            arr = arr.transpose(*axes, *(lead + i for i in (3, 2, 0, 1)))
         else:
             raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
         name = "weight"
@@ -115,8 +132,12 @@ def jax_path(name: str, ndim: int) -> str:
     ``backbone/blocks_1/attn/q_adapter1/kernel``.  A ``weight`` of rank 1 is
     a LayerNorm ``scale``, of rank 2 (Dense) or 4 (Conv) a ``kernel``; every
     other leaf is a raw flax parameter and keeps its name (``W``,
-    ``phm_rule``, ``b``, ``phmb``, ``W_left1``, ``prompt_embeddings``, ...)."""
+    ``phm_rule``, ``b``, ``phmb``, ``W_left1``, ``prompt_embeddings``, ...).
+    A leaf of the stacked layout (``blocks.block.``) has one more dim, the
+    layers', than its per-layer rank."""
     *modules, leaf = name.split(".")
+    if _stacked(modules):
+        ndim -= 1
     if leaf == "weight":
         if ndim not in (1, 2, 4):
             raise ValueError(f"{name}: a weight of rank {ndim}")
@@ -138,7 +159,10 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
         arr = tensor.detach().to(torch.float32).cpu().numpy()
         *modules, leaf = jax_path(name, arr.ndim).split("/")
         if leaf == "kernel":
-            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+            lead = 1 if _stacked(modules) else 0
+            axes = tuple(range(lead))
+            arr = (arr.transpose(*axes, lead + 1, lead) if arr.ndim - lead == 2
+                   else arr.transpose(*axes, *(lead + i for i in (2, 3, 1, 0))))
         collection = "batch_stats" if leaf in _BATCH_STATS else "params"
         if collection == "batch_stats" and modules[-1] != "channel_bn":
             leaf = leaf[len("bn_"):]  # a flax nn.BatchNorm's mean / var
@@ -458,6 +482,39 @@ def timm_vit_state_dict_to_tree(sd: Mapping) -> Dict[str, np.ndarray]:
     flat["ln_post/scale"] = _np(sd["norm.weight"])
     flat["ln_post/bias"] = _np(sd["norm.bias"])
     return flat
+
+
+def stack_flat_blocks(flat: Mapping[str, np.ndarray], layers: int) -> Dict[str, np.ndarray]:
+    """Unrolled ``...blocks_<i>/rest`` leaves (i < ``layers``) -> the stacked
+    layout ``...blocks/block/rest``, the L layers' arrays stacked on a leading
+    axis (counterpart of the JAX ``stack_flat_blocks``); other leaves as they
+    are."""
+    out: Dict[str, np.ndarray] = {}
+    grouped: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for k, v in flat.items():
+        m = re.match(r"(.*?)blocks_(\d+)/(.*)", k)
+        if m and int(m.group(2)) < layers:
+            grouped.setdefault((m.group(1), m.group(3)), {})[int(m.group(2))] = v
+        else:
+            out[k] = v
+    for (pre, rest), d in grouped.items():
+        if len(d) != layers:
+            raise ValueError(f"{pre}blocks_*/{rest}: layers {sorted(d)}, not {layers}")
+        out[f"{pre}blocks/block/{rest}"] = np.stack([np.asarray(d[i]) for i in range(layers)])
+    return out
+
+
+def unstack_flat_blocks(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The inverse of ``stack_flat_blocks``: the stacked layout -> unrolled."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in flat.items():
+        if "blocks/block/" in k:
+            pre, rest = k.split("blocks/block/", 1)
+            for i in range(v.shape[0]):
+                out[f"{pre}blocks_{i}/{rest}"] = np.asarray(v[i])
+        else:
+            out[k] = v
+    return out
 
 
 def _subtree(flat: Mapping[str, np.ndarray], source: str, target: str) -> dict:

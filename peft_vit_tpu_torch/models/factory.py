@@ -38,7 +38,8 @@ from .classifier import ImageClassifier
 from .clip_resnet import ModifiedResNet
 from .convert import (clip_rn_state_dict_to_tree, clip_rn_visual_state_dict,
                       clip_state_dict_to_tree, infer_clip_rn_shape, infer_clip_shape,
-                      is_clip_rn_state_dict, load_torch_checkpoint, text_state_dict,
+                      is_clip_rn_state_dict, load_torch_checkpoint, stack_flat_blocks,
+                      text_state_dict,
                       timm_effnet_state_dict_to_tree, timm_vit_state_dict,
                       timm_vit_state_dict_to_tree, tower_state_dict, visual_state_dict)
 from .efficientnet import EfficientNet
@@ -307,6 +308,26 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to peft_vit_tpu_torch yet (ROADMAP §1, {item})")
 
 
+def check_sequence_parallel(cfg) -> None:
+    """Raise the JAX builder's ``ValueError`` when the ViT's token count
+    (grid, class token and prompts) does not split over ``TPU.MESH.MODEL``
+    ranks: Megatron-SP cuts the token axis over the model group."""
+    tp = int(cfg.TPU.MESH.MODEL)
+    if tp > 1:
+        g = int(cfg.TRAIN.IMAGE_SIZE[0]) // int(cfg.MODEL.SPEC.VISION.PATCH_SIZE)
+        n_tokens = g * g + 1 + int(cfg.PEFT.get("PROMPT_TOKENS", 0))
+        if n_tokens % tp:
+            pad = tp - n_tokens % tp
+            raise ValueError(
+                f"TPU.SEQUENCE_PARALLEL: the {n_tokens}-token "
+                f"sequence (grid {g}x{g} + cls + prompts) does not "
+                f"divide the tensor axis (model={tp}). Add "
+                f"PEFT.PROMPT_TOKENS={pad} VPT tokens (or "
+                f"{pad + tp}k) to round the sequence up, or change "
+                f"TPU.MESH.MODEL."
+            )
+
+
 def compute_dtype(cfg, device: torch.device) -> torch.dtype:
     """bf16 when ``TPU.COMPUTE_DTYPE`` says so and the model runs on the
     card, else fp32 (the JAX rule gives bf16 only on its accelerator, so the
@@ -357,8 +378,13 @@ def build_image_classifier(
     as in the JAX builder, no checkpoint is grafted onto it.  The other CNNs
     (EfficientNet, ReXNet, TTNet, HRNet) take no ViT flag either, the
     ``TPU.INT8_*`` ones included, as in the JAX builder.  A CLIP tower other
-    than the ViT, the ModifiedResNet and Swin, ``TPU.SCAN_LAYERS`` and
-    ``TPU.SEQUENCE_PARALLEL`` raise ``NotImplementedError``.
+    than the ViT, the ModifiedResNet and Swin raises ``NotImplementedError``.
+    ``TPU.SCAN_LAYERS`` builds the ViT towers (CLIP and timm) in the stacked
+    block layout where the spec allows it (``vit.can_scan``), a checkpoint
+    grafted through ``convert.stack_flat_blocks``.  ``TPU.SEQUENCE_PARALLEL``
+    checks that the token count divides ``TPU.MESH.MODEL`` (the JAX
+    builder's ``ValueError``, word for word); the token cut itself is the
+    step's (``parallel.train_step``, ``engine.trainer``).
     """
     device = resolve_device(device)
     custom = get_custom_builder(str(cfg.MODEL.NAME))
@@ -369,10 +395,6 @@ def build_image_classifier(
     tpu = cfg.TPU
     clip = is_clip_model(cfg)
     family = None if clip else zoo_family(cfg)
-    if bool(tpu.get("SCAN_LAYERS", False)):
-        raise _not_ported("TPU.SCAN_LAYERS", "the rest")
-    if bool(tpu.get("SEQUENCE_PARALLEL", False)):
-        raise _not_ported("TPU.SEQUENCE_PARALLEL", "parallelism (tensor, sequence and pipeline)")
     int8_train = bool(tpu.get("INT8_FWD_TRAIN", False))
     int8_attn = bool(tpu.get("INT8_ATTN", False))
     if int8_attn and not (int8_train and bool(tpu.get("INT8_STATIC_ACT", False))):
@@ -380,6 +402,8 @@ def build_image_classifier(
             "TPU.INT8_ATTN quantizes the attention operands with statically calibrated "
             "scales: set TPU.INT8_FWD_TRAIN=True and TPU.INT8_STATIC_ACT=True (the "
             "calibration pass that produces them) to use it")
+    if bool(tpu.get("SEQUENCE_PARALLEL", False)):
+        check_sequence_parallel(cfg)
     softmax_fp32 = not bool(tpu.get("BF16_SOFTMAX", False))
     check_softmax_fp32(device.type, softmax_fp32)
 
@@ -394,6 +418,7 @@ def build_image_classifier(
         patch_gemm=bool(tpu.get("PATCH_EMBED_GEMM", False)),
         softmax_fp32=softmax_fp32,
         attn_batch_chunk=int(tpu.get("ATTN_BATCH_CHUNK", 0)),
+        scan_layers=bool(tpu.get("SCAN_LAYERS", False)),
         dtype=compute_dtype(cfg, device),
         device="cpu",
     )
@@ -476,7 +501,10 @@ def build_image_classifier(
             state = clip_rn_visual_state_dict(flat, stats)
         else:
             flat = clip_state_dict_to_tree(sd)
-            state = visual_state_dict(flat)
+            visual = {k: v for k, v in flat.items() if k.startswith("visual/")}
+            if backbone.scan_layers:
+                visual = stack_flat_blocks(visual, backbone.layers)
+            state = visual_state_dict(visual)
         if "logit_scale" in flat:
             # the checkpoint's trained logit scale, for INIT_HEAD_WITH_LOGIT_SCALE
             model.aux["logit_scale"] = float(np.asarray(flat["logit_scale"]))
@@ -533,7 +561,10 @@ def _timm_classifier(cfg, num_classes: int, use_bn: bool, sd, vit_kw: dict, seed
         )
     model.aux = {}
     if sd is not None:
-        state = timm_vit_state_dict(timm_vit_state_dict_to_tree(sd))
+        flat = timm_vit_state_dict_to_tree(sd)
+        if backbone.scan_layers:
+            flat = stack_flat_blocks(flat, backbone.layers)
+        state = timm_vit_state_dict(flat)
         missing, unexpected = model.load_state_dict(state, strict=False)
         if unexpected:
             raise ValueError(f"checkpoint leaves the model does not have: {sorted(unexpected)}")

@@ -240,15 +240,27 @@ def _refuse_int8_under_tp(module: nn.Module, names: Sequence[str]) -> None:
 class TensorParallel(NamedTuple):
     """A forward under tensor parallelism (``tensor_parallel``): ``f`` and
     ``g`` are Megatron's (``parallel.copy_to_model`` /
-    ``reduce_from_model`` over the model group)."""
+    ``reduce_from_model`` over the model group).  Under sequence parallelism
+    ``f`` is the token all-gather and ``g`` the token reduce-scatter
+    (``parallel.sp_all_gather`` / ``sp_reduce_scatter``), ``split`` cuts the
+    tokens after the embedding and ``gather`` joins them before the head
+    (``parallel.sp_split`` / ``sp_gather``)."""
 
     f: Callable
     g: Callable
+    split: Optional[Callable] = None
+    gather: Optional[Callable] = None
+
+    @property
+    def seq(self) -> bool:
+        """Whether the activations between the regions are token slices."""
+        return self.split is not None
 
     def row_parallel(self, x: torch.Tensor, dense: "Dense") -> torch.Tensor:
         """``dense`` on its cut leaves, whose weight holds this rank's input
-        columns: the sum of the ranks' partial products (``g``), then the
-        bias, once."""
+        columns: the sum of the ranks' partial products (``g``; under
+        sequence parallelism this rank's tokens of it), then the bias,
+        once."""
         y = self.g(F.linear(x, dense.weight.to(x.dtype)))
         return y if dense.bias is None else y + dense.bias.to(y.dtype)
 
@@ -257,17 +269,29 @@ _TP: Optional[TensorParallel] = None
 
 
 @contextlib.contextmanager
-def tensor_parallel(f: Callable, g: Callable):
+def tensor_parallel(f: Callable, g: Callable, split: Optional[Callable] = None,
+                    gather: Optional[Callable] = None):
     """Within, ``MultiHeadAttention`` and ``Mlp`` run Megatron's tensor
     parallelism on the cut leaves they are given: ``f`` at the input of each
     column-parallel region, this rank's heads (or hidden units), then
-    ``g`` over the row-parallel product and its bias once."""
+    ``g`` over the row-parallel product and its bias once.  With ``split``
+    and ``gather`` (sequence parallelism, Megatron-SP) the activations
+    between the regions are this rank's token slice: ``f`` gathers the
+    tokens at each region's entry, ``g`` reduce-scatters them after
+    ``out_proj`` and ``c_proj``, and the ViT cuts and joins the tokens around
+    its blocks."""
     global _TP
-    prev, _TP = _TP, TensorParallel(f, g)
+    prev, _TP = _TP, TensorParallel(f, g, split, gather)
     try:
         yield
     finally:
         _TP = prev
+
+
+def sequence_parallel() -> Optional[TensorParallel]:
+    """The forward's tensor parallelism when it is sequence parallel, else
+    None."""
+    return _TP if _TP is not None and _TP.seq else None
 
 
 def _call(dense: Dense, x: torch.Tensor, int8: bool, int8_bwd: bool) -> torch.Tensor:
@@ -734,15 +758,18 @@ class MultiHeadAttention(nn.Module):
         of k and of v (``parallel.tp_cut``), each LoRA B the rows it adds
         to, and ``out_proj`` those heads' columns; Megatron's ``f`` stands at
         ``in_proj``'s input and at each LoRA B's (A's gradient sums over the
-        ranks' heads), ``g`` after ``out_proj``."""
+        ranks' heads), ``g`` after ``out_proj``.  Under sequence parallelism
+        ``x`` is this rank's tokens and ``f`` (the token all-gather) stands
+        once, at the region's entry: LoRA A runs on the gathered tokens."""
         tp = _TP
         if tp is not None:
             self.check_tensor_parallel()
-        b, n, d = x.shape
+        xin = x if tp is None else tp.f(x)  # under sequence parallelism: every token
+        b, n, d = xin.shape
         hd = d // self.heads
         spec = self.spec
         scale = hd**-0.5
-        qkv = _call(self.in_proj, x if tp is None else tp.f(x), int8, int8_bwd)
+        qkv = _call(self.in_proj, xin, int8, int8_bwd)
         q, k, v = qkv.chunk(3, dim=-1)
         local = q.shape[-1]  # this rank's heads' width under tensor parallelism
         h = local // hd
@@ -750,8 +777,8 @@ class MultiHeadAttention(nn.Module):
         if spec.attn_delta == "kron":
             deltas = self._kron_deltas(x)
         else:
-            deltas = {t: self._lora_delta(x, t, None if tp is None else tp.f)
-                      for t in self.lora_targets}
+            lora_x, lora_f = (x, tp.f) if tp is not None and not tp.seq else (xin, None)
+            deltas = {t: self._lora_delta(lora_x, t, lora_f) for t in self.lora_targets}
 
         if spec.attn_delta != "none" and spec.lora_post_scale_q:
             q = q * scale

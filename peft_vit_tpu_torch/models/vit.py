@@ -30,6 +30,21 @@ Beyond the blocks' own hooks (``layers``):
 * ``int8_attn`` / ``int8_attn_pv``: every block's int8 attention scores;
 * ``start_layer`` / ``stop_layer``: the tower cut at a block, for the
   cached-prefix sweep (``engine.cached``).
+
+``scan_layers=True`` (``TPU.SCAN_LAYERS``; the JAX ``nn.scan`` over the
+blocks) holds the blocks in the stacked layout (``StackedBlocks``) when the
+spec has no per-layer statics, the JAX ``_can_scan`` gating: no AdapterDrop
+layer subset, no deep prompts, no extra probe block, no drop path.  Otherwise
+the blocks stay unrolled, as in the JAX module.  A stacked tower runs all its
+blocks, or none of them: ``stop_layer=0`` gives the tokens after the
+embedding and ``start_layer=L`` runs the head on given tokens (the GPipe
+entry and re-entry, ``parallel.pipeline``); another cut raises.  As the JAX
+scan drops the blocks' ``qstats`` sows, ``layers.collect_activation_stats``
+records nothing inside the stacked blocks.
+
+Under sequence parallelism (``layers.tensor_parallel`` with a token split)
+the tokens are cut over the model group after the embedding (after
+``ln_pre`` in the CLIP style) and gathered before the head.
 """
 
 from __future__ import annotations
@@ -40,9 +55,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from ..peft.spec import PEFTSpec
 from ..ops.int8 import INT8_TARGET_MODULES
+from . import layers as _layers
 from .layers import Block, LayerNorm, _cell
 
 
@@ -135,6 +152,46 @@ class PatchEmbed(nn.Conv2d):
         return out if b is None else out + b
 
 
+def can_scan(spec: PEFTSpec, drop_path_rate: float) -> bool:
+    """Whether the stacked layout applies (the JAX ``_can_scan``'s gating of a
+    whole-tower forward): no per-layer statics in the spec, no drop path."""
+    return (spec.adapter_layers is None and not spec.prompt_deep and not spec.extra_block
+            and float(drop_path_rate) == 0.0)
+
+
+class StackedBlocks(nn.Module):
+    """The stacked block layout (counterpart of the JAX ``nn.scan`` of
+    ``_BlockCell``): one template ``Block``, ``block``, whose every parameter
+    holds the L layers' values stacked on a leading axis, under the JAX names
+    (``blocks.block.attn.in_proj.weight``: (L, 3 width, width)).  The forward
+    takes each leaf's per-layer views with one ``torch.unbind`` (its backward
+    is one stack, where indexing would add L zero-filled full-size gradients)
+    and applies the template to layer i's views with ``functional_call``.
+    Under a sweep round's ``vmap`` a leaf is (cells, L, ...), and the views
+    are taken inside the vmap."""
+
+    def __init__(self, blocks: Sequence[Block]):
+        super().__init__()
+        self.layers = len(blocks)
+        self.block = blocks[0]
+        self.names = [n for n, _ in self.block.named_parameters()]
+        per_layer = [dict(b.named_parameters()) for b in blocks]
+        with torch.no_grad():
+            for n in self.names:
+                owner, _, leaf = n.rpartition(".")
+                setattr(self.block.get_submodule(owner), leaf,
+                        nn.Parameter(torch.stack([p[n] for p in per_layer])))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        views = {}
+        for n in self.names:
+            owner, _, leaf = n.rpartition(".")
+            views[n] = getattr(self.block.get_submodule(owner), leaf).unbind(0)
+        for i in range(self.layers):
+            x = functional_call(self.block, {n: v[i] for n, v in views.items()}, (x,))
+        return x
+
+
 class VisionTransformer(nn.Module):
     def __init__(
         self,
@@ -158,6 +215,7 @@ class VisionTransformer(nn.Module):
         patch_gemm: bool = False,
         softmax_fp32: bool = True,
         attn_batch_chunk: int = 0,
+        scan_layers: bool = False,
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
         device=None,
@@ -168,7 +226,9 @@ class VisionTransformer(nn.Module):
         i of L (L + 1 with the extra block) gets ``linspace(0, rate, L)[i]``, drawn in training mode from
         ``generator``.  ``int8``: int8 GEMMs on eval forwards; ``int8_train``:
         on training forwards too (see ``layers.Block``).  ``softmax_fp32`` and
-        ``attn_batch_chunk`` go to every block's attention."""
+        ``attn_batch_chunk`` go to every block's attention.  ``scan_layers``:
+        the stacked layout where ``can_scan`` allows it (see the module
+        docstring; ``self.scan_layers`` says which layout was built)."""
         super().__init__()
         if style not in ("clip", "timm"):
             raise ValueError(f"unknown ViT style {style!r}")
@@ -199,7 +259,8 @@ class VisionTransformer(nn.Module):
             self.ln_pre = LayerNorm(width, compute_fp32=ln_fp32, device=device)
         total = layers + (1 if spec.extra_block else 0)
         dpr = np.linspace(0.0, drop_path_rate, max(total, 1))
-        self.blocks = nn.ModuleList(
+        self.scan_layers = bool(scan_layers) and can_scan(spec, drop_path_rate)
+        blocks = nn.ModuleList(
             Block(width, heads, mlp_ratio=mlp_ratio, act="quick_gelu" if clip else "gelu",
                   spec=spec, layer_idx=i, grid_size=g, n_prefix=n_cls + self.num_prompts,
                   drop_path=float(dpr[i]),
@@ -209,6 +270,9 @@ class VisionTransformer(nn.Module):
                   generator=generator, device=device)
             for i in range(total)
         )
+        # the stacked layout draws the blocks as the unrolled one does, then
+        # stacks them: one seed builds the same weights in either layout
+        self.blocks = StackedBlocks(blocks) if self.scan_layers else blocks
         self.ln_post = LayerNorm(width, compute_fp32=ln_fp32, device=device)
         if clip and output_dim is not None:
             self.proj = nn.Parameter(torch.randn(width, output_dim, **pkw) * width**-0.5)
@@ -232,6 +296,15 @@ class VisionTransformer(nn.Module):
         forward resumes at that block.  ``stop_layer``: the tokens after block
         ``stop_layer - 1``, without the head."""
         dt = self.dtype
+        seq = _layers.sequence_parallel()
+        if seq is not None and (start_layer > 0 or stop_layer is not None):
+            raise ValueError("sequence parallelism runs the whole tower (no start_layer / "
+                             "stop_layer)")
+        if self.scan_layers and not (start_layer in (0, self.layers)
+                                     and stop_layer in (None, 0)):
+            raise ValueError(f"the stacked layout runs all {self.layers} blocks or none: "
+                             f"start_layer 0 or {self.layers}, stop_layer None or 0, not "
+                             f"{start_layer}, {stop_layer}")
         if start_layer > 0:
             x = x.to(dt)
         else:
@@ -245,14 +318,24 @@ class VisionTransformer(nn.Module):
                 x = self._prompts(x, self.prompt_embeddings, replace=False)
             if self.style == "clip":
                 x = self.ln_pre(x)
-        deep = getattr(self, "deep_prompt_embeddings", None)
-        end = len(self.blocks) if stop_layer is None else stop_layer
-        for i in range(start_layer, end):
-            if deep is not None and 0 < i < self.layers:
-                x = self._prompts(x, deep[i - 1], replace=True)
-            x = self.blocks[i](x)
-        if stop_layer is not None:
-            return x
+            if stop_layer == 0:
+                return x
+            if seq is not None:
+                x = seq.split(x)
+        if self.scan_layers:
+            if start_layer == 0:
+                x = self.blocks(x)
+        else:
+            deep = getattr(self, "deep_prompt_embeddings", None)
+            end = len(self.blocks) if stop_layer is None else stop_layer
+            for i in range(start_layer, end):
+                if deep is not None and 0 < i < self.layers:
+                    x = self._prompts(x, deep[i - 1], replace=True)
+                x = self.blocks[i](x)
+            if stop_layer is not None:
+                return x
+        if seq is not None:
+            x = seq.gather(x)
         if self.style == "timm":
             x = self.ln_post(x)
             return x[:, 0, :] if self.use_cls else x.mean(dim=1)

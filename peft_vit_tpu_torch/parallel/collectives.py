@@ -17,6 +17,16 @@ layer (utils/comm.py:12-154):
   forward, sum all-reduce backward) and ``g`` (sum all-reduce forward,
   identity backward) over the model group, which GSPMD places for the JAX
   package's tensor-parallel rules;
+* ``sp_all_gather`` / ``sp_reduce_scatter``: sequence parallelism's ``f``
+  and ``g`` on the token axis (dim 1) over the model group (Megatron-SP;
+  GSPMD places them for the JAX package's ``act_sharding``): the all-gather,
+  whose backward is the reduce-scatter, and the reduce-scatter, whose
+  backward is the all-gather; ``sp_split`` (this rank's token slice, the
+  backward an all-gather) after the embedding and ``sp_gather`` (every
+  token, the backward this rank's own slice: every model rank computes the
+  same head and loss) before the head;
+* ``p2p``: a send to and a receive from neighbouring ranks in one
+  ``batch_isend_irecv`` (GPipe's activations and their gradients);
 * ``roll_rows``: ``torch.roll(x, 1, 0)`` of the global batch whose rows
   this rank holds (mixup's partner rows);
 * ``host_allgather`` / ``allgather_ragged``: host arrays of every process
@@ -33,7 +43,7 @@ take other GEMM algorithms downstream), and each may be captured in a
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -179,6 +189,104 @@ def reduce_from_model(x: torch.Tensor, group=None) -> torch.Tensor:
     """``g`` after a row-parallel product: the sum of the ranks' partial
     products."""
     return _ReduceFromModel.apply(x, group)
+
+
+def _token_slice(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of the token axis (dim 1), contiguous."""
+    n = dist.get_world_size(group)
+    if x.shape[1] % n:
+        raise ValueError(f"{x.shape[1]} tokens do not split over {n} ranks")
+    size = x.shape[1] // n
+    return x.narrow(1, dist.get_rank(group) * size, size).contiguous()
+
+
+class _SPAllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather_dim(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, 1, ctx.group), None
+
+
+class _SPReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return reduce_scatter_dim(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, 1, ctx.group), None
+
+
+class _SPSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _token_slice(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, 1, ctx.group), None
+
+
+class _SPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather_dim(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _token_slice(g, ctx.group), None
+
+
+def sp_all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sequence parallelism's ``f``: every rank's tokens (dim 1, rank order);
+    the backward sums the ranks' gradients and scatters the tokens."""
+    return _SPAllGather.apply(x, group)
+
+
+def sp_reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sequence parallelism's ``g``: this rank's tokens of the sum of the
+    ranks' partial products; the backward gathers the tokens."""
+    return _SPReduceScatter.apply(x, group)
+
+
+def sp_split(x: torch.Tensor, group=None) -> torch.Tensor:
+    """This rank's token slice of a sequence every rank holds whole (the
+    embedding's output); the backward gathers the slices' gradients, so that
+    every rank's embedding gets the whole gradient."""
+    return _SPSplit.apply(x, group)
+
+
+def sp_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every token before the head, which every rank then computes alike;
+    the backward keeps this rank's own slice of the (equal) gradients: a sum
+    would count the head's gradient once a rank."""
+    return _SPGather.apply(x, group)
+
+
+def p2p(send: Optional[torch.Tensor] = None, dst: Optional[int] = None,
+        recv: Optional[torch.Tensor] = None, src: Optional[int] = None, group=None) -> None:
+    """Send ``send`` to the group's rank ``dst`` and receive into ``recv``
+    from its rank ``src`` (either may be None), in one ``batch_isend_irecv``,
+    and wait for both."""
+    ops = []
+    if send is not None:
+        ops.append(dist.P2POp(dist.isend, send.contiguous(), _global(dst, group), group))
+    if recv is not None:
+        ops.append(dist.P2POp(dist.irecv, recv, _global(src, group), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def _global(rank: int, group) -> int:
+    return rank if group is None else dist.get_global_rank(group, rank)
 
 
 def roll_rows(x: torch.Tensor, group=None) -> torch.Tensor:

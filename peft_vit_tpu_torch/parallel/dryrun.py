@@ -12,17 +12,26 @@ runs in each:
    n / 2 x 2 (``model_par`` = 2 when n is even, else 1), a global batch of
    2n;
 2. a ZeRO-1 step of the same tower with the LoRA-MoE gate (group 2) on the
-   same mesh.
+   same mesh;
+3. a sequence-parallel LoRA step (``TPU.SEQUENCE_PARALLEL``) of the flagship
+   at width 64, 48 px, patch 16 (3 x 3 patches and the class token: 10
+   tokens, 5 a rank over model 2) on the same mesh, 2 heads of 32 (the JAX
+   dryrun's 4 heads of 16 are no head dim of K1-K3);
+4. GPipe: a stack of 8 blocks (width 64, 2 heads) staged over a mesh of
+   n / pipe x pipe, pipe = min(4, n), 2 microbatches of each data shard's
+   rows, one SGD step of the staged leaves and of a linear head on the
+   tokens' mean (the JAX dryrun's fourth step, on a random batch and head
+   where it has zeros).
 
 ``device`` None is the card: NCCL, one card a rank (``utils.dist.
 init_distributed`` refuses more ranks than the host has cards), the steps
 on the attention kernels.  ``device='cpu'`` gives gloo CPU processes, one
 torch thread each: the multi-rank arithmetic on a host with fewer cards.
-The weights are drawn from a seed in every process alike, the batch from
-another.  Both losses must be finite; the first is also held to the loss of
-the global batch computed in one process, within ``TOL_LOSS_REL``.  The JAX
-dryrun's sequence-parallel and pipeline steps are not ported (ROADMAP §1,
-parallelism).
+The weights are drawn from a seed in every process alike, the batches from
+others.  Every loss must be finite; the first, the sequence-parallel one and
+the pipelined one (and the pipelined loss after its step) are also held to
+the same losses computed in one process over the global batch, within
+``TOL_LOSS_REL``.
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ TIMEOUT_S = 600
 SEED = 0
 WIDTH, LAYERS, HEADS, IMAGE, PATCH, CLASSES = 128, 2, 4, 32, 16, 8  # head dim 32: K1-K3's
 LR, WD = 1e-3, 1e-4
+SP_WIDTH, SP_HEADS, SP_IMAGE = 64, 2, 48  # 10 tokens; head dim 32
+PP_BLOCKS, PP_TOKENS, PP_MICROBATCHES, PP_LR = 8, 5, 2, 1e-3
 
 
 def _model(moe: bool, device: torch.device):
@@ -67,11 +78,65 @@ def _model(moe: bool, device: torch.device):
     return model.to(device)
 
 
-def _batch(n: int, device: torch.device):
-    rng = np.random.RandomState(SEED + 7)
-    x = rng.standard_normal((2 * n, IMAGE, IMAGE, 3)).astype(np.float32)
+def _sp_model(device: torch.device):
+    """The sequence-parallel step's tower (step 3), drawn from ``SEED + 2``."""
+    from ..models import flagship
+
+    torch.manual_seed(SEED + 2)
+    model = flagship(width=SP_WIDTH, layers=LAYERS, heads=SP_HEADS, image=SP_IMAGE, patch=PATCH,
+                     num_classes=CLASSES, dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.abs().sum():
+                p.normal_(0.0, 0.02)
+    return model.to(device)
+
+
+def _batch(n: int, device: torch.device, image: int = IMAGE, seed: int = SEED + 7):
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((2 * n, image, image, 3)).astype(np.float32)
     y = rng.randint(0, CLASSES, 2 * n).astype(np.int64)
     return torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+
+def _pp_setup(n: int, device: torch.device):
+    """Step 4's block template, its 8 blocks' leaves stacked (L, ...), the
+    head (width, classes) and the global batch of tokens and labels."""
+    from ..models.layers import Block
+
+    torch.manual_seed(SEED + 3)
+    blocks = [Block(SP_WIDTH, SP_HEADS, device="cpu") for _ in range(PP_BLOCKS)]
+    names = [k for k, _ in blocks[0].named_parameters()]
+    stacked = {k: torch.stack([dict(b.named_parameters())[k].detach() for b in blocks])
+               .to(device) for k in names}
+    rng = np.random.RandomState(SEED + 11)
+    head = torch.from_numpy(rng.standard_normal((SP_WIDTH, CLASSES)).astype(np.float32)
+                            * 0.1).to(device)
+    x = torch.from_numpy(rng.standard_normal((2 * n, PP_TOKENS, SP_WIDTH)).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, CLASSES, 2 * n).astype(np.int64))
+    return blocks[0].to(device), stacked, head, x.to(device), y.to(device)
+
+
+def _pp_loss(block, stacked, head, x, y, transport=None):
+    """Step 4's loss: the tokens through the stack (pipelined over
+    ``transport``, or layer by layer), their mean, the head, the mean
+    cross-entropy."""
+    from torch.func import functional_call
+
+    from ..engine import ce_per_example
+    from .pipeline import pipeline_apply, stage_params
+
+    def block_fn(p, h):
+        return functional_call(block, p, (h,))
+
+    if transport is None:
+        h = x
+        for i in range(PP_BLOCKS):
+            h = block_fn({k: v[i] for k, v in stacked.items()}, h)
+    else:
+        h = pipeline_apply(block_fn, stage_params(stacked, transport.n_stages), x,
+                           microbatches=PP_MICROBATCHES, transport=transport)
+    return ce_per_example(h.mean(1) @ head, y).mean()
 
 
 @contextlib.contextmanager
@@ -100,10 +165,13 @@ def _device(device) -> torch.device:
 
 
 def _steps(rank: int, n: int, device: torch.device) -> dict:
-    """Both steps in process ``rank`` of the group: their losses and the mesh."""
+    """The four steps in process ``rank`` of the group: their losses and the
+    meshes."""
     from ..engine import ce_per_example, init_cell_state, make_apply_fn
     from ..peft import build_mask, split_params
+    from .collectives import psum_mean, sum_all_reduce
     from .mesh import make_mesh, shard_batch
+    from .pipeline import GroupRing, LocalRing
     from .train_step import make_sharded_train_step
 
     model_par = 2 if n % 2 == 0 and n >= 2 else 1
@@ -120,6 +188,38 @@ def _steps(rank: int, n: int, device: torch.device) -> dict:
         with _fp32_products():
             state, loss = step(state, frozen, xs, ys, LR, WD)
         out[key] = float(loss)
+    # 3: sequence parallelism on the same mesh
+    model = _sp_model(device)
+    trainable, _ = split_params(model, build_mask(model, "lora", num_layers=LAYERS))
+    step, place = make_sharded_train_step(make_apply_fn(model), ce_per_example, mesh,
+                                          model=model, sequence_parallel=True)
+    state, frozen = place(init_cell_state(trainable), {})
+    x, y = _batch(n, device, SP_IMAGE, SEED + 8)
+    with _fp32_products():
+        state, loss = step(state, frozen, shard_batch(mesh, x), shard_batch(mesh, y), LR, WD)
+    out["seqpar_loss"] = float(loss)
+    # 4: GPipe over data x pipe
+    pipe = min(4, n)
+    pp = make_mesh(data=n // pipe, model=1, pipe=pipe)
+    out["pp_mesh"] = {"data": pp.data, "pipe": pipe}
+    block, stacked, head, x, y = _pp_setup(n, device)
+    leaves = {k: v.requires_grad_() for k, v in {**stacked, "head": head}.items()}
+    transport = GroupRing(pp.pipe_group, pipe) if pipe > 1 else LocalRing(1)
+    last = pp.pipe_rank == pipe - 1
+    with _fp32_products():
+        loss = _pp_loss(block, {k: v for k, v in leaves.items() if k != "head"}, leaves["head"],
+                        shard_batch(pp, x), shard_batch(pp, y), transport)
+        # the last stage's loss drives the backward; the pipe group's sum of
+        # the gradients is then the whole one on every rank
+        grads = torch.autograd.grad(loss * float(last), list(leaves.values()))
+        with torch.no_grad():
+            new = {k: v - PP_LR * psum_mean(sum_all_reduce(g, pp.pipe_group) if pipe > 1
+                                            else g, pp.data_group)
+                   for (k, v), g in zip(leaves.items(), grads)}
+        out["pp_loss"] = float(psum_mean(loss.detach(), pp.data_group))
+        after = _pp_loss(block, {k: v for k, v in new.items() if k != "head"}, new["head"],
+                         shard_batch(pp, x), shard_batch(pp, y), transport)
+        out["pp_loss_after"] = float(psum_mean(after.detach(), pp.data_group))
     return out
 
 
@@ -136,24 +236,43 @@ def _entry(rank: int, n: int, tmp: str, device) -> None:
         port_dist.destroy_distributed()
 
 
-def one_process_loss(n: int, device=None) -> float:
-    """The first step's loss computed in one process: the whole tower's
-    mean cross-entropy over the global batch."""
+def one_process_losses(n: int, device=None) -> dict:
+    """The losses of steps 1, 3 and 4 computed in one process over the
+    global batch: the towers' mean cross-entropy, and step 4's loss before
+    and after its SGD step, the stack applied layer by layer."""
     from ..engine import ce_per_example
 
     device = _device(device)
-    model = _model(False, device)
-    model.train(True)
-    x, y = _batch(n, device)
-    with torch.no_grad(), _fp32_products():
-        return float(ce_per_example(model(x).to(torch.float32), y).mean())
+    out = {}
+    for key, model, (x, y) in (
+            ("loss", _model(False, device), _batch(n, device)),
+            ("seqpar_loss", _sp_model(device), _batch(n, device, SP_IMAGE, SEED + 8))):
+        model.train(True)
+        with torch.no_grad(), _fp32_products():
+            out[key] = float(ce_per_example(model(x).to(torch.float32), y).mean())
+    block, stacked, head, x, y = _pp_setup(n, device)
+    leaves = {k: v.requires_grad_() for k, v in {**stacked, "head": head}.items()}
+    with _fp32_products():
+        loss = _pp_loss(block, {k: v for k, v in leaves.items() if k != "head"},
+                        leaves["head"], x, y)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.no_grad():
+            new = {k: v - PP_LR * g for (k, v), g in zip(leaves.items(), grads)}
+            after = _pp_loss(block, {k: v for k, v in new.items() if k != "head"},
+                             new["head"], x, y)
+    out["pp_loss"], out["pp_loss_after"] = float(loss.detach()), float(after)
+    return out
+
+
+CHECKED = ("loss", "seqpar_loss", "pp_loss", "pp_loss_after")
 
 
 def dryrun_multichip(n: int, device=None) -> dict:
-    """The two steps over ``n`` spawned processes on ``device`` (see the
-    module docstring); returns rank 0's losses and mesh, every rank's losses
-    and the one-process loss.  Raises if a process fails or a check does
-    not hold."""
+    """The four steps over ``n`` spawned processes on ``device`` (see the
+    module docstring); returns rank 0's losses and meshes, every rank's
+    losses, the one-process losses (``one_process``) and each checked loss's
+    relative distance from its one-process value (``rel``; ``loss_rel`` the
+    first's).  Raises if a process fails or a check does not hold."""
     import torch.multiprocessing as mp
 
     _device(device)  # no card: raise here, before any process starts
@@ -169,18 +288,22 @@ def dryrun_multichip(n: int, device=None) -> dict:
         ranks = [torch.load(os.path.join(tmp, f"result{r}.pt")) for r in range(n)]
     out = dict(ranks[0])
     out["ranks"] = ranks
-    out["one_process_loss"] = one_process_loss(n, device)
+    one = out["one_process"] = one_process_losses(n, device)
+    out["one_process_loss"] = one["loss"]
     for r in ranks:
-        if not (np.isfinite(r["loss"]) and np.isfinite(r["zero1_moe_loss"])):
+        if not all(np.isfinite(r[k]) for k in (*CHECKED, "zero1_moe_loss")):
             raise AssertionError(f"a dryrun loss is not finite: {r}")
-    rel = abs(out["loss"] - out["one_process_loss"]) / abs(out["one_process_loss"])
-    out["loss_rel"] = rel
-    if rel > TOL_LOSS_REL:
-        raise AssertionError(f"the dryrun's first loss {out['loss']} is {rel:.3e} relative from "
-                             f"the one-process loss {out['one_process_loss']}")
+    out["rel"] = {k: abs(out[k] - one[k]) / abs(one[k]) for k in CHECKED}
+    out["loss_rel"] = out["rel"]["loss"]
+    for k, rel in out["rel"].items():
+        if rel > TOL_LOSS_REL:
+            raise AssertionError(f"the dryrun's {k} {out[k]} is {rel:.3e} relative from the "
+                                 f"one-process {k} {one[k]}")
     print(f"dryrun_multichip ok ({device or 'cuda'}): mesh={out['mesh']} loss={out['loss']:.6f} "
-          f"zero1_moe_loss={out['zero1_moe_loss']:.6f} one-process loss "
-          f"{out['one_process_loss']:.6f} ({rel:.2e} relative)", flush=True)
+          f"zero1_moe_loss={out['zero1_moe_loss']:.6f} seqpar_loss={out['seqpar_loss']:.6f} "
+          f"pp_loss={out['pp_loss']:.6f} (pipe={out['pp_mesh']['pipe']} x "
+          f"data={out['pp_mesh']['data']}); largest relative distance from one process "
+          f"{max(out['rel'].values()):.2e}", flush=True)
     return out
 
 

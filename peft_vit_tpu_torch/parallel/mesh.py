@@ -9,15 +9,17 @@ axes over the process group (``utils.dist``), one process a device, and its
 steps call the collectives themselves (``parallel.collectives``,
 ``parallel.train_step``).
 
-Data and tensor parallelism run here.  Rank r sits at (r // model,
-r % model) of the JAX device order, ``reshape(data, model)`` with the model
-axis fastest; each axis has its subgroups (``Mesh.data_group``,
-``Mesh.model_group``: the ranks of this rank's row and column).  The
-tensor-parallel rules are Megatron's column-parallel first and row-parallel
-second GEMM: ``param_partition_spec`` mirrors the JAX specs as data, and
-``tp_cut`` is the port's cut of a leaf (whole heads: see
-``parallel.train_step``).  A ``pipe`` degree above 1 (GPipe) and
-``TPU.SEQUENCE_PARALLEL`` raise, each naming its item.
+Rank r sits at (r // (model pipe), (r // pipe) % model, r % pipe) of the
+JAX device order, ``reshape(data, model, pipe)`` with the pipe axis fastest
+(without one, (r // model, r % model)); each axis has its subgroups
+(``Mesh.data_group``, ``Mesh.model_group``, ``Mesh.pipe_group``: the ranks
+that differ from this one on that axis alone).  The model axis carries
+tensor parallelism and, under ``TPU.SEQUENCE_PARALLEL``, sequence
+parallelism (``parallel.train_step``, ``engine.trainer``); the pipe axis
+GPipe's stages (``parallel.pipeline``).  The tensor-parallel rules are
+Megatron's column-parallel first and row-parallel second GEMM:
+``param_partition_spec`` mirrors the JAX specs as data, and ``tp_cut`` is
+the port's cut of a leaf (whole heads: see ``parallel.train_step``).
 
 A partition spec is a tuple with one entry a dim, the axis name that splits
 it or None; ``()`` replicates.  The rules read the port's names and layouts
@@ -37,13 +39,6 @@ MODEL_AXIS = "model"
 PIPE_AXIS = "pipe"
 
 PartitionSpec = Tuple[Optional[str], ...]
-
-SEQUENCE_ITEM = "ROADMAP §1, parallelism (sequence parallelism)"
-PIPELINE_ITEM = "ROADMAP §1, parallelism (GPipe)"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to peft_vit_tpu_torch yet ({item})")
 
 
 class Mesh(NamedTuple):
@@ -65,42 +60,51 @@ class Mesh(NamedTuple):
     @property
     def model_rank(self) -> int:
         """This process's index on the model axis."""
-        return _dist.rank() % self.model if self.model > 1 else 0
+        return (_dist.rank() // self.pipe) % self.model if self.model > 1 else 0
+
+    @property
+    def pipe_rank(self) -> int:
+        """This process's index on the pipe axis: its GPipe stage."""
+        return _dist.rank() % self.pipe if self.pipe > 1 else 0
+
+    def _groups(self):
+        return _dist.axis_groups(self.data, self.model, self.pipe)
 
     @property
     def data_group(self):
         """The subgroup of this process's data axis (None: the default
         group)."""
-        return _dist.axis_groups(self.data, self.model)[0] if self.model > 1 else None
+        return self._groups()[0] if self.model > 1 or self.pipe > 1 else None
 
     @property
     def model_group(self):
         """The subgroup of this process's model axis (None without one)."""
-        return _dist.axis_groups(self.data, self.model)[1] if self.model > 1 else None
+        return self._groups()[1] if self.model > 1 else None
+
+    @property
+    def pipe_group(self):
+        """The subgroup of this process's pipe axis (None without one)."""
+        return self._groups()[2] if self.pipe > 1 else None
 
 
 def make_mesh(data: int = -1, model: int = 1, pipe: int = 1) -> Mesh:
     """``data`` = -1 takes every process of the group the other axes leave.
-    A ``pipe`` degree above 1 raises.  A ``model`` degree above 1 makes the
-    axes' subgroups (a collective call: every rank makes the mesh)."""
-    if int(pipe) > 1:
-        raise _not_ported(f"a pipe (pipeline) degree of {pipe}", PIPELINE_ITEM)
+    A ``model`` or ``pipe`` degree above 1 makes the axes' subgroups (a
+    collective call: every rank makes the mesh)."""
     n = _dist.world_size()
-    model = int(model)
-    data = n // model if int(data) == -1 else int(data)
-    if model < 1 or data * model * int(pipe) != n:
+    model, pipe = int(model), int(pipe)
+    data = n // (model * pipe) if int(data) == -1 else int(data)
+    if model < 1 or pipe < 1 or data * model * pipe != n:
         raise ValueError(f"a mesh of {data} x {model} x {pipe} over {n} processes")
-    mesh = Mesh(data, model, int(pipe), _dist.rank() // model)
-    if model > 1:
-        _dist.axis_groups(data, model)
+    mesh = Mesh(data, model, pipe, _dist.rank() // (model * pipe))
+    if model > 1 or pipe > 1:
+        _dist.axis_groups(data, model, pipe)
     return mesh
 
 
 def mesh_from_config(cfg) -> Mesh:
-    """The mesh of ``TPU.MESH`` (``DATA``, ``MODEL``, ``PIPE``);
-    ``TPU.SEQUENCE_PARALLEL`` raises."""
-    if bool(cfg.TPU.get("SEQUENCE_PARALLEL", False)):
-        raise _not_ported("TPU.SEQUENCE_PARALLEL", SEQUENCE_ITEM)
+    """The mesh of ``TPU.MESH`` (``DATA``, ``MODEL``, ``PIPE``), as the JAX
+    ``mesh_from_config`` (``TPU.SEQUENCE_PARALLEL`` changes no axis)."""
     return make_mesh(data=int(cfg.TPU.MESH.DATA), model=int(cfg.TPU.MESH.MODEL),
                      pipe=int(cfg.TPU.MESH.get("PIPE", 1)))
 
@@ -153,33 +157,37 @@ def tp_cut(name: str, shape: Sequence[int]) -> Optional[str]:
     return None
 
 
-def tp_slice(t: torch.Tensor, cut: Optional[str], index: int, size: int) -> torch.Tensor:
+def stack_lead(name: str) -> int:
+    """The leading dims of a leaf before its per-layer shape: 1 in the
+    stacked block layout (``blocks.block.``: the layers' axis), else 0."""
+    return 1 if "blocks.block." in name else 0
+
+
+def tp_slice(t: torch.Tensor, cut: Optional[str], index: int, size: int,
+             lead: int = 0) -> torch.Tensor:
     """The model rank ``index``'s part of ``t`` under ``cut`` (of
-    ``tp_cut``), of ``size`` ranks; a contiguous copy."""
+    ``tp_cut``), of ``size`` ranks, each of the ``lead`` leading dims' slices
+    cut alike (``stack_lead``); a contiguous copy."""
     if cut is None or size == 1:
         return t
-    if cut == "cols":
-        n = t.shape[1] // size
-        return t[:, index * n:(index + 1) * n].contiguous()
-    if cut == "rows":
-        n = t.shape[0] // size
-        return t[index * n:(index + 1) * n].contiguous()
-    third = t.shape[0] // 3
+    if cut in ("cols", "rows"):
+        dim = lead + (cut == "cols")
+        n = t.shape[dim] // size
+        return t.narrow(dim, index * n, n).contiguous()
+    third = t.shape[lead] // 3
     n = third // size
-    return torch.cat([t[j * third + index * n:j * third + (index + 1) * n]
-                      for j in range(3)]).contiguous()
+    return torch.cat([t.narrow(lead, j * third + index * n, n) for j in range(3)],
+                     lead).contiguous()
 
 
-def tp_unslice(parts: Sequence[torch.Tensor], cut: Optional[str]) -> torch.Tensor:
+def tp_unslice(parts: Sequence[torch.Tensor], cut: Optional[str], lead: int = 0) -> torch.Tensor:
     """The whole leaf from the model ranks' ``parts`` (``tp_slice``'s
     inverse)."""
     if cut is None or len(parts) == 1:
         return parts[0]
-    if cut == "cols":
-        return torch.cat(list(parts), 1)
-    if cut == "rows":
-        return torch.cat(list(parts), 0)
-    return torch.cat([p.chunk(3, 0)[j] for j in range(3) for p in parts], 0)
+    if cut in ("cols", "rows"):
+        return torch.cat(list(parts), lead + (cut == "cols"))
+    return torch.cat([p.chunk(3, lead)[j] for j in range(3) for p in parts], lead)
 
 
 def zero_dim(shape: Sequence[int], data: int) -> Optional[int]:

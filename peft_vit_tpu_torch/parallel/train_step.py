@@ -33,7 +33,22 @@ rank.  Tensor parallelism covers the ViT with ``full``, LoRA on q / v
 (``lora_post_scale_q`` too) and the LoRA-MoE gate, in fp32 and bf16: what
 the JAX package's TP tests and dryrun run.  The hooks on the split
 activations (the adapters, Compacter, LePE, RPB, VPT, KAdaptation) and int8
-raise (``check_tensor_parallel``).
+raise (``check_tensor_parallel``).  The stacked block layout is cut layer by
+layer (``mesh.stack_lead``).
+
+``sequence_parallel=True`` (``TPU.SEQUENCE_PARALLEL``, Megatron-SP; the JAX
+package's ``act_sharding`` of the inter-block activations over the model
+axis) runs the same cut leaves with the tokens cut over the model group
+between the regions: ``f`` is the token all-gather at each region's entry
+(LoRA A then runs on the gathered tokens), ``g`` the token reduce-scatter
+after ``out_proj`` and ``c_proj``, the row-parallel biases added on the
+token slice; the ViT cuts the tokens after the embedding and gathers them
+before the head (``collectives.sp_split`` / ``sp_gather``).  The gradients of
+the block leaves that stay whole (``sp_partial``: the LayerNorms, the
+row-parallel biases, LoRA A, the MoE gate) are then this rank's part, from
+its tokens or its heads, and are summed over the model group before the
+data group's mean; the cut leaves' gradients are whole on their rank, and
+the embedding's and the head's are equal on every model rank.
 
 On the card each step is a ``engine.train.StepGraph`` replay, its
 collectives captured with it; the group's communicator is made by one eager
@@ -57,8 +72,9 @@ from ..models.layers import (TP_HOOKS_ITEM, TP_INT8_ITEM, Block, Int8Dense, Mult
                              tensor_parallel, tp_refused)
 from ..peft.masks import merge_params
 from .collectives import (all_gather_dim, copy_to_model, psum_mean, reduce_from_model,
-                          reduce_scatter_dim)
-from .mesh import Mesh, tp_cut, tp_slice, tp_unslice, zero_dim
+                          reduce_scatter_dim, sp_all_gather, sp_gather, sp_reduce_scatter,
+                          sp_split, sum_all_reduce)
+from .mesh import Mesh, stack_lead, tp_cut, tp_slice, tp_unslice, zero_dim
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -92,19 +108,34 @@ def _zero_slice(t: torch.Tensor, dim, mesh: Mesh) -> torch.Tensor:
     return t.narrow(dim, mesh.rank * size, size)
 
 
-def _tp_context(mesh: Mesh):
+def tp_context(mesh: Mesh, sequence_parallel: bool = False):
     """The context of a forward over ``mesh``: Megatron's ``f`` and ``g``
-    over its model group, or nothing without a model axis."""
+    over its model group (with ``sequence_parallel`` the token all-gather and
+    reduce-scatter, and the token split and gather around the blocks), or
+    nothing without a model axis."""
     if mesh.model == 1:
         return contextlib.nullcontext()
     group = mesh.model_group
+    if sequence_parallel:
+        return tensor_parallel(*(functools.partial(fn, group=group) for fn in (
+            sp_all_gather, sp_reduce_scatter, sp_split, sp_gather)))
     return tensor_parallel(functools.partial(copy_to_model, group=group),
                            functools.partial(reduce_from_model, group=group))
 
 
+def sp_partial(name: str) -> bool:
+    """Whether the gradient of the leaf ``name`` under sequence parallelism
+    is this rank's part of it: a block leaf that ``tp_cut`` leaves whole
+    sees only this rank's tokens (the LayerNorms, the row-parallel biases)
+    or its heads (LoRA A, the MoE gate)."""
+    return ".blocks." in f".{name}" and tp_cut(name, ()) is None
+
+
 def tp_place(mesh: Mesh, tensors: Tensors) -> Tensors:
-    """This model rank's part of each leaf of ``tensors`` (``tp_cut``)."""
-    return {k: tp_slice(v, tp_cut(k, tuple(v.shape)), mesh.model_rank, mesh.model)
+    """This model rank's part of each leaf of ``tensors`` (``tp_cut``;
+    differentiable: a whole leaf's gradient gets this rank's part)."""
+    return {k: tp_slice(v, tp_cut(k, tuple(v.shape)), mesh.model_rank, mesh.model,
+                        stack_lead(k))
             for k, v in tensors.items()}
 
 
@@ -121,13 +152,13 @@ def tp_gather(mesh: Mesh, tensors: Tensors) -> Tensors:
             continue
         parts = [torch.empty_like(v) for _ in range(mesh.model)]
         dist.all_gather(parts, v.contiguous(), group=mesh.model_group)
-        out[k] = tp_unslice(parts, cut)
+        out[k] = tp_unslice(parts, cut, stack_lead(k))
     return out
 
 
 def make_sharded_train_step(apply_fn: ApplyFn, criterion: PerExampleCriterion, mesh: Mesh,
                             momentum: float = 0.9, nesterov: bool = True, zero1: bool = False,
-                            model: Optional[nn.Module] = None):
+                            model: Optional[nn.Module] = None, sequence_parallel: bool = False):
     """``(train_step, place)``:
 
     * ``train_step(state, frozen, x, y, lr, wd) -> (state, loss)``: one SGD
@@ -138,11 +169,14 @@ def make_sharded_train_step(apply_fn: ApplyFn, criterion: PerExampleCriterion, m
       ``model`` added), then with ``zero1`` each momentum buffer cut to this
       process's slice of the data axis.
 
-    ``model`` (the module ``apply_fn`` runs) is needed under a model axis."""
+    ``model`` (the module ``apply_fn`` runs) is needed under a model axis;
+    ``sequence_parallel`` cuts the tokens over it too (see the module
+    docstring)."""
     if mesh.model > 1:
         if model is None:
             raise ValueError("tensor parallelism needs the model (to cut its frozen leaves)")
         check_tensor_parallel(model, mesh.model)
+    seq = bool(sequence_parallel) and mesh.model > 1
     group = mesh.data_group
     dims = {}
 
@@ -153,7 +187,7 @@ def make_sharded_train_step(apply_fn: ApplyFn, criterion: PerExampleCriterion, m
 
     def body(trainable: Tensors, buf: Tensors, step: int, frozen, x, y, lr, wd):
         leaves = {k: v.detach().requires_grad_() for k, v in trainable.items()}
-        with _tp_context(mesh):
+        with tp_context(mesh, seq):
             logits = apply_fn(merge_params(leaves, frozen), x, True)
         loss = criterion(logits.to(torch.float32), y).mean()
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
@@ -161,6 +195,8 @@ def make_sharded_train_step(apply_fn: ApplyFn, criterion: PerExampleCriterion, m
             part, part_g = {}, {}
             for (k, v), g in zip(trainable.items(), grads):
                 g = torch.zeros_like(v) if g is None else g
+                if seq and sp_partial(k):  # the model group's tokens or heads
+                    g = sum_all_reduce(g, mesh.model_group)
                 dim = dim_of(k, v)
                 if dim is None:
                     part[k], part_g[k] = v, psum_mean(g, group)
@@ -226,7 +262,7 @@ def make_sharded_eval_step(apply_fn: ApplyFn, mesh: Mesh):
     evals: dict = {}
 
     def tp_apply(variables, x, train):
-        with _tp_context(mesh):
+        with tp_context(mesh):
             return apply_fn(variables, x, train)
 
     def eval_step(trainable: Tensors, frozen: Tensors, x: torch.Tensor) -> torch.Tensor:

@@ -102,24 +102,29 @@ def init_distributed(coordinator_address: Optional[str] = None,
 _AXIS_GROUPS: Dict[Tuple[int, int], Tuple[Any, Any]] = {}
 
 
-def axis_groups(data: int, model: int) -> Tuple[Any, Any]:
-    """This rank's subgroups of a ``data`` x ``model`` mesh (rank r at
-    (r // model, r % model)): the data group (the ranks of its model index)
-    and the model group (the ranks of its data index).  A collective call:
-    every rank makes them."""
-    key = (int(data), int(model))
+def axis_groups(data: int, model: int, pipe: int = 1) -> Tuple[Any, Any, Any]:
+    """This rank's subgroups of a ``data`` x ``model`` x ``pipe`` mesh (rank r
+    at (r // (model pipe), (r // pipe) % model, r % pipe), the pipe axis
+    fastest): the data group (the ranks of its model and pipe indices), the
+    model group (of its data and pipe indices) and the pipe group (of its data
+    and model indices; None without a pipe axis).  A collective call: every
+    rank makes them."""
+    key = (int(data), int(model), int(pipe))
     if key not in _AXIS_GROUPS:
-        me, mine = rank(), [None, None]
-        for m in range(model):
-            ranks = [d * model + m for d in range(data)]
-            g = dist.new_group(ranks)
-            if me in ranks:
-                mine[0] = g
-        for d in range(data):
-            ranks = [d * model + m for m in range(model)]
-            g = dist.new_group(ranks)
-            if me in ranks:
-                mine[1] = g
+        me, mine = rank(), [None, None, None]
+
+        def at(d, m, p):
+            return (d * model + m) * pipe + p
+
+        for axis, ranks_of in enumerate((
+                [[at(d, m, p) for d in range(data)] for m in range(model) for p in range(pipe)],
+                [[at(d, m, p) for m in range(model)] for d in range(data) for p in range(pipe)],
+                [[at(d, m, p) for p in range(pipe)] for d in range(data) for m in range(model)]
+                if pipe > 1 else [])):
+            for ranks in ranks_of:
+                g = dist.new_group(ranks)
+                if me in ranks:
+                    mine[axis] = g
         _AXIS_GROUPS[key] = tuple(mine)
     return _AXIS_GROUPS[key]
 

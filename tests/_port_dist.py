@@ -255,18 +255,21 @@ def trainer_cfg(pkg, **over):
     return set_keys(cfg, {**base, **over})
 
 
-def vit_trainer(cfg, params, method="full", int8=False):
-    """The port's Trainer of the JAX trainer tests' timm ViT (16 px, patch 8,
-    width 32, 2 blocks) on ``params`` (the JAX tree)."""
+def vit_trainer(cfg, params, method="full", int8=False, size=16, layers=2, scan_layers=False):
+    """The port's Trainer of the JAX trainer tests' timm ViT (patch 8, width
+    32, 2 heads; 16 px and 2 blocks unless ``size`` and ``layers`` say
+    otherwise, the blocks stacked with ``scan_layers``) on ``params`` (the
+    JAX tree)."""
     from peft_vit_tpu_torch.engine.trainer import Trainer
     from peft_vit_tpu_torch.models import ImageClassifier
     from peft_vit_tpu_torch.models.vit import VisionTransformer
 
-    model = ImageClassifier(VisionTransformer(image_size=16, patch_size=8, width=32, layers=2,
-                                              heads=2, style="timm", int8_train=int8,
+    model = ImageClassifier(VisionTransformer(image_size=size, patch_size=8, width=32,
+                                              layers=layers, heads=2, style="timm",
+                                              int8_train=int8, scan_layers=scan_layers,
                                               device="cpu"), num_classes=4, device="cpu")
     load_jax_variables(model, {"params": params})
-    return Trainer(cfg, model, build_mask(model, method, num_layers=2), TRAINER_STEPS)
+    return Trainer(cfg, model, build_mask(model, method, num_layers=layers), TRAINER_STEPS)
 
 
 def rn_trainer(cfg, variables, kw):
@@ -427,4 +430,119 @@ def tp_steps(rank, variables, moe_variables, x, y, lr, wd, steps):
         out[key] = {"losses": losses,
                     "trainable": {k: v.numpy() for k, v in tp_gather(mesh, state.trainable).items()},
                     "own": {k: v.numpy() for k, v in state.trainable.items()}}
+    return out
+
+
+# -- sequence parallelism (tests/test_torch_port_seqpar.py) -----------------------
+
+#: the tiny LoRA flagship at 48 px: 3 x 3 patches + the class token = 10
+#: tokens, 5 a rank over model 2 (the JAX dryrun's third step)
+SP_DP = dict(TINY_DP, image=48)
+#: the JAX TestSequenceParallelTrainer's config: the timm ViT at 24 px, patch
+#: 8 (3 x 3 + cls = 10 tokens), full fine-tune, SGD at a constant 0.05, one
+#: global batch of 8 on data 1 x model 2
+SP_TRAINER = {"TRAIN.IMAGE_SIZE": [24, 24], "TRAIN.LR": 0.05, "TRAIN.BATCH_SIZE_PER_GPU": 8,
+              "TRAIN.LR_SCHEDULER.METHOD": "constant", "TRAIN.END_EPOCH": 1}
+SP_MESH = {"TPU.SEQUENCE_PARALLEL": True, "TPU.MESH.DATA": 1, "TPU.MESH.MODEL": 2}
+
+
+def sp_flagship(variables, method):
+    """The port's fp32 flagship at ``SP_DP`` on ``variables`` (the JAX tree),
+    and its trainable leaves under ``method``."""
+    model = flagship(**SP_DP, dtype=torch.float32, device="cpu")
+    load_jax_variables(model, variables)
+    trainable, _ = split_params(model, build_mask(model, method, num_layers=SP_DP["layers"]))
+    return model, trainable
+
+
+def sp_runs(rank, variables, x, y, lr, wd, steps, trainer_params, stacked_params, tx, ty):
+    """On a mesh of data 1 x model 2 under sequence parallelism: ``steps``
+    sharded LoRA steps, one full fine-tune step, the same step with the model
+    group's sum of the partial gradients left out (``sp_partial`` patched to
+    name no leaf), each with its losses and the whole leaves gathered from the
+    model ranks; and an epoch of the Trainer at ``SP_TRAINER`` on
+    ``trainer_params``, and on ``stacked_params`` (the same tree stacked)
+    with the blocks stacked, both ranks on the whole global batch."""
+    from peft_vit_tpu_torch.parallel import tp_gather
+    from peft_vit_tpu_torch.parallel import train_step as ts
+
+    mesh = make_mesh(data=1, model=2)
+    xs, ys = torch.from_numpy(x), torch.from_numpy(y)
+    out = {"mesh": (tuple(mesh), mesh.model_rank)}
+    for key, method, n, summed in (("lora", "lora", steps, True), ("full", "full", 1, True),
+                                   ("unsummed", "full", 1, False)):
+        model, trainable = sp_flagship(variables, method)
+        saved = ts.sp_partial
+        if not summed:
+            ts.sp_partial = lambda name: False
+        try:
+            step, place = make_sharded_train_step(make_apply_fn(model), ce_per_example, mesh,
+                                                  model=model, sequence_parallel=True)
+            state, frozen = place(init_cell_state(trainable), {})
+            losses = []
+            for _ in range(n):
+                state, loss = step(state, frozen, xs, ys, lr, wd)
+                losses.append(float(loss))
+        finally:
+            ts.sp_partial = saved
+        out[key] = {"losses": losses, "trainable": _numpy(tp_gather(mesh, state.trainable))}
+    cfg = trainer_cfg(port_config, **SP_TRAINER, **SP_MESH)
+    for key, params, scan in (("trainer", trainer_params, False),
+                              ("trainer_stacked", stacked_params, True)):
+        out[key] = run_trainer(vit_trainer(cfg, params, size=24, scan_layers=scan), tx, ty, 0, 1,
+                               epochs=1)
+    return out
+
+
+# -- GPipe (tests/test_torch_port_pipeline.py) -----------------------------------------
+
+#: the JAX TestPipelineTrainer's config: the stacked timm ViT at 16 px, 4
+#: blocks, full fine-tune, LR 0.05 (warmup cosine), 2 epochs of 8 steps
+PIPE_TRAINER = {"TRAIN.LR": 0.05, "TRAIN.BATCH_SIZE_PER_GPU": 8}
+PIPE_MESH = {"TPU.SCAN_LAYERS": True, "TPU.MESH.DATA": 1, "TPU.MESH.PIPE": 2}
+PIPE_MICROBATCHES = (1, 2, 4)
+
+
+def pipe_stack(stacked, x, microbatches, transport):
+    """``pipeline_apply`` of the stacked blocks ``stacked`` (the port's
+    names under ``blocks.block.``, numpy) of width 32, 2 heads, on the
+    tokens ``x`` over ``transport``: the output and the gradients of the
+    leaves and of ``x`` of the output's sum of squares."""
+    from torch.func import functional_call
+
+    from peft_vit_tpu_torch.models.layers import Block
+    from peft_vit_tpu_torch.parallel import pipeline_apply, stage_params
+
+    block = Block(32, 2, act="gelu", device="cpu")
+    leaves = {k: torch.from_numpy(v).requires_grad_() for k, v in stacked.items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    out = pipeline_apply(lambda p, h: functional_call(block, p, (h,)),
+                         stage_params(leaves, transport.n_stages), xt,
+                         microbatches=microbatches, transport=transport)
+    grads = torch.autograd.grad(out.square().sum(), [xt, *leaves.values()])
+    return {"out": out.detach().numpy(), "dx": grads[0].numpy(),
+            "grads": {k: g.numpy() for k, g in zip(leaves, grads[1:])}}
+
+
+def pipe_runs(rank, stacked, x, trainer_params, tx, ty):
+    """On a mesh of data 1 x pipe 2: ``pipe_stack`` over the group at each of
+    ``PIPE_MICROBATCHES`` (the stage leaves' gradients summed over the pipe
+    group), and two epochs of the Trainer at ``PIPE_TRAINER`` on
+    ``trainer_params`` (the stacked JAX tree), both ranks on the whole
+    global batch."""
+    from peft_vit_tpu_torch.parallel import GroupRing, sum_all_reduce
+
+    mesh = make_mesh(data=1, model=1, pipe=2)
+    ring = GroupRing(mesh.pipe_group, 2)
+    out = {"mesh": (tuple(mesh), mesh.pipe_rank)}
+    for m in PIPE_MICROBATCHES:
+        got = pipe_stack(stacked, x, m, ring)
+        dx = sum_all_reduce(torch.from_numpy(got["dx"]), mesh.pipe_group).numpy()
+        got["grads"] = {k: sum_all_reduce(torch.from_numpy(v), mesh.pipe_group).numpy()
+                        for k, v in got["grads"].items()}
+        out[m] = {**got, "dx": dx}
+    cfg = trainer_cfg(port_config, **PIPE_TRAINER, **PIPE_MESH)
+    tr = vit_trainer(cfg, trainer_params, layers=4, scan_layers=True)
+    out["trainer"] = run_trainer(tr, tx, ty, 0, 1, epochs=2)
+    out["microbatches"] = tr.pp_microbatches
     return out

@@ -325,8 +325,6 @@ def test_build_image_classifier_loads_a_clip_checkpoint_as_jax_does(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("TPU.SCAN_LAYERS", True, "ROADMAP §1, the rest"),
-    ("TPU.SEQUENCE_PARALLEL", True, "ROADMAP §1, parallelism"),
     # a CLIP tower other than the ViT, the ModifiedResNet and Swin
     ("MODEL.SPEC.VISION.MODEL", "rexnet", "ROADMAP §1, the backbone zoo"),
     ("MODEL.SPEC.VISION.MODEL", "ttnet", "ROADMAP §1, the backbone zoo"),
@@ -338,6 +336,27 @@ def test_build_image_classifier_refuses_what_is_not_ported(key, value, match):
     with pytest.raises(NotImplementedError, match=match):
         port_factory.build_image_classifier(cfg, port_spec.spec_from_config(cfg), 4,
                                             device="cpu")
+
+
+@pytest.mark.parametrize("over", [
+    {"TPU.SCAN_LAYERS": True},
+    {"TPU.SEQUENCE_PARALLEL": True},
+    {"TPU.SEQUENCE_PARALLEL": True, "TPU.MESH.MODEL": 2},
+], ids=["scan_layers", "sequence_parallel", "sequence_parallel_model_2"])
+def test_build_image_classifier_builds_scan_layers_and_sequence_parallel(over):
+    """What the builder refused before: ``TPU.SCAN_LAYERS`` builds the stacked
+    blocks; ``TPU.SEQUENCE_PARALLEL`` builds where the 5 tokens (2 x 2
+    patches and the class token) split over ``TPU.MESH.MODEL`` and raises the
+    JAX builder's ``ValueError`` where they do not."""
+    cfg = tiny_cfg(port_config, **over)
+    spec = port_spec.spec_from_config(cfg)
+    if over.get("TPU.MESH.MODEL", 1) > 1:
+        with pytest.raises(ValueError, match=r"5-token sequence .* PEFT\.PROMPT_TOKENS=1 "):
+            port_factory.build_image_classifier(cfg, spec, 4, device="cpu")
+        return
+    model, params, _ = port_factory.build_image_classifier(cfg, spec, 4, device="cpu")
+    stacked = any(".blocks.block." in k for k in params)
+    assert model.backbone.scan_layers == stacked == bool(over.get("TPU.SCAN_LAYERS"))
 
 
 def test_build_image_classifier_builds_int8_attention_and_the_text_tower():

@@ -109,17 +109,18 @@ def test_mesh_over_one_process_and_refusals():
     mesh = parallel.make_mesh()
     assert tuple(mesh) == (1, 1, 1, 0) and mesh.shape == {"data": 1, "model": 1}
     assert parallel.batch_rows(mesh, 8) == slice(0, 8)
-    # a model degree builds where the group has the ranks for it
-    # (tests/test_torch_port_tensor_parallel.py); GPipe and sequence
-    # parallelism stay refused, each naming its item
+    # a model or pipe degree builds where the group has the ranks for it
+    # (tests/test_torch_port_tensor_parallel.py, test_torch_port_pipeline.py);
+    # sequence parallelism changes no axis, as in the JAX mesh_from_config
     with pytest.raises(ValueError, match="mesh of 0 x 2 x 1 over 1"):
         parallel.make_mesh(model=2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1, parallelism \(GPipe\)"):
+    with pytest.raises(ValueError, match="mesh of 0 x 1 x 2 over 1"):
         parallel.make_mesh(pipe=2)
     cfg = port_config.get_default_config()
     cfg.TPU.SEQUENCE_PARALLEL = True
-    with pytest.raises(NotImplementedError, match=r"parallelism \(sequence parallelism\)"):
-        parallel.mesh_from_config(cfg)
+    mesh = parallel.mesh_from_config(cfg)
+    assert tuple(mesh) == (1, 1, 1, 0) and (mesh.model_rank, mesh.pipe_rank) == (0, 0)
+    assert mesh.model_group is None and mesh.pipe_group is None
     with pytest.raises(ValueError, match="mesh of 2"):
         parallel.make_mesh(data=2)
     with pytest.raises(ValueError, match="rendezvous"):

@@ -140,7 +140,7 @@ def test_linear_probe_both_ways_match_jax(monkeypatch, tmp_path):
 def test_eval_all_scores_each_run_and_zero_for_a_failed_one(tmp_path):
     """``eval_all`` through the port: one finite score per (dataset, shot,
     seed) from the driver, its summary read back from the logs; a run that
-    raises (``TPU.SCAN_LAYERS`` is not ported) scores 0, the reference's
+    raises (a CLIP ReXNet tower is not ported) scores 0, the reference's
     sweep-cell semantics, so a 0 is no proof that a run worked."""
     from peft_vit_tpu_torch.commands import eval_all
 
@@ -150,7 +150,7 @@ def test_eval_all_scores_each_run_and_zero_for_a_failed_one(tmp_path):
             "MODEL.SPEC.VISION.PATCH_SIZE", "8", "MODEL.SPEC.VISION.WIDTH", "32",
             "MODEL.SPEC.VISION.LAYERS", "1", "MODEL.SPEC.VISION.HEADS", "2",
             "DATASET.NUM_CLASSES", "4"]
-    for name, refused in (("lora", []), ("scan_layers", ["TPU.SCAN_LAYERS", "True"])):
+    for name, refused in (("lora", []), ("refused", ["MODEL.SPEC.VISION.MODEL", "rexnet"])):
         out = tmp_path / name
         results = eval_all.main(["--datasets", "synthetic", "--shots", "4", "--seeds", "0",
                                  "--method", "lora", "--output", str(out), *opts, *refused],

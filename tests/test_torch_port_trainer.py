@@ -477,13 +477,18 @@ def test_refusals_name_their_roadmap_items():
     # Trainer: tests/test_torch_port_trainer_dist.py); ZERO1 without a mesh
     # is inert, as in the JAX trainer
     assert not make_trainer(make_cfg(**{"TPU.ZERO1": True})).zero1
-    port_trainer._refuse_unported(make_cfg(), Mesh(2, rank=1))
-    # GPipe and a model degree (sequence parallelism in the JAX trainer) stay
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1, parallelism \(GPipe\)"):
-        make_trainer(make_cfg(**{"TPU.MESH.PIPE": 2}))
+    tr = make_trainer(make_cfg(**{"TPU.MESH.PIPE": 2}))
+    port_trainer.check_mesh(make_cfg(), tr.model, Mesh(2, rank=1), False)
+    # TPU.MESH.PIPE without a group is inert, as the JAX trainer without a
+    # mesh (GPipe over a group: tests/test_torch_port_pipeline.py); a model
+    # degree runs only with sequence parallelism (test_torch_port_seqpar.py),
+    # and without it still raises: no JAX trainer runs one
+    assert tr.mesh is None and tr.pipe == 1
+    port_trainer.check_mesh(make_cfg(**{"TPU.SEQUENCE_PARALLEL": True}), tr.model,
+                            Mesh(1, model=2), False)
     with pytest.raises(NotImplementedError,
-                       match=r"model degree of 2.*ROADMAP §1, parallelism \(sequence paral"):
-        port_trainer._refuse_unported(make_cfg(), Mesh(1, model=2))
+                       match=r"model degree of 2 in the Trainer without TPU\.SEQUENCE_PARALLEL"):
+        port_trainer.check_mesh(make_cfg(), tr.model, Mesh(1, model=2), False)
     # DropBlock stays refused on a ViT and builds on a ResNet (the JAX guard)
     with pytest.raises(ValueError, match="requires a ResNet"):
         make_trainer(make_cfg(**{"AUG.DROPBLOCK_KEEP_PROB": 0.9}))
