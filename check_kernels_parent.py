@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Hold the attention kernels at head dim 64 against an earlier tree's build
-of the same kernels on one NVIDIA GPU, and time K7 of both builds.
+"""Hold the attention kernels at head dim 64 and the int8 GEMM against an
+earlier tree's build of the same kernels on one NVIDIA GPU, and time K7 of
+both builds.
 
     mkdir -p build/parent
     git archive <rev> peft_vit_tpu_torch | tar -x -C build/parent
     python3 check_kernels_parent.py --parent build/parent [--time]
 
 ``--parent DIR`` holds an earlier ``peft_vit_tpu_torch`` package.  Its
-``ops/attention.py`` is loaded beside the current one, each with its own
+``ops/attention.py`` and ``ops/int8.py`` are loaded beside the current ones, each with its own
 ``ops/_build.py`` (the parent's builds its ``csrc/`` into ``DIR/build/``),
 so each build is called through its own wrappers, whatever its C
 interface.  Both run on the same inputs: K1 (with and without a bias, with
 lse), K2 (dq and delta), K3 (dk, dv), K7 (delta given, and from o), K4 and
-K5, bf16 and fp32, at N = 8, 50, 197, 257 and 577, one bias or three cells.
-Every output of K1-K5 must be equal bit for bit.  K7's bf16 sum over the
+K5, bf16 and fp32, at N = 8, 50, 197, 257 and 577, one bias or three cells;
+K6 dynamic and static, bf16 and fp32, at the ViT-B/16 GEMMs' shapes and
+the layout's edges (``INT8_CASES``).  Every output of K1-K6 must be equal
+bit for bit.  K7's bf16 sum over the
 batch runs in chunks since its Hopper redesign, an order that no earlier
 sequential sum can match, so K7 is held to ``TOL_DBIAS_REL`` of each cell's
 max sum over its batch of |ds| (``chip_smoke.py``'s bound against the plain
@@ -43,6 +46,10 @@ HEADS, HEAD_DIM = 12, 64
 CASES = ((2, 8), (4, 50), (8, 197), (2, 257), (1, 577))  # (B, N)
 # bf16 K7 of both builds may differ in summation order only (see above)
 ORDER_ONLY = ("K7", "K7 from o")
+# (M, K, N) of K6: a block's four GEMMs at B = 16 (M = 3152) and one image,
+# a dx product, and the code slab's and column tile's edges
+INT8_CASES = ((3152, 768, 2304), (3152, 768, 768), (3152, 768, 3072), (3152, 3072, 768),
+              (197, 768, 2304), (3152, 2304, 768), (63, 192, 64), (65, 704, 192), (1, 3072, 64))
 
 
 def parent_attention(parent: Path):
@@ -54,6 +61,24 @@ def parent_attention(parent: Path):
     package.__path__ = [str(parent / "peft_vit_tpu_torch" / "ops")]
     sys.modules["_parent_ops"] = package
     return importlib.import_module("_parent_ops.attention")
+
+
+def int8_outputs(i8, gen) -> dict:
+    """K6's dynamic and static outputs through the wrappers of ``i8`` on the
+    ``INT8_CASES``, from the generator ``gen`` (the same draws for both
+    builds when it starts from the same seed)."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, k, n in INT8_CASES:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            w = torch.randn((n, k), generator=gen, device="cuda") * k**-0.5
+            w_i8, s_w = i8.quantize_cols(w)
+            s_x = x.float().abs().max() * 1.5 / 127.0
+            tag = f"{str(dtype)[6:]} M={m} K={k} N={n}"
+            out[f"K6 dynamic {tag}"] = i8.int8_gemm_dynamic(x, w_i8, s_w)
+            out[f"K6 static {tag}"] = i8.int8_gemm_static(x, w_i8, s_w, s_x)
+    torch.cuda.synchronize()
+    return out
 
 
 def outputs(attn, q, k, v, do, bias, cells: int) -> dict:
@@ -112,7 +137,10 @@ def main() -> int:
     args = ap.parse_args()
     from peft_vit_tpu_torch.ops import attention as attn
 
+    from peft_vit_tpu_torch.ops import int8 as i8
+
     older = parent_attention(args.parent.resolve())
+    older_i8 = importlib.import_module("_parent_ops.int8")
     for module in (attn, older):  # each build's sources in parallel
         module._build.build()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -149,9 +177,16 @@ def main() -> int:
                         diff = (t.float() - ref.float()).abs().max().item()
                         differ.append(f"{name} {str(dtype)[6:]} {tuple(shape)} cells={cells}: "
                                       f"max abs diff {diff:.3e}")
+    got = {"current": int8_outputs(i8, torch.Generator(device="cuda").manual_seed(1)),
+           "parent": int8_outputs(older_i8, torch.Generator(device="cuda").manual_seed(1))}
+    for name, t in got["current"].items():
+        checked += 1
+        if not torch.equal(t, got["parent"][name]):
+            diff = (t.float() - got["parent"][name].float()).abs().max().item()
+            differ.append(f"{name}: max abs diff {diff:.3e}")
     for line in differ:
         print(f"differs: {line}")
-    print(f"check_kernels_parent: {checked} outputs at head dim 64, "
+    print(f"check_kernels_parent: {checked} outputs (K1-K5 and K7 at head dim 64, K6), "
           f"{checked - len(differ)} equal to the parent's (bf16 K7 within "
           f"{chip_smoke.TOL_DBIAS_REL:g} of each cell's max sum_b |ds|, largest "
           f"{worst_k7:.3e}; every other bit for bit), {len(differ)} differ", flush=True)

@@ -348,6 +348,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    on the microbatches' operands against their plain versions, the logits
    (bf16, fp32) and every fp32 gradient against the unpipelined model, one
    microbatch bit for bit, the step's time pipelined and not.
+22. tphooks: tensor and sequence parallelism under the PEFT hooks and int8.
+   K6's K-cut form (``int8_gemm_partial``: the codes at given row scales or
+   the static one, the int32 accumulator out) and the partial row absmax
+   (``int8_row_absmax``) against their plain versions, equal, bf16 and fp32,
+   on the halves of ``out_proj`` (K = 384 a rank), ``c_proj`` (1,536) and the
+   dx products of ``in_proj`` and ``c_fc`` at M = 3,152; the two halves'
+   int32 route (the global row scale, the int32 sum, the rescale) against
+   the unsplit K6 bit for bit, dynamic and static; the rank-local row scale
+   flips codes; the times beside the bound, the plain version and the
+   library route.  Then ViT-B/16 at full width and depth, B = 16, with
+   ``PEFT.PROMPT_TOKENS`` = 1 (198 tokens, 99 a shard between the regions)
+   as two tensor-parallel and two sequence-parallel shards (the shards in
+   threads of one process, the model group's collectives exchanges between
+   them) under each hook (VPT shallow and deep, the adapter, AdapterDrop,
+   Compacter, KAdaptation, the shared qkv adapter, LePE, RPB,
+   ``lora_ref_reshape``, int8 attention and the int8 static recipe): the
+   logits against the whole model (bf16 0.1, fp32 1e-4 of the largest
+   logit; int8 the int8 bounds), every fp32 trainable gradient within 1e-4
+   (int8 within its bound), K1-K3 and K7 twice the whole model's launches
+   (once a shard) and on RPB's shards' operands against their plain
+   versions.
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -682,8 +703,9 @@ def ptxas_bias_grad_summary(text: str) -> list:
 
 
 def ptxas_int8_summary(text: str) -> list:
-    """One line for each instantiation of K6 (``int8_gemm_kernel<T,
-    kStatic>`` in the ``int8_gemm`` library's ``nvcc -Xptxas -v`` log):
+    """One line for each instantiation of K6 (``int8_gemm_kernel<T, kScale,
+    kRaw>`` in the ``int8_gemm`` library's ``nvcc -Xptxas -v`` log; the K-cut
+    form's as "rows" / "static" with "int32 out"):
     registers a thread, spills, static shared memory, and at each K of the
     path the dynamic shared memory and weight-ring depth the launcher takes
     (``int8_gemm_smem_bytes`` / ``int8_gemm_stages``), the blocks of 256
@@ -698,10 +720,11 @@ def ptxas_int8_summary(text: str) -> list:
     lines, current = [], None
     for line in text.splitlines():
         found = re.search(r"Compiling entry function '(\S*int8_gemm_kernelI(13__nv_bfloat16|f)"
-                          r"Lb([01])E\S*)'", line)
+                          r"Li([012])ELb([01])E\S*)'", line)
         if found:
             current = {"name": f"{'bf16' if found.group(2) != 'f' else 'fp32'} "
-                               f"{'static' if found.group(3) == '1' else 'dynamic'}",
+                               f"{('dynamic', 'static', 'rows')[int(found.group(3))]}"
+                               + (" int32 out" if found.group(4) == "1" else ""),
                        "serialized": found.group(1) in serialized}
             continue
         if current is None:
@@ -8107,14 +8130,69 @@ class _Shard(torch.nn.Module):
         return self.fn(self.m, x, *args, **kwargs)
 
 
+class _ShardComm:
+    """The model group of ``two_shards``' shards, which run in threads of one
+    process: ``rank`` is the calling thread's shard, and a collective is an
+    exchange between the threads (``parallel.ModelComm``'s interface).  The
+    tokens are held joined, so ``own_tokens`` and ``all_tokens`` are the
+    identity; ``sum_int`` hands the sum to shard 0 and zeros to the others,
+    as the runner then sums the shards' outputs (the sum ``g`` takes).  A
+    collective outside the shards' threads (a backward's) raises: the
+    exchange waits at a barrier with a time limit."""
+
+    def __init__(self, degree: int):
+        import threading
+
+        self.size = degree
+        self._local = threading.local()
+        self._barrier = threading.Barrier(degree, timeout=120)
+        self._slots = [None] * degree
+
+    @property
+    def rank(self) -> int:
+        return getattr(self._local, "rank", 0)
+
+    def _exchange(self, t):
+        if not hasattr(self._local, "rank"):
+            raise RuntimeError("two_shards: a model-group collective outside the shards' "
+                               "threads (a backward's)")
+        self._slots[self.rank] = t
+        self._barrier.wait()
+        got = list(self._slots)
+        self._barrier.wait()
+        return got
+
+    def max(self, t):
+        return functools.reduce(torch.maximum, [g.detach() for g in self._exchange(t)])
+
+    def sum_int(self, t):
+        total = functools.reduce(torch.add, self._exchange(t))
+        return total if self.rank == 0 else torch.zeros_like(total)
+
+    def own_tokens(self, t):
+        return t
+
+    def all_tokens(self, t):
+        return t
+
+    def cat_heads(self, t):
+        return torch.cat(self._exchange(t), dim=-1)
+
+
 @contextlib.contextmanager
 def two_shards(model, degree: int = TP_DEGREE, sequence: bool = False):
     """Within, every attention and MLP of ``model`` runs its own tensor-
     parallel forward (``layers.tensor_parallel``, one process) once a shard,
-    each on its rank's cut of the leaves (``parallel.tp_slice``,
-    differentiable: the gradients reach the whole leaves), and the shards'
-    outputs are summed: the sum the model group's ``g`` would take.  The
-    row-parallel bias stands in shard 0 only, so that it is added once.
+    each on its rank's cut of the leaves and buffers (``parallel.tp_slice``,
+    differentiable: the gradients reach the whole leaves; the int8 tree and
+    scales as the step gives them), and the shards' outputs are summed: the
+    sum the model group's ``g`` would take.  The row-parallel bias stands in
+    shard 0 only, so that it is added once.  The shards run in threads, one
+    a shard, each on its own copy of the module, so that the model group's
+    other collectives (``_ShardComm``: the int8 GEMMs' global scales and
+    int32 sums, the reference layouts' gather of every head) are exchanges
+    between them; those of a backward (the int8 dx of a column-parallel
+    GEMM) are not simulated and raise.
 
     ``sequence``: sequence parallelism (``tensor_parallel`` with the token
     split and gather).  The ranks' token slices are held in rank order in
@@ -8124,26 +8202,59 @@ def two_shards(model, degree: int = TP_DEGREE, sequence: bool = False):
     the slices, and ``g`` (the reduce-scatter) is the shards' sum, taken
     where each shard's output is added, cut into the ranks' slices and
     joined; so LoRA A runs on the gathered tokens, the row-parallel bias is
-    added after ``g``, and the model's sequence-parallel branches run.
-    Otherwise ``f`` and ``g`` are the identity."""
+    added after ``g``, and the model's sequence-parallel branches run (the
+    deep prompts replace their rows of the joined sequence).  Otherwise
+    ``f`` and ``g`` are the identity."""
+    import threading
+
     from torch.func import functional_call
 
     from peft_vit_tpu_torch.models import layers
     from peft_vit_tpu_torch.parallel import tp_cut, tp_slice
 
     names = {id(m): n for n, m in model.named_modules()}
+    # each shard's own copy of every attention and MLP (functional_call
+    # swaps a module's tensors while it runs); the cut leaves replace all of
+    # its tensors, so the copies hold none
+    copies = {id(m): [copy.deepcopy(m).to_empty(device="meta") for _ in range(degree)]
+              for m in model.modules() if isinstance(m, (layers.MultiHeadAttention, layers.Mlp))}
+    comm = _ShardComm(degree)
     saved = layers.MultiHeadAttention.forward, layers.Mlp.forward
 
     def sharded(forward, row_bias: str):
         def run(self, x, *args, **kwargs):
             prefix = names[id(self)]
+            tensors = [*self.named_parameters(), *self.named_buffers()]
+            outs, errors = [None] * degree, []
+            grad = torch.is_grad_enabled()
+            comm._barrier.reset()
+
+            def shard(r):
+                comm._local.rank = r
+                try:
+                    with torch.set_grad_enabled(grad):
+                        cut = {f"m.{k}": tp_slice(t, tp_cut(f"{prefix}.{k}", tuple(t.shape)), r,
+                                                  degree) for k, t in tensors}
+                        if r:
+                            cut[f"m.{row_bias}"] = torch.zeros_like(cut[f"m.{row_bias}"])
+                        mod = copies[id(self)][r].train(self.training)
+                        outs[r] = functional_call(_Shard(mod, forward), cut, (x, *args), kwargs)
+                except BaseException as e:  # re-raised below, after the other shards stop
+                    errors.append(e)
+                    comm._barrier.abort()
+                finally:
+                    del comm._local.rank
+
+            threads = [threading.Thread(target=shard, args=(r,)) for r in range(degree)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if errors:
+                raise errors[0]
             total = 0
-            for r in range(degree):
-                cut = {f"m.{k}": tp_slice(p, tp_cut(f"{prefix}.{k}", tuple(p.shape)), r, degree)
-                       for k, p in self.named_parameters()}
-                if r:
-                    cut[f"m.{row_bias}"] = torch.zeros_like(cut[f"m.{row_bias}"])
-                total = total + functional_call(_Shard(self, forward), cut, (x, *args), kwargs)
+            for o in outs:
+                total = total + o
             return total
         return run
 
@@ -8154,7 +8265,7 @@ def two_shards(model, degree: int = TP_DEGREE, sequence: bool = False):
     layers.MultiHeadAttention.forward = sharded(saved[0], "out_proj.bias")
     layers.Mlp.forward = sharded(saved[1], "c_proj.bias")
     try:
-        with layers.tensor_parallel(*fns):
+        with layers.tensor_parallel(*fns, comm=comm):
             yield
     finally:
         layers.MultiHeadAttention.forward, layers.Mlp.forward = saved
@@ -8644,6 +8755,387 @@ def seqpipe_phase(smi: str, device: str = "cuda") -> dict:
     return out
 
 
+# Tensor and sequence parallelism under the hooks and int8 (phase 22).
+# K6's K-cut form at the halves of the GEMMs whose K a model degree of 2 cuts:
+# (name, the whole K, N, the cut of K); the dx products of in_proj and c_fc
+# contract over their forward's cut N (in_proj's the rank's heads of q, k, v)
+TPH_BATCH = 16
+KCUT_M = TPH_BATCH * N_TOKENS  # 3,152
+KCUT_GEMMS = (("out_proj", WIDTH, WIDTH, "cols"), ("c_proj", 4 * WIDTH, WIDTH, "cols"),
+              ("in_proj dx", 3 * WIDTH, WIDTH, "qkv_cols"), ("c_fc dx", 4 * WIDTH, WIDTH, "cols"))
+KCUT_TIMED = ("out_proj", "c_proj")  # the K-cut forms the row-parallel forward runs
+TPH_MODEL = {}  # ViT-B/16 at its 12 blocks; a rehearsal on the CPU shrinks it
+TPH_PROMPTS = 1  # PEFT.PROMPT_TOKENS: 197 + 1 = 198 tokens, 99 a shard between the regions
+TPH_LORA = dict(attn_delta="lora", lora_rank=LORA_RANK, lora_alpha=128.0, lora_post_scale_q=True)
+# hook: (the PEFTSpec fields beside the prompt, the mask's method, the int8
+# recipe (static scales, int8 attention) or None: no int8); every model has
+# the prompt token, which trains (the mask's extra), so that 198 tokens split
+TPH_HOOKS = {
+    "vpt shallow": ({}, "vpt", None),
+    "vpt deep": (dict(prompt_deep=True), "vpt", None),
+    "adapter": (dict(adapter="houlsby"), "adapter", None),
+    "adapterdrop": (dict(adapter="houlsby", adapter_layers=(-1,)), "adapterdrop", None),
+    "compacter": (dict(adapter="compacter"), "compacter", None),
+    "kadaptation": (dict(attn_delta="kron"), "kadaptation", None),
+    "shared_qkv": (dict(TPH_LORA, attn_adapter="shared_qkv"), "lora", None),
+    "lepe": (dict(lepe=True), "lepe", None),
+    "rpb": (dict(attn_bias="rpb"), "rpb", None),
+    "lora_ref_reshape": (dict(TPH_LORA, lora_ref_reshape=True), "lora", None),
+    "int8 attention": (TPH_LORA, "lora", (True, True)),
+    "int8 static": (TPH_LORA, "lora", (True, False)),
+    "int8 dynamic": (TPH_LORA, "lora", (False, False)),
+}
+TPH_SPIED = "rpb"  # whose shards' operands K1-K3 and K7 are held on (bf16)
+# int8 through the shards against the unsplit int8 model: each GEMM equals the
+# unsplit one when its codes do, but the shards' upstream sums (LoRA B's rows,
+# the split LayerNorm and attention inputs) may round another way and flip a
+# code at a .5 boundary, as two devices do: the int8 bounds (PERF.md §2)
+TOL_TPH_INT8_REL = {torch.bfloat16: TOL_TP_LOGITS_REL[torch.bfloat16],
+                    torch.float32: TOL_INT8_F32_LOGITS_REL}
+
+
+def kcut_kernel_check(smi: str) -> dict:
+    """K6's K-cut form and the partial row absmax against their plain
+    versions, equal, and the two halves' int32 route against the unsplit
+    K6 bit for bit, at ``KCUT_GEMMS`` (M = ``KCUT_M``), bf16 and fp32,
+    dynamic and static; then the times of ``KCUT_TIMED`` (bf16)."""
+    from peft_vit_tpu_torch.ops import int8 as i8
+    from peft_vit_tpu_torch.parallel import tp_slice
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 270)
+
+    def rand(shape, dtype=torch.float32, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+
+    out = {"max_abs_err": {"partial": 0.0, "absmax": 0.0}, "rows": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for name, k, n, cut in KCUT_GEMMS:
+            x = rand((KCUT_M, k), dtype)
+            w_i8, s_w = i8.quantize_cols(rand((n, k), std=k**-0.5))
+            s_x = x.float().abs().max() * 1.5 / 127.0
+            halves = [(tp_slice(x, cut, r, TP_DEGREE), tp_slice(w_i8, cut, r, TP_DEGREE))
+                      for r in range(TP_DEGREE)]
+            amax = [i8.int8_row_absmax(xr) for xr, _ in halves]
+            s = i8.row_scales(functools.reduce(torch.maximum, amax))
+            acc = [i8.int8_gemm_partial(xr, wr, s_rows=s) for xr, wr in halves]
+            acc_st = [i8.int8_gemm_partial(xr, wr, s_x=s_x) for xr, wr in halves]
+            torch.cuda.synchronize()
+            errs = {"absmax": max((a - i8._row_absmax_plain(xr)).abs().max().item()
+                                  for a, (xr, _) in zip(amax, halves)),
+                    "partial": max((a - i8._partial_plain(xr, wr, s, None)).abs().max().item()
+                                   for a, (xr, wr) in zip(acc, halves))}
+            errs["partial"] = max(errs["partial"], max(
+                (a - i8._partial_plain(xr, wr, None, s_x)).abs().max().item()
+                for a, (xr, wr) in zip(acc_st, halves)))
+            for key in errs:
+                out["max_abs_err"][key] = max(out["max_abs_err"][key], errs[key])
+            check(errs["absmax"] == 0.0 and errs["partial"] == 0.0,
+                  f"int8 K-cut {tag} {name} M={KCUT_M} K={k // TP_DEGREE} a half of {k}, N={n}: "
+                  f"the partial row absmax and the int32 K-cut form (row scales, static) == "
+                  f"their plain versions (max abs err {errs['absmax']:.3e}, {errs['partial']:.3e})")
+            route = i8._rescale(acc[0] + acc[1], s.unsqueeze(-1), s_w, dtype)
+            route_st = i8._rescale(acc_st[0] + acc_st[1], s_x, s_w, dtype)
+            whole, whole_st = i8.int8_gemm_dynamic(x, w_i8, s_w), i8.int8_gemm_static(
+                x, w_i8, s_w, s_x)
+            local = sum(int((i8.quantize_rows(xr)[0] != torch.round(
+                xr.float() / s.unsqueeze(-1)).to(torch.int8)).sum()) for xr, _ in halves)
+            check(torch.equal(route, whole) and torch.equal(route_st, whole_st) and local > 0,
+                  f"int8 K-cut {tag} {name}: the two halves' int32 route (the global row scale, "
+                  f"the int32 sum, the rescale) == the unsplit K6 bit for bit, dynamic and "
+                  f"static; the rank-local row scale flips {local} of {x.numel()} codes")
+            if dtype != torch.bfloat16 or name not in KCUT_TIMED:
+                continue
+            xr, wr = halves[0]
+            w_t = wr.t()  # (K, N) column-major: torch._int_mm's operand
+            m, kr = xr.shape
+
+            def library(xr=xr, w_t=w_t):
+                return torch._int_mm(torch.round(xr.float() / s.unsqueeze(-1)).to(torch.int8),
+                                     w_t)
+
+            by = m * kr * 2 + n * kr + m * 4 + m * n * 4, 2 * m * kr * n
+            row = {"gemm": name, "M": m, "K": kr, "N": n,
+                   "ms": _device_ms(lambda: i8.int8_gemm_partial(xr, wr, s_rows=s), 40),
+                   "static_ms": _device_ms(lambda: i8.int8_gemm_partial(xr, wr, s_x=s_x), 40),
+                   "plain_ms": _device_ms(lambda: i8._partial_plain(xr, wr, s, None), 5, 3),
+                   "library_ms": _device_ms(library, 40),
+                   "absmax_ms": _device_ms(lambda: i8.int8_row_absmax(xr), 100),
+                   "absmax_plain_ms": _device_ms(lambda: i8._row_absmax_plain(xr), 100),
+                   "absmax_library_ms": _device_ms(
+                       lambda: torch.linalg.vector_norm(xr, float("inf"), dim=-1,
+                                                        dtype=torch.float32), 100)}
+            row["bound_ms"] = max(by[0] / HBM_BYTES_PER_S, by[1] / INT8_OPS_PER_S) * 1e3
+            row["bound_by"] = "bytes" if by[0] / HBM_BYTES_PER_S >= by[1] / INT8_OPS_PER_S \
+                else "operations"
+            row["absmax_bound_ms"] = (m * kr * 2 + m * 4) / HBM_BYTES_PER_S * 1e3
+            out["rows"].append(row)
+            print("int8 K-cut timing " + " ".join(
+                f"{key}={val:.6f}" if isinstance(val, float) else f"{key}={val}"
+                for key, val in row.items()) + f" ({smi})", flush=True)
+    return out
+
+
+def _tph_model(hook: str, dtype, device):
+    """ViT-B/16 (``TPH_MODEL`` in a rehearsal) with ``TPH_PROMPTS`` prompt
+    tokens and ``hook``, from ``SEED`` (every zero leaf redrawn at 0.02 so
+    that each acts): the model, its trainable leaves (the hook's, the
+    prompt's, the head's) and the frozen tensors its step takes (the int8
+    tree and the whole model's static scales)."""
+    from peft_vit_tpu_torch.engine import make_apply_fn
+    from peft_vit_tpu_torch.engine.train import calibrate
+    from peft_vit_tpu_torch.models import ImageClassifier, VisionTransformer
+    from peft_vit_tpu_torch.ops.int8 import quantize_frozen_tree
+    from peft_vit_tpu_torch.peft import PEFTSpec, build_mask, split_params
+
+    fields, method, int8 = TPH_HOOKS[hook]
+    dims = {"width": WIDTH, "layers": 12, "heads": HEADS, "image": IMAGE, **TPH_MODEL}
+    fields = dict(fields)
+    if "adapter_layers" in fields:  # AdapterDrop on the last block
+        fields["adapter_layers"] = (dims["layers"] - 1,)
+    torch.manual_seed(SEED + 271)
+    model = ImageClassifier(
+        VisionTransformer(image_size=dims["image"], patch_size=PATCH, width=dims["width"],
+                          layers=dims["layers"], heads=dims["heads"], output_dim=OUTPUT_DIM,
+                          spec=PEFTSpec(method=method, prompt_tokens=TPH_PROMPTS, **fields),
+                          int8_train=int8 is not None, int8_attn=bool(int8 and int8[1]),
+                          dtype=dtype, device=device),
+        num_classes=NUM_CLASSES, dtype=dtype, device=device)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.abs().sum():
+                p.normal_(0.0, 0.02)
+    mask = build_mask(model, method, num_layers=dims["layers"], extra_regex="prompt_embeddings")
+    trainable, frozen = split_params(model, mask)
+    extra = {}
+    if int8 is not None:
+        extra = quantize_frozen_tree(frozen)
+    if int8 is not None and int8[0]:
+        rng = np.random.RandomState(SEED + 272)
+        xc = torch.from_numpy(rng.standard_normal((TPH_BATCH, dims["image"], dims["image"], 3))
+                              .astype(np.float32)).to(device)
+        extra.update(calibrate(model, make_apply_fn(model), dict(trainable), xc.to(dtype), 1.5))
+    return model, trainable, extra
+
+
+def _hold_bias_grad(label: str, calls: list) -> float:
+    """K7 on the operands of each spied attention with a bias (the shards'
+    heads of RPB's table): against its plain version within
+    ``TOL_DBIAS_REL`` of each cell's largest sum over its batch of |ds|."""
+    from peft_vit_tpu_torch.ops import attention as attn
+
+    worst = 0.0
+    for c in calls:
+        q, k, v, do, bias = c["q"], c["k"], c["v"], c["do"], c["bias"]
+        o, lse = attn.flash_attention_fwd(q, k, v, bias, c["scale"], return_lse=True)
+        _, delta = attn.flash_attention_bwd_dq(q, k, v, do, lse, o, c["scale"], bias)
+        got = attn.attention_bias_grad(q, k, v, do, lse, c["scale"], bias, delta=delta)
+        want = attn._bias_grad_plain(q, k, v, do, lse, c["scale"], bias, delta=delta)
+        scale = _dbias_scale(attn, q, k, v, do, lse, delta, bias, c["scale"])
+        err = ((got.float() - want.float()).abs().reshape(scale.shape[0], -1).amax(1)
+               / scale).max().item()
+        worst = max(worst, err)
+    check(worst <= TOL_DBIAS_REL,
+          f"{label}: K7 on the operands of the {len(calls)} shards' attention {tuple(calls[0]['q'].shape)} "
+          f"with the shards' heads of the table: max abs err / the cell's max sum_b |ds| "
+          f"{worst:.3e} <= {TOL_DBIAS_REL:g}")
+    return worst
+
+
+@contextlib.contextmanager
+def adapter_relu_signs(model, signs: dict, replay: bool = False):
+    """Within, every ReLU ``layers.Adapter`` of ``model`` (the shared qkv
+    adapter, a Houlsby adapter with ``act`` relu) records the sign mask of
+    its pre-activation at each call into ``signs``, keyed by the module's
+    name, the shard (``two_shards``' thread, None outside the shards) and
+    the call's order; with ``replay`` the whole model takes the recorded
+    masks instead of its own (the shards' heads joined in rank order).  A
+    pre-activation within a last bit of 0 may take the other sign in the
+    shards, whose GEMMs sum in other orders, and each such flip moves a
+    weight gradient by one row's whole outer product: the replay puts both
+    runs on the same branch of the ReLU, so that the gradients can be held
+    to the fp32 bound."""
+    import threading
+
+    from peft_vit_tpu_torch.models import layers
+
+    for name, m in model.named_modules():
+        if isinstance(m, layers.Adapter):
+            m.relu_name = name  # carried into two_shards' copies
+    calls, lock, saved = {}, threading.Lock(), layers.Adapter.forward
+
+    def forward(self, m):
+        if self.act is not torch.nn.functional.relu:
+            return saved(self, m)
+        h = self.down(self.adapter_norm_before(m))
+        comm = getattr(layers._TP, "comm", None)
+        shard = getattr(getattr(comm, "_local", None), "rank", None)
+        with lock:
+            i = calls.get((self.relu_name, shard), 0)
+            calls[(self.relu_name, shard)] = i + 1
+        if replay:
+            parts = [signs[(self.relu_name, r, i)] for r in range(TP_DEGREE)
+                     if (self.relu_name, r, i) in signs] or [signs[(self.relu_name, None, i)]]
+            return self.up(h * torch.cat(parts, dim=1).to(h.dtype)) + m
+        signs[(self.relu_name, shard, i)] = h.detach() > 0
+        return self.up(self.act(h)) + m
+
+    layers.Adapter.forward = forward
+    try:
+        yield signs
+    finally:
+        layers.Adapter.forward = saved
+
+
+def _sign_flips(whole: dict, shards: dict) -> Tuple[int, int]:
+    """The pre-activations whose ReLU sign differs between the whole model's
+    run and the shards' (``adapter_relu_signs``), and their count."""
+    flips = total = 0
+    for (name, shard, i), mask in whole.items():
+        parts = [shards[(name, r, i)] for r in range(TP_DEGREE) if (name, r, i) in shards] \
+            or [shards[(name, None, i)]]
+        flips += int((torch.cat(parts, dim=1) != mask).sum())
+        total += mask.numel()
+    return flips, total
+
+
+def hooks_shard_check(smi: str, device: str) -> dict:
+    """Each of ``TPH_HOOKS`` on ViT-B/16 with one prompt token at B =
+    ``TPH_BATCH``, bf16 and fp32: the whole model, then two tensor-parallel
+    and two sequence-parallel shards (``two_shards``), one forward and
+    backward of the mean cross-entropy each: the logits within
+    ``TOL_TP_LOGITS_REL`` of the whole model's (int8: ``TOL_TPH_INT8_REL``),
+    every fp32 trainable gradient within ``TOL_TP_GRAD_REL`` (int8: the int8
+    bound), K1-K3 and K7 twice the whole model's launches (``launch_rule``),
+    and for the int8 static recipe K6's forms once a shard and GEMM (the
+    column-parallel GEMMs the static kernel, the row-parallel ones the K-cut
+    form).  On ``TPH_SPIED``'s bf16 shards K1-K3 (``hold_step_attention``) and
+    K7 (``_hold_bias_grad``) are held on the shards' operands."""
+    from peft_vit_tpu_torch.engine import ce_per_example, make_apply_fn
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.ops import launch_counts
+    from peft_vit_tpu_torch.ops import int8 as i8
+    from peft_vit_tpu_torch.peft import merge_params
+
+    on_card = device == "cuda"
+    image = TPH_MODEL.get("image", IMAGE)
+    rng = np.random.RandomState(SEED + 273)
+    x = torch.from_numpy(rng.standard_normal((TPH_BATCH, image, image, 3)).astype(np.float32)
+                         ).to(device)
+    y = torch.from_numpy(rng.randint(0, NUM_CLASSES, TPH_BATCH)).to(device)
+    out, kernel_launches = {}, {}
+    attn_keys = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "attention_bias_grad")
+    for hook, (_, _, int8) in TPH_HOOKS.items():
+        row = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+            model, trainable, extra = _tph_model(hook, dtype, device)
+            layers = model.backbone.layers
+            apply_fn = make_apply_fn(model)
+            model.train(True)
+            leaves = list(trainable.values())
+            got, signs = {}, {}
+
+            def forward_backward():
+                logits = apply_fn(merge_params(trainable, extra), x.to(dtype), True)
+                # AdapterDrop's skipped adapters and KAdaptation's phmb are never read
+                return logits, torch.autograd.grad(ce_per_example(logits.float(), y).mean(),
+                                                   leaves, allow_unused=True)
+
+            for mode in ("whole", "tp", "sp"):
+                ctx = (two_shards(model, sequence=mode == "sp") if mode != "whole"
+                       else contextlib.nullcontext())
+                spied = (attention_spy() if hook == TPH_SPIED and mode != "whole"
+                         and dtype == torch.bfloat16 else contextlib.nullcontext([]))
+                signs[mode] = {}
+                before = launch_counts()
+                with ctx, spied as calls, adapter_relu_signs(model, signs[mode]):
+                    logits, grads = forward_backward()
+                counts = {n: c - before[n] for n, c in launch_counts().items()}
+                got[mode] = (logits.detach().float(), grads, counts)
+                if signs[mode] and mode != "whole" and dtype == torch.float32:
+                    # the whole model again on the shards' ReLU signs: the
+                    # gradients' reference (``adapter_relu_signs``)
+                    with adapter_relu_signs(model, signs[mode], replay=True):
+                        got[f"{mode} signs"] = forward_backward()[1]
+                if calls and on_card:
+                    label = f"{hook} {mode} {tag}: the two shards'"
+                    row[f"kernel_err_{mode}"] = hold_step_attention(attn, label + " attention",
+                                                                    calls)
+                    row[f"k7_err_{mode}"] = _hold_bias_grad(label + " RPB", calls)
+                del calls
+            whole = got["whole"]
+            rule = {k: n for k, n in launch_rule(model, trainable, int8_attn=bool(
+                int8 and int8[1])).items() if k in attn_keys}
+            for mode in ("tp", "sp"):
+                logits, grads, counts = got[mode]
+                rel = ((logits - whole[0]).abs().max() / whole[0].abs().max()).item()
+                tol = (TOL_TPH_INT8_REL if int8 is not None else TOL_TP_LOGITS_REL)[dtype]
+                want = {k: TP_DEGREE * n for k, n in rule.items()}
+                if int8 is not None:  # K6 once a shard and GEMM of the forward
+                    gemms = TP_DEGREE * 2 * layers  # the column- and the row-parallel pairs
+                    want.update({"int8_gemm_static": gemms if int8[0] else 0,
+                                 "int8_gemm_dynamic": 0 if int8[0] else gemms,
+                                 "int8_gemm_partial": gemms,
+                                 "int8_row_absmax": 0 if int8[0] else gemms})
+                seen = {k: counts.get(k, 0) for k in want}
+                launches_ok = not on_card or (seen == want and {
+                    k: whole[2].get(k, 0) for k in rule} == rule)
+                check(rel <= tol and bool(torch.isfinite(logits).all()) and launches_ok,
+                      f"{hook} {mode} {tag}: ViT-B/16 ({layers} blocks, {TPH_PROMPTS} prompt "
+                      f"token) as {TP_DEGREE} {'sequence' if mode == 'sp' else 'tensor'}-parallel "
+                      f"shards against the whole model: max |logit diff| / max |logit| "
+                      f"{rel:.3e} <= {tol:g}; launches {seen} == {want} (the whole model's "
+                      f"{rule} a shard)")
+                row[f"{mode}_{tag}"] = {"logits_rel": rel, "launches": counts}
+                if dtype == torch.float32:
+                    ref = got.get(f"{mode} signs", whole[1])
+                    used = [(a, b) for a, b in zip(grads, ref) if b is not None]
+                    same_unused = all((a is None) == (b is None) for a, b in zip(grads, ref))
+                    worst = _grad_rel(*zip(*used)) if same_unused else float("inf")
+                    gtol = TOL_TPH_INT8_REL[dtype] if int8 is not None else TOL_TP_GRAD_REL
+                    note = ""
+                    if f"{mode} signs" in got:
+                        flips, total = _sign_flips(signs["whole"], signs[mode])
+                        own = _grad_rel(*zip(*[(a, b) for a, b in zip(grads, whole[1])
+                                               if b is not None]))
+                        note = (f" run on the shards' ReLU signs (its own differ at {flips} of "
+                                f"the adapters' {total} pre-activations; against its own signs "
+                                f"{own:.3e})")
+                        row[f"{mode}_{tag}"].update(relu_flips=flips, grad_rel_own_signs=own)
+                    check(worst <= gtol,
+                          f"{hook} {mode} fp32: the {len(leaves)} trainable leaves' gradients "
+                          f"through the shards against the whole model's{note}: max |diff| / "
+                          f"max |whole| {worst:.3e} <= {gtol:g}")
+                    row[f"{mode}_{tag}"]["grad_rel"] = worst
+                else:  # the phase's main path: the bf16 shards' launches
+                    for k, n in counts.items():
+                        kernel_launches[k] = kernel_launches.get(k, 0) + n
+            del model, trainable, extra, got, whole, signs
+            gc_collect(on_card)
+        out[hook] = row
+        print(f"tphooks {hook}: " + "; ".join(
+            f"{k} logits {v['logits_rel']:.3e}" + (f" grads {v['grad_rel']:.3e}"
+                                                   if "grad_rel" in v else "")
+            + (f" (ReLU flips {v['relu_flips']}, own signs {v['grad_rel_own_signs']:.3e})"
+               if "relu_flips" in v else "")
+            for k, v in row.items() if isinstance(v, dict) and "logits_rel" in v)
+            + f" ({smi})", flush=True)
+    out["launches"] = kernel_launches
+    return out
+
+
+def tphooks_phase(smi: str, device: str = "cuda") -> dict:
+    """Phase 22 (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {"kcut": kcut_kernel_check(smi) if device == "cuda" else {},
+           "hooks": hooks_shard_check(smi, device)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"tphooks phase: {out['seconds']:.1f} s (host clock; {smi})", flush=True)
+    return out
+
+
 def gc_collect(on_card: bool) -> None:
     import gc
 
@@ -8845,6 +9337,7 @@ def main() -> int:
     clip = _timed(clip_phase, smi)
     mc = _timed(multichip_phase, smi)
     sp = _timed(seqpipe_phase, smi)
+    tph = _timed(tphooks_phase, smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
@@ -8972,6 +9465,42 @@ def main() -> int:
             "int_mm_ms": row["int_mm_ms"],
             "linear_bf16_ms": row["linear_bf16_ms"],
         })
+    # K6's K-cut form and the partial row absmax (phase 22): their path is the
+    # row-parallel int8 GEMMs of the shards; the times at c_proj's half (K =
+    # 1,536), out_proj's beside them
+    kcut = {r["gemm"]: r for r in tph["kcut"]["rows"]}
+    for name, prefix, err in (("int8_gemm_partial", "", "partial"),
+                              ("int8_row_absmax", "absmax_", "absmax")):
+        row = kcut["c_proj"]
+        lines.append({
+            "name": name,
+            "route": "cuda",
+            "source": "peft_vit_tpu_torch/csrc/int8_gemm.cu",
+            "replaces": "peft_vit_tpu/ops/int8.py:110",
+            "replaces_note": (
+                "K6 under tensor parallelism: " + ("its K-cut form (the codes at the model "
+                                                   "group's row scales or the static scale, "
+                                                   "the int32 accumulator out)"
+                                                   if not prefix else
+                                                   "its row-quantize prologue's absmax alone, "
+                                                   "the rank's part of a row scale")),
+            "launches": tph["hooks"]["launches"].get(name, 0),
+            "max_abs_err": tph["kcut"]["max_abs_err"][err],
+            "batch": TPH_BATCH,
+            "shape": {"gemm": "c_proj", "M": row["M"], "K": row["K"], "N": row["N"]},
+            "ms": row[f"{prefix}ms"],
+            "plain_ms": row[f"{prefix}plain_ms"],
+            "bound_ms": row[f"{prefix}bound_ms"],
+            "bound_by": row["bound_by"] if not prefix else "bytes",
+            "library_ms": row[f"{prefix}library_ms"],
+            "library_computes": ("the codes at the row scales in PyTorch + torch._int_mm"
+                                 if not prefix else
+                                 "torch.linalg.vector_norm(x, inf, dim=-1, dtype=float32)"),
+            "out_proj": {k: kcut["out_proj"][f"{prefix}{k}"] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")} | {"K": kcut["out_proj"]["K"]},
+        })
+        if not prefix:
+            lines[-1]["static_ms"] = row["static_ms"]
     for name, key, line in (("fused_short_attn_fwd", "fwd", 643),
                             ("fused_short_attn_bwd", "bwd", 673)):
         row = fused[key][FUSED_KERNEL_LINE_BATCH]
@@ -9031,6 +9560,9 @@ def main() -> int:
         line["launches_sp_two_shards"] = sp["sp"]["bf16"]["launches_step"].get(name, 0)
         line["launches_stacked"] = sp["stacked"]["stacked"]["per_replay"].get(name, 0)
         line["launches_gpipe"] = sp["pp"]["bf16"]["launches_step"].get(name, 0)
+        # phase 22: ViT-B/16 with a prompt token under every hook and int8 as
+        # two tensor- and two sequence-parallel shards, forward and backward
+        line["launches_tp_hooks"] = tph["hooks"]["launches"].get(name, 0)
         key = {"flash_attn_bwd_dq": "dq", "flash_attn_bwd_dkv": "dkv",
                "flash_attn_fwd": "fwd"}.get(line["name"])
         if key is not None:

@@ -70,10 +70,24 @@
 // device memory.
 //
 // Shapes taken: K a multiple of 64 up to 3072, N a multiple of 64.
+//
+// The K-cut form (tensor parallelism, int8_gemm_partial): where K is cut over
+// the ranks of a model group, each rank holds x (M, K / R) and w_i8's
+// columns of its K, and the unsplit codes need each row's scale over the
+// whole K.  So the rank's partial row absmax comes from int8_row_absmax
+// below (the prologue's absmax loop alone, one warp a row), the caller takes
+// the group's maximum and the scales, and the same kernel quantizes at those
+// given row scales (or the static scale) and writes the int32 accumulators
+// without the rescale: template parameters of the kernel above, the scale
+// read per row and the epilogue storing acc.  The ranks' int32 sums are
+// exact, and the rescale after the sum is the unsplit kernel's, so the
+// result equals the unsplit GEMM bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sm90_common.cuh"
 #include "wgmma_sm90.cuh"
@@ -159,6 +173,31 @@ __device__ __forceinline__ uint32_t pack4(int q0, int q1, int q2, int q3) {
          ((static_cast<uint32_t>(q2) & 0xffu) << 16) | (static_cast<uint32_t>(q3) << 24);
 }
 
+// How a row's codes take their scale: from the row's absmax (the dynamic
+// quantize), from one static scale, or from a given per-row scale (the K-cut
+// form, the scale over the whole K).
+constexpr int kScaleDynamic = 0;
+constexpr int kScaleStatic = 1;
+constexpr int kScaleRows = 2;
+
+// max |x[k]| over the row xr of K values, in every lane of the warp; lane
+// takes the 8-value chunks lane, lane + 32, ...
+template <typename T>
+__device__ __forceinline__ float warp_row_absmax(const T* xr, int K, int lane) {
+  float amax = 0.0f;
+  for (int c = lane; c < K / 8; c += 32) {
+    float v[8];
+    Io<T>::load8(xr + c * 8, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[i]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  }
+  return amax;
+}
+
 template <bool kStatic>
 __device__ __forceinline__ int quantize(float v, float scale) {
   if (kStatic) {
@@ -178,11 +217,15 @@ __device__ __forceinline__ void tma_load_weight(void* dst, const CUtensorMap* ma
       : "memory");
 }
 
-template <typename T, bool kStatic>
+// kScale: kScaleDynamic, kScaleStatic (s_x one scale) or kScaleRows (s_x
+// one scale a row); kRaw: out is the int32 accumulator (M, N), not rescaled.
+template <typename T, int kScale, bool kRaw>
 __global__ void __launch_bounds__(kThreads, 2)
 int8_gemm_kernel(const __grid_constant__ CUtensorMap tw, const T* __restrict__ x,
                  const float* __restrict__ s_w, const float* __restrict__ s_x,
-                 T* __restrict__ out, int M, int K, int N) {
+                 typename std::conditional<kRaw, int, T>::type* __restrict__ out, int M, int K,
+                 int N) {
+  constexpr bool kStatic = kScale == kScaleStatic;
   extern __shared__ uint8_t smem_raw[];
   const int stages = ring_stages(K);
   const int slabs = code_slabs(K);
@@ -254,19 +297,10 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap tw, const T* __restrict__ x
     }
     const T* xr = x + static_cast<size_t>(row) * K;
     float scale = static_scale;
-    if (!kStatic) {
-      float amax = 0.0f;
-      for (int c = lane; c < K / 8; c += 32) {
-        float v[8];
-        Io<T>::load8(xr + c * 8, v);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[i]));
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-      }
-      scale = fmaxf(amax / 127.0f, 1e-8f);
+    if (kScale == kScaleDynamic) {
+      scale = fmaxf(warp_row_absmax(xr, K, lane) / 127.0f, 1e-8f);
+    } else if (kScale == kScaleRows) {
+      scale = s_x[row];  // |x| <= the whole row's absmax: no clip needed
     }
     if (lane == 0) sScale[r] = scale;
     for (int c = lane; c < K / 8; c += 32) {
@@ -346,8 +380,20 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap tw, const T* __restrict__ x
       const int r = row0 + 8 * h;
       const int row = m0 + r;
       if (row >= M) continue;
+      if (kRaw) {  // the int32 accumulators as they are
+        int* arow = reinterpret_cast<int*>(out) + static_cast<size_t>(row) * N;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int col = n0 + wg * 64 + 8 * i + 2 * t;
+          if (col < N) {
+            *reinterpret_cast<int2*>(arow + col) =
+                make_int2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+          }
+        }
+        continue;
+      }
       const float sx = sScale[r];
-      T* orow = out + static_cast<size_t>(row) * N;
+      T* orow = reinterpret_cast<T*>(out) + static_cast<size_t>(row) * N;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int col = n0 + wg * 64 + 8 * i + 2 * t;
@@ -398,10 +444,11 @@ bool encode_weight(CUtensorMap* map, const void* w, int K, int N) {
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, bool kStatic>
+template <typename T, int kScale, bool kRaw>
 int launch(int device, const void* x, const void* w, const void* s_w, const void* s_x, void* out,
            int M, int K, int N, cudaStream_t stream) {
-  auto kernel = int8_gemm_kernel<T, kStatic>;
+  using Out = typename std::conditional<kRaw, int, T>::type;
+  auto kernel = int8_gemm_kernel<T, kScale, kRaw>;
   const int smem = smem_bytes(K);
   // the attribute belongs to the device, so it is set on every launch
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -420,9 +467,20 @@ int launch(int device, const void* x, const void* w, const void* s_w, const void
   const dim3 grid(row_tiles, pick_shares(row_tiles, n_tiles, sms * per_sm));
   kernel<<<grid, kThreads, smem, stream>>>(tw, static_cast<const T*>(x),
                                            static_cast<const float*>(s_w),
-                                           static_cast<const float*>(s_x), static_cast<T*>(out),
+                                           static_cast<const float*>(s_x), static_cast<Out*>(out),
                                            M, K, N);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One warp a row, eight rows a block.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+int8_row_absmax_kernel(const T* __restrict__ x, float* __restrict__ amax, int M, int K) {
+  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const float a = warp_row_absmax(x + static_cast<size_t>(row) * K, K, lane);
+  if (lane == 0) amax[row] = a;
 }
 
 bool takes(int K, int N) {
@@ -445,11 +503,57 @@ extern "C" int int8_gemm(int device, const void* x, const void* w_i8, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return s_x != nullptr
-               ? launch<__nv_bfloat16, true>(device, x, w_i8, s_w, s_x, out, M, K, N, s)
-               : launch<__nv_bfloat16, false>(device, x, w_i8, s_w, s_x, out, M, K, N, s);
+               ? launch<__nv_bfloat16, kScaleStatic, false>(device, x, w_i8, s_w, s_x, out, M, K,
+                                                            N, s)
+               : launch<__nv_bfloat16, kScaleDynamic, false>(device, x, w_i8, s_w, s_x, out, M,
+                                                             K, N, s);
   }
-  return s_x != nullptr ? launch<float, true>(device, x, w_i8, s_w, s_x, out, M, K, N, s)
-                        : launch<float, false>(device, x, w_i8, s_w, s_x, out, M, K, N, s);
+  return s_x != nullptr
+             ? launch<float, kScaleStatic, false>(device, x, w_i8, s_w, s_x, out, M, K, N, s)
+             : launch<float, kScaleDynamic, false>(device, x, w_i8, s_w, s_x, out, M, K, N, s);
+}
+
+// The K-cut form: the codes of x at the given scales s (one fp32 a row, or
+// with is_static one fp32 for every row, on the device), their int32
+// products with w_i8 into out (M, N) int32, not rescaled.  Operands as
+// int8_gemm's; out 16-byte aligned.
+extern "C" int int8_gemm_partial(int device, const void* x, const void* w_i8, const void* s,
+                                 void* out, int M, int K, int N, int is_bf16, int is_static,
+                                 void* stream) {
+  if (M <= 0 || !takes(K, N) || s == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return is_static
+               ? launch<__nv_bfloat16, kScaleStatic, true>(device, x, w_i8, nullptr, s, out, M,
+                                                           K, N, st)
+               : launch<__nv_bfloat16, kScaleRows, true>(device, x, w_i8, nullptr, s, out, M, K,
+                                                         N, st);
+  }
+  return is_static
+             ? launch<float, kScaleStatic, true>(device, x, w_i8, nullptr, s, out, M, K, N, st)
+             : launch<float, kScaleRows, true>(device, x, w_i8, nullptr, s, out, M, K, N, st);
+}
+
+// max |x[m, k]| over k of x (M, K) bf16 (is_bf16 = 1) or fp32, contiguous
+// and 16-byte aligned, into amax (M,) fp32: the rank's partial row absmax of
+// the K-cut form.  K % 8 == 0.
+extern "C" int int8_row_absmax(int device, const void* x, void* amax, int M, int K, int is_bf16,
+                               void* stream) {
+  if (M <= 0 || K <= 0 || K % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((M + kThreads / 32 - 1) / (kThreads / 32));
+  if (is_bf16) {
+    int8_row_absmax_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<float*>(amax), M, K);
+  } else {
+    int8_row_absmax_kernel<float><<<grid, kThreads, 0, st>>>(static_cast<const float*>(x),
+                                                            static_cast<float*>(amax), M, K);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The dynamic shared memory a block takes at this K, and the weight ring's

@@ -70,12 +70,16 @@ ZeRO-1 slices gathered) and every rank reads them back and cuts its slice.
 A ``model`` degree runs with ``TPU.SEQUENCE_PARALLEL`` only (the JAX trainer
 uses a model axis for nothing else; without it the degree raises):
 Megatron-SP over the model group (``parallel.train_step``'s, with the same
-coverage).  Every rank keeps the whole leaves and cuts them at use
+coverage: every hook and int8).  Every rank keeps the whole leaves, the
+int8 tree quantized once from them, and cuts them at use
 (``parallel.tp_place``, differentiable), so that the gradient of a block
 leaf on a rank is its part (its heads' rows and columns, its tokens' share
-of a LayerNorm, a row-parallel bias, LoRA A) and the model group's sum is
-the whole gradient; the embedding's and the head's are whole on every model
-rank.  ``TPU.MESH.PIPE`` > 1 pipelines the stacked block stack over the pipe
+of a LayerNorm, a row-parallel bias, LoRA A, an adapter) and the model
+group's sum is the whole gradient, as is the deep prompts' (only the rank
+that holds a prompt's position replaces it); the embedding's and the head's
+are whole on every model rank.  The static int8 scales are calibrated by the
+sequence-parallel forward, each absmax the maximum over the data and the
+model group.  ``TPU.MESH.PIPE`` > 1 pipelines the stacked block stack over the pipe
 group (GPipe, ``parallel.pipeline``; the JAX trainer's ``ValueError`` without
 ``TPU.SCAN_LAYERS`` or with BatchNorm), ``TPU.PP_MICROBATCHES`` microbatches
 (default the pipe degree).  Again every rank keeps the whole leaves; the last
@@ -106,7 +110,7 @@ from ..ops.int8 import INT8_TARGET_MODULES, quantize_frozen_tree
 from ..parallel import collectives as _coll
 from ..parallel.mesh import Mesh, mesh_from_config, zero_dim
 from ..parallel.pipeline import GroupRing, vit_pipeline_forward
-from ..parallel.train_step import check_tensor_parallel, tp_context, tp_place
+from ..parallel.train_step import check_tensor_parallel, sp_partial, tp_context, tp_place
 from ..peft.masks import merge_params, split_params
 from ..utils import dist as _dist
 from . import train as _train
@@ -381,7 +385,7 @@ class Trainer:
         leaf under GPipe): the whole gradient on every rank."""
         if self.seq:
             grads = {k: _coll.sum_all_reduce(g, self.mesh.model_group)
-                     if ".blocks." in f".{k}" else g for k, g in grads.items()}
+                     if ".blocks." in f".{k}" or sp_partial(k) else g for k, g in grads.items()}
         if self.pipe > 1:
             grads = {k: _coll.sum_all_reduce(g, self.mesh.pipe_group) for k, g in grads.items()}
         return grads
@@ -503,13 +507,24 @@ class Trainer:
             variables = merge_params(s.trainable, self.frozen)
             if self.has_bn:
                 variables.update(s.batch_stats)
-            amax_over = (functools.partial(_coll.max_all_reduce, group=self.group)
-                         if self.mesh is not None else None)  # the global batch's absmax
-            with self._shard(x.shape[0]):
-                self._qscale = _train.calibrate(self.model, self.apply_fn, variables,
+            amax_over = self._amax_over if self.mesh is not None else None  # the global batch's
+            apply_fn, ctx = self.apply_fn, contextlib.nullcontext()
+            if self.seq:  # the sequence-parallel forward, on the leaves cut at use
+                def apply_fn(v, xx, train):
+                    return self.apply_fn(tp_place(self.mesh, v), xx, train)
+
+                ctx = tp_context(self.mesh, sequence_parallel=True)
+            with self._shard(x.shape[0]), ctx:
+                self._qscale = _train.calibrate(self.model, apply_fn, variables,
                                                 self._normalize(x), self.calib_margin,
                                                 amax_over)
         return self._qscale
+
+    def _amax_over(self, t: torch.Tensor) -> torch.Tensor:
+        """An absmax over the data group and, under sequence parallelism,
+        the model group (each rank sees its tokens, or its heads' columns)."""
+        t = _coll.max_all_reduce(t, self.group)
+        return _coll.max_all_reduce(t, self.mesh.model_group) if self.seq else t
 
     def train_step(self, x, y, epoch: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer step on the host batch ``(x, y)``; returns the loss

@@ -185,14 +185,20 @@ class Int8Dense(Dense):
             self.register_buffer(name, None, persistent=False)
         self._stats = None  # (store, key) inside collect_activation_stats
 
+    def _record(self, x: torch.Tensor) -> None:
+        """Inside ``collect_activation_stats``: max-reduce the absmax of the
+        input into the statistics."""
+        if self._stats is not None:
+            store, key = self._stats
+            amax = x.detach().to(torch.float32).abs().max()
+            store[key] = amax if key not in store else torch.maximum(store[key], amax)
+
     def forward(self, x: torch.Tensor, int8: bool = True, train_bwd: bool = False) -> torch.Tensor:
         if not int8:
             return super().forward(x)
         dt = self.compute_dtype
-        if train_bwd and self._stats is not None:
-            store, key = self._stats
-            amax = x.detach().to(torch.float32).abs().max()
-            store[key] = amax if key not in store else torch.maximum(store[key], amax)
+        if train_bwd:
+            self._record(x)
         xc, w = x.to(dt), self.weight.to(dt)
         if train_bwd and self.w_i8 is not None:
             if self.wt_i8 is not None:
@@ -214,27 +220,56 @@ class Int8Dense(Dense):
             y = y + self.bias.to(y.dtype)
         return y
 
+    def row_parallel(self, x: torch.Tensor, comm, train_bwd: bool) -> torch.Tensor:
+        """The int8 forward of this GEMM as the row-parallel half of tensor
+        parallelism: the weight (and ``w_i8``) holds this rank's input columns,
+        ``s_w`` is the whole weight's (``parallel.tp_cut``), and the result
+        is the unsplit GEMM's bit for bit (``ops.int8.int8_row_parallel``:
+        the global row scale, the ranks' int32 partials summed over ``comm``,
+        then the rescale); the bias once, after the sum.  The buffers choose
+        the op as ``forward`` does."""
+        dt = self.compute_dtype
+        if train_bwd:
+            self._record(x)
+        xc, w = x.to(dt), self.weight.to(dt)
+        if train_bwd and self.w_i8 is not None:
+            y = int8_ops.int8_row_parallel(xc, w, self.w_i8, self.s_w, self.wt_i8, self.s_wt,
+                                           self.s_x, comm)
+        elif train_bwd:
+            y = int8_ops.int8_row_parallel(xc, w, None, None, None, None, None, comm)
+        else:
+            with torch.no_grad():
+                y = int8_ops.int8_row_parallel(xc, w, self.w_i8, self.s_w, None, None, None,
+                                               comm)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+    def column_parallel(self, x: torch.Tensor, xin: torch.Tensor, comm, int8: bool,
+                        train_bwd: bool) -> torch.Tensor:
+        """This GEMM as the column-parallel half of tensor parallelism on
+        ``xin`` = ``f(x)``: the rows of the weight are this rank's.  The
+        forward needs no collective (each output column contracts over the
+        whole K).  With the int8 dx backward (``wt_i8`` present) the dx
+        contracts over the cut N, so the op takes ``x`` too and hands it the
+        whole dx (``ops.int8.int8_column_parallel_dx``: the global row scale
+        and the int32 sum over ``comm``), and ``f``'s backward sums nothing
+        of it; otherwise this is ``forward(xin)``, whose dx ``f`` sums."""
+        if not (int8 and train_bwd and self.w_i8 is not None and self.wt_i8 is not None):
+            return self(xin, int8, train_bwd)
+        dt = self.compute_dtype
+        self._record(xin)
+        y = int8_ops.int8_column_parallel_dx(x.to(dt), xin.to(dt), self.weight.to(dt), self.w_i8,
+                                             self.s_w, self.wt_i8, self.s_wt, self.s_x, comm)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
 
 def _dense_for(name: str, int8: bool, targets: Sequence[str]):
     """The class of the GEMM ``name``: ``Int8Dense`` where the model may route
     it through the int8 path."""
     return Int8Dense if int8 and name in targets else Dense
-
-
-TP_HOOKS_ITEM = ("ROADMAP §1, parallelism (tensor parallelism under the adapters, Compacter, "
-                 "KAdaptation, LePE, RPB and VPT)")
-TP_INT8_ITEM = "ROADMAP §1, parallelism (tensor parallelism under int8)"
-
-
-def tp_refused(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} under tensor parallelism is not ported to "
-                               f"peft_vit_tpu_torch yet ({item})")
-
-
-def _refuse_int8_under_tp(module: nn.Module, names: Sequence[str]) -> None:
-    for name in names:
-        if isinstance(getattr(module, name), Int8Dense):
-            raise tp_refused(f"the int8 GEMM {name}", TP_INT8_ITEM)
 
 
 class TensorParallel(NamedTuple):
@@ -244,25 +279,45 @@ class TensorParallel(NamedTuple):
     ``f`` is the token all-gather and ``g`` the token reduce-scatter
     (``parallel.sp_all_gather`` / ``sp_reduce_scatter``), ``split`` cuts the
     tokens after the embedding and ``gather`` joins them before the head
-    (``parallel.sp_split`` / ``sp_gather``)."""
+    (``parallel.sp_split`` / ``sp_gather``).  ``comm`` holds the model
+    group's other collectives (``parallel.ModelComm``): the int8 GEMMs'
+    global scales and int32 sums, the gather of every rank's heads for the
+    reference layouts, the rank that places the deep prompts."""
 
     f: Callable
     g: Callable
     split: Optional[Callable] = None
     gather: Optional[Callable] = None
+    comm: Optional[object] = None
 
     @property
     def seq(self) -> bool:
         """Whether the activations between the regions are token slices."""
         return self.split is not None
 
-    def row_parallel(self, x: torch.Tensor, dense: "Dense") -> torch.Tensor:
+    def row_parallel(self, x: torch.Tensor, dense: "Dense", int8: bool = False,
+                     int8_bwd: bool = False) -> torch.Tensor:
         """``dense`` on its cut leaves, whose weight holds this rank's input
         columns: the sum of the ranks' partial products (``g``; under
         sequence parallelism this rank's tokens of it), then the bias,
-        once."""
+        once.  An ``Int8Dense`` on the int8 path sums its int32 partials
+        instead (``Int8Dense.row_parallel``)."""
+        if int8 and isinstance(dense, Int8Dense):
+            return dense.row_parallel(x, self.comm, int8_bwd)
         y = self.g(F.linear(x, dense.weight.to(x.dtype)))
         return y if dense.bias is None else y + dense.bias.to(y.dtype)
+
+    def column_parallel(self, x: torch.Tensor, xin: torch.Tensor, dense: "Dense", int8: bool,
+                        int8_bwd: bool) -> torch.Tensor:
+        """``dense`` on ``xin`` = ``f(x)``, its output rows this rank's."""
+        if isinstance(dense, Int8Dense):
+            return dense.column_parallel(x, xin, self.comm, int8, int8_bwd)
+        return dense(xin)
+
+    def own_heads(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of ``t`` along ``dim`` (its heads)."""
+        n = t.shape[dim] // self.comm.size
+        return t.narrow(dim, self.comm.rank * n, n)
 
 
 _TP: Optional[TensorParallel] = None
@@ -270,7 +325,7 @@ _TP: Optional[TensorParallel] = None
 
 @contextlib.contextmanager
 def tensor_parallel(f: Callable, g: Callable, split: Optional[Callable] = None,
-                    gather: Optional[Callable] = None):
+                    gather: Optional[Callable] = None, comm: Optional[object] = None):
     """Within, ``MultiHeadAttention`` and ``Mlp`` run Megatron's tensor
     parallelism on the cut leaves they are given: ``f`` at the input of each
     column-parallel region, this rank's heads (or hidden units), then
@@ -279,9 +334,10 @@ def tensor_parallel(f: Callable, g: Callable, split: Optional[Callable] = None,
     between the regions are this rank's token slice: ``f`` gathers the
     tokens at each region's entry, ``g`` reduce-scatters them after
     ``out_proj`` and ``c_proj``, and the ViT cuts and joins the tokens around
-    its blocks."""
+    its blocks.  ``comm`` (``parallel.ModelComm``) serves the hooks and
+    the int8 GEMMs that need more of the model group."""
     global _TP
-    prev, _TP = _TP, TensorParallel(f, g, split, gather)
+    prev, _TP = _TP, TensorParallel(f, g, split, gather, comm)
     try:
         yield
     finally:
@@ -420,8 +476,8 @@ class Mlp(nn.Module):
         if tp is None:
             x = self.act(_call(self.c_fc, x, int8, int8_bwd))
             return _call(self.c_proj, x, int8, int8_bwd)
-        _refuse_int8_under_tp(self, ("c_fc", "c_proj"))
-        return tp.row_parallel(self.act(self.c_fc(tp.f(x))), self.c_proj)
+        h = self.act(tp.column_parallel(x, tp.f(x), self.c_fc, int8, int8_bwd))
+        return tp.row_parallel(h, self.c_proj, int8, int8_bwd)
 
 
 class Adapter(nn.Module):
@@ -516,8 +572,10 @@ class DepthwiseConv(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        # one group a channel of the weight given (a tensor-parallel rank's
+        # channels under functional_call)
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt),
-                     padding=1, groups=self.groups)
+                     padding=1, groups=self.weight.shape[0])
         return y.permute(0, 2, 3, 1)
 
 
@@ -718,64 +776,67 @@ class MultiHeadAttention(nn.Module):
             a = f(a)
         return getattr(self, f"{t}_adapter2")(a) * (spec.lora_alpha / spec.lora_rank)
 
-    def _kron_deltas(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _kron_deltas(self, x: torch.Tensor, tp: Optional[TensorParallel] = None
+                     ) -> Dict[str, torch.Tensor]:
+        """The q and v deltas ``x @ H``; under tensor parallelism the
+        columns of each (d, d) ``H`` that add to this rank's heads."""
         dt = self.compute_dtype
         rule = self.phm_rule.to(dt)
         deltas = {}
         for idx, t in enumerate(("q", "v"), start=1):
             h = factorized_phm_weight(rule, getattr(self, f"W_left{idx}").to(dt),
                                       getattr(self, f"W_right{idx}").to(dt))
+            if tp is not None:
+                h = tp.own_heads(h, 1)
             deltas[t] = torch.matmul(x, h.to(x.dtype))
         return deltas
 
     def _rpb_bias(self) -> torch.Tensor:
         """The (H, N, N) relative position bias in the compute dtype, zero on
-        the ``n_prefix`` rows and columns."""
-        h, p, g2 = self.heads, self.n_prefix, self.grid_size**2
-        patch = _TableGather.apply(self.relative_position_bias_table, self.rpb_index,
-                                   self.rpb_slots)
+        the ``n_prefix`` rows and columns; H is the table's heads (under
+        tensor parallelism this rank's, the table cut by heads)."""
+        table = self.relative_position_bias_table
+        h, p, g2 = table.shape[-1], self.n_prefix, self.grid_size**2
+        patch = _TableGather.apply(table, self.rpb_index, self.rpb_slots)
         patch = patch.reshape(g2, g2, h).permute(2, 0, 1).to(self.compute_dtype)
         return F.pad(patch, (p, 0, p, 0))
 
-    def check_tensor_parallel(self) -> None:
-        """Raise where tensor parallelism does not cover this attention: the
-        hooks on the split activations and int8.  It covers the LoRA deltas
-        (with the MoE gate and ``lora_post_scale_q``) and ``full``."""
-        spec = self.spec
-        for on, what, item in (
-                (spec.attn_delta == "kron", "KAdaptation (the kron delta)", TP_HOOKS_ITEM),
-                (spec.attn_adapter != "none", "the shared qkv adapter", TP_HOOKS_ITEM),
-                (spec.lepe, "LePE", TP_HOOKS_ITEM), (spec.attn_bias == "rpb", "RPB", TP_HOOKS_ITEM),
-                (spec.attn_delta == "lora" and spec.lora_ref_reshape, "PEFT.LORA_REF_RESHAPE",
-                 TP_HOOKS_ITEM),
-                (self.int8_attn, "int8 attention", TP_INT8_ITEM)):
-            if on:
-                raise tp_refused(what, item)
-        _refuse_int8_under_tp(self, ("in_proj", "out_proj"))
-
     def forward(self, x: torch.Tensor, int8: bool = False, int8_bwd: bool = False) -> torch.Tensor:
-        """Under ``tensor_parallel`` ``in_proj`` holds this rank's heads of q,
-        of k and of v (``parallel.tp_cut``), each LoRA B the rows it adds
-        to, and ``out_proj`` those heads' columns; Megatron's ``f`` stands at
-        ``in_proj``'s input and at each LoRA B's (A's gradient sums over the
-        ranks' heads), ``g`` after ``out_proj``.  Under sequence parallelism
-        ``x`` is this rank's tokens and ``f`` (the token all-gather) stands
-        once, at the region's entry: LoRA A runs on the gathered tokens."""
+        """Under ``tensor_parallel`` each leaf holds this rank's part
+        (``parallel.tp_cut``): ``in_proj`` its heads of q, of k and of v,
+        each LoRA B the rows it adds to, ``out_proj`` those heads' columns,
+        the RPB table those heads, LePE's ``get_v`` their v channels; every
+        other leaf is whole.  Megatron's ``f`` stands at ``in_proj``'s input
+        and at each LoRA B's (A's gradient sums over the ranks' heads), ``g``
+        after ``out_proj``.  Every hook runs on this rank's heads: the kron
+        deltas are the columns of H of those heads, the shared qkv adapter
+        and RPB's bias (K1-K3, K7) take those heads, LePE adds its v channels
+        before the row-parallel product.  The reference layouts
+        (``lora_ref_reshape``, ``lepe_ref_qkv``) scramble every head, so the
+        rank gathers every head's delta or projection first
+        (``comm.cat_heads``) and keeps its heads.  The int8 GEMMs are the
+        unsplit ones bit for bit (``Int8Dense.column_parallel`` /
+        ``row_parallel``); int8 attention reads the calibrated scales, which
+        are maxima over every head.  Under sequence parallelism ``x`` is this
+        rank's tokens and ``f`` (the token all-gather) stands once, at the
+        region's entry: LoRA A and the kron deltas run on the gathered
+        tokens."""
         tp = _TP
-        if tp is not None:
-            self.check_tensor_parallel()
         xin = x if tp is None else tp.f(x)  # under sequence parallelism: every token
         b, n, d = xin.shape
         hd = d // self.heads
         spec = self.spec
         scale = hd**-0.5
-        qkv = _call(self.in_proj, xin, int8, int8_bwd)
+        if tp is None:
+            qkv = _call(self.in_proj, xin, int8, int8_bwd)
+        else:
+            qkv = tp.column_parallel(x, xin, self.in_proj, int8, int8_bwd)
         q, k, v = qkv.chunk(3, dim=-1)
         local = q.shape[-1]  # this rank's heads' width under tensor parallelism
         h = local // hd
 
         if spec.attn_delta == "kron":
-            deltas = self._kron_deltas(x)
+            deltas = self._kron_deltas(xin, tp)
         else:
             lora_x, lora_f = (x, tp.f) if tp is not None and not tp.seq else (xin, None)
             deltas = {t: self._lora_delta(lora_x, t, lora_f) for t in self.lora_targets}
@@ -800,14 +861,21 @@ class MultiHeadAttention(nn.Module):
             # seq-first (N, B, C) delta reshaped flat into (B*H, N, hd),
             # which scrambles batch, sequence and head unless B = H = 1
             for t, dl in deltas.items():
-                heads_of[t] = heads_of[t] + dl.transpose(0, 1).reshape(b, h, n, hd)
+                if tp is not None:
+                    dl = tp.comm.cat_heads(dl)
+                dl = dl.transpose(0, 1).reshape(b, self.heads, n, hd)
+                heads_of[t] = heads_of[t] + (dl if tp is None else tp.own_heads(dl, 1))
         if spec.lepe and spec.lepe_ref_qkv:
             # the executed reference's LePE layout (LePE.py:120-123): the
             # (3, B, N, C) permutation of the raw projection reshaped flat to
             # (B, N, 3, H, hd), which scrambles q, k and v across the batch;
             # get_v below still reads the clean v
-            scr = qkv.reshape(b, n, 3, d).permute(2, 0, 1, 3).reshape(b, n, 3, h, hd)
+            raw = qkv if tp is None else torch.cat(
+                [tp.comm.cat_heads(t) for t in qkv.chunk(3, dim=-1)], dim=-1)
+            scr = raw.reshape(b, n, 3, d).permute(2, 0, 1, 3).reshape(b, n, 3, self.heads, hd)
             heads_of = dict(zip("qkv", scr.permute(2, 0, 3, 1, 4).unbind(0)))
+            if tp is not None:
+                heads_of = {t: tp.own_heads(y, 1) for t, y in heads_of.items()}
         if spec.attn_adapter == "shared_qkv":
             heads_of = {t: self.qkv_adapter(y) for t, y in heads_of.items()}
 
@@ -831,12 +899,13 @@ class MultiHeadAttention(nn.Module):
                 batch_chunk=self.attn_batch_chunk,
             )
         out = out.transpose(1, 2).reshape(b, n, local)
-        if tp is not None:
-            return tp.row_parallel(out, self.out_proj)
         if spec.lepe:
             g, p = self.grid_size, self.n_prefix
-            lepe = self.get_v(qkv_of["v"][:, p:, :].reshape(b, g, g, d)).reshape(b, g * g, d)
+            lepe = self.get_v(qkv_of["v"][:, p:, :].reshape(b, g, g, local)).reshape(b, g * g,
+                                                                                       local)
             out = torch.cat([out[:, :p], out[:, p:] + lepe.to(out.dtype)], dim=1)
+        if tp is not None:
+            return tp.row_parallel(out, self.out_proj, int8, int8_bwd)
         return _call(self.out_proj, out, int8, int8_bwd)
 
 

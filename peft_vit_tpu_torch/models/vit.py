@@ -44,7 +44,9 @@ records nothing inside the stacked blocks.
 
 Under sequence parallelism (``layers.tensor_parallel`` with a token split)
 the tokens are cut over the model group after the embedding (after
-``ln_pre`` in the CLIP style) and gathered before the head.
+``ln_pre`` in the CLIP style; the shallow prompts are inserted before the
+cut) and gathered before the head; the deep prompts of block i replace only
+the rows of their global positions, on the rank or ranks that hold them.
 """
 
 from __future__ import annotations
@@ -286,6 +288,21 @@ class VisionTransformer(nn.Module):
         p = prompts.to(self.dtype).expand(x.shape[0], -1, -1)
         return torch.cat([x[:, :k0], p, x[:, k0 + (self.num_prompts if replace else 0):]], dim=1)
 
+    def _deep_prompts(self, x: torch.Tensor, prompts: torch.Tensor, seq) -> torch.Tensor:
+        """``_prompts(x, prompts, replace=True)`` of the whole sequence when
+        ``x`` is this model rank's token slice (sequence parallelism): the
+        rows of the slice at the prompts' global positions replaced, the
+        others kept, so that only the rank or ranks holding those positions
+        replace them."""
+        k0 = 1 if self.use_cls else 0
+        n = x.shape[1]
+        start = seq.comm.rank * n  # the global position of the slice's first token
+        lo, hi = max(k0, start), min(k0 + self.num_prompts, start + n)
+        if lo >= hi:
+            return x
+        p = prompts[lo - k0:hi - k0].to(self.dtype).expand(x.shape[0], -1, -1)
+        return torch.cat([x[:, :lo - start], p, x[:, hi - start:]], dim=1)
+
     def forward(self, x: torch.Tensor, start_layer: int = 0,
                 stop_layer: Optional[int] = None) -> torch.Tensor:
         """(B, H, W, 3) images -> (B, num_features) pooled features.
@@ -330,7 +347,8 @@ class VisionTransformer(nn.Module):
             end = len(self.blocks) if stop_layer is None else stop_layer
             for i in range(start_layer, end):
                 if deep is not None and 0 < i < self.layers:
-                    x = self._prompts(x, deep[i - 1], replace=True)
+                    x = (self._prompts(x, deep[i - 1], replace=True) if seq is None
+                         else self._deep_prompts(x, deep[i - 1], seq))
                 x = self.blocks[i](x)
             if stop_layer is not None:
                 return x

@@ -19,12 +19,16 @@ from .attention import (
 from .int8 import (
     INT8_TARGET_MODULES,
     activation_scales_from_stats,
+    int8_column_parallel_dx,
     int8_gemm_dynamic,
+    int8_gemm_partial,
     int8_gemm_static,
     int8_matmul,
     int8_matmul_bf16_bwd,
     int8_prequant_matmul,
     int8_prequant_matmul_i8bwd,
+    int8_row_absmax,
+    int8_row_parallel,
     int8_static_matmul,
     int8_static_matmul_i8bwd,
     quantize_cols,
@@ -43,6 +47,8 @@ KERNEL_WRAPPERS = (
     (_attention, "fused_short_attention_bwd"),
     (_int8, "int8_gemm_dynamic"),
     (_int8, "int8_gemm_static"),
+    (_int8, "int8_gemm_partial"),
+    (_int8, "int8_row_absmax"),
 )
 
 
@@ -68,12 +74,16 @@ __all__ = [
     "fused_short_attention_fwd",
     "int8_attention",
     "int8_attention_scores",
+    "int8_column_parallel_dx",
     "int8_gemm_dynamic",
+    "int8_gemm_partial",
     "int8_gemm_static",
     "int8_matmul",
     "int8_matmul_bf16_bwd",
     "int8_prequant_matmul",
     "int8_prequant_matmul_i8bwd",
+    "int8_row_absmax",
+    "int8_row_parallel",
     "int8_static_matmul",
     "int8_static_matmul_i8bwd",
     "launch_counts",

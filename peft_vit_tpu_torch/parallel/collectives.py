@@ -25,6 +25,9 @@ layer (utils/comm.py:12-154):
   backward an all-gather) after the embedding and ``sp_gather`` (every
   token, the backward this rank's own slice: every model rank computes the
   same head and loss) before the head;
+* ``ModelComm``: the model group's collectives inside a tensor- or
+  sequence-parallel region (the int8 GEMMs' global absmax and int32 sums,
+  the hooks' gather of every rank's heads);
 * ``p2p``: a send to and a receive from neighbouring ranks in one
   ``batch_isend_irecv`` (GPipe's activations and their gradients);
 * ``roll_rows``: ``torch.roll(x, 1, 0)`` of the global batch whose rows
@@ -43,7 +46,7 @@ take other GEMM algorithms downstream), and each may be captured in a
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -268,6 +271,57 @@ def sp_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     the backward keeps this rank's own slice of the (equal) gradients: a sum
     would count the head's gradient once a rank."""
     return _SPGather.apply(x, group)
+
+
+class _CatHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather_dim(x, x.dim() - 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, g.dim() - 1, ctx.group), None
+
+
+class ModelComm(NamedTuple):
+    """The model group's collectives that the hooks and the int8 GEMMs take
+    inside a tensor- or sequence-parallel region
+    (``models.layers.TensorParallel.comm``): ``rank`` and ``size`` on the
+    model axis; ``max`` (elementwise, no gradient: a global absmax);
+    ``sum_int`` (the ranks' int32 partial products summed exactly: all-reduced,
+    or under sequence parallelism reduce-scattered to this rank's tokens);
+    ``own_tokens`` / ``all_tokens`` (this rank's token slice of a tensor
+    every rank holds whole, and the gather of the slices: the identity
+    without sequence parallelism); ``cat_heads`` (every rank's heads'
+    channels joined on the last dim, the backward the sum reduce-scattered
+    back)."""
+
+    group: object
+    seq: bool = False
+
+    @property
+    def rank(self) -> int:
+        return dist.get_rank(self.group)
+
+    @property
+    def size(self) -> int:
+        return dist.get_world_size(self.group)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return max_all_reduce(x, self.group)
+
+    def sum_int(self, x: torch.Tensor) -> torch.Tensor:
+        return reduce_scatter_dim(x, 1, self.group) if self.seq else _sum(x, self.group)
+
+    def own_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        return _token_slice(x, self.group) if self.seq else x
+
+    def all_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        return all_gather_dim(x, 1, self.group) if self.seq else x
+
+    def cat_heads(self, x: torch.Tensor) -> torch.Tensor:
+        return _CatHeads.apply(x, self.group)
 
 
 def p2p(send: Optional[torch.Tensor] = None, dst: Optional[int] = None,

@@ -13,10 +13,13 @@ runs in each:
    2n;
 2. a ZeRO-1 step of the same tower with the LoRA-MoE gate (group 2) on the
    same mesh;
-3. a sequence-parallel LoRA step (``TPU.SEQUENCE_PARALLEL``) of the flagship
-   at width 64, 48 px, patch 16 (3 x 3 patches and the class token: 10
-   tokens, 5 a rank over model 2) on the same mesh, 2 heads of 32 (the JAX
-   dryrun's 4 heads of 16 are no head dim of K1-K3);
+3. a sequence-parallel step (``TPU.SEQUENCE_PARALLEL``) of the flagship's
+   LoRA tower with hooks at width 64, 48 px, patch 16, 2 heads of 32 (the
+   JAX dryrun's 4 heads of 16 are no head dim of K1-K3): 3 x 3 patches, the
+   class token and ``SP_PROMPTS`` deep VPT prompts, 12 tokens, 6 a rank over
+   model 2, on the same mesh; the Houlsby adapter, RPB and the int8 GEMMs
+   (each weight quantized per call, the dynamic recipe) besides, the LoRA
+   leaves, the prompts, the adapters and the tables training;
 4. GPipe: a stack of 8 blocks (width 64, 2 heads) staged over a mesh of
    n / pipe x pipe, pipe = min(4, n), 2 microbatches of each data shard's
    rows, one SGD step of the staged leaves and of a linear head on the
@@ -50,6 +53,8 @@ SEED = 0
 WIDTH, LAYERS, HEADS, IMAGE, PATCH, CLASSES = 128, 2, 4, 32, 16, 8  # head dim 32: K1-K3's
 LR, WD = 1e-3, 1e-4
 SP_WIDTH, SP_HEADS, SP_IMAGE = 64, 2, 48  # 10 tokens; head dim 32
+SP_PROMPTS = 2  # 12 tokens with the prompts
+SP_TRAINS = "adapter|prompt_embeddings|relative_position_bias_table"  # beside LoRA
 PP_BLOCKS, PP_TOKENS, PP_MICROBATCHES, PP_LR = 8, 5, 2, 1e-3
 
 
@@ -80,11 +85,18 @@ def _model(moe: bool, device: torch.device):
 
 def _sp_model(device: torch.device):
     """The sequence-parallel step's tower (step 3), drawn from ``SEED + 2``."""
-    from ..models import flagship
+    from ..models import ImageClassifier, VisionTransformer
+    from ..peft import PEFTSpec
 
     torch.manual_seed(SEED + 2)
-    model = flagship(width=SP_WIDTH, layers=LAYERS, heads=SP_HEADS, image=SP_IMAGE, patch=PATCH,
-                     num_classes=CLASSES, dtype=torch.float32, device="cpu")
+    spec = PEFTSpec(method="lora", attn_delta="lora", lora_rank=4, lora_alpha=128.0,
+                    lora_post_scale_q=True, adapter="houlsby", adapter_dim=16, attn_bias="rpb",
+                    prompt_tokens=SP_PROMPTS, prompt_deep=True)
+    model = ImageClassifier(
+        VisionTransformer(image_size=SP_IMAGE, patch_size=PATCH, width=SP_WIDTH, layers=LAYERS,
+                          heads=SP_HEADS, output_dim=32, spec=spec, int8_train=True,
+                          dtype=torch.float32, device="cpu"),
+        num_classes=CLASSES, dtype=torch.float32, device="cpu")
     with torch.no_grad():
         for p in model.parameters():
             if not p.abs().sum():
@@ -190,7 +202,8 @@ def _steps(rank: int, n: int, device: torch.device) -> dict:
         out[key] = float(loss)
     # 3: sequence parallelism on the same mesh
     model = _sp_model(device)
-    trainable, _ = split_params(model, build_mask(model, "lora", num_layers=LAYERS))
+    trainable, _ = split_params(model, build_mask(model, "lora", num_layers=LAYERS,
+                                                  extra_regex=SP_TRAINS))
     step, place = make_sharded_train_step(make_apply_fn(model), ce_per_example, mesh,
                                           model=model, sequence_parallel=True)
     state, frozen = place(init_cell_state(trainable), {})

@@ -141,18 +141,38 @@ def tp_cut(name: str, shape: Sequence[int]) -> Optional[str]:
     """How tensor parallelism cuts the port's leaf ``name`` over the model
     axis: ``"qkv"`` (``in_proj``'s weight and bias: the rank's heads of q,
     of k and of v, a block of rows from each third), ``"rows"`` (the output
-    rows of a column-parallel leaf: ``c_fc``'s weight and bias, and the LoRA
-    B matrices of the q or v rows they add to), ``"cols"`` (the input
-    columns of a row-parallel weight: ``out_proj``, ``c_proj``), or None
-    (replicated: every other leaf, the biases of the row-parallel GEMMs
-    included, which are added once after the sum)."""
-    if "attn.in_proj." in name and name.endswith(("weight", "bias")):
-        return "qkv"
-    if "mlp.c_fc." in name and name.endswith(("weight", "bias")):
-        return "rows"
+    rows of a column-parallel leaf: ``c_fc``'s weight and bias, the LoRA B
+    matrices of the q or v rows they add to, LePE's depthwise ``get_v`` of
+    the rank's v channels), ``"cols"`` (the input columns of a row-parallel
+    weight: ``out_proj``, ``c_proj``; the last dim of RPB's ((2g - 1)^2, H)
+    table: the rank's heads), or None (replicated: every other leaf, the
+    biases of the row-parallel GEMMs included, which are added once after
+    the sum).
+
+    The int8 leaves of ``ops.int8.quantize_frozen_tree`` follow their
+    weight: ``w_i8`` and ``s_w`` of ``in_proj`` and ``c_fc`` as the weight's
+    rows; ``w_i8`` of ``out_proj`` and ``c_proj`` by its K columns, their
+    ``s_w`` whole (a per-column scale over the whole K, taken before the
+    cut).  The int8 dx pair ``wt_i8`` (K, N) / ``s_wt`` (K,): of the
+    column-parallel GEMMs ``wt_i8``'s columns are cut as the weight's rows
+    (``"qkv_cols"``: three blocks along dim 1 for ``in_proj``) and ``s_wt``
+    stays whole; of the row-parallel ones both by the K rows.  The static
+    scales ``s_x`` and the attention's ``s_q`` / ``s_k`` / ``s_v`` are
+    whole."""
+    leaf = name.rsplit(".", 1)[-1]
+    if "attn.in_proj." in name:
+        return {"weight": "qkv", "bias": "qkv", "w_i8": "qkv", "s_w": "qkv",
+                "wt_i8": "qkv_cols"}.get(leaf)
+    if "mlp.c_fc." in name:
+        return {"weight": "rows", "bias": "rows", "w_i8": "rows", "s_w": "rows",
+                "wt_i8": "cols"}.get(leaf)
+    if "attn.out_proj." in name or "mlp.c_proj." in name:
+        return {"weight": "cols", "w_i8": "cols", "wt_i8": "rows", "s_wt": "rows"}.get(leaf)
     if "_adapter2.weight" in name and ".attn." in name:
         return "rows"
-    if name.endswith(("attn.out_proj.weight", "mlp.c_proj.weight")):
+    if "attn.get_v." in name and leaf in ("weight", "bias"):
+        return "rows"
+    if leaf == "relative_position_bias_table":
         return "cols"
     return None
 
@@ -166,18 +186,19 @@ def stack_lead(name: str) -> int:
 def tp_slice(t: torch.Tensor, cut: Optional[str], index: int, size: int,
              lead: int = 0) -> torch.Tensor:
     """The model rank ``index``'s part of ``t`` under ``cut`` (of
-    ``tp_cut``), of ``size`` ranks, each of the ``lead`` leading dims' slices
-    cut alike (``stack_lead``); a contiguous copy."""
+    ``tp_cut``; ``"qkv_cols"`` is ``"qkv"`` along the next dim), of ``size``
+    ranks, each of the ``lead`` leading dims' slices cut alike
+    (``stack_lead``); a contiguous copy."""
     if cut is None or size == 1:
         return t
+    dim = lead + (cut in ("cols", "qkv_cols"))
     if cut in ("cols", "rows"):
-        dim = lead + (cut == "cols")
         n = t.shape[dim] // size
         return t.narrow(dim, index * n, n).contiguous()
-    third = t.shape[lead] // 3
+    third = t.shape[dim] // 3
     n = third // size
-    return torch.cat([t.narrow(lead, j * third + index * n, n) for j in range(3)],
-                     lead).contiguous()
+    return torch.cat([t.narrow(dim, j * third + index * n, n) for j in range(3)],
+                     dim).contiguous()
 
 
 def tp_unslice(parts: Sequence[torch.Tensor], cut: Optional[str], lead: int = 0) -> torch.Tensor:
@@ -185,9 +206,10 @@ def tp_unslice(parts: Sequence[torch.Tensor], cut: Optional[str], lead: int = 0)
     inverse)."""
     if cut is None or len(parts) == 1:
         return parts[0]
+    dim = lead + (cut in ("cols", "qkv_cols"))
     if cut in ("cols", "rows"):
-        return torch.cat(list(parts), lead + (cut == "cols"))
-    return torch.cat([p.chunk(3, lead)[j] for j in range(3) for p in parts], lead)
+        return torch.cat(list(parts), dim)
+    return torch.cat([p.chunk(3, dim)[j] for j in range(3) for p in parts], dim)
 
 
 def zero_dim(shape: Sequence[int], data: int) -> Optional[int]:

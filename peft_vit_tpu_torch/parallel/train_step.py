@@ -28,13 +28,20 @@ contiguously, and a LoRA B matrix (the MoE gate's experts with it) is cut as
 the rows it adds to.  Megatron's ``f`` stands at the input of each
 column-parallel region (``in_proj``, each LoRA B: A's gradient sums over the
 heads) and ``g`` after each row-parallel product, the bias added once after
-the sum.  The gradients of the replicated leaves are equal on every model
-rank.  Tensor parallelism covers the ViT with ``full``, LoRA on q / v
-(``lora_post_scale_q`` too) and the LoRA-MoE gate, in fp32 and bf16: what
-the JAX package's TP tests and dryrun run.  The hooks on the split
-activations (the adapters, Compacter, LePE, RPB, VPT, KAdaptation) and int8
-raise (``check_tensor_parallel``).  The stacked block layout is cut layer by
-layer (``mesh.stack_lead``).
+the sum.  Tensor parallelism covers the ViT with every PEFT hook and int8,
+in fp32 and bf16: the hooks run on the rank's heads (the RPB table and
+LePE's ``get_v`` cut by heads, the kron deltas' columns of those heads, the
+reference layouts gathered over the model group first;
+``models.layers.MultiHeadAttention``), the adapters and Compacter after
+``g`` on the whole activations, the prompts in every rank's sequence.  The
+int8 GEMMs equal the unsplit ones bit for bit (``ops.int8``'s row- and
+column-parallel ops: the global row scale and the int32 sum over the model
+group), so the quantized tree is cut after it is quantized
+(``mesh.tp_cut``).  The gradients of the replicated leaves are equal on
+every model rank, except those a rank's heads alone see (``tp_partial``:
+the kron leaves, the shared qkv adapter), which are summed over the model
+group.  The stacked block layout is cut layer by layer
+(``mesh.stack_lead``).
 
 ``sequence_parallel=True`` (``TPU.SEQUENCE_PARALLEL``, Megatron-SP; the JAX
 package's ``act_sharding`` of the inter-block activations over the model
@@ -45,10 +52,12 @@ after ``out_proj`` and ``c_proj``, the row-parallel biases added on the
 token slice; the ViT cuts the tokens after the embedding and gathers them
 before the head (``collectives.sp_split`` / ``sp_gather``).  The gradients of
 the block leaves that stay whole (``sp_partial``: the LayerNorms, the
-row-parallel biases, LoRA A, the MoE gate) are then this rank's part, from
-its tokens or its heads, and are summed over the model group before the
-data group's mean; the cut leaves' gradients are whole on their rank, and
-the embedding's and the head's are equal on every model rank.
+row-parallel biases, LoRA A, the MoE gate, the hooks' leaves) are then this
+rank's part, from its tokens or its heads, and so is the deep prompts'
+(only the rank that holds a prompt's position replaces it); they are summed
+over the model group before the data group's mean.  The cut leaves'
+gradients are whole on their rank, and the embedding's, the shallow
+prompts' and the head's are equal on every model rank.
 
 On the card each step is a ``engine.train.StepGraph`` replay, its
 collectives captured with it; the group's communicator is made by one eager
@@ -68,12 +77,11 @@ from torch import nn
 
 from ..engine import train as _train
 from ..engine.train import ApplyFn, PerExampleCriterion, TrainCellState, make_eval_fn, sgd_update
-from ..models.layers import (TP_HOOKS_ITEM, TP_INT8_ITEM, Block, Int8Dense, MultiHeadAttention,
-                             tensor_parallel, tp_refused)
+from ..models.layers import MultiHeadAttention, tensor_parallel
 from ..peft.masks import merge_params
-from .collectives import (all_gather_dim, copy_to_model, psum_mean, reduce_from_model,
-                          reduce_scatter_dim, sp_all_gather, sp_gather, sp_reduce_scatter,
-                          sp_split, sum_all_reduce)
+from .collectives import (ModelComm, all_gather_dim, copy_to_model, psum_mean,
+                          reduce_from_model, reduce_scatter_dim, sp_all_gather, sp_gather,
+                          sp_reduce_scatter, sp_split, sum_all_reduce)
 from .mesh import Mesh, stack_lead, tp_cut, tp_slice, tp_unslice, zero_dim
 
 Tensors = Dict[str, torch.Tensor]
@@ -81,26 +89,17 @@ Tensors = Dict[str, torch.Tensor]
 
 def check_tensor_parallel(model: nn.Module, model_degree: int) -> None:
     """Raise unless tensor parallelism over ``model_degree`` ranks covers
-    ``model``: a ViT classifier whose heads and MLP width split over the
-    ranks, with no int8 GEMM and no hook on the split activations."""
+    ``model``: a ViT classifier whose heads split over the ranks."""
     from ..models.vit import VisionTransformer
 
     backbone = getattr(model, "backbone", model)
     if not isinstance(backbone, VisionTransformer):
-        raise NotImplementedError(f"tensor parallelism covers the ViT, not a "
-                                  f"{type(backbone).__name__} ({TP_HOOKS_ITEM})")
-    if getattr(backbone, "num_prompts", 0) > 0:
-        raise tp_refused("VPT (prompt tokens)", TP_HOOKS_ITEM)
-    for name, m in model.named_modules():
-        if isinstance(m, Int8Dense):
-            raise tp_refused(f"the int8 GEMM {name}", TP_INT8_ITEM)
-        if isinstance(m, Block) and (hasattr(m, "adapter") or hasattr(m, "compacter")):
-            raise tp_refused(f"the {'adapter' if hasattr(m, 'adapter') else 'Compacter'} of "
-                             f"{name}", TP_HOOKS_ITEM)
-        if isinstance(m, MultiHeadAttention):
-            m.check_tensor_parallel()
-            if m.heads % model_degree:
-                raise ValueError(f"{m.heads} heads do not split over {model_degree} ranks")
+        raise NotImplementedError(
+            f"tensor parallelism covers the ViT, not a {type(backbone).__name__} (ROADMAP §1, "
+            "parallelism (tensor parallelism beyond the ViT))")
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention) and m.heads % model_degree:
+            raise ValueError(f"{m.heads} heads do not split over {model_degree} ranks")
 
 
 def _zero_slice(t: torch.Tensor, dim, mesh: Mesh) -> torch.Tensor:
@@ -116,19 +115,32 @@ def tp_context(mesh: Mesh, sequence_parallel: bool = False):
     if mesh.model == 1:
         return contextlib.nullcontext()
     group = mesh.model_group
+    comm = ModelComm(group, bool(sequence_parallel))
     if sequence_parallel:
         return tensor_parallel(*(functools.partial(fn, group=group) for fn in (
-            sp_all_gather, sp_reduce_scatter, sp_split, sp_gather)))
+            sp_all_gather, sp_reduce_scatter, sp_split, sp_gather)), comm=comm)
     return tensor_parallel(functools.partial(copy_to_model, group=group),
-                           functools.partial(reduce_from_model, group=group))
+                           functools.partial(reduce_from_model, group=group), comm=comm)
 
 
 def sp_partial(name: str) -> bool:
     """Whether the gradient of the leaf ``name`` under sequence parallelism
     is this rank's part of it: a block leaf that ``tp_cut`` leaves whole
-    sees only this rank's tokens (the LayerNorms, the row-parallel biases)
-    or its heads (LoRA A, the MoE gate)."""
-    return ".blocks." in f".{name}" and tp_cut(name, ()) is None
+    sees only this rank's tokens (the LayerNorms, the row-parallel biases,
+    the adapters) or its heads (LoRA A, the MoE gate, the kron leaves, the
+    shared qkv adapter); the deep prompts only the rank that holds their
+    positions."""
+    return ((".blocks." in f".{name}" and tp_cut(name, ()) is None)
+            or name.endswith("deep_prompt_embeddings"))
+
+
+def tp_partial(name: str) -> bool:
+    """Whether the gradient of the leaf ``name`` under tensor parallelism
+    (the tokens whole) is this rank's part of it: a replicated leaf that only
+    this rank's heads read, the kron leaves and the shared qkv adapter's."""
+    leaf = name.rsplit(".", 1)[-1]
+    return ".attn." in name and (leaf in ("phm_rule", "phmb") or leaf.startswith(
+        ("W_left", "W_right")) or ".qkv_adapter." in name)
 
 
 def tp_place(mesh: Mesh, tensors: Tensors) -> Tensors:
@@ -195,7 +207,8 @@ def make_sharded_train_step(apply_fn: ApplyFn, criterion: PerExampleCriterion, m
             part, part_g = {}, {}
             for (k, v), g in zip(trainable.items(), grads):
                 g = torch.zeros_like(v) if g is None else g
-                if seq and sp_partial(k):  # the model group's tokens or heads
+                partial = sp_partial(k) if seq else mesh.model > 1 and tp_partial(k)
+                if partial:  # the model group's tokens or heads
                     g = sum_all_reduce(g, mesh.model_group)
                 dim = dim_of(k, v)
                 if dim is None:

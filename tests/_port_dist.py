@@ -55,17 +55,29 @@ def _entry(rank, fn, world, tmp, args):
 def spawn(fn, world: int, tmp_path, *args):
     """``[fn(rank, *args) for rank in range(world)]``, each in its own process
     of one gloo group."""
+    return spawn_start(fn, world, tmp_path, *args)()
+
+
+def spawn_start(fn, world: int, tmp_path, *args):
+    """``spawn`` without the wait: the processes start, and the function
+    returned waits for them and returns their results, so that the caller
+    works meanwhile."""
     tmp = str(tmp_path)
     ctx = mp.start_processes(_entry, args=(fn, world, tmp, args), nprocs=world, join=False,
                              start_method="spawn")
     deadline = time.monotonic() + SPAWN_TIMEOUT_S
-    while not ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"{world} spawned processes still ran after {SPAWN_TIMEOUT_S} s")
-    return [torch.load(os.path.join(tmp, f"result{r}.pt"), weights_only=False)
-            for r in range(world)]
+
+    def results():
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"{world} spawned processes still ran after "
+                                   f"{SPAWN_TIMEOUT_S} s")
+        return [torch.load(os.path.join(tmp, f"result{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+    return results
 
 
 def tiny_lora(variables):
@@ -546,3 +558,258 @@ def pipe_runs(rank, stacked, x, trainer_params, tx, ty):
     out["trainer"] = run_trainer(tr, tx, ty, 0, 1, epochs=2)
     out["microbatches"] = tr.pp_microbatches
     return out
+
+
+# -- tensor and sequence parallelism under the hooks and int8 -------------------------
+# (tests/test_torch_port_tp_hooks.py)
+
+#: the base LoRA of the int8 recipes (the tiny flagship's)
+HOOK_LORA = dict(attn_delta="lora", lora_rank=4, lora_alpha=128.0, lora_post_scale_q=True)
+#: every int8 recipe: (int8 dx, static scales, int8 attention)
+INT8_RECIPES = {"int8": (True, True, False), "int8_prequant": (False, False, False),
+                "int8_prequant_dx": (True, False, False), "int8_static": (False, True, False),
+                "int8_attn": (True, True, True)}
+#: each hook alone: its PEFTSpec fields, its mask's method and the image size
+#: (48 px: 3 x 3 patches and the class token, 10 tokens, 5 a rank; the deep
+#: prompts at 32 px: 2 x 2 + 1 + 5 prompts, so that the prompts' rows 1-5
+#: straddle the ranks' slices 0-4 and 5-9)
+HOOKS = {
+    "adapter": (dict(adapter="houlsby", adapter_dim=8), "adapter", 48),
+    "adapterdrop": (dict(adapter="houlsby", adapter_dim=8, adapter_layers=(1,)), "adapterdrop",
+                    48),
+    "compacter": (dict(adapter="compacter", compacter_phm_dim_down=4), "compacter", 48),
+    "kadaptation": (dict(attn_delta="kron"), "kadaptation", 48),
+    "shared_qkv": (dict(HOOK_LORA, attn_adapter="shared_qkv"), "lora", 48),
+    "lepe": (dict(lepe=True), "lepe", 48),
+    "lepe_ref_qkv": (dict(lepe=True, lepe_ref_qkv=True), "lepe", 48),
+    "rpb": (dict(attn_bias="rpb"), "rpb", 48),
+    "lora_ref_reshape": (dict(HOOK_LORA, lora_ref_reshape=True), "lora", 48),
+    "vpt": (dict(prompt_tokens=5, prompt_deep=True), "vpt", 32),
+    **{k: (HOOK_LORA, "lora", 48) for k in INT8_RECIPES},
+}
+HOOK_SEED = 30
+HOOK_STEPS = 2
+
+
+def hook_model(hook: str):
+    """The tiny fp32 flagship (width 64, 2 blocks, 4 heads) with ``hook``
+    alone, drawn from ``HOOK_SEED`` (every zero leaf redrawn at 0.02 so that
+    each acts): the model, its trainable leaves and the frozen tensors a step
+    takes (the int8 tree, quantized whole, and the static scales of one
+    whole-model calibration forward of ``hook_batch``'s images)."""
+    from peft_vit_tpu_torch.engine.train import calibrate
+    from peft_vit_tpu_torch.models import ImageClassifier, VisionTransformer
+    from peft_vit_tpu_torch.ops.int8 import quantize_frozen_tree
+    from peft_vit_tpu_torch.peft import PEFTSpec
+
+    fields, method, image = HOOKS[hook]
+    dx, static, attn = INT8_RECIPES.get(hook, (False, False, False))
+    torch.manual_seed(HOOK_SEED)
+    t = TINY_DP
+    model = ImageClassifier(
+        VisionTransformer(image_size=image, patch_size=t["patch"], width=t["width"],
+                          layers=t["layers"], heads=t["heads"], output_dim=512,
+                          spec=PEFTSpec(method=method, **fields), int8_train=hook in INT8_RECIPES,
+                          int8_attn=attn, dtype=torch.float32, device="cpu"),
+        num_classes=t["num_classes"], dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.abs().sum():
+                p.normal_(0.0, 0.02)
+    trainable, frozen = split_params(model, build_mask(model, method, num_layers=t["layers"]))
+    extra = {}
+    if hook in INT8_RECIPES:
+        extra = quantize_frozen_tree(frozen, bwd_dx=dx)
+        if static:
+            extra.update(calibrate(model, make_apply_fn(model), dict(trainable),
+                                   hook_batch(image)[0], 1.5))
+    return model, trainable, extra
+
+
+def hook_batch(image: int):
+    rng = np.random.RandomState(HOOK_SEED + 1)
+    x = rng.standard_normal((8, image, image, 3)).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(np.arange(8) % TINY_DP["num_classes"])
+
+
+def local_steps(model, trainable, frozen, x, y, lr, wd, steps) -> dict:
+    """``steps`` SGD steps of the sharded step's arithmetic in one process
+    (no group): the losses and the trainable leaves."""
+    from peft_vit_tpu_torch.engine.train import TrainCellState, sgd_update
+    from peft_vit_tpu_torch.peft import merge_params
+
+    apply_fn = make_apply_fn(model)
+    state = init_cell_state(trainable)
+    lr, wd = torch.tensor(lr, dtype=torch.float32), torch.tensor(wd, dtype=torch.float32)
+    losses = []
+    for i in range(steps):
+        leaves = {k: v.detach().requires_grad_() for k, v in state.trainable.items()}
+        logits = apply_fn(merge_params(leaves, frozen), x, True)
+        loss = ce_per_example(logits.to(torch.float32), y).mean()
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        with torch.no_grad():
+            g = {k: torch.zeros_like(v) if d is None else d
+                 for (k, v), d in zip(leaves.items(), grads)}
+            new = sgd_update(g, TrainCellState(state.trainable, state.momentum, i), lr, wd,
+                             0.9, True)
+        state = TrainCellState(new.trainable, new.momentum, i + 1)
+        losses.append(float(loss.detach()))
+    return {"losses": losses, "trainable": _numpy(state.trainable)}
+
+
+def _sharded(mesh, model, trainable, frozen, x, y, lr, wd, steps, seq) -> dict:
+    from peft_vit_tpu_torch.parallel import tp_gather
+
+    step, place = make_sharded_train_step(make_apply_fn(model), ce_per_example, mesh,
+                                          model=model, sequence_parallel=seq)
+    state, frozen = place(init_cell_state(trainable), frozen)
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, frozen, x, y, lr, wd)
+        losses.append(float(loss))
+    return {"losses": losses, "trainable": _numpy(tp_gather(mesh, state.trainable))}
+
+
+def hooked_trainer(cfg):
+    """The Trainer of the JAX trainer tests' timm ViT (16 px, patch 8: 2 x 2
+    + cls, width 32, 2 heads, 2 blocks) with 5 deep prompts (rows 1-5 of 10
+    tokens), the Houlsby adapter and the int8 GEMMs, drawn from
+    ``HOOK_SEED``; the prompts, adapters and head train."""
+    from peft_vit_tpu_torch.engine.trainer import Trainer
+    from peft_vit_tpu_torch.models import ImageClassifier
+    from peft_vit_tpu_torch.models.vit import VisionTransformer
+    from peft_vit_tpu_torch.peft import PEFTSpec
+
+    torch.manual_seed(HOOK_SEED + 2)
+    spec = PEFTSpec(method="vpt", prompt_tokens=5, prompt_deep=True, adapter="houlsby",
+                    adapter_dim=8)
+    model = ImageClassifier(VisionTransformer(image_size=16, patch_size=8, width=32, layers=2,
+                                              heads=2, style="timm", spec=spec, int8_train=True,
+                                              device="cpu"), num_classes=4, device="cpu")
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.abs().sum():
+                p.normal_(0.0, 0.02)
+    mask = build_mask(model, "vpt", num_layers=2, extra_regex="/adapter/")
+    return Trainer(cfg, model, mask, TRAINER_STEPS)
+
+
+#: the hooked Trainer's config: one epoch of SGD at a constant rate under
+#: the int8 static recipe (the int8 dx is held by the sharded steps: over an
+#: epoch a last-bit difference of the shards' upstream sums flipped one dx
+#: code, 9.3e-6 on one prompt row)
+HOOK_TRAINER = {"TRAIN.LR": 0.05, "TRAIN.BATCH_SIZE_PER_GPU": 8,
+                "TRAIN.LR_SCHEDULER.METHOD": "constant", "TRAIN.END_EPOCH": 1,
+                "TPU.INT8_FWD_TRAIN": True, "TPU.INT8_STATIC_ACT": True}
+
+
+def tp_hook_runs(rank, combined, int8_model, lr, wd, steps, tx, ty):
+    """On a mesh of data 1 x model 2: ``steps`` sharded steps under tensor
+    and under sequence parallelism of the JAX-drawn models, each given as
+    (variables, frozen tensors, x, y) (``combined``: the tower with every
+    hook at once, no frozen tensors; ``int8_model``: the LoRA tower with
+    int8, the bridged int8 tree and scales), of each hook and int8 recipe alone
+    (``HOOKS``), the same step with the model group's sum of the kron leaves
+    (tensor parallelism) and of the deep prompts (sequence parallelism) left
+    out, an epoch of the hooked Trainer under sequence parallelism (both
+    ranks on the whole batch), and a step of ViT-B/16's geometry with one
+    prompt (``VITB16_SP``)."""
+    from peft_vit_tpu_torch.parallel import train_step as ts
+
+    mesh = make_mesh(data=1, model=2)
+    out = {"mesh": (tuple(mesh), mesh.model_rank)}
+    for key, (variables, extra, x, y) in (("combined", combined), ("int8_model", int8_model)):
+        model = combined_model(variables) if key == "combined" else int8_tower(variables)
+        method = "full" if key == "combined" else "lora"
+        trainable, _ = split_params(model, build_mask(model, method, num_layers=2))
+        frozen = {k: torch.from_numpy(v) for k, v in extra.items()}
+        xs, ys = torch.from_numpy(x), torch.from_numpy(y)
+        for seq in (False, True):
+            out[(key, seq)] = _sharded(mesh, model, trainable, frozen, xs, ys, lr, wd, steps, seq)
+    for hook, (_, _, image) in HOOKS.items():
+        model, trainable, frozen = hook_model(hook)
+        hx, hy = hook_batch(image)
+        for seq in (False, True):
+            out[(hook, seq)] = _sharded(mesh, model, trainable, frozen, hx, hy, lr, wd,
+                                        HOOK_STEPS, seq)
+    saved = ts.tp_partial, ts.sp_partial
+    for hook, seq in (("kadaptation", False), ("vpt", True)):
+        model, trainable, frozen = hook_model(hook)
+        hx, hy = hook_batch(HOOKS[hook][2])
+        ts.tp_partial = lambda name: False
+        ts.sp_partial = lambda name: saved[1](name) and "prompt" not in name
+        try:
+            out[(hook, "unsummed")] = _sharded(mesh, model, trainable, frozen, hx, hy, lr, wd,
+                                               HOOK_STEPS, seq)
+        finally:
+            ts.tp_partial, ts.sp_partial = saved
+    cfg = trainer_cfg(port_config, **HOOK_TRAINER, **SP_MESH)
+    out["trainer"] = run_trainer(hooked_trainer(cfg), tx, ty, 0, 1, epochs=1)
+    model, trainable = vitb16_prompt_model()
+    vx, vy = vitb16_batch()
+    out["vitb16"] = _sharded(mesh, model, trainable, {}, vx, vy, lr, wd, 1, True)
+    return out
+
+
+#: ViT-B/16's token geometry (224 px, patch 16: 196 patches and the class
+#: token) with the one VPT prompt the JAX factory prescribes for a model
+#: degree of 2 (198 tokens, 99 a rank), deep, at the JAX contract test's
+#: width 64, 2 blocks, 2 heads
+VITB16_SP = {"MODEL.NAME": "clip_tiny", "TRAIN.IMAGE_SIZE": [224, 224],
+             "MODEL.SPEC.VISION.PATCH_SIZE": 16, "MODEL.SPEC.VISION.WIDTH": 64,
+             "MODEL.SPEC.VISION.LAYERS": 2, "MODEL.SPEC.VISION.HEADS": 2,
+             "PEFT.METHOD": "vpt", "PEFT.PROMPT_TOKENS": 1, "PEFT.PROMPT_DEEP": True,
+             "TPU.SEQUENCE_PARALLEL": True, "TPU.MESH.MODEL": 2}
+
+
+def vitb16_prompt_model():
+    """``build_image_classifier`` at ``VITB16_SP`` (5 classes, the factory's
+    seed; every zero leaf redrawn from ``HOOK_SEED``) and its VPT leaves."""
+    from peft_vit_tpu_torch.models import build_image_classifier
+    from peft_vit_tpu_torch.peft import spec_from_config
+
+    cfg = set_keys(port_config.get_default_config(), VITB16_SP)
+    model, _, _ = build_image_classifier(cfg, spec_from_config(cfg), 5, device="cpu")
+    gen = torch.Generator().manual_seed(HOOK_SEED)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.abs().sum():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    trainable, _ = split_params(model, build_mask(model, "vpt", num_layers=2))
+    return model, trainable
+
+
+def vitb16_batch():
+    rng = np.random.RandomState(HOOK_SEED + 3)
+    x = rng.standard_normal((2, 224, 224, 3)).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(np.arange(2, dtype=np.int64))
+
+
+def combined_model(variables):
+    """The tiny fp32 tower (32 px: 2 x 2 patches, the class token and 5 deep
+    prompts, 10 tokens) with every hook the JAX PEFTSpec takes at once:
+    KAdaptation's kron deltas, the Houlsby adapter, the shared qkv adapter,
+    LePE, RPB and deep VPT, on ``variables`` (the JAX tree)."""
+    from peft_vit_tpu_torch.models import ImageClassifier, VisionTransformer
+    from peft_vit_tpu_torch.peft import PEFTSpec
+
+    t = TINY_DP
+    model = ImageClassifier(
+        VisionTransformer(image_size=t["image"], patch_size=t["patch"], width=t["width"],
+                          layers=t["layers"], heads=t["heads"], output_dim=512,
+                          spec=PEFTSpec(**COMBINED), dtype=torch.float32, device="cpu"),
+        num_classes=t["num_classes"], dtype=torch.float32, device="cpu")
+    return load_jax_variables(model, variables)
+
+
+#: every hook at once (``combined_model``), the JAX PEFTSpec's fields
+COMBINED = dict(method="full", attn_delta="kron", adapter="houlsby", adapter_dim=8,
+                attn_adapter="shared_qkv", lepe=True, attn_bias="rpb", prompt_tokens=5,
+                prompt_deep=True)
+
+
+def int8_tower(variables):
+    """The tiny fp32 LoRA flagship at 48 px with the int8 GEMMs (static
+    scales, int8 dx) on ``variables`` (the JAX tree)."""
+    return load_jax_variables(flagship(**SP_DP, dtype=torch.float32, int8_train=True,
+                                       device="cpu"), variables)

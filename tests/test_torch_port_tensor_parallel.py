@@ -4,8 +4,8 @@ against the JAX package on the CPU: the cut of each leaf against the JAX
 mesh of data 1 x model 2, two sharded SGD steps of the tiny LoRA flagship
 and the eval step against JAX's ``make_sharded_train_step`` on a mesh of the
 same shape (2 of the 8 virtual CPU devices), and two ZeRO-1 steps of the
-tower with the LoRA-MoE gate; the dryrun over 2 processes; and the refusals
-of what tensor parallelism does not cover.
+tower with the LoRA-MoE gate; the dryrun over 2 processes.  The hooks and
+int8 under tensor parallelism: ``test_torch_port_tp_hooks.py``.
 
 The JAX spec of ``in_proj``'s kernel, ``P(None, "model")``, splits its
 output columns contiguously; the port cuts the rank's heads of q, of k and
@@ -32,13 +32,10 @@ from peft_vit_tpu.peft import PEFTSpec as JaxSpec
 from peft_vit_tpu.peft import build_mask as jax_build_mask
 from peft_vit_tpu.peft import split_params as jax_split
 from peft_vit_tpu_torch import parallel
-from peft_vit_tpu_torch.engine import ce_per_example, make_apply_fn
-from peft_vit_tpu_torch.models import ImageClassifier, VisionTransformer, flagship
+from peft_vit_tpu_torch.models import flagship
 from peft_vit_tpu_torch.models import params_to_jax
 from peft_vit_tpu_torch.models.convert import jax_path
 from peft_vit_tpu_torch.parallel.dryrun import dryrun_multichip
-from peft_vit_tpu_torch.parallel.mesh import Mesh
-from peft_vit_tpu_torch.peft import PEFTSpec
 
 import _port_dist
 from test_torch_port_model import randomize
@@ -202,37 +199,3 @@ def test_dryrun_multichip_runs_on_the_card_unless_told():
     raises before it starts a process."""
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         dryrun_multichip(2)
-
-
-REFUSED = {
-    "adapter": ({"adapter": "houlsby"}, "adapter"),
-    "compacter": ({"adapter": "compacter", "compacter_phm_dim_down": 4}, "Compacter"),
-    "lepe": ({"lepe": True}, "LePE"),
-    "rpb": ({"attn_bias": "rpb"}, "RPB"),
-    "vpt": ({"prompt_tokens": 2}, "VPT"),
-    "kadaptation": ({"attn_delta": "kron"}, "KAdaptation"),
-    "shared_qkv": ({"attn_adapter": "shared_qkv"}, "shared qkv adapter"),
-    "int8": (None, "int8 GEMM"),
-}
-
-
-@pytest.mark.parametrize("hook", sorted(REFUSED))
-def test_refused_hooks_name_their_items(hook):
-    """What tensor parallelism does not cover raises at the step's build and
-    names its ROADMAP item: the hooks on the split activations, int8."""
-    over, what = REFUSED[hook]
-    t = _port_dist.TINY_DP
-    if over is None:
-        model = flagship(**t, dtype=torch.float32, int8_train=True, device="cpu")
-        item = r"ROADMAP §1, parallelism \(tensor parallelism under int8\)"
-    else:
-        spec = PEFTSpec(method="lora", attn_delta="lora", **over) if "attn_delta" not in over \
-            else PEFTSpec(method="kadaptation", **over)
-        model = ImageClassifier(VisionTransformer(
-            image_size=t["image"], patch_size=t["patch"], width=t["width"], layers=t["layers"],
-            heads=t["heads"], output_dim=512, spec=spec, dtype=torch.float32, device="cpu"),
-            num_classes=t["num_classes"], dtype=torch.float32, device="cpu")
-        item = r"ROADMAP §1, parallelism \(tensor parallelism under the adapters"
-    with pytest.raises(NotImplementedError, match=what + ".*" + item):
-        parallel.make_sharded_train_step(make_apply_fn(model), ce_per_example,
-                                         Mesh(1, model=MODEL), model=model)
