@@ -7,11 +7,10 @@ both builds.
     git archive <rev> peft_vit_tpu_torch | tar -x -C build/parent
     python3 check_kernels_parent.py --parent build/parent [--time]
 
-``--parent DIR`` holds an earlier ``peft_vit_tpu_torch`` package.  Its
-``ops/attention.py`` and ``ops/int8.py`` are loaded beside the current ones, each with its own
-``ops/_build.py`` (the parent's builds its ``csrc/`` into ``DIR/build/``),
-so each build is called through its own wrappers, whatever its C
-interface.  Both run on the same inputs: K1 (with and without a bias, with
+``--parent DIR`` holds an earlier ``peft_vit_tpu_torch`` package.  It is
+loaded beside the current one as ``_parent_pkg`` (``parent_package``), its
+``ops/_build.py`` building its ``csrc/`` into ``DIR/build/``, so each build
+is called through its own wrappers, whatever its C interface.  Both run on the same inputs: K1 (with and without a bias, with
 lse), K2 (dq and delta), K3 (dk, dv), K7 (delta given, and from o), K4 and
 K5, bf16 and fp32, at N = 8, 50, 197, 257 and 577, one bias or three cells;
 K6 dynamic and static, bf16 and fp32, at the ViT-B/16 GEMMs' shapes and
@@ -27,15 +26,19 @@ any differs.
 ``--time`` then times K7 (bf16, delta given) of both builds in turns
 (parent, current, current, parent; CUDA-graph replay) at ViT-B/16 (16, 12,
 197, 64) and Swin-T's stage-0 and stage-2 folds at B = 64 (64, 192 / 48,
-49, 32, the shifted block's bias).
+49, 32, the shifted block's bias).  ``--host`` times, in the same turns,
+the host cost of the K1 and K6 wrappers and of an eager ViT-B/16 forward,
+the parent's models and serving beside the current ones (``time_host``).
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib
+import importlib.util
+import statistics
 import sys
-import types
+import time
 from pathlib import Path
 
 import torch
@@ -52,15 +55,94 @@ INT8_CASES = ((3152, 768, 2304), (3152, 768, 768), (3152, 768, 3072), (3152, 307
               (197, 768, 2304), (3152, 2304, 768), (63, 192, 64), (65, 704, 192), (1, 3072, 64))
 
 
-def parent_attention(parent: Path):
-    """The parent tree's ``ops/attention.py`` as the module
-    ``_parent_ops.attention``, beside the current one: its relative imports
-    (``ops/_build.py``, which builds the parent's ``csrc/`` into
-    ``parent/build/peft_vit_tpu_torch``) resolve in the parent's ``ops/``."""
-    package = types.ModuleType("_parent_ops")
-    package.__path__ = [str(parent / "peft_vit_tpu_torch" / "ops")]
-    sys.modules["_parent_ops"] = package
-    return importlib.import_module("_parent_ops.attention")
+def parent_package(parent: Path):
+    """The parent tree's ``peft_vit_tpu_torch`` as the package ``_parent_pkg``,
+    beside the current one: its relative imports resolve in the parent's
+    tree, its ``ops/_build.py`` builds the parent's ``csrc/`` into
+    ``parent/build/peft_vit_tpu_torch``, and its kernels' ops (if it
+    registers any) take the namespace ``_parent_pkg``."""
+    root = parent / "peft_vit_tpu_torch"
+    spec = importlib.util.spec_from_file_location("_parent_pkg", root / "__init__.py",
+                                                  submodule_search_locations=[str(root)])
+    package = importlib.util.module_from_spec(spec)
+    sys.modules["_parent_pkg"] = package
+    spec.loader.exec_module(package)
+    return package
+
+
+def _host_us(fn, calls: int) -> float:
+    """Host time of ``calls`` back-to-back calls of ``fn``, µs a call (the
+    card drained before and after, neither timed)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def time_host(older) -> None:
+    """The host cost of the kernels' launches, the parent tree against the
+    current one in turns (parent, current, current, parent): the public
+    wrappers of K1 (1, 12, 197, 64) bf16 and K6 dynamic at in_proj's
+    (197, 768) x (2304, 768), µs a call over 500 calls, 8 turns; and the
+    eager ViT-B/16 LoRA eval forward (12 blocks, bf16 and int8, B = 1 and
+    8) of each tree's ``flagship`` and ``make_infer_fn`` on the same
+    weights, ms a forward ending in a synchronize, the median and the least
+    of 8 turns of 20."""
+    import numpy as np
+
+    import peft_vit_tpu_torch as current
+    from peft_vit_tpu_torch.engine.serving import make_infer_fn
+    from peft_vit_tpu_torch.models import flagship, params_from_jax
+
+    trees = {"parent": older, "current": current}
+    infer = {"parent": importlib.import_module("_parent_pkg.engine.serving").make_infer_fn,
+             "current": make_infer_fn}
+    build = {"parent": importlib.import_module("_parent_pkg.models").flagship,
+             "current": flagship}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn((1, HEADS, 197, HEAD_DIM), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    x = torch.randn((197, 768), generator=gen, device="cuda", dtype=torch.bfloat16)
+    w_i8, s_w = current.ops.int8.quantize_cols(
+        torch.randn((2304, 768), generator=gen, device="cuda"))
+    calls = {"K1 flash_attention_fwd": lambda t: t.ops.attention.flash_attention_fwd(
+                 q, k, v, None, 0.125),
+             "K6 int8_gemm_dynamic": lambda t: t.ops.int8.int8_gemm_dynamic(x, w_i8, s_w)}
+    order = ("parent", "current", "current", "parent")
+    for name, call in calls.items():
+        times = {w: [] for w in trees}
+        for which in order * 2:
+            times[which].append(_host_us(lambda: call(trees[which]), 500))
+        print(f"host time {name} wrapper: parent " + " / ".join(
+            f"{t:.2f}" for t in times["parent"]) + " us, current " + " / ".join(
+            f"{t:.2f}" for t in times["current"]) + " us a call (turns parent, current, current, "
+            f"parent, twice); {chip_smoke.nvidia_smi()}", flush=True)
+    state = params_from_jax(chip_smoke.jax_layout_tree(np.random.RandomState(3), layers=12))
+    shape = dict(width=768, layers=12, heads=HEADS, image=224, patch=16,
+                 num_classes=chip_smoke.NUM_CLASSES, use_bn=True)
+    for int8 in (False, True):
+        fns = {w: infer[w](build[w](**shape, int8=int8, device="cuda"), state) for w in trees}
+        for n in (1, 8):
+            img = torch.randn((n, 224, 224, 3), generator=gen, device="cuda")
+            same = torch.equal(fns["parent"](img), fns["current"](img))
+            times = {w: [] for w in trees}
+            for which in order * 2:
+                fn = fns[which]
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    fn(img)
+                    torch.cuda.synchronize()
+                    times[which].append((time.perf_counter() - t0) * 1e3)
+            print(f"eager ViT-B/16 LoRA {'int8' if int8 else 'bf16'} forward B={n}: "
+                  + "; ".join(f"{w} median {statistics.median(t):.3f} min {min(t):.3f} ms"
+                              for w, t in times.items())
+                  + " (8 turns of 20 forwards, parent first, host clock ending in a "
+                  f"synchronize); logits equal: {same}; {chip_smoke.nvidia_smi()}", flush=True)
+        del fns
 
 
 def int8_outputs(i8, gen) -> dict:
@@ -134,13 +216,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--time", action="store_true", help="also time K7 of both builds")
+    ap.add_argument("--host", action="store_true",
+                    help="also time the K1 and K6 wrappers and an eager ViT-B/16 forward of "
+                         "both trees on the host")
     args = ap.parse_args()
     from peft_vit_tpu_torch.ops import attention as attn
 
     from peft_vit_tpu_torch.ops import int8 as i8
 
-    older = parent_attention(args.parent.resolve())
-    older_i8 = importlib.import_module("_parent_ops.int8")
+    parent = parent_package(args.parent.resolve())
+    older = importlib.import_module("_parent_pkg.ops.attention")
+    older_i8 = importlib.import_module("_parent_pkg.ops.int8")
     for module in (attn, older):  # each build's sources in parallel
         module._build.build()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -192,6 +278,8 @@ def main() -> int:
           f"{worst_k7:.3e}; every other bit for bit), {len(differ)} differ", flush=True)
     if args.time:
         time_bias_grad(attn, older)
+    if args.host:
+        time_host(parent)
     return 1 if differ else 0
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, few-shot driver,
 intrinsic-dimension, CLIP pre-training, multi-process, sequence-parallel,
-stacked-layout and pipelined paths on one NVIDIA H100 and check them.
+stacked-layout and pipelined paths and its export and profiling tools on
+one NVIDIA H100 and check them.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -369,6 +370,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (int8 within its bound), K1-K3 and K7 twice the whole model's launches
    (once a shard) and on RPB's shards' operands against their plain
    versions.
+23. tools: the deployment and measurement tools on ViT-B/16 LoRA at full
+   width and all 12 blocks.  ``export_classifier`` in bf16 and int8 with a
+   symbolic batch (the graph names the kernels' ops); the bf16 artifact
+   reloaded from its bytes in a child process that imports torch and
+   ``peft_vit_tpu_torch.ops`` alone (no model code), the int8 one in this
+   process; batches 1, 8 and 32 against ``ServingSession``'s buckets (bit
+   for bit, else 1e-3 of the largest logit); one exported forward launches
+   K1 12 times (and K6 48 in int8); the exported forward's latency beside the
+   bucket's, the export and load times.  ``export_main --check`` from a port
+   checkpoint (fp32, vitb16_CLIP.yaml).  The profiled LoRA train step at B =
+   16: its loss captured == eager bit for bit, ``profile.main``'s table with
+   K1, K2 and K3 12 times a step and its categories summing to the busy
+   time within 1 %.  ``model_summary``'s forward and train-step FLOPs equal
+   on the card, on the CPU and by the analytic count.  ``debug_run`` on the
+   tiny drive scoring as ``commands.run``.  The host time of a launch
+   through its registered op beside the launcher called directly.
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -377,12 +394,16 @@ numbers and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import atexit
+import collections
 import contextlib
 import copy
 import functools
+import gc
+import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2110,10 +2131,11 @@ def int8_kernel_timing(i8, rand, weights, shapes, result: dict) -> None:
                 for key, val in row.items()), flush=True)
 
 
-def jax_layout_tree(rng: np.random.RandomState, num_classes: int = NUM_CLASSES) -> dict:
+def jax_layout_tree(rng: np.random.RandomState, num_classes: int = NUM_CLASSES,
+                    layers: int = None) -> dict:
     """Random flagship weights in the JAX package's variable layout (the
     names a flax init produces; Dense kernels (in, out), conv HWIO), with a
-    head of ``num_classes``."""
+    head of ``num_classes``, ``layers`` blocks (default ``LAYERS``)."""
 
     def normal(*shape, std):
         return (std * rng.standard_normal(shape)).astype(np.float32)
@@ -2133,7 +2155,7 @@ def jax_layout_tree(rng: np.random.RandomState, num_classes: int = NUM_CLASSES) 
         "ln_post": layer_norm(),
         "proj": normal(WIDTH, OUTPUT_DIM, std=WIDTH**-0.5),
     }
-    for i in range(LAYERS):
+    for i in range(LAYERS if layers is None else layers):
         attn = {"in_proj": dense(WIDTH, 3 * WIDTH), "out_proj": dense(WIDTH, WIDTH)}
         for t in ("q", "v"):
             attn[f"{t}_adapter1"] = {"kernel": normal(WIDTH, LORA_RANK, std=0.02)}
@@ -9144,38 +9166,530 @@ def gc_collect(on_card: bool) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the deployment and measurement tools.  ViT-B/16 LoRA at its full
+# width and all 12 blocks: exported (bf16 and int8) with a symbolic batch,
+# reloaded from bytes in a child process that imports torch and the ops
+# alone, against ServingSession's buckets; the export command from a port
+# checkpoint; profile.main on the LoRA train step; model_summary's FLOPs on
+# the card, on the CPU and by the analytic count; debug_run; the registered
+# ops' host time beside their launchers'.
+TOOLS_LAYERS = 12
+TOOLS_PROFILE_BATCH, TOOLS_K_CHAIN, TOOLS_STEPS = 16, 2, 2
+# The exported forward against the session's bucket: the same ops on the same
+# weights, so equal bit for bit unless a decomposition of torch.export routes a
+# product through another cuBLAS call; then the bf16 bound of one summation
+# order, 1e-3 of the largest logit, and the cause goes to PERF.md.
+TOL_EXPORT_REL = 1e-3
+TOOLS_DRIVER = {**DRIVER, "TPU.COMPUTE_DTYPE": "float32", "MODEL.NUM_CLASSES": DRIVER[
+    "DATASET.NUM_CLASSES"]}
+TOOLS_PROFILE = {**DRIVER, "MODEL.NUM_CLASSES": DRIVER["DATASET.NUM_CLASSES"]}
+# the child of the reload: torch and the ops alone, the artifact from bytes
+RELOAD_CHILD = r"""
+import io, sys, time
+import numpy as np
+import torch
+import peft_vit_tpu_torch.ops
+t0 = time.perf_counter()
+with open(sys.argv[1], "rb") as f:
+    module = torch.export.load(io.BytesIO(f.read())).module()
+load_s = time.perf_counter() - t0
+images = np.load(sys.argv[2])
+with torch.no_grad():
+    out = {k: module(torch.from_numpy(images[k]).cuda()).float().cpu().numpy()
+           for k in images.files}
+torch.cuda.synchronize()
+model_code = sorted(m for m in sys.modules if m.startswith("peft_vit_tpu_torch.")
+                    and not m.startswith("peft_vit_tpu_torch.ops"))
+np.savez(sys.argv[3], load_s=load_s, model_code=np.array(model_code, dtype=object), **out)
+"""
+
+
+def vit_products(width: int, layers: int, heads: int, image: int, patch: int, rank: int,
+                 targets: int, out_dim: int, classes: int) -> tuple:
+    """(forward, train step's gradient) FLOPs at B = 1 of the CLIP ViT with
+    LoRA on ``targets`` projections of every block, as the card computes them
+    (2 m n k a product): the patch embedding, a block's four GEMMs and
+    attention (K1: q k^T, p v), the adapters, proj on the class token, the
+    head; the gradient adds dx of every frozen GEMM whose input needs one (not
+    block 0's in_proj or adapters' input), dW and dx of the adapters and the
+    head, and K2 + K3 (3 + 4 products: both recompute the scores)."""
+    n = (image // patch) ** 2 + 1
+    w, r, e, c = width, rank, out_dim, classes
+    fwd = (2 * 3 * patch * patch * w * (n - 1) + 2 * w * e + 2 * e * c
+           + layers * (24 * n * w * w + 4 * n * n * w + 4 * targets * n * w * r))
+    bwd = (4 * e * c + 2 * w * e + layers * 14 * n * n * w + 18 * n * w * w
+           + 6 * targets * n * w * r + (layers - 1) * (24 * n * w * w + 8 * targets * n * w * r))
+    return fwd, fwd + bwd
+
+
+def _cli(over: dict) -> list:
+    """Config overrides as a command line's KEY VALUE pairs."""
+    return [x for k, v in over.items() for x in (k, str(v))]
+
+
+def start_reload_child(data: bytes, images: dict) -> tuple:
+    """The artifact reloaded from its bytes in a child process (torch and
+    ``peft_vit_tpu_torch.ops`` only) and run on ``images``, started here and
+    read by ``finish_reload_child``, so that this process works beside it."""
+    from pathlib import Path
+
+    root = Path(_results_dir())
+    (root / "artifact.pt2").write_bytes(data)
+    np.savez(root / "images.npz", **{str(n): x for n, x in images.items()})
+    repo = Path(__file__).resolve().parent
+    proc = subprocess.Popen([sys.executable, "-c", RELOAD_CHILD, str(root / "artifact.pt2"),
+                             str(root / "images.npz"), str(root / "out.npz")],
+                            cwd=str(repo), env=dict(os.environ, PYTHONPATH=str(repo)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    return proc, root, list(images)
+
+
+def finish_reload_child(child: tuple) -> dict:
+    """{batch: logits}, the child's load seconds and the package modules
+    outside ``ops`` it imported; {} when it failed."""
+    proc, root, batches = child
+    try:
+        log, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        log, _ = proc.communicate()
+    if proc.returncode != 0:
+        print(log[-4000:])
+        check(False, f"tools: the reload child exited {proc.returncode}")
+        return {}
+    out = np.load(root / "out.npz", allow_pickle=True)
+    return {"logits": {n: out[str(n)] for n in batches}, "load_s": float(out["load_s"]),
+            "model_code": list(out["model_code"])}
+
+
+def _host_ms(fn, reps: int = 10) -> float:
+    """Median wall time of ``fn()`` ending in a synchronize, ms."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def export_checks(smi: str, device: str) -> dict:
+    """bf16 and int8 ViT-B/16 LoRA exported with a symbolic batch; bf16
+    reloaded in a child process beside the bf16 checks and the int8 export,
+    int8 in this one; each batch against the session's bucket, the launches
+    of one exported forward, the latencies and where their time goes."""
+    from peft_vit_tpu_torch import ops
+    from peft_vit_tpu_torch.engine import ServingSession
+    from peft_vit_tpu_torch.engine.serving import export_classifier, load_exported
+    from peft_vit_tpu_torch.models import flagship, params_from_jax
+
+    rng = np.random.RandomState(SEED + 24)
+    state = params_from_jax(jax_layout_tree(rng, layers=TOOLS_LAYERS))
+    shape = dict(width=WIDTH, layers=TOOLS_LAYERS, heads=HEADS, image=IMAGE, patch=PATCH,
+                 num_classes=NUM_CLASSES, use_bn=True)
+    images = {n: rng.standard_normal((n, IMAGE, IMAGE, 3)).astype(np.float32) for n in BUCKETS}
+    result, child = {}, None
+    for label, int8 in (("bf16", False), ("int8", True)):
+        t0 = time.perf_counter()
+        data = export_classifier(flagship(**shape, int8=int8, device=device), state, IMAGE)
+        export_s = time.perf_counter() - t0
+        if not int8:  # the child reloads the bf16 artifact beside this process's work
+            child = start_reload_child(data, images)
+        else:  # and is waited for before the int8 latencies, which it would share the host with
+            child_alive = child[0].poll() is None
+            reloaded = finish_reload_child(child)
+            print(f"tools: the reload child was {'still' if child_alive else 'no longer'} "
+                  "running when the int8 export ended")
+        names = sorted(set(re.findall(r"peft_vit_tpu_torch\.(\w+)", str(
+            torch.export.load(io.BytesIO(data)).graph))))
+        want_op = "int8_gemm_dynamic" if int8 else "flash_attn_fwd"
+        check(want_op in names, f"tools: the {label} artifact's graph names its kernels' ops "
+                                f"{names}")
+        session = ServingSession(flagship(**shape, int8=int8, device=device), state, IMAGE,
+                                 buckets=BUCKETS)
+        want = {n: session.predict(x) for n, x in images.items()}
+        t0 = time.perf_counter()
+        fn = load_exported(data)
+        load_s = time.perf_counter() - t0
+        row = {"bytes": len(data), "export_s": export_s, "load_s": load_s, "ops": names}
+        if int8:  # in this process
+            _hold_exported(label, {n: fn(x).cpu().numpy() for n, x in images.items()}, want,
+                           row)
+        else:
+            bf16_want, bf16_row = want, row
+        # the exported forward's launches: counts from 0 just before, read just after
+        x8 = torch.from_numpy(images[BUCKETS[1]]).cuda()
+        fn(x8)
+        torch.cuda.synchronize()
+        for module, name in ops.KERNEL_WRAPPERS:
+            getattr(module, name).launches = 0
+        fn(x8)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want_counts = {"flash_attention_fwd": TOOLS_LAYERS,
+                       "int8_gemm_dynamic": 4 * TOOLS_LAYERS if int8 else 0}
+        check(all(counts[k] == v for k, v in want_counts.items())
+              and sum(counts.values()) == sum(want_counts.values()),
+              f"tools: one {label} exported forward launches {counts} (K1 {TOOLS_LAYERS}"
+              f"{f', K6 {4 * TOOLS_LAYERS}' if int8 else ''})")
+        row["launches"] = counts
+        # the exported forward, the session's bucket (a replay) and the same
+        # model run eagerly (the session's own forward), on the same images
+        row["load_average"] = os.getloadavg()[0]
+        with _gc_watch() as collected:
+            row["latency_ms"] = {n: {"exported": _host_ms(lambda: fn(x)),
+                                     "session": _host_ms(lambda: session.predict(x)),
+                                     "eager": _host_ms(lambda: session._infer(
+                                         torch.from_numpy(x).cuda()))}
+                                 for n, x in images.items()}
+        print(f"tools: {label} artifact {len(data)} bytes, export {export_s:.2f} s, load "
+              f"{load_s:.2f} s; latency ms (exported / session bucket / eager model, host "
+              "clock, median of 10): "
+              + "; ".join(f"B={n} {v['exported']:.3f} / {v['session']:.3f} / {v['eager']:.3f}"
+                          for n, v in row["latency_ms"].items()) + f"; {smi}")
+        # the garbage collector's share of those latencies, and the exported
+        # forward again with the collector off
+        gc.disable()
+        try:
+            off = _host_ms(lambda: fn(images[BUCKETS[0]]))
+        finally:
+            gc.enable()
+        x1 = torch.from_numpy(images[BUCKETS[0]]).cuda()
+        on_card = _host_ms(lambda: fn(x1))
+        row["gc"] = {"seconds": collected["seconds"], "passes": dict(collected["passes"]),
+                     "exported_off_ms": off, "objects": len(gc.get_objects())}
+        print(f"tools: {label}: the collector ran {row['gc']['passes']} passes (by generation) "
+              f"in {collected['seconds']:.3f} s of the latencies above; the exported forward at "
+              f"B = {BUCKETS[0]} with the collector off {off:.3f} ms, from images already on the "
+              f"card {on_card:.3f} ms; {row['gc']['objects']} objects tracked; the host's load "
+              f"average {row['load_average']:.2f} as the latencies began")
+        # where the exported forward's time goes beside the same model run
+        # eagerly: the graph's ops, and at B = 1 the device time and launches
+        # a call and the host's top ops (torch.profiler, 5 calls each)
+        graph = torch.export.load(io.BytesIO(data)).graph
+        targets = collections.Counter(str(n.target) for n in graph.nodes
+                                      if n.op == "call_function")
+        row["graph_ops"] = {"total": sum(targets.values()), "top": targets.most_common(8)}
+        print(f"tools: the {label} artifact's graph: {row['graph_ops']['total']} ops; "
+              + "; ".join(f"{k} x{n}" for k, n in row["graph_ops"]["top"]))
+        row["trace"] = {}
+        for which, call in (("exported", lambda: fn(x1)),
+                            ("eager", lambda: session._infer(x1))):
+            print(f"tools: {label} {which} forward at B = {BUCKETS[0]}, ", end="")
+            dev_ms, n_launch, top = _device_breakdown(call, reps=5, host_top=10)
+            row["trace"][which] = {"device_ms": dev_ms, "launches": n_launch, "top": top}
+            print(f"tools: {label} {which} forward at B = {BUCKETS[0]}: device {dev_ms} ms in "
+                  f"{n_launch} launches a call; top: "
+                  + "; ".join(f"{k} {t:.3f} ms" for k, t in top) + f"; {smi}")
+        row["python_profile"] = {which: _python_profile(call) for which, call in (
+            ("exported", lambda: fn(x1)), ("eager", lambda: session._infer(x1)))}
+        for which, top in row["python_profile"].items():
+            print(f"tools: {label} {which} forward at B = {BUCKETS[0]}, Python self time (cProfile, "
+                  "ms a forward): " + "; ".join(f"{k} {t:.3f} x{n:.0f}" for k, t, n in top))
+        result[label] = row
+        del session, fn
+        gc_collect(True)
+    bf16_row["child_load_s"] = reloaded.get("load_s")
+    check(reloaded.get("model_code") == [],
+          f"tools: the reload child imported no model code of the package "
+          f"({reloaded.get('model_code')})")
+    _hold_exported("bf16 (reloaded in a child process)", reloaded.get("logits", {}), bf16_want,
+                   bf16_row)
+    print(f"tools: the child reloaded the bf16 artifact in {bf16_row['child_load_s']} s")
+    return result
+
+
+@contextlib.contextmanager
+def _gc_watch():
+    """Within, the garbage collector's passes are counted by generation and
+    timed: yields ``{"seconds", "passes"}``, filled as they run."""
+    out = {"seconds": 0.0, "passes": collections.Counter()}
+    start = []
+
+    def watch(phase, info):
+        if phase == "start":
+            start.append(time.perf_counter())
+        elif start:
+            out["seconds"] += time.perf_counter() - start.pop()
+            out["passes"][info["generation"]] += 1
+
+    gc.callbacks.append(watch)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(watch)
+
+
+def _python_profile(fn, calls: int = 5, top: int = 8) -> list:
+    """The Python functions with the most self time over ``calls`` calls of
+    ``fn`` ending in a synchronize (cProfile): (name, ms a call, calls a call)."""
+    import cProfile
+    import pstats
+
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    rows = [(f"{os.path.basename(f)}:{line}({name})", tt * 1e3 / calls, nc / calls)
+            for (f, line, name), (_, nc, tt, _, _) in pstats.Stats(prof).stats.items()]
+    return sorted(rows, key=lambda r: -r[1])[:top]
+
+
+def _hold_exported(label: str, got: dict, want: dict, row: dict) -> None:
+    """Each batch's logits of the exported forward against the session's."""
+    row["max_abs_err"] = {}
+    for n in BUCKETS:
+        diff = float(np.abs(got[n] - want[n]).max()) if n in got else float("inf")
+        rel = diff / float(np.abs(want[n]).max())
+        row["max_abs_err"][n] = diff
+        check(diff == 0.0 or rel <= TOL_EXPORT_REL,
+              f"tools: {label} exported forward at B = {n} vs the session's bucket: max |diff| "
+              f"{diff:.4e} ({'bit for bit' if diff == 0 else f'{rel:.4e} of max'}; bound "
+              f"{TOL_EXPORT_REL:g} of max)")
+
+
+def export_command_check(device: str) -> dict:
+    """``export_main --check`` (fp32, ViT-B/16 of vitb16_CLIP.yaml, LoRA)
+    from a port checkpoint whose LoRA leaves were moved: the artifact holds
+    the grafted leaves, not the fresh ones."""
+    from peft_vit_tpu_torch.commands.export_model import export_main
+    from peft_vit_tpu_torch.engine.checkpoint import save_checkpoint
+    from peft_vit_tpu_torch.engine.serving import load_exported, make_infer_fn
+    from peft_vit_tpu_torch.models.factory import build_image_classifier
+    from peft_vit_tpu_torch.peft import build_mask, spec_from_config
+
+    cfg = driver_cfg(TOOLS_DRIVER)
+    cfg.freeze()
+    model, _, _ = build_image_classifier(cfg, spec_from_config(cfg), DRIVER["DATASET.NUM_CLASSES"],
+                                         device="cpu")
+    mask = build_mask(model, "lora", num_layers=TOOLS_LAYERS)
+    ckpt, out = _results_dir(), os.path.join(_results_dir(), "lora.pt2")
+    save_checkpoint(ckpt, 0, {"trainable": {k: v.detach() + 0.05
+                                            for k, v in model.named_parameters() if mask[k]}})
+    t0 = time.perf_counter()
+    export_main(cfg, "lora", out, checkpoint=ckpt, check=True, device=device)
+    seconds = time.perf_counter() - t0
+    x = torch.from_numpy(np.random.RandomState(1).randn(2, IMAGE, IMAGE, 3).astype(np.float32))
+    fresh = make_infer_fn(model.to(device))(x.to(device)).float().cpu()
+    got = load_exported(out, device=device)(x).cpu()
+    moved = float((got - fresh).abs().max())
+    check(moved > 1e-5, f"tools: the export command grafted the checkpoint's leaves (logits "
+                        f"moved {moved:.4e} from the fresh model's)")
+    print(f"tools: export_main --check from a port checkpoint in {seconds:.1f} s")
+    return {"seconds": seconds, "moved": moved}
+
+
+def profile_checks(smi: str, device: str) -> dict:
+    """The profiled LoRA train step (ViT-B/16, B = 16): its loss captured ==
+    eager; ``profile.main``'s table: K1-K3 12 a step, the categories summing
+    to the busy time."""
+    import bench_torch
+    from peft_vit_tpu_torch import ops
+    from peft_vit_tpu_torch.commands import profile
+
+    cfg = driver_cfg(TOOLS_PROFILE)
+    cfg.freeze()
+    steps = profile.build_step(cfg, "lora", TOOLS_PROFILE_BATCH, "train", TOOLS_K_CHAIN, device)
+    state0 = steps.state
+    with bench_torch.eager_on_card():
+        eager = steps()
+    steps.state = state0
+    for module, name in ops.KERNEL_WRAPPERS:
+        getattr(module, name).launches = 0
+    captured = steps()
+    torch.cuda.synchronize()
+    capture_counts = ops.launch_counts()
+    check(torch.equal(captured, eager),
+          f"tools: the profiled step's loss captured {float(captured):.9g} == eager "
+          f"{float(eager):.9g} bit for bit")
+    del steps
+    gc_collect(True)
+    t0 = time.perf_counter()
+    prof = profile.main(["--cfg", MODEL_YAML, "--method", "lora", "--batch",
+                         str(TOOLS_PROFILE_BATCH), "--k-chain", str(TOOLS_K_CHAIN), "--steps",
+                         str(TOOLS_STEPS), "--logdir", _results_dir(), *_cli(TOOLS_PROFILE)],
+                        device=device)
+    seconds = time.perf_counter() - t0
+    cats = {r["name"]: r for r in prof["categories"]}
+    steps_traced = TOOLS_K_CHAIN * TOOLS_STEPS
+    for k in ("K1", "K2", "K3"):
+        n = cats.get(k, {}).get("count", 0)
+        check(n == TOOLS_LAYERS * steps_traced,
+              f"tools: profile.main counts {k} {n} times in {steps_traced} steps "
+              f"({TOOLS_LAYERS} a step)")
+    total = sum(r["time_us"] for r in prof["categories"])
+    check(prof["busy_us"] > 0 and abs(total - prof["busy_us"]) <= 0.01 * prof["busy_us"],
+          f"tools: the categories sum to {total:.1f} us, the busy time {prof['busy_us']:.1f} "
+          "us within 1 %")
+    print(f"tools: profile.main in {seconds:.1f} s; {smi}")
+    return {"seconds": seconds, "categories": prof["categories"], "busy_us": prof["busy_us"],
+            "idle_share": prof["idle_share"], "capture_launches": capture_counts,
+            "loss": float(captured)}
+
+
+def summary_checks(device: str) -> dict:
+    """model_summary's forward and train-step FLOPs at ViT-B/16 (LoRA, B = 1)
+    on the card, on the CPU and by ``vit_products``: equal."""
+    from peft_vit_tpu_torch.commands.model_summary import summarize
+
+    cfg = driver_cfg(TOOLS_DRIVER)
+    cfg.freeze()
+    counts = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        _, params, mask, layers, flops = summarize(cfg, "lora", device=dev)
+        counts[dev] = (flops["forward"], flops["grad"])
+        print(f"tools: model_summary on {dev} in {time.perf_counter() - t0:.1f} s: forward "
+              f"{flops['forward']:.0f}, train step {flops['grad']:.0f} FLOPs")
+    a1 = params["backbone.blocks.0.attn.q_adapter1.weight"]
+    targets = sum(1 for k in params if k.startswith("backbone.blocks.0.attn.")
+                  and k.endswith("_adapter1.weight"))
+    want = vit_products(WIDTH, layers, HEADS, IMAGE, PATCH, a1.shape[0], targets,
+                        params["backbone.proj"].shape[1],
+                        params["classifier.head.weight"].shape[0])
+    check(counts[device] == counts["cpu"] == want,
+          f"tools: model_summary FLOPs (forward, train step) card {counts[device]} == CPU "
+          f"{counts['cpu']} == analytic {want}")
+    return {"card": counts[device], "cpu": counts["cpu"], "analytic": want}
+
+
+def debug_run_check(device: str) -> dict:
+    """``debug_run`` at the flagship's shapes (vitb16_CLIP.yaml's ViT-B/16,
+    all 12 blocks, full width, bf16, LoRA; anomaly detection, every step
+    eager, one epoch, the sweep off) against ``commands.run`` with the same
+    settings, captured: every epoch's loss and the score equal bit for bit.
+    The debug run captures no graph, and from counts set to 0 just before it
+    launches K2 and K3 12 times a train step, K1 12 times a forward (each
+    train step and eval batch; the class texts' K1 as it counted them)."""
+    from peft_vit_tpu_torch.commands import debug_run, run
+    from peft_vit_tpu_torch.data import construct_splits
+    from peft_vit_tpu_torch.ops import attention as attn
+
+    cfg = driver_cfg({**TOOLS_PROFILE, "TRAIN.END_EPOCH": 1})
+    splits = construct_splits(cfg)
+    nb = lambda n: -(-n // int(cfg.TRAIN.BATCH_SIZE_PER_GPU))
+    final_epochs = 1 + int(cfg.TRAIN.EXTRA_FINAL_TRAIN_EPOCH)
+    steps = final_epochs * nb(len(splits.y_train) + len(splits.y_val))
+    evals = (final_epochs + 1) * nb(len(splits.y_test))
+    opts = _cli({**TOOLS_PROFILE, "OUTPUT_DIR": _results_dir()})
+    runs = {}
+    for label, module, argv in (
+            ("debug", debug_run, ["--model", MODEL_YAML, "--method", "lora", *opts]),
+            ("run", run, ["--model", MODEL_YAML, "--method", "lora", "--no-tuning", "true",
+                          *opts, "TRAIN.END_EPOCH", "1"])):
+        _zero_attention_counts(attn)
+        with driver_spy(run, torch.cuda.synchronize) as rec:
+            t0 = time.perf_counter()
+            score = module.main(argv, device=device)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        runs[label] = {"score": score, "losses": list(rec["losses"]),
+                       "graphs": len(rec.get("graphs", {})), "seconds": seconds,
+                       "launches": _attention_counts(attn),
+                       "text_k1": rec["text"].get("flash_attention_fwd", 0)}
+        del rec
+        gc_collect(True)
+    debug, want = runs["debug"], runs["run"]
+    check(len(debug["losses"]) == final_epochs and debug["losses"] == want["losses"]
+          and debug["score"] == want["score"] and not torch.is_anomaly_enabled(),
+          f"tools: debug_run at ViT-B/16 (12 blocks): losses {debug['losses']} score "
+          f"{debug['score']} == commands.run's {want['losses']} {want['score']} bit for bit "
+          "(anomaly detection off after it)")
+    check(debug["graphs"] == 0 and want["graphs"] > 0,
+          f"tools: debug_run captured {debug['graphs']} graphs (every step eager), commands.run "
+          f"{want['graphs']}")
+    got = debug["launches"]
+    layers = int(cfg.MODEL.SPEC.VISION.LAYERS)
+    k1 = layers * (steps + evals) + debug["text_k1"]
+    check(got["flash_attention_bwd_dq"] == got["flash_attention_bwd_dkv"] == layers * steps
+          and got["flash_attention_fwd"] == k1,
+          f"tools: debug_run's launches {got}: K2, K3 {layers} a train step ({steps} steps), K1 "
+          f"{layers} a forward ({steps} steps + {evals} eval batches) + {debug['text_k1']} of "
+          f"the class texts = {k1}")
+    print(f"tools: debug_run at ViT-B/16 in {debug['seconds']:.1f} s (commands.run captured "
+          f"{want['seconds']:.1f} s), {steps} steps, score {debug['score']}")
+    return runs
+
+
+def op_overhead(smi: str) -> dict:
+    """The host time of the registration alone: the registered op called as
+    the wrapper calls it against its CUDA implementation (the launcher)
+    called directly, the wrapper's own checks in neither (K1 at
+    (1, 12, 197, 64) bf16, K6 at in_proj's (197, 768) x (2304, 768)), µs a
+    call, median of 5 turns of 200 calls each way (op, direct, direct, op,
+    ...).  ``check_kernels_parent.py --host`` times the wrappers and an
+    eager forward against the parent tree's."""
+    from peft_vit_tpu_torch.ops import attention as attn
+    from peft_vit_tpu_torch.ops import int8 as i8
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn((1, HEADS, N_TOKENS, HEAD_DIM), generator=g, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    x = torch.randn((N_TOKENS, WIDTH), generator=g, device="cuda", dtype=torch.bfloat16)
+    w_i8, s_w = i8.quantize_cols(torch.randn((3 * WIDTH, WIDTH), generator=g, device="cuda"))
+    scale = HEAD_DIM ** -0.5
+    pairs = {"K1": (lambda: attn._FLASH_FWD(q, k, v, None, scale, False),
+                    lambda: attn._flash_fwd_launch(q, k, v, None, scale, False)),
+             "K6": (lambda: i8._GEMM_DYNAMIC(x, w_i8, s_w),
+                    lambda: i8._dynamic_launch(x, w_i8, s_w))}
+    out = {}
+    for name, (through_op, direct) in pairs.items():
+        times = {"op": [], "direct": []}
+        for turn in range(10):
+            which = ("op", "direct", "direct", "op")[turn % 4]
+            fn = through_op if which == "op" else direct
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            times[which].append((time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+        out[name] = {k: statistics.median(v) for k, v in times.items()}
+        out[name]["overhead_us"] = out[name]["op"] - out[name]["direct"]
+    per_forward = {"bf16": TOOLS_LAYERS * out["K1"]["overhead_us"],
+                   "int8": TOOLS_LAYERS * (out["K1"]["overhead_us"] + 4 * out["K6"]["overhead_us"])}
+    print("tools: host µs a call of the registered op / of its launcher directly: "
+          + "; ".join(f"{k} {v['op']:.2f} / {v['direct']:.2f} (+{v['overhead_us']:.2f})"
+                      for k, v in out.items())
+          + f"; an eager ViT-B/16 forward: +{per_forward['bf16']:.1f} µs bf16, "
+            f"+{per_forward['int8']:.1f} µs int8; {smi}")
+    return {"calls": out, "per_forward_us": per_forward}
+
+
+def tools_phase(smi: str, device: str = "cuda") -> dict:
+    out = {"export": export_checks(smi, device), "command": export_command_check(device),
+           "profile": profile_checks(smi, device), "summary": summary_checks(device),
+           "debug": debug_run_check(device), "overhead": op_overhead(smi)}
+    gc_collect(True)
+    return out
+
+
 def _device_breakdown(fn, reps: int, top: int = 6, host_top: int = 0, host: bool = True):
     """Device time per call, the number of device launches (kernels and
-    copies) per call and the kernels that take most of the time, from
-    torch.profiler's CUDA activity (None when it records no kernel).
-    ``host_top`` > 0 also prints the host-side operators that take most self
-    CPU time.  ``host`` False records the CUDA activity alone: a run of tens
-    of thousands of launches then takes seconds less to trace, and a launch
-    or two may go unrecorded (a probe on the H100 lost 2 of 80,000), so it
-    serves the busy time of a long run, not a count that is checked."""
+    copies) per call and the kernels that take most of the time, read
+    through ``utils.xprof`` (``profile_window``, ``device_events``,
+    ``parse_op_profile``) from torch.profiler's CUDA activity (None when it
+    records no kernel).  ``host_top`` > 0 also prints the host-side
+    operators that take most self CPU time.  ``host`` False records the
+    CUDA activity alone (``profile_window``: a long run's busy time, not a
+    count that is checked)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host or host_top else [])
-    with profile(activities=activities) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows, launches = [], 0
-    for ev in prof.key_averages():
-        # kernels and copies only: a CPU op's row repeats its kernels' time,
-        # and the activity-buffer row is the profiler's own
-        if ev.device_type != DeviceType.CUDA or ev.key == "Activity Buffer Request":
-            continue
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        if t > 0:
-            rows.append((ev.key[:48], t / 1e3 / reps))
-            launches += ev.count
-    if not rows:
+    from peft_vit_tpu_torch.utils import xprof
+
+    prof = xprof.profile_window(fn, reps, host=host or bool(host_top))
+    parsed = xprof.parse_op_profile(xprof.device_events(prof), top=top)
+    if not parsed["categories"]:
         return None, None, []
-    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r["time_us"] for r in parsed["categories"]) / 1e3 / reps
+    launches = sum(r["count"] for r in parsed["categories"]) / reps
+    rows = [(r["name"][:48], r["time_us"] / 1e3 / reps) for r in parsed["ops"]]
     if host_top:
         host = sorted(((ev.key[:40], ev.self_cpu_time_total / 1e3 / reps, ev.count / reps)
                        for ev in prof.key_averages() if ev.device_type != DeviceType.CUDA),
@@ -9183,7 +9697,7 @@ def _device_breakdown(fn, reps: int, top: int = 6, host_top: int = 0, host: bool
         print("host profile (self CPU ms and calls per call of the profiled function, with the "
               "profiler's own overhead): "
               + "; ".join(f"{name} {t:.3f} ms x{n:.0f}" for name, t, n in host))
-    return sum(t for _, t in rows), launches / reps, rows[:top]
+    return device_ms, launches, rows
 
 
 ZOO_CHILD_FLAG = "--zoo-phase"  # chip_smoke.py --zoo-phase OUT.json: the zoo phase alone
@@ -9338,6 +9852,7 @@ def main() -> int:
     mc = _timed(multichip_phase, smi)
     sp = _timed(seqpipe_phase, smi)
     tph = _timed(tphooks_phase, smi)
+    tools = _timed(tools_phase, smi)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         for f in FAILURES:
@@ -9563,6 +10078,12 @@ def main() -> int:
         # phase 22: ViT-B/16 with a prompt token under every hook and int8 as
         # two tensor- and two sequence-parallel shards, forward and backward
         line["launches_tp_hooks"] = tph["hooks"]["launches"].get(name, 0)
+        # phase 23: one exported forward (bf16, int8) of ViT-B/16 at 12 blocks,
+        # and the profiled LoRA step's first call (its warm-up and capture)
+        line["launches_tools"] = {
+            "export_bf16": tools["export"]["bf16"]["launches"].get(name, 0),
+            "export_int8": tools["export"]["int8"]["launches"].get(name, 0),
+            "profile_capture": tools["profile"]["capture_launches"].get(name, 0)}
         key = {"flash_attn_bwd_dq": "dq", "flash_attn_bwd_dkv": "dkv",
                "flash_attn_fwd": "fwd"}.get(line["name"])
         if key is not None:

@@ -347,8 +347,9 @@ class StepGraph:
 
 def runs_captured(t: torch.Tensor) -> bool:
     """Whether the engine runs work on ``t`` as CUDA-graph replays: on the
-    card."""
-    return t.device.type == "cuda"
+    card, unless anomaly detection is on (its NaN checks wait for the card,
+    which a capture forbids)."""
+    return t.device.type == "cuda" and not torch.is_anomaly_enabled()
 
 
 def _graph(graphs: dict, key, fn, inputs, keep) -> StepGraph:

@@ -190,7 +190,9 @@ class Trainer:
         if self.eager:
             # torch.autograd.set_detect_anomaly (tools/train.py:159); the
             # anomaly checks cannot be captured, so the steps run eagerly
-            torch.autograd.set_detect_anomaly(True)
+            from ..utils.profiling import enable_anomaly_detection
+
+            enable_anomaly_detection(True)
         self.generator = torch.Generator().manual_seed(int(seed))
         batch_stats = {k: v for k, v in model.named_buffers()
                        if k.rsplit(".", 1)[-1] in _BN_STATS}

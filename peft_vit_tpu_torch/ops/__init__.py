@@ -1,3 +1,8 @@
+"""The attention and int8 kernels' wrappers and the differentiable ops
+around them.  Every kernel launch is a registered op of the namespace
+``peft_vit_tpu_torch::`` (``_library``); importing this package registers
+them, and loading an exported model needs it."""
+
 from typing import Dict
 
 from . import attention as _attention
@@ -5,6 +10,7 @@ from . import int8 as _int8
 from .attention import (
     attention_bias_grad,
     attention_reference,
+    card_route,
     flash_attention,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
@@ -65,6 +71,7 @@ __all__ = [
     "activation_scales_from_stats",
     "attention_bias_grad",
     "attention_reference",
+    "card_route",
     "flash_attention",
     "flash_attention_bwd_dkv",
     "flash_attention_bwd_dq",

@@ -43,6 +43,12 @@ also takes (B, H, N, N).
   scores as an fp32 product of the codes, ``int8_attention_scores``), with
   the flash backward behind it on the card (the forward kernel recomputes o
   and lse, then the dq and dk/dv kernels).
+Every kernel launch is a registered op of ``peft_vit_tpu_torch::``
+(``ops._library``): the wrapper checks its operands and calls the op, whose
+CUDA implementation is the launch (``_flash_fwd_launch``, ...), whose CPU
+implementation is the plain version, and whose fake implementation gives
+``torch.export`` the shapes.
+
 * ``multi_head_attention`` — what the model calls.  ``use_fused=True`` with
   no bias and N <= 1024 takes ``fused_short_attention`` on the card and on
   the CPU (the JAX dispatcher's rule; the CPU runs the plain versions, as
@@ -56,6 +62,8 @@ also takes (B, H, N, N).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import math
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -63,6 +71,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 
 from . import _build
+from ._library import attention_products, kernel_op
 
 # the head dims the flash kernels (K1, K2, K3) and the bias-gradient kernel
 # (K7) are built at: 64 (the ViTs, the text tower) and 32 (Swin's heads),
@@ -271,10 +280,19 @@ def _kernel_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _check_kernel_operands(what: str, named: Sequence[Tuple[str, torch.Tensor]],
-                           head_dims: Sequence[int] = KERNEL_HEAD_DIMS) -> None:
-    """What every kernel asks of its operands (the first is (B, H, N, D)):
-    a head dim it is built at, and nothing padded to one."""
+def _check_kernel_operands(what: str, named: Sequence[Tuple[str, Optional[torch.Tensor]]],
+                           head_dims: Sequence[int] = KERNEL_HEAD_DIMS,
+                           rows: Sequence[Tuple[str, Optional[torch.Tensor]]] = ()) -> None:
+    """What every kernel asks of its operands (the first is (B, H, N, D);
+    None: an absent one) and of the fp32 ``rows`` (lse, delta) it reads: a
+    head dim it is built at, and nothing padded to one.  The wrappers check
+    it before the op for every tensor not on the CPU, so that a meta tensor,
+    or the fake tensor ``torch.export`` traces, meets it as a CUDA tensor
+    does; the launch checks the alignment (``_check_aligned``)."""
+    for name, t in rows:
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 on the card, got {t.dtype}")
+    named = [(n, t) for n, t in (*named, *rows) if t is not None]
     q = named[0][1]
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the kernel takes bfloat16 or float32, got {q.dtype}")
@@ -286,8 +304,11 @@ def _check_kernel_operands(what: str, named: Sequence[Tuple[str, torch.Tensor]],
             raise ValueError(f"{name} must be contiguous")
     if q.device.type != "cuda":
         raise ValueError(f"{what} runs on CUDA or CPU tensors, got {q.device}")
+
+
+def _check_aligned(named: Sequence[Tuple[str, Optional[torch.Tensor]]]) -> None:
     for name, t in named:
-        if t.data_ptr() % 16:
+        if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
@@ -323,9 +344,32 @@ def flash_attention_fwd(
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     _check_operands(q, k, v, bias)
-    if q.device.type == "cpu":
-        return _flash_attention_plain(q, k, v, bias, float(scale), return_lse)
-    _check_kernel_operands("flash_attention_fwd", (("q", q), ("k", k), ("v", v)))
+    if q.device.type != "cpu":
+        _check_kernel_operands("flash_attention_fwd", (("q", q), ("k", k), ("v", v)))
+    out, lse = _FLASH_FWD(q, k, v, bias, float(scale), bool(return_lse))
+    return (out, lse) if return_lse else out
+
+
+def _no_lse(q: torch.Tensor) -> torch.Tensor:
+    """The lse result of a forward op that was not asked for one: empty."""
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+def _lse_like(q: torch.Tensor) -> torch.Tensor:
+    b, h, n, _ = q.shape
+    return q.new_empty((b, h, 1, n), dtype=_acc_dtype(q))
+
+
+def _flash_fwd_cpu(q, k, v, bias, scale: float, return_lse: bool):
+    if return_lse:
+        return _flash_attention_plain(q, k, v, bias, scale, True)
+    return _flash_attention_plain(q, k, v, bias, scale, False), _no_lse(q)
+
+
+def _flash_fwd_launch(q, k, v, bias, scale: float, return_lse: bool):
+    """K1's launch on checked CUDA operands: ``(o, lse)`` (lse empty without
+    ``return_lse``)."""
+    _check_aligned((("q", q), ("k", k), ("v", v)))
     b, h, n, d = q.shape
     bias = _kernel_bias(bias)
 
@@ -346,10 +390,20 @@ def flash_attention_fwd(
     )
     _raise_on(err, lib, "flash_attn_fwd")
     flash_attention_fwd.launches += 1
-    return (out, lse) if return_lse else out
+    return out, _no_lse(q) if lse is None else lse
 
 
 flash_attention_fwd.launches = 0
+
+_FLASH_FWD = kernel_op(
+    "flash_attn_fwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale, bool return_lse) -> (Tensor, Tensor)",
+    cpu=_flash_fwd_cpu, cuda=_flash_fwd_launch,
+    fake=lambda q, k, v, bias, scale, return_lse: (
+        torch.empty_like(q), _lse_like(q) if return_lse else _no_lse(q)),
+    # s = q k^T and p v
+    flops=lambda q, *args, out_shape=None, **kw: attention_products(q, 2),
+)
 
 
 def _kernel_bias(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -386,10 +440,7 @@ def _launch_bwd(fn_name: str, named, rows, outs, scale: float, bias=None) -> Non
     the (B, H, N, D) operands in the kernel's order (None: an absent one),
     then the fp32 rows ``rows`` it reads (None: an absent one), the bias and
     the tensors ``outs`` it writes."""
-    for name, t in rows:
-        if t is not None and t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 on the card, got {t.dtype}")
-    _check_kernel_operands(fn_name, [(n, t) for n, t in (*named, *rows) if t is not None])
+    _check_aligned((*named, *rows))
     bias = _kernel_bias(bias)
     lib = _kernel_library("flash_attn_bwd")
     q = named[0][1]
@@ -424,8 +475,13 @@ def flash_attention_bwd_dq(
     launch nothing.
     """
     _check_bwd_operands(q, k, v, do, (("lse", lse),), (("o", o),), bias)
-    if q.device.type == "cpu":
-        return _bwd_dq_plain(q, k, v, do, lse, o, float(scale), bias)
+    if q.device.type != "cpu":
+        _check_kernel_operands("flash_attn_bwd_dq", (("q", q), ("k", k), ("v", v), ("do", do),
+                                                     ("o", o)), rows=(("lse", lse),))
+    return _FLASH_BWD_DQ(q, k, v, do, lse, o, bias, float(scale))
+
+
+def _bwd_dq_launch(q, k, v, do, lse, o, bias, scale: float):
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse, dtype=torch.float32)
     _launch_bwd("flash_attn_bwd_dq", (("q", q), ("k", k), ("v", v), ("do", do), ("o", o)),
@@ -435,6 +491,17 @@ def flash_attention_bwd_dq(
 
 
 flash_attention_bwd_dq.launches = 0
+
+_FLASH_BWD_DQ = kernel_op(
+    "flash_attn_bwd_dq",
+    "(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, Tensor o, Tensor? bias, float scale)"
+    " -> (Tensor, Tensor)",
+    cpu=lambda q, k, v, do, lse, o, bias, scale: _bwd_dq_plain(q, k, v, do, lse, o, scale, bias),
+    cuda=_bwd_dq_launch,
+    fake=lambda q, k, v, do, lse, o, bias, scale: (torch.empty_like(q), _lse_like(q)),
+    # s = q k^T, dp = dO v^T, dq = ds k
+    flops=lambda q, *args, out_shape=None, **kw: attention_products(q, 3),
+)
 
 
 def flash_attention_bwd_dkv(
@@ -451,16 +518,33 @@ def flash_attention_bwd_dkv(
     """
     rows = (("lse", lse), ("delta", delta))
     _check_bwd_operands(q, k, v, do, rows, (), bias)
-    if q.device.type == "cpu":
-        return _bwd_dkv_plain(q, k, v, do, lse, delta, float(scale), bias)
+    if q.device.type != "cpu":
+        _check_kernel_operands("flash_attn_bwd_dkv", (("q", q), ("k", k), ("v", v), ("do", do)),
+                               rows=rows)
+    return _FLASH_BWD_DKV(q, k, v, do, lse, delta, bias, float(scale))
+
+
+def _bwd_dkv_launch(q, k, v, do, lse, delta, bias, scale: float):
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    _launch_bwd("flash_attn_bwd_dkv", (("q", q), ("k", k), ("v", v), ("do", do)), rows,
-                (dk, dv), scale, bias)
+    _launch_bwd("flash_attn_bwd_dkv", (("q", q), ("k", k), ("v", v), ("do", do)),
+                (("lse", lse), ("delta", delta)), (dk, dv), scale, bias)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+
+_FLASH_BWD_DKV = kernel_op(
+    "flash_attn_bwd_dkv",
+    "(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, Tensor delta, Tensor? bias,"
+    " float scale) -> (Tensor, Tensor)",
+    cpu=lambda q, k, v, do, lse, delta, bias, scale: _bwd_dkv_plain(
+        q, k, v, do, lse, delta, scale, bias),
+    cuda=_bwd_dkv_launch,
+    fake=lambda q, k, v, do, lse, delta, bias, scale: (torch.empty_like(q), torch.empty_like(q)),
+    # s = q k^T, dp = dO v^T, dv = p^T dO, dk = ds^T q
+    flops=lambda q, *args, out_shape=None, **kw: attention_products(q, 4),
+)
 
 
 # K7 (bf16) splits each cell's batch into chunks of this many elements (the
@@ -509,9 +593,14 @@ def attention_bias_grad(
         raise ValueError("give the bias gradient delta or o, one of the two")
     rows = (("lse", lse),) + ((("delta", delta),) if delta is not None else ())
     _check_bwd_operands(q, k, v, do, rows, (("o", o),) if o is not None else (), bias)
-    if q.device.type == "cpu":
-        return _bias_grad_plain(q, k, v, do, lse, float(scale), bias, delta, o)
-    dbias = _bias_grad_launch(q, k, v, do, lse, float(scale), bias, delta, o)
+    if q.device.type != "cpu":
+        _check_kernel_operands("attn_bias_grad", (("q", q), ("k", k), ("v", v), ("do", do),
+                                                  ("o", o)), rows=(("lse", lse), ("delta", delta)))
+    return _BIAS_GRAD(q, k, v, do, lse, bias, delta, o, float(scale))
+
+
+def _bias_grad_op_launch(q, k, v, do, lse, bias, delta, o, scale: float):
+    dbias = _bias_grad_launch(q, k, v, do, lse, scale, bias, delta, o)
     attention_bias_grad.launches += 1
     return dbias
 
@@ -521,11 +610,8 @@ def _bias_grad_launch(q, k, v, do, lse, scale: float, bias, delta=None,
     """One call of ``attn_bias_grad`` on checked CUDA operands, its
     workspace from torch's allocator on the current stream, so that the call
     can be captured in a CUDA graph."""
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t is not None and t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 on the card, got {t.dtype}")
     named = [("q", q), ("k", k), ("v", v), ("do", do), ("o", o), ("lse", lse), ("delta", delta)]
-    _check_kernel_operands("attn_bias_grad", [(n, t) for n, t in named if t is not None])
+    _check_aligned(named)
     bias = _kernel_bias(bias)
     b, h, n, d = q.shape
     cells = _bias_cells(bias)
@@ -546,6 +632,20 @@ def _bias_grad_launch(q, k, v, do, lse, scale: float, bias, delta=None,
 
 
 attention_bias_grad.launches = 0
+
+# K7 and, past one chunk a cell, its chunk sum: one C call, one op
+_BIAS_GRAD = kernel_op(
+    "attn_bias_grad",
+    "(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, Tensor bias, Tensor? delta,"
+    " Tensor? o, float scale) -> Tensor",
+    cpu=lambda q, k, v, do, lse, bias, delta, o, scale: _bias_grad_plain(
+        q, k, v, do, lse, scale, bias, delta, o),
+    cuda=_bias_grad_op_launch,
+    fake=lambda q, k, v, do, lse, bias, delta, o, scale: bias.new_empty(
+        bias.shape, dtype=_acc_dtype(q)),
+    # s = q k^T and dp = dO v^T
+    flops=lambda q, *args, out_shape=None, **kw: attention_products(q, 2),
+)
 
 
 def _needs_grad(*operands: Optional[torch.Tensor]) -> bool:
@@ -725,10 +825,21 @@ def fused_short_attention_fwd(
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     _check_operands(q, k, v, None)
-    if q.device.type == "cpu":
-        return _fused_short_fwd_plain(q, k, v, float(scale), return_lse)
-    _check_kernel_operands("fused_short_attention_fwd", (("q", q), ("k", k), ("v", v)),
-                           FUSED_HEAD_DIMS)
+    if q.device.type != "cpu":
+        _check_kernel_operands("fused_short_attention_fwd", (("q", q), ("k", k), ("v", v)),
+                               FUSED_HEAD_DIMS)
+    out, lse = _FUSED_FWD(q, k, v, float(scale), bool(return_lse))
+    return (out, lse) if return_lse else out
+
+
+def _fused_fwd_cpu(q, k, v, scale: float, return_lse: bool):
+    if return_lse:
+        return _fused_short_fwd_plain(q, k, v, scale, True)
+    return _fused_short_fwd_plain(q, k, v, scale, False), _no_lse(q)
+
+
+def _fused_fwd_launch(q, k, v, scale: float, return_lse: bool):
+    _check_aligned((("q", q), ("k", k), ("v", v)))
     b, h, n, d = q.shape
     lib = _kernel_library("fused_short_attn")
     out = torch.empty_like(q)
@@ -745,10 +856,19 @@ def fused_short_attention_fwd(
     )
     _raise_on(err, lib, "fused_short_attn_fwd")
     fused_short_attention_fwd.launches += 1
-    return (out, lse) if return_lse else out
+    return out, _no_lse(q) if lse is None else lse
 
 
 fused_short_attention_fwd.launches = 0
+
+_FUSED_FWD = kernel_op(
+    "fused_short_attn_fwd",
+    "(Tensor q, Tensor k, Tensor v, float scale, bool return_lse) -> (Tensor, Tensor)",
+    cpu=_fused_fwd_cpu, cuda=_fused_fwd_launch,
+    fake=lambda q, k, v, scale, return_lse: (
+        torch.empty_like(q), _lse_like(q) if return_lse else _no_lse(q)),
+    flops=lambda q, *args, out_shape=None, **kw: attention_products(q, 2),
+)
 
 
 def fused_short_attention_bwd(
@@ -765,13 +885,15 @@ def fused_short_attention_bwd(
     kernel does not take raises.  CPU tensors run the plain version.
     """
     _check_bwd_operands(q, k, v, do, (("lse", lse),), (("o", o),))
-    if q.device.type == "cpu":
-        return _fused_short_bwd_plain(q, k, v, o, lse, do, float(scale))
-    if lse.dtype != torch.float32:
-        raise TypeError(f"lse must be float32 on the card, got {lse.dtype}")
-    _check_kernel_operands(
-        "fused_short_attention_bwd",
-        (("q", q), ("k", k), ("v", v), ("o", o), ("do", do), ("lse", lse)), FUSED_HEAD_DIMS)
+    if q.device.type != "cpu":
+        _check_kernel_operands("fused_short_attention_bwd",
+                               (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)),
+                               FUSED_HEAD_DIMS, rows=(("lse", lse),))
+    return _FUSED_BWD(q, k, v, o, lse, do, float(scale))
+
+
+def _fused_bwd_launch(q, k, v, o, lse, do, scale: float):
+    _check_aligned((("q", q), ("k", k), ("v", v), ("o", o), ("do", do), ("lse", lse)))
     lib = _kernel_library("fused_short_attn")
     b, h, n, _ = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -788,6 +910,16 @@ def fused_short_attention_bwd(
 
 
 fused_short_attention_bwd.launches = 0
+
+_FUSED_BWD = kernel_op(
+    "fused_short_attn_bwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do, float scale)"
+    " -> (Tensor, Tensor, Tensor)",
+    cpu=_fused_short_bwd_plain, cuda=_fused_bwd_launch,
+    fake=lambda q, k, v, o, lse, do, scale: tuple(torch.empty_like(q) for _ in range(3)),
+    # s = q k^T, dp = dO v^T, dv = p^T dO, dq = ds k, dk = ds^T q
+    flops=lambda q, *args, out_shape=None, **kw: attention_products(q, 5),
+)
 
 
 class _FusedShortAttention(torch.autograd.Function):
@@ -987,6 +1119,26 @@ def check_softmax_fp32(device_type: str, softmax_fp32: bool) -> None:
         )
 
 
+_CARD_ROUTE = contextvars.ContextVar("card_route", default=False)
+
+
+@contextlib.contextmanager
+def card_route():
+    """Inside the block ``multi_head_attention`` takes the card's route for
+    CPU tensors too: ``flash_attention`` (its ops' plain versions), forward
+    and backward, in place of the reference that torch differentiates.
+    It is the one way to trace the card's program on the CPU: every
+    ``engine.serving.export_classifier`` traces under it (the graph names
+    K1's op on either device), and the model summary counts the card's
+    products with it (the backward kernels recompute the scores: 7 products
+    where autograd of the reference computes 4)."""
+    token = _CARD_ROUTE.set(True)
+    try:
+        yield
+    finally:
+        _CARD_ROUTE.reset(token)
+
+
 def multi_head_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -1007,13 +1159,15 @@ def multi_head_attention(
     take ``attention_reference``, which torch differentiates, and
     ``batch_chunk > 0`` computes it in batch slices of that size, as the JAX
     package does when there is no bias and the batch divides evenly.
+    Inside ``card_route()`` CPU tensors take the card's route too.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if takes_fused(use_fused, bias, q.shape[-2]):
         return fused_short_attention(q, k, v, scale)
-    check_softmax_fp32(q.device.type, softmax_fp32)
-    if q.device.type == "cuda":
+    on_card = q.device.type == "cuda" or _CARD_ROUTE.get()
+    check_softmax_fp32("cuda" if on_card else q.device.type, softmax_fp32)
+    if on_card:
         return flash_attention(q, k, v, bias, scale)
     b = q.shape[0]
     if batch_chunk and bias is None and b > batch_chunk and b % batch_chunk == 0:

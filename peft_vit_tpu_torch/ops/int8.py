@@ -24,7 +24,9 @@ transposed pair of the int8 dx product is ``quantize_cols(weight.t())``:
   Pallas ``_prequant_kernel``: quantize, s8 x s8 -> s32 product (``wgmma``,
   the weight streamed by TMA) and rescale in one launch.  A CUDA tensor
   launches the kernel or raises; a CPU tensor runs the plain forward.  Each
-  counts its launches in ``.launches``.
+  counts its launches in ``.launches``.  Each launch is a registered op of
+  ``peft_vit_tpu_torch::`` (``ops._library``): CUDA the launch, CPU the plain
+  version, fake the shapes.
 * ``int8_matmul`` is the no-grad op; ``int8_matmul_bf16_bwd``,
   ``int8_prequant_matmul``, ``int8_prequant_matmul_i8bwd``,
   ``int8_static_matmul`` and ``int8_static_matmul_i8bwd`` are differentiable:
@@ -49,11 +51,13 @@ collectives ``comm`` (``parallel.ModelComm``).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
+from ._library import kernel_op
 
 #: module names whose weight is routed through ``Int8Dense`` by the models
 #: (the frozen tower's GEMMs: packed qkv, out proj and the MLP pair)
@@ -163,12 +167,19 @@ def _check_operands(x, w_i8, s_w, s_x) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def _rows_on_card(x: torch.Tensor, k: int) -> torch.Tensor:
-    """x (..., K) bf16 or fp32 on the card as contiguous (M, K) rows."""
+def _check_kernel_operands(x: torch.Tensor, w_i8: Optional[torch.Tensor] = None) -> None:
+    """What the kernel asks of x (..., K) and of the codes (N, K), if any:
+    checked by the launch, before it allocates (``_aligned`` after)."""
+    if w_i8 is not None:
+        _check_shape(w_i8)
     if x.device.type != "cuda":
         raise ValueError(f"the int8 GEMM runs on CUDA or CPU tensors, got {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the kernel takes bfloat16 or float32 activations, got {x.dtype}")
+
+
+def _rows_on_card(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x (..., K) bf16 or fp32 on the card as contiguous (M, K) rows."""
     x2d = x.reshape(-1, k)
     if not x2d.is_contiguous():
         # a cotangent arrives with whatever strides its producer left
@@ -205,7 +216,7 @@ def _check_err(lib, fn: str, err: int) -> None:
 
 def _launch(x, w_i8, s_w, s_x) -> torch.Tensor:
     """One launch of the kernel: x (..., K) bf16 or fp32 on the card."""
-    _check_shape(w_i8)
+    _check_kernel_operands(x, w_i8)
     n, k = w_i8.shape
     x2d = _rows_on_card(x, k)
     scales = [s_w.to(torch.float32).reshape(-1).contiguous()]
@@ -234,8 +245,10 @@ def int8_gemm_dynamic(x: torch.Tensor, w_i8: torch.Tensor, s_w: torch.Tensor) ->
     or fp32).  CPU tensors run ``_prequant_forward`` and launch nothing.
     """
     _check_operands(x, w_i8, s_w, None)
-    if x.device.type == "cpu":
-        return _prequant_forward(x, w_i8, s_w)
+    return _GEMM_DYNAMIC(x, w_i8, s_w)
+
+
+def _dynamic_launch(x, w_i8, s_w) -> torch.Tensor:
     out = _launch(x, w_i8, s_w, None)
     int8_gemm_dynamic.launches += 1
     return out
@@ -244,20 +257,45 @@ def int8_gemm_dynamic(x: torch.Tensor, w_i8: torch.Tensor, s_w: torch.Tensor) ->
 int8_gemm_dynamic.launches = 0
 
 
+def _gemm_out(x: torch.Tensor, w_i8: torch.Tensor, dtype: Optional[torch.dtype] = None):
+    """The (..., N) result of x (..., K) and w_i8 (N, K), shape and dtype only."""
+    return x.new_empty((*x.shape[:-1], w_i8.shape[0]), dtype=dtype or x.dtype)
+
+
+def _gemm_flops(x, w_i8, *args, out_shape=None, **kw) -> int:
+    """2 M K N: the s8 x s8 product (the quantize and rescale are not products)."""
+    return 2 * math.prod(x) * w_i8[0]
+
+
+_GEMM_DYNAMIC = kernel_op(
+    "int8_gemm_dynamic", "(Tensor x, Tensor w_i8, Tensor s_w) -> Tensor",
+    cpu=_prequant_forward, cuda=_dynamic_launch,
+    fake=lambda x, w_i8, s_w: _gemm_out(x, w_i8), flops=_gemm_flops,
+)
+
+
 def int8_gemm_static(x: torch.Tensor, w_i8: torch.Tensor, s_w: torch.Tensor,
                      s_x: torch.Tensor) -> torch.Tensor:
     """``rescale(quantize_static(x, s_x) . w_i8^T)`` with the one-element
     tensor ``s_x`` read on the device.  As ``int8_gemm_dynamic``; counts in
     ``int8_gemm_static.launches``; CPU tensors run ``_static_forward``."""
     _check_operands(x, w_i8, s_w, s_x)
-    if x.device.type == "cpu":
-        return _static_forward(x, w_i8, s_w, s_x)
+    return _GEMM_STATIC(x, w_i8, s_w, s_x)
+
+
+def _static_launch(x, w_i8, s_w, s_x) -> torch.Tensor:
     out = _launch(x, w_i8, s_w, s_x)
     int8_gemm_static.launches += 1
     return out
 
 
 int8_gemm_static.launches = 0
+
+_GEMM_STATIC = kernel_op(
+    "int8_gemm_static", "(Tensor x, Tensor w_i8, Tensor s_w, Tensor s_x) -> Tensor",
+    cpu=_static_forward, cuda=_static_launch,
+    fake=lambda x, w_i8, s_w, s_x: _gemm_out(x, w_i8), flops=_gemm_flops,
+)
 
 
 def _row_absmax_plain(x: torch.Tensor) -> torch.Tensor:
@@ -290,11 +328,14 @@ def int8_row_absmax(x: torch.Tensor) -> torch.Tensor:
     rank's part of a row scale whose K is cut over the model group.  CUDA
     tensors launch the kernel and count in ``int8_row_absmax.launches``
     (K a multiple of 8); CPU tensors run ``_row_absmax_plain``."""
-    if x.device.type == "cpu":
-        return _row_absmax_plain(x)
+    return _ROW_ABSMAX(x)
+
+
+def _row_absmax_launch(x: torch.Tensor) -> torch.Tensor:
     k = x.shape[-1]
     if k % 8:
         raise ValueError(f"the row absmax takes K a multiple of 8, got {k}")
+    _check_kernel_operands(x)
     x2d = _rows_on_card(x, k)
     out = torch.empty(x2d.shape[0], dtype=torch.float32, device=x.device)
     _aligned(x=x2d)
@@ -308,6 +349,13 @@ def int8_row_absmax(x: torch.Tensor) -> torch.Tensor:
 
 
 int8_row_absmax.launches = 0
+
+_ROW_ABSMAX = kernel_op(
+    "int8_row_absmax", "(Tensor x) -> Tensor",
+    cpu=_row_absmax_plain, cuda=_row_absmax_launch,
+    fake=lambda x: x.new_empty(x.shape[:-1], dtype=torch.float32),
+    flops=lambda x, *args, out_shape=None, **kw: 0,  # a reduction, no product
+)
 
 
 def int8_gemm_partial(x: torch.Tensor, w_i8: torch.Tensor, s_rows: Optional[torch.Tensor] = None,
@@ -332,9 +380,11 @@ def int8_gemm_partial(x: torch.Tensor, w_i8: torch.Tensor, s_rows: Optional[torc
                          f"{tuple(s_rows.shape)}")
     if s_x is not None and s_x.numel() != 1:
         raise ValueError(f"s_x must be one scale, got shape {tuple(s_x.shape)}")
-    if x.device.type == "cpu":
-        return _partial_plain(x, w_i8, s_rows, s_x)
-    _check_shape(w_i8)
+    return _GEMM_PARTIAL(x, w_i8, s_rows, s_x)
+
+
+def _partial_launch(x, w_i8, s_rows, s_x) -> torch.Tensor:
+    _check_kernel_operands(x, w_i8)
     n, k = w_i8.shape
     x2d = _rows_on_card(x, k)
     s = (s_x.to(torch.float32).reshape(1) if s_x is not None
@@ -352,6 +402,12 @@ def int8_gemm_partial(x: torch.Tensor, w_i8: torch.Tensor, s_rows: Optional[torc
 
 
 int8_gemm_partial.launches = 0
+
+_GEMM_PARTIAL = kernel_op(
+    "int8_gemm_partial", "(Tensor x, Tensor w_i8, Tensor? s_rows, Tensor? s_x) -> Tensor",
+    cpu=_partial_plain, cuda=_partial_launch,
+    fake=lambda x, w_i8, s_rows, s_x: _gemm_out(x, w_i8, torch.int32), flops=_gemm_flops,
+)
 
 
 # ---------------------------------------------------------------- the ops

@@ -190,7 +190,10 @@ def test_port_imports_nothing_of_jax():
                      "models.rexnet", "models.ttnet", "models.hrnet", "ops.wht",
                      "peft.intrinsic", "utils.dist", "parallel", "parallel.mesh",
                      "parallel.collectives", "parallel.train_step", "commands.train_clip",
-                     "parallel.dryrun"):
+                     "parallel.dryrun", "ops._library", "commands.export_model",
+                     "commands.model_summary", "commands.profile", "commands.debug_run",
+                     "commands.read_results", "utils.summary", "utils.scaling",
+                     "utils.profiling", "utils.xprof", "utils.submission"):
             assert "peft_vit_tpu_torch." + want in names, want
         import bench_torch, chip_smoke
         bad = sorted(
